@@ -1,0 +1,29 @@
+"""bitsandbytes_tpu_torch: the PyTorch and CUDA port of the JAX package.
+
+The port keeps the JAX package's module tree.  Plain tensor code is
+PyTorch; each TPU kernel on the ported path is a CUDA C++ kernel written for
+Hopper (``csrc/``), built with ``nvcc`` at first use.  A CUDA tensor runs
+the kernel, a CPU tensor the plain PyTorch version beside it.  Entry points
+that create tensors run on CUDA unless the caller passes ``device="cpu"``.
+
+Ported so far: NF4/FP4 quantization, the paired-layout 4-bit GEMM and
+dequantize, and flash attention over a bf16 KV cache, serving the Llama
+family through prefill and greedy decode.
+"""
+
+from . import functional, nn
+from .autograd import matmul_4bit
+from .functional import QuantState
+from .functional.gemm import gemm_4bit, gemv_4bit
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "functional",
+    "nn",
+    "matmul_4bit",
+    "gemm_4bit",
+    "gemv_4bit",
+    "QuantState",
+    "__version__",
+]

@@ -1,0 +1,203 @@
+// 4-bit GEMM and dequantize over the N-paired payload layout.
+//
+// Payload: P[n2, k] (uint8, [N/2, K]) holds weight rows 2*n2 (high nibble)
+// and 2*n2+1 (low nibble) at column k.  Scales: absmax_t[b, n] (f32,
+// [K/blocksize, N]), one per row and quantization block of `blocksize`
+// columns along K.
+//
+// gemm_4bit_paired_kernel replaces the TPU kernel gemm_4bit_paired
+// (_paired_kernel) of the JAX package's ops/pallas/gemm4bit_paired.py:
+//   out[M, N] = A[M, K] @ dequant(P)^T
+// with bf16-rounded unit codes, an f32 partial dot per lane and quant block
+// scaled by the block's f32 absmax, all sums in f32.
+// Bound on the H100 at decode M: bytes.  The payload (N*K/2 B) and absmax
+// (N*K/blocksize*4 B) dominate; A and out are small.  One warp owns one row
+// pair n2 and streams P[n2, :] with 8-byte loads along K (a warp reads 256
+// contiguous bytes per step).  A's rows are staged in shared memory in K tiles
+// (M*K*2 bytes does not fit at K = 14336) and reused by the block's 8 warps.
+// The TPU kernel carries its sum across an ordered K grid axis; here the K
+// loop runs inside the block and a warp shuffle reduces the lanes, so no
+// block order is assumed.  Each block takes 8 rows of A; larger M is a grid
+// dimension.
+//
+// dequantize_paired_kernel replaces dequantize_paired_fast
+// (_paired_dequant_kernel) of the same file:
+//   W[N, K] = bf16(unit(code) * absmax)   (the scale product in exact f32)
+// Bound: bytes (N*K/2 read, N*K*2 written).  One thread reads 8 payload
+// bytes and writes 8 bf16 values to each of rows 2*n2 and 2*n2+1, 16-byte
+// stores coalesced along K.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kGemmWarps = 8;    // row pairs per block
+constexpr int kGemmMT = 8;       // rows of A per block
+constexpr int kGemmKT = 2048;    // K columns of A staged per tile (32 KB)
+constexpr int kLaneCols = 8;     // payload bytes (columns) per lane and step
+
+template <bool kOutBf16>
+__global__ void __launch_bounds__(kGemmWarps * 32)
+gemm_4bit_paired_kernel(const __nv_bfloat16* __restrict__ A, const uint8_t* __restrict__ P,
+                        const float* __restrict__ absmax_t, void* __restrict__ out,
+                        int M, int N, int K, int blocksize, Units16 units) {
+    __shared__ float s_units[16];
+    __shared__ __align__(16) __nv_bfloat16 s_a[kGemmMT * kGemmKT];
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    if (tid < 16) s_units[tid] = units.v[tid];
+
+    const int n2 = blockIdx.x * kGemmWarps + warp;
+    const bool active = n2 < (N >> 1);
+    const int m0 = blockIdx.y * kGemmMT;
+    const int mrows = min(kGemmMT, M - m0);
+    const uint8_t* prow = P + (size_t)n2 * K;
+
+    float acc_hi[kGemmMT];
+    float acc_lo[kGemmMT];
+#pragma unroll
+    for (int m = 0; m < kGemmMT; ++m) acc_hi[m] = acc_lo[m] = 0.0f;
+
+    for (int k0 = 0; k0 < K; k0 += kGemmKT) {
+        const int kt = min(kGemmKT, K - k0);  // a multiple of 32: K % blocksize == 0, blocksize >= 32
+        __syncthreads();  // the previous tile is consumed
+        const int vecs = kt / 8;
+        for (int i = tid; i < mrows * vecs; i += kGemmWarps * 32) {
+            const int m = i / vecs;
+            const int v = i - m * vecs;
+            *reinterpret_cast<uint4*>(s_a + m * kGemmKT + v * 8) =
+                *reinterpret_cast<const uint4*>(A + (size_t)(m0 + m) * K + k0 + v * 8);
+        }
+        __syncthreads();
+        if (!active) continue;
+
+        for (int kk = lane * kLaneCols; kk < kt; kk += 32 * kLaneCols) {
+            const uint2 pb = *reinterpret_cast<const uint2*>(prow + k0 + kk);
+            const int blk = (k0 + kk) / blocksize;  // 8 columns never straddle a block
+            const float2 sc = *reinterpret_cast<const float2*>(absmax_t + (size_t)blk * N + 2 * n2);
+            float whi[kLaneCols], wlo[kLaneCols];
+#pragma unroll
+            for (int j = 0; j < kLaneCols; ++j) {
+                const uint32_t word = j < 4 ? pb.x : pb.y;
+                const uint32_t b = (word >> (8 * (j & 3))) & 0xFFu;
+                whi[j] = s_units[b >> 4];
+                wlo[j] = s_units[b & 15u];
+            }
+#pragma unroll
+            for (int m = 0; m < kGemmMT; ++m) {
+                if (m < mrows) {
+                    const uint4 a = *reinterpret_cast<const uint4*>(s_a + m * kGemmKT + kk);
+                    const float2 a0 = unpack_bf16x2(a.x), a1 = unpack_bf16x2(a.y);
+                    const float2 a2 = unpack_bf16x2(a.z), a3 = unpack_bf16x2(a.w);
+                    float shi = a0.x * whi[0];
+                    shi += a0.y * whi[1]; shi += a1.x * whi[2]; shi += a1.y * whi[3];
+                    shi += a2.x * whi[4]; shi += a2.y * whi[5]; shi += a3.x * whi[6];
+                    shi += a3.y * whi[7];
+                    float slo = a0.x * wlo[0];
+                    slo += a0.y * wlo[1]; slo += a1.x * wlo[2]; slo += a1.y * wlo[3];
+                    slo += a2.x * wlo[4]; slo += a2.y * wlo[5]; slo += a3.x * wlo[6];
+                    slo += a3.y * wlo[7];
+                    acc_hi[m] += shi * sc.x;
+                    acc_lo[m] += slo * sc.y;
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int m = 0; m < kGemmMT; ++m) {
+        acc_hi[m] = warp_sum(acc_hi[m]);
+        acc_lo[m] = warp_sum(acc_lo[m]);
+    }
+    if (active && lane == 0) {
+#pragma unroll
+        for (int m = 0; m < kGemmMT; ++m) {
+            if (m < mrows) {
+                const size_t o = (size_t)(m0 + m) * N + 2 * n2;
+                if (kOutBf16) {
+                    *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + o) =
+                        pack_bf16x2(acc_hi[m], acc_lo[m]);
+                } else {
+                    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
+                        make_float2(acc_hi[m], acc_lo[m]);
+                }
+            }
+        }
+    }
+}
+
+constexpr int kDqThreads = 256;
+
+__global__ void __launch_bounds__(kDqThreads)
+dequantize_paired_kernel(const uint8_t* __restrict__ P, const float* __restrict__ absmax_t,
+                         __nv_bfloat16* __restrict__ W, int N, int K, int blocksize,
+                         Units16 units) {
+    __shared__ float s_units[16];
+    if (threadIdx.x < 16) s_units[threadIdx.x] = units.v[threadIdx.x];
+    __syncthreads();
+
+    const long long idx = (long long)blockIdx.x * kDqThreads + threadIdx.x;
+    const int kv = K / 8;
+    if (idx >= (long long)(N >> 1) * kv) return;
+    const int n2 = (int)(idx / kv);
+    const int k = (int)(idx - (long long)n2 * kv) * 8;
+
+    const uint2 pb = *reinterpret_cast<const uint2*>(P + (size_t)n2 * K + k);
+    const float2 sc = *reinterpret_cast<const float2*>(absmax_t + (size_t)(k / blocksize) * N + 2 * n2);
+    float hi[8], lo[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const uint32_t word = j < 4 ? pb.x : pb.y;
+        const uint32_t b = (word >> (8 * (j & 3))) & 0xFFu;
+        hi[j] = s_units[b >> 4] * sc.x;
+        lo[j] = s_units[b & 15u] * sc.y;
+    }
+    uint4 vh, vl;
+    vh.x = pack_bf16x2(hi[0], hi[1]); vh.y = pack_bf16x2(hi[2], hi[3]);
+    vh.z = pack_bf16x2(hi[4], hi[5]); vh.w = pack_bf16x2(hi[6], hi[7]);
+    vl.x = pack_bf16x2(lo[0], lo[1]); vl.y = pack_bf16x2(lo[2], lo[3]);
+    vl.z = pack_bf16x2(lo[4], lo[5]); vl.w = pack_bf16x2(lo[6], lo[7]);
+    *reinterpret_cast<uint4*>(W + (size_t)(2 * n2) * K + k) = vh;
+    *reinterpret_cast<uint4*>(W + (size_t)(2 * n2 + 1) * K + k) = vl;
+}
+
+Units16 load_units(const float* units) {
+    Units16 u;
+    for (int i = 0; i < 16; ++i) u.v[i] = units[i];
+    return u;
+}
+
+}  // namespace
+
+BNB_EXPORT int bnb_gemm_4bit_paired(const void* A, const uint8_t* P, const float* absmax_t,
+                                    void* out, int M, int N, int K, int blocksize,
+                                    const float* units, int out_bf16, cudaStream_t stream) {
+    if (M <= 0 || N % 2 || blocksize < 32 || blocksize % 8 || K % blocksize)
+        return (int)cudaErrorInvalidValue;
+    const Units16 u = load_units(units);
+    const dim3 grid((N / 2 + kGemmWarps - 1) / kGemmWarps, (M + kGemmMT - 1) / kGemmMT);
+    const auto* a = static_cast<const __nv_bfloat16*>(A);
+    if (out_bf16)
+        gemm_4bit_paired_kernel<true><<<grid, kGemmWarps * 32, 0, stream>>>(
+            a, P, absmax_t, out, M, N, K, blocksize, u);
+    else
+        gemm_4bit_paired_kernel<false><<<grid, kGemmWarps * 32, 0, stream>>>(
+            a, P, absmax_t, out, M, N, K, blocksize, u);
+    return (int)cudaGetLastError();
+}
+
+BNB_EXPORT int bnb_dequantize_paired(const uint8_t* P, const float* absmax_t, void* W,
+                                     int N, int K, int blocksize, const float* units,
+                                     cudaStream_t stream) {
+    if (N % 2 || blocksize < 8 || blocksize % 8 || K % blocksize)
+        return (int)cudaErrorInvalidValue;
+    const Units16 u = load_units(units);
+    const long long total = (long long)(N / 2) * (K / 8);
+    if (total > 0) {
+        const long long grid = (total + kDqThreads - 1) / kDqThreads;
+        dequantize_paired_kernel<<<(unsigned)grid, kDqThreads, 0, stream>>>(
+            P, absmax_t, static_cast<__nv_bfloat16*>(W), N, K, blocksize, u);
+    }
+    return (int)cudaGetLastError();
+}

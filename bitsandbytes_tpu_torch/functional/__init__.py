@@ -1,0 +1,36 @@
+"""Functional API: codebooks, QuantState, 4-bit quantize/dequantize, GEMM."""
+
+from .codebooks import CODE_DTYPE, create_dynamic_map, get_4bit_code
+from .fourbit import (
+    dequantize_4bit,
+    dequantize_fp4,
+    dequantize_nf4,
+    pack_4bit,
+    quantize_4bit,
+    quantize_fp4,
+    quantize_nf4,
+    unpack_4bit,
+)
+from .gemm import gemm_4bit, gemv_4bit
+from .quant_state import QuantState
+
+# the reference's name for the codebook lookup
+get_4bit_type = get_4bit_code
+
+__all__ = [
+    "CODE_DTYPE",
+    "QuantState",
+    "create_dynamic_map",
+    "dequantize_4bit",
+    "dequantize_fp4",
+    "dequantize_nf4",
+    "gemm_4bit",
+    "gemv_4bit",
+    "get_4bit_code",
+    "get_4bit_type",
+    "pack_4bit",
+    "quantize_4bit",
+    "quantize_fp4",
+    "quantize_nf4",
+    "unpack_4bit",
+]

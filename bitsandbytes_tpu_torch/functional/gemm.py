@@ -1,0 +1,72 @@
+"""4-bit matmul entry points: gemm_4bit / gemv_4bit.
+
+Counterpart of the JAX package's ``functional/gemm.py`` for the paired
+layout.  Below :data:`LARGE_M_THRESHOLD` rows of A the decode GEMM kernel
+reads the packed weight directly; at or above it the dequantize kernel
+writes the bf16 weight once and ``torch.matmul`` runs the product, as the
+JAX package leaves the large product to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..ops.dispatch import use_kernel
+from ..ops.gemm4bit_paired import dequantize_paired_fast, gemm_4bit_paired
+from .codebooks import get_4bit_code
+from .fourbit import dequantize_4bit
+from .quant_state import QuantState
+
+__all__ = ["LARGE_M_THRESHOLD", "gemm_4bit", "gemv_4bit"]
+
+# Rows of A from which the dequantize + torch.matmul route runs instead of
+# the decode GEMM kernel.  Chosen from chip_smoke.py's sweep of both routes
+# on the gate_up [28672, 4096] and down [4096, 14336] weights (NVIDIA H100
+# 80GB HBM3, 700 W): the kernel wins at M = 16 and loses from M = 32 on,
+# since it re-reads the weight once per 8 rows of A (PERF.md).
+LARGE_M_THRESHOLD = 32
+
+
+def gemm_4bit(
+    A: torch.Tensor,
+    B_packed: torch.Tensor,
+    quant_state: QuantState,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``out = A @ dequant(B)^T (+ bias)`` with B 4-bit blockwise quantized."""
+    N, K = (int(s) for s in quant_state.shape[-2:])
+    lead = tuple(A.shape[:-1])
+    M = 1
+    for s in lead:
+        M *= s
+    if quant_state.layout != "paired":
+        if use_kernel(A, B_packed):
+            raise NotImplementedError(
+                "only the paired layout has CUDA kernels in this port; "
+                "convert with QuantizedTensor.to_layout('paired')"
+            )
+        W = dequantize_4bit(B_packed, quant_state=quant_state).to(A.dtype)
+        out = torch.matmul(A, W.t())
+    else:
+        bs = quant_state.blocksize
+        # the static quant_type, not the code tensor: no device read per call
+        code = get_4bit_code(quant_state.quant_type, bs)
+        P = B_packed.reshape(N // 2, K)
+        absmax_t = quant_state.dequant_absmax_t()
+        A2 = A.reshape(M, K).contiguous()
+        if M >= LARGE_M_THRESHOLD and A.dtype == torch.bfloat16:
+            W = dequantize_paired_fast(P, absmax_t, code, bs, torch.bfloat16)
+            out = torch.matmul(A2, W.t())
+        else:
+            out = gemm_4bit_paired(A2, P, absmax_t, code, bs, (N, K))
+        out = out.reshape(*lead, N)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def gemv_4bit(A, B_packed, quant_state: QuantState, bias=None) -> torch.Tensor:
+    """Decode-path (small M) name for :func:`gemm_4bit`; one routing serves both."""
+    return gemm_4bit(A, B_packed, quant_state, bias)

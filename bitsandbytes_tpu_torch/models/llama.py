@@ -1,0 +1,379 @@
+"""Llama-family transformer on the 4-bit serving path.
+
+Counterpart of the JAX package's ``models/llama.py`` for serving: config
+presets, random init, 4-bit quantization of the layer weights, a dense
+static-shape KV cache, and ``forward`` / ``prefill`` / ``decode_step``.
+
+Parameters are a plain dict: ``embed``, ``layers`` (a list of dicts),
+``final_norm`` and ``lm_head``.  A layer's linear weights are bf16 tensors or
+:class:`~bitsandbytes_tpu_torch.nn.QuantizedTensor` (NF4/FP4); the forward
+dispatches per weight.  Every 4-bit linear goes through
+``autograd.matmul_4bit``, and attention over the cache through the flash
+kernel (``ops/flash_cached.py``).  The lm_head stays bf16 and runs as
+``torch.matmul``.
+
+The bf16/f32 cast points are the JAX package's: RMSNorm and RoPE compute in
+f32 and cast back, SiLU runs on the f32 gate, logits come out in f32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Union
+
+import torch
+
+from .. import autograd
+from ..nn.modules import QuantizedTensor
+from ..ops.dispatch import resolve_device
+from ..ops.flash_cached import GT_MAX, flash_attention_cached
+
+__all__ = [
+    "LlamaConfig",
+    "KVCache",
+    "init_params",
+    "init_kv_cache",
+    "quantize_params_4bit",
+    "forward",
+    "prefill",
+    "decode_step",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """Architecture of the decoder stack.  Mistral sets ``sliding_window``,
+    Qwen2 ``attn_bias``, Gemma ``act="gelu"``, ``norm_plus_one`` and
+    ``scale_embed``."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    rms_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    sliding_window: Optional[int] = None
+    attn_bias: bool = False
+    act: str = "silu"
+    norm_plus_one: bool = False
+    scale_embed: bool = False
+
+    @classmethod
+    def llama3_8b(cls, num_layers: int = 32) -> "LlamaConfig":
+        return cls(num_layers=num_layers)
+
+    @classmethod
+    def llama3_70b(cls, num_layers: int = 80) -> "LlamaConfig":
+        return cls(
+            hidden_size=8192, intermediate_size=28672, num_heads=64, num_kv_heads=8,
+            num_layers=num_layers,
+        )
+
+    @classmethod
+    def llama2_7b(cls, num_layers: int = 32) -> "LlamaConfig":
+        return cls(intermediate_size=11008, num_kv_heads=32, rope_theta=10000.0, num_layers=num_layers)
+
+    @classmethod
+    def mistral_7b(cls, num_layers: int = 32) -> "LlamaConfig":
+        return cls(
+            intermediate_size=14336, num_kv_heads=8, rope_theta=10000.0, num_layers=num_layers,
+            sliding_window=4096,
+        )
+
+    @classmethod
+    def qwen2_7b(cls, num_layers: int = 28) -> "LlamaConfig":
+        return cls(
+            vocab_size=152064, hidden_size=3584, intermediate_size=18944, num_heads=28,
+            num_kv_heads=4, rope_theta=1000000.0, num_layers=num_layers, attn_bias=True,
+        )
+
+    @classmethod
+    def qwen25_32b(cls, num_layers: int = 64) -> "LlamaConfig":
+        return cls(
+            vocab_size=152064, hidden_size=5120, intermediate_size=27648, num_heads=40,
+            num_kv_heads=8, rope_theta=1000000.0, num_layers=num_layers, attn_bias=True,
+        )
+
+    @classmethod
+    def gemma_7b(cls, num_layers: int = 28) -> "LlamaConfig":
+        return cls(
+            vocab_size=256000, hidden_size=3072, intermediate_size=24576, num_heads=16,
+            num_kv_heads=16, head_dim=256, rope_theta=10000.0, num_layers=num_layers,
+            act="gelu", norm_plus_one=True, scale_embed=True,
+        )
+
+    @classmethod
+    def tiny(cls) -> "LlamaConfig":
+        return cls(
+            vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+            num_heads=4, num_kv_heads=2, head_dim=64,
+        )
+
+
+class KVCache(NamedTuple):
+    """Static-shape KV cache: ``k``/``v`` are ``[L, B, KVH, S, hd]``.
+
+    ``forward`` writes the new positions into these tensors in place and
+    returns the same cache object."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, kv_dtype="bf16", device=None) -> KVCache:
+    if kv_dtype not in ("bf16", torch.bfloat16):
+        raise NotImplementedError("only a bf16 KV cache is supported by this port yet")
+    device = resolve_device(device)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+    )
+
+
+def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None, device=None) -> dict:
+    """Random init for benchmarks and tests: normal weights scaled by
+    ``fan_in ** -0.5``, drawn from ``generator`` (a generator on ``device``;
+    seed 0 when omitted)."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    D = cfg.hidden_size
+    H, KVH, hd, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.intermediate_size
+
+    def dense(n, m):
+        w = torch.randn(n, m, dtype=torch.float32, generator=generator, device=device)
+        return (w * m**-0.5).to(cfg.dtype)
+
+    def norm():
+        fill = torch.zeros if cfg.norm_plus_one else torch.ones
+        return fill(D, dtype=cfg.dtype, device=device)
+
+    def layer():
+        out = {
+            "attn_norm": norm(),
+            "wq": dense(H * hd, D),
+            "wk": dense(KVH * hd, D),
+            "wv": dense(KVH * hd, D),
+            "wo": dense(D, H * hd),
+            "mlp_norm": norm(),
+            "gate": dense(F, D),
+            "up": dense(F, D),
+            "down": dense(D, F),
+        }
+        if cfg.attn_bias:
+            for name, n in (("wq_b", H * hd), ("wk_b", KVH * hd), ("wv_b", KVH * hd)):
+                out[name] = torch.zeros(n, dtype=cfg.dtype, device=device)
+        return out
+
+    embed = dense(cfg.vocab_size, D)
+    layers = [layer() for _ in range(cfg.num_layers)]
+    return {"embed": embed, "layers": layers, "final_norm": norm(), "lm_head": dense(cfg.vocab_size, D)}
+
+
+_LINEAR_NAMES = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+
+def quantize_params_4bit(
+    params: dict,
+    quant_type: str = "nf4",
+    blocksize: int = 64,
+    compress_statistics: bool = False,
+    quantize_lm_head: bool = False,
+    fuse: bool = False,
+) -> dict:
+    """Replace every layer linear weight with a packed 4-bit QuantizedTensor
+    (upcast to f32 first, on the weight's own device).  ``fuse=True``
+    concatenates q/k/v into ``wqkv`` and gate/up into ``gate_up`` first;
+    rows are independent quant blocks, so this is bit-identical to
+    quantizing them apart."""
+
+    def q(W):
+        return QuantizedTensor.quantize(
+            W.to(torch.float32), blocksize=blocksize, quant_type=quant_type,
+            compress_statistics=compress_statistics,
+        )
+
+    def qlayer(layer):
+        if not fuse:
+            return {k: (q(v) if k in _LINEAR_NAMES else v) for k, v in layer.items()}
+        out = {
+            "attn_norm": layer["attn_norm"],
+            "mlp_norm": layer["mlp_norm"],
+            "wqkv": q(torch.cat([layer["wq"], layer["wk"], layer["wv"]], dim=0)),
+            "wo": q(layer["wo"]),
+            "gate_up": q(torch.cat([layer["gate"], layer["up"]], dim=0)),
+            "down": q(layer["down"]),
+        }
+        if "wq_b" in layer:
+            out["wqkv_b"] = torch.cat([layer["wq_b"], layer["wk_b"], layer["wv_b"]], dim=0)
+        return out
+
+    out = dict(params)
+    out["layers"] = [qlayer(layer) for layer in params["layers"]]
+    if quantize_lm_head:
+        out["lm_head"] = q(params["lm_head"])
+    return out
+
+
+def _apply_linear(x, w):
+    if isinstance(w, QuantizedTensor):
+        return autograd.matmul_4bit(x, w.data, w.state)
+    return torch.matmul(x, w.to(x.dtype).t())
+
+
+def _rmsnorm(x, w, eps, plus_one: bool = False):
+    x32 = x.to(torch.float32)
+    rms = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    if plus_one:
+        return (x32 * rms).to(x.dtype) * (1.0 + w.to(torch.float32)).to(x.dtype)
+    return (x32 * rms).to(x.dtype) * w
+
+
+def _rope(x, positions, theta):
+    """x: [B, T, H, hd]; positions: [B, T] integer."""
+    hd = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, hd // 2, dtype=torch.float32, device=x.device) / (hd // 2))
+    angles = positions[..., None].to(torch.float32) * freqs  # [B, T, hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _attention(q, k, v, q_positions, kv_len_mask, cfg):
+    """Dense attention oracle.  q: [B, T, H, hd]; k/v: [B, S, KVH, hd];
+    kv_len_mask: [B, S] valid cache slots; q_positions: [B, T]."""
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    groups = H // cfg.num_kv_heads
+    k = torch.repeat_interleave(k, groups, dim=2)
+    v = torch.repeat_interleave(v, groups, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32), k.to(torch.float32)) * hd**-0.5
+    kv_positions = torch.arange(S, device=q.device)[None, None, None, :]
+    mask = kv_positions <= q_positions[:, None, :, None]
+    mask = mask & kv_len_mask[:, None, None, :]
+    if cfg.sliding_window is not None:
+        mask = mask & (kv_positions > q_positions[:, None, :, None] - cfg.sliding_window)
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhts,bshd->bthd", probs, v)
+    return out.reshape(B, T, H * hd)
+
+
+def _cached_attention(q, k, v, cache, li, start_pos, vector_pos, cfg):
+    """Write this step's K/V into layer ``li`` of the cache (in place), then
+    run the flash kernel over it, chunked over T so the folded rows stay
+    within ``GT_MAX``."""
+    B, T, H, hd = q.shape
+    KVH = cfg.num_kv_heads
+    G = H // KVH
+    ck, cv = cache.k[li], cache.v[li]
+    k_t = k.transpose(1, 2).to(ck.dtype)  # [B, KVH, T, hd]
+    v_t = v.transpose(1, 2).to(cv.dtype)
+    if vector_pos:
+        ar = torch.arange(B, device=q.device)
+        ck[ar, :, start_pos] = k_t[:, :, 0]
+        cv[ar, :, start_pos] = v_t[:, :, 0]
+        lengths = start_pos.to(torch.int32)
+    else:
+        ck[:, :, start_pos : start_pos + T] = k_t
+        cv[:, :, start_pos : start_pos + T] = v_t
+        lengths = torch.full((B,), start_pos + T - 1, dtype=torch.int32, device=q.device)
+    Tc_max = max(1, GT_MAX // G)
+    chunks = []
+    for off in range(0, T, Tc_max):
+        Tc = min(Tc_max, T - off)
+        qf = q[:, off : off + Tc].permute(0, 2, 1, 3).reshape(B, KVH, G * Tc, hd)
+        out = flash_attention_cached(
+            qf, ck, cv, lengths - (T - 1) + (off + Tc - 1), T=Tc, window=cfg.sliding_window
+        )
+        chunks.append(out.reshape(B, KVH, G, Tc, hd))
+    attn = torch.cat(chunks, dim=3) if len(chunks) > 1 else chunks[0]
+    return attn.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd)
+
+
+@torch.no_grad()
+def forward(
+    params: dict,
+    ids: torch.Tensor,
+    cfg: LlamaConfig,
+    cache: Optional[KVCache] = None,
+    start_pos: Union[int, torch.Tensor] = 0,
+):
+    """Run the transformer over ``ids [B, T]``.
+
+    Without a cache this is a plain causal forward from position 0.  With a
+    cache, K/V for these positions are written at ``start_pos`` (an int, or a
+    per-slot ``[B]`` tensor for decode with T == 1) and attention runs over
+    the cache.  Returns ``(logits [B, T, V] f32, cache)``."""
+    B, T = ids.shape
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = params["embed"][ids].to(cfg.dtype)
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=cfg.dtype)
+    vector_pos = isinstance(start_pos, torch.Tensor) and start_pos.dim() == 1
+    if vector_pos and T != 1:
+        raise ValueError("per-slot start_pos requires T == 1 (decode)")
+    if isinstance(start_pos, torch.Tensor) and not vector_pos:
+        start_pos = int(start_pos)
+    if vector_pos:
+        positions = start_pos.to(ids.device)[:, None]
+    else:
+        positions = (start_pos + torch.arange(T, device=ids.device))[None, :].expand(B, T)
+
+    for li, layer in enumerate(params["layers"]):
+        h = _rmsnorm(x, layer["attn_norm"], cfg.rms_eps, cfg.norm_plus_one)
+        if "wqkv" in layer:
+            qkv = _apply_linear(h, layer["wqkv"])
+            if "wqkv_b" in layer:
+                qkv = qkv + layer["wqkv_b"].to(qkv.dtype)
+            q, k, v = torch.split(qkv, [H * hd, KVH * hd, KVH * hd], dim=-1)
+        else:
+            q = _apply_linear(h, layer["wq"])
+            k = _apply_linear(h, layer["wk"])
+            v = _apply_linear(h, layer["wv"])
+            if "wq_b" in layer:
+                q = q + layer["wq_b"].to(q.dtype)
+                k = k + layer["wk_b"].to(k.dtype)
+                v = v + layer["wv_b"].to(v.dtype)
+        q = _rope(q.reshape(B, T, H, hd), positions, cfg.rope_theta)
+        k = _rope(k.reshape(B, T, KVH, hd), positions, cfg.rope_theta)
+        v = v.reshape(B, T, KVH, hd)
+
+        if cache is not None:
+            attn = _cached_attention(q, k, v, cache, li, start_pos, vector_pos, cfg)
+        else:
+            valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
+            attn = _attention(q, k, v, positions, valid, cfg)
+
+        x = x + _apply_linear(attn, layer["wo"])
+        h = _rmsnorm(x, layer["mlp_norm"], cfg.rms_eps, cfg.norm_plus_one)
+        if "gate_up" in layer:
+            gate, up = torch.chunk(_apply_linear(h, layer["gate_up"]), 2, dim=-1)
+        else:
+            gate = _apply_linear(h, layer["gate"])
+            up = _apply_linear(h, layer["up"])
+        g32 = gate.to(torch.float32)
+        act = torch.nn.functional.silu(g32) if cfg.act == "silu" else torch.nn.functional.gelu(
+            g32, approximate="tanh"
+        )
+        x = x + _apply_linear(act.to(x.dtype) * up, layer["down"])
+
+    x = _rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.norm_plus_one)
+    return _apply_linear(x, params["lm_head"]).to(torch.float32), cache
+
+
+def prefill(params, ids, cfg, cache):
+    return forward(params, ids, cfg, cache=cache, start_pos=0)
+
+
+def decode_step(params, token, cfg, cache, pos):
+    """One decode step: ``token [B]`` at position ``pos`` (an int, or a
+    per-slot ``[B]`` tensor).  Returns ``(logits [B, V], cache)``."""
+    logits, cache = forward(params, token[:, None], cfg, cache=cache, start_pos=pos)
+    return logits[:, 0], cache

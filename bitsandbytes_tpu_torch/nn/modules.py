@@ -1,0 +1,154 @@
+"""Quantized tensors and linear layers as ``torch.nn.Module``s.
+
+Counterpart of the JAX package's ``nn/modules.py`` for the 4-bit path:
+
+* :class:`QuantizedTensor`: a packed 4-bit payload with its QuantState;
+* :class:`Linear4bit` with :class:`LinearNF4` / :class:`LinearFP4`: a linear
+  layer over a frozen 4-bit weight, quantized when it is built.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from .. import autograd
+from ..functional.fourbit import dequantize_4bit, quantize_4bit
+from ..functional.quant_state import QuantState
+from ..ops.dispatch import resolve_device
+from ..ops.gemm4bit_paired import repack_2d_to_npaired, repack_npaired_to_2d
+
+__all__ = ["QuantizedTensor", "Linear4bit", "LinearNF4", "LinearFP4"]
+
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """A packed 4-bit tensor and its QuantState."""
+
+    data: torch.Tensor
+    state: QuantState
+
+    @classmethod
+    def quantize(
+        cls,
+        W: torch.Tensor,
+        blocksize: int = 64,
+        quant_type: str = "nf4",
+        compress_statistics: bool = False,
+        layout: str = "auto",
+    ) -> "QuantizedTensor":
+        """``layout="auto"`` picks the paired decode layout when the shape
+        allows it (2-D, K % blocksize == 0, even N), then ``"2d"``, then
+        ``"flat"``."""
+        if layout == "auto":
+            if W.dim() == 2 and W.shape[-1] % blocksize == 0 and W.shape[0] % 2 == 0:
+                layout = "paired"
+            elif W.dim() == 2 and W.shape[-1] % blocksize == 0 and W.shape[-1] % 2 == 0:
+                layout = "2d"
+            else:
+                layout = "flat"
+        packed, state = quantize_4bit(
+            W,
+            blocksize=blocksize,
+            quant_type=quant_type,
+            compress_statistics=compress_statistics,
+            layout=layout,
+        )
+        return cls(data=packed, state=state)
+
+    def dequantize(self) -> torch.Tensor:
+        return dequantize_4bit(self.data, quant_state=self.state)
+
+    def to_layout(self, layout: str) -> "QuantizedTensor":
+        """Relayout the payload between ``flat``/``2d`` (interop K-adjacent
+        order) and ``paired``; a byte-exact round trip.  The absmax
+        transposes with the payload."""
+        state = self.state
+        cur = state.layout
+        if cur == layout:
+            return self
+        N, K = (int(s) for s in state.shape)
+        bs = state.blocksize
+        if layout == "paired":
+            if N % 2 or K % bs:
+                raise ValueError(f"paired layout needs even N and K % {bs} == 0")
+            data = repack_2d_to_npaired(self.data.reshape(N, K // 2), (N, K))
+            absmax = state.absmax.reshape(N, K // bs).t().contiguous()
+        elif cur == "paired":
+            data = repack_npaired_to_2d(self.data.reshape(N // 2, K))
+            if layout == "flat":
+                data = data.reshape(-1, 1)
+            absmax = state.absmax.t().reshape(-1)
+        else:  # flat <-> 2d: the same bytes
+            data = self.data.reshape(N, K // 2) if layout == "2d" else self.data.reshape(-1, 1)
+            absmax = state.absmax
+        return QuantizedTensor(data=data, state=dataclasses.replace(state, absmax=absmax, layout=layout))
+
+    @property
+    def shape(self):
+        return self.state.shape
+
+    @property
+    def dtype(self):
+        return self.state.dtype
+
+
+class Linear4bit(torch.nn.Module):
+    """Linear layer over a frozen 4-bit blockwise-quantized weight ``[N, K]``.
+
+    The weight is drawn like ``torch.nn.Linear``'s (uniform, bound
+    ``1/sqrt(K)``) from ``generator`` and quantized at once; assign a
+    :class:`QuantizedTensor` to ``weight`` to load another.  The input is
+    cast to ``compute_dtype``."""
+
+    quant_type_default = "nf4"
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        bias: bool = True,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        quant_type: Optional[str] = None,
+        blocksize: int = 64,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        bound = 1.0 / math.sqrt(in_features)
+        W = torch.rand(out_features, in_features, generator=generator, device=device) * (2 * bound) - bound
+        self.in_features = in_features
+        self.out_features = out_features
+        self.compute_dtype = compute_dtype
+        self.weight = QuantizedTensor.quantize(
+            W, blocksize=blocksize, quant_type=quant_type or self.quant_type_default
+        )
+        self.bias = (
+            torch.nn.Parameter(torch.zeros(out_features, dtype=compute_dtype, device=device), requires_grad=False)
+            if bias
+            else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.matmul_4bit(
+            x.to(self.compute_dtype), self.weight.data, self.weight.state, bias=self.bias
+        )
+
+    def extra_repr(self) -> str:
+        st = self.weight.state
+        return (
+            f"in_features={self.in_features}, out_features={self.out_features}, "
+            f"quant_type={st.quant_type}, blocksize={st.blocksize}, layout={st.layout}"
+        )
+
+
+class LinearNF4(Linear4bit):
+    quant_type_default = "nf4"
+
+
+class LinearFP4(Linear4bit):
+    quant_type_default = "fp4"

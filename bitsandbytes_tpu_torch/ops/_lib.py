@@ -1,0 +1,173 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources under ``csrc/`` compile with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+runs at first use, one ``nvcc`` process per source started together, then
+one link.  It lands in ``_build/<hash of the sources>/``, which git ignores,
+so a checkout builds its kernels from its own sources alone.
+
+Every wrapper adds one to its entry in :data:`LAUNCHES` where it launches
+its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+__all__ = [
+    "LAUNCHES",
+    "reset_launch_counts",
+    "launch_counts",
+    "build",
+    "lib",
+    "check",
+    "stream",
+]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "_build")
+_SOURCES = ("quant4bit.cu", "gemm4bit_paired.cu", "flash_cached.cu")
+_HEADERS = ("common.cuh",)
+_LIBNAME = "libbnb_torch_kernels.so"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    # IEEE division and no flush-to-zero: the quantize codes must equal the
+    # JAX package's bit for bit (no --use_fast_math anywhere).
+    "-prec-div=true", "-ftz=false",
+)
+
+LAUNCHES: dict = {
+    "quantize_4bit_codes": 0,
+    "gemm_4bit_paired": 0,
+    "dequantize_paired_fast": 0,
+    "flash_attention_cached": 0,
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else shutil.which("nvcc")
+    if not cand or not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return cand
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in _SOURCES + _HEADERS:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels if this source hash has no library yet; return
+    the library's path.  Compiles each source in its own ``nvcc`` process,
+    all at once, then links them into one ``.so``."""
+    out_dir = os.path.join(_BUILD, _source_hash())
+    so = os.path.join(out_dir, _LIBNAME)
+    if os.path.exists(so):
+        return so
+    os.makedirs(_BUILD, exist_ok=True)
+    nvcc = _nvcc()
+    tmp = tempfile.mkdtemp(dir=_BUILD)
+    try:
+        procs = []
+        for name in _SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [nvcc, *_NVCC_FLAGS, "-I", _CSRC, "-c",
+                   os.path.join(_CSRC, name), "-o", obj]
+            procs.append((name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                failed.append(f"{name}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        objs = [os.path.join(tmp, n + ".o") for n in _SOURCES]
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", os.path.join(tmp, _LIBNAME), *objs]
+        res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + res.stdout)
+        os.makedirs(out_dir, exist_ok=True)
+        os.replace(os.path.join(tmp, _LIBNAME), so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return so
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+_SIGNATURES = {
+    # x, codes, absmax, n, blocksize, midpoints[15] (host), order[16] (host), identity, stream
+    "bnb_quantize_4bit_codes": [_P, _P, _P, _L, _I, _P, _P, _I, _P],
+    # A, P, absmax_t, out, M, N, K, blocksize, units[16] (host), out_bf16, stream
+    "bnb_gemm_4bit_paired": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # P, absmax_t, W, N, K, blocksize, units[16] (host), stream
+    "bnb_dequantize_paired": [_P, _P, _P, _I, _I, _I, _P, _P],
+    # q, k, v, lengths, out, B, KVH, GT, S, hd, T, window, scale, stream
+    "bnb_flash_attention_cached": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+}
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a C entry point reports a CUDA error from its launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def host_f32(values) -> ctypes.Array:
+    return (ctypes.c_float * len(values))(*[float(v) for v in values])
+
+
+def host_i32(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*[int(v) for v in values])
