@@ -6,9 +6,11 @@ Hopper (``csrc/``), built with ``nvcc`` at first use.  A CUDA tensor runs
 the kernel, a CPU tensor the plain PyTorch version beside it.  Entry points
 that create tensors run on CUDA unless the caller passes ``device="cpu"``.
 
-Ported so far: NF4/FP4 quantization, the paired-layout 4-bit GEMM and
-dequantize, and flash attention over a bf16 KV cache, serving the Llama
-family through prefill and greedy decode.
+Ported so far: NF4/FP4 quantization with an optionally double-quantized
+absmax (``compress_statistics``), blockwise 8-bit quantization, the
+paired-layout 4-bit GEMM and dequantize (also decoding a double-quantized
+absmax in the kernel), and flash attention over a bf16 KV cache, serving the
+Llama family through prefill and greedy decode.
 """
 
 from . import functional, nn

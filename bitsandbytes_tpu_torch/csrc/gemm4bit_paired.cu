@@ -26,7 +26,36 @@
 // Bound: bytes (N*K/2 read, N*K*2 written).  One thread reads 8 payload
 // bytes and writes 8 bf16 values to each of rows 2*n2 and 2*n2+1, 16-byte
 // stores coalesced along K.
+//
+// The _dq entry points replace gemm_4bit_paired_dq (_paired_kernel_dq) and
+// dequantize_paired_fast_dq (_paired_dequant_kernel_dq): the same two
+// kernels with a double-quantized absmax decoded where the scale is loaded,
+//   scale[kb, n] = fma(code2(u8_t[kb, n]), s2[(n*KB + kb) >> 8], offset)
+// u8_t [K/blocksize, N] uint8 dynamic-map codes, s2 one f32 per 256 first-
+// level blocks in flat (n-major) order, KB = K/blocksize.  code2 is the
+// dynamic map's piecewise-linear segment decode, computed once per block
+// into a 256-entry shared-memory table with a fused multiply-add, exactly as
+// the JAX package's jitted decode rounds it (dynamic_segments.py); the scale
+// is a second fused multiply-add.  So a nested state gives the bits of its
+// resolved f32 absmax, and the kernels read 1 B of scale per 64 weights
+// instead of 4 B.  The second-level index is computed per scale, so a column
+// whose blocks cross a 256-boundary (KB = 224 for Llama's down) needs no
+// precomputed planes; the TPU kernel builds those because it cannot gather.
 #include "common.cuh"
+
+constexpr int kMaxSegments = 40;
+
+// The half map's segments (functional/dynamic_segments.kernel_table): code
+// i decodes as +-fma(float(a - sub[k]), step[k], add[k]), a = |i - zero_idx|
+// in segment k (the last k with start[k] <= a).
+struct DynDecode {
+    int zero_idx;
+    int nseg;
+    int start[kMaxSegments];
+    int sub[kMaxSegments];
+    float step[kMaxSegments];
+    float add[kMaxSegments];
+};
 
 namespace {
 
@@ -35,18 +64,59 @@ constexpr int kGemmMT = 8;       // rows of A per block
 constexpr int kGemmKT = 2048;    // K columns of A staged per tile (32 KB)
 constexpr int kLaneCols = 8;     // payload bytes (columns) per lane and step
 
-template <bool kOutBf16>
+// Scales of a plain state: the f32 absmax, stored [K/blocksize, N].
+struct F32Scales {
+    static constexpr int kTable = 1;
+    const float* absmax_t;
+    int N;
+    __device__ __forceinline__ void prologue(float*, int, int) const {}
+    __device__ __forceinline__ float2 load(const float*, int blk, int n2) const {
+        return *reinterpret_cast<const float2*>(absmax_t + (size_t)blk * N + 2 * n2);
+    }
+};
+
+// Scales of a double-quantized state, decoded where they are loaded.
+struct NestedScales {
+    static constexpr int kTable = 256;
+    const uint8_t* codes_t;
+    const float* s2;
+    const float* offset;  // one float on the device: no host read per call
+    int N;
+    int KB;
+    DynDecode dec;
+    __device__ __forceinline__ void prologue(float* table, int tid, int nthreads) const {
+        for (int i = tid; i < 256; i += nthreads) {
+            const int d = i - dec.zero_idx;
+            const int a = d < 0 ? -d : d;
+            int k = 0;
+            while (k + 1 < dec.nseg && a >= dec.start[k + 1]) ++k;
+            const float v = __fmaf_rn((float)(a - dec.sub[k]), dec.step[k], dec.add[k]);
+            table[i] = d < 0 ? -v : v;
+        }
+    }
+    __device__ __forceinline__ float2 load(const float* table, int blk, int n2) const {
+        const uchar2 q = *reinterpret_cast<const uchar2*>(codes_t + (size_t)blk * N + 2 * n2);
+        const long long f = (long long)(2 * n2) * KB + blk;  // flat first-level block of row 2*n2
+        const float off = __ldg(offset);
+        return make_float2(__fmaf_rn(table[q.x], s2[f >> 8], off),
+                           __fmaf_rn(table[q.y], s2[(f + KB) >> 8], off));
+    }
+};
+
+template <bool kOutBf16, class Scales>
 __global__ void __launch_bounds__(kGemmWarps * 32)
 gemm_4bit_paired_kernel(const __nv_bfloat16* __restrict__ A, const uint8_t* __restrict__ P,
-                        const float* __restrict__ absmax_t, void* __restrict__ out,
+                        Scales scales, void* __restrict__ out,
                         int M, int N, int K, int blocksize, Units16 units) {
     __shared__ float s_units[16];
+    __shared__ float s_table[Scales::kTable];
     __shared__ __align__(16) __nv_bfloat16 s_a[kGemmMT * kGemmKT];
 
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
     if (tid < 16) s_units[tid] = units.v[tid];
+    scales.prologue(s_table, tid, kGemmWarps * 32);  // read after the first K tile's barrier
 
     const int n2 = blockIdx.x * kGemmWarps + warp;
     const bool active = n2 < (N >> 1);
@@ -75,7 +145,7 @@ gemm_4bit_paired_kernel(const __nv_bfloat16* __restrict__ A, const uint8_t* __re
         for (int kk = lane * kLaneCols; kk < kt; kk += 32 * kLaneCols) {
             const uint2 pb = *reinterpret_cast<const uint2*>(prow + k0 + kk);
             const int blk = (k0 + kk) / blocksize;  // 8 columns never straddle a block
-            const float2 sc = *reinterpret_cast<const float2*>(absmax_t + (size_t)blk * N + 2 * n2);
+            const float2 sc = scales.load(s_table, blk, n2);
             float whi[kLaneCols], wlo[kLaneCols];
 #pragma unroll
             for (int j = 0; j < kLaneCols; ++j) {
@@ -129,12 +199,15 @@ gemm_4bit_paired_kernel(const __nv_bfloat16* __restrict__ A, const uint8_t* __re
 
 constexpr int kDqThreads = 256;
 
+template <class Scales>
 __global__ void __launch_bounds__(kDqThreads)
-dequantize_paired_kernel(const uint8_t* __restrict__ P, const float* __restrict__ absmax_t,
+dequantize_paired_kernel(const uint8_t* __restrict__ P, Scales scales,
                          __nv_bfloat16* __restrict__ W, int N, int K, int blocksize,
                          Units16 units) {
     __shared__ float s_units[16];
+    __shared__ float s_table[Scales::kTable];
     if (threadIdx.x < 16) s_units[threadIdx.x] = units.v[threadIdx.x];
+    scales.prologue(s_table, threadIdx.x, kDqThreads);
     __syncthreads();
 
     const long long idx = (long long)blockIdx.x * kDqThreads + threadIdx.x;
@@ -144,7 +217,7 @@ dequantize_paired_kernel(const uint8_t* __restrict__ P, const float* __restrict_
     const int k = (int)(idx - (long long)n2 * kv) * 8;
 
     const uint2 pb = *reinterpret_cast<const uint2*>(P + (size_t)n2 * K + k);
-    const float2 sc = *reinterpret_cast<const float2*>(absmax_t + (size_t)(k / blocksize) * N + 2 * n2);
+    const float2 sc = scales.load(s_table, k / blocksize, n2);
     float hi[8], lo[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -168,36 +241,91 @@ Units16 load_units(const float* units) {
     return u;
 }
 
+bool gemm_shape_ok(int M, int N, int K, int blocksize) {
+    return M > 0 && N % 2 == 0 && blocksize >= 32 && blocksize % 8 == 0 && K % blocksize == 0;
+}
+
+bool dequant_shape_ok(int N, int K, int blocksize) {
+    return N % 2 == 0 && blocksize >= 8 && blocksize % 8 == 0 && K % blocksize == 0;
+}
+
+template <class Scales>
+int launch_gemm(const void* A, const uint8_t* P, const Scales& sc, void* out, int M, int N,
+                int K, int blocksize, const float* units, int out_bf16, cudaStream_t stream) {
+    const Units16 u = load_units(units);
+    const dim3 grid((N / 2 + kGemmWarps - 1) / kGemmWarps, (M + kGemmMT - 1) / kGemmMT);
+    const auto* a = static_cast<const __nv_bfloat16*>(A);
+    if (out_bf16)
+        gemm_4bit_paired_kernel<true, Scales><<<grid, kGemmWarps * 32, 0, stream>>>(
+            a, P, sc, out, M, N, K, blocksize, u);
+    else
+        gemm_4bit_paired_kernel<false, Scales><<<grid, kGemmWarps * 32, 0, stream>>>(
+            a, P, sc, out, M, N, K, blocksize, u);
+    return (int)cudaGetLastError();
+}
+
+template <class Scales>
+int launch_dequant(const uint8_t* P, const Scales& sc, void* W, int N, int K, int blocksize,
+                   const float* units, cudaStream_t stream) {
+    const Units16 u = load_units(units);
+    const long long total = (long long)(N / 2) * (K / 8);
+    if (total > 0) {
+        const long long grid = (total + kDqThreads - 1) / kDqThreads;
+        dequantize_paired_kernel<Scales><<<(unsigned)grid, kDqThreads, 0, stream>>>(
+            P, sc, static_cast<__nv_bfloat16*>(W), N, K, blocksize, u);
+    }
+    return (int)cudaGetLastError();
+}
+
+bool nested_scales(const uint8_t* codes_t, const float* s2, const float* offset, int N, int K,
+                   int blocksize, const DynDecode* dec, NestedScales* out) {
+    if (dec->nseg < 1 || dec->nseg > kMaxSegments) return false;
+    out->codes_t = codes_t;
+    out->s2 = s2;
+    out->offset = offset;
+    out->N = N;
+    out->KB = K / blocksize;
+    out->dec = *dec;
+    return true;
+}
+
 }  // namespace
 
 BNB_EXPORT int bnb_gemm_4bit_paired(const void* A, const uint8_t* P, const float* absmax_t,
                                     void* out, int M, int N, int K, int blocksize,
                                     const float* units, int out_bf16, cudaStream_t stream) {
-    if (M <= 0 || N % 2 || blocksize < 32 || blocksize % 8 || K % blocksize)
-        return (int)cudaErrorInvalidValue;
-    const Units16 u = load_units(units);
-    const dim3 grid((N / 2 + kGemmWarps - 1) / kGemmWarps, (M + kGemmMT - 1) / kGemmMT);
-    const auto* a = static_cast<const __nv_bfloat16*>(A);
-    if (out_bf16)
-        gemm_4bit_paired_kernel<true><<<grid, kGemmWarps * 32, 0, stream>>>(
-            a, P, absmax_t, out, M, N, K, blocksize, u);
-    else
-        gemm_4bit_paired_kernel<false><<<grid, kGemmWarps * 32, 0, stream>>>(
-            a, P, absmax_t, out, M, N, K, blocksize, u);
-    return (int)cudaGetLastError();
+    if (!gemm_shape_ok(M, N, K, blocksize)) return (int)cudaErrorInvalidValue;
+    return launch_gemm(A, P, F32Scales{absmax_t, N}, out, M, N, K, blocksize, units, out_bf16,
+                       stream);
 }
 
 BNB_EXPORT int bnb_dequantize_paired(const uint8_t* P, const float* absmax_t, void* W,
                                      int N, int K, int blocksize, const float* units,
                                      cudaStream_t stream) {
-    if (N % 2 || blocksize < 8 || blocksize % 8 || K % blocksize)
+    if (!dequant_shape_ok(N, K, blocksize)) return (int)cudaErrorInvalidValue;
+    return launch_dequant(P, F32Scales{absmax_t, N}, W, N, K, blocksize, units, stream);
+}
+
+// codes_t [K/blocksize, N] uint8, s2 [ceil(N*K/blocksize / 256)] f32 and offset [1]
+// f32 on the device; dec on the host.
+BNB_EXPORT int bnb_gemm_4bit_paired_dq(const void* A, const uint8_t* P, const uint8_t* codes_t,
+                                       const float* s2, const float* offset, void* out, int M, int N,
+                                       int K, int blocksize, const float* units,
+                                       const DynDecode* dec, int out_bf16, cudaStream_t stream) {
+    NestedScales sc;
+    if (!gemm_shape_ok(M, N, K, blocksize)
+        || !nested_scales(codes_t, s2, offset, N, K, blocksize, dec, &sc))
         return (int)cudaErrorInvalidValue;
-    const Units16 u = load_units(units);
-    const long long total = (long long)(N / 2) * (K / 8);
-    if (total > 0) {
-        const long long grid = (total + kDqThreads - 1) / kDqThreads;
-        dequantize_paired_kernel<<<(unsigned)grid, kDqThreads, 0, stream>>>(
-            P, absmax_t, static_cast<__nv_bfloat16*>(W), N, K, blocksize, u);
-    }
-    return (int)cudaGetLastError();
+    return launch_gemm(A, P, sc, out, M, N, K, blocksize, units, out_bf16, stream);
+}
+
+BNB_EXPORT int bnb_dequantize_paired_dq(const uint8_t* P, const uint8_t* codes_t, const float* s2,
+                                        const float* offset, void* W, int N, int K, int blocksize,
+                                        const float* units, const DynDecode* dec,
+                                        cudaStream_t stream) {
+    NestedScales sc;
+    if (!dequant_shape_ok(N, K, blocksize)
+        || !nested_scales(codes_t, s2, offset, N, K, blocksize, dec, &sc))
+        return (int)cudaErrorInvalidValue;
+    return launch_dequant(P, sc, W, N, K, blocksize, units, stream);
 }

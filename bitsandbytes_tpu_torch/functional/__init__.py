@@ -1,5 +1,13 @@
-"""Functional API: codebooks, QuantState, 4-bit quantize/dequantize, GEMM."""
+"""Functional API: codebooks, QuantState, 4-bit and blockwise 8-bit
+quantize/dequantize, GEMM."""
 
+from .blockwise import (
+    blockwise_absmax,
+    dequantize_blockwise,
+    dequantize_blockwise_with_code,
+    quantize_blockwise,
+    quantize_blockwise_with_code,
+)
 from .codebooks import CODE_DTYPE, create_dynamic_map, get_4bit_code
 from .fourbit import (
     dequantize_4bit,
@@ -20,8 +28,11 @@ get_4bit_type = get_4bit_code
 __all__ = [
     "CODE_DTYPE",
     "QuantState",
+    "blockwise_absmax",
     "create_dynamic_map",
     "dequantize_4bit",
+    "dequantize_blockwise",
+    "dequantize_blockwise_with_code",
     "dequantize_fp4",
     "dequantize_nf4",
     "gemm_4bit",
@@ -30,6 +41,8 @@ __all__ = [
     "get_4bit_type",
     "pack_4bit",
     "quantize_4bit",
+    "quantize_blockwise",
+    "quantize_blockwise_with_code",
     "quantize_fp4",
     "quantize_nf4",
     "unpack_4bit",

@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["CODE_DTYPE", "create_dynamic_map", "get_4bit_code"]
+__all__ = ["CODE_DTYPE", "create_dynamic_map", "get_4bit_code", "is_dynamic_map"]
 
 CODE_DTYPE = np.float32
 
@@ -113,6 +113,17 @@ def create_dynamic_map(signed: bool = True, max_exponent_bits: int = 7, total_bi
     data.extend([0.0] * (256 - len(data)))
     data.sort()  # stable sort keeps the order of -0.0 and 0.0
     return np.asarray(data, dtype=CODE_DTYPE)
+
+
+def is_dynamic_map(code) -> bool:
+    """Whether ``code`` (numpy, tensor or sequence) is the canonical signed
+    dynamic map, bit for bit.  Reads a device tensor back once: callers
+    decide it when a state is built and keep the answer."""
+    if isinstance(code, torch.Tensor):
+        code = code.detach().cpu().numpy()
+    arr = np.asarray(code, dtype=np.float32).reshape(-1)
+    dyn = create_dynamic_map()
+    return arr.shape == dyn.shape and np.array_equal(arr.view(np.uint32), dyn.view(np.uint32))
 
 
 @functools.lru_cache(maxsize=None)

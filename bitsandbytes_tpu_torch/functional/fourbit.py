@@ -14,6 +14,12 @@ codes are packed in one of three byte layouts:
 
 The input is upcast to float32 before quantizing, so bf16 weights quantize
 exactly as the JAX package quantizes them.
+
+``compress_statistics=True`` double-quantizes the absmax, as the reference's
+``bnb_4bit_use_double_quant``: its mean is subtracted and the rest quantized
+to uint8 over the dynamic map at blocksize 256 (the blockwise-8 quantize
+kernel), over the flat block order.  The paired layout stores the uint8
+codes transposed ``[K/blocksize, N]``, as it stores an f32 absmax.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from ..ops.gemm4bit_paired import pack_npaired, repack_npaired_to_2d
 from ..ops.quant4bit import quantize_4bit_codes
+from .blockwise import fixed_order_mean, quantize_blockwise
 from .codebooks import get_4bit_code
 from .quant_state import QuantState
 
@@ -64,13 +71,15 @@ def quantize_4bit(
     """Quantize ``A`` to packed 4-bit codes.  Returns ``(packed, QuantState)``.
 
     ``layout="2d"`` and ``"paired"`` need a 2-D input with
-    ``K % blocksize == 0`` (and an even N for ``"paired"``)."""
+    ``K % blocksize == 0`` (and an even N for ``"paired"``).  With
+    ``compress_statistics`` the state is nested: its offset is the absmax's
+    mean, summed in one fixed order (the CPU and the card agree bit for bit;
+    the JAX package's ``jnp.mean`` may differ by a few ulp, and then a nested
+    code near a rounding midpoint may differ by one step)."""
     if blocksize not in VALID_4BIT_BLOCKSIZES:
         raise ValueError(f"blocksize {blocksize} not in {VALID_4BIT_BLOCKSIZES}")
     if layout not in ("flat", "2d", "paired"):
         raise ValueError(f"layout must be 'flat', '2d' or 'paired', got {layout!r}")
-    if compress_statistics:
-        raise NotImplementedError("compress_statistics (double quant) is not supported by this port yet")
     if layout == "2d" and (A.dim() != 2 or A.shape[-1] % blocksize or A.shape[-1] % 2):
         raise ValueError("layout='2d' requires a 2-D input with K % blocksize == 0")
     if layout == "paired" and (A.dim() != 2 or A.shape[-1] % blocksize or A.shape[0] % 2):
@@ -81,6 +90,10 @@ def quantize_4bit(
     if n % blocksize:
         x = torch.nn.functional.pad(x, (0, blocksize - n % blocksize))
     codes, absmax = quantize_4bit_codes(x, quant_type, blocksize)
+    offset = state2 = None
+    if compress_statistics:
+        offset = fixed_order_mean(absmax)
+        absmax, state2 = quantize_blockwise(absmax - offset, blocksize=256)
 
     if layout == "paired":
         N, K = A.shape
@@ -91,7 +104,8 @@ def quantize_4bit(
         packed = pack_4bit(codes[: n + n % 2]).reshape(-1, 1)
         if layout == "2d":
             packed = packed.reshape(A.shape[0], -1)
-    state = QuantState.make(absmax, A.shape, quant_type, blocksize, A.dtype, layout=layout)
+    state = QuantState.make(absmax, A.shape, quant_type, blocksize, A.dtype, offset=offset,
+                            state2=state2, layout=layout)
     return packed, state
 
 

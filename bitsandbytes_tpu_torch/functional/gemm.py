@@ -5,6 +5,11 @@ layout.  Below :data:`LARGE_M_THRESHOLD` rows of A the decode GEMM kernel
 reads the packed weight directly; at or above it the dequantize kernel
 writes the bf16 weight once and ``torch.matmul`` runs the product, as the
 JAX package leaves the large product to XLA.
+
+A double-quantized paired state over the canonical dynamic map (nested
+blocksize 256, with an offset) runs the ``_dq`` kernels, which decode the
+uint8 absmax where they load it.  Any other nested state is decoded to an
+f32 absmax first (``QuantState.dequant_absmax_t``) and runs the plain ones.
 """
 
 from __future__ import annotations
@@ -14,7 +19,12 @@ from typing import Optional
 import torch
 
 from ..ops.dispatch import use_kernel
-from ..ops.gemm4bit_paired import dequantize_paired_fast, gemm_4bit_paired
+from ..ops.gemm4bit_paired import (
+    dequantize_paired_fast,
+    dequantize_paired_fast_dq,
+    gemm_4bit_paired,
+    gemm_4bit_paired_dq,
+)
 from .codebooks import get_4bit_code
 from .fourbit import dequantize_4bit
 from .quant_state import QuantState
@@ -54,13 +64,19 @@ def gemm_4bit(
         # the static quant_type, not the code tensor: no device read per call
         code = get_4bit_code(quant_state.quant_type, bs)
         P = B_packed.reshape(N // 2, K)
-        absmax_t = quant_state.dequant_absmax_t()
         A2 = A.reshape(M, K).contiguous()
+        # a static property of the state: no device read per call
+        if quant_state.inline_nested:
+            scales = (quant_state.absmax, quant_state.state2.absmax, quant_state.offset)
+            gemm, dequant = gemm_4bit_paired_dq, dequantize_paired_fast_dq
+        else:
+            scales = (quant_state.dequant_absmax_t(),)
+            gemm, dequant = gemm_4bit_paired, dequantize_paired_fast
         if M >= LARGE_M_THRESHOLD and A.dtype == torch.bfloat16:
-            W = dequantize_paired_fast(P, absmax_t, code, bs, torch.bfloat16)
+            W = dequant(P, *scales, code, bs, torch.bfloat16)
             out = torch.matmul(A2, W.t())
         else:
-            out = gemm_4bit_paired(A2, P, absmax_t, code, bs, (N, K))
+            out = gemm(A2, P, *scales, code, bs, (N, K))
         out = out.reshape(*lead, N)
     if bias is not None:
         out = out + bias.to(out.dtype)

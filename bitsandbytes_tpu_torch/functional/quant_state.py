@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from .codebooks import get_4bit_code
+from .dynamic_segments import dequant_nested_dynamic
 
 __all__ = ["QuantState"]
 
@@ -20,16 +21,22 @@ __all__ = ["QuantState"]
 @dataclasses.dataclass
 class QuantState:
     """Attributes:
-      absmax: per-block f32 scale, ``[nblocks]`` in the flat and 2d layouts,
+      absmax: per-block scale, ``[nblocks]`` in the flat and 2d layouts,
         stored transposed ``[K/blocksize, N]`` in the ``"paired"`` layout (the
-        kernels' orientation, so decode pays no per-call transpose).
-      code: the 16-entry codebook, float32.
+        kernels' orientation, so decode pays no per-call transpose).  float32,
+        or uint8 codes when the state is nested.
+      code: the codebook, float32 (16 entries for 4-bit types, 256 for 8-bit).
       blocksize, quant_type, dtype (the dequantized dtype), shape.
-      offset, state2: the double-quantized absmax.  The fields exist for the
-        checkpoint format, but this port does not produce or read them yet.
+      offset, state2: the double-quantized absmax (``compress_statistics``):
+        ``offset`` is the mean that was subtracted, a one-element float32
+        tensor, and ``state2`` the 8-bit state of the absmax codes (blocksize
+        256 over the flat block order).
       layout: ``"flat"`` ([(n+1)//2, 1] bytes, K-adjacent pairs, the interop
         order), ``"2d"`` (the same bytes as [N, K/2]) or ``"paired"``
         ([N/2, K], rows 2i and 2i+1 share a byte).
+      dynamic_code: ``code`` is the canonical signed dynamic map.  Decided
+        when the state is built or carried across, and kept here, so that no
+        matmul reads the code back from the device to find out.
     """
 
     absmax: torch.Tensor
@@ -41,33 +48,72 @@ class QuantState:
     offset: Optional[torch.Tensor] = None
     state2: Optional["QuantState"] = None
     layout: str = "flat"
+    dynamic_code: bool = False
 
     @property
     def nested(self) -> bool:
         return self.state2 is not None
 
-    def _require_plain(self) -> None:
-        if self.nested:
-            raise NotImplementedError("double-quantized absmax is not supported by this port yet")
+    @property
+    def inline_nested(self) -> bool:
+        """A nested state the ``_dq`` kernels decode in place: paired layout,
+        nested blocksize 256 over the canonical dynamic map, an offset."""
+        return (
+            self.nested
+            and self.layout == "paired"
+            and self.state2.blocksize == 256
+            and self.state2.dynamic_code
+            and self.offset is not None
+        )
+
+    def _nested_codes_flat(self) -> torch.Tensor:
+        codes = self.absmax
+        if self.layout == "paired":
+            codes = codes.t()  # stored [K/bs, N] -> canonical [N, K/bs]
+        return codes.reshape(-1)
 
     def dequant_absmax(self) -> torch.Tensor:
-        """f32 per-block absmax in the canonical flat block order."""
-        self._require_plain()
-        if self.layout == "paired":
-            return self.absmax.t().reshape(-1)
-        return self.absmax.reshape(-1)
+        """f32 per-block absmax in the canonical flat block order, resolving
+        a double quantization.  Over the canonical dynamic map the codes
+        decode by segment arithmetic with fused multiply-adds, as the JAX
+        package's jitted decode and the ``_dq`` kernels do; another map takes
+        the table lookup, ``code2[q] * absmax2 + offset``."""
+        if not self.nested:
+            if self.layout == "paired":
+                return self.absmax.t().reshape(-1)
+            return self.absmax.reshape(-1)
+        codes = self._nested_codes_flat()
+        st2 = self.state2
+        if st2.dynamic_code:
+            flat = torch.arange(codes.numel(), device=codes.device)
+            return dequant_nested_dynamic(codes, st2.absmax, self.offset, flat, st2.blocksize)
+        from .blockwise import dequantize_blockwise_with_code
+
+        absmax = dequantize_blockwise_with_code(codes, st2.absmax, st2.code, st2.blocksize, torch.float32)
+        return absmax + self.offset.reshape(()).to(torch.float32)
 
     def dequant_absmax_t(self) -> torch.Tensor:
         """Per-block absmax in the kernels' orientation ``[K/blocksize, N]``;
-        free for the paired layout, one transpose for the others."""
-        self._require_plain()
-        if self.layout == "paired":
+        free for a plain paired state, one decode or transpose otherwise."""
+        if not self.nested and self.layout == "paired":
             return self.absmax
         N, K = int(self.shape[-2]), int(self.shape[-1])
-        return self.absmax.reshape(N, K // self.blocksize).t().contiguous()
+        return self.dequant_absmax().reshape(N, K // self.blocksize).t().contiguous()
+
+    def resolve_nested(self) -> "QuantState":
+        """A plain copy with the double-quantized absmax decoded to float32
+        once, in each layout's own orientation; bit-identical outputs."""
+        if not self.nested:
+            return self
+        absmax = self.dequant_absmax()
+        if self.layout == "paired":
+            N, K = int(self.shape[-2]), int(self.shape[-1])
+            absmax = absmax.reshape(N, K // self.blocksize).t().contiguous()
+        return dataclasses.replace(self, absmax=absmax, offset=None, state2=None)
 
     @classmethod
-    def make(cls, absmax, shape, quant_type, blocksize, dtype, layout="flat") -> "QuantState":
+    def make(cls, absmax, shape, quant_type, blocksize, dtype, offset=None, state2=None,
+             layout="flat") -> "QuantState":
         code = torch.from_numpy(get_4bit_code(quant_type, blocksize).copy()).to(absmax.device)
         return cls(
             absmax=absmax,
@@ -76,5 +122,7 @@ class QuantState:
             quant_type=quant_type,
             dtype=dtype,
             shape=tuple(int(s) for s in shape),
+            offset=offset,
+            state2=state2,
             layout=layout,
         )

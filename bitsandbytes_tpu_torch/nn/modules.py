@@ -62,10 +62,18 @@ class QuantizedTensor:
     def dequantize(self) -> torch.Tensor:
         return dequantize_4bit(self.data, quant_state=self.state)
 
+    def resolve_nested(self) -> "QuantizedTensor":
+        """Decode a double-quantized absmax to float32 once
+        (``QuantState.resolve_nested``); bit-identical outputs.  No-op when
+        the state is not nested."""
+        if not self.state.nested:
+            return self
+        return QuantizedTensor(data=self.data, state=self.state.resolve_nested())
+
     def to_layout(self, layout: str) -> "QuantizedTensor":
         """Relayout the payload between ``flat``/``2d`` (interop K-adjacent
-        order) and ``paired``; a byte-exact round trip.  The absmax
-        transposes with the payload."""
+        order) and ``paired``; a byte-exact round trip.  The absmax (f32
+        values or uint8 nested codes alike) transposes with the payload."""
         state = self.state
         cur = state.layout
         if cur == layout:
@@ -100,7 +108,8 @@ class Linear4bit(torch.nn.Module):
     """Linear layer over a frozen 4-bit blockwise-quantized weight ``[N, K]``.
 
     The weight is drawn like ``torch.nn.Linear``'s (uniform, bound
-    ``1/sqrt(K)``) from ``generator`` and quantized at once; assign a
+    ``1/sqrt(K)``) from ``generator`` and quantized at once, its absmax
+    double-quantized when ``compress_statistics``; assign a
     :class:`QuantizedTensor` to ``weight`` to load another.  The input is
     cast to ``compute_dtype``."""
 
@@ -114,6 +123,7 @@ class Linear4bit(torch.nn.Module):
         compute_dtype: torch.dtype = torch.bfloat16,
         quant_type: Optional[str] = None,
         blocksize: int = 64,
+        compress_statistics: bool = False,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -125,7 +135,8 @@ class Linear4bit(torch.nn.Module):
         self.out_features = out_features
         self.compute_dtype = compute_dtype
         self.weight = QuantizedTensor.quantize(
-            W, blocksize=blocksize, quant_type=quant_type or self.quant_type_default
+            W, blocksize=blocksize, quant_type=quant_type or self.quant_type_default,
+            compress_statistics=compress_statistics,
         )
         self.bias = (
             torch.nn.Parameter(torch.zeros(out_features, dtype=compute_dtype, device=device), requires_grad=False)
@@ -142,7 +153,8 @@ class Linear4bit(torch.nn.Module):
         st = self.weight.state
         return (
             f"in_features={self.in_features}, out_features={self.out_features}, "
-            f"quant_type={st.quant_type}, blocksize={st.blocksize}, layout={st.layout}"
+            f"quant_type={st.quant_type}, blocksize={st.blocksize}, layout={st.layout}, "
+            f"compress_statistics={st.nested}"
         )
 
 

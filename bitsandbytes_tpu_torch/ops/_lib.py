@@ -35,7 +35,7 @@ __all__ = [
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-_SOURCES = ("quant4bit.cu", "gemm4bit_paired.cu", "flash_cached.cu")
+_SOURCES = ("quant4bit.cu", "gemm4bit_paired.cu", "flash_cached.cu", "blockwise8.cu")
 _HEADERS = ("common.cuh",)
 _LIBNAME = "libbnb_torch_kernels.so"
 _NVCC_FLAGS = (
@@ -51,6 +51,10 @@ LAUNCHES: dict = {
     "gemm_4bit_paired": 0,
     "dequantize_paired_fast": 0,
     "flash_attention_cached": 0,
+    "gemm_4bit_paired_dq": 0,
+    "dequantize_paired_fast_dq": 0,
+    "quantize_blockwise8": 0,
+    "dequantize_blockwise8": 0,
 }
 
 _lock = threading.Lock()
@@ -137,6 +141,15 @@ _SIGNATURES = {
     "bnb_dequantize_paired": [_P, _P, _P, _I, _I, _I, _P, _P],
     # q, k, v, lengths, out, B, KVH, GT, S, hd, T, window, scale, stream
     "bnb_flash_attention_cached": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # A, P, codes_t, s2, offset, out, M, N, K, blocksize, units[16] (host),
+    # decode table (host), out_bf16, stream
+    "bnb_gemm_4bit_paired_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+    # P, codes_t, s2, offset, W, N, K, blocksize, units[16] (host), decode table (host), stream
+    "bnb_dequantize_paired_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # x, u (or NULL), q, absmax, n, blocksize, tables (device), ncode, sorted, stream
+    "bnb_quantize_blockwise8": [_P, _P, _P, _P, _L, _I, _P, _I, _I, _P],
+    # q, absmax, out, n, blocksize, tables (device), out_kind, stream
+    "bnb_dequantize_blockwise8": [_P, _P, _P, _L, _I, _P, _I, _P],
 }
 
 

@@ -15,6 +15,14 @@ Two kernels, both in ``csrc/gemm4bit_paired.cu``:
 * :func:`dequantize_paired_fast` replaces ``dequantize_paired_fast``
   (``_paired_dequant_kernel``): ``W[N, K] = bf16(unit(code) * absmax)`` for the
   large-M route.  Bound by bytes (N*K/2 read, N*K*2 written); one pass.
+* :func:`gemm_4bit_paired_dq` and :func:`dequantize_paired_fast_dq` replace
+  ``gemm_4bit_paired_dq`` and ``dequantize_paired_fast_dq``: the same two
+  kernels on a double-quantized absmax, uint8 codes ``[K/blocksize, N]``
+  over the canonical dynamic map, one f32 ``s2`` per 256 first-level blocks
+  in flat order and an f32 offset, decoded where each scale is loaded as
+  ``fma(code2(u8), s2[(n*KB + kb) >> 8], offset)`` (see
+  ``functional/dynamic_segments.py``).  Bit-identical to the plain kernels
+  on the resolved f32 absmax, and 3 B lighter per 64 weights.
 
 A CPU tensor goes to the plain version of each, written to the same
 numerics; a CUDA tensor launches the kernel or raises.
@@ -22,11 +30,13 @@ numerics; a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from ..functional.dynamic_segments import dequant_nested_dynamic, dynamic_sym_table, kernel_table
 from . import _lib
 from .dispatch import use_kernel
 
@@ -40,6 +50,11 @@ __all__ = [
     "gemm_4bit_paired_plain",
     "dequantize_paired_fast",
     "dequantize_paired_fast_plain",
+    "nested_absmax_t",
+    "gemm_4bit_paired_dq",
+    "gemm_4bit_paired_dq_plain",
+    "dequantize_paired_fast_dq",
+    "dequantize_paired_fast_dq_plain",
 ]
 
 # Quant blocks per batched product in the plain GEMM: bounds its
@@ -201,4 +216,136 @@ def dequantize_paired_fast(P, absmax_t, code, blocksize: int, dtype=torch.bfloat
     )
     _lib.check(err, "dequantize_paired_fast")
     _lib.LAUNCHES["dequantize_paired_fast"] += 1
+    return W
+
+
+# -- double-quantized absmax, decoded in the kernels -------------------------
+
+
+class _DynDecode(ctypes.Structure):
+    """``DynDecode`` of ``csrc/gemm4bit_paired.cu``."""
+
+    _MAX = 40
+    _fields_ = [
+        ("zero_idx", ctypes.c_int),
+        ("nseg", ctypes.c_int),
+        ("start", ctypes.c_int * _MAX),
+        ("sub", ctypes.c_int * _MAX),
+        ("step", ctypes.c_float * _MAX),
+        ("add", ctypes.c_float * _MAX),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _dyn_decode() -> _DynDecode:
+    z, starts, subs, steps, adds = kernel_table(dynamic_sym_table())
+    d = _DynDecode()
+    d.zero_idx, d.nseg = z, len(starts)
+    for i, (st, sb, sp, ad) in enumerate(zip(starts, subs, steps, adds)):
+        d.start[i], d.sub[i], d.step[i], d.add[i] = st, sb, sp, ad
+    return d
+
+
+def nested_absmax_t(codes_t: torch.Tensor, s2: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """f32 scales ``[K/blocksize, N]`` of a double-quantized paired state, as
+    the ``_dq`` kernels decode them (the plain versions' first step)."""
+    KB, N = codes_t.shape
+    dev = codes_t.device
+    flat = torch.arange(N, device=dev)[None, :] * KB + torch.arange(KB, device=dev)[:, None]
+    return dequant_nested_dynamic(codes_t, s2, offset, flat)
+
+
+def _check_nested(codes_t, s2, offset, N: int, K: int, blocksize: int) -> None:
+    KB = K // blocksize
+    if codes_t.dtype != torch.uint8 or tuple(codes_t.shape) != (KB, N) or not codes_t.is_contiguous():
+        raise ValueError(f"codes_t must be a contiguous uint8 [{KB}, {N}] tensor")
+    nb2 = -(-N * KB // 256)
+    if s2.dtype != torch.float32 or s2.numel() != nb2 or not s2.is_contiguous():
+        raise ValueError(f"s2 must be a contiguous float32 tensor of {nb2} scales")
+    if offset.dtype != torch.float32 or offset.numel() != 1:
+        raise ValueError("offset must be one float32 value")
+
+
+def gemm_4bit_paired_dq_plain(A2, P, codes_t, s2, offset, units, blocksize: int) -> torch.Tensor:
+    return gemm_4bit_paired_plain(A2, P, nested_absmax_t(codes_t, s2, offset), units, blocksize)
+
+
+def gemm_4bit_paired_dq(
+    A: torch.Tensor,
+    P: torch.Tensor,
+    codes_t: torch.Tensor,
+    s2: torch.Tensor,
+    offset: torch.Tensor,
+    code,
+    blocksize: int,
+    shapeB: tuple,
+    out_dtype=None,
+) -> torch.Tensor:
+    """:func:`gemm_4bit_paired` with the absmax double-quantized: ``codes_t
+    [K/blocksize, N]`` uint8 over the canonical dynamic map, ``s2`` one f32
+    per 256 flat first-level blocks, ``offset`` one f32 (a device tensor:
+    the kernel reads it, the host never does)."""
+    N, K = (int(s) for s in shapeB)
+    if N % 2 or blocksize < 32 or K % blocksize or A.shape[-1] != K:
+        raise ValueError(f"unsupported shape: A {tuple(A.shape)}, B {(N, K)}, blocksize {blocksize}")
+    if P.dtype != torch.uint8 or tuple(P.shape) != (N // 2, K) or not P.is_contiguous():
+        raise ValueError(f"P must be a contiguous uint8 [{N // 2}, {K}] tensor")
+    _check_nested(codes_t, s2, offset, N, K, blocksize)
+    lead = tuple(A.shape[:-1])
+    M = 1
+    for s in lead:
+        M *= s
+    out_dtype = out_dtype or A.dtype
+    units = _units(_code_tuple(code))
+    if not use_kernel(A, P, codes_t, s2, offset):
+        out = gemm_4bit_paired_dq_plain(A.reshape(M, K), P, codes_t, s2, offset, units, blocksize)
+        return out.to(out_dtype).reshape(*lead, N)
+    if A.dtype != torch.bfloat16 or not A.is_contiguous():
+        raise ValueError("the CUDA kernel takes a contiguous bf16 A")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA kernel writes bf16 or float32, not {out_dtype}")
+    if M == 0:
+        return torch.empty(*lead, N, dtype=out_dtype, device=A.device)
+    _check_aligned(A, P, codes_t)
+    out = torch.empty(M, N, dtype=out_dtype, device=A.device)
+    dec = _dyn_decode()
+    err = _lib.lib().bnb_gemm_4bit_paired_dq(
+        A.data_ptr(), P.data_ptr(), codes_t.data_ptr(), s2.data_ptr(), offset.data_ptr(),
+        out.data_ptr(), M, N, K, blocksize, _lib.host_f32(units), ctypes.addressof(dec),
+        int(out_dtype == torch.bfloat16), _lib.stream(A),
+    )
+    _lib.check(err, "gemm_4bit_paired_dq")
+    _lib.LAUNCHES["gemm_4bit_paired_dq"] += 1
+    return out.reshape(*lead, N)
+
+
+def dequantize_paired_fast_dq_plain(P, codes_t, s2, offset, units, blocksize: int, dtype) -> torch.Tensor:
+    return dequantize_paired_fast_plain(P, nested_absmax_t(codes_t, s2, offset), units, blocksize, dtype)
+
+
+def dequantize_paired_fast_dq(P, codes_t, s2, offset, code, blocksize: int,
+                              dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`dequantize_paired_fast` with the absmax double-quantized (the
+    arguments of :func:`gemm_4bit_paired_dq`)."""
+    N2, K = P.shape
+    N = 2 * N2
+    if blocksize < 8 or K % blocksize:
+        raise ValueError(f"unsupported shape: B {(N, K)}, blocksize {blocksize}")
+    if P.dtype != torch.uint8 or not P.is_contiguous():
+        raise ValueError("P must be a contiguous uint8 tensor")
+    _check_nested(codes_t, s2, offset, N, K, blocksize)
+    units = _units(_code_tuple(code))
+    if not use_kernel(P, codes_t, s2, offset):
+        return dequantize_paired_fast_dq_plain(P, codes_t, s2, offset, units, blocksize, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError("the CUDA kernel writes bf16")
+    _check_aligned(P, codes_t)
+    W = torch.empty(N, K, dtype=torch.bfloat16, device=P.device)
+    dec = _dyn_decode()
+    err = _lib.lib().bnb_dequantize_paired_dq(
+        P.data_ptr(), codes_t.data_ptr(), s2.data_ptr(), offset.data_ptr(), W.data_ptr(),
+        N, K, blocksize, _lib.host_f32(units), ctypes.addressof(dec), _lib.stream(P),
+    )
+    _lib.check(err, "dequantize_paired_fast_dq")
+    _lib.LAUNCHES["dequantize_paired_fast_dq"] += 1
     return W

@@ -10,15 +10,20 @@ Phases (every one asserts; any failure exits non-zero before the result):
 1. Device: the card's name and power limit (nvidia-smi), TF32 off.
 2. Build: compiles the CUDA kernels from ``bitsandbytes_tpu_torch/csrc``.
 3. Kernels against their plain PyTorch versions on the card, at the serving
-   path's shapes (Llama-3-8B geometry), with times, bytes and bounds; then
-   the sweep that chose ``functional/gemm.LARGE_M_THRESHOLD``.
-4. The serving path at full width: Llama-3-8B, all 32 layers, random
-   weights from a seed, quantized to NF4 on the card, 8 requests of
-   128-token prompts, one prefill and 32 greedy decode steps.  The kernels'
-   launch counts are zeroed just before and read just after.
-5. The same path at 2 layers on the card and on the CPU (plain versions):
-   equal quantized bytes, logits within tolerance, top-5 containment.
-6. One JSON line describing every ported kernel, then the result line.
+   paths' shapes (Llama-3-8B geometry), with times, bytes and bounds; the
+   sweep that chose ``functional/gemm.LARGE_M_THRESHOLD``; ragged shapes.
+4. The serving paths at full width: Llama-3-8B, all 32 layers, random
+   weights from a seed, quantized on the card, 8 requests of 128-token
+   prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
+   then with the absmax double-quantized, ``compress_statistics=True``
+   (4b); then the blockwise 8-bit round trip of an lm_head-sized tensor
+   with ``nested=True`` (4c).  The kernels' launch counts are zeroed just
+   before each path and read just after it.
+5. Both serving paths at 2 layers on the card and on the CPU (plain
+   versions): equal quantized bytes, logits within tolerance, top-5
+   containment.
+6. The card's name and power limit once more, one JSON line describing
+   every ported kernel, then the result line.
 
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -50,6 +55,16 @@ TPU_KERNELS = {
     "flash_attention_cached": (
         "bitsandbytes_tpu/ops/pallas/flash_cached.py:482",
         "bitsandbytes_tpu_torch/csrc/flash_cached.cu"),
+    "gemm_4bit_paired_dq": (
+        "bitsandbytes_tpu/ops/pallas/gemm4bit_paired.py:634",
+        "bitsandbytes_tpu_torch/csrc/gemm4bit_paired.cu"),
+    "dequantize_paired_fast_dq": (
+        "bitsandbytes_tpu/ops/pallas/gemm4bit_paired.py:915",
+        "bitsandbytes_tpu_torch/csrc/gemm4bit_paired.cu"),
+    "quantize_blockwise8": (
+        "bitsandbytes_tpu/ops/pallas/blockwise8.py:145", "bitsandbytes_tpu_torch/csrc/blockwise8.cu"),
+    "dequantize_blockwise8": (
+        "bitsandbytes_tpu/ops/pallas/blockwise8.py:124", "bitsandbytes_tpu_torch/csrc/blockwise8.cu"),
 }
 
 # Llama-3-8B decode linears (N, K) after fusing q/k/v and gate/up
@@ -74,11 +89,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+    from bitsandbytes_tpu_torch.functional import blockwise as FB
     from bitsandbytes_tpu_torch.functional import gemm as G
-    from bitsandbytes_tpu_torch.functional.codebooks import get_4bit_code
+    from bitsandbytes_tpu_torch.functional.codebooks import create_dynamic_map, get_4bit_code
     from bitsandbytes_tpu_torch.models import llama as L
     from bitsandbytes_tpu_torch.nn.modules import QuantizedTensor
     from bitsandbytes_tpu_torch.ops import build, launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.ops.blockwise8 import (
+        dequantize_blockwise8,
+        dequantize_blockwise8_plain,
+        quantize_blockwise8,
+        quantize_blockwise8_plain,
+    )
     from bitsandbytes_tpu_torch.ops.flash_cached import (
         flash_attention_cached,
         flash_attention_cached_plain,
@@ -87,8 +109,12 @@ def main() -> int:
         _units,
         _code_tuple,
         dequantize_paired_fast,
+        dequantize_paired_fast_dq,
+        dequantize_paired_fast_dq_plain,
         dequantize_paired_fast_plain,
         gemm_4bit_paired,
+        gemm_4bit_paired_dq,
+        gemm_4bit_paired_dq_plain,
         gemm_4bit_paired_plain,
     )
     from bitsandbytes_tpu_torch.ops.quant4bit import quantize_4bit_codes, quantize_4bit_codes_plain
@@ -298,103 +324,307 @@ def main() -> int:
         cases.append(f"flash B{Bx} KVH{H} G{Gx} T{T} S{Sx} window{win}")
     emit("ragged_shapes", passed=cases)
 
-    # -- 4. the serving path at full width --------------------------------
+    # -- 3f. kernels 5/6 (nested absmax) and 12/13 (blockwise 8-bit) -------
+    dyn = create_dynamic_map()
+    dyn_t = tuple(float(v) for v in dyn)
+    nested = {}
+    for name, (N, K) in LINEARS.items():
+        Wf = torch.randn(N, K, generator=gen, device=dev) * K**-0.5
+        nested[name] = QuantizedTensor.quantize(Wf, blocksize=bs, compress_statistics=True)
+        assert nested[name].state.inline_nested
+        del Wf
+    M = 8
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "k2": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
+    per_shape = []
+    for name, (N, K) in LINEARS.items():
+        qt = nested[name]
+        st = qt.state
+        args = (qt.data, st.absmax, st.state2.absmax, st.offset)
+        A = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        out = gemm_4bit_paired_dq(A, *args, code, bs, (N, K), out_dtype=torch.float32)
+        ref = gemm_4bit_paired_dq_plain(A, *args, units, bs)
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-3, f"gemm_dq {name}: rel err {rel}"
+        am_t = st.dequant_absmax_t()  # the resolved f32 scales: kernel 2 must give the same bits
+        assert torch.equal(out, gemm_4bit_paired(A, qt.data, am_t, code, bs, (N, K), out_dtype=torch.float32)), \
+            f"gemm_dq {name}: differs from kernel 2 on the resolved absmax"
+        Wb = dequantize_paired_fast_dq_plain(*args, units, bs, torch.bfloat16)
+        ms = cuda_time(lambda: gemm_4bit_paired_dq(A, *args, code, bs, (N, K)), flush_l2=True)["median"]
+        k2 = cuda_time(lambda: gemm_4bit_paired(A, qt.data, am_t, code, bs, (N, K)), flush_l2=True)["median"]
+        pms = cuda_time(lambda: gemm_4bit_paired_dq_plain(A, *args, units, bs), n=5)["median"]
+        lms = cuda_time(lambda: torch.matmul(A, Wb.t()), flush_l2=True)["median"]
+        nb2 = st.state2.absmax.numel()
+        nbytes = M * K * 2 + N * K // 2 + (K // bs) * N + nb2 * 4 + 4 + M * N * 2
+        per_shape.append({"linear": name, "N": N, "K": K, "M": M, "ms": ms, "kernel2_resolved_ms": k2,
+                          "plain_ms": pms, "library_ms": lms, "bytes": nbytes,
+                          "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0], "rel_err": rel})
+        for key, v in (("ms", ms), ("plain", pms), ("lib", lms), ("k2", k2), ("bytes", nbytes),
+                       ("ops", 2 * M * N * K)):
+            tot[key] += v
+        tot["err"] = max(tot["err"], (out - ref).abs().max().item())
+        del Wb, am_t
+    entry("gemm_4bit_paired_dq", tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"],
+          PEAK_BF16_FLOPS, tot["err"], per_shape=per_shape, kernel2_resolved_ms=tot["k2"],
+          note="sum over one layer's 4 nested linears at M=8; kernel2_resolved_ms is kernel 2 on "
+               "the same weights with the absmax decoded to f32, timed in the same run")
+
+    N, K = LINEARS["gate_up"]
+    qt = nested["gate_up"]
+    st = qt.state
+    args = (qt.data, st.absmax, st.state2.absmax, st.offset)
+    Wk = dequantize_paired_fast_dq(*args, code, bs)
+    Wp = dequantize_paired_fast_dq_plain(*args, units, bs, torch.bfloat16)
+    assert torch.equal(Wk.view(torch.int16), Wp.view(torch.int16)), "dequantize_dq differs"
+    del Wk, Wp
+    k3 = cuda_time(lambda: dequantize_paired_fast(qt.data, st.dequant_absmax_t(), code, bs),
+                   flush_l2=True)["median"]
+    entry(
+        "dequantize_paired_fast_dq",
+        cuda_time(lambda: dequantize_paired_fast_dq(*args, code, bs), flush_l2=True)["median"],
+        cuda_time(lambda: dequantize_paired_fast_dq_plain(*args, units, bs, torch.bfloat16), n=5)["median"],
+        None, N * K // 2 + (K // bs) * N + st.state2.absmax.numel() * 4 + 4 + N * K * 2, N * K,
+        PEAK_F32_FLOPS, 0.0, shape=[N, K],
+        kernel3_with_decode_ms=k3,
+        note="kernel3_with_decode_ms: the nested absmax decoded by plain PyTorch ops, then kernel 3",
+    )
+
+    # kernel 13 at load: the nested absmax of gate_up (offset removed, blocksize 256)
+    am = st.dequant_absmax()  # stands for the first-level absmax; only its shape and spread matter
+    xa = (am - am.mean()).contiguous()
+    qk, ak = quantize_blockwise8(xa, dyn, 256)
+    qp, ap_ = quantize_blockwise8_plain(xa, dyn_t, 256)
+    assert torch.equal(qk, qp) and torch.equal(ak, ap_), "quantize_blockwise8 differs (nested absmax)"
+    n_a = xa.numel()
+    q13 = {"shape": [n_a], "blocksize": 256,
+           "ms": cuda_time(lambda: quantize_blockwise8(xa, dyn, 256), flush_l2=True)["median"],
+           "plain_ms": cuda_time(lambda: quantize_blockwise8_plain(xa, dyn_t, 256), n=5)["median"],
+           "bytes": n_a * 5 + n_a // 256 * 4}
+    d12 = {"shape": [n_a], "blocksize": 256, "dtype": "float32",
+           "ms": cuda_time(lambda: dequantize_blockwise8(qk, ak, dyn, 256), flush_l2=True)["median"],
+           "plain_ms": cuda_time(lambda: dequantize_blockwise8_plain(qk, ak, dyn_t, 256, torch.float32),
+                                 n=5)["median"],
+           "bytes": n_a * 5 + n_a // 256 * 4}
+    assert torch.equal(dequantize_blockwise8(qk, ak, dyn, 256),
+                       dequantize_blockwise8_plain(qk, ak, dyn_t, 256, torch.float32)), "dequantize_blockwise8 differs"
+    del nested, xa, am, qk, ak, qp, ap_
+    torch.cuda.empty_cache()
+
+    # kernels 12 and 13 on an lm_head-sized tensor [32000, 4096], blocksize 4096
+    xl = torch.randn(32000 * 4096, generator=gen, device=dev)
+    qk, ak = quantize_blockwise8(xl, dyn, 4096)
+    qp, ap_ = quantize_blockwise8_plain(xl, dyn_t, 4096)
+    assert torch.equal(qk, qp) and torch.equal(ak, ap_), "quantize_blockwise8 differs (lm_head)"
+    del qp, ap_
+    n_l = xl.numel()
+    entry("quantize_blockwise8",
+          q13["ms"], q13["plain_ms"], None, q13["bytes"], 16 * n_a, PEAK_F32_FLOPS, 0.0, **{
+              "shape": q13["shape"], "blocksize": 256,
+              "note": "the nested absmax of gate_up, as the double-quantized load quantizes it",
+              "lm_head": {"shape": [32000, 4096], "blocksize": 4096,
+                          "ms": cuda_time(lambda: quantize_blockwise8(xl, dyn, 4096), flush_l2=True)["median"],
+                          "plain_ms": cuda_time(lambda: quantize_blockwise8_plain(xl, dyn_t, 4096), n=3)["median"],
+                          "bytes": n_l * 5 + n_l // 4096 * 4,
+                          "bound_ms": bound_ms(n_l * 5 + n_l // 4096 * 4, 16 * n_l, PEAK_F32_FLOPS)[0]}})
+    dk = dequantize_blockwise8(qk, ak, dyn, 4096, torch.bfloat16)
+    dp = dequantize_blockwise8_plain(qk, ak, dyn_t, 4096, torch.bfloat16)
+    assert torch.equal(dk.view(torch.int16), dp.view(torch.int16)), "dequantize_blockwise8 differs (lm_head)"
+    del dk, dp
+    entry("dequantize_blockwise8",
+          cuda_time(lambda: dequantize_blockwise8(qk, ak, dyn, 4096, torch.bfloat16), flush_l2=True)["median"],
+          cuda_time(lambda: dequantize_blockwise8_plain(qk, ak, dyn_t, 4096, torch.bfloat16), n=3)["median"],
+          None, n_l + n_l // 4096 * 4 + n_l * 2, n_l, PEAK_F32_FLOPS, 0.0,
+          shape=[32000, 4096], blocksize=4096, dtype="bfloat16",
+          note="the lm_head-sized round trip of phase 4c", nested_absmax=d12)
+    del xl, qk, ak
+    torch.cuda.empty_cache()
+
+    # -- 3g. ragged shapes of the new kernels -------------------------------
+    cases = []
+    # (1, 64, 768, 32) and Llama's down (K/bs = 224) straddle 256-block boundaries within a column
+    for Mx, N, K, gbs in ((1, 64, 768, 32), (3, 18, 96, 32), (13, 130, 4160, 64), (31, 256, 2176, 128),
+                          (5, 64, 8192, 4096), (2, 4096, 14336, 64)):
+        qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev), blocksize=gbs,
+                                      compress_statistics=True)
+        st = qw.state
+        args = (qw.data, st.absmax, st.state2.absmax, st.offset)
+        A = torch.randn(Mx, K, generator=gen, device=dev).to(torch.bfloat16)
+        out = gemm_4bit_paired_dq(A, *args, code, gbs, (N, K), out_dtype=torch.float32)
+        ref = gemm_4bit_paired_dq_plain(A, *args, units, gbs)
+        assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-3, f"gemm_dq {(Mx, N, K, gbs)}"
+        assert torch.equal(out, gemm_4bit_paired(A, qw.data, st.dequant_absmax_t(), code, gbs, (N, K),
+                                                 out_dtype=torch.float32)), f"gemm_dq vs resolved {(Mx, N, K, gbs)}"
+        Wk = dequantize_paired_fast_dq(*args, code, gbs)
+        assert torch.equal(Wk, dequantize_paired_fast_dq_plain(*args, units, gbs, torch.bfloat16)), (N, K, gbs)
+        cases.append(f"gemm_dq+dequant_dq M{Mx} N{N} K{K} bs{gbs}")
+    for bbs in (32, 64, 128, 256, 512, 1024, 2048, 4096):
+        n = 5 * bbs + bbs // 2 + 3  # a partial last block, padded by the functional layer
+        xb = torch.randn(n, generator=gen, device=dev)
+        xb[bbs : 2 * bbs] = 0.0  # a zero block
+        padded = torch.nn.functional.pad(xb, (0, 6 * bbs - n))
+        u = torch.rand(padded.numel(), generator=gen, device=dev)
+        for uu in (None, u):
+            qk, ak = quantize_blockwise8(padded, dyn, bbs, uu)
+            qp, ap_ = quantize_blockwise8_plain(padded, dyn_t, bbs, uu)
+            assert torch.equal(qk, qp) and torch.equal(ak, ap_), f"quantize_blockwise8 bs{bbs} u={uu is not None}"
+            assert (qk[bbs : 2 * bbs] == 0).all(), "a zero block ranks 0"
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            assert torch.equal(dequantize_blockwise8(qk, ak, dyn, bbs, dt),
+                               dequantize_blockwise8_plain(qk, ak, dyn_t, bbs, dt)), f"dequantize_blockwise8 {bbs} {dt}"
+        qf, sf = FB.quantize_blockwise(xb, blocksize=bbs, nested=True)
+        assert qf.shape == xb.shape and torch.isfinite(FB.dequantize_blockwise(qf, sf)).all()
+        cases.append(f"blockwise8 bs{bbs} n{n} zero-block stochastic f32/bf16/f16")
+    emit("ragged_shapes_nested", passed=cases)
+
+    # -- 4. the serving paths at full width -------------------------------
     steps, prompt, batch, max_len = 32, 128, 8, 1024
     assert batch * prompt >= G.LARGE_M_THRESHOLD > batch, "prefill must take the dequant route, decode the GEMM"
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
-
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    for i in range(cfg.num_layers):  # frees each layer's bf16 weights as it goes
-        params["layers"][i] = L.quantize_params_4bit({"layers": [params["layers"][i]]}, fuse=True)["layers"][0]
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    cache = L.init_kv_cache(cfg, batch, max_len, device=dev)
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = L.prefill(params, ids, cfg, cache)
-    tok = logits[:, -1].argmax(-1)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    assert logits.shape == (batch, prompt, cfg.vocab_size) and torch.isfinite(logits).all()
-
-    step_ms, tokens = [], [tok]
-    for s in range(steps):
-        t0 = time.perf_counter()
-        logits, cache = L.decode_step(params, tok, cfg, cache, prompt + s)
-        tok = logits.argmax(-1)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        tokens.append(tok)
-    counts = launch_counts()
-    assert logits.shape == (batch, cfg.vocab_size) and torch.isfinite(logits).all()
-    toks = torch.stack(tokens, 1)
-    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
-
     Lyr = cfg.num_layers
-    expected = {
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_dev_us(e):  # named self_cuda_time_total before torch 2.4
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    def serve(tag, compress, expected):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(cfg.num_layers):  # frees each layer's bf16 weights as it goes
+            params["layers"][i] = L.quantize_params_4bit(
+                {"layers": [params["layers"][i]]}, fuse=True, compress_statistics=compress)["layers"][0]
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        init_peak = torch.cuda.max_memory_allocated()  # the bf16 weights before quantizing
+        resident = torch.cuda.memory_allocated()  # the quantized model
+        torch.cuda.reset_peak_memory_stats()
+        cache = L.init_kv_cache(cfg, batch, max_len, device=dev)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = L.prefill(params, ids, cfg, cache)
+        tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        assert logits.shape == (batch, prompt, cfg.vocab_size) and torch.isfinite(logits).all()
+
+        step_ms, tokens = [], [tok]
+        for s in range(steps):
+            t0 = time.perf_counter()
+            logits, cache = L.decode_step(params, tok, cfg, cache, prompt + s)
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            tokens.append(tok)
+        counts = launch_counts()
+        assert logits.shape == (batch, cfg.vocab_size) and torch.isfinite(logits).all()
+        toks = torch.stack(tokens, 1)
+        assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+        want = {k: 0 for k in counts}
+        want.update(expected)
+        assert counts == want, f"{tag}: launch counts {counts} != {want}"
+
+        # device busy share over 4 more decode steps (after the counts are read)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for s in range(4):
+                logits, cache = L.decode_step(params, tok, cfg, cache, prompt + steps + s)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only (kernels, memcpy, memset): an operator's own
+        # entry repeats the time of the kernels it launched
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev_us(e) > 0]
+        dev_us = sum(self_dev_us(e) for e in events)
+        top = sorted(((e.key, self_dev_us(e) / 4e3, e.count // 4) for e in events), key=lambda r: -r[1])[:8]
+
+        med = statistics.median(step_ms)
+        scale_bytes = (lambda N, K: (K // bs) * N + -(-N * (K // bs) // 256) * 4 + 4) if compress else \
+            (lambda N, K: (K // bs) * N * 4)
+        wbytes = Lyr * sum(N * K // 2 + scale_bytes(N, K) for N, K in LINEARS.values())
+        head_bytes = cfg.vocab_size * cfg.hidden_size * 2
+        kv_bytes = Lyr * 2 * batch * KVH * hd * 2 * (prompt + steps // 2)
+        step_bytes = wbytes + head_bytes + kv_bytes
+        emit(
+            tag, config="llama3_8b", compress_statistics=compress, layers=Lyr, batch=batch, prompt=prompt,
+            steps=steps, init_s=init_s, load_s=load_s, prefill_ms=prefill_ms,
+            decode_ms={"median": med, "min": min(step_ms), "max": max(step_ms), "n": steps},
+            tok_s=batch / (med * 1e-3), step_bytes=step_bytes,
+            step_bound_ms_canary=step_bytes / canary_bs * 1e3,
+            step_bound_ms_peak=step_bytes / PEAK_BYTES_S * 1e3,
+            max_memory_allocated=max(init_peak, torch.cuda.max_memory_allocated()),
+            resident_after_load=resident, serving_peak_memory=torch.cuda.max_memory_allocated(),
+            launches=counts,
+            profiled_decode={"steps": 4, "wall_ms_per_step": prof_wall_ms / 4,
+                             "device_ms_per_step": dev_us / 4e3,
+                             "device_busy_share": dev_us / 1e3 / prof_wall_ms,
+                             "top_kernels_ms_per_step": top},
+            first_tokens=toks[0, :8].tolist(),
+        )
+        del params, cache, logits
+        torch.cuda.empty_cache()
+        return counts
+
+    # 4a. NF4
+    counts = serve("serve", False, {
         "quantize_4bit_codes": 4 * Lyr,
         "dequantize_paired_fast": 4 * Lyr,
         "gemm_4bit_paired": 4 * Lyr * steps,
         "flash_attention_cached": Lyr * (steps + 1),
-    }
-    assert counts == expected, f"launch counts {counts} != {expected}"
-    for name in report:
+    })
+    for name in ("quantize_4bit_codes", "gemm_4bit_paired", "dequantize_paired_fast", "flash_attention_cached"):
         report[name]["launches"] = counts[name]
 
-    # device busy share over 4 more decode steps (after the counts are read)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # 4b. NF4 with the absmax double-quantized: the _dq kernels, never kernels 2/3
+    counts = serve("serve_nested", True, {
+        "quantize_4bit_codes": 4 * Lyr,
+        "quantize_blockwise8": 4 * Lyr,
+        "dequantize_paired_fast_dq": 4 * Lyr,
+        "gemm_4bit_paired_dq": 4 * Lyr * steps,
+        "flash_attention_cached": Lyr * (steps + 1),
+    })
+    for name in ("gemm_4bit_paired_dq", "dequantize_paired_fast_dq", "quantize_blockwise8"):
+        report[name]["launches"] = counts[name]
 
+    # 4c. the blockwise 8-bit round trip, nested, of an lm_head-sized tensor
+    xl = torch.randn(32000, 4096, generator=gen, device=dev)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for s in range(4):
-            logits, cache = L.decode_step(params, tok, cfg, cache, prompt + steps + s)
-            tok = logits.argmax(-1)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    def self_dev_us(e):  # named self_cuda_time_total before torch 2.4
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    # device-side events only (kernels, memcpy, memset): an operator's own
-    # entry repeats the time of the kernels it launched
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev_us(e) > 0]
-    dev_us = sum(self_dev_us(e) for e in events)
-    top = sorted(((e.key, self_dev_us(e) / 4e3, e.count // 4) for e in events), key=lambda r: -r[1])[:8]
-
-    med = statistics.median(step_ms)
-    wbytes = Lyr * sum(N * K // 2 + (K // bs) * N * 4 for N, K in LINEARS.values())
-    head_bytes = cfg.vocab_size * cfg.hidden_size * 2
-    kv_bytes = Lyr * 2 * batch * KVH * hd * 2 * (prompt + steps // 2)
-    step_bytes = wbytes + head_bytes + kv_bytes
-    emit(
-        "serve", config="llama3_8b", layers=Lyr, batch=batch, prompt=prompt, steps=steps,
-        init_s=init_s, load_s=load_s, prefill_ms=prefill_ms,
-        decode_ms={"median": med, "min": min(step_ms), "max": max(step_ms), "n": steps},
-        tok_s=batch / (med * 1e-3), step_bytes=step_bytes,
-        step_bound_ms_canary=step_bytes / canary_bs * 1e3,
-        step_bound_ms_peak=step_bytes / PEAK_BYTES_S * 1e3,
-        max_memory_allocated=torch.cuda.max_memory_allocated(), launches=counts,
-        profiled_decode={"steps": 4, "wall_ms_per_step": prof_wall_ms / 4,
-                         "device_ms_per_step": dev_us / 4e3,
-                         "device_busy_share": dev_us / 1e3 / prof_wall_ms,
-                         "top_kernels_ms_per_step": top},
-        first_tokens=toks[0, :8].tolist(),
-    )
-    del params, cache, logits
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    q8, s8 = FB.quantize_blockwise(xl, blocksize=4096, nested=True)
+    back = FB.dequantize_blockwise(q8, s8)
+    torch.cuda.synchronize()
+    rt_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update({"quantize_blockwise8": 2, "dequantize_blockwise8": 1})
+    assert counts == want, f"blockwise round trip: launch counts {counts} != {want}"
+    assert q8.dtype == torch.uint8 and back.shape == xl.shape and torch.isfinite(back).all()
+    # each element within half the widest gap of the dynamic map times its
+    # block's absmax, plus the error of the double-quantized absmax itself
+    am8 = xl.reshape(-1, 4096).abs().amax(1)
+    gap = float((dyn[1:].astype("float64") - dyn[:-1]).max())
+    bound = (gap / 2 * am8 + (s8.dequant_absmax() - am8).abs())[:, None]
+    err = ((back - xl).reshape(-1, 4096).abs() / bound).max().item()
+    assert err <= 1.001, f"blockwise round trip error {err} of its bound"
+    report["dequantize_blockwise8"]["launches"] = counts["dequantize_blockwise8"]
+    emit("blockwise8_round_trip", shape=[32000, 4096], blocksize=4096, nested=True, wall_ms=rt_ms,
+         launches=counts, max_err_over_bound=err, code_bytes=q8.numel(),
+         absmax_bytes=s8.absmax.numel() + s8.state2.absmax.numel() * 4 + 4)
+    del xl, q8, s8, back, am8
     torch.cuda.empty_cache()
 
-    # -- 5. the same path on the card and on the CPU, 2 layers ------------
+    # -- 5. both paths on the card and on the CPU, 2 layers ----------------
     cfg2 = L.LlamaConfig.llama3_8b(num_layers=2)
-    cpu_params = L.init_params(cfg2, torch.Generator().manual_seed(7), device="cpu")
+    cpu_float = L.init_params(cfg2, torch.Generator().manual_seed(7), device="cpu")
 
     def to_dev(tree):
         if isinstance(tree, dict):
@@ -403,38 +633,47 @@ def main() -> int:
             return [to_dev(v) for v in tree]
         return tree.to(dev)
 
-    gpu_params = L.quantize_params_4bit(to_dev(cpu_params), fuse=True)
-    cpu_params = L.quantize_params_4bit(cpu_params, fuse=True)
-    for lc, lg in zip(cpu_params["layers"], gpu_params["layers"]):
-        for name in ("wqkv", "wo", "gate_up", "down"):
-            assert torch.equal(lc[name].data, lg[name].data.cpu()), f"quantized bytes differ: {name}"
-            assert torch.equal(lc[name].state.absmax, lg[name].state.absmax.cpu()), name
     B2, T2, steps2 = 2, 64, 4
     ids2 = torch.randint(0, cfg2.vocab_size, (B2, T2), generator=torch.Generator().manual_seed(8))
-    gcache = L.init_kv_cache(cfg2, B2, 256, device=dev)
-    ccache = L.init_kv_cache(cfg2, B2, 256, device="cpu")
-    glog, gcache = L.prefill(gpu_params, ids2.to(dev), cfg2, gcache)
-    clog, ccache = L.prefill(cpu_params, ids2, cfg2, ccache)
-    pairs = [(glog[:, -1].cpu(), clog[:, -1])]
-    tok = glog[:, -1].argmax(-1)
-    for s in range(steps2):
-        glog, gcache = L.decode_step(gpu_params, tok, cfg2, gcache, T2 + s)
-        clog, ccache = L.decode_step(cpu_params, tok.cpu(), cfg2, ccache, T2 + s)  # teacher-forced
-        pairs.append((glog.cpu(), clog))
-        tok = glog.argmax(-1)
-    worst = 0.0
-    for step, (g, c) in enumerate(pairs):
-        assert torch.allclose(g, c, atol=0.1, rtol=0.05), f"logits differ at step {step}"
-        worst = max(worst, (g - c).abs().max().item())
-        top5 = c.topk(5, dim=-1).indices
-        assert (top5 == g.argmax(-1, keepdim=True)).any(-1).all(), f"greedy token outside top-5 at step {step}"
-    emit("cpu_check", layers=2, batch=B2, prompt=T2, steps=steps2, max_abs_logit_diff=worst,
-         prefill_route="dequant+matmul" if B2 * T2 >= G.LARGE_M_THRESHOLD else "gemm kernel")
+    for compress in (False, True):
+        gpu_params = L.quantize_params_4bit(to_dev(cpu_float), fuse=True, compress_statistics=compress)
+        cpu_params = L.quantize_params_4bit(cpu_float, fuse=True, compress_statistics=compress)
+        for lc, lg in zip(cpu_params["layers"], gpu_params["layers"]):
+            for name in ("wqkv", "wo", "gate_up", "down"):
+                sc, sg = lc[name].state, lg[name].state
+                assert torch.equal(lc[name].data, lg[name].data.cpu()), f"quantized bytes differ: {name}"
+                assert torch.equal(sc.absmax, sg.absmax.cpu()), name
+                if compress:
+                    assert sg.inline_nested and torch.equal(sc.offset, sg.offset.cpu()), f"offset: {name}"
+                    assert torch.equal(sc.state2.absmax, sg.state2.absmax.cpu()), f"state2.absmax: {name}"
+        gcache = L.init_kv_cache(cfg2, B2, 256, device=dev)
+        ccache = L.init_kv_cache(cfg2, B2, 256, device="cpu")
+        glog, gcache = L.prefill(gpu_params, ids2.to(dev), cfg2, gcache)
+        clog, ccache = L.prefill(cpu_params, ids2, cfg2, ccache)
+        pairs = [(glog[:, -1].cpu(), clog[:, -1])]
+        tok = glog[:, -1].argmax(-1)
+        for s in range(steps2):
+            glog, gcache = L.decode_step(gpu_params, tok, cfg2, gcache, T2 + s)
+            clog, ccache = L.decode_step(cpu_params, tok.cpu(), cfg2, ccache, T2 + s)  # teacher-forced
+            pairs.append((glog.cpu(), clog))
+            tok = glog.argmax(-1)
+        worst = 0.0
+        for step, (g, c) in enumerate(pairs):
+            assert torch.allclose(g, c, atol=0.1, rtol=0.05), f"logits differ at step {step}"
+            worst = max(worst, (g - c).abs().max().item())
+            top5 = c.topk(5, dim=-1).indices
+            assert (top5 == g.argmax(-1, keepdim=True)).any(-1).all(), f"greedy token outside top-5 at step {step}"
+        emit("cpu_check_nested" if compress else "cpu_check", layers=2, batch=B2, prompt=T2, steps=steps2,
+             compress_statistics=compress, max_abs_logit_diff=worst,
+             prefill_route="dequant+matmul" if B2 * T2 >= G.LARGE_M_THRESHOLD else "gemm kernel")
+        del gpu_params, cpu_params, gcache, ccache
+        torch.cuda.empty_cache()
 
     # -- 6. kernels line and result ---------------------------------------
     kernels = [report[n] for n in TPU_KERNELS]
     for k in kernels:
         assert k["launches"] and k["launches"] > 0, k["name"]
+    print(smi, flush=True)  # again, beside the numbers: the first lines scroll out of a short log
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

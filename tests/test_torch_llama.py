@@ -4,7 +4,8 @@ Weights are drawn once by the JAX package and carried across as numpy
 (``utils/interop.params_from_numpy``).  Quantizing them in the port gives the
 JAX package's bytes; prefill of 8 tokens and 3 decode steps on the same
 quantized bytes give the same logits, the JAX side running its Pallas
-kernels in interpret mode."""
+kernels in interpret mode.  The same holds with the absmax double-quantized
+(``compress_statistics=True``), where both sides run their ``_dq`` kernels."""
 
 import jax
 import jax.numpy as jnp
@@ -33,11 +34,15 @@ def _np_tree(tree):
     """JAX tree -> nested dicts/lists of numpy; QuantizedTensor -> dict."""
     if isinstance(tree, JQT):
         st = tree.state
-        return {
+        d = {
             "data": np.asarray(tree.data), "absmax": np.asarray(st.absmax),
             "shape": tuple(st.shape), "blocksize": st.blocksize, "quant_type": st.quant_type,
             "layout": st.layout, "code": np.asarray(st.code), "dtype": jnp.dtype(st.dtype).name,
         }
+        if st.nested:
+            d.update(offset=np.asarray(st.offset), nested_absmax=np.asarray(st.state2.absmax),
+                     nested_blocksize=st.state2.blocksize, nested_code=np.asarray(st.state2.code))
+        return d
     if isinstance(tree, dict):
         return {k: _np_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -64,8 +69,37 @@ def test_quantize_params_bytes_equal(models):
             np.testing.assert_array_equal(tl[name].state.absmax.numpy(), np.asarray(jl[name].state.absmax))
 
 
+@pytest.fixture(scope="module")
+def nested_models(models):
+    jcfg, tcfg, jparams, _ = models
+    return jcfg, tcfg, jparams, JL.quantize_params_4bit(jparams, fuse=True, compress_statistics=True)
+
+
 def test_prefill_and_decode_match_jax(models):
-    jcfg, tcfg, _, jq = models
+    _serve_against_jax(*models)
+
+
+def test_nested_prefill_and_decode_match_jax(nested_models):
+    _serve_against_jax(*nested_models)
+
+
+def test_nested_quantize_params_against_jax(nested_models):
+    """The port quantizes the same weights to the same payload bytes and,
+    within the offset contract of ``test_torch_double_quant.py``, the same
+    nested absmax."""
+    _, _, jparams, jq = nested_models
+    tq = TL.quantize_params_4bit(params_from_numpy(_np_tree(jparams), "cpu"), fuse=True,
+                                 compress_statistics=True)
+    for jl, tl in zip(jq["layers"], tq["layers"]):
+        for name in ("wqkv", "wo", "gate_up", "down"):
+            st = tl[name].state
+            assert st.inline_nested and st.absmax.dtype == torch.uint8
+            np.testing.assert_array_equal(tl[name].data.numpy(), np.asarray(jl[name].data))
+            jc, tc = np.asarray(jl[name].state.absmax).astype(int), st.absmax.numpy().astype(int)
+            assert (jc == tc).mean() >= 0.999 and np.abs(jc - tc).max() <= 1
+
+
+def _serve_against_jax(jcfg, tcfg, _, jq):
     tq = params_from_numpy(_np_tree(jq), "cpu")
     ids = np.random.default_rng(1).integers(0, CFG["vocab_size"], size=(B, T_PROMPT))
     # decode positions: two scalar steps, then one per-slot vector step

@@ -87,8 +87,15 @@ def test_odd_length_flat_and_bf16_upcast():
 
 
 def test_compress_statistics_not_supported_yet():
-    with pytest.raises(NotImplementedError):
-        TF.quantize_4bit(torch.zeros(8, 64), blocksize=BS, compress_statistics=True)
+    """compress_statistics is supported now (``test_torch_double_quant.py``
+    holds it against the JAX package): the state comes out nested, with the
+    same payload bytes as the plain quantize."""
+    W = torch.from_numpy(_weight(6))
+    tp, ts = TF.quantize_4bit(W, blocksize=BS, compress_statistics=True)
+    pp, ps = TF.quantize_4bit(W, blocksize=BS)
+    assert ts.nested and ts.absmax.dtype == torch.uint8 and torch.equal(tp, pp)
+    am = ps.absmax.numpy()
+    np.testing.assert_allclose(ts.dequant_absmax().numpy(), am, rtol=0, atol=0.01 * am.max())
 
 
 @pytest.mark.parametrize("bad", ["ragged", "dtype", "rank"])
