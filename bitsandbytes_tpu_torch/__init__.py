@@ -8,12 +8,13 @@ that create tensors run on CUDA unless the caller passes ``device="cpu"``.
 
 Ported so far: NF4/FP4 quantization with an optionally double-quantized
 absmax (``compress_statistics``), blockwise 8-bit quantization, the
-paired-layout 4-bit GEMM and dequantize (also decoding a double-quantized
-absmax in the kernel), and flash attention over a bf16 KV cache, serving the
-Llama family through prefill and greedy decode.
+paired-layout 4-bit GEMM, its backward and the dequantize (also decoding a
+double-quantized absmax in the kernel), flash attention over a bf16 KV
+cache, and the 8-bit blockwise optimizers (``optim``), serving the Llama
+family through prefill and greedy decode and fine-tuning it with QLoRA.
 """
 
-from . import functional, nn
+from . import functional, nn, optim
 from .autograd import matmul_4bit
 from .functional import QuantState
 from .functional.gemm import gemm_4bit, gemv_4bit
@@ -23,6 +24,7 @@ __version__ = "0.1.0"
 __all__ = [
     "functional",
     "nn",
+    "optim",
     "matmul_4bit",
     "gemm_4bit",
     "gemv_4bit",

@@ -41,6 +41,24 @@
 // instead of 4 B.  The second-level index is computed per scale, so a column
 // whose blocks cross a 256-boundary (KB = 224 for Llama's down) needs no
 // precomputed planes; the TPU kernel builds those because it cannot gather.
+//
+// gemm_4bit_paired_nt_kernel replaces gemm_4bit_paired_nt (_paired_nt_kernel)
+// and, with the nested scales, gemm_4bit_paired_nt_dq (_paired_nt_kernel_dq):
+// the 4-bit matmul backward
+//   grad_A[M, K] = g[M, N] @ dequant(P)[N, K]
+// with the TPU kernel's numerics (_nt_accum): for each K quantization block,
+// g[m, n] times that block's scale of row n, rounded to bf16 unless g is
+// f32, times the bf16-rounded unit code, summed over N in f32, the result
+// cast to g's type.  Bound on the H100 at small M: bytes (the payload, N*K/2
+// B, and its scales).  The sum runs over N while the output has only K
+// columns (4096 for gate_up), so tiling K alone would leave most SMs idle:
+// the grid splits N as well, each block writes its f32 partial sums, and a
+// second pass adds the partials in split order (the same bits every run,
+// where f32 atomics would not be).  Within a block each warp owns 256
+// columns, 8 a lane (8-byte payload loads, coalesced along K), and walks
+// the block's rows two at a time (one payload byte holds both); g's rows
+// are staged in shared memory 1024 columns at a time and read as
+// broadcasts.  Each block takes 8 rows of g; larger M is a grid dimension.
 #include "common.cuh"
 
 constexpr int kMaxSegments = 40;
@@ -235,6 +253,118 @@ dequantize_paired_kernel(const uint8_t* __restrict__ P, Scales scales,
     *reinterpret_cast<uint4*>(W + (size_t)(2 * n2 + 1) * K + k) = vl;
 }
 
+constexpr int kNtWarps = 8;
+constexpr int kNtMT = 8;                            // rows of g per block
+constexpr int kNtKT = kNtWarps * 32 * kLaneCols;    // 2048 columns of K per block
+constexpr int kNtNC = 1024;                         // columns of g staged per step (32 KB f32)
+
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// part[split, m, k]: block (kx, split, mt) sums rows [split*rows, ...) of N.
+template <bool kGBf16, class Scales>
+__global__ void __launch_bounds__(kNtWarps * 32)
+gemm_4bit_paired_nt_kernel(const void* __restrict__ G, const uint8_t* __restrict__ P, Scales scales,
+                           float* __restrict__ part, int M, int N, int K, int blocksize,
+                           int rows_per_split, Units16 units) {
+    __shared__ float s_units[16];
+    __shared__ float s_table[Scales::kTable];
+    __shared__ float s_g[kNtMT * kNtNC];
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    if (tid < 16) s_units[tid] = units.v[tid];
+    scales.prologue(s_table, tid, kNtWarps * 32);  // read after the first staging barrier
+
+    const int k = blockIdx.x * kNtKT + warp * 32 * kLaneCols + lane * kLaneCols;
+    const bool active = k < K;  // K % 32 == 0: a lane's 8 columns are all in or all out
+    const int blk = k / blocksize;  // 8 columns never straddle a block
+    const int n_lo = blockIdx.y * rows_per_split;  // rows_per_split is even
+    const int n_hi = min(N, n_lo + rows_per_split);
+    const int m0 = blockIdx.z * kNtMT;
+    const int mrows = min(kNtMT, M - m0);
+
+    float acc[kNtMT][kLaneCols];
+#pragma unroll
+    for (int m = 0; m < kNtMT; ++m)
+#pragma unroll
+        for (int j = 0; j < kLaneCols; ++j) acc[m][j] = 0.0f;
+
+    for (int c0 = n_lo; c0 < n_hi; c0 += kNtNC) {
+        const int nc = min(kNtNC, n_hi - c0);  // even
+        __syncthreads();  // the previous chunk is consumed
+        for (int i = tid; i < kNtMT * nc; i += kNtWarps * 32) {
+            const int m = i / nc;
+            const int c = i - m * nc;
+            float v = 0.0f;
+            if (m < mrows) {
+                const size_t o = (size_t)(m0 + m) * N + c0 + c;
+                v = kGBf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(G)[o])
+                           : static_cast<const float*>(G)[o];
+            }
+            s_g[m * kNtNC + c] = v;
+        }
+        __syncthreads();
+        if (!active) continue;
+
+#pragma unroll 2
+        for (int r = 0; r < nc; r += 2) {
+            const int n2 = (c0 + r) >> 1;
+            const uint2 pb = *reinterpret_cast<const uint2*>(P + (size_t)n2 * K + k);
+            const float2 sc = scales.load(s_table, blk, n2);
+            float whi[kLaneCols], wlo[kLaneCols];
+#pragma unroll
+            for (int j = 0; j < kLaneCols; ++j) {
+                const uint32_t word = j < 4 ? pb.x : pb.y;
+                const uint32_t b = (word >> (8 * (j & 3))) & 0xFFu;
+                whi[j] = s_units[b >> 4];
+                wlo[j] = s_units[b & 15u];
+            }
+#pragma unroll
+            for (int m = 0; m < kNtMT; ++m) {
+                if (m < mrows) {
+                    float ghi = __fmul_rn(s_g[m * kNtNC + r], sc.x);
+                    float glo = __fmul_rn(s_g[m * kNtNC + r + 1], sc.y);
+                    if (kGBf16) {
+                        ghi = round_bf16(ghi);
+                        glo = round_bf16(glo);
+                    }
+#pragma unroll
+                    for (int j = 0; j < kLaneCols; ++j) {
+                        acc[m][j] += ghi * whi[j];
+                        acc[m][j] += glo * wlo[j];
+                    }
+                }
+            }
+        }
+    }
+    if (!active) return;
+#pragma unroll
+    for (int m = 0; m < kNtMT; ++m) {
+        if (m < mrows) {
+            float* dst = part + ((size_t)blockIdx.y * M + m0 + m) * K + k;
+            reinterpret_cast<float4*>(dst)[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+            reinterpret_cast<float4*>(dst)[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+        }
+    }
+}
+
+// out[m, k] = sum over splits, in split order, of part[split, m, k].
+template <bool kOutBf16>
+__global__ void __launch_bounds__(256)
+nt_reduce_kernel(const float* __restrict__ part, void* __restrict__ out, long long mk, int splits) {
+    const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+    if (i >= mk) return;
+    float s = part[i];
+    for (int sp = 1; sp < splits; ++sp) s += part[(size_t)sp * mk + i];
+    if (kOutBf16)
+        static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(s);
+    else
+        static_cast<float*>(out)[i] = s;
+}
+
 Units16 load_units(const float* units) {
     Units16 u;
     for (int i = 0; i < 16; ++i) u.v[i] = units[i];
@@ -274,6 +404,30 @@ int launch_dequant(const uint8_t* P, const Scales& sc, void* W, int N, int K, in
         dequantize_paired_kernel<Scales><<<(unsigned)grid, kDqThreads, 0, stream>>>(
             P, sc, static_cast<__nv_bfloat16*>(W), N, K, blocksize, u);
     }
+    return (int)cudaGetLastError();
+}
+
+template <class Scales>
+int launch_nt(const void* G, const uint8_t* P, const Scales& sc, float* part, void* out, int M, int N,
+              int K, int blocksize, int rows_per_split, int splits, const float* units, int g_bf16,
+              cudaStream_t stream) {
+    if (!gemm_shape_ok(M, N, K, blocksize) || rows_per_split < 2 || rows_per_split % 2 || splits < 1
+        || (long long)rows_per_split * (splits - 1) >= N || (long long)rows_per_split * splits < N)
+        return (int)cudaErrorInvalidValue;
+    const Units16 u = load_units(units);
+    const dim3 grid((K + kNtKT - 1) / kNtKT, splits, (M + kNtMT - 1) / kNtMT);
+    if (g_bf16)
+        gemm_4bit_paired_nt_kernel<true, Scales><<<grid, kNtWarps * 32, 0, stream>>>(
+            G, P, sc, part, M, N, K, blocksize, rows_per_split, u);
+    else
+        gemm_4bit_paired_nt_kernel<false, Scales><<<grid, kNtWarps * 32, 0, stream>>>(
+            G, P, sc, part, M, N, K, blocksize, rows_per_split, u);
+    const long long mk = (long long)M * K;
+    const unsigned rgrid = (unsigned)((mk + 255) / 256);
+    if (g_bf16)
+        nt_reduce_kernel<true><<<rgrid, 256, 0, stream>>>(part, out, mk, splits);
+    else
+        nt_reduce_kernel<false><<<rgrid, 256, 0, stream>>>(part, out, mk, splits);
     return (int)cudaGetLastError();
 }
 
@@ -328,4 +482,25 @@ BNB_EXPORT int bnb_dequantize_paired_dq(const uint8_t* P, const uint8_t* codes_t
         || !nested_scales(codes_t, s2, offset, N, K, blocksize, dec, &sc))
         return (int)cudaErrorInvalidValue;
     return launch_dequant(P, sc, W, N, K, blocksize, units, stream);
+}
+
+// G [M, N] bf16 (g_bf16) or f32; part [splits, M, K] f32 scratch; out [M, K]
+// in G's type.  Rows [s*rows_per_split, (s+1)*rows_per_split) of N go to split s.
+BNB_EXPORT int bnb_gemm_4bit_paired_nt(const void* G, const uint8_t* P, const float* absmax_t,
+                                       float* part, void* out, int M, int N, int K, int blocksize,
+                                       int rows_per_split, int splits, const float* units,
+                                       int g_bf16, cudaStream_t stream) {
+    return launch_nt(G, P, F32Scales{absmax_t, N}, part, out, M, N, K, blocksize, rows_per_split,
+                     splits, units, g_bf16, stream);
+}
+
+BNB_EXPORT int bnb_gemm_4bit_paired_nt_dq(const void* G, const uint8_t* P, const uint8_t* codes_t,
+                                          const float* s2, const float* offset, float* part, void* out,
+                                          int M, int N, int K, int blocksize, int rows_per_split,
+                                          int splits, const float* units, const DynDecode* dec,
+                                          int g_bf16, cudaStream_t stream) {
+    NestedScales sc;
+    if (!nested_scales(codes_t, s2, offset, N, K, blocksize, dec, &sc)) return (int)cudaErrorInvalidValue;
+    return launch_nt(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, units, g_bf16,
+                     stream);
 }

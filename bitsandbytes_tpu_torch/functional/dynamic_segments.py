@@ -1,7 +1,6 @@
-"""Piecewise-linear segment decode for 256-entry dynamic codebooks.
+"""Piecewise-linear segment decode and requant for 256-entry dynamic codebooks.
 
-The port's copy of the decode half of the JAX package's
-``functional/dynamic_segments.py``.  The dynamic 8-bit map is piecewise
+The port's copy of the JAX package's ``functional/dynamic_segments.py``.  The dynamic 8-bit map is piecewise
 linear: sorted, it splits into ~16 runs of uniform spacing, so a code index
 decodes as ``value = (idx - seg_start) * seg_step + seg_first`` (or
 ``idx * seg_step + b`` where the intercept form verifies bit-exact).  The
@@ -13,8 +12,15 @@ when it compiles, and the JAX package's jitted decode is what the port is
 held to.  :func:`fma_f32` gives that rounding in plain PyTorch, on any
 device; the CUDA kernels use ``__fmaf_rn``.
 
-The table builders are numpy only and run once per codebook.  The requant
-half (the 8-bit optimizer's state update) comes with the optimizer kernels.
+The table builders are numpy only and run once per codebook.
+
+The requant half serves the 8-bit optimizer states: a value finds its
+segment by comparing against the segment boundary midpoints, then rounds to
+the segment's uniform grid, ``j = clamp(floor(fma(x, inv, b)), 0, count-1)``.
+That breaks ties at the quantization midpoints otherwise than a search over
+the true table's midpoints (kernel 13), so the optimizer uses this form and
+not that one.  A NaN scaled value (an all-zero block: ``0 * inf``) counts as
+negative, as the default NaN of the x86 CPUs the JAX package is held on is.
 """
 
 from __future__ import annotations
@@ -32,11 +38,15 @@ __all__ = [
     "SymSegmentTable",
     "build_segments",
     "build_segments_sym",
+    "build_state_tables",
     "dynamic_sym_table",
     "dequant_nested_dynamic",
     "fma_f32",
     "segment_decode",
     "segment_decode_sym",
+    "segment_requant",
+    "segment_requant_sym",
+    "sign_fixup",
 ]
 
 
@@ -235,6 +245,93 @@ def segment_decode_sym(idx: torch.Tensor, t: SymSegmentTable) -> torch.Tensor:
     d = idx.to(torch.int32) - t.zero_idx
     v = segment_decode(d.abs(), t.half)
     return torch.where(d < 0, -v, v)
+
+
+def _negative(x: torch.Tensor) -> torch.Tensor:
+    """The sign bit, with every NaN counted as negative (see the module
+    docstring): the same answer on the CPU and on the card."""
+    return torch.signbit(x) | torch.isnan(x)
+
+
+def segment_requant(x: torch.Tensor, table: SegmentTable) -> torch.Tensor:
+    """f32 values scaled to the codebook's range -> int32 codes: the segment
+    by boundary compares (``x > bound``: a value on a boundary goes to the
+    lower segment), then the nearest slot of its grid, half up in index
+    space.  One fused multiply-add, as the JAX package's jitted requant
+    rounds it; a NaN lands on the segment's first slot."""
+    dev = x.device
+    k = torch.zeros(x.shape, dtype=torch.long, device=dev)
+    for b in table.bounds:
+        k += x > b
+    inv = torch.tensor(table.inv_steps, dtype=torch.float32, device=dev)[k]
+    if table.b_req is not None:
+        b = torch.tensor(table.b_req, dtype=torch.float32, device=dev)[k]
+        t = fma_f32(x, inv, b)
+    else:
+        first = torch.tensor(table.firsts, dtype=torch.float32, device=dev)[k]
+        t = fma_f32(x - first, inv, torch.full_like(x, 0.5))
+    cnt1 = torch.tensor([c - 1 for c in table.counts], dtype=torch.int32, device=dev)[k]
+    j = torch.floor(t).nan_to_num(nan=0.0).clamp(min=0.0)
+    j = torch.minimum(j.to(torch.int32), cnt1)
+    return torch.tensor(table.starts, dtype=torch.int32, device=dev)[k] + j
+
+
+def segment_requant_sym(x: torch.Tensor, t: SymSegmentTable) -> torch.Tensor:
+    """f32 values -> int32 codes through the half map: requantize ``|x|``,
+    then mirror the slot for negatives (clamped to the ``zero_idx`` mirror
+    slots the negative half has)."""
+    jg = segment_requant(x.abs(), t.half)
+    jn = torch.clamp(jg, max=t.zero_idx)
+    return t.zero_idx + torch.where(_negative(x), -jn, jg)
+
+
+def build_state_tables(code):
+    """The segment structure of an optimizer-state codebook: a
+    :class:`SymSegmentTable` when the map is odd-symmetric, else a
+    :class:`SegmentTable`, else None."""
+    sym = build_segments_sym(code)
+    return sym if sym is not None else build_segments(code)
+
+
+def sign_fixup(idx: torch.Tensor, x: torch.Tensor, table) -> torch.Tensor:
+    """The reference CUDA kernel's sign preservation: where the code's sign
+    differs from the value's, move the code one step toward the value's
+    sign.  Only a signed map changes anything."""
+    if isinstance(table, SymSegmentTable):
+        zero_idx = table.zero_idx
+    elif table.signed:
+        zero_idx = table.zero_idx
+    else:
+        return idx
+    x_neg = _negative(x)
+    mismatch = (idx < zero_idx) != x_neg
+    return torch.where(mismatch, torch.where(x_neg, idx - 1, idx + 1), idx)
+
+
+def state_map(code) -> tuple:
+    """An optimizer-state codebook as the CUDA update kernel takes it:
+    ``(sym, zero_idx, starts, subs, steps, adds, bounds, counts1, rsubs,
+    invs, radds)`` over the half map of a symmetric codebook, else over the
+    whole map.  Decode is ``fma(float(a - subs[k]), steps[k], adds[k])`` for
+    ``a`` in segment k by ``starts``; requant is ``starts[k] + clamp(floor(
+    fma(x - rsubs[k], invs[k], radds[k])), 0, counts1[k])`` for ``x`` in
+    segment k by ``bounds``; both cover the intercept and three-table forms."""
+    t = build_state_tables(code)
+    if t is None:
+        raise ValueError("the codebook is not piecewise linear")
+    sym = isinstance(t, SymSegmentTable)
+    h = t.half if sym else t
+    if h.b_dec is not None:
+        subs, adds = (0,) * len(h.starts), h.b_dec
+    else:
+        subs, adds = h.starts, h.firsts
+    if h.b_req is not None:
+        rsubs, radds = (0.0,) * len(h.starts), h.b_req
+    else:
+        rsubs, radds = h.firsts, (0.5,) * len(h.starts)
+    counts1 = tuple(c - 1 for c in h.counts)
+    return (sym, t.zero_idx, h.starts, subs, h.steps, adds, h.bounds, counts1, rsubs,
+            h.inv_steps, radds)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,12 +1,16 @@
-"""Models served on the quantized path."""
+"""Models served and fine-tuned on the quantized path."""
 
 from .llama import (
     KVCache,
     LlamaConfig,
+    add_lora,
     decode_step,
     forward,
     init_kv_cache,
     init_params,
+    lm_loss,
+    lora_parameters,
+    lora_train_step,
     prefill,
     quantize_params_4bit,
 )
@@ -14,10 +18,14 @@ from .llama import (
 __all__ = [
     "KVCache",
     "LlamaConfig",
+    "add_lora",
     "decode_step",
     "forward",
     "init_kv_cache",
     "init_params",
+    "lm_loss",
+    "lora_parameters",
+    "lora_train_step",
     "prefill",
     "quantize_params_4bit",
 ]

@@ -1,8 +1,9 @@
-"""Llama-family transformer on the 4-bit serving path.
+"""Llama-family transformer on the 4-bit serving and QLoRA training paths.
 
-Counterpart of the JAX package's ``models/llama.py`` for serving: config
-presets, random init, 4-bit quantization of the layer weights, a dense
-static-shape KV cache, and ``forward`` / ``prefill`` / ``decode_step``.
+Counterpart of the JAX package's ``models/llama.py``: config presets, random
+init, 4-bit quantization of the layer weights, a dense static-shape KV
+cache, ``forward`` / ``prefill`` / ``decode_step``, and QLoRA training
+(``add_lora``, ``lm_loss``, ``lora_train_step``).
 
 Parameters are a plain dict: ``embed``, ``layers`` (a list of dicts),
 ``final_norm`` and ``lm_head``.  A layer's linear weights are bf16 tensors or
@@ -13,7 +14,16 @@ kernel (``ops/flash_cached.py``).  The lm_head stays bf16 and runs as
 ``torch.matmul``.
 
 The bf16/f32 cast points are the JAX package's: RMSNorm and RoPE compute in
-f32 and cast back, SiLU runs on the f32 gate, logits come out in f32.
+f32 and cast back, SiLU runs on the f32 gate, logits come out in f32.  A
+LoRA delta is computed as the JAX package computes it (bf16 products times
+the f32 scale) and added in f32, but the sum is rounded back to the
+activations' type: the JAX package keeps it in f32, which would carry the
+rest of the network in f32 and off the bf16 large-M routes of the kernels.
+
+``forward`` runs with gradients enabled (training: no cache, dense causal
+attention); ``prefill`` and ``decode_step`` serve under ``torch.no_grad()``,
+and the cached attention refuses to run where a gradient is needed, since
+its kernel has no backward.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import dataclasses
 from typing import NamedTuple, Optional, Union
 
 import torch
+import torch.utils.checkpoint
 
 from .. import autograd
 from ..nn.modules import QuantizedTensor
@@ -37,6 +48,10 @@ __all__ = [
     "forward",
     "prefill",
     "decode_step",
+    "add_lora",
+    "lora_parameters",
+    "lm_loss",
+    "lora_train_step",
 ]
 
 
@@ -220,10 +235,23 @@ def quantize_params_4bit(
     return out
 
 
-def _apply_linear(x, w):
+def _add_lora(out, x, lora):
+    """``out + (x @ A^T @ B^T) * scale``: the products in ``x``'s type, the
+    delta and the sum in f32, rounded back to ``out``'s type."""
+    if lora is None:
+        return out
+    h = torch.matmul(x, lora["a"].t().to(x.dtype))
+    delta = torch.matmul(h, lora["b"].t().to(x.dtype)).to(torch.float32) * lora["scale"]
+    return (out.to(torch.float32) + delta).to(out.dtype)
+
+
+def _apply_linear(x, w, lora=None):
+    """Dispatch on the weight's type, then add the LoRA delta if any."""
     if isinstance(w, QuantizedTensor):
-        return autograd.matmul_4bit(x, w.data, w.state)
-    return torch.matmul(x, w.to(x.dtype).t())
+        out = autograd.matmul_4bit(x, w.data, w.state)
+    else:
+        out = torch.matmul(x, w.to(x.dtype).t())
+    return _add_lora(out, x, lora)
 
 
 def _rmsnorm(x, w, eps, plus_one: bool = False):
@@ -269,6 +297,8 @@ def _cached_attention(q, k, v, cache, li, start_pos, vector_pos, cfg):
     """Write this step's K/V into layer ``li`` of the cache (in place), then
     run the flash kernel over it, chunked over T so the folded rows stay
     within ``GT_MAX``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError("the cached attention kernel has no backward: train without a cache")
     B, T, H, hd = q.shape
     KVH = cfg.num_kv_heads
     G = H // KVH
@@ -297,20 +327,25 @@ def _cached_attention(q, k, v, cache, li, start_pos, vector_pos, cfg):
     return attn.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd)
 
 
-@torch.no_grad()
 def forward(
     params: dict,
     ids: torch.Tensor,
     cfg: LlamaConfig,
     cache: Optional[KVCache] = None,
     start_pos: Union[int, torch.Tensor] = 0,
+    lora: Optional[dict] = None,
+    return_hidden: bool = False,
 ):
     """Run the transformer over ``ids [B, T]``.
 
-    Without a cache this is a plain causal forward from position 0.  With a
-    cache, K/V for these positions are written at ``start_pos`` (an int, or a
-    per-slot ``[B]`` tensor for decode with T == 1) and attention runs over
-    the cache.  Returns ``(logits [B, T, V] f32, cache)``."""
+    Without a cache this is a plain causal forward from position 0 (training).
+    With a cache, K/V for these positions are written at ``start_pos`` (an
+    int, or a per-slot ``[B]`` tensor for decode with T == 1) and attention
+    runs over the cache.  ``lora`` (from :func:`add_lora`) adds adapter
+    deltas; on the fused ``wqkv``/``gate_up`` weights they apply after the
+    split.  Returns ``(logits [B, T, V] f32, cache)``, or the final-norm
+    hidden states ``[B, T, D]`` in place of the logits when
+    ``return_hidden`` (the chunked loss applies the lm_head itself)."""
     B, T = ids.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = params["embed"][ids].to(cfg.dtype)
@@ -327,16 +362,20 @@ def forward(
         positions = (start_pos + torch.arange(T, device=ids.device))[None, :].expand(B, T)
 
     for li, layer in enumerate(params["layers"]):
+        l_lora = lora["layers"][li] if lora is not None else {}
         h = _rmsnorm(x, layer["attn_norm"], cfg.rms_eps, cfg.norm_plus_one)
         if "wqkv" in layer:
             qkv = _apply_linear(h, layer["wqkv"])
             if "wqkv_b" in layer:
                 qkv = qkv + layer["wqkv_b"].to(qkv.dtype)
             q, k, v = torch.split(qkv, [H * hd, KVH * hd, KVH * hd], dim=-1)
+            q = _add_lora(q, h, l_lora.get("wq"))
+            k = _add_lora(k, h, l_lora.get("wk"))
+            v = _add_lora(v, h, l_lora.get("wv"))
         else:
-            q = _apply_linear(h, layer["wq"])
-            k = _apply_linear(h, layer["wk"])
-            v = _apply_linear(h, layer["wv"])
+            q = _apply_linear(h, layer["wq"], l_lora.get("wq"))
+            k = _apply_linear(h, layer["wk"], l_lora.get("wk"))
+            v = _apply_linear(h, layer["wv"], l_lora.get("wv"))
             if "wq_b" in layer:
                 q = q + layer["wq_b"].to(q.dtype)
                 k = k + layer["wk_b"].to(k.dtype)
@@ -351,29 +390,127 @@ def forward(
             valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
             attn = _attention(q, k, v, positions, valid, cfg)
 
-        x = x + _apply_linear(attn, layer["wo"])
+        x = x + _apply_linear(attn, layer["wo"], l_lora.get("wo"))
         h = _rmsnorm(x, layer["mlp_norm"], cfg.rms_eps, cfg.norm_plus_one)
         if "gate_up" in layer:
             gate, up = torch.chunk(_apply_linear(h, layer["gate_up"]), 2, dim=-1)
+            gate = _add_lora(gate, h, l_lora.get("gate"))
+            up = _add_lora(up, h, l_lora.get("up"))
         else:
-            gate = _apply_linear(h, layer["gate"])
-            up = _apply_linear(h, layer["up"])
+            gate = _apply_linear(h, layer["gate"], l_lora.get("gate"))
+            up = _apply_linear(h, layer["up"], l_lora.get("up"))
         g32 = gate.to(torch.float32)
         act = torch.nn.functional.silu(g32) if cfg.act == "silu" else torch.nn.functional.gelu(
             g32, approximate="tanh"
         )
-        x = x + _apply_linear(act.to(x.dtype) * up, layer["down"])
+        x = x + _apply_linear(act.to(x.dtype) * up, layer["down"], l_lora.get("down"))
 
     x = _rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.norm_plus_one)
+    if return_hidden:
+        return x, cache
     return _apply_linear(x, params["lm_head"]).to(torch.float32), cache
 
 
-def prefill(params, ids, cfg, cache):
-    return forward(params, ids, cfg, cache=cache, start_pos=0)
+@torch.no_grad()
+def prefill(params, ids, cfg, cache, lora=None):
+    return forward(params, ids, cfg, cache=cache, start_pos=0, lora=lora)
 
 
-def decode_step(params, token, cfg, cache, pos):
+@torch.no_grad()
+def decode_step(params, token, cfg, cache, pos, lora=None):
     """One decode step: ``token [B]`` at position ``pos`` (an int, or a
     per-slot ``[B]`` tensor).  Returns ``(logits [B, V], cache)``."""
-    logits, cache = forward(params, token[:, None], cfg, cache=cache, start_pos=pos)
+    logits, cache = forward(params, token[:, None], cfg, cache=cache, start_pos=pos, lora=lora)
     return logits[:, 0], cache
+
+
+# -- QLoRA training ------------------------------------------------------------
+
+_LORA_DIMS = {
+    "wq": lambda c: (c.num_heads * c.head_dim, c.hidden_size),
+    "wk": lambda c: (c.num_kv_heads * c.head_dim, c.hidden_size),
+    "wv": lambda c: (c.num_kv_heads * c.head_dim, c.hidden_size),
+    "wo": lambda c: (c.hidden_size, c.num_heads * c.head_dim),
+    "gate": lambda c: (c.intermediate_size, c.hidden_size),
+    "up": lambda c: (c.intermediate_size, c.hidden_size),
+    "down": lambda c: (c.hidden_size, c.intermediate_size),
+}
+
+
+def add_lora(
+    cfg: LlamaConfig,
+    rank: int = 8,
+    alpha: float = 16.0,
+    targets: tuple = ("wq", "wk", "wv", "wo"),
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> dict:
+    """LoRA adapters for every layer (QLoRA, arXiv:2305.14314): per target
+    ``a [rank, in]`` normal times ``in ** -0.5``, ``b [out, rank]`` zeros and
+    ``scale = alpha / rank`` as a 0-d f32 tensor, all trainable (the scale
+    too, as in the JAX package's tree).  Drawn from ``generator`` (on
+    ``device``; seed 0 when omitted); CUDA unless ``device`` names another."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def leaf(name):
+        n, m = _LORA_DIMS[name](cfg)
+        a = torch.randn(rank, m, dtype=torch.float32, generator=generator, device=device) * m**-0.5
+        return {
+            "a": a.requires_grad_(),
+            "b": torch.zeros(n, rank, dtype=torch.float32, device=device, requires_grad=True),
+            "scale": torch.tensor(alpha / rank, dtype=torch.float32, device=device, requires_grad=True),
+        }
+
+    return {"layers": [{name: leaf(name) for name in targets} for _ in range(cfg.num_layers)]}
+
+
+def lora_parameters(lora: dict) -> list:
+    """The adapter tensors in a fixed order (layer, target, then ``a``,
+    ``b``, ``scale``): what an optimizer is built over."""
+    return [t for layer in lora["layers"] for ad in layer.values() for t in (ad["a"], ad["b"], ad["scale"])]
+
+
+def _chunk_nll(hc, tc, lm_head):
+    logits = _apply_linear(hc, lm_head).to(torch.float32)  # [C, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = logits.gather(1, tc[:, None])[:, 0]
+    return (lse - tl).sum()
+
+
+def lm_loss(params: dict, lora: Optional[dict], ids: torch.Tensor, cfg: LlamaConfig,
+            token_chunk: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross-entropy over ``ids [B, T+1]`` (mean over B*T).
+
+    ``token_chunk`` applies the lm_head and the softmax to that many tokens
+    at a time instead of materializing the ``[B, T, V]`` logits; each chunk
+    runs under ``torch.utils.checkpoint``, so the backward recomputes its
+    logits rather than keep them.  The chunk sums add up in order."""
+    if token_chunk is None:
+        logits, _ = forward(params, ids[:, :-1], cfg, lora=lora)
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, ids[:, 1:, None])[..., 0].mean()
+    h, _ = forward(params, ids[:, :-1], cfg, lora=lora, return_hidden=True)
+    h = h.reshape(-1, h.shape[-1])
+    targets = ids[:, 1:].reshape(-1)
+    N = h.shape[0]
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, N, token_chunk):
+        total = total + torch.utils.checkpoint.checkpoint(
+            _chunk_nll, h[c : c + token_chunk], targets[c : c + token_chunk], params["lm_head"],
+            use_reentrant=False,
+        )
+    return total / N
+
+
+def lora_train_step(params: dict, lora: dict, optimizer: torch.optim.Optimizer, ids: torch.Tensor,
+                    cfg: LlamaConfig, token_chunk: Optional[int] = None) -> torch.Tensor:
+    """One QLoRA step: gradients flow into the adapters only (the 4-bit base
+    is frozen), then ``optimizer`` (built over :func:`lora_parameters`)
+    updates them in place.  Returns the loss before the step, detached."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = lm_loss(params, lora, ids, cfg, token_chunk=token_chunk)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()

@@ -35,7 +35,7 @@ __all__ = [
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-_SOURCES = ("quant4bit.cu", "gemm4bit_paired.cu", "flash_cached.cu", "blockwise8.cu")
+_SOURCES = ("quant4bit.cu", "gemm4bit_paired.cu", "flash_cached.cu", "blockwise8.cu", "optim8bit.cu")
 _HEADERS = ("common.cuh",)
 _LIBNAME = "libbnb_torch_kernels.so"
 _NVCC_FLAGS = (
@@ -55,6 +55,9 @@ LAUNCHES: dict = {
     "dequantize_paired_fast_dq": 0,
     "quantize_blockwise8": 0,
     "dequantize_blockwise8": 0,
+    "gemm_4bit_paired_nt": 0,
+    "gemm_4bit_paired_nt_dq": 0,
+    "optimizer_update_8bit": 0,
 }
 
 _lock = threading.Lock()
@@ -150,6 +153,14 @@ _SIGNATURES = {
     "bnb_quantize_blockwise8": [_P, _P, _P, _P, _L, _I, _P, _I, _I, _P],
     # q, absmax, out, n, blocksize, tables (device), out_kind, stream
     "bnb_dequantize_blockwise8": [_P, _P, _P, _L, _I, _P, _I, _P],
+    # G, P, absmax_t, part (scratch), out, M, N, K, blocksize, rows_per_split, splits,
+    # units[16] (host), g_bf16, stream
+    "bnb_gemm_4bit_paired_nt": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # G, P, codes_t, s2, offset, part, out, M, N, K, blocksize, rows_per_split, splits,
+    # units[16] (host), decode table (host), g_bf16, stream
+    "bnb_gemm_4bit_paired_nt_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    # g, p, s1, s2, am1, am2, n, rule, scalars (host), map1 (host), map2 (host), fixup, stream
+    "bnb_optimizer_update_8bit": [_P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
 }
 
 

@@ -5,7 +5,7 @@ byte at ``[n2, k]`` holds weight rows ``2*n2`` (high nibble) and ``2*n2+1``
 (low nibble) at column ``k``; quantization blocks still run along K per row,
 and the absmax is stored transposed ``[K/blocksize, N]``.
 
-Two kernels, both in ``csrc/gemm4bit_paired.cu``:
+The kernels, all in ``csrc/gemm4bit_paired.cu``:
 
 * :func:`gemm_4bit_paired` replaces ``gemm_4bit_paired`` (``_paired_kernel``):
   ``out[M, N] = A[M, K] @ dequant(P)^T`` with bf16-rounded unit codes, an f32
@@ -23,6 +23,13 @@ Two kernels, both in ``csrc/gemm4bit_paired.cu``:
   ``fma(code2(u8), s2[(n*KB + kb) >> 8], offset)`` (see
   ``functional/dynamic_segments.py``).  Bit-identical to the plain kernels
   on the resolved f32 absmax, and 3 B lighter per 64 weights.
+* :func:`gemm_4bit_paired_nt` and :func:`gemm_4bit_paired_nt_dq` replace
+  ``gemm_4bit_paired_nt`` and ``gemm_4bit_paired_nt_dq``: the 4-bit matmul
+  backward ``grad_A[M, K] = g[M, N] @ dequant(P)[N, K]``.  Per K quant block,
+  ``g`` times that block's scale of each row, rounded to bf16 unless ``g`` is
+  float32, dotted with the bf16-rounded unit codes over N in f32, cast to
+  ``g``'s type.  Bound by bytes at small M.  The kernel splits N across
+  blocks into f32 partials that a second pass adds in a fixed order.
 
 A CPU tensor goes to the plain version of each, written to the same
 numerics; a CUDA tensor launches the kernel or raises.
@@ -55,6 +62,10 @@ __all__ = [
     "gemm_4bit_paired_dq_plain",
     "dequantize_paired_fast_dq",
     "dequantize_paired_fast_dq_plain",
+    "gemm_4bit_paired_nt",
+    "gemm_4bit_paired_nt_plain",
+    "gemm_4bit_paired_nt_dq",
+    "gemm_4bit_paired_nt_dq_plain",
 ]
 
 # Quant blocks per batched product in the plain GEMM: bounds its
@@ -349,3 +360,119 @@ def dequantize_paired_fast_dq(P, codes_t, s2, offset, code, blocksize: int,
     _lib.check(err, "dequantize_paired_fast_dq")
     _lib.LAUNCHES["dequantize_paired_fast_dq"] += 1
     return W
+
+
+# -- the backward: grad_A = g @ dequant(B), contracted over N -----------------
+
+# the kernel's tiles (csrc/gemm4bit_paired.cu): 2048 columns of K and 8 rows
+# of g per block; each split of N keeps at least 64 row pairs
+_NT_KT, _NT_MT, _NT_MIN_PAIRS = 2048, 8, 64
+
+
+def gemm_4bit_paired_nt_plain(G2, P, absmax_t, units, blocksize: int) -> torch.Tensor:
+    """``G2 [M, N]`` -> f32 ``[M, K]``: per K quant block, ``g * scale``
+    (rounded to bf16 unless ``G2`` is float32) dotted with the unit codes."""
+    M, N = G2.shape
+    U = decode_units(P, units)
+    K = U.shape[1]
+    nb = K // blocksize
+    g32 = G2.to(torch.float32)
+    U3 = U.reshape(N, nb, blocksize).permute(1, 0, 2)  # [nb, N, bs]
+    out = torch.empty(M, K, dtype=torch.float32, device=G2.device)
+    for c in range(0, nb, _PLAIN_BLOCK_CHUNK):
+        gs = g32[None] * absmax_t[c : c + _PLAIN_BLOCK_CHUNK, None, :]  # [cb, M, N]
+        if G2.dtype != torch.float32:
+            gs = gs.to(torch.bfloat16).to(torch.float32)
+        sub = torch.bmm(gs, U3[c : c + _PLAIN_BLOCK_CHUNK])  # [cb, M, bs]
+        out[:, c * blocksize : c * blocksize + sub.shape[0] * blocksize] = sub.permute(1, 0, 2).reshape(M, -1)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _nt_splits(M: int, N: int, K: int, sms: int):
+    """Rows of N per split and the number of splits: about two blocks per
+    SM, each split at least ``_NT_MIN_PAIRS`` row pairs."""
+    pairs = N // 2
+    tiles = -(-K // _NT_KT) * -(-M // _NT_MT)
+    splits = max(1, min(-(-2 * sms // tiles), pairs // _NT_MIN_PAIRS))
+    rows = 2 * -(-pairs // splits)
+    return rows, -(-N // rows)
+
+
+def _nt_args(G, N: int, K: int, blocksize: int, out_dtype):
+    if N % 2 or blocksize < 32 or K % blocksize or G.shape[-1] != N:
+        raise ValueError(f"unsupported shape: g {tuple(G.shape)}, B {(N, K)}, blocksize {blocksize}")
+    lead = tuple(G.shape[:-1])
+    M = 1
+    for s in lead:
+        M *= s
+    return lead, M, out_dtype or G.dtype
+
+
+def _launch_nt(entry: str, G2, P, scale_ptrs, extra, M: int, N: int, K: int, blocksize: int, units):
+    if G2.dtype not in (torch.bfloat16, torch.float32) or not G2.is_contiguous():
+        raise ValueError("the CUDA kernel takes a contiguous bf16 or float32 g")
+    _check_aligned(G2, P)
+    rows, splits = _nt_splits(M, N, K, _sm_count(G2.device.index or 0))
+    part = torch.empty(splits * M * K, dtype=torch.float32, device=G2.device)
+    out = torch.empty(M, K, dtype=G2.dtype, device=G2.device)
+    err = getattr(_lib.lib(), "bnb_" + entry)(
+        G2.data_ptr(), P.data_ptr(), *scale_ptrs, part.data_ptr(), out.data_ptr(), M, N, K, blocksize,
+        rows, splits, _lib.host_f32(units), *extra, int(G2.dtype == torch.bfloat16), _lib.stream(G2),
+    )
+    _lib.check(err, entry)
+    _lib.LAUNCHES[entry] += 1
+    return out
+
+
+def gemm_4bit_paired_nt(G, P, absmax_t, code, blocksize: int, shapeB: tuple, out_dtype=None) -> torch.Tensor:
+    """Fused ``G @ dequant(B)`` over the N-paired layout (contract over N):
+    ``G [..., N]`` -> ``[..., K]`` in ``out_dtype`` (default ``G.dtype``; on
+    CUDA, G is contiguous bf16 or float32 and the output takes its type)."""
+    N, K = (int(s) for s in shapeB)
+    lead, M, out_dtype = _nt_args(G, N, K, blocksize, out_dtype)
+    _check_payload(P, absmax_t, N, K, blocksize)
+    units = _units(_code_tuple(code))
+    if not use_kernel(G, P, absmax_t):
+        return gemm_4bit_paired_nt_plain(G.reshape(M, N), P, absmax_t, units, blocksize).to(out_dtype).reshape(*lead, K)
+    if out_dtype != G.dtype:
+        raise ValueError("the CUDA kernel writes g's type")
+    if M == 0:
+        return torch.empty(*lead, K, dtype=out_dtype, device=G.device)
+    _check_aligned(absmax_t)
+    out = _launch_nt("gemm_4bit_paired_nt", G.reshape(M, N), P, (absmax_t.data_ptr(),), (), M, N, K,
+                     blocksize, units)
+    return out.reshape(*lead, K)
+
+
+def gemm_4bit_paired_nt_dq_plain(G2, P, codes_t, s2, offset, units, blocksize: int) -> torch.Tensor:
+    return gemm_4bit_paired_nt_plain(G2, P, nested_absmax_t(codes_t, s2, offset), units, blocksize)
+
+
+def gemm_4bit_paired_nt_dq(G, P, codes_t, s2, offset, code, blocksize: int, shapeB: tuple,
+                           out_dtype=None) -> torch.Tensor:
+    """:func:`gemm_4bit_paired_nt` with the absmax double-quantized (the
+    scale arguments of :func:`gemm_4bit_paired_dq`)."""
+    N, K = (int(s) for s in shapeB)
+    lead, M, out_dtype = _nt_args(G, N, K, blocksize, out_dtype)
+    if P.dtype != torch.uint8 or tuple(P.shape) != (N // 2, K) or not P.is_contiguous():
+        raise ValueError(f"P must be a contiguous uint8 [{N // 2}, {K}] tensor")
+    _check_nested(codes_t, s2, offset, N, K, blocksize)
+    units = _units(_code_tuple(code))
+    if not use_kernel(G, P, codes_t, s2, offset):
+        out = gemm_4bit_paired_nt_dq_plain(G.reshape(M, N), P, codes_t, s2, offset, units, blocksize)
+        return out.to(out_dtype).reshape(*lead, K)
+    if out_dtype != G.dtype:
+        raise ValueError("the CUDA kernel writes g's type")
+    if M == 0:
+        return torch.empty(*lead, K, dtype=out_dtype, device=G.device)
+    _check_aligned(codes_t)
+    dec = _dyn_decode()
+    out = _launch_nt("gemm_4bit_paired_nt_dq", G.reshape(M, N), P,
+                     (codes_t.data_ptr(), s2.data_ptr(), offset.data_ptr()), (ctypes.addressof(dec),),
+                     M, N, K, blocksize, units)
+    return out.reshape(*lead, K)

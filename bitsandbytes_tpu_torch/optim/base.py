@@ -1,0 +1,191 @@
+"""bitsandbytes-style optimizers with 8-bit blockwise states.
+
+Counterpart of the JAX package's ``optim/base.py``: ``make_optimizer`` builds
+a ``torch.optim.Optimizer`` for one of eight rules (``OPTIMIZER_NAMES``).  A
+parameter with at least ``min_8bit_size`` elements under ``optim_bits=8``
+keeps its moments as uint8 codes with one float32 absmax per 256 elements;
+any other keeps float32 moments.  Per parameter, ``optimizer.state[p]``
+holds ``step`` and ``state1`` (and ``state2`` for the two-state rules), plus
+``absmax1``/``absmax2`` when 8-bit: the JAX package's per-leaf layout.
+
+An 8-bit step is one fused kernel (kernel 14) on CUDA.  With ``max_unorm``
+(LAMB, LARS) an 8-bit parameter takes the blockwise dequantize (kernel 12),
+the clipped fp32 step, and the blockwise quantize (kernel 13) instead, as
+the JAX package does.  The steps run in place under ``torch.no_grad()``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from ..functional.blockwise import dequantize_blockwise_with_code, quantize_blockwise_with_code
+from ..functional.codebooks import create_dynamic_map
+from ..functional.optim_update import (
+    BLOCKSIZE_8BIT_STATE,
+    OPTIMIZER_NAMES,
+    optimizer_update_32bit,
+)
+from ..ops.optim8bit import StateCodes, UpdateScalars, optimizer_update_8bit_
+
+__all__ = ["BnbOptimizer", "GlobalOptimManager", "make_optimizer"]
+
+_TWO_STATE = ("adam", "lamb", "ademamix")
+
+LearningRate = Union[float, Callable[[int], float]]
+
+
+class GlobalOptimManager:
+    """Per-parameter overrides of the optimizer config: not ported yet
+    (ROADMAP Queue 1, slice D, ``optim/overrides.py`` and ``optim/compat.py``)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "GlobalOptimManager is not ported yet (ROADMAP Queue 1, slice D: optim/overrides.py)")
+
+    @classmethod
+    def get_instance(cls):
+        return cls()
+
+
+def _ademamix_schedules(step: int, alpha: float, beta3: float, t_alpha, t_beta3):
+    """AdEMAMix's alpha and beta3 warm-ups at ``step`` (float32)."""
+    f32 = np.float32
+    alpha_t = min(f32(step) * f32(alpha) / f32(t_alpha), f32(alpha)) if t_alpha else f32(alpha)
+    if t_beta3 and step < t_beta3:
+        frac = min(max(step / t_beta3, 0.0), 1.0)
+        denom = (1 - frac) / math.log(0.9) + frac / math.log(beta3)
+        beta3_t = f32(math.exp(1.0 / denom))
+    else:
+        beta3_t = f32(beta3)
+    return float(alpha_t), float(beta3_t)
+
+
+class BnbOptimizer(torch.optim.Optimizer):
+    """One of the eight rules over ``params``, with 8-bit or 32-bit states.
+
+    ``lr`` may be a callable of the step (a schedule).  ``is_paged`` and an
+    8-bit AdEMAMix raise: paged states (``optim/paged.py``) and the
+    three-state kernel (kernel 15) are not ported yet."""
+
+    def __init__(
+        self,
+        params,
+        name: str,
+        lr: LearningRate = 1e-3,
+        *,
+        beta1: float = 0.9,
+        beta2: float = 0.999,
+        beta3: float = 0.0,
+        alpha: float = 0.0,
+        t_alpha: Optional[int] = None,
+        t_beta3: Optional[int] = None,
+        eps: float = 1e-8,
+        weight_decay: float = 0.0,
+        optim_bits: int = 32,
+        min_8bit_size: int = 4096,
+        max_unorm: float = 0.0,
+        gnorm_scale: float = 1.0,
+        is_paged: bool = False,
+    ):
+        if name not in OPTIMIZER_NAMES:
+            raise ValueError(f"unknown optimizer {name!r}")
+        if optim_bits not in (8, 32):
+            raise ValueError("optim_bits must be 8 or 32")
+        if is_paged:
+            raise NotImplementedError("paged optimizer states are not ported yet "
+                                      "(ROADMAP Queue 1, slice D: optim/paged.py)")
+        if name == "ademamix" and optim_bits == 8:
+            raise NotImplementedError("8-bit AdEMAMix needs kernel 15 (_run_ademamix), not ported yet "
+                                      "(ROADMAP Queue 1, slice D)")
+        defaults = dict(lr=lr, beta1=beta1, beta2=beta2, beta3=beta3, alpha=alpha, t_alpha=t_alpha,
+                        t_beta3=t_beta3, eps=eps, weight_decay=weight_decay, optim_bits=optim_bits,
+                        min_8bit_size=min_8bit_size, max_unorm=max_unorm, gnorm_scale=gnorm_scale)
+        super().__init__(params, defaults)
+        self.name = name
+        self.qmap1 = create_dynamic_map(signed=True)
+        self.qmap2 = create_dynamic_map(signed=False)
+        self.codes = StateCodes(self.qmap1, self.qmap2 if name in _TWO_STATE else None)
+
+    def _init_state(self, p: torch.Tensor, group: dict) -> dict:
+        two = self.name in _TWO_STATE
+        lead = (2,) if self.name == "ademamix" else ()
+        state = {"step": 0}
+        if group["optim_bits"] == 8 and p.numel() >= group["min_8bit_size"]:
+            nb = -(-p.numel() // BLOCKSIZE_8BIT_STATE)
+            state["state1"] = torch.zeros(lead + tuple(p.shape), dtype=torch.uint8, device=p.device)
+            state["absmax1"] = torch.zeros(lead + (nb,), dtype=torch.float32, device=p.device)
+            if two:
+                state["state2"] = torch.zeros(tuple(p.shape), dtype=torch.uint8, device=p.device)
+                state["absmax2"] = torch.zeros(nb, dtype=torch.float32, device=p.device)
+        else:
+            state["state1"] = torch.zeros(lead + tuple(p.shape), dtype=torch.float32, device=p.device)
+            if two:
+                state["state2"] = torch.zeros(tuple(p.shape), dtype=torch.float32, device=p.device)
+        return state
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state.update(self._init_state(p, group))
+                state["step"] += 1
+                self._update(p, p.grad, state, group)
+        return loss
+
+    def _update(self, p: torch.Tensor, g: torch.Tensor, state: dict, group: dict) -> None:
+        step = state["step"]
+        lr = group["lr"](step) if callable(group["lr"]) else group["lr"]
+        alpha, beta3 = group["alpha"], group["beta3"]
+        if self.name == "ademamix":
+            alpha, beta3 = _ademamix_schedules(step, alpha, beta3, group["t_alpha"], group["t_beta3"])
+        hyper = dict(beta1=group["beta1"], beta2=group["beta2"], eps=group["eps"],
+                     weight_decay=group["weight_decay"], step=step, lr=lr, gnorm_scale=group["gnorm_scale"])
+        s1, s2 = state["state1"], state.get("state2")
+        eight_bit = s1.dtype == torch.uint8
+        bs = BLOCKSIZE_8BIT_STATE
+        if eight_bit and group["max_unorm"] <= 0.0:
+            sc = UpdateScalars.make(self.name, **hyper)
+            optimizer_update_8bit_(sc, g.contiguous(), p, s1, s2, state["absmax1"], state.get("absmax2"),
+                                   self.codes)
+            return
+        param_norm = 0.0
+        if group["max_unorm"] > 0.0:
+            param_norm = torch.sqrt((p.to(torch.float32) ** 2).sum())
+        if eight_bit:  # the update norm needs every element: dequantize, clipped fp32 step, requantize
+            s1 = dequantize_blockwise_with_code(s1, state["absmax1"], self.qmap1, bs, torch.float32)
+            if s2 is not None:
+                s2 = dequantize_blockwise_with_code(s2, state["absmax2"], self.qmap2, bs, torch.float32)
+        new_p, n1, n2 = optimizer_update_32bit(
+            self.name, g, p, s1, s2, beta3=beta3, alpha=alpha, max_unorm=group["max_unorm"],
+            param_norm=param_norm, **hyper)
+        p.copy_(new_p)
+        if eight_bit:
+            q1, am1 = quantize_blockwise_with_code(n1, self.qmap1, bs)
+            state["state1"].copy_(q1)
+            state["absmax1"].copy_(am1)
+            if n2 is not None:
+                q2, am2 = quantize_blockwise_with_code(n2, self.qmap2, bs)
+                state["state2"].copy_(q2)
+                state["absmax2"].copy_(am2)
+        else:
+            state["state1"].copy_(n1)
+            if n2 is not None:
+                state["state2"].copy_(n2)
+
+
+def make_optimizer(name: str, params, lr: LearningRate = 1e-3, **kwargs) -> BnbOptimizer:
+    """A :class:`BnbOptimizer` of rule ``name`` over ``params`` (keyword
+    arguments as its constructor's)."""
+    return BnbOptimizer(params, name, lr, **kwargs)

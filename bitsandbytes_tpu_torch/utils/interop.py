@@ -9,6 +9,12 @@ double-quantized one adds ``offset``, ``nested_absmax``, ``nested_blocksize``
 and ``nested_code``, and its ``absmax`` holds the uint8 codes, which stay
 uint8.  A key outside these raises rather than be dropped.  Float and
 already-quantized trees are both accepted.
+
+:func:`lora_from_numpy` carries a LoRA adapter tree (``{"layers": [{target:
+{"a", "b", "scale"}}]}``) and :func:`optim_state_from_numpy` an optimizer
+state (``{"step", "leaves"}``, the leaves shaped like the adapter tree, each
+a dict of ``state1``/``state2``/``absmax1``/``absmax2``) into the port, so
+that both packages take the same next step from the same state.
 """
 
 from __future__ import annotations
@@ -21,11 +27,23 @@ from ..functional.quant_state import QuantState
 from ..nn.modules import QuantizedTensor
 from ..ops.dispatch import resolve_device
 
-__all__ = ["params_from_numpy", "tensor_from_numpy", "QUANTIZED_KEYS", "NESTED_KEYS"]
+__all__ = [
+    "params_from_numpy",
+    "tensor_from_numpy",
+    "lora_from_numpy",
+    "optim_state_from_numpy",
+    "QUANTIZED_KEYS",
+    "NESTED_KEYS",
+    "LORA_KEYS",
+    "STATE_KEYS",
+]
 
 QUANTIZED_KEYS = frozenset({"data", "absmax", "shape", "blocksize", "quant_type", "layout", "code"})
 NESTED_KEYS = frozenset({"offset", "nested_absmax", "nested_blocksize", "nested_code"})
 _OPTIONAL_KEYS = frozenset({"dtype"})
+LORA_KEYS = frozenset({"a", "b", "scale"})
+LORA_TARGETS = frozenset({"wq", "wk", "wv", "wo", "gate", "up", "down"})
+STATE_KEYS = frozenset({"state1", "state2", "absmax1", "absmax2"})
 
 _DTYPES = {
     "float32": torch.float32,
@@ -45,9 +63,7 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
 
 
 def _quantized(d: dict, device) -> QuantizedTensor:
-    unknown = set(d) - QUANTIZED_KEYS - NESTED_KEYS - _OPTIONAL_KEYS
-    if unknown:
-        raise ValueError(f"unknown keys in a quantized weight: {sorted(unknown)}")
+    _check_keys(d, QUANTIZED_KEYS | NESTED_KEYS | _OPTIONAL_KEYS, "a quantized weight")
     nested = NESTED_KEYS & set(d)
     if nested and nested != NESTED_KEYS:
         raise ValueError(f"a nested state needs all of {sorted(NESTED_KEYS)}, got {sorted(nested)}")
@@ -100,3 +116,57 @@ def params_from_numpy(tree, device=None):
         return tensor_from_numpy(node, device)
 
     return walk(tree)
+
+
+def _check_keys(found, allowed, what: str) -> None:
+    unknown = set(found) - set(allowed)
+    if unknown:
+        raise ValueError(f"unknown keys in {what}: {sorted(unknown)}")
+
+
+def lora_from_numpy(tree, device=None, requires_grad: bool = True) -> dict:
+    """A JAX-package adapter tree, as numpy, -> the port's (float32 tensors
+    on ``device``, CUDA unless named, trainable unless ``requires_grad`` is
+    False)."""
+    device = resolve_device(device)
+    _check_keys(tree, {"layers"}, "an adapter tree")
+    layers = []
+    for layer in tree["layers"]:
+        _check_keys(layer, LORA_TARGETS, "an adapter layer")
+        out = {}
+        for name, ad in layer.items():
+            _check_keys(ad, LORA_KEYS, f"adapter {name!r}")
+            if set(ad) != LORA_KEYS:
+                raise ValueError(f"adapter {name!r} needs all of {sorted(LORA_KEYS)}")
+            out[name] = {
+                k: tensor_from_numpy(np.asarray(ad[k], dtype=np.float32), device).requires_grad_(requires_grad)
+                for k in ("a", "b", "scale")
+            }
+        layers.append(out)
+    return {"layers": layers}
+
+
+def optim_state_from_numpy(optimizer: torch.optim.Optimizer, lora: dict, state) -> None:
+    """Load a JAX-package optimizer state, as numpy ``{"step", "leaves"}``,
+    into ``optimizer`` for the tensors of ``lora`` (the same tree, built
+    with :func:`lora_from_numpy`); each tensor's state takes the global
+    step and its leaf's arrays, uint8 codes staying uint8."""
+    _check_keys(state, {"step", "leaves"}, "an optimizer state")
+    step = int(np.asarray(state["step"]))
+    leaves = state["leaves"]
+    _check_keys(leaves, {"layers"}, "the optimizer state's leaves")
+    if len(leaves["layers"]) != len(lora["layers"]):
+        raise ValueError("the optimizer state and the adapters have different numbers of layers")
+    for layer_t, layer_s in zip(lora["layers"], leaves["layers"]):
+        if set(layer_s) != set(layer_t):
+            raise ValueError(f"targets differ: {sorted(layer_s)} against {sorted(layer_t)}")
+        for name, ad in layer_t.items():
+            _check_keys(layer_s[name], LORA_KEYS, f"the state of adapter {name!r}")
+            for k, p in ad.items():
+                leaf = layer_s[name][k]
+                _check_keys(leaf, STATE_KEYS, f"the state of {name}.{k}")
+                st = optimizer.state[p]
+                st.clear()
+                st["step"] = step
+                for key, arr in leaf.items():
+                    st[key] = tensor_from_numpy(arr, p.device).contiguous()

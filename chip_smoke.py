@@ -9,19 +9,26 @@ Phases (every one asserts; any failure exits non-zero before the result):
 
 1. Device: the card's name and power limit (nvidia-smi), TF32 off.
 2. Build: compiles the CUDA kernels from ``bitsandbytes_tpu_torch/csrc``.
-3. Kernels against their plain PyTorch versions on the card, at the serving
+3. Kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (Llama-3-8B geometry), with times, bytes and bounds; the
-   sweep that chose ``functional/gemm.LARGE_M_THRESHOLD``; ragged shapes.
-4. The serving paths at full width: Llama-3-8B, all 32 layers, random
+   sweep that chose ``functional/gemm.LARGE_M_THRESHOLD``; ragged shapes;
+   the backward kernels 7 and 8 (3h), the fused 8-bit optimizer update,
+   kernel 14 (3i), and the sweep that chose
+   ``functional/gemm.BACKWARD_LARGE_M_THRESHOLD`` (3j).
+4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
    then with the absmax double-quantized, ``compress_statistics=True``
    (4b); then the blockwise 8-bit round trip of an lm_head-sized tensor
-   with ``nested=True`` (4c).  The kernels' launch counts are zeroed just
-   before each path and read just after it.
+   with ``nested=True`` (4c); then QLoRA training on 4b's model (4d):
+   rank-64 adapters on all seven targets, ``adamw8bit``, 4 x 512 tokens,
+   five ``lora_train_step`` calls.  The kernels' launch counts are zeroed
+   just before each path and read just after it.
 5. Both serving paths at 2 layers on the card and on the CPU (plain
    versions): equal quantized bytes, logits within tolerance, top-5
-   containment.
+   containment; then one QLoRA step of each at 2 layers, M = 16 (5b): the
+   loss and adapter gradients against the CPU, and the card's optimizer
+   step against the CPU's on the same gradients.
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -65,7 +72,17 @@ TPU_KERNELS = {
         "bitsandbytes_tpu/ops/pallas/blockwise8.py:145", "bitsandbytes_tpu_torch/csrc/blockwise8.cu"),
     "dequantize_blockwise8": (
         "bitsandbytes_tpu/ops/pallas/blockwise8.py:124", "bitsandbytes_tpu_torch/csrc/blockwise8.cu"),
+    "gemm_4bit_paired_nt": (
+        "bitsandbytes_tpu/ops/pallas/gemm4bit_paired.py:771",
+        "bitsandbytes_tpu_torch/csrc/gemm4bit_paired.cu"),
+    "gemm_4bit_paired_nt_dq": (
+        "bitsandbytes_tpu/ops/pallas/gemm4bit_paired.py:827",
+        "bitsandbytes_tpu_torch/csrc/gemm4bit_paired.cu"),
+    "optimizer_update_8bit": (
+        "bitsandbytes_tpu/ops/pallas/optim8bit.py:251", "bitsandbytes_tpu_torch/csrc/optim8bit.cu"),
 }
+
+LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 # Llama-3-8B decode linears (N, K) after fusing q/k/v and gate/up
 LINEARS = {"wqkv": (6144, 4096), "wo": (4096, 4096), "gate_up": (28672, 4096), "down": (4096, 14336)}
@@ -105,6 +122,7 @@ def main() -> int:
         flash_attention_cached,
         flash_attention_cached_plain,
     )
+    from bitsandbytes_tpu_torch import optim as O
     from bitsandbytes_tpu_torch.ops.gemm4bit_paired import (
         _units,
         _code_tuple,
@@ -115,7 +133,17 @@ def main() -> int:
         gemm_4bit_paired,
         gemm_4bit_paired_dq,
         gemm_4bit_paired_dq_plain,
+        gemm_4bit_paired_nt,
+        gemm_4bit_paired_nt_dq,
+        gemm_4bit_paired_nt_dq_plain,
+        gemm_4bit_paired_nt_plain,
         gemm_4bit_paired_plain,
+    )
+    from bitsandbytes_tpu_torch.ops.optim8bit import (
+        StateCodes,
+        UpdateScalars,
+        optimizer_update_8bit_,
+        optimizer_update_8bit_plain,
     )
     from bitsandbytes_tpu_torch.ops.quant4bit import quantize_4bit_codes, quantize_4bit_codes_plain
     from bitsandbytes_tpu_torch.utils.benchmark import bandwidth_canary, cuda_time
@@ -475,6 +503,175 @@ def main() -> int:
         cases.append(f"blockwise8 bs{bbs} n{n} zero-block stochastic f32/bf16/f16")
     emit("ragged_shapes_nested", passed=cases)
 
+    # -- 3h. kernels 7 and 8: the backward g @ dequant(B) ------------------
+    def nt_rel(out, ref):
+        return ((out.float() - ref).abs().max() / ref.abs().max()).item()
+
+    def nt_tol(dt):
+        return 1e-5 if dt == torch.float32 else 1e-2
+
+    cases = []
+    for Mx, N, K, gbs in ((1, 2, 32, 32), (3, 18, 96, 32), (7, 64, 768, 32), (13, 130, 4160, 64),
+                          (16, 256, 2176, 128), (31, 512, 4096, 256), (2, 4096, 14336, 64)):
+        for compress in (False, True):
+            qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev), blocksize=gbs,
+                                          compress_statistics=compress)
+            st = qw.state
+            for dt in (torch.bfloat16, torch.float32):
+                Gx = torch.randn(Mx, N, generator=gen, device=dev).to(dt)
+                if compress:
+                    args = (qw.data, st.absmax, st.state2.absmax, st.offset)
+                    out = gemm_4bit_paired_nt_dq(Gx, *args, code, gbs, (N, K))
+                    ref = gemm_4bit_paired_nt_dq_plain(Gx, *args, units, gbs)
+                    # kernel 8 on the nested state gives kernel 7's bits on the resolved absmax
+                    assert torch.equal(out, gemm_4bit_paired_nt(Gx, qw.data, st.dequant_absmax_t(), code, gbs,
+                                                                (N, K))), f"nt_dq vs resolved {(Mx, N, K, gbs)}"
+                else:
+                    out = gemm_4bit_paired_nt(Gx, qw.data, st.absmax, code, gbs, (N, K))
+                    ref = gemm_4bit_paired_nt_plain(Gx, qw.data, st.absmax, units, gbs)
+                assert out.dtype == dt and out.shape == (Mx, K)
+                rel = nt_rel(out, ref)
+                assert rel <= nt_tol(dt), f"nt {(Mx, N, K, gbs, compress, dt)}: rel {rel}"
+                cases.append(f"nt{'_dq' if compress else ''} M{Mx} N{N} K{K} bs{gbs} {str(dt)[6:]} rel {rel:.2e}")
+    emit("ragged_shapes_backward", passed=cases)
+
+    def nt_layer(compress):
+        """Kernel 7 (or 8) on one layer's four linears transposed, M = 16."""
+        M = 16
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
+        per_shape = []
+        for name, (N, K) in LINEARS.items():
+            Wf = torch.randn(N, K, generator=gen, device=dev) * K**-0.5
+            qw = QuantizedTensor.quantize(Wf, blocksize=bs, compress_statistics=compress)
+            del Wf
+            st = qw.state
+            Gx = torch.randn(M, N, generator=gen, device=dev).to(torch.bfloat16)
+            if compress:
+                args = (qw.data, st.absmax, st.state2.absmax, st.offset)
+                run = lambda: gemm_4bit_paired_nt_dq(Gx, *args, code, bs, (N, K))  # noqa: E731
+                plain = lambda: gemm_4bit_paired_nt_dq_plain(Gx, *args, units, bs)  # noqa: E731
+                Wb = dequantize_paired_fast_dq_plain(*args, units, bs, torch.bfloat16)
+                sbytes = (K // bs) * N + st.state2.absmax.numel() * 4 + 4
+            else:
+                run = lambda: gemm_4bit_paired_nt(Gx, qw.data, st.absmax, code, bs, (N, K))  # noqa: E731
+                plain = lambda: gemm_4bit_paired_nt_plain(Gx, qw.data, st.absmax, units, bs)  # noqa: E731
+                Wb = dequantize_paired_fast_plain(qw.data, st.absmax, units, bs, torch.bfloat16)
+                sbytes = (K // bs) * N * 4
+            out, ref = run(), plain()
+            rel = nt_rel(out, ref)
+            assert rel <= 1e-2, f"nt {name}: rel {rel}"
+            ms = cuda_time(run, flush_l2=True)["median"]
+            pms = cuda_time(plain, n=3)["median"]
+            lms = cuda_time(lambda: torch.matmul(Gx, Wb), flush_l2=True)["median"]
+            nbytes = M * N * 2 + N * K // 2 + sbytes + M * K * 2
+            per_shape.append({"linear": name + "^T", "N": N, "K": K, "M": M, "ms": ms, "plain_ms": pms,
+                              "library_ms": lms, "bytes": nbytes,
+                              "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0], "rel_err": rel})
+            for key, v in (("ms", ms), ("plain", pms), ("lib", lms), ("bytes", nbytes), ("ops", 2 * M * N * K)):
+                tot[key] += v
+            tot["err"] = max(tot["err"], (out.float() - ref).abs().max().item())
+            del qw, Wb, out, ref
+        return tot, per_shape
+
+    for name, compress in (("gemm_4bit_paired_nt", False), ("gemm_4bit_paired_nt_dq", True)):
+        tot, per_shape = nt_layer(compress)
+        entry(name, tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"], PEAK_BF16_FLOPS, tot["err"],
+              per_shape=per_shape, note="sum over one layer's 4 linears transposed, M=16, bf16 g; library: "
+                                        "torch.matmul(g, W) on the dequantized bf16 weight")
+    torch.cuda.empty_cache()
+
+    # -- 3i. kernel 14: the fused 8-bit optimizer update --------------------
+    q1, q2 = create_dynamic_map(signed=True), create_dynamic_map(signed=False)
+    q1_t, q2_t = tuple(float(v) for v in q1), tuple(float(v) for v in q2)
+    codes1, codes2 = StateCodes(q1), StateCodes(q1, q2)
+    hyper = {"adam": (0.9, 0.999, 1e-8, 1e-2, 1e-3), "lamb": (0.9, 0.999, 1e-8, 0.0, 1e-3),
+             "momentum": (0.9, 0.0, 0.0, 1e-2, 1e-2), "lars": (0.9, 0.0, 0.0, 0.0, 1e-2),
+             "lion": (0.9, 0.99, 0.0, 1e-2, 1e-4), "rmsprop": (0.99, 0.0, 1e-8, 0.0, 1e-2),
+             "adagrad": (0.0, 0.0, 1e-10, 1e-2, 1e-2)}
+
+    def opt_inputs(name, n, zero_block=False):
+        nb = -(-n // 256)
+        g = torch.randn(n, generator=gen, device=dev) * 0.01
+        g[7], g[600] = float("nan"), float("inf")
+        p = torch.randn(n, generator=gen, device=dev)
+        lo = 127 if name in ("rmsprop", "adagrad") else 0  # a non-negative state1
+        s1 = torch.randint(lo, 256, (n,), generator=gen, device=dev, dtype=torch.uint8)
+        am1 = torch.rand(nb, generator=gen, device=dev) * 0.01
+        two = name in ("adam", "lamb")
+        s2 = torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8) if two else None
+        am2 = torch.rand(nb, generator=gen, device=dev) * 1e-4 if two else None
+        if zero_block:  # a block whose new states are all zero
+            g[256:512] = 0.0
+            s1[256:512] = 127 if lo else 0
+            am1[1] = 0.0
+            if two:
+                s2[256:512] = 0
+                am2[1] = 0.0
+        return g, p, s1, s2, am1, am2
+
+    def opt_check(name, step, n, zero_block):
+        b1, b2, eps, wd, lr = hyper[name]
+        sc = UpdateScalars.make(name, beta1=b1, beta2=b2, eps=eps, weight_decay=wd, step=step, lr=lr)
+        g, p, s1, s2, am1, am2 = opt_inputs(name, n, zero_block)
+        ref = optimizer_update_8bit_plain(sc, g, p, s1, s2, am1, am2, q1_t, q2_t if s2 is not None else None, True)
+        kout = [None if t is None else t.clone() for t in (p, s1, s2, am1, am2)]
+        optimizer_update_8bit_(sc, g, *kout, codes2 if s2 is not None else codes1)
+        torch.cuda.synchronize()
+        ulp = (kout[0].view(torch.int32).long() - ref[0].view(torch.int32).long()).abs().max().item()
+        assert ulp <= 1, f"optimizer {name} step {step} n {n}: params {ulp} ulp apart"
+        for k, r, what in zip(kout[1:], ref[1:], ("state1", "state2", "absmax1", "absmax2")):
+            assert (k is None) == (r is None) and (k is None or torch.equal(k, r)), f"optimizer {name} {what}"
+        assert kout[0][7].item() == p[7].item() and kout[0][600].item() == p[600].item(), "non-finite g moved p"
+        return {"rule": name, "step": step, "n": n, "zero_block": zero_block, "param_ulp": ulp}
+
+    checks = [opt_check(name, step, 2048 + 100, step == 1) for name in hyper for step in (1, 5)]
+    checks += [opt_check(name, 5, 14336 * 64, False) for name in ("adam", "lion")]
+
+    def opt_time(n):
+        """Kernel 14 (adamw, step 5) on an n-element leaf, its plain
+        version, and torch.optim.AdamW(fused=True) on f32 states of the same
+        size, a different function (no PyTorch call keeps 8-bit states)."""
+        sc = UpdateScalars.make("adam", beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=1e-2, step=5, lr=1e-3)
+        g, p, s1, s2, am1, am2 = opt_inputs("adam", n)
+        ms = cuda_time(lambda: optimizer_update_8bit_(sc, g, p, s1, s2, am1, am2, codes2), flush_l2=True)["median"]
+        pms = cuda_time(lambda: optimizer_update_8bit_plain(sc, g, p, s1, s2, am1, am2, q1_t, q2_t, True),
+                        n=3, warmup=1)["median"]
+        tp = torch.nn.Parameter(p.clone())
+        tp.grad = torch.nan_to_num(g, nan=0.0, posinf=0.0)
+        fused = torch.optim.AdamW([tp], lr=1e-3, weight_decay=1e-2, fused=True)
+        fused.step()
+        fms = cuda_time(fused.step, flush_l2=True)["median"]
+        # g read, p read and written, two uint8 states and two absmax read and written
+        nbytes = n * 12 + 2 * (2 * n + 8 * -(-n // 256))
+        return {"n": n, "ms": ms, "plain_ms": pms, "adamw_fused_f32_ms": fms, "bytes": nbytes,
+                "bound_ms": bound_ms(nbytes, 25 * n, PEAK_F32_FLOPS)[0]}
+
+    lora_leaf = opt_time(14336 * 64)  # the gate adapter's b [14336, 64]
+    big_leaf = opt_time(64 << 20)
+    torch.cuda.empty_cache()
+    entry("optimizer_update_8bit", lora_leaf["ms"], lora_leaf["plain_ms"], None, lora_leaf["bytes"],
+          25 * lora_leaf["n"], PEAK_F32_FLOPS, 0.0, shape=[14336, 64], rule="adamw, step 5", cases=checks,
+          leaf_64M=big_leaf, adamw_fused_f32_ms=lora_leaf["adamw_fused_f32_ms"],
+          note="library_ms is null: no PyTorch call keeps 8-bit states; adamw_fused_f32_ms is "
+               "torch.optim.AdamW(fused=True) on f32 states of the same size, a different function")
+
+    # -- 3j. the backward threshold: kernel 7 against kernel 3 + matmul ------
+    sweep = []
+    for name in ("gate_up", "down"):
+        N, K = LINEARS[name]
+        qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev) * K**-0.5, blocksize=bs)
+        P, am_t = qw.data, qw.state.absmax
+        for Mx in (1, 8, 16, 32, 64, 128):
+            Gx = torch.randn(Mx, N, generator=gen, device=dev).to(torch.bfloat16)
+            k7 = cuda_time(lambda: gemm_4bit_paired_nt(Gx, P, am_t, code, bs, (N, K)), n=10, flush_l2=True)
+            k3 = cuda_time(lambda: torch.matmul(Gx, dequantize_paired_fast(P, am_t, code, bs)), n=10,
+                           flush_l2=True)
+            sweep.append({"linear": name + "^T", "M": Mx, "nt_kernel_ms": k7["median"],
+                          "dequant_matmul_ms": k3["median"]})
+        del qw
+    emit("backward_threshold_sweep", BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD, points=sweep)
+    torch.cuda.empty_cache()
+
     # -- 4. the serving paths at full width -------------------------------
     steps, prompt, batch, max_len = 32, 128, 8, 1024
     assert batch * prompt >= G.LARGE_M_THRESHOLD > batch, "prefill must take the dequant route, decode the GEMM"
@@ -486,7 +683,14 @@ def main() -> int:
     def self_dev_us(e):  # named self_cuda_time_total before torch 2.4
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    def serve(tag, compress, expected):
+    def device_events(prof):
+        """Device-side events only (kernels, memcpy, memset): an operator's
+        own entry repeats the time of the kernels it launched, and a user
+        annotation (``Optimizer.step``) spans them on the device's timeline."""
+        return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev_us(e) > 0
+                and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+
+    def serve(tag, compress, expected, keep=False):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -540,9 +744,7 @@ def main() -> int:
                 tok = logits.argmax(-1)
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side events only (kernels, memcpy, memset): an operator's own
-        # entry repeats the time of the kernels it launched
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev_us(e) > 0]
+        events = device_events(prof)
         dev_us = sum(self_dev_us(e) for e in events)
         top = sorted(((e.key, self_dev_us(e) / 4e3, e.count // 4) for e in events), key=lambda r: -r[1])[:8]
 
@@ -569,12 +771,15 @@ def main() -> int:
                              "top_kernels_ms_per_step": top},
             first_tokens=toks[0, :8].tolist(),
         )
-        del params, cache, logits
+        del cache, logits
+        if not keep:
+            del params
+            params = None
         torch.cuda.empty_cache()
-        return counts
+        return counts, params
 
     # 4a. NF4
-    counts = serve("serve", False, {
+    counts, _ = serve("serve", False, {
         "quantize_4bit_codes": 4 * Lyr,
         "dequantize_paired_fast": 4 * Lyr,
         "gemm_4bit_paired": 4 * Lyr * steps,
@@ -584,13 +789,13 @@ def main() -> int:
         report[name]["launches"] = counts[name]
 
     # 4b. NF4 with the absmax double-quantized: the _dq kernels, never kernels 2/3
-    counts = serve("serve_nested", True, {
+    counts, nested_params = serve("serve_nested", True, {
         "quantize_4bit_codes": 4 * Lyr,
         "quantize_blockwise8": 4 * Lyr,
         "dequantize_paired_fast_dq": 4 * Lyr,
         "gemm_4bit_paired_dq": 4 * Lyr * steps,
         "flash_attention_cached": Lyr * (steps + 1),
-    })
+    }, keep=True)
     for name in ("gemm_4bit_paired_dq", "dequantize_paired_fast_dq", "quantize_blockwise8"):
         report[name]["launches"] = counts[name]
 
@@ -620,6 +825,76 @@ def main() -> int:
          launches=counts, max_err_over_bound=err, code_bytes=q8.numel(),
          absmax_bytes=s8.absmax.numel() + s8.state2.absmax.numel() * 4 + 4)
     del xl, q8, s8, back, am8
+    torch.cuda.empty_cache()
+
+    # -- 4d. QLoRA training at full width, on 4b's double-quantized model --
+    rank, alpha, tb, tt, tsteps, chunk = 64, 16.0, 4, 512, 5, 512
+    assert tb * tt >= G.LARGE_M_THRESHOLD and tb * tt >= G.BACKWARD_LARGE_M_THRESHOLD
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lora = L.add_lora(cfg, rank=rank, alpha=alpha, targets=LORA_TARGETS,
+                      generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    lparams = L.lora_parameters(lora)
+    n_adapter = sum(t.numel() for t in lparams if t.dim() > 0)
+    opt = O.adamw8bit(lparams, 1e-3)
+    tids = torch.randint(0, cfg.vocab_size, (tb, tt + 1), generator=torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    opt_ms = []
+    opt_step = opt.step
+
+    def timed_step(*a, **k):  # the optimizer's share of lora_train_step, host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = opt_step(*a, **k)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    opt.step = timed_step
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, train_ms = [], []
+    for _ in range(tsteps):
+        t0 = time.perf_counter()
+        loss = L.lora_train_step(nested_params, lora, opt, tids, cfg, token_chunk=chunk)
+        losses.append(loss.item())  # synchronizes
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    # forward: 4 dequantizes a layer; backward: 4 a layer but layer 0's wqkv,
+    # whose input needs no gradient; one update per adapter tensor a step
+    want.update({"dequantize_paired_fast_dq": tsteps * (8 * Lyr - 1),
+                 "optimizer_update_8bit": tsteps * 2 * len(LORA_TARGETS) * Lyr})
+    assert counts == want, f"qlora train: launch counts {counts} != {want}"
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0], f"qlora losses {losses}"
+    states = [opt.state[t] for t in lparams if t.dim() > 0]
+    assert all(st["state1"].dtype == torch.uint8 for st in states), "every adapter tensor keeps 8-bit states"
+    train_peak = torch.cuda.max_memory_allocated()
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        L.lora_train_step(nested_params, lora, opt, tids, cfg, token_chunk=chunk).item()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    dev_us = sum(self_dev_us(e) for e in events)
+    top = sorted(((e.key[:120], self_dev_us(e) / 1e3, e.count) for e in events), key=lambda r: -r[1])[:12]
+    dq_us = sum(self_dev_us(e) for e in events if "dequantize_paired" in e.key)
+    med = statistics.median(train_ms[1:])
+    emit("qlora_train", config="llama3_8b", layers=Lyr, compress_statistics=True, lora_rank=rank,
+         lora_alpha=alpha, targets=list(LORA_TARGETS), adapter_params=n_adapter, optimizer="adamw8bit",
+         lr=1e-3, batch=tb, seq=tt, tokens_per_step=tb * tt, token_chunk=chunk, steps=tsteps, losses=losses,
+         step_ms={"median_2_5": med, "all": train_ms}, tokens_per_s=tb * tt / (med * 1e-3),
+         optimizer_ms={"median_2_5": statistics.median(opt_ms[1:tsteps]), "all": opt_ms[:tsteps]},
+         peak_memory=train_peak, launches=counts,
+         launches_per_step={k: v / tsteps for k, v in counts.items() if v},
+         profiled_step={"wall_ms": prof_wall_ms, "device_ms": dev_us / 1e3,
+                        "device_busy_share": dev_us / 1e3 / prof_wall_ms,
+                        "dequantize_ms": dq_us / 1e3, "dequantize_share_of_device": dq_us / dev_us,
+                        "top_kernels_ms": top})
+    report["optimizer_update_8bit"]["launches"] = counts["optimizer_update_8bit"]
+    opt.step = opt_step
+    del lora, lparams, opt, states, nested_params, tids, loss, prof
     torch.cuda.empty_cache()
 
     # -- 5. both paths on the card and on the CPU, 2 layers ----------------
@@ -667,6 +942,71 @@ def main() -> int:
              compress_statistics=compress, max_abs_logit_diff=worst,
              prefill_route="dequant+matmul" if B2 * T2 >= G.LARGE_M_THRESHOLD else "gemm kernel")
         del gpu_params, cpu_params, gcache, ccache
+        torch.cuda.empty_cache()
+
+    # -- 5b. one QLoRA step at 2 layers, card against CPU, M = 16 ---------
+    B5, T5 = 2, 8  # ids [2, 9]: the small-M routes, kernels 2/5 forward and 7/8 backward
+    assert B5 * T5 < G.LARGE_M_THRESHOLD and B5 * T5 < G.BACKWARD_LARGE_M_THRESHOLD
+    ids5 = torch.randint(0, cfg2.vocab_size, (B5, T5 + 1), generator=torch.Generator().manual_seed(9))
+    lora0 = L.add_lora(cfg2, rank=64, alpha=16.0, targets=LORA_TARGETS,
+                       generator=torch.Generator().manual_seed(10), device="cpu")
+    g5 = torch.Generator().manual_seed(11)
+    for layer in lora0["layers"]:  # b non-zero, so that every adapter tensor has a gradient
+        for ad in layer.values():
+            ad["b"] = (torch.randn(ad["b"].shape, generator=g5) * 0.02).requires_grad_()
+
+    def fresh(device):  # a copy: the CPU's step must not move lora0
+        return {"layers": [{n: {k: t.detach().clone().to(device).requires_grad_() for k, t in ad.items()}
+                            for n, ad in layer.items()} for layer in lora0["layers"]]}
+
+    for compress in (False, True):
+        gpu_params = L.quantize_params_4bit(to_dev(cpu_float), fuse=True, compress_statistics=compress)
+        cpu_params = L.quantize_params_4bit(cpu_float, fuse=True, compress_statistics=compress)
+        lg = fresh(dev)
+        og = O.adamw8bit(L.lora_parameters(lg), 1e-3)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        loss_g = L.lora_train_step(gpu_params, lg, og, ids5.to(dev), cfg2).item()
+        counts = launch_counts()
+        sfx = "_dq" if compress else ""
+        want = {k: 0 for k in counts}
+        want.update({f"gemm_4bit_paired{sfx}": 4 * 2, f"gemm_4bit_paired_nt{sfx}": 4 * 2 - 1,
+                     "optimizer_update_8bit": 2 * len(LORA_TARGETS) * 2})
+        assert counts == want, f"qlora 2-layer step: launch counts {counts} != {want}"
+        report[f"gemm_4bit_paired_nt{sfx}"]["launches"] = counts[f"gemm_4bit_paired_nt{sfx}"]
+
+        lc = fresh("cpu")
+        loss_c = L.lm_loss(cpu_params, lc, ids5, cfg2)
+        loss_c.backward()
+        assert abs(loss_g - loss_c.item()) <= 1e-3 * abs(loss_c.item()), f"2-layer loss {loss_g} vs {loss_c.item()}"
+        grad_err = 0.0
+        for tg, tc in zip(L.lora_parameters(lg), L.lora_parameters(lc)):
+            a, b = tg.grad.cpu(), tc.grad
+            assert torch.allclose(a, b, rtol=2e-2, atol=2e-3), "adapter gradients differ from the CPU's"
+            grad_err = max(grad_err, (a - b).abs().max().item())
+        # the CPU's optimizer step on the card's gradients: the same adapters and states
+        lc2 = fresh("cpu")
+        oc = O.adamw8bit(L.lora_parameters(lc2), 1e-3)
+        for tc, tg in zip(L.lora_parameters(lc2), L.lora_parameters(lg)):
+            tc.grad = tg.grad.cpu()
+        oc.step()
+        p_err, n8 = 0.0, 0
+        for tc, tg in zip(L.lora_parameters(lc2), L.lora_parameters(lg)):
+            p_err = max(p_err, (tc.detach() - tg.detach().cpu()).abs().max().item())
+            sc, sg = oc.state[tc], og.state[tg]
+            for key in sc:
+                if key == "step":
+                    continue
+                if sc[key].dtype == torch.uint8:
+                    n8 += 1
+                    assert torch.equal(sc[key], sg[key].cpu()), f"8-bit state {key} differs from the CPU's"
+                else:
+                    assert torch.allclose(sc[key], sg[key].cpu(), rtol=1e-6, atol=0), f"state {key}"
+        assert p_err <= 1e-6 and n8 > 0, f"adapters {p_err} from the CPU's"
+        emit("cpu_check_qlora" + ("_nested" if compress else ""), layers=2, batch=B5, seq=T5, lora_rank=64,
+             compress_statistics=compress, loss_card=loss_g, loss_cpu=loss_c.item(),
+             max_abs_grad_diff=grad_err, max_abs_adapter_diff=p_err, states_8bit_equal=n8, launches=counts)
+        del gpu_params, cpu_params, lg, og, lc, lc2, oc
         torch.cuda.empty_cache()
 
     # -- 6. kernels line and result ---------------------------------------

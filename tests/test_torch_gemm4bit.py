@@ -116,6 +116,8 @@ def test_gemm_4bit_routes_match_jax(M):
 
 
 def test_matmul_4bit_is_forward_only():
+    """The forward matches the dequantized weight; since the backward was
+    ported, a gradient flows to the input only, never to the frozen weight."""
     lin = LinearNF4(K, N, bias=False, device="cpu", generator=torch.Generator().manual_seed(0))
     x = torch.randn(2, K, dtype=torch.bfloat16)
     y = lin(x)
@@ -123,8 +125,11 @@ def test_matmul_4bit_is_forward_only():
     np.testing.assert_allclose(
         y.float().numpy(), (x.float() @ W.float().t()).numpy(), rtol=2e-2, atol=2e-2
     )
-    with pytest.raises(NotImplementedError):
-        lin(x.requires_grad_())
+    xg = x.clone().requires_grad_()
+    lin(xg).float().sum().backward()
+    ref = W.float().sum(0).expand(2, K)
+    np.testing.assert_allclose(xg.grad.float().numpy(), ref.numpy(), rtol=2e-2, atol=2e-2)
+    assert lin.weight.data.grad is None and not lin.weight.data.requires_grad
 
 
 @pytest.mark.parametrize("bad", ["absmax_shape", "payload_dtype", "k_not_blocked", "a_width"])
