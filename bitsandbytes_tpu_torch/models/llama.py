@@ -1,8 +1,9 @@
 """Llama-family transformer on the 4-bit serving and QLoRA training paths.
 
 Counterpart of the JAX package's ``models/llama.py``: config presets, random
-init, 4-bit quantization of the layer weights, a dense static-shape KV
-cache, ``forward`` / ``prefill`` / ``decode_step``, and QLoRA training
+init, 4-bit quantization of the layer weights, the KV caches (dense bf16,
+dense int8 with per-position scales, and a paged block pool in either type),
+``forward`` / ``prefill`` / ``decode_step``, and QLoRA training
 (``add_lora``, ``lm_loss``, ``lora_train_step``).
 
 Parameters are a plain dict: ``embed``, ``layers`` (a list of dicts),
@@ -11,7 +12,10 @@ Parameters are a plain dict: ``embed``, ``layers`` (a list of dicts),
 dispatches per weight.  Every 4-bit linear goes through
 ``autograd.matmul_4bit``, and attention over the cache through the flash
 kernel (``ops/flash_cached.py``).  The lm_head stays bf16 and runs as
-``torch.matmul``.
+``torch.matmul``.  A paged cache is read through the paged flash kernel
+(``flash_attention_paged``); it takes per-slot decode steps only, as in the
+JAX package: prefill runs through a dense cache whose blocks the serving
+engine packs into the pool.
 
 The bf16/f32 cast points are the JAX package's: RMSNorm and RoPE compute in
 f32 and cast back, SiLU runs on the f32 gate, logits come out in f32.  A
@@ -37,15 +41,19 @@ import torch.utils.checkpoint
 from .. import autograd
 from ..nn.modules import QuantizedTensor
 from ..ops.dispatch import resolve_device
-from ..ops.flash_cached import GT_MAX, flash_attention_cached
+from ..ops.flash_cached import GT_MAX, flash_attention_cached, flash_attention_paged
 
 __all__ = [
     "LlamaConfig",
     "KVCache",
+    "Int8KVCache",
+    "PagedKVCache",
     "init_params",
     "init_kv_cache",
+    "init_paged_kv_cache",
     "quantize_params_4bit",
     "forward",
+    "lm_logits",
     "prefill",
     "decode_step",
     "add_lora",
@@ -139,15 +147,87 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, kv_dtype="bf16", device=None) -> KVCache:
-    if kv_dtype not in ("bf16", torch.bfloat16):
-        raise NotImplementedError("only a bf16 KV cache is supported by this port yet")
+class Int8KVCache(NamedTuple):
+    """int8 KV cache: ``k``/``v`` int8 ``[L, B, KVH, S, hd]``, ``k_scale`` /
+    ``v_scale`` f32 ``[L, B, KVH, S]``, the absmax/127 of each (slot, head,
+    position) row.  The flash kernel reads the codes and applies the scales
+    after the dot; the cache is never dequantized as a whole.  Written in
+    place, as :class:`KVCache`."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+
+class PagedKVCache(NamedTuple):
+    """Block-table KV cache: a shared pool ``k``/``v [L, NB, KVH, BS, hd]``
+    (bf16, or int8 with ``k_scale``/``v_scale [L, NB, KVH, BS]``) and
+    ``tables [B, MAXB]`` int32 mapping each slot's logical block j to a pool
+    block.  Memory scales with NB, not batch x max_len.  The serving engine
+    owns the allocation; decode writes and attention walk the table on the
+    device."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
+    tables: torch.Tensor
+
+
+def _is_int8(kv_dtype) -> bool:
+    if kv_dtype in ("int8", torch.int8):
+        return True
+    if kv_dtype in ("bf16", torch.bfloat16):
+        return False
+    raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, kv_dtype="bf16", device=None):
+    """A zeroed dense cache: :class:`KVCache` in bf16, :class:`Int8KVCache`
+    for ``kv_dtype="int8"``."""
+    int8 = _is_int8(kv_dtype)
     device = resolve_device(device)
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    if int8:
+        return Int8KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        )
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),
     )
+
+
+def init_paged_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, num_blocks: int, block_size: int = 128,
+                        kv_dtype="bf16", device=None) -> PagedKVCache:
+    """A zeroed pool of ``num_blocks`` blocks of ``block_size`` positions,
+    with every table entry 0."""
+    int8 = _is_int8(kv_dtype)
+    device = resolve_device(device)
+    max_blocks = -(-max_len // block_size)
+    shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads, block_size, cfg.head_dim)
+    dt = torch.int8 if int8 else cfg.dtype
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dt, device=device),
+        v=torch.zeros(shape, dtype=dt, device=device),
+        k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device) if int8 else None,
+        v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device) if int8 else None,
+        tables=torch.zeros(batch, max_blocks, dtype=torch.int32, device=device),
+    )
+
+
+def _quantize_kv(x):
+    """Per-(slot, head, position) symmetric int8 over the head dim: ``x
+    [B, KVH, T, hd]`` -> (int8 codes, f32 scales ``[B, KVH, T]``).  The scale
+    is absmax/127; codes round half to even, as ``jnp.round`` does."""
+    x32 = x.to(torch.float32)
+    scale = x32.abs().amax(dim=-1) / 127.0
+    q = torch.round(x32 / scale[..., None].clamp(min=1e-12))
+    return q.to(torch.int8), scale
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None, device=None) -> dict:
@@ -293,26 +373,76 @@ def _attention(q, k, v, q_positions, kv_len_mask, cfg):
     return out.reshape(B, T, H * hd)
 
 
-def _cached_attention(q, k, v, cache, li, start_pos, vector_pos, cfg):
-    """Write this step's K/V into layer ``li`` of the cache (in place), then
-    run the flash kernel over it, chunked over T so the folded rows stay
-    within ``GT_MAX``."""
+def _no_grad_check(q, k, v) -> None:
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError("the cached attention kernel has no backward: train without a cache")
+
+
+def _to_cache(k_t, v_t, dtype):
+    """New K/V ``[B, KVH, T, hd]`` in the cache's type: (k, v, k_scale,
+    v_scale), the scales None for a bf16 cache."""
+    if dtype == torch.int8:
+        (k_w, k_s), (v_w, v_s) = _quantize_kv(k_t), _quantize_kv(v_t)
+        return k_w, v_w, k_s, v_s
+    return k_t.to(dtype), v_t.to(dtype), None, None
+
+
+def _decode_rows(cache, pos: torch.Tensor):
+    """Where per-slot decode writes each slot's new K/V in one layer's cache:
+    index tensors ``(i, j)`` for ``layer[i, :, j]`` (slot and position of a
+    dense cache, pool block and row of a paged one), and which slots write.
+    A position past the cache's end is dropped, as the JAX package's dense
+    scatter drops it (its paged write clamps the table index and overwrites
+    a row of the slot's last block instead): the engine's last decode chunk
+    of a request may run past ``max_len``, and the host discards what those
+    steps make."""
+    pos = pos.to(torch.int64)
+    ar = torch.arange(pos.shape[0], device=pos.device)
+    if isinstance(cache, PagedKVCache):
+        BS = cache.k.shape[3]
+        S = cache.tables.shape[1] * BS
+        keep = pos < S
+        pos = pos.clamp(max=S - 1)
+        return cache.tables[ar, pos // BS].to(torch.int64), pos % BS, keep
+    S = cache.k.shape[3]
+    return ar, pos.clamp(max=S - 1), pos < S
+
+
+def _write_rows(dst, rows, new):
+    """``dst[i, :, j] = new`` for the slots that write; the others keep the
+    row's value."""
+    i, j, keep = rows
+    dst[i, :, j] = torch.where(keep.view(-1, *[1] * (new.dim() - 1)), new, dst[i, :, j])
+
+
+def _cached_attention(q, k, v, cache, li, start_pos, rows, cfg):
+    """Write this step's K/V (quantized for an int8 cache, with their
+    scales) into layer ``li`` of the dense cache in place, then run the
+    flash kernel over it, chunked over T so the folded rows stay within
+    ``GT_MAX``.  ``rows`` (:func:`_decode_rows`) for per-slot decode, else
+    None."""
+    _no_grad_check(q, k, v)
     B, T, H, hd = q.shape
     KVH = cfg.num_kv_heads
     G = H // KVH
+    int8 = isinstance(cache, Int8KVCache)
     ck, cv = cache.k[li], cache.v[li]
-    k_t = k.transpose(1, 2).to(ck.dtype)  # [B, KVH, T, hd]
-    v_t = v.transpose(1, 2).to(cv.dtype)
-    if vector_pos:
-        ar = torch.arange(B, device=q.device)
-        ck[ar, :, start_pos] = k_t[:, :, 0]
-        cv[ar, :, start_pos] = v_t[:, :, 0]
+    cks = cache.k_scale[li] if int8 else None
+    cvs = cache.v_scale[li] if int8 else None
+    k_w, v_w, k_s, v_s = _to_cache(k.transpose(1, 2), v.transpose(1, 2), ck.dtype)  # [B, KVH, T, hd]
+    if rows is not None:
+        _write_rows(ck, rows, k_w[:, :, 0])
+        _write_rows(cv, rows, v_w[:, :, 0])
+        if int8:
+            _write_rows(cks, rows, k_s[:, :, 0])
+            _write_rows(cvs, rows, v_s[:, :, 0])
         lengths = start_pos.to(torch.int32)
     else:
-        ck[:, :, start_pos : start_pos + T] = k_t
-        cv[:, :, start_pos : start_pos + T] = v_t
+        ck[:, :, start_pos : start_pos + T] = k_w
+        cv[:, :, start_pos : start_pos + T] = v_w
+        if int8:
+            cks[:, :, start_pos : start_pos + T] = k_s
+            cvs[:, :, start_pos : start_pos + T] = v_s
         lengths = torch.full((B,), start_pos + T - 1, dtype=torch.int32, device=q.device)
     Tc_max = max(1, GT_MAX // G)
     chunks = []
@@ -320,18 +450,44 @@ def _cached_attention(q, k, v, cache, li, start_pos, vector_pos, cfg):
         Tc = min(Tc_max, T - off)
         qf = q[:, off : off + Tc].permute(0, 2, 1, 3).reshape(B, KVH, G * Tc, hd)
         out = flash_attention_cached(
-            qf, ck, cv, lengths - (T - 1) + (off + Tc - 1), T=Tc, window=cfg.sliding_window
+            qf, ck, cv, lengths - (T - 1) + (off + Tc - 1), T=Tc, k_scale=cks, v_scale=cvs,
+            window=cfg.sliding_window,
         )
         chunks.append(out.reshape(B, KVH, G, Tc, hd))
     attn = torch.cat(chunks, dim=3) if len(chunks) > 1 else chunks[0]
     return attn.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd)
 
 
+def _paged_attention(q, k, v, cache, li, start_pos, rows, cfg):
+    """Per-slot decode over the block pool: write each slot's new K/V at
+    ``tables[b, pos // BS]``, row ``pos % BS`` of layer ``li`` in place
+    (``rows`` from :func:`_decode_rows`), then run the paged flash kernel."""
+    _no_grad_check(q, k, v)
+    B, T, H, hd = q.shape
+    KVH = cfg.num_kv_heads
+    G = H // KVH
+    int8 = cache.k_scale is not None
+    pk, pv = cache.k[li], cache.v[li]
+    pks = cache.k_scale[li] if int8 else None
+    pvs = cache.v_scale[li] if int8 else None
+    k_w, v_w, k_s, v_s = _to_cache(k.transpose(1, 2), v.transpose(1, 2), pk.dtype)  # [B, KVH, 1, hd]
+    _write_rows(pk, rows, k_w[:, :, 0])
+    _write_rows(pv, rows, v_w[:, :, 0])
+    if int8:
+        _write_rows(pks, rows, k_s[:, :, 0])
+        _write_rows(pvs, rows, v_s[:, :, 0])
+    qf = q.permute(0, 2, 1, 3).reshape(B, KVH, G, hd)
+    out = flash_attention_paged(
+        qf, pk, pv, cache.tables, start_pos, T=1, k_scale=pks, v_scale=pvs, window=cfg.sliding_window
+    )
+    return out.reshape(B, KVH, G, 1, hd).permute(0, 3, 1, 2, 4).reshape(B, T, H * hd)
+
+
 def forward(
     params: dict,
     ids: torch.Tensor,
     cfg: LlamaConfig,
-    cache: Optional[KVCache] = None,
+    cache=None,
     start_pos: Union[int, torch.Tensor] = 0,
     lora: Optional[dict] = None,
     return_hidden: bool = False,
@@ -341,7 +497,8 @@ def forward(
     Without a cache this is a plain causal forward from position 0 (training).
     With a cache, K/V for these positions are written at ``start_pos`` (an
     int, or a per-slot ``[B]`` tensor for decode with T == 1) and attention
-    runs over the cache.  ``lora`` (from :func:`add_lora`) adds adapter
+    runs over the cache: a :class:`KVCache`, an :class:`Int8KVCache`, or a
+    :class:`PagedKVCache` (per-slot decode only).  ``lora`` (from :func:`add_lora`) adds adapter
     deltas; on the fused ``wqkv``/``gate_up`` weights they apply after the
     split.  Returns ``(logits [B, T, V] f32, cache)``, or the final-norm
     hidden states ``[B, T, D]`` in place of the logits when
@@ -354,12 +511,18 @@ def forward(
     vector_pos = isinstance(start_pos, torch.Tensor) and start_pos.dim() == 1
     if vector_pos and T != 1:
         raise ValueError("per-slot start_pos requires T == 1 (decode)")
+    if isinstance(cache, PagedKVCache) and not vector_pos:
+        raise ValueError(
+            "PagedKVCache supports per-slot decode (T == 1) only; prefill through a dense cache "
+            "and pack the blocks (the serving engine does this)"
+        )
     if isinstance(start_pos, torch.Tensor) and not vector_pos:
         start_pos = int(start_pos)
     if vector_pos:
         positions = start_pos.to(ids.device)[:, None]
     else:
         positions = (start_pos + torch.arange(T, device=ids.device))[None, :].expand(B, T)
+    rows = _decode_rows(cache, start_pos) if vector_pos and cache is not None else None
 
     for li, layer in enumerate(params["layers"]):
         l_lora = lora["layers"][li] if lora is not None else {}
@@ -384,8 +547,10 @@ def forward(
         k = _rope(k.reshape(B, T, KVH, hd), positions, cfg.rope_theta)
         v = v.reshape(B, T, KVH, hd)
 
-        if cache is not None:
-            attn = _cached_attention(q, k, v, cache, li, start_pos, vector_pos, cfg)
+        if isinstance(cache, PagedKVCache):
+            attn = _paged_attention(q, k, v, cache, li, start_pos, rows, cfg)
+        elif cache is not None:
+            attn = _cached_attention(q, k, v, cache, li, start_pos, rows, cfg)
         else:
             valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
             attn = _attention(q, k, v, positions, valid, cfg)
@@ -408,7 +573,12 @@ def forward(
     x = _rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.norm_plus_one)
     if return_hidden:
         return x, cache
-    return _apply_linear(x, params["lm_head"]).to(torch.float32), cache
+    return lm_logits(params, x), cache
+
+
+def lm_logits(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """The lm_head over final-norm hidden states ``h [..., D]``: f32 logits."""
+    return _apply_linear(h, params["lm_head"]).to(torch.float32)
 
 
 @torch.no_grad()

@@ -58,6 +58,9 @@ LAUNCHES: dict = {
     "gemm_4bit_paired_nt": 0,
     "gemm_4bit_paired_nt_dq": 0,
     "optimizer_update_8bit": 0,
+    "flash_attention_cached_int8": 0,
+    "flash_attention_paged": 0,
+    "flash_attention_paged_int8": 0,
 }
 
 _lock = threading.Lock()
@@ -142,8 +145,12 @@ _SIGNATURES = {
     "bnb_gemm_4bit_paired": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
     # P, absmax_t, W, N, K, blocksize, units[16] (host), stream
     "bnb_dequantize_paired": [_P, _P, _P, _I, _I, _I, _P, _P],
-    # q, k, v, lengths, out, B, KVH, GT, S, hd, T, window, scale, stream
-    "bnb_flash_attention_cached": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, k_scale (or NULL), v_scale (or NULL), lengths, out, B, KVH, GT, S, hd, T, window,
+    # scale, int8, stream
+    "bnb_flash_attention_cached": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, pool_k, pool_v, k_scale (or NULL), v_scale (or NULL), tables, lengths, out, B, KVH, GT,
+    # MAXB, BS, hd, T, window, scale, int8, stream
+    "bnb_flash_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # A, P, codes_t, s2, offset, out, M, N, K, blocksize, units[16] (host),
     # decode table (host), out_bf16, stream
     "bnb_gemm_4bit_paired_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],

@@ -15,6 +15,10 @@ already-quantized trees are both accepted.
 state (``{"step", "leaves"}``, the leaves shaped like the adapter tree, each
 a dict of ``state1``/``state2``/``absmax1``/``absmax2``) into the port, so
 that both packages take the same next step from the same state.
+
+:func:`kv_cache_from_numpy` carries a KV cache (dense bf16, dense int8 with
+its scales, or a paged pool with its tables) across, so that both packages
+decode from the same cache.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ __all__ = [
     "tensor_from_numpy",
     "lora_from_numpy",
     "optim_state_from_numpy",
+    "kv_cache_from_numpy",
     "QUANTIZED_KEYS",
     "NESTED_KEYS",
     "LORA_KEYS",
@@ -170,3 +175,25 @@ def optim_state_from_numpy(optimizer: torch.optim.Optimizer, lora: dict, state) 
                 st["step"] = step
                 for key, arr in leaf.items():
                     st[key] = tensor_from_numpy(arr, p.device).contiguous()
+
+
+_KV_KEYS = ("k", "v", "k_scale", "v_scale", "tables")
+
+
+def kv_cache_from_numpy(cache, device=None):
+    """A JAX-package KV cache as a dict of numpy arrays -> the port's, on
+    ``device`` (CUDA unless named): ``k``/``v`` alone make a ``KVCache``,
+    with ``k_scale``/``v_scale`` an ``Int8KVCache``, and with ``tables`` a
+    ``PagedKVCache`` (bf16 pools without scales)."""
+    from ..models import llama
+
+    device = resolve_device(device)
+    _check_keys(cache, _KV_KEYS, "a KV cache")
+    t = {k: None if cache.get(k) is None else tensor_from_numpy(cache[k], device).contiguous() for k in _KV_KEYS}
+    if (t["k_scale"] is None) != (t["v_scale"] is None):
+        raise ValueError("a KV cache takes both scales or neither")
+    if t["tables"] is not None:
+        return llama.PagedKVCache(t["k"], t["v"], t["k_scale"], t["v_scale"], t["tables"].to(torch.int32))
+    if t["k_scale"] is not None:
+        return llama.Int8KVCache(t["k"], t["v"], t["k_scale"], t["v_scale"])
+    return llama.KVCache(t["k"], t["v"])

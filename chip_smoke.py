@@ -14,7 +14,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    sweep that chose ``functional/gemm.LARGE_M_THRESHOLD``; ragged shapes;
    the backward kernels 7 and 8 (3h), the fused 8-bit optimizer update,
    kernel 14 (3i), and the sweep that chose
-   ``functional/gemm.BACKWARD_LARGE_M_THRESHOLD`` (3j).
+   ``functional/gemm.BACKWARD_LARGE_M_THRESHOLD`` (3j); kernel 4's int8-KV
+   mode and kernel 16 (paged, bf16 and int8) at block sizes 16-256, each
+   paged result against kernel 4 on the same data (3k).
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -22,13 +24,21 @@ Phases (every one asserts; any failure exits non-zero before the result):
    (4b); then the blockwise 8-bit round trip of an lm_head-sized tensor
    with ``nested=True`` (4c); then QLoRA training on 4b's model (4d):
    rank-64 adapters on all seven targets, ``adamw8bit``, 4 x 512 tokens,
-   five ``lora_train_step`` calls.  The kernels' launch counts are zeroed
-   just before each path and read just after it.
+   five ``lora_train_step`` calls; then the continuous-batching engine on
+   4a's model (4e): int8 KV in a paged pool of three quarters of the dense
+   size, 16 slots, 48 requests of 32-768 prompt tokens and 64 new tokens,
+   every other one sampled; then the same engine with a bf16 pool (the
+   default ``kv_dtype``), 16 requests, one of them run to ``max_len``.  The
+   kernels' launch counts are zeroed just before each path and read just
+   after it.
 5. Both serving paths at 2 layers on the card and on the CPU (plain
    versions): equal quantized bytes, logits within tolerance, top-5
    containment; then one QLoRA step of each at 2 layers, M = 16 (5b): the
    loss and adapter gradients against the CPU, and the card's optimizer
-   step against the CPU's on the same gradients.
+   step against the CPU's on the same gradients; then the engine at 2
+   layers, dense and paged, bf16 and int8 KV (5c): its greedy streams
+   teacher-forced through the CPU stay in the CPU's top-5, and a decode
+   step's logits agree.
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -80,6 +90,15 @@ TPU_KERNELS = {
         "bitsandbytes_tpu_torch/csrc/gemm4bit_paired.cu"),
     "optimizer_update_8bit": (
         "bitsandbytes_tpu/ops/pallas/optim8bit.py:251", "bitsandbytes_tpu_torch/csrc/optim8bit.cu"),
+    "flash_attention_cached_int8": (
+        "bitsandbytes_tpu/ops/pallas/flash_cached.py:482",
+        "bitsandbytes_tpu_torch/csrc/flash_cached.cu"),
+    "flash_attention_paged": (
+        "bitsandbytes_tpu/ops/pallas/flash_cached.py:455",
+        "bitsandbytes_tpu_torch/csrc/flash_cached.cu"),
+    "flash_attention_paged_int8": (
+        "bitsandbytes_tpu/ops/pallas/flash_cached.py:455",
+        "bitsandbytes_tpu_torch/csrc/flash_cached.cu"),
 }
 
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
@@ -119,9 +138,14 @@ def main() -> int:
         quantize_blockwise8_plain,
     )
     from bitsandbytes_tpu_torch.ops.flash_cached import (
+        GT_MAX,
         flash_attention_cached,
         flash_attention_cached_plain,
+        flash_attention_paged,
+        flash_attention_paged_plain,
     )
+    from bitsandbytes_tpu_torch.serving import ContinuousBatchingEngine
+    from bitsandbytes_tpu_torch.serving import engine as E
     from bitsandbytes_tpu_torch import optim as O
     from bitsandbytes_tpu_torch.ops.gemm4bit_paired import (
         _units,
@@ -672,6 +696,155 @@ def main() -> int:
     emit("backward_threshold_sweep", BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD, points=sweep)
     torch.cuda.empty_cache()
 
+    # -- 3k. kernel 4 with int8 KV, and kernel 16 (paged, bf16 and int8) ----
+    B, S = 16, 1024
+    kc = torch.randn(B, KVH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(B, KVH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    (k8, ks8), (v8, vs8) = L._quantize_kv(kc), L._quantize_kv(vc)
+    # the int8 cache dequantized to bf16: SDPA's input for the int8 yardstick
+    kd, vd = ((c.float() * s[..., None]).to(torch.bfloat16) for c, s in ((k8, ks8), (v8, vs8)))
+    # ragged: an empty slot (position 0), both sides of a 128 boundary, the last position
+    lens = torch.randint(1, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lens[:4] = torch.tensor([0, 127, 128, S - 1], dtype=torch.int32, device=dev)
+    pre_len = torch.full((B,), 255, dtype=torch.int32, device=dev)
+    q1 = torch.randn(B, KVH, Gq, hd, generator=gen, device=dev).to(torch.bfloat16)
+    q_pre = torch.randn(B, KVH, Gq * 128, hd, generator=gen, device=dev).to(torch.bfloat16)
+    cases_k = [("decode", 1, q1, lens, None), ("window 200", 1, q1, lens, 200), ("prefill T 128", 128, q_pre, pre_len, None)]
+
+    def sdpa_mask(lengths, T, window=None):
+        """The kernels' mask as SDPA's ``attn_mask`` [B, 1, T, S]."""
+        q_pos = lengths[:, None].long() - (T - 1) + torch.arange(T, device=dev)[None, :]
+        kv = torch.arange(S, device=dev)[None, None, :]
+        mask = kv <= q_pos[:, :, None]
+        if window:
+            mask &= kv > q_pos[:, :, None] - window
+        return mask[:, None]
+
+    def sdpa(q, k, v, mask):
+        """Heads h = kvh*G + g, as the fold's rows r = g*T + t."""
+        return F.scaled_dot_product_attention(q.reshape(B, KVH * Gq, -1, hd), k, v, attn_mask=mask, enable_gqa=True)
+
+    masks = {what: sdpa_mask(lengths, T, win) for what, T, _, lengths, win in cases_k}
+
+    def close(out, ref, what, tol=0.02):
+        err = (out.float() - ref.float()).abs().max().item()
+        assert torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol), f"{what}: max abs err {err}"
+        return err
+
+    def att_bytes(q, live, elem, scales, table_entries=0):
+        """q read and out written, each live K and V row once (and its two
+        scales), the lengths, and the table entries that reach live blocks."""
+        return 2 * q.numel() * 2 + live * KVH * hd * 2 * elem + (live * KVH * 2 * 4 if scales else 0) + B * 4 \
+            + table_entries * 4
+
+    live_dec = (lens.long() + 1).sum().item()  # positions read per kv head
+    live_pre = (pre_len.long() + 1).sum().item()
+    err8 = 0.0
+    for what, T, q, lengths, win in cases_k:
+        out = flash_attention_cached(q, k8, v8, lengths, T=T, k_scale=ks8, v_scale=vs8, window=win)
+        ref = flash_attention_cached_plain(q, k8, v8, lengths, T, win, torch.bfloat16, ks8, vs8)
+        err8 = max(err8, close(out, ref, f"flash int8 {what}"))
+        close(sdpa(q, kd, vd, masks[what]), out.reshape(B, KVH * Gq, T, hd), f"flash int8 vs SDPA {what}", 0.05)
+    k4 = {
+        "int8": cuda_time(lambda: flash_attention_cached(q1, k8, v8, lens, T=1, k_scale=ks8, v_scale=vs8),
+                          flush_l2=True)["median"],
+        "bf16": cuda_time(lambda: flash_attention_cached(q1, kc, vc, lens, T=1), flush_l2=True)["median"],
+    }
+    pre8 = {
+        "ms": cuda_time(lambda: flash_attention_cached(q_pre, k8, v8, pre_len, T=128, k_scale=ks8, v_scale=vs8),
+                        flush_l2=True)["median"],
+        "plain_ms": cuda_time(lambda: flash_attention_cached_plain(q_pre, k8, v8, pre_len, 128, None, torch.bfloat16,
+                                                                   ks8, vs8), n=5)["median"],
+        "library_ms": cuda_time(lambda: sdpa(q_pre, kd, vd, masks["prefill T 128"]), flush_l2=True)["median"],
+        "bytes": att_bytes(q_pre, live_pre, 1, True), "ops": 4 * hd * Gq * 128 * live_pre * KVH,
+    }
+    pre8["bound_ms"], pre8["bound_by"] = bound_ms(pre8["bytes"], pre8["ops"], PEAK_BF16_FLOPS)
+    dec_ops = 4 * hd * Gq * live_dec * KVH
+    entry("flash_attention_cached_int8", k4["int8"],
+          cuda_time(lambda: flash_attention_cached_plain(q1, k8, v8, lens, 1, None, torch.bfloat16, ks8, vs8),
+                    n=5)["median"],
+          cuda_time(lambda: sdpa(q1, kd, vd, masks["decode"]), flush_l2=True)["median"],
+          att_bytes(q1, live_dec, 1, True), dec_ops, PEAK_BF16_FLOPS, err8,
+          decode={"B": B, "KVH": KVH, "G": Gq, "S": S, "T": 1, "lengths": lens.tolist()},
+          prefill_chunk={"T": 128, "length": 255, **pre8}, bf16_same_lengths_ms=k4["bf16"],
+          note="library_ms: SDPA on the int8 cache dequantized to bf16, a different function (twice the KV "
+               "bytes); bf16_same_lengths_ms: kernel 4 on the bf16 cache at the same lengths, same run")
+
+    def scatter(BS):
+        """A shuffled pool (one spare block) holding the dense caches, and the tables."""
+        MAXB = S // BS
+        NB = B * MAXB + 1
+        perm = torch.randperm(NB, generator=torch.Generator().manual_seed(BS))[: B * MAXB]
+        tables = perm.reshape(B, MAXB).to(torch.int32).to(dev).contiguous()
+
+        def pool(a):  # [B, KVH, S(, hd)] -> [NB, KVH, BS(, hd)]
+            rest = tuple(a.shape[3:])
+            p = torch.zeros((NB, KVH, BS) + rest, dtype=a.dtype, device=dev)
+            p[tables.reshape(-1).long()] = a.reshape(B, KVH, MAXB, BS, *rest).transpose(1, 2).reshape(
+                B * MAXB, KVH, BS, *rest)
+            return p
+
+        return tables, pool
+
+    for int8 in (False, True):
+        name = "flash_attention_paged_int8" if int8 else "flash_attention_paged"
+        per_bs, err16, head = [], 0.0, None
+        for BS in (16, 64, 128, 256):
+            tables, pool = scatter(BS)
+            pk, pv = (pool(k8), pool(v8)) if int8 else (pool(kc), pool(vc))
+            pks, pvs = (pool(ks8), pool(vs8)) if int8 else (None, None)
+            dk, dv, dks, dvs = (k8, v8, ks8, vs8) if int8 else (kc, vc, None, None)
+            for what, T, q, lengths, win in cases_k:
+                out = flash_attention_paged(q, pk, pv, tables, lengths, T=T, k_scale=pks, v_scale=pvs, window=win)
+                ref = flash_attention_paged_plain(q, pk, pv, tables, lengths, T, win, torch.bfloat16, pks, pvs)
+                err16 = max(err16, close(out, ref, f"{name} BS {BS} {what}"))
+                dense = flash_attention_cached(q, dk, dv, lengths, T=T, k_scale=dks, v_scale=dvs, window=win)
+                assert torch.equal(out.view(torch.int16), dense.view(torch.int16)), \
+                    f"{name} BS {BS} {what}: differs from kernel 4 on the same data"
+            entries = (lens.long() // BS + 1).sum().item()
+            row = {"BS": BS,
+                   "ms": cuda_time(lambda: flash_attention_paged(q1, pk, pv, tables, lens, T=1, k_scale=pks,
+                                                                 v_scale=pvs), flush_l2=True)["median"],
+                   "plain_ms": cuda_time(lambda: flash_attention_paged_plain(q1, pk, pv, tables, lens, 1, None,
+                                                                             torch.bfloat16, pks, pvs), n=5)["median"],
+                   "bytes": att_bytes(q1, live_dec, 1 if int8 else 2, int8, entries)}
+            row["bound_ms"] = bound_ms(row["bytes"], dec_ops, PEAK_BF16_FLOPS)[0]
+            per_bs.append(row)
+            if BS == 128:
+                head = row
+            del pk, pv, pks, pvs
+        entry(name, head["ms"], head["plain_ms"],
+              None if int8 else cuda_time(lambda: sdpa(q1, kc, vc, masks["decode"]), flush_l2=True)["median"],
+              head["bytes"], dec_ops, PEAK_BF16_FLOPS, err16, block_size=128, per_block_size=per_bs,
+              decode={"B": B, "KVH": KVH, "G": Gq, "S": S, "T": 1, "lengths": lens.tolist()},
+              kernel4_same_data_ms=k4["int8" if int8 else "bf16"], equals_kernel4_bitwise=True,
+              checked=[c[0] for c in cases_k],
+              note=("library_ms null: no PyTorch call reads an int8 paged pool" if int8 else
+                    "library_ms: SDPA on the contiguous bf16 cache the pool was scattered from (gather excluded)"))
+
+    # a CUDA input the kernels cannot take raises; it never reaches a plain version
+    z = torch.zeros(1, dtype=torch.int32, device=dev)
+    q64 = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16, device=dev)
+    s1 = torch.ones(1, 1, 1, device=dev)
+    bad = {
+        "cached hd 64": lambda: flash_attention_cached(q64, q64, q64, z, T=1),
+        "cached int8 hd 64": lambda: flash_attention_cached(q64, q64.to(torch.int8), q64.to(torch.int8), z, T=1,
+                                                            k_scale=s1, v_scale=s1),
+        "paged hd 64": lambda: flash_attention_paged(q64, q64.expand(2, 1, 16, 64).contiguous(),
+                                                     q64.expand(2, 1, 16, 64).contiguous(), z[None], z),
+        "paged BS 4": lambda: flash_attention_paged(q1[:1, :1], kc[:2, :1, :4].contiguous(),
+                                                    vc[:2, :1, :4].contiguous(), z[None], z),
+    }
+    for what, fn in bad.items():
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError(f"{what}: a CUDA input the kernel cannot take did not raise")
+    emit("unsupported_inputs_raise", cases=list(bad))
+    del kc, vc, k8, v8, ks8, vs8, kd, vd, q1, q_pre
+    torch.cuda.empty_cache()
+
     # -- 4. the serving paths at full width -------------------------------
     steps, prompt, batch, max_len = 32, 128, 8, 1024
     assert batch * prompt >= G.LARGE_M_THRESHOLD > batch, "prefill must take the dequant route, decode the GEMM"
@@ -778,13 +951,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         return counts, params
 
-    # 4a. NF4
-    counts, _ = serve("serve", False, {
+    # 4a. NF4 (the model is kept for the engine, 4e)
+    counts, nf4_params = serve("serve", False, {
         "quantize_4bit_codes": 4 * Lyr,
         "dequantize_paired_fast": 4 * Lyr,
         "gemm_4bit_paired": 4 * Lyr * steps,
         "flash_attention_cached": Lyr * (steps + 1),
-    })
+    }, keep=True)
     for name in ("quantize_4bit_codes", "gemm_4bit_paired", "dequantize_paired_fast", "flash_attention_cached"):
         report[name]["launches"] = counts[name]
 
@@ -895,6 +1068,153 @@ def main() -> int:
     report["optimizer_update_8bit"]["launches"] = counts["optimizer_update_8bit"]
     opt.step = opt_step
     del lora, lparams, opt, states, nested_params, tids, loss, prof
+    torch.cuda.empty_cache()
+
+    # -- 4e. the continuous-batching engine at full width, on 4a's model ----
+    def engine_run(eng, submit):
+        """Drive ``eng`` through the requests ``submit(eng)`` adds, with the
+        launch counts zeroed just before.  Returns the results, the counts,
+        the (rows, padded length) of every prefill call, the decode steps
+        dispatched and the wall seconds."""
+        prefills, orig = [], E._prefill_batch
+
+        def counted(params, cache_n, ids, *a, **k):
+            prefills.append(tuple(ids.shape))
+            return orig(params, cache_n, ids, *a, **k)
+
+        E._prefill_batch = counted
+        try:
+            torch.cuda.synchronize()
+            chunks0 = eng._step_count
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            submit(eng)
+            results = []
+            while eng.has_work():
+                results.extend(eng.step())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            E._prefill_batch = orig
+        return results, counts, prefills, (eng._step_count - chunks0) * eng.steps_per_sync, wall
+
+    def engine_expected(layers, prefills, dsteps, kv_dtype, layout):
+        """Launches of an engine run: 4 linears a layer per decode step (M =
+        max_batch, kernel 2) and per prefill call (kernel 3 from M = 32);
+        the cached attention ceil(pad / (GT_MAX / G)) times a layer per
+        prefill; one decode attention a layer per decode step."""
+        sfx = "_int8" if kv_dtype == "int8" else ""
+        want = {k: 0 for k in launch_counts()}
+        want["gemm_4bit_paired"] = 4 * layers * dsteps
+        for rows, pad in prefills:
+            want["dequantize_paired_fast" if rows * pad >= G.LARGE_M_THRESHOLD else "gemm_4bit_paired"] += 4 * layers
+            want["flash_attention_cached" + sfx] += layers * -(-pad // (GT_MAX // Gq))
+        want[("flash_attention_paged" if layout == "paged" else "flash_attention_cached") + sfx] += layers * dsteps
+        return want
+
+    n_req, new_tok, mb, ml, bs_e, nb_e = 48, 64, 16, 1024, 128, 96
+    assert mb < G.LARGE_M_THRESHOLD, "decode must take kernel 2"
+    g1 = torch.Generator().manual_seed(1)
+    plens = torch.randint(32, 769, (n_req,), generator=g1).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g1).tolist() for n in plens]
+
+    def make_engine():
+        return ContinuousBatchingEngine(nf4_params, cfg, max_batch=mb, max_len=ml, kv_dtype="int8", kv_layout="paged",
+                                        kv_block_size=bs_e, num_kv_blocks=nb_e, steps_per_sync=8, pipeline_depth=2,
+                                        seed=0)
+
+    make_engine().generate(prompts[:2], max_new_tokens=8)  # warm-up (cuBLAS, allocator), before the counts
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = make_engine()
+
+    def submit(e):  # every other request sampled, the rest greedy
+        for i, p in enumerate(prompts):
+            e.add_request(p, max_new_tokens=new_tok, temperature=0.8 if i % 2 else 0.0, top_p=0.95 if i % 2 else 1.0)
+
+    results, counts, prefills, dsteps, wall = engine_run(eng, submit)
+    engine_peak = torch.cuda.max_memory_allocated()
+    assert len(results) == n_req and all(len(r.tokens) == new_tok and r.finished_reason == "length"
+                                         for r in results), "every request finishes with its tokens"
+    assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
+    assert sorted(eng._free_blocks) == list(range(nb_e)) and not eng._slot_blocks and not eng.slots, \
+        "every block returns to the free list"
+    want = engine_expected(Lyr, prefills, dsteps, "int8", "paged")
+    assert counts == want, f"engine: launch counts {counts} != {want}"
+    for name in ("flash_attention_cached_int8", "flash_attention_paged_int8"):
+        report[name]["launches"] = counts[name]
+    pool_bytes = sum(t.numel() * t.element_size() for t in eng.cache[:4])
+    preempts = eng.preempt_count
+    del eng
+
+    # one decode chunk profiled, in a second run after the counts are read:
+    # 16 requests of 128 prompt tokens; three steps admit them and leave
+    # one chunk in flight, which the synchronize finishes before the window
+    eng = make_engine()
+    for p in prompts[:mb]:
+        eng.add_request(p[:128], max_new_tokens=new_tok)
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()  # the same work without the profiler: one chunk dispatched and run, the one before read
+    torch.cuda.synchronize()
+    chunk_wall_plain = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()  # dispatches one chunk of 8 decode steps and reads the finished one
+        torch.cuda.synchronize()
+        chunk_wall = (time.perf_counter() - t0) * 1e3
+    while eng.has_work():
+        eng.step()
+    events = device_events(prof)
+    chunk_dev = sum(self_dev_us(e) for e in events) / 1e3
+    top = sorted(((e.key[:100], self_dev_us(e) / 1e3, e.count) for e in events), key=lambda r: -r[1])[:10]
+    ttft = [r.ttft_s for r in results]
+    emit("engine", config="llama3_8b", layers=Lyr, kv_dtype="int8", kv_layout="paged", kv_block_size=bs_e,
+         max_batch=mb, max_len=ml, num_kv_blocks=nb_e, steps_per_sync=8, pipeline_depth=2, requests=n_req,
+         prompt_tokens={"min": min(plens), "max": max(plens), "sum": sum(plens)}, new_tokens=new_tok,
+         sampled=n_req // 2, sampling={"temperature": 0.8, "top_p": 0.95}, wall_s=wall,
+         generated_tok_s=n_req * new_tok / wall,
+         ttft_s={"p50": statistics.median(ttft), "p95": statistics.quantiles(ttft, n=20)[18]},
+         total_s={"p50": statistics.median(r.total_s for r in results)},
+         decode_chunks=dsteps // 8, decode_steps=dsteps, prefill_calls=len(prefills), prefills=prefills,
+         preempt_count=preempts, kv_pool_bytes=pool_bytes,
+         dense_bf16_kv_bytes=2 * Lyr * mb * KVH * ml * hd * 2, peak_memory=engine_peak, launches=counts,
+         profiled_chunk={"decode_steps": 8, "wall_ms": chunk_wall, "device_ms": chunk_dev,
+                         "device_busy_share": chunk_dev / chunk_wall, "wall_ms_unprofiled": chunk_wall_plain,
+                         "device_busy_share_unprofiled": chunk_dev / chunk_wall_plain, "top_kernels_ms": top},
+         note="all 48 requests arrive at once, so TTFT includes the wait for a slot")
+    del eng, prof
+    torch.cuda.empty_cache()
+
+    # the same engine over a bf16 pool (kv_layout="paged" at the default
+    # kv_dtype): kernel 16's bf16 mode and kernel 4 bf16 in the prefills.
+    # The last request's prompt leaves 20 positions of max_len, so its last
+    # decode chunks run past the cache's end (those writes are dropped).
+    n_bf, new_bf, near = 16, 32, ml - 20
+    prompts_bf = prompts[: n_bf - 1] + [
+        torch.randint(0, cfg.vocab_size, (near,), generator=torch.Generator().manual_seed(2)).tolist()]
+    eng = ContinuousBatchingEngine(nf4_params, cfg, max_batch=mb, max_len=ml, kv_dtype="bf16", kv_layout="paged",
+                                   kv_block_size=bs_e, steps_per_sync=8, pipeline_depth=2, seed=0)
+    results_bf, counts, prefills_bf, dsteps_bf, wall_bf = engine_run(
+        eng, lambda e: [e.add_request(p, max_new_tokens=new_bf) for p in prompts_bf])
+    results_bf.sort(key=lambda r: r.request_id)
+    assert len(results_bf) == n_bf and all(r.finished_reason == "length" for r in results_bf)
+    assert [len(r.tokens) for r in results_bf] == [new_bf] * (n_bf - 1) + [ml - near], "the tokens up to max_len"
+    assert sorted(eng._free_blocks) == list(range(eng.num_kv_blocks)) and not eng._slot_blocks, \
+        "every block returns to the free list"
+    want = engine_expected(Lyr, prefills_bf, dsteps_bf, "bf16", "paged")
+    assert counts == want, f"engine bf16: launch counts {counts} != {want}"
+    report["flash_attention_paged"]["launches"] = counts["flash_attention_paged"]
+    emit("engine_bf16", config="llama3_8b", layers=Lyr, kv_dtype="bf16", kv_layout="paged", kv_block_size=bs_e,
+         max_batch=mb, max_len=ml, num_kv_blocks=eng.num_kv_blocks, steps_per_sync=8, pipeline_depth=2,
+         requests=n_bf, prompt_tokens=[len(p) for p in prompts_bf], new_tokens=new_bf, wall_s=wall_bf,
+         generated_tok_s=sum(len(r.tokens) for r in results_bf) / wall_bf, decode_steps=dsteps_bf,
+         prefills=prefills_bf, max_len_request_tokens=len(results_bf[-1].tokens),
+         kv_pool_bytes=sum(t.numel() * t.element_size() for t in eng.cache[:2]), launches=counts)
+    del eng, nf4_params
     torch.cuda.empty_cache()
 
     # -- 5. both paths on the card and on the CPU, 2 layers ----------------
@@ -1008,6 +1328,79 @@ def main() -> int:
              max_abs_grad_diff=grad_err, max_abs_adapter_diff=p_err, states_8bit_equal=n8, launches=counts)
         del gpu_params, cpu_params, lg, og, lc, lc2, oc
         torch.cuda.empty_cache()
+
+    # -- 5c. the engine at 2 layers, card against CPU ----------------------
+    g5c = torch.Generator().manual_seed(12)
+    prompts5 = [torch.randint(0, cfg2.vocab_size, (n,), generator=g5c).tolist() for n in (20, 33, 50)]
+    pad5, new5, ml5, bs5 = 64, 6, 128, 16
+    assert all(E._bucket(len(p)) == pad5 for p in prompts5), "one prefill bucket"
+    gpu_params = L.quantize_params_4bit(to_dev(cpu_float), fuse=True)
+    cpu_params = L.quantize_params_4bit(cpu_float, fuse=True)
+
+    def forced(params, device, kv_dtype, layout, streams):
+        """Logits along each stream, teacher-forced: the prompts prefilled
+        padded as the engine pads them, then per-slot decode steps through a
+        dense cache or through a shuffled pool packed from the prefill."""
+        n = len(prompts5)
+        ids = torch.zeros(n, pad5, dtype=torch.int64)
+        for i, p in enumerate(prompts5):
+            ids[i, : len(p)] = torch.tensor(p)
+        paged = layout == "paged"
+        cache = L.init_kv_cache(cfg2, n, pad5 if paged else ml5, kv_dtype=kv_dtype, device=device)
+        lg, cache = L.prefill(params, ids.to(device), cfg2, cache)
+        out = [torch.stack([lg[i, len(p) - 1] for i, p in enumerate(prompts5)]).float().cpu()]
+        if paged:
+            per_slot, used = ml5 // bs5, pad5 // bs5
+            pool = L.init_paged_kv_cache(cfg2, n, ml5, n * per_slot + 1, bs5, kv_dtype, device=device)
+            perm = torch.randperm(n * per_slot + 1, generator=torch.Generator().manual_seed(13))[: n * per_slot]
+            pool = pool._replace(tables=perm.reshape(n, per_slot).to(torch.int32).to(device))
+            idx = pool.tables[:, :used].reshape(-1).long()
+            for dst, src in zip(pool[:4], cache):  # [L, n, KVH, pad(, hd)] -> blocks [L, n*used, KVH, BS(, hd)]
+                rest = tuple(src.shape[4:])
+                dst[:, idx] = src.reshape(src.shape[0], n, src.shape[2], used, bs5, *rest).transpose(2, 3).reshape(
+                    src.shape[0], n * used, src.shape[2], bs5, *rest)
+            cache = pool
+        pos = torch.tensor([len(p) for p in prompts5])
+        for s in range(len(streams[0]) - 1):
+            tok = torch.tensor([st[s] for st in streams])
+            lg, cache = L.decode_step(params, tok.to(device), cfg2, cache, (pos + s).to(device))
+            out.append(lg.float().cpu())
+        return out
+
+    cpu_ref = {}
+    for kv_dtype in ("bf16", "int8"):
+        for layout in ("dense", "paged"):
+            eng = ContinuousBatchingEngine(gpu_params, cfg2, max_batch=4, max_len=ml5, kv_dtype=kv_dtype,
+                                           kv_layout=layout, kv_block_size=bs5, steps_per_sync=4)
+            results, counts, prefills, dsteps, _ = engine_run(
+                eng, lambda e: [e.add_request(p, max_new_tokens=new5) for p in prompts5])
+            want = engine_expected(2, prefills, dsteps, kv_dtype, layout)
+            assert counts == want, f"2-layer engine {kv_dtype} {layout}: launch counts {counts} != {want}"
+            streams = [r.tokens for r in results]
+            assert all(len(st) == new5 for st in streams)
+            key = (kv_dtype, tuple(map(tuple, streams)))
+            if key not in cpu_ref:
+                # on the CPU the paged plain version is the dense one on the
+                # gathered cache, bit for bit (tests/test_torch_flash_paged.py)
+                cpu_ref[key] = forced(cpu_params, "cpu", kv_dtype, "dense", streams)
+            cpu = cpu_ref[key]
+            card = forced(gpu_params, dev, kv_dtype, layout, streams)
+            for s in range(new5):
+                top5 = cpu[s].topk(5, dim=-1).indices
+                for i, st in enumerate(streams):
+                    assert st[s] in top5[i].tolist(), f"2-layer engine {kv_dtype} {layout}: token {s} of stream {i}"
+            assert torch.allclose(card[1], cpu[1], atol=0.1, rtol=0.05), \
+                f"2-layer engine {kv_dtype} {layout}: first decode step's logits differ from the CPU's"
+            emit("cpu_check_engine", layers=2, kv_dtype=kv_dtype, kv_layout=layout, kv_block_size=bs5,
+                 prompts=[len(p) for p in prompts5], new_tokens=new5, streams=streams,
+                 max_abs_logit_diff_decode_step_1=(card[1] - cpu[1]).abs().max().item(),
+                 max_abs_logit_diff_all_steps=max((c - g).abs().max().item() for c, g in zip(cpu, card)),
+                 card_argmax_equals_stream=sum(int(card[s][i].argmax()) == st[s] for s in range(new5)
+                                               for i, st in enumerate(streams)) / (new5 * len(streams)),
+                 launches=counts)
+            del eng
+    del gpu_params, cpu_params, cpu_ref
+    torch.cuda.empty_cache()
 
     # -- 6. kernels line and result ---------------------------------------
     kernels = [report[n] for n in TPU_KERNELS]

@@ -5,7 +5,10 @@ Weights are drawn once by the JAX package and carried across as numpy
 JAX package's bytes; prefill of 8 tokens and 3 decode steps on the same
 quantized bytes give the same logits, the JAX side running its Pallas
 kernels in interpret mode.  The same holds with the absmax double-quantized
-(``compress_statistics=True``), where both sides run their ``_dq`` kernels."""
+(``compress_statistics=True``), where both sides run their ``_dq`` kernels,
+and with an int8 KV cache, dense and paged: both sides scatter their own
+prefilled dense cache into the same shuffled block pool.  ``_quantize_kv``
+gives the JAX package's codes and scales bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +20,7 @@ from bitsandbytes_tpu.models import llama as JL
 from bitsandbytes_tpu.nn.modules import QuantizedTensor as JQT
 from bitsandbytes_tpu.ops import dispatch
 from bitsandbytes_tpu_torch.models import llama as TL
-from bitsandbytes_tpu_torch.utils.interop import params_from_numpy
+from bitsandbytes_tpu_torch.utils.interop import kv_cache_from_numpy, params_from_numpy, tensor_from_numpy
 
 torch.set_num_threads(1)
 
@@ -28,6 +31,7 @@ CFG = dict(
     num_heads=4, num_kv_heads=2, head_dim=128,
 )
 B, S, T_PROMPT = 2, 128, 8
+HD = CFG["head_dim"]
 
 
 def _np_tree(tree):
@@ -83,6 +87,37 @@ def test_nested_prefill_and_decode_match_jax(nested_models):
     _serve_against_jax(*nested_models)
 
 
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_int8_kv_prefill_and_decode_match_jax(models, layout):
+    _serve_against_jax(*models, kv_dtype="int8", layout=layout)
+
+
+@pytest.mark.parametrize("S", [16, 128], ids=["jax_oracle_S16", "jax_kernel_S128"])
+def test_int8_kv_prefill_against_jax_below_kernel_shapes(models, S):
+    """Below S = 128 the JAX package prefills an int8 cache through its dense
+    oracle, which dequantizes K/V to bf16 before the dot; at S = 128 through
+    its kernel, which scales after the dot.  The port follows the kernel at
+    every S, and stays within the logits contract of both (atol 0.1 / rtol
+    0.05, the greedy token of the port in the JAX package's top-5)."""
+    jcfg, tcfg, _, jq = models
+    tq = params_from_numpy(_np_tree(jq), "cpu")
+    ids = np.random.default_rng(1).integers(1, 100, size=(3, 16))
+    try:
+        dispatch.set_backend("pallas")
+        jl, _ = JL.prefill(jq, jnp.asarray(ids), jcfg, JL.init_kv_cache(jcfg, 3, S, kv_dtype="int8"))
+    finally:
+        dispatch.set_backend("auto")
+    tl, _ = TL.prefill(tq, torch.from_numpy(ids), tcfg, TL.init_kv_cache(tcfg, 3, S, kv_dtype="int8", device="cpu"))
+    jl = np.asarray(jl, np.float32)
+    np.testing.assert_allclose(tl.numpy(), jl, atol=0.1, rtol=0.05)
+    top5 = np.argsort(-jl, axis=-1)[..., :5]
+    assert (top5 == tl.numpy().argmax(-1)[..., None]).any(-1).all()
+
+
+def test_paged_bf16_decode_matches_jax(models):
+    _serve_against_jax(*models, layout="paged")
+
+
 def test_nested_quantize_params_against_jax(nested_models):
     """The port quantizes the same weights to the same payload bytes and,
     within the offset contract of ``test_torch_double_quant.py``, the same
@@ -99,17 +134,57 @@ def test_nested_quantize_params_against_jax(nested_models):
             assert (jc == tc).mean() >= 0.999 and np.abs(jc - tc).max() <= 1
 
 
-def _serve_against_jax(jcfg, tcfg, _, jq):
+BS = 16  # pool block size of the paged cases
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(jnp.bfloat16)
+    return t.numpy()
+
+
+def _np_cache(cache):
+    return {k: None if a is None else np.asarray(a) for k, a in cache._asdict().items()}
+
+
+def _scatter_pool(dense: dict, tables):
+    """A dense cache ``{k, v[, k_scale, v_scale]}`` of numpy arrays [L, B,
+    KVH, S(, hd)] -> the pool dict [L, NB, KVH, BS(, hd)] holding it at
+    ``tables`` (one spare block), tables included."""
+    out = {"tables": tables, "k_scale": None, "v_scale": None}
+    NB = tables.size + 1
+    for name, a in dense.items():
+        if a is None:
+            out[name] = None
+            continue
+        L_, _, KVH = a.shape[:3]
+        pool = np.zeros((L_, NB, KVH, BS) + a.shape[4:], a.dtype)
+        for b in range(tables.shape[0]):
+            for j in range(tables.shape[1]):
+                pool[:, tables[b, j]] = a[:, b, :, j * BS : (j + 1) * BS]
+        out[name] = pool
+    return out
+
+
+def _serve_against_jax(jcfg, tcfg, _, jq, kv_dtype="bf16", layout="dense"):
     tq = params_from_numpy(_np_tree(jq), "cpu")
     ids = np.random.default_rng(1).integers(0, CFG["vocab_size"], size=(B, T_PROMPT))
-    # decode positions: two scalar steps, then one per-slot vector step
-    positions = [T_PROMPT, T_PROMPT + 1, np.array([T_PROMPT + 2] * B, np.int32)]
+    paged = layout == "paged"
+    # decode positions: two scalar steps, then one per-slot vector step (a
+    # paged cache takes per-slot steps only)
+    positions = [T_PROMPT, T_PROMPT + 1, T_PROMPT + 2]
+    positions = [np.array([p] * B, np.int32) if paged or i == 2 else p for i, p in enumerate(positions)]
+    tables = np.random.default_rng(3).permutation(B * (S // BS) + 1)[: B * (S // BS)].reshape(B, S // BS)
+    tables = tables.astype(np.int32)
 
     jlog = []
     try:
         dispatch.set_backend("pallas")
-        cache = JL.init_kv_cache(jcfg, B, S)
+        cache = JL.init_kv_cache(jcfg, B, S, kv_dtype=kv_dtype)
         lg, cache = JL.prefill(jq, jnp.asarray(ids), jcfg, cache)
+        if paged:
+            pool = _scatter_pool(_np_cache(cache), tables)
+            cache = JL.PagedKVCache(**{k: None if a is None else jnp.asarray(a) for k, a in pool.items()})
         jlog.append(np.asarray(lg[:, -1]))
         tokens = [np.asarray(jnp.argmax(lg[:, -1], -1))]
         for pos in positions:
@@ -122,8 +197,13 @@ def _serve_against_jax(jcfg, tcfg, _, jq):
 
     # the port, teacher-forced with the JAX package's greedy tokens
     tlog = []
-    cache = TL.init_kv_cache(tcfg, B, S, device="cpu")
+    cache = TL.init_kv_cache(tcfg, B, S, kv_dtype=kv_dtype, device="cpu")
+    assert isinstance(cache, TL.Int8KVCache if kv_dtype == "int8" else TL.KVCache)
     lg, cache = TL.prefill(tq, torch.from_numpy(ids), tcfg, cache)
+    if paged:
+        dense = {k: None if t is None else _np(t) for k, t in cache._asdict().items()}
+        cache = kv_cache_from_numpy(_scatter_pool(dense, tables), "cpu")
+        assert isinstance(cache, TL.PagedKVCache) and (cache.k_scale is not None) == (kv_dtype == "int8")
     tlog.append(lg[:, -1].numpy())
     for tok, pos in zip(tokens, positions):
         p = torch.from_numpy(pos) if isinstance(pos, np.ndarray) else pos
@@ -136,6 +216,34 @@ def _serve_against_jax(jcfg, tcfg, _, jq):
         top5 = np.argsort(-j, axis=-1)[:, :5]
         for b in range(B):
             assert t[b].argmax() in top5[b], (step, b)
+
+
+def test_paged_forward_refuses_prefill(models):
+    _, tcfg, _, jq = models
+    tq = params_from_numpy(_np_tree(jq), "cpu")
+    cache = TL.init_paged_kv_cache(tcfg, B, S, num_blocks=4, block_size=BS, device="cpu")
+    with pytest.raises(ValueError, match="per-slot decode"):
+        TL.prefill(tq, torch.zeros(B, 4, dtype=torch.int64), tcfg, cache)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_bit_identical_to_jax(dtype):
+    """Codes and scales of ``_quantize_kv`` equal the JAX package's bit for
+    bit: random rows, an all-zero row, and rows of exact .5 ties (absmax
+    127, so the scale is 1 and x / scale is x), which round half to even."""
+    x = np.random.default_rng(4).standard_normal((2, 3, 5, HD)).astype(np.float32) * 3
+    x[0, 1, 2] = 0.0
+    ties = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5], np.float32)
+    x[1, 0, :2] = np.resize(ties, HD)
+    x[1, 0, :2, -1] = 127.0
+    jx = jnp.asarray(x, jnp.dtype(dtype))
+    jq_, js = JL._quantize_kv(jx)
+    tq_, ts = TL._quantize_kv(tensor_from_numpy(np.asarray(jx), "cpu"))
+    assert tq_.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq_.numpy(), np.asarray(jq_))
+    np.testing.assert_array_equal(ts.numpy().view(np.int32), np.asarray(js).view(np.int32))
+    assert (tq_[0, 1, 2] == 0).all() and ts[0, 1, 2] == 0
+    assert tq_[1, 0, 0, :8].tolist() == [0, 2, 2, 0, -2, -2, 126, -126]
 
 
 def test_no_cache_forward_matches_cached_prefill(models):
