@@ -10,6 +10,22 @@
 //   code' = requant(clip(s * (1 / absmax'), -1, 1)), sign fixup on state1
 // written in place: the parameter, both uint8 states and both absmax arrays.
 //
+// optimizer_update_8bit_ademamix_kernel replaces the TPU kernel
+// optimizer_update_8bit_pallas -> _run_ademamix (body _kernel_ademamix) of
+// the same file: AdEMAMix's three states in the same pass,
+//   m1' = fma(1 - beta1, g, m1 * beta1)            (signed map, sign fixup)
+//   m2' = fma(1 - beta3_t, g, m2 * beta3_t)        (signed map, sign fixup)
+//   nu' = fma((1 - beta2) g, g, nu * beta2)        (unsigned map, no fixup)
+//   u   = fma(alpha_t, m2', m1' / c1) / (sqrt(nu') / c2 + eps)
+//   p'  = fma(p, 1 - lr wd, -(lr u))  or, without decay, fma(-lr, u, p)
+// with the scheduled alpha_t and beta3_t and the bias corrections c1, c2
+// from the host.  The fused multiply-adds stand where XLA contracts the JAX
+// kernel's products on the CPU, so the plain version (which rounds them the
+// same way) gives the JAX kernel's bits.  Bound by bytes too: 18 per
+// element.  The same warp per quantization block; the two momenta arrive as
+// two pointers, the halves of the JAX package's [2, n] leaf, so the second
+// one need not be 8-byte aligned and its codes load bytewise when it is not.
+//
 // Bound on the H100: bytes, 16 per element (g 4 read, p 4 read + 4 written,
 // each uint8 state 1 read + 1 written).  One warp owns one quantization
 // block, 8 elements a lane (two 16-byte loads of g and of p, one 8-byte load
@@ -58,6 +74,7 @@ struct OptScalars {
     float beta1, beta2, omb1, omb2, eps, eps_c2, step_size, lr, weight_decay, decay, gnorm_scale;
     int use_decay;
     int first_step;
+    float c1, c2, alpha_t, beta3_t, omb3;  // ademamix
 };
 
 namespace {
@@ -251,6 +268,138 @@ optimizer_update_8bit_kernel(const float* __restrict__ g, float* __restrict__ p,
     }
 }
 
+// Eight codes of a state at s + base: one 8-byte load where aligned and
+// whole, else byte by byte with the code of 0.0 past n.
+__device__ __forceinline__ void load_codes8(const uint8_t* s, long long base, long long n, bool whole,
+                                            uint8_t zero, uint8_t* c) {
+    if (whole && ((reinterpret_cast<uintptr_t>(s + base) & 7u) == 0)) {
+        const uint2 w = *reinterpret_cast<const uint2*>(s + base);
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j) c[j] = (uint8_t)(((j < 4 ? w.x : w.y) >> (8 * (j & 3))) & 0xFFu);
+    } else {
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j) c[j] = base + j < n ? s[base + j] : zero;
+    }
+}
+
+__device__ __forceinline__ void store_codes8(uint8_t* s, long long base, long long n, bool whole,
+                                             const uint32_t* q) {
+    if (whole && ((reinterpret_cast<uintptr_t>(s + base) & 7u) == 0)) {
+        *reinterpret_cast<uint2*>(s + base) = make_uint2(q[0], q[1]);
+    } else {
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j)
+            if (base + j < n) s[base + j] = (uint8_t)(q[j >> 2] >> (8 * (j & 3)));
+    }
+}
+
+__global__ void __launch_bounds__(kThreads)
+optimizer_update_8bit_ademamix_kernel(const float* __restrict__ g, float* __restrict__ p,
+                                      uint8_t* __restrict__ m1, uint8_t* __restrict__ m2,
+                                      uint8_t* __restrict__ nu, float* __restrict__ am_m1,
+                                      float* __restrict__ am_m2, float* __restrict__ am_nu, long long n,
+                                      long long nblocks, OptScalars sc, StateMap map1, StateMap map2,
+                                      int fixup) {
+    __shared__ float t1[256];
+    __shared__ float t2[256];
+    __shared__ StateMap sm1, sm2;
+    const int tid = threadIdx.x;
+    if (tid == 0) sm1 = map1;
+    if (tid == 32) sm2 = map2;
+    t1[tid] = decode_entry(map1, tid);
+    t2[tid] = decode_entry(map2, tid);
+    __syncthreads();
+
+    const int lane = tid & 31;
+    const bool fix = fixup != 0;
+    const uint8_t z1 = (uint8_t)sm1.zero_idx, z2 = (uint8_t)sm2.zero_idx;
+    for (long long blk = (long long)blockIdx.x * kWarps + (tid >> 5); blk < nblocks;
+         blk += (long long)gridDim.x * kWarps) {
+        const long long base = blk * kBlock + lane * kPerLane;
+        const bool whole = base + kPerLane <= n;
+        float gv[kPerLane], pv[kPerLane];
+        if (whole) {
+            const float4 ga = *reinterpret_cast<const float4*>(g + base);
+            const float4 gb = *reinterpret_cast<const float4*>(g + base + 4);
+            const float4 pa = *reinterpret_cast<const float4*>(p + base);
+            const float4 pb = *reinterpret_cast<const float4*>(p + base + 4);
+            gv[0] = ga.x; gv[1] = ga.y; gv[2] = ga.z; gv[3] = ga.w;
+            gv[4] = gb.x; gv[5] = gb.y; gv[6] = gb.z; gv[7] = gb.w;
+            pv[0] = pa.x; pv[1] = pa.y; pv[2] = pa.z; pv[3] = pa.w;
+            pv[4] = pb.x; pv[5] = pb.y; pv[6] = pb.z; pv[7] = pb.w;
+        } else {
+#pragma unroll
+            for (int j = 0; j < kPerLane; ++j) {
+                const bool in = base + j < n;
+                gv[j] = in ? g[base + j] : 0.0f;
+                pv[j] = in ? p[base + j] : 0.0f;
+            }
+        }
+        uint8_t c1[kPerLane], c2[kPerLane], c3[kPerLane];
+        load_codes8(m1, base, n, whole, z1, c1);
+        load_codes8(m2, base, n, whole, z1, c2);
+        load_codes8(nu, base, n, whole, z2, c3);
+        const float a1 = am_m1[blk], a2 = am_m2[blk], a3 = am_nu[blk];
+
+        float x1[kPerLane], x2[kPerLane], x3[kPerLane];
+        float mx1 = 0.0f, mx2 = 0.0f, mx3 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j) {
+            const float gj = __fmul_rn(gv[j], sc.gnorm_scale);
+            const float v1 = __fmul_rn(t1[c1[j]], a1);
+            const float v2 = __fmul_rn(t1[c2[j]], a2);
+            const float v3 = __fmul_rn(t2[c3[j]], a3);
+            float n1 = __fmaf_rn(sc.omb1, gj, __fmul_rn(v1, sc.beta1));
+            float n2 = __fmaf_rn(sc.omb3, gj, __fmul_rn(v2, sc.beta3_t));
+            float n3 = __fmaf_rn(__fmul_rn(sc.omb2, gj), gj, __fmul_rn(v3, sc.beta2));
+            const float mixed = __fmaf_rn(sc.alpha_t, n2, __fdiv_rn(n1, sc.c1));
+            const float adaptive = __fadd_rn(__fdiv_rn(__fsqrt_rn(n3), sc.c2), sc.eps);
+            const float stp = __fdiv_rn(mixed, adaptive);
+            float pj = sc.use_decay ? __fmaf_rn(pv[j], sc.decay, -__fmul_rn(sc.lr, stp))
+                                    : __fmaf_rn(-sc.lr, stp, pv[j]);
+            if (!isfinite(gj)) {
+                pj = pv[j];
+                n1 = n2 = n3 = 0.0f;
+            }
+            pv[j] = pj;
+            x1[j] = n1;
+            x2[j] = n2;
+            x3[j] = n3;
+            mx1 = fmaxf(mx1, fabsf(n1));
+            mx2 = fmaxf(mx2, fabsf(n2));
+            mx3 = fmaxf(mx3, fabsf(n3));
+        }
+        mx1 = warp_max(mx1);
+        mx2 = warp_max(mx2);
+        mx3 = warp_max(mx3);
+        const float sc1 = inv_absmax(mx1), sc2 = inv_absmax(mx2), sc3 = inv_absmax(mx3);
+
+        uint32_t q1[2] = {0u, 0u}, q2[2] = {0u, 0u}, q3[2] = {0u, 0u};
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j) {
+            q1[j >> 2] |= requant(sm1, clip_unit(__fmul_rn(x1[j], sc1)), fix) << (8 * (j & 3));
+            q2[j >> 2] |= requant(sm1, clip_unit(__fmul_rn(x2[j], sc2)), fix) << (8 * (j & 3));
+            q3[j >> 2] |= requant(sm2, clip_unit(__fmul_rn(x3[j], sc3)), false) << (8 * (j & 3));
+        }
+        if (whole) {
+            *reinterpret_cast<float4*>(p + base) = make_float4(pv[0], pv[1], pv[2], pv[3]);
+            *reinterpret_cast<float4*>(p + base + 4) = make_float4(pv[4], pv[5], pv[6], pv[7]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < kPerLane; ++j)
+                if (base + j < n) p[base + j] = pv[j];
+        }
+        store_codes8(m1, base, n, whole, q1);
+        store_codes8(m2, base, n, whole, q2);
+        store_codes8(nu, base, n, whole, q3);
+        if (lane == 0) {  // every lane read the old absmax before the shuffles above
+            am_m1[blk] = mx1;
+            am_m2[blk] = mx2;
+            am_nu[blk] = mx3;
+        }
+    }
+}
+
 template <int kRule, bool kTwo>
 void launch(const float* g, float* p, uint8_t* s1, uint8_t* s2, float* am1, float* am2, long long n,
             const OptScalars& sc, const StateMap& m1, const StateMap& m2, int fixup,
@@ -284,5 +433,22 @@ BNB_EXPORT int bnb_optimizer_update_8bit(const float* g, float* p, uint8_t* s1, 
         case kAdagrad: launch<kAdagrad, false>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, stream); break;
         default: return (int)cudaErrorInvalidValue;
     }
+    return (int)cudaGetLastError();
+}
+
+// AdEMAMix: g [n] f32; p [n] f32, the momenta m1/m2 and nu [n] uint8 and
+// their absmax am_m1/am_m2/am_nu [ceil(n/256)] f32, all updated in place;
+// map1 decodes the momenta, map2 nu.  sc, map1 and map2 on the host.
+BNB_EXPORT int bnb_optimizer_update_8bit_ademamix(const float* g, float* p, uint8_t* m1, uint8_t* m2,
+                                                  uint8_t* nu, float* am_m1, float* am_m2, float* am_nu,
+                                                  long long n, const OptScalars* sc, const StateMap* map1,
+                                                  const StateMap* map2, int fixup, cudaStream_t stream) {
+    if (n <= 0 || !map_ok(map1) || !map_ok(map2) || m1 == nullptr || m2 == nullptr || nu == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const long long nblocks = (n + kBlock - 1) / kBlock;
+    long long grid = (nblocks + kWarps - 1) / kWarps;
+    if (grid > 4096) grid = 4096;
+    optimizer_update_8bit_ademamix_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(
+        g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, nblocks, *sc, *map1, *map2, fixup);
     return (int)cudaGetLastError();
 }

@@ -12,6 +12,14 @@ codes are packed in one of three byte layouts:
   with the absmax stored transposed ``[K/blocksize, N]`` (the decode kernels'
   layout, ``ops/gemm4bit_paired.py``).
 
+``quant_storage`` reinterprets the flat and 2d payload bytes as a wider
+integer type (the reference's ``bnb_4bit_quant_storage``, which lets FSDP
+shard packed weights): uint8, int8, uint16 or uint32, with the float types
+mapped to the unsigned integer of their width (bf16 and f16 to uint16, f32
+to uint32), as the JAX package maps them, so that no payload is ever a float
+tensor.  The bytes stay in their order: ``payload.view(torch.uint8)`` gives
+them back.  The paired layout takes uint8 only.
+
 The input is upcast to float32 before quantizing, so bf16 weights quantize
 exactly as the JAX package quantizes them.
 
@@ -20,6 +28,11 @@ exactly as the JAX package quantizes them.
 to uint8 over the dynamic map at blocksize 256 (the blockwise-8 quantize
 kernel), over the flat block order.  The paired layout stores the uint8
 codes transposed ``[K/blocksize, N]``, as it stores an f32 absmax.
+
+:func:`dequantize_4bit` is kernel 10 (``ops/gemm4bit.dequantize_4bit_2d``)
+on CUDA, the plain version beside it on the CPU; a paired payload is repacked
+to the K-adjacent order first.  The serving routes reach the dequantize
+through ``functional/gemm.py``, which calls the kernels directly.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from ..ops.gemm4bit import dequantize_4bit_2d
 from ..ops.gemm4bit_paired import pack_npaired, repack_npaired_to_2d
 from ..ops.quant4bit import quantize_4bit_codes
 from .blockwise import fixed_order_mean, quantize_blockwise
@@ -36,6 +50,9 @@ from .quant_state import QuantState
 
 __all__ = [
     "VALID_4BIT_BLOCKSIZES",
+    "QUANT_STORAGE_BITS",
+    "storage_dtype",
+    "payload_bytes",
     "quantize_4bit",
     "dequantize_4bit",
     "pack_4bit",
@@ -47,6 +64,25 @@ __all__ = [
 ]
 
 VALID_4BIT_BLOCKSIZES = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+# payload storage types; a float storage is the unsigned integer of its width
+QUANT_STORAGE_BITS = {torch.uint8: 8, torch.int8: 8, torch.uint16: 16, torch.uint32: 32}
+_STORAGE_ALIAS = {torch.float16: torch.uint16, torch.bfloat16: torch.uint16, torch.float32: torch.uint32}
+
+
+def storage_dtype(quant_storage) -> torch.dtype:
+    """The integer type a payload is stored in for ``quant_storage``."""
+    d = _STORAGE_ALIAS.get(quant_storage, quant_storage)
+    if d not in QUANT_STORAGE_BITS:
+        raise ValueError(f"unsupported quant_storage {quant_storage}")
+    return d
+
+
+def payload_bytes(packed: torch.Tensor) -> torch.Tensor:
+    """A payload of any storage type as its flat uint8 bytes (a view)."""
+    if packed.dtype == torch.uint8:
+        return packed
+    return packed.reshape(-1).view(torch.uint8)
 
 
 def pack_4bit(q: torch.Tensor) -> torch.Tensor:
@@ -67,11 +103,14 @@ def quantize_4bit(
     quant_type: str = "nf4",
     compress_statistics: bool = False,
     layout: str = "flat",
+    quant_storage: torch.dtype = torch.uint8,
 ):
     """Quantize ``A`` to packed 4-bit codes.  Returns ``(packed, QuantState)``.
 
     ``layout="2d"`` and ``"paired"`` need a 2-D input with
-    ``K % blocksize == 0`` (and an even N for ``"paired"``).  With
+    ``K % blocksize == 0`` (and an even N for ``"paired"``).  A
+    ``quant_storage`` wider than a byte gives a flat ``[bytes/width, 1]`` or
+    2d ``[N, K/2/width]`` payload of the storage's integer type.  With
     ``compress_statistics`` the state is nested: its offset is the absmax's
     mean, summed in one fixed order (the CPU and the card agree bit for bit;
     the JAX package's ``jnp.mean`` may differ by a few ulp, and then a nested
@@ -84,6 +123,9 @@ def quantize_4bit(
         raise ValueError("layout='2d' requires a 2-D input with K % blocksize == 0")
     if layout == "paired" and (A.dim() != 2 or A.shape[-1] % blocksize or A.shape[0] % 2):
         raise ValueError("layout='paired' requires a 2-D input with K % blocksize == 0 and even N")
+    storage = storage_dtype(quant_storage)
+    if layout == "paired" and storage != torch.uint8:
+        raise ValueError("layout='paired' stores uint8 bytes only")
 
     n = A.numel()
     x = A.reshape(-1).to(torch.float32).contiguous()
@@ -101,7 +143,12 @@ def quantize_4bit(
         absmax = absmax.reshape(N, K // blocksize).t().contiguous()
     else:
         # an odd tail pairs with the code of a padded zero, as in the JAX package
-        packed = pack_4bit(codes[: n + n % 2]).reshape(-1, 1)
+        packed = pack_4bit(codes[: n + n % 2])
+        if storage != torch.uint8:
+            if packed.numel() % (QUANT_STORAGE_BITS[storage] // 8):
+                raise ValueError(f"{packed.numel()} payload bytes do not fill whole {storage} words")
+            packed = packed.view(storage)
+        packed = packed.reshape(-1, 1)
         if layout == "2d":
             packed = packed.reshape(A.shape[0], -1)
     state = QuantState.make(absmax, A.shape, quant_type, blocksize, A.dtype, offset=offset,
@@ -118,11 +165,11 @@ def dequantize_4bit(
     shape: Optional[tuple] = None,
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Dequantize a packed 4-bit tensor to ``dtype`` (f32 products, exact).
-
-    This is the plain tensor path on every device: the decode and prefill
-    routes never call it (they use the paired kernels of
-    ``ops/gemm4bit_paired.py``)."""
+    """Dequantize a packed 4-bit tensor to ``dtype``: the exact f32 product
+    ``code[q] * absmax``, rounded to ``dtype``.  Kernel 10 on CUDA (bf16,
+    f16 or f32), its plain version on the CPU; a payload of a wider storage
+    type is read as its bytes, a paired one repacked first, a nested absmax
+    decoded on the device."""
     if quant_state is not None:
         absmax = quant_state.dequant_absmax()
         blocksize = quant_state.blocksize
@@ -134,16 +181,9 @@ def dequantize_4bit(
             A = repack_npaired_to_2d(A.reshape(N // 2, K))
     if shape is None or absmax is None:
         raise ValueError("either quant_state or (absmax, shape) must be provided")
-    shape = tuple(int(s) for s in shape)
-    n = 1
-    for s in shape:
-        n *= s
-    code = torch.from_numpy(get_4bit_code(quant_type, blocksize).copy()).to(A.device)
-    vals = code[unpack_4bit(A)[:n].long()]
-    if n % blocksize:
-        vals = torch.nn.functional.pad(vals, (0, blocksize - n % blocksize))
-    out = (vals.reshape(-1, blocksize) * absmax.to(torch.float32)[:, None]).reshape(-1)
-    return out[:n].reshape(shape).to(dtype)
+    code = get_4bit_code(quant_type, blocksize)
+    B = payload_bytes(A.contiguous()).reshape(-1)
+    return dequantize_4bit_2d(B, absmax.reshape(-1).to(torch.float32).contiguous(), code, blocksize, shape, dtype)
 
 
 def quantize_nf4(A, blocksize: int = 64, **kwargs):

@@ -12,9 +12,9 @@ momentum rule), rmsprop, adagrad, lion and ademamix.
   arithmetic, runs the fp32 rule, takes the new block absmax and requantizes
   by segment arithmetic with the sign fixup on state1; an element whose
   gradient is NaN or Inf keeps its parameter and zeroes its states.  On CUDA
-  this is always kernel 14 (``ops/optim8bit.py``), the reference CUDA
-  library's default; the JAX package's environment knobs that pick a tier
-  have no counterpart.
+  this is always kernel 14 (``ops/optim8bit.py``), or kernel 15 for
+  AdEMAMix's three states, the reference CUDA library's default; the JAX
+  package's environment knobs that pick a tier have no counterpart.
 
 Both return new tensors, as the JAX package's pure functions do; the
 optimizers of ``optim/`` update in place instead.
@@ -187,6 +187,8 @@ def optimizer_update_8bit_blockwise(
     *,
     beta1: float,
     beta2: float,
+    beta3: float = 0.0,
+    alpha: float = 0.0,
     eps: float,
     weight_decay: float = 0.0,
     step: int,
@@ -196,11 +198,12 @@ def optimizer_update_8bit_blockwise(
 ):
     """One 8-bit blockwise step: ``(new_p, new_state1, new_state2,
     new_absmax1, new_absmax2)``, the inputs left as they were.  ``qmap1``
-    and ``qmap2`` are the state codebooks (numpy); AdEMAMix's three-state
-    kernel is not ported yet."""
+    and ``qmap2`` are the state codebooks (numpy).  AdEMAMix takes this
+    step's scheduled ``beta3`` and ``alpha``, its momenta as ``state1 [2,
+    ...]`` and their absmax as ``absmax1 [2, nb]``."""
     outs = [t.clone() if t is not None else None for t in (p, state1, state2, absmax1, absmax2)]
     sc = UpdateScalars.make(name, beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay,
-                            step=step, lr=lr, gnorm_scale=gnorm_scale)
+                            step=step, lr=lr, gnorm_scale=gnorm_scale, beta3=beta3, alpha=alpha)
     codes = StateCodes(qmap1, qmap2 if sc.two_state else None)
     optimizer_update_8bit_(sc, g, *outs, codes, fixup=apply_sign_fixup)
     return tuple(outs)

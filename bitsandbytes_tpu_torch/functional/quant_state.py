@@ -77,7 +77,9 @@ class QuantState:
         a double quantization.  Over the canonical dynamic map the codes
         decode by segment arithmetic with fused multiply-adds, as the JAX
         package's jitted decode and the ``_dq`` kernels do; another map takes
-        the table lookup, ``code2[q] * absmax2 + offset``."""
+        the table lookup, ``code2[q] * absmax2 + offset``.  Everything stays
+        on the codes' device with no read back to the host: the K-adjacent
+        routes of ``functional/gemm.py`` call this before every matmul."""
         if not self.nested:
             if self.layout == "paired":
                 return self.absmax.t().reshape(-1)

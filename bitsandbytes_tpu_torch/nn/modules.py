@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from .. import autograd
-from ..functional.fourbit import dequantize_4bit, quantize_4bit
+from ..functional.fourbit import dequantize_4bit, payload_bytes, quantize_4bit
 from ..functional.quant_state import QuantState
 from ..ops.dispatch import resolve_device
 from ..ops.gemm4bit_paired import repack_2d_to_npaired, repack_npaired_to_2d
@@ -39,12 +39,15 @@ class QuantizedTensor:
         quant_type: str = "nf4",
         compress_statistics: bool = False,
         layout: str = "auto",
+        quant_storage: torch.dtype = torch.uint8,
     ) -> "QuantizedTensor":
         """``layout="auto"`` picks the paired decode layout when the shape
-        allows it (2-D, K % blocksize == 0, even N), then ``"2d"``, then
-        ``"flat"``."""
+        allows it (2-D, K % blocksize == 0, even N) and the storage is uint8,
+        then ``"2d"``, then ``"flat"``, as the JAX package picks: a wider
+        ``quant_storage`` (bf16 for FSDP-QLoRA) keeps the K-adjacent order."""
         if layout == "auto":
-            if W.dim() == 2 and W.shape[-1] % blocksize == 0 and W.shape[0] % 2 == 0:
+            if (W.dim() == 2 and W.shape[-1] % blocksize == 0 and W.shape[0] % 2 == 0
+                    and quant_storage == torch.uint8):
                 layout = "paired"
             elif W.dim() == 2 and W.shape[-1] % blocksize == 0 and W.shape[-1] % 2 == 0:
                 layout = "2d"
@@ -56,6 +59,7 @@ class QuantizedTensor:
             quant_type=quant_type,
             compress_statistics=compress_statistics,
             layout=layout,
+            quant_storage=quant_storage,
         )
         return cls(data=packed, state=state)
 
@@ -73,25 +77,28 @@ class QuantizedTensor:
     def to_layout(self, layout: str) -> "QuantizedTensor":
         """Relayout the payload between ``flat``/``2d`` (interop K-adjacent
         order) and ``paired``; a byte-exact round trip.  The absmax (f32
-        values or uint8 nested codes alike) transposes with the payload."""
+        values or uint8 nested codes alike) transposes with the payload.  A
+        payload of a wider storage type is read as its bytes, and the result
+        is uint8."""
         state = self.state
         cur = state.layout
         if cur == layout:
             return self
         N, K = (int(s) for s in state.shape)
         bs = state.blocksize
+        raw = payload_bytes(self.data.contiguous())  # never reshaped along K before this bitcast
         if layout == "paired":
             if N % 2 or K % bs:
                 raise ValueError(f"paired layout needs even N and K % {bs} == 0")
-            data = repack_2d_to_npaired(self.data.reshape(N, K // 2), (N, K))
+            data = repack_2d_to_npaired(raw.reshape(N, K // 2), (N, K))
             absmax = state.absmax.reshape(N, K // bs).t().contiguous()
         elif cur == "paired":
-            data = repack_npaired_to_2d(self.data.reshape(N // 2, K))
+            data = repack_npaired_to_2d(raw.reshape(N // 2, K))
             if layout == "flat":
                 data = data.reshape(-1, 1)
             absmax = state.absmax.t().reshape(-1)
         else:  # flat <-> 2d: the same bytes
-            data = self.data.reshape(N, K // 2) if layout == "2d" else self.data.reshape(-1, 1)
+            data = raw.reshape(N, K // 2) if layout == "2d" else raw.reshape(-1, 1)
             absmax = state.absmax
         return QuantizedTensor(data=data, state=dataclasses.replace(state, absmax=absmax, layout=layout))
 
@@ -109,9 +116,10 @@ class Linear4bit(torch.nn.Module):
 
     The weight is drawn like ``torch.nn.Linear``'s (uniform, bound
     ``1/sqrt(K)``) from ``generator`` and quantized at once, its absmax
-    double-quantized when ``compress_statistics``; assign a
-    :class:`QuantizedTensor` to ``weight`` to load another.  The input is
-    cast to ``compute_dtype``."""
+    double-quantized when ``compress_statistics``, its payload stored as
+    ``quant_storage`` (a type wider than uint8 keeps the K-adjacent layout);
+    assign a :class:`QuantizedTensor` to ``weight`` to load another.  The
+    input is cast to ``compute_dtype``."""
 
     quant_type_default = "nf4"
 
@@ -124,6 +132,7 @@ class Linear4bit(torch.nn.Module):
         quant_type: Optional[str] = None,
         blocksize: int = 64,
         compress_statistics: bool = False,
+        quant_storage: torch.dtype = torch.uint8,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -136,7 +145,7 @@ class Linear4bit(torch.nn.Module):
         self.compute_dtype = compute_dtype
         self.weight = QuantizedTensor.quantize(
             W, blocksize=blocksize, quant_type=quant_type or self.quant_type_default,
-            compress_statistics=compress_statistics,
+            compress_statistics=compress_statistics, quant_storage=quant_storage,
         )
         self.bias = (
             torch.nn.Parameter(torch.zeros(out_features, dtype=compute_dtype, device=device), requires_grad=False)

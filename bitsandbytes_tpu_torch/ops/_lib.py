@@ -35,7 +35,8 @@ __all__ = [
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-_SOURCES = ("quant4bit.cu", "gemm4bit_paired.cu", "flash_cached.cu", "blockwise8.cu", "optim8bit.cu")
+_SOURCES = ("quant4bit.cu", "gemm4bit_paired.cu", "flash_cached.cu", "blockwise8.cu", "optim8bit.cu",
+            "gemm4bit.cu")
 _HEADERS = ("common.cuh",)
 _LIBNAME = "libbnb_torch_kernels.so"
 _NVCC_FLAGS = (
@@ -61,6 +62,10 @@ LAUNCHES: dict = {
     "flash_attention_cached_int8": 0,
     "flash_attention_paged": 0,
     "flash_attention_paged_int8": 0,
+    "optimizer_update_8bit_ademamix": 0,
+    "gemm_4bit_fused": 0,
+    "dequantize_4bit_2d": 0,
+    "gemm_4bit_nt_fused": 0,
 }
 
 _lock = threading.Lock()
@@ -168,6 +173,15 @@ _SIGNATURES = {
     "bnb_gemm_4bit_paired_nt_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     # g, p, s1, s2, am1, am2, n, rule, scalars (host), map1 (host), map2 (host), fixup, stream
     "bnb_optimizer_update_8bit": [_P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
+    # g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, scalars (host), map1 (host), map2 (host), fixup, stream
+    "bnb_optimizer_update_8bit_ademamix": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _P],
+    # A, B, absmax, out, M, N, K, blocksize, code[16] (host), a_kind, out_f32, stream
+    "bnb_gemm_4bit_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+    # B, absmax, out, n, blocksize, code[16] (host), out_kind, stream
+    "bnb_dequantize_4bit_2d": [_P, _P, _P, _L, _I, _P, _I, _P],
+    # G, B, absmax, part (scratch), out, M, N, K, blocksize, rows_per_split, splits, code[16] (host),
+    # g_kind, stream
+    "bnb_gemm_4bit_nt_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
 }
 
 

@@ -8,7 +8,8 @@ any other keeps float32 moments.  Per parameter, ``optimizer.state[p]``
 holds ``step`` and ``state1`` (and ``state2`` for the two-state rules), plus
 ``absmax1``/``absmax2`` when 8-bit: the JAX package's per-leaf layout.
 
-An 8-bit step is one fused kernel (kernel 14) on CUDA.  With ``max_unorm``
+An 8-bit step is one fused kernel on CUDA: kernel 14, or kernel 15 for
+AdEMAMix's three states.  With ``max_unorm``
 (LAMB, LARS) an 8-bit parameter takes the blockwise dequantize (kernel 12),
 the clipped fp32 step, and the blockwise quantize (kernel 13) instead, as
 the JAX package does.  The steps run in place under ``torch.no_grad()``.
@@ -52,24 +53,27 @@ class GlobalOptimManager:
 
 
 def _ademamix_schedules(step: int, alpha: float, beta3: float, t_alpha, t_beta3):
-    """AdEMAMix's alpha and beta3 warm-ups at ``step`` (float32)."""
+    """AdEMAMix's alpha and beta3 warm-ups at ``step``, computed as the JAX
+    package computes them: every operation in float32, in its order (the
+    beta3 warm-up interpolates in log space from ``ln 0.9``)."""
     f32 = np.float32
-    alpha_t = min(f32(step) * f32(alpha) / f32(t_alpha), f32(alpha)) if t_alpha else f32(alpha)
-    if t_beta3 and step < t_beta3:
-        frac = min(max(step / t_beta3, 0.0), 1.0)
-        denom = (1 - frac) / math.log(0.9) + frac / math.log(beta3)
-        beta3_t = f32(math.exp(1.0 / denom))
+    step_f = f32(step)
+    alpha_t = min(step_f * f32(alpha) / f32(t_alpha), f32(alpha)) if t_alpha else f32(alpha)
+    if t_beta3 and step_f < f32(t_beta3):
+        frac = min(max(step_f / f32(t_beta3), f32(0.0)), f32(1.0))
+        denom = (f32(1.0) - frac) / f32(math.log(0.9)) + frac / f32(math.log(beta3))
+        beta3_t = math.exp(f32(1.0) / denom)
     else:
         beta3_t = f32(beta3)
-    return float(alpha_t), float(beta3_t)
+    return float(alpha_t), float(f32(beta3_t))
 
 
 class BnbOptimizer(torch.optim.Optimizer):
     """One of the eight rules over ``params``, with 8-bit or 32-bit states.
 
-    ``lr`` may be a callable of the step (a schedule).  ``is_paged`` and an
-    8-bit AdEMAMix raise: paged states (``optim/paged.py``) and the
-    three-state kernel (kernel 15) are not ported yet."""
+    ``lr`` may be a callable of the step (a schedule).  ``is_paged`` raises:
+    paged states (``optim/paged.py``) are not ported yet.  AdEMAMix takes
+    ``max_unorm`` at 0 only, as in the JAX package."""
 
     def __init__(
         self,
@@ -98,9 +102,8 @@ class BnbOptimizer(torch.optim.Optimizer):
         if is_paged:
             raise NotImplementedError("paged optimizer states are not ported yet "
                                       "(ROADMAP Queue 1, slice D: optim/paged.py)")
-        if name == "ademamix" and optim_bits == 8:
-            raise NotImplementedError("8-bit AdEMAMix needs kernel 15 (_run_ademamix), not ported yet "
-                                      "(ROADMAP Queue 1, slice D)")
+        if name == "ademamix" and max_unorm > 0.0:
+            raise NotImplementedError("ademamix does not use max_unorm")
         defaults = dict(lr=lr, beta1=beta1, beta2=beta2, beta3=beta3, alpha=alpha, t_alpha=t_alpha,
                         t_beta3=t_beta3, eps=eps, weight_decay=weight_decay, optim_bits=optim_bits,
                         min_8bit_size=min_8bit_size, max_unorm=max_unorm, gnorm_scale=gnorm_scale)
@@ -156,7 +159,7 @@ class BnbOptimizer(torch.optim.Optimizer):
         eight_bit = s1.dtype == torch.uint8
         bs = BLOCKSIZE_8BIT_STATE
         if eight_bit and group["max_unorm"] <= 0.0:
-            sc = UpdateScalars.make(self.name, **hyper)
+            sc = UpdateScalars.make(self.name, beta3=beta3, alpha=alpha, **hyper)
             optimizer_update_8bit_(sc, g.contiguous(), p, s1, s2, state["absmax1"], state.get("absmax2"),
                                    self.codes)
             return

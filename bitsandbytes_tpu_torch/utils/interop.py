@@ -14,7 +14,10 @@ already-quantized trees are both accepted.
 {"a", "b", "scale"}}]}``) and :func:`optim_state_from_numpy` an optimizer
 state (``{"step", "leaves"}``, the leaves shaped like the adapter tree, each
 a dict of ``state1``/``state2``/``absmax1``/``absmax2``) into the port, so
-that both packages take the same next step from the same state.
+that both packages take the same next step from the same state (AdEMAMix's
+leaves hold its two momenta as ``state1 [2, ...]`` and ``absmax1 [2, nb]``,
+which load as they are).  Payloads of a wider ``quant_storage`` (uint16,
+uint32, int8) load as tensors of that type.
 
 :func:`kv_cache_from_numpy` carries a KV cache (dense bf16, dense int8 with
 its scales, or a paged pool with its tables) across, so that both packages
@@ -58,13 +61,15 @@ _DTYPES = {
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
-    """numpy array (bfloat16 from ml_dtypes included) -> tensor on ``device``."""
+    """numpy array (bfloat16 from ml_dtypes included) -> tensor on ``device``,
+    of the same shape (a 0-d array stays 0-d; ``np.ascontiguousarray`` would
+    make it 1-d)."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr).copy())
-    return t.to(device)
+    return t.reshape(arr.shape).to(device)
 
 
 def _quantized(d: dict, device) -> QuantizedTensor:

@@ -16,7 +16,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    kernel 14 (3i), and the sweep that chose
    ``functional/gemm.BACKWARD_LARGE_M_THRESHOLD`` (3j); kernel 4's int8-KV
    mode and kernel 16 (paged, bf16 and int8) at block sizes 16-256, each
-   paged result against kernel 4 on the same data (3k).
+   paged result against kernel 4 on the same data (3k); kernels 9, 10 and 11
+   on the K-adjacent layout of bf16 ``quant_storage`` and the sweep of their
+   routes (3l); kernel 15, the 8-bit AdEMAMix update (3m).
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -28,9 +30,12 @@ Phases (every one asserts; any failure exits non-zero before the result):
    4a's model (4e): int8 KV in a paged pool of three quarters of the dense
    size, 16 slots, 48 requests of 32-768 prompt tokens and 64 new tokens,
    every other one sampled; then the same engine with a bf16 pool (the
-   default ``kv_dtype``), 16 requests, one of them run to ``max_len``.  The
-   kernels' launch counts are zeroed just before each path and read just
-   after it.
+   default ``kv_dtype``), 16 requests, one of them run to ``max_len``; then
+   4a's serving and 4d's training on weights stored as the FSDP-QLoRA
+   recipe stores them (4f): bf16 ``quant_storage`` (the K-adjacent layout,
+   kernels 9 and 10), double-quantized, trained with ``ademamix8bit``
+   (kernel 15).  The kernels' launch counts are zeroed just before each path
+   and read just after it.
 5. Both serving paths at 2 layers on the card and on the CPU (plain
    versions): equal quantized bytes, logits within tolerance, top-5
    containment; then one QLoRA step of each at 2 layers, M = 16 (5b): the
@@ -38,7 +43,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    step against the CPU's on the same gradients; then the engine at 2
    layers, dense and paged, bf16 and int8 KV (5c): its greedy streams
    teacher-forced through the CPU stay in the CPU's top-5, and a decode
-   step's logits agree.
+   step's logits agree; then 4f at 2 layers (5d): prefill and two decode
+   steps against the CPU, and one AdEMAMix QLoRA step at M = 16 (kernels 9,
+   11 and 15).
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -99,6 +106,11 @@ TPU_KERNELS = {
     "flash_attention_paged_int8": (
         "bitsandbytes_tpu/ops/pallas/flash_cached.py:455",
         "bitsandbytes_tpu_torch/csrc/flash_cached.cu"),
+    "gemm_4bit_fused": ("bitsandbytes_tpu/ops/pallas/gemm4bit.py:265", "bitsandbytes_tpu_torch/csrc/gemm4bit.cu"),
+    "dequantize_4bit_2d": ("bitsandbytes_tpu/ops/pallas/gemm4bit.py:330", "bitsandbytes_tpu_torch/csrc/gemm4bit.cu"),
+    "gemm_4bit_nt_fused": ("bitsandbytes_tpu/ops/pallas/gemm4bit.py:444", "bitsandbytes_tpu_torch/csrc/gemm4bit.cu"),
+    "optimizer_update_8bit_ademamix": (
+        "bitsandbytes_tpu/ops/pallas/optim8bit.py:323", "bitsandbytes_tpu_torch/csrc/optim8bit.cu"),
 }
 
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
@@ -128,6 +140,7 @@ def main() -> int:
     from bitsandbytes_tpu_torch.functional import blockwise as FB
     from bitsandbytes_tpu_torch.functional import gemm as G
     from bitsandbytes_tpu_torch.functional.codebooks import create_dynamic_map, get_4bit_code
+    from bitsandbytes_tpu_torch.functional.fourbit import payload_bytes
     from bitsandbytes_tpu_torch.models import llama as L
     from bitsandbytes_tpu_torch.nn.modules import QuantizedTensor
     from bitsandbytes_tpu_torch.ops import build, launch_counts, reset_launch_counts
@@ -168,6 +181,14 @@ def main() -> int:
         UpdateScalars,
         optimizer_update_8bit_,
         optimizer_update_8bit_plain,
+    )
+    from bitsandbytes_tpu_torch.ops.gemm4bit import (
+        dequantize_4bit_2d,
+        dequantize_4bit_2d_plain,
+        gemm_4bit_fused,
+        gemm_4bit_fused_plain,
+        gemm_4bit_nt_fused,
+        gemm_4bit_nt_fused_plain,
     )
     from bitsandbytes_tpu_torch.ops.quant4bit import quantize_4bit_codes, quantize_4bit_codes_plain
     from bitsandbytes_tpu_torch.utils.benchmark import bandwidth_canary, cuda_time
@@ -605,9 +626,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3i. kernel 14: the fused 8-bit optimizer update --------------------
-    q1, q2 = create_dynamic_map(signed=True), create_dynamic_map(signed=False)
-    q1_t, q2_t = tuple(float(v) for v in q1), tuple(float(v) for v in q2)
-    codes1, codes2 = StateCodes(q1), StateCodes(q1, q2)
+    q1_map, q2_map = create_dynamic_map(signed=True), create_dynamic_map(signed=False)
+    q1_t, q2_t = tuple(float(v) for v in q1_map), tuple(float(v) for v in q2_map)
+    codes1, codes2 = StateCodes(q1_map), StateCodes(q1_map, q2_map)
     hyper = {"adam": (0.9, 0.999, 1e-8, 1e-2, 1e-3), "lamb": (0.9, 0.999, 1e-8, 0.0, 1e-3),
              "momentum": (0.9, 0.0, 0.0, 1e-2, 1e-2), "lars": (0.9, 0.0, 0.0, 0.0, 1e-2),
              "lion": (0.9, 0.99, 0.0, 1e-2, 1e-4), "rmsprop": (0.99, 0.0, 1e-8, 0.0, 1e-2),
@@ -822,8 +843,203 @@ def main() -> int:
               note=("library_ms null: no PyTorch call reads an int8 paged pool" if int8 else
                     "library_ms: SDPA on the contiguous bf16 cache the pool was scattered from (gather excluded)"))
 
+    # -- 3l. kernels 9, 10 and 11: the K-adjacent layout (bf16 quant_storage) --
+    def kadj(qt):
+        """(payload bytes, f32 absmax) of a flat/2d state, a nested one decoded."""
+        return payload_bytes(qt.data).reshape(-1), qt.state.dequant_absmax().contiguous()
+
+    def rel_err(out, ref):
+        return ((out.float() - ref).abs().max() / ref.abs().max()).item()
+
+    cases, k9_err, k11_err = [], 0.0, 0.0
+    for Mx, N, K, gbs in ((1, 3, 32, 32), (3, 37, 96, 32), (7, 129, 4160, 64), (13, 255, 2176, 128),
+                          (31, 513, 4096, 256), (5, 64, 8192, 4096), (2, 77, 14336, 512), (9, 31, 2048, 1024),
+                          (4, 17, 4096, 2048), (16, 4096, 14336, 64)):
+        for compress in (False, True):
+            qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev), blocksize=gbs,
+                                          compress_statistics=compress, quant_storage=torch.bfloat16)
+            assert qw.state.layout == "2d" and qw.data.dtype == torch.uint16
+            Bq, am = kadj(qw)
+            ct = tuple(float(v) for v in get_4bit_code("nf4", gbs))
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                Wk = dequantize_4bit_2d(Bq, am, code, gbs, (N, K), dt)
+                assert torch.equal(Wk.view(torch.uint8), dequantize_4bit_2d_plain(Bq, am, ct, gbs, (N, K), dt).view(
+                    torch.uint8)), f"dequantize_4bit_2d {(N, K, gbs, dt)}"
+                A = torch.randn(Mx, K, generator=gen, device=dev).to(dt)
+                out = gemm_4bit_fused(A, Bq, am, code, gbs, (N, K), out_dtype=torch.float32)
+                ref = gemm_4bit_fused_plain(A, Bq, am, ct, gbs, N)
+                rel = rel_err(out, ref)
+                assert rel <= 1e-5, f"gemm_4bit_fused {(Mx, N, K, gbs, compress, dt)}: rel {rel}"
+                assert torch.equal(gemm_4bit_fused(A, Bq, am, code, gbs, (N, K)), out.to(dt)), "kernel 9 in A's type"
+                Gx = torch.randn(Mx, N, generator=gen, device=dev).to(dt)
+                o11 = gemm_4bit_nt_fused(Gx, Bq, am, code, gbs, (N, K))
+                rel11 = rel_err(o11, gemm_4bit_nt_fused_plain(Gx, Bq, am, ct, gbs, K))
+                assert o11.dtype == dt and rel11 <= nt_tol(dt), f"gemm_4bit_nt_fused {(Mx, N, K, gbs, dt)}: {rel11}"
+                k9_err, k11_err = max(k9_err, rel), max(k11_err, rel11 if dt == torch.float32 else 0.0)
+            cases.append(f"k9/k10/k11 M{Mx} N{N} K{K} bs{gbs} nested={compress} f32/bf16/f16")
+    for shape, fbs in (((7, 77), 64), ((1, 4099), 32)):  # flat layouts, blocks across rows, an odd count
+        qw = QuantizedTensor.quantize(torch.randn(*shape, generator=gen, device=dev), blocksize=fbs)
+        assert qw.state.layout == "flat"
+        ct = tuple(float(v) for v in get_4bit_code("nf4", fbs))
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(qw.dequantize().to(dt), dequantize_4bit_2d_plain(qw.data, qw.state.absmax, ct, fbs,
+                                                                                  shape, dt)), f"flat {shape}"
+        cases.append(f"k10 flat {shape} bs{fbs}")
+    emit("ragged_shapes_kadjacent", passed=cases, k9_max_rel=k9_err, k11_max_rel_f32=k11_err)
+
+    kq = {}
+    for name, (N, K) in LINEARS.items():
+        Wf = torch.randn(N, K, generator=gen, device=dev) * K**-0.5
+        kq[name] = QuantizedTensor.quantize(Wf, blocksize=bs, compress_statistics=True, quant_storage=torch.bfloat16)
+        del Wf
+    code_t = tuple(float(v) for v in code)
+
+    def kadj_layer(M, backward):
+        """Kernel 9 (or 11, transposed) on one layer's four linears, the
+        nested absmax decoded before each call as the path does (timed apart)."""
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "decode": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
+        per_shape = []
+        for name, (N, K) in LINEARS.items():
+            qt = kq[name]
+            Bq, am = kadj(qt)
+            Wb = dequantize_4bit_2d_plain(Bq, am, code_t, bs, (N, K), torch.bfloat16)
+            if backward:
+                X = torch.randn(M, N, generator=gen, device=dev).to(torch.bfloat16)
+                run = lambda: gemm_4bit_nt_fused(X, Bq, am, code, bs, (N, K))  # noqa: E731
+                plain = lambda: gemm_4bit_nt_fused_plain(X, Bq, am, code_t, bs, K)  # noqa: E731
+                lib = lambda: torch.matmul(X, Wb)  # noqa: E731
+            else:
+                X = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+                run = lambda: gemm_4bit_fused(X, Bq, am, code, bs, (N, K), out_dtype=torch.float32)  # noqa: E731
+                plain = lambda: gemm_4bit_fused_plain(X, Bq, am, code_t, bs, N)  # noqa: E731
+                lib = lambda: torch.matmul(X, Wb.t())  # noqa: E731
+            out, ref = run(), plain()
+            rel = rel_err(out, ref)
+            assert rel <= (1e-2 if backward else 1e-5), f"{'k11' if backward else 'k9'} {name}: rel {rel}"
+            if not backward:
+                run = lambda: gemm_4bit_fused(X, Bq, am, code, bs, (N, K))  # noqa: E731
+            ms = cuda_time(run, flush_l2=True)["median"]
+            pms = cuda_time(plain, n=3)["median"]
+            lms = cuda_time(lib, flush_l2=True)["median"]
+            dms = cuda_time(qt.state.dequant_absmax, n=5)["median"]
+            nbytes = M * (N if backward else K) * 2 + N * K // 2 + (K // bs) * N * 4 + M * (K if backward else N) * 2
+            per_shape.append({"linear": name + ("^T" if backward else ""), "N": N, "K": K, "M": M, "ms": ms,
+                              "plain_ms": pms, "library_ms": lms, "nested_decode_ms": dms, "bytes": nbytes,
+                              "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0], "rel_err": rel})
+            for key, v in (("ms", ms), ("plain", pms), ("lib", lms), ("decode", dms), ("bytes", nbytes),
+                           ("ops", 2 * M * N * K)):
+                tot[key] += v
+            tot["err"] = max(tot["err"], (out.float() - ref).abs().max().item())
+            del Wb, out, ref
+        return tot, per_shape
+
+    for name, M, backward in (("gemm_4bit_fused", 8, False), ("gemm_4bit_nt_fused", 16, True)):
+        tot, per_shape = kadj_layer(M, backward)
+        entry(name, tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"], PEAK_BF16_FLOPS, tot["err"],
+              per_shape=per_shape, nested_decode_ms=tot["decode"],
+              note=f"sum over one layer's 4 linears{' transposed' if backward else ''} at M={M}, bf16 "
+                   f"{'g' if backward else 'A'}, bf16 quant_storage, the nested absmax decoded to f32 beforehand "
+                   "(nested_decode_ms: that decode, the path's per-call cost, timed apart); library: torch.matmul "
+                   "on the dequantized bf16 weight")
+
+    N, K = LINEARS["gate_up"]
+    Bq, am = kadj(kq["gate_up"])
+    assert torch.equal(dequantize_4bit_2d(Bq, am, code, bs, (N, K)),
+                       dequantize_4bit_2d_plain(Bq, am, code_t, bs, (N, K), torch.bfloat16)), "dequantize_4bit_2d"
+    entry("dequantize_4bit_2d",
+          cuda_time(lambda: dequantize_4bit_2d(Bq, am, code, bs, (N, K)), flush_l2=True)["median"],
+          cuda_time(lambda: dequantize_4bit_2d_plain(Bq, am, code_t, bs, (N, K), torch.bfloat16), n=3)["median"],
+          None, N * K // 2 + (K // bs) * N * 4 + N * K * 2, N * K, PEAK_F32_FLOPS, 0.0, shape=[N, K],
+          dtype="bfloat16", nested_decode_ms=cuda_time(kq["gate_up"].state.dequant_absmax, n=5)["median"],
+          note="gate_up, the absmax decoded beforehand (nested_decode_ms, timed apart)")
+
+    # the route sweep that sets the K-adjacent thresholds
+    sweep = []
+    for name in ("gate_up", "down"):
+        N, K = LINEARS[name]
+        Bq, am = kadj(kq[name])
+        for Mx in (8, 16, 32, 64):
+            A = torch.randn(Mx, K, generator=gen, device=dev).to(torch.bfloat16)
+            Gx = torch.randn(Mx, N, generator=gen, device=dev).to(torch.bfloat16)
+            sweep.append({
+                "linear": name, "M": Mx,
+                "k9_ms": cuda_time(lambda: gemm_4bit_fused(A, Bq, am, code, bs, (N, K)), n=10, flush_l2=True)["median"],
+                "k10_matmul_ms": cuda_time(lambda: torch.matmul(A, dequantize_4bit_2d(Bq, am, code, bs, (N, K)).t()),
+                                           n=10, flush_l2=True)["median"],
+                "k11_ms": cuda_time(lambda: gemm_4bit_nt_fused(Gx, Bq, am, code, bs, (N, K)), n=10,
+                                    flush_l2=True)["median"],
+                "k10_matmul_T_ms": cuda_time(lambda: torch.matmul(Gx, dequantize_4bit_2d(Bq, am, code, bs, (N, K))),
+                                             n=10, flush_l2=True)["median"]})
+    emit("threshold_sweep_kadjacent", LARGE_M_THRESHOLD=G.LARGE_M_THRESHOLD,
+         BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD, points=sweep)
+    del kq
+    torch.cuda.empty_cache()
+
+    # -- 3m. kernel 15: the fused 8-bit AdEMAMix update ---------------------
+    codes_a = StateCodes(q1_map, q2_map)
+
+    def ada_inputs(n, zero_block=False):
+        nb = -(-n // 256)
+        g = torch.randn(n, generator=gen, device=dev) * 0.01
+        g[7], g[min(600, n - 1)] = float("nan"), float("inf")
+        p = torch.randn(n, generator=gen, device=dev)
+        s1 = torch.randint(0, 256, (2, n), generator=gen, device=dev, dtype=torch.uint8)
+        am1 = torch.rand(2, nb, generator=gen, device=dev) * 0.01
+        s2 = torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8)
+        am2 = torch.rand(nb, generator=gen, device=dev) * 1e-4
+        if zero_block:  # a block whose new states are all zero
+            g[256:512] = 0.0
+            s1[:, 256:512] = 127
+            am1[:, 1] = 0.0
+            s2[256:512] = 0
+            am2[1] = 0.0
+        return g, p, s1, s2, am1, am2
+
+    def ada_scalars(step, wd, scheduled):
+        alpha_t, beta3_t = O.base._ademamix_schedules(step, 5.0, 0.9999, 1000, 1000) if scheduled else (5.0, 0.9999)
+        return UpdateScalars.make("ademamix", beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=wd, step=step, lr=1e-3,
+                                  beta3=beta3_t, alpha=alpha_t)
+
+    checks = []
+    for n in (2048 + 100, 4096 + 3, 14336 * 64):
+        for step in (1, 5):
+            for wd, scheduled in ((0.0, False), (1e-2, True)):
+                sc = ada_scalars(step, wd, scheduled)
+                g, p, s1, s2, am1, am2 = ada_inputs(n, zero_block=step == 1)
+                ref = optimizer_update_8bit_plain(sc, g, p, s1, s2, am1, am2, q1_t, q2_t, True)
+                kout = [t.clone() for t in (p, s1, s2, am1, am2)]
+                optimizer_update_8bit_(sc, g, *kout, codes_a)
+                torch.cuda.synchronize()
+                for k, r, what in zip(kout, ref, ("param", "state1", "state2", "absmax1", "absmax2")):
+                    assert torch.equal(k.reshape(r.shape).view(torch.uint8), r.view(torch.uint8)), \
+                        f"ademamix n {n} step {step} wd {wd}: {what} differs"
+                assert kout[0][7].item() == p[7].item() and (kout[1][:, 7] == 127).all(), "non-finite g"
+                checks.append({"n": n, "step": step, "weight_decay": wd, "scheduled": scheduled,
+                               "zero_block": step == 1, "bit_identical": True})
+
+    def ada_time(n):
+        """Kernel 15 (step 5, scheduled, decay) on an n-element leaf and its plain version."""
+        sc = ada_scalars(5, 1e-2, True)
+        g, p, s1, s2, am1, am2 = ada_inputs(n)
+        ms = cuda_time(lambda: optimizer_update_8bit_(sc, g, p, s1, s2, am1, am2, codes_a), flush_l2=True)["median"]
+        pms = cuda_time(lambda: optimizer_update_8bit_plain(sc, g, p, s1, s2, am1, am2, q1_t, q2_t, True),
+                        n=3, warmup=1)["median"]
+        # g read, p read and written, three uint8 states and three absmax read and written
+        nbytes = n * 12 + 3 * (2 * n + 8 * -(-n // 256))
+        return {"n": n, "ms": ms, "plain_ms": pms, "bytes": nbytes,
+                "bound_ms": bound_ms(nbytes, 40 * n, PEAK_F32_FLOPS)[0]}
+
+    lora_leaf = ada_time(14336 * 64)
+    big_leaf = ada_time(64 << 20)
+    torch.cuda.empty_cache()
+    entry("optimizer_update_8bit_ademamix", lora_leaf["ms"], lora_leaf["plain_ms"], None, lora_leaf["bytes"],
+          40 * lora_leaf["n"], PEAK_F32_FLOPS, 0.0, shape=[14336, 64], rule="ademamix, step 5, scheduled, decay",
+          cases=checks, leaf_64M=big_leaf,
+          note="library_ms is null: no PyTorch call computes AdEMAMix; bit-identical in every case checked")
+
     # a CUDA input the kernels cannot take raises; it never reaches a plain version
     z = torch.zeros(1, dtype=torch.int32, device=dev)
+    b64, am64 = torch.zeros(64, dtype=torch.uint8, device=dev), torch.ones(2, device=dev)  # a [2, 64] payload, bs 64
     q64 = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16, device=dev)
     s1 = torch.ones(1, 1, 1, device=dev)
     bad = {
@@ -834,6 +1050,27 @@ def main() -> int:
                                                      q64.expand(2, 1, 16, 64).contiguous(), z[None], z),
         "paged BS 4": lambda: flash_attention_paged(q1[:1, :1], kc[:2, :1, :4].contiguous(),
                                                     vc[:2, :1, :4].contiguous(), z[None], z),
+        "k9 misaligned A": lambda: gemm_4bit_fused(
+            torch.zeros(65, dtype=torch.bfloat16, device=dev)[1:].reshape(1, 64), b64, am64, code, 64, (2, 64)),
+        "k9 K % blocksize": lambda: gemm_4bit_fused(torch.zeros(1, 96, dtype=torch.bfloat16, device=dev),
+                                                    b64[:48].contiguous(), am64, code, 64, (1, 96)),
+        "k9 int8 A": lambda: gemm_4bit_fused(torch.zeros(1, 64, dtype=torch.int8, device=dev), b64, am64, code, 64,
+                                             (2, 64)),
+        "k9 misaligned payload": lambda: gemm_4bit_fused(torch.zeros(1, 64, dtype=torch.bfloat16, device=dev),
+                                                         torch.zeros(65, dtype=torch.uint8, device=dev)[1:], am64,
+                                                         code, 64, (2, 64)),
+        "k10 absmax count": lambda: dequantize_4bit_2d(b64, am64[:1].contiguous(), code, 64, (2, 64)),
+        "k10 float64 out": lambda: dequantize_4bit_2d(b64, am64, code, 64, (2, 64), torch.float64),
+        "k11 f32 out for bf16 g": lambda: gemm_4bit_nt_fused(torch.zeros(1, 2, dtype=torch.bfloat16, device=dev), b64,
+                                                             am64, code, 64, (2, 64), out_dtype=torch.float32),
+        "k15 misaligned g": lambda: optimizer_update_8bit_(
+            ada_scalars(1, 0.0, False), torch.zeros(4097, device=dev)[1:], torch.zeros(4096, device=dev),
+            torch.zeros(2, 4096, dtype=torch.uint8, device=dev), torch.zeros(4096, dtype=torch.uint8, device=dev),
+            torch.zeros(2, 16, device=dev), torch.zeros(16, device=dev), codes_a),
+        "k15 state1 size": lambda: optimizer_update_8bit_(
+            ada_scalars(1, 0.0, False), torch.zeros(4096, device=dev), torch.zeros(4096, device=dev),
+            torch.zeros(4096, dtype=torch.uint8, device=dev), torch.zeros(4096, dtype=torch.uint8, device=dev),
+            torch.zeros(2, 16, device=dev), torch.zeros(16, device=dev), codes_a),
     }
     for what, fn in bad.items():
         try:
@@ -863,9 +1100,23 @@ def main() -> int:
         return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev_us(e) > 0
                 and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
 
-    def serve(tag, compress, expected, keep=False):
+    def quantize_2d(layer):
+        """A fused layer as the FSDP-QLoRA recipe stores it: bf16
+        quant_storage (so the K-adjacent "2d" layout), NF4 blocksize 64,
+        double-quantized; wqkv and gate_up concatenated as
+        ``quantize_params_4bit(fuse=True)`` concatenates them."""
+        def q(W):
+            return QuantizedTensor.quantize(W.to(torch.float32), blocksize=64, quant_type="nf4",
+                                            compress_statistics=True, quant_storage=torch.bfloat16)
+
+        return {"attn_norm": layer["attn_norm"], "mlp_norm": layer["mlp_norm"],
+                "wqkv": q(torch.cat([layer["wq"], layer["wk"], layer["wv"]], dim=0)), "wo": q(layer["wo"]),
+                "gate_up": q(torch.cat([layer["gate"], layer["up"]], dim=0)), "down": q(layer["down"])}
+
+    def serve(tag, compress, expected, keep=False, quantize=None):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what earlier phases still hold
         t0 = time.perf_counter()
         params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
         torch.cuda.synchronize()
@@ -874,13 +1125,13 @@ def main() -> int:
         reset_launch_counts()
         t0 = time.perf_counter()
         for i in range(cfg.num_layers):  # frees each layer's bf16 weights as it goes
-            params["layers"][i] = L.quantize_params_4bit(
+            params["layers"][i] = quantize(params["layers"][i]) if quantize else L.quantize_params_4bit(
                 {"layers": [params["layers"][i]]}, fuse=True, compress_statistics=compress)["layers"][0]
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         init_peak = torch.cuda.max_memory_allocated()  # the bf16 weights before quantizing
-        resident = torch.cuda.memory_allocated()  # the quantized model
+        resident = torch.cuda.memory_allocated() - held  # the quantized model
         torch.cuda.reset_peak_memory_stats()
         cache = L.init_kv_cache(cfg, batch, max_len, device=dev)
 
@@ -936,13 +1187,13 @@ def main() -> int:
             step_bound_ms_canary=step_bytes / canary_bs * 1e3,
             step_bound_ms_peak=step_bytes / PEAK_BYTES_S * 1e3,
             max_memory_allocated=max(init_peak, torch.cuda.max_memory_allocated()),
-            resident_after_load=resident, serving_peak_memory=torch.cuda.max_memory_allocated(),
+            resident_after_load=resident, held_before_load=held, serving_peak_memory=torch.cuda.max_memory_allocated(),
             launches=counts,
             profiled_decode={"steps": 4, "wall_ms_per_step": prof_wall_ms / 4,
                              "device_ms_per_step": dev_us / 4e3,
                              "device_busy_share": dev_us / 1e3 / prof_wall_ms,
                              "top_kernels_ms_per_step": top},
-            first_tokens=toks[0, :8].tolist(),
+            first_tokens=toks[0, :8].tolist(), layout="2d, bf16 quant_storage" if quantize else "paired",
         )
         del cache, logits
         if not keep:
@@ -1217,6 +1468,97 @@ def main() -> int:
     del eng, nf4_params
     torch.cuda.empty_cache()
 
+    # -- 4f. serve, then QLoRA-train with AdEMAMix, on bf16 quant_storage ---
+    # (the K-adjacent layout: kernels 9 and 10, the nested absmax decoded on
+    # the device before each call, then kernels 10 and 15 in training)
+    assert batch < G.LARGE_M_THRESHOLD <= batch * prompt and tb * tt >= G.BACKWARD_LARGE_M_THRESHOLD
+    counts, kq_params = serve("serve_kadjacent", True, {
+        "quantize_4bit_codes": 4 * Lyr,
+        "quantize_blockwise8": 4 * Lyr,
+        "dequantize_4bit_2d": 4 * Lyr,
+        "gemm_4bit_fused": 4 * Lyr * steps,
+        "flash_attention_cached": Lyr * (steps + 1),
+    }, keep=True, quantize=quantize_2d)
+    report["gemm_4bit_fused"]["launches"] = counts["gemm_4bit_fused"]
+    st0 = kq_params["layers"][0]["gate_up"].state
+    assert st0.layout == "2d" and st0.nested and kq_params["layers"][0]["gate_up"].data.dtype == torch.uint16
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        st0.dequant_absmax()
+        torch.cuda.synchronize()
+    decode_launches = sum(e.count for e in device_events(prof))  # PyTorch's kernels, none of the port's
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lora = L.add_lora(cfg, rank=rank, alpha=alpha, targets=LORA_TARGETS,
+                      generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    lparams = L.lora_parameters(lora)
+    opt = O.ademamix8bit(lparams, lr=1e-3, t_alpha=1000, t_beta3=1000)
+    tids = torch.randint(0, cfg.vocab_size, (tb, tt + 1), generator=torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    opt_ms = []
+    opt_step = opt.step
+    opt.step = timed_step
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, train_ms = [], []
+    for _ in range(tsteps):
+        t0 = time.perf_counter()
+        loss = L.lora_train_step(kq_params, lora, opt, tids, cfg, token_chunk=chunk)
+        losses.append(loss.item())  # synchronizes
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update({"dequantize_4bit_2d": tsteps * (8 * Lyr - 1),
+                 "optimizer_update_8bit_ademamix": tsteps * 2 * len(LORA_TARGETS) * Lyr})
+    assert counts == want, f"qlora ademamix train: launch counts {counts} != {want}"
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0], f"qlora losses {losses}"
+    states = [opt.state[t] for t in lparams if t.dim() > 0]
+    assert all(st["state1"].dtype == torch.uint8 and st["state1"].shape[0] == 2 for st in states)
+    train_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        L.lora_train_step(kq_params, lora, opt, tids, cfg, token_chunk=chunk).item()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    dev_us = sum(self_dev_us(e) for e in events)
+
+    def kclass(key):
+        if "dequantize_4bit_2d" in key:
+            return "kernel 10 (dequantize_4bit_2d)"
+        if "ademamix" in key:
+            return "kernel 15 (AdEMAMix update)"
+        if any(w in key.lower() for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
+            return "GEMM (cuBLAS)"
+        if "copy" in key.lower() or "cast" in key.lower():
+            return "copies and casts"
+        return "other PyTorch kernels"
+
+    by_class = {}
+    for e in events:
+        c = by_class.setdefault(kclass(e.key), {"ms": 0.0, "launches": 0})
+        c["ms"] += self_dev_us(e) / 1e3
+        c["launches"] += e.count
+    top = sorted(((e.key[:120], self_dev_us(e) / 1e3, e.count) for e in events), key=lambda r: -r[1])[:12]
+    med = statistics.median(train_ms[1:])
+    emit("qlora_train_ademamix", config="llama3_8b", layers=Lyr, layout="2d, bf16 quant_storage",
+         compress_statistics=True, lora_rank=rank, lora_alpha=alpha, targets=list(LORA_TARGETS),
+         optimizer="ademamix8bit", lr=1e-3, t_alpha=1000, t_beta3=1000, batch=tb, seq=tt,
+         tokens_per_step=tb * tt, token_chunk=chunk, steps=tsteps, losses=losses,
+         step_ms={"median_2_5": med, "all": train_ms}, tokens_per_s=tb * tt / (med * 1e-3),
+         optimizer_ms={"median_2_5": statistics.median(opt_ms[1:tsteps]), "all": opt_ms[:tsteps]},
+         peak_memory=train_peak, launches=counts, launches_per_step={k: v / tsteps for k, v in counts.items() if v},
+         nested_decode_launches_per_call=decode_launches,
+         profiled_step={"wall_ms": prof_wall_ms, "device_ms": dev_us / 1e3,
+                        "device_busy_share": dev_us / 1e3 / prof_wall_ms, "by_class": by_class,
+                        "top_kernels_ms": top})
+    for name in ("dequantize_4bit_2d", "optimizer_update_8bit_ademamix"):
+        report[name]["launches"] = counts[name]
+    opt.step = opt_step
+    del lora, lparams, opt, states, kq_params, tids, loss, prof
+    torch.cuda.empty_cache()
+
     # -- 5. both paths on the card and on the CPU, 2 layers ----------------
     cfg2 = L.LlamaConfig.llama3_8b(num_layers=2)
     cpu_float = L.init_params(cfg2, torch.Generator().manual_seed(7), device="cpu")
@@ -1400,6 +1742,90 @@ def main() -> int:
                  launches=counts)
             del eng
     del gpu_params, cpu_params, cpu_ref
+    torch.cuda.empty_cache()
+
+    # -- 5d. 4f at 2 layers, card against CPU ------------------------------
+    gpu_params = dict(to_dev(cpu_float))
+    gpu_params["layers"] = [quantize_2d(layer) for layer in gpu_params["layers"]]
+    cpu_params = dict(cpu_float)
+    cpu_params["layers"] = [quantize_2d(layer) for layer in cpu_float["layers"]]
+    for lc, lg in zip(cpu_params["layers"], gpu_params["layers"]):
+        for name in ("wqkv", "wo", "gate_up", "down"):
+            sc, sg = lc[name].state, lg[name].state
+            assert sg.layout == "2d" and lg[name].data.dtype == torch.uint16
+            assert torch.equal(lc[name].data, lg[name].data.cpu()), f"quantized bytes differ: {name}"
+            assert torch.equal(sc.absmax, sg.absmax.cpu()) and torch.equal(sc.offset, sg.offset.cpu()), name
+            assert torch.equal(sc.state2.absmax, sg.state2.absmax.cpu()), f"state2.absmax: {name}"
+    steps5d = 2
+    gcache = L.init_kv_cache(cfg2, B2, 256, device=dev)
+    ccache = L.init_kv_cache(cfg2, B2, 256, device="cpu")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    glog, gcache = L.prefill(gpu_params, ids2.to(dev), cfg2, gcache)
+    clog, ccache = L.prefill(cpu_params, ids2, cfg2, ccache)
+    pairs = [(glog[:, -1].cpu(), clog[:, -1])]
+    tok = glog[:, -1].argmax(-1)
+    for s_ in range(steps5d):
+        glog, gcache = L.decode_step(gpu_params, tok, cfg2, gcache, T2 + s_)
+        clog, ccache = L.decode_step(cpu_params, tok.cpu(), cfg2, ccache, T2 + s_)  # teacher-forced
+        pairs.append((glog.cpu(), clog))
+        tok = glog.argmax(-1)
+    serve_counts = launch_counts()
+    want = {k: 0 for k in serve_counts}
+    want.update({"dequantize_4bit_2d": 4 * 2, "gemm_4bit_fused": 4 * 2 * steps5d,
+                 "flash_attention_cached": 2 * (steps5d + 1)})
+    assert serve_counts == want, f"5d serve: launch counts {serve_counts} != {want}"
+    worst = 0.0
+    for step, (g, c) in enumerate(pairs):
+        assert torch.allclose(g, c, atol=0.1, rtol=0.05), f"5d logits differ at step {step}"
+        worst = max(worst, (g - c).abs().max().item())
+        assert (c.topk(5, dim=-1).indices == g.argmax(-1, keepdim=True)).any(-1).all(), f"5d top-5 at step {step}"
+    del gcache, ccache
+
+    lg = fresh(dev)
+    og = O.ademamix8bit(L.lora_parameters(lg), lr=1e-3, t_alpha=1000, t_beta3=1000)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss_g = L.lora_train_step(gpu_params, lg, og, ids5.to(dev), cfg2).item()
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update({"gemm_4bit_fused": 4 * 2, "gemm_4bit_nt_fused": 4 * 2 - 1,
+                 "optimizer_update_8bit_ademamix": 2 * len(LORA_TARGETS) * 2})
+    assert counts == want, f"5d qlora step: launch counts {counts} != {want}"
+    report["gemm_4bit_nt_fused"]["launches"] = counts["gemm_4bit_nt_fused"]
+    lc = fresh("cpu")
+    loss_c = L.lm_loss(cpu_params, lc, ids5, cfg2)
+    loss_c.backward()
+    assert abs(loss_g - loss_c.item()) <= 1e-3 * abs(loss_c.item()), f"5d loss {loss_g} vs {loss_c.item()}"
+    grad_err = 0.0
+    for tg, tc in zip(L.lora_parameters(lg), L.lora_parameters(lc)):
+        a, b = tg.grad.cpu(), tc.grad
+        assert torch.allclose(a, b, rtol=2e-2, atol=2e-3), "5d adapter gradients differ from the CPU's"
+        grad_err = max(grad_err, (a - b).abs().max().item())
+    lc2 = fresh("cpu")
+    oc = O.ademamix8bit(L.lora_parameters(lc2), lr=1e-3, t_alpha=1000, t_beta3=1000)
+    for tc, tg in zip(L.lora_parameters(lc2), L.lora_parameters(lg)):
+        tc.grad = tg.grad.cpu()
+    oc.step()
+    p_err, n8 = 0.0, 0
+    for tc, tg in zip(L.lora_parameters(lc2), L.lora_parameters(lg)):
+        p_err = max(p_err, (tc.detach() - tg.detach().cpu()).abs().max().item())
+        sc, sg = oc.state[tc], og.state[tg]
+        for key in sc:
+            if key == "step":
+                continue
+            if sc[key].dtype == torch.uint8:
+                n8 += 1
+                assert torch.equal(sc[key], sg[key].cpu()), f"5d 8-bit state {key} differs from the CPU's"
+            else:
+                assert torch.allclose(sc[key], sg[key].cpu(), rtol=1e-6, atol=0), f"5d state {key}"
+    assert p_err <= 1e-6 and n8 > 0, f"5d adapters {p_err} from the CPU's"
+    emit("cpu_check_kadjacent", layers=2, layout="2d, bf16 quant_storage", compress_statistics=True, batch=B2,
+         prompt=T2, decode_steps=steps5d, max_abs_logit_diff=worst, serve_launches=serve_counts,
+         qlora={"batch": B5, "seq": T5, "optimizer": "ademamix8bit", "loss_card": loss_g, "loss_cpu": loss_c.item(),
+                "max_abs_grad_diff": grad_err, "max_abs_adapter_diff": p_err, "states_8bit_equal": n8,
+                "launches": counts})
+    del gpu_params, cpu_params, lg, og, lc, lc2, oc
     torch.cuda.empty_cache()
 
     # -- 6. kernels line and result ---------------------------------------

@@ -8,7 +8,11 @@ kernels in interpret mode.  The same holds with the absmax double-quantized
 (``compress_statistics=True``), where both sides run their ``_dq`` kernels,
 and with an int8 KV cache, dense and paged: both sides scatter their own
 prefilled dense cache into the same shuffled block pool.  ``_quantize_kv``
-gives the JAX package's codes and scales bit for bit."""
+gives the JAX package's codes and scales bit for bit.  A model stored as the
+FSDP-QLoRA recipe stores it (bf16 ``quant_storage``, so the K-adjacent
+``"2d"`` layout, double-quantized) serves against the JAX package's default
+tier: its fused kernel cannot take bf16 operands in interpret mode on the
+CPU, and its default tier computes the same function."""
 
 import jax
 import jax.numpy as jnp
@@ -166,7 +170,7 @@ def _scatter_pool(dense: dict, tables):
     return out
 
 
-def _serve_against_jax(jcfg, tcfg, _, jq, kv_dtype="bf16", layout="dense"):
+def _serve_against_jax(jcfg, tcfg, _, jq, kv_dtype="bf16", layout="dense", backend="pallas"):
     tq = params_from_numpy(_np_tree(jq), "cpu")
     ids = np.random.default_rng(1).integers(0, CFG["vocab_size"], size=(B, T_PROMPT))
     paged = layout == "paged"
@@ -179,7 +183,7 @@ def _serve_against_jax(jcfg, tcfg, _, jq, kv_dtype="bf16", layout="dense"):
 
     jlog = []
     try:
-        dispatch.set_backend("pallas")
+        dispatch.set_backend(backend)
         cache = JL.init_kv_cache(jcfg, B, S, kv_dtype=kv_dtype)
         lg, cache = JL.prefill(jq, jnp.asarray(ids), jcfg, cache)
         if paged:
@@ -255,3 +259,33 @@ def test_no_cache_forward_matches_cached_prefill(models):
     dense, _ = TL.forward(tq, ids, tcfg)
     cached, _ = TL.prefill(tq, ids, tcfg, TL.init_kv_cache(tcfg, B, S, device="cpu"))
     np.testing.assert_allclose(dense.numpy(), cached.numpy(), atol=0.1, rtol=0.05)
+
+
+def _quantize_2d(params, quantize):
+    """The fused tree over bf16 storage: ``quantize(W)`` of wqkv, wo,
+    gate_up and down, concatenated as ``quantize_params_4bit(fuse=True)``
+    concatenates them (neither package's ``quantize_params_4bit`` takes a
+    storage type)."""
+    layers = []
+    for layer in params["layers"]:
+        cat = (lambda *ws: jnp.concatenate(ws, axis=0)) if isinstance(layer["wq"], jax.Array) else \
+            (lambda *ws: torch.cat(ws, dim=0))
+        layers.append({"attn_norm": layer["attn_norm"], "mlp_norm": layer["mlp_norm"],
+                       "wqkv": quantize(cat(layer["wq"], layer["wk"], layer["wv"])), "wo": quantize(layer["wo"]),
+                       "gate_up": quantize(cat(layer["gate"], layer["up"])), "down": quantize(layer["down"])})
+    return dict(params, layers=layers)
+
+
+def test_bf16_storage_2d_nested_model_serves_like_jax(models):
+    jcfg, tcfg, jparams, _ = models
+    jq = _quantize_2d(jparams, lambda W: JQT.quantize(jnp.asarray(W, jnp.float32), blocksize=64,
+                                                      compress_statistics=True, quant_storage=jnp.bfloat16))
+    tq = _quantize_2d(params_from_numpy(_np_tree(jparams), "cpu"),
+                      lambda W: TL.QuantizedTensor.quantize(W.to(torch.float32), blocksize=64, compress_statistics=True,
+                                                            quant_storage=torch.bfloat16))
+    for jl, tl in zip(jq["layers"], tq["layers"]):
+        for name in ("wqkv", "wo", "gate_up", "down"):
+            st = tl[name].state
+            assert st.layout == "2d" and st.nested and tl[name].data.dtype == torch.uint16
+            np.testing.assert_array_equal(tl[name].data.numpy(), np.asarray(jl[name].data))
+    _serve_against_jax(jcfg, tcfg, jparams, jq, backend="auto")
