@@ -121,35 +121,6 @@ quantize_blockwise8_kernel(const float* __restrict__ x, const float* __restrict_
 constexpr int kDqThreads = 256;
 
 template <typename T>
-__device__ __forceinline__ void store8(T* out, const float* v);
-
-template <>
-__device__ __forceinline__ void store8<float>(float* out, const float* v) {
-    reinterpret_cast<float4*>(out)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(out)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-template <>
-__device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* out, const float* v) {
-    uint4 w;
-    w.x = pack_bf16x2(v[0], v[1]); w.y = pack_bf16x2(v[2], v[3]);
-    w.z = pack_bf16x2(v[4], v[5]); w.w = pack_bf16x2(v[6], v[7]);
-    *reinterpret_cast<uint4*>(out) = w;
-}
-
-template <>
-__device__ __forceinline__ void store8<__half>(__half* out, const float* v) {
-    uint4 w;
-    uint32_t* p = reinterpret_cast<uint32_t*>(&w);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        __half2 h = __floats2half2_rn(v[2 * j], v[2 * j + 1]);
-        p[j] = *reinterpret_cast<uint32_t*>(&h);
-    }
-    *reinterpret_cast<uint4*>(out) = w;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kDqThreads)
 dequantize_blockwise8_kernel(const uint8_t* __restrict__ q, const float* __restrict__ absmax,
                              T* __restrict__ out, long long n, int blocksize,
@@ -168,7 +139,7 @@ dequantize_blockwise8_kernel(const uint8_t* __restrict__ q, const float* __restr
         const uint32_t word = j < 4 ? w.x : w.y;
         v[j] = s_code[(word >> (8 * (j & 3))) & 0xFFu] * am;
     }
-    store8<T>(out + i8, v);
+    store8(out + i8, v);
 }
 
 }  // namespace

@@ -4,8 +4,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define BNB_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -35,4 +38,63 @@ __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
     return x;
+}
+
+// Operand types a C entry point takes, by the wrappers' codes (_KIND).
+enum Kind { kF32 = 0, kBf16 = 1, kF16 = 2 };
+
+template <class T> __device__ __forceinline__ float to_f32(T x);
+template <> __device__ __forceinline__ float to_f32(float x) { return x; }
+template <> __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <> __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <class T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float x) { return __float2bfloat16_rn(x); }
+template <> __device__ __forceinline__ __half from_f32(float x) { return __float2half_rn(x); }
+
+// x rounded to T's precision, as f32.
+template <class T> __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
+
+// Eight values of T at a 16-byte aligned address, as f32.
+template <class T> __device__ __forceinline__ void load8(const T* src, float* a) {
+    if constexpr (sizeof(T) == 4) {
+        const float4 u = *reinterpret_cast<const float4*>(src);
+        const float4 v = *reinterpret_cast<const float4*>(src + 4);
+        a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
+        a[4] = v.x; a[5] = v.y; a[6] = v.z; a[7] = v.w;
+    } else {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src);
+        const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            float2 f;
+            if constexpr (std::is_same<T, __half>::value) {
+                __half2 h = *reinterpret_cast<const __half2*>(&w[i]);
+                f = __half22float2(h);
+            } else {
+                f = unpack_bf16x2(w[i]);
+            }
+            a[2 * i] = f.x;
+            a[2 * i + 1] = f.y;
+        }
+    }
+}
+
+// Two f32 values rounded to a 16-bit T, packed low address first.
+template <class T> __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    const T a = from_f32<T>(lo), b = from_f32<T>(hi);
+    return (uint32_t)(*reinterpret_cast<const uint16_t*>(&a)) |
+           ((uint32_t)(*reinterpret_cast<const uint16_t*>(&b)) << 16);
+}
+
+// Eight f32 values rounded to T, stored at a 16-byte aligned address.
+template <class T> __device__ __forceinline__ void store8(T* dst, const float* a) {
+    if constexpr (sizeof(T) == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[1], a[2], a[3]);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(a[4], a[5], a[6], a[7]);
+    } else {
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack2<T>(a[0], a[1]), pack2<T>(a[2], a[3]), pack2<T>(a[4], a[5]), pack2<T>(a[6], a[7]));
+    }
 }

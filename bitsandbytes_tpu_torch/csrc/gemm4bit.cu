@@ -37,10 +37,6 @@
 // shared memory 1024 columns at a time as f32; the grid splits N so that the
 // 4096 output columns of gate_up fill the card, each split writes f32 partials
 // and a second pass adds them in split order (the same bits every run).
-#include <cuda_fp16.h>
-
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -49,53 +45,6 @@ namespace {
 struct Code16 {
     float v[16];
 };
-
-enum Kind { kF32 = 0, kBf16 = 1, kF16 = 2 };
-
-template <class T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <> __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <class T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float x) { return __float2bfloat16_rn(x); }
-template <> __device__ __forceinline__ __half from_f32(float x) { return __float2half_rn(x); }
-
-// x rounded to T's precision, as f32.
-template <class T> __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
-
-// Eight values of T at a 16-byte aligned address, as f32.
-template <class T> __device__ __forceinline__ void load8(const T* src, float* a) {
-    if constexpr (sizeof(T) == 4) {
-        const float4 u = *reinterpret_cast<const float4*>(src);
-        const float4 v = *reinterpret_cast<const float4*>(src + 4);
-        a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
-        a[4] = v.x; a[5] = v.y; a[6] = v.z; a[7] = v.w;
-    } else {
-        const uint4 raw = *reinterpret_cast<const uint4*>(src);
-        const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            float2 f;
-            if constexpr (std::is_same<T, __half>::value) {
-                __half2 h = *reinterpret_cast<const __half2*>(&w[i]);
-                f = __half22float2(h);
-            } else {
-                f = unpack_bf16x2(w[i]);
-            }
-            a[2 * i] = f.x;
-            a[2 * i + 1] = f.y;
-        }
-    }
-}
-
-// Two f32 values rounded to a 16-bit T, packed low address first.
-template <class T> __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-    const T a = from_f32<T>(lo), b = from_f32<T>(hi);
-    return (uint32_t)(*reinterpret_cast<const uint16_t*>(&a)) |
-           ((uint32_t)(*reinterpret_cast<const uint16_t*>(&b)) << 16);
-}
 
 // --- kernel 9 ---------------------------------------------------------------
 

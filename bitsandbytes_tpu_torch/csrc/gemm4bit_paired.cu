@@ -7,14 +7,16 @@
 //
 // gemm_4bit_paired_kernel replaces the TPU kernel gemm_4bit_paired
 // (_paired_kernel) of the JAX package's ops/pallas/gemm4bit_paired.py:
-//   out[M, N] = A[M, K] @ dequant(P)^T
+//   out[M, N] = A[M, K] @ dequant(P)^T,   A bf16, f16 or f32
 // with bf16-rounded unit codes, an f32 partial dot per lane and quant block
-// scaled by the block's f32 absmax, all sums in f32.
+// scaled by the block's f32 absmax, all sums in f32.  A is read exactly in
+// f32 (the TPU kernel splits an f32 A into bf16 hi + lo for its MXU).
 // Bound on the H100 at decode M: bytes.  The payload (N*K/2 B) and absmax
 // (N*K/blocksize*4 B) dominate; A and out are small.  One warp owns one row
 // pair n2 and streams P[n2, :] with 8-byte loads along K (a warp reads 256
-// contiguous bytes per step).  A's rows are staged in shared memory in K tiles
-// (M*K*2 bytes does not fit at K = 14336) and reused by the block's 8 warps.
+// contiguous bytes per step).  A's rows are staged in shared memory in its own
+// type, 32 KB a K tile (M*K*2 bytes does not fit at K = 14336), and reused by
+// the block's 8 warps.
 // The TPU kernel carries its sum across an ordered K grid axis; here the K
 // loop runs inside the block and a warp shuffle reduces the lanes, so no
 // block order is assumed.  Each block takes 8 rows of A; larger M is a grid
@@ -22,9 +24,10 @@
 //
 // dequantize_paired_kernel replaces dequantize_paired_fast
 // (_paired_dequant_kernel) of the same file:
-//   W[N, K] = bf16(unit(code) * absmax)   (the scale product in exact f32)
-// Bound: bytes (N*K/2 read, N*K*2 written).  One thread reads 8 payload
-// bytes and writes 8 bf16 values to each of rows 2*n2 and 2*n2+1, 16-byte
+//   W[N, K] = dtype(unit(code) * absmax)   (the scale product in exact f32;
+//                                            dtype bf16, f16 or f32)
+// Bound: bytes (N*K/2 read, N*K*sizeof(dtype) written).  One thread reads 8
+// payload bytes and writes 8 values to each of rows 2*n2 and 2*n2+1, 16-byte
 // stores coalesced along K.
 //
 // The _dq entry points replace gemm_4bit_paired_dq (_paired_kernel_dq) and
@@ -47,9 +50,9 @@
 // the 4-bit matmul backward
 //   grad_A[M, K] = g[M, N] @ dequant(P)[N, K]
 // with the TPU kernel's numerics (_nt_accum): for each K quantization block,
-// g[m, n] times that block's scale of row n, rounded to bf16 unless g is
-// f32, times the bf16-rounded unit code, summed over N in f32, the result
-// cast to g's type.  Bound on the H100 at small M: bytes (the payload, N*K/2
+// g[m, n] (bf16, f16 or f32) times that block's scale of row n, rounded to
+// bf16 unless g is f32, times the bf16-rounded unit code, summed over N in
+// f32, the result cast to g's type.  Bound on the H100 at small M: bytes (the payload, N*K/2
 // B, and its scales).  The sum runs over N while the output has only K
 // columns (4096 for gate_up), so tiling K alone would leave most SMs idle:
 // the grid splits N as well, each block writes its f32 partial sums, and a
@@ -79,7 +82,7 @@ namespace {
 
 constexpr int kGemmWarps = 8;    // row pairs per block
 constexpr int kGemmMT = 8;       // rows of A per block
-constexpr int kGemmKT = 2048;    // K columns of A staged per tile (32 KB)
+constexpr int kGemmTileBytes = 32768;  // A's staged K tile, all 8 rows
 constexpr int kLaneCols = 8;     // payload bytes (columns) per lane and step
 
 // Scales of a plain state: the f32 absmax, stored [K/blocksize, N].
@@ -121,14 +124,16 @@ struct NestedScales {
     }
 };
 
-template <bool kOutBf16, class Scales>
+template <class TA, class TOut, class Scales>
 __global__ void __launch_bounds__(kGemmWarps * 32)
-gemm_4bit_paired_kernel(const __nv_bfloat16* __restrict__ A, const uint8_t* __restrict__ P,
-                        Scales scales, void* __restrict__ out,
+gemm_4bit_paired_kernel(const TA* __restrict__ A, const uint8_t* __restrict__ P,
+                        Scales scales, TOut* __restrict__ out,
                         int M, int N, int K, int blocksize, Units16 units) {
+    constexpr int kGemmKT = kGemmTileBytes / (kGemmMT * (int)sizeof(TA));  // 2048, or 1024 for f32
+    constexpr int kVec = 16 / (int)sizeof(TA);  // elements per 16-byte copy
     __shared__ float s_units[16];
     __shared__ float s_table[Scales::kTable];
-    __shared__ __align__(16) __nv_bfloat16 s_a[kGemmMT * kGemmKT];
+    __shared__ __align__(16) TA s_a[kGemmMT * kGemmKT];
 
     const int tid = threadIdx.x;
     const int lane = tid & 31;
@@ -150,12 +155,12 @@ gemm_4bit_paired_kernel(const __nv_bfloat16* __restrict__ A, const uint8_t* __re
     for (int k0 = 0; k0 < K; k0 += kGemmKT) {
         const int kt = min(kGemmKT, K - k0);  // a multiple of 32: K % blocksize == 0, blocksize >= 32
         __syncthreads();  // the previous tile is consumed
-        const int vecs = kt / 8;
+        const int vecs = kt / kVec;
         for (int i = tid; i < mrows * vecs; i += kGemmWarps * 32) {
             const int m = i / vecs;
             const int v = i - m * vecs;
-            *reinterpret_cast<uint4*>(s_a + m * kGemmKT + v * 8) =
-                *reinterpret_cast<const uint4*>(A + (size_t)(m0 + m) * K + k0 + v * 8);
+            *reinterpret_cast<uint4*>(s_a + m * kGemmKT + v * kVec) =
+                *reinterpret_cast<const uint4*>(A + (size_t)(m0 + m) * K + k0 + v * kVec);
         }
         __syncthreads();
         if (!active) continue;
@@ -175,17 +180,16 @@ gemm_4bit_paired_kernel(const __nv_bfloat16* __restrict__ A, const uint8_t* __re
 #pragma unroll
             for (int m = 0; m < kGemmMT; ++m) {
                 if (m < mrows) {
-                    const uint4 a = *reinterpret_cast<const uint4*>(s_a + m * kGemmKT + kk);
-                    const float2 a0 = unpack_bf16x2(a.x), a1 = unpack_bf16x2(a.y);
-                    const float2 a2 = unpack_bf16x2(a.z), a3 = unpack_bf16x2(a.w);
-                    float shi = a0.x * whi[0];
-                    shi += a0.y * whi[1]; shi += a1.x * whi[2]; shi += a1.y * whi[3];
-                    shi += a2.x * whi[4]; shi += a2.y * whi[5]; shi += a3.x * whi[6];
-                    shi += a3.y * whi[7];
-                    float slo = a0.x * wlo[0];
-                    slo += a0.y * wlo[1]; slo += a1.x * wlo[2]; slo += a1.y * wlo[3];
-                    slo += a2.x * wlo[4]; slo += a2.y * wlo[5]; slo += a3.x * wlo[6];
-                    slo += a3.y * wlo[7];
+                    float a[kLaneCols];
+                    load8(s_a + m * kGemmKT + kk, a);
+                    float shi = a[0] * whi[0];
+                    shi += a[1] * whi[1]; shi += a[2] * whi[2]; shi += a[3] * whi[3];
+                    shi += a[4] * whi[4]; shi += a[5] * whi[5]; shi += a[6] * whi[6];
+                    shi += a[7] * whi[7];
+                    float slo = a[0] * wlo[0];
+                    slo += a[1] * wlo[1]; slo += a[2] * wlo[2]; slo += a[3] * wlo[3];
+                    slo += a[4] * wlo[4]; slo += a[5] * wlo[5]; slo += a[6] * wlo[6];
+                    slo += a[7] * wlo[7];
                     acc_hi[m] += shi * sc.x;
                     acc_lo[m] += slo * sc.y;
                 }
@@ -203,12 +207,10 @@ gemm_4bit_paired_kernel(const __nv_bfloat16* __restrict__ A, const uint8_t* __re
         for (int m = 0; m < kGemmMT; ++m) {
             if (m < mrows) {
                 const size_t o = (size_t)(m0 + m) * N + 2 * n2;
-                if (kOutBf16) {
-                    *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + o) =
-                        pack_bf16x2(acc_hi[m], acc_lo[m]);
+                if constexpr (sizeof(TOut) == 4) {
+                    *reinterpret_cast<float2*>(out + o) = make_float2(acc_hi[m], acc_lo[m]);
                 } else {
-                    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-                        make_float2(acc_hi[m], acc_lo[m]);
+                    *reinterpret_cast<uint32_t*>(out + o) = pack2<TOut>(acc_hi[m], acc_lo[m]);
                 }
             }
         }
@@ -217,10 +219,10 @@ gemm_4bit_paired_kernel(const __nv_bfloat16* __restrict__ A, const uint8_t* __re
 
 constexpr int kDqThreads = 256;
 
-template <class Scales>
+template <class TOut, class Scales>
 __global__ void __launch_bounds__(kDqThreads)
 dequantize_paired_kernel(const uint8_t* __restrict__ P, Scales scales,
-                         __nv_bfloat16* __restrict__ W, int N, int K, int blocksize,
+                         TOut* __restrict__ W, int N, int K, int blocksize,
                          Units16 units) {
     __shared__ float s_units[16];
     __shared__ float s_table[Scales::kTable];
@@ -244,13 +246,8 @@ dequantize_paired_kernel(const uint8_t* __restrict__ P, Scales scales,
         hi[j] = s_units[b >> 4] * sc.x;
         lo[j] = s_units[b & 15u] * sc.y;
     }
-    uint4 vh, vl;
-    vh.x = pack_bf16x2(hi[0], hi[1]); vh.y = pack_bf16x2(hi[2], hi[3]);
-    vh.z = pack_bf16x2(hi[4], hi[5]); vh.w = pack_bf16x2(hi[6], hi[7]);
-    vl.x = pack_bf16x2(lo[0], lo[1]); vl.y = pack_bf16x2(lo[2], lo[3]);
-    vl.z = pack_bf16x2(lo[4], lo[5]); vl.w = pack_bf16x2(lo[6], lo[7]);
-    *reinterpret_cast<uint4*>(W + (size_t)(2 * n2) * K + k) = vh;
-    *reinterpret_cast<uint4*>(W + (size_t)(2 * n2 + 1) * K + k) = vl;
+    store8(W + (size_t)(2 * n2) * K + k, hi);
+    store8(W + (size_t)(2 * n2 + 1) * K + k, lo);
 }
 
 constexpr int kNtWarps = 8;
@@ -258,14 +255,10 @@ constexpr int kNtMT = 8;                            // rows of g per block
 constexpr int kNtKT = kNtWarps * 32 * kLaneCols;    // 2048 columns of K per block
 constexpr int kNtNC = 1024;                         // columns of g staged per step (32 KB f32)
 
-__device__ __forceinline__ float round_bf16(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // part[split, m, k]: block (kx, split, mt) sums rows [split*rows, ...) of N.
-template <bool kGBf16, class Scales>
+template <class TG, class Scales>
 __global__ void __launch_bounds__(kNtWarps * 32)
-gemm_4bit_paired_nt_kernel(const void* __restrict__ G, const uint8_t* __restrict__ P, Scales scales,
+gemm_4bit_paired_nt_kernel(const TG* __restrict__ G, const uint8_t* __restrict__ P, Scales scales,
                            float* __restrict__ part, int M, int N, int K, int blocksize,
                            int rows_per_split, Units16 units) {
     __shared__ float s_units[16];
@@ -299,11 +292,7 @@ gemm_4bit_paired_nt_kernel(const void* __restrict__ G, const uint8_t* __restrict
             const int m = i / nc;
             const int c = i - m * nc;
             float v = 0.0f;
-            if (m < mrows) {
-                const size_t o = (size_t)(m0 + m) * N + c0 + c;
-                v = kGBf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(G)[o])
-                           : static_cast<const float*>(G)[o];
-            }
+            if (m < mrows) v = to_f32(G[(size_t)(m0 + m) * N + c0 + c]);
             s_g[m * kNtNC + c] = v;
         }
         __syncthreads();
@@ -327,9 +316,9 @@ gemm_4bit_paired_nt_kernel(const void* __restrict__ G, const uint8_t* __restrict
                 if (m < mrows) {
                     float ghi = __fmul_rn(s_g[m * kNtNC + r], sc.x);
                     float glo = __fmul_rn(s_g[m * kNtNC + r + 1], sc.y);
-                    if (kGBf16) {
-                        ghi = round_bf16(ghi);
-                        glo = round_bf16(glo);
+                    if constexpr (sizeof(TG) == 2) {  // bf16 or f16 g: the product rounds to bf16
+                        ghi = round_to<__nv_bfloat16>(ghi);
+                        glo = round_to<__nv_bfloat16>(glo);
                     }
 #pragma unroll
                     for (int j = 0; j < kLaneCols; ++j) {
@@ -352,17 +341,14 @@ gemm_4bit_paired_nt_kernel(const void* __restrict__ G, const uint8_t* __restrict
 }
 
 // out[m, k] = sum over splits, in split order, of part[split, m, k].
-template <bool kOutBf16>
+template <class TOut>
 __global__ void __launch_bounds__(256)
-nt_reduce_kernel(const float* __restrict__ part, void* __restrict__ out, long long mk, int splits) {
+nt_reduce_kernel(const float* __restrict__ part, TOut* __restrict__ out, long long mk, int splits) {
     const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
     if (i >= mk) return;
     float s = part[i];
     for (int sp = 1; sp < splits; ++sp) s += part[(size_t)sp * mk + i];
-    if (kOutBf16)
-        static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(s);
-    else
-        static_cast<float*>(out)[i] = s;
+    out[i] = from_f32<TOut>(s);
 }
 
 Units16 load_units(const float* units) {
@@ -379,55 +365,85 @@ bool dequant_shape_ok(int N, int K, int blocksize) {
     return N % 2 == 0 && blocksize >= 8 && blocksize % 8 == 0 && K % blocksize == 0;
 }
 
-template <class Scales>
-int launch_gemm(const void* A, const uint8_t* P, const Scales& sc, void* out, int M, int N,
-                int K, int blocksize, const float* units, int out_bf16, cudaStream_t stream) {
-    const Units16 u = load_units(units);
+template <class TA, class TOut, class Scales>
+void launch_gemm_t(const void* A, const uint8_t* P, const Scales& sc, void* out, int M, int N, int K,
+                   int blocksize, const Units16& u, cudaStream_t stream) {
     const dim3 grid((N / 2 + kGemmWarps - 1) / kGemmWarps, (M + kGemmMT - 1) / kGemmMT);
-    const auto* a = static_cast<const __nv_bfloat16*>(A);
-    if (out_bf16)
-        gemm_4bit_paired_kernel<true, Scales><<<grid, kGemmWarps * 32, 0, stream>>>(
-            a, P, sc, out, M, N, K, blocksize, u);
-    else
-        gemm_4bit_paired_kernel<false, Scales><<<grid, kGemmWarps * 32, 0, stream>>>(
-            a, P, sc, out, M, N, K, blocksize, u);
-    return (int)cudaGetLastError();
+    gemm_4bit_paired_kernel<TA, TOut, Scales><<<grid, kGemmWarps * 32, 0, stream>>>(
+        static_cast<const TA*>(A), P, sc, static_cast<TOut*>(out), M, N, K, blocksize, u);
 }
 
+// out in A's type, or f32 when out_f32 (an f32 A writes f32).
 template <class Scales>
-int launch_dequant(const uint8_t* P, const Scales& sc, void* W, int N, int K, int blocksize,
-                   const float* units, cudaStream_t stream) {
+int launch_gemm(const void* A, const uint8_t* P, const Scales& sc, void* out, int M, int N,
+                int K, int blocksize, const float* units, int a_kind, int out_f32, cudaStream_t stream) {
     const Units16 u = load_units(units);
-    const long long total = (long long)(N / 2) * (K / 8);
-    if (total > 0) {
-        const long long grid = (total + kDqThreads - 1) / kDqThreads;
-        dequantize_paired_kernel<Scales><<<(unsigned)grid, kDqThreads, 0, stream>>>(
-            P, sc, static_cast<__nv_bfloat16*>(W), N, K, blocksize, u);
+    switch (a_kind) {
+        case kF32: launch_gemm_t<float, float>(A, P, sc, out, M, N, K, blocksize, u, stream); break;
+        case kBf16:
+            if (out_f32) launch_gemm_t<__nv_bfloat16, float>(A, P, sc, out, M, N, K, blocksize, u, stream);
+            else launch_gemm_t<__nv_bfloat16, __nv_bfloat16>(A, P, sc, out, M, N, K, blocksize, u, stream);
+            break;
+        case kF16:
+            if (out_f32) launch_gemm_t<__half, float>(A, P, sc, out, M, N, K, blocksize, u, stream);
+            else launch_gemm_t<__half, __half>(A, P, sc, out, M, N, K, blocksize, u, stream);
+            break;
+        default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
 }
 
+template <class TOut, class Scales>
+void launch_dequant_t(const uint8_t* P, const Scales& sc, void* W, int N, int K, int blocksize,
+                      const Units16& u, cudaStream_t stream) {
+    const long long total = (long long)(N / 2) * (K / 8);
+    if (total > 0) {
+        const long long grid = (total + kDqThreads - 1) / kDqThreads;
+        dequantize_paired_kernel<TOut, Scales><<<(unsigned)grid, kDqThreads, 0, stream>>>(
+            P, sc, static_cast<TOut*>(W), N, K, blocksize, u);
+    }
+}
+
+template <class Scales>
+int launch_dequant(const uint8_t* P, const Scales& sc, void* W, int N, int K, int blocksize,
+                   const float* units, int out_kind, cudaStream_t stream) {
+    const Units16 u = load_units(units);
+    switch (out_kind) {
+        case kF32: launch_dequant_t<float>(P, sc, W, N, K, blocksize, u, stream); break;
+        case kBf16: launch_dequant_t<__nv_bfloat16>(P, sc, W, N, K, blocksize, u, stream); break;
+        case kF16: launch_dequant_t<__half>(P, sc, W, N, K, blocksize, u, stream); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+template <class TG, class Scales>
+void launch_nt_t(const void* G, const uint8_t* P, const Scales& sc, float* part, void* out, int M, int N,
+                 int K, int blocksize, int rows_per_split, int splits, const Units16& u, cudaStream_t stream) {
+    const dim3 grid((K + kNtKT - 1) / kNtKT, splits, (M + kNtMT - 1) / kNtMT);
+    gemm_4bit_paired_nt_kernel<TG, Scales><<<grid, kNtWarps * 32, 0, stream>>>(
+        static_cast<const TG*>(G), P, sc, part, M, N, K, blocksize, rows_per_split, u);
+    const long long mk = (long long)M * K;
+    nt_reduce_kernel<TG><<<(unsigned)((mk + 255) / 256), 256, 0, stream>>>(part, static_cast<TG*>(out), mk,
+                                                                           splits);
+}
+
 template <class Scales>
 int launch_nt(const void* G, const uint8_t* P, const Scales& sc, float* part, void* out, int M, int N,
-              int K, int blocksize, int rows_per_split, int splits, const float* units, int g_bf16,
+              int K, int blocksize, int rows_per_split, int splits, const float* units, int g_kind,
               cudaStream_t stream) {
     if (!gemm_shape_ok(M, N, K, blocksize) || rows_per_split < 2 || rows_per_split % 2 || splits < 1
         || (long long)rows_per_split * (splits - 1) >= N || (long long)rows_per_split * splits < N)
         return (int)cudaErrorInvalidValue;
     const Units16 u = load_units(units);
-    const dim3 grid((K + kNtKT - 1) / kNtKT, splits, (M + kNtMT - 1) / kNtMT);
-    if (g_bf16)
-        gemm_4bit_paired_nt_kernel<true, Scales><<<grid, kNtWarps * 32, 0, stream>>>(
-            G, P, sc, part, M, N, K, blocksize, rows_per_split, u);
-    else
-        gemm_4bit_paired_nt_kernel<false, Scales><<<grid, kNtWarps * 32, 0, stream>>>(
-            G, P, sc, part, M, N, K, blocksize, rows_per_split, u);
-    const long long mk = (long long)M * K;
-    const unsigned rgrid = (unsigned)((mk + 255) / 256);
-    if (g_bf16)
-        nt_reduce_kernel<true><<<rgrid, 256, 0, stream>>>(part, out, mk, splits);
-    else
-        nt_reduce_kernel<false><<<rgrid, 256, 0, stream>>>(part, out, mk, splits);
+    switch (g_kind) {
+        case kF32: launch_nt_t<float>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u, stream); break;
+        case kBf16:
+            launch_nt_t<__nv_bfloat16>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u, stream);
+            break;
+        case kF16: launch_nt_t<__half>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u, stream); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
     return (int)cudaGetLastError();
 }
 
@@ -445,19 +461,21 @@ bool nested_scales(const uint8_t* codes_t, const float* s2, const float* offset,
 
 }  // namespace
 
+// A [M, K] (a_kind: 0 f32, 1 bf16, 2 f16); out [M, N] in A's type, or f32 when out_f32.
 BNB_EXPORT int bnb_gemm_4bit_paired(const void* A, const uint8_t* P, const float* absmax_t,
                                     void* out, int M, int N, int K, int blocksize,
-                                    const float* units, int out_bf16, cudaStream_t stream) {
+                                    const float* units, int a_kind, int out_f32, cudaStream_t stream) {
     if (!gemm_shape_ok(M, N, K, blocksize)) return (int)cudaErrorInvalidValue;
-    return launch_gemm(A, P, F32Scales{absmax_t, N}, out, M, N, K, blocksize, units, out_bf16,
+    return launch_gemm(A, P, F32Scales{absmax_t, N}, out, M, N, K, blocksize, units, a_kind, out_f32,
                        stream);
 }
 
+// W [N, K] (out_kind as a_kind).
 BNB_EXPORT int bnb_dequantize_paired(const uint8_t* P, const float* absmax_t, void* W,
-                                     int N, int K, int blocksize, const float* units,
+                                     int N, int K, int blocksize, const float* units, int out_kind,
                                      cudaStream_t stream) {
     if (!dequant_shape_ok(N, K, blocksize)) return (int)cudaErrorInvalidValue;
-    return launch_dequant(P, F32Scales{absmax_t, N}, W, N, K, blocksize, units, stream);
+    return launch_dequant(P, F32Scales{absmax_t, N}, W, N, K, blocksize, units, out_kind, stream);
 }
 
 // codes_t [K/blocksize, N] uint8, s2 [ceil(N*K/blocksize / 256)] f32 and offset [1]
@@ -465,42 +483,42 @@ BNB_EXPORT int bnb_dequantize_paired(const uint8_t* P, const float* absmax_t, vo
 BNB_EXPORT int bnb_gemm_4bit_paired_dq(const void* A, const uint8_t* P, const uint8_t* codes_t,
                                        const float* s2, const float* offset, void* out, int M, int N,
                                        int K, int blocksize, const float* units,
-                                       const DynDecode* dec, int out_bf16, cudaStream_t stream) {
+                                       const DynDecode* dec, int a_kind, int out_f32, cudaStream_t stream) {
     NestedScales sc;
     if (!gemm_shape_ok(M, N, K, blocksize)
         || !nested_scales(codes_t, s2, offset, N, K, blocksize, dec, &sc))
         return (int)cudaErrorInvalidValue;
-    return launch_gemm(A, P, sc, out, M, N, K, blocksize, units, out_bf16, stream);
+    return launch_gemm(A, P, sc, out, M, N, K, blocksize, units, a_kind, out_f32, stream);
 }
 
 BNB_EXPORT int bnb_dequantize_paired_dq(const uint8_t* P, const uint8_t* codes_t, const float* s2,
                                         const float* offset, void* W, int N, int K, int blocksize,
-                                        const float* units, const DynDecode* dec,
+                                        const float* units, const DynDecode* dec, int out_kind,
                                         cudaStream_t stream) {
     NestedScales sc;
     if (!dequant_shape_ok(N, K, blocksize)
         || !nested_scales(codes_t, s2, offset, N, K, blocksize, dec, &sc))
         return (int)cudaErrorInvalidValue;
-    return launch_dequant(P, sc, W, N, K, blocksize, units, stream);
+    return launch_dequant(P, sc, W, N, K, blocksize, units, out_kind, stream);
 }
 
-// G [M, N] bf16 (g_bf16) or f32; part [splits, M, K] f32 scratch; out [M, K]
+// G [M, N] (g_kind as a_kind); part [splits, M, K] f32 scratch; out [M, K]
 // in G's type.  Rows [s*rows_per_split, (s+1)*rows_per_split) of N go to split s.
 BNB_EXPORT int bnb_gemm_4bit_paired_nt(const void* G, const uint8_t* P, const float* absmax_t,
                                        float* part, void* out, int M, int N, int K, int blocksize,
                                        int rows_per_split, int splits, const float* units,
-                                       int g_bf16, cudaStream_t stream) {
+                                       int g_kind, cudaStream_t stream) {
     return launch_nt(G, P, F32Scales{absmax_t, N}, part, out, M, N, K, blocksize, rows_per_split,
-                     splits, units, g_bf16, stream);
+                     splits, units, g_kind, stream);
 }
 
 BNB_EXPORT int bnb_gemm_4bit_paired_nt_dq(const void* G, const uint8_t* P, const uint8_t* codes_t,
                                           const float* s2, const float* offset, float* part, void* out,
                                           int M, int N, int K, int blocksize, int rows_per_split,
                                           int splits, const float* units, const DynDecode* dec,
-                                          int g_bf16, cudaStream_t stream) {
+                                          int g_kind, cudaStream_t stream) {
     NestedScales sc;
     if (!nested_scales(codes_t, s2, offset, N, K, blocksize, dec, &sc)) return (int)cudaErrorInvalidValue;
-    return launch_nt(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, units, g_bf16,
+    return launch_nt(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, units, g_kind,
                      stream);
 }

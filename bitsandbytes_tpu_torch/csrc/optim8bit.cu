@@ -26,8 +26,13 @@
 // two pointers, the halves of the JAX package's [2, n] leaf, so the second
 // one need not be 8-byte aligned and its codes load bytewise when it is not.
 //
-// Bound on the H100: bytes, 16 per element (g 4 read, p 4 read + 4 written,
-// each uint8 state 1 read + 1 written).  One warp owns one quantization
+// g and p are f32, bf16 or f16 (one type for both): loaded in that type,
+// the update computed in f32, p stored in its own type rounded to nearest
+// even, as the JAX package's new_p.astype(p.dtype).  States and absmax are
+// unchanged by the parameter type.
+//
+// Bound on the H100: bytes, 16 per element in f32 (g 4 read, p 4 read + 4
+// written, each uint8 state 1 read + 1 written), 10 in bf16 or f16.  One warp owns one quantization
 // block, 8 elements a lane (two 16-byte loads of g and of p, one 8-byte load
 // of each state), so the block absmax is a shuffle reduction in registers and
 // no block order is assumed.  A grid-stride loop lets each CUDA block build
@@ -161,9 +166,9 @@ __device__ __forceinline__ float clip_unit(float x) {
     return isnan(x) ? x : fminf(fmaxf(x, -1.0f), 1.0f);  // a NaN stays NaN, as in jnp.clip
 }
 
-template <int kRule, bool kTwo>
+template <int kRule, bool kTwo, class T>
 __global__ void __launch_bounds__(kThreads)
-optimizer_update_8bit_kernel(const float* __restrict__ g, float* __restrict__ p,
+optimizer_update_8bit_kernel(const T* __restrict__ g, T* __restrict__ p,
                              uint8_t* __restrict__ s1, uint8_t* __restrict__ s2,
                              float* __restrict__ am1, float* __restrict__ am2, long long n,
                              long long nblocks, OptScalars sc, StateMap map1, StateMap map2,
@@ -187,14 +192,8 @@ optimizer_update_8bit_kernel(const float* __restrict__ g, float* __restrict__ p,
         float gv[kPerLane], pv[kPerLane], p0[kPerLane], x1[kPerLane], x2[kPerLane];
         uint8_t c1[kPerLane], c2[kPerLane];
         if (whole) {
-            const float4 ga = *reinterpret_cast<const float4*>(g + base);
-            const float4 gb = *reinterpret_cast<const float4*>(g + base + 4);
-            const float4 pa = *reinterpret_cast<const float4*>(p + base);
-            const float4 pb = *reinterpret_cast<const float4*>(p + base + 4);
-            gv[0] = ga.x; gv[1] = ga.y; gv[2] = ga.z; gv[3] = ga.w;
-            gv[4] = gb.x; gv[5] = gb.y; gv[6] = gb.z; gv[7] = gb.w;
-            pv[0] = pa.x; pv[1] = pa.y; pv[2] = pa.z; pv[3] = pa.w;
-            pv[4] = pb.x; pv[5] = pb.y; pv[6] = pb.z; pv[7] = pb.w;
+            load8(g + base, gv);
+            load8(p + base, pv);
             const uint2 w1 = *reinterpret_cast<const uint2*>(s1 + base);
             uint2 w2 = make_uint2(0, 0);
             if (kTwo) w2 = *reinterpret_cast<const uint2*>(s2 + base);
@@ -207,8 +206,8 @@ optimizer_update_8bit_kernel(const float* __restrict__ g, float* __restrict__ p,
 #pragma unroll
             for (int j = 0; j < kPerLane; ++j) {
                 const bool in = base + j < n;
-                gv[j] = in ? g[base + j] : 0.0f;
-                pv[j] = in ? p[base + j] : 0.0f;
+                gv[j] = in ? to_f32(g[base + j]) : 0.0f;
+                pv[j] = in ? to_f32(p[base + j]) : 0.0f;
                 c1[j] = in ? s1[base + j] : (uint8_t)m1.zero_idx;
                 c2[j] = (kTwo && in) ? s2[base + j] : (uint8_t)(kTwo ? m2.zero_idx : 0);
             }
@@ -247,15 +246,14 @@ optimizer_update_8bit_kernel(const float* __restrict__ g, float* __restrict__ p,
             if (kTwo) q2[j >> 2] |= requant(m2, clip_unit(__fmul_rn(x2[j], sc2)), false) << (8 * (j & 3));
         }
         if (whole) {
-            *reinterpret_cast<float4*>(p + base) = make_float4(p0[0], p0[1], p0[2], p0[3]);
-            *reinterpret_cast<float4*>(p + base + 4) = make_float4(p0[4], p0[5], p0[6], p0[7]);
+            store8(p + base, p0);
             *reinterpret_cast<uint2*>(s1 + base) = make_uint2(q1[0], q1[1]);
             if (kTwo) *reinterpret_cast<uint2*>(s2 + base) = make_uint2(q2[0], q2[1]);
         } else {
 #pragma unroll
             for (int j = 0; j < kPerLane; ++j) {
                 if (base + j < n) {
-                    p[base + j] = p0[j];
+                    p[base + j] = from_f32<T>(p0[j]);
                     s1[base + j] = (uint8_t)(q1[j >> 2] >> (8 * (j & 3)));
                     if (kTwo) s2[base + j] = (uint8_t)(q2[j >> 2] >> (8 * (j & 3)));
                 }
@@ -293,8 +291,9 @@ __device__ __forceinline__ void store_codes8(uint8_t* s, long long base, long lo
     }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-optimizer_update_8bit_ademamix_kernel(const float* __restrict__ g, float* __restrict__ p,
+optimizer_update_8bit_ademamix_kernel(const T* __restrict__ g, T* __restrict__ p,
                                       uint8_t* __restrict__ m1, uint8_t* __restrict__ m2,
                                       uint8_t* __restrict__ nu, float* __restrict__ am_m1,
                                       float* __restrict__ am_m2, float* __restrict__ am_nu, long long n,
@@ -319,20 +318,14 @@ optimizer_update_8bit_ademamix_kernel(const float* __restrict__ g, float* __rest
         const bool whole = base + kPerLane <= n;
         float gv[kPerLane], pv[kPerLane];
         if (whole) {
-            const float4 ga = *reinterpret_cast<const float4*>(g + base);
-            const float4 gb = *reinterpret_cast<const float4*>(g + base + 4);
-            const float4 pa = *reinterpret_cast<const float4*>(p + base);
-            const float4 pb = *reinterpret_cast<const float4*>(p + base + 4);
-            gv[0] = ga.x; gv[1] = ga.y; gv[2] = ga.z; gv[3] = ga.w;
-            gv[4] = gb.x; gv[5] = gb.y; gv[6] = gb.z; gv[7] = gb.w;
-            pv[0] = pa.x; pv[1] = pa.y; pv[2] = pa.z; pv[3] = pa.w;
-            pv[4] = pb.x; pv[5] = pb.y; pv[6] = pb.z; pv[7] = pb.w;
+            load8(g + base, gv);
+            load8(p + base, pv);
         } else {
 #pragma unroll
             for (int j = 0; j < kPerLane; ++j) {
                 const bool in = base + j < n;
-                gv[j] = in ? g[base + j] : 0.0f;
-                pv[j] = in ? p[base + j] : 0.0f;
+                gv[j] = in ? to_f32(g[base + j]) : 0.0f;
+                pv[j] = in ? to_f32(p[base + j]) : 0.0f;
             }
         }
         uint8_t c1[kPerLane], c2[kPerLane], c3[kPerLane];
@@ -382,12 +375,11 @@ optimizer_update_8bit_ademamix_kernel(const float* __restrict__ g, float* __rest
             q3[j >> 2] |= requant(sm2, clip_unit(__fmul_rn(x3[j], sc3)), false) << (8 * (j & 3));
         }
         if (whole) {
-            *reinterpret_cast<float4*>(p + base) = make_float4(pv[0], pv[1], pv[2], pv[3]);
-            *reinterpret_cast<float4*>(p + base + 4) = make_float4(pv[4], pv[5], pv[6], pv[7]);
+            store8(p + base, pv);
         } else {
 #pragma unroll
             for (int j = 0; j < kPerLane; ++j)
-                if (base + j < n) p[base + j] = pv[j];
+                if (base + j < n) p[base + j] = from_f32<T>(pv[j]);
         }
         store_codes8(m1, base, n, whole, q1);
         store_codes8(m2, base, n, whole, q2);
@@ -400,55 +392,94 @@ optimizer_update_8bit_ademamix_kernel(const float* __restrict__ g, float* __rest
     }
 }
 
-template <int kRule, bool kTwo>
-void launch(const float* g, float* p, uint8_t* s1, uint8_t* s2, float* am1, float* am2, long long n,
-            const OptScalars& sc, const StateMap& m1, const StateMap& m2, int fixup,
-            cudaStream_t stream) {
+unsigned grid_of(long long nblocks) {
+    const long long grid = (nblocks + kWarps - 1) / kWarps;
+    return (unsigned)(grid > 4096 ? 4096 : grid);  // the grid-stride loop covers the rest
+}
+
+template <int kRule, bool kTwo, class T>
+void launch_t(const void* g, void* p, uint8_t* s1, uint8_t* s2, float* am1, float* am2, long long n,
+              const OptScalars& sc, const StateMap& m1, const StateMap& m2, int fixup, cudaStream_t stream) {
     const long long nblocks = (n + kBlock - 1) / kBlock;
-    long long grid = (nblocks + kWarps - 1) / kWarps;
-    if (grid > 4096) grid = 4096;  // the grid-stride loop covers the rest
-    optimizer_update_8bit_kernel<kRule, kTwo><<<(unsigned)grid, kThreads, 0, stream>>>(
-        g, p, s1, s2, am1, am2, n, nblocks, sc, m1, m2, fixup);
+    optimizer_update_8bit_kernel<kRule, kTwo, T><<<grid_of(nblocks), kThreads, 0, stream>>>(
+        static_cast<const T*>(g), static_cast<T*>(p), s1, s2, am1, am2, n, nblocks, sc, m1, m2, fixup);
+}
+
+template <int kRule, bool kTwo>
+int launch(const void* g, void* p, uint8_t* s1, uint8_t* s2, float* am1, float* am2, long long n,
+           const OptScalars& sc, const StateMap& m1, const StateMap& m2, int fixup, int kind,
+           cudaStream_t stream) {
+    switch (kind) {
+        case kF32: launch_t<kRule, kTwo, float>(g, p, s1, s2, am1, am2, n, sc, m1, m2, fixup, stream); break;
+        case kBf16:
+            launch_t<kRule, kTwo, __nv_bfloat16>(g, p, s1, s2, am1, am2, n, sc, m1, m2, fixup, stream);
+            break;
+        case kF16: launch_t<kRule, kTwo, __half>(g, p, s1, s2, am1, am2, n, sc, m1, m2, fixup, stream); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+template <class T>
+void launch_ademamix(const void* g, void* p, uint8_t* m1, uint8_t* m2, uint8_t* nu, float* am_m1,
+                     float* am_m2, float* am_nu, long long n, const OptScalars& sc, const StateMap& map1,
+                     const StateMap& map2, int fixup, cudaStream_t stream) {
+    const long long nblocks = (n + kBlock - 1) / kBlock;
+    optimizer_update_8bit_ademamix_kernel<T><<<grid_of(nblocks), kThreads, 0, stream>>>(
+        static_cast<const T*>(g), static_cast<T*>(p), m1, m2, nu, am_m1, am_m2, am_nu, n, nblocks, sc, map1,
+        map2, fixup);
 }
 
 bool map_ok(const StateMap* m) { return m->nseg >= 1 && m->nseg <= kMaxSeg; }
 
 }  // namespace
 
-// g [n] f32; p [n] f32, s1/s2 [n] uint8 and am1/am2 [ceil(n/256)] f32, all
-// updated in place (s2 and am2 NULL for the one-state rules).  rule: 0 adam
-// (two states), 1 momentum, 2 lion, 3 rmsprop, 4 adagrad.  sc, m1 and m2 on
-// the host.
-BNB_EXPORT int bnb_optimizer_update_8bit(const float* g, float* p, uint8_t* s1, uint8_t* s2,
+// g [n] and p [n] (kind: 0 f32, 1 bf16, 2 f16, both of it); s1/s2 [n] uint8
+// and am1/am2 [ceil(n/256)] f32; p, the states and absmax updated in place
+// (s2 and am2 NULL for the one-state rules).  rule: 0 adam (two states), 1
+// momentum, 2 lion, 3 rmsprop, 4 adagrad.  sc, m1 and m2 on the host.
+BNB_EXPORT int bnb_optimizer_update_8bit(const void* g, void* p, uint8_t* s1, uint8_t* s2,
                                          float* am1, float* am2, long long n, int rule,
                                          const OptScalars* sc, const StateMap* m1,
-                                         const StateMap* m2, int fixup, cudaStream_t stream) {
+                                         const StateMap* m2, int fixup, int kind, cudaStream_t stream) {
     if (n <= 0 || !map_ok(m1) || !map_ok(m2)) return (int)cudaErrorInvalidValue;
     if (rule == kAdam && (s2 == nullptr || am2 == nullptr)) return (int)cudaErrorInvalidValue;
     switch (rule) {
-        case kAdam: launch<kAdam, true>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, stream); break;
-        case kMomentum: launch<kMomentum, false>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, stream); break;
-        case kLion: launch<kLion, false>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, stream); break;
-        case kRmsprop: launch<kRmsprop, false>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, stream); break;
-        case kAdagrad: launch<kAdagrad, false>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, stream); break;
+        case kAdam: return launch<kAdam, true>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, kind, stream);
+        case kMomentum:
+            return launch<kMomentum, false>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, kind, stream);
+        case kLion: return launch<kLion, false>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, kind, stream);
+        case kRmsprop:
+            return launch<kRmsprop, false>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, kind, stream);
+        case kAdagrad:
+            return launch<kAdagrad, false>(g, p, s1, s2, am1, am2, n, *sc, *m1, *m2, fixup, kind, stream);
         default: return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
 }
 
-// AdEMAMix: g [n] f32; p [n] f32, the momenta m1/m2 and nu [n] uint8 and
-// their absmax am_m1/am_m2/am_nu [ceil(n/256)] f32, all updated in place;
-// map1 decodes the momenta, map2 nu.  sc, map1 and map2 on the host.
-BNB_EXPORT int bnb_optimizer_update_8bit_ademamix(const float* g, float* p, uint8_t* m1, uint8_t* m2,
+// AdEMAMix: g [n] and p [n] (kind as above); the momenta m1/m2 and nu [n]
+// uint8 and their absmax am_m1/am_m2/am_nu [ceil(n/256)] f32; p, the states
+// and absmax updated in place; map1 decodes the momenta, map2 nu.  sc, map1
+// and map2 on the host.
+BNB_EXPORT int bnb_optimizer_update_8bit_ademamix(const void* g, void* p, uint8_t* m1, uint8_t* m2,
                                                   uint8_t* nu, float* am_m1, float* am_m2, float* am_nu,
                                                   long long n, const OptScalars* sc, const StateMap* map1,
-                                                  const StateMap* map2, int fixup, cudaStream_t stream) {
+                                                  const StateMap* map2, int fixup, int kind,
+                                                  cudaStream_t stream) {
     if (n <= 0 || !map_ok(map1) || !map_ok(map2) || m1 == nullptr || m2 == nullptr || nu == nullptr)
         return (int)cudaErrorInvalidValue;
-    const long long nblocks = (n + kBlock - 1) / kBlock;
-    long long grid = (nblocks + kWarps - 1) / kWarps;
-    if (grid > 4096) grid = 4096;
-    optimizer_update_8bit_ademamix_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(
-        g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, nblocks, *sc, *map1, *map2, fixup);
+    switch (kind) {
+        case kF32:
+            launch_ademamix<float>(g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, *sc, *map1, *map2, fixup, stream);
+            break;
+        case kBf16:
+            launch_ademamix<__nv_bfloat16>(g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, *sc, *map1, *map2, fixup,
+                                           stream);
+            break;
+        case kF16:
+            launch_ademamix<__half>(g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, *sc, *map1, *map2, fixup, stream);
+            break;
+        default: return (int)cudaErrorInvalidValue;
+    }
     return (int)cudaGetLastError();
 }

@@ -17,6 +17,14 @@
 //   rank   = #{sorted midpoints m_i : scaled > m_i}
 // and rank is mapped to the bit pattern through the argsort order for
 // codebooks stored in bit-pattern order (FP4, int4, af4; NF4 is sorted).
+//
+// Stochastic mode (the TPU kernel's mode "u", _stochastic_move16): given one
+// f32 uniform u per element, the rank moves to its value-adjacent neighbour
+// (toward the scaled value, clipped to 0..15) when
+//   u < |scaled - code[rank]| / max(|code[nbr] - code[rank]|, 1e-20)
+// over the value-sorted code, before the bit-pattern map.  The uniforms
+// come from the caller (a torch.Generator), as the TPU's interpret tier
+// takes them; they add 4 B read per element.
 // Codes come out unpacked, one per byte; the caller packs them in the
 // layout it needs (flat, 2d or N-paired), as the TPU kernel's caller does.
 #include <cfloat>
@@ -28,14 +36,15 @@ namespace {
 struct Q4Tables {
     float mid[15];
     int order[16];
+    float sorted[16];  // the code in value order (stochastic mode)
 };
 
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
-quantize_4bit_codes_kernel(const float* __restrict__ x, uint8_t* __restrict__ codes,
-                           float* __restrict__ absmax, long long nblocks, int blocksize,
-                           Q4Tables tab, int identity) {
+quantize_4bit_codes_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                           uint8_t* __restrict__ codes, float* __restrict__ absmax, long long nblocks,
+                           int blocksize, Q4Tables tab, int identity) {
     const int lane = threadIdx.x & 31;
     const long long blk = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
     if (blk >= nblocks) return;  // uniform across the warp
@@ -57,6 +66,13 @@ quantize_4bit_codes_kernel(const float* __restrict__ x, uint8_t* __restrict__ co
         int r = 0;
 #pragma unroll
         for (int j = 0; j < 15; ++j) r += (s > tab.mid[j]) ? 1 : 0;
+        if (u != nullptr) {
+            const float lower = tab.sorted[r];
+            const int nbr = min(max(r + (s > lower ? 1 : -1), 0), 15);
+            const float gap = fabsf(tab.sorted[nbr] - lower);
+            const float p_move = gap > 0.0f ? fabsf(s - lower) / fmaxf(gap, 1e-20f) : 0.0f;
+            if (u[blk * blocksize + i] < p_move) r = nbr;
+        }
         if (!identity) r = tab.order[r];
         qb[i] = (uint8_t)r;
     }
@@ -65,18 +81,22 @@ quantize_4bit_codes_kernel(const float* __restrict__ x, uint8_t* __restrict__ co
 
 }  // namespace
 
-BNB_EXPORT int bnb_quantize_4bit_codes(const float* x, uint8_t* codes, float* absmax,
+// u: NULL, or one f32 uniform per element (stochastic mode); sorted_code [16]
+// on the host.
+BNB_EXPORT int bnb_quantize_4bit_codes(const float* x, const float* u, uint8_t* codes, float* absmax,
                                        long long n, int blocksize, const float* midpoints,
-                                       const int* order, int identity, cudaStream_t stream) {
+                                       const int* order, const float* sorted_code, int identity,
+                                       cudaStream_t stream) {
     if (blocksize <= 0 || n % blocksize) return (int)cudaErrorInvalidValue;
     Q4Tables tab;
     for (int j = 0; j < 15; ++j) tab.mid[j] = midpoints[j];
     for (int j = 0; j < 16; ++j) tab.order[j] = order[j];
+    for (int j = 0; j < 16; ++j) tab.sorted[j] = sorted_code[j];
     const long long nblocks = n / blocksize;
     if (nblocks > 0) {
         const long long grid = (nblocks + kThreads / 32 - 1) / (kThreads / 32);
         quantize_4bit_codes_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(
-            x, codes, absmax, nblocks, blocksize, tab, identity);
+            x, u, codes, absmax, nblocks, blocksize, tab, identity);
     }
     return (int)cudaGetLastError();
 }

@@ -104,6 +104,7 @@ def quantize_4bit(
     compress_statistics: bool = False,
     layout: str = "flat",
     quant_storage: torch.dtype = torch.uint8,
+    generator: Optional[torch.Generator] = None,
 ):
     """Quantize ``A`` to packed 4-bit codes.  Returns ``(packed, QuantState)``.
 
@@ -114,7 +115,12 @@ def quantize_4bit(
     ``compress_statistics`` the state is nested: its offset is the absmax's
     mean, summed in one fixed order (the CPU and the card agree bit for bit;
     the JAX package's ``jnp.mean`` may differ by a few ulp, and then a nested
-    code near a rounding midpoint may differ by one step)."""
+    code near a rounding midpoint may differ by one step).  ``generator``
+    turns on stochastic rounding (the JAX package's ``stochastic_key``): one
+    uniform per element is drawn from it, on ``A``'s device, and each code
+    moves to its value-adjacent neighbour with probability proportional to
+    the distance; the two packages draw different uniforms, so they agree
+    to rank adjacency."""
     if blocksize not in VALID_4BIT_BLOCKSIZES:
         raise ValueError(f"blocksize {blocksize} not in {VALID_4BIT_BLOCKSIZES}")
     if layout not in ("flat", "2d", "paired"):
@@ -129,9 +135,14 @@ def quantize_4bit(
 
     n = A.numel()
     x = A.reshape(-1).to(torch.float32).contiguous()
+    u = None
+    if generator is not None:
+        u = torch.rand(x.numel(), generator=generator, device=x.device, dtype=torch.float32)
     if n % blocksize:
         x = torch.nn.functional.pad(x, (0, blocksize - n % blocksize))
-    codes, absmax = quantize_4bit_codes(x, quant_type, blocksize)
+        if u is not None:
+            u = torch.nn.functional.pad(u, (0, blocksize - n % blocksize))
+    codes, absmax = quantize_4bit_codes(x, quant_type, blocksize, u)
     offset = state2 = None
     if compress_statistics:
         offset = fixed_order_mean(absmax)

@@ -6,12 +6,12 @@ orders:
 
 * **paired** (``ops/gemm4bit_paired.py``).  Below :data:`LARGE_M_THRESHOLD`
   rows of A the decode GEMM kernel reads the packed weight directly; at or
-  above it (bf16 A) the dequantize kernel writes the bf16 weight once and
-  ``torch.matmul`` runs the product, as the JAX package leaves the large
-  product to XLA.  A double-quantized paired state over the canonical
-  dynamic map (nested blocksize 256, with an offset) runs the ``_dq``
-  kernels, which decode the uint8 absmax where they load it; any other
-  nested state is decoded to an f32 absmax first
+  above it the dequantize kernel writes the weight once in A's type (bf16,
+  f16 or f32) and ``torch.matmul`` runs the product, as the JAX package
+  leaves the large product to XLA.  A double-quantized paired state over
+  the canonical dynamic map (nested blocksize 256, with an offset) runs the
+  ``_dq`` kernels, which decode the uint8 absmax where they load it; any
+  other nested state is decoded to an f32 absmax first
   (``QuantState.dequant_absmax_t``) and runs the plain ones.
 * **K-adjacent**, the ``"flat"`` and ``"2d"`` layouts that a ``quant_storage``
   wider than a byte gives (``ops/gemm4bit.py``).  A payload of a wider
@@ -117,8 +117,8 @@ def gemm_4bit(
         P = B_packed.reshape(N // 2, K)
         A2 = A.reshape(M, K).contiguous()
         scales, dequant, gemm, _ = _paired_routes(quant_state)
-        if M >= LARGE_M_THRESHOLD and A.dtype == torch.bfloat16:
-            W = dequant(P, *scales, code, bs, torch.bfloat16)
+        if M >= LARGE_M_THRESHOLD:
+            W = dequant(P, *scales, code, bs, A.dtype)
             out = torch.matmul(A2, W.t())
         else:
             out = gemm(A2, P, *scales, code, bs, (N, K))

@@ -448,7 +448,8 @@ def _cached_attention(q, k, v, cache, li, start_pos, rows, cfg):
     chunks = []
     for off in range(0, T, Tc_max):
         Tc = min(Tc_max, T - off)
-        qf = q[:, off : off + Tc].permute(0, 2, 1, 3).reshape(B, KVH, G * Tc, hd)
+        # contiguous: with G = 1 (no grouped heads) the reshape is a strided view
+        qf = q[:, off : off + Tc].permute(0, 2, 1, 3).reshape(B, KVH, G * Tc, hd).contiguous()
         out = flash_attention_cached(
             qf, ck, cv, lengths - (T - 1) + (off + Tc - 1), T=Tc, k_scale=cks, v_scale=cvs,
             window=cfg.sliding_window,

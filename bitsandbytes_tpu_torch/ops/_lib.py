@@ -66,6 +66,7 @@ LAUNCHES: dict = {
     "gemm_4bit_fused": 0,
     "dequantize_4bit_2d": 0,
     "gemm_4bit_nt_fused": 0,
+    "flash_attention_combine": 0,
 }
 
 _lock = threading.Lock()
@@ -144,37 +145,44 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    # x, codes, absmax, n, blocksize, midpoints[15] (host), order[16] (host), identity, stream
-    "bnb_quantize_4bit_codes": [_P, _P, _P, _L, _I, _P, _P, _I, _P],
-    # A, P, absmax_t, out, M, N, K, blocksize, units[16] (host), out_bf16, stream
-    "bnb_gemm_4bit_paired": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
-    # P, absmax_t, W, N, K, blocksize, units[16] (host), stream
-    "bnb_dequantize_paired": [_P, _P, _P, _I, _I, _I, _P, _P],
-    # q, k, v, k_scale (or NULL), v_scale (or NULL), lengths, out, B, KVH, GT, S, hd, T, window,
-    # scale, int8, stream
-    "bnb_flash_attention_cached": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    # q, pool_k, pool_v, k_scale (or NULL), v_scale (or NULL), tables, lengths, out, B, KVH, GT,
-    # MAXB, BS, hd, T, window, scale, int8, stream
-    "bnb_flash_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, u (or NULL), codes, absmax, n, blocksize, midpoints[15] (host), order[16] (host),
+    # sorted code[16] (host), identity, stream
+    "bnb_quantize_4bit_codes": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
+    # A, P, absmax_t, out, M, N, K, blocksize, units[16] (host), a_kind, out_f32, stream
+    "bnb_gemm_4bit_paired": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+    # P, absmax_t, W, N, K, blocksize, units[16] (host), out_kind, stream
+    "bnb_dequantize_paired": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+    # q, k, v, k_scale (or NULL), v_scale (or NULL), lengths, out, part_acc, part_ml (or NULL), B,
+    # KVH, GT, S, hd, T, window, scale, int8, split_len, nsplit, stream
+    "bnb_flash_attention_cached": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                   _I, _P],
+    # q, pool_k, pool_v, k_scale (or NULL), v_scale (or NULL), tables, lengths, out, part_acc,
+    # part_ml (or NULL), B, KVH, GT, MAXB, BS, hd, T, window, scale, int8, split_len, nsplit, stream
+    "bnb_flash_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                  _I, _I, _I, _P],
+    # part_acc, part_ml, out, rows, hd, nsplit, stream
+    "bnb_flash_attention_combine": [_P, _P, _P, _I, _I, _I, _P],
     # A, P, codes_t, s2, offset, out, M, N, K, blocksize, units[16] (host),
-    # decode table (host), out_bf16, stream
-    "bnb_gemm_4bit_paired_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
-    # P, codes_t, s2, offset, W, N, K, blocksize, units[16] (host), decode table (host), stream
-    "bnb_dequantize_paired_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # decode table (host), a_kind, out_f32, stream
+    "bnb_gemm_4bit_paired_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P],
+    # P, codes_t, s2, offset, W, N, K, blocksize, units[16] (host), decode table (host), out_kind,
+    # stream
+    "bnb_dequantize_paired_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     # x, u (or NULL), q, absmax, n, blocksize, tables (device), ncode, sorted, stream
     "bnb_quantize_blockwise8": [_P, _P, _P, _P, _L, _I, _P, _I, _I, _P],
     # q, absmax, out, n, blocksize, tables (device), out_kind, stream
     "bnb_dequantize_blockwise8": [_P, _P, _P, _L, _I, _P, _I, _P],
     # G, P, absmax_t, part (scratch), out, M, N, K, blocksize, rows_per_split, splits,
-    # units[16] (host), g_bf16, stream
+    # units[16] (host), g_kind, stream
     "bnb_gemm_4bit_paired_nt": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # G, P, codes_t, s2, offset, part, out, M, N, K, blocksize, rows_per_split, splits,
-    # units[16] (host), decode table (host), g_bf16, stream
+    # units[16] (host), decode table (host), g_kind, stream
     "bnb_gemm_4bit_paired_nt_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
-    # g, p, s1, s2, am1, am2, n, rule, scalars (host), map1 (host), map2 (host), fixup, stream
-    "bnb_optimizer_update_8bit": [_P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
-    # g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, scalars (host), map1 (host), map2 (host), fixup, stream
-    "bnb_optimizer_update_8bit_ademamix": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _P],
+    # g, p, s1, s2, am1, am2, n, rule, scalars (host), map1 (host), map2 (host), fixup, kind, stream
+    "bnb_optimizer_update_8bit": [_P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _I, _P],
+    # g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, scalars (host), map1 (host), map2 (host), fixup, kind,
+    # stream
+    "bnb_optimizer_update_8bit_ademamix": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _P],
     # A, B, absmax, out, M, N, K, blocksize, code[16] (host), a_kind, out_f32, stream
     "bnb_gemm_4bit_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
     # B, absmax, out, n, blocksize, code[16] (host), out_kind, stream

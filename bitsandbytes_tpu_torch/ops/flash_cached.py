@@ -4,12 +4,16 @@ plain versions.
 Replaces two TPU kernels of the JAX package's ``ops/pallas/flash_cached.py``:
 ``flash_attention_cached`` (``_kernel`` / ``_flash_step``) in its bf16- and
 int8-KV modes, and ``flash_attention_paged`` (``_paged_kernel``), the same
-recurrence over a shared block pool.  The CUDA source is
-``csrc/flash_cached.cu``.  Both are bound by bytes on the H100: every live K
-and V row is read once per block of query rows.  The kernels stop at the
-last position their rows can attend, so dead cache positions cost neither
-bytes nor compute, and they split the folded query rows over blocks, since
-rows are independent.
+recurrence over a shared block pool, at head_dim 64, 128 or 256.  The CUDA
+source is ``csrc/flash_cached.cu``: one template that runs both products on
+the tensor cores (``mma.sync``), streams K/V tiles through a double-buffered
+``cp.async`` ring, gives a prefill block 64 query rows and a decode block
+every row of its kv head, and splits the live positions of each (slot, kv
+head) over several blocks when the grid would not fill the card
+(:func:`flash_splits`).  The splits' partial results are added in split
+order by a second kernel, :func:`flash_attention_combine`, so a result is
+the same from run to run.  The kernels stop at the last position their rows
+can attend, so dead cache positions cost neither bytes nor compute.
 
 An int8 cache carries per-(slot, head, position) f32 scales.  Both the
 kernels and the plain versions follow the TPU kernel's order: the K scale
@@ -25,13 +29,18 @@ import torch
 
 from . import _lib
 from .dispatch import use_kernel
+from .gemm4bit_paired import _sm_count
 
 __all__ = [
     "GT_MAX",
+    "HEAD_DIMS",
+    "flash_splits",
     "flash_attention_cached",
     "flash_attention_cached_plain",
     "flash_attention_paged",
     "flash_attention_paged_plain",
+    "flash_attention_combine",
+    "flash_attention_combine_plain",
 ]
 
 _NEG_INF = -1e30
@@ -39,6 +48,28 @@ _NEG_INF = -1e30
 # Folded query rows per call; longer cached prefills are chunked over T by
 # the caller (models/llama.py), as in the JAX package.
 GT_MAX = 2048
+
+# head_dims the CUDA kernels take
+HEAD_DIMS = (64, 128, 256)
+
+# the kernels' geometry (csrc/flash_cached.cu): kv positions per tile, rows a
+# decode block takes, rows a prefill block takes; a split holds at most
+# _MAX_SPLIT positions, which bounds a paged block's staged table
+_KV_TILE, _DECODE_ROWS, _PREFILL_ROWS, _MAX_SPLIT = 64, 16, 64, 8192
+
+
+def flash_splits(BH: int, GT: int, S: int, sms: int):
+    """``(split_len, nsplit)`` for ``BH = B * KVH`` kv heads of ``GT`` folded
+    rows over ``S`` logical positions on a card of ``sms`` SMs: one split
+    when the (kv head, row tile) blocks fill a wave, else splits of whole
+    64-position tiles until they cover about two waves.  A function of the
+    shapes alone, so the dense and the paged kernel split alike."""
+    tiles = -(-S // _KV_TILE)
+    blocks = BH * (1 if GT <= _DECODE_ROWS else -(-GT // _PREFILL_ROWS))
+    want = 1 if blocks >= sms else -(-2 * sms // blocks)
+    split_tiles = max(1, tiles // want)
+    split_len = min(split_tiles * _KV_TILE, _MAX_SPLIT)
+    return split_len, -(-S // split_len)
 
 
 def flash_attention_cached_plain(q, k, v, lengths, T: int, window, out_dtype, k_scale=None,
@@ -96,12 +127,70 @@ def _check_cuda(q, k, v, int8: bool, hd: int, out_dtype, window, scales=()) -> N
     for t in scales:
         if not t.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous scales")
-    if hd != 128:
-        raise ValueError(f"the CUDA kernel takes head_dim 128, got {hd}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim {HEAD_DIMS}, got {hd}")
     if out_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernel writes bf16")
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
+
+
+def flash_attention_combine_plain(part_acc: torch.Tensor, part_ml: torch.Tensor) -> torch.Tensor:
+    """The splits' partial results ``part_acc [nsplit, rows, hd]`` and
+    ``part_ml [nsplit, rows, 2]`` (f32 m, l) -> ``[rows, hd]`` bf16:
+    ``sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-38)``, ``M``
+    the largest ``m_s``."""
+    m, l = part_ml[..., 0], part_ml[..., 1]
+    w = torch.exp(m - m.amax(dim=0, keepdim=True))
+    den = (l * w).sum(dim=0).clamp(min=1e-38)
+    return ((part_acc * w[..., None]).sum(dim=0) / den[:, None]).to(torch.bfloat16)
+
+
+def flash_attention_combine(part_acc: torch.Tensor, part_ml: torch.Tensor) -> torch.Tensor:
+    """Kernel on CUDA tensors (the splits added in split order), plain
+    version on CPU tensors.  Kernels 4 and 16 queue the same kernel
+    themselves after a split call."""
+    nsplit, rows, hd = part_acc.shape
+    if part_acc.dtype != torch.float32 or tuple(part_ml.shape) != (nsplit, rows, 2) or \
+            part_ml.dtype != torch.float32:
+        raise ValueError("part_acc must be f32 [nsplit, rows, hd] and part_ml f32 [nsplit, rows, 2]")
+    if not use_kernel(part_acc, part_ml):
+        return flash_attention_combine_plain(part_acc, part_ml)
+    if not (part_acc.is_contiguous() and part_ml.is_contiguous()):
+        raise ValueError("the CUDA kernel takes contiguous partials")
+    out = torch.empty(rows, hd, dtype=torch.bfloat16, device=part_acc.device)
+    if rows == 0:
+        return out
+    err = _lib.lib().bnb_flash_attention_combine(part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), rows,
+                                                  hd, nsplit, _lib.stream(part_acc))
+    _lib.check(err, "flash_attention_combine")
+    _lib.LAUNCHES["flash_attention_combine"] += 1
+    return out
+
+
+def _launch(entry: str, name: str, q, args, shape_args, B: int, KVH: int, GT: int, S: int, hd: int):
+    """Run kernel 4 or 16 (C entry ``entry``, counted as ``name``) into a new
+    ``[B, KVH, GT, hd]`` bf16 output, through split partials and the combine
+    kernel when :func:`flash_splits` cuts the positions (the C entry queues
+    both, one host call)."""
+    out = torch.empty(B, KVH, GT, hd, dtype=torch.bfloat16, device=q.device)
+    if B * KVH * GT == 0:
+        return out
+    split_len, nsplit = flash_splits(B * KVH, GT, S, _sm_count(q.device.index or 0))
+    part_acc = part_ml = None
+    if nsplit > 1:
+        rows = B * KVH * GT
+        part_acc = torch.empty(nsplit, rows, hd, dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(nsplit, rows, 2, dtype=torch.float32, device=q.device)
+    err = getattr(_lib.lib(), entry)(
+        *args, out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), *shape_args, split_len, nsplit, _lib.stream(q),
+    )
+    _lib.check(err, name)
+    _lib.LAUNCHES[name] += 1
+    if nsplit > 1:
+        _lib.LAUNCHES["flash_attention_combine"] += 1
+    return out
 
 
 def flash_attention_cached(
@@ -140,18 +229,12 @@ def flash_attention_cached(
         return flash_attention_cached_plain(q, k, v, lengths, T, window, out_dtype, k_scale, v_scale)
     _check_cuda(q, k, v, int8, hd, out_dtype, window, scales)
     lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty(B, KVH, GT, hd, dtype=torch.bfloat16, device=q.device)
-    if B * KVH * GT == 0:
-        return out
-    err = _lib.lib().bnb_flash_attention_cached(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr() if int8 else None,
-        v_scale.data_ptr() if int8 else None, lengths.data_ptr(), out.data_ptr(), B, KVH, GT, S, hd, T,
-        -1 if window is None else window, float(hd**-0.5), int(int8), _lib.stream(q),
-    )
-    name = "flash_attention_cached_int8" if int8 else "flash_attention_cached"
-    _lib.check(err, name)
-    _lib.LAUNCHES[name] += 1
-    return out
+    return _launch(
+        "bnb_flash_attention_cached", "flash_attention_cached_int8" if int8 else "flash_attention_cached", q,
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr() if int8 else None,
+         v_scale.data_ptr() if int8 else None, lengths.data_ptr()),
+        (B, KVH, GT, S, hd, T, -1 if window is None else window, float(hd**-0.5), int(int8)),
+        B, KVH, GT, S, hd)
 
 
 def _gather_pool(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -192,7 +275,9 @@ def flash_attention_paged(
     physical pool block.  ``q`` and ``lengths`` as in
     :func:`flash_attention_cached`; the logical cache holds ``MAXB * BS``
     positions.  The CUDA kernel takes a power-of-two ``BS >= 8`` and reads
-    no table entry past the block of the slot's newest position."""
+    no table entry past the block of the slot's newest position; it splits
+    the positions as the dense kernel does, so a pool scattered from a dense
+    cache gives the dense kernel's bits."""
     B, KVH, GT, hd = q.shape
     NB, _, BS = pool_k.shape[:3]
     if tuple(pool_k.shape) != (NB, KVH, BS, hd) or tuple(pool_v.shape) != (NB, KVH, BS, hd):
@@ -215,16 +300,9 @@ def flash_attention_paged(
         raise ValueError("the CUDA kernel takes contiguous int32 tables")
     MAXB = tables.shape[1]
     lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty(B, KVH, GT, hd, dtype=torch.bfloat16, device=q.device)
-    if B * KVH * GT == 0:
-        return out
-    err = _lib.lib().bnb_flash_attention_paged(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, KVH, GT, MAXB, BS, hd, T,
-        -1 if window is None else window, float(hd**-0.5), int(int8), _lib.stream(q),
-    )
-    name = "flash_attention_paged_int8" if int8 else "flash_attention_paged"
-    _lib.check(err, name)
-    _lib.LAUNCHES[name] += 1
-    return out
+    return _launch(
+        "bnb_flash_attention_paged", "flash_attention_paged_int8" if int8 else "flash_attention_paged", q,
+        (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), k_scale.data_ptr() if int8 else None,
+         v_scale.data_ptr() if int8 else None, tables.data_ptr(), lengths.data_ptr()),
+        (B, KVH, GT, MAXB, BS, hd, T, -1 if window is None else window, float(hd**-0.5), int(int8)),
+        B, KVH, GT, MAXB * BS, hd)

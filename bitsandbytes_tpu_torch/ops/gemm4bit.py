@@ -36,7 +36,7 @@ import torch
 
 from . import _lib
 from .dispatch import use_kernel
-from .gemm4bit_paired import _code_tuple, _sm_count
+from .gemm4bit_paired import _KIND, _code_tuple, _sm_count
 
 __all__ = [
     "gemm_2d_supported",
@@ -47,10 +47,6 @@ __all__ = [
     "gemm_4bit_nt_fused",
     "gemm_4bit_nt_fused_plain",
 ]
-
-# the CUDA kernels' operand types (the C entry points' a_kind / out_kind / g_kind)
-_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
 
 def gemm_2d_supported(N: int, K: int, blocksize: int) -> bool:
     """The shapes the GEMM kernels take: rows of whole quantization blocks

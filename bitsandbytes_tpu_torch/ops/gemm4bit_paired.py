@@ -9,12 +9,14 @@ The kernels, all in ``csrc/gemm4bit_paired.cu``:
 
 * :func:`gemm_4bit_paired` replaces ``gemm_4bit_paired`` (``_paired_kernel``):
   ``out[M, N] = A[M, K] @ dequant(P)^T`` with bf16-rounded unit codes, an f32
-  partial dot per quant block scaled by the f32 absmax and summed in f32.
+  partial dot per quant block scaled by the f32 absmax and summed in f32; A
+  in bf16, f16 or f32, read exactly (the TPU kernel splits an f32 A into
+  bf16 hi + lo).
   Bound by bytes at decode M (the payload is N*K/2 bytes); one warp streams
   one row pair along K with A staged in shared memory.
 * :func:`dequantize_paired_fast` replaces ``dequantize_paired_fast``
-  (``_paired_dequant_kernel``): ``W[N, K] = bf16(unit(code) * absmax)`` for the
-  large-M route.  Bound by bytes (N*K/2 read, N*K*2 written); one pass.
+  (``_paired_dequant_kernel``): ``W[N, K] = dtype(unit(code) * absmax)`` (bf16,
+  f16 or f32) for the large-M route.  Bound by bytes; one pass.
 * :func:`gemm_4bit_paired_dq` and :func:`dequantize_paired_fast_dq` replace
   ``gemm_4bit_paired_dq`` and ``dequantize_paired_fast_dq``: the same two
   kernels on a double-quantized absmax, uint8 codes ``[K/blocksize, N]``
@@ -26,8 +28,8 @@ The kernels, all in ``csrc/gemm4bit_paired.cu``:
 * :func:`gemm_4bit_paired_nt` and :func:`gemm_4bit_paired_nt_dq` replace
   ``gemm_4bit_paired_nt`` and ``gemm_4bit_paired_nt_dq``: the 4-bit matmul
   backward ``grad_A[M, K] = g[M, N] @ dequant(P)[N, K]``.  Per K quant block,
-  ``g`` times that block's scale of each row, rounded to bf16 unless ``g`` is
-  float32, dotted with the bf16-rounded unit codes over N in f32, cast to
+  ``g`` (bf16, f16 or f32) times that block's scale of each row, rounded to
+  bf16 unless ``g`` is float32, dotted with the bf16-rounded unit codes over N in f32, cast to
   ``g``'s type.  Bound by bytes at small M.  The kernel splits N across
   blocks into f32 partials that a second pass adds in a fixed order.
 
@@ -71,6 +73,9 @@ __all__ = [
 # Quant blocks per batched product in the plain GEMM: bounds its
 # [blocks, M, N] f32 intermediate.
 _PLAIN_BLOCK_CHUNK = 16
+
+# the CUDA kernels' operand types (the C entry points' a_kind / out_kind / g_kind)
+_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def pack_npaired(q: torch.Tensor) -> torch.Tensor:
@@ -154,6 +159,13 @@ def _check_aligned(*tensors) -> None:
             raise ValueError("the kernels need 16-byte aligned tensors")
 
 
+def _check_cuda_A(A, out_dtype) -> None:
+    if A.dtype not in _KIND or not A.is_contiguous():
+        raise ValueError("the CUDA kernel takes a contiguous bf16, f16 or float32 A")
+    if out_dtype not in (A.dtype, torch.float32):
+        raise ValueError(f"the CUDA kernel writes A's type or float32, not {out_dtype}")
+
+
 def gemm_4bit_paired(
     A: torch.Tensor,
     P: torch.Tensor,
@@ -168,7 +180,7 @@ def gemm_4bit_paired(
     ``A [..., K]``; ``P [N/2, K]`` uint8; ``absmax_t [K/blocksize, N]`` f32;
     ``code`` the 16-entry codebook; ``shapeB = (N, K)``.  Returns
     ``[..., N]`` in ``out_dtype`` (default ``A.dtype``).  On CUDA, A must be
-    contiguous bf16 and the output bf16 or f32."""
+    contiguous bf16, f16 or f32 and the output A's type or f32."""
     N, K = (int(s) for s in shapeB)
     if N % 2 or blocksize < 32 or K % blocksize or A.shape[-1] != K:
         raise ValueError(f"unsupported shape: A {tuple(A.shape)}, B {(N, K)}, blocksize {blocksize}")
@@ -182,17 +194,14 @@ def gemm_4bit_paired(
     if not use_kernel(A, P, absmax_t):
         out = gemm_4bit_paired_plain(A.reshape(M, K), P, absmax_t, units, blocksize)
         return out.to(out_dtype).reshape(*lead, N)
-    if A.dtype != torch.bfloat16 or not A.is_contiguous():
-        raise ValueError("the CUDA kernel takes a contiguous bf16 A")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the CUDA kernel writes bf16 or float32, not {out_dtype}")
+    _check_cuda_A(A, out_dtype)
     if M == 0:
         return torch.empty(*lead, N, dtype=out_dtype, device=A.device)
     _check_aligned(A, P, absmax_t)
     out = torch.empty(M, N, dtype=out_dtype, device=A.device)
     err = _lib.lib().bnb_gemm_4bit_paired(
         A.data_ptr(), P.data_ptr(), absmax_t.data_ptr(), out.data_ptr(),
-        M, N, K, blocksize, _lib.host_f32(units), int(out_dtype == torch.bfloat16),
+        M, N, K, blocksize, _lib.host_f32(units), _KIND[A.dtype], int(out_dtype == torch.float32),
         _lib.stream(A),
     )
     _lib.check(err, "gemm_4bit_paired")
@@ -207,8 +216,9 @@ def dequantize_paired_fast_plain(P, absmax_t, units, blocksize: int, dtype) -> t
 
 
 def dequantize_paired_fast(P, absmax_t, code, blocksize: int, dtype=torch.bfloat16) -> torch.Tensor:
-    """Paired payload ``[N/2, K]`` -> weight ``[N, K]`` in ``dtype`` (bf16 on
-    CUDA): ``bf16(unit(code) * absmax)`` with the product in exact f32."""
+    """Paired payload ``[N/2, K]`` -> weight ``[N, K]`` in ``dtype`` (bf16,
+    f16 or f32 on CUDA): ``dtype(unit(code) * absmax)`` with the product in
+    exact f32."""
     N2, K = P.shape
     N = 2 * N2
     if blocksize < 8 or K % blocksize:
@@ -217,13 +227,13 @@ def dequantize_paired_fast(P, absmax_t, code, blocksize: int, dtype=torch.bfloat
     units = _units(_code_tuple(code))
     if not use_kernel(P, absmax_t):
         return dequantize_paired_fast_plain(P, absmax_t, units, blocksize, dtype)
-    if dtype != torch.bfloat16:
-        raise ValueError("the CUDA kernel writes bf16")
+    if dtype not in _KIND:
+        raise ValueError(f"the CUDA kernel writes bf16, f16 or float32, not {dtype}")
     _check_aligned(P, absmax_t)
-    W = torch.empty(N, K, dtype=torch.bfloat16, device=P.device)
+    W = torch.empty(N, K, dtype=dtype, device=P.device)
     err = _lib.lib().bnb_dequantize_paired(
         P.data_ptr(), absmax_t.data_ptr(), W.data_ptr(), N, K, blocksize,
-        _lib.host_f32(units), _lib.stream(P),
+        _lib.host_f32(units), _KIND[dtype], _lib.stream(P),
     )
     _lib.check(err, "dequantize_paired_fast")
     _lib.LAUNCHES["dequantize_paired_fast"] += 1
@@ -311,10 +321,7 @@ def gemm_4bit_paired_dq(
     if not use_kernel(A, P, codes_t, s2, offset):
         out = gemm_4bit_paired_dq_plain(A.reshape(M, K), P, codes_t, s2, offset, units, blocksize)
         return out.to(out_dtype).reshape(*lead, N)
-    if A.dtype != torch.bfloat16 or not A.is_contiguous():
-        raise ValueError("the CUDA kernel takes a contiguous bf16 A")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the CUDA kernel writes bf16 or float32, not {out_dtype}")
+    _check_cuda_A(A, out_dtype)
     if M == 0:
         return torch.empty(*lead, N, dtype=out_dtype, device=A.device)
     _check_aligned(A, P, codes_t)
@@ -323,7 +330,7 @@ def gemm_4bit_paired_dq(
     err = _lib.lib().bnb_gemm_4bit_paired_dq(
         A.data_ptr(), P.data_ptr(), codes_t.data_ptr(), s2.data_ptr(), offset.data_ptr(),
         out.data_ptr(), M, N, K, blocksize, _lib.host_f32(units), ctypes.addressof(dec),
-        int(out_dtype == torch.bfloat16), _lib.stream(A),
+        _KIND[A.dtype], int(out_dtype == torch.float32), _lib.stream(A),
     )
     _lib.check(err, "gemm_4bit_paired_dq")
     _lib.LAUNCHES["gemm_4bit_paired_dq"] += 1
@@ -348,14 +355,14 @@ def dequantize_paired_fast_dq(P, codes_t, s2, offset, code, blocksize: int,
     units = _units(_code_tuple(code))
     if not use_kernel(P, codes_t, s2, offset):
         return dequantize_paired_fast_dq_plain(P, codes_t, s2, offset, units, blocksize, dtype)
-    if dtype != torch.bfloat16:
-        raise ValueError("the CUDA kernel writes bf16")
+    if dtype not in _KIND:
+        raise ValueError(f"the CUDA kernel writes bf16, f16 or float32, not {dtype}")
     _check_aligned(P, codes_t)
-    W = torch.empty(N, K, dtype=torch.bfloat16, device=P.device)
+    W = torch.empty(N, K, dtype=dtype, device=P.device)
     dec = _dyn_decode()
     err = _lib.lib().bnb_dequantize_paired_dq(
         P.data_ptr(), codes_t.data_ptr(), s2.data_ptr(), offset.data_ptr(), W.data_ptr(),
-        N, K, blocksize, _lib.host_f32(units), ctypes.addressof(dec), _lib.stream(P),
+        N, K, blocksize, _lib.host_f32(units), ctypes.addressof(dec), _KIND[dtype], _lib.stream(P),
     )
     _lib.check(err, "dequantize_paired_fast_dq")
     _lib.LAUNCHES["dequantize_paired_fast_dq"] += 1
@@ -414,15 +421,15 @@ def _nt_args(G, N: int, K: int, blocksize: int, out_dtype):
 
 
 def _launch_nt(entry: str, G2, P, scale_ptrs, extra, M: int, N: int, K: int, blocksize: int, units):
-    if G2.dtype not in (torch.bfloat16, torch.float32) or not G2.is_contiguous():
-        raise ValueError("the CUDA kernel takes a contiguous bf16 or float32 g")
+    if G2.dtype not in _KIND or not G2.is_contiguous():
+        raise ValueError("the CUDA kernel takes a contiguous bf16, f16 or float32 g")
     _check_aligned(G2, P)
     rows, splits = _nt_splits(M, N, K, _sm_count(G2.device.index or 0))
     part = torch.empty(splits * M * K, dtype=torch.float32, device=G2.device)
     out = torch.empty(M, K, dtype=G2.dtype, device=G2.device)
     err = getattr(_lib.lib(), "bnb_" + entry)(
         G2.data_ptr(), P.data_ptr(), *scale_ptrs, part.data_ptr(), out.data_ptr(), M, N, K, blocksize,
-        rows, splits, _lib.host_f32(units), *extra, int(G2.dtype == torch.bfloat16), _lib.stream(G2),
+        rows, splits, _lib.host_f32(units), *extra, _KIND[G2.dtype], _lib.stream(G2),
     )
     _lib.check(err, entry)
     _lib.LAUNCHES[entry] += 1
@@ -432,7 +439,7 @@ def _launch_nt(entry: str, G2, P, scale_ptrs, extra, M: int, N: int, K: int, blo
 def gemm_4bit_paired_nt(G, P, absmax_t, code, blocksize: int, shapeB: tuple, out_dtype=None) -> torch.Tensor:
     """Fused ``G @ dequant(B)`` over the N-paired layout (contract over N):
     ``G [..., N]`` -> ``[..., K]`` in ``out_dtype`` (default ``G.dtype``; on
-    CUDA, G is contiguous bf16 or float32 and the output takes its type)."""
+    CUDA, G is contiguous bf16, f16 or float32 and the output takes its type)."""
     N, K = (int(s) for s in shapeB)
     lead, M, out_dtype = _nt_args(G, N, K, blocksize, out_dtype)
     _check_payload(P, absmax_t, N, K, blocksize)

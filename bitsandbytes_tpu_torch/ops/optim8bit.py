@@ -19,10 +19,13 @@ pass per 256-element block:
 AdEMAMix keeps its two momenta as ``state1 [2, *shape]`` with ``absmax1
 [2, nb]`` (the JAX package's leaf layout) and ``nu`` as state2.
 
-Bound on the H100 by bytes: 16 B an element (f32 gradient read, f32
-parameter read and written, each uint8 state read and written), 18 B for
-AdEMAMix.  The
-kernel gives one warp to each block, 8 elements a lane, so the absmax
+The gradient and the parameter share one type, f32, bf16 or f16: both
+versions compute in f32 and store the parameter in its own type, rounded to
+nearest even (the JAX package's ``new_p.astype(p.dtype)``).
+
+Bound on the H100 by bytes: 16 B an element in f32 (gradient read,
+parameter read and written, each uint8 state read and written; 10 B in
+bf16), 18 B for AdEMAMix.  The kernel gives one warp to each block, 8 elements a lane, so the absmax
 reduces in registers by shuffles; a grid-stride loop amortizes each CUDA
 block's shared-memory decode tables over many quantization blocks.
 
@@ -61,6 +64,7 @@ from ..functional.dynamic_segments import (
 )
 from . import _lib
 from .dispatch import use_kernel
+from .gemm4bit_paired import _KIND
 
 __all__ = [
     "RULES",
@@ -380,7 +384,7 @@ def optimizer_update_8bit_(sc: UpdateScalars, g, p, s1, s2, am1, am2, codes: Sta
                            fixup: bool = True) -> None:
     """One fused 8-bit step, in place on ``p``, ``s1``, ``s2``, ``am1`` and
     ``am2`` (``s2``/``am2`` None for a one-state rule).  ``g`` and ``p`` are
-    float32 (on CUDA: contiguous, 16-byte aligned); ``s1``/``s2`` uint8 of
+    float32, bf16 or f16 (on CUDA: one type, contiguous, 16-byte aligned); ``s1``/``s2`` uint8 of
     ``p``'s shape; ``am1``/``am2`` float32 ``[ceil(n / 256)]``; ``codes`` the
     state codebooks.  AdEMAMix's ``s1`` is ``[2, *p.shape]`` and ``am1``
     ``[2, ceil(n / 256)]``: the kernel takes their two halves as separate
@@ -405,8 +409,8 @@ def optimizer_update_8bit_(sc: UpdateScalars, g, p, s1, s2, am1, am2, codes: Sta
             if dst is not None:
                 dst.copy_(src.reshape(dst.shape))
         return
-    if g.dtype != torch.float32 or p.dtype != torch.float32:
-        raise ValueError("the CUDA kernel takes a float32 gradient and parameter")
+    if p.dtype not in _KIND or g.dtype != p.dtype:
+        raise ValueError("the CUDA kernel takes a gradient and a parameter of one type: f32, bf16 or f16")
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("the CUDA kernel takes contiguous, 16-byte aligned tensors")
@@ -419,7 +423,7 @@ def optimizer_update_8bit_(sc: UpdateScalars, g, p, s1, s2, am1, am2, codes: Sta
         err = _lib.lib().bnb_optimizer_update_8bit_ademamix(
             g.data_ptr(), p.data_ptr(), s1v[0].data_ptr(), s1v[1].data_ptr(), s2.data_ptr(),
             am1v[0].data_ptr(), am1v[1].data_ptr(), am2.data_ptr(), n, ctypes.addressof(cs),
-            ctypes.addressof(m1), ctypes.addressof(m2), int(fixup), _lib.stream(p),
+            ctypes.addressof(m1), ctypes.addressof(m2), int(fixup), _KIND[p.dtype], _lib.stream(p),
         )
         _lib.check(err, "optimizer_update_8bit_ademamix")
         _lib.LAUNCHES["optimizer_update_8bit_ademamix"] += 1
@@ -427,7 +431,8 @@ def optimizer_update_8bit_(sc: UpdateScalars, g, p, s1, s2, am1, am2, codes: Sta
     err = _lib.lib().bnb_optimizer_update_8bit(
         g.data_ptr(), p.data_ptr(), s1.data_ptr(), s2.data_ptr() if sc.two_state else None,
         am1.data_ptr(), am2.data_ptr() if sc.two_state else None, n, sc.rule,
-        ctypes.addressof(cs), ctypes.addressof(m1), ctypes.addressof(m2), int(fixup), _lib.stream(p),
+        ctypes.addressof(cs), ctypes.addressof(m1), ctypes.addressof(m2), int(fixup), _KIND[p.dtype],
+        _lib.stream(p),
     )
     _lib.check(err, "optimizer_update_8bit")
     _lib.LAUNCHES["optimizer_update_8bit"] += 1

@@ -22,12 +22,22 @@ def _require_cuda() -> None:
         raise RuntimeError("timing needs a CUDA device")
 
 
-def cuda_time(fn: Callable[[], object], n: int = 20, warmup: int = 3, flush_l2: bool = False) -> dict:
+# card cycles of the spin that ``cuda_time(hold=True)`` queues ahead of a
+# timed call: about 1 ms at the H100's clock, far more than a wrapper's host time
+_HOLD_CYCLES = 2_000_000
+
+
+def cuda_time(fn: Callable[[], object], n: int = 20, warmup: int = 3, flush_l2: bool = False,
+              hold: bool = False) -> dict:
     """Milliseconds per call of ``fn()`` on the current stream:
     ``{"median", "min", "max", "n"}``.  ``flush_l2`` overwrites a buffer
     larger than the L2 cache before each timed call (outside the timed
     window), so the call finds its inputs in device memory, as a decode
-    step finds each layer's weights."""
+    step finds each layer's weights.  A call whose host work (the Python
+    wrapper, the launch) outlasts the work queued ahead of it leaves the
+    card idle inside the window; ``hold`` queues a spin of about a
+    millisecond on the card first, so the window holds the device's time
+    alone."""
     _require_cuda()
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda") if flush_l2 else None
     for _ in range(warmup):
@@ -39,6 +49,8 @@ def cuda_time(fn: Callable[[], object], n: int = 20, warmup: int = 3, flush_l2: 
         end = torch.cuda.Event(enable_timing=True)
         if scratch is not None:
             scratch.zero_()
+        if hold:
+            torch.cuda._sleep(_HOLD_CYCLES)
         start.record()
         fn()
         end.record()

@@ -18,7 +18,13 @@ Phases (every one asserts; any failure exits non-zero before the result):
    mode and kernel 16 (paged, bf16 and int8) at block sizes 16-256, each
    paged result against kernel 4 on the same data (3k); kernels 9, 10 and 11
    on the K-adjacent layout of bf16 ``quant_storage`` and the sweep of their
-   routes (3l); kernel 15, the 8-bit AdEMAMix update (3m).
+   routes (3l); kernel 15, the 8-bit AdEMAMix update (3m).  Kernel 1's
+   stochastic mode against its plain version on the same uniforms (3a);
+   kernels 2, 3, 5 and 6 on f16 and f32 activations and kernels 7 and 8 on
+   f16 g (3e); kernels 14 and 15 on bf16 and f16 parameters (3i, 3m);
+   kernels 4 and 16 at head_dim 64, 128 and 256, bf16 and int8, paged
+   against dense bit for bit and each twice, bit for bit (3c, 3k), and the
+   split combine that follows them at decode.
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -45,7 +51,11 @@ Phases (every one asserts; any failure exits non-zero before the result):
    teacher-forced through the CPU stay in the CPU's top-5, and a decode
    step's logits agree; then 4f at 2 layers (5d): prefill and two decode
    steps against the CPU, and one AdEMAMix QLoRA step at M = 16 (kernels 9,
-   11 and 15).
+   11 and 15); then entry points that once raised on the card, each through
+   its kernels and against the CPU (5e): ``Linear4bit`` with f16 and f32
+   ``compute_dtype``, ``adamw8bit`` and ``ademamix8bit`` over bf16
+   parameters, ``prefill``/``decode_step`` at head_dim 64 (``tiny``) and 256
+   (``gemma_7b`` at 2 layers), and ``quantize_4bit(generator=)``.
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -111,6 +121,11 @@ TPU_KERNELS = {
     "gemm_4bit_nt_fused": ("bitsandbytes_tpu/ops/pallas/gemm4bit.py:444", "bitsandbytes_tpu_torch/csrc/gemm4bit.cu"),
     "optimizer_update_8bit_ademamix": (
         "bitsandbytes_tpu/ops/pallas/optim8bit.py:323", "bitsandbytes_tpu_torch/csrc/optim8bit.cu"),
+    # the split-KV combine of kernels 4 and 16: the TPU kernel carries m, l and
+    # acc across its ordered S grid axis instead
+    "flash_attention_combine": (
+        "bitsandbytes_tpu/ops/pallas/flash_cached.py:482",
+        "bitsandbytes_tpu_torch/csrc/flash_cached.cu"),
 }
 
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
@@ -150,10 +165,15 @@ def main() -> int:
         quantize_blockwise8,
         quantize_blockwise8_plain,
     )
+    from bitsandbytes_tpu_torch.functional import fourbit as F4
+    from bitsandbytes_tpu_torch.nn.modules import Linear4bit
+    from bitsandbytes_tpu_torch.ops import flash_cached as FC
     from bitsandbytes_tpu_torch.ops.flash_cached import (
         GT_MAX,
         flash_attention_cached,
         flash_attention_cached_plain,
+        flash_attention_combine,
+        flash_attention_combine_plain,
         flash_attention_paged,
         flash_attention_paged_plain,
     )
@@ -241,15 +261,29 @@ def main() -> int:
         qp, ap_ = quantize_4bit_codes_plain(x, qt, bs)
         assert torch.equal(qk, qp), f"quantize codes differ ({qt})"
         assert torch.equal(ak.view(torch.int32), ap_.view(torch.int32)), f"absmax differs ({qt})"
+    # the stochastic mode: the same uniforms give the plain version's codes
+    u = torch.rand(x.numel(), generator=gen, device=dev)
+    moved = {}
+    for qt in ("nf4", "fp4"):
+        qk, ak = quantize_4bit_codes(x, qt, bs, u)
+        qp, ap_ = quantize_4bit_codes_plain(x, qt, bs, u)
+        assert torch.equal(qk, qp) and torch.equal(ak.view(torch.int32), ap_.view(torch.int32)), \
+            f"stochastic quantize codes differ ({qt})"
+        moved[qt] = (qk != quantize_4bit_codes(x, qt, bs)[0]).float().mean().item()
+        assert 0.1 < moved[qt] < 0.4, f"stochastic quantize moved {moved[qt]} of the codes ({qt})"
     n_el = N * K
+    sto = {"ms": cuda_time(lambda: quantize_4bit_codes(x, "nf4", bs, u), flush_l2=True)["median"],
+           "plain_ms": cuda_time(lambda: quantize_4bit_codes_plain(x, "nf4", bs, u), n=5)["median"],
+           "bytes": n_el * 8 + n_el + n_el // bs * 4, "moved_share": moved}
+    sto["bound_ms"] = bound_ms(sto["bytes"], 28 * n_el, PEAK_F32_FLOPS)[0]
     entry(
         "quantize_4bit_codes",
         cuda_time(lambda: quantize_4bit_codes(x, "nf4", bs), flush_l2=True)["median"],
         cuda_time(lambda: quantize_4bit_codes_plain(x, "nf4", bs), n=5)["median"],
         None, n_el * 4 + n_el + n_el // bs * 4, 20 * n_el, PEAK_F32_FLOPS, 0.0,
-        shape=[N, K],
+        shape=[N, K], stochastic_u=sto,
     )
-    del W, x, qk, ak, qp, ap_
+    del W, x, qk, ak, qp, ap_, u
 
     # -- 3b. kernel 2 (decode GEMM, M = 8) and kernel 3 (dequantize) ------
     weights = {}
@@ -260,6 +294,7 @@ def main() -> int:
     M = 8
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
     per_shape = []
+    a_modes = {"float16": 0.0, "float32": 0.0}  # one layer's 4 linears at M 8, A in that type
     for name, (N, K) in LINEARS.items():
         qt = weights[name]
         P, am_t = qt.data, qt.state.absmax
@@ -268,6 +303,14 @@ def main() -> int:
         ref = gemm_4bit_paired_plain(A, P, am_t, units, bs)
         rel = ((out - ref).abs().max() / ref.abs().max()).item()
         assert rel <= 1e-3, f"gemm {name}: rel err {rel}"
+        for dt in (torch.float16, torch.float32):
+            Ad = A.to(dt)
+            od = gemm_4bit_paired(Ad, P, am_t, code, bs, (N, K))
+            rd = gemm_4bit_paired_plain(Ad, P, am_t, units, bs)
+            assert od.dtype == dt and ((od.float() - rd).abs().max() / rd.abs().max()).item() <= 1e-3, \
+                f"gemm {name} {dt}"
+            a_modes[str(dt)[6:]] += cuda_time(lambda: gemm_4bit_paired(Ad, P, am_t, code, bs, (N, K)),
+                                              flush_l2=True)["median"]
         out_bf = gemm_4bit_paired(A, P, am_t, code, bs, (N, K))
         assert torch.equal(out_bf, out.to(torch.bfloat16)), f"gemm {name}: bf16 output"
         Wb = dequantize_paired_fast_plain(P, am_t, units, bs, torch.bfloat16)
@@ -287,19 +330,28 @@ def main() -> int:
         tot["err"] = max(tot["err"], (out - ref).abs().max().item())
         del Wb
     entry("gemm_4bit_paired", tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"],
-          PEAK_BF16_FLOPS, tot["err"], per_shape=per_shape, note="sum over one layer's 4 linears at M=8")
+          PEAK_BF16_FLOPS, tot["err"], per_shape=per_shape, a_dtype_ms=a_modes,
+          note="sum over one layer's 4 linears at M=8; a_dtype_ms: the same with f16 and f32 A")
 
     N, K = LINEARS["gate_up"]
     P, am_t = weights["gate_up"].data, weights["gate_up"].state.absmax
     Wk = dequantize_paired_fast(P, am_t, code, bs)
     Wp = dequantize_paired_fast_plain(P, am_t, units, bs, torch.bfloat16)
     assert torch.equal(Wk.view(torch.int16), Wp.view(torch.int16)), "dequantize differs"
+    out_modes = {}
+    for dt in (torch.float16, torch.float32):
+        Wk = dequantize_paired_fast(P, am_t, code, bs, dt)
+        assert Wk.dtype == dt and torch.equal(Wk, dequantize_paired_fast_plain(P, am_t, units, bs, dt)), \
+            f"dequantize differs ({dt})"
+        out_modes[str(dt)[6:]] = cuda_time(lambda: dequantize_paired_fast(P, am_t, code, bs, dt),
+                                           flush_l2=True)["median"]
     del Wk, Wp
     entry(
         "dequantize_paired_fast",
         cuda_time(lambda: dequantize_paired_fast(P, am_t, code, bs), flush_l2=True)["median"],
         cuda_time(lambda: dequantize_paired_fast_plain(P, am_t, units, bs, torch.bfloat16), n=5)["median"],
         None, N * K // 2 + (K // bs) * N * 4 + N * K * 2, N * K, PEAK_F32_FLOPS, 0.0, shape=[N, K],
+        out_dtype_ms=out_modes,
     )
 
     # -- 3c. kernel 4: flash attention, decode and a prefill chunk --------
@@ -311,11 +363,16 @@ def main() -> int:
     vc = torch.randn(B, KVH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
     import torch.nn.functional as F
 
-    def flash_case(T, lengths):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def flash_case(T, lengths, kc=kc, vc=vc):
+        hd = kc.shape[-1]
         q = torch.randn(B, KVH, Gq * T, hd, generator=gen, device=dev).to(torch.bfloat16)
         out = flash_attention_cached(q, kc, vc, lengths, T=T)
         ref = flash_attention_cached_plain(q, kc, vc, lengths, T, None, torch.bfloat16)
-        assert torch.allclose(out.float(), ref.float(), atol=0.02, rtol=0.02), f"flash T={T}"
+        assert torch.allclose(out.float(), ref.float(), atol=0.02, rtol=0.02), f"flash T={T} hd {hd}"
+        assert torch.equal(out.view(torch.int16), flash_attention_cached(q, kc, vc, lengths, T=T).view(torch.int16)), \
+            f"flash T={T} hd {hd}: differs from run to run"
         err = (out.float() - ref.float()).abs().max().item()
         # SDPA yardstick: heads h = kvh*G + g, as the fold's rows r = g*T + t
         q4 = q.reshape(B, KVH * Gq, T, hd)
@@ -335,20 +392,60 @@ def main() -> int:
                 lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True),
                 flush_l2=True,
             )["median"],
-            "bytes": nbytes, "ops": ops, "err": err,
+            # the same two with the host's enqueue kept out of the window (cuda_time's hold)
+            "device_ms": cuda_time(lambda: flash_attention_cached(q, kc, vc, lengths, T=T), flush_l2=True,
+                                   hold=True)["median"],
+            "library_device_ms": cuda_time(
+                lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True),
+                flush_l2=True, hold=True,
+            )["median"],
+            "bytes": nbytes, "ops": ops, "err": err, "splits": FC.flash_splits(B * KVH, Gq * T, S, sms),
         }
 
     dec_len = torch.randint(128, S, (B,), generator=gen, device=dev, dtype=torch.int32)
     dec = flash_case(1, dec_len)
     pre = flash_case(128, torch.full((B,), 255, dtype=torch.int32, device=dev))
     pre_bound = bound_ms(pre["bytes"], pre["ops"], PEAK_BF16_FLOPS)
+    other_hd = {}  # the decode geometry at head_dim 64 and 256
+    for hd_x in (64, 256):
+        kx, vx = (torch.randn(B, KVH, S, hd_x, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        r = flash_case(1, dec_len, kx, vx)
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"], PEAK_BF16_FLOPS)
+        other_hd[hd_x] = r
+        del kx, vx
     entry("flash_attention_cached", dec["ms"], dec["plain_ms"], dec["library_ms"], dec["bytes"],
           dec["ops"], PEAK_BF16_FLOPS, max(dec["err"], pre["err"]),
-          decode={"B": B, "S": S, "T": 1, "lengths": dec_len.tolist()},
+          decode={"B": B, "S": S, "T": 1, "lengths": dec_len.tolist(), "splits": dec["splits"]},
           prefill_chunk={"B": B, "S": S, "T": 128, "length": 255, "ms": pre["ms"],
                          "plain_ms": pre["plain_ms"], "library_ms": pre["library_ms"],
-                         "bytes": pre["bytes"], "bound_ms": pre_bound[0], "bound_by": pre_bound[1]})
-    del kc, vc
+                         "device_ms": pre["device_ms"], "library_device_ms": pre["library_device_ms"],
+                         "bytes": pre["bytes"], "bound_ms": pre_bound[0], "bound_by": pre_bound[1],
+                         "splits": pre["splits"]},
+          device_ms=dec["device_ms"], library_device_ms=dec["library_device_ms"],
+          decode_head_dim={str(k): v for k, v in other_hd.items()}, run_to_run_bit_identical=True)
+
+    # the split combine after a decode call at this geometry, on partials of its shape
+    split_len, nsplit = dec["splits"]
+    rows = B * KVH * Gq
+    part_acc = torch.randn(nsplit, rows, hd, generator=gen, device=dev)
+    part_ml = torch.stack([torch.randn(nsplit, rows, generator=gen, device=dev) * 3,
+                           torch.rand(nsplit, rows, generator=gen, device=dev) * 40 + 1], -1)
+    part_ml[1:, :8, 0] = -1e30  # rows whose later splits hold no live position
+    part_ml[1:, :8, 1] = 0.0
+    ck = flash_attention_combine(part_acc, part_ml)
+    cp = flash_attention_combine_plain(part_acc, part_ml)
+    err_c = (ck.float() - cp.float()).abs().max().item()
+    assert torch.allclose(ck.float(), cp.float(), atol=1e-2, rtol=1e-2), f"combine: max abs err {err_c}"
+    assert torch.equal(ck.view(torch.int16), flash_attention_combine(part_acc, part_ml).view(torch.int16))
+    entry("flash_attention_combine",
+          cuda_time(lambda: flash_attention_combine(part_acc, part_ml), flush_l2=True)["median"],
+          cuda_time(lambda: flash_attention_combine_plain(part_acc, part_ml), n=5)["median"], None,
+          nsplit * rows * (hd + 2) * 4 + rows * hd * 2, 4 * nsplit * rows * hd, PEAK_F32_FLOPS, err_c,
+          splits=nsplit, split_len=split_len, rows=rows, hd=hd,
+          device_ms=cuda_time(lambda: flash_attention_combine(part_acc, part_ml), flush_l2=True, hold=True)["median"],
+          note="the split-KV combine at the decode geometry above (B 8, KVH 8, G 4, S 1024); library_ms "
+               "null: no single PyTorch call computes it")
+    del kc, vc, part_acc, part_ml
 
     # -- 3d. the large-M threshold: kernel 2 against kernel 3 + matmul ----
     sweep = []
@@ -384,7 +481,15 @@ def main() -> int:
         assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-3, f"gemm {(Mx, N, K, gbs)}"
         Wk = dequantize_paired_fast(P, am_t, code, gbs)
         assert torch.equal(Wk, dequantize_paired_fast_plain(P, am_t, units, gbs, torch.bfloat16)), (N, K, gbs)
-        cases.append(f"gemm+dequant M{Mx} N{N} K{K} bs{gbs}")
+        for dt in (torch.float16, torch.float32):  # f16 and f32 activations, and the weight in their type
+            Ad = A.to(dt)
+            od = gemm_4bit_paired(Ad, P, am_t, code, gbs, (N, K))
+            rd = gemm_4bit_paired_plain(Ad, P, am_t, units, gbs)
+            assert od.dtype == dt and ((od.float() - rd).abs().max() / rd.abs().max()).item() <= 1e-3, \
+                f"gemm {(Mx, N, K, gbs)} {dt}"
+            assert torch.equal(dequantize_paired_fast(P, am_t, code, gbs, dt),
+                               dequantize_paired_fast_plain(P, am_t, units, gbs, dt)), f"dequant {(N, K, gbs)} {dt}"
+        cases.append(f"gemm+dequant M{Mx} N{N} K{K} bs{gbs} bf16/f16/f32")
     for Bx, H, Gx, T, Sx, lens, win in ((1, 1, 1, 1, 1, [0], None), (3, 2, 3, 5, 100, [4, 50, 99], None),
                                         (2, 2, 4, 3, 200, [150, 199], 16), (2, 1, 7, 1, 70, [69, 0], None),
                                         (1, 1, 2, 64, 300, [299], None), (2, 1, 4, 3, 64, [1, 40], None)):
@@ -409,6 +514,7 @@ def main() -> int:
     M = 8
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "k2": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
     per_shape = []
+    a_modes_dq = {"float16": 0.0, "float32": 0.0}
     for name, (N, K) in LINEARS.items():
         qt = nested[name]
         st = qt.state
@@ -421,6 +527,13 @@ def main() -> int:
         am_t = st.dequant_absmax_t()  # the resolved f32 scales: kernel 2 must give the same bits
         assert torch.equal(out, gemm_4bit_paired(A, qt.data, am_t, code, bs, (N, K), out_dtype=torch.float32)), \
             f"gemm_dq {name}: differs from kernel 2 on the resolved absmax"
+        for dt in (torch.float16, torch.float32):
+            Ad = A.to(dt)
+            od = gemm_4bit_paired_dq(Ad, *args, code, bs, (N, K))
+            assert od.dtype == dt and torch.equal(od, gemm_4bit_paired(Ad, qt.data, am_t, code, bs, (N, K))), \
+                f"gemm_dq {name} {dt}: differs from kernel 2 on the resolved absmax"
+            a_modes_dq[str(dt)[6:]] += cuda_time(lambda: gemm_4bit_paired_dq(Ad, *args, code, bs, (N, K)),
+                                                 flush_l2=True)["median"]
         Wb = dequantize_paired_fast_dq_plain(*args, units, bs, torch.bfloat16)
         ms = cuda_time(lambda: gemm_4bit_paired_dq(A, *args, code, bs, (N, K)), flush_l2=True)["median"]
         k2 = cuda_time(lambda: gemm_4bit_paired(A, qt.data, am_t, code, bs, (N, K)), flush_l2=True)["median"]
@@ -437,9 +550,10 @@ def main() -> int:
         tot["err"] = max(tot["err"], (out - ref).abs().max().item())
         del Wb, am_t
     entry("gemm_4bit_paired_dq", tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"],
-          PEAK_BF16_FLOPS, tot["err"], per_shape=per_shape, kernel2_resolved_ms=tot["k2"],
+          PEAK_BF16_FLOPS, tot["err"], per_shape=per_shape, kernel2_resolved_ms=tot["k2"], a_dtype_ms=a_modes_dq,
           note="sum over one layer's 4 nested linears at M=8; kernel2_resolved_ms is kernel 2 on "
-               "the same weights with the absmax decoded to f32, timed in the same run")
+               "the same weights with the absmax decoded to f32, timed in the same run; a_dtype_ms: "
+               "with f16 and f32 A")
 
     N, K = LINEARS["gate_up"]
     qt = nested["gate_up"]
@@ -448,6 +562,13 @@ def main() -> int:
     Wk = dequantize_paired_fast_dq(*args, code, bs)
     Wp = dequantize_paired_fast_dq_plain(*args, units, bs, torch.bfloat16)
     assert torch.equal(Wk.view(torch.int16), Wp.view(torch.int16)), "dequantize_dq differs"
+    out_modes = {}
+    for dt in (torch.float16, torch.float32):
+        Wk = dequantize_paired_fast_dq(*args, code, bs, dt)
+        assert Wk.dtype == dt and torch.equal(Wk, dequantize_paired_fast_dq_plain(*args, units, bs, dt)), \
+            f"dequantize_dq differs ({dt})"
+        out_modes[str(dt)[6:]] = cuda_time(lambda: dequantize_paired_fast_dq(*args, code, bs, dt),
+                                           flush_l2=True)["median"]
     del Wk, Wp
     k3 = cuda_time(lambda: dequantize_paired_fast(qt.data, st.dequant_absmax_t(), code, bs),
                    flush_l2=True)["median"]
@@ -457,7 +578,7 @@ def main() -> int:
         cuda_time(lambda: dequantize_paired_fast_dq_plain(*args, units, bs, torch.bfloat16), n=5)["median"],
         None, N * K // 2 + (K // bs) * N + st.state2.absmax.numel() * 4 + 4 + N * K * 2, N * K,
         PEAK_F32_FLOPS, 0.0, shape=[N, K],
-        kernel3_with_decode_ms=k3,
+        kernel3_with_decode_ms=k3, out_dtype_ms=out_modes,
         note="kernel3_with_decode_ms: the nested absmax decoded by plain PyTorch ops, then kernel 3",
     )
 
@@ -562,7 +683,7 @@ def main() -> int:
             qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev), blocksize=gbs,
                                           compress_statistics=compress)
             st = qw.state
-            for dt in (torch.bfloat16, torch.float32):
+            for dt in (torch.bfloat16, torch.float32, torch.float16):
                 Gx = torch.randn(Mx, N, generator=gen, device=dev).to(dt)
                 if compress:
                     args = (qw.data, st.absmax, st.state2.absmax, st.offset)
@@ -583,7 +704,7 @@ def main() -> int:
     def nt_layer(compress):
         """Kernel 7 (or 8) on one layer's four linears transposed, M = 16."""
         M = 16
-        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0, "ops": 0, "err": 0.0, "f16": 0.0}
         per_shape = []
         for name, (N, K) in LINEARS.items():
             Wf = torch.randn(N, K, generator=gen, device=dev) * K**-0.5
@@ -608,6 +729,9 @@ def main() -> int:
             ms = cuda_time(run, flush_l2=True)["median"]
             pms = cuda_time(plain, n=3)["median"]
             lms = cuda_time(lambda: torch.matmul(Gx, Wb), flush_l2=True)["median"]
+            Gx = Gx.to(torch.float16)  # the same linear with f16 g
+            assert nt_rel(run(), plain()) <= 1e-2, f"nt {name} f16"
+            tot["f16"] += cuda_time(run, flush_l2=True)["median"]
             nbytes = M * N * 2 + N * K // 2 + sbytes + M * K * 2
             per_shape.append({"linear": name + "^T", "N": N, "K": K, "M": M, "ms": ms, "plain_ms": pms,
                               "library_ms": lms, "bytes": nbytes,
@@ -621,8 +745,9 @@ def main() -> int:
     for name, compress in (("gemm_4bit_paired_nt", False), ("gemm_4bit_paired_nt_dq", True)):
         tot, per_shape = nt_layer(compress)
         entry(name, tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"], PEAK_BF16_FLOPS, tot["err"],
-              per_shape=per_shape, note="sum over one layer's 4 linears transposed, M=16, bf16 g; library: "
-                                        "torch.matmul(g, W) on the dequantized bf16 weight")
+              per_shape=per_shape, f16_g_ms=tot["f16"],
+              note="sum over one layer's 4 linears transposed, M=16, bf16 g; library: "
+                   "torch.matmul(g, W) on the dequantized bf16 weight; f16_g_ms: the same with f16 g")
     torch.cuda.empty_cache()
 
     # -- 3i. kernel 14: the fused 8-bit optimizer update --------------------
@@ -634,11 +759,12 @@ def main() -> int:
              "lion": (0.9, 0.99, 0.0, 1e-2, 1e-4), "rmsprop": (0.99, 0.0, 1e-8, 0.0, 1e-2),
              "adagrad": (0.0, 0.0, 1e-10, 1e-2, 1e-2)}
 
-    def opt_inputs(name, n, zero_block=False):
+    def opt_inputs(name, n, zero_block=False, dtype=torch.float32):
         nb = -(-n // 256)
         g = torch.randn(n, generator=gen, device=dev) * 0.01
         g[7], g[600] = float("nan"), float("inf")
         p = torch.randn(n, generator=gen, device=dev)
+        g, p = g.to(dtype), p.to(dtype)
         lo = 127 if name in ("rmsprop", "adagrad") else 0  # a non-negative state1
         s1 = torch.randint(lo, 256, (n,), generator=gen, device=dev, dtype=torch.uint8)
         am1 = torch.rand(nb, generator=gen, device=dev) * 0.01
@@ -654,30 +780,39 @@ def main() -> int:
                 am2[1] = 0.0
         return g, p, s1, s2, am1, am2
 
-    def opt_check(name, step, n, zero_block):
+    def opt_check(name, step, n, zero_block, dtype=torch.float32):
         b1, b2, eps, wd, lr = hyper[name]
         sc = UpdateScalars.make(name, beta1=b1, beta2=b2, eps=eps, weight_decay=wd, step=step, lr=lr)
-        g, p, s1, s2, am1, am2 = opt_inputs(name, n, zero_block)
+        g, p, s1, s2, am1, am2 = opt_inputs(name, n, zero_block, dtype)
         ref = optimizer_update_8bit_plain(sc, g, p, s1, s2, am1, am2, q1_t, q2_t if s2 is not None else None, True)
         kout = [None if t is None else t.clone() for t in (p, s1, s2, am1, am2)]
         optimizer_update_8bit_(sc, g, *kout, codes2 if s2 is not None else codes1)
         torch.cuda.synchronize()
-        ulp = (kout[0].view(torch.int32).long() - ref[0].view(torch.int32).long()).abs().max().item()
+        assert kout[0].dtype == dtype
+        if dtype == torch.float32:
+            ulp = (kout[0].view(torch.int32).long() - ref[0].view(torch.int32).long()).abs().max().item()
+        else:  # a parameter stored in 16 bits is held bit for bit
+            ulp = int(not torch.equal(kout[0].view(torch.int16), ref[0].view(torch.int16)))
+            assert ulp == 0, f"optimizer {name} step {step} n {n} {dtype}: params differ"
         assert ulp <= 1, f"optimizer {name} step {step} n {n}: params {ulp} ulp apart"
         for k, r, what in zip(kout[1:], ref[1:], ("state1", "state2", "absmax1", "absmax2")):
             assert (k is None) == (r is None) and (k is None or torch.equal(k, r)), f"optimizer {name} {what}"
         assert kout[0][7].item() == p[7].item() and kout[0][600].item() == p[600].item(), "non-finite g moved p"
-        return {"rule": name, "step": step, "n": n, "zero_block": zero_block, "param_ulp": ulp}
+        return {"rule": name, "step": step, "n": n, "zero_block": zero_block, "param_ulp": ulp,
+                "dtype": str(dtype)[6:]}
 
     checks = [opt_check(name, step, 2048 + 100, step == 1) for name in hyper for step in (1, 5)]
     checks += [opt_check(name, 5, 14336 * 64, False) for name in ("adam", "lion")]
+    checks += [opt_check(name, step, 2048 + 100, step == 1, dt) for name in hyper for step in (1, 5)
+               for dt in (torch.bfloat16, torch.float16)]
+    checks += [opt_check("adam", 5, 14336 * 64, False, torch.bfloat16)]
 
-    def opt_time(n):
+    def opt_time(n, dtype=torch.float32):
         """Kernel 14 (adamw, step 5) on an n-element leaf, its plain
         version, and torch.optim.AdamW(fused=True) on f32 states of the same
         size, a different function (no PyTorch call keeps 8-bit states)."""
         sc = UpdateScalars.make("adam", beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=1e-2, step=5, lr=1e-3)
-        g, p, s1, s2, am1, am2 = opt_inputs("adam", n)
+        g, p, s1, s2, am1, am2 = opt_inputs("adam", n, dtype=dtype)
         ms = cuda_time(lambda: optimizer_update_8bit_(sc, g, p, s1, s2, am1, am2, codes2), flush_l2=True)["median"]
         pms = cuda_time(lambda: optimizer_update_8bit_plain(sc, g, p, s1, s2, am1, am2, q1_t, q2_t, True),
                         n=3, warmup=1)["median"]
@@ -687,16 +822,17 @@ def main() -> int:
         fused.step()
         fms = cuda_time(fused.step, flush_l2=True)["median"]
         # g read, p read and written, two uint8 states and two absmax read and written
-        nbytes = n * 12 + 2 * (2 * n + 8 * -(-n // 256))
+        nbytes = n * 3 * p.element_size() + 2 * (2 * n + 8 * -(-n // 256))
         return {"n": n, "ms": ms, "plain_ms": pms, "adamw_fused_f32_ms": fms, "bytes": nbytes,
-                "bound_ms": bound_ms(nbytes, 25 * n, PEAK_F32_FLOPS)[0]}
+                "bound_ms": bound_ms(nbytes, 25 * n, PEAK_F32_FLOPS)[0], "dtype": str(dtype)[6:]}
 
     lora_leaf = opt_time(14336 * 64)  # the gate adapter's b [14336, 64]
     big_leaf = opt_time(64 << 20)
+    lora_leaf_bf16 = opt_time(14336 * 64, torch.bfloat16)
     torch.cuda.empty_cache()
     entry("optimizer_update_8bit", lora_leaf["ms"], lora_leaf["plain_ms"], None, lora_leaf["bytes"],
           25 * lora_leaf["n"], PEAK_F32_FLOPS, 0.0, shape=[14336, 64], rule="adamw, step 5", cases=checks,
-          leaf_64M=big_leaf, adamw_fused_f32_ms=lora_leaf["adamw_fused_f32_ms"],
+          leaf_64M=big_leaf, bf16_params=lora_leaf_bf16, adamw_fused_f32_ms=lora_leaf["adamw_fused_f32_ms"],
           note="library_ms is null: no PyTorch call keeps 8-bit states; adamw_fused_f32_ms is "
                "torch.optim.AdamW(fused=True) on f32 states of the same size, a different function")
 
@@ -770,6 +906,10 @@ def main() -> int:
         "int8": cuda_time(lambda: flash_attention_cached(q1, k8, v8, lens, T=1, k_scale=ks8, v_scale=vs8),
                           flush_l2=True)["median"],
         "bf16": cuda_time(lambda: flash_attention_cached(q1, kc, vc, lens, T=1), flush_l2=True)["median"],
+        "int8_device": cuda_time(lambda: flash_attention_cached(q1, k8, v8, lens, T=1, k_scale=ks8, v_scale=vs8),
+                                 flush_l2=True, hold=True)["median"],
+        "bf16_device": cuda_time(lambda: flash_attention_cached(q1, kc, vc, lens, T=1), flush_l2=True,
+                                 hold=True)["median"],
     }
     pre8 = {
         "ms": cuda_time(lambda: flash_attention_cached(q_pre, k8, v8, pre_len, T=128, k_scale=ks8, v_scale=vs8),
@@ -777,6 +917,8 @@ def main() -> int:
         "plain_ms": cuda_time(lambda: flash_attention_cached_plain(q_pre, k8, v8, pre_len, 128, None, torch.bfloat16,
                                                                    ks8, vs8), n=5)["median"],
         "library_ms": cuda_time(lambda: sdpa(q_pre, kd, vd, masks["prefill T 128"]), flush_l2=True)["median"],
+        "device_ms": cuda_time(lambda: flash_attention_cached(q_pre, k8, v8, pre_len, T=128, k_scale=ks8,
+                                                              v_scale=vs8), flush_l2=True, hold=True)["median"],
         "bytes": att_bytes(q_pre, live_pre, 1, True), "ops": 4 * hd * Gq * 128 * live_pre * KVH,
     }
     pre8["bound_ms"], pre8["bound_by"] = bound_ms(pre8["bytes"], pre8["ops"], PEAK_BF16_FLOPS)
@@ -788,6 +930,8 @@ def main() -> int:
           att_bytes(q1, live_dec, 1, True), dec_ops, PEAK_BF16_FLOPS, err8,
           decode={"B": B, "KVH": KVH, "G": Gq, "S": S, "T": 1, "lengths": lens.tolist()},
           prefill_chunk={"T": 128, "length": 255, **pre8}, bf16_same_lengths_ms=k4["bf16"],
+          device_ms=k4["int8_device"], bf16_same_lengths_device_ms=k4["bf16_device"],
+          library_device_ms=cuda_time(lambda: sdpa(q1, kd, vd, masks["decode"]), flush_l2=True, hold=True)["median"],
           note="library_ms: SDPA on the int8 cache dequantized to bf16, a different function (twice the KV "
                "bytes); bf16_same_lengths_ms: kernel 4 on the bf16 cache at the same lengths, same run")
 
@@ -819,6 +963,9 @@ def main() -> int:
                 out = flash_attention_paged(q, pk, pv, tables, lengths, T=T, k_scale=pks, v_scale=pvs, window=win)
                 ref = flash_attention_paged_plain(q, pk, pv, tables, lengths, T, win, torch.bfloat16, pks, pvs)
                 err16 = max(err16, close(out, ref, f"{name} BS {BS} {what}"))
+                again = flash_attention_paged(q, pk, pv, tables, lengths, T=T, k_scale=pks, v_scale=pvs, window=win)
+                assert torch.equal(out.view(torch.int16), again.view(torch.int16)), \
+                    f"{name} BS {BS} {what}: differs from run to run"
                 dense = flash_attention_cached(q, dk, dv, lengths, T=T, k_scale=dks, v_scale=dvs, window=win)
                 assert torch.equal(out.view(torch.int16), dense.view(torch.int16)), \
                     f"{name} BS {BS} {what}: differs from kernel 4 on the same data"
@@ -828,6 +975,8 @@ def main() -> int:
                                                                  v_scale=pvs), flush_l2=True)["median"],
                    "plain_ms": cuda_time(lambda: flash_attention_paged_plain(q1, pk, pv, tables, lens, 1, None,
                                                                              torch.bfloat16, pks, pvs), n=5)["median"],
+                   "device_ms": cuda_time(lambda: flash_attention_paged(q1, pk, pv, tables, lens, T=1, k_scale=pks,
+                                                                        v_scale=pvs), flush_l2=True, hold=True)["median"],
                    "bytes": att_bytes(q1, live_dec, 1 if int8 else 2, int8, entries)}
             row["bound_ms"] = bound_ms(row["bytes"], dec_ops, PEAK_BF16_FLOPS)[0]
             per_bs.append(row)
@@ -839,9 +988,48 @@ def main() -> int:
               head["bytes"], dec_ops, PEAK_BF16_FLOPS, err16, block_size=128, per_block_size=per_bs,
               decode={"B": B, "KVH": KVH, "G": Gq, "S": S, "T": 1, "lengths": lens.tolist()},
               kernel4_same_data_ms=k4["int8" if int8 else "bf16"], equals_kernel4_bitwise=True,
+              kernel4_same_data_device_ms=k4["int8_device" if int8 else "bf16_device"],
               checked=[c[0] for c in cases_k],
               note=("library_ms null: no PyTorch call reads an int8 paged pool" if int8 else
                     "library_ms: SDPA on the contiguous bf16 cache the pool was scattered from (gather excluded)"))
+
+    # kernels 4 and 16 at head_dim 64 and 256, bf16 and int8: each case
+    # against the plain version and twice bit for bit, then kernel 16 at
+    # every block size against kernel 4's bits on the same data
+    hd_checks = []
+    for hd_x in (64, 256):
+        kx, vx = (torch.randn(B, KVH, S, hd_x, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        (k8x, ks8x), (v8x, vs8x) = L._quantize_kv(kx), L._quantize_kv(vx)
+        q1x = torch.randn(B, KVH, Gq, hd_x, generator=gen, device=dev).to(torch.bfloat16)
+        q_prex = torch.randn(B, KVH, Gq * 128, hd_x, generator=gen, device=dev).to(torch.bfloat16)
+        cases_x = [("decode", 1, q1x, lens, None), ("window 200", 1, q1x, lens, 200),
+                   ("prefill T 128", 128, q_prex, pre_len, None)]
+        for int8 in (False, True):
+            dk, dv, dks, dvs = (k8x, v8x, ks8x, vs8x) if int8 else (kx, vx, None, None)
+            dense, err_x = [], 0.0
+            for what, T, q, lengths, win in cases_x:
+                out = flash_attention_cached(q, dk, dv, lengths, T=T, k_scale=dks, v_scale=dvs, window=win)
+                ref = flash_attention_cached_plain(q, dk, dv, lengths, T, win, torch.bfloat16, dks, dvs)
+                err_x = max(err_x, close(out, ref, f"flash hd {hd_x} int8 {int8} {what}"))
+                again = flash_attention_cached(q, dk, dv, lengths, T=T, k_scale=dks, v_scale=dvs, window=win)
+                assert torch.equal(out.view(torch.int16), again.view(torch.int16)), \
+                    f"flash hd {hd_x} int8 {int8} {what}: differs from run to run"
+                dense.append(out)
+            for BS in (16, 64, 128, 256):
+                tables, pool = scatter(BS)
+                pk, pv = pool(dk), pool(dv)
+                pks, pvs = (pool(dks), pool(dvs)) if int8 else (None, None)
+                for (what, T, q, lengths, win), out in zip(cases_x, dense):
+                    po = flash_attention_paged(q, pk, pv, tables, lengths, T=T, k_scale=pks, v_scale=pvs, window=win)
+                    assert torch.equal(po.view(torch.int16), out.view(torch.int16)), \
+                        f"paged hd {hd_x} int8 {int8} BS {BS} {what}: differs from kernel 4 on the same data"
+                del pk, pv, pks, pvs
+            hd_checks.append({"head_dim": hd_x, "int8": int8, "max_abs_err": err_x, "cases": [c[0] for c in cases_x],
+                              "paged_block_sizes": [16, 64, 128, 256], "paged_equals_dense_bitwise": True,
+                              "run_to_run_bit_identical": True})
+        del kx, vx, k8x, v8x, ks8x, vs8x, q1x, q_prex
+    emit("flash_head_dims", B=B, KVH=KVH, G=Gq, S=S, checks=hd_checks)
+    torch.cuda.empty_cache()
 
     # -- 3l. kernels 9, 10 and 11: the K-adjacent layout (bf16 quant_storage) --
     def kadj(qt):
@@ -978,11 +1166,12 @@ def main() -> int:
     # -- 3m. kernel 15: the fused 8-bit AdEMAMix update ---------------------
     codes_a = StateCodes(q1_map, q2_map)
 
-    def ada_inputs(n, zero_block=False):
+    def ada_inputs(n, zero_block=False, dtype=torch.float32):
         nb = -(-n // 256)
         g = torch.randn(n, generator=gen, device=dev) * 0.01
         g[7], g[min(600, n - 1)] = float("nan"), float("inf")
         p = torch.randn(n, generator=gen, device=dev)
+        g, p = g.to(dtype), p.to(dtype)
         s1 = torch.randint(0, 256, (2, n), generator=gen, device=dev, dtype=torch.uint8)
         am1 = torch.rand(2, nb, generator=gen, device=dev) * 0.01
         s2 = torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8)
@@ -1001,53 +1190,56 @@ def main() -> int:
                                   beta3=beta3_t, alpha=alpha_t)
 
     checks = []
-    for n in (2048 + 100, 4096 + 3, 14336 * 64):
-        for step in (1, 5):
-            for wd, scheduled in ((0.0, False), (1e-2, True)):
-                sc = ada_scalars(step, wd, scheduled)
-                g, p, s1, s2, am1, am2 = ada_inputs(n, zero_block=step == 1)
-                ref = optimizer_update_8bit_plain(sc, g, p, s1, s2, am1, am2, q1_t, q2_t, True)
-                kout = [t.clone() for t in (p, s1, s2, am1, am2)]
-                optimizer_update_8bit_(sc, g, *kout, codes_a)
-                torch.cuda.synchronize()
-                for k, r, what in zip(kout, ref, ("param", "state1", "state2", "absmax1", "absmax2")):
-                    assert torch.equal(k.reshape(r.shape).view(torch.uint8), r.view(torch.uint8)), \
-                        f"ademamix n {n} step {step} wd {wd}: {what} differs"
-                assert kout[0][7].item() == p[7].item() and (kout[1][:, 7] == 127).all(), "non-finite g"
-                checks.append({"n": n, "step": step, "weight_decay": wd, "scheduled": scheduled,
-                               "zero_block": step == 1, "bit_identical": True})
+    ada_cases = [(n, step, wd, scheduled, torch.float32) for n in (2048 + 100, 4096 + 3, 14336 * 64)
+                 for step in (1, 5) for wd, scheduled in ((0.0, False), (1e-2, True))]
+    ada_cases += [(n, step, 1e-2, True, dt) for n in (2048 + 100, 4096 + 3) for step in (1, 5)
+                  for dt in (torch.bfloat16, torch.float16)]
+    for n, step, wd, scheduled, dt in ada_cases:
+        sc = ada_scalars(step, wd, scheduled)
+        g, p, s1, s2, am1, am2 = ada_inputs(n, zero_block=step == 1, dtype=dt)
+        ref = optimizer_update_8bit_plain(sc, g, p, s1, s2, am1, am2, q1_t, q2_t, True)
+        kout = [t.clone() for t in (p, s1, s2, am1, am2)]
+        optimizer_update_8bit_(sc, g, *kout, codes_a)
+        torch.cuda.synchronize()
+        for k, r, what in zip(kout, ref, ("param", "state1", "state2", "absmax1", "absmax2")):
+            assert torch.equal(k.reshape(r.shape).view(torch.uint8), r.view(torch.uint8)), \
+                f"ademamix n {n} step {step} wd {wd}: {what} differs"
+        assert kout[0][7].item() == p[7].item() and (kout[1][:, 7] == 127).all(), "non-finite g"
+        checks.append({"n": n, "step": step, "weight_decay": wd, "scheduled": scheduled,
+                       "zero_block": step == 1, "dtype": str(dt)[6:], "bit_identical": True})
 
-    def ada_time(n):
+    def ada_time(n, dtype=torch.float32):
         """Kernel 15 (step 5, scheduled, decay) on an n-element leaf and its plain version."""
         sc = ada_scalars(5, 1e-2, True)
-        g, p, s1, s2, am1, am2 = ada_inputs(n)
+        g, p, s1, s2, am1, am2 = ada_inputs(n, dtype=dtype)
         ms = cuda_time(lambda: optimizer_update_8bit_(sc, g, p, s1, s2, am1, am2, codes_a), flush_l2=True)["median"]
         pms = cuda_time(lambda: optimizer_update_8bit_plain(sc, g, p, s1, s2, am1, am2, q1_t, q2_t, True),
                         n=3, warmup=1)["median"]
         # g read, p read and written, three uint8 states and three absmax read and written
-        nbytes = n * 12 + 3 * (2 * n + 8 * -(-n // 256))
+        nbytes = n * 3 * p.element_size() + 3 * (2 * n + 8 * -(-n // 256))
         return {"n": n, "ms": ms, "plain_ms": pms, "bytes": nbytes,
-                "bound_ms": bound_ms(nbytes, 40 * n, PEAK_F32_FLOPS)[0]}
+                "bound_ms": bound_ms(nbytes, 40 * n, PEAK_F32_FLOPS)[0], "dtype": str(dtype)[6:]}
 
     lora_leaf = ada_time(14336 * 64)
     big_leaf = ada_time(64 << 20)
+    lora_leaf_bf16 = ada_time(14336 * 64, torch.bfloat16)
     torch.cuda.empty_cache()
     entry("optimizer_update_8bit_ademamix", lora_leaf["ms"], lora_leaf["plain_ms"], None, lora_leaf["bytes"],
           40 * lora_leaf["n"], PEAK_F32_FLOPS, 0.0, shape=[14336, 64], rule="ademamix, step 5, scheduled, decay",
-          cases=checks, leaf_64M=big_leaf,
+          cases=checks, leaf_64M=big_leaf, bf16_params=lora_leaf_bf16,
           note="library_ms is null: no PyTorch call computes AdEMAMix; bit-identical in every case checked")
 
     # a CUDA input the kernels cannot take raises; it never reaches a plain version
     z = torch.zeros(1, dtype=torch.int32, device=dev)
     b64, am64 = torch.zeros(64, dtype=torch.uint8, device=dev), torch.ones(2, device=dev)  # a [2, 64] payload, bs 64
-    q64 = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16, device=dev)
+    q96 = torch.zeros(1, 1, 1, 96, dtype=torch.bfloat16, device=dev)
     s1 = torch.ones(1, 1, 1, device=dev)
     bad = {
-        "cached hd 64": lambda: flash_attention_cached(q64, q64, q64, z, T=1),
-        "cached int8 hd 64": lambda: flash_attention_cached(q64, q64.to(torch.int8), q64.to(torch.int8), z, T=1,
+        "cached hd 96": lambda: flash_attention_cached(q96, q96, q96, z, T=1),
+        "cached int8 hd 96": lambda: flash_attention_cached(q96, q96.to(torch.int8), q96.to(torch.int8), z, T=1,
                                                             k_scale=s1, v_scale=s1),
-        "paged hd 64": lambda: flash_attention_paged(q64, q64.expand(2, 1, 16, 64).contiguous(),
-                                                     q64.expand(2, 1, 16, 64).contiguous(), z[None], z),
+        "paged hd 96": lambda: flash_attention_paged(q96, q96.expand(2, 1, 16, 96).contiguous(),
+                                                     q96.expand(2, 1, 16, 96).contiguous(), z[None], z),
         "paged BS 4": lambda: flash_attention_paged(q1[:1, :1], kc[:2, :1, :4].contiguous(),
                                                     vc[:2, :1, :4].contiguous(), z[None], z),
         "k9 misaligned A": lambda: gemm_4bit_fused(
@@ -1086,6 +1278,13 @@ def main() -> int:
     steps, prompt, batch, max_len = 32, 128, 8, 1024
     assert batch * prompt >= G.LARGE_M_THRESHOLD > batch, "prefill must take the dequant route, decode the GEMM"
     Lyr = cfg.num_layers
+
+    def combines(rows, GT, S_):
+        """Launches of the split combine that one cached-attention call of
+        ``rows`` slots, ``GT`` folded rows and ``S_`` positions adds."""
+        return int(FC.flash_splits(rows * KVH, GT, S_, sms)[1] > 1)
+
+    serve_combines = Lyr * (steps * combines(batch, Gq, max_len) + combines(batch, Gq * prompt, max_len))
     ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1170,6 +1369,7 @@ def main() -> int:
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
         events = device_events(prof)
         dev_us = sum(self_dev_us(e) for e in events)
+        attn_us = sum(self_dev_us(e) for e in events if "flash" in e.key)  # kernels 4 and 16 and their combine
         top = sorted(((e.key, self_dev_us(e) / 4e3, e.count // 4) for e in events), key=lambda r: -r[1])[:8]
 
         med = statistics.median(step_ms)
@@ -1191,6 +1391,7 @@ def main() -> int:
             launches=counts,
             profiled_decode={"steps": 4, "wall_ms_per_step": prof_wall_ms / 4,
                              "device_ms_per_step": dev_us / 4e3,
+                             "attention_ms_per_step": attn_us / 4e3, "attention_share": attn_us / max(dev_us, 1),
                              "device_busy_share": dev_us / 1e3 / prof_wall_ms,
                              "top_kernels_ms_per_step": top},
             first_tokens=toks[0, :8].tolist(), layout="2d, bf16 quant_storage" if quantize else "paired",
@@ -1208,8 +1409,10 @@ def main() -> int:
         "dequantize_paired_fast": 4 * Lyr,
         "gemm_4bit_paired": 4 * Lyr * steps,
         "flash_attention_cached": Lyr * (steps + 1),
+        "flash_attention_combine": serve_combines,
     }, keep=True)
-    for name in ("quantize_4bit_codes", "gemm_4bit_paired", "dequantize_paired_fast", "flash_attention_cached"):
+    for name in ("quantize_4bit_codes", "gemm_4bit_paired", "dequantize_paired_fast", "flash_attention_cached",
+                 "flash_attention_combine"):
         report[name]["launches"] = counts[name]
 
     # 4b. NF4 with the absmax double-quantized: the _dq kernels, never kernels 2/3
@@ -1219,6 +1422,7 @@ def main() -> int:
         "dequantize_paired_fast_dq": 4 * Lyr,
         "gemm_4bit_paired_dq": 4 * Lyr * steps,
         "flash_attention_cached": Lyr * (steps + 1),
+        "flash_attention_combine": serve_combines,
     }, keep=True)
     for name in ("gemm_4bit_paired_dq", "dequantize_paired_fast_dq", "quantize_blockwise8"):
         report[name]["launches"] = counts[name]
@@ -1350,18 +1554,25 @@ def main() -> int:
             E._prefill_batch = orig
         return results, counts, prefills, (eng._step_count - chunks0) * eng.steps_per_sync, wall
 
-    def engine_expected(layers, prefills, dsteps, kv_dtype, layout):
+    def engine_expected(layers, prefills, dsteps, kv_dtype, layout, max_batch, max_len_):
         """Launches of an engine run: 4 linears a layer per decode step (M =
         max_batch, kernel 2) and per prefill call (kernel 3 from M = 32);
         the cached attention ceil(pad / (GT_MAX / G)) times a layer per
-        prefill; one decode attention a layer per decode step."""
+        prefill; one decode attention a layer per decode step; the split
+        combine after each attention call whose grid is split (a paged
+        engine prefills through a dense cache of the padded length)."""
         sfx = "_int8" if kv_dtype == "int8" else ""
         want = {k: 0 for k in launch_counts()}
         want["gemm_4bit_paired"] = 4 * layers * dsteps
+        tc = GT_MAX // Gq
         for rows, pad in prefills:
             want["dequantize_paired_fast" if rows * pad >= G.LARGE_M_THRESHOLD else "gemm_4bit_paired"] += 4 * layers
-            want["flash_attention_cached" + sfx] += layers * -(-pad // (GT_MAX // Gq))
+            want["flash_attention_cached" + sfx] += layers * -(-pad // tc)
+            for off in range(0, pad, tc):
+                want["flash_attention_combine"] += layers * combines(
+                    rows, Gq * min(tc, pad - off), pad if layout == "paged" else max_len_)
         want[("flash_attention_paged" if layout == "paged" else "flash_attention_cached") + sfx] += layers * dsteps
+        want["flash_attention_combine"] += layers * dsteps * combines(max_batch, Gq, max_len_)
         return want
 
     n_req, new_tok, mb, ml, bs_e, nb_e = 48, 64, 16, 1024, 128, 96
@@ -1391,7 +1602,7 @@ def main() -> int:
     assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
     assert sorted(eng._free_blocks) == list(range(nb_e)) and not eng._slot_blocks and not eng.slots, \
         "every block returns to the free list"
-    want = engine_expected(Lyr, prefills, dsteps, "int8", "paged")
+    want = engine_expected(Lyr, prefills, dsteps, "int8", "paged", mb, ml)
     assert counts == want, f"engine: launch counts {counts} != {want}"
     for name in ("flash_attention_cached_int8", "flash_attention_paged_int8"):
         report[name]["launches"] = counts[name]
@@ -1421,6 +1632,7 @@ def main() -> int:
         eng.step()
     events = device_events(prof)
     chunk_dev = sum(self_dev_us(e) for e in events) / 1e3
+    chunk_attn = sum(self_dev_us(e) for e in events if "flash" in e.key) / 1e3
     top = sorted(((e.key[:100], self_dev_us(e) / 1e3, e.count) for e in events), key=lambda r: -r[1])[:10]
     ttft = [r.ttft_s for r in results]
     emit("engine", config="llama3_8b", layers=Lyr, kv_dtype="int8", kv_layout="paged", kv_block_size=bs_e,
@@ -1434,6 +1646,7 @@ def main() -> int:
          preempt_count=preempts, kv_pool_bytes=pool_bytes,
          dense_bf16_kv_bytes=2 * Lyr * mb * KVH * ml * hd * 2, peak_memory=engine_peak, launches=counts,
          profiled_chunk={"decode_steps": 8, "wall_ms": chunk_wall, "device_ms": chunk_dev,
+                         "attention_ms": chunk_attn, "attention_share": chunk_attn / chunk_dev,
                          "device_busy_share": chunk_dev / chunk_wall, "wall_ms_unprofiled": chunk_wall_plain,
                          "device_busy_share_unprofiled": chunk_dev / chunk_wall_plain, "top_kernels_ms": top},
          note="all 48 requests arrive at once, so TTFT includes the wait for a slot")
@@ -1456,7 +1669,7 @@ def main() -> int:
     assert [len(r.tokens) for r in results_bf] == [new_bf] * (n_bf - 1) + [ml - near], "the tokens up to max_len"
     assert sorted(eng._free_blocks) == list(range(eng.num_kv_blocks)) and not eng._slot_blocks, \
         "every block returns to the free list"
-    want = engine_expected(Lyr, prefills_bf, dsteps_bf, "bf16", "paged")
+    want = engine_expected(Lyr, prefills_bf, dsteps_bf, "bf16", "paged", mb, ml)
     assert counts == want, f"engine bf16: launch counts {counts} != {want}"
     report["flash_attention_paged"]["launches"] = counts["flash_attention_paged"]
     emit("engine_bf16", config="llama3_8b", layers=Lyr, kv_dtype="bf16", kv_layout="paged", kv_block_size=bs_e,
@@ -1478,6 +1691,7 @@ def main() -> int:
         "dequantize_4bit_2d": 4 * Lyr,
         "gemm_4bit_fused": 4 * Lyr * steps,
         "flash_attention_cached": Lyr * (steps + 1),
+        "flash_attention_combine": serve_combines,
     }, keep=True, quantize=quantize_2d)
     report["gemm_4bit_fused"]["launches"] = counts["gemm_4bit_fused"]
     st0 = kq_params["layers"][0]["gate_up"].state
@@ -1716,7 +1930,7 @@ def main() -> int:
                                            kv_layout=layout, kv_block_size=bs5, steps_per_sync=4)
             results, counts, prefills, dsteps, _ = engine_run(
                 eng, lambda e: [e.add_request(p, max_new_tokens=new5) for p in prompts5])
-            want = engine_expected(2, prefills, dsteps, kv_dtype, layout)
+            want = engine_expected(2, prefills, dsteps, kv_dtype, layout, 4, ml5)
             assert counts == want, f"2-layer engine {kv_dtype} {layout}: launch counts {counts} != {want}"
             streams = [r.tokens for r in results]
             assert all(len(st) == new5 for st in streams)
@@ -1773,7 +1987,8 @@ def main() -> int:
     serve_counts = launch_counts()
     want = {k: 0 for k in serve_counts}
     want.update({"dequantize_4bit_2d": 4 * 2, "gemm_4bit_fused": 4 * 2 * steps5d,
-                 "flash_attention_cached": 2 * (steps5d + 1)})
+                 "flash_attention_cached": 2 * (steps5d + 1),
+                 "flash_attention_combine": 2 * (steps5d * combines(B2, Gq, 256) + combines(B2, Gq * T2, 256))})
     assert serve_counts == want, f"5d serve: launch counts {serve_counts} != {want}"
     worst = 0.0
     for step, (g, c) in enumerate(pairs):
@@ -1826,6 +2041,121 @@ def main() -> int:
                 "max_abs_grad_diff": grad_err, "max_abs_adapter_diff": p_err, "states_8bit_equal": n8,
                 "launches": counts})
     del gpu_params, cpu_params, lg, og, lc, lc2, oc
+    torch.cuda.empty_cache()
+
+    # -- 5e. entry points that once raised on the card, against the CPU -----
+    # Linear4bit with f16 and f32 compute_dtype on the paired layout, plain
+    # and double-quantized, at decode M and past LARGE_M_THRESHOLD
+    lin_cases = []
+    N, K = LINEARS["wo"]
+    Wl = torch.randn(N, K, generator=torch.Generator().manual_seed(20)) * K**-0.5
+    for compress in (False, True):
+        for dt in (torch.float16, torch.float32):
+            lin_g = Linear4bit(K, N, bias=False, compute_dtype=dt, device=dev)
+            lin_c = Linear4bit(K, N, bias=False, compute_dtype=dt, device="cpu")
+            lin_g.weight = QuantizedTensor.quantize(Wl.to(dev), blocksize=bs, compress_statistics=compress)
+            lin_c.weight = QuantizedTensor.quantize(Wl, blocksize=bs, compress_statistics=compress)
+            assert lin_g.weight.state.layout == "paired" and lin_g.weight.state.inline_nested == compress
+            sfx = "_dq" if compress else ""
+            for Mx in (8, 64):
+                x = torch.randn(Mx, K, generator=torch.Generator().manual_seed(Mx))
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                y = lin_g(x.to(dev))
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                kern = f"gemm_4bit_paired{sfx}" if Mx < G.LARGE_M_THRESHOLD else f"dequantize_paired_fast{sfx}"
+                assert counts[kern] == 1 and sum(counts.values()) == 1, f"Linear4bit {dt} M {Mx}: {counts}"
+                ref = lin_c(x)
+                rel = ((y.cpu().float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+                assert y.dtype == dt and rel <= (1e-4 if dt == torch.float32 else 1e-2), \
+                    f"Linear4bit {dt} nested {compress} M {Mx}: rel {rel}"
+                lin_cases.append({"compute_dtype": str(dt)[6:], "nested": compress, "M": Mx, "kernel": kern,
+                                  "rel_err_vs_cpu": rel})
+            del lin_g, lin_c
+    # adamw8bit and ademamix8bit over a bf16 parameter: the card's steps give the CPU's bits
+    opt_cases = []
+    for fname, fac, kern in (("adamw8bit", O.adamw8bit, "optimizer_update_8bit"),
+                             ("ademamix8bit", lambda ps, lr: O.ademamix8bit(ps, lr, t_alpha=1000, t_beta3=1000),
+                              "optimizer_update_8bit_ademamix")):
+        p0 = torch.randn(14336, 64, generator=torch.Generator().manual_seed(21)).to(torch.bfloat16)
+        pg, pc = torch.nn.Parameter(p0.to(dev)), torch.nn.Parameter(p0.clone())
+        og, oc = fac([pg], 1e-3), fac([pc], 1e-3)
+        gg = torch.Generator().manual_seed(22)
+        for step in range(3):
+            g = (torch.randn(p0.shape, generator=gg) * 0.01).to(torch.bfloat16)
+            pg.grad, pc.grad = g.to(dev), g.clone()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            og.step()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            assert counts[kern] == 1 and sum(counts.values()) == 1, f"{fname}: {counts}"
+            oc.step()
+            assert pg.dtype == torch.bfloat16 and torch.equal(pg.detach().cpu().view(torch.int16),
+                                                              pc.detach().view(torch.int16)), f"{fname} step {step}"
+            for key, t in og.state[pg].items():
+                if isinstance(t, torch.Tensor):
+                    assert torch.equal(t.cpu(), oc.state[pc][key]), f"{fname} step {step}: {key}"
+        opt_cases.append({"optimizer": fname, "param": "bf16 [14336, 64]", "steps": 3, "bit_identical": True})
+        del pg, pc, og, oc
+    # prefill/decode_step at head_dim 64 (tiny) and 256 (gemma_7b, 2 layers)
+    hd_models = []
+    for cname, cfg_x in (("tiny", L.LlamaConfig.tiny()), ("gemma_7b", L.LlamaConfig.gemma_7b(num_layers=2))):
+        cpu_f = L.init_params(cfg_x, torch.Generator().manual_seed(23), device="cpu")
+        gq_params = L.quantize_params_4bit(to_dev(cpu_f), fuse=True)
+        cq_params = L.quantize_params_4bit(cpu_f, fuse=True)
+        del cpu_f
+        Bx, Tx, stx = 2, 16, 2
+        idsx = torch.randint(0, cfg_x.vocab_size, (Bx, Tx), generator=torch.Generator().manual_seed(24))
+        gcache = L.init_kv_cache(cfg_x, Bx, 64, device=dev)
+        ccache = L.init_kv_cache(cfg_x, Bx, 64, device="cpu")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        glog, gcache = L.prefill(gq_params, idsx.to(dev), cfg_x, gcache)
+        gl = [glog[:, -1].float().cpu()]
+        toks = [glog[:, -1].argmax(-1)]
+        for s_ in range(stx):
+            glog, gcache = L.decode_step(gq_params, toks[-1], cfg_x, gcache, Tx + s_)
+            gl.append(glog.float().cpu())
+            toks.append(glog.argmax(-1))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        nl = cfg_x.num_layers
+        assert counts["flash_attention_cached"] == nl * (stx + 1), f"{cname}: {counts}"
+        clog, ccache = L.prefill(cq_params, idsx, cfg_x, ccache)
+        cl = [clog[:, -1].float()]
+        for s_ in range(stx):  # teacher-forced with the card's tokens
+            clog, ccache = L.decode_step(cq_params, toks[s_].cpu(), cfg_x, ccache, Tx + s_)
+            cl.append(clog.float())
+        worst = 0.0
+        for step, (g_, c_) in enumerate(zip(gl, cl)):
+            assert torch.isfinite(g_).all() and torch.allclose(g_, c_, atol=0.1, rtol=0.05), f"{cname} step {step}"
+            worst = max(worst, (g_ - c_).abs().max().item())
+            top5 = c_.topk(5, dim=-1).indices
+            assert (top5 == g_.argmax(-1, keepdim=True)).any(-1).all(), f"{cname}: greedy token outside top-5"
+        hd_models.append({"config": cname, "head_dim": cfg_x.head_dim, "layers": nl, "hidden": cfg_x.hidden_size,
+                          "batch": Bx, "prompt": Tx, "steps": stx, "max_abs_logit_diff": worst, "launches": counts})
+        del gq_params, cq_params, gcache, ccache
+        torch.cuda.empty_cache()
+    # quantize_4bit(generator=): kernel 1's stochastic mode, within one rank of round-to-nearest
+    Wq = torch.randn(4096, 4096, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    pk, sk = F4.quantize_4bit(Wq, blocksize=bs, generator=torch.Generator(device=dev).manual_seed(25))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["quantize_4bit_codes"] == 1 and sum(counts.values()) == 1, f"quantize_4bit(generator=): {counts}"
+    pn, sn = F4.quantize_4bit(Wq, blocksize=bs)
+    assert torch.equal(sk.absmax, sn.absmax)
+    rank_of = torch.argsort(torch.argsort(torch.from_numpy(get_4bit_code("nf4", bs)), stable=True),
+                            stable=True).to(dev)
+    ranks = [rank_of[F4.unpack_4bit(t).long()] for t in (pk, pn)]
+    moved = (ranks[0] != ranks[1]).float().mean().item()
+    assert (ranks[0] - ranks[1]).abs().max().item() <= 1 and 0.1 < moved < 0.4, f"stochastic: moved {moved}"
+    emit("repaired_entry_points", linear4bit=lin_cases, optimizers=opt_cases, head_dim_models=hd_models,
+         quantize_4bit_generator={"shape": [4096, 4096], "moved_share": moved, "max_rank_step": 1})
+    del Wq, pk, pn
     torch.cuda.empty_cache()
 
     # -- 6. kernels line and result ---------------------------------------
