@@ -66,10 +66,10 @@ LARGE_M_THRESHOLD = 32
 # phase 3j sweep of both routes on gate_up^T and down^T (NVIDIA H100 80GB
 # HBM3, 700 W; PERF.md): the kernel wins on gate_up^T up to M = 16 and loses
 # from M = 32 on; on down^T it wins at M = 8 and ties at 16.  Kernel 11 on
-# the K-adjacent layout (phase 3l) wins on gate_up^T up to M = 16 (0.276
-# against 0.329 ms), loses on down^T at 16 (0.274 against 0.188) and on
-# both at 32: the larger weight's crossover is the paired one, so both
-# layouts share the constant.
+# the K-adjacent layout (phase 3l), on the tensor cores, wins on both up to
+# M = 64 at least (gate_up^T 0.148 against 0.313 ms, down^T 0.076 against
+# 0.165 at M = 64), so its own crossover lies higher; the layouts share the
+# constant until the paired kernels 7 and 8 get the same design.
 BACKWARD_LARGE_M_THRESHOLD = 32
 
 

@@ -21,8 +21,11 @@ The kernels, all in ``csrc/gemm4bit.cu``:
 * :func:`gemm_4bit_nt_fused` replaces ``gemm_4bit_nt_fused``
   (``_gemm4bit_nt_kernel``): the 4-bit matmul backward ``grad_A[M, K] =
   g[M, N] @ dequant(B)[N, K]``, the weight rounded to g's type, sums in f32.
-  N is split across blocks into f32 partials that a second pass adds in a
-  fixed order.
+  Bound by bytes at M <= 32.  bf16 and f16 g run on the tensor cores
+  (``mma.sync``), each payload byte read and decoded once per 32 rows of g;
+  f32 g keeps exact f32 products on the CUDA cores.  N is split into at
+  most 8 splits (:func:`nt_plan`) whose f32 partials a second pass adds in
+  split order.
 
 The GEMMs take every shape whose K holds whole quantization blocks (so K is
 even), with any N and M: the JAX package's tile predicates exist for the
@@ -46,6 +49,7 @@ __all__ = [
     "dequantize_4bit_2d_plain",
     "gemm_4bit_nt_fused",
     "gemm_4bit_nt_fused_plain",
+    "nt_plan",
 ]
 
 def gemm_2d_supported(N: int, K: int, blocksize: int) -> bool:
@@ -177,17 +181,42 @@ def dequantize_4bit_2d(B: torch.Tensor, absmax: torch.Tensor, code, blocksize: i
     return W
 
 
-# the backward kernel's tiles (csrc/gemm4bit.cu): 2048 columns of K and 8 rows
-# of g per block; each split of N keeps at least 64 rows
+# the f32 backward kernel's tiles (csrc/gemm4bit.cu): 2048 columns of K and 8
+# rows of g per block; each split of N keeps at least 64 rows
 _NT_KT, _NT_MT, _NT_MIN_ROWS = 2048, 8, 64
+# the tensor-core backward kernel's tiles (bf16 and f16 g): 128 columns of K
+# and 32 rows of g per block; splits of N in multiples of 64 rows, at most 8
+_TC_TK, _TC_MT, _TC_ROWS, _TC_MAX_SPLITS = 128, 32, 64, 8
 
 
 def _nt_splits(M: int, N: int, K: int, sms: int):
-    """Rows of N per split and the number of splits: about two blocks per
-    SM, each split at least ``_NT_MIN_ROWS`` rows."""
+    """The f32 kernel's rows of N per split and number of splits: about two
+    blocks per SM, each split at least ``_NT_MIN_ROWS`` rows."""
     tiles = -(-K // _NT_KT) * -(-M // _NT_MT)
     splits = max(1, min(-(-2 * sms // tiles), N // _NT_MIN_ROWS))
     rows = -(-N // splits)
+    return rows, -(-N // rows)
+
+
+def nt_plan(M: int, N: int, K: int, sms: int):
+    """The tensor-core kernel's rows of N per split (a multiple of 64, so
+    each split's g starts 16-byte aligned) and number of splits S <= 8.  Among the S whose grid of ``tiles * S`` blocks
+    stays within two waves of ``sms`` SMs, the one that fills the largest
+    share of its waves, the fewest splits among equals (fewer f32 partials);
+    a grid of one wave or more without splitting keeps S = 1.  A pure
+    function of the shapes and the SM count, so a call's bits do not depend
+    on the run."""
+    tiles = -(-K // _TC_TK) * -(-M // _TC_MT)
+    best, best_slots = 1, None
+    for s in range(1, min(_TC_MAX_SPLITS, -(-N // _TC_ROWS)) + 1):
+        if s > 1 and tiles * s > 2 * sms:
+            break
+        slots = sms * -(-tiles * s // sms)  # SM slots of the waves this grid takes
+        # tiles*s / slots beats tiles*best / best_slots, compared exactly
+        if best_slots is None or s * best_slots > best * slots:
+            best, best_slots = s, slots
+    per_split = -(-N // best)
+    rows = -(-per_split // _TC_ROWS) * _TC_ROWS
     return rows, -(-N // rows)
 
 
@@ -214,11 +243,13 @@ def gemm_4bit_nt_fused(G: torch.Tensor, B: torch.Tensor, absmax: torch.Tensor, c
     out = torch.empty(*lead, K, dtype=out_dtype, device=G.device)
     if M == 0:
         return out
-    rows, splits = _nt_splits(M, N, K, _sm_count(G.device.index or 0))
-    part = torch.empty(splits * M * K, dtype=torch.float32, device=G.device)
+    plan = _nt_splits if G.dtype == torch.float32 else nt_plan
+    rows, splits = plan(M, N, K, _sm_count(G.device.index or 0))
+    # f32 partials only where there is more than one split
+    part = torch.empty(splits * M * K, dtype=torch.float32, device=G.device).data_ptr() if splits > 1 else None
     err = _lib.lib().bnb_gemm_4bit_nt_fused(
-        G.data_ptr(), B.data_ptr(), absmax.data_ptr(), part.data_ptr(), out.data_ptr(), M, N, K, blocksize,
-        rows, splits, _lib.host_f32(code_t), _KIND[G.dtype], _lib.stream(G),
+        G.data_ptr(), B.data_ptr(), absmax.data_ptr(), part, out.data_ptr(), M, N, K, blocksize, rows, splits,
+        _lib.host_f32(code_t), _KIND[G.dtype], _lib.stream(G),
     )
     _lib.check(err, "gemm_4bit_nt_fused")
     _lib.LAUNCHES["gemm_4bit_nt_fused"] += 1

@@ -18,7 +18,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    mode and kernel 16 (paged, bf16 and int8) at block sizes 16-256, each
    paged result against kernel 4 on the same data (3k); kernels 9, 10 and 11
    on the K-adjacent layout of bf16 ``quant_storage`` and the sweep of their
-   routes (3l); kernel 15, the 8-bit AdEMAMix update (3m).  Kernel 1's
+   routes (3l; kernel 11 also timed with the host held out, at M 1-33 and
+   with f16 g, each call against a second run bit for bit, and its split
+   plan printed); kernel 15, the 8-bit AdEMAMix update (3m).  Kernel 1's
    stochastic mode against its plain version on the same uniforms (3a);
    kernels 2, 3, 5 and 6 on f16 and f32 activations and kernels 7 and 8 on
    f16 g (3e); kernels 14 and 15 on bf16 and f16 parameters (3i, 3m);
@@ -181,6 +183,7 @@ def main() -> int:
     from bitsandbytes_tpu_torch.serving import engine as E
     from bitsandbytes_tpu_torch import optim as O
     from bitsandbytes_tpu_torch.ops.gemm4bit_paired import (
+        _sm_count,
         _units,
         _code_tuple,
         dequantize_paired_fast,
@@ -209,6 +212,7 @@ def main() -> int:
         gemm_4bit_fused_plain,
         gemm_4bit_nt_fused,
         gemm_4bit_nt_fused_plain,
+        nt_plan,
     )
     from bitsandbytes_tpu_torch.ops.quant4bit import quantize_4bit_codes, quantize_4bit_codes_plain
     from bitsandbytes_tpu_torch.utils.benchmark import bandwidth_canary, cuda_time
@@ -1042,7 +1046,9 @@ def main() -> int:
     cases, k9_err, k11_err = [], 0.0, 0.0
     for Mx, N, K, gbs in ((1, 3, 32, 32), (3, 37, 96, 32), (7, 129, 4160, 64), (13, 255, 2176, 128),
                           (31, 513, 4096, 256), (5, 64, 8192, 4096), (2, 77, 14336, 512), (9, 31, 2048, 1024),
-                          (4, 17, 4096, 2048), (16, 4096, 14336, 64)):
+                          (4, 17, 4096, 2048), (16, 4096, 14336, 64),
+                          # kernel 11: a zero-padded second m16 tile (31), the grid over M tiles (33)
+                          (31, 640, 2048, 64), (33, 640, 2048, 64), (33, 37, 96, 32)):
         for compress in (False, True):
             qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev), blocksize=gbs,
                                           compress_statistics=compress, quant_storage=torch.bfloat16)
@@ -1084,8 +1090,11 @@ def main() -> int:
 
     def kadj_layer(M, backward):
         """Kernel 9 (or 11, transposed) on one layer's four linears, the
-        nested absmax decoded before each call as the path does (timed apart)."""
-        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "decode": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
+        nested absmax decoded before each call as the path does (timed apart).
+        Kernel 11 is also timed with the host held out of the window, as the
+        matmul beside it, and shows its split plan and a second call's bits."""
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "decode": 0.0, "bytes": 0, "ops": 0, "err": 0.0,
+               "device": 0.0, "lib_device": 0.0}
         per_shape = []
         for name, (N, K) in LINEARS.items():
             qt = kq[name]
@@ -1114,6 +1123,15 @@ def main() -> int:
             per_shape.append({"linear": name + ("^T" if backward else ""), "N": N, "K": K, "M": M, "ms": ms,
                               "plain_ms": pms, "library_ms": lms, "nested_decode_ms": dms, "bytes": nbytes,
                               "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0], "rel_err": rel})
+            if backward:
+                assert torch.equal(run(), out), f"k11 {name}: a second call differs"
+                rows, splits = nt_plan(M, N, K, sms)
+                dev_ms = cuda_time(run, flush_l2=True, hold=True)["median"]
+                lib_dev = cuda_time(lib, flush_l2=True, hold=True)["median"]
+                per_shape[-1].update(device_ms=dev_ms, library_device_ms=lib_dev, splits=splits,
+                                     rows_per_split=rows)
+                tot["device"] += dev_ms
+                tot["lib_device"] += lib_dev
             for key, v in (("ms", ms), ("plain", pms), ("lib", lms), ("decode", dms), ("bytes", nbytes),
                            ("ops", 2 * M * N * K)):
                 tot[key] += v
@@ -1121,14 +1139,42 @@ def main() -> int:
             del Wb, out, ref
         return tot, per_shape
 
+    def k11_rows():
+        """Kernel 11 on the four linears transposed at other M and with f16 g:
+        two calls bit-identical, within nt_tol of the plain version, device
+        time (host held out) summed over the layer."""
+        sums = {}
+        for name, (N, K) in LINEARS.items():
+            Bq, am = kadj(kq[name])
+            for Mx, dt in ((1, torch.bfloat16), (8, torch.bfloat16), (16, torch.float16), (31, torch.bfloat16),
+                           (33, torch.bfloat16)):
+                Gx = torch.randn(Mx, N, generator=gen, device=dev).to(dt)
+                run = lambda: gemm_4bit_nt_fused(Gx, Bq, am, code, bs, (N, K))  # noqa: E731
+                o1 = run()
+                assert torch.equal(o1, run()), f"k11 {name} M{Mx}: a second call differs"
+                rel = rel_err(o1, gemm_4bit_nt_fused_plain(Gx, Bq, am, code_t, bs, K))
+                assert rel <= nt_tol(dt), f"k11 {name} M{Mx} {dt}: rel {rel}"
+                key = f"M{Mx}_{str(dt)[6:]}"
+                sums[key] = sums.get(key, 0.0) + cuda_time(run, flush_l2=True, hold=True)["median"]
+        return sums
+
+    sms = _sm_count(0)
     for name, M, backward in (("gemm_4bit_fused", 8, False), ("gemm_4bit_nt_fused", 16, True)):
         tot, per_shape = kadj_layer(M, backward)
+        extra = {}
+        if backward:
+            extra = {"device_ms": tot["device"], "library_device_ms": tot["lib_device"],
+                     "splits": {p["linear"]: p["splits"] for p in per_shape}, "layer_device_ms_by_M": k11_rows()}
+            emit("k11_splits", sms=sms, plan={p["linear"]: [p["rows_per_split"], p["splits"]] for p in per_shape})
         entry(name, tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"], PEAK_BF16_FLOPS, tot["err"],
-              per_shape=per_shape, nested_decode_ms=tot["decode"],
+              per_shape=per_shape, nested_decode_ms=tot["decode"], **extra,
               note=f"sum over one layer's 4 linears{' transposed' if backward else ''} at M={M}, bf16 "
                    f"{'g' if backward else 'A'}, bf16 quant_storage, the nested absmax decoded to f32 beforehand "
                    "(nested_decode_ms: that decode, the path's per-call cost, timed apart); library: torch.matmul "
-                   "on the dequantized bf16 weight")
+                   "on the dequantized bf16 weight"
+                   + ("; device_ms, library_device_ms: the same two with the host held out of the window "
+                      "(hold=True); layer_device_ms_by_M: kernel 11's device ms over the layer at other M and "
+                      "with f16 g" if backward else ""))
 
     N, K = LINEARS["gate_up"]
     Bq, am = kadj(kq["gate_up"])
