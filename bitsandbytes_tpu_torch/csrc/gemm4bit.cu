@@ -52,7 +52,7 @@
 // card's copy rate, and the decode (two codebook loads a payload byte) is not
 // fully hidden behind them (PERF.md).
 // The grid is ceil(K/128) column tiles x S splits of N x ceil(M/32), S <= 8
-// chosen by the wrapper to fill whole waves of SMs (ops/gemm4bit.nt_plan);
+// chosen by the wrapper to fill whole waves of SMs (ops/gemm4bit_paired.nt_plan);
 // with S > 1 each split writes f32 partials and a second pass adds them in
 // split order, so a call gives the same bits every run.  f32 g has no exact
 // tensor-core product (TF32 would break its contract), so it keeps the

@@ -45,23 +45,41 @@
 // whose blocks cross a 256-boundary (KB = 224 for Llama's down) needs no
 // precomputed planes; the TPU kernel builds those because it cannot gather.
 //
-// gemm_4bit_paired_nt_kernel replaces gemm_4bit_paired_nt (_paired_nt_kernel)
-// and, with the nested scales, gemm_4bit_paired_nt_dq (_paired_nt_kernel_dq):
-// the 4-bit matmul backward
+// Kernels 7 and 8 replace gemm_4bit_paired_nt (_paired_nt_kernel) and, with
+// the nested scales, gemm_4bit_paired_nt_dq (_paired_nt_kernel_dq): the
+// 4-bit matmul backward
 //   grad_A[M, K] = g[M, N] @ dequant(P)[N, K]
 // with the TPU kernel's numerics (_nt_accum): for each K quantization block,
 // g[m, n] (bf16, f16 or f32) times that block's scale of row n, rounded to
 // bf16 unless g is f32, times the bf16-rounded unit code, summed over N in
-// f32, the result cast to g's type.  Bound on the H100 at small M: bytes (the payload, N*K/2
-// B, and its scales).  The sum runs over N while the output has only K
-// columns (4096 for gate_up), so tiling K alone would leave most SMs idle:
-// the grid splits N as well, each block writes its f32 partial sums, and a
-// second pass adds the partials in split order (the same bits every run,
-// where f32 atomics would not be).  Within a block each warp owns 256
-// columns, 8 a lane (8-byte payload loads, coalesced along K), and walks
-// the block's rows two at a time (one payload byte holds both); g's rows
-// are staged in shared memory 1024 columns at a time and read as
-// broadcasts.  Each block takes 8 rows of g; larger M is a grid dimension.
+// f32, the result cast to g's type.  Bound on the H100 at M <= 32: bytes (the
+// payload N*K/2, its scales, g and the result; the products, 2*M*N*K, are far
+// under the tensor cores' rate).  The TPU kernel runs its products on the
+// MXU; here, for bf16 and f16 g, gemm_4bit_paired_nt_tc_kernel runs them as
+// mma.sync.m16n8k16 (bf16 in, f32 accumulators), with the scale folded into
+// the A operand exactly as _nt_accum folds it (A = bf16(g * scale), B = the
+// unit codes, which are exact in bf16).  So one payload byte, two rows of one
+// column, is one B register: a 256-entry shared-memory table, one copy per
+// lane, turns it into the register with one conflict-free load.  A block owns 128 output
+// columns and every row of g up to 32, so each payload byte is read and
+// decoded once per call up to M 32, once per 32 rows above.  A four-stage
+// cp.async ring keeps 128 rows of N a stage in flight (each row pair's 128
+// contiguous payload bytes, its scales chunk-major, g's 128 columns); a
+// nested state's u8 codes and second-level scales are staged as well and
+// decoded in place before the stage's barrier.  The grid is ceil(K/128)
+// column tiles x S splits of N x ceil(M/32), S <= 8 chosen by the wrapper to
+// fill whole waves of SMs (ops/gemm4bit_paired.nt_plan); with S > 1 each
+// split writes f32 partials and nt_reduce_kernel adds them in split order,
+// so a call gives the same bits every run.  What still holds it back is in
+// PERF.md: the payload stream, as for kernel 11 in gemm4bit.cu, whose tile
+// body this kernel follows.
+// f32 g has no exact tensor-core product (TF32 would break its contract), so
+// it keeps the CUDA-core body gemm_4bit_paired_nt_kernel, as does a
+// blocksize that is not a multiple of 32: each warp owns 256 columns, 8 a
+// lane (8-byte payload loads), walks the block's rows two at a time with g
+// staged in shared memory 1024 columns at a time, 8 rows of g a block; the
+// grid splits N (ops/gemm4bit_paired._nt_splits) into f32 partials added in
+// split order by the same second pass.
 #include "common.cuh"
 
 constexpr int kMaxSegments = 40;
@@ -94,6 +112,10 @@ struct F32Scales {
     __device__ __forceinline__ float2 load(const float*, int blk, int n2) const {
         return *reinterpret_cast<const float2*>(absmax_t + (size_t)blk * N + 2 * n2);
     }
+    // the tensor-core kernel's staging: the scale at flat offset off (blk * N + n) into dst
+    __device__ __forceinline__ void stage(float* dst, size_t off, bool live) const {
+        cp_async4(dst, live ? absmax_t + off : absmax_t, live);
+    }
 };
 
 // Scales of a double-quantized state, decoded where they are loaded.
@@ -121,6 +143,10 @@ struct NestedScales {
         const float off = __ldg(offset);
         return make_float2(__fmaf_rn(table[q.x], s2[f >> 8], off),
                            __fmaf_rn(table[q.y], s2[(f + KB) >> 8], off));
+    }
+    // the tensor-core kernel's decode of a staged code q and second-level scale s
+    __device__ __forceinline__ float decode(const float* table, uint32_t q, float s, float off) const {
+        return __fmaf_rn(table[q], s, off);
     }
 };
 
@@ -351,6 +377,347 @@ nt_reduce_kernel(const float* __restrict__ part, TOut* __restrict__ out, long lo
     out[i] = from_f32<TOut>(s);
 }
 
+// bf16 and f16 g with blocksize % 32 == 0: tensor cores.  The mma's
+// reduction axis is N.  A block owns kPtTK = 128 output columns (two column
+// groups of 64, four warps each) and every row of g up to 32 (MI
+// m16 tiles, zero rows padding M), and walks its split of N in stages of
+// kPtTN rows.  Warp w takes column group w % kCH and the k16 groups w / kCH,
+// w / kCH + kKG, ... of every stage.
+//   B: one paired payload byte holds rows 2p (high nibble) and 2p+1 of one
+// column, which is exactly a B fragment register once each unit code is
+// bf16 (the low half is the even row): s_pair turns the byte into it with
+// one shared-memory load, no arithmetic.  The table is held once per lane
+// (entry b of lane l at word 32 b + l, 32 KB), so random bytes never meet in
+// a bank (a single copy lost time to bank conflicts; PERF.md).  Lane (q = lane / 4, t = lane % 4)
+// of a k16 group needs row pairs t and t + 4, and reads two 4-byte words of
+// each: columns 4q..4q+3 and 32+4q..32+4q+3 of its warp's 64.  So n8 tile e
+// holds the columns 4j + e (e < 4) or 32 + 4j + e - 4 (e >= 4) of logical
+// column j, and each tile lies inside one 32-column chunk, which lies inside
+// one quantization block; the epilogue undoes the permutation.
+//   A: g * scale rounded to bf16, _nt_accum's numerics.  A lane's A
+// fragment is g at its rows q, q+8 and reduction indices 2t, 2t+1, 2t+8,
+// 2t+9, the rows of the same two row pairs, times their scales at its
+// chunk's quantization block: one fragment set per block, two where the
+// warp's two chunks fall in different blocks (blocksize 32, or 96, ...).
+//   A four-stage cp.async ring holds a stage's payload (16-byte copies of
+// each row pair's kPtTK contiguous bytes), its scales chunk-major (one slot per
+// quantization block the tile touches, kPtTN scales a slot) and g's kPtTN
+// columns.  A nested state's u8 codes and their second-level scales are
+// staged too, and decoded in place (NestedScales, the bits of the resolved
+// absmax) by the thread that copied them, between its wait and the barrier.  Rows
+// past the split stage zeros in g and in the scales, so their A is 0.
+constexpr int kPtWarps = 8;
+constexpr int kPtThreads = kPtWarps * 32;
+constexpr int kPtTK = 128;          // output columns a block (256 was slower at M 16; PERF.md)
+constexpr int kPtTN = 128;          // rows of N a stage: eight k16 groups, 64 row pairs
+constexpr int kPtMT = 32;           // rows of g a block
+constexpr int kPtStages = 4;        // cp.async ring depth
+constexpr int kPtGStride = kPtTN + 8;  // elements a staged row of g (conflict-free A reads)
+
+template <int MI>
+struct PtLayout {
+    static constexpr int kCH = kPtTK / 64;         // column groups, one warp each
+    static constexpr int kKG = kPtWarps / kCH;  // warps of a column group
+    static constexpr int kChunks = kPtTK / 32;     // 32-column chunks: at most this many quant blocks
+    static constexpr int kPayStride = kPtTK + 32;  // bytes a staged row pair: 4 pairs apart shift the banks by 8
+    static_assert(kPayStride / 4 % 32 == 8, "conflict-free payload words");
+    static constexpr int kPay = (kPtTN / 2) * kPayStride;
+    static constexpr int kSc = kChunks * kPtTN * 4;
+    static constexpr int kG = MI * 16 * kPtGStride * 2;
+    static constexpr int kCodes = kChunks * kPtTN;  // a nested state's u8 codes, as kSc
+    static constexpr int kStage = kPay + kSc + kG + kCodes;
+    static constexpr int kTables = 256 * 32 * 4 + 1024;  // s_pair (256 u32 x 32 lanes), the nested map (256 f32)
+    static constexpr int kRedStride = kPtTK + 1;   // f32 a row of a warp's sums (conflict-free stores)
+    static constexpr int kRed = kKG * MI * 16 * kRedStride * 4;
+    static constexpr int kBytes = kTables + (kPtStages * kStage > kRed ? kPtStages * kStage : kRed);
+    static_assert(kPay % 16 == 0 && kSc % 16 == 0 && kG % 16 == 0 && kStage % 16 == 0, "16-byte aligned");
+};
+
+// Two 16-bit g values (a 4-byte pair, low address first) as f32.
+template <class T> __device__ __forceinline__ float2 pair_f32(uint32_t w) {
+    if constexpr (std::is_same<T, __half>::value) {
+        return __half22float2(*reinterpret_cast<const __half2*>(&w));
+    } else {
+        return unpack_bf16x2(w);
+    }
+}
+
+// The A fragment of one m16 tile: g words (row q: cols 2t and 2t+8; row q+8:
+// the same) times the scales of rows (2t, 2t+1) and (2t+8, 2t+9), bf16.
+template <class TG>
+__device__ __forceinline__ void a_fragment(const uint32_t* gw, float2 slo, float2 shi, uint32_t* a) {
+    const float2 g0 = pair_f32<TG>(gw[0]), g1 = pair_f32<TG>(gw[1]);  // row q
+    const float2 g2 = pair_f32<TG>(gw[2]), g3 = pair_f32<TG>(gw[3]);  // row q + 8
+    a[0] = pack_bf16x2(__fmul_rn(g0.x, slo.x), __fmul_rn(g0.y, slo.y));
+    a[1] = pack_bf16x2(__fmul_rn(g2.x, slo.x), __fmul_rn(g2.y, slo.y));
+    a[2] = pack_bf16x2(__fmul_rn(g1.x, shi.x), __fmul_rn(g1.y, shi.y));
+    a[3] = pack_bf16x2(__fmul_rn(g3.x, shi.x), __fmul_rn(g3.y, shi.y));
+}
+
+template <class TG, class Scales, int MI>
+__global__ void __launch_bounds__(kPtThreads, MI == 1 ? 2 : 1)
+gemm_4bit_paired_nt_tc_kernel(const TG* __restrict__ G, const uint8_t* __restrict__ P, Scales scales,
+                              float* __restrict__ part, TG* __restrict__ out, int M, int N, int K,
+                              int blocksize, int rows_per_split, Units16 units) {
+    using L = PtLayout<MI>;
+    constexpr bool kNested = Scales::kTable > 1;
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint32_t* s_pair = reinterpret_cast<uint32_t*>(smem);
+    float* s_table = reinterpret_cast<float*>(smem + 256 * 32 * 4);
+    unsigned char* ring = smem + L::kTables;
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    for (int i = tid; i < 256 * 32; i += kPtThreads) s_pair[i] = pack_bf16x2(units.v[i >> 9], units.v[(i >> 5) & 15]);
+    scales.prologue(s_table, tid, kPtThreads);
+    if constexpr (kNested) __syncthreads();  // the first decode reads the map before the loop's first barrier
+
+    const int k0 = blockIdx.x * kPtTK;
+    const int n_lo = blockIdx.y * rows_per_split;  // a multiple of 64
+    const int n_hi = min(N, n_lo + rows_per_split);
+    const int m0 = blockIdx.z * kPtMT;
+    const int stages = (n_hi - n_lo + kPtTN - 1) / kPtTN;
+    const int blk0 = k0 / blocksize;
+    const int nblk = (min(K, k0 + kPtTK) - 1) / blocksize - blk0 + 1;  // quant blocks of the tile's columns
+    const int KB = K / blocksize;
+    const bool g_vec = (N & 7) == 0;  // rows of g 16-byte aligned: cp.async, else plain loads
+
+    // Copies, each thread's sources fixed but for a stride a stage: 16-byte
+    // payload chunks (a row pair's in neighbouring lanes), 4-byte scales
+    // (a slot's rows in neighbouring lanes) and g's 16-byte chunks.
+    constexpr int kRowCopies = kPtTK / 16;
+    constexpr int kPayCopies = (kPtTN / 2) * kRowCopies / kPtThreads;
+    constexpr int kGChunks = MI * 16 * (kPtTN / 8);
+    constexpr int kGCopies = (kGChunks + kPtThreads - 1) / kPtThreads;
+    const uint8_t* p_src[kPayCopies];
+    int p_pair[kPayCopies], p_dst[kPayCopies];
+    bool p_ok[kPayCopies];
+#pragma unroll
+    for (int j = 0; j < kPayCopies; ++j) {
+        const int i = tid + j * kPtThreads;
+        const int c = i % kRowCopies;
+        p_pair[j] = i / kRowCopies;
+        p_ok[j] = k0 + 16 * c < K;  // K % 32 == 0: 16 columns are all in or all out
+        p_src[j] = P + (size_t)(n_lo / 2 + p_pair[j]) * K + k0 + 16 * c;
+        p_dst[j] = p_pair[j] * L::kPayStride + 16 * c;
+    }
+    // Scale copies.  Plain: one 4-byte scale a copy, a slot's rows in
+    // neighbouring lanes.  Nested: a quad of four rows of one slot a thread:
+    // its four u8 codes as one 4-byte copy (plain loads where rows of codes_t
+    // are not 4-byte aligned) and its four second-level scales, decoded in
+    // place by the same thread once its copies have landed.  No load is held
+    // in a register across a barrier: that cost a stage's latency (PERF.md).
+    constexpr int kUnit = kNested ? 4 : 1;  // rows a scale copy covers
+    constexpr int kUnitsAll = L::kChunks * kPtTN / kUnit;
+    constexpr int kUnits = (kUnitsAll + kPtThreads - 1) / kPtThreads;
+    size_t s_off[kUnits];
+    long long s_flat[kUnits];
+    int s_row[kUnits], s_dst[kUnits];
+    bool s_ok[kUnits];
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+        const int i = tid + j * kPtThreads;
+        const int b = i / (kPtTN / kUnit);  // the slot: quant block blk0 + b
+        s_row[j] = (i % (kPtTN / kUnit)) * kUnit;
+        s_ok[j] = i < kUnitsAll && b < nblk;
+        s_dst[j] = b * kPtTN + s_row[j];
+        s_off[j] = (size_t)(blk0 + b) * N + n_lo + s_row[j];
+        s_flat[j] = (long long)(n_lo + s_row[j]) * KB + blk0 + b;
+    }
+    const bool codes_vec = (N & 3) == 0;  // then a quad's rows are all live or all dead
+    const TG* g_src[kGCopies];
+    int g_col[kGCopies], g_dst[kGCopies];
+    bool g_ok[kGCopies];
+#pragma unroll
+    for (int j = 0; j < kGCopies; ++j) {
+        const int i = tid + j * kPtThreads;
+        const int m = i / (kPtTN / 8);
+        g_col[j] = (i % (kPtTN / 8)) * 8;
+        g_ok[j] = i < kGChunks && m0 + m < M;
+        g_src[j] = G + (size_t)(m0 + m) * N + n_lo + g_col[j];
+        g_dst[j] = L::kPay + L::kSc + (m * kPtGStride + g_col[j]) * 2;
+    }
+    const size_t p_step = (size_t)(kPtTN / 2) * K;
+    const long long f_step = (long long)kPtTN * KB;
+    float offset = 0.0f;
+    if constexpr (kNested) offset = __ldg(scales.offset);
+
+    auto load = [&](int s, int slot) {
+        unsigned char* st = ring + slot * L::kStage;
+        const int rem = n_hi - (n_lo + s * kPtTN);  // rows of this stage inside the split
+#pragma unroll
+        for (int j = 0; j < kPayCopies; ++j) {
+            const bool live = p_ok[j] && 2 * p_pair[j] < rem;
+            cp_async16(st + p_dst[j], live ? p_src[j] + s * p_step : P, live);
+        }
+#pragma unroll
+        for (int j = 0; j < kUnits; ++j) {
+            // a copy with nothing to read still writes its zeros: none past the last unit
+            if (kUnitsAll % kPtThreads && tid + j * kPtThreads >= kUnitsAll) continue;
+            const int live = s_ok[j] ? min(max(rem - s_row[j], 0), kUnit) : 0;  // live rows of the copy
+            const size_t off = s_off[j] + (size_t)s * kPtTN;
+            float* sd = reinterpret_cast<float*>(st + L::kPay) + s_dst[j];
+            if constexpr (kNested) {
+                unsigned char* cd = st + L::kPay + L::kSc + L::kG + s_dst[j];
+                const long long f = s_flat[j] + s * f_step;
+                if (codes_vec) {
+                    cp_async4(cd, live ? scales.codes_t + off : scales.codes_t, live > 0);
+                } else {
+#pragma unroll
+                    for (int x = 0; x < 4; ++x) cd[x] = x < live ? scales.codes_t[off + x] : 0;
+                }
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+                    cp_async4(sd + x, x < live ? scales.s2 + ((f + x * KB) >> 8) : scales.s2, x < live);
+            } else {
+                scales.stage(sd, off, live > 0);
+            }
+        }
+        if (g_vec) {
+#pragma unroll
+            for (int j = 0; j < kGCopies; ++j) {
+                if (j * kPtThreads + tid < kGChunks) {
+                    const bool live = g_ok[j] && g_col[j] < rem;  // rem is a multiple of 8 or all of a stage
+                    cp_async16(st + g_dst[j], live ? g_src[j] + s * kPtTN : G, live);
+                }
+            }
+        } else {
+            const int n0 = n_lo + s * kPtTN;
+            TG* sg = reinterpret_cast<TG*>(st + L::kPay + L::kSc);
+            for (int j = tid; j < MI * 16 * kPtTN; j += kPtThreads) {
+                const int m = j / kPtTN, c = j % kPtTN;
+                sg[m * kPtGStride + c] =
+                    m0 + m < M && n0 + c < n_hi ? G[(size_t)(m0 + m) * N + n0 + c] : from_f32<TG>(0.0f);
+            }
+        }
+    };
+    // A nested stage's scales, decoded in place from this thread's own copies
+    // (dead rows 0).
+    auto decode = [&](int s) {
+        if constexpr (kNested) {
+            unsigned char* st = ring + (s % kPtStages) * L::kStage;
+            const int rem = n_hi - (n_lo + s * kPtTN);
+#pragma unroll
+            for (int j = 0; j < kUnits; ++j) {
+                if (!s_ok[j]) continue;
+                const int live = min(max(rem - s_row[j], 0), 4);
+                const uint32_t c4 = *reinterpret_cast<const uint32_t*>(st + L::kPay + L::kSc + L::kG + s_dst[j]);
+                float* sd = reinterpret_cast<float*>(st + L::kPay) + s_dst[j];
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+                    sd[x] = x < live ? scales.decode(s_table, (c4 >> (8 * x)) & 0xFFu, sd[x], offset) : 0.0f;
+            }
+        }
+    };
+
+    // This thread's part of the mma: column group ch, k16 groups kg + kKG i, lane (q, t).
+    const int ch = warp % L::kCH, kg = warp / L::kCH;
+    const int q = lane >> 2, t = lane & 3;
+    const int slot0 = (k0 + 64 * ch) / blocksize - blk0;       // quant block of the warp's chunk 0
+    const int slot1 = (k0 + 64 * ch + 32) / blocksize - blk0;  // and of its chunk 1
+    const bool two = slot0 != slot1;                           // the same for the whole warp
+
+    float acc[MI][8][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) acc[mi][e][x] = 0.0f;
+
+#pragma unroll
+    for (int s = 0; s < kPtStages - 1; ++s) {
+        if (s < stages) load(s, s);
+        cp_async_commit();
+    }
+    for (int s = 0; s < stages; ++s) {
+        cp_async_wait<kPtStages - 2>();  // this thread's copies of stage s have landed
+        decode(s);
+        __syncthreads();  // stage s is complete everywhere; the slot of stage s - 1 is free
+        const int nxt = s + kPtStages - 1;
+        if (nxt < stages) load(nxt, nxt % kPtStages);
+        cp_async_commit();
+
+        const unsigned char* st = ring + (s % kPtStages) * L::kStage;
+        const float* ssc = reinterpret_cast<const float*>(st + L::kPay);
+        const uint32_t* sg = reinterpret_cast<const uint32_t*>(st + L::kPay + L::kSc);  // g pairs
+#pragma unroll
+        for (int i = 0; i < 8 / L::kKG; ++i) {
+            const int grp = kg + L::kKG * i;
+            const uint32_t* pw =
+                reinterpret_cast<const uint32_t*>(st + (grp * 8 + t) * L::kPayStride + ch * 64) + q;
+            // pair t: chunk 0, chunk 1; pair t + 4 (4 pairs = kPayStride words on)
+            const uint32_t w00 = pw[0], w01 = pw[8], w10 = pw[L::kPayStride], w11 = pw[L::kPayStride + 8];
+            uint32_t b0[8], b1[8];
+            const uint32_t* lp = s_pair + lane;  // this lane's copy of the table
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                b0[j] = lp[((w00 >> (8 * j)) & 0xFFu) << 5];
+                b0[4 + j] = lp[((w01 >> (8 * j)) & 0xFFu) << 5];
+                b1[j] = lp[((w10 >> (8 * j)) & 0xFFu) << 5];
+                b1[4 + j] = lp[((w11 >> (8 * j)) & 0xFFu) << 5];
+            }
+            const int r = grp * 16 + 2 * t;  // rows r, r + 1, r + 8, r + 9 of the stage
+            const float2 lo0 = *reinterpret_cast<const float2*>(ssc + slot0 * kPtTN + r);
+            const float2 hi0 = *reinterpret_cast<const float2*>(ssc + slot0 * kPtTN + r + 8);
+            float2 lo1 = lo0, hi1 = hi0;
+            if (two) {
+                lo1 = *reinterpret_cast<const float2*>(ssc + slot1 * kPtTN + r);
+                hi1 = *reinterpret_cast<const float2*>(ssc + slot1 * kPtTN + r + 8);
+            }
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) {
+                const uint32_t* gq = sg + (mi * 16 + q) * (kPtGStride / 2) + r / 2;
+                const uint32_t gw[4] = {gq[0], gq[4], gq[8 * (kPtGStride / 2)], gq[8 * (kPtGStride / 2) + 4]};
+                uint32_t a0[4], a1[4];
+                a_fragment<TG>(gw, lo0, hi0, a0);
+                if (two) {
+                    a_fragment<TG>(gw, lo1, hi1, a1);
+                } else {
+#pragma unroll
+                    for (int x = 0; x < 4; ++x) a1[x] = a0[x];
+                }
+#pragma unroll
+                for (int e = 0; e < 4; ++e) mma_bf16(acc[mi][e], a0, b0[e], b1[e]);
+#pragma unroll
+                for (int e = 4; e < 8; ++e) mma_bf16(acc[mi][e], a1, b0[e], b1[e]);
+            }
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free: it holds the warps' sums now
+
+    // red[kg][m][column]: logical column j = 2t + x of tile e is the physical
+    // column 32 (e / 4) + 4j + e % 4 of the warp's 64.
+    float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int x = 0; x < 2; ++x) {
+                    const int row = kg * MI * 16 + mi * 16 + q + 8 * h;
+                    const int col = ch * 64 + 32 * (e >> 2) + 8 * t + 4 * x + (e & 3);
+                    red[row * L::kRedStride + col] = acc[mi][e][2 * h + x];
+                }
+    __syncthreads();
+    for (int i = tid; i < MI * 16 * kPtTK; i += kPtThreads) {
+        const int m = i / kPtTK, c = i % kPtTK;
+        const int k = k0 + c;
+        if (m0 + m >= M || k >= K) continue;
+        float v = red[m * L::kRedStride + c];
+#pragma unroll
+        for (int g = 1; g < L::kKG; ++g) v += red[(g * MI * 16 + m) * L::kRedStride + c];  // warp order
+        if (part)
+            part[((size_t)blockIdx.y * M + m0 + m) * K + k] = v;
+        else
+            out[(size_t)(m0 + m) * K + k] = from_f32<TG>(v);
+    }
+}
+
 Units16 load_units(const float* units) {
     Units16 u;
     for (int i = 0; i < 16; ++i) u.v[i] = units[i];
@@ -428,21 +795,67 @@ void launch_nt_t(const void* G, const uint8_t* P, const Scales& sc, float* part,
                                                                            splits);
 }
 
-template <class Scales>
-int launch_nt(const void* G, const uint8_t* P, const Scales& sc, float* part, void* out, int M, int N,
-              int K, int blocksize, int rows_per_split, int splits, const float* units, int g_kind,
-              cudaStream_t stream) {
+template <class TG, class Scales, int MI>
+int launch_nt_tc(const void* G, const uint8_t* P, const Scales& sc, float* part, void* out, int M, int N, int K,
+                 int blocksize, int rows_per_split, int splits, const Units16& u, cudaStream_t stream) {
+    using L = PtLayout<MI>;
+    const cudaError_t e = cudaFuncSetAttribute(gemm_4bit_paired_nt_tc_kernel<TG, Scales, MI>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((K + kPtTK - 1) / kPtTK, splits, (M + kPtMT - 1) / kPtMT);
+    gemm_4bit_paired_nt_tc_kernel<TG, Scales, MI><<<grid, kPtThreads, L::kBytes, stream>>>(
+        static_cast<const TG*>(G), P, sc, splits > 1 ? part : nullptr, static_cast<TG*>(out), M, N, K, blocksize,
+        rows_per_split, u);
+    if (splits > 1) {  // queued at once behind it: no host round trip between the two
+        const long long mk = (long long)M * K;
+        nt_reduce_kernel<TG><<<(unsigned)((mk + 255) / 256), 256, 0, stream>>>(part, static_cast<TG*>(out), mk,
+                                                                               splits);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <class TG, class Scales>
+int launch_nt_tc_m(const void* G, const uint8_t* P, const Scales& sc, float* part, void* out, int M, int N, int K,
+                   int blocksize, int rows_per_split, int splits, const Units16& u, cudaStream_t stream) {
+    if (M <= 16)
+        return launch_nt_tc<TG, Scales, 1>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u, stream);
+    return launch_nt_tc<TG, Scales, 2>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u, stream);
+}
+
+// The shapes and the split plan, checked before anything is read: rows of
+// whole quant blocks; splits of even rows covering N, none empty.  The
+// caller chooses the kernel (tc, ops/gemm4bit_paired._nt_uses_tc); the
+// tensor-core one takes 16-bit g, blocksize % 32 == 0, rows_per_split % 64
+// == 0 (g's 16-byte copies start aligned) and partials for more than one
+// split, the CUDA-core one partials always.
+bool nt_args_ok(int M, int N, int K, int blocksize, int rows_per_split, int splits, int tc, const float* part,
+                int g_kind) {
     if (!gemm_shape_ok(M, N, K, blocksize) || rows_per_split < 2 || rows_per_split % 2 || splits < 1
         || (long long)rows_per_split * (splits - 1) >= N || (long long)rows_per_split * splits < N)
-        return (int)cudaErrorInvalidValue;
+        return false;
+    if (g_kind != kF32 && g_kind != kBf16 && g_kind != kF16) return false;
+    if (tc)
+        return g_kind != kF32 && blocksize % 32 == 0 && rows_per_split % 64 == 0 && (splits == 1 || part != nullptr);
+    return part != nullptr;
+}
+
+template <class Scales>
+int launch_nt(const void* G, const uint8_t* P, const Scales& sc, float* part, void* out, int M, int N,
+              int K, int blocksize, int rows_per_split, int splits, int tc, const float* units, int g_kind,
+              cudaStream_t stream) {
     const Units16 u = load_units(units);
+    if (tc) {
+        if (g_kind == kBf16)
+            return launch_nt_tc_m<__nv_bfloat16>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u,
+                                                 stream);
+        return launch_nt_tc_m<__half>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u, stream);
+    }
     switch (g_kind) {
         case kF32: launch_nt_t<float>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u, stream); break;
         case kBf16:
             launch_nt_t<__nv_bfloat16>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u, stream);
             break;
-        case kF16: launch_nt_t<__half>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u, stream); break;
-        default: return (int)cudaErrorInvalidValue;
+        default: launch_nt_t<__half>(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, u, stream);
     }
     return (int)cudaGetLastError();
 }
@@ -502,23 +915,31 @@ BNB_EXPORT int bnb_dequantize_paired_dq(const uint8_t* P, const uint8_t* codes_t
     return launch_dequant(P, sc, W, N, K, blocksize, units, out_kind, stream);
 }
 
-// G [M, N] (g_kind as a_kind); part [splits, M, K] f32 scratch; out [M, K]
-// in G's type.  Rows [s*rows_per_split, (s+1)*rows_per_split) of N go to split s.
+// G [M, N] (g_kind as a_kind); out [M, K] in G's type.  Rows
+// [s*rows_per_split, (s+1)*rows_per_split) of N go to split s.  tc != 0 runs
+// the tensor-core kernel, which takes bf16 and f16 g at blocksize % 32 == 0
+// and rows_per_split a multiple of 64; part [splits, M, K] f32 scratch is
+// unread, and may be NULL, for one split.  tc == 0 runs the CUDA-core kernel,
+// part always given.  A plan the chosen kernel cannot take is refused.
 BNB_EXPORT int bnb_gemm_4bit_paired_nt(const void* G, const uint8_t* P, const float* absmax_t,
                                        float* part, void* out, int M, int N, int K, int blocksize,
-                                       int rows_per_split, int splits, const float* units,
+                                       int rows_per_split, int splits, int tc, const float* units,
                                        int g_kind, cudaStream_t stream) {
-    return launch_nt(G, P, F32Scales{absmax_t, N}, part, out, M, N, K, blocksize, rows_per_split,
-                     splits, units, g_kind, stream);
+    if (!nt_args_ok(M, N, K, blocksize, rows_per_split, splits, tc, part, g_kind))
+        return (int)cudaErrorInvalidValue;
+    return launch_nt(G, P, F32Scales{absmax_t, N}, part, out, M, N, K, blocksize, rows_per_split, splits, tc, units,
+                     g_kind, stream);
 }
 
 BNB_EXPORT int bnb_gemm_4bit_paired_nt_dq(const void* G, const uint8_t* P, const uint8_t* codes_t,
                                           const float* s2, const float* offset, float* part, void* out,
                                           int M, int N, int K, int blocksize, int rows_per_split,
-                                          int splits, const float* units, const DynDecode* dec,
+                                          int splits, int tc, const float* units, const DynDecode* dec,
                                           int g_kind, cudaStream_t stream) {
     NestedScales sc;
-    if (!nested_scales(codes_t, s2, offset, N, K, blocksize, dec, &sc)) return (int)cudaErrorInvalidValue;
-    return launch_nt(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, units, g_kind,
+    if (!nt_args_ok(M, N, K, blocksize, rows_per_split, splits, tc, part, g_kind)
+        || !nested_scales(codes_t, s2, offset, N, K, blocksize, dec, &sc))
+        return (int)cudaErrorInvalidValue;
+    return launch_nt(G, P, sc, part, out, M, N, K, blocksize, rows_per_split, splits, tc, units, g_kind,
                      stream);
 }

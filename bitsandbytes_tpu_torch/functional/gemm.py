@@ -62,15 +62,19 @@ __all__ = ["LARGE_M_THRESHOLD", "BACKWARD_LARGE_M_THRESHOLD", "gemm_4bit", "gemv
 LARGE_M_THRESHOLD = 32
 
 # Rows of g from which the backward runs the dequantize kernel +
-# torch.matmul instead of the _nt kernels.  Chosen from chip_smoke.py's
-# phase 3j sweep of both routes on gate_up^T and down^T (NVIDIA H100 80GB
-# HBM3, 700 W; PERF.md): the kernel wins on gate_up^T up to M = 16 and loses
-# from M = 32 on; on down^T it wins at M = 8 and ties at 16.  Kernel 11 on
-# the K-adjacent layout (phase 3l), on the tensor cores, wins on both up to
-# M = 64 at least (gate_up^T 0.148 against 0.313 ms, down^T 0.076 against
-# 0.165 at M = 64), so its own crossover lies higher; the layouts share the
-# constant until the paired kernels 7 and 8 get the same design.
-BACKWARD_LARGE_M_THRESHOLD = 32
+# torch.matmul instead of the _nt kernels, on both layouts.  Chosen from
+# chip_smoke.py's sweeps of both routes on gate_up^T and down^T at M 1-256,
+# device time with the host held out (phase 3j: kernel 7 against
+# dequantize_paired_fast + matmul and kernel 8 against
+# dequantize_paired_fast_dq + matmul; phase 3l: kernel 11 against
+# dequantize_4bit_2d + matmul), NVIDIA H100 80GB HBM3 at 700.00 W, bf16 g.
+# The tensor-core kernels read the payload once per 32 rows of g; kernels 7
+# and 11 lead on every linear up to M 128 (down^T at 128: 0.1443 against
+# 0.1617 ms, 0.1478 against 0.1673) and trail from M 192.  The constant is
+# set by the nested route: kernel 8 on down^T trails first, at M 128
+# (0.1691 against 0.1616 ms), and leads at M 96 (0.1279 against 0.1596).
+# f16 and f32 g take the _nt kernels at every M.
+BACKWARD_LARGE_M_THRESHOLD = 128
 
 
 def _paired_routes(quant_state: QuantState):

@@ -172,12 +172,12 @@ _SIGNATURES = {
     "bnb_quantize_blockwise8": [_P, _P, _P, _P, _L, _I, _P, _I, _I, _P],
     # q, absmax, out, n, blocksize, tables (device), out_kind, stream
     "bnb_dequantize_blockwise8": [_P, _P, _P, _L, _I, _P, _I, _P],
-    # G, P, absmax_t, part (scratch), out, M, N, K, blocksize, rows_per_split, splits,
-    # units[16] (host), g_kind, stream
-    "bnb_gemm_4bit_paired_nt": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    # G, P, codes_t, s2, offset, part, out, M, N, K, blocksize, rows_per_split, splits,
-    # units[16] (host), decode table (host), g_kind, stream
-    "bnb_gemm_4bit_paired_nt_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    # G, P, absmax_t, part (scratch, or NULL), out, M, N, K, blocksize, rows_per_split, splits,
+    # tc (the tensor-core kernel), units[16] (host), g_kind, stream
+    "bnb_gemm_4bit_paired_nt": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # G, P, codes_t, s2, offset, part (or NULL), out, M, N, K, blocksize, rows_per_split, splits,
+    # tc, units[16] (host), decode table (host), g_kind, stream
+    "bnb_gemm_4bit_paired_nt_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     # g, p, s1, s2, am1, am2, n, rule, scalars (host), map1 (host), map2 (host), fixup, kind, stream
     "bnb_optimizer_update_8bit": [_P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _I, _P],
     # g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, scalars (host), map1 (host), map2 (host), fixup, kind,

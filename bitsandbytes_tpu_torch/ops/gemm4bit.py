@@ -24,7 +24,8 @@ The kernels, all in ``csrc/gemm4bit.cu``:
   Bound by bytes at M <= 32.  bf16 and f16 g run on the tensor cores
   (``mma.sync``), each payload byte read and decoded once per 32 rows of g;
   f32 g keeps exact f32 products on the CUDA cores.  N is split into at
-  most 8 splits (:func:`nt_plan`) whose f32 partials a second pass adds in
+  most 8 splits (:func:`nt_plan`, shared with kernels 7 and 8 in
+  ``ops/gemm4bit_paired``) whose f32 partials a second pass adds in
   split order.
 
 The GEMMs take every shape whose K holds whole quantization blocks (so K is
@@ -39,7 +40,7 @@ import torch
 
 from . import _lib
 from .dispatch import use_kernel
-from .gemm4bit_paired import _KIND, _code_tuple, _sm_count
+from .gemm4bit_paired import _KIND, _code_tuple, _sm_count, nt_plan
 
 __all__ = [
     "gemm_2d_supported",
@@ -184,9 +185,6 @@ def dequantize_4bit_2d(B: torch.Tensor, absmax: torch.Tensor, code, blocksize: i
 # the f32 backward kernel's tiles (csrc/gemm4bit.cu): 2048 columns of K and 8
 # rows of g per block; each split of N keeps at least 64 rows
 _NT_KT, _NT_MT, _NT_MIN_ROWS = 2048, 8, 64
-# the tensor-core backward kernel's tiles (bf16 and f16 g): 128 columns of K
-# and 32 rows of g per block; splits of N in multiples of 64 rows, at most 8
-_TC_TK, _TC_MT, _TC_ROWS, _TC_MAX_SPLITS = 128, 32, 64, 8
 
 
 def _nt_splits(M: int, N: int, K: int, sms: int):
@@ -195,28 +193,6 @@ def _nt_splits(M: int, N: int, K: int, sms: int):
     tiles = -(-K // _NT_KT) * -(-M // _NT_MT)
     splits = max(1, min(-(-2 * sms // tiles), N // _NT_MIN_ROWS))
     rows = -(-N // splits)
-    return rows, -(-N // rows)
-
-
-def nt_plan(M: int, N: int, K: int, sms: int):
-    """The tensor-core kernel's rows of N per split (a multiple of 64, so
-    each split's g starts 16-byte aligned) and number of splits S <= 8.  Among the S whose grid of ``tiles * S`` blocks
-    stays within two waves of ``sms`` SMs, the one that fills the largest
-    share of its waves, the fewest splits among equals (fewer f32 partials);
-    a grid of one wave or more without splitting keeps S = 1.  A pure
-    function of the shapes and the SM count, so a call's bits do not depend
-    on the run."""
-    tiles = -(-K // _TC_TK) * -(-M // _TC_MT)
-    best, best_slots = 1, None
-    for s in range(1, min(_TC_MAX_SPLITS, -(-N // _TC_ROWS)) + 1):
-        if s > 1 and tiles * s > 2 * sms:
-            break
-        slots = sms * -(-tiles * s // sms)  # SM slots of the waves this grid takes
-        # tiles*s / slots beats tiles*best / best_slots, compared exactly
-        if best_slots is None or s * best_slots > best * slots:
-            best, best_slots = s, slots
-    per_split = -(-N // best)
-    rows = -(-per_split // _TC_ROWS) * _TC_ROWS
     return rows, -(-N // rows)
 
 

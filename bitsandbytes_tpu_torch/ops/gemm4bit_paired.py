@@ -30,8 +30,12 @@ The kernels, all in ``csrc/gemm4bit_paired.cu``:
   backward ``grad_A[M, K] = g[M, N] @ dequant(P)[N, K]``.  Per K quant block,
   ``g`` (bf16, f16 or f32) times that block's scale of each row, rounded to
   bf16 unless ``g`` is float32, dotted with the bf16-rounded unit codes over N in f32, cast to
-  ``g``'s type.  Bound by bytes at small M.  The kernel splits N across
-  blocks into f32 partials that a second pass adds in a fixed order.
+  ``g``'s type.  Bound by bytes at small M.  bf16 and f16 ``g`` run on the
+  tensor cores (``mma.sync``, ``bf16(g * scale)`` as A, the unit codes as
+  B), each payload byte read and decoded once per 32 rows of ``g``; N is cut
+  into at most 8 splits (:func:`nt_plan`) whose f32 partials a second pass
+  adds in split order.  f32 ``g`` keeps exact f32 products on the CUDA
+  cores.
 
 A CPU tensor goes to the plain version of each, written to the same
 numerics; a CUDA tensor launches the kernel or raises.
@@ -68,6 +72,7 @@ __all__ = [
     "gemm_4bit_paired_nt_plain",
     "gemm_4bit_paired_nt_dq",
     "gemm_4bit_paired_nt_dq_plain",
+    "nt_plan",
 ]
 
 # Quant blocks per batched product in the plain GEMM: bounds its
@@ -371,9 +376,13 @@ def dequantize_paired_fast_dq(P, codes_t, s2, offset, code, blocksize: int,
 
 # -- the backward: grad_A = g @ dequant(B), contracted over N -----------------
 
-# the kernel's tiles (csrc/gemm4bit_paired.cu): 2048 columns of K and 8 rows
-# of g per block; each split of N keeps at least 64 row pairs
+# the CUDA-core kernel's tiles (csrc/gemm4bit_paired.cu; f32 g): 2048 columns
+# of K and 8 rows of g per block; each split of N keeps at least 64 row pairs
 _NT_KT, _NT_MT, _NT_MIN_PAIRS = 2048, 8, 64
+# the tensor-core backward kernels' tiles (bf16 and f16 g; kernel 11 in
+# csrc/gemm4bit.cu, kernels 7 and 8 here): 128 columns of K and 32 rows of g
+# per block, splits of N in multiples of 64 rows, at most 8
+_TC_TK, _TC_MT, _TC_ROWS, _TC_MAX_SPLITS = 128, 32, 64, 8
 
 
 def gemm_4bit_paired_nt_plain(G2, P, absmax_t, units, blocksize: int) -> torch.Tensor:
@@ -401,13 +410,44 @@ def _sm_count(index: int) -> int:
 
 
 def _nt_splits(M: int, N: int, K: int, sms: int):
-    """Rows of N per split and the number of splits: about two blocks per
-    SM, each split at least ``_NT_MIN_PAIRS`` row pairs."""
+    """The CUDA-core kernel's rows of N per split and number of splits:
+    about two blocks per SM, each split at least ``_NT_MIN_PAIRS`` row
+    pairs."""
     pairs = N // 2
     tiles = -(-K // _NT_KT) * -(-M // _NT_MT)
     splits = max(1, min(-(-2 * sms // tiles), pairs // _NT_MIN_PAIRS))
     rows = 2 * -(-pairs // splits)
     return rows, -(-N // rows)
+
+
+def nt_plan(M: int, N: int, K: int, sms: int):
+    """The tensor-core backward kernels' rows of N per split (a multiple of
+    64, so each split's g starts 16-byte aligned) and number of splits S <= 8,
+    for blocks of 128 columns of K and 32 rows of g.  Among the S whose
+    grid of ``tiles * S`` blocks stays within two waves of ``sms`` SMs, the
+    one that fills the largest share of its waves, the fewest splits among
+    equals (fewer f32 partials); a grid of one wave or more without splitting
+    keeps S = 1.  A pure function of the shapes and the SM count, so a call's
+    bits do not depend on the run."""
+    tiles = -(-K // _TC_TK) * -(-M // _TC_MT)
+    best, best_slots = 1, None
+    for s in range(1, min(_TC_MAX_SPLITS, -(-N // _TC_ROWS)) + 1):
+        if s > 1 and tiles * s > 2 * sms:
+            break
+        slots = sms * -(-tiles * s // sms)  # SM slots of the waves this grid takes
+        # tiles*s / slots beats tiles*best / best_slots, compared exactly
+        if best_slots is None or s * best_slots > best * slots:
+            best, best_slots = s, slots
+    per_split = -(-N // best)
+    rows = -(-per_split // _TC_ROWS) * _TC_ROWS
+    return rows, -(-N // rows)
+
+
+def _nt_uses_tc(dtype, blocksize: int) -> bool:
+    """Whether kernels 7 and 8 run on the tensor cores: the one place this
+    is decided; the C entry points take the answer and refuse a plan the
+    chosen kernel cannot take."""
+    return dtype != torch.float32 and blocksize % 32 == 0
 
 
 def _nt_args(G, N: int, K: int, blocksize: int, out_dtype):
@@ -424,12 +464,16 @@ def _launch_nt(entry: str, G2, P, scale_ptrs, extra, M: int, N: int, K: int, blo
     if G2.dtype not in _KIND or not G2.is_contiguous():
         raise ValueError("the CUDA kernel takes a contiguous bf16, f16 or float32 g")
     _check_aligned(G2, P)
-    rows, splits = _nt_splits(M, N, K, _sm_count(G2.device.index or 0))
-    part = torch.empty(splits * M * K, dtype=torch.float32, device=G2.device)
+    sms = _sm_count(G2.device.index or 0)
+    tc = _nt_uses_tc(G2.dtype, blocksize)
+    rows, splits = nt_plan(M, N, K, sms) if tc else _nt_splits(M, N, K, sms)
+    # the tensor-core kernel writes out directly where there is one split
+    part = torch.empty(splits * M * K, dtype=torch.float32, device=G2.device) if splits > 1 or not tc else None
     out = torch.empty(M, K, dtype=G2.dtype, device=G2.device)
     err = getattr(_lib.lib(), "bnb_" + entry)(
-        G2.data_ptr(), P.data_ptr(), *scale_ptrs, part.data_ptr(), out.data_ptr(), M, N, K, blocksize,
-        rows, splits, _lib.host_f32(units), *extra, _KIND[G2.dtype], _lib.stream(G2),
+        G2.data_ptr(), P.data_ptr(), *scale_ptrs, None if part is None else part.data_ptr(), out.data_ptr(),
+        M, N, K, blocksize, rows, splits, int(tc), _lib.host_f32(units), *extra, _KIND[G2.dtype],
+        _lib.stream(G2),
     )
     _lib.check(err, entry)
     _lib.LAUNCHES[entry] += 1

@@ -12,8 +12,13 @@ Phases (every one asserts; any failure exits non-zero before the result):
 3. Kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (Llama-3-8B geometry), with times, bytes and bounds; the
    sweep that chose ``functional/gemm.LARGE_M_THRESHOLD``; ragged shapes;
-   the backward kernels 7 and 8 (3h), the fused 8-bit optimizer update,
-   kernel 14 (3i), and the sweep that chose
+   the backward kernels 7 and 8 (3h: ragged shapes up to M 33 and blocksize
+   32-512, each 16-bit call against a second run bit for bit, kernel 8
+   against kernel 7 on the resolved absmax bit for bit, times with the host
+   held out of the window at M 1-33 and with f16 g, the split plan and an
+   all-zero payload; mismatched plans refused by the C entry), the fused
+   8-bit optimizer update, kernel 14 (3i), and the sweep of kernels 7 and 8
+   against dequantize + matmul, device time, that chose
    ``functional/gemm.BACKWARD_LARGE_M_THRESHOLD`` (3j); kernel 4's int8-KV
    mode and kernel 16 (paged, bf16 and int8) at block sizes 16-256, each
    paged result against kernel 4 on the same data (3k); kernels 9, 10 and 11
@@ -182,6 +187,8 @@ def main() -> int:
     from bitsandbytes_tpu_torch.serving import ContinuousBatchingEngine
     from bitsandbytes_tpu_torch.serving import engine as E
     from bitsandbytes_tpu_torch import optim as O
+    from bitsandbytes_tpu_torch.ops import _lib
+    from bitsandbytes_tpu_torch.ops import gemm4bit_paired as PT
     from bitsandbytes_tpu_torch.ops.gemm4bit_paired import (
         _sm_count,
         _units,
@@ -682,7 +689,10 @@ def main() -> int:
 
     cases = []
     for Mx, N, K, gbs in ((1, 2, 32, 32), (3, 18, 96, 32), (7, 64, 768, 32), (13, 130, 4160, 64),
-                          (16, 256, 2176, 128), (31, 512, 4096, 256), (2, 4096, 14336, 64)):
+                          (16, 256, 2176, 128), (31, 512, 4096, 256), (2, 4096, 14336, 64),
+                          # a zero-padded second m16 tile (31), the grid over M tiles (33), two quant
+                          # blocks a warp (bs 32), a quant block wider than the column tile (bs 512)
+                          (31, 640, 2048, 64), (33, 640, 2048, 64), (9, 130, 4160, 32), (5, 256, 8192, 512)):
         for compress in (False, True):
             qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev), blocksize=gbs,
                                           compress_statistics=compress)
@@ -702,13 +712,46 @@ def main() -> int:
                 assert out.dtype == dt and out.shape == (Mx, K)
                 rel = nt_rel(out, ref)
                 assert rel <= nt_tol(dt), f"nt {(Mx, N, K, gbs, compress, dt)}: rel {rel}"
+                if dt != torch.float32:  # the tensor-core kernel: a second call gives the same bits
+                    again = (gemm_4bit_paired_nt_dq(Gx, *args, code, gbs, (N, K)) if compress
+                             else gemm_4bit_paired_nt(Gx, qw.data, st.absmax, code, gbs, (N, K)))
+                    assert torch.equal(out, again), f"nt {(Mx, N, K, gbs, compress, dt)}: a second call differs"
                 cases.append(f"nt{'_dq' if compress else ''} M{Mx} N{N} K{K} bs{gbs} {str(dt)[6:]} rel {rel:.2e}")
     emit("ragged_shapes_backward", passed=cases)
 
+    # The wrapper alone decides which kernel a call takes (PT._nt_uses_tc) and
+    # passes it as tc; the C entry refuses a plan that kernel cannot take,
+    # before it reads anything.
+    Nr, Kr = 256, 640
+    qw = QuantizedTensor.quantize(torch.randn(Nr, Kr, generator=gen, device=dev), blocksize=64)
+    out_r = torch.empty(4, Kr, dtype=torch.float32, device=dev)
+    part_r = torch.empty(8 * 4 * Kr, dtype=torch.float32, device=dev)
+    refused = []
+    for what, dt, gbs, rows, splits, tc, part in (
+            ("f32 g on the tensor cores", torch.float32, 64, 256, 1, 1, None),
+            ("blocksize 40 on the tensor cores", torch.bfloat16, 40, 256, 1, 1, None),
+            ("rows_per_split 96 on the tensor cores", torch.bfloat16, 64, 96, 3, 1, part_r),
+            ("two splits without partials", torch.bfloat16, 64, 128, 2, 1, None),
+            ("the CUDA-core kernel without partials", torch.bfloat16, 64, 256, 1, 0, None)):
+        Gr = torch.zeros(4, Nr, dtype=dt, device=dev)
+        err = _lib.lib().bnb_gemm_4bit_paired_nt(
+            Gr.data_ptr(), qw.data.data_ptr(), qw.state.absmax.data_ptr(), None if part is None else part.data_ptr(),
+            out_r.data_ptr(), 4, Nr, Kr, gbs, rows, splits, tc, _lib.host_f32(units), PT._KIND[dt], _lib.stream(Gr))
+        assert err != 0, f"nt: a mismatched plan was taken ({what})"
+        refused.append(what)
+    torch.cuda.synchronize()
+    del qw, out_r, part_r
+    emit("nt_mismatched_plans_refused", cases=refused)
+
     def nt_layer(compress):
-        """Kernel 7 (or 8) on one layer's four linears transposed, M = 16."""
+        """Kernel 7 (or 8) on one layer's four linears transposed, M = 16:
+        timed with and without the host in the window (hold=True), beside
+        torch.matmul on the dequantized weight, each call against a second
+        run bit for bit; kernel 7 also on an all-zero payload (every table
+        load hits one word: no bank conflict)."""
         M = 16
-        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0, "ops": 0, "err": 0.0, "f16": 0.0}
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0, "ops": 0, "err": 0.0, "f16": 0.0,
+               "device": 0.0, "lib_device": 0.0, "zero_payload": 0.0}
         per_shape = []
         for name, (N, K) in LINEARS.items():
             Wf = torch.randn(N, K, generator=gen, device=dev) * K**-0.5
@@ -727,31 +770,85 @@ def main() -> int:
                 plain = lambda: gemm_4bit_paired_nt_plain(Gx, qw.data, st.absmax, units, bs)  # noqa: E731
                 Wb = dequantize_paired_fast_plain(qw.data, st.absmax, units, bs, torch.bfloat16)
                 sbytes = (K // bs) * N * 4
+            lib = lambda: torch.matmul(Gx, Wb)  # noqa: E731
             out, ref = run(), plain()
             rel = nt_rel(out, ref)
             assert rel <= 1e-2, f"nt {name}: rel {rel}"
+            assert torch.equal(run(), out), f"nt {name}: a second call differs"
             ms = cuda_time(run, flush_l2=True)["median"]
             pms = cuda_time(plain, n=3)["median"]
-            lms = cuda_time(lambda: torch.matmul(Gx, Wb), flush_l2=True)["median"]
+            lms = cuda_time(lib, flush_l2=True)["median"]
+            dev_ms = cuda_time(run, flush_l2=True, hold=True)["median"]
+            lib_dev = cuda_time(lib, flush_l2=True, hold=True)["median"]
+            rows, splits = PT.nt_plan(M, N, K, sms)
+            nbytes = M * N * 2 + N * K // 2 + sbytes + M * K * 2
+            per_shape.append({"linear": name + "^T", "N": N, "K": K, "M": M, "ms": ms, "plain_ms": pms,
+                              "library_ms": lms, "device_ms": dev_ms, "library_device_ms": lib_dev,
+                              "splits": splits, "rows_per_split": rows, "bytes": nbytes,
+                              "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0], "rel_err": rel})
+            if not compress:
+                Pz = torch.zeros_like(qw.data)
+                tz = cuda_time(lambda: gemm_4bit_paired_nt(Gx, Pz, st.absmax, code, bs, (N, K)), flush_l2=True,
+                               hold=True)["median"]
+                per_shape[-1].update(zero_payload_device_ms=tz)
+                tot["zero_payload"] += tz
+                del Pz
             Gx = Gx.to(torch.float16)  # the same linear with f16 g
             assert nt_rel(run(), plain()) <= 1e-2, f"nt {name} f16"
             tot["f16"] += cuda_time(run, flush_l2=True)["median"]
-            nbytes = M * N * 2 + N * K // 2 + sbytes + M * K * 2
-            per_shape.append({"linear": name + "^T", "N": N, "K": K, "M": M, "ms": ms, "plain_ms": pms,
-                              "library_ms": lms, "bytes": nbytes,
-                              "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0], "rel_err": rel})
-            for key, v in (("ms", ms), ("plain", pms), ("lib", lms), ("bytes", nbytes), ("ops", 2 * M * N * K)):
+            for key, v in (("ms", ms), ("plain", pms), ("lib", lms), ("bytes", nbytes), ("ops", 2 * M * N * K),
+                           ("device", dev_ms), ("lib_device", lib_dev)):
                 tot[key] += v
             tot["err"] = max(tot["err"], (out.float() - ref).abs().max().item())
             del qw, Wb, out, ref
         return tot, per_shape
 
+    def nt_rows(compress):
+        """Kernel 7 (or 8) on the four linears transposed at other M and with
+        f16 g: two calls bit-identical, within nt_tol of the plain version,
+        device time (host held out) summed over the layer."""
+        sums = {}
+        for name, (N, K) in LINEARS.items():
+            qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev) * K**-0.5, blocksize=bs,
+                                          compress_statistics=compress)
+            st = qw.state
+            for Mx, dt in ((1, torch.bfloat16), (8, torch.bfloat16), (16, torch.float16), (31, torch.bfloat16),
+                           (33, torch.bfloat16)):
+                Gx = torch.randn(Mx, N, generator=gen, device=dev).to(dt)
+                if compress:
+                    args = (qw.data, st.absmax, st.state2.absmax, st.offset)
+                    run = lambda: gemm_4bit_paired_nt_dq(Gx, *args, code, bs, (N, K))  # noqa: E731
+                    ref = gemm_4bit_paired_nt_dq_plain(Gx, *args, units, bs)
+                else:
+                    run = lambda: gemm_4bit_paired_nt(Gx, qw.data, st.absmax, code, bs, (N, K))  # noqa: E731
+                    ref = gemm_4bit_paired_nt_plain(Gx, qw.data, st.absmax, units, bs)
+                o1 = run()
+                assert torch.equal(o1, run()), f"nt {name} M{Mx}: a second call differs"
+                rel = nt_rel(o1, ref)
+                assert rel <= nt_tol(dt), f"nt {name} M{Mx} {dt}: rel {rel}"
+                key = f"M{Mx}_{str(dt)[6:]}"
+                sums[key] = sums.get(key, 0.0) + cuda_time(run, flush_l2=True, hold=True)["median"]
+            del qw
+        return sums
+
+    sms = _sm_count(0)
     for name, compress in (("gemm_4bit_paired_nt", False), ("gemm_4bit_paired_nt_dq", True)):
         tot, per_shape = nt_layer(compress)
+        extra = {}
+        if not compress:
+            extra = {"zero_payload_device_ms": tot["zero_payload"]}
+            emit("k7_splits", sms=sms,
+                 plan={p["linear"]: [p["rows_per_split"], p["splits"]] for p in per_shape})
         entry(name, tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"], PEAK_BF16_FLOPS, tot["err"],
-              per_shape=per_shape, f16_g_ms=tot["f16"],
+              per_shape=per_shape, f16_g_ms=tot["f16"], device_ms=tot["device"],
+              library_device_ms=tot["lib_device"], splits={p["linear"]: p["splits"] for p in per_shape},
+              layer_device_ms_by_M=nt_rows(compress), **extra,
               note="sum over one layer's 4 linears transposed, M=16, bf16 g; library: "
-                   "torch.matmul(g, W) on the dequantized bf16 weight; f16_g_ms: the same with f16 g")
+                   "torch.matmul(g, W) on the dequantized bf16 weight; f16_g_ms: the same with f16 g; "
+                   "device_ms, library_device_ms: the same two with the host held out of the window "
+                   "(hold=True); layer_device_ms_by_M: device ms over the layer at other M and with f16 g"
+                   + ("" if compress else "; zero_payload_device_ms: device ms on an all-zero payload "
+                      "(every codebook load hits one word)"))
     torch.cuda.empty_cache()
 
     # -- 3i. kernel 14: the fused 8-bit optimizer update --------------------
@@ -840,20 +937,23 @@ def main() -> int:
           note="library_ms is null: no PyTorch call keeps 8-bit states; adamw_fused_f32_ms is "
                "torch.optim.AdamW(fused=True) on f32 states of the same size, a different function")
 
-    # -- 3j. the backward threshold: kernel 7 against kernel 3 + matmul ------
+    # -- 3j. the backward threshold: kernels 7 and 8 against kernels 3 and 6 + matmul, device time
     sweep = []
     for name in ("gate_up", "down"):
         N, K = LINEARS[name]
-        qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev) * K**-0.5, blocksize=bs)
-        P, am_t = qw.data, qw.state.absmax
-        for Mx in (1, 8, 16, 32, 64, 128):
+        qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev) * K**-0.5, blocksize=bs,
+                                      compress_statistics=True)
+        st = qw.state
+        P, am_t, dq = qw.data, st.dequant_absmax_t(), (st.absmax, st.state2.absmax, st.offset)
+        for Mx in (1, 8, 16, 32, 48, 64, 96, 128, 192, 256):
             Gx = torch.randn(Mx, N, generator=gen, device=dev).to(torch.bfloat16)
-            k7 = cuda_time(lambda: gemm_4bit_paired_nt(Gx, P, am_t, code, bs, (N, K)), n=10, flush_l2=True)
-            k3 = cuda_time(lambda: torch.matmul(Gx, dequantize_paired_fast(P, am_t, code, bs)), n=10,
-                           flush_l2=True)
-            sweep.append({"linear": name + "^T", "M": Mx, "nt_kernel_ms": k7["median"],
-                          "dequant_matmul_ms": k3["median"]})
-        del qw
+            t = {key: cuda_time(fn, n=10, flush_l2=True, hold=True)["median"] for key, fn in (
+                ("nt_kernel_ms", lambda: gemm_4bit_paired_nt(Gx, P, am_t, code, bs, (N, K))),
+                ("dequant_matmul_ms", lambda: torch.matmul(Gx, dequantize_paired_fast(P, am_t, code, bs))),
+                ("nt_dq_kernel_ms", lambda: gemm_4bit_paired_nt_dq(Gx, P, *dq, code, bs, (N, K))),
+                ("dequant_dq_matmul_ms", lambda: torch.matmul(Gx, dequantize_paired_fast_dq(P, *dq, code, bs))))}
+            sweep.append({"linear": name + "^T", "M": Mx, **t})
+        del qw, am_t, dq
     emit("backward_threshold_sweep", BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD, points=sweep)
     torch.cuda.empty_cache()
 
@@ -1158,7 +1258,6 @@ def main() -> int:
                 sums[key] = sums.get(key, 0.0) + cuda_time(run, flush_l2=True, hold=True)["median"]
         return sums
 
-    sms = _sm_count(0)
     for name, M, backward in (("gemm_4bit_fused", 8, False), ("gemm_4bit_nt_fused", 16, True)):
         tot, per_shape = kadj_layer(M, backward)
         extra = {}
@@ -1192,7 +1291,7 @@ def main() -> int:
     for name in ("gate_up", "down"):
         N, K = LINEARS[name]
         Bq, am = kadj(kq[name])
-        for Mx in (8, 16, 32, 64):
+        for Mx in (8, 16, 32, 48, 64, 96, 128, 192, 256):
             A = torch.randn(Mx, K, generator=gen, device=dev).to(torch.bfloat16)
             Gx = torch.randn(Mx, N, generator=gen, device=dev).to(torch.bfloat16)
             sweep.append({
@@ -1201,9 +1300,9 @@ def main() -> int:
                 "k10_matmul_ms": cuda_time(lambda: torch.matmul(A, dequantize_4bit_2d(Bq, am, code, bs, (N, K)).t()),
                                            n=10, flush_l2=True)["median"],
                 "k11_ms": cuda_time(lambda: gemm_4bit_nt_fused(Gx, Bq, am, code, bs, (N, K)), n=10,
-                                    flush_l2=True)["median"],
+                                    flush_l2=True, hold=True)["median"],
                 "k10_matmul_T_ms": cuda_time(lambda: torch.matmul(Gx, dequantize_4bit_2d(Bq, am, code, bs, (N, K))),
-                                             n=10, flush_l2=True)["median"]})
+                                             n=10, flush_l2=True, hold=True)["median"]})
     emit("threshold_sweep_kadjacent", LARGE_M_THRESHOLD=G.LARGE_M_THRESHOLD,
          BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD, points=sweep)
     del kq

@@ -78,12 +78,13 @@ def test_nt_plain_matches_pallas_interpret(qt, bs, shape, nested, M, g_dtype):
     assert _rel(out.numpy(), np.asarray(ref)) <= (1e-2 if g_dtype == "bfloat16" else 1e-5)
 
 
-@pytest.mark.parametrize("M", [5, 64])
+@pytest.mark.parametrize("M", [5, 64, 128])
 @pytest.mark.parametrize("nested", [False, True])
 def test_grad_A_routing_matches_jax(M, nested):
     """``gemm_4bit_grad_A`` on both routes (the ``_nt`` kernels below the
-    backward threshold, dequantize + matmul at or above it) against the JAX
-    package's, its Pallas kernels in interpret mode."""
+    backward threshold of 128 rows, at M 5 and 64; dequantize + matmul at or
+    above it, at M 128) against the JAX package's, its Pallas kernels in
+    interpret mode."""
     N, K, bs = 256, 512, 64
     jq = _quantized(N, K, bs, "nf4", nested)
     g = jnp.asarray(np.random.default_rng(7).standard_normal((M, N)), jnp.bfloat16)
@@ -105,3 +106,9 @@ def test_nt_raises_on_mixed_devices_and_shapes():
         gemm_4bit_paired_nt(torch.zeros(2, 255), P, am, get_4bit_code("nf4", 64), 64, (256, 512))
     with pytest.raises(ValueError, match="absmax_t"):
         gemm_4bit_paired_nt(torch.zeros(2, 256), P, am[:4], get_4bit_code("nf4", 64), 64, (256, 512))
+    # the nested entry checks the shape before anything that divides by the blocksize
+    codes, s2, off = torch.zeros(8, 256, dtype=torch.uint8), torch.ones(8), torch.zeros(1)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        gemm_4bit_paired_nt_dq(torch.zeros(2, 256), P, codes, s2, off, get_4bit_code("nf4", 64), 0, (256, 512))
+    with pytest.raises(ValueError, match="codes_t"):
+        gemm_4bit_paired_nt_dq(torch.zeros(2, 256), P, codes[:4], s2, off, get_4bit_code("nf4", 64), 64, (256, 512))

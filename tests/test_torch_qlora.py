@@ -14,8 +14,10 @@ optimizer steps are compared on the same model in float32, where both run
 f32 activations: gradients within rtol 2e-2 / atol 2e-3 (as
 ``tests/test_autograd.py``), parameters after an ``adamw8bit`` step within
 1e-6, states within the 8-bit code budget.  ``ids [2, 9]`` (M = 16) takes
-the ``_nt`` kernels' route in the backward, ``ids [4, 17]`` (M = 64) the
-dequantize + matmul route.  The same model stored as the FSDP-QLoRA recipe
+the ``_nt`` kernels' route in the backward, ``ids [4, 33]`` (M = 128) the
+dequantize + matmul route; ``ids [4, 17]`` (M = 64, named when the
+backward threshold was 32) takes the ``_nt`` kernels over two tiles of 32
+rows of g.  The same model stored as the FSDP-QLoRA recipe
 stores it (bf16 ``quant_storage``, the K-adjacent ``"2d"`` layout,
 double-quantized) trains against the JAX package's default tier, whose
 dequantize-then-matmul computes its fused kernel's function (that kernel
@@ -47,7 +49,7 @@ from bitsandbytes_tpu_torch.utils.interop import (
 torch.set_num_threads(1)
 
 TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
-SHAPES = {"M16_nt": (2, 9), "M64_dequant": (4, 17)}
+SHAPES = {"M16_nt": (2, 9), "M64_dequant": (4, 17), "M128_dequant": (4, 33)}
 MIN_8BIT = 1024  # rank-4 tiny adapters: a mix of 8-bit and 32-bit tensors
 
 
@@ -244,13 +246,13 @@ def test_interop_rejects_unknown_keys():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nested", [False, True], ids=["nf4", "nested"])
-@pytest.mark.parametrize("M", [5, 48])
+@pytest.mark.parametrize("M", [5, 48, 128])
 def test_matmul_4bit_grads_match_jax(nested, M, dtype):
     """``matmul_4bit``'s gradients against ``jax.grad`` of the JAX
     package's: f32 activations within rtol 2e-2 / atol 2e-3 (the bias
     within 1e-4 / 1e-6), as ``tests/test_autograd.py``; bf16 activations,
-    whose grad_A takes the ``_nt`` kernel at M 5 and the dequantize route at
-    M 48, within 1e-2 of the largest value (bf16 resolution)."""
+    whose grad_A takes the ``_nt`` kernel at M 5 and 48 and the dequantize
+    route at M 128, within 1e-2 of the largest value (bf16 resolution)."""
     rng = np.random.default_rng(M)
     N, K = 256, 512
     W = (rng.standard_normal((N, K)) / np.sqrt(K)).astype(np.float32)
