@@ -5,22 +5,37 @@
 // [K/blocksize, N]), one per row and quantization block of `blocksize`
 // columns along K.
 //
-// gemm_4bit_paired_kernel replaces the TPU kernel gemm_4bit_paired
-// (_paired_kernel) of the JAX package's ops/pallas/gemm4bit_paired.py:
+// Kernels 2 and 5 replace the TPU kernels gemm_4bit_paired (_paired_kernel)
+// and gemm_4bit_paired_dq (_paired_kernel_dq) of the JAX package's
+// ops/pallas/gemm4bit_paired.py:
 //   out[M, N] = A[M, K] @ dequant(P)^T,   A bf16, f16 or f32
-// with bf16-rounded unit codes, an f32 partial dot per lane and quant block
-// scaled by the block's f32 absmax, all sums in f32.  A is read exactly in
-// f32 (the TPU kernel splits an f32 A into bf16 hi + lo for its MXU).
-// Bound on the H100 at decode M: bytes.  The payload (N*K/2 B) and absmax
-// (N*K/blocksize*4 B) dominate; A and out are small.  One warp owns one row
-// pair n2 and streams P[n2, :] with 8-byte loads along K (a warp reads 256
-// contiguous bytes per step).  A's rows are staged in shared memory in its own
-// type, 32 KB a K tile (M*K*2 bytes does not fit at K = 14336), and reused by
-// the block's 8 warps.
-// The TPU kernel carries its sum across an ordered K grid axis; here the K
-// loop runs inside the block and a warp shuffle reduces the lanes, so no
-// block order is assumed.  Each block takes 8 rows of A; larger M is a grid
-// dimension.
+// with bf16-rounded unit codes, an f32 partial dot per quant block scaled by
+// the block's f32 absmax, all sums in f32 (_subdot_accum).  Bound on the H100
+// at decode M: bytes.  The payload (N*K/2 B) and the scales (N*K/blocksize*4
+// B, or 1 B and a 256th of 4 B nested) dominate; A and out are small, and the
+// products (2*M*N*K) are far under the tensor cores' rate, but not under the
+// CUDA cores': at M 8 one layer's four linears take 0.052 ms of f32 FMAs
+// against a 0.037 ms byte bound.
+// bf16 and f16 A (blocksize % 32 == 0, every quantization blocksize) run
+// gemm_4bit_paired_tc_kernel (below): the products on mma.sync, a payload
+// byte decoded into A registers by one table load, a cp.async ring that keeps
+// three stages of 128 rows x 128 columns in flight, the payload read once per
+// call up to M 32 and A read from L2 once per 128 rows of N, K cut into at
+// most 8 splits to fill the SMs.  What still holds it back is in PERF.md: a
+// fixed cost per call, and the decode's shared-memory loads and issue slots
+// (in probe builds the copies alone, without the decode, ran faster).
+// f32 A has no exact tensor-core product (TF32 would break its contract), so
+// it keeps gemm_4bit_paired_kernel, the CUDA-core body, as does a blocksize
+// that is not a multiple of 32 (which the ops-level wrappers take with scales
+// made by hand): A is read exactly in f32 (the TPU kernel splits an f32 A into
+// bf16 hi + lo for its MXU).  One warp owns one row pair n2 and streams
+// P[n2, :] with 8-byte loads along K (a warp reads 256 contiguous bytes per
+// step).  A's rows are staged in shared memory in its own type, 32 KB a K
+// tile (M*K*2 bytes does not fit at K = 14336), and reused by the block's 8
+// warps.  The TPU kernel carries its sum across an ordered K grid axis; here
+// the K loop runs inside the block and a warp shuffle reduces the lanes, so
+// no block order is assumed.  Each block takes 8 rows of A; larger M is a
+// grid dimension.
 //
 // dequantize_paired_kernel replaces dequantize_paired_fast
 // (_paired_dequant_kernel) of the same file:
@@ -241,6 +256,319 @@ gemm_4bit_paired_kernel(const TA* __restrict__ A, const uint8_t* __restrict__ P,
             }
         }
     }
+}
+
+// bf16 and f16 A with blocksize % 32 == 0: tensor cores (kernels 2 and 5).
+// The weight is the mma's m16 operand and A the n8 operand, so the mma's
+// reduction axis is K and its rows are N.  An m16 tile is 8 row pairs: row
+// q is 2 n2 and row q + 8 is 2 n2 + 1, so the two nibbles of one payload
+// byte are the same lane's rows q and q + 8.  Of each 32-column chunk, a
+// lane (q = lane / 4, t = lane % 4) takes the payload bytes 8t..8t+3 of its
+// row pair as the logical reduction indices 2t, 2t+1, 2t+8, 2t+9 of the
+// chunk's first k16 step and 8t+4..8t+7 as those of its second (the same
+// permutation for A, so the sum is unchanged): one 8-byte payload load is
+// the A registers of two steps, each byte one load from a 256-entry table
+// (byte -> its two unit codes in A's type, exact in bf16 and in f16; one copy
+// per lane, entry b of lane l at word 32 b + l) and a byte permute per
+// register, and one 16-byte load of a row of A is the B registers of both.
+// The C fragment's rows are the row pair's two rows n, so a lane's scales of
+// a quantization block are one float2, absmax_t[blk, 2 n2].
+//   Per quantization block the k16 steps go into a zeroed fragment, which is
+// then added into the running f32 sum times the block's f32 scale: the
+// structure of _subdot_accum, and the same order for both scale loaders, so
+// kernel 5 gives kernel 2's bits on the resolved absmax.
+//   A block owns kFwTN = 128 rows of N (one m16 tile a warp: no cross-warp
+// sum) and up to 32 rows of A (MI n8 tiles, zero rows padding M; above 32,
+// M is a grid dimension), so the payload is read once per call up to M 32.
+// A three-stage cp.async ring (two blocks resident on an SM at every MI;
+// four stages, five, and 256-column stages were slower in probe builds)
+// holds a stage of kFwTK = 128 columns: each row pair's
+// 128 contiguous payload bytes, the scales of the stage's four 32-column
+// chunks (slot c holds the scale of the quantization block that chunk c
+// lies in, so the step that ends a block reads slot c), and A's 128 columns
+// in its type.  A nested state's u8 codes and second-level scales are
+// staged too and decoded in place by the thread that copied them, before the
+// stage's barrier (kernel 8's way).  A is read from L2 once per 128 rows of
+// N.  The grid is N/128 row tiles x S splits of K x ceil(M/32); S <= 8, whole
+// quantization blocks and whole stages a split, chosen by the wrapper to fill
+// the resident blocks of one wave (ops/gemm4bit_paired.gemm_plan); with S > 1
+// each split writes f32 partials and nt_reduce_kernel adds them in split
+// order, so a call gives the same bits every run.
+constexpr int kFwWarps = 8;
+constexpr int kFwThreads = kFwWarps * 32;
+constexpr int kFwTN = 128;             // rows of N a block: one m16 tile a warp
+constexpr int kFwTK = 128;             // columns of K a stage: eight k16 steps
+constexpr int kFwMT = 32;              // rows of A a block
+constexpr int kFwChunks = kFwTK / 32;  // 32-column chunks a stage: one scale slot each
+
+// The four A registers of one k16 step from a payload word (bytes at the
+// lane's logical k 2t, 2t+1, 2t+8, 2t+9): rows q (high nibbles, the table
+// entries' low halves) and q + 8 (low nibbles).
+__device__ __forceinline__ void a_from_word(const uint32_t* lp, uint32_t w, uint32_t* a) {
+    const uint32_t t0 = lp[(w & 0xFFu) << 5], t1 = lp[((w >> 8) & 0xFFu) << 5];
+    const uint32_t t2 = lp[((w >> 16) & 0xFFu) << 5], t3 = lp[(w >> 24) << 5];
+    a[0] = __byte_perm(t0, t1, 0x5410);
+    a[1] = __byte_perm(t0, t1, 0x7632);
+    a[2] = __byte_perm(t2, t3, 0x5410);
+    a[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+template <class TA> __device__ __forceinline__ void mma_t(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+    if constexpr (std::is_same<TA, __half>::value)
+        mma_f16(c, a, b0, b1);
+    else
+        mma_bf16(c, a, b0, b1);
+}
+
+template <int MI>
+struct FwLayout {
+    static constexpr int kStages = 3;  // two blocks an SM at every MI (four were slower at M 8 and 16; PERF.md)
+    static constexpr int kPayStride = kFwTK + 32;   // bytes a staged row pair: pairs 8 banks apart
+    static constexpr int kAStride = kFwTK + 32;     // elements a staged row of A: rows 16 banks apart
+    static_assert(kPayStride / 4 % 32 == 8 && kAStride * 2 / 4 % 32 == 16, "conflict-free fragment loads");
+    static constexpr int kPay = (kFwTN / 2) * kPayStride;
+    static constexpr int kSc = kFwChunks * kFwTN * 4;
+    static constexpr int kCodes = kFwChunks * kFwTN;  // a nested state's u8 codes, as kSc
+    static constexpr int kA = MI * 8 * kAStride * 2;
+    static constexpr int kStage = kPay + kSc + kCodes + kA;
+    static constexpr int kTables = 256 * 32 * 4 + 1024;  // s_pair (256 u32 x 32 lanes), the nested map (256 f32)
+    static constexpr int kBytes = kTables + kStages * kStage;
+    static_assert(kPay % 16 == 0 && kSc % 16 == 0 && kCodes % 16 == 0 && kA % 16 == 0, "16-byte aligned");
+};
+
+template <class TA, class Scales, int MI>
+__global__ void __launch_bounds__(kFwThreads, 2)
+gemm_4bit_paired_tc_kernel(const TA* __restrict__ A, const uint8_t* __restrict__ P, Scales scales,
+                           float* __restrict__ part, void* __restrict__ out, int out_f32, int M, int N, int K,
+                           int blocksize, int k_per_split, Units16 units) {
+    using L = FwLayout<MI>;
+    constexpr int kStages = L::kStages;
+    constexpr bool kNested = Scales::kTable > 1;
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint32_t* s_pair = reinterpret_cast<uint32_t*>(smem);
+    float* s_table = reinterpret_cast<float*>(smem + 256 * 32 * 4);
+    unsigned char* ring = smem + L::kTables;
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int n_lo = blockIdx.x * kFwTN;
+    const int k_lo = blockIdx.y * k_per_split;  // whole quantization blocks and whole stages
+    const int k_hi = min(K, k_lo + k_per_split);
+    const int m0 = blockIdx.z * kFwMT;
+    const int stages = (k_hi - k_lo + kFwTK - 1) / kFwTK;
+    const int pairs = (min(N, n_lo + kFwTN) - n_lo) / 2;  // live row pairs of the tile
+
+    // Copies, each thread's sources fixed but for a stride a stage: 16-byte
+    // payload chunks (a row pair's in neighbouring lanes), A's 16-byte
+    // chunks, and the scales of a slot's rows in neighbouring lanes.
+    constexpr int kRowChunks = kFwTK / 16;
+    constexpr int kPayCopies = (kFwTN / 2) * kRowChunks / kFwThreads;
+    constexpr int kAChunks = MI * 8 * (kFwTK / 8);
+    constexpr int kACopies = (kAChunks + kFwThreads - 1) / kFwThreads;
+    const uint8_t* p_src[kPayCopies];
+    int p_dst[kPayCopies], p_col[kPayCopies];
+    bool p_ok[kPayCopies];
+#pragma unroll
+    for (int j = 0; j < kPayCopies; ++j) {
+        const int i = tid + j * kFwThreads;
+        const int pair = i / kRowChunks, c = i % kRowChunks;
+        p_ok[j] = pair < pairs;
+        p_col[j] = k_lo + 16 * c;  // K % 32 == 0: 16 columns are all in or all out
+        p_src[j] = P + (size_t)(n_lo / 2 + pair) * K + k_lo + 16 * c;
+        p_dst[j] = pair * L::kPayStride + 16 * c;
+    }
+    const TA* a_src[kACopies];
+    int a_dst[kACopies], a_col[kACopies];
+    bool a_ok[kACopies];
+#pragma unroll
+    for (int j = 0; j < kACopies; ++j) {
+        const int i = tid + j * kFwThreads;
+        const int m = i / (kFwTK / 8), c = i % (kFwTK / 8);
+        a_ok[j] = m0 + m < M;
+        a_col[j] = k_lo + 8 * c;
+        a_src[j] = A + (size_t)(m0 + m) * K + k_lo + 8 * c;
+        a_dst[j] = L::kPay + L::kSc + L::kCodes + (m * L::kAStride + 8 * c) * 2;
+    }
+    // Scale copies.  Plain: one 4-byte scale a copy.  Nested: a quad of four
+    // rows of one slot a thread: its four u8 codes as one 4-byte copy (plain
+    // loads where rows of codes_t are not 4-byte aligned) and its four
+    // second-level scales.  Each copy walks its chunk's quantization block
+    // along with the stages (blk, and rem: the chunk's place in the block),
+    // so the stage loop divides by nothing.
+    constexpr int kUnit = kNested ? 4 : 1;  // rows a scale copy covers
+    constexpr int kUnitsAll = kFwChunks * kFwTN / kUnit;
+    constexpr int kUnits = (kUnitsAll + kFwThreads - 1) / kFwThreads;
+    const int per_blk = blocksize / 32;  // chunks a quantization block
+    int s_blk[kUnits], s_rem[kUnits], s_col[kUnits], s_dst[kUnits], s_live[kUnits];
+    size_t s_row[kUnits];
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+        const int i = tid + j * kFwThreads;
+        const int c = i / (kFwTN / kUnit), r = (i % (kFwTN / kUnit)) * kUnit;
+        const int chunk = k_lo / 32 + c;
+        s_blk[j] = chunk / per_blk;
+        s_rem[j] = chunk % per_blk;
+        s_col[j] = k_lo + 32 * c;  // at stage 0
+        s_dst[j] = c * kFwTN + r;
+        s_row[j] = (size_t)n_lo + r;
+        s_live[j] = i < kUnitsAll ? min(max(N - n_lo - r, 0), kUnit) : 0;  // live rows of the copy
+    }
+    const bool codes_vec = (N & 3) == 0;  // then a quad's rows are all live or all dead
+    float offset = 0.0f;
+    if constexpr (kNested) offset = __ldg(scales.offset);
+
+    auto load = [&](int s, int slot) {
+        unsigned char* st = ring + slot * L::kStage;
+        const int ks = s * kFwTK;
+#pragma unroll
+        for (int j = 0; j < kPayCopies; ++j) {
+            const bool live = p_ok[j] && p_col[j] + ks < k_hi;
+            cp_async16(st + p_dst[j], live ? p_src[j] + ks : P, live);
+        }
+#pragma unroll
+        for (int j = 0; j < kACopies; ++j) {
+            if (kAChunks % kFwThreads && tid + j * kFwThreads >= kAChunks) continue;  // no zeros past the last
+            const bool live = a_ok[j] && a_col[j] + ks < k_hi;
+            cp_async16(st + a_dst[j], live ? a_src[j] + ks : A, live);
+        }
+#pragma unroll
+        for (int j = 0; j < kUnits; ++j) {
+            if (kUnitsAll % kFwThreads && tid + j * kFwThreads >= kUnitsAll) continue;
+            const int live = s_col[j] + ks < k_hi ? s_live[j] : 0;
+            float* sd = reinterpret_cast<float*>(st + L::kPay) + s_dst[j];
+            if constexpr (kNested) {
+                const size_t off = (size_t)s_blk[j] * scales.N + s_row[j];
+                unsigned char* cd = st + L::kPay + L::kSc + s_dst[j];
+                if (codes_vec) {
+                    cp_async4(cd, live ? scales.codes_t + off : scales.codes_t, live > 0);
+                } else {
+#pragma unroll
+                    for (int x = 0; x < 4; ++x) cd[x] = x < live ? scales.codes_t[off + x] : 0;
+                }
+                const long long f = (long long)s_row[j] * scales.KB + s_blk[j];  // flat first-level block
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+                    cp_async4(sd + x, x < live ? scales.s2 + ((f + x * scales.KB) >> 8) : scales.s2, x < live);
+            } else {
+                scales.stage(sd, (size_t)s_blk[j] * scales.N + s_row[j], live > 0);
+            }
+            // the next stage: this chunk 128 columns on
+            s_rem[j] += kFwChunks;
+            while (s_rem[j] >= per_blk) {
+                s_rem[j] -= per_blk;
+                ++s_blk[j];
+            }
+        }
+    };
+    // A nested stage's scales, decoded in place from this thread's own copies
+    // (rows past N and chunks past the split are never read).
+    auto decode = [&](int s) {
+        if constexpr (kNested) {
+            unsigned char* st = ring + (s % kStages) * L::kStage;
+#pragma unroll
+            for (int j = 0; j < kUnits; ++j) {
+                const int live = s_col[j] + s * kFwTK < k_hi ? s_live[j] : 0;
+                const uint32_t c4 = *reinterpret_cast<const uint32_t*>(st + L::kPay + L::kSc + s_dst[j]);
+                float* sd = reinterpret_cast<float*>(st + L::kPay) + s_dst[j];
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+                    if (x < live) sd[x] = scales.decode(s_table, (c4 >> (8 * x)) & 0xFFu, sd[x], offset);
+            }
+        }
+    };
+
+    // the first stages in flight, then the tables (read after the loop's first barrier)
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+        if (s < stages) load(s, s);
+        cp_async_commit();
+    }
+    for (int i = tid; i < 256 * 32; i += kFwThreads) {
+        const float hi = units.v[i >> 9], lo = units.v[(i >> 5) & 15];  // entry i >> 5, lane i & 31
+        s_pair[i] = std::is_same<TA, __half>::value ? pack2<__half>(hi, lo) : pack_bf16x2(hi, lo);
+    }
+    scales.prologue(s_table, tid, kFwThreads);
+    if constexpr (kNested) __syncthreads();  // the first decode reads the map before the loop's first barrier
+
+    // This lane's part of the mma: m16 tile `warp` (row pairs 8 warp + q),
+    // rows of A q of each n8 tile, and of each 32-column chunk the columns
+    // 8t..8t+3 (its first k16 step) and 8t+4..8t+7 (its second): one 8-byte
+    // payload load and one 16-byte load of a row of A feed two mma.
+    const int q = lane >> 2, t = lane & 3;
+    const uint32_t* lp = s_pair + lane;  // this lane's copy of the table
+    const int chunks_per_blk = blocksize / 32;
+    int left = chunks_per_blk;  // chunks to the end of the current quantization block
+    float acc[MI][4], frag[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[mi][x] = frag[mi][x] = 0.0f;
+
+    for (int s = 0; s < stages; ++s) {
+        cp_async_wait<kStages - 2>();  // this thread's copies of stage s have landed
+        decode(s);
+        __syncthreads();  // stage s is complete everywhere; the slot of stage s - 1 is free
+        const int nxt = s + kStages - 1;
+        if (nxt < stages) load(nxt, nxt % kStages);
+        cp_async_commit();
+
+        const unsigned char* st = ring + (s % kStages) * L::kStage;
+        const uint2* pw = reinterpret_cast<const uint2*>(st + (warp * 8 + q) * L::kPayStride) + t;
+        const float* ssc = reinterpret_cast<const float*>(st + L::kPay) + 2 * (warp * 8 + q);
+        const uint4* sa = reinterpret_cast<const uint4*>(st + L::kPay + L::kSc + L::kCodes) + q * (L::kAStride / 8) + t;
+        auto chunk = [&](int c) {
+            const uint2 w = pw[4 * c];
+            uint32_t a0[4], a1[4];
+            a_from_word(lp, w.x, a0);
+            a_from_word(lp, w.y, a1);
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) {
+                const uint4 b = sa[mi * L::kAStride + 4 * c];  // 8 rows a tile: mi * 8 * kAStride / 8
+                mma_t<TA>(frag[mi], a0, b.x, b.y);
+                mma_t<TA>(frag[mi], a1, b.z, b.w);
+            }
+            if (--left == 0) {  // the block ends with this chunk: its scales are in slot c
+                const float2 sc = *reinterpret_cast<const float2*>(ssc + c * kFwTN);
+#pragma unroll
+                for (int mi = 0; mi < MI; ++mi) {
+                    acc[mi][0] += frag[mi][0] * sc.x;
+                    acc[mi][1] += frag[mi][1] * sc.x;
+                    acc[mi][2] += frag[mi][2] * sc.y;
+                    acc[mi][3] += frag[mi][3] * sc.y;
+#pragma unroll
+                    for (int x = 0; x < 4; ++x) frag[mi][x] = 0.0f;
+                }
+                left = chunks_per_blk;
+            }
+        };
+        const int live = min(kFwTK, k_hi - k_lo - s * kFwTK) / 32;  // chunks inside the split
+        if (live == kFwChunks) {
+#pragma unroll
+            for (int c = 0; c < kFwChunks; ++c) chunk(c);
+        } else {
+            for (int c = 0; c < live; ++c) chunk(c);
+        }
+    }
+    cp_async_wait<0>();
+
+    // c[h] and c[2 + h] are rows n and n + 1 of A's row 2t + h
+    const int n = n_lo + 2 * (warp * 8 + q);
+    if (n >= N) return;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int m = m0 + mi * 8 + 2 * t + h;
+            if (m >= M) continue;
+            const float lo = acc[mi][h], hi = acc[mi][2 + h];
+            if (part)
+                *reinterpret_cast<float2*>(part + ((size_t)blockIdx.y * M + m) * N + n) = make_float2(lo, hi);
+            else if (out_f32)
+                *reinterpret_cast<float2*>(static_cast<float*>(out) + (size_t)m * N + n) = make_float2(lo, hi);
+            else
+                *reinterpret_cast<uint32_t*>(static_cast<TA*>(out) + (size_t)m * N + n) = pack2<TA>(lo, hi);
+        }
 }
 
 constexpr int kDqThreads = 256;
@@ -740,22 +1068,82 @@ void launch_gemm_t(const void* A, const uint8_t* P, const Scales& sc, void* out,
         static_cast<const TA*>(A), P, sc, static_cast<TOut*>(out), M, N, K, blocksize, u);
 }
 
+template <class TA, class Scales, int MI>
+int launch_gemm_tc(const void* A, const uint8_t* P, const Scales& sc, float* part, void* out, int out_f32, int M,
+                   int N, int K, int blocksize, int k_per_split, int splits, const Units16& u, cudaStream_t stream) {
+    using L = FwLayout<MI>;
+    const cudaError_t e = cudaFuncSetAttribute(gemm_4bit_paired_tc_kernel<TA, Scales, MI>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((N + kFwTN - 1) / kFwTN, splits, (M + kFwMT - 1) / kFwMT);
+    gemm_4bit_paired_tc_kernel<TA, Scales, MI><<<grid, kFwThreads, L::kBytes, stream>>>(
+        static_cast<const TA*>(A), P, sc, splits > 1 ? part : nullptr, out, out_f32, M, N, K, blocksize,
+        k_per_split, u);
+    if (splits > 1) {  // queued at once behind it: no host round trip between the two
+        const long long mn = (long long)M * N;
+        const unsigned blocks = (unsigned)((mn + 255) / 256);
+        if (out_f32)
+            nt_reduce_kernel<float><<<blocks, 256, 0, stream>>>(part, static_cast<float*>(out), mn, splits);
+        else
+            nt_reduce_kernel<TA><<<blocks, 256, 0, stream>>>(part, static_cast<TA*>(out), mn, splits);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <class TA, class Scales>
+int launch_gemm_tc_m(const void* A, const uint8_t* P, const Scales& sc, float* part, void* out, int out_f32, int M,
+                     int N, int K, int blocksize, int k_per_split, int splits, const Units16& u,
+                     cudaStream_t stream) {
+    if (M <= 8)
+        return launch_gemm_tc<TA, Scales, 1>(A, P, sc, part, out, out_f32, M, N, K, blocksize, k_per_split, splits,
+                                             u, stream);
+    if (M <= 16)
+        return launch_gemm_tc<TA, Scales, 2>(A, P, sc, part, out, out_f32, M, N, K, blocksize, k_per_split, splits,
+                                             u, stream);
+    return launch_gemm_tc<TA, Scales, 4>(A, P, sc, part, out, out_f32, M, N, K, blocksize, k_per_split, splits, u,
+                                         stream);
+}
+
+// The shapes and the split plan, checked before anything is read: splits of
+// K covering it, none empty.  The caller chooses the kernel (tc,
+// ops/gemm4bit_paired._gemm_uses_tc); the tensor-core one takes 16-bit A,
+// blocksize % 32 == 0, splits of whole quantization blocks and whole stages
+// (k_per_split a multiple of both) and partials for more than one split; the
+// CUDA-core one one split.
+bool gemm_args_ok(int M, int N, int K, int blocksize, int k_per_split, int splits, int tc, const float* part,
+                  int a_kind) {
+    if (!gemm_shape_ok(M, N, K, blocksize) || k_per_split < 1 || splits < 1
+        || (long long)k_per_split * (splits - 1) >= K || (long long)k_per_split * splits < K)
+        return false;
+    if (a_kind != kF32 && a_kind != kBf16 && a_kind != kF16) return false;
+    if (tc)
+        return a_kind != kF32 && blocksize % 32 == 0 && k_per_split % blocksize == 0 && k_per_split % kFwTK == 0
+               && (splits == 1 || part != nullptr);
+    return splits == 1;
+}
+
 // out in A's type, or f32 when out_f32 (an f32 A writes f32).
 template <class Scales>
-int launch_gemm(const void* A, const uint8_t* P, const Scales& sc, void* out, int M, int N,
-                int K, int blocksize, const float* units, int a_kind, int out_f32, cudaStream_t stream) {
+int launch_gemm(const void* A, const uint8_t* P, const Scales& sc, float* part, void* out, int M, int N, int K,
+                int blocksize, int k_per_split, int splits, int tc, const float* units, int a_kind, int out_f32,
+                cudaStream_t stream) {
     const Units16 u = load_units(units);
+    if (tc) {
+        if (a_kind == kBf16)
+            return launch_gemm_tc_m<__nv_bfloat16>(A, P, sc, part, out, out_f32, M, N, K, blocksize, k_per_split,
+                                                   splits, u, stream);
+        return launch_gemm_tc_m<__half>(A, P, sc, part, out, out_f32, M, N, K, blocksize, k_per_split, splits, u,
+                                        stream);
+    }
     switch (a_kind) {
         case kF32: launch_gemm_t<float, float>(A, P, sc, out, M, N, K, blocksize, u, stream); break;
         case kBf16:
             if (out_f32) launch_gemm_t<__nv_bfloat16, float>(A, P, sc, out, M, N, K, blocksize, u, stream);
             else launch_gemm_t<__nv_bfloat16, __nv_bfloat16>(A, P, sc, out, M, N, K, blocksize, u, stream);
             break;
-        case kF16:
+        default:
             if (out_f32) launch_gemm_t<__half, float>(A, P, sc, out, M, N, K, blocksize, u, stream);
             else launch_gemm_t<__half, __half>(A, P, sc, out, M, N, K, blocksize, u, stream);
-            break;
-        default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
 }
@@ -874,13 +1262,19 @@ bool nested_scales(const uint8_t* codes_t, const float* s2, const float* offset,
 
 }  // namespace
 
-// A [M, K] (a_kind: 0 f32, 1 bf16, 2 f16); out [M, N] in A's type, or f32 when out_f32.
-BNB_EXPORT int bnb_gemm_4bit_paired(const void* A, const uint8_t* P, const float* absmax_t,
-                                    void* out, int M, int N, int K, int blocksize,
-                                    const float* units, int a_kind, int out_f32, cudaStream_t stream) {
-    if (!gemm_shape_ok(M, N, K, blocksize)) return (int)cudaErrorInvalidValue;
-    return launch_gemm(A, P, F32Scales{absmax_t, N}, out, M, N, K, blocksize, units, a_kind, out_f32,
-                       stream);
+// A [M, K] (a_kind: 0 f32, 1 bf16, 2 f16); out [M, N] in A's type, or f32 when
+// out_f32.  Columns [s*k_per_split, (s+1)*k_per_split) of K go to split s.
+// tc != 0 runs the tensor-core kernel, which takes bf16 and f16 A at
+// blocksize % 32 == 0 and splits of whole quantization blocks and 128-column
+// stages; part [splits, M, N] f32 scratch is unread, and may be NULL, for one
+// split.  tc == 0 runs the CUDA-core kernel, one split.  A plan the chosen
+// kernel cannot take is refused.
+BNB_EXPORT int bnb_gemm_4bit_paired(const void* A, const uint8_t* P, const float* absmax_t, float* part,
+                                    void* out, int M, int N, int K, int blocksize, int k_per_split, int splits,
+                                    int tc, const float* units, int a_kind, int out_f32, cudaStream_t stream) {
+    if (!gemm_args_ok(M, N, K, blocksize, k_per_split, splits, tc, part, a_kind)) return (int)cudaErrorInvalidValue;
+    return launch_gemm(A, P, F32Scales{absmax_t, N}, part, out, M, N, K, blocksize, k_per_split, splits, tc, units,
+                       a_kind, out_f32, stream);
 }
 
 // W [N, K] (out_kind as a_kind).
@@ -892,16 +1286,18 @@ BNB_EXPORT int bnb_dequantize_paired(const uint8_t* P, const float* absmax_t, vo
 }
 
 // codes_t [K/blocksize, N] uint8, s2 [ceil(N*K/blocksize / 256)] f32 and offset [1]
-// f32 on the device; dec on the host.
+// f32 on the device; dec on the host.  The plan as bnb_gemm_4bit_paired's.
 BNB_EXPORT int bnb_gemm_4bit_paired_dq(const void* A, const uint8_t* P, const uint8_t* codes_t,
-                                       const float* s2, const float* offset, void* out, int M, int N,
-                                       int K, int blocksize, const float* units,
-                                       const DynDecode* dec, int a_kind, int out_f32, cudaStream_t stream) {
+                                       const float* s2, const float* offset, float* part, void* out, int M,
+                                       int N, int K, int blocksize, int k_per_split, int splits, int tc,
+                                       const float* units, const DynDecode* dec, int a_kind, int out_f32,
+                                       cudaStream_t stream) {
     NestedScales sc;
-    if (!gemm_shape_ok(M, N, K, blocksize)
+    if (!gemm_args_ok(M, N, K, blocksize, k_per_split, splits, tc, part, a_kind)
         || !nested_scales(codes_t, s2, offset, N, K, blocksize, dec, &sc))
         return (int)cudaErrorInvalidValue;
-    return launch_gemm(A, P, sc, out, M, N, K, blocksize, units, a_kind, out_f32, stream);
+    return launch_gemm(A, P, sc, part, out, M, N, K, blocksize, k_per_split, splits, tc, units, a_kind, out_f32,
+                       stream);
 }
 
 BNB_EXPORT int bnb_dequantize_paired_dq(const uint8_t* P, const uint8_t* codes_t, const float* s2,

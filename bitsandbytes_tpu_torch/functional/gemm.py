@@ -5,10 +5,10 @@ Counterpart of the JAX package's ``functional/gemm.py``, over both payload
 orders:
 
 * **paired** (``ops/gemm4bit_paired.py``).  Below :data:`LARGE_M_THRESHOLD`
-  rows of A the decode GEMM kernel reads the packed weight directly; at or
-  above it the dequantize kernel writes the weight once in A's type (bf16,
-  f16 or f32) and ``torch.matmul`` runs the product, as the JAX package
-  leaves the large product to XLA.  A double-quantized paired state over
+  rows of A the decode GEMM kernels (2, and 5 on a nested state) read the
+  packed weight directly; at or above it the dequantize kernel writes the
+  weight once in A's type (bf16, f16 or f32) and ``torch.matmul`` runs the
+  product, as the JAX package leaves the large product to XLA.  A double-quantized paired state over
   the canonical dynamic map (nested blocksize 256, with an offset) runs the
   ``_dq`` kernels, which decode the uint8 absmax where they load it; any
   other nested state is decoded to an f32 absmax first
@@ -17,8 +17,8 @@ orders:
   wider than a byte gives (``ops/gemm4bit.py``).  A payload of a wider
   storage type is read as its bytes; a nested absmax is decoded on the
   device before each call (``QuantState.dequant_absmax``), as the JAX package
-  does on this layout.  Below :data:`LARGE_M_THRESHOLD` rows of A kernel 9
-  (``gemm_4bit_fused``) reads the packed weight; at or above it, with bf16
+  does on this layout.  Below :data:`KADJACENT_LARGE_M_THRESHOLD` rows of A
+  kernel 9 (``gemm_4bit_fused``) reads the packed weight; at or above it, with bf16
   A, kernel 10 (``dequantize_4bit_2d``) and ``torch.matmul``.  (The JAX
   package runs its fused kernel at every M on this layout.)  A weight whose
   rows do not hold whole quantization blocks takes kernel 10 and the matmul
@@ -49,17 +49,25 @@ from .codebooks import get_4bit_code
 from .fourbit import payload_bytes
 from .quant_state import QuantState
 
-__all__ = ["LARGE_M_THRESHOLD", "BACKWARD_LARGE_M_THRESHOLD", "gemm_4bit", "gemv_4bit", "gemm_4bit_grad_A"]
+__all__ = ["LARGE_M_THRESHOLD", "KADJACENT_LARGE_M_THRESHOLD", "BACKWARD_LARGE_M_THRESHOLD", "gemm_4bit",
+           "gemv_4bit", "gemm_4bit_grad_A"]
 
-# Rows of A from which the dequantize + torch.matmul route runs instead of
-# the decode GEMM kernel.  Chosen from chip_smoke.py's sweep of both routes
-# on the gate_up [28672, 4096] and down [4096, 14336] weights (NVIDIA H100
-# 80GB HBM3, 700 W): the kernel wins at M = 16 and loses from M = 32 on,
-# since it re-reads the weight once per 8 rows of A (PERF.md).  The
-# K-adjacent layout's kernel 9 crosses over at the same place (phase 3l:
-# gate_up 0.320 against 0.342 ms at M = 16, 0.636 against 0.342 at M = 32),
-# so both layouts share the constant.
-LARGE_M_THRESHOLD = 32
+# Rows of A from which the paired layout's dequantize + torch.matmul route
+# runs instead of kernels 2 and 5.  Chosen from chip_smoke.py's sweep of both
+# routes (phase 3d) on the gate_up [28672, 4096] and down [4096, 14336]
+# weights at M 8-256, device time with the host held out, bf16 A (NVIDIA H100
+# 80GB HBM3, 700.00 W).  The tensor-core kernels read the payload once per 32
+# rows of A, so their time steps every 32 rows.  Up to M 128 (four steps)
+# both kernels lead on both weights (down at 128: kernel 2 0.1134 against
+# 0.1692 ms, kernel 5 0.1235 against 0.1677; gate_up 0.2134 / 0.2353 against
+# 0.3064 / 0.3027); from M 129 the fifth step makes both trail on down (M
+# 160: 0.2052 / 0.2231 against 0.1686 / 0.1669), and on gate_up from M 192.
+LARGE_M_THRESHOLD = 129
+
+# The same for the K-adjacent layout's kernel 9, which reads the weight once
+# per 8 rows of A (phase 3l, NVIDIA H100 80GB HBM3, 700 W: gate_up 0.320
+# against 0.342 ms at M = 16, 0.636 against 0.342 at M = 32).
+KADJACENT_LARGE_M_THRESHOLD = 32
 
 # Rows of g from which the backward runs the dequantize kernel +
 # torch.matmul instead of the _nt kernels, on both layouts.  Chosen from
@@ -109,7 +117,7 @@ def gemm_4bit(
         M *= s
     if quant_state.layout != "paired":
         B, absmax, code, bs = _kadjacent_args(B_packed, quant_state)
-        if (M >= LARGE_M_THRESHOLD and A.dtype == torch.bfloat16) or not gemm_2d_supported(N, K, bs):
+        if (M >= KADJACENT_LARGE_M_THRESHOLD and A.dtype == torch.bfloat16) or not gemm_2d_supported(N, K, bs):
             W = dequantize_4bit_2d(B, absmax, code, bs, (N, K), A.dtype)
             out = torch.matmul(A, W.t())
         else:

@@ -148,8 +148,9 @@ _SIGNATURES = {
     # x, u (or NULL), codes, absmax, n, blocksize, midpoints[15] (host), order[16] (host),
     # sorted code[16] (host), identity, stream
     "bnb_quantize_4bit_codes": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
-    # A, P, absmax_t, out, M, N, K, blocksize, units[16] (host), a_kind, out_f32, stream
-    "bnb_gemm_4bit_paired": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+    # A, P, absmax_t, part (scratch, or NULL), out, M, N, K, blocksize, k_per_split, splits,
+    # tc (the tensor-core kernel), units[16] (host), a_kind, out_f32, stream
+    "bnb_gemm_4bit_paired": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
     # P, absmax_t, W, N, K, blocksize, units[16] (host), out_kind, stream
     "bnb_dequantize_paired": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     # q, k, v, k_scale (or NULL), v_scale (or NULL), lengths, out, part_acc, part_ml (or NULL), B,
@@ -162,9 +163,9 @@ _SIGNATURES = {
                                   _I, _I, _I, _P],
     # part_acc, part_ml, out, rows, hd, nsplit, stream
     "bnb_flash_attention_combine": [_P, _P, _P, _I, _I, _I, _P],
-    # A, P, codes_t, s2, offset, out, M, N, K, blocksize, units[16] (host),
-    # decode table (host), a_kind, out_f32, stream
-    "bnb_gemm_4bit_paired_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P],
+    # A, P, codes_t, s2, offset, part (or NULL), out, M, N, K, blocksize, k_per_split, splits, tc,
+    # units[16] (host), decode table (host), a_kind, out_f32, stream
+    "bnb_gemm_4bit_paired_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
     # P, codes_t, s2, offset, W, N, K, blocksize, units[16] (host), decode table (host), out_kind,
     # stream
     "bnb_dequantize_paired_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],

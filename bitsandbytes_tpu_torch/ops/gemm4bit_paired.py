@@ -12,8 +12,12 @@ The kernels, all in ``csrc/gemm4bit_paired.cu``:
   partial dot per quant block scaled by the f32 absmax and summed in f32; A
   in bf16, f16 or f32, read exactly (the TPU kernel splits an f32 A into
   bf16 hi + lo).
-  Bound by bytes at decode M (the payload is N*K/2 bytes); one warp streams
-  one row pair along K with A staged in shared memory.
+  Bound by bytes at decode M (the payload is N*K/2 bytes).  bf16 and f16 A
+  run on the tensor cores (``mma.sync``, the weight's unit codes as A, the
+  activations as B), each payload byte read and decoded once per 32 rows of
+  A; K is cut into at most 8 splits (:func:`gemm_plan`) whose f32 partials
+  a second pass adds in split order.  f32 A keeps exact f32 products on the
+  CUDA cores, one warp streaming one row pair along K.
 * :func:`dequantize_paired_fast` replaces ``dequantize_paired_fast``
   (``_paired_dequant_kernel``): ``W[N, K] = dtype(unit(code) * absmax)`` (bf16,
   f16 or f32) for the large-M route.  Bound by bytes; one pass.
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -73,6 +78,7 @@ __all__ = [
     "gemm_4bit_paired_nt_dq",
     "gemm_4bit_paired_nt_dq_plain",
     "nt_plan",
+    "gemm_plan",
 ]
 
 # Quant blocks per batched product in the plain GEMM: bounds its
@@ -171,6 +177,55 @@ def _check_cuda_A(A, out_dtype) -> None:
         raise ValueError(f"the CUDA kernel writes A's type or float32, not {out_dtype}")
 
 
+# the tensor-core forward kernel's tiles (kernels 2 and 5, bf16 and f16 A):
+# 128 rows of N a block, 128 columns of K a stage, 32 rows of A a block, two
+# blocks resident on an SM; splits of K of whole quantization blocks and whole
+# stages, at most 8
+_FW_TN, _FW_TK, _FW_MT, _FW_RESIDENT, _FW_MAX_SPLITS = 128, 128, 32, 2, 8
+
+
+def gemm_plan(M: int, N: int, K: int, blocksize: int, sms: int):
+    """The tensor-core forward kernels' columns of K per split and number of
+    splits S <= 8, for blocks of 128 rows of N and 32 rows of A.  A split
+    holds whole quantization blocks and whole 128-column stages.  S is the
+    most splits whose grid of ``tiles * S`` blocks stays resident in one wave
+    (two blocks on each of ``sms`` SMs), so the most payload bytes are in
+    flight; a grid of a wave or more keeps S = 1.  A pure function of the
+    shapes and the SM count, so a call's bits do not depend on the run."""
+    unit = math.lcm(blocksize, _FW_TK)
+    units = -(-K // unit)
+    tiles = -(-N // _FW_TN) * -(-M // _FW_MT)
+    s = max(1, min(_FW_MAX_SPLITS, units, _FW_RESIDENT * sms // tiles))
+    per_split = -(-units // s) * unit
+    return per_split, -(-K // per_split)
+
+
+def _gemm_uses_tc(dtype, blocksize: int) -> bool:
+    """Whether kernels 2 and 5 run on the tensor cores: the one place this
+    is decided; the C entry points take the answer and refuse a plan the
+    chosen kernel cannot take.  f32 A has no exact tensor-core product (TF32
+    keeps 10 bits), and a stage's scale slots, one per 32 columns, need
+    blocksize % 32 == 0 (every quantization blocksize; the ops-level
+    wrappers also take others, with scales made by hand)."""
+    return dtype != torch.float32 and blocksize % 32 == 0
+
+
+def _launch_gemm(entry: str, A2, P, scale_ptrs, extra, M: int, N: int, K: int, blocksize: int, units, out_dtype):
+    tc = _gemm_uses_tc(A2.dtype, blocksize)
+    k_per_split, splits = gemm_plan(M, N, K, blocksize, _sm_count(A2.device.index or 0)) if tc else (K, 1)
+    # the tensor-core kernel writes out directly where there is one split
+    part = torch.empty(splits * M * N, dtype=torch.float32, device=A2.device) if splits > 1 else None
+    out = torch.empty(M, N, dtype=out_dtype, device=A2.device)
+    err = getattr(_lib.lib(), "bnb_" + entry)(
+        A2.data_ptr(), P.data_ptr(), *scale_ptrs, None if part is None else part.data_ptr(), out.data_ptr(),
+        M, N, K, blocksize, k_per_split, splits, int(tc), _lib.host_f32(units), *extra, _KIND[A2.dtype],
+        int(out_dtype == torch.float32), _lib.stream(A2),
+    )
+    _lib.check(err, entry)
+    _lib.LAUNCHES[entry] += 1
+    return out
+
+
 def gemm_4bit_paired(
     A: torch.Tensor,
     P: torch.Tensor,
@@ -203,14 +258,8 @@ def gemm_4bit_paired(
     if M == 0:
         return torch.empty(*lead, N, dtype=out_dtype, device=A.device)
     _check_aligned(A, P, absmax_t)
-    out = torch.empty(M, N, dtype=out_dtype, device=A.device)
-    err = _lib.lib().bnb_gemm_4bit_paired(
-        A.data_ptr(), P.data_ptr(), absmax_t.data_ptr(), out.data_ptr(),
-        M, N, K, blocksize, _lib.host_f32(units), _KIND[A.dtype], int(out_dtype == torch.float32),
-        _lib.stream(A),
-    )
-    _lib.check(err, "gemm_4bit_paired")
-    _lib.LAUNCHES["gemm_4bit_paired"] += 1
+    out = _launch_gemm("gemm_4bit_paired", A.reshape(M, K), P, (absmax_t.data_ptr(),), (), M, N, K, blocksize,
+                       units, out_dtype)
     return out.reshape(*lead, N)
 
 
@@ -330,15 +379,10 @@ def gemm_4bit_paired_dq(
     if M == 0:
         return torch.empty(*lead, N, dtype=out_dtype, device=A.device)
     _check_aligned(A, P, codes_t)
-    out = torch.empty(M, N, dtype=out_dtype, device=A.device)
     dec = _dyn_decode()
-    err = _lib.lib().bnb_gemm_4bit_paired_dq(
-        A.data_ptr(), P.data_ptr(), codes_t.data_ptr(), s2.data_ptr(), offset.data_ptr(),
-        out.data_ptr(), M, N, K, blocksize, _lib.host_f32(units), ctypes.addressof(dec),
-        _KIND[A.dtype], int(out_dtype == torch.float32), _lib.stream(A),
-    )
-    _lib.check(err, "gemm_4bit_paired_dq")
-    _lib.LAUNCHES["gemm_4bit_paired_dq"] += 1
+    out = _launch_gemm("gemm_4bit_paired_dq", A.reshape(M, K), P,
+                       (codes_t.data_ptr(), s2.data_ptr(), offset.data_ptr()), (ctypes.addressof(dec),),
+                       M, N, K, blocksize, units, out_dtype)
     return out.reshape(*lead, N)
 
 

@@ -10,8 +10,14 @@ Phases (every one asserts; any failure exits non-zero before the result):
 1. Device: the card's name and power limit (nvidia-smi), TF32 off.
 2. Build: compiles the CUDA kernels from ``bitsandbytes_tpu_torch/csrc``.
 3. Kernels against their plain PyTorch versions on the card, at the main
-   paths' shapes (Llama-3-8B geometry), with times, bytes and bounds; the
-   sweep that chose ``functional/gemm.LARGE_M_THRESHOLD``; ragged shapes;
+   paths' shapes (Llama-3-8B geometry), with times, bytes and bounds; kernels
+   2 and 5 also with the host held out of the window at M 8 and 16 and with
+   f16 A, their split plans, each 16-bit call against a second run bit for
+   bit (3b, 3f); the device-time sweep of kernels 2 and 5 against dequantize
+   + matmul that chose ``functional/gemm.LARGE_M_THRESHOLD`` (3d); ragged
+   shapes, kernels 2 and 5 on the tensor cores at M 1-33, N not a multiple of
+   16 and blocksize 32-4096, and mismatched plans refused by their C entries
+   (3e);
    the backward kernels 7 and 8 (3h: ragged shapes up to M 33 and blocksize
    32-512, each 16-bit call against a second run bit for bit, kernel 8
    against kernel 7 on the resolved absmax bit for bit, times with the host
@@ -23,7 +29,7 @@ Phases (every one asserts; any failure exits non-zero before the result):
    mode and kernel 16 (paged, bf16 and int8) at block sizes 16-256, each
    paged result against kernel 4 on the same data (3k); kernels 9, 10 and 11
    on the K-adjacent layout of bf16 ``quant_storage`` and the sweep of their
-   routes (3l; kernel 11 also timed with the host held out, at M 1-33 and
+   routes (3l; kernels 9 and 11 also timed with the host held out, 11 at M 1-33 and
    with f16 g, each call against a second run bit for bit, and its split
    plan printed); kernel 15, the 8-bit AdEMAMix update (3m).  Kernel 1's
    stochastic mode against its plain version on the same uniforms (3a);
@@ -71,6 +77,7 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -303,6 +310,36 @@ def main() -> int:
         weights[name] = QuantizedTensor.quantize(Wf, blocksize=bs)
         assert weights[name].state.layout == "paired"
     M = 8
+    sms = _sm_count(0)
+
+    def fw_device(run, plain, Wb, K, tot, per):
+        """Kernel 2 (or 5) on one linear at M 16 (bf16) and M 8 (f16 A): each
+        against its plain version, its output in A's type against the f32
+        output rounded and a second call bit for bit; then device time with
+        the host held out (hold=True) at M 8 and those two, as torch.matmul
+        on the dequantized weight in A's type beside it; sums into tot, the
+        row into per."""
+        for Mx, dt, key in ((16, torch.bfloat16, "M16_bfloat16"), (8, torch.float16, "M8_float16")):
+            Ax = torch.randn(Mx, K, generator=gen, device=dev).to(dt)
+            o32, ref = run(Ax, torch.float32), plain(Ax)
+            rel = ((o32 - ref).abs().max() / ref.abs().max()).item()
+            o = run(Ax)
+            assert rel <= 1e-3 and torch.equal(o, o32.to(dt)) and torch.equal(o, run(Ax)), \
+                f"gemm M{Mx} {dt}: rel {rel}, its {dt} output, or a second call differs"
+            Wx = Wb.to(dt)
+            for k, fn in ((key, lambda: run(Ax)), (key + "_library", lambda: torch.matmul(Ax, Wx.t()))):
+                per[k + "_device_ms"] = cuda_time(fn, flush_l2=True, hold=True)["median"]
+                tot[k] = tot.get(k, 0.0) + per[k + "_device_ms"]
+            del Wx
+        per["device_ms"] = cuda_time(lambda: run(A), flush_l2=True, hold=True)["median"]
+        per["library_device_ms"] = cuda_time(lambda: torch.matmul(A, Wb.t()), flush_l2=True, hold=True)["median"]
+        tot["device"] = tot.get("device", 0.0) + per["device_ms"]
+        tot["lib_device"] = tot.get("lib_device", 0.0) + per["library_device_ms"]
+
+    def fw_by_M(tot):
+        return {"M8_bfloat16": tot["device"], "M8_bfloat16_library": tot["lib_device"],
+                **{k: tot[k] for k in ("M16_bfloat16", "M16_bfloat16_library", "M8_float16", "M8_float16_library")}}
+
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
     per_shape = []
     a_modes = {"float16": 0.0, "float32": 0.0}  # one layer's 4 linears at M 8, A in that type
@@ -320,19 +357,24 @@ def main() -> int:
             rd = gemm_4bit_paired_plain(Ad, P, am_t, units, bs)
             assert od.dtype == dt and ((od.float() - rd).abs().max() / rd.abs().max()).item() <= 1e-3, \
                 f"gemm {name} {dt}"
+            assert torch.equal(od, gemm_4bit_paired(Ad, P, am_t, code, bs, (N, K))), f"gemm {name} {dt}: a second call"
             a_modes[str(dt)[6:]] += cuda_time(lambda: gemm_4bit_paired(Ad, P, am_t, code, bs, (N, K)),
                                               flush_l2=True)["median"]
         out_bf = gemm_4bit_paired(A, P, am_t, code, bs, (N, K))
         assert torch.equal(out_bf, out.to(torch.bfloat16)), f"gemm {name}: bf16 output"
+        assert torch.equal(out_bf, gemm_4bit_paired(A, P, am_t, code, bs, (N, K))), f"gemm {name}: a second call"
         Wb = dequantize_paired_fast_plain(P, am_t, units, bs, torch.bfloat16)
         ms = cuda_time(lambda: gemm_4bit_paired(A, P, am_t, code, bs, (N, K)), flush_l2=True)["median"]
         pms = cuda_time(lambda: gemm_4bit_paired_plain(A, P, am_t, units, bs), n=5)["median"]
         lms = cuda_time(lambda: torch.matmul(A, Wb.t()), flush_l2=True)["median"]
         nbytes = M * K * 2 + N * K // 2 + (K // bs) * N * 4 + M * N * 2
+        k_per_split, splits = PT.gemm_plan(M, N, K, bs, sms)
         per_shape.append({"linear": name, "N": N, "K": K, "M": M, "ms": ms, "plain_ms": pms,
                           "library_ms": lms, "bytes": nbytes,
                           "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0],
-                          "rel_err": rel})
+                          "rel_err": rel, "splits": splits, "k_per_split": k_per_split})
+        fw_device(lambda X, od=None: gemm_4bit_paired(X, P, am_t, code, bs, (N, K), out_dtype=od),
+                  lambda X: gemm_4bit_paired_plain(X, P, am_t, units, bs), Wb, K, tot, per_shape[-1])
         tot["ms"] += ms
         tot["plain"] += pms
         tot["lib"] += lms
@@ -340,9 +382,15 @@ def main() -> int:
         tot["ops"] += 2 * M * N * K
         tot["err"] = max(tot["err"], (out - ref).abs().max().item())
         del Wb
+    emit("k2_splits", sms=sms, plan={p["linear"]: [p["k_per_split"], p["splits"]] for p in per_shape})
     entry("gemm_4bit_paired", tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"],
-          PEAK_BF16_FLOPS, tot["err"], per_shape=per_shape, a_dtype_ms=a_modes,
-          note="sum over one layer's 4 linears at M=8; a_dtype_ms: the same with f16 and f32 A")
+          PEAK_BF16_FLOPS, tot["err"], per_shape=per_shape, a_dtype_ms=a_modes, device_ms=tot["device"],
+          library_device_ms=tot["lib_device"], splits={p["linear"]: p["splits"] for p in per_shape},
+          layer_device_ms_by_M=fw_by_M(tot),
+          note="sum over one layer's 4 linears at M=8; a_dtype_ms: the same with f16 and f32 A; device_ms, "
+               "library_device_ms: kernel 2 and torch.matmul on the bf16 weight with the host held out of the "
+               "window (hold=True); layer_device_ms_by_M: device ms over the layer at M 16 and with f16 A, and "
+               "torch.matmul's (_library)")
 
     N, K = LINEARS["gate_up"]
     P, am_t = weights["gate_up"].data, weights["gate_up"].state.absmax
@@ -458,20 +506,25 @@ def main() -> int:
                "null: no single PyTorch call computes it")
     del kc, vc, part_acc, part_ml
 
-    # -- 3d. the large-M threshold: kernel 2 against kernel 3 + matmul ----
+    # -- 3d. the large-M threshold: kernels 2 and 5 against kernels 3 and 6 + matmul, device time
     sweep = []
     for name in ("gate_up", "down"):
         N, K = LINEARS[name]
         P, am_t = weights[name].data, weights[name].state.absmax
-        for Mx in (16, 32, 64, 256, 1024):
+        qn = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev) * K**-0.5, blocksize=bs,
+                                      compress_statistics=True)
+        dq = (qn.data, qn.state.absmax, qn.state.state2.absmax, qn.state.offset)
+        for Mx in (8, 16, 32, 48, 64, 96, 128, 160, 192, 224, 256):
             A = torch.randn(Mx, K, generator=gen, device=dev).to(torch.bfloat16)
-            k2 = cuda_time(lambda: gemm_4bit_paired(A, P, am_t, code, bs, (N, K)), n=10, flush_l2=True)
-            k3 = cuda_time(
-                lambda: torch.matmul(A, dequantize_paired_fast(P, am_t, code, bs).t()), n=10, flush_l2=True
-            )
-            sweep.append({"linear": name, "M": Mx, "gemm_kernel_ms": k2["median"],
-                          "dequant_matmul_ms": k3["median"]})
-    emit("threshold_sweep", LARGE_M_THRESHOLD=G.LARGE_M_THRESHOLD, points=sweep)
+            t = {key: cuda_time(fn, n=10, flush_l2=True, hold=True)["median"] for key, fn in (
+                ("gemm_kernel_ms", lambda: gemm_4bit_paired(A, P, am_t, code, bs, (N, K))),
+                ("dequant_matmul_ms", lambda: torch.matmul(A, dequantize_paired_fast(P, am_t, code, bs).t())),
+                ("gemm_dq_kernel_ms", lambda: gemm_4bit_paired_dq(A, *dq, code, bs, (N, K))),
+                ("dequant_dq_matmul_ms", lambda: torch.matmul(A, dequantize_paired_fast_dq(*dq, code, bs).t())))}
+            sweep.append({"linear": name, "M": Mx, "splits": PT.gemm_plan(Mx, N, K, bs, sms)[1], **t})
+        del qn, dq
+    emit("threshold_sweep", LARGE_M_THRESHOLD=G.LARGE_M_THRESHOLD, points=sweep,
+         note="device ms (hold=True), bf16 A, median of 10, the L2 flushed before each call")
     del weights
     torch.cuda.empty_cache()
 
@@ -513,6 +566,81 @@ def main() -> int:
         cases.append(f"flash B{Bx} KVH{H} G{Gx} T{T} S{Sx} window{win}")
     emit("ragged_shapes", passed=cases)
 
+    # kernels 2 and 5 on the tensor cores at ragged shapes: M 1-33 (one to four
+    # n8 tiles, then the grid over M), N not a multiple of 16, blocksizes
+    # 32-4096, most cut into splits of K; each 16-bit call against its plain version, a
+    # second call bit for bit, its f32 output rounded bit for bit, and kernel
+    # 5 against kernel 2 on the resolved absmax bit for bit
+    cases = []
+    for Mx, N, K, gbs in ((1, 2, 32, 32), (3, 18, 96, 32), (8, 130, 4160, 64), (13, 258, 2176, 128),
+                          (16, 1030, 2048, 64), (17, 640, 2048, 32), (24, 66, 4096, 256), (31, 250, 8192, 4096),
+                          (32, 4096, 14336, 64), (33, 646, 2048, 64), (5, 98, 768, 256), (9, 514, 1024, 512)):
+        gcode = get_4bit_code("nf4", gbs)
+        for compress in (False, True):
+            qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev), blocksize=gbs,
+                                          compress_statistics=compress)
+            st = qw.state
+            am_t = st.dequant_absmax_t() if compress else st.absmax
+            if compress:
+                args = (qw.data, st.absmax, st.state2.absmax, st.offset)
+                run = lambda X, od=None: gemm_4bit_paired_dq(X, *args, gcode, gbs, (N, K), out_dtype=od)  # noqa: E731
+            else:
+                run = lambda X, od=None: gemm_4bit_paired(X, qw.data, am_t, gcode, gbs, (N, K), out_dtype=od)  # noqa: E731
+            for dt in (torch.bfloat16, torch.float16):
+                A = torch.randn(Mx, K, generator=gen, device=dev).to(dt)
+                o32 = run(A, torch.float32)
+                ref = gemm_4bit_paired_plain(A, qw.data, am_t, units, gbs)
+                rel = ((o32 - ref).abs().max() / ref.abs().max()).item()
+                assert rel <= 1e-3, f"gemm tc {(Mx, N, K, gbs, compress, dt)}: rel {rel}"
+                o16 = run(A)
+                assert torch.equal(o16, o32.to(dt)) and torch.equal(o16, run(A)), \
+                    f"gemm tc {(Mx, N, K, gbs, compress, dt)}: 16-bit output, or a second call differs"
+                if compress:
+                    assert torch.equal(o32, gemm_4bit_paired(A, qw.data, am_t, gcode, gbs, (N, K),
+                                                             out_dtype=torch.float32)), \
+                        f"gemm_dq tc {(Mx, N, K, gbs, dt)}: differs from kernel 2 on the resolved absmax"
+            cases.append(f"gemm{'_dq' if compress else ''} tc M{Mx} N{N} K{K} bs{gbs} bf16/f16 "
+                         f"splits {PT.gemm_plan(Mx, N, K, gbs, sms)[1]}")
+            del qw, am_t
+    emit("ragged_shapes_tc", passed=cases)
+
+    # The wrapper alone decides which kernel a call takes (PT._gemm_uses_tc)
+    # and passes it as tc with the plan; the C entry refuses a plan that
+    # kernel cannot take, before it reads anything.
+    Nr, Kr = 256, 1024
+    qw = QuantizedTensor.quantize(torch.randn(Nr, Kr, generator=gen, device=dev), blocksize=64,
+                                  compress_statistics=True)
+    am_r = qw.state.dequant_absmax_t()
+    out_r = torch.empty(4, Nr, dtype=torch.float32, device=dev)
+    part_r = torch.empty(16 * 4 * Nr, dtype=torch.float32, device=dev)
+    refused = []
+    for what, dt, gbs, Kx, kps, splits, tc, part in (
+            ("f32 A on the tensor cores", torch.float32, 64, Kr, 1024, 1, 1, None),
+            ("blocksize 40 on the tensor cores", torch.bfloat16, 40, 1040, 1040, 1, 1, None),
+            ("splits of part of a quantization block", torch.bfloat16, 256, Kr, 384, 3, 1, part_r),
+            ("splits of part of a stage", torch.bfloat16, 32, Kr, 96, 11, 1, part_r),
+            ("two splits without partials", torch.bfloat16, 64, Kr, 512, 2, 1, None),
+            ("splits short of K", torch.bfloat16, 64, Kr, 256, 2, 1, part_r),
+            ("an empty split", torch.bfloat16, 64, Kr, 512, 3, 1, part_r),
+            ("the CUDA-core kernel with two splits", torch.bfloat16, 64, Kr, 512, 2, 0, part_r),
+            ("f32 A split on the CUDA cores", torch.float32, 64, Kr, 512, 2, 0, part_r)):
+        Ar = torch.zeros(4, Kr, dtype=dt, device=dev)
+        err = _lib.lib().bnb_gemm_4bit_paired(
+            Ar.data_ptr(), qw.data.data_ptr(), am_r.data_ptr(), None if part is None else part.data_ptr(),
+            out_r.data_ptr(), 4, Nr, Kx, gbs, kps, splits, tc, _lib.host_f32(units), PT._KIND[dt], 1, _lib.stream(Ar))
+        assert err != 0, f"gemm: a mismatched plan was taken ({what})"
+        refused.append(what)
+    Ar = torch.zeros(4, Kr, dtype=torch.bfloat16, device=dev)
+    err = _lib.lib().bnb_gemm_4bit_paired_dq(
+        Ar.data_ptr(), qw.data.data_ptr(), qw.state.absmax.data_ptr(), qw.state.state2.absmax.data_ptr(),
+        qw.state.offset.data_ptr(), None, out_r.data_ptr(), 4, Nr, Kr, 64, 512, 2, 1, _lib.host_f32(units),
+        ctypes.addressof(PT._dyn_decode()), PT._KIND[torch.bfloat16], 1, _lib.stream(Ar))
+    assert err != 0, "gemm_dq: a mismatched plan was taken (two splits without partials)"
+    refused.append("kernel 5: two splits without partials")
+    torch.cuda.synchronize()
+    del qw, am_r, out_r, part_r
+    emit("gemm_mismatched_plans_refused", cases=refused)
+
     # -- 3f. kernels 5/6 (nested absmax) and 12/13 (blockwise 8-bit) -------
     dyn = create_dynamic_map()
     dyn_t = tuple(float(v) for v in dyn)
@@ -523,7 +651,7 @@ def main() -> int:
         assert nested[name].state.inline_nested
         del Wf
     M = 8
-    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "k2": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "k2": 0.0, "k2_dev": 0.0, "bytes": 0, "ops": 0, "err": 0.0}
     per_shape = []
     a_modes_dq = {"float16": 0.0, "float32": 0.0}
     for name, (N, K) in LINEARS.items():
@@ -543,28 +671,42 @@ def main() -> int:
             od = gemm_4bit_paired_dq(Ad, *args, code, bs, (N, K))
             assert od.dtype == dt and torch.equal(od, gemm_4bit_paired(Ad, qt.data, am_t, code, bs, (N, K))), \
                 f"gemm_dq {name} {dt}: differs from kernel 2 on the resolved absmax"
+            assert torch.equal(od, gemm_4bit_paired_dq(Ad, *args, code, bs, (N, K))), f"gemm_dq {name} {dt}: a second call"
             a_modes_dq[str(dt)[6:]] += cuda_time(lambda: gemm_4bit_paired_dq(Ad, *args, code, bs, (N, K)),
                                                  flush_l2=True)["median"]
+        out_bf = gemm_4bit_paired_dq(A, *args, code, bs, (N, K))
+        assert torch.equal(out_bf, out.to(torch.bfloat16)), f"gemm_dq {name}: bf16 output"
+        assert torch.equal(out_bf, gemm_4bit_paired_dq(A, *args, code, bs, (N, K))), f"gemm_dq {name}: a second call"
         Wb = dequantize_paired_fast_dq_plain(*args, units, bs, torch.bfloat16)
         ms = cuda_time(lambda: gemm_4bit_paired_dq(A, *args, code, bs, (N, K)), flush_l2=True)["median"]
         k2 = cuda_time(lambda: gemm_4bit_paired(A, qt.data, am_t, code, bs, (N, K)), flush_l2=True)["median"]
+        k2_dev = cuda_time(lambda: gemm_4bit_paired(A, qt.data, am_t, code, bs, (N, K)), flush_l2=True,
+                           hold=True)["median"]
         pms = cuda_time(lambda: gemm_4bit_paired_dq_plain(A, *args, units, bs), n=5)["median"]
         lms = cuda_time(lambda: torch.matmul(A, Wb.t()), flush_l2=True)["median"]
         nb2 = st.state2.absmax.numel()
         nbytes = M * K * 2 + N * K // 2 + (K // bs) * N + nb2 * 4 + 4 + M * N * 2
         per_shape.append({"linear": name, "N": N, "K": K, "M": M, "ms": ms, "kernel2_resolved_ms": k2,
-                          "plain_ms": pms, "library_ms": lms, "bytes": nbytes,
-                          "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0], "rel_err": rel})
-        for key, v in (("ms", ms), ("plain", pms), ("lib", lms), ("k2", k2), ("bytes", nbytes),
+                          "kernel2_resolved_device_ms": k2_dev, "plain_ms": pms, "library_ms": lms, "bytes": nbytes,
+                          "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0], "rel_err": rel,
+                          "splits": PT.gemm_plan(M, N, K, bs, sms)[1]})
+        fw_device(lambda X, od=None: gemm_4bit_paired_dq(X, *args, code, bs, (N, K), out_dtype=od),
+                  lambda X: gemm_4bit_paired_dq_plain(X, *args, units, bs), Wb, K, tot, per_shape[-1])
+        for key, v in (("ms", ms), ("plain", pms), ("lib", lms), ("k2", k2), ("k2_dev", k2_dev), ("bytes", nbytes),
                        ("ops", 2 * M * N * K)):
             tot[key] += v
         tot["err"] = max(tot["err"], (out - ref).abs().max().item())
         del Wb, am_t
     entry("gemm_4bit_paired_dq", tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"],
           PEAK_BF16_FLOPS, tot["err"], per_shape=per_shape, kernel2_resolved_ms=tot["k2"], a_dtype_ms=a_modes_dq,
+          device_ms=tot["device"], library_device_ms=tot["lib_device"], kernel2_resolved_device_ms=tot["k2_dev"],
+          splits={p["linear"]: p["splits"] for p in per_shape},
+          layer_device_ms_by_M=fw_by_M(tot),
           note="sum over one layer's 4 nested linears at M=8; kernel2_resolved_ms is kernel 2 on "
                "the same weights with the absmax decoded to f32, timed in the same run; a_dtype_ms: "
-               "with f16 and f32 A")
+               "with f16 and f32 A; device_ms, library_device_ms, kernel2_resolved_device_ms: the same with "
+               "the host held out of the window (hold=True); layer_device_ms_by_M: device ms over the layer "
+               "at M 16 and with f16 A")
 
     N, K = LINEARS["gate_up"]
     qt = nested["gate_up"]
@@ -1223,15 +1365,15 @@ def main() -> int:
             per_shape.append({"linear": name + ("^T" if backward else ""), "N": N, "K": K, "M": M, "ms": ms,
                               "plain_ms": pms, "library_ms": lms, "nested_decode_ms": dms, "bytes": nbytes,
                               "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0], "rel_err": rel})
+            dev_ms = cuda_time(run, flush_l2=True, hold=True)["median"]
+            lib_dev = cuda_time(lib, flush_l2=True, hold=True)["median"]
+            per_shape[-1].update(device_ms=dev_ms, library_device_ms=lib_dev)
+            tot["device"] += dev_ms
+            tot["lib_device"] += lib_dev
             if backward:
                 assert torch.equal(run(), out), f"k11 {name}: a second call differs"
                 rows, splits = nt_plan(M, N, K, sms)
-                dev_ms = cuda_time(run, flush_l2=True, hold=True)["median"]
-                lib_dev = cuda_time(lib, flush_l2=True, hold=True)["median"]
-                per_shape[-1].update(device_ms=dev_ms, library_device_ms=lib_dev, splits=splits,
-                                     rows_per_split=rows)
-                tot["device"] += dev_ms
-                tot["lib_device"] += lib_dev
+                per_shape[-1].update(splits=splits, rows_per_split=rows)
             for key, v in (("ms", ms), ("plain", pms), ("lib", lms), ("decode", dms), ("bytes", nbytes),
                            ("ops", 2 * M * N * K)):
                 tot[key] += v
@@ -1260,20 +1402,19 @@ def main() -> int:
 
     for name, M, backward in (("gemm_4bit_fused", 8, False), ("gemm_4bit_nt_fused", 16, True)):
         tot, per_shape = kadj_layer(M, backward)
-        extra = {}
+        extra = {"device_ms": tot["device"], "library_device_ms": tot["lib_device"]}
         if backward:
-            extra = {"device_ms": tot["device"], "library_device_ms": tot["lib_device"],
-                     "splits": {p["linear"]: p["splits"] for p in per_shape}, "layer_device_ms_by_M": k11_rows()}
+            extra.update(splits={p["linear"]: p["splits"] for p in per_shape}, layer_device_ms_by_M=k11_rows())
             emit("k11_splits", sms=sms, plan={p["linear"]: [p["rows_per_split"], p["splits"]] for p in per_shape})
         entry(name, tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"], PEAK_BF16_FLOPS, tot["err"],
               per_shape=per_shape, nested_decode_ms=tot["decode"], **extra,
               note=f"sum over one layer's 4 linears{' transposed' if backward else ''} at M={M}, bf16 "
                    f"{'g' if backward else 'A'}, bf16 quant_storage, the nested absmax decoded to f32 beforehand "
                    "(nested_decode_ms: that decode, the path's per-call cost, timed apart); library: torch.matmul "
-                   "on the dequantized bf16 weight"
-                   + ("; device_ms, library_device_ms: the same two with the host held out of the window "
-                      "(hold=True); layer_device_ms_by_M: kernel 11's device ms over the layer at other M and "
-                      "with f16 g" if backward else ""))
+                   "on the dequantized bf16 weight; device_ms, library_device_ms: the same two with the host held "
+                   "out of the window (hold=True)"
+                   + ("; layer_device_ms_by_M: kernel 11's device ms over the layer at other M and with f16 g"
+                      if backward else ""))
 
     N, K = LINEARS["gate_up"]
     Bq, am = kadj(kq["gate_up"])
@@ -1303,7 +1444,7 @@ def main() -> int:
                                     flush_l2=True, hold=True)["median"],
                 "k10_matmul_T_ms": cuda_time(lambda: torch.matmul(Gx, dequantize_4bit_2d(Bq, am, code, bs, (N, K))),
                                              n=10, flush_l2=True, hold=True)["median"]})
-    emit("threshold_sweep_kadjacent", LARGE_M_THRESHOLD=G.LARGE_M_THRESHOLD,
+    emit("threshold_sweep_kadjacent", KADJACENT_LARGE_M_THRESHOLD=G.KADJACENT_LARGE_M_THRESHOLD,
          BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD, points=sweep)
     del kq
     torch.cuda.empty_cache()
@@ -1829,7 +1970,7 @@ def main() -> int:
     # -- 4f. serve, then QLoRA-train with AdEMAMix, on bf16 quant_storage ---
     # (the K-adjacent layout: kernels 9 and 10, the nested absmax decoded on
     # the device before each call, then kernels 10 and 15 in training)
-    assert batch < G.LARGE_M_THRESHOLD <= batch * prompt and tb * tt >= G.BACKWARD_LARGE_M_THRESHOLD
+    assert batch < G.KADJACENT_LARGE_M_THRESHOLD <= batch * prompt and tb * tt >= G.BACKWARD_LARGE_M_THRESHOLD
     counts, kq_params = serve("serve_kadjacent", True, {
         "quantize_4bit_codes": 4 * Lyr,
         "quantize_blockwise8": 4 * Lyr,
@@ -2202,7 +2343,7 @@ def main() -> int:
             lin_c.weight = QuantizedTensor.quantize(Wl, blocksize=bs, compress_statistics=compress)
             assert lin_g.weight.state.layout == "paired" and lin_g.weight.state.inline_nested == compress
             sfx = "_dq" if compress else ""
-            for Mx in (8, 64):
+            for Mx in (8, G.LARGE_M_THRESHOLD):  # the first M of the dequantize route
                 x = torch.randn(Mx, K, generator=torch.Generator().manual_seed(Mx))
                 torch.cuda.synchronize()
                 reset_launch_counts()

@@ -51,13 +51,13 @@ def _states(nested: bool):
     return jq, params_from_numpy(d, "cpu")
 
 
-@pytest.mark.parametrize("M", [4, 40], ids=["decode_kernel", "large_m_dequant"])
+@pytest.mark.parametrize("M", [4, 160], ids=["decode_kernel", "large_m_dequant"])
 @pytest.mark.parametrize("nested", [False, True], ids=["plain", "nested"])
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32], ids=["f16", "f32"])
 def test_gemm_4bit_f16_f32_activations_match_jax(dtype, nested, M):
     jq, tq = _states(nested)
     assert tq.state.layout == "paired" and tq.state.inline_nested == nested
-    assert (M >= tgemm.LARGE_M_THRESHOLD) == (M == 40)
+    assert (M >= tgemm.LARGE_M_THRESHOLD) == (M == 160)
     A = (np.random.default_rng(8).standard_normal((M, DIM)) / np.sqrt(DIM)).astype(np.float32)
     try:
         dispatch.set_backend("pallas")

@@ -17,6 +17,7 @@ from bitsandbytes_tpu.models import llama as JL
 from bitsandbytes_tpu.ops import dispatch
 from bitsandbytes_tpu.serving import ContinuousBatchingEngine as JEngine
 from bitsandbytes_tpu.serving.engine import _sample_tokens as j_sample
+from bitsandbytes_tpu_torch.functional import gemm as tgemm
 from bitsandbytes_tpu_torch.models import llama as TL
 from bitsandbytes_tpu_torch.serving import ContinuousBatchingEngine
 from bitsandbytes_tpu_torch.serving.engine import _bucket, _nucleus, _sample_tokens
@@ -148,13 +149,14 @@ def test_latency_metrics(setup):
 def test_grouped_prefill_matches_single(setup):
     """A burst of same-bucket admissions prefills as one batch; the greedy
     streams equal one-by-one admissions, dense and paged.  The prompts pad
-    to 64 tokens, so one prompt alone (M = 64) and the burst take the same
+    to 256 tokens, so one prompt alone (M = 256) and the burst take the same
     large-M route of the 4-bit linears (``LARGE_M_THRESHOLD``)."""
     rng = np.random.default_rng(2)
-    prompts = [rng.integers(1, 100, size=n).tolist() for n in (17, 20, 30, 25)]
+    prompts = [rng.integers(1, 100, size=n).tolist() for n in (67, 80, 100, 75)]
+    assert 256 >= tgemm.LARGE_M_THRESHOLD
     for kw in ({}, {"kv_layout": "paged", "kv_block_size": 8}, {"kv_dtype": "int8"}):
-        burst = _engine(setup, max_batch=4, **kw).generate(prompts, max_new_tokens=5)
-        trickle = _engine(setup, max_batch=1, **kw).generate(prompts, max_new_tokens=5)
+        burst = _engine(setup, max_batch=4, max_len=272, **kw).generate(prompts, max_new_tokens=5)
+        trickle = _engine(setup, max_batch=1, max_len=272, **kw).generate(prompts, max_new_tokens=5)
         assert [r.tokens for r in burst] == [r.tokens for r in trickle], kw
 
 
