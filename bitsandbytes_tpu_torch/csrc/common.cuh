@@ -43,6 +43,34 @@ __device__ __forceinline__ float warp_max(float x) {
 // Operand types a C entry point takes, by the wrappers' codes (_KIND).
 enum Kind { kF32 = 0, kBf16 = 1, kF16 = 2 };
 
+// --- the double-quantized absmax (the _dq kernels of gemm4bit_paired.cu and gemm4bit.cu) ---
+
+constexpr int kMaxSegments = 40;
+
+// The half map's segments (functional/dynamic_segments.kernel_table): code
+// i decodes as +-fma(float(a - sub[k]), step[k], add[k]), a = |i - zero_idx|
+// in segment k (the last k with start[k] <= a).
+struct DynDecode {
+    int zero_idx;
+    int nseg;
+    int start[kMaxSegments];
+    int sub[kMaxSegments];
+    float step[kMaxSegments];
+    float add[kMaxSegments];
+};
+
+// Entry i of the canonical dynamic map, rounded as the JAX package's jitted
+// decode rounds it (one fused multiply-add).  Each kernel fills a 256-entry
+// shared-memory table with it once per block.
+__device__ __forceinline__ float dyn_decode(const DynDecode& dec, int i) {
+    const int d = i - dec.zero_idx;
+    const int a = d < 0 ? -d : d;
+    int k = 0;
+    while (k + 1 < dec.nseg && a >= dec.start[k + 1]) ++k;
+    const float v = __fmaf_rn((float)(a - dec.sub[k]), dec.step[k], dec.add[k]);
+    return d < 0 ? -v : v;
+}
+
 template <class T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32(float x) { return x; }
 template <> __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -97,20 +97,6 @@
 // split order by the same second pass.
 #include "common.cuh"
 
-constexpr int kMaxSegments = 40;
-
-// The half map's segments (functional/dynamic_segments.kernel_table): code
-// i decodes as +-fma(float(a - sub[k]), step[k], add[k]), a = |i - zero_idx|
-// in segment k (the last k with start[k] <= a).
-struct DynDecode {
-    int zero_idx;
-    int nseg;
-    int start[kMaxSegments];
-    int sub[kMaxSegments];
-    float step[kMaxSegments];
-    float add[kMaxSegments];
-};
-
 namespace {
 
 constexpr int kGemmWarps = 8;    // row pairs per block
@@ -143,14 +129,7 @@ struct NestedScales {
     int KB;
     DynDecode dec;
     __device__ __forceinline__ void prologue(float* table, int tid, int nthreads) const {
-        for (int i = tid; i < 256; i += nthreads) {
-            const int d = i - dec.zero_idx;
-            const int a = d < 0 ? -d : d;
-            int k = 0;
-            while (k + 1 < dec.nseg && a >= dec.start[k + 1]) ++k;
-            const float v = __fmaf_rn((float)(a - dec.sub[k]), dec.step[k], dec.add[k]);
-            table[i] = d < 0 ? -v : v;
-        }
+        for (int i = tid; i < 256; i += nthreads) table[i] = dyn_decode(dec, i);
     }
     __device__ __forceinline__ float2 load(const float* table, int blk, int n2) const {
         const uchar2 q = *reinterpret_cast<const uchar2*>(codes_t + (size_t)blk * N + 2 * n2);

@@ -31,8 +31,11 @@ codes transposed ``[K/blocksize, N]``, as it stores an f32 absmax.
 
 :func:`dequantize_4bit` is kernel 10 (``ops/gemm4bit.dequantize_4bit_2d``)
 on CUDA, the plain version beside it on the CPU; a paired payload is repacked
-to the K-adjacent order first.  The serving routes reach the dequantize
-through ``functional/gemm.py``, which calls the kernels directly.
+to the K-adjacent order first.  A flat or 2d state whose double-quantized
+absmax the ``_dq`` kernels decode in place (``QuantState.inline_nested``)
+takes kernel 10's ``_dq`` mode, with no decode before the call.  The serving
+routes reach the dequantize through ``functional/gemm.py``, which calls the
+kernels directly.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from ..ops.gemm4bit import dequantize_4bit_2d
+from ..ops.gemm4bit import dequantize_4bit_2d, dequantize_4bit_2d_dq
 from ..ops.gemm4bit_paired import pack_npaired, repack_npaired_to_2d
 from ..ops.quant4bit import quantize_4bit_codes
 from .blockwise import fixed_order_mean, quantize_blockwise
@@ -179,21 +182,28 @@ def dequantize_4bit(
     """Dequantize a packed 4-bit tensor to ``dtype``: the exact f32 product
     ``code[q] * absmax``, rounded to ``dtype``.  Kernel 10 on CUDA (bf16,
     f16 or f32), its plain version on the CPU; a payload of a wider storage
-    type is read as its bytes, a paired one repacked first, a nested absmax
-    decoded on the device."""
+    type is read as its bytes, a paired one repacked first.  A flat or 2d
+    state's nested absmax is decoded in the kernel (its ``_dq`` mode); a
+    paired one's, or one over another map, on the device first."""
+    in_kernel = False
     if quant_state is not None:
-        absmax = quant_state.dequant_absmax()
         blocksize = quant_state.blocksize
         quant_type = quant_state.quant_type
         shape = quant_state.shape
         dtype = quant_state.dtype
+        in_kernel = quant_state.layout != "paired" and quant_state.inline_nested
+        if not in_kernel:
+            absmax = quant_state.dequant_absmax()
         if quant_state.layout == "paired":
             N, K = int(shape[-2]), int(shape[-1])
             A = repack_npaired_to_2d(A.reshape(N // 2, K))
-    if shape is None or absmax is None:
+    elif shape is None or absmax is None:
         raise ValueError("either quant_state or (absmax, shape) must be provided")
     code = get_4bit_code(quant_type, blocksize)
     B = payload_bytes(A.contiguous()).reshape(-1)
+    if in_kernel:
+        return dequantize_4bit_2d_dq(B, quant_state.absmax.reshape(-1), quant_state.state2.absmax, quant_state.offset,
+                                     code, blocksize, shape, dtype)
     return dequantize_4bit_2d(B, absmax.reshape(-1).to(torch.float32).contiguous(), code, blocksize, shape, dtype)
 
 

@@ -15,19 +15,24 @@ orders:
   (``QuantState.dequant_absmax_t``) and runs the plain ones.
 * **K-adjacent**, the ``"flat"`` and ``"2d"`` layouts that a ``quant_storage``
   wider than a byte gives (``ops/gemm4bit.py``).  A payload of a wider
-  storage type is read as its bytes; a nested absmax is decoded on the
-  device before each call (``QuantState.dequant_absmax``), as the JAX package
-  does on this layout.  Below :data:`KADJACENT_LARGE_M_THRESHOLD` rows of A
-  kernel 9 (``gemm_4bit_fused``) reads the packed weight; at or above it, with bf16
-  A, kernel 10 (``dequantize_4bit_2d``) and ``torch.matmul``.  (The JAX
-  package runs its fused kernel at every M on this layout.)  A weight whose
-  rows do not hold whole quantization blocks takes kernel 10 and the matmul
-  at any M.
+  storage type is read as its bytes.  Below :data:`KADJACENT_LARGE_M_THRESHOLD`
+  rows of bf16 or f16 A (:data:`KADJACENT_F32_LARGE_M_THRESHOLD` of f32 A)
+  kernel 9 (``gemm_4bit_fused``) reads the packed weight; at or above it
+  kernel 10 (``dequantize_4bit_2d``) writes the weight in A's type and
+  ``torch.matmul`` runs the product.  (The JAX package runs its fused kernel
+  at every M on this layout.)  A weight whose rows do not hold whole
+  quantization blocks takes kernel 10 and the matmul at any M.  A
+  double-quantized state over the canonical dynamic map
+  (``QuantState.inline_nested``) runs the ``_dq`` kernels, which decode the
+  uint8 absmax where they load it; any other nested state is decoded to an
+  f32 absmax first (``QuantState.dequant_absmax``).
 
 The backward ``grad_A = g @ dequant(B)`` routes the same way around
 :data:`BACKWARD_LARGE_M_THRESHOLD` rows of ``g``: the ``_nt`` kernels (kernel
-11 on the K-adjacent layout) below it, the dequantize kernel and
-``torch.matmul`` at or above it with bf16 ``g``.
+11 on the K-adjacent layout) below it, the dequantize kernel (``_dq`` on an
+``inline_nested`` state) and ``torch.matmul`` at or above it with bf16
+``g``.  Kernel 11 takes an f32 absmax only, so on a nested K-adjacent state
+it still runs after a decode on the device.
 """
 
 from __future__ import annotations
@@ -36,7 +41,14 @@ from typing import Optional
 
 import torch
 
-from ..ops.gemm4bit import dequantize_4bit_2d, gemm_2d_supported, gemm_4bit_fused, gemm_4bit_nt_fused
+from ..ops.gemm4bit import (
+    dequantize_4bit_2d,
+    dequantize_4bit_2d_dq,
+    gemm_2d_supported,
+    gemm_4bit_fused,
+    gemm_4bit_fused_dq,
+    gemm_4bit_nt_fused,
+)
 from ..ops.gemm4bit_paired import (
     dequantize_paired_fast,
     dequantize_paired_fast_dq,
@@ -49,8 +61,8 @@ from .codebooks import get_4bit_code
 from .fourbit import payload_bytes
 from .quant_state import QuantState
 
-__all__ = ["LARGE_M_THRESHOLD", "KADJACENT_LARGE_M_THRESHOLD", "BACKWARD_LARGE_M_THRESHOLD", "gemm_4bit",
-           "gemv_4bit", "gemm_4bit_grad_A"]
+__all__ = ["LARGE_M_THRESHOLD", "KADJACENT_LARGE_M_THRESHOLD", "KADJACENT_F32_LARGE_M_THRESHOLD",
+           "BACKWARD_LARGE_M_THRESHOLD", "gemm_4bit", "gemv_4bit", "gemm_4bit_grad_A"]
 
 # Rows of A from which the paired layout's dequantize + torch.matmul route
 # runs instead of kernels 2 and 5.  Chosen from chip_smoke.py's sweep of both
@@ -64,10 +76,21 @@ __all__ = ["LARGE_M_THRESHOLD", "KADJACENT_LARGE_M_THRESHOLD", "BACKWARD_LARGE_M
 # 160: 0.2052 / 0.2231 against 0.1686 / 0.1669), and on gate_up from M 192.
 LARGE_M_THRESHOLD = 129
 
-# The same for the K-adjacent layout's kernel 9, which reads the weight once
-# per 8 rows of A (phase 3l, NVIDIA H100 80GB HBM3, 700 W: gate_up 0.320
-# against 0.342 ms at M = 16, 0.636 against 0.342 at M = 32).
-KADJACENT_LARGE_M_THRESHOLD = 32
+# The same for the K-adjacent layout's kernel 9: chip_smoke.py's sweep (phase
+# 3l) of kernel 9, plain and nested, against kernel 10 (plain and _dq) +
+# matmul in A's type, on gate_up and down at M 8-256, device time with the
+# host held out, NVIDIA H100 80GB HBM3 at 700.00 W.  bf16 and f16 A run on
+# the tensor cores, which read the payload once per 32 rows of A: kernel 9
+# leads up to M 128 on both linears (down at 128: 0.1175 against 0.1695 ms,
+# nested 0.1377 against 0.1643; gate_up 0.2223 against 0.3106, nested 0.2772
+# against 0.3022) and trails from the next 32-row step (down at M 160: 0.2122
+# against 0.1707, nested 0.2525 against 0.1664), f16 within 2% of bf16.  f32
+# A keeps the CUDA-core body, which reads the weight once per 8 rows of A: it
+# leads at M 8 (gate_up 0.5104 against 0.7243 ms, down 0.2605 against
+# 0.4234) and trails from the second 8-row step (M 16: 1.0170 against
+# 0.7196, 0.5219 against 0.3648).
+KADJACENT_LARGE_M_THRESHOLD = 129
+KADJACENT_F32_LARGE_M_THRESHOLD = 9
 
 # Rows of g from which the backward runs the dequantize kernel +
 # torch.matmul instead of the _nt kernels, on both layouts.  Chosen from
@@ -94,13 +117,18 @@ def _paired_routes(quant_state: QuantState):
     return (quant_state.dequant_absmax_t(),), dequantize_paired_fast, gemm_4bit_paired, gemm_4bit_paired_nt
 
 
-def _kadjacent_args(B_packed: torch.Tensor, quant_state: QuantState):
-    """(payload bytes, f32 absmax in the flat block order, codebook,
-    blocksize) of a flat or 2d state; a nested absmax decoded on the device."""
+def _kadjacent_routes(B_packed: torch.Tensor, quant_state: QuantState):
+    """(payload bytes, scales, codebook, blocksize, dequantize, small-M
+    GEMM) of a flat or 2d state: the ``_dq`` kernels for a state they decode
+    in place, else the f32 absmax in the flat block order."""
     bs = quant_state.blocksize
+    B = payload_bytes(B_packed.contiguous()).reshape(-1)
     # the static quant_type, not the code tensor: no device read per call
-    return (payload_bytes(B_packed.contiguous()).reshape(-1), quant_state.dequant_absmax().contiguous(),
-            get_4bit_code(quant_state.quant_type, bs), bs)
+    code = get_4bit_code(quant_state.quant_type, bs)
+    if quant_state.inline_nested:  # a static property of the state: no device read per call
+        scales = (quant_state.absmax.reshape(-1), quant_state.state2.absmax, quant_state.offset)
+        return B, scales, code, bs, dequantize_4bit_2d_dq, gemm_4bit_fused_dq
+    return B, (quant_state.dequant_absmax().contiguous(),), code, bs, dequantize_4bit_2d, gemm_4bit_fused
 
 
 def gemm_4bit(
@@ -116,12 +144,12 @@ def gemm_4bit(
     for s in lead:
         M *= s
     if quant_state.layout != "paired":
-        B, absmax, code, bs = _kadjacent_args(B_packed, quant_state)
-        if (M >= KADJACENT_LARGE_M_THRESHOLD and A.dtype == torch.bfloat16) or not gemm_2d_supported(N, K, bs):
-            W = dequantize_4bit_2d(B, absmax, code, bs, (N, K), A.dtype)
-            out = torch.matmul(A, W.t())
+        B, scales, code, bs, dequant, gemm = _kadjacent_routes(B_packed, quant_state)
+        threshold = KADJACENT_F32_LARGE_M_THRESHOLD if A.dtype == torch.float32 else KADJACENT_LARGE_M_THRESHOLD
+        if M >= threshold or not gemm_2d_supported(N, K, bs):
+            out = torch.matmul(A, dequant(B, *scales, code, bs, (N, K), A.dtype).t())
         else:
-            out = gemm_4bit_fused(A.contiguous(), B, absmax, code, bs, (N, K))
+            out = gemm(A.contiguous(), B, *scales, code, bs, (N, K))
     else:
         bs = quant_state.blocksize
         # the static quant_type, not the code tensor: no device read per call
@@ -154,9 +182,11 @@ def gemm_4bit_grad_A(g: torch.Tensor, B_packed: torch.Tensor, quant_state: Quant
     for s in lead:
         M *= s
     if quant_state.layout != "paired":
-        B, absmax, code, bs = _kadjacent_args(B_packed, quant_state)
+        B, scales, code, bs, dequant, _ = _kadjacent_routes(B_packed, quant_state)
         if (M >= BACKWARD_LARGE_M_THRESHOLD and g.dtype == torch.bfloat16) or not gemm_2d_supported(N, K, bs):
-            return torch.matmul(g, dequantize_4bit_2d(B, absmax, code, bs, (N, K), g.dtype))
+            return torch.matmul(g, dequant(B, *scales, code, bs, (N, K), g.dtype))
+        # kernel 11 takes an f32 absmax only: a state the _dq kernels read is decoded first
+        absmax = quant_state.dequant_absmax().contiguous() if quant_state.inline_nested else scales[0]
         return gemm_4bit_nt_fused(g.contiguous(), B, absmax, code, bs, (N, K))
     bs = quant_state.blocksize
     code = get_4bit_code(quant_state.quant_type, bs)

@@ -56,11 +56,10 @@ class QuantState:
 
     @property
     def inline_nested(self) -> bool:
-        """A nested state the ``_dq`` kernels decode in place: paired layout,
+        """A nested state the ``_dq`` kernels decode in place, in any layout:
         nested blocksize 256 over the canonical dynamic map, an offset."""
         return (
             self.nested
-            and self.layout == "paired"
             and self.state2.blocksize == 256
             and self.state2.dynamic_code
             and self.offset is not None
@@ -79,7 +78,9 @@ class QuantState:
         package's jitted decode and the ``_dq`` kernels do; another map takes
         the table lookup, ``code2[q] * absmax2 + offset``.  Everything stays
         on the codes' device with no read back to the host: the K-adjacent
-        routes of ``functional/gemm.py`` call this before every matmul."""
+        routes of ``functional/gemm.py`` call this before each call of
+        kernel 11, and before every call on a state that is not
+        ``inline_nested``."""
         if not self.nested:
             if self.layout == "paired":
                 return self.absmax.t().reshape(-1)

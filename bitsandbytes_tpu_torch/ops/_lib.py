@@ -64,7 +64,9 @@ LAUNCHES: dict = {
     "flash_attention_paged_int8": 0,
     "optimizer_update_8bit_ademamix": 0,
     "gemm_4bit_fused": 0,
+    "gemm_4bit_fused_dq": 0,
     "dequantize_4bit_2d": 0,
+    "dequantize_4bit_2d_dq": 0,
     "gemm_4bit_nt_fused": 0,
     "flash_attention_combine": 0,
 }
@@ -184,10 +186,16 @@ _SIGNATURES = {
     # g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, scalars (host), map1 (host), map2 (host), fixup, kind,
     # stream
     "bnb_optimizer_update_8bit_ademamix": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _P],
-    # A, B, absmax, out, M, N, K, blocksize, code[16] (host), a_kind, out_f32, stream
-    "bnb_gemm_4bit_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+    # A, B, absmax, part (or NULL), out, M, N, K, blocksize, k_per_split, splits, tc, code[16] (host),
+    # a_kind, out_f32, stream
+    "bnb_gemm_4bit_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
+    # A, B, codes, s2, offset, part (or NULL), out, M, N, K, blocksize, k_per_split, splits, tc,
+    # code[16] (host), decode table (host), a_kind, out_f32, stream
+    "bnb_gemm_4bit_fused_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
     # B, absmax, out, n, blocksize, code[16] (host), out_kind, stream
     "bnb_dequantize_4bit_2d": [_P, _P, _P, _L, _I, _P, _I, _P],
+    # B, codes, s2, offset, out, n, blocksize, code[16] (host), decode table (host), out_kind, stream
+    "bnb_dequantize_4bit_2d_dq": [_P, _P, _P, _P, _P, _L, _I, _P, _P, _I, _P],
     # G, B, absmax, part (scratch), out, M, N, K, blocksize, rows_per_split, splits, code[16] (host),
     # g_kind, stream
     "bnb_gemm_4bit_nt_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],

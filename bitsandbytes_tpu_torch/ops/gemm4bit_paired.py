@@ -184,15 +184,16 @@ def _check_cuda_A(A, out_dtype) -> None:
 _FW_TN, _FW_TK, _FW_MT, _FW_RESIDENT, _FW_MAX_SPLITS = 128, 128, 32, 2, 8
 
 
-def gemm_plan(M: int, N: int, K: int, blocksize: int, sms: int):
+def gemm_plan(M: int, N: int, K: int, blocksize: int, sms: int, stage: int = _FW_TK):
     """The tensor-core forward kernels' columns of K per split and number of
     splits S <= 8, for blocks of 128 rows of N and 32 rows of A.  A split
-    holds whole quantization blocks and whole 128-column stages.  S is the
-    most splits whose grid of ``tiles * S`` blocks stays resident in one wave
-    (two blocks on each of ``sms`` SMs), so the most payload bytes are in
-    flight; a grid of a wave or more keeps S = 1.  A pure function of the
-    shapes and the SM count, so a call's bits do not depend on the run."""
-    unit = math.lcm(blocksize, _FW_TK)
+    holds whole quantization blocks and whole ``stage``-column units (128
+    for kernels 2 and 5, 256 for kernel 9).  S is the most splits whose grid
+    of ``tiles * S`` blocks stays resident in one wave (two blocks on each of
+    ``sms`` SMs), so the most payload bytes are in flight; a grid of a wave or
+    more keeps S = 1.  A pure function of the shapes and the SM count, so a
+    call's bits do not depend on the run."""
+    unit = math.lcm(blocksize, stage)
     units = -(-K // unit)
     tiles = -(-N // _FW_TN) * -(-M // _FW_MT)
     s = max(1, min(_FW_MAX_SPLITS, units, _FW_RESIDENT * sms // tiles))
@@ -298,7 +299,7 @@ def dequantize_paired_fast(P, absmax_t, code, blocksize: int, dtype=torch.bfloat
 
 
 class _DynDecode(ctypes.Structure):
-    """``DynDecode`` of ``csrc/gemm4bit_paired.cu``."""
+    """``DynDecode`` of ``csrc/common.cuh``."""
 
     _MAX = 40
     _fields_ = [

@@ -28,10 +28,17 @@ Phases (every one asserts; any failure exits non-zero before the result):
    ``functional/gemm.BACKWARD_LARGE_M_THRESHOLD`` (3j); kernel 4's int8-KV
    mode and kernel 16 (paged, bf16 and int8) at block sizes 16-256, each
    paged result against kernel 4 on the same data (3k); kernels 9, 10 and 11
-   on the K-adjacent layout of bf16 ``quant_storage`` and the sweep of their
-   routes (3l; kernels 9 and 11 also timed with the host held out, 11 at M 1-33 and
-   with f16 g, each call against a second run bit for bit, and its split
-   plan printed); kernel 15, the 8-bit AdEMAMix update (3m).  Kernel 1's
+   on the K-adjacent layout of bf16 ``quant_storage`` (3l: kernel 9 on the
+   tensor cores at M 1-40 and blocksize 32-4096, its nested instance and
+   kernel 10's ``_dq`` mode bit for bit against the plain ones on the
+   resolved absmax, each 16-bit call against a second run and its f32
+   output rounded, mismatched plans refused by the C entries; kernels 9 and
+   11 timed with the host held out, 9 at M 8 and 16 in bf16 and f16, 11 at M
+   1-33 and with f16 g, its split plan printed; the device-time sweep of
+   kernel 9 against kernel 10 + matmul in bf16, f16 and f32 that chose
+   ``functional/gemm.KADJACENT_LARGE_M_THRESHOLD`` and
+   ``KADJACENT_F32_LARGE_M_THRESHOLD``); kernel 15, the 8-bit AdEMAMix
+   update (3m).  Kernel 1's
    stochastic mode against its plain version on the same uniforms (3a);
    kernels 2, 3, 5 and 6 on f16 and f32 activations and kernels 7 and 8 on
    f16 g (3e); kernels 14 and 15 on bf16 and f16 parameters (3i, 3m);
@@ -52,9 +59,10 @@ Phases (every one asserts; any failure exits non-zero before the result):
    default ``kv_dtype``), 16 requests, one of them run to ``max_len``; then
    4a's serving and 4d's training on weights stored as the FSDP-QLoRA
    recipe stores them (4f): bf16 ``quant_storage`` (the K-adjacent layout,
-   kernels 9 and 10), double-quantized, trained with ``ademamix8bit``
-   (kernel 15).  The kernels' launch counts are zeroed just before each path
-   and read just after it.
+   kernels 9 and 10 in their nested modes, with no decode of the absmax
+   before a call), double-quantized, trained with ``ademamix8bit`` (kernel
+   15).  The kernels' launch counts are zeroed just before each path and
+   read just after it.
 5. Both serving paths at 2 layers on the card and on the CPU (plain
    versions): equal quantized bytes, logits within tolerance, top-5
    containment; then one QLoRA step of each at 2 layers, M = 16 (5b): the
@@ -66,7 +74,8 @@ Phases (every one asserts; any failure exits non-zero before the result):
    steps against the CPU, and one AdEMAMix QLoRA step at M = 16 (kernels 9,
    11 and 15); then entry points that once raised on the card, each through
    its kernels and against the CPU (5e): ``Linear4bit`` with f16 and f32
-   ``compute_dtype``, ``adamw8bit`` and ``ademamix8bit`` over bf16
+   ``compute_dtype`` (and on bf16 ``quant_storage`` in bf16, f16 and f32, on
+   both sides of each threshold), ``adamw8bit`` and ``ademamix8bit`` over bf16
    parameters, ``prefill``/``decode_step`` at head_dim 64 (``tiny``) and 256
    (``gemma_7b`` at 2 layers), and ``quantize_4bit(generator=)``.
 6. The card's name and power limit once more, one JSON line describing
@@ -131,7 +140,13 @@ TPU_KERNELS = {
         "bitsandbytes_tpu/ops/pallas/flash_cached.py:455",
         "bitsandbytes_tpu_torch/csrc/flash_cached.cu"),
     "gemm_4bit_fused": ("bitsandbytes_tpu/ops/pallas/gemm4bit.py:265", "bitsandbytes_tpu_torch/csrc/gemm4bit.cu"),
+    # kernel 9 and 10 with the double-quantized absmax decoded in the kernel:
+    # the TPU kernels take the absmax decoded beforehand
+    "gemm_4bit_fused_dq": (
+        "bitsandbytes_tpu/ops/pallas/gemm4bit.py:265", "bitsandbytes_tpu_torch/csrc/gemm4bit.cu"),
     "dequantize_4bit_2d": ("bitsandbytes_tpu/ops/pallas/gemm4bit.py:330", "bitsandbytes_tpu_torch/csrc/gemm4bit.cu"),
+    "dequantize_4bit_2d_dq": (
+        "bitsandbytes_tpu/ops/pallas/gemm4bit.py:330", "bitsandbytes_tpu_torch/csrc/gemm4bit.cu"),
     "gemm_4bit_nt_fused": ("bitsandbytes_tpu/ops/pallas/gemm4bit.py:444", "bitsandbytes_tpu_torch/csrc/gemm4bit.cu"),
     "optimizer_update_8bit_ademamix": (
         "bitsandbytes_tpu/ops/pallas/optim8bit.py:323", "bitsandbytes_tpu_torch/csrc/optim8bit.cu"),
@@ -221,13 +236,18 @@ def main() -> int:
     )
     from bitsandbytes_tpu_torch.ops.gemm4bit import (
         dequantize_4bit_2d,
+        dequantize_4bit_2d_dq,
+        dequantize_4bit_2d_dq_plain,
         dequantize_4bit_2d_plain,
         gemm_4bit_fused,
+        gemm_4bit_fused_dq,
+        gemm_4bit_fused_dq_plain,
         gemm_4bit_fused_plain,
         gemm_4bit_nt_fused,
         gemm_4bit_nt_fused_plain,
         nt_plan,
     )
+    from bitsandbytes_tpu_torch.ops import gemm4bit as K9
     from bitsandbytes_tpu_torch.ops.quant4bit import quantize_4bit_codes, quantize_4bit_codes_plain
     from bitsandbytes_tpu_torch.utils.benchmark import bandwidth_canary, cuda_time
 
@@ -1282,19 +1302,28 @@ def main() -> int:
         """(payload bytes, f32 absmax) of a flat/2d state, a nested one decoded."""
         return payload_bytes(qt.data).reshape(-1), qt.state.dequant_absmax().contiguous()
 
+    def kadj_nested(qt):
+        """The _dq kernels' scale arguments of a nested flat/2d state: u8 codes, s2, offset."""
+        return qt.state.absmax.reshape(-1), qt.state.state2.absmax, qt.state.offset
+
     def rel_err(out, ref):
         return ((out.float() - ref).abs().max() / ref.abs().max()).item()
 
+    # kernel 9 on the tensor cores at M 1-40 (one to four n8 tiles, then the grid
+    # over M), N not a multiple of 16, blocksize 32-4096, most cut into splits of K
+    tc_cases = tuple((Mx, 77 + 40 * i, max(2048, 2 * gbs), gbs)
+                     for i, gbs in enumerate((32, 64, 128, 256, 4096)) for Mx in (1, 8, 16, 31, 33, 40))
     cases, k9_err, k11_err = [], 0.0, 0.0
     for Mx, N, K, gbs in ((1, 3, 32, 32), (3, 37, 96, 32), (7, 129, 4160, 64), (13, 255, 2176, 128),
                           (31, 513, 4096, 256), (5, 64, 8192, 4096), (2, 77, 14336, 512), (9, 31, 2048, 1024),
                           (4, 17, 4096, 2048), (16, 4096, 14336, 64),
                           # kernel 11: a zero-padded second m16 tile (31), the grid over M tiles (33)
-                          (31, 640, 2048, 64), (33, 640, 2048, 64), (33, 37, 96, 32)):
+                          (31, 640, 2048, 64), (33, 640, 2048, 64), (33, 37, 96, 32)) + tc_cases:
         for compress in (False, True):
             qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev), blocksize=gbs,
                                           compress_statistics=compress, quant_storage=torch.bfloat16)
             assert qw.state.layout == "2d" and qw.data.dtype == torch.uint16
+            assert qw.state.inline_nested == compress
             Bq, am = kadj(qw)
             ct = tuple(float(v) for v in get_4bit_code("nf4", gbs))
             for dt in (torch.float32, torch.bfloat16, torch.float16):
@@ -1306,22 +1335,99 @@ def main() -> int:
                 ref = gemm_4bit_fused_plain(A, Bq, am, ct, gbs, N)
                 rel = rel_err(out, ref)
                 assert rel <= 1e-5, f"gemm_4bit_fused {(Mx, N, K, gbs, compress, dt)}: rel {rel}"
-                assert torch.equal(gemm_4bit_fused(A, Bq, am, code, gbs, (N, K)), out.to(dt)), "kernel 9 in A's type"
+                o_dt = gemm_4bit_fused(A, Bq, am, code, gbs, (N, K))
+                assert torch.equal(o_dt, out.to(dt)), "kernel 9 in A's type"
+                assert torch.equal(gemm_4bit_fused(A, Bq, am, code, gbs, (N, K)), o_dt), "kernel 9: a second call"
+                if compress:  # the nested instances on the codes: the plain ones' bits on the resolved absmax
+                    nest = kadj_nested(qw)
+                    assert torch.equal(gemm_4bit_fused_dq(A, Bq, *nest, code, gbs, (N, K), out_dtype=torch.float32),
+                                       out), f"gemm_4bit_fused_dq {(Mx, N, K, gbs, dt)}"
+                    assert torch.equal(gemm_4bit_fused_dq(A, Bq, *nest, code, gbs, (N, K)), o_dt), "k9 dq in A's type"
+                    assert torch.equal(dequantize_4bit_2d_dq(Bq, *nest, code, gbs, (N, K), dt).view(torch.uint8),
+                                       Wk.view(torch.uint8)), f"dequantize_4bit_2d_dq {(N, K, gbs, dt)}"
                 Gx = torch.randn(Mx, N, generator=gen, device=dev).to(dt)
                 o11 = gemm_4bit_nt_fused(Gx, Bq, am, code, gbs, (N, K))
                 rel11 = rel_err(o11, gemm_4bit_nt_fused_plain(Gx, Bq, am, ct, gbs, K))
                 assert o11.dtype == dt and rel11 <= nt_tol(dt), f"gemm_4bit_nt_fused {(Mx, N, K, gbs, dt)}: {rel11}"
                 k9_err, k11_err = max(k9_err, rel), max(k11_err, rel11 if dt == torch.float32 else 0.0)
-            cases.append(f"k9/k10/k11 M{Mx} N{N} K{K} bs{gbs} nested={compress} f32/bf16/f16")
+            cases.append(f"k9/k10/k11 M{Mx} N{N} K{K} bs{gbs} nested={compress} f32/bf16/f16 "
+                         f"splits {K9._gemm2d_plan(Mx, N, K, gbs, sms)[1]}")
     for shape, fbs in (((7, 77), 64), ((1, 4099), 32)):  # flat layouts, blocks across rows, an odd count
-        qw = QuantizedTensor.quantize(torch.randn(*shape, generator=gen, device=dev), blocksize=fbs)
-        assert qw.state.layout == "flat"
-        ct = tuple(float(v) for v in get_4bit_code("nf4", fbs))
-        for dt in (torch.float32, torch.bfloat16):
-            assert torch.equal(qw.dequantize().to(dt), dequantize_4bit_2d_plain(qw.data, qw.state.absmax, ct, fbs,
-                                                                                  shape, dt)), f"flat {shape}"
-        cases.append(f"k10 flat {shape} bs{fbs}")
+        for compress in (False, True):
+            qw = QuantizedTensor.quantize(torch.randn(*shape, generator=gen, device=dev), blocksize=fbs,
+                                          compress_statistics=compress)
+            assert qw.state.layout == "flat"
+            ct = tuple(float(v) for v in get_4bit_code("nf4", fbs))
+            Bq, am = kadj(qw)
+            for dt in (torch.float32, torch.bfloat16):
+                W = dequantize_4bit_2d_plain(Bq, am, ct, fbs, shape, dt)
+                assert torch.equal(qw.dequantize().to(dt), W), f"flat {shape}"
+                if compress:
+                    assert torch.equal(dequantize_4bit_2d_dq(Bq, *kadj_nested(qw), code, fbs, shape, dt), W), \
+                        f"flat dq {shape}"
+            cases.append(f"k10 flat {shape} bs{fbs} nested={compress}")
+    code_t9 = tuple(float(v) for v in code)
+    # blocksizes the quantizer does not make (96, 160: blocks that straddle
+    # the 256-column stages), on scales made by hand: each _dq mode against
+    # its plain mode on the decoded absmax, bit for bit
+    gen_c = torch.Generator().manual_seed(11)
+    for Mx, N, K, gbs in ((8, 77, 96 * 24, 96), (33, 130, 160 * 9, 160), (1, 40, 96 * 3, 96)):
+        Bq = torch.randint(0, 256, (N * K // 2,), dtype=torch.uint8, generator=gen_c).to(dev)
+        nb = N * K // gbs
+        nest = (torch.randint(0, 256, (nb,), dtype=torch.uint8, generator=gen_c).to(dev),
+                torch.rand(-(-nb // 256), generator=gen_c).to(dev) + 0.5, torch.full((1,), 0.25, device=dev))
+        am = K9.nested_absmax(*nest)
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            A = torch.randn(Mx, K, generator=gen, device=dev).to(dt)
+            out = gemm_4bit_fused_dq(A, Bq, *nest, code, gbs, (N, K), out_dtype=torch.float32)
+            assert torch.equal(out, gemm_4bit_fused(A, Bq, am, code, gbs, (N, K), out_dtype=torch.float32)), \
+                f"gemm_4bit_fused_dq bs{gbs} {dt}"
+            rel = rel_err(out, gemm_4bit_fused_plain(A, Bq, am, code_t9, gbs, N))
+            assert rel <= 1e-5, f"gemm_4bit_fused_dq bs{gbs} {dt}: rel {rel}"
+            assert torch.equal(dequantize_4bit_2d_dq(Bq, *nest, code, gbs, (N, K), dt),
+                               dequantize_4bit_2d(Bq, am, code, gbs, (N, K), dt)), f"dequantize_4bit_2d_dq bs{gbs}"
+            k9_err = max(k9_err, rel)
+        cases.append(f"k9/k10 dq M{Mx} N{N} K{K} bs{gbs} (scales made by hand) bf16/f16/f32 "
+                     f"splits {K9._gemm2d_plan(Mx, N, K, gbs, sms)[1]}")
     emit("ragged_shapes_kadjacent", passed=cases, k9_max_rel=k9_err, k11_max_rel_f32=k11_err)
+
+    # The wrapper alone decides which kernel a call takes (K9._gemm2d_uses_tc)
+    # and passes it as tc with the plan; the C entries refuse a plan that
+    # kernel cannot take, before they read anything.
+    Nr, Kr = 256, 1024
+    qw = QuantizedTensor.quantize(torch.randn(Nr, Kr, generator=gen, device=dev), blocksize=64,
+                                  compress_statistics=True, quant_storage=torch.bfloat16)
+    Br, am_r = kadj(qw)
+    out_r = torch.empty(4, Nr, dtype=torch.float32, device=dev)
+    part_r = torch.empty(16 * 4 * Nr, dtype=torch.float32, device=dev)
+    refused = []
+    for what, dt, gbs, Kx, kps, splits, tc, part in (
+            ("f32 A on the tensor cores", torch.float32, 64, Kr, 1024, 1, 1, None),
+            ("bf16 A on the CUDA cores", torch.bfloat16, 64, Kr, 1024, 1, 0, None),
+            ("blocksize 48", torch.bfloat16, 48, 1056, 1056, 1, 1, None),
+            ("splits of part of a quantization block", torch.bfloat16, 256, Kr, 384, 3, 1, part_r),
+            ("splits of part of a stage", torch.bfloat16, 32, Kr, 96, 11, 1, part_r),
+            ("two splits without partials", torch.bfloat16, 64, Kr, 512, 2, 1, None),
+            ("splits short of K", torch.bfloat16, 64, Kr, 256, 2, 1, part_r),
+            ("an empty split", torch.bfloat16, 64, Kr, 512, 3, 1, part_r),
+            ("f32 A split on the CUDA cores", torch.float32, 64, Kr, 512, 2, 0, part_r)):
+        Ar = torch.zeros(4, Kr, dtype=dt, device=dev)
+        err = _lib.lib().bnb_gemm_4bit_fused(
+            Ar.data_ptr(), Br.data_ptr(), am_r.data_ptr(), None if part is None else part.data_ptr(),
+            out_r.data_ptr(), 4, Nr, Kx, gbs, kps, splits, tc, _lib.host_f32(code), PT._KIND[dt], 1, _lib.stream(Ar))
+        assert err != 0, f"kernel 9: a mismatched plan was taken ({what})"
+        refused.append(what)
+    Ar = torch.zeros(4, Kr, dtype=torch.bfloat16, device=dev)
+    cr, s2r, offr = kadj_nested(qw)
+    err = _lib.lib().bnb_gemm_4bit_fused_dq(
+        Ar.data_ptr(), Br.data_ptr(), cr.data_ptr(), s2r.data_ptr(), offr.data_ptr(), None, out_r.data_ptr(), 4, Nr,
+        Kr, 64, 512, 2, 1, _lib.host_f32(code), ctypes.addressof(PT._dyn_decode()), PT._KIND[torch.bfloat16], 1,
+        _lib.stream(Ar))
+    assert err != 0, "kernel 9 dq: a mismatched plan was taken (two splits without partials)"
+    refused.append("kernel 9 dq: two splits without partials")
+    torch.cuda.synchronize()
+    del qw, Br, am_r, out_r, part_r
+    emit("kernel9_mismatched_plans_refused", cases=refused)
 
     kq = {}
     for name, (N, K) in LINEARS.items():
@@ -1330,11 +1436,30 @@ def main() -> int:
         del Wf
     code_t = tuple(float(v) for v in code)
 
-    def kadj_layer(M, backward):
-        """Kernel 9 (or 11, transposed) on one layer's four linears, the
-        nested absmax decoded before each call as the path does (timed apart).
-        Kernel 11 is also timed with the host held out of the window, as the
-        matmul beside it, and shows its split plan and a second call's bits."""
+    def kadj_bytes(M, N, K, nested, backward=False):
+        """A call's bytes: activations in and out (bf16), the payload, the scales."""
+        KB = K // bs
+        scales = KB * N + -(-N * KB // 256) * 4 + 4 if nested else KB * N * 4
+        return M * (N if backward else K) * 2 + N * K // 2 + scales + M * (K if backward else N) * 2
+
+    def k9_call(qt, X, nested, out_dtype=None):
+        """Kernel 9 on a nested state: its _dq instance on the codes, or its
+        plain instance on the absmax resolved beforehand."""
+        N, K = qt.state.shape
+        Bq = payload_bytes(qt.data).reshape(-1)
+        if nested:
+            nest = kadj_nested(qt)
+            return lambda: gemm_4bit_fused_dq(X, Bq, *nest, code, bs, (N, K), out_dtype=out_dtype)
+        am = qt.state.dequant_absmax().contiguous()
+        return lambda: gemm_4bit_fused(X, Bq, am, code, bs, (N, K), out_dtype=out_dtype)
+
+    def kadj_layer(M, variant):
+        """Kernel 9 (plain on the resolved absmax, or nested) or 11 (transposed,
+        on the resolved absmax: the path's small-M backward) on one layer's
+        four linears, bf16 operands.  Also timed with the host held out of the
+        window, as the matmul beside it; kernel 11 shows its split plan, and
+        kernel 9's nested instance the plain one's bits."""
+        backward, nested = variant == "k11", variant == "k9_dq"
         tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "decode": 0.0, "bytes": 0, "ops": 0, "err": 0.0,
                "device": 0.0, "lib_device": 0.0}
         per_shape = []
@@ -1347,33 +1472,42 @@ def main() -> int:
                 run = lambda: gemm_4bit_nt_fused(X, Bq, am, code, bs, (N, K))  # noqa: E731
                 plain = lambda: gemm_4bit_nt_fused_plain(X, Bq, am, code_t, bs, K)  # noqa: E731
                 lib = lambda: torch.matmul(X, Wb)  # noqa: E731
+                out = run()
             else:
                 X = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-                run = lambda: gemm_4bit_fused(X, Bq, am, code, bs, (N, K), out_dtype=torch.float32)  # noqa: E731
-                plain = lambda: gemm_4bit_fused_plain(X, Bq, am, code_t, bs, N)  # noqa: E731
+                if nested:
+                    plain = lambda: gemm_4bit_fused_dq_plain(X, Bq, *kadj_nested(qt), code_t, bs, N)  # noqa: E731
+                else:
+                    plain = lambda: gemm_4bit_fused_plain(X, Bq, am, code_t, bs, N)  # noqa: E731
                 lib = lambda: torch.matmul(X, Wb.t())  # noqa: E731
-            out, ref = run(), plain()
+                out = k9_call(qt, X, nested, torch.float32)()
+                run = k9_call(qt, X, nested)
+                if nested:
+                    assert torch.equal(out, k9_call(qt, X, False, torch.float32)()), f"k9 dq {name}: not k9's bits"
+            ref = plain()
             rel = rel_err(out, ref)
-            assert rel <= (1e-2 if backward else 1e-5), f"{'k11' if backward else 'k9'} {name}: rel {rel}"
-            if not backward:
-                run = lambda: gemm_4bit_fused(X, Bq, am, code, bs, (N, K))  # noqa: E731
+            assert rel <= (1e-2 if backward else 1e-5), f"{variant} {name}: rel {rel}"
             ms = cuda_time(run, flush_l2=True)["median"]
             pms = cuda_time(plain, n=3)["median"]
             lms = cuda_time(lib, flush_l2=True)["median"]
-            dms = cuda_time(qt.state.dequant_absmax, n=5)["median"]
-            nbytes = M * (N if backward else K) * 2 + N * K // 2 + (K // bs) * N * 4 + M * (K if backward else N) * 2
+            dms = cuda_time(qt.state.dequant_absmax, n=5)["median"] if backward else 0.0
+            nbytes = kadj_bytes(M, N, K, nested, backward)
             per_shape.append({"linear": name + ("^T" if backward else ""), "N": N, "K": K, "M": M, "ms": ms,
-                              "plain_ms": pms, "library_ms": lms, "nested_decode_ms": dms, "bytes": nbytes,
+                              "plain_ms": pms, "library_ms": lms, "bytes": nbytes,
                               "bound_ms": bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)[0], "rel_err": rel})
+            if backward:
+                per_shape[-1]["nested_decode_ms"] = dms
             dev_ms = cuda_time(run, flush_l2=True, hold=True)["median"]
             lib_dev = cuda_time(lib, flush_l2=True, hold=True)["median"]
             per_shape[-1].update(device_ms=dev_ms, library_device_ms=lib_dev)
             tot["device"] += dev_ms
             tot["lib_device"] += lib_dev
+            assert torch.equal(run(), run()), f"{variant} {name}: a second call differs"
             if backward:
-                assert torch.equal(run(), out), f"k11 {name}: a second call differs"
                 rows, splits = nt_plan(M, N, K, sms)
                 per_shape[-1].update(splits=splits, rows_per_split=rows)
+            else:
+                per_shape[-1]["splits"] = K9._gemm2d_plan(M, N, K, bs, sms)[1]
             for key, v in (("ms", ms), ("plain", pms), ("lib", lms), ("decode", dms), ("bytes", nbytes),
                            ("ops", 2 * M * N * K)):
                 tot[key] += v
@@ -1400,52 +1534,103 @@ def main() -> int:
                 sums[key] = sums.get(key, 0.0) + cuda_time(run, flush_l2=True, hold=True)["median"]
         return sums
 
-    for name, M, backward in (("gemm_4bit_fused", 8, False), ("gemm_4bit_nt_fused", 16, True)):
-        tot, per_shape = kadj_layer(M, backward)
-        extra = {"device_ms": tot["device"], "library_device_ms": tot["lib_device"]}
+    def k9_rows(nested):
+        """Kernel 9 on the four linears at M 8 and 16 with bf16 and f16 A:
+        two calls bit-identical, within 1e-2 of the plain version, device time
+        (host held out) summed over the layer."""
+        sums = {}
+        for name, (N, K) in LINEARS.items():
+            Bq, am = kadj(kq[name])
+            for Mx in (8, 16):
+                for dt in (torch.bfloat16, torch.float16):
+                    X = torch.randn(Mx, K, generator=gen, device=dev).to(dt)
+                    run = k9_call(kq[name], X, nested)
+                    o1 = run()
+                    assert torch.equal(o1, run()), f"k9 {name} M{Mx}: a second call differs"
+                    rel = rel_err(o1, gemm_4bit_fused_plain(X, Bq, am, code_t, bs, N))
+                    assert rel <= 1e-2, f"k9 {name} M{Mx} {dt}: rel {rel}"
+                    key = f"M{Mx}_{str(dt)[6:]}"
+                    sums[key] = sums.get(key, 0.0) + cuda_time(run, flush_l2=True, hold=True)["median"]
+        return sums
+
+    for name, variant, M in (("gemm_4bit_fused", "k9", 8), ("gemm_4bit_fused_dq", "k9_dq", 8),
+                             ("gemm_4bit_nt_fused", "k11", 16)):
+        backward = variant == "k11"
+        tot, per_shape = kadj_layer(M, variant)
+        extra = {"device_ms": tot["device"], "library_device_ms": tot["lib_device"],
+                 "splits": {p["linear"]: p["splits"] for p in per_shape}}
         if backward:
-            extra.update(splits={p["linear"]: p["splits"] for p in per_shape}, layer_device_ms_by_M=k11_rows())
+            extra.update(layer_device_ms_by_M=k11_rows(), nested_decode_ms=tot["decode"])
             emit("k11_splits", sms=sms, plan={p["linear"]: [p["rows_per_split"], p["splits"]] for p in per_shape})
+        else:
+            extra.update(layer_device_ms_by_M=k9_rows(variant == "k9_dq"))
         entry(name, tot["ms"], tot["plain"], tot["lib"], tot["bytes"], tot["ops"], PEAK_BF16_FLOPS, tot["err"],
-              per_shape=per_shape, nested_decode_ms=tot["decode"], **extra,
+              per_shape=per_shape, **extra,
               note=f"sum over one layer's 4 linears{' transposed' if backward else ''} at M={M}, bf16 "
-                   f"{'g' if backward else 'A'}, bf16 quant_storage, the nested absmax decoded to f32 beforehand "
-                   "(nested_decode_ms: that decode, the path's per-call cost, timed apart); library: torch.matmul "
-                   "on the dequantized bf16 weight; device_ms, library_device_ms: the same two with the host held "
-                   "out of the window (hold=True)"
-                   + ("; layer_device_ms_by_M: kernel 11's device ms over the layer at other M and with f16 g"
-                      if backward else ""))
+                   f"{'g' if backward else 'A'}, bf16 quant_storage, "
+                   + ("the nested absmax decoded to f32 beforehand (nested_decode_ms: that decode, the path's "
+                      "per-call cost, timed apart)" if backward else
+                      "the nested absmax decoded in the kernel (_dq)" if variant == "k9_dq" else
+                      "on the nested absmax resolved to f32 beforehand")
+                   + "; library: torch.matmul on the dequantized bf16 weight; device_ms, library_device_ms: the "
+                     "same two with the host held out of the window (hold=True); layer_device_ms_by_M: the "
+                     "kernel's device ms over the layer at other M and dtypes")
 
     N, K = LINEARS["gate_up"]
     Bq, am = kadj(kq["gate_up"])
-    assert torch.equal(dequantize_4bit_2d(Bq, am, code, bs, (N, K)),
-                       dequantize_4bit_2d_plain(Bq, am, code_t, bs, (N, K), torch.bfloat16)), "dequantize_4bit_2d"
-    entry("dequantize_4bit_2d",
-          cuda_time(lambda: dequantize_4bit_2d(Bq, am, code, bs, (N, K)), flush_l2=True)["median"],
-          cuda_time(lambda: dequantize_4bit_2d_plain(Bq, am, code_t, bs, (N, K), torch.bfloat16), n=3)["median"],
-          None, N * K // 2 + (K // bs) * N * 4 + N * K * 2, N * K, PEAK_F32_FLOPS, 0.0, shape=[N, K],
-          dtype="bfloat16", nested_decode_ms=cuda_time(kq["gate_up"].state.dequant_absmax, n=5)["median"],
-          note="gate_up, the absmax decoded beforehand (nested_decode_ms, timed apart)")
+    nest = kadj_nested(kq["gate_up"])
+    W10 = dequantize_4bit_2d(Bq, am, code, bs, (N, K))
+    assert torch.equal(W10, dequantize_4bit_2d_plain(Bq, am, code_t, bs, (N, K), torch.bfloat16)), "dequantize_4bit_2d"
+    assert torch.equal(dequantize_4bit_2d_dq(Bq, *nest, code, bs, (N, K)), W10), "dequantize_4bit_2d_dq"
+    del W10
+    for name, run, plain, nested in (
+            ("dequantize_4bit_2d", lambda: dequantize_4bit_2d(Bq, am, code, bs, (N, K)),
+             lambda: dequantize_4bit_2d_plain(Bq, am, code_t, bs, (N, K), torch.bfloat16), False),
+            ("dequantize_4bit_2d_dq", lambda: dequantize_4bit_2d_dq(Bq, *nest, code, bs, (N, K)),
+             lambda: dequantize_4bit_2d_dq_plain(Bq, *nest, code_t, bs, (N, K), torch.bfloat16), True)):
+        entry(name, cuda_time(run, flush_l2=True)["median"], cuda_time(plain, n=3)["median"], None,
+              kadj_bytes(0, N, K, nested) + N * K * 2, N * K, PEAK_F32_FLOPS, 0.0, shape=[N, K], dtype="bfloat16",
+              device_ms=cuda_time(run, flush_l2=True, hold=True)["median"],
+              note="gate_up, " + ("the nested absmax decoded in the kernel" if nested else
+                                  "on the nested absmax resolved to f32 beforehand"))
 
-    # the route sweep that sets the K-adjacent thresholds
-    sweep = []
+    # The route sweep that sets the K-adjacent forward thresholds, device time
+    # with the host held out: kernel 9 (plain and nested) against kernel 10
+    # (plain and _dq) + matmul in A's type, bf16, f16 and f32 A; then kernel
+    # 11 against kernel 10 + matmul^T with bf16 g (the backward threshold).
+    def dev_t(f):
+        return cuda_time(f, n=10, flush_l2=True, hold=True)["median"]
+
+    sweep, crossover = [], {}
     for name in ("gate_up", "down"):
         N, K = LINEARS[name]
-        Bq, am = kadj(kq[name])
-        for Mx in (8, 16, 32, 48, 64, 96, 128, 192, 256):
-            A = torch.randn(Mx, K, generator=gen, device=dev).to(torch.bfloat16)
+        qt = kq[name]
+        Bq, am = kadj(qt)
+        nest = kadj_nested(qt)
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            for Mx in (8, 16, 24, 32, 48, 64, 96, 128, 160, 192, 256):
+                A = torch.randn(Mx, K, generator=gen, device=dev).to(dt)
+                pt = {"linear": name, "dtype": str(dt)[6:], "M": Mx,
+                      "k9_ms": dev_t(lambda: gemm_4bit_fused(A, Bq, am, code, bs, (N, K))),
+                      "k9_dq_ms": dev_t(lambda: gemm_4bit_fused_dq(A, Bq, *nest, code, bs, (N, K))),
+                      "k10_matmul_ms": dev_t(lambda: torch.matmul(A, dequantize_4bit_2d(Bq, am, code, bs, (N, K),
+                                                                                        dt).t())),
+                      "k10_dq_matmul_ms": dev_t(lambda: torch.matmul(A, dequantize_4bit_2d_dq(
+                          Bq, *nest, code, bs, (N, K), dt).t()))}
+                sweep.append(pt)
+                for inst, k, r in (("plain", "k9_ms", "k10_matmul_ms"), ("nested", "k9_dq_ms", "k10_dq_matmul_ms")):
+                    key = f"{name}_{pt['dtype']}_{inst}"
+                    if pt[k] > pt[r] and key not in crossover:
+                        crossover[key] = Mx  # the first M at which kernel 9 trails
+        for Mx in (8, 16, 32, 64, 96, 128, 192, 256):
             Gx = torch.randn(Mx, N, generator=gen, device=dev).to(torch.bfloat16)
-            sweep.append({
-                "linear": name, "M": Mx,
-                "k9_ms": cuda_time(lambda: gemm_4bit_fused(A, Bq, am, code, bs, (N, K)), n=10, flush_l2=True)["median"],
-                "k10_matmul_ms": cuda_time(lambda: torch.matmul(A, dequantize_4bit_2d(Bq, am, code, bs, (N, K)).t()),
-                                           n=10, flush_l2=True)["median"],
-                "k11_ms": cuda_time(lambda: gemm_4bit_nt_fused(Gx, Bq, am, code, bs, (N, K)), n=10,
-                                    flush_l2=True, hold=True)["median"],
-                "k10_matmul_T_ms": cuda_time(lambda: torch.matmul(Gx, dequantize_4bit_2d(Bq, am, code, bs, (N, K))),
-                                             n=10, flush_l2=True, hold=True)["median"]})
+            sweep.append({"linear": name + "^T", "dtype": "bfloat16", "M": Mx,
+                          "k11_ms": dev_t(lambda: gemm_4bit_nt_fused(Gx, Bq, am, code, bs, (N, K))),
+                          "k10_matmul_T_ms": dev_t(lambda: torch.matmul(Gx, dequantize_4bit_2d(Bq, am, code, bs,
+                                                                                              (N, K))))})
     emit("threshold_sweep_kadjacent", KADJACENT_LARGE_M_THRESHOLD=G.KADJACENT_LARGE_M_THRESHOLD,
-         BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD, points=sweep)
+         KADJACENT_F32_LARGE_M_THRESHOLD=G.KADJACENT_F32_LARGE_M_THRESHOLD,
+         BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD, first_M_kernel9_trails=crossover, points=sweep)
     del kq
     torch.cuda.empty_cache()
 
@@ -1598,6 +1783,8 @@ def main() -> int:
                 "wqkv": q(torch.cat([layer["wq"], layer["wk"], layer["wv"]], dim=0)), "wo": q(layer["wo"]),
                 "gate_up": q(torch.cat([layer["gate"], layer["up"]], dim=0)), "down": q(layer["down"])}
 
+    decode_profile = {}
+
     def serve(tag, compress, expected, keep=False, quantize=None):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1656,6 +1843,8 @@ def main() -> int:
         events = device_events(prof)
         dev_us = sum(self_dev_us(e) for e in events)
         attn_us = sum(self_dev_us(e) for e in events if "flash" in e.key)  # kernels 4 and 16 and their combine
+        decode_profile[tag] = {"device_launches_per_step": sum(e.count for e in events) / 4,
+                               "device_ms_per_step": dev_us / 4e3, "wall_ms_per_step": prof_wall_ms / 4}
         top = sorted(((e.key, self_dev_us(e) / 4e3, e.count // 4) for e in events), key=lambda r: -r[1])[:8]
 
         med = statistics.median(step_ms)
@@ -1677,6 +1866,7 @@ def main() -> int:
             launches=counts,
             profiled_decode={"steps": 4, "wall_ms_per_step": prof_wall_ms / 4,
                              "device_ms_per_step": dev_us / 4e3,
+                             "device_launches_per_step": decode_profile[tag]["device_launches_per_step"],
                              "attention_ms_per_step": attn_us / 4e3, "attention_share": attn_us / max(dev_us, 1),
                              "device_busy_share": dev_us / 1e3 / prof_wall_ms,
                              "top_kernels_ms_per_step": top},
@@ -1968,25 +2158,49 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4f. serve, then QLoRA-train with AdEMAMix, on bf16 quant_storage ---
-    # (the K-adjacent layout: kernels 9 and 10, the nested absmax decoded on
-    # the device before each call, then kernels 10 and 15 in training)
+    # (the K-adjacent layout: kernel 10's _dq mode at prefill and kernel 9's
+    # nested instance at decode, then kernels 10 _dq and 15 in training; the
+    # nested absmax is decoded in the kernels, never before a call)
     assert batch < G.KADJACENT_LARGE_M_THRESHOLD <= batch * prompt and tb * tt >= G.BACKWARD_LARGE_M_THRESHOLD
+    from bitsandbytes_tpu_torch.functional.quant_state import QuantState
+    nested_decodes = [0]  # calls of the nested absmax decode (PyTorch ops) on the path
+    resolve = QuantState.dequant_absmax
+
+    def counted_resolve(self):
+        nested_decodes[0] += int(self.nested)
+        return resolve(self)
+
+    QuantState.dequant_absmax = counted_resolve
     counts, kq_params = serve("serve_kadjacent", True, {
         "quantize_4bit_codes": 4 * Lyr,
         "quantize_blockwise8": 4 * Lyr,
-        "dequantize_4bit_2d": 4 * Lyr,
-        "gemm_4bit_fused": 4 * Lyr * steps,
+        "dequantize_4bit_2d_dq": 4 * Lyr,
+        "gemm_4bit_fused_dq": 4 * Lyr * steps,
         "flash_attention_cached": Lyr * (steps + 1),
         "flash_attention_combine": serve_combines,
     }, keep=True, quantize=quantize_2d)
-    report["gemm_4bit_fused"]["launches"] = counts["gemm_4bit_fused"]
+    serve_decodes = nested_decodes[0]
+    assert serve_decodes == 0, f"4f serve: the nested absmax was decoded {serve_decodes} times before a call"
+    report["gemm_4bit_fused_dq"]["launches"] = counts["gemm_4bit_fused_dq"]
     st0 = kq_params["layers"][0]["gate_up"].state
-    assert st0.layout == "2d" and st0.nested and kq_params["layers"][0]["gate_up"].data.dtype == torch.uint16
+    assert st0.layout == "2d" and st0.inline_nested and kq_params["layers"][0]["gate_up"].data.dtype == torch.uint16
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        st0.dequant_absmax()
+        resolve(st0)
         torch.cuda.synchronize()
     decode_launches = sum(e.count for e in device_events(prof))  # PyTorch's kernels, none of the port's
+    # a decode step launches what 4b's (the same model on the paired layout,
+    # whose kernels decode in place) launches, give or take the layout's own
+    # few: far less than one nested decode (decode_launches) more
+    extra_launches = (decode_profile["serve_kadjacent"]["device_launches_per_step"]
+                      - decode_profile["serve_nested"]["device_launches_per_step"])
+    assert extra_launches < decode_launches, \
+        f"4f decode: {extra_launches} launches a step more than 4b's, a nested decode is {decode_launches}"
+    emit("kadjacent_decode_launches", decode_launches_per_nested_decode=decode_launches,
+         launches_per_step_4f=decode_profile["serve_kadjacent"]["device_launches_per_step"],
+         launches_per_step_4b=decode_profile["serve_nested"]["device_launches_per_step"],
+         device_ms_per_step_4f=decode_profile["serve_kadjacent"]["device_ms_per_step"],
+         device_ms_per_step_4b=decode_profile["serve_nested"]["device_ms_per_step"], nested_decodes=serve_decodes)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2009,9 +2223,11 @@ def main() -> int:
         train_ms.append((time.perf_counter() - t0) * 1e3)
     counts = launch_counts()
     want = {k: 0 for k in counts}
-    want.update({"dequantize_4bit_2d": tsteps * (8 * Lyr - 1),
+    want.update({"dequantize_4bit_2d_dq": tsteps * (8 * Lyr - 1),
                  "optimizer_update_8bit_ademamix": tsteps * 2 * len(LORA_TARGETS) * Lyr})
     assert counts == want, f"qlora ademamix train: launch counts {counts} != {want}"
+    # the forward and the large-M backward read the codes in kernel 10's _dq mode
+    assert nested_decodes[0] == 0, f"4f train: the nested absmax was decoded {nested_decodes[0]} times"
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0], f"qlora losses {losses}"
     states = [opt.state[t] for t in lparams if t.dim() > 0]
     assert all(st["state1"].dtype == torch.uint8 and st["state1"].shape[0] == 2 for st in states)
@@ -2026,7 +2242,7 @@ def main() -> int:
 
     def kclass(key):
         if "dequantize_4bit_2d" in key:
-            return "kernel 10 (dequantize_4bit_2d)"
+            return "kernel 10 (dequantize_4bit_2d, _dq mode)"
         if "ademamix" in key:
             return "kernel 15 (AdEMAMix update)"
         if any(w in key.lower() for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
@@ -2049,12 +2265,13 @@ def main() -> int:
          step_ms={"median_2_5": med, "all": train_ms}, tokens_per_s=tb * tt / (med * 1e-3),
          optimizer_ms={"median_2_5": statistics.median(opt_ms[1:tsteps]), "all": opt_ms[:tsteps]},
          peak_memory=train_peak, launches=counts, launches_per_step={k: v / tsteps for k, v in counts.items() if v},
-         nested_decode_launches_per_call=decode_launches,
+         nested_decodes=nested_decodes[0], nested_decode_launches_per_call=decode_launches,
          profiled_step={"wall_ms": prof_wall_ms, "device_ms": dev_us / 1e3,
                         "device_busy_share": dev_us / 1e3 / prof_wall_ms, "by_class": by_class,
                         "top_kernels_ms": top})
-    for name in ("dequantize_4bit_2d", "optimizer_update_8bit_ademamix"):
+    for name in ("dequantize_4bit_2d_dq", "optimizer_update_8bit_ademamix"):
         report[name]["launches"] = counts[name]
+    QuantState.dequant_absmax = resolve
     opt.step = opt_step
     del lora, lparams, opt, states, kq_params, tids, loss, prof
     torch.cuda.empty_cache()
@@ -2272,7 +2489,9 @@ def main() -> int:
         tok = glog.argmax(-1)
     serve_counts = launch_counts()
     want = {k: 0 for k in serve_counts}
-    want.update({"dequantize_4bit_2d": 4 * 2, "gemm_4bit_fused": 4 * 2 * steps5d,
+    prefill_k9 = B2 * T2 < G.KADJACENT_LARGE_M_THRESHOLD  # the prefill's route: kernel 9, or kernel 10 + matmul
+    want.update({"dequantize_4bit_2d_dq": 0 if prefill_k9 else 4 * 2,
+                 "gemm_4bit_fused_dq": 4 * 2 * (steps5d + prefill_k9),
                  "flash_attention_cached": 2 * (steps5d + 1),
                  "flash_attention_combine": 2 * (steps5d * combines(B2, Gq, 256) + combines(B2, Gq * T2, 256))})
     assert serve_counts == want, f"5d serve: launch counts {serve_counts} != {want}"
@@ -2290,7 +2509,7 @@ def main() -> int:
     loss_g = L.lora_train_step(gpu_params, lg, og, ids5.to(dev), cfg2).item()
     counts = launch_counts()
     want = {k: 0 for k in counts}
-    want.update({"gemm_4bit_fused": 4 * 2, "gemm_4bit_nt_fused": 4 * 2 - 1,
+    want.update({"gemm_4bit_fused_dq": 4 * 2, "gemm_4bit_nt_fused": 4 * 2 - 1,
                  "optimizer_update_8bit_ademamix": 2 * len(LORA_TARGETS) * 2})
     assert counts == want, f"5d qlora step: launch counts {counts} != {want}"
     report["gemm_4bit_nt_fused"]["launches"] = counts["gemm_4bit_nt_fused"]
@@ -2358,6 +2577,38 @@ def main() -> int:
                     f"Linear4bit {dt} nested {compress} M {Mx}: rel {rel}"
                 lin_cases.append({"compute_dtype": str(dt)[6:], "nested": compress, "M": Mx, "kernel": kern,
                                   "rel_err_vs_cpu": rel})
+            del lin_g, lin_c
+    # the same on bf16 quant_storage (the K-adjacent layout, kernels 9 and 10,
+    # plain and _dq), in bf16, f16 and f32, on both sides of each dtype's threshold
+    for compress in (False, True):
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            lin_g = Linear4bit(K, N, bias=False, compute_dtype=dt, device=dev)
+            lin_c = Linear4bit(K, N, bias=False, compute_dtype=dt, device="cpu")
+            lin_g.weight = QuantizedTensor.quantize(Wl.to(dev), blocksize=bs, compress_statistics=compress,
+                                                    quant_storage=torch.bfloat16)
+            lin_c.weight = QuantizedTensor.quantize(Wl, blocksize=bs, compress_statistics=compress,
+                                                    quant_storage=torch.bfloat16)
+            assert lin_g.weight.state.layout == "2d" and lin_g.weight.state.inline_nested == compress
+            sfx = "_dq" if compress else ""
+            th = G.KADJACENT_F32_LARGE_M_THRESHOLD if dt == torch.float32 else G.KADJACENT_LARGE_M_THRESHOLD
+            for Mx in (th - 1, th):
+                x = torch.randn(Mx, K, generator=torch.Generator().manual_seed(Mx))
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                y = lin_g(x.to(dev))
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                kern = f"gemm_4bit_fused{sfx}" if Mx < th else f"dequantize_4bit_2d{sfx}"
+                assert counts[kern] == 1 and sum(counts.values()) == 1, f"2d Linear4bit {dt} M {Mx}: {counts}"
+                for name in ("gemm_4bit_fused", "dequantize_4bit_2d"):  # the plain instances' path
+                    if kern == name:
+                        report[name]["launches"] = (report[name]["launches"] or 0) + 1
+                ref = lin_c(x)
+                rel = ((y.cpu().float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+                assert y.dtype == dt and rel <= (1e-4 if dt == torch.float32 else 1e-2), \
+                    f"2d Linear4bit {dt} nested {compress} M {Mx}: rel {rel}"
+                lin_cases.append({"layout": "2d", "compute_dtype": str(dt)[6:], "nested": compress, "M": Mx,
+                                  "kernel": kern, "rel_err_vs_cpu": rel})
             del lin_g, lin_c
     # adamw8bit and ademamix8bit over a bf16 parameter: the card's steps give the CPU's bits
     opt_cases = []
@@ -2450,7 +2701,7 @@ def main() -> int:
         assert k["launches"] and k["launches"] > 0, k["name"]
     print(smi, flush=True)  # again, beside the numbers: the first lines scroll out of a short log
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -27,6 +27,7 @@ import torch
 
 from bitsandbytes_tpu import autograd as JA
 from bitsandbytes_tpu.functional import fourbit as JF
+from bitsandbytes_tpu.functional import gemm as JG
 from bitsandbytes_tpu.nn.modules import QuantizedTensor as JQT
 from bitsandbytes_tpu.ops.pallas.gemm4bit import (
     dequantize_4bit_pallas as j_dequantize_4bit_pallas,
@@ -222,12 +223,13 @@ def _np_qt(jq):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nested", [False, True], ids=["nf4", "nested"])
-@pytest.mark.parametrize("M", [5, 48])
+@pytest.mark.parametrize("M", [5, 48, 129])
 def test_matmul_4bit_2d_matches_jax(nested, M, dtype):
     """``matmul_4bit`` forward and gradients on a bf16-storage 2d state,
     carried across from the JAX package, against its default tier: kernels
-    9 and 11's plain versions at M 5, kernel 10 and the matmul at M 48 with
-    bf16 activations.  f32 within rtol 1e-5 (forward) and 2e-2 / 2e-3
+    9 and 11's plain versions at M 5 and 48 with bf16 activations, kernel 10
+    and the matmul forward and backward at M 129 (and the forward from M 9
+    with f32 activations).  f32 within rtol 1e-5 (forward) and 2e-2 / 2e-3
     (gradients, as ``tests/test_autograd.py``); bf16 within one bf16 step of
     the largest value."""
     rng = np.random.default_rng(M)
@@ -256,6 +258,42 @@ def test_matmul_4bit_2d_matches_jax(nested, M, dtype):
         assert _rel(out.detach().float().numpy(), jout) <= BF16_STEP
         assert _rel(tx.grad.float().numpy(), jgx) <= BF16_STEP
     assert not tq.data.requires_grad
+
+
+@pytest.mark.parametrize("side", ["kernel9", "dequantize_matmul"])
+@pytest.mark.parametrize("nested", [False, True], ids=["plain", "nested"])
+@pytest.mark.parametrize("dtype", ["float16", "float32"])
+def test_gemm_4bit_f16_f32_routes_match_jax(dtype, nested, side, monkeypatch):
+    """f16 and f32 activations on a bf16-storage 2d state, plain and nested,
+    one row below and at the dtype's threshold (kernel 9, or kernel 10 in
+    A's type and the matmul; the ``_dq`` instances on a nested state, with
+    no decode before the call), against the JAX package's ``gemm_4bit`` on
+    the same state: f32 within rtol 1e-5, f16 within one bf16 step of the
+    largest output."""
+    threshold = TG.KADJACENT_F32_LARGE_M_THRESHOLD if dtype == "float32" else TG.KADJACENT_LARGE_M_THRESHOLD
+    M = threshold - 1 if side == "kernel9" else threshold
+    rng = np.random.default_rng(21)
+    W = (rng.standard_normal((N, K)) / np.sqrt(K)).astype(np.float32)
+    jq = JQT.quantize(jnp.asarray(W), blocksize=64, quant_storage=jnp.bfloat16, compress_statistics=nested)
+    tq = params_from_numpy({"w": _np_qt(jq)}, "cpu")["w"]
+    assert tq.state.layout == "2d" and tq.state.inline_nested == nested
+    x = np.asarray(jnp.asarray(rng.standard_normal((M, K)), getattr(jnp, dtype)))
+    ref = np.asarray(JG.gemm_4bit(jnp.asarray(x), jq.data, jq.state), np.float32)
+
+    called = []
+    for name in ("gemm_4bit_fused", "gemm_4bit_fused_dq", "dequantize_4bit_2d", "dequantize_4bit_2d_dq"):
+        monkeypatch.setattr(TG, name, lambda *a, _f=getattr(TG, name), _n=name, **k: called.append(_n) or _f(*a, **k))
+    monkeypatch.setattr(type(tq.state), "dequant_absmax",
+                        lambda self: pytest.fail("the nested absmax was decoded before the call") if self.nested
+                        else self.absmax.reshape(-1))
+    out = TG.gemm_4bit(tensor_from_numpy(x, "cpu"), tq.data, tq.state)
+    kernel = ("gemm_4bit_fused" if side == "kernel9" else "dequantize_4bit_2d") + ("_dq" if nested else "")
+    assert called == [kernel]
+    assert out.dtype == getattr(torch, dtype) and tuple(out.shape) == (M, N)
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert _rel(out.float().numpy(), ref) <= BF16_STEP
 
 
 @pytest.mark.parametrize("M", [3, 40])

@@ -148,16 +148,21 @@ def test_latency_metrics(setup):
 
 def test_grouped_prefill_matches_single(setup):
     """A burst of same-bucket admissions prefills as one batch; the greedy
-    streams equal one-by-one admissions, dense and paged.  The prompts pad
-    to 256 tokens, so one prompt alone (M = 256) and the burst take the same
-    large-M route of the 4-bit linears (``LARGE_M_THRESHOLD``)."""
+    streams equal one-by-one admissions, dense and paged.  Two sets of
+    prompts, one on each side of ``LARGE_M_THRESHOLD``, so that one prompt
+    alone and the burst take the same route of the 4-bit linears: the JAX
+    test's own prompts pad to 16 tokens (M = 16 alone, 64 as the burst: the
+    decode GEMM, kernel 2's plain version), and prompts of 67-100 tokens pad
+    to 256 (M = 256 alone: the dequantize and the matmul)."""
     rng = np.random.default_rng(2)
-    prompts = [rng.integers(1, 100, size=n).tolist() for n in (67, 80, 100, 75)]
-    assert 256 >= tgemm.LARGE_M_THRESHOLD
-    for kw in ({}, {"kv_layout": "paged", "kv_block_size": 8}, {"kv_dtype": "int8"}):
-        burst = _engine(setup, max_batch=4, max_len=272, **kw).generate(prompts, max_new_tokens=5)
-        trickle = _engine(setup, max_batch=1, max_len=272, **kw).generate(prompts, max_new_tokens=5)
-        assert [r.tokens for r in burst] == [r.tokens for r in trickle], kw
+    small = [[1, 2, 3], [7, 8, 9], [4], [11, 12]]
+    large = [rng.integers(1, 100, size=n).tolist() for n in (67, 80, 100, 75)]
+    assert 4 * 16 < tgemm.LARGE_M_THRESHOLD <= 256
+    for prompts, max_len in ((small, 64), (large, 272)):
+        for kw in ({}, {"kv_layout": "paged", "kv_block_size": 8}, {"kv_dtype": "int8"}):
+            burst = _engine(setup, max_batch=4, max_len=max_len, **kw).generate(prompts, max_new_tokens=5)
+            trickle = _engine(setup, max_batch=1, max_len=max_len, **kw).generate(prompts, max_new_tokens=5)
+            assert [r.tokens for r in burst] == [r.tokens for r in trickle], (len(prompts[0]), kw)
 
 
 def test_grouped_sampled_admission_deterministic(setup):
