@@ -37,13 +37,34 @@
 // no block order is assumed.  Each block takes 8 rows of A; larger M is a
 // grid dimension.
 //
-// dequantize_paired_kernel replaces dequantize_paired_fast
-// (_paired_dequant_kernel) of the same file:
-//   W[N, K] = dtype(unit(code) * absmax)   (the scale product in exact f32;
-//                                            dtype bf16, f16 or f32)
-// Bound: bytes (N*K/2 read, N*K*sizeof(dtype) written).  One thread reads 8
-// payload bytes and writes 8 values to each of rows 2*n2 and 2*n2+1, 16-byte
-// stores coalesced along K.
+// dequantize_paired_kernel (kernel 3; kernel 6 on NestedScales) replaces
+// dequantize_paired_fast (_paired_dequant_kernel) of the same file:
+//   W[N, K] = dtype(unit(code) * absmax)   (the scale product in exact f32,
+//                                            rounded to bf16, f16 or f32)
+// Bound: bytes, most of them written: N*K/2 of payload and the scales are
+// read, N*K*sizeof(dtype) written (78% of the bytes in bf16, 88% in f32), so
+// the floor on this card is a store-only pass over W (zero_()).  A body that
+// gives each thread one 8-byte load and its 16 outputs, a block per 2 KB of
+// payload, holds near half the copy rate: in probe builds it kept most of its
+// time without its stores and without its loads alike (latency per thread,
+// not the write stream).  So a block owns a tile of 8 row pairs (one a warp)
+// x 1024 columns.  Each lane issues its 4 (16-bit W) or 8 (f32 W) payload loads,
+// 8 or 4 bytes each, before anything waits on them; meanwhile the block
+// stages the tile's scales in shared memory, each read once, one a thread (a
+// contiguous run of absmax_t along N for each quantization block, or its u8
+// codes and s2 decoded through the 256-entry table).  Then each store
+// instruction of a warp writes 512 contiguous bytes of one row of W (16 bytes
+// a lane: whole 32-byte sectors, never one sector across two instructions).
+// Probes on the card chose this (PERF.md §6) over a persistent grid that
+// held the next tile's loads in registers (slower: its registers left
+// fewer blocks on an SM), scales loaded by each lane (the nested instance slower,
+// the more so the wider the tile), evict-first and TMA bulk stores (slower
+// alone and before the matmul that reads W), and 8 columns a lane in f32
+// (two 16-byte stores splitting sectors: far slower).  Every shape the wrappers
+// take runs it: any even N, K % 8 == 0 (blocksize >= 8 divides K, so 8
+// columns never straddle a quantization block), tiles partial in N or K
+// masked.  What still holds it back: 43% over the store floor in bf16
+// (gate_up 0.108 against 0.076 ms), the reads and the scale staging.
 //
 // The _dq entry points replace gemm_4bit_paired_dq (_paired_kernel_dq) and
 // dequantize_paired_fast_dq (_paired_dequant_kernel_dq): the same two
@@ -113,6 +134,10 @@ struct F32Scales {
     __device__ __forceinline__ float2 load(const float*, int blk, int n2) const {
         return *reinterpret_cast<const float2*>(absmax_t + (size_t)blk * N + 2 * n2);
     }
+    // the dequantize's staging: the scale of row n in quantization block blk
+    __device__ __forceinline__ float scale(const float*, int blk, int n) const {
+        return absmax_t[(size_t)blk * N + n];
+    }
     // the tensor-core kernel's staging: the scale at flat offset off (blk * N + n) into dst
     __device__ __forceinline__ void stage(float* dst, size_t off, bool live) const {
         cp_async4(dst, live ? absmax_t + off : absmax_t, live);
@@ -137,6 +162,10 @@ struct NestedScales {
         const float off = __ldg(offset);
         return make_float2(__fmaf_rn(table[q.x], s2[f >> 8], off),
                            __fmaf_rn(table[q.y], s2[(f + KB) >> 8], off));
+    }
+    __device__ __forceinline__ float scale(const float* table, int blk, int n) const {
+        const long long f = (long long)n * KB + blk;
+        return __fmaf_rn(table[codes_t[(size_t)blk * N + n]], s2[f >> 8], __ldg(offset));
     }
     // the tensor-core kernel's decode of a staged code q and second-level scale s
     __device__ __forceinline__ float decode(const float* table, uint32_t q, float s, float off) const {
@@ -550,37 +579,82 @@ gemm_4bit_paired_tc_kernel(const TA* __restrict__ A, const uint8_t* __restrict__
         }
 }
 
+// The dequantize's tile: 8 row pairs (one a warp) x 1024 columns, one tile a
+// block, the grid one block a tile.
 constexpr int kDqThreads = 256;
+constexpr int kDqRows = kDqThreads / 32;   // row pairs a tile
+constexpr int kDqCols = 1024;              // columns a tile
+constexpr int kDqSlots = kDqCols / 8 + 1;  // quantization blocks a tile can touch (blocksize >= 8)
+
+// A byte v of a lane's payload word.
+__device__ __forceinline__ uint32_t payload_byte(uint32_t w, int v) { return (w >> (8 * v)) & 0xFFu; }
+__device__ __forceinline__ uint32_t payload_byte(uint2 w, int v) { return payload_byte(v < 4 ? w.x : w.y, v & 3); }
+
+// 16 bytes of T (eight 16-bit values or four f32) rounded from f32, at a 16-byte aligned address.
+template <class T> __device__ __forceinline__ void store16(T* dst, const float* a) {
+    if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[1], a[2], a[3]);
+    else
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack2<T>(a[0], a[1]), pack2<T>(a[2], a[3]), pack2<T>(a[4], a[5]), pack2<T>(a[6], a[7]));
+}
 
 template <class TOut, class Scales>
 __global__ void __launch_bounds__(kDqThreads)
-dequantize_paired_kernel(const uint8_t* __restrict__ P, Scales scales,
-                         TOut* __restrict__ W, int N, int K, int blocksize,
-                         Units16 units) {
+dequantize_paired_kernel(const uint8_t* __restrict__ P, Scales scales, TOut* __restrict__ W, int N, int K,
+                         int blocksize, Units16 units) {
+    constexpr int V = 16 / sizeof(TOut);   // columns of one store: 16 bytes of one row
+    constexpr int U = kDqCols / (32 * V);  // a lane's stores a row in a tile
+    using Word = std::conditional_t<V == 8, uint2, uint32_t>;  // the payload bytes of one store
     __shared__ float s_units[16];
     __shared__ float s_table[Scales::kTable];
+    __shared__ __align__(8) float s_sc[kDqSlots * 2 * kDqRows];  // [quantization block][row of the tile]
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int tiles_k = (K + kDqCols - 1) / kDqCols;
+    const int rg = blockIdx.x / tiles_k;
+    const int k0 = (blockIdx.x - rg * tiles_k) * kDqCols;
+    const int n2 = rg * kDqRows + warp;
+    const bool live = n2 < (N >> 1);
+
+    // the payload first: its loads are in flight while the scales are staged
+    Word p[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+        const int k = k0 + j * 32 * V + lane * V;
+        if (live && k < K) p[j] = __ldcs(reinterpret_cast<const Word*>(P + (size_t)n2 * K + k));
+    }
     if (threadIdx.x < 16) s_units[threadIdx.x] = units.v[threadIdx.x];
     scales.prologue(s_table, threadIdx.x, kDqThreads);
     __syncthreads();
-
-    const long long idx = (long long)blockIdx.x * kDqThreads + threadIdx.x;
-    const int kv = K / 8;
-    if (idx >= (long long)(N >> 1) * kv) return;
-    const int n2 = (int)(idx / kv);
-    const int k = (int)(idx - (long long)n2 * kv) * 8;
-
-    const uint2 pb = *reinterpret_cast<const uint2*>(P + (size_t)n2 * K + k);
-    const float2 sc = scales.load(s_table, k / blocksize, n2);
-    float hi[8], lo[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        const uint32_t word = j < 4 ? pb.x : pb.y;
-        const uint32_t b = (word >> (8 * (j & 3))) & 0xFFu;
-        hi[j] = s_units[b >> 4] * sc.x;
-        lo[j] = s_units[b & 15u] * sc.y;
+    // the tile's scales, each read (and decoded) once: quantization blocks
+    // first..first + slots - 1 of its 16 rows, neighbouring threads on neighbouring rows
+    const int first = k0 / blocksize;
+    const int slots = (min(k0 + kDqCols, K) - 1) / blocksize - first + 1;
+    const int rows = min(2 * kDqRows, N - 2 * rg * kDqRows);
+    for (int i = threadIdx.x; i < slots * 2 * kDqRows; i += kDqThreads) {
+        const int r = i % (2 * kDqRows);
+        if (r < rows) s_sc[i] = scales.scale(s_table, first + i / (2 * kDqRows), 2 * rg * kDqRows + r);
     }
-    store8(W + (size_t)(2 * n2) * K + k, hi);
-    store8(W + (size_t)(2 * n2 + 1) * K + k, lo);
+    __syncthreads();
+    if (!live) return;
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+        const int k = k0 + j * 32 * V + lane * V;
+        if (k < K) {
+            const float2 s =
+                *reinterpret_cast<const float2*>(s_sc + (k / blocksize - first) * 2 * kDqRows + 2 * warp);
+            float hi[V], lo[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                const uint32_t b = payload_byte(p[j], v);
+                hi[v] = __fmul_rn(s_units[b >> 4], s.x);
+                lo[v] = __fmul_rn(s_units[b & 15u], s.y);
+            }
+            store16(W + (size_t)(2 * n2) * K + k, hi);
+            store16(W + (size_t)(2 * n2 + 1) * K + k, lo);
+        }
+    }
 }
 
 constexpr int kNtWarps = 8;
@@ -1130,12 +1204,10 @@ int launch_gemm(const void* A, const uint8_t* P, const Scales& sc, float* part, 
 template <class TOut, class Scales>
 void launch_dequant_t(const uint8_t* P, const Scales& sc, void* W, int N, int K, int blocksize,
                       const Units16& u, cudaStream_t stream) {
-    const long long total = (long long)(N / 2) * (K / 8);
-    if (total > 0) {
-        const long long grid = (total + kDqThreads - 1) / kDqThreads;
-        dequantize_paired_kernel<TOut, Scales><<<(unsigned)grid, kDqThreads, 0, stream>>>(
+    const long long tiles = (long long)((N / 2 + kDqRows - 1) / kDqRows) * ((K + kDqCols - 1) / kDqCols);
+    if (tiles > 0)
+        dequantize_paired_kernel<TOut, Scales><<<(unsigned)tiles, kDqThreads, 0, stream>>>(
             P, sc, static_cast<TOut*>(W), N, K, blocksize, u);
-    }
 }
 
 template <class Scales>

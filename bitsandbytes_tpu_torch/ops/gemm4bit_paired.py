@@ -20,7 +20,11 @@ The kernels, all in ``csrc/gemm4bit_paired.cu``:
   CUDA cores, one warp streaming one row pair along K.
 * :func:`dequantize_paired_fast` replaces ``dequantize_paired_fast``
   (``_paired_dequant_kernel``): ``W[N, K] = dtype(unit(code) * absmax)`` (bf16,
-  f16 or f32) for the large-M route.  Bound by bytes; one pass.
+  f16 or f32) for the large-M route.  Bound by bytes, most of them written.
+  One block a tile of 8 row pairs x 1024 columns: each lane's payload loads
+  issued at once, the tile's scales staged once in shared memory, each
+  warp's 16-byte stores one contiguous run of a row of W; every shape the
+  wrapper takes runs it.
 * :func:`gemm_4bit_paired_dq` and :func:`dequantize_paired_fast_dq` replace
   ``gemm_4bit_paired_dq`` and ``dequantize_paired_fast_dq``: the same two
   kernels on a double-quantized absmax, uint8 codes ``[K/blocksize, N]``

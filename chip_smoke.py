@@ -13,11 +13,16 @@ Phases (every one asserts; any failure exits non-zero before the result):
    paths' shapes (Llama-3-8B geometry), with times, bytes and bounds; kernels
    2 and 5 also with the host held out of the window at M 8 and 16 and with
    f16 A, their split plans, each 16-bit call against a second run bit for
-   bit (3b, 3f); the device-time sweep of kernels 2 and 5 against dequantize
-   + matmul that chose ``functional/gemm.LARGE_M_THRESHOLD`` (3d); ragged
-   shapes, kernels 2 and 5 on the tensor cores at M 1-33, N not a multiple of
-   16 and blocksize 32-4096, and mismatched plans refused by their C entries
-   (3e);
+   bit (3b, 3f); kernels 3 and 6 at the four linears in bf16, f16 and f32,
+   bit for bit against their plain versions, a second call and (6) kernel 3
+   on the resolved absmax, device time with the host held out beside the
+   store floor (``zero_()`` of the same W) (3b, 3f); the device-time sweep of
+   kernels 2 and 5 against dequantize + matmul that chose
+   ``functional/gemm.LARGE_M_THRESHOLD`` (3d); ragged shapes, kernels 2 and 5
+   on the tensor cores at M 1-33, N not a multiple of 16 and blocksize
+   32-4096, and mismatched plans refused by their C entries, kernels 3 and 6
+   bit for bit at N/2 odd, tiles partial in N and K, blocksizes 8-4096 and
+   Llama's down (3e);
    the backward kernels 7 and 8 (3h: ragged shapes up to M 33 and blocksize
    32-512, each 16-bit call against a second run bit for bit, kernel 8
    against kernel 7 on the resolved absmax bit for bit, times with the host
@@ -62,7 +67,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    kernels 9 and 10 in their nested modes, with no decode of the absmax
    before a call), double-quantized, trained with ``ademamix8bit`` (kernel
    15).  The kernels' launch counts are zeroed just before each path and
-   read just after it.
+   read just after it.  Each serving path also profiles one more prefill
+   (device time, launches, the dequantize's share), and each training path
+   one step by kernel class.
 5. Both serving paths at 2 layers on the card and on the CPU (plain
    versions): equal quantized bytes, logits within tolerance, top-5
    containment; then one QLoRA step of each at 2 layers, M = 16 (5b): the
@@ -323,6 +330,45 @@ def main() -> int:
     )
     del W, x, qk, ak, qp, ap_, u
 
+    def bits_equal(a, b):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+    def dequant_layer(run, plain, scale_bytes, resolved=None):
+        """Kernel 3 (or 6) at each of the four linears in bf16, f16 and f32:
+        bit for bit against its plain version, a second call and (kernel 6)
+        kernel 3 on the resolved absmax; then device time with the host held
+        out, the store floor (zero_() of the same W: its bytes written,
+        nothing read) and, given ``resolved``, kernel 3's beside it.  Sums
+        over the layer by output type."""
+        per, tot = {}, {}
+        for name, (N, K) in LINEARS.items():
+            for dt in (torch.bfloat16, torch.float16, torch.float32):
+                key = str(dt)[6:]
+                Wk = run(name, dt)
+                assert bits_equal(Wk, plain(name, dt)), f"dequantize {name} {key}: differs from its plain version"
+                assert bits_equal(Wk, run(name, dt)), f"dequantize {name} {key}: a second call differs"
+                assert resolved is None or bits_equal(Wk, resolved(name, dt)), \
+                    f"dequantize_dq {name} {key}: differs from kernel 3 on the resolved absmax"
+                row = {"device_ms": cuda_time(lambda: run(name, dt), flush_l2=True, hold=True)["median"],
+                       "store_floor_ms": cuda_time(lambda: Wk.zero_(), flush_l2=True, hold=True)["median"]}
+                if resolved is not None:
+                    row["kernel3_resolved_device_ms"] = cuda_time(lambda: resolved(name, dt), flush_l2=True,
+                                                                  hold=True)["median"]
+                nbytes = N * K // 2 + scale_bytes(name) + N * K * dt.itemsize
+                row.update(bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_S * 1e3,
+                           canary_bound_ms=nbytes / canary_bs * 1e3)
+                per.setdefault(name, {})[key] = row
+                for k, v in row.items():
+                    tot.setdefault(key, {}).setdefault(k, 0.0)
+                    tot[key][k] += v
+                del Wk
+        return {"per_linear": per, "layer_device_ms": {k: v["device_ms"] for k, v in tot.items()},
+                "layer_store_floor_ms": {k: v["store_floor_ms"] for k, v in tot.items()},
+                "layer_canary_bound_ms": {k: v["canary_bound_ms"] for k, v in tot.items()},
+                **({"layer_kernel3_resolved_device_ms": {k: v["kernel3_resolved_device_ms"] for k, v in tot.items()}}
+                   if resolved is not None else {})}
+
     # -- 3b. kernel 2 (decode GEMM, M = 8) and kernel 3 (dequantize) ------
     weights = {}
     for name, (N, K) in LINEARS.items():
@@ -425,12 +471,19 @@ def main() -> int:
         out_modes[str(dt)[6:]] = cuda_time(lambda: dequantize_paired_fast(P, am_t, code, bs, dt),
                                            flush_l2=True)["median"]
     del Wk, Wp
+    dq_layer = dequant_layer(
+        lambda name, dt: dequantize_paired_fast(weights[name].data, weights[name].state.absmax, code, bs, dt),
+        lambda name, dt: dequantize_paired_fast_plain(weights[name].data, weights[name].state.absmax, units, bs,
+                                                      dt),
+        lambda name: LINEARS[name][1] // bs * LINEARS[name][0] * 4)
     entry(
         "dequantize_paired_fast",
         cuda_time(lambda: dequantize_paired_fast(P, am_t, code, bs), flush_l2=True)["median"],
         cuda_time(lambda: dequantize_paired_fast_plain(P, am_t, units, bs, torch.bfloat16), n=5)["median"],
         None, N * K // 2 + (K // bs) * N * 4 + N * K * 2, N * K, PEAK_F32_FLOPS, 0.0, shape=[N, K],
-        out_dtype_ms=out_modes,
+        out_dtype_ms=out_modes, device_ms=dq_layer["per_linear"]["gate_up"]["bfloat16"]["device_ms"], **dq_layer,
+        note="ms: gate_up to bf16 with the host in the window; device_ms the same held out (hold=True); "
+             "layer_device_ms: the four linears, each output type; store_floor_ms: zero_() of the same W",
     )
 
     # -- 3c. kernel 4: flash attention, decode and a prefill chunk --------
@@ -585,6 +638,41 @@ def main() -> int:
         assert torch.allclose(out.float(), ref.float(), atol=0.02, rtol=0.02), f"flash {(Bx, H, Gx, T, Sx, lens, win)}"
         cases.append(f"flash B{Bx} KVH{H} G{Gx} T{T} S{Sx} window{win}")
     emit("ragged_shapes", passed=cases)
+
+    # kernels 3 and 6 at ragged shapes: N/2 odd (a partial group of 8 row
+    # pairs), K off the 1024-column tiles, blocksizes 8-4096, and Llama's down
+    # (K/bs = 224: a nested column's blocks cross a 256-block boundary); each
+    # output type against the plain version and a second call bit for bit,
+    # kernel 6 against kernel 3 on the resolved absmax.  Payloads, scales and
+    # nested codes are random: the quantizer takes only some blocksizes.
+    # Every shape the wrappers take runs the one tile kernel.
+    cases, g12 = [], torch.Generator(device=dev).manual_seed(12)  # gen's stream is left as it was
+    for N, K, gbs in ((2, 32, 32), (18, 96, 32), (130, 4160, 64), (254, 2176, 128), (64, 8192, 4096),
+                      (4096, 14336, 64), (34, 1040, 8), (6, 48, 16), (20, 2112, 96)):
+        KB = K // gbs
+        P = torch.randint(0, 256, (N // 2, K), dtype=torch.uint8, generator=g12, device=dev)
+        am_t = torch.rand(KB, N, generator=g12, device=dev) * 2 + 0.01
+        dq = (torch.randint(0, 256, (KB, N), dtype=torch.uint8, generator=g12, device=dev),
+              torch.rand(-(-N * KB // 256), generator=g12, device=dev) + 0.5,
+              torch.rand(1, generator=g12, device=dev))
+        resolved = PT.nested_absmax_t(*dq)
+        cg = get_4bit_code("nf4", gbs)
+        ug = _units(_code_tuple(cg))
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            Wk = dequantize_paired_fast(P, am_t, cg, gbs, dt)
+            assert bits_equal(Wk, dequantize_paired_fast_plain(P, am_t, ug, gbs, dt)), f"dequant {(N, K, gbs)} {dt}"
+            assert bits_equal(Wk, dequantize_paired_fast(P, am_t, cg, gbs, dt)), f"dequant {(N, K, gbs)} {dt}: again"
+            W6 = dequantize_paired_fast_dq(P, *dq, cg, gbs, dt)
+            assert bits_equal(W6, dequantize_paired_fast_dq_plain(P, *dq, ug, gbs, dt)), \
+                f"dequant_dq {(N, K, gbs)} {dt}"
+            assert bits_equal(W6, dequantize_paired_fast_dq(P, *dq, cg, gbs, dt)), f"dequant_dq {(N, K, gbs)}: again"
+            assert bits_equal(W6, dequantize_paired_fast(P, resolved, cg, gbs, dt)), \
+                f"dequant_dq {(N, K, gbs)} {dt}: differs from kernel 3 on the resolved absmax"
+        cases.append(f"dequant(_dq) N{N} K{K} bs{gbs} bf16/f16/f32")
+        del P, am_t, dq, resolved, Wk, W6
+    emit("dequant_ragged_shapes", passed=cases,
+         note="kernels 3 and 6 bit for bit against their plain versions, a second call and (6) kernel 3 on the "
+              "resolved absmax; every shape runs the one tile kernel")
 
     # kernels 2 and 5 on the tensor cores at ragged shapes: M 1-33 (one to four
     # n8 tiles, then the grid over M), N not a multiple of 16, blocksizes
@@ -745,6 +833,19 @@ def main() -> int:
     del Wk, Wp
     k3 = cuda_time(lambda: dequantize_paired_fast(qt.data, st.dequant_absmax_t(), code, bs),
                    flush_l2=True)["median"]
+
+    def nested_args(name):
+        st_ = nested[name].state
+        return nested[name].data, st_.absmax, st_.state2.absmax, st_.offset
+
+    resolved_t = {name: nested[name].state.dequant_absmax_t() for name in LINEARS}
+    dq_layer = dequant_layer(
+        lambda name, dt: dequantize_paired_fast_dq(*nested_args(name), code, bs, dt),
+        lambda name, dt: dequantize_paired_fast_dq_plain(*nested_args(name), units, bs, dt),
+        lambda name: (LINEARS[name][1] // bs * LINEARS[name][0] + nested[name].state.state2.absmax.numel() * 4
+                      + 4),
+        resolved=lambda name, dt: dequantize_paired_fast(nested[name].data, resolved_t[name], code, bs, dt))
+    del resolved_t
     entry(
         "dequantize_paired_fast_dq",
         cuda_time(lambda: dequantize_paired_fast_dq(*args, code, bs), flush_l2=True)["median"],
@@ -752,7 +853,11 @@ def main() -> int:
         None, N * K // 2 + (K // bs) * N + st.state2.absmax.numel() * 4 + 4 + N * K * 2, N * K,
         PEAK_F32_FLOPS, 0.0, shape=[N, K],
         kernel3_with_decode_ms=k3, out_dtype_ms=out_modes,
-        note="kernel3_with_decode_ms: the nested absmax decoded by plain PyTorch ops, then kernel 3",
+        device_ms=dq_layer["per_linear"]["gate_up"]["bfloat16"]["device_ms"], **dq_layer,
+        note="kernel3_with_decode_ms: the nested absmax decoded by plain PyTorch ops, then kernel 3; device_ms: "
+             "gate_up to bf16 with the host held out (hold=True); layer_device_ms: the four nested linears, each "
+             "output type, beside kernel 3 on the resolved absmax (layer_kernel3_resolved_device_ms) and "
+             "zero_() of the same W (layer_store_floor_ms)",
     )
 
     # kernel 13 at load: the nested absmax of gate_up (offset removed, blocksize 256)
@@ -1770,6 +1875,25 @@ def main() -> int:
         return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev_us(e) > 0
                 and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
 
+    def by_class(events, named):
+        """Device ms and launches by kernel class: the (substring, label) pairs
+        of ``named`` first, then cuBLAS GEMMs, copies and casts, the rest."""
+        out = {}
+        for e in events:
+            label = next((lab for sub, lab in named if sub in e.key), None)
+            if label is None:
+                low = e.key.lower()
+                if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
+                    label = "GEMM (cuBLAS)"
+                elif "copy" in low or "cast" in low:
+                    label = "copies and casts"
+                else:
+                    label = "other PyTorch kernels"
+            c = out.setdefault(label, {"ms": 0.0, "launches": 0})
+            c["ms"] += self_dev_us(e) / 1e3
+            c["launches"] += e.count
+        return out
+
     def quantize_2d(layer):
         """A fused layer as the FSDP-QLoRA recipe stores it: bf16
         quant_storage (so the K-adjacent "2d" layout), NF4 blocksize 64,
@@ -1847,6 +1971,24 @@ def main() -> int:
                                "device_ms_per_step": dev_us / 4e3, "wall_ms_per_step": prof_wall_ms / 4}
         top = sorted(((e.key, self_dev_us(e) / 4e3, e.count // 4) for e in events), key=lambda r: -r[1])[:8]
 
+        # one more prefill profiled: its device time, launches and the share of
+        # the dequantize (kernel 3, 6 or 10 _dq: the large-M route's)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            L.prefill(params, ids, cfg, cache)
+            torch.cuda.synchronize()
+            pf_wall_ms = (time.perf_counter() - t0) * 1e3
+        pf_events = device_events(prof)
+        pf_us = sum(self_dev_us(e) for e in pf_events)
+        pf_classes = by_class(pf_events, [("dequantize", "dequantize (kernel 3, 6 or 10)"),
+                                          ("flash", "attention (kernels 4, 16, combine)")])
+        pf_dq = pf_classes.get("dequantize (kernel 3, 6 or 10)", {"ms": 0.0, "launches": 0})
+        profiled_prefill = {"wall_ms": pf_wall_ms, "device_ms": pf_us / 1e3,
+                            "device_launches": sum(e.count for e in pf_events), "dequantize_ms": pf_dq["ms"],
+                            "dequantize_launches": pf_dq["launches"], "dequantize_share": pf_dq["ms"] * 1e3 / pf_us,
+                            "device_busy_share": pf_us / 1e3 / pf_wall_ms, "by_class": pf_classes}
+
         med = statistics.median(step_ms)
         scale_bytes = (lambda N, K: (K // bs) * N + -(-N * (K // bs) // 256) * 4 + 4) if compress else \
             (lambda N, K: (K // bs) * N * 4)
@@ -1870,6 +2012,7 @@ def main() -> int:
                              "attention_ms_per_step": attn_us / 4e3, "attention_share": attn_us / max(dev_us, 1),
                              "device_busy_share": dev_us / 1e3 / prof_wall_ms,
                              "top_kernels_ms_per_step": top},
+            profiled_prefill=profiled_prefill,
             first_tokens=toks[0, :8].tolist(), layout="2d, bf16 quant_storage" if quantize else "paired",
         )
         del cache, logits
@@ -1984,6 +2127,8 @@ def main() -> int:
     dev_us = sum(self_dev_us(e) for e in events)
     top = sorted(((e.key[:120], self_dev_us(e) / 1e3, e.count) for e in events), key=lambda r: -r[1])[:12]
     dq_us = sum(self_dev_us(e) for e in events if "dequantize_paired" in e.key)
+    classes = by_class(events, [("dequantize_paired", "kernel 6 (dequantize_paired_fast_dq)"),
+                                ("optimizer_update_8bit", "kernel 14 (8-bit optimizer update)")])
     med = statistics.median(train_ms[1:])
     emit("qlora_train", config="llama3_8b", layers=Lyr, compress_statistics=True, lora_rank=rank,
          lora_alpha=alpha, targets=list(LORA_TARGETS), adapter_params=n_adapter, optimizer="adamw8bit",
@@ -1995,7 +2140,7 @@ def main() -> int:
          profiled_step={"wall_ms": prof_wall_ms, "device_ms": dev_us / 1e3,
                         "device_busy_share": dev_us / 1e3 / prof_wall_ms,
                         "dequantize_ms": dq_us / 1e3, "dequantize_share_of_device": dq_us / dev_us,
-                        "top_kernels_ms": top})
+                        "by_class": classes, "top_kernels_ms": top})
     report["optimizer_update_8bit"]["launches"] = counts["optimizer_update_8bit"]
     opt.step = opt_step
     del lora, lparams, opt, states, nested_params, tids, loss, prof
@@ -2240,22 +2385,8 @@ def main() -> int:
     events = device_events(prof)
     dev_us = sum(self_dev_us(e) for e in events)
 
-    def kclass(key):
-        if "dequantize_4bit_2d" in key:
-            return "kernel 10 (dequantize_4bit_2d, _dq mode)"
-        if "ademamix" in key:
-            return "kernel 15 (AdEMAMix update)"
-        if any(w in key.lower() for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
-            return "GEMM (cuBLAS)"
-        if "copy" in key.lower() or "cast" in key.lower():
-            return "copies and casts"
-        return "other PyTorch kernels"
-
-    by_class = {}
-    for e in events:
-        c = by_class.setdefault(kclass(e.key), {"ms": 0.0, "launches": 0})
-        c["ms"] += self_dev_us(e) / 1e3
-        c["launches"] += e.count
+    classes = by_class(events, [("dequantize_4bit_2d", "kernel 10 (dequantize_4bit_2d, _dq mode)"),
+                                ("ademamix", "kernel 15 (AdEMAMix update)")])
     top = sorted(((e.key[:120], self_dev_us(e) / 1e3, e.count) for e in events), key=lambda r: -r[1])[:12]
     med = statistics.median(train_ms[1:])
     emit("qlora_train_ademamix", config="llama3_8b", layers=Lyr, layout="2d, bf16 quant_storage",
@@ -2267,7 +2398,7 @@ def main() -> int:
          peak_memory=train_peak, launches=counts, launches_per_step={k: v / tsteps for k, v in counts.items() if v},
          nested_decodes=nested_decodes[0], nested_decode_launches_per_call=decode_launches,
          profiled_step={"wall_ms": prof_wall_ms, "device_ms": dev_us / 1e3,
-                        "device_busy_share": dev_us / 1e3 / prof_wall_ms, "by_class": by_class,
+                        "device_busy_share": dev_us / 1e3 / prof_wall_ms, "by_class": classes,
                         "top_kernels_ms": top})
     for name in ("dequantize_4bit_2d_dq", "optimizer_update_8bit_ademamix"):
         report[name]["launches"] = counts[name]
