@@ -127,6 +127,16 @@ template <class T> __device__ __forceinline__ void store8(T* dst, const float* a
     }
 }
 
+// 16 bytes of T (eight 16-bit values or four f32) rounded from f32, at a
+// 16-byte aligned address: one store instruction.
+template <class T> __device__ __forceinline__ void store16(T* dst, const float* a) {
+    if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[1], a[2], a[3]);
+    else
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack2<T>(a[0], a[1]), pack2<T>(a[2], a[3]), pack2<T>(a[4], a[5]), pack2<T>(a[6], a[7]));
+}
+
 // --- PTX helpers of the tensor-core kernels (flash_cached.cu, gemm4bit.cu) ---
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

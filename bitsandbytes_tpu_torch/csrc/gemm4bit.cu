@@ -30,14 +30,33 @@
 // memory 1024 columns at a time, 8 rows of A per block (larger M is a grid
 // dimension), a warp shuffle adds the lanes.
 //
-// dequantize_4bit_2d_kernel replaces dequantize_4bit_pallas (_dequant4_kernel):
-//   W[n] = dtype(code[q] * absmax[n / blocksize])   over the flat element order
-// Bound: bytes (n/2 read, n*sizeof(dtype) written).  One thread reads 8 payload
-// bytes and writes 16 values with 16-byte stores; 16 elements never straddle a
-// quantization block (blocksize % 16 == 0), and a tail thread goes bytewise, so
-// any element count and any 2-D shape whose rows hold whole blocks is taken.
-// The _dq entry decodes a double-quantized absmax where it loads the scale
-// (FlatNestedScales), as kernel 6 does on the paired layout.
+// dequantize_4bit_2d_kernel (kernel 10; its _dq entry on FlatNestedScales)
+// replaces dequantize_4bit_pallas (_dequant4_kernel):
+//   W[e] = dtype(code[q] * absmax[e / blocksize])   over the flat element order
+// (q the high nibble of byte e/2 for even e, the low one for odd e; the product
+// in exact f32).  Bound: bytes, most of them written (n/2 of payload and the
+// scales read, n*sizeof(dtype) written: 78% of the bytes in bf16), so the floor
+// on this card is a store-only pass over W (zero_()).  The design is kernel 3's
+// (gemm4bit_paired.cu) over the flat order: a block owns a tile of 16384
+// contiguous elements, the grid one block a tile.  Each lane issues its 8
+// (16-bit W: 4 payload bytes each) or 16 (f32 W: 2 bytes each) payload loads
+// before anything waits on them; meanwhile the block stages the tile's scales
+// in shared memory, each read once, one a thread (at most 1025, at blocksize
+// 16; the nested instance decodes each u8 code there through the 256-entry
+// table).  Store j of a lane writes elements j*2048 + 8*tid.. (f32: j*1024 +
+// 4*tid..), so a warp's store is 512 contiguous bytes, whole sectors; 8 (f32:
+// 4) elements never straddle a quantization block (blocksize % 16 == 0), and a
+// lane's scale slot advances by a fixed step, without a division.  The one
+// piece that runs past n is written element by element, so no load reads past
+// the payload's ceil(n/2) bytes and any element count is taken.  Probes on the
+// H100 (PERF.md §6): the earlier body (8 payload bytes and 16 values a thread,
+// two 16-byte stores that split sectors) took twice kernel 3's time; this one
+// matched kernel 3 only once the codebook parameter stopped being indexed by a
+// register (code_entry); a tile of 32768 elements was slower in f32 and even
+// in bf16, and a branch-free copy of the loop for full tiles and 32-bit block
+// divisions gained nothing.  What still holds it back: 42% over the store
+// floor in bf16 (gate_up 0.108 against 0.076 ms), as kernel 3: the reads and
+// the scale staging.
 //
 // Kernel 11 replaces gemm_4bit_nt_fused (_gemm4bit_nt_kernel): the 4-bit
 // matmul backward
@@ -534,47 +553,90 @@ gemm_4bit_fused_tc_kernel(const TA* __restrict__ A, const uint8_t* __restrict__ 
 
 // --- kernel 10 --------------------------------------------------------------
 
+// The dequantize's tile: kDqTile contiguous flat elements, one tile a block,
+// the grid one block a tile.
 constexpr int kDqThreads = 256;
+constexpr int kDqTile = 16384;              // elements a tile
+constexpr int kDqSlots = kDqTile / 16 + 1;  // quantization blocks a tile can touch (blocksize >= 16)
+
+// code.v[i] by selects over constant indices.  Indexing the kernel parameter
+// by a register makes every thread copy all 16 entries to local memory first:
+// 64 bytes a thread, 117 MB at gate_up, which held kernel 10 well short of
+// kernel 3 in probes on the H100.
+__device__ __forceinline__ float code_entry(const Code16& code, int i) {
+    float c = code.v[0];
+#pragma unroll
+    for (int k = 1; k < 16; ++k) c = i == k ? code.v[k] : c;
+    return c;
+}
 
 template <class TOut, class Scales>
 __global__ void __launch_bounds__(kDqThreads)
 dequantize_4bit_2d_kernel(const uint8_t* __restrict__ B, Scales scales, TOut* __restrict__ W, long long n,
                           int blocksize, Code16 code) {
+    constexpr int V = 16 / sizeof(TOut);                // elements of one 16-byte store
+    constexpr int U = kDqTile / (kDqThreads * V);       // a lane's stores in a tile
+    constexpr int kStep = kDqThreads * V;               // elements between a lane's stores
+    using Word = std::conditional_t<V == 8, uint32_t, uint16_t>;  // the payload bytes of one store
     __shared__ float s_code[16];
     __shared__ float s_table[Scales::kNested ? 256 : 1];
-    if (threadIdx.x < 16) s_code[threadIdx.x] = code.v[threadIdx.x];
-    scales.prologue(s_table, threadIdx.x, kDqThreads);
+    __shared__ float s_sc[kDqSlots];
+
+    const int tid = threadIdx.x;
+    const long long t0 = (long long)blockIdx.x * kDqTile;
+    const int live = (int)min((long long)kDqTile, n - t0);  // elements of this tile
+
+    // the payload first: its loads are in flight while the scales are staged.
+    // Store j of a warp writes elements (j * kDqThreads + tid) * V..: 512
+    // contiguous bytes, whole sectors.  A piece that runs past n is left to
+    // the tail below, so no load reads past the payload's ceil(n/2) bytes.
+    Word p[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+        const int e = j * kStep + tid * V;
+        if (e + V <= live) p[j] = __ldcs(reinterpret_cast<const Word*>(B + ((t0 + e) >> 1)));
+    }
+    if (tid < 16) s_code[tid] = code_entry(code, tid);
+    scales.prologue(s_table, tid, kDqThreads);
+    if constexpr (Scales::kNested) __syncthreads();  // the table, before the staging loop reads it
+    // the tile's scales, each read (and decoded) once, one a thread:
+    // quantization blocks first..first + slots - 1
+    const long long first = t0 / blocksize;
+    const int slots = (int)((t0 + live - 1) / blocksize - first) + 1;
+    const float off = scales.offset_value();
+    for (int i = tid; i < slots; i += kDqThreads) s_sc[i] = scales.at(s_table, first + i, off);
     __syncthreads();
 
-    const long long i = (long long)blockIdx.x * kDqThreads + threadIdx.x;
-    const long long e0 = i * 16;
-    if (e0 >= n) return;
-    const float sc = scales.at(s_table, e0 / blocksize, scales.offset_value());
-    if (e0 + 16 <= n) {
-        const uint2 pb = *reinterpret_cast<const uint2*>(B + i * 8);
-        float v[16];
+    // a lane's slot walks by kStep elements a store: no division in the loop
+    const int lead = (int)(t0 - first * blocksize);  // elements of block `first` before the tile
+    int slot = (lead + tid * V) / blocksize, rem = (lead + tid * V) - slot * blocksize;
+    const int step_q = kStep / blocksize, step_r = kStep - step_q * blocksize;
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-            const uint32_t b = ((t < 4 ? pb.x : pb.y) >> (8 * (t & 3))) & 0xFFu;
-            v[2 * t] = __fmul_rn(s_code[b >> 4], sc);
-            v[2 * t + 1] = __fmul_rn(s_code[b & 15u], sc);
+    for (int j = 0; j < U; ++j) {
+        const int e = j * kStep + tid * V;
+        if (e + V <= live) {  // V elements never straddle a quantization block (blocksize % 16 == 0)
+            const float sc = s_sc[slot];
+            float v[V];
+#pragma unroll
+            for (int t = 0; t < V / 2; ++t) {
+                const uint32_t b = (p[j] >> (8 * t)) & 0xFFu;
+                v[2 * t] = __fmul_rn(s_code[b >> 4], sc);
+                v[2 * t + 1] = __fmul_rn(s_code[b & 15u], sc);
+            }
+            store16(W + t0 + e, v);
+        } else if (e < live) {  // the partial last piece, element by element
+            for (int x = e; x < live; ++x) {
+                const long long g = t0 + x;
+                const uint32_t b = B[g >> 1];
+                const uint32_t q = (g & 1) ? (b & 15u) : (b >> 4);
+                W[g] = from_f32<TOut>(__fmul_rn(s_code[q], s_sc[(lead + x) / blocksize]));
+            }
         }
-        if constexpr (sizeof(TOut) == 4) {
-            float4* dst = reinterpret_cast<float4*>(W + e0);
-#pragma unroll
-            for (int s = 0; s < 4; ++s) dst[s] = make_float4(v[4 * s], v[4 * s + 1], v[4 * s + 2], v[4 * s + 3]);
-        } else {
-            uint4* dst = reinterpret_cast<uint4*>(W + e0);
-#pragma unroll
-            for (int s = 0; s < 2; ++s)
-                dst[s] = make_uint4(pack2<TOut>(v[8 * s], v[8 * s + 1]), pack2<TOut>(v[8 * s + 2], v[8 * s + 3]),
-                                    pack2<TOut>(v[8 * s + 4], v[8 * s + 5]), pack2<TOut>(v[8 * s + 6], v[8 * s + 7]));
-        }
-    } else {
-        for (long long e = e0; e < n; ++e) {
-            const uint32_t b = B[e >> 1];
-            const uint32_t q = (e & 1) ? (b & 15u) : (b >> 4);
-            W[e] = from_f32<TOut>(__fmul_rn(s_code[q], sc));
+        slot += step_q;
+        rem += step_r;
+        if (rem >= blocksize) {
+            rem -= blocksize;
+            ++slot;
         }
     }
 }
@@ -985,8 +1047,7 @@ int launch_dequant(const uint8_t* B, const Scales& sc, void* W, long long n, int
                    int out_kind, cudaStream_t stream) {
     if (n <= 0 || blocksize < 16 || blocksize % 16) return (int)cudaErrorInvalidValue;
     const Code16 c = load_code(code);
-    const long long threads = (n + 15) / 16;
-    const unsigned grid = (unsigned)((threads + kDqThreads - 1) / kDqThreads);
+    const unsigned grid = (unsigned)((n + kDqTile - 1) / kDqTile);
     switch (out_kind) {
         case kF32:
             dequantize_4bit_2d_kernel<float, Scales><<<grid, kDqThreads, 0, stream>>>(

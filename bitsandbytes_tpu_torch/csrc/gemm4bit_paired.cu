@@ -590,15 +590,6 @@ constexpr int kDqSlots = kDqCols / 8 + 1;  // quantization blocks a tile can tou
 __device__ __forceinline__ uint32_t payload_byte(uint32_t w, int v) { return (w >> (8 * v)) & 0xFFu; }
 __device__ __forceinline__ uint32_t payload_byte(uint2 w, int v) { return payload_byte(v < 4 ? w.x : w.y, v & 3); }
 
-// 16 bytes of T (eight 16-bit values or four f32) rounded from f32, at a 16-byte aligned address.
-template <class T> __device__ __forceinline__ void store16(T* dst, const float* a) {
-    if constexpr (sizeof(T) == 4)
-        *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[1], a[2], a[3]);
-    else
-        *reinterpret_cast<uint4*>(dst) =
-            make_uint4(pack2<T>(a[0], a[1]), pack2<T>(a[2], a[3]), pack2<T>(a[4], a[5]), pack2<T>(a[6], a[7]));
-}
-
 template <class TOut, class Scales>
 __global__ void __launch_bounds__(kDqThreads)
 dequantize_paired_kernel(const uint8_t* __restrict__ P, Scales scales, TOut* __restrict__ W, int N, int K,

@@ -81,15 +81,18 @@ LARGE_M_THRESHOLD = 129
 # matmul in A's type, on gate_up and down at M 8-256, device time with the
 # host held out, NVIDIA H100 80GB HBM3 at 700.00 W.  bf16 and f16 A run on
 # the tensor cores, which read the payload once per 32 rows of A: kernel 9
-# leads up to M 128 on both linears (down at 128: 0.1175 against 0.1695 ms,
-# nested 0.1377 against 0.1643; gate_up 0.2223 against 0.3106, nested 0.2772
-# against 0.3022) and trails from the next 32-row step (down at M 160: 0.2122
-# against 0.1707, nested 0.2525 against 0.1664), f16 within 2% of bf16.  f32
-# A keeps the CUDA-core body, which reads the weight once per 8 rows of A: it
-# leads at M 8 (gate_up 0.5104 against 0.7243 ms, down 0.2605 against
-# 0.4234) and trails from the second 8-row step (M 16: 1.0170 against
-# 0.7196, 0.5219 against 0.3648).
-KADJACENT_LARGE_M_THRESHOLD = 129
+# leads through M 64 on both linears (gate_up 0.1301 against 0.1982 ms,
+# nested 0.1589 against 0.1976; down 0.0651 against 0.1104, nested 0.0759
+# against 0.1101), and from M 65 the nested instance trails on both (gate_up
+# 0.2307 against 0.1994, down 0.1362 against 0.1105), as the plain one does
+# on down (0.1153 against 0.1104); plain gate_up still leads at 65 and 96
+# (0.1875 against 0.2004) and trails from M 128 (0.2202 against 0.2023).  f16
+# within 2% of bf16.  So the dequantize route takes M 65 and above.  f32 A
+# keeps the CUDA-core body, which reads the weight once per 8 rows of A: at M
+# 8 the layer is even (gate_up 0.5104 against 0.4707 ms, down 0.2604 against
+# 0.2951), and both trail from M 16 (1.0165 against 0.4646, 0.5217 against
+# 0.2370).
+KADJACENT_LARGE_M_THRESHOLD = 65
 KADJACENT_F32_LARGE_M_THRESHOLD = 9
 
 # Rows of g from which the backward runs the dequantize kernel +
@@ -99,13 +102,15 @@ KADJACENT_F32_LARGE_M_THRESHOLD = 9
 # dequantize_paired_fast + matmul and kernel 8 against
 # dequantize_paired_fast_dq + matmul; phase 3l: kernel 11 against
 # dequantize_4bit_2d + matmul), NVIDIA H100 80GB HBM3 at 700.00 W, bf16 g.
-# The tensor-core kernels read the payload once per 32 rows of g; kernels 7
-# and 11 lead on every linear up to M 128 (down^T at 128: 0.1443 against
-# 0.1617 ms, 0.1478 against 0.1673) and trail from M 192.  The constant is
-# set by the nested route: kernel 8 on down^T trails first, at M 128
-# (0.1691 against 0.1616 ms), and leads at M 96 (0.1279 against 0.1596).
-# f16 and f32 g take the _nt kernels at every M.
-BACKWARD_LARGE_M_THRESHOLD = 128
+# The tensor-core kernels read the payload once per 32 rows of g, and both
+# layouts change sides at the same row: every _nt kernel leads through M 64
+# (gate_up^T: kernel 7 0.1197 against 0.2027 ms, kernel 8 0.1425 against
+# 0.2005, kernel 11 0.1520 against 0.2023) and trails from M 65 (0.2264
+# against 0.2034, 0.2649 against 0.2017, 0.2810 against 0.2027; down^T:
+# kernel 8 0.1257 against 0.1075, kernel 11 0.1158 against 0.1078, kernel 7
+# even at 0.1083 against 0.1085, behind from M 128).  One constant serves
+# both layouts.  f16 and f32 g take the _nt kernels at every M.
+BACKWARD_LARGE_M_THRESHOLD = 65
 
 
 def _paired_routes(quant_state: QuantState):

@@ -37,12 +37,18 @@ Phases (every one asserts; any failure exits non-zero before the result):
    tensor cores at M 1-40 and blocksize 32-4096, its nested instance and
    kernel 10's ``_dq`` mode bit for bit against the plain ones on the
    resolved absmax, each 16-bit call against a second run and its f32
-   output rounded, mismatched plans refused by the C entries; kernels 9 and
+   output rounded, mismatched plans refused by the C entries; kernel 10,
+   plain and ``_dq``, bit for bit against its plain versions and a second
+   call in bf16, f16 and f32, also at the edges of its 16384-element tile
+   (blocksizes 16, 48, 96 and 4096, odd counts), and timed at the four
+   linears in each output type beside the store floor and kernel 3 on the
+   same weights; kernels 9 and
    11 timed with the host held out, 9 at M 8 and 16 in bf16 and f16, 11 at M
    1-33 and with f16 g, its split plan printed; the device-time sweep of
    kernel 9 against kernel 10 + matmul in bf16, f16 and f32 that chose
    ``functional/gemm.KADJACENT_LARGE_M_THRESHOLD`` and
-   ``KADJACENT_F32_LARGE_M_THRESHOLD``); kernel 15, the 8-bit AdEMAMix
+   ``KADJACENT_F32_LARGE_M_THRESHOLD``, and of kernel 11 against kernel 10 +
+   matmul that, with 3j, chose ``BACKWARD_LARGE_M_THRESHOLD``); kernel 15, the 8-bit AdEMAMix
    update (3m).  Kernel 1's
    stochastic mode against its plain version on the same uniforms (3a);
    kernels 2, 3, 5 and 6 on f16 and f32 activations and kernels 7 and 8 on
@@ -94,6 +100,7 @@ Exits non-zero, printing no result, without a CUDA device.
 from __future__ import annotations
 
 import ctypes
+import math
 import json
 import os
 import statistics
@@ -334,13 +341,18 @@ def main() -> int:
         return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
             a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
-    def dequant_layer(run, plain, scale_bytes, resolved=None):
-        """Kernel 3 (or 6) at each of the four linears in bf16, f16 and f32:
-        bit for bit against its plain version, a second call and (kernel 6)
-        kernel 3 on the resolved absmax; then device time with the host held
-        out, the store floor (zero_() of the same W: its bytes written,
-        nothing read) and, given ``resolved``, kernel 3's beside it.  Sums
+    def dequant_layer(run, plain, scale_bytes, resolved=None, resolved_key="kernel3_resolved", beside=None):
+        """A dequantize kernel (3, 6 or 10, plain or _dq) at each of the four
+        linears in bf16, f16 and f32: bit for bit against its plain version, a
+        second call and (a _dq mode) its plain mode on the resolved absmax;
+        then device time with the host held out, the store floor (zero_() of
+        the same W: its bytes written, nothing read) and, given ``resolved``,
+        the plain mode's beside it (``resolved_key``), and each yardstick of
+        ``beside`` (key: (name, dtype) -> call, timed, not compared).  Sums
         over the layer by output type."""
+        timed = dict(beside or {})
+        if resolved is not None:
+            timed[resolved_key] = resolved
         per, tot = {}, {}
         for name, (N, K) in LINEARS.items():
             for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -352,9 +364,8 @@ def main() -> int:
                     f"dequantize_dq {name} {key}: differs from kernel 3 on the resolved absmax"
                 row = {"device_ms": cuda_time(lambda: run(name, dt), flush_l2=True, hold=True)["median"],
                        "store_floor_ms": cuda_time(lambda: Wk.zero_(), flush_l2=True, hold=True)["median"]}
-                if resolved is not None:
-                    row["kernel3_resolved_device_ms"] = cuda_time(lambda: resolved(name, dt), flush_l2=True,
-                                                                  hold=True)["median"]
+                for tk, fn in timed.items():
+                    row[f"{tk}_device_ms"] = cuda_time(lambda: fn(name, dt), flush_l2=True, hold=True)["median"]
                 nbytes = N * K // 2 + scale_bytes(name) + N * K * dt.itemsize
                 row.update(bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_S * 1e3,
                            canary_bound_ms=nbytes / canary_bs * 1e3)
@@ -366,8 +377,7 @@ def main() -> int:
         return {"per_linear": per, "layer_device_ms": {k: v["device_ms"] for k, v in tot.items()},
                 "layer_store_floor_ms": {k: v["store_floor_ms"] for k, v in tot.items()},
                 "layer_canary_bound_ms": {k: v["canary_bound_ms"] for k, v in tot.items()},
-                **({"layer_kernel3_resolved_device_ms": {k: v["kernel3_resolved_device_ms"] for k, v in tot.items()}}
-                   if resolved is not None else {})}
+                **{f"layer_{tk}_device_ms": {k: v[f"{tk}_device_ms"] for k, v in tot.items()} for tk in timed}}
 
     # -- 3b. kernel 2 (decode GEMM, M = 8) and kernel 3 (dequantize) ------
     weights = {}
@@ -1205,14 +1215,14 @@ def main() -> int:
                "torch.optim.AdamW(fused=True) on f32 states of the same size, a different function")
 
     # -- 3j. the backward threshold: kernels 7 and 8 against kernels 3 and 6 + matmul, device time
-    sweep = []
+    sweep, crossover = [], {}
     for name in ("gate_up", "down"):
         N, K = LINEARS[name]
         qw = QuantizedTensor.quantize(torch.randn(N, K, generator=gen, device=dev) * K**-0.5, blocksize=bs,
                                       compress_statistics=True)
         st = qw.state
         P, am_t, dq = qw.data, st.dequant_absmax_t(), (st.absmax, st.state2.absmax, st.offset)
-        for Mx in (1, 8, 16, 32, 48, 64, 96, 128, 192, 256):
+        for Mx in (1, 8, 16, 32, 48, 64, 65, 96, 128, 192, 256):
             Gx = torch.randn(Mx, N, generator=gen, device=dev).to(torch.bfloat16)
             t = {key: cuda_time(fn, n=10, flush_l2=True, hold=True)["median"] for key, fn in (
                 ("nt_kernel_ms", lambda: gemm_4bit_paired_nt(Gx, P, am_t, code, bs, (N, K))),
@@ -1220,8 +1230,13 @@ def main() -> int:
                 ("nt_dq_kernel_ms", lambda: gemm_4bit_paired_nt_dq(Gx, P, *dq, code, bs, (N, K))),
                 ("dequant_dq_matmul_ms", lambda: torch.matmul(Gx, dequantize_paired_fast_dq(P, *dq, code, bs))))}
             sweep.append({"linear": name + "^T", "M": Mx, **t})
+            for inst, k, r in (("plain", "nt_kernel_ms", "dequant_matmul_ms"),
+                               ("nested", "nt_dq_kernel_ms", "dequant_dq_matmul_ms")):
+                if t[k] > t[r] and f"{name}^T_{inst}" not in crossover:
+                    crossover[f"{name}^T_{inst}"] = Mx  # the first M at which kernel 7 (8) trails
         del qw, am_t, dq
-    emit("backward_threshold_sweep", BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD, points=sweep)
+    emit("backward_threshold_sweep", BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD,
+         first_M_kernel7_trails=crossover, points=sweep)
     torch.cuda.empty_cache()
 
     # -- 3k. kernel 4 with int8 KV, and kernel 16 (paged, bf16 and int8) ----
@@ -1435,6 +1450,7 @@ def main() -> int:
                 Wk = dequantize_4bit_2d(Bq, am, code, gbs, (N, K), dt)
                 assert torch.equal(Wk.view(torch.uint8), dequantize_4bit_2d_plain(Bq, am, ct, gbs, (N, K), dt).view(
                     torch.uint8)), f"dequantize_4bit_2d {(N, K, gbs, dt)}"
+                assert bits_equal(Wk, dequantize_4bit_2d(Bq, am, code, gbs, (N, K), dt)), "kernel 10: a second call"
                 A = torch.randn(Mx, K, generator=gen, device=dev).to(dt)
                 out = gemm_4bit_fused(A, Bq, am, code, gbs, (N, K), out_dtype=torch.float32)
                 ref = gemm_4bit_fused_plain(A, Bq, am, ct, gbs, N)
@@ -1448,8 +1464,10 @@ def main() -> int:
                     assert torch.equal(gemm_4bit_fused_dq(A, Bq, *nest, code, gbs, (N, K), out_dtype=torch.float32),
                                        out), f"gemm_4bit_fused_dq {(Mx, N, K, gbs, dt)}"
                     assert torch.equal(gemm_4bit_fused_dq(A, Bq, *nest, code, gbs, (N, K)), o_dt), "k9 dq in A's type"
-                    assert torch.equal(dequantize_4bit_2d_dq(Bq, *nest, code, gbs, (N, K), dt).view(torch.uint8),
-                                       Wk.view(torch.uint8)), f"dequantize_4bit_2d_dq {(N, K, gbs, dt)}"
+                    W_dq = dequantize_4bit_2d_dq(Bq, *nest, code, gbs, (N, K), dt)
+                    assert bits_equal(W_dq, Wk), f"dequantize_4bit_2d_dq {(N, K, gbs, dt)}"
+                    assert bits_equal(W_dq, dequantize_4bit_2d_dq(Bq, *nest, code, gbs, (N, K), dt)), \
+                        "kernel 10 dq: a second call"
                 Gx = torch.randn(Mx, N, generator=gen, device=dev).to(dt)
                 o11 = gemm_4bit_nt_fused(Gx, Bq, am, code, gbs, (N, K))
                 rel11 = rel_err(o11, gemm_4bit_nt_fused_plain(Gx, Bq, am, ct, gbs, K))
@@ -1464,12 +1482,14 @@ def main() -> int:
             assert qw.state.layout == "flat"
             ct = tuple(float(v) for v in get_4bit_code("nf4", fbs))
             Bq, am = kadj(qw)
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
                 W = dequantize_4bit_2d_plain(Bq, am, ct, fbs, shape, dt)
                 assert torch.equal(qw.dequantize().to(dt), W), f"flat {shape}"
-                if compress:
-                    assert torch.equal(dequantize_4bit_2d_dq(Bq, *kadj_nested(qw), code, fbs, shape, dt), W), \
-                        f"flat dq {shape}"
+                for _ in range(2):  # each call, and a second one
+                    assert bits_equal(dequantize_4bit_2d(Bq, am, code, fbs, shape, dt), W), f"flat {shape} {dt}"
+                    if compress:
+                        assert bits_equal(dequantize_4bit_2d_dq(Bq, *kadj_nested(qw), code, fbs, shape, dt), W), \
+                            f"flat dq {shape} {dt}"
             cases.append(f"k10 flat {shape} bs{fbs} nested={compress}")
     code_t9 = tuple(float(v) for v in code)
     # blocksizes the quantizer does not make (96, 160: blocks that straddle
@@ -1494,6 +1514,35 @@ def main() -> int:
             k9_err = max(k9_err, rel)
         cases.append(f"k9/k10 dq M{Mx} N{N} K{K} bs{gbs} (scales made by hand) bf16/f16/f32 "
                      f"splits {K9._gemm2d_plan(Mx, N, K, gbs, sms)[1]}")
+    # kernel 10's tile edges (csrc/gemm4bit.cu: 16384 flat elements a block):
+    # one tile, a tile +- 8 elements, odd counts (the last byte holds one
+    # element), a 2-D shape whose blocks run across rows; blocksizes 16 (1025
+    # scale slots a tile), 48 and 96 (a tile starts inside a block) and 4096
+    # (a slot a tile or less); payloads and nested scales made by hand.  Each
+    # mode bit for bit against its plain version and a second call, _dq
+    # against the plain mode on the decoded absmax, in bf16, f16 and f32.
+    tile = 16384
+    for shape in ((tile,), (tile - 8,), (tile + 8,), (tile + 5,), (4 * tile + 3,), (3, 5463), (1,), (9,)):
+        n_el = math.prod(shape)
+        for gbs in (16, 48, 96, 4096):
+            Bq = torch.randint(0, 256, ((n_el + 1) // 2,), dtype=torch.uint8, generator=gen_c).to(dev)
+            nb = -(-n_el // gbs)
+            am = (torch.rand(nb, generator=gen_c) * 3 + 0.01).to(dev)
+            nest = (torch.randint(0, 256, (nb,), dtype=torch.uint8, generator=gen_c).to(dev),
+                    torch.rand(-(-nb // 256), generator=gen_c).to(dev) + 0.5, torch.full((1,), 0.25, device=dev))
+            am_n = K9.nested_absmax(*nest)
+            code_e = get_4bit_code("nf4", gbs)
+            ct = tuple(float(v) for v in code_e)
+            for dt in (torch.bfloat16, torch.float16, torch.float32):
+                for what, fn, plain_fn, scales in (
+                        ("dequantize_4bit_2d", dequantize_4bit_2d, dequantize_4bit_2d_plain, (am,)),
+                        ("dequantize_4bit_2d_dq", dequantize_4bit_2d_dq, dequantize_4bit_2d_dq_plain, nest)):
+                    Wk = fn(Bq, *scales, code_e, gbs, shape, dt)
+                    assert bits_equal(Wk, plain_fn(Bq, *scales, ct, gbs, shape, dt)), f"{what} {shape} bs{gbs} {dt}"
+                    assert bits_equal(Wk, fn(Bq, *scales, code_e, gbs, shape, dt)), f"{what}: a second call"
+                assert bits_equal(Wk, dequantize_4bit_2d(Bq, am_n, code_e, gbs, shape, dt)), \
+                    f"dequantize_4bit_2d_dq {shape} bs{gbs} {dt}: not the plain mode's bits on the decoded absmax"
+        cases.append(f"k10 tile edge {shape} bs16/48/96/4096 plain/dq bf16/f16/f32")
     emit("ragged_shapes_kadjacent", passed=cases, k9_max_rel=k9_err, k11_max_rel_f32=k11_err)
 
     # The wrapper alone decides which kernel a call takes (K9._gemm2d_uses_tc)
@@ -1534,18 +1583,23 @@ def main() -> int:
     del qw, Br, am_r, out_r, part_r
     emit("kernel9_mismatched_plans_refused", cases=refused)
 
-    kq = {}
+    kq, kp = {}, {}  # the four linears on the K-adjacent layout, nested, and the same weights paired (kernel 3's)
     for name, (N, K) in LINEARS.items():
         Wf = torch.randn(N, K, generator=gen, device=dev) * K**-0.5
         kq[name] = QuantizedTensor.quantize(Wf, blocksize=bs, compress_statistics=True, quant_storage=torch.bfloat16)
+        kp[name] = QuantizedTensor.quantize(Wf, blocksize=bs)
         del Wf
     code_t = tuple(float(v) for v in code)
 
+    def kadj_scale_bytes(N, K, nested):
+        """The scales' bytes: the f32 absmax, or the u8 codes, s2 and the offset."""
+        KB = K // bs
+        return KB * N + -(-N * KB // 256) * 4 + 4 if nested else KB * N * 4
+
     def kadj_bytes(M, N, K, nested, backward=False):
         """A call's bytes: activations in and out (bf16), the payload, the scales."""
-        KB = K // bs
-        scales = KB * N + -(-N * KB // 256) * 4 + 4 if nested else KB * N * 4
-        return M * (N if backward else K) * 2 + N * K // 2 + scales + M * (K if backward else N) * 2
+        return M * (N if backward else K) * 2 + N * K // 2 + kadj_scale_bytes(N, K, nested) + M * (
+            K if backward else N) * 2
 
     def k9_call(qt, X, nested, out_dtype=None):
         """Kernel 9 on a nested state: its _dq instance on the codes, or its
@@ -1681,23 +1735,46 @@ def main() -> int:
                      "same two with the host held out of the window (hold=True); layer_device_ms_by_M: the "
                      "kernel's device ms over the layer at other M and dtypes")
 
+    # kernel 10 at the four linears in bf16, f16 and f32, plain (on the
+    # resolved absmax) and _dq (against the plain mode's bits), beside the
+    # store floor and kernel 3 on the same weights in the paired layout
+    resolved10 = {name: kadj(kq[name]) for name in LINEARS}
+
+    def k10(name, dt):
+        return dequantize_4bit_2d(*resolved10[name], code, bs, LINEARS[name], dt)
+
+    def k10_dq(name, dt):
+        return dequantize_4bit_2d_dq(resolved10[name][0], *kadj_nested(kq[name]), code, bs, LINEARS[name], dt)
+
+    layer10 = {
+        False: dequant_layer(
+            k10, lambda name, dt: dequantize_4bit_2d_plain(*resolved10[name], code_t, bs, LINEARS[name], dt),
+            lambda name: kadj_scale_bytes(*LINEARS[name], False),
+            beside={"kernel3": lambda name, dt: dequantize_paired_fast(kp[name].data, kp[name].state.absmax, code, bs,
+                                                                       dt)}),
+        True: dequant_layer(
+            k10_dq, lambda name, dt: dequantize_4bit_2d_dq_plain(resolved10[name][0], *kadj_nested(kq[name]), code_t,
+                                                                 bs, LINEARS[name], dt),
+            lambda name: kadj_scale_bytes(*LINEARS[name], True), resolved=k10, resolved_key="kernel10_resolved")}
+    del kp
     N, K = LINEARS["gate_up"]
-    Bq, am = kadj(kq["gate_up"])
+    Bq, am = resolved10["gate_up"]
     nest = kadj_nested(kq["gate_up"])
-    W10 = dequantize_4bit_2d(Bq, am, code, bs, (N, K))
-    assert torch.equal(W10, dequantize_4bit_2d_plain(Bq, am, code_t, bs, (N, K), torch.bfloat16)), "dequantize_4bit_2d"
-    assert torch.equal(dequantize_4bit_2d_dq(Bq, *nest, code, bs, (N, K)), W10), "dequantize_4bit_2d_dq"
-    del W10
     for name, run, plain, nested in (
             ("dequantize_4bit_2d", lambda: dequantize_4bit_2d(Bq, am, code, bs, (N, K)),
              lambda: dequantize_4bit_2d_plain(Bq, am, code_t, bs, (N, K), torch.bfloat16), False),
             ("dequantize_4bit_2d_dq", lambda: dequantize_4bit_2d_dq(Bq, *nest, code, bs, (N, K)),
              lambda: dequantize_4bit_2d_dq_plain(Bq, *nest, code_t, bs, (N, K), torch.bfloat16), True)):
+        layer = layer10[nested]
         entry(name, cuda_time(run, flush_l2=True)["median"], cuda_time(plain, n=3)["median"], None,
               kadj_bytes(0, N, K, nested) + N * K * 2, N * K, PEAK_F32_FLOPS, 0.0, shape=[N, K], dtype="bfloat16",
-              device_ms=cuda_time(run, flush_l2=True, hold=True)["median"],
-              note="gate_up, " + ("the nested absmax decoded in the kernel" if nested else
-                                  "on the nested absmax resolved to f32 beforehand"))
+              device_ms=layer["per_linear"]["gate_up"]["bfloat16"]["device_ms"], **layer,
+              note="ms: gate_up to bf16 with the host in the window; device_ms the same held out (hold=True); "
+                   + ("the nested absmax decoded in the kernel; layer_kernel10_resolved_device_ms: the plain mode on "
+                      "the resolved absmax" if nested else "on the nested absmax resolved to f32 beforehand; "
+                      "layer_kernel3_device_ms: kernel 3 on the same weights in the paired layout")
+                   + "; layer_device_ms: the four linears, each output type; store_floor_ms: zero_() of the same W")
+    del resolved10
 
     # The route sweep that sets the K-adjacent forward thresholds, device time
     # with the host held out: kernel 9 (plain and nested) against kernel 10
@@ -1706,14 +1783,14 @@ def main() -> int:
     def dev_t(f):
         return cuda_time(f, n=10, flush_l2=True, hold=True)["median"]
 
-    sweep, crossover = [], {}
+    sweep, crossover, crossover_bw = [], {}, {}
     for name in ("gate_up", "down"):
         N, K = LINEARS[name]
         qt = kq[name]
         Bq, am = kadj(qt)
         nest = kadj_nested(qt)
         for dt in (torch.bfloat16, torch.float16, torch.float32):
-            for Mx in (8, 16, 24, 32, 48, 64, 96, 128, 160, 192, 256):
+            for Mx in (8, 16, 24, 32, 48, 64, 65, 96, 128, 160, 192, 256):
                 A = torch.randn(Mx, K, generator=gen, device=dev).to(dt)
                 pt = {"linear": name, "dtype": str(dt)[6:], "M": Mx,
                       "k9_ms": dev_t(lambda: gemm_4bit_fused(A, Bq, am, code, bs, (N, K))),
@@ -1727,15 +1804,27 @@ def main() -> int:
                     key = f"{name}_{pt['dtype']}_{inst}"
                     if pt[k] > pt[r] and key not in crossover:
                         crossover[key] = Mx  # the first M at which kernel 9 trails
-        for Mx in (8, 16, 32, 64, 96, 128, 192, 256):
+        # the nested state's small-M route decodes its absmax first (kernel 11
+        # takes f32 scales): k11_with_decode_ms holds that decode
+        for Mx in (8, 16, 32, 64, 65, 96, 128, 192, 256):
             Gx = torch.randn(Mx, N, generator=gen, device=dev).to(torch.bfloat16)
-            sweep.append({"linear": name + "^T", "dtype": "bfloat16", "M": Mx,
-                          "k11_ms": dev_t(lambda: gemm_4bit_nt_fused(Gx, Bq, am, code, bs, (N, K))),
-                          "k10_matmul_T_ms": dev_t(lambda: torch.matmul(Gx, dequantize_4bit_2d(Bq, am, code, bs,
-                                                                                              (N, K))))})
+            pt = {"linear": name + "^T", "dtype": "bfloat16", "M": Mx,
+                  "k11_ms": dev_t(lambda: gemm_4bit_nt_fused(Gx, Bq, am, code, bs, (N, K))),
+                  "k11_with_decode_ms": dev_t(lambda: gemm_4bit_nt_fused(Gx, Bq, qt.state.dequant_absmax().contiguous(),
+                                                                         code, bs, (N, K))),
+                  "k10_matmul_T_ms": dev_t(lambda: torch.matmul(Gx, dequantize_4bit_2d(Bq, am, code, bs, (N, K)))),
+                  "k10_dq_matmul_T_ms": dev_t(lambda: torch.matmul(Gx, dequantize_4bit_2d_dq(Bq, *nest, code, bs,
+                                                                                            (N, K))))}
+            sweep.append(pt)
+            for inst, k, r in (("plain", "k11_ms", "k10_matmul_T_ms"),
+                               ("nested", "k11_with_decode_ms", "k10_dq_matmul_T_ms")):
+                key = f"{name}^T_{inst}"
+                if pt[k] > pt[r] and key not in crossover_bw:
+                    crossover_bw[key] = Mx  # the first M at which kernel 11 trails
     emit("threshold_sweep_kadjacent", KADJACENT_LARGE_M_THRESHOLD=G.KADJACENT_LARGE_M_THRESHOLD,
          KADJACENT_F32_LARGE_M_THRESHOLD=G.KADJACENT_F32_LARGE_M_THRESHOLD,
-         BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD, first_M_kernel9_trails=crossover, points=sweep)
+         BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD,
+         first_M_kernel9_trails=crossover, first_M_kernel11_trails=crossover_bw, points=sweep)
     del kq
     torch.cuda.empty_cache()
 

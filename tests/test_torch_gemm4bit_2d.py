@@ -296,6 +296,53 @@ def test_gemm_4bit_f16_f32_routes_match_jax(dtype, nested, side, monkeypatch):
         assert _rel(out.float().numpy(), ref) <= BF16_STEP
 
 
+_BACKWARD_KERNELS = {  # layout -> (small-M kernel, dequantize kernel), the nested names with "_dq"
+    "2d": ("gemm_4bit_nt_fused", "dequantize_4bit_2d"),
+    "paired": ("gemm_4bit_paired_nt", "dequantize_paired_fast"),
+}
+
+
+@pytest.mark.parametrize("side", ["nt_kernel", "dequantize_matmul"])
+@pytest.mark.parametrize("nested", [False, True], ids=["plain", "nested"])
+@pytest.mark.parametrize("layout", ["2d", "paired"])
+def test_grad_A_routes_match_jax(layout, nested, side, monkeypatch):
+    """``gemm_4bit_grad_A`` with bf16 g one row below and at
+    ``BACKWARD_LARGE_M_THRESHOLD``, on both layouts: the ``_nt`` kernel
+    (kernel 11, or 7 and 8) below it, the dequantize kernel (``_dq`` on a nested state, with no
+    decode before the call) and the matmul at it; within one bf16 step of the
+    largest value of the JAX package's ``gemm_4bit_grad_A`` on the same state.
+    Kernel 11 takes an f32 absmax, so the K-adjacent nested small-M route
+    decodes it first."""
+    M = TG.BACKWARD_LARGE_M_THRESHOLD - (side == "nt_kernel")
+    rng = np.random.default_rng(31)
+    W = (rng.standard_normal((N, K)) / np.sqrt(K)).astype(np.float32)
+    kw = {"quant_storage": jnp.bfloat16} if layout == "2d" else {"layout": "paired"}
+    jq = JQT.quantize(jnp.asarray(W), blocksize=64, compress_statistics=nested, **kw)
+    tq = params_from_numpy({"w": _np_qt(jq)}, "cpu")["w"]
+    assert tq.state.layout == layout and tq.state.inline_nested == nested
+    g = np.asarray(jnp.asarray(rng.standard_normal((M, N)), jnp.bfloat16))
+    ref = np.asarray(JG.gemm_4bit_grad_A(jnp.asarray(g), jq.data, jq.state), np.float32)
+
+    called = []
+    for name in (*_BACKWARD_KERNELS["2d"], *_BACKWARD_KERNELS["paired"]):
+        for nm in (name, name + "_dq"):
+            if hasattr(TG, nm):
+                monkeypatch.setattr(TG, nm, lambda *a, _f=getattr(TG, nm), _n=nm, **k: called.append(_n) or _f(*a, **k))
+    small, large = _BACKWARD_KERNELS[layout]
+    if side == "dequantize_matmul" or layout == "paired":
+        decode = type(tq.state).dequant_absmax
+        monkeypatch.setattr(type(tq.state), "dequant_absmax",
+                            lambda self: pytest.fail("the nested absmax was decoded before the call") if self.nested
+                            else decode(self))
+    out = TG.gemm_4bit_grad_A(tensor_from_numpy(g, "cpu"), tq.data, tq.state)
+    kernel = small if side == "nt_kernel" else large
+    if nested and not (layout == "2d" and side == "nt_kernel"):
+        kernel += "_dq"
+    assert called == [kernel]
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (M, K)
+    assert _rel(out.float().numpy(), ref) <= BF16_STEP
+
+
 @pytest.mark.parametrize("M", [3, 40])
 def test_gemm_4bit_routes_flat_layout(M):
     """A flat state whose rows do not hold whole blocks (K = 100, blocksize
