@@ -181,11 +181,9 @@ _SIGNATURES = {
     # G, P, codes_t, s2, offset, part (or NULL), out, M, N, K, blocksize, rows_per_split, splits,
     # tc, units[16] (host), decode table (host), g_kind, stream
     "bnb_gemm_4bit_paired_nt_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
-    # g, p, s1, s2, am1, am2, n, rule, scalars (host), map1 (host), map2 (host), fixup, kind, stream
-    "bnb_optimizer_update_8bit": [_P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _I, _P],
-    # g, p, m1, m2, nu, am_m1, am_m2, am_nu, n, scalars (host), map1 (host), map2 (host), fixup, kind,
-    # stream
-    "bnb_optimizer_update_8bit_ademamix": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _P],
+    # leaves (device table), nleaves, total blocks, maps (device), scalars (host), rule, fixup, kind,
+    # sms, stream
+    "bnb_optimizer_update_8bit": [_P, _I, _L, _P, _P, _I, _I, _I, _I, _P],
     # A, B, absmax, part (or NULL), out, M, N, K, blocksize, k_per_split, splits, tc, code[16] (host),
     # a_kind, out_f32, stream
     "bnb_gemm_4bit_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],

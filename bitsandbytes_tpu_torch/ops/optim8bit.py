@@ -25,9 +25,15 @@ nearest even (the JAX package's ``new_p.astype(p.dtype)``).
 
 Bound on the H100 by bytes: 16 B an element in f32 (gradient read,
 parameter read and written, each uint8 state read and written; 10 B in
-bf16), 18 B for AdEMAMix.  The kernel gives one warp to each block, 8 elements a lane, so the absmax
-reduces in registers by shuffles; a grid-stride loop amortizes each CUDA
-block's shared-memory decode tables over many quantization blocks.
+bf16), 18 B for AdEMAMix.  One launch updates a whole group of tensors
+(:func:`optimizer_update_8bit_multi_`; an optimizer step makes one group of
+its 8-bit tensors per param group, type and step count): a table of
+descriptors, rebuilt every step because the gradients move, goes to the
+device from pinned memory, and the kernel walks the concatenation of the
+tensors' 256-element blocks on a grid of what the card holds resident.  One
+warp owns a quantization block at a time, 8 elements a lane, so the absmax
+reduces in registers by shuffles; each CUDA block stages the decode tables
+and requant segments once.  The single-tensor entry is a table of one.
 
 The per-step scalars (bias corrections, step size, decay, AdEMAMix's
 scheduled ``alpha_t`` and ``beta3_t``) are computed once per call, in
@@ -69,9 +75,14 @@ from .gemm4bit_paired import _KIND
 __all__ = [
     "RULES",
     "StateCodes",
+    "StateLeaf",
     "UpdateScalars",
+    "leaf_blocks",
+    "leaf_table",
     "optimizer_update_8bit_",
+    "optimizer_update_8bit_multi_",
     "optimizer_update_8bit_plain",
+    "optimizer_update_leaves_",
     "state_dequant_blocks",
     "state_requant_blocks",
 ]
@@ -302,26 +313,70 @@ def optimizer_update_8bit_plain(sc: UpdateScalars, g, p, s1, s2, am1, am2, code1
 
 
 _MAX_SEG = 16
+# StateMapWords and Leaf of csrc/optim8bit.cu, in 32-bit and 64-bit words
+_MAP_WORDS = 4 + _MAX_SEG + 4 * _MAX_SEG + 256 + 512 // 4
+_LEAF_FIELDS = 10  # g, p, three states, three absmax, n, first block
 
 
-class _StateMap(ctypes.Structure):
-    """``StateMap`` of ``csrc/optim8bit.cu``."""
+def _decode_table(code_t: tuple) -> np.ndarray:
+    """The 256 codes of a state codebook decoded by the plain version."""
+    t = build_state_tables(code_t)
+    idx = torch.arange(256, dtype=torch.int32)
+    vals = segment_decode_sym(idx, t) if isinstance(t, SymSegmentTable) else segment_decode(idx, t)
+    return vals.numpy().astype(np.float32)
 
-    _fields_ = [
-        ("sym", ctypes.c_int),
-        ("signed_map", ctypes.c_int),
-        ("zero_idx", ctypes.c_int),
-        ("nseg", ctypes.c_int),
-        ("start", ctypes.c_int * _MAX_SEG),
-        ("sub", ctypes.c_int * _MAX_SEG),
-        ("cnt1", ctypes.c_int * _MAX_SEG),
-        ("step", ctypes.c_float * _MAX_SEG),
-        ("add", ctypes.c_float * _MAX_SEG),
-        ("bound", ctypes.c_float * _MAX_SEG),
-        ("rsub", ctypes.c_float * _MAX_SEG),
-        ("inv", ctypes.c_float * _MAX_SEG),
-        ("radd", ctypes.c_float * _MAX_SEG),
-    ]
+
+def _binade_firsts(bounds: np.ndarray) -> np.ndarray:
+    """Per sign-and-exponent byte pair of a float32 (its top 9 bits), the
+    number of ``bounds`` below every value with those bits: 0 for NaN and
+    infinity.  The kernel adds one compare, so no such binade may hold two
+    bounds."""
+    top = np.arange(512, dtype=np.uint32) << 23
+    neg = np.arange(512) >= 256
+    lo = np.where(neg, top | 0x7FFFFF, top).view(np.float32)  # the lowest value of each binade
+    hi = np.where(neg, top, top | 0x7FFFFF).view(np.float32)
+    finite = np.isfinite(lo)
+    with np.errstate(invalid="ignore"):
+        first = np.where(finite, np.searchsorted(bounds, lo, side="left"), 0)
+        inside = np.where(finite, np.searchsorted(bounds, hi, side="right"), 0) - first
+    if inside.max(initial=0) > 1:
+        raise ValueError("the kernel takes codebooks whose segment bounds lie in distinct binades")
+    return first.astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _map_words(code_t: tuple) -> np.ndarray:
+    """One state codebook as the kernel stages it in shared memory
+    (``StateMapWords``): sym, signed, zero_idx and the segment count; the
+    sorted segment bounds, +inf past the used ones; per segment rsub, inv,
+    radd and ``start | cnt1 << 16``; the 256 decoded codes; the bounds below
+    each binade (:func:`_binade_firsts`)."""
+    sym, z, starts, _, _, _, bounds, cnt1, rsubs, invs, radds = state_map(code_t)
+    nseg = len(starts)
+    if nseg > _MAX_SEG:
+        raise ValueError(f"the kernel takes at most {_MAX_SEG} segments, the codebook has {nseg}")
+    b = np.asarray(bounds, dtype=np.float32)
+    if np.any(b[1:] < b[:-1]):
+        raise ValueError("the kernel's requant takes sorted segment bounds")
+    w = np.zeros(_MAP_WORDS, dtype=np.uint32)
+    f = w.view(np.float32)
+    w[:4] = (int(sym), int(sym or np.float32(code_t[0]) < 0), z, nseg)
+    f[4:4 + _MAX_SEG] = np.inf
+    f[4:4 + len(b)] = b
+    seg_f, seg_w = f[4 + _MAX_SEG:-384].reshape(_MAX_SEG, 4), w[4 + _MAX_SEG:-384].reshape(_MAX_SEG, 4)
+    seg_f[:nseg, 0], seg_f[:nseg, 1], seg_f[:nseg, 2] = rsubs, invs, radds
+    seg_w[:nseg, 3] = np.asarray(starts, dtype=np.uint32) | (np.asarray(cnt1, dtype=np.uint32) << 16)
+    f[-384:-128] = _decode_table(code_t)
+    w[-128:] = _binade_firsts(b).view(np.uint32)
+    return w
+
+
+@functools.lru_cache(maxsize=None)
+def _device_maps(code1: tuple, code2: Optional[tuple], device: torch.device) -> torch.Tensor:
+    """Both codebooks' words on ``device`` (state2's repeats state1's for a
+    one-state rule), uploaded once per codebook pair and device."""
+    words = np.concatenate([_map_words(code1), _map_words(code1 if code2 is None else code2)])
+    return torch.from_numpy(words.view(np.int32)).to(device)
 
 
 class _Scalars(ctypes.Structure):
@@ -331,22 +386,6 @@ class _Scalars(ctypes.Structure):
         "beta1", "beta2", "omb1", "omb2", "eps", "eps_c2", "step_size", "lr", "weight_decay",
         "decay", "gnorm_scale")] + [("use_decay", ctypes.c_int), ("first_step", ctypes.c_int)] + [
         (f, ctypes.c_float) for f in ("c1", "c2", "alpha_t", "beta3_t", "omb3")]
-
-
-@functools.lru_cache(maxsize=None)
-def _state_map(code_t: tuple) -> _StateMap:
-    sym, z, starts, subs, steps, adds, bounds, cnt1, rsubs, invs, radds = state_map(code_t)
-    if len(starts) > _MAX_SEG:
-        raise ValueError(f"the kernel takes at most {_MAX_SEG} segments, the codebook has {len(starts)}")
-    m = _StateMap()
-    m.sym, m.zero_idx, m.nseg = int(sym), z, len(starts)
-    m.signed_map = int(sym or np.asarray(code_t, dtype=np.float32)[0] < 0)
-    for i in range(len(starts)):
-        m.start[i], m.sub[i], m.cnt1[i] = starts[i], subs[i], cnt1[i]
-        m.step[i], m.add[i], m.inv[i], m.rsub[i], m.radd[i] = steps[i], adds[i], invs[i], rsubs[i], radds[i]
-    for i, b in enumerate(bounds):
-        m.bound[i] = b
-    return m
 
 
 @functools.lru_cache(maxsize=256)
@@ -361,78 +400,171 @@ def _scalars_struct(sc: UpdateScalars) -> _Scalars:
     return cs
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _code_t(code) -> tuple:
     return tuple(float(x) for x in np.asarray(code, dtype=np.float32).reshape(-1)[:256])
 
 
 class StateCodes:
-    """The two state codebooks (state2's None for the one-state rules),
-    converted once: float tuples for the plain version, segment tables for
-    the kernel."""
+    """The two state codebooks (state2's None for the one-state rules) as
+    float tuples, the key of the kernel's device tables."""
 
     def __init__(self, code1, code2=None):
         self.code1 = _code_t(code1)
         self.code2 = None if code2 is None else _code_t(code2)
 
-    @functools.cached_property
-    def maps(self):
-        m1 = _state_map(self.code1)
-        return m1, (m1 if self.code2 is None else _state_map(self.code2))
+
+class StateLeaf:
+    """One parameter and its 8-bit states as the kernel takes them: ``p``,
+    ``s1``/``s2`` uint8 of ``p``'s shape, ``am1``/``am2`` float32 ``[ceil(n /
+    256)]`` (``s2``/``am2`` None for a one-state rule); AdEMAMix's ``s1`` is
+    ``[2, *p.shape]`` and ``am1`` ``[2, ceil(n / 256)]``, whose halves the
+    kernel takes as separate pointers.  Checked where it is made, and again
+    only when one of its tensors moves; on CUDA, ``p`` is f32, bf16 or f16 and
+    every tensor contiguous and 16-byte aligned."""
+
+    __slots__ = ("rule", "p", "s1", "s2", "am1", "am2", "n", "nb", "cuda", "device", "dtype", "_raw")
+
+    def __init__(self, rule: int, p, s1, s2, am1, am2):
+        self.rule, self.p, self.s1, self.s2, self.am1, self.am2 = rule, p, s1, s2, am1, am2
+        self._check()
+
+    def _tensors(self) -> list:
+        return [self.p, self.s1, self.am1] + ([self.s2, self.am2] if self.rule in _TWO_STATE else [])
+
+    def _check(self) -> None:
+        p, s1, s2, am1, am2 = self.p, self.s1, self.s2, self.am1, self.am2
+        n = p.numel()
+        nb = -(-n // BLOCK)
+        lead = 2 if self.rule == _ADEMAMIX else 1
+        if s1.numel() != lead * n or s1.dtype != torch.uint8:
+            raise ValueError("p and state1 must have the same number of elements "
+                             "(twice as many in AdEMAMix's state1), state1 uint8")
+        if am1.dtype != torch.float32 or am1.numel() != lead * nb:
+            raise ValueError(f"absmax1 must be float32 with {lead} x {nb} blocks")
+        if self.rule in _TWO_STATE and (s2 is None or s2.numel() != n or am2 is None or am2.numel() != nb):
+            raise ValueError("a two-state rule needs state2 and absmax2 of the same sizes")
+        tensors = self._tensors()
+        self.cuda = use_kernel(*tensors)
+        if self.cuda:
+            if p.dtype not in _KIND:
+                raise ValueError("the CUDA kernel takes a parameter of type f32, bf16 or f16")
+            for t in tensors:
+                if not t.is_contiguous() or t.data_ptr() % 16:
+                    raise ValueError("the CUDA kernel takes contiguous, 16-byte aligned tensors")
+        self.n, self.nb, self.device, self.dtype = n, nb, p.device, p.dtype
+        self._raw = tuple(t.data_ptr() for t in tensors)
+
+    def pointers(self) -> tuple:
+        """The leaf's seven pointers as the kernel's ``Leaf`` holds them: p,
+        three states and three absmax arrays (0 where the rule has none)."""
+        raw = tuple(t.data_ptr() for t in self._tensors())
+        if raw != self._raw:  # a tensor moved (its .data replaced): check it again
+            self._check()
+            raw = self._raw
+        if self.rule == _ADEMAMIX:  # the second momentum and its absmax start n codes and nb scales in
+            p, s1, am1, s2, am2 = raw
+            return p, s1, s1 + self.n, s2, am1, am1 + 4 * self.nb, am2
+        if len(raw) == 5:
+            p, s1, am1, s2, am2 = raw
+            return p, s1, s2, 0, am1, am2, 0
+        p, s1, am1 = raw
+        return p, s1, 0, 0, am1, 0, 0
+
+
+def leaf_blocks(ns) -> tuple:
+    """The kernel's table layout for leaves of ``ns`` elements: the indices
+    of the non-empty leaves, the first 256-element block of each in the
+    concatenation of their blocks (the prefix sums of the block counts), and
+    the total block count."""
+    keep, first, total = [], [], 0
+    for i, n in enumerate(ns):
+        if n > 0:
+            keep.append(i)
+            first.append(total)
+            total += -(-n // BLOCK)
+    return keep, first, total
+
+
+def leaf_table(sc: UpdateScalars, grads, leaves) -> tuple:
+    """The kernel's descriptor table for ``leaves`` (``StateLeaf``s) and
+    their gradients: one int64 row a non-empty leaf, ``Leaf`` of
+    ``csrc/optim8bit.cu`` (g, p, three states, three absmax, n, first
+    block), and the total block count.  Checks only what a step can change:
+    each gradient's device, type, size, contiguity and alignment, and whether
+    a leaf's tensors moved."""
+    dev, dtype = leaves[0].device, leaves[0].dtype
+    rows = []
+    for g, lf in zip(grads, leaves):
+        ptrs = lf.pointers()
+        if lf.rule != sc.rule or lf.device != dev or g.device != dev:
+            raise ValueError("one launch takes leaves of the step's rule and their gradients on one device")
+        gp = g.data_ptr()
+        if lf.dtype != dtype or g.dtype != dtype or g.numel() != lf.n or gp % 16 or not g.is_contiguous():
+            raise ValueError("the CUDA kernel takes gradients and parameters of one type (f32, bf16 or f16), "
+                             "each gradient contiguous, 16-byte aligned and of its parameter's size")
+        rows.append((gp, *ptrs, lf.n))
+    keep, first, total = leaf_blocks([lf.n for lf in leaves])
+    table = np.array([rows[i] + (f,) for i, f in zip(keep, first)], dtype=np.int64).reshape(-1, _LEAF_FIELDS)
+    return table, total
+
+
+def _group_launch(sc: UpdateScalars, grads, leaves, codes: StateCodes, fixup: bool) -> None:
+    """One launch over CUDA ``leaves`` and their gradients (none when every
+    leaf is empty): the descriptor table goes to the device from pinned
+    memory on the current stream, which orders its reuse after the kernel."""
+    rows, total = leaf_table(sc, grads, leaves)
+    if not total:
+        return
+    dev = leaves[0].device
+    table = torch.from_numpy(rows).pin_memory().to(dev, non_blocking=True)  # the pinned block waits for the copy
+    maps = _device_maps(codes.code1, codes.code2 if sc.two_state else None, dev)
+    name = "optimizer_update_8bit_ademamix" if sc.ademamix else "optimizer_update_8bit"
+    _lib.check(_lib.lib().bnb_optimizer_update_8bit(
+        table.data_ptr(), len(rows), total, maps.data_ptr(), ctypes.addressof(_scalars_struct(sc)), sc.rule,
+        int(fixup), _KIND[leaves[0].dtype], _sms(dev.index), _lib.stream(leaves[0].p)), name)
+    _lib.LAUNCHES[name] += 1
+
+
+def optimizer_update_leaves_(sc: UpdateScalars, grads, leaves, codes: StateCodes, fixup: bool = True) -> None:
+    """One fused 8-bit step over ``leaves`` (``StateLeaf``s of rule
+    ``sc.rule``) with their gradients ``grads``, in place.  On CUDA, one
+    launch for all of them; on the CPU, the plain version leaf by leaf."""
+    if sc.two_state and codes.code2 is None:
+        raise ValueError("a two-state rule needs state2's codebook")
+    if not leaves:
+        return
+    if leaves[0].cuda:
+        _group_launch(sc, grads, leaves, codes, fixup)
+        return
+    for g, lf in zip(grads, leaves):
+        if use_kernel(g, *lf._tensors()) or lf.rule != sc.rule or g.numel() != lf.n:
+            raise ValueError("one group takes leaves of the step's rule on one device, each gradient of its "
+                             "parameter's size")
+        new = optimizer_update_8bit_plain(sc, g, lf.p, lf.s1, lf.s2, lf.am1, lf.am2, codes.code1,
+                                          codes.code2 if sc.two_state else None, fixup)
+        for dst, src in zip((lf.p, lf.s1, lf.s2, lf.am1, lf.am2), new):
+            if dst is not None:
+                dst.copy_(src.reshape(dst.shape))
+
+
+def optimizer_update_8bit_multi_(sc: UpdateScalars, leaves, codes: StateCodes, fixup: bool = True) -> None:
+    """One fused 8-bit step over a group of tensors, in place: ``leaves`` a
+    sequence of ``(g, p, s1, s2, am1, am2)`` as :func:`optimizer_update_8bit_`
+    takes them, of one rule under one ``UpdateScalars`` (on CUDA, also of one
+    type).  On CUDA one launch updates them all; on the CPU each takes the
+    plain version in turn."""
+    optimizer_update_leaves_(sc, [lf[0] for lf in leaves], [StateLeaf(sc.rule, *lf[1:]) for lf in leaves],
+                             codes, fixup)
 
 
 def optimizer_update_8bit_(sc: UpdateScalars, g, p, s1, s2, am1, am2, codes: StateCodes,
                            fixup: bool = True) -> None:
     """One fused 8-bit step, in place on ``p``, ``s1``, ``s2``, ``am1`` and
-    ``am2`` (``s2``/``am2`` None for a one-state rule).  ``g`` and ``p`` are
-    float32, bf16 or f16 (on CUDA: one type, contiguous, 16-byte aligned); ``s1``/``s2`` uint8 of
-    ``p``'s shape; ``am1``/``am2`` float32 ``[ceil(n / 256)]``; ``codes`` the
-    state codebooks.  AdEMAMix's ``s1`` is ``[2, *p.shape]`` and ``am1``
-    ``[2, ceil(n / 256)]``: the kernel takes their two halves as separate
-    pointers."""
-    n = p.numel()
-    nb = -(-n // BLOCK)
-    lead = 2 if sc.ademamix else 1
-    if g.numel() != n or s1.numel() != lead * n or s1.dtype != torch.uint8:
-        raise ValueError("g, p and state1 must have the same number of elements "
-                         "(twice as many in AdEMAMix's state1), state1 uint8")
-    if am1.dtype != torch.float32 or am1.numel() != lead * nb:
-        raise ValueError(f"absmax1 must be float32 with {lead} x {nb} blocks")
-    if sc.two_state and (s2 is None or s2.numel() != n or am2 is None or am2.numel() != nb):
-        raise ValueError("a two-state rule needs state2 and absmax2 of the same sizes")
-    if sc.two_state and codes.code2 is None:
-        raise ValueError("a two-state rule needs state2's codebook")
-    tensors = [g, p, s1, am1] + ([s2, am2] if sc.two_state else [])
-    if not use_kernel(*tensors):
-        new = optimizer_update_8bit_plain(sc, g, p, s1, s2, am1, am2, codes.code1,
-                                          codes.code2 if sc.two_state else None, fixup)
-        for dst, src in zip((p, s1, s2, am1, am2), new):
-            if dst is not None:
-                dst.copy_(src.reshape(dst.shape))
-        return
-    if p.dtype not in _KIND or g.dtype != p.dtype:
-        raise ValueError("the CUDA kernel takes a gradient and a parameter of one type: f32, bf16 or f16")
-    for t in tensors:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("the CUDA kernel takes contiguous, 16-byte aligned tensors")
-    if n == 0:
-        return
-    m1, m2 = codes.maps
-    cs = _scalars_struct(sc)
-    if sc.ademamix:  # kernel 15: the second momentum and its absmax start n codes and nb scales in
-        s1v, am1v = s1.reshape(2, n), am1.reshape(2, nb)
-        err = _lib.lib().bnb_optimizer_update_8bit_ademamix(
-            g.data_ptr(), p.data_ptr(), s1v[0].data_ptr(), s1v[1].data_ptr(), s2.data_ptr(),
-            am1v[0].data_ptr(), am1v[1].data_ptr(), am2.data_ptr(), n, ctypes.addressof(cs),
-            ctypes.addressof(m1), ctypes.addressof(m2), int(fixup), _KIND[p.dtype], _lib.stream(p),
-        )
-        _lib.check(err, "optimizer_update_8bit_ademamix")
-        _lib.LAUNCHES["optimizer_update_8bit_ademamix"] += 1
-        return
-    err = _lib.lib().bnb_optimizer_update_8bit(
-        g.data_ptr(), p.data_ptr(), s1.data_ptr(), s2.data_ptr() if sc.two_state else None,
-        am1.data_ptr(), am2.data_ptr() if sc.two_state else None, n, sc.rule,
-        ctypes.addressof(cs), ctypes.addressof(m1), ctypes.addressof(m2), int(fixup), _KIND[p.dtype],
-        _lib.stream(p),
-    )
-    _lib.check(err, "optimizer_update_8bit")
-    _lib.LAUNCHES["optimizer_update_8bit"] += 1
+    ``am2`` (``s2``/``am2`` None for a one-state rule): a table of one leaf
+    (:class:`StateLeaf` for the layout).  ``g`` has ``p``'s type on CUDA."""
+    optimizer_update_8bit_multi_(sc, [(g, p, s1, s2, am1, am2)], codes, fixup)

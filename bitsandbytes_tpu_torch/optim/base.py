@@ -8,11 +8,16 @@ any other keeps float32 moments.  Per parameter, ``optimizer.state[p]``
 holds ``step`` and ``state1`` (and ``state2`` for the two-state rules), plus
 ``absmax1``/``absmax2`` when 8-bit: the JAX package's per-leaf layout.
 
-An 8-bit step is one fused kernel on CUDA: kernel 14, or kernel 15 for
-AdEMAMix's three states.  With ``max_unorm``
-(LAMB, LARS) an 8-bit parameter takes the blockwise dequantize (kernel 12),
-the clipped fp32 step, and the blockwise quantize (kernel 13) instead, as
-the JAX package does.  The steps run in place under ``torch.no_grad()``.
+A step groups the parameters of each param group that share a type and a
+step count.  The 8-bit ones of a group take one launch of the fused kernel
+on CUDA: kernel 14, or kernel 15 for AdEMAMix's three states.  The 32-bit
+ones of a group that also share a shape (the small tensors, such as LoRA's
+0-d scales) take one elementwise update over their stack, whose results go
+back to each tensor: the bits of a per-tensor update.  With ``max_unorm`` (LAMB, LARS)
+each parameter steps alone, and an 8-bit one takes the blockwise dequantize
+(kernel 12), the clipped fp32 step, and the blockwise quantize (kernel 13)
+instead, as the JAX package does.  The steps run in place under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from ..functional.optim_update import (
     OPTIMIZER_NAMES,
     optimizer_update_32bit,
 )
-from ..ops.optim8bit import StateCodes, UpdateScalars, optimizer_update_8bit_
+from ..ops.optim8bit import RULES, StateCodes, StateLeaf, UpdateScalars, optimizer_update_leaves_
 
 __all__ = ["BnbOptimizer", "GlobalOptimManager", "make_optimizer"]
 
@@ -112,6 +117,7 @@ class BnbOptimizer(torch.optim.Optimizer):
         self.qmap1 = create_dynamic_map(signed=True)
         self.qmap2 = create_dynamic_map(signed=False)
         self.codes = StateCodes(self.qmap1, self.qmap2 if name in _TWO_STATE else None)
+        self._leaves = {}  # parameter -> its StateLeaf, checked once
 
     def _init_state(self, p: torch.Tensor, group: dict) -> dict:
         two = self.name in _TWO_STATE
@@ -137,6 +143,7 @@ class BnbOptimizer(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         for group in self.param_groups:
+            fused, flat = {}, {}  # (device, p and grad types, step[, shape]) -> parameters
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -144,35 +151,75 @@ class BnbOptimizer(torch.optim.Optimizer):
                 if not state:
                     state.update(self._init_state(p, group))
                 state["step"] += 1
-                self._update(p, p.grad, state, group)
+                if group["max_unorm"] > 0.0:
+                    self._update(p, p.grad, state, group)
+                    continue
+                key = (p.device, p.dtype, p.grad.dtype, state["step"])
+                if state["state1"].dtype == torch.uint8:
+                    fused.setdefault(key, []).append(p)
+                else:
+                    flat.setdefault(key + (p.shape,), []).append(p)
+            for (_, _, _, step), ps in fused.items():
+                self._update_8bit(ps, step, group)
+            for (_, _, _, step, _), ps in flat.items():
+                self._update_32bit(ps, step, group)
         return loss
 
-    def _update(self, p: torch.Tensor, g: torch.Tensor, state: dict, group: dict) -> None:
-        step = state["step"]
+    def _hyper(self, step: int, group: dict) -> dict:
+        """The rule's keyword arguments at ``step``: AdEMAMix's alpha and
+        beta3 are this step's scheduled values."""
         lr = group["lr"](step) if callable(group["lr"]) else group["lr"]
         alpha, beta3 = group["alpha"], group["beta3"]
         if self.name == "ademamix":
             alpha, beta3 = _ademamix_schedules(step, alpha, beta3, group["t_alpha"], group["t_beta3"])
-        hyper = dict(beta1=group["beta1"], beta2=group["beta2"], eps=group["eps"],
-                     weight_decay=group["weight_decay"], step=step, lr=lr, gnorm_scale=group["gnorm_scale"])
+        return dict(beta1=group["beta1"], beta2=group["beta2"], eps=group["eps"],
+                    weight_decay=group["weight_decay"], step=step, lr=lr, gnorm_scale=group["gnorm_scale"],
+                    beta3=beta3, alpha=alpha)
+
+    def _leaf(self, p: torch.Tensor) -> StateLeaf:
+        """``p``'s StateLeaf, made again only when one of its state tensors
+        was replaced (``load_state_dict``)."""
+        state, leaf = self.state[p], self._leaves.get(p)
+        tensors = (state["state1"], state.get("state2"), state["absmax1"], state.get("absmax2"))
+        if leaf is None or any(a is not b for a, b in zip((leaf.s1, leaf.s2, leaf.am1, leaf.am2), tensors)):
+            leaf = StateLeaf(RULES[self.name], p, *tensors)
+            self._leaves[p] = leaf
+        return leaf
+
+    def _update_8bit(self, ps: list, step: int, group: dict) -> None:
+        """One fused 8-bit step over ``ps``: one kernel launch on CUDA."""
+        sc = UpdateScalars.make(self.name, **self._hyper(step, group))
+        optimizer_update_leaves_(sc, [p.grad.contiguous() for p in ps], [self._leaf(p) for p in ps], self.codes)
+
+    def _update_32bit(self, ps: list, step: int, group: dict) -> None:
+        """One elementwise fp32 step over ``ps``, tensors of one shape, and
+        their states, stacked on a new last dimension and copied back into
+        each: the per-tensor bits."""
+        states = [self.state[p] for p in ps]
+        s1 = [st["state1"] for st in states]
+        s2 = [st["state2"] for st in states] if "state2" in states[0] else None
+        new_p, n1, n2 = optimizer_update_32bit(
+            self.name, torch.stack([p.grad for p in ps], -1), torch.stack(ps, -1), torch.stack(s1, -1),
+            None if s2 is None else torch.stack(s2, -1), **self._hyper(step, group))
+        torch._foreach_copy_(ps, new_p.unbind(-1))
+        torch._foreach_copy_(s1, n1.unbind(-1))
+        if s2 is not None:
+            torch._foreach_copy_(s2, n2.unbind(-1))
+
+    def _update(self, p: torch.Tensor, g: torch.Tensor, state: dict, group: dict) -> None:
+        """One step of ``p`` alone under ``max_unorm`` (LAMB, LARS), on
+        either kind of state."""
+        hyper = self._hyper(state["step"], group)
         s1, s2 = state["state1"], state.get("state2")
         eight_bit = s1.dtype == torch.uint8
         bs = BLOCKSIZE_8BIT_STATE
-        if eight_bit and group["max_unorm"] <= 0.0:
-            sc = UpdateScalars.make(self.name, beta3=beta3, alpha=alpha, **hyper)
-            optimizer_update_8bit_(sc, g.contiguous(), p, s1, s2, state["absmax1"], state.get("absmax2"),
-                                   self.codes)
-            return
-        param_norm = 0.0
-        if group["max_unorm"] > 0.0:
-            param_norm = torch.sqrt((p.to(torch.float32) ** 2).sum())
+        param_norm = torch.sqrt((p.to(torch.float32) ** 2).sum())
         if eight_bit:  # the update norm needs every element: dequantize, clipped fp32 step, requantize
             s1 = dequantize_blockwise_with_code(s1, state["absmax1"], self.qmap1, bs, torch.float32)
             if s2 is not None:
                 s2 = dequantize_blockwise_with_code(s2, state["absmax2"], self.qmap2, bs, torch.float32)
-        new_p, n1, n2 = optimizer_update_32bit(
-            self.name, g, p, s1, s2, beta3=beta3, alpha=alpha, max_unorm=group["max_unorm"],
-            param_norm=param_norm, **hyper)
+        new_p, n1, n2 = optimizer_update_32bit(self.name, g, p, s1, s2, max_unorm=group["max_unorm"],
+                                               param_norm=param_norm, **hyper)
         p.copy_(new_p)
         if eight_bit:
             q1, am1 = quantize_blockwise_with_code(n1, self.qmap1, bs)

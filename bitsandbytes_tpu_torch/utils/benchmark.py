@@ -10,6 +10,7 @@ Both refuse to run without a CUDA device.
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
@@ -28,36 +29,47 @@ _HOLD_CYCLES = 2_000_000
 
 
 def cuda_time(fn: Callable[[], object], n: int = 20, warmup: int = 3, flush_l2: bool = False,
-              hold: bool = False) -> dict:
+              hold: bool = False, hold_cycles: int = _HOLD_CYCLES) -> dict:
     """Milliseconds per call of ``fn()`` on the current stream:
     ``{"median", "min", "max", "n"}``.  ``flush_l2`` overwrites a buffer
     larger than the L2 cache before each timed call (outside the timed
     window), so the call finds its inputs in device memory, as a decode
     step finds each layer's weights.  A call whose host work (the Python
     wrapper, the launch) outlasts the work queued ahead of it leaves the
-    card idle inside the window; ``hold`` queues a spin of about a
-    millisecond on the card first, so the window holds the device's time
-    alone."""
+    card idle inside the window; ``hold`` queues a spin of ``hold_cycles``
+    on the card first (about a millisecond by default), so the window holds
+    the device's time alone.  With ``hold`` the result also gives
+    ``host_ms``, the longest host time of a call, and ``spin_ms``, the
+    shortest spin: the host was held out where ``host_ms < spin_ms``."""
     _require_cuda()
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda") if flush_l2 else None
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    times, host, spin = [], [], []
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if scratch is not None:
             scratch.zero_()
         if hold:
-            torch.cuda._sleep(_HOLD_CYCLES)
+            before = torch.cuda.Event(enable_timing=True)
+            before.record()
+            torch.cuda._sleep(hold_cycles)
         start.record()
+        t0 = time.perf_counter()
         fn()
+        host.append((time.perf_counter() - t0) * 1e3)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+        if hold:
+            spin.append(before.elapsed_time(start))
     times.sort()
-    return {"median": times[len(times) // 2], "min": times[0], "max": times[-1], "n": n}
+    out = {"median": times[len(times) // 2], "min": times[0], "max": times[-1], "n": n}
+    if hold:
+        out.update(host_ms=max(host), spin_ms=min(spin))
+    return out
 
 
 def bandwidth_canary(nbytes: int = 1 << 30, n: int = 10) -> dict:
