@@ -4,19 +4,29 @@
 // quantize_blockwise8_kernel replaces the TPU kernel quantize_blockwise_pallas
 // (_q_kernel) of the JAX package's ops/pallas/blockwise8.py:
 //   absmax = max |x| over the block
-//   scaled = clip(x * (1 / absmax), -1, 1)       (inf below FLT_MIN, see below)
+//   scaled = clip(x * (1 / absmax), -1, 1)       (inf below FLT_MIN, qt_scale)
 //   q      = #{midpoints m_i : m_i < scaled}     (NaN ranks 0)
 // with the optional stochastic move to the neighbouring code entry, the
 // uniforms given per element (the TPU kernel's "u" mode).
 // Bound on the H100: bytes (4 B read, 1 B written per element, plus 4 B of
-// absmax per block).  One warp owns one quantization block: a strided max
-// with a shuffle reduction, then each lane ranks 4 elements a step (16-byte
-// loads, one 4-byte store) by a binary search over the midpoints in shared
-// memory (8 steps for 255 sorted midpoints, where the TPU kernel runs 255
-// compare-adds; equal counts for sorted midpoints).  A codebook whose
-// midpoints are not sorted takes the linear count instead.  The block's
-// second pass finds its data in L1/L2.  The codebook and its midpoints come
-// from device memory, read coalesced into shared memory by every block.
+// absmax per block).  The design is kernel 1's streaming tile (quant_tile.cuh):
+// a CUDA block owns R runs of 4096 contiguous f32 elements (16384 a tile,
+// 8192 in stochastic mode), each lane 16 of a run in registers, every load
+// issued before any is used, so the input is read once; the absmax a shuffle
+// max over the lanes of a block up to 512, combined across warps in shared
+// memory above; a lane's 16 codes one 16-byte store.  The rank of sorted
+// midpoints is a bucket lookup: the scaled value's sign, exponent and top
+// mantissa bits index a table built on the host per codebook
+// (ops/blockwise8.bucket_table), at a resolution where no bucket holds more
+// than one midpoint (six mantissa bits for the dynamic map, 23.6 KB); its
+// 8-byte entry holds the count of midpoints below the bucket and the next
+// midpoint, so one shared load and one compare give the count.  A sorted
+// codebook that no table within 32 KB resolves (the unsigned dynamic map)
+// takes an 8-step binary search over its midpoints in shared memory, an
+// unsorted one the linear count.  The tile's loads are in flight while the
+// block stages the table from device memory into shared memory, once per 64
+// KB of input.  Buckets of three midpoints (16-byte entries, four mantissa
+// bits, three shared loads an element) ran slower on the H100 (PERF.md §6).
 //
 // dequantize_blockwise8_kernel replaces dequantize_blockwise_pallas
 // (_dq_kernel) of the same file:
@@ -27,95 +37,148 @@
 //
 // Built without --use_fast_math and with IEEE division: the codes must equal
 // the JAX package's bit for bit.
-#include <cfloat>
-
 #include <cuda_fp16.h>
 
-#include "common.cuh"
+#include "quant_tile.cuh"
 
 namespace {
 
-constexpr int kQThreads = 256;
+// The device table (ops/blockwise8._device_tables), in floats: the codebook
+// padded to 256, its midpoints padded to 256 with +inf, then 2 * nh bucket
+// entries {count (int bits), the next midpoint (+inf past the last)}.
+constexpr int kMidOffset = 256;
+constexpr int kBucketOffset = 512;
+constexpr int kMaxBuckets = 4096;  // 32 KB of shared memory (ops/blockwise8.BUCKET_MAX_ENTRIES)
 
-__device__ __forceinline__ int rank_of(float s, const float* mid, int nmid, bool sorted) {
-    if (sorted) {
-        int lo = 0, hi = nmid;  // first midpoint >= s (NaN: none is < s, so 0)
-        while (lo < hi) {
-            const int m = (lo + hi) >> 1;
-            if (mid[m] < s) lo = m + 1; else hi = m;
-        }
-        return lo;
-    }
+// How the kernel ranks, by the wrapper's choice (ops/blockwise8._device_tables).
+enum RankMode { kLinear = 0, kSearch = 1, kBucket = 2 };
+
+// #{mid < c} for sorted midpoints, c in [-1, 1] (not NaN).  |c|'s exponent
+// and top mantissa bits, (bits << 1) >> shift, less lo (at least 0: smaller
+// magnitudes share one bucket) index the buckets from zero, the +0 bucket;
+// a negative c takes -1 - that index, so the index grows with c (-0 is -1).
+// No bucket holds two midpoints, so its count below, plus one compare with
+// the next midpoint, is the count.
+__device__ __forceinline__ int rank_bucket(float c, const float2* zero, int shift, int lo) {
+    const uint32_t b = __float_as_uint(c);
+    const int mag = max((int)((b << 1) >> shift) - lo, 0);
+    const float2 t = zero[mag ^ ((int)b >> 31)];  // -1 - mag for negative c
+    return __float_as_int(t.x) + (c > t.y ? 1 : 0);
+}
+
+// #{mid < c} for sorted midpoints padded to 256 with +inf: a branch-free
+// binary search, 8 dependent shared loads.
+__device__ __forceinline__ int rank_search(float c, const float* mid) {
     int r = 0;
-    for (int j = 0; j < nmid; ++j) r += (mid[j] < s) ? 1 : 0;
+#pragma unroll
+    for (int step = 128; step > 0; step >>= 1) r += mid[r + step - 1] < c ? step : 0;
     return r;
 }
 
-// One element: scale, clip, rank, and the optional stochastic move.
-__device__ __forceinline__ uint32_t quantize_one(float x, float scale, float u, bool stochastic,
-                                                 const float* code, const float* mid, int ncode,
-                                                 bool sorted) {
-    float sc = x * scale;
-    // clip keeps a NaN, as it does in the JAX package (fminf/fmaxf would not)
-    if (!isnan(sc)) sc = fminf(fmaxf(sc, -1.0f), 1.0f);
-    int r = rank_of(sc, mid, ncode - 1, sorted);
-    if (stochastic) {
-        const float lower = code[r];
-        const int nb = min(max(r + (sc > lower ? 1 : -1), 0), ncode - 1);
-        const float gap = fabsf(code[nb] - lower);
-        const float p = gap > 0.0f ? fabsf(sc - lower) / fmaxf(gap, 1e-20f) : 0.0f;
-        if (u < p) r = nb;
+template <bool kStoch, int kRank>
+__global__ void __launch_bounds__(kQtThreads, 2)
+quantize_blockwise8_kernel(const float* __restrict__ x, const float* __restrict__ u, uint8_t* __restrict__ q,
+                           float* __restrict__ absmax, long long n, int log2bs, const float* __restrict__ tables,
+                           int ncode, int nh, int shift, int lo) {
+    constexpr int R = kStoch ? 2 : 4;  // runs a tile
+    __shared__ float s_wmax[R * kQtWarps];
+    __shared__ __align__(16) float s_code[kStoch ? 256 : 1];
+    __shared__ __align__(16) float s_mid[kRank == kBucket ? 1 : 256];
+    __shared__ __align__(16) float2 s_bucket[kRank == kBucket ? kMaxBuckets : 1];
+
+    const int tid = threadIdx.x;
+    const long long base = (long long)blockIdx.x * (R * kQtRun) + tid * kQtLane;
+    bool live[R];
+    Raw16<float> raw[R]{};
+    float uu[kStoch ? R : 1][16];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        live[r] = base + r * kQtRun < n;
+        if (live[r]) load_raw16(x + base + r * kQtRun, raw[r]);
     }
-    return (uint32_t)r;
+    if constexpr (kStoch) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            Raw16<float> w{};
+            if (live[r]) load_raw16(u + base + r * kQtRun, w);
+            unpack16(w, uu[r]);  // no instructions: the words are the floats
+        }
+    }
+    // the tables, while the tile's loads are in flight
+    const float4* t4 = reinterpret_cast<const float4*>(tables);
+    if (tid < 64) {
+        if constexpr (kRank != kBucket) reinterpret_cast<float4*>(s_mid)[tid] = __ldg(t4 + kMidOffset / 4 + tid);
+        if constexpr (kStoch) reinterpret_cast<float4*>(s_code)[tid] = __ldg(t4 + tid);
+    }
+    if constexpr (kRank == kBucket)  // 2 * nh entries, a whole number of 16-byte pairs
+        for (int i = tid; i < nh; i += kQtThreads)
+            reinterpret_cast<float4*>(s_bucket)[i] = __ldg(t4 + kBucketOffset / 4 + i);
+
+    float v[R][16], m[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        unpack16(raw[r], v[r]);
+        m[r] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) m[r] = fmaxf(m[r], fabsf(v[r][i]));
+    }
+    __syncthreads();  // the tables
+    qt_block_max<R>(m, log2bs, s_wmax);
+
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if (!live[r]) continue;
+        const long long e = base + r * kQtRun;
+        const float scale = qt_scale(m[r]);
+        uint32_t qv[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            const float sc = v[r][i] * scale;
+            const float c = fminf(fmaxf(sc, -1.0f), 1.0f);  // the clip; a NaN is ranked apart
+            int k;
+            if constexpr (kRank == kBucket) {
+                k = rank_bucket(c, s_bucket + nh, shift, lo);
+            } else if constexpr (kRank == kSearch) {
+                k = rank_search(c, s_mid);
+            } else {
+                k = 0;
+                for (int j = 0; j < ncode - 1; ++j) k += (s_mid[j] < c) ? 1 : 0;
+            }
+            if (isnan(sc)) k = 0;
+            if constexpr (kStoch) {
+                // the clip keeps a NaN, as in the JAX package: it moves nowhere
+                const float s = isnan(sc) ? sc : c;
+                const float lower = s_code[k];
+                const int nb = min(max(k + (s > lower ? 1 : -1), 0), ncode - 1);
+                const float gap = fabsf(s_code[nb] - lower);
+                const float p = gap > 0.0f ? fabsf(s - lower) / fmaxf(gap, 1e-20f) : 0.0f;
+                if (uu[r][i] < p) k = nb;
+            }
+            qv[i] = (uint32_t)k;
+        }
+        store_codes16(q + e, qv);
+        if ((e & ((1LL << log2bs) - 1)) == 0) absmax[e >> log2bs] = m[r];
+    }
 }
 
-// tables: the codebook (256 floats, ncode used) then its midpoints (255
-// floats, ncode - 1 used), in device memory.
-__global__ void __launch_bounds__(kQThreads)
-quantize_blockwise8_kernel(const float* __restrict__ x, const float* __restrict__ u,
-                           uint8_t* __restrict__ q, float* __restrict__ absmax,
-                           long long nblocks, int blocksize, const float* __restrict__ tables,
-                           int ncode, int sorted) {
-    __shared__ float s_code[256];
-    __shared__ float s_mid[256];
-    for (int i = threadIdx.x; i < 511; i += kQThreads) {
-        if (i < 256) s_code[i] = tables[i];
-        else s_mid[i - 256] = tables[i];
-    }
-    __syncthreads();
+template <bool kStoch, int kRank>
+void launch_q8(const float* x, const float* u, uint8_t* q, float* absmax, long long n, int log2bs,
+               const float* tables, int ncode, int nh, int shift, int lo, cudaStream_t stream) {
+    constexpr long long tile = (kStoch ? 2 : 4) * kQtRun;
+    const unsigned grid = (unsigned)((n + tile - 1) / tile);
+    quantize_blockwise8_kernel<kStoch, kRank><<<grid, kQtThreads, 0, stream>>>(
+        x, u, q, absmax, n, log2bs, tables, ncode, nh, shift, lo);
+}
 
-    const int lane = threadIdx.x & 31;
-    const long long blk = (long long)blockIdx.x * (kQThreads / 32) + (threadIdx.x >> 5);
-    if (blk >= nblocks) return;  // uniform across the warp
-    const float* xb = x + blk * blocksize;
-    uint8_t* qb = q + blk * blocksize;
-    const float* ub = u ? u + blk * blocksize : nullptr;
-
-    float m = 0.0f;
-    for (int i = lane * 4; i < blocksize; i += 128) {  // blocksize % 4 == 0: whole float4s
-        const float4 v = *reinterpret_cast<const float4*>(xb + i);
-        m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
-    }
-    m = warp_max(m);
-    // The JAX package computes 1 / max(absmax, 1e-38) with subnormals
-    // flushed, so an all-zero block gets scale inf, NaN scaled values and
-    // rank 0.  Mirror that exactly.
-    const float scale = m < FLT_MIN ? INFINITY : 1.0f / m;
-    const bool srt = sorted != 0;
-    const bool stoch = ub != nullptr;
-
-    // 4 elements a lane per step: a 16-byte load (the block's second read,
-    // mostly from L1/L2) and one 4-byte store of 4 codes
-    for (int i = lane * 4; i < blocksize; i += 128) {
-        const float4 v = *reinterpret_cast<const float4*>(xb + i);
-        const float4 w = stoch ? *reinterpret_cast<const float4*>(ub + i) : make_float4(0, 0, 0, 0);
-        const uint32_t r0 = quantize_one(v.x, scale, w.x, stoch, s_code, s_mid, ncode, srt);
-        const uint32_t r1 = quantize_one(v.y, scale, w.y, stoch, s_code, s_mid, ncode, srt);
-        const uint32_t r2 = quantize_one(v.z, scale, w.z, stoch, s_code, s_mid, ncode, srt);
-        const uint32_t r3 = quantize_one(v.w, scale, w.w, stoch, s_code, s_mid, ncode, srt);
-        *reinterpret_cast<uint32_t*>(qb + i) = r0 | (r1 << 8) | (r2 << 16) | (r3 << 24);
-    }
-    if (lane == 0) absmax[blk] = m;
+template <bool kStoch>
+void launch_q8_rank(int rank, const float* x, const float* u, uint8_t* q, float* absmax, long long n, int log2bs,
+                    const float* tables, int ncode, int nh, int shift, int lo, cudaStream_t stream) {
+    if (rank == kBucket)
+        launch_q8<kStoch, kBucket>(x, u, q, absmax, n, log2bs, tables, ncode, nh, shift, lo, stream);
+    else if (rank == kSearch)
+        launch_q8<kStoch, kSearch>(x, u, q, absmax, n, log2bs, tables, ncode, nh, shift, lo, stream);
+    else
+        launch_q8<kStoch, kLinear>(x, u, q, absmax, n, log2bs, tables, ncode, nh, shift, lo, stream);
 }
 
 constexpr int kDqThreads = 256;
@@ -144,19 +207,22 @@ dequantize_blockwise8_kernel(const uint8_t* __restrict__ q, const float* __restr
 
 }  // namespace
 
-// x, u (nullable), q, absmax: n elements in whole blocks.  tables: 511 floats
-// on the device, the codebook padded to 256 then its 255 midpoints (padded);
-// ncode entries used; sorted: the used midpoints are non-decreasing.
-BNB_EXPORT int bnb_quantize_blockwise8(const float* x, const float* u, uint8_t* q, float* absmax,
-                                       long long n, int blocksize, const float* tables, int ncode,
-                                       int sorted, cudaStream_t stream) {
-    if (blocksize < 4 || blocksize % 4 || n % blocksize || ncode < 2 || ncode > 256)
+// x, u (nullable), q, absmax: n elements in whole blocks, x and u 16-byte
+// aligned, as q; blocksize a power of two, 32..4096.  tables: the device
+// table above; ncode entries used.  rank: a RankMode; kBucket takes the
+// table's 2 * nh buckets of at most one midpoint each, indexed as rank_bucket
+// takes shift and lo; kSearch needs sorted midpoints.
+BNB_EXPORT int bnb_quantize_blockwise8(const float* x, const float* u, uint8_t* q, float* absmax, long long n,
+                                       int blocksize, const float* tables, int ncode, int rank, int nh, int shift,
+                                       int lo, cudaStream_t stream) {
+    int log2bs = 5;
+    while (log2bs < 12 && (1 << log2bs) != blocksize) ++log2bs;
+    if ((1 << log2bs) != blocksize || n % blocksize || ncode < 2 || ncode > 256 || rank < kLinear ||
+        rank > kBucket || (rank == kBucket && (nh <= 0 || 2 * nh > kMaxBuckets || shift < 17 || shift > 24 || lo < 0)))
         return (int)cudaErrorInvalidValue;
-    const long long nblocks = n / blocksize;
-    if (nblocks > 0) {
-        const long long grid = (nblocks + kQThreads / 32 - 1) / (kQThreads / 32);
-        quantize_blockwise8_kernel<<<(unsigned)grid, kQThreads, 0, stream>>>(
-            x, u, q, absmax, nblocks, blocksize, tables, ncode, sorted);
+    if (n > 0) {
+        if (u != nullptr) launch_q8_rank<true>(rank, x, u, q, absmax, n, log2bs, tables, ncode, nh, shift, lo, stream);
+        else launch_q8_rank<false>(rank, x, u, q, absmax, n, log2bs, tables, ncode, nh, shift, lo, stream);
     }
     return (int)cudaGetLastError();
 }

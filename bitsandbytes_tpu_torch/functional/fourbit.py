@@ -20,8 +20,10 @@ to uint32), as the JAX package maps them, so that no payload is ever a float
 tensor.  The bytes stay in their order: ``payload.view(torch.uint8)`` gives
 them back.  The paired layout takes uint8 only.
 
-The input is upcast to float32 before quantizing, so bf16 weights quantize
-exactly as the JAX package quantizes them.
+A float32, bfloat16 or float16 input goes to the quantize kernel in its own
+type, which upcasts it exactly in registers (the TPU kernel upcasts in VMEM);
+any other type is upcast to float32 first.  Either way a bf16 weight
+quantizes exactly as the JAX package quantizes it.
 
 ``compress_statistics=True`` double-quantizes the absmax, as the reference's
 ``bnb_4bit_use_double_quant``: its mean is subtracted and the rest quantized
@@ -46,7 +48,7 @@ import torch
 
 from ..ops.gemm4bit import dequantize_4bit_2d, dequantize_4bit_2d_dq
 from ..ops.gemm4bit_paired import pack_npaired, repack_npaired_to_2d
-from ..ops.quant4bit import quantize_4bit_codes
+from ..ops.quant4bit import QUANTIZE_DTYPES, quantize_4bit_codes
 from .blockwise import fixed_order_mean, quantize_blockwise
 from .codebooks import get_4bit_code
 from .quant_state import QuantState
@@ -137,7 +139,11 @@ def quantize_4bit(
         raise ValueError("layout='paired' stores uint8 bytes only")
 
     n = A.numel()
-    x = A.reshape(-1).to(torch.float32).contiguous()
+    x = A.reshape(-1).contiguous()
+    if x.dtype not in QUANTIZE_DTYPES:
+        x = x.to(torch.float32)
+    if x.data_ptr() % 16:  # a view at an odd offset: the kernel reads 16-byte words
+        x = x.clone()
     u = None
     if generator is not None:
         u = torch.rand(x.numel(), generator=generator, device=x.device, dtype=torch.float32)

@@ -42,6 +42,7 @@ from .. import autograd
 from ..nn.modules import QuantizedTensor
 from ..ops.dispatch import resolve_device
 from ..ops.flash_cached import GT_MAX, flash_attention_cached, flash_attention_paged
+from ..ops.quant4bit import QUANTIZE_DTYPES
 
 __all__ = [
     "LlamaConfig",
@@ -281,17 +282,20 @@ def quantize_params_4bit(
     quantize_lm_head: bool = False,
     fuse: bool = False,
 ) -> dict:
-    """Replace every layer linear weight with a packed 4-bit QuantizedTensor
-    (upcast to f32 first, on the weight's own device).  ``fuse=True``
-    concatenates q/k/v into ``wqkv`` and gate/up into ``gate_up`` first;
-    rows are independent quant blocks, so this is bit-identical to
-    quantizing them apart."""
+    """Replace every layer linear weight with a packed 4-bit QuantizedTensor,
+    on the weight's own device.  A bf16, f16 or f32 weight is quantized in
+    its type (the kernel's upcast is exact), any other upcast to f32 first;
+    the state records f32 as its type either way, as the JAX package's does.
+    ``fuse=True`` concatenates q/k/v into ``wqkv`` and gate/up into
+    ``gate_up`` first; rows are independent quant blocks, so this is
+    bit-identical to quantizing them apart."""
 
     def q(W):
-        return QuantizedTensor.quantize(
-            W.to(torch.float32), blocksize=blocksize, quant_type=quant_type,
-            compress_statistics=compress_statistics,
+        qt = QuantizedTensor.quantize(
+            W if W.dtype in QUANTIZE_DTYPES else W.to(torch.float32), blocksize=blocksize,
+            quant_type=quant_type, compress_statistics=compress_statistics,
         )
+        return QuantizedTensor(data=qt.data, state=dataclasses.replace(qt.state, dtype=torch.float32))
 
     def qlayer(layer):
         if not fuse:

@@ -37,7 +37,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("quant4bit.cu", "gemm4bit_paired.cu", "flash_cached.cu", "blockwise8.cu", "optim8bit.cu",
             "gemm4bit.cu")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "quant_tile.cuh")
 _LIBNAME = "libbnb_torch_kernels.so"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -145,11 +145,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U64 = ctypes.c_ulonglong
 
 _SIGNATURES = {
-    # x, u (or NULL), codes, absmax, n, blocksize, midpoints[15] (host), order[16] (host),
-    # sorted code[16] (host), identity, stream
-    "bnb_quantize_4bit_codes": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
+    # x, u (or NULL), codes, absmax, n, blocksize, midpoints[15] (host), sorted code[16] (host),
+    # order (rank -> bit-pattern nibbles), identity, x_kind, stream
+    "bnb_quantize_4bit_codes": [_P, _P, _P, _P, _L, _I, _P, _P, _U64, _I, _I, _P],
     # A, P, absmax_t, part (scratch, or NULL), out, M, N, K, blocksize, k_per_split, splits,
     # tc (the tensor-core kernel), units[16] (host), a_kind, out_f32, stream
     "bnb_gemm_4bit_paired": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
@@ -171,8 +172,9 @@ _SIGNATURES = {
     # P, codes_t, s2, offset, W, N, K, blocksize, units[16] (host), decode table (host), out_kind,
     # stream
     "bnb_dequantize_paired_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
-    # x, u (or NULL), q, absmax, n, blocksize, tables (device), ncode, sorted, stream
-    "bnb_quantize_blockwise8": [_P, _P, _P, _P, _L, _I, _P, _I, _I, _P],
+    # x, u (or NULL), q, absmax, n, blocksize, tables (device), ncode, rank mode, nh (buckets a
+    # sign), shift, lo, stream
+    "bnb_quantize_blockwise8": [_P, _P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _I, _P],
     # q, absmax, out, n, blocksize, tables (device), out_kind, stream
     "bnb_dequantize_blockwise8": [_P, _P, _P, _L, _I, _P, _I, _P],
     # G, P, absmax_t, part (scratch, or NULL), out, M, N, K, blocksize, rows_per_split, splits,

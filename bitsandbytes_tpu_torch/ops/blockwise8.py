@@ -3,11 +3,14 @@
 Replace the TPU kernels ``quantize_blockwise_pallas`` and
 ``dequantize_blockwise_pallas`` of the JAX package's
 ``ops/pallas/blockwise8.py``; the CUDA source is ``csrc/blockwise8.cu``.
-Both are bound by bytes on the H100.  The quantize takes one quantization
-block per warp (absmax by shuffles, then a binary search over the codebook's
-midpoints in shared memory, 4 elements a lane per step); the dequantize
-looks 8 codes up in a shared-memory table per thread.  The codebook and its
-midpoints go to the device once per codebook (``_device_tables``).
+Both are bound by bytes on the H100.  The quantize streams tiles of 16384
+elements (a lane's 16 in registers, each element read once, the absmax by
+shuffles or across warps in shared memory) and ranks sorted midpoints by a
+bucket table built here per codebook (:func:`bucket_table`: the scaled
+value's sign, exponent and top mantissa bits give the count below the
+bucket and the next midpoint); the dequantize looks 8 codes up in a
+shared-memory table per thread.  The tables go to the device once per
+codebook (``_device_tables``).
 
 Both take whole blocks (``n % blocksize == 0``); ``functional/blockwise.py``
 pads a partial last block.  Semantics, as the TPU kernels':
@@ -33,6 +36,8 @@ from . import _lib
 from .dispatch import use_kernel
 
 __all__ = [
+    "QUANTIZE_BLOCKSIZES",
+    "bucket_table",
     "quantize_blockwise8",
     "quantize_blockwise8_plain",
     "dequantize_blockwise8",
@@ -50,17 +55,86 @@ def _tables(code_t: tuple):
     return tuple(float(x) for x in code), tuple(float(x) for x in mid)
 
 
+# The bucket table of the quantize kernel's rank (csrc/blockwise8.cu,
+# rank_bucket): |scaled|'s exponent and top mantissa bits index it, at most
+# BUCKET_MAX_ENTRIES entries (32 KB of shared memory) of at most one midpoint
+# each, magnitudes under 2**-E sharing one bucket.  The kernel's rank modes:
+RANK_LINEAR, RANK_SEARCH, RANK_BUCKET = 0, 1, 2
+BUCKET_MAX_ENTRIES = 4096
+BUCKET_MAX_BINADES = 40
+
+
+def bucket_table(mid: np.ndarray, mantissa_bits: int):
+    """The buckets of sorted float32 midpoints ``mid`` at ``mantissa_bits``
+    of resolution: ``(table, nh, shift, lo, most)``.
+
+    ``table`` is float32 ``[2 * nh, 2]``: for each bucket the count of
+    midpoints below its least value (as int32 bits), then the next midpoint
+    (+inf past the last).  A value ``c`` in [-1, 1] with float32 bits ``b``
+    falls in bucket ``nh + i`` for ``c >= +0`` and ``nh - 1 - i`` for negative
+    ``c`` (sign bit set), ``i = max(((b << 1) mod 2**32) >> shift - lo, 0)``.
+    ``most`` is the most midpoints a bucket's values can count beyond its
+    entry's count: the kernel's one compare gives ``#{mid < c}`` wherever it
+    is at most 1."""
+    mid = np.asarray(mid, dtype=np.float32)
+    M = mantissa_bits
+    nz = np.abs(mid[mid != 0])
+    lowest_binade = int(nz.view(np.uint32).min() >> 23) if nz.size else 127
+    # one binade below the least nonzero midpoint's: bucket 0 then holds
+    # none of them, only a midpoint at 0
+    E = min(max(128 - lowest_binade, 1), BUCKET_MAX_BINADES)
+    lo = (127 - E) << M
+    nh = (E << M) + 1
+    unit = 23 - M  # a bucket's width in the bits of |c|
+    mags = np.arange(nh, dtype=np.int64)
+    # the least and greatest magnitude of each bucket, within [0, 1]
+    small = np.where(mags == 0, 0, (mags + lo) << unit)
+    large = np.minimum(((mags + lo + 1) << unit) - 1, 0x3F800000)
+    small, large = (v.astype(np.uint32).view(np.float32) for v in (small, large))
+    least = np.concatenate([-large[::-1], small])
+    greatest = np.concatenate([-small[::-1], large])
+    count = np.searchsorted(mid, least, side="left")  # #{mid < least}: float32 compares
+    most = int((np.searchsorted(mid, greatest, side="left") - count).max())
+    table = np.empty((2 * nh, 2), dtype=np.float32)
+    table[:, 0] = count.astype(np.int32).view(np.float32)
+    table[:, 1] = np.concatenate([mid, np.full(1, np.inf, np.float32)])[count]
+    return table, nh, unit + 1, lo, most
+
+
+def _buckets(mid: np.ndarray):
+    """The coarsest :func:`bucket_table` of at most one midpoint a bucket
+    within ``BUCKET_MAX_ENTRIES``: ``(table, nh, shift, lo)``, or None."""
+    for M in range(4, 8):
+        table, nh, shift, lo, most = bucket_table(mid, M)
+        if 2 * nh > BUCKET_MAX_ENTRIES:
+            return None
+        if most <= 1:
+            return table, nh, shift, lo
+    return None
+
+
 @functools.lru_cache(maxsize=None)
 def _device_tables(code_t: tuple, device: str):
-    """The kernels' table on ``device``: the codebook padded to 256 floats,
-    then its midpoints padded to 255, and whether the midpoints are sorted.
-    Built once per codebook and device."""
+    """The kernels' table on ``device`` and how the quantize ranks:
+    ``(table, rank, nh, shift, lo)``.  The table holds the codebook padded to
+    256 floats and its midpoints padded to 256 with +inf, then, for sorted
+    midpoints that :func:`_buckets` resolves, the buckets (``RANK_BUCKET``);
+    other sorted midpoints take the binary search (``RANK_SEARCH``), unsorted
+    ones the linear count (``RANK_LINEAR``).  Built once per codebook and
+    device."""
     code, mid = _tables(code_t)
-    buf = np.zeros(511, dtype=np.float32)
-    buf[: len(code)] = code
-    buf[256 : 256 + len(mid)] = mid
-    srt = all(b >= a for a, b in zip(mid, mid[1:]))
-    return torch.from_numpy(buf).to(device), srt
+    mid = np.asarray(mid, dtype=np.float32)
+    head = np.zeros(512, dtype=np.float32)
+    head[: len(code)] = code
+    head[256:] = np.inf
+    head[256 : 256 + len(mid)] = mid
+    if not all(b >= a for a, b in zip(mid, mid[1:])):
+        return torch.from_numpy(head).to(device), RANK_LINEAR, 0, 0, 0
+    buckets = _buckets(mid)
+    if buckets is None:
+        return torch.from_numpy(head).to(device), RANK_SEARCH, 0, 0, 0
+    table, nh, shift, lo = buckets
+    return torch.from_numpy(np.concatenate([head, table.reshape(-1)])).to(device), RANK_BUCKET, nh, shift, lo
 
 
 def code_tuple(code) -> tuple:
@@ -112,21 +186,26 @@ def _check_blocks(n: int, blocksize: int) -> None:
         raise ValueError(f"{n} elements are not whole blocks of {blocksize} (a multiple of 8)")
 
 
+QUANTIZE_BLOCKSIZES = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
 def quantize_blockwise8(x: torch.Tensor, code, blocksize: int, u: Optional[torch.Tensor] = None):
     """Kernel on a CUDA tensor, plain version on a CPU tensor.  ``x`` is a
-    contiguous 1-D float32 tensor of whole blocks; ``u``, when given, holds
-    one float32 uniform per element and turns on stochastic rounding."""
+    contiguous 1-D float32 tensor of whole blocks of a blocksize in
+    ``QUANTIZE_BLOCKSIZES``; ``u``, when given, holds one float32 uniform per
+    element and turns on stochastic rounding."""
     if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
         raise ValueError("quantize_blockwise8 takes a contiguous 1-D float32 tensor")
     n = x.numel()
-    _check_blocks(n, blocksize)
+    if blocksize not in QUANTIZE_BLOCKSIZES or n % blocksize:
+        raise ValueError(f"{n} elements are not whole blocks of a blocksize in {QUANTIZE_BLOCKSIZES}")
     if u is not None and (u.dtype != torch.float32 or u.numel() != n or not u.is_contiguous()):
         raise ValueError(f"u must be a contiguous float32 tensor of {n} uniforms")
     code_t = code_tuple(code)
     tensors = (x,) if u is None else (x, u)
     if not use_kernel(*tensors):
         return quantize_blockwise8_plain(x, code_t, blocksize, u)
-    tables, srt = _device_tables(code_t, str(x.device))
+    tables, rank, nh, shift, lo = _device_tables(code_t, str(x.device))
     q = torch.empty(n, dtype=torch.uint8, device=x.device)
     absmax = torch.empty(n // blocksize, dtype=torch.float32, device=x.device)
     if n == 0:
@@ -136,7 +215,7 @@ def quantize_blockwise8(x: torch.Tensor, code, blocksize: int, u: Optional[torch
             raise ValueError("the kernel needs 16-byte aligned tensors")
     err = _lib.lib().bnb_quantize_blockwise8(
         x.data_ptr(), None if u is None else u.data_ptr(), q.data_ptr(), absmax.data_ptr(),
-        n, blocksize, tables.data_ptr(), len(code_t), int(srt), _lib.stream(x),
+        n, blocksize, tables.data_ptr(), len(code_t), rank, nh, shift, lo, _lib.stream(x),
     )
     _lib.check(err, "quantize_blockwise8")
     _lib.LAUNCHES["quantize_blockwise8"] += 1

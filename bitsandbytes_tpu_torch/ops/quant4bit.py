@@ -2,17 +2,22 @@
 
 Replaces the TPU kernel ``quantize_4bit_codes_pallas`` of the JAX package's
 ``ops/pallas/quant4bit.py``; the CUDA source is ``csrc/quant4bit.cu``.  It
-is bound by bytes on the H100 (4 B read and 1 B written per element), and
-reads its input once: one warp per quantization block keeps the block in
-registers from the absmax through the compare-rank.
+is bound by bytes on the H100 (2 or 4 B read and 1 B written per element),
+and streams tiles of 16384 elements: a lane holds 16 contiguous elements in
+registers from the absmax through the compare-rank, so the input is read
+once, and stores their codes as one 16-byte word.
 
+The input is float32, bfloat16 or float16 (``QUANTIZE_DTYPES``), read in its
+type and upcast in registers as the TPU kernel upcasts in VMEM; the upcast is
+exact, so a 16-bit input gives the codes and absmax of its float32 copy.
 Both versions take the flattened input padded with zeros to a whole number
-of blocks, and return unpacked codes (one per byte) plus the f32 absmax of
-every block; the caller packs the codes in its layout.  Given one f32
-uniform per element (``u``), both round stochastically as the TPU kernel's
-mode "u" does (``_stochastic_move16``): the value-sorted rank moves to its
-neighbour toward the scaled value with probability proportional to the
-distance from the nearest code.
+of blocks (a blocksize in ``QUANTIZE_BLOCKSIZES``), and return unpacked
+codes (one per byte) plus the f32 absmax of every block; the caller packs
+the codes in its layout.  Given one f32 uniform per element (``u``), both
+round stochastically as the TPU kernel's mode "u" does
+(``_stochastic_move16``): the value-sorted rank moves to its neighbour
+toward the scaled value with probability proportional to the distance from
+the nearest code.
 """
 
 from __future__ import annotations
@@ -26,7 +31,11 @@ from ..functional.codebooks import get_4bit_code, quantize_tables
 from . import _lib
 from .dispatch import use_kernel
 
-__all__ = ["quantize_4bit_codes", "quantize_4bit_codes_plain"]
+__all__ = ["QUANTIZE_DTYPES", "QUANTIZE_BLOCKSIZES", "order_word", "quantize_4bit_codes",
+           "quantize_4bit_codes_plain"]
+
+QUANTIZE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # the C entry's x_kind
+QUANTIZE_BLOCKSIZES = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 
 def _sorted_code(quant_type: str, blocksize: int) -> np.ndarray:
@@ -35,13 +44,19 @@ def _sorted_code(quant_type: str, blocksize: int) -> np.ndarray:
     return get_4bit_code(quant_type, blocksize)[order].astype(np.float32)
 
 
+def order_word(order) -> int:
+    """The rank -> bit-pattern map as the kernel reads it: nibble r of a
+    64-bit word, ``(word >> 4 * r) & 15 == order[r]``."""
+    return sum(int(o) << (4 * r) for r, o in enumerate(order))
+
+
 def quantize_4bit_codes_plain(x: torch.Tensor, quant_type: str, blocksize: int,
                               u: Optional[torch.Tensor] = None):
-    """``x`` f32 ``[n]`` (n % blocksize == 0) -> (codes u8 ``[n]``, absmax
-    f32 ``[n / blocksize]``), with the kernel's arithmetic; ``u`` f32 ``[n]``
-    rounds stochastically."""
+    """``x`` ``[n]`` (n % blocksize == 0) -> (codes u8 ``[n]``, absmax f32
+    ``[n / blocksize]``), with the kernel's arithmetic on ``x`` upcast to
+    f32; ``u`` f32 ``[n]`` rounds stochastically."""
     midpoints, order, identity = quantize_tables(quant_type, blocksize)
-    blocks = x.reshape(-1, blocksize)
+    blocks = x.to(torch.float32).reshape(-1, blocksize)
     absmax = blocks.abs().amax(dim=1)
     # 1 / max(absmax, 1e-38) as the JAX package computes it with subnormals
     # flushed: an all-zero block gets scale inf and, through NaN, rank 0
@@ -64,24 +79,31 @@ def quantize_4bit_codes_plain(x: torch.Tensor, quant_type: str, blocksize: int,
 
 
 def quantize_4bit_codes(x: torch.Tensor, quant_type: str, blocksize: int, u: Optional[torch.Tensor] = None):
-    """Kernel on a CUDA tensor, plain version on a CPU tensor; ``u`` (f32,
-    one uniform per element of ``x``) turns on stochastic rounding."""
-    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
-        raise ValueError("quantize_4bit_codes takes a contiguous 1-D float32 tensor")
+    """Kernel on a CUDA tensor, plain version on a CPU tensor.  ``x`` is a
+    contiguous 1-D tensor of a type in ``QUANTIZE_DTYPES``; ``u`` (f32, one
+    uniform per element of ``x``) turns on stochastic rounding."""
+    if x.dtype not in QUANTIZE_DTYPES or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("quantize_4bit_codes takes a contiguous 1-D float32, bfloat16 or float16 tensor")
     n = x.numel()
-    if n % blocksize:
-        raise ValueError(f"length {n} is not a multiple of blocksize {blocksize}")
+    if blocksize not in QUANTIZE_BLOCKSIZES or n % blocksize:
+        raise ValueError(f"length {n} is not a multiple of a blocksize in {QUANTIZE_BLOCKSIZES}")
     if u is not None and (u.dtype != torch.float32 or u.numel() != n or not u.is_contiguous()):
         raise ValueError(f"u must be {n} contiguous float32 uniforms")
-    if not use_kernel(x, *(() if u is None else (u,))):
+    tensors = (x,) if u is None else (x, u)
+    if not use_kernel(*tensors):
         return quantize_4bit_codes_plain(x, quant_type, blocksize, u)
     midpoints, order, identity = quantize_tables(quant_type, blocksize)
     codes = torch.empty(n, dtype=torch.uint8, device=x.device)
     absmax = torch.empty(n // blocksize, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return codes, absmax
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the kernel needs 16-byte aligned tensors")
     err = _lib.lib().bnb_quantize_4bit_codes(
         x.data_ptr(), None if u is None else u.data_ptr(), codes.data_ptr(), absmax.data_ptr(), n, blocksize,
-        _lib.host_f32(midpoints), _lib.host_i32(order), _lib.host_f32(_sorted_code(quant_type, blocksize)),
-        int(identity), _lib.stream(x),
+        _lib.host_f32(midpoints), _lib.host_f32(_sorted_code(quant_type, blocksize)), order_word(order),
+        int(identity), QUANTIZE_DTYPES[x.dtype], _lib.stream(x),
     )
     _lib.check(err, "quantize_4bit_codes")
     _lib.LAUNCHES["quantize_4bit_codes"] += 1

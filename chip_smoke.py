@@ -52,8 +52,17 @@ Phases (every one asserts; any failure exits non-zero before the result):
    ``functional/gemm.KADJACENT_LARGE_M_THRESHOLD`` and
    ``KADJACENT_F32_LARGE_M_THRESHOLD``, and of kernel 11 against kernel 10 +
    matmul that, with 3j, chose ``BACKWARD_LARGE_M_THRESHOLD``); kernel 15, the 8-bit AdEMAMix
-   update (3m, as 3i).  Kernel 1's
-   stochastic mode against its plain version on the same uniforms (3a);
+   update (3m, as 3i).  Kernel 1 (3a) bit for bit against its plain
+   version and against itself on the f32 copy: nf4, fp4 and int4 at
+   blocksizes 32, 64, 256 and 4096 and af4 at 64, W in f32, bf16 and f16,
+   counts that end inside a tile, an all-zero block, both rounding modes
+   (the stochastic one on the same uniforms); gate_up timed in f32 and bf16,
+   each rounding mode, with and without the host in the window, and its
+   SASS checked for local stores (``sass_stl``).  Kernel 13 (3f, 3g) bit for
+   bit at blocksizes 32-4096 on the dynamic map (buckets), 256 linear
+   entries, the unsigned dynamic map (the binary search) and fp4 (unsorted:
+   the linear count), both modes, small inputs and full tiles; the nested
+   absmax and the lm_head timed with and without the host in the window;
    kernels 2, 3, 5 and 6 on f16 and f32 activations and kernels 7 and 8 on
    f16 g (3e); kernels 14 and 15 on bf16 and f16 parameters (3i, 3m);
    kernels 4 and 16 at head_dim 64, 128 and 256, bf16 and int8, paged
@@ -76,7 +85,11 @@ Phases (every one asserts; any failure exits non-zero before the result):
    kernels 9 and 10 in their nested modes, with no decode of the absmax
    before a call), double-quantized, trained with ``ademamix8bit`` (kernel
    15).  The kernels' launch counts are zeroed just before each path and
-   read just after it.  Each serving path also profiles one more prefill
+   read just after it.  4a and 4b also load the model once more under
+   ``torch.profiler`` (device time by class: kernel 1, kernel 13, copies and
+   casts, the rest) and check that layer 0's payloads and states equal those
+   of the loader's former route, each weight cast to f32 first.  Each
+   serving path also profiles one more prefill
    (device time, launches, the dequantize's share), and each training path
    one step by kernel class.
 5. Both serving paths at 2 layers on the card and on the CPU (plain
@@ -287,6 +300,34 @@ def main() -> int:
     t0 = time.perf_counter()
     so = build()
     emit("build", seconds=round(time.perf_counter() - t0, 3), library=os.path.relpath(so))
+
+    def sass_stl(kernel):
+        """Local stores (``STL``) in the SASS of the instances of ``kernel``
+        in the built library, from ``cuobjdump -sass``: the most before an
+        instance's first barrier, where the codebooks are staged (a parameter
+        indexed by a register is copied to local memory there, one store for
+        each 8 or 16 of its bytes), and how many in all (register spills).
+        None without the tool."""
+        tool = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
+        if not os.path.exists(tool):
+            return None
+        sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True, timeout=300).stdout
+        found, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                fn = fn if f"{kernel}_kernel" in fn and f"de{kernel}_kernel" not in fn else None
+                if fn:
+                    found[fn] = {"barrier": False, "before": 0, "stl": 0}
+            elif fn and " BAR" in line:
+                found[fn]["barrier"] = True
+            elif fn and " STL" in line:
+                found[fn]["stl"] += 1
+                found[fn]["before"] += not found[fn]["barrier"]
+        assert found, f"no {kernel} kernel in the SASS"
+        return {"instances": len(found), "stl_before_first_barrier_max": max(f["before"] for f in found.values()),
+                "stl_all_instances": sum(f["stl"] for f in found.values())}
+
     canary = bandwidth_canary(1 << 30)
     canary_bs = canary["gb_s"] * 1e9
     emit("canary", **canary)
@@ -309,43 +350,79 @@ def main() -> int:
     code = get_4bit_code("nf4", bs)
     units = _units(_code_tuple(code))
 
-    # -- 3a. kernel 1: quantize, on the gate_up weight --------------------
-    N, K = LINEARS["gate_up"]
-    W = torch.randn(N, K, generator=gen, device=dev).to(torch.bfloat16).to(torch.float32)
-    W[0, :bs] = 0.0  # an all-zero block
-    x = W.reshape(-1)
-    for qt in ("nf4", "fp4"):
-        qk, ak = quantize_4bit_codes(x, qt, bs)
-        qp, ap_ = quantize_4bit_codes_plain(x, qt, bs)
-        assert torch.equal(qk, qp), f"quantize codes differ ({qt})"
-        assert torch.equal(ak.view(torch.int32), ap_.view(torch.int32)), f"absmax differs ({qt})"
-    # the stochastic mode: the same uniforms give the plain version's codes
-    u = torch.rand(x.numel(), generator=gen, device=dev)
-    moved = {}
-    for qt in ("nf4", "fp4"):
-        qk, ak = quantize_4bit_codes(x, qt, bs, u)
-        qp, ap_ = quantize_4bit_codes_plain(x, qt, bs, u)
-        assert torch.equal(qk, qp) and torch.equal(ak.view(torch.int32), ap_.view(torch.int32)), \
-            f"stochastic quantize codes differ ({qt})"
-        moved[qt] = (qk != quantize_4bit_codes(x, qt, bs)[0]).float().mean().item()
-        assert 0.1 < moved[qt] < 0.4, f"stochastic quantize moved {moved[qt]} of the codes ({qt})"
-    n_el = N * K
-    sto = {"ms": cuda_time(lambda: quantize_4bit_codes(x, "nf4", bs, u), flush_l2=True)["median"],
-           "plain_ms": cuda_time(lambda: quantize_4bit_codes_plain(x, "nf4", bs, u), n=5)["median"],
-           "bytes": n_el * 8 + n_el + n_el // bs * 4, "moved_share": moved}
-    sto["bound_ms"] = bound_ms(sto["bytes"], 28 * n_el, PEAK_F32_FLOPS)[0]
-    entry(
-        "quantize_4bit_codes",
-        cuda_time(lambda: quantize_4bit_codes(x, "nf4", bs), flush_l2=True)["median"],
-        cuda_time(lambda: quantize_4bit_codes_plain(x, "nf4", bs), n=5)["median"],
-        None, n_el * 4 + n_el + n_el // bs * 4, 20 * n_el, PEAK_F32_FLOPS, 0.0,
-        shape=[N, K], stochastic_u=sto,
-    )
-    del W, x, qk, ak, qp, ap_, u
-
     def bits_equal(a, b):
         return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
             a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+    # -- 3a. kernel 1: quantize -------------------------------------------
+    # bit for bit against its plain version: nf4, fp4 and int4 at blocksizes
+    # 32, 64, 256 and 4096 and af4 at 64, W in f32, bf16 and f16, a count of
+    # whole blocks that ends inside a tile, an all-zero block, both rounding
+    # modes; each 16-bit W also against the kernel on its f32 copy.  Their
+    # data comes from a generator of their own, so that the main paths' inputs
+    # (drawn from gen) stay those of earlier runs.
+    gen_q = torch.Generator(device=dev).manual_seed(15)
+    q4_cases = []
+    for qt, qbs in [(t, b) for t in ("nf4", "fp4", "int4") for b in (32, 64, 256, 4096)] + [("af4", 64)]:
+        n = qbs * (40960 // qbs + 3)  # 2.5 tiles of 16384 elements and three blocks
+        base = torch.randn(n, generator=gen_q, device=dev)
+        base[qbs : 2 * qbs] = 0.0
+        u = torch.rand(n, generator=gen_q, device=dev)
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            xd = base.to(dt)
+            for uu in (None, u):
+                qk, ak = quantize_4bit_codes(xd, qt, qbs, uu)
+                qp, ap_ = quantize_4bit_codes_plain(xd, qt, qbs, uu)
+                what = f"quantize {qt} bs{qbs} {str(dt)[6:]} stochastic={uu is not None}"
+                assert bits_equal(qk, qp) and bits_equal(ak, ap_), f"{what}: differs from its plain version"
+                qf, af = quantize_4bit_codes(xd.float(), qt, qbs, uu)
+                assert bits_equal(qk, qf) and bits_equal(ak, af), f"{what}: differs from its f32 copy"
+        q4_cases.append(f"{qt} bs{qbs} n{n} f32/bf16/f16 zero-block nearest+stochastic")
+    # gate_up, as the loader quantizes it: bf16 W, and its f32 copy (the
+    # loader's former cast)
+    N, K = LINEARS["gate_up"]
+    Wb = torch.randn(N, K, generator=gen, device=dev).to(torch.bfloat16)
+    Wb[0, :bs] = 0.0  # an all-zero block
+    xb = Wb.reshape(-1)
+    x = xb.float()
+    u = torch.rand(x.numel(), generator=gen, device=dev)
+    moved = {}
+    for qt in ("nf4", "fp4"):
+        for uu in (None, u):
+            qk, ak = quantize_4bit_codes(xb, qt, bs, uu)
+            qp, ap_ = quantize_4bit_codes_plain(x, qt, bs, uu)
+            assert bits_equal(qk, qp) and bits_equal(ak, ap_), f"quantize gate_up {qt} stochastic={uu is not None}"
+            assert bits_equal(qk, quantize_4bit_codes(x, qt, bs, uu)[0]), f"quantize gate_up {qt}: bf16 vs f32"
+        moved[qt] = (qk != quantize_4bit_codes(xb, qt, bs)[0]).float().mean().item()
+        assert 0.1 < moved[qt] < 0.4, f"stochastic quantize moved {moved[qt]} of the codes ({qt})"
+    n_el = N * K
+
+    def k1_row(xd, uu, nbytes):
+        return {"ms": cuda_time(lambda: quantize_4bit_codes(xd, "nf4", bs, uu), flush_l2=True)["median"],
+                "device_ms": cuda_time(lambda: quantize_4bit_codes(xd, "nf4", bs, uu), flush_l2=True,
+                                       hold=True)["median"],
+                "bytes": nbytes, "bound_ms": bound_ms(nbytes, (28 if uu is not None else 20) * n_el,
+                                                      PEAK_F32_FLOPS)[0],
+                "canary_bound_ms": nbytes / canary_bs * 1e3}
+
+    k1_bytes = {"float32": n_el * 5 + n_el // bs * 4, "bfloat16": n_el * 3 + n_el // bs * 4}
+    k1_f32 = k1_row(x, None, k1_bytes["float32"])
+    k1_bf16 = k1_row(xb, None, k1_bytes["bfloat16"])
+    sto = {"float32": k1_row(x, u, k1_bytes["float32"] + n_el * 4),
+           "bfloat16": k1_row(xb, u, k1_bytes["bfloat16"] + n_el * 4),
+           "plain_ms": cuda_time(lambda: quantize_4bit_codes_plain(x, "nf4", bs, u), n=5)["median"],
+           "moved_share": moved}
+    entry(
+        "quantize_4bit_codes", k1_f32["ms"],
+        cuda_time(lambda: quantize_4bit_codes_plain(x, "nf4", bs), n=5)["median"],
+        None, k1_bytes["float32"], 20 * n_el, PEAK_F32_FLOPS, 0.0,
+        shape=[N, K], device_ms=k1_f32["device_ms"], bf16=k1_bf16, stochastic_u=sto, cases=q4_cases,
+        sass_stl=sass_stl("quantize_4bit_codes"),
+        note="ms: gate_up f32 W, nf4 bs 64, the L2 flushed, the host in the window; device_ms the same held "
+             "out (hold=True); bf16: the same weight in bf16, as the loader passes it; stochastic_u: uniforms "
+             "given (4 B more an element)",
+    )
+    del Wb, xb, x, qk, ak, qp, ap_, qf, af, u, base
 
     def dequant_layer(run, plain, scale_bytes, resolved=None, resolved_key="kernel3_resolved", beside=None):
         """A dequantize kernel (3, 6 or 10, plain or _dq) at each of the four
@@ -885,6 +962,10 @@ def main() -> int:
     n_a = xa.numel()
     q13 = {"shape": [n_a], "blocksize": 256,
            "ms": cuda_time(lambda: quantize_blockwise8(xa, dyn, 256), flush_l2=True)["median"],
+           "device_ms": cuda_time(lambda: quantize_blockwise8(xa, dyn, 256), flush_l2=True, hold=True)["median"],
+           # a yardstick of the fixed cost at this size: one elementwise pass
+           # over the same tensor (read and written once), device time
+           "elementwise_pass_device_ms": cuda_time(lambda: xa.mul_(1.0), flush_l2=True, hold=True)["median"],
            "plain_ms": cuda_time(lambda: quantize_blockwise8_plain(xa, dyn_t, 256), n=5)["median"],
            "bytes": n_a * 5 + n_a // 256 * 4}
     d12 = {"shape": [n_a], "blocksize": 256, "dtype": "float32",
@@ -906,13 +987,20 @@ def main() -> int:
     n_l = xl.numel()
     entry("quantize_blockwise8",
           q13["ms"], q13["plain_ms"], None, q13["bytes"], 16 * n_a, PEAK_F32_FLOPS, 0.0, **{
-              "shape": q13["shape"], "blocksize": 256,
-              "note": "the nested absmax of gate_up, as the double-quantized load quantizes it",
+              "shape": q13["shape"], "blocksize": 256, "device_ms": q13["device_ms"],
+              "elementwise_pass_device_ms": q13["elementwise_pass_device_ms"],
+              "note": "the nested absmax of gate_up, as the double-quantized load quantizes it; ms with the "
+                      "host in the window, device_ms held out (hold=True), both with the L2 flushed; "
+                      "elementwise_pass_device_ms: mul_(1.0) over the same tensor",
               "lm_head": {"shape": [32000, 4096], "blocksize": 4096,
                           "ms": cuda_time(lambda: quantize_blockwise8(xl, dyn, 4096), flush_l2=True)["median"],
+                          "device_ms": cuda_time(lambda: quantize_blockwise8(xl, dyn, 4096), flush_l2=True,
+                                                 hold=True)["median"],
                           "plain_ms": cuda_time(lambda: quantize_blockwise8_plain(xl, dyn_t, 4096), n=3)["median"],
                           "bytes": n_l * 5 + n_l // 4096 * 4,
-                          "bound_ms": bound_ms(n_l * 5 + n_l // 4096 * 4, 16 * n_l, PEAK_F32_FLOPS)[0]}})
+                          "bound_ms": bound_ms(n_l * 5 + n_l // 4096 * 4, 16 * n_l, PEAK_F32_FLOPS)[0],
+                          "canary_bound_ms": (n_l * 5 + n_l // 4096 * 4) / canary_bs * 1e3},
+              "sass_stl": sass_stl("quantize_blockwise8")})
     dk = dequantize_blockwise8(qk, ak, dyn, 4096, torch.bfloat16)
     dp = dequantize_blockwise8_plain(qk, ak, dyn_t, 4096, torch.bfloat16)
     assert torch.equal(dk.view(torch.int16), dp.view(torch.int16)), "dequantize_blockwise8 differs (lm_head)"
@@ -928,6 +1016,8 @@ def main() -> int:
 
     # -- 3g. ragged shapes of the new kernels -------------------------------
     cases = []
+    OTHER_CODEBOOKS = (("linear", torch.linspace(-1, 1, 256).numpy()),
+                       ("dynamic_unsigned", create_dynamic_map(signed=False)), ("fp4", get_4bit_code("fp4", 64)))
     # (1, 64, 768, 32) and Llama's down (K/bs = 224) straddle 256-block boundaries within a column
     for Mx, N, K, gbs in ((1, 64, 768, 32), (3, 18, 96, 32), (13, 130, 4160, 64), (31, 256, 2176, 128),
                           (5, 64, 8192, 4096), (2, 4096, 14336, 64)):
@@ -960,7 +1050,30 @@ def main() -> int:
                                dequantize_blockwise8_plain(qk, ak, dyn_t, bbs, dt)), f"dequantize_blockwise8 {bbs} {dt}"
         qf, sf = FB.quantize_blockwise(xb, blocksize=bbs, nested=True)
         assert qf.shape == xb.shape and torch.isfinite(FB.dequantize_blockwise(qf, sf)).all()
-        cases.append(f"blockwise8 bs{bbs} n{n} zero-block stochastic f32/bf16/f16")
+        # kernel 13's other ranks: 256 linear entries (finer buckets), the
+        # unsigned dynamic map (no bucket table fits: the binary search) and
+        # fp4's 16 entries (unsorted: the linear count)
+        for cname, cb in OTHER_CODEBOOKS:
+            cb_t = tuple(float(v) for v in cb)
+            for uu in (None, u):
+                qk, ak = quantize_blockwise8(padded, cb, bbs, uu)
+                qp, ap_ = quantize_blockwise8_plain(padded, cb_t, bbs, uu)
+                assert torch.equal(qk, qp) and torch.equal(ak, ap_), \
+                    f"quantize_blockwise8 {cname} bs{bbs} u={uu is not None}"
+        cases.append(f"blockwise8 bs{bbs} n{n} zero-block stochastic f32/bf16/f16; linear, unsigned dynamic, fp4")
+    # an input of more than two waves of kernel 13's full tiles (a small one takes one-run tiles)
+    n = 9 << 20
+    xb = torch.randn(n, generator=gen_q, device=dev)
+    xb[4096:8192] = 0.0
+    u = torch.rand(n, generator=gen_q, device=dev)
+    for cname, cb in (("dynamic", dyn),) + OTHER_CODEBOOKS:
+        cb_t = tuple(float(v) for v in cb)
+        for uu in (None, u):
+            qk, ak = quantize_blockwise8(xb, cb, 4096, uu)
+            qp, ap_ = quantize_blockwise8_plain(xb, cb_t, 4096, uu)
+            assert torch.equal(qk, qp) and torch.equal(ak, ap_), f"quantize_blockwise8 {cname} n{n} u={uu is not None}"
+    cases.append(f"blockwise8 bs4096 n{n} full tiles: dynamic, linear, unsigned dynamic and fp4, both modes")
+    del xb, u, qk, ak, qp, ap_
     emit("ragged_shapes_nested", passed=cases)
 
     # -- 3h. kernels 7 and 8: the backward g @ dequant(B) ------------------
@@ -1284,33 +1397,6 @@ def main() -> int:
         g, p, s1, s2, am1, am2 = make(name, n, False, torch.float32)
         return cuda_time(lambda: optimizer_update_8bit_(sc, g, p, s1, s2, am1, am2, codes_x), flush_l2=True,
                          hold=True)["median"]
-
-    def sass_stl(kernel):
-        """Local stores (``STL``) in the SASS of the instances of ``kernel``
-        in the built library, from ``cuobjdump -sass``: the most before an
-        instance's first barrier, where the codebooks are staged (a parameter
-        indexed by a register is copied to local memory there, one store for
-        each 8 or 16 of its bytes), and how many in all (register spills).
-        None without the tool."""
-        tool = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
-        if not os.path.exists(tool):
-            return None
-        sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True, timeout=300).stdout
-        found, fn = {}, None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                fn = line.split("Function :")[1].strip()
-                fn = fn if f"{kernel}_kernel" in fn else None
-                if fn:
-                    found[fn] = {"barrier": False, "before": 0, "stl": 0}
-            elif fn and " BAR" in line:
-                found[fn]["barrier"] = True
-            elif fn and " STL" in line:
-                found[fn]["stl"] += 1
-                found[fn]["before"] += not found[fn]["barrier"]
-        assert found, f"no {kernel} kernel in the SASS"
-        return {"instances": len(found), "stl_before_first_barrier_max": max(f["before"] for f in found.values()),
-                "stl_all_instances": sum(f["stl"] for f in found.values())}
 
     sc14 = UpdateScalars.make("adam", beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=1e-2, step=5, lr=1e-3)
     group_cases = [group_check("adam", sc14, lora_shapes, torch.float32, False, opt_inputs, codes2)]
@@ -2228,6 +2314,45 @@ def main() -> int:
                             "device_launches": sum(e.count for e in pf_events), "dequantize_ms": pf_dq["ms"],
                             "dequantize_launches": pf_dq["launches"], "dequantize_share": pf_dq["ms"] * 1e3 / pf_us,
                             "device_busy_share": pf_us / 1e3 / pf_wall_ms, "by_class": pf_classes}
+        serve_peak = torch.cuda.max_memory_allocated()
+
+        load_profile = None
+        if quantize is None:
+            # the load once more from the same seed, profiled by kernel class;
+            # then layer 0 through the loader's former route (each weight cast
+            # to f32 first), whose bytes and states the bf16 route must give
+            fresh = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+            layer0 = dict(fresh["layers"][0])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(cfg.num_layers):
+                    fresh["layers"][i] = L.quantize_params_4bit(
+                        {"layers": [fresh["layers"][i]]}, fuse=True, compress_statistics=compress)["layers"][0]
+                torch.cuda.synchronize()
+                ld_wall_ms = (time.perf_counter() - t0) * 1e3
+            ld_events = device_events(prof)
+            ld_us = sum(self_dev_us(e) for e in ld_events)
+            old = L.quantize_params_4bit({"layers": [{k: v.to(torch.float32) for k, v in layer0.items()}]},
+                                         fuse=True, compress_statistics=compress)["layers"][0]
+            for name in ("wqkv", "wo", "gate_up", "down"):
+                a = params["layers"][0][name]
+                for b, route in ((fresh["layers"][0][name], "the profiled load"), (old[name], "the f32-cast route")):
+                    same = bits_equal(a.data, b.data) and bits_equal(a.state.absmax, b.state.absmax)
+                    if compress:
+                        same = same and bits_equal(a.state.offset, b.state.offset) and bits_equal(
+                            a.state.state2.absmax, b.state.state2.absmax)
+                    assert same, f"{tag}: layer 0 {name} differs from {route}"
+            load_profile = {"wall_ms": ld_wall_ms, "device_ms": ld_us / 1e3,
+                            "device_launches": sum(e.count for e in ld_events),
+                            "by_class": by_class(ld_events, [("quantize_4bit_codes", "kernel 1 (quantize_4bit_codes)"),
+                                                             ("quantize_blockwise8", "kernel 13 (quantize_blockwise8)"),
+                                                             ("CatArrayBatchedCopy", "concatenations (torch.cat)")]),
+                            "top_kernels_ms": sorted(((e.key[:100], self_dev_us(e) / 1e3, e.count) for e in ld_events),
+                                                     key=lambda r: -r[1])[:6],
+                            "layer0_equals_f32_cast_route": True}
+            del fresh, layer0, old
+            torch.cuda.empty_cache()
 
         med = statistics.median(step_ms)
         scale_bytes = (lambda N, K: (K // bs) * N + -(-N * (K // bs) // 256) * 4 + 4) if compress else \
@@ -2243,8 +2368,8 @@ def main() -> int:
             tok_s=batch / (med * 1e-3), step_bytes=step_bytes,
             step_bound_ms_canary=step_bytes / canary_bs * 1e3,
             step_bound_ms_peak=step_bytes / PEAK_BYTES_S * 1e3,
-            max_memory_allocated=max(init_peak, torch.cuda.max_memory_allocated()),
-            resident_after_load=resident, held_before_load=held, serving_peak_memory=torch.cuda.max_memory_allocated(),
+            max_memory_allocated=max(init_peak, serve_peak),
+            resident_after_load=resident, held_before_load=held, serving_peak_memory=serve_peak,
             launches=counts,
             profiled_decode={"steps": 4, "wall_ms_per_step": prof_wall_ms / 4,
                              "device_ms_per_step": dev_us / 4e3,
@@ -2252,7 +2377,7 @@ def main() -> int:
                              "attention_ms_per_step": attn_us / 4e3, "attention_share": attn_us / max(dev_us, 1),
                              "device_busy_share": dev_us / 1e3 / prof_wall_ms,
                              "top_kernels_ms_per_step": top},
-            profiled_prefill=profiled_prefill,
+            profiled_prefill=profiled_prefill, profiled_load=load_profile,
             first_tokens=toks[0, :8].tolist(), layout="2d, bf16 quant_storage" if quantize else "paired",
         )
         del cache, logits

@@ -100,7 +100,8 @@ def test_compress_statistics_not_supported_yet():
 
 @pytest.mark.parametrize("bad", ["ragged", "dtype", "rank"])
 def test_codes_wrapper_rejects_bad_inputs(bad):
-    x = {"ragged": torch.zeros(BS + 1), "dtype": torch.zeros(BS, dtype=torch.bfloat16),
+    # bf16 and f16 are taken (tests/test_torch_quant4bit_dtypes.py); float64 is not
+    x = {"ragged": torch.zeros(BS + 1), "dtype": torch.zeros(BS, dtype=torch.float64),
          "rank": torch.zeros(2, BS)}[bad]
     with pytest.raises(ValueError):
         quantize_4bit_codes(x, "nf4", BS)
