@@ -10,12 +10,14 @@ Ported so far: NF4/FP4 quantization with an optionally double-quantized
 absmax (``compress_statistics``), blockwise 8-bit quantization, the
 paired-layout 4-bit GEMM, its backward and the dequantize (also decoding a
 double-quantized absmax in the kernel), flash attention over a bf16 KV
-cache, and the 8-bit blockwise optimizers (``optim``), serving the Llama
-family through prefill and greedy decode and fine-tuning it with QLoRA.
+cache, the 8-bit blockwise optimizers (``optim``) and LLM.int8() (the int8
+ops of ``functional``, :func:`matmul` with its backward, ``nn.Linear8bitLt``),
+serving the Llama family through prefill and greedy decode, on 4-bit or int8
+weights, and fine-tuning it with QLoRA.
 """
 
 from . import functional, nn, optim
-from .autograd import matmul_4bit
+from .autograd import MatmulLtState, matmul, matmul_4bit
 from .functional import QuantState
 from .functional.gemm import gemm_4bit, gemv_4bit
 
@@ -26,6 +28,8 @@ __all__ = [
     "nn",
     "optim",
     "matmul_4bit",
+    "matmul",
+    "MatmulLtState",
     "gemm_4bit",
     "gemv_4bit",
     "QuantState",

@@ -35,6 +35,13 @@
 // codes with one 8-byte load, looks them up in a shared-memory table and
 // writes 8 values; blocksize >= 32 keeps the 8 inside one block.
 //
+// The tiles take the blocksizes the JAX package's quantize_blockwise takes
+// (quantize: powers of two 32..4096; dequantize: multiples of 8).  Its
+// quantize_blockwise_with_code and dequantize_blockwise_with_code take any
+// blocksize; the _any instances below serve the others, one CUDA block a
+// quantization block (quantize: the block max, then the tile's rank) and one
+// element a thread (dequantize).  They are written to be right, not fast.
+//
 // Built without --use_fast_math and with IEEE division: the codes must equal
 // the JAX package's bit for bit.
 #include <cuda_fp16.h>
@@ -205,6 +212,80 @@ dequantize_blockwise8_kernel(const uint8_t* __restrict__ q, const float* __restr
     store8(out + i8, v);
 }
 
+constexpr int kAnyThreads = 256;
+
+// Any blocksize: CUDA block b owns quantization block b.  Its threads stride
+// over the block twice, once for the absmax (fmaxf, as the tile's) and once
+// for the codes, ranked as the tile ranks them; the tables are read from
+// device memory.
+template <bool kStoch, int kRank>
+__global__ void __launch_bounds__(kAnyThreads)
+quantize_blockwise8_any_kernel(const float* __restrict__ x, const float* __restrict__ u, uint8_t* __restrict__ q,
+                               float* __restrict__ absmax, int blocksize, const float* __restrict__ tables,
+                               int ncode, int nh, int shift, int lo) {
+    __shared__ float s_wmax[kAnyThreads / 32];
+    const long long b0 = (long long)blockIdx.x * blocksize;
+    float m = 0.0f;
+    for (int i = threadIdx.x; i < blocksize; i += kAnyThreads) m = fmaxf(m, fabsf(x[b0 + i]));
+    m = warp_max(m);
+    if ((threadIdx.x & 31) == 0) s_wmax[threadIdx.x >> 5] = m;
+    __syncthreads();
+    m = s_wmax[0];
+    for (int w = 1; w < kAnyThreads / 32; ++w) m = fmaxf(m, s_wmax[w]);
+    if (threadIdx.x == 0) absmax[blockIdx.x] = m;
+    const float scale = qt_scale(m);
+    const float* mid = tables + kMidOffset;
+    const float2* zero = reinterpret_cast<const float2*>(tables + kBucketOffset) + nh;
+    for (int i = threadIdx.x; i < blocksize; i += kAnyThreads) {
+        const float sc = x[b0 + i] * scale;
+        const float c = fminf(fmaxf(sc, -1.0f), 1.0f);
+        int k;
+        if constexpr (kRank == kBucket) {
+            k = rank_bucket(c, zero, shift, lo);
+        } else if constexpr (kRank == kSearch) {
+            k = rank_search(c, mid);
+        } else {
+            k = 0;
+            for (int j = 0; j < ncode - 1; ++j) k += (mid[j] < c) ? 1 : 0;
+        }
+        if (isnan(sc)) k = 0;
+        if constexpr (kStoch) {
+            const float s = isnan(sc) ? sc : c;
+            const float lower = tables[k];
+            const int nb = min(max(k + (s > lower ? 1 : -1), 0), ncode - 1);
+            const float gap = fabsf(tables[nb] - lower);
+            const float p = gap > 0.0f ? fabsf(s - lower) / fmaxf(gap, 1e-20f) : 0.0f;
+            if (u[b0 + i] < p) k = nb;
+        }
+        q[b0 + i] = (uint8_t)k;
+    }
+}
+
+template <bool kStoch>
+void launch_q8_any(int rank, const float* x, const float* u, uint8_t* q, float* absmax, long long nb, int blocksize,
+                   const float* tables, int ncode, int nh, int shift, int lo, cudaStream_t stream) {
+    const unsigned grid = (unsigned)nb;
+    if (rank == kBucket)
+        quantize_blockwise8_any_kernel<kStoch, kBucket><<<grid, kAnyThreads, 0, stream>>>(
+            x, u, q, absmax, blocksize, tables, ncode, nh, shift, lo);
+    else if (rank == kSearch)
+        quantize_blockwise8_any_kernel<kStoch, kSearch><<<grid, kAnyThreads, 0, stream>>>(
+            x, u, q, absmax, blocksize, tables, ncode, nh, shift, lo);
+    else
+        quantize_blockwise8_any_kernel<kStoch, kLinear><<<grid, kAnyThreads, 0, stream>>>(
+            x, u, q, absmax, blocksize, tables, ncode, nh, shift, lo);
+}
+
+// Any blocksize: one element a thread, its block's absmax at i / blocksize.
+template <typename T>
+__global__ void __launch_bounds__(kAnyThreads)
+dequantize_blockwise8_any_kernel(const uint8_t* __restrict__ q, const float* __restrict__ absmax,
+                                 T* __restrict__ out, long long n, int blocksize, const float* __restrict__ tables) {
+    const long long i = (long long)blockIdx.x * kAnyThreads + threadIdx.x;
+    if (i >= n) return;
+    out[i] = from_f32<T>(__ldg(tables + q[i]) * absmax[i / blocksize]);
+}
+
 }  // namespace
 
 // x, u (nullable), q, absmax: n elements in whole blocks, x and u 16-byte
@@ -245,6 +326,41 @@ BNB_EXPORT int bnb_dequantize_blockwise8(const uint8_t* q, const float* absmax, 
                 q, absmax, static_cast<__nv_bfloat16*>(out), n, blocksize, tables);
         else
             dequantize_blockwise8_kernel<__half><<<grid, kDqThreads, 0, stream>>>(
+                q, absmax, static_cast<__half*>(out), n, blocksize, tables);
+    }
+    return (int)cudaGetLastError();
+}
+
+// The _any instances: any blocksize >= 1, n a whole number of blocks, no
+// alignment needed; the other arguments as above.
+BNB_EXPORT int bnb_quantize_blockwise8_any(const float* x, const float* u, uint8_t* q, float* absmax, long long n,
+                                           int blocksize, const float* tables, int ncode, int rank, int nh,
+                                           int shift, int lo, cudaStream_t stream) {
+    if (blocksize < 1 || n % blocksize || n / blocksize > 0x7fffffffLL || ncode < 2 || ncode > 256 ||
+        rank < kLinear || rank > kBucket ||
+        (rank == kBucket && (nh <= 0 || 2 * nh > kMaxBuckets || shift < 17 || shift > 24 || lo < 0)))
+        return (int)cudaErrorInvalidValue;
+    const long long nb = n / blocksize;
+    if (nb > 0) {
+        if (u != nullptr) launch_q8_any<true>(rank, x, u, q, absmax, nb, blocksize, tables, ncode, nh, shift, lo, stream);
+        else launch_q8_any<false>(rank, x, u, q, absmax, nb, blocksize, tables, ncode, nh, shift, lo, stream);
+    }
+    return (int)cudaGetLastError();
+}
+
+BNB_EXPORT int bnb_dequantize_blockwise8_any(const uint8_t* q, const float* absmax, void* out, long long n,
+                                             int blocksize, const float* tables, int out_kind, cudaStream_t stream) {
+    if (blocksize < 1 || n % blocksize || out_kind < 0 || out_kind > 2) return (int)cudaErrorInvalidValue;
+    if (n > 0) {
+        const unsigned grid = (unsigned)((n + kAnyThreads - 1) / kAnyThreads);
+        if (out_kind == 0)
+            dequantize_blockwise8_any_kernel<float><<<grid, kAnyThreads, 0, stream>>>(
+                q, absmax, static_cast<float*>(out), n, blocksize, tables);
+        else if (out_kind == 1)
+            dequantize_blockwise8_any_kernel<__nv_bfloat16><<<grid, kAnyThreads, 0, stream>>>(
+                q, absmax, static_cast<__nv_bfloat16*>(out), n, blocksize, tables);
+        else
+            dequantize_blockwise8_any_kernel<__half><<<grid, kAnyThreads, 0, stream>>>(
                 q, absmax, static_cast<__half*>(out), n, blocksize, tables);
     }
     return (int)cudaGetLastError();

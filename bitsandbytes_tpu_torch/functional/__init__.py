@@ -1,5 +1,5 @@
 """Functional API: codebooks, QuantState, 4-bit and blockwise 8-bit
-quantize/dequantize, GEMM."""
+quantize/dequantize, GEMM, and LLM.int8()'s int8 ops."""
 
 from .blockwise import (
     blockwise_absmax,
@@ -20,6 +20,15 @@ from .fourbit import (
     unpack_4bit,
 )
 from .gemm import gemm_4bit, gemv_4bit
+from .int8 import (
+    int8_double_quant,
+    int8_linear_matmul,
+    int8_mixed_scaled_mm,
+    int8_mm_dequant,
+    int8_scaled_mm,
+    int8_vectorwise_dequant,
+    int8_vectorwise_quant,
+)
 from .quant_state import QuantState
 
 # the reference's name for the codebook lookup
@@ -39,6 +48,13 @@ __all__ = [
     "gemv_4bit",
     "get_4bit_code",
     "get_4bit_type",
+    "int8_double_quant",
+    "int8_linear_matmul",
+    "int8_mixed_scaled_mm",
+    "int8_mm_dequant",
+    "int8_scaled_mm",
+    "int8_vectorwise_dequant",
+    "int8_vectorwise_quant",
     "pack_4bit",
     "quantize_4bit",
     "quantize_blockwise",

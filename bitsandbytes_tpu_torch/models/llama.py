@@ -1,21 +1,25 @@
-"""Llama-family transformer on the 4-bit serving and QLoRA training paths.
+"""Llama-family transformer on the 4-bit and int8 serving and the QLoRA
+training paths.
 
 Counterpart of the JAX package's ``models/llama.py``: config presets, random
-init, 4-bit quantization of the layer weights, the KV caches (dense bf16,
-dense int8 with per-position scales, and a paged block pool in either type),
-``forward`` / ``prefill`` / ``decode_step``, and QLoRA training
-(``add_lora``, ``lm_loss``, ``lora_train_step``).
+init, 4-bit and LLM.int8() quantization of the layer weights, the KV caches
+(dense bf16, dense int8 with per-position scales, and a paged block pool in
+either type), ``forward`` / ``prefill`` / ``decode_step``, and QLoRA
+training (``add_lora``, ``lm_loss``, ``lora_train_step``).
 
 Parameters are a plain dict: ``embed``, ``layers`` (a list of dicts),
-``final_norm`` and ``lm_head``.  A layer's linear weights are bf16 tensors or
-:class:`~bitsandbytes_tpu_torch.nn.QuantizedTensor` (NF4/FP4); the forward
-dispatches per weight.  Every 4-bit linear goes through
-``autograd.matmul_4bit``, and attention over the cache through the flash
-kernel (``ops/flash_cached.py``).  The lm_head stays bf16 and runs as
-``torch.matmul``.  A paged cache is read through the paged flash kernel
-(``flash_attention_paged``); it takes per-slot decode steps only, as in the
-JAX package: prefill runs through a dense cache whose blocks the serving
-engine packs into the pool.
+``final_norm`` and ``lm_head``.  A layer's linear weights are bf16 tensors,
+:class:`~bitsandbytes_tpu_torch.nn.QuantizedTensor` (NF4/FP4) or
+:class:`~bitsandbytes_tpu_torch.nn.Int8TensorState` (LLM.int8()); the
+forward dispatches per weight.  Every 4-bit linear goes through
+``autograd.matmul_4bit``, every int8 one through ``autograd.matmul`` (at the
+outlier threshold ``int8_threshold`` of ``forward`` and ``lm_loss``; serving
+runs at threshold 0, as in the JAX package), and attention over the cache
+through the flash kernel (``ops/flash_cached.py``).  The lm_head stays bf16
+and runs as ``torch.matmul``.  A paged cache is read through the paged flash
+kernel (``flash_attention_paged``); it takes per-slot decode steps only, as
+in the JAX package: prefill runs through a dense cache whose blocks the
+serving engine packs into the pool.
 
 The bf16/f32 cast points are the JAX package's: RMSNorm and RoPE compute in
 f32 and cast back, SiLU runs on the f32 gate, logits come out in f32.  A
@@ -39,7 +43,7 @@ import torch
 import torch.utils.checkpoint
 
 from .. import autograd
-from ..nn.modules import QuantizedTensor
+from ..nn.modules import Int8TensorState, QuantizedTensor
 from ..ops.dispatch import resolve_device
 from ..ops.flash_cached import GT_MAX, flash_attention_cached, flash_attention_paged
 from ..ops.quant4bit import QUANTIZE_DTYPES
@@ -53,6 +57,7 @@ __all__ = [
     "init_kv_cache",
     "init_paged_kv_cache",
     "quantize_params_4bit",
+    "quantize_params_int8",
     "forward",
     "lm_logits",
     "prefill",
@@ -319,6 +324,21 @@ def quantize_params_4bit(
     return out
 
 
+def quantize_params_int8(params: dict, quantize_lm_head: bool = False) -> dict:
+    """Replace every layer linear weight (``wq`` ... ``down``, unfused) with
+    an LLM.int8() :class:`Int8TensorState` on the weight's own device: row
+    absmax and int8 codes, as the JAX package quantizes its float32 cast
+    (the upcast here is exact, inside the quantize)."""
+    out = dict(params)
+    out["layers"] = [
+        {k: (Int8TensorState.quantize(v) if k in _LINEAR_NAMES else v) for k, v in layer.items()}
+        for layer in params["layers"]
+    ]
+    if quantize_lm_head:
+        out["lm_head"] = Int8TensorState.quantize(params["lm_head"])
+    return out
+
+
 def _add_lora(out, x, lora):
     """``out + (x @ A^T @ B^T) * scale``: the products in ``x``'s type, the
     delta and the sum in f32, rounded back to ``out``'s type."""
@@ -329,10 +349,13 @@ def _add_lora(out, x, lora):
     return (out.to(torch.float32) + delta).to(out.dtype)
 
 
-def _apply_linear(x, w, lora=None):
-    """Dispatch on the weight's type, then add the LoRA delta if any."""
+def _apply_linear(x, w, lora=None, threshold: float = 0.0):
+    """Dispatch on the weight's type, then add the LoRA delta if any.
+    ``threshold`` is LLM.int8()'s outlier threshold on an int8 weight."""
     if isinstance(w, QuantizedTensor):
         out = autograd.matmul_4bit(x, w.data, w.state)
+    elif isinstance(w, Int8TensorState):
+        out = autograd.matmul(x, None, autograd.MatmulLtState(CB=w.CB, SCB=w.SCB, threshold=threshold))
     else:
         out = torch.matmul(x, w.to(x.dtype).t())
     return _add_lora(out, x, lora)
@@ -496,6 +519,7 @@ def forward(
     start_pos: Union[int, torch.Tensor] = 0,
     lora: Optional[dict] = None,
     return_hidden: bool = False,
+    int8_threshold: float = 0.0,
 ):
     """Run the transformer over ``ids [B, T]``.
 
@@ -507,7 +531,9 @@ def forward(
     deltas; on the fused ``wqkv``/``gate_up`` weights they apply after the
     split.  Returns ``(logits [B, T, V] f32, cache)``, or the final-norm
     hidden states ``[B, T, D]`` in place of the logits when
-    ``return_hidden`` (the chunked loss applies the lm_head itself)."""
+    ``return_hidden`` (the chunked loss applies the lm_head itself).
+    ``int8_threshold`` turns on LLM.int8()'s outlier decomposition in every
+    int8 linear, the lm_head's included."""
     B, T = ids.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = params["embed"][ids].to(cfg.dtype)
@@ -533,7 +559,7 @@ def forward(
         l_lora = lora["layers"][li] if lora is not None else {}
         h = _rmsnorm(x, layer["attn_norm"], cfg.rms_eps, cfg.norm_plus_one)
         if "wqkv" in layer:
-            qkv = _apply_linear(h, layer["wqkv"])
+            qkv = _apply_linear(h, layer["wqkv"], None, int8_threshold)
             if "wqkv_b" in layer:
                 qkv = qkv + layer["wqkv_b"].to(qkv.dtype)
             q, k, v = torch.split(qkv, [H * hd, KVH * hd, KVH * hd], dim=-1)
@@ -541,9 +567,9 @@ def forward(
             k = _add_lora(k, h, l_lora.get("wk"))
             v = _add_lora(v, h, l_lora.get("wv"))
         else:
-            q = _apply_linear(h, layer["wq"], l_lora.get("wq"))
-            k = _apply_linear(h, layer["wk"], l_lora.get("wk"))
-            v = _apply_linear(h, layer["wv"], l_lora.get("wv"))
+            q = _apply_linear(h, layer["wq"], l_lora.get("wq"), int8_threshold)
+            k = _apply_linear(h, layer["wk"], l_lora.get("wk"), int8_threshold)
+            v = _apply_linear(h, layer["wv"], l_lora.get("wv"), int8_threshold)
             if "wq_b" in layer:
                 q = q + layer["wq_b"].to(q.dtype)
                 k = k + layer["wk_b"].to(k.dtype)
@@ -560,30 +586,30 @@ def forward(
             valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
             attn = _attention(q, k, v, positions, valid, cfg)
 
-        x = x + _apply_linear(attn, layer["wo"], l_lora.get("wo"))
+        x = x + _apply_linear(attn, layer["wo"], l_lora.get("wo"), int8_threshold)
         h = _rmsnorm(x, layer["mlp_norm"], cfg.rms_eps, cfg.norm_plus_one)
         if "gate_up" in layer:
-            gate, up = torch.chunk(_apply_linear(h, layer["gate_up"]), 2, dim=-1)
+            gate, up = torch.chunk(_apply_linear(h, layer["gate_up"], None, int8_threshold), 2, dim=-1)
             gate = _add_lora(gate, h, l_lora.get("gate"))
             up = _add_lora(up, h, l_lora.get("up"))
         else:
-            gate = _apply_linear(h, layer["gate"], l_lora.get("gate"))
-            up = _apply_linear(h, layer["up"], l_lora.get("up"))
+            gate = _apply_linear(h, layer["gate"], l_lora.get("gate"), int8_threshold)
+            up = _apply_linear(h, layer["up"], l_lora.get("up"), int8_threshold)
         g32 = gate.to(torch.float32)
         act = torch.nn.functional.silu(g32) if cfg.act == "silu" else torch.nn.functional.gelu(
             g32, approximate="tanh"
         )
-        x = x + _apply_linear(act.to(x.dtype) * up, layer["down"], l_lora.get("down"))
+        x = x + _apply_linear(act.to(x.dtype) * up, layer["down"], l_lora.get("down"), int8_threshold)
 
     x = _rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.norm_plus_one)
     if return_hidden:
         return x, cache
-    return lm_logits(params, x), cache
+    return lm_logits(params, x, int8_threshold), cache
 
 
-def lm_logits(params: dict, h: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: dict, h: torch.Tensor, int8_threshold: float = 0.0) -> torch.Tensor:
     """The lm_head over final-norm hidden states ``h [..., D]``: f32 logits."""
-    return _apply_linear(h, params["lm_head"]).to(torch.float32)
+    return _apply_linear(h, params["lm_head"], threshold=int8_threshold).to(torch.float32)
 
 
 @torch.no_grad()
@@ -647,33 +673,36 @@ def lora_parameters(lora: dict) -> list:
     return [t for layer in lora["layers"] for ad in layer.values() for t in (ad["a"], ad["b"], ad["scale"])]
 
 
-def _chunk_nll(hc, tc, lm_head):
-    logits = _apply_linear(hc, lm_head).to(torch.float32)  # [C, V]
+def _chunk_nll(hc, tc, lm_head, threshold):
+    logits = _apply_linear(hc, lm_head, threshold=threshold).to(torch.float32)  # [C, V]
     lse = torch.logsumexp(logits, dim=-1)
     tl = logits.gather(1, tc[:, None])[:, 0]
     return (lse - tl).sum()
 
 
 def lm_loss(params: dict, lora: Optional[dict], ids: torch.Tensor, cfg: LlamaConfig,
-            token_chunk: Optional[int] = None) -> torch.Tensor:
+            token_chunk: Optional[int] = None, int8_threshold: float = 0.0) -> torch.Tensor:
     """Next-token cross-entropy over ``ids [B, T+1]`` (mean over B*T).
 
     ``token_chunk`` applies the lm_head and the softmax to that many tokens
     at a time instead of materializing the ``[B, T, V]`` logits; each chunk
     runs under ``torch.utils.checkpoint``, so the backward recomputes its
-    logits rather than keep them.  The chunk sums add up in order."""
+    logits rather than keep them.  The chunk sums add up in order.
+    ``int8_threshold`` goes to :func:`forward`; on an int8 lm_head under
+    ``token_chunk`` the outlier columns are found per chunk, as in the JAX
+    package, so the loss equals the dense one in meaning, not bit for bit."""
     if token_chunk is None:
-        logits, _ = forward(params, ids[:, :-1], cfg, lora=lora)
+        logits, _ = forward(params, ids[:, :-1], cfg, lora=lora, int8_threshold=int8_threshold)
         logp = torch.log_softmax(logits, dim=-1)
         return -logp.gather(-1, ids[:, 1:, None])[..., 0].mean()
-    h, _ = forward(params, ids[:, :-1], cfg, lora=lora, return_hidden=True)
+    h, _ = forward(params, ids[:, :-1], cfg, lora=lora, return_hidden=True, int8_threshold=int8_threshold)
     h = h.reshape(-1, h.shape[-1])
     targets = ids[:, 1:].reshape(-1)
     N = h.shape[0]
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, N, token_chunk):
         total = total + torch.utils.checkpoint.checkpoint(
-            _chunk_nll, h[c : c + token_chunk], targets[c : c + token_chunk], params["lm_head"],
+            _chunk_nll, h[c : c + token_chunk], targets[c : c + token_chunk], params["lm_head"], int8_threshold,
             use_reentrant=False,
         )
     return total / N

@@ -1,5 +1,18 @@
 """``torch.nn`` modules over quantized weights."""
 
-from .modules import Linear4bit, LinearFP4, LinearNF4, QuantizedTensor
+from .modules import Int8TensorState, Linear4bit, Linear8bitLt, LinearFP4, LinearNF4, QuantizedTensor
 
-__all__ = ["Linear4bit", "LinearFP4", "LinearNF4", "QuantizedTensor"]
+# the reference's tensor-subclass names, as the JAX package publishes them
+Params4bit = QuantizedTensor
+Int8Params = Int8TensorState
+
+__all__ = [
+    "Int8Params",
+    "Int8TensorState",
+    "Linear4bit",
+    "Linear8bitLt",
+    "LinearFP4",
+    "LinearNF4",
+    "Params4bit",
+    "QuantizedTensor",
+]

@@ -1,10 +1,14 @@
 """Quantized tensors and linear layers as ``torch.nn.Module``s.
 
-Counterpart of the JAX package's ``nn/modules.py`` for the 4-bit path:
+Counterpart of the JAX package's ``nn/modules.py`` for the 4-bit and int8
+paths:
 
 * :class:`QuantizedTensor`: a packed 4-bit payload with its QuantState;
 * :class:`Linear4bit` with :class:`LinearNF4` / :class:`LinearFP4`: a linear
-  layer over a frozen 4-bit weight, quantized when it is built.
+  layer over a frozen 4-bit weight, quantized when it is built;
+* :class:`Int8TensorState`: an int8 weight (CB) with its row absmax (SCB);
+* :class:`Linear8bitLt`: LLM.int8()'s linear layer, over a frozen int8
+  weight or a trained float one.
 """
 
 from __future__ import annotations
@@ -17,11 +21,12 @@ import torch
 
 from .. import autograd
 from ..functional.fourbit import dequantize_4bit, payload_bytes, quantize_4bit
+from ..functional.int8 import int8_vectorwise_quant
 from ..functional.quant_state import QuantState
 from ..ops.dispatch import resolve_device
 from ..ops.gemm4bit_paired import repack_2d_to_npaired, repack_npaired_to_2d
 
-__all__ = ["QuantizedTensor", "Linear4bit", "LinearNF4", "LinearFP4"]
+__all__ = ["QuantizedTensor", "Linear4bit", "LinearNF4", "LinearFP4", "Int8TensorState", "Linear8bitLt"]
 
 
 @dataclasses.dataclass
@@ -173,3 +178,80 @@ class LinearNF4(Linear4bit):
 
 class LinearFP4(Linear4bit):
     quant_type_default = "fp4"
+
+
+@dataclasses.dataclass
+class Int8TensorState:
+    """An int8 weight ``CB [N, K]`` and its per-row absmax ``SCB [N]``
+    (float32): LLM.int8()'s row-wise quantization of a float weight."""
+
+    CB: torch.Tensor
+    SCB: torch.Tensor
+
+    @classmethod
+    def quantize(cls, W: torch.Tensor) -> "Int8TensorState":
+        CB, SCB, _ = int8_vectorwise_quant(W)
+        return cls(CB=CB, SCB=SCB)
+
+    def dequantize(self) -> torch.Tensor:
+        return self.CB.to(torch.float32) * (self.SCB[:, None] / 127.0)
+
+    @property
+    def shape(self):
+        return self.CB.shape
+
+
+class Linear8bitLt(torch.nn.Module):
+    """LLM.int8()'s linear layer ``[N, K]``.
+
+    With ``has_fp16_weights`` the weight is a trainable
+    ``torch.nn.Parameter`` in ``compute_dtype``, quantized to int8 at every
+    call (its gradient comes from :func:`autograd.matmul`'s int8 backward);
+    otherwise it is quantized once to a frozen :class:`Int8TensorState`.
+    ``threshold > 0`` computes the activation columns that hold an outlier
+    in floats.  The weight is drawn like ``torch.nn.Linear``'s (uniform,
+    bound ``1/sqrt(K)``) from ``generator``; assign a tensor or an
+    :class:`Int8TensorState` to ``weight`` to load another.  The bias is a
+    trainable parameter, zero at first."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        bias: bool = True,
+        has_fp16_weights: bool = False,
+        threshold: float = 0.0,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        bound = 1.0 / math.sqrt(in_features)
+        W = torch.rand(out_features, in_features, generator=generator, device=device) * (2 * bound) - bound
+        self.in_features = in_features
+        self.out_features = out_features
+        self.has_fp16_weights = has_fp16_weights
+        self.threshold = threshold
+        self.compute_dtype = compute_dtype
+        if has_fp16_weights:
+            self.weight = torch.nn.Parameter(W.to(compute_dtype))
+        else:
+            self.weight = Int8TensorState.quantize(W)
+        self.bias = (
+            torch.nn.Parameter(torch.zeros(out_features, dtype=compute_dtype, device=device)) if bias else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
+        if self.has_fp16_weights:
+            state = autograd.MatmulLtState(threshold=self.threshold, has_fp16_weights=True)
+            return autograd.matmul(x, self.weight, state, bias=self.bias)
+        state = autograd.MatmulLtState(CB=self.weight.CB, SCB=self.weight.SCB, threshold=self.threshold)
+        return autograd.matmul(x, None, state, bias=self.bias)
+
+    def extra_repr(self) -> str:
+        return (
+            f"in_features={self.in_features}, out_features={self.out_features}, "
+            f"has_fp16_weights={self.has_fp16_weights}, threshold={self.threshold}"
+        )

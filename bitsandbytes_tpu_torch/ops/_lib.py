@@ -69,6 +69,8 @@ LAUNCHES: dict = {
     "dequantize_4bit_2d_dq": 0,
     "gemm_4bit_nt_fused": 0,
     "flash_attention_combine": 0,
+    "quantize_blockwise8_any": 0,
+    "dequantize_blockwise8_any": 0,
 }
 
 _lock = threading.Lock()
@@ -177,6 +179,9 @@ _SIGNATURES = {
     "bnb_quantize_blockwise8": [_P, _P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _I, _P],
     # q, absmax, out, n, blocksize, tables (device), out_kind, stream
     "bnb_dequantize_blockwise8": [_P, _P, _P, _L, _I, _P, _I, _P],
+    # the same, at any blocksize (the _any instances)
+    "bnb_quantize_blockwise8_any": [_P, _P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _I, _P],
+    "bnb_dequantize_blockwise8_any": [_P, _P, _P, _L, _I, _P, _I, _P],
     # G, P, absmax_t, part (scratch, or NULL), out, M, N, K, blocksize, rows_per_split, splits,
     # tc (the tensor-core kernel), units[16] (host), g_kind, stream
     "bnb_gemm_4bit_paired_nt": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],

@@ -12,8 +12,13 @@ bucket and the next midpoint); the dequantize looks 8 codes up in a
 shared-memory table per thread.  The tables go to the device once per
 codebook (``_device_tables``).
 
-Both take whole blocks (``n % blocksize == 0``); ``functional/blockwise.py``
-pads a partial last block.  Semantics, as the TPU kernels':
+Both take whole blocks (``n % blocksize == 0``) of any blocksize; on CUDA
+the tiles serve the blocksizes the tiles were built for (quantize:
+``QUANTIZE_BLOCKSIZES``, dequantize: multiples of 8) and ``_any`` instances
+of the same kernels every other one, one CUDA block a quantization block
+(quantize) or one element a thread (dequantize), with the same arithmetic.
+``functional/blockwise.py`` pads a partial last block.  Semantics, as the
+TPU kernels':
 
 * ``scaled = clip(x * (1 / absmax), -1, 1)`` with scale inf below the
   smallest normal float32 (an all-zero block ranks 0, code 0);
@@ -182,23 +187,24 @@ def quantize_blockwise8_plain(x: torch.Tensor, code_t: tuple, blocksize: int,
 
 
 def _check_blocks(n: int, blocksize: int) -> None:
-    if blocksize < 8 or blocksize % 8 or n % blocksize:
-        raise ValueError(f"{n} elements are not whole blocks of {blocksize} (a multiple of 8)")
+    if blocksize < 1 or n % blocksize:
+        raise ValueError(f"{n} elements are not whole blocks of {blocksize}")
 
 
+# the blocksizes of the quantize tile; the _any instance takes the others
 QUANTIZE_BLOCKSIZES = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 
 def quantize_blockwise8(x: torch.Tensor, code, blocksize: int, u: Optional[torch.Tensor] = None):
     """Kernel on a CUDA tensor, plain version on a CPU tensor.  ``x`` is a
-    contiguous 1-D float32 tensor of whole blocks of a blocksize in
-    ``QUANTIZE_BLOCKSIZES``; ``u``, when given, holds one float32 uniform per
-    element and turns on stochastic rounding."""
+    contiguous 1-D float32 tensor of whole blocks; a blocksize in
+    ``QUANTIZE_BLOCKSIZES`` takes the tile, any other the ``_any`` instance.
+    ``u``, when given, holds one float32 uniform per element and turns on
+    stochastic rounding."""
     if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
         raise ValueError("quantize_blockwise8 takes a contiguous 1-D float32 tensor")
     n = x.numel()
-    if blocksize not in QUANTIZE_BLOCKSIZES or n % blocksize:
-        raise ValueError(f"{n} elements are not whole blocks of a blocksize in {QUANTIZE_BLOCKSIZES}")
+    _check_blocks(n, blocksize)
     if u is not None and (u.dtype != torch.float32 or u.numel() != n or not u.is_contiguous()):
         raise ValueError(f"u must be a contiguous float32 tensor of {n} uniforms")
     code_t = code_tuple(code)
@@ -209,6 +215,14 @@ def quantize_blockwise8(x: torch.Tensor, code, blocksize: int, u: Optional[torch
     q = torch.empty(n, dtype=torch.uint8, device=x.device)
     absmax = torch.empty(n // blocksize, dtype=torch.float32, device=x.device)
     if n == 0:
+        return q, absmax
+    if blocksize not in QUANTIZE_BLOCKSIZES:
+        err = _lib.lib().bnb_quantize_blockwise8_any(
+            x.data_ptr(), None if u is None else u.data_ptr(), q.data_ptr(), absmax.data_ptr(),
+            n, blocksize, tables.data_ptr(), len(code_t), rank, nh, shift, lo, _lib.stream(x),
+        )
+        _lib.check(err, "quantize_blockwise8_any")
+        _lib.LAUNCHES["quantize_blockwise8_any"] += 1
         return q, absmax
     for t in tensors:
         if t.data_ptr() % 16:
@@ -233,7 +247,9 @@ def dequantize_blockwise8(q: torch.Tensor, absmax: torch.Tensor, code, blocksize
                           dtype=torch.float32) -> torch.Tensor:
     """``code[q] * absmax[block]`` -> 1-D ``dtype`` (float32, bfloat16 or
     float16 on CUDA).  ``q`` is a contiguous uint8 tensor of whole blocks,
-    ``absmax`` float32 with one entry per block."""
+    ``absmax`` float32 with one entry per block.  A blocksize that is a
+    multiple of 8 takes the 8-code kernel, any other the ``_any``
+    instance."""
     n = q.numel()
     _check_blocks(n, blocksize)
     if q.dtype != torch.uint8 or not q.is_contiguous():
@@ -248,11 +264,20 @@ def dequantize_blockwise8(q: torch.Tensor, absmax: torch.Tensor, code, blocksize
     out = torch.empty(n, dtype=dtype, device=q.device)
     if n == 0:
         return out
+    tables = _device_tables(code_t, str(q.device))[0]
+    if blocksize % 8:
+        err = _lib.lib().bnb_dequantize_blockwise8_any(
+            q.data_ptr(), absmax.data_ptr(), out.data_ptr(), n, blocksize, tables.data_ptr(), _OUT_KINDS[dtype],
+            _lib.stream(q),
+        )
+        _lib.check(err, "dequantize_blockwise8_any")
+        _lib.LAUNCHES["dequantize_blockwise8_any"] += 1
+        return out
     if q.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("the kernel needs 16-byte aligned tensors")
     err = _lib.lib().bnb_dequantize_blockwise8(
-        q.data_ptr(), absmax.data_ptr(), out.data_ptr(), n, blocksize,
-        _device_tables(code_t, str(q.device))[0].data_ptr(), _OUT_KINDS[dtype], _lib.stream(q),
+        q.data_ptr(), absmax.data_ptr(), out.data_ptr(), n, blocksize, tables.data_ptr(), _OUT_KINDS[dtype],
+        _lib.stream(q),
     )
     _lib.check(err, "dequantize_blockwise8")
     _lib.LAUNCHES["dequantize_blockwise8"] += 1

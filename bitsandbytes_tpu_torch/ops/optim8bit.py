@@ -61,6 +61,7 @@ from ..functional.dynamic_segments import (
     SymSegmentTable,
     build_state_tables,
     fma_f32,
+    sqrt_f32,
     segment_decode,
     segment_decode_sym,
     segment_requant,
@@ -193,7 +194,7 @@ def _update_plain(sc: UpdateScalars, g, p, s1, s2):
         nm2 = fma_f32(_full(g, sc.omb3), g, m2 * sc.beta3_t)
         ns2 = fma_f32(sc.omb2 * g, g, s2 * sc.beta2)
         mixed = fma_f32(_full(nm2, sc.alpha_t), nm2, _div(nm1, sc.c1))
-        adaptive = _div(torch.sqrt(ns2), sc.c2) + sc.eps
+        adaptive = _div(sqrt_f32(ns2), sc.c2) + sc.eps
         step = mixed / adaptive
         if sc.decay is not None:
             new_p = fma_f32(p, _full(p, sc.decay), -(sc.lr * step))
@@ -204,7 +205,7 @@ def _update_plain(sc: UpdateScalars, g, p, s1, s2):
         ns1 = s1 * sc.beta1 + sc.omb1 * g
         ns2 = s2 * sc.beta2 + sc.omb2 * g * g
         pd = p * sc.decay if sc.decay is not None else p
-        new_p = pd + sc.step_size * (ns1 / (torch.sqrt(ns2) + sc.eps_c2))
+        new_p = pd + sc.step_size * (ns1 / (sqrt_f32(ns2) + sc.eps_c2))
     elif sc.rule == 1:
         gw = g + p * sc.weight_decay
         ns1 = gw if sc.first_step else s1 * sc.beta1 + gw
@@ -217,11 +218,11 @@ def _update_plain(sc: UpdateScalars, g, p, s1, s2):
     elif sc.rule == 3:
         gw = g + p * sc.weight_decay
         ns1 = s1 * sc.beta1 + sc.omb1 * gw * gw
-        new_p = p - sc.lr * gw / (torch.sqrt(ns1) + sc.eps)
+        new_p = p - sc.lr * gw / (sqrt_f32(ns1) + sc.eps)
     else:
         gw = g + p * sc.weight_decay
         ns1 = s1 + gw * gw
-        new_p = p - sc.lr * gw / (torch.sqrt(ns1) + sc.eps)
+        new_p = p - sc.lr * gw / (sqrt_f32(ns1) + sc.eps)
     finite = torch.isfinite(g)
     new_p = torch.where(finite, new_p, p)
     if sc.ademamix:

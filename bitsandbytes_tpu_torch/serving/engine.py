@@ -1,7 +1,8 @@
 """Continuous-batching generation engine.
 
 Counterpart of the JAX package's ``bitsandbytes_tpu/serving/engine.py``.  It
-serves a quantized Llama-family model (``models/llama.py``) with:
+serves a quantized Llama-family model (``models/llama.py``: 4-bit or
+LLM.int8() weights) with:
 
 * **slot-based continuous batching**: a fixed-size decode batch whose slots
   are occupied and retired per request; new requests join the running batch
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from ..models import llama as L
-from ..nn.modules import QuantizedTensor
+from ..nn.modules import Int8TensorState, QuantizedTensor
 from ..ops.dispatch import resolve_device
 
 __all__ = ["ContinuousBatchingEngine", "GenerationResult"]
@@ -185,6 +186,9 @@ def _tensors(tree):
             yield from _tensors(v)
     elif isinstance(tree, QuantizedTensor):
         yield tree.data
+    elif isinstance(tree, Int8TensorState):
+        yield tree.CB
+        yield tree.SCB
     elif isinstance(tree, torch.Tensor):
         yield tree
 

@@ -7,8 +7,10 @@ quantized weight comes as a dict with the keys ``data``, ``absmax``,
 optionally ``dtype``), and becomes a :class:`QuantizedTensor`.  A
 double-quantized one adds ``offset``, ``nested_absmax``, ``nested_blocksize``
 and ``nested_code``, and its ``absmax`` holds the uint8 codes, which stay
-uint8.  A key outside these raises rather than be dropped.  Float and
-already-quantized trees are both accepted.
+uint8.  A key outside these raises rather than be dropped.  An LLM.int8()
+weight comes as a dict of exactly ``CB`` (int8) and ``SCB`` (float32) and
+becomes an :class:`Int8TensorState`.  Float and already-quantized trees are
+both accepted.
 
 :func:`lora_from_numpy` carries a LoRA adapter tree (``{"layers": [{target:
 {"a", "b", "scale"}}]}``) and :func:`optim_state_from_numpy` an optimizer
@@ -31,7 +33,7 @@ import torch
 
 from ..functional.codebooks import is_dynamic_map
 from ..functional.quant_state import QuantState
-from ..nn.modules import QuantizedTensor
+from ..nn.modules import Int8TensorState, QuantizedTensor
 from ..ops.dispatch import resolve_device
 
 __all__ = [
@@ -42,6 +44,7 @@ __all__ = [
     "kv_cache_from_numpy",
     "QUANTIZED_KEYS",
     "NESTED_KEYS",
+    "INT8_KEYS",
     "LORA_KEYS",
     "STATE_KEYS",
 ]
@@ -49,6 +52,7 @@ __all__ = [
 QUANTIZED_KEYS = frozenset({"data", "absmax", "shape", "blocksize", "quant_type", "layout", "code"})
 NESTED_KEYS = frozenset({"offset", "nested_absmax", "nested_blocksize", "nested_code"})
 _OPTIONAL_KEYS = frozenset({"dtype"})
+INT8_KEYS = frozenset({"CB", "SCB"})
 LORA_KEYS = frozenset({"a", "b", "scale"})
 LORA_TARGETS = frozenset({"wq", "wk", "wv", "wo", "gate", "up", "down"})
 STATE_KEYS = frozenset({"state1", "state2", "absmax1", "absmax2"})
@@ -109,6 +113,17 @@ def _quantized(d: dict, device) -> QuantizedTensor:
     return QuantizedTensor(data=tensor_from_numpy(d["data"], device).contiguous(), state=state)
 
 
+def _int8(d: dict, device) -> Int8TensorState:
+    _check_keys(d, INT8_KEYS, "an int8 weight")
+    if set(d) != INT8_KEYS:
+        raise ValueError(f"an int8 weight needs all of {sorted(INT8_KEYS)}, got {sorted(d)}")
+    CB = tensor_from_numpy(d["CB"], device).contiguous()
+    if CB.dtype != torch.int8:
+        raise ValueError(f"an int8 weight's CB holds int8 codes, got {CB.dtype}")
+    SCB = tensor_from_numpy(np.asarray(d["SCB"], dtype=np.float32), device).contiguous()
+    return Int8TensorState(CB=CB, SCB=SCB)
+
+
 def params_from_numpy(tree, device=None):
     """Turn a JAX-package parameter tree, given as nested dicts/lists of numpy
     arrays, into this port's tree on ``device`` (CUDA unless named)."""
@@ -118,6 +133,8 @@ def params_from_numpy(tree, device=None):
         if isinstance(node, dict):
             if QUANTIZED_KEYS <= set(node):
                 return _quantized(node, device)
+            if INT8_KEYS & set(node):
+                return _int8(node, device)
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v) for v in node]

@@ -67,7 +67,17 @@ Phases (every one asserts; any failure exits non-zero before the result):
    f16 g (3e); kernels 14 and 15 on bf16 and f16 parameters (3i, 3m);
    kernels 4 and 16 at head_dim 64, 128 and 256, bf16 and int8, paged
    against dense bit for bit and each twice, bit for bit (3c, 3k), and the
-   split combine that follows them at decode.
+   split combine that follows them at decode.  LLM.int8() (3n), which no
+   TPU kernel carries: the smallest M the card's ``torch._int_mm`` takes
+   unpadded, the row-wise quantize at thresholds 0 and 6 and the double
+   quantize bit for bit against the CPU, the int32 product at M 1, 8, 16,
+   17, 33 and 2048 on the Llama-3-8B linear shapes (padded as the port
+   pads) bit for bit against the CPU, the epilogue within float32 rounding,
+   and one int8 linear timed at M 8 and 2048 beside ``torch._int_mm`` alone
+   and ``torch.matmul`` on the bf16 weight; then kernels 12 and 13's
+   ``_any`` instances (blocksizes off the tiles: 12, 48, 100, 8192, ragged
+   n, three codebooks, both rounding modes) bit for bit against their plain
+   versions, timed at an lm_head-sized tensor beside the tiles.
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -84,7 +94,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    recipe stores them (4f): bf16 ``quant_storage`` (the K-adjacent layout,
    kernels 9 and 10 in their nested modes, with no decode of the absmax
    before a call), double-quantized, trained with ``ademamix8bit`` (kernel
-   15).  The kernels' launch counts are zeroed just before each path and
+   15).  4g serves 4a's bf16 weights (kept from 4a's profiled load) through
+   ``quantize_params_int8`` as 4a does: int8 linears on ``torch._int_mm``,
+   kernel 4 and its combine the only kernels of the table.  The kernels' launch counts are zeroed just before each path and
    read just after it.  4a and 4b also load the model once more under
    ``torch.profiler`` (device time by class: kernel 1, kernel 13, copies and
    casts, the rest) and check that layer 0's payloads and states equal those
@@ -106,7 +118,12 @@ Phases (every one asserts; any failure exits non-zero before the result):
    ``compute_dtype`` (and on bf16 ``quant_storage`` in bf16, f16 and f32, on
    both sides of each threshold), ``adamw8bit`` and ``ademamix8bit`` over bf16
    parameters, ``prefill``/``decode_step`` at head_dim 64 (``tiny``) and 256
-   (``gemma_7b`` at 2 layers), and ``quantize_4bit(generator=)``.
+   (``gemma_7b`` at 2 layers), and ``quantize_4bit(generator=)``; then
+   LLM.int8() at 2 layers (5f): CB and SCB bit for bit, prefill and decode
+   steps, the forward at ``int8_threshold=6`` with a planted outlier
+   feature, one ``Linear8bitLt(has_fp16_weights=True, threshold=6)`` step at
+   M 2048 with its gradients, and the engine over int8 weights (4 requests,
+   teacher-forced top-5), each against the CPU.
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -2176,18 +2193,11 @@ def main() -> int:
     del kc, vc, k8, v8, ks8, vs8, kd, vd, q1, q_pre
     torch.cuda.empty_cache()
 
-    # -- 4. the serving paths at full width -------------------------------
-    steps, prompt, batch, max_len = 32, 128, 8, 1024
-    assert batch * prompt >= G.LARGE_M_THRESHOLD > batch, "prefill must take the dequant route, decode the GEMM"
-    Lyr = cfg.num_layers
-
-    def combines(rows, GT, S_):
-        """Launches of the split combine that one cached-attention call of
-        ``rows`` slots, ``GT`` folded rows and ``S_`` positions adds."""
-        return int(FC.flash_splits(rows * KVH, GT, S_, sms)[1] > 1)
-
-    serve_combines = Lyr * (steps * combines(batch, Gq, max_len) + combines(batch, Gq * prompt, max_len))
-    ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
+    # -- 3n. LLM.int8(): the int8 ops against the CPU; kernels 12 and 13's _any instances --
+    # No TPU kernel stands behind the int8 path: the JAX package computes it
+    # in XLA, outside any Pallas kernel.  The product is torch._int_mm
+    # (cuBLASLt), the epilogues stock torch ops; each is held against the CPU.
+    # Inputs come from a generator of their own.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2200,6 +2210,191 @@ def main() -> int:
         annotation (``Optimizer.step``) spans them on the device's timeline."""
         return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev_us(e) > 0
                 and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+    from bitsandbytes_tpu_torch import autograd as A8
+    from bitsandbytes_tpu_torch.functional import int8 as I8
+    from bitsandbytes_tpu_torch.nn.modules import Int8TensorState
+    from bitsandbytes_tpu_torch.ops.blockwise8 import QUANTIZE_BLOCKSIZES, code_tuple
+
+    g3n = torch.Generator(device=dev).manual_seed(31)
+    # the fewest rows the card's torch._int_mm takes unpadded, and whether it
+    # takes K or N off a multiple of 8 (probes: the port pads below and off them)
+    probe = {}
+    for what, (m_, k_, n_) in {**{f"M{m}": (m, 64, 64) for m in range(1, 34)}, "K12": (32, 12, 64),
+                               "N12": (32, 64, 12)}.items():
+        try:
+            torch._int_mm(torch.zeros(m_, k_, dtype=torch.int8, device=dev),
+                          torch.zeros(n_, k_, dtype=torch.int8, device=dev).t())
+            torch.cuda.synchronize()
+            probe[what] = True
+        except RuntimeError:
+            probe[what] = False
+    min_m = next((int(k[1:]) for k, ok in probe.items() if k.startswith("M") and ok), None)
+    assert min_m is not None and min_m <= I8.INT_MM_MIN_M, f"torch._int_mm took no M up to 33 ({probe})"
+    print(f"int_mm_smallest_unpadded_M {min_m}", flush=True)
+
+    # row-wise quantize at thresholds 0 and 6: bf16 activations with an
+    # outlier column, an all-zero row and a lone outlier
+    acts = torch.randn(2048, 4096, generator=g3n, device=dev).to(torch.bfloat16)
+    acts[:, 100] *= 30
+    acts[7] = 0
+    acts[5, 2000] = -60
+    quant_cases = {}
+    for th in (0.0, 6.0):
+        gq, gs, gm = I8.int8_vectorwise_quant(acts, th)
+        cq, cs, cm = I8.int8_vectorwise_quant(acts.cpu(), th)
+        same = torch.equal(gq.cpu(), cq) and bits_equal(gs.cpu(), cs) and (
+            gm is None and cm is None or torch.equal(gm.cpu(), cm))
+        assert same, f"int8_vectorwise_quant at threshold {th} differs from the CPU"
+        quant_cases[str(th)] = {"outlier_cols": None if gm is None else int(gm.sum()), "bit_identical": True}
+    gd = I8.int8_double_quant(acts, 6.0)
+    cd = I8.int8_double_quant(acts.cpu(), 6.0)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(gd, cd)), "int8_double_quant differs from the CPU"
+
+    # the int32 product bit for bit at the Llama-3-8B linear shapes (wq and wo,
+    # wk and wv, gate and up share theirs), padded as the port pads, and the
+    # epilogue within float32 rounding
+    I8_SHAPES = {"wq, wo": (4096, 4096), "wk, wv": (1024, 4096), "gate, up": (14336, 4096), "down": (4096, 14336)}
+    prod_cases, epi_err = [], 0.0
+    for names, (N_, K_) in I8_SHAPES.items():
+        CBg = torch.randint(-127, 128, (N_, K_), generator=g3n, device=dev, dtype=torch.int8)
+        CBc = CBg.cpu()
+        SCB = torch.rand(N_, generator=g3n, device=dev) + 0.5
+        for M_ in (1, 8, 16, 17, 33, 2048):
+            Ag = torch.randint(-127, 128, (M_, K_), generator=g3n, device=dev, dtype=torch.int8)
+            outg = I8.int8_linear_matmul(Ag, CBg)
+            outc = I8.int8_linear_matmul(Ag.cpu(), CBc)
+            assert torch.equal(outg.cpu(), outc), f"int8 product differs from the CPU at {names} M {M_}"
+            prod_cases.append({"linear": names, "M": M_, "padded_rows": max(I8.INT_MM_MIN_M - M_, 0)})
+            if M_ == 2048:
+                rs = torch.rand(M_, generator=g3n, device=dev) * 4
+                eg = I8.int8_mm_dequant(outg, rs, SCB, dtype=torch.float32)
+                ec = I8.int8_mm_dequant(outc, rs.cpu(), SCB.cpu(), dtype=torch.float32)
+                assert torch.allclose(eg.cpu(), ec, rtol=1e-6, atol=0), f"int8 epilogue differs at {names}"
+                epi_err = max(epi_err, ((eg.cpu() - ec).abs() / ec.abs().clamp(min=1e-30)).max().item())
+
+    # one int8 linear (quantize, torch._int_mm, dequantize) at decode and
+    # prefill M, beside torch.matmul on the bf16 weight and torch._int_mm alone
+    def device_launches(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in device_events(prof_))
+
+    linear_times = {}
+    for names, (N_, K_) in I8_SHAPES.items():
+        W = (torch.randn(N_, K_, generator=g3n, device=dev) * 0.02).to(torch.bfloat16)
+        st = Int8TensorState.quantize(W)
+        for M_ in (8, 2048):
+            x = torch.randn(M_, K_, generator=g3n, device=dev).to(torch.bfloat16)
+            lt = A8.MatmulLtState(CB=st.CB, SCB=st.SCB)
+            Aq = I8.int8_vectorwise_quant(x)[0]
+            Aq_p = torch.nn.functional.pad(Aq, (0, 0, 0, max(I8.INT_MM_MIN_M - M_, 0)))
+            with torch.no_grad():
+                t_lin = cuda_time(lambda: A8.matmul(x, None, lt), flush_l2=True, hold=True)
+                t_mm = cuda_time(lambda: torch.matmul(x, W.t()), flush_l2=True, hold=True)
+                t_int = cuda_time(lambda: torch._int_mm(Aq_p, st.CB.t()), flush_l2=True, hold=True)
+                t_plain_host = cuda_time(lambda: A8.matmul(x, None, lt), flush_l2=True)
+                launches = device_launches(lambda: A8.matmul(x, None, lt))
+                y = A8.matmul(x, None, lt)
+            rel = ((y.float() - x.float() @ W.float().t()).norm() / (x.float() @ W.float().t()).norm()).item()
+            assert rel < 0.02, f"int8 linear {names} M {M_}: relative error {rel}"
+            nbytes = N_ * K_ + 4 * N_ + 2 * M_ * K_ + 2 * M_ * N_
+            b_ms, b_by = bound_ms(nbytes, 2 * M_ * N_ * K_, 1979e12)
+            linear_times[f"{names} M{M_}"] = {
+                "device_ms": t_lin["median"], "ms_with_host": t_plain_host["median"], "launches": launches,
+                "int_mm_device_ms": t_int["median"], "bf16_matmul_device_ms": t_mm["median"],
+                "bound_ms": b_ms, "bound_by": b_by, "canary_bound_ms": nbytes / canary_bs * 1e3,
+                "bytes": nbytes, "rel_err_vs_bf16_matmul": rel, "host_ms": t_lin["host_ms"], "spin_ms": t_lin["spin_ms"]}
+        del W, st
+    emit("int8_ops", smallest_unpadded_M=min_m, int_mm_probe=probe, pad_rows_to=I8.INT_MM_MIN_M,
+         vectorwise_quant=quant_cases, double_quant_bit_identical=True, products_bit_identical=prod_cases,
+         epilogue_max_rel_err=epi_err, linear=linear_times,
+         note="device_ms: one int8 linear (row quantize, torch._int_mm, dequantize), the host held out; "
+              "int_mm_device_ms: torch._int_mm alone on the padded operands (the library call); "
+              "bf16_matmul_device_ms: torch.matmul on the bf16 weight (the yardstick); bound: int8 ops at "
+              "1979 TOP/s or the bytes at 3.35 TB/s; L2 flushed before each call")
+    del acts, CBg, CBc, Ag, outg, outc
+
+    # kernels 12 and 13 at blocksizes outside their tiles (the _with_code
+    # entry points take any blocksize): the _any instances, at ragged n, bit
+    # for bit against the plain versions on the CPU, in both rounding modes
+    # and on three codebooks (the buckets, the binary search, the linear count)
+    ucode = create_dynamic_map(signed=False)
+    fp4 = code_tuple(get_4bit_code("fp4", 64))
+    any_cases = []
+    for bs_any in (12, 48, 100, 8192):
+        for n_any in (1000, 1_000_003):
+            for cname, cb in (("dynamic", dyn), ("unsigned dynamic", ucode), ("fp4", fp4)):
+                if cname != "dynamic" and (bs_any != 100 or n_any != 1000):
+                    continue
+                x = torch.randn(n_any, generator=g3n, device=dev)
+                if cname == "unsigned dynamic":
+                    x = x.abs()
+                reset_launch_counts()
+                qg, ag = FB.quantize_blockwise_with_code(x, cb, bs_any)
+                bg = FB.dequantize_blockwise_with_code(qg, ag, cb, bs_any, torch.bfloat16)
+                counts = launch_counts()
+                assert counts["quantize_blockwise8_any"] == (bs_any not in QUANTIZE_BLOCKSIZES), (bs_any, counts)
+                assert counts["dequantize_blockwise8_any"] == (bs_any % 8 != 0), (bs_any, counts)
+                qc, ac = FB.quantize_blockwise_with_code(x.cpu(), cb, bs_any)
+                bc = FB.dequantize_blockwise_with_code(qc, ac, cb, bs_any, torch.bfloat16)
+                same = torch.equal(qg.cpu(), qc) and bits_equal(ag.cpu(), ac) and bits_equal(bg.cpu(), bc)
+                assert same, f"_any instances differ from the plain versions at blocksize {bs_any}, n {n_any}, {cname}"
+                any_cases.append({"blocksize": bs_any, "n": n_any, "code": cname, "blocks": ag.numel()})
+    u_any = torch.rand(100 * 999, generator=g3n, device=dev)
+    x = torch.randn(100 * 999, generator=g3n, device=dev)
+    qg, ag = quantize_blockwise8(x, dyn, 100, u_any)
+    qc, ac = quantize_blockwise8_plain(x.cpu(), code_tuple(dyn), 100, u_any.cpu())
+    assert torch.equal(qg.cpu(), qc) and bits_equal(ag.cpu(), ac), "stochastic _any instance differs"
+    # times at an lm_head-sized tensor: the _any instances at blocksize 100 beside the tiles at 128
+    xl_any = torch.randn(32000 * 4096, generator=g3n, device=dev)
+    code_t = code_tuple(dyn)
+    t_q_any = cuda_time(lambda: quantize_blockwise8(xl_any, dyn, 100), flush_l2=True,
+                        hold=True)
+    t_q_tile = cuda_time(lambda: quantize_blockwise8(xl_any, dyn, 128), flush_l2=True, hold=True)
+    q_any, am_any = quantize_blockwise8(xl_any, dyn, 100)
+    t_dq_any = cuda_time(lambda: dequantize_blockwise8(q_any, am_any, dyn, 100, torch.bfloat16), flush_l2=True,
+                         hold=True)
+    q128, am128 = quantize_blockwise8(xl_any, dyn, 128)
+    t_dq_tile = cuda_time(lambda: dequantize_blockwise8(q128, am128, dyn, 128, torch.bfloat16), flush_l2=True,
+                          hold=True)
+    t_q_plain = cuda_time(lambda: quantize_blockwise8_plain(xl_any, code_t, 100), n=3, warmup=1)
+    t_dq_plain = cuda_time(lambda: dequantize_blockwise8_plain(q_any, am_any, code_t, 100, torch.bfloat16), n=3,
+                           warmup=1)
+    qp, ap = quantize_blockwise8_plain(xl_any, code_t, 100)
+    assert torch.equal(qp, q_any) and bits_equal(ap, am_any), "_any quantize differs from plain at the lm_head size"
+    dp = dequantize_blockwise8_plain(q_any, am_any, code_t, 100, torch.bfloat16)
+    assert bits_equal(dp, dequantize_blockwise8(q_any, am_any, dyn, 100, torch.bfloat16)), "_any dequantize differs"
+    n_l = xl_any.numel()
+    qb = n_l * 4 + n_l + n_l // 100 * 4
+    dqb = n_l + n_l // 100 * 4 + n_l * 2
+    emit("blockwise8_any_blocksize", cases=any_cases, stochastic_bit_identical=True,
+         lm_head_bs100={"quantize_any_device_ms": t_q_any["median"], "quantize_tile_bs128_device_ms": t_q_tile["median"],
+                        "quantize_plain_ms": t_q_plain["median"], "quantize_bytes": qb,
+                        "quantize_bound_ms": bound_ms(qb, 0, PEAK_F32_FLOPS)[0],
+                        "quantize_canary_bound_ms": qb / canary_bs * 1e3,
+                        "dequantize_any_device_ms": t_dq_any["median"],
+                        "dequantize_8code_bs128_device_ms": t_dq_tile["median"],
+                        "dequantize_plain_ms": t_dq_plain["median"], "dequantize_bytes": dqb,
+                        "dequantize_bound_ms": bound_ms(dqb, 0, PEAK_F32_FLOPS)[0],
+                        "dequantize_canary_bound_ms": dqb / canary_bs * 1e3},
+         note="blocksizes off the tiles: quantize outside 32..4096 powers of two, dequantize off multiples of 8")
+    del xl_any, q_any, am_any, q128, am128, qp, ap, dp
+    torch.cuda.empty_cache()
+
+    # -- 4. the serving paths at full width -------------------------------
+    steps, prompt, batch, max_len = 32, 128, 8, 1024
+    assert batch * prompt >= G.LARGE_M_THRESHOLD > batch, "prefill must take the dequant route, decode the GEMM"
+    Lyr = cfg.num_layers
+
+    def combines(rows, GT, S_):
+        """Launches of the split combine that one cached-attention call of
+        ``rows`` slots, ``GT`` folded rows and ``S_`` positions adds."""
+        return int(FC.flash_splits(rows * KVH, GT, S_, sms)[1] > 1)
+
+    serve_combines = Lyr * (steps * combines(batch, Gq, max_len) + combines(batch, Gq * prompt, max_len))
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
 
     def by_class(events, named):
         """Device ms and launches by kernel class: the (substring, label) pairs
@@ -2235,7 +2430,9 @@ def main() -> int:
 
     decode_profile = {}
 
-    def serve(tag, compress, expected, keep=False, quantize=None):
+    kept_bf16 = {}  # 4a's profiled load keeps its bf16 tree here for 4g
+
+    def serve(tag, compress, expected, keep=False, quantize=None, keep_bf16=False):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # what earlier phases still hold
@@ -2323,6 +2520,8 @@ def main() -> int:
             # to f32 first), whose bytes and states the bf16 route must give
             fresh = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
             layer0 = dict(fresh["layers"][0])
+            if keep_bf16:  # the same bf16 weights, kept for the int8 load of 4g
+                kept_bf16.update(fresh, layers=list(fresh["layers"]))
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -2394,10 +2593,99 @@ def main() -> int:
         "gemm_4bit_paired": 4 * Lyr * steps,
         "flash_attention_cached": Lyr * (steps + 1),
         "flash_attention_combine": serve_combines,
-    }, keep=True)
+    }, keep=True, keep_bf16=True)
     for name in ("quantize_4bit_codes", "gemm_4bit_paired", "dequantize_paired_fast", "flash_attention_cached",
                  "flash_attention_combine"):
         report[name]["launches"] = counts[name]
+    # 4g. LLM.int8() serving at full width: 4a's bf16 weights (kept from its
+    # profiled load, the same seed) through quantize_params_int8 (the seven
+    # unfused linears of each layer; the lm_head stays bf16), then 4a's
+    # serving run.  No kernel of the table runs in the linears; kernel 4 and
+    # its combine run the attention.
+    torch.cuda.synchronize()
+    i8 = dict(kept_bf16)
+    kept_bf16.clear()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(Lyr):  # frees each layer's bf16 weights as it goes
+        i8["layers"][i] = L.quantize_params_int8({"layers": [i8["layers"][i]]})["layers"][0]
+    torch.cuda.synchronize()
+    i8_load_s = time.perf_counter() - t0
+    assert not any(launch_counts().values()), "the int8 load launches no kernel of the table"
+    torch.cuda.empty_cache()
+    i8_resident = sum(t.numel() * t.element_size() for t in E._tensors(i8))
+    torch.cuda.reset_peak_memory_stats()
+    cache = L.init_kv_cache(cfg, batch, max_len, device=dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = L.prefill(i8, ids, cfg, cache)
+    tok = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    i8_prefill_ms = (time.perf_counter() - t0) * 1e3
+    assert logits.shape == (batch, prompt, cfg.vocab_size) and torch.isfinite(logits).all()
+    i8_step_ms, i8_tokens = [], [tok]
+    for s in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = L.decode_step(i8, tok, cfg, cache, prompt + s)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        i8_step_ms.append((time.perf_counter() - t0) * 1e3)
+        i8_tokens.append(tok)
+    counts = launch_counts()
+    assert logits.shape == (batch, cfg.vocab_size) and torch.isfinite(logits).all()
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention_cached": Lyr * (steps + 1), "flash_attention_combine": serve_combines})
+    assert counts == want, f"int8 serve: launch counts {counts} != {want}"
+    int8_classes = [("flash", "attention (kernel 4, combine)"), ("s8", "int8 GEMM (torch._int_mm)"),
+                    ("i8", "int8 GEMM (torch._int_mm)"), ("imma", "int8 GEMM (torch._int_mm)")]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(4):
+            logits, cache = L.decode_step(i8, tok, cfg, cache, prompt + steps + s)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        i8_prof_wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    i8_dev_us = sum(self_dev_us(e) for e in events)
+    i8_decode_classes = {k: {"ms": v["ms"] / 4, "launches": v["launches"] / 4}
+                         for k, v in by_class(events, int8_classes).items()}
+    i8_top = sorted(((e.key[:100], self_dev_us(e) / 4e3, e.count // 4) for e in events), key=lambda r: -r[1])[:8]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        L.prefill(i8, ids, cfg, cache)
+        torch.cuda.synchronize()
+        i8_pf_wall = (time.perf_counter() - t0) * 1e3
+    pf_events = device_events(prof)
+    i8_pf = {"wall_ms": i8_pf_wall, "device_ms": sum(self_dev_us(e) for e in pf_events) / 1e3,
+             "device_launches": sum(e.count for e in pf_events), "by_class": by_class(pf_events, int8_classes)}
+    i8_serve_peak = torch.cuda.max_memory_allocated()
+    lin_bytes = Lyr * sum(N_ * K_ + 4 * N_ for N_, K_ in (
+        (cfg.num_heads * hd, cfg.hidden_size), (KVH * hd, cfg.hidden_size), (KVH * hd, cfg.hidden_size),
+        (cfg.hidden_size, cfg.num_heads * hd), (cfg.intermediate_size, cfg.hidden_size),
+        (cfg.intermediate_size, cfg.hidden_size), (cfg.hidden_size, cfg.intermediate_size)))
+    head_bytes = cfg.vocab_size * cfg.hidden_size * 2
+    kv_bytes = Lyr * 2 * batch * KVH * hd * 2 * (prompt + steps // 2)
+    i8_step_bytes = lin_bytes + head_bytes + kv_bytes
+    med = statistics.median(i8_step_ms)
+    emit("serve_int8", config="llama3_8b", weights="LLM.int8() (quantize_params_int8), lm_head bf16", layers=Lyr,
+         batch=batch, prompt=prompt, steps=steps, load_s=i8_load_s, resident_model_bytes=i8_resident,
+         prefill_ms=i8_prefill_ms, decode_ms={"median": med, "min": min(i8_step_ms), "max": max(i8_step_ms),
+                                              "n": steps},
+         tok_s=batch / (med * 1e-3), step_bytes=i8_step_bytes, step_bytes_int8_linears=lin_bytes,
+         step_bytes_lm_head=head_bytes, step_bytes_kv=kv_bytes,
+         step_bound_ms_canary=i8_step_bytes / canary_bs * 1e3, step_bound_ms_peak=i8_step_bytes / PEAK_BYTES_S * 1e3,
+         serving_peak_memory=i8_serve_peak, launches=counts,
+         profiled_decode={"steps": 4, "wall_ms_per_step": i8_prof_wall / 4, "device_ms_per_step": i8_dev_us / 4e3,
+                          "device_launches_per_step": sum(e.count for e in events) / 4,
+                          "device_busy_share": i8_dev_us / 1e3 / i8_prof_wall, "by_class_per_step": i8_decode_classes,
+                          "top_kernels_ms_per_step": i8_top},
+         profiled_prefill=i8_pf, first_tokens=torch.stack(i8_tokens, 1)[0, :8].tolist(),
+         resident_note="bytes of the model's tensors (CB, SCB, embed, norms, bf16 lm_head)")
+    del i8, cache, logits
+    torch.cuda.empty_cache()
 
     # 4b. NF4 with the absmax double-quantized: the _dq kernels, never kernels 2/3
     counts, nested_params = serve("serve_nested", True, {
@@ -3187,6 +3475,141 @@ def main() -> int:
     emit("repaired_entry_points", linear4bit=lin_cases, optimizers=opt_cases, head_dim_models=hd_models,
          quantize_4bit_generator={"shape": [4096, 4096], "moved_share": moved, "max_rank_step": 1})
     del Wq, pk, pn
+    torch.cuda.empty_cache()
+
+    # -- 5f. LLM.int8() at 2 layers, card against CPU ----------------------
+    # quantize_params_int8 of 5's weights: CB and SCB bit for bit; prefill and
+    # four decode steps (teacher-forced); the no-cache forward at
+    # int8_threshold 6 with an outlier feature planted in the embeddings; one
+    # Linear8bitLt(has_fp16_weights=True, threshold=6) step at M 2048; the
+    # engine over int8 weights, 4 requests, teacher-forced.  Every int8 op is
+    # bit-identical on both (3n), but the bf16 ops between them are not, and
+    # the row-wise int8 quantize turns a 1-ulp change of an activation into a
+    # step of its row's absmax / 127: the card's logits differ from the CPU's
+    # by more than 5's atol 0.1 / rtol 0.05 (reported as gate_5_logits).  They
+    # are held to top-5 containment and to within the logits' own int8
+    # displacement on the CPU (int8 against the bf16 weights, the same inputs).
+    from bitsandbytes_tpu_torch.nn.modules import Linear8bitLt
+
+    i8c = L.quantize_params_int8(cpu_float)
+    i8g = L.quantize_params_int8(to_dev(cpu_float))
+    for lc, lg in zip(i8c["layers"], i8g["layers"]):
+        for name in L._LINEAR_NAMES:
+            assert torch.equal(lc[name].CB, lg[name].CB.cpu()) and bits_equal(lc[name].SCB, lg[name].SCB.cpu()), name
+    reset_launch_counts()
+    gcache = L.init_kv_cache(cfg2, B2, 256, device=dev)
+    ccache = L.init_kv_cache(cfg2, B2, 256, device="cpu")
+    bcache = L.init_kv_cache(cfg2, B2, 256, device="cpu")
+    glog, gcache = L.prefill(i8g, ids2.to(dev), cfg2, gcache)
+    clog, ccache = L.prefill(i8c, ids2, cfg2, ccache)
+    blog, bcache = L.prefill(cpu_float, ids2, cfg2, bcache)
+    pairs = [(glog[:, -1].cpu(), clog[:, -1], blog[:, -1])]
+    tok = glog[:, -1].argmax(-1)
+    for s in range(steps2):
+        glog, gcache = L.decode_step(i8g, tok, cfg2, gcache, T2 + s)
+        clog, ccache = L.decode_step(i8c, tok.cpu(), cfg2, ccache, T2 + s)
+        blog, bcache = L.decode_step(cpu_float, tok.cpu(), cfg2, bcache, T2 + s)
+        pairs.append((glog.cpu(), clog, blog))
+        tok = glog.argmax(-1)
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention_cached": 2 * (steps2 + 1),
+                 "flash_attention_combine": 2 * (steps2 * combines(B2, Gq, 256) + combines(B2, Gq * T2, 256))})
+    assert counts == want, f"2-layer int8 serve: launch counts {counts} != {want}"
+    serve_counts_5f = counts
+    shift = max((c - b).abs().max().item() for _, c, b in pairs)  # int8's own move of the logits
+    worst, gate5 = 0.0, True
+    for step, (g, c, _) in enumerate(pairs):
+        worst = max(worst, (g - c).abs().max().item())
+        gate5 = gate5 and torch.allclose(g, c, atol=0.1, rtol=0.05)
+        assert (c.topk(5, dim=-1).indices == g.argmax(-1, keepdim=True)).any(-1).all(), f"int8 top-5 at step {step}"
+    assert worst <= shift, f"int8 logits: card - CPU {worst} beyond int8's own displacement {shift}"
+    del gcache, ccache, bcache
+
+    emb = cpu_float["embed"].clone()
+    emb[:, 7] = 30.0  # after the RMSNorm about 18: an outlier at threshold 6
+    h0 = L._rmsnorm(emb[ids2].to(cfg2.dtype), cpu_float["layers"][0]["attn_norm"], cfg2.rms_eps)
+    n_out = int(I8.int8_vectorwise_quant(h0.reshape(-1, cfg2.hidden_size), 6.0)[2].sum())
+    assert n_out >= 1, "the planted feature is no outlier"
+    pc, pg = dict(i8c, embed=emb), dict(i8g, embed=emb.to(dev))
+    with torch.no_grad():
+        fg, _ = L.forward(pg, ids2.to(dev), cfg2, int8_threshold=6.0)
+        fc, _ = L.forward(pc, ids2, cfg2, int8_threshold=6.0)
+        f0, _ = L.forward(pc, ids2, cfg2)
+        fb, _ = L.forward(dict(cpu_float, embed=emb), ids2, cfg2)
+    fg = fg.cpu()
+    th_shift = (fc - fb).abs().max().item()
+    assert (fg - fc).abs().max().item() <= th_shift, "forward at int8_threshold 6 differs from the CPU"
+    assert (fc.topk(5, dim=-1).indices == fg.argmax(-1, keepdim=True)).any(-1).all(), "threshold forward top-5"
+
+    # one training step of LLM.int8()'s trained float weight, M = 2048 tokens:
+    # grad_B's int8 product contracts the tokens (transposed operands made
+    # contiguous); gradients against the CPU under 5's gates, scaled to each
+    # gradient's largest magnitude
+    mods = {}
+    for where in ("cpu", dev):
+        mods[str(where)] = Linear8bitLt(4096, 4096, has_fp16_weights=True, threshold=6.0, device=where,
+                                        generator=torch.Generator(device=where).manual_seed(14))
+    mc, mg = mods["cpu"], mods[str(dev)]
+    with torch.no_grad():
+        mg.weight.copy_(mc.weight)
+        mc.bias.normal_(generator=torch.Generator().manual_seed(15))
+        mg.bias.copy_(mc.bias)
+    xt = torch.randn(2048, 4096, generator=torch.Generator().manual_seed(16))
+    xt[:, 11] *= 25.0
+    grads, new_w = {}, {}
+    for m, where in ((mc, "cpu"), (mg, dev)):
+        x_ = xt.to(where, copy=True).requires_grad_()
+        opt = torch.optim.SGD(m.parameters(), lr=0.5)
+        opt.zero_grad()
+        loss_ = (m(x_).float() ** 2).mean()
+        loss_.backward()
+        grads[str(where)] = (loss_.detach().cpu(), x_.grad.cpu(), m.weight.grad.float().cpu(), m.bias.grad.float().cpu())
+        opt.step()
+        new_w[str(where)] = m.weight.detach().float().cpu()
+    gc_, gg_ = grads["cpu"], grads[str(dev)]
+    assert abs(gc_[0].item() - gg_[0].item()) <= 1e-3 * abs(gc_[0].item()), "Linear8bitLt loss differs"
+    train_err = {}
+    for what, c, g in zip(("x", "weight", "bias"), gc_[1:], gg_[1:]):
+        scale = c.abs().max().item()
+        assert torch.allclose(g, c, rtol=2e-2, atol=2e-3 * scale), f"Linear8bitLt grad of {what} differs from the CPU"
+        train_err[what] = (g - c).abs().max().item() / scale
+    assert torch.allclose(new_w[str(dev)], new_w["cpu"], rtol=2e-2, atol=2e-3 * new_w["cpu"].abs().max().item())
+    del mods, mc, mg, xt, grads
+
+    # the engine over int8 weights: 4 requests; each token of the card's
+    # greedy streams in the CPU's top-5 given the stream's own prefix
+    g5f = torch.Generator().manual_seed(17)
+    prompts5f = [torch.randint(0, cfg2.vocab_size, (n,), generator=g5f).tolist() for n in (20, 33, 50, 61)]
+    eng = ContinuousBatchingEngine(i8g, cfg2, max_batch=4, max_len=128, steps_per_sync=4)
+    results, counts, prefills, dsteps, _ = engine_run(eng, lambda e: [e.add_request(p, max_new_tokens=6)
+                                                                      for p in prompts5f])
+    want = engine_expected(2, prefills, dsteps, "bf16", "dense", 4, 128)
+    want["gemm_4bit_paired"] = want["dequantize_paired_fast"] = 0  # int8 linears: torch._int_mm
+    assert counts == want, f"2-layer int8 engine: launch counts {counts} != {want}"
+    eng_diff = 0.0
+    for r, p in zip(results, prompts5f):
+        assert len(r.tokens) == 6
+        seq = torch.tensor([p + r.tokens])
+        with torch.no_grad():
+            lc, _ = L.forward(i8c, seq, cfg2)
+            lg, _ = L.forward(i8g, seq.to(dev), cfg2)
+            lb, _ = L.forward(cpu_float, seq, cfg2)
+        lg = lg.cpu()
+        for j, t in enumerate(r.tokens):
+            assert t in lc[0, len(p) - 1 + j].topk(5).indices.tolist(), f"int8 engine token {j} of a {len(p)}-prompt"
+        assert (lg - lc).abs().max() <= (lc - lb).abs().max(), "int8 engine forward differs from the CPU"
+        eng_diff = max(eng_diff, (lg - lc).abs().max().item())
+    emit("cpu_check_int8", layers=2, batch=B2, prompt=T2, steps=steps2, max_abs_logit_diff=worst,
+         int8_displacement_on_cpu=shift, gate_5_logits=gate5, launches=serve_counts_5f,
+         threshold_forward={"outlier_cols_layer0": n_out, "max_abs_logit_diff": (fg - fc).abs().max().item(),
+                            "int8_displacement_on_cpu": th_shift,
+                            "gate_5_logits": torch.allclose(fg, fc, atol=0.1, rtol=0.05),
+                            "threshold_moves_logits_by": (fc - f0).abs().max().item()},
+         linear8bitlt_step={"tokens": 2048, "loss": gc_[0].item(), "max_err_over_scale": train_err},
+         engine={"prompts": [len(p) for p in prompts5f], "streams": [r.tokens for r in results],
+                 "max_abs_logit_diff": eng_diff, "launches": counts})
+    del i8c, i8g, pc, pg, eng
     torch.cuda.empty_cache()
 
     # -- 6. kernels line and result ---------------------------------------

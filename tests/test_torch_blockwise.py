@@ -187,6 +187,40 @@ def test_blockwise_absmax_and_valid_blocksizes():
         TB.quantize_blockwise(torch.zeros(64), blocksize=96)
 
 
+@pytest.mark.parametrize("bs", [12, 40, 48, 100, 8192])
+@pytest.mark.parametrize("n", [1000, 4097])
+def test_with_code_any_blocksize_matches_jax(bs, n):
+    """``quantize_blockwise_with_code`` and ``dequantize_blockwise_with_code``
+    take every blocksize the JAX functions take, a ragged last block too:
+    codes, absmax and dequantized values bit for bit (signed dynamic map;
+    blocksizes off the quantize tile's powers of two and off multiples of 8
+    take the ``_any`` instances on CUDA)."""
+    x = np.random.default_rng(bs + n).standard_normal(n).astype(np.float32)
+    jq, jam = JB.quantize_blockwise_with_code(jnp.asarray(x), jnp.asarray(CODE), bs)
+    tq, tam = TB.quantize_blockwise_with_code(torch.from_numpy(x), CODE, bs)
+    assert tam.numel() == -(-n // bs)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(_bits(tam.numpy()), _bits(jam))
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        ref = np.asarray(JB.dequantize_blockwise_with_code(jq, jam, jnp.asarray(CODE), bs, jdt)).astype(np.float32)
+        out = TB.dequantize_blockwise_with_code(tq, tam, CODE, bs, tdt)
+        assert out.dtype == tdt and out.shape == (n,)
+        np.testing.assert_array_equal(_bits(out.to(torch.float32).numpy()), _bits(ref))
+
+
+@pytest.mark.parametrize("bs", [12, 100])
+def test_with_code_any_blocksize_stochastic_matches_pallas_u_mode(bs):
+    """The stochastic mode at a blocksize off the tile, on the same uniforms
+    as the JAX kernel's "u" mode (whole blocks: the kernel takes no other)."""
+    n = 8 * bs
+    x = _x(bs, n, bs, zero_block=False)
+    u = np.random.default_rng(bs).random(n, dtype=np.float32)
+    jq, jam = quantize_blockwise_pallas(jnp.asarray(x), code_t=CODE_T, blocksize=bs, stochastic_u=jnp.asarray(u))
+    tq, tam = quantize_blockwise8(torch.from_numpy(x), CODE, bs, torch.from_numpy(u))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(_bits(tam.numpy()), _bits(jam))
+
+
 @pytest.mark.parametrize("bad", ["ragged", "dtype", "u_length", "absmax_length"])
 def test_wrappers_reject_bad_inputs(bad):
     with pytest.raises(ValueError):
