@@ -13,7 +13,8 @@ double-quantized absmax in the kernel), flash attention over a bf16 KV
 cache, the 8-bit blockwise optimizers (``optim``) and LLM.int8() (the int8
 ops of ``functional``, :func:`matmul` with its backward, ``nn.Linear8bitLt``),
 serving the Llama family through prefill and greedy decode, on 4-bit or int8
-weights, and fine-tuning it with QLoRA.
+weights, fine-tuning it with QLoRA, and checkpoints in the reference's
+serialized names (``utils.serialization``: npz, safetensors, HF Llama import).
 """
 
 from . import functional, nn, optim

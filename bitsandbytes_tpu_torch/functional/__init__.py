@@ -1,5 +1,6 @@
-"""Functional API: codebooks, QuantState, 4-bit and blockwise 8-bit
-quantize/dequantize, GEMM, and LLM.int8()'s int8 ops."""
+"""Functional API: codebooks and the functions that make them, QuantState,
+4-bit and blockwise 8-bit quantize/dequantize, GEMM, LLM.int8()'s int8 ops
+and the optimizer updates."""
 
 from .blockwise import (
     blockwise_absmax,
@@ -8,7 +9,14 @@ from .blockwise import (
     quantize_blockwise,
     quantize_blockwise_with_code,
 )
-from .codebooks import CODE_DTYPE, create_dynamic_map, get_4bit_code
+from .codebooks import (
+    CODE_DTYPE,
+    create_dynamic_map,
+    create_fp8_map,
+    create_linear_map,
+    create_normal_map,
+    get_4bit_code,
+)
 from .fourbit import (
     dequantize_4bit,
     dequantize_fp4,
@@ -29,6 +37,7 @@ from .int8 import (
     int8_vectorwise_dequant,
     int8_vectorwise_quant,
 )
+from .optim_update import optimizer_update_8bit_blockwise, optimizer_update_32bit
 from .quant_state import QuantState
 
 # the reference's name for the codebook lookup
@@ -39,6 +48,9 @@ __all__ = [
     "QuantState",
     "blockwise_absmax",
     "create_dynamic_map",
+    "create_fp8_map",
+    "create_linear_map",
+    "create_normal_map",
     "dequantize_4bit",
     "dequantize_blockwise",
     "dequantize_blockwise_with_code",
@@ -55,6 +67,8 @@ __all__ = [
     "int8_scaled_mm",
     "int8_vectorwise_dequant",
     "int8_vectorwise_quant",
+    "optimizer_update_32bit",
+    "optimizer_update_8bit_blockwise",
     "pack_4bit",
     "quantize_4bit",
     "quantize_blockwise",

@@ -10,16 +10,27 @@ through them.
   bit-pattern order.
 * ``int4`` / ``af4``: linear and AbnormalFloat tables (af4 for blocksize 64).
 * ``dynamic`` 8-bit: dynamic exponent + linear fraction, 256 sorted entries.
+* the map constructors ``create_linear_map``, ``create_normal_map`` and
+  ``create_fp8_map``: 256-entry tables for 8-bit or narrower codes.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 
 import numpy as np
 import torch
 
-__all__ = ["CODE_DTYPE", "create_dynamic_map", "get_4bit_code", "is_dynamic_map"]
+__all__ = [
+    "CODE_DTYPE",
+    "create_dynamic_map",
+    "create_fp8_map",
+    "create_linear_map",
+    "create_normal_map",
+    "get_4bit_code",
+    "is_dynamic_map",
+]
 
 CODE_DTYPE = np.float32
 
@@ -79,12 +90,86 @@ _AF4_TABLE = np.array(
 )[::-1]
 
 
+def create_linear_map(signed: bool = True, total_bits: int = 8, add_zero: bool = True) -> np.ndarray:
+    """Evenly spaced levels in [-1, 1] (or [0, 1] unsigned).  A signed map
+    gives up one slot so that zero is a level; a map narrower than 8 bits is
+    padded with zeros in the middle up to 256 entries."""
+    lo = -1.0 if signed else 0.0
+    n = 2**total_bits
+    if add_zero or total_bits < 8:
+        n = n - 1 if signed else n
+    values = np.linspace(lo, 1.0, n, dtype=np.float64)
+    gap = 256 - values.size
+    if gap == 0:
+        return values.astype(CODE_DTYPE)
+    half = values.size // 2
+    out = np.concatenate([values[:half], np.zeros(gap), values[half:]])
+    return out.astype(CODE_DTYPE)
+
+
+def create_normal_map(offset: float = 0.9677083, use_extra_value: bool = True) -> np.ndarray:
+    """The NF4 levels from quantiles of N(0, 1), scaled to [-1, 1]: 256
+    sorted entries, 15 of them non-zero (8 negative and 7 positive with
+    ``use_extra_value``, else 7 and 7), the rest zero padding."""
+    from scipy.stats import norm
+
+    if use_extra_value:
+        v1 = norm.ppf(np.linspace(offset, 0.5, 9)[:-1]).tolist()
+        v2 = [0.0] * (256 - 15)
+    else:
+        v1 = norm.ppf(np.linspace(offset, 0.5, 8)[:-1]).tolist()
+        v2 = [0.0] * (256 - 14)
+    v3 = (-norm.ppf(np.linspace(offset, 0.5, 8)[:-1])).tolist()
+    values = np.sort(np.asarray(v1 + v2 + v3, dtype=np.float64))
+    values /= values.max()
+    return values.astype(CODE_DTYPE)
+
+
+def create_fp8_map(
+    signed: bool = True, exponent_bits: int = 5, precision_bits: int = 2, total_bits: int = 8
+) -> np.ndarray:
+    """Sorted levels of a small float format scaled to [-1, 1]: exponent
+    bias ``2 ** (exponent_bits - 1)``, subnormals at exponent field 0,
+    zero-padded to 256 entries below 8 bits."""
+    e, p = exponent_bits, precision_bits
+    has_sign = 1 if signed else 0
+    assert e + p == total_bits - has_sign
+    bias = 2 ** (e - 1)
+    values = []
+    for evalue in range(2**e):
+        for bits in itertools.product([0, 1], repeat=p):
+            mant = 1.0 if evalue != 0 else 0.0
+            for i, b in enumerate(bits):
+                mant += b * 2.0 ** -(i + 1)
+            if evalue == 0:
+                val = mant * 2.0**-bias  # subnormal
+            else:
+                val = mant * 2.0 ** -(evalue - bias - 1)
+            values.append(val)
+            if signed:
+                values.append(-val)
+    assert len(values) == 2**total_bits
+    values.sort()
+    values.extend([0.0] * (256 - len(values)))
+    values.sort()  # stable sort keeps the order of -0.0 and 0.0
+    code = np.asarray(values, dtype=np.float64)
+    code /= code.max()
+    return code.astype(CODE_DTYPE)
+
+
+def _linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
+    """``torch.linspace`` in float32, whose rounding (float64 chunk bases,
+    float32 lane offsets) the dynamic map's entries depend on; numpy's
+    linspace differs by one ulp at about 9% of them."""
+    return torch.linspace(start, stop, num, dtype=torch.float32).numpy()
+
+
 @functools.lru_cache(maxsize=None)
 def create_dynamic_map(signed: bool = True, max_exponent_bits: int = 7, total_bits: int = 8) -> np.ndarray:
     """Dynamic-exponent 8-bit codebook (arXiv:1511.04561): a unary prefix
     picks a base-10 exponent, the remaining bits a linear fraction.  256
     sorted float32 entries including 0 and +-1.  The fractions come from
-    ``torch.linspace`` in float32, whose rounding the table depends on."""
+    :func:`_linspace_f32`."""
     data: list[float] = []
     non_sign_bits = total_bits - 1
     additional_items = 2 ** (non_sign_bits - max_exponent_bits) - 1
@@ -94,14 +179,14 @@ def create_dynamic_map(signed: bool = True, max_exponent_bits: int = 7, total_bi
             if signed
             else 2 ** (i + non_sign_bits - max_exponent_bits + 1) + 1
         )
-        boundaries = torch.linspace(0.1, 1, fraction_items, dtype=torch.float32).numpy()
+        boundaries = _linspace_f32(0.1, 1, fraction_items)
         means = ((boundaries[:-1] + boundaries[1:]) / 2.0).astype(np.float32)
         scale = np.float32(10.0 ** (-(max_exponent_bits - 1) + i))
         data += (scale * means).tolist()
         if signed:
             data += (-scale * means).tolist()
     if additional_items > 0:
-        boundaries = torch.linspace(0.1, 1, additional_items + 1, dtype=torch.float32).numpy()
+        boundaries = _linspace_f32(0.1, 1, additional_items + 1)
         means = ((boundaries[:-1] + boundaries[1:]) / 2.0).astype(np.float32)
         scale = np.float32(10.0 ** (-(max_exponent_bits - 1) + max_exponent_bits - 1))
         data += (scale * means).tolist()

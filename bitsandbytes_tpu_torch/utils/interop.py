@@ -32,13 +32,14 @@ import numpy as np
 import torch
 
 from ..functional.codebooks import is_dynamic_map
-from ..functional.quant_state import QuantState
+from ..functional.quant_state import QuantState, dtype_from_name
 from ..nn.modules import Int8TensorState, QuantizedTensor
 from ..ops.dispatch import resolve_device
 
 __all__ = [
     "params_from_numpy",
     "tensor_from_numpy",
+    "as_device_tensor",
     "lora_from_numpy",
     "optim_state_from_numpy",
     "kv_cache_from_numpy",
@@ -57,13 +58,6 @@ LORA_KEYS = frozenset({"a", "b", "scale"})
 LORA_TARGETS = frozenset({"wq", "wk", "wv", "wo", "gate", "up", "down"})
 STATE_KEYS = frozenset({"state1", "state2", "absmax1", "absmax2"})
 
-_DTYPES = {
-    "float32": torch.float32,
-    "float16": torch.float16,
-    "bfloat16": torch.bfloat16,
-}
-
-
 def tensor_from_numpy(arr, device) -> torch.Tensor:
     """numpy array (bfloat16 from ml_dtypes included) -> tensor on ``device``,
     of the same shape (a 0-d array stays 0-d; ``np.ascontiguousarray`` would
@@ -74,6 +68,13 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr).copy())
     return t.reshape(arr.shape).to(device)
+
+
+def as_device_tensor(a, device) -> torch.Tensor:
+    """A tensor or a numpy array as a contiguous tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device).contiguous()
+    return tensor_from_numpy(a, device).contiguous()
 
 
 def _quantized(d: dict, device) -> QuantizedTensor:
@@ -104,7 +105,7 @@ def _quantized(d: dict, device) -> QuantizedTensor:
         code=tensor_from_numpy(d["code"], device).to(torch.float32),
         blocksize=int(d["blocksize"]),
         quant_type=str(d["quant_type"]),
-        dtype=_DTYPES[str(d.get("dtype", "float32"))],
+        dtype=dtype_from_name(d.get("dtype", "float32")),
         shape=tuple(int(s) for s in d["shape"]),
         offset=offset,
         state2=state2,

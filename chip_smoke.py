@@ -96,8 +96,22 @@ Phases (every one asserts; any failure exits non-zero before the result):
    before a call), double-quantized, trained with ``ademamix8bit`` (kernel
    15).  4g serves 4a's bf16 weights (kept from 4a's profiled load) through
    ``quantize_params_int8`` as 4a does: int8 linears on ``torch._int_mm``,
-   kernel 4 and its combine the only kernels of the table.  The kernels' launch counts are zeroed just before each path and
-   read just after it.  4a and 4b also load the model once more under
+   kernel 4 and its combine the only kernels of the table.  4h carries
+   checkpoints at full width: 4b's double-quantized model, still held,
+   through ``save_checkpoint_safetensors`` into a temporary directory and
+   back onto the card with ``load_checkpoint_safetensors(template=...)``,
+   every leaf bit for bit, the reference's key names in the file, and one
+   prefill and 4 decode steps on both with bit-identical logits on 4b's
+   route; then 4a's bf16 weights under HF Transformers' names through
+   ``import_hf_llama(quantize="nf4")`` (kernel 1 once a linear, every layer
+   bit for bit ``quantize_params_4bit(fuse=False)``), served unfused for one
+   prefill and 4 decode steps.  4i loads the committed trained fixture
+   (``tests/fixtures/quality_lm.*``) with the port's loader and holds its
+   perplexity on all 64 eval sequences in bf16, NF4, NF4 with the absmax
+   double-quantized, FP4, LLM.int8() and LLM.int8() at threshold 6 to the
+   bounds of ``tests/test_quality.py``.  The kernels' launch counts are
+   zeroed just before each path and read just after it.  4a and 4b also
+   load the model once more under
    ``torch.profiler`` (device time by class: kernel 1, kernel 13, copies and
    casts, the rest) and check that layer 0's payloads and states equal those
    of the loader's former route, each weight cast to f32 first.  Each
@@ -123,7 +137,13 @@ Phases (every one asserts; any failure exits non-zero before the result):
    steps, the forward at ``int8_threshold=6`` with a planted outlier
    feature, one ``Linear8bitLt(has_fp16_weights=True, threshold=6)`` step at
    M 2048 with its gradients, and the engine over int8 weights (4 requests,
-   teacher-forced top-5), each against the CPU.
+   teacher-forced top-5), each against the CPU; then checkpoint interop at 2
+   layers and a quarter of the widths (5g): NF4 (fused), nested, int8 and
+   bf16 ``quant_storage`` trees
+   written on the card and read on the CPU and the reverse, npz and
+   safetensors, bit for bit (the two safetensors files byte for byte),
+   ``import_hf_llama`` in nf4, fp4 and int8 mode and ``dequantize_tree``
+   (kernel 10) on the card against the CPU.
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -137,6 +157,7 @@ import math
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -210,14 +231,505 @@ LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 LINEARS = {"wqkv": (6144, 4096), "wo": (4096, 4096), "gate_up": (28672, 4096), "down": (4096, 14336)}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(tag: str, **fields) -> None:
-    print(json.dumps({"phase": tag, **fields}), flush=True)
+    """One JSON line for a phase, with the seconds since the script began."""
+    print(json.dumps({"phase": tag, **fields, "t_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def self_dev_us(e):  # named self_cuda_time_total before torch 2.4
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_events(prof):
+    """Device-side events only (kernels, memcpy, memset): an operator's
+    own entry repeats the time of the kernels it launched, and a user
+    annotation (``Optimizer.step``) spans them on the device's timeline."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev_us(e) > 0
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+
+
+def by_class(events, named):
+    """Device ms and launches by kernel class: the (substring, label) pairs
+    of ``named`` first, then cuBLAS GEMMs, copies and casts, the rest."""
+    out = {}
+    for e in events:
+        label = next((lab for sub, lab in named if sub in e.key), None)
+        if label is None:
+            low = e.key.lower()
+            if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
+                label = "GEMM (cuBLAS)"
+            elif "copy" in low or "cast" in low:
+                label = "copies and casts"
+            else:
+                label = "other PyTorch kernels"
+        c = out.setdefault(label, {"ms": 0.0, "launches": 0})
+        c["ms"] += self_dev_us(e) / 1e3
+        c["launches"] += e.count
+    return out
+
+
+def bits_equal(a, b):
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def tree_to(tree, device):
+    """A parameter tree (tensors, QuantizedTensor, Int8TensorState) copied to
+    ``device``."""
+    import dataclasses
+
+    from bitsandbytes_tpu_torch.nn.modules import Int8TensorState, QuantizedTensor
+    from bitsandbytes_tpu_torch.nn.parametrize import map_tree
+
+    def state_to(st):
+        if st is None:
+            return None
+        return dataclasses.replace(st, absmax=st.absmax.to(device), code=st.code.to(device),
+                                   offset=None if st.offset is None else st.offset.to(device),
+                                   state2=state_to(st.state2))
+
+    def leaf(_, x):
+        if isinstance(x, QuantizedTensor):
+            return QuantizedTensor(data=x.data.to(device), state=state_to(x.state))
+        if isinstance(x, Int8TensorState):
+            return Int8TensorState(CB=x.CB.to(device), SCB=x.SCB.to(device))
+        return x.to(device)
+
+    return map_tree(leaf, tree)
+
+
+def tree_mismatches(a, b, path=""):
+    """``(leaves compared, paths that differ)`` between two parameter trees,
+    on any devices: payloads, absmax (f32 or uint8 codes), code maps,
+    offsets, second-level states and float leaves bit for bit, with their
+    static fields."""
+    from bitsandbytes_tpu_torch.nn.modules import Int8TensorState, QuantizedTensor
+
+    def same(x, y):
+        return bits_equal(x.cpu(), y.cpu())
+
+    def state_same(s, t):
+        if (s is None) != (t is None):
+            return False
+        if s is None:
+            return True
+        static = ("blocksize", "quant_type", "dtype", "shape", "layout", "dynamic_code")
+        return (all(getattr(s, f) == getattr(t, f) for f in static) and same(s.absmax, t.absmax)
+                and same(s.code, t.code) and ((s.offset is None) == (t.offset is None))
+                and (s.offset is None or same(s.offset, t.offset)) and state_same(s.state2, t.state2))
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return 0, [path]
+        pairs = [(a[k], b[k], f"{path}.{k}" if path else str(k)) for k in a]
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return 0, [path]
+        pairs = [(x, y, f"{path}.{i}") for i, (x, y) in enumerate(zip(a, b))]
+    elif isinstance(a, QuantizedTensor):
+        ok = isinstance(b, QuantizedTensor) and same(a.data, b.data) and state_same(a.state, b.state)
+        return 1, [] if ok else [path]
+    elif isinstance(a, Int8TensorState):
+        ok = isinstance(b, Int8TensorState) and same(a.CB, b.CB) and same(a.SCB, b.SCB)
+        return 1, [] if ok else [path]
+    else:
+        return 1, [] if same(a, b) else [path]
+    n, bad = 0, []
+    for x, y, p in pairs:
+        m, d = tree_mismatches(x, y, p)
+        n, bad = n + m, bad + d
+    return n, bad
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor a parameter tree holds, quantization states
+    included."""
+    from bitsandbytes_tpu_torch.nn.modules import Int8TensorState, QuantizedTensor
+
+    def state_bytes(st):
+        if st is None:
+            return 0
+        ts = [st.absmax, st.code] + ([st.offset] if st.offset is not None else [])
+        return sum(t.numel() * t.element_size() for t in ts) + state_bytes(st.state2)
+
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    if isinstance(tree, QuantizedTensor):
+        return tree.data.numel() * tree.data.element_size() + state_bytes(tree.state)
+    if isinstance(tree, Int8TensorState):
+        return sum(t.numel() * t.element_size() for t in (tree.CB, tree.SCB))
+    return tree.numel() * tree.element_size()
+
+
+def serve_short(params, ids, cfg, max_len, steps):
+    """One prefill of ``ids`` and ``steps`` greedy decode steps over a new
+    bf16 cache: the logits of every call and the tokens ``[B, steps + 1]``."""
+    import torch
+
+    from bitsandbytes_tpu_torch.models import llama as L
+
+    cache = L.init_kv_cache(cfg, ids.shape[0], max_len, device=ids.device)
+    logits, cache = L.prefill(params, ids, cfg, cache)
+    outs, tok = [logits], logits[:, -1].argmax(-1)
+    toks = [tok]
+    for s in range(steps):
+        logits, cache = L.decode_step(params, tok, cfg, cache, ids.shape[1] + s)
+        tok = logits.argmax(-1)
+        outs.append(logits)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    return outs, torch.stack(toks, 1)
+
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: its result and its device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return out, device_events(prof), wall_ms
+
+
+LOAD_CLASSES = [("Memcpy HtoD", "host-to-device copies"), ("quantize_4bit_codes", "kernel 1 (quantize_4bit_codes)")]
+
+
+def checkpoint_round_trip(cfg, held, ids, max_len, expected):
+    """4h(a): write the held double-quantized model with
+    ``save_checkpoint_safetensors``, read it back onto the card with the
+    model as the template, hold every leaf bit for bit, and serve both: the
+    logits of one prefill and 4 decode steps bit-identical, the launch
+    counts ``expected`` (the nested route) on each."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.utils import serialization as S
+
+    dev = ids.device
+    need = tree_bytes(held) + (256 << 20)  # the file holds the same bytes, plus its header
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise RuntimeError(f"the checkpoint needs {need} bytes of disk, {tmp} has {free}")
+        path = os.path.join(tmp, "llama3_8b_nf4_nested.safetensors")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = S.save_checkpoint_safetensors(path, held, metadata={"format": "pt"})
+        save_s = time.perf_counter() - t0
+        assert nbytes == os.path.getsize(path), "the writer's size is the file's"
+
+        # the reference's names for a nested NF4 weight, read from the header
+        with open(path, "rb") as f:
+            (n,) = struct.unpack("<Q", f.read(8))
+            header = json.loads(f.read(n))
+            base = "layers.0.wqkv"
+            meta_info = header[f"{base}.quant_state.bitsandbytes__nf4"]
+            f.seek(8 + n + meta_info["data_offsets"][0])
+            meta = json.loads(f.read(meta_info["data_offsets"][1] - meta_info["data_offsets"][0]))
+        N, K = held["layers"][0]["wqkv"].state.shape
+        want = {base: ("U8", [N * K // 2, 1]), f"{base}.absmax": ("U8", [N * K // 64]),
+                f"{base}.quant_map": ("F32", [16]), f"{base}.nested_absmax": ("F32", [-(-N * K // 64 // 256)]),
+                f"{base}.nested_quant_map": ("F32", [256]), "embed": ("BF16", [cfg.vocab_size, cfg.hidden_size])}
+        for k, (dt, shape) in want.items():
+            assert header[k]["dtype"] == dt and header[k]["shape"] == shape, f"{k}: {header[k]}"
+        assert meta == {"quant_type": "nf4", "blocksize": 64, "dtype": "float32", "shape": [N, K],
+                        "nested_blocksize": 256, "nested_dtype": "float32",
+                        "nested_offset": meta["nested_offset"]}, meta
+        assert header["__metadata__"] == {"format": "pt"} and n % 8 == 0
+
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = S.load_checkpoint_safetensors(path, template=held, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        assert not any(launch_counts().values()), "the load launches no kernel of the table"
+        again, events, prof_wall_ms = profiled(lambda: S.load_checkpoint_safetensors(path, held, device=dev))
+        del again
+        torch.cuda.empty_cache()
+        n_leaves, bad = tree_mismatches(loaded, held)
+        assert not bad, f"reloaded leaves differ: {bad[:8]}"
+        assert all(loaded["layers"][i][k].state.inline_nested for i in range(cfg.num_layers)
+                   for k in ("wqkv", "wo", "gate_up", "down")), "the reloaded states decode in the kernels"
+
+        runs = {}
+        for tag, tree in (("reloaded", loaded), ("held", held)):
+            reset_launch_counts()
+            outs, toks = serve_short(tree, ids, cfg, max_len, 4)
+            counts = launch_counts()
+            want_counts = {k: 0 for k in counts}
+            want_counts.update(expected)
+            assert counts == want_counts, f"{tag}: launch counts {counts} != {want_counts}"
+            runs[tag] = (outs, toks, counts)
+        assert all(bits_equal(a, b) for a, b in zip(runs["reloaded"][0], runs["held"][0])), \
+            "the reloaded model's logits differ from the held model's"
+        dev_us = sum(self_dev_us(e) for e in events)
+        emit("checkpoint_round_trip", config="llama3_8b", layers=cfg.num_layers, weights="nf4, nested, fused",
+             file_bytes=nbytes, model_bytes=tree_bytes(held), save_s=save_s, load_s=load_s,
+             profiled_load={"wall_ms": prof_wall_ms, "device_ms": dev_us / 1e3,
+                            "device_launches": sum(e.count for e in events), "by_class": by_class(events, LOAD_CLASSES)},
+             leaves_bit_identical=n_leaves, logits_bit_identical=True, serve_steps=4,
+             launches=runs["reloaded"][2], first_tokens=runs["reloaded"][1][0].tolist(), disk_free=free)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+_HF_NAMES = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "gate": "mlp.gate_proj", "up": "mlp.up_proj", "down": "mlp.down_proj",
+             "attn_norm": "input_layernorm", "mlp_norm": "post_attention_layernorm"}
+
+
+def hf_state_dict(params) -> dict:
+    """``models/llama.py``'s bf16 tree under HF Transformers' Llama names
+    (``model.layers.{i}.self_attn.q_proj.weight``, ...): the same tensors,
+    no copy."""
+    sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"],
+          "lm_head.weight": params["lm_head"]}
+    for i, layer in enumerate(params["layers"]):
+        for ours, hf in _HF_NAMES.items():
+            sd[f"model.layers.{i}.{hf}.weight"] = layer[ours]
+    return sd
+
+
+def hf_import(cfg, ids, max_len, tokens_4a, expected):
+    """4h(b): the seed-0 bf16 tree of 4a under HF names through
+    ``import_hf_llama(quantize="nf4")`` on the card: kernel 1 once a linear,
+    every layer bit for bit ``quantize_params_4bit(fuse=False)`` of the same
+    weights; then one prefill and 4 decode steps on the unfused tree with
+    the launch counts ``expected``."""
+    import torch
+
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.utils import serialization as S
+
+    dev = ids.device
+    Lyr = cfg.num_layers
+    params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    sd = hf_state_dict(params)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imported = S.import_hf_llama(sd, cfg, quantize="nf4", device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want["quantize_4bit_codes"] = 7 * Lyr
+    assert counts == want, f"hf import: launch counts {counts} != {want}"
+    again, events, prof_wall_ms = profiled(lambda: S.import_hf_llama(sd, cfg, quantize="nf4", device=dev))
+    del again
+    for i in range(Lyr):
+        ref = L.quantize_params_4bit({"layers": [params["layers"][i]]})["layers"][0]
+        n_leaves, bad = tree_mismatches(imported["layers"][i], ref)
+        assert not bad and n_leaves == 9, f"layer {i}: {bad} differ from quantize_params_4bit"
+        assert imported["layers"][i]["wq"].state.layout == "paired"
+    assert all(imported[k].data_ptr() == params[k].data_ptr() for k in ("embed", "lm_head", "final_norm")), \
+        "tensors already on the card in the right type are not copied"
+    quantized_bytes = sum(tree_bytes(layer) for layer in imported["layers"])
+    resident = tree_bytes(imported)
+    del params, sd, ref
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs, toks = serve_short(imported, ids, cfg, max_len, 4)
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(expected)
+    assert counts == want, f"hf import serve: launch counts {counts} != {want}"
+    assert all(torch.isfinite(o).all() for o in outs)
+    dev_us = sum(self_dev_us(e) for e in events)
+    emit("hf_import", config="llama3_8b", layers=Lyr, quantize="nf4", layout="paired, unfused", load_s=load_s,
+         resident_bytes=resident, quantized_layer_bytes=quantized_bytes,
+         profiled_load={"wall_ms": prof_wall_ms, "device_ms": dev_us / 1e3,
+                        "device_launches": sum(e.count for e in events), "by_class": by_class(events, LOAD_CLASSES)},
+         equals_quantize_params_4bit=True, serve_steps=4, serve_wall_ms=serve_ms, launches=counts,
+         first_tokens=toks[0].tolist(), first_tokens_equal_4a=bool(torch.equal(toks, tokens_4a[:, : toks.shape[1]])),
+         rows_equal_4a=int((toks == tokens_4a[:, : toks.shape[1]]).all(1).sum()))
+    del imported, outs
+    torch.cuda.empty_cache()
+
+
+def perplexity_gate(root, dev):
+    """4i: the committed trained fixture (``tests/fixtures/quality_lm.*``)
+    loaded onto the card with the port's loader; its perplexity on all 64
+    eval sequences in bf16, NF4, NF4 with a double-quantized absmax, FP4,
+    LLM.int8() and LLM.int8() at outlier threshold 6, held to the bounds of
+    ``tests/test_quality.py``."""
+    import numpy as np
+    import torch
+
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.utils import serialization as S
+
+    fix = os.path.join(root, "tests", "fixtures")
+    with open(os.path.join(fix, "quality_lm.json")) as f:
+        meta = json.load(f)
+    cfg = L.LlamaConfig(**meta["config"], dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = S.load_checkpoint_safetensors(os.path.join(fix, "quality_lm.safetensors"),
+                                           L.init_params(cfg, device=dev), device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ids = torch.from_numpy(np.load(os.path.join(fix, "quality_eval_ids.npy")).astype(np.int64)).to(dev)
+    assert ids.shape == (64, 257)
+    n_lin = 7 * cfg.num_layers
+    formats = {  # name: (quantize, int8 threshold, launches)
+        "bf16": (lambda p: p, 0.0, {}),
+        "nf4": (lambda p: L.quantize_params_4bit(p, quant_type="nf4"), 0.0,
+                {"quantize_4bit_codes": n_lin, "dequantize_paired_fast": n_lin}),
+        "nf4_dq": (lambda p: L.quantize_params_4bit(p, quant_type="nf4", compress_statistics=True), 0.0,
+                   {"quantize_4bit_codes": n_lin, "quantize_blockwise8": n_lin, "dequantize_paired_fast_dq": n_lin}),
+        "fp4": (lambda p: L.quantize_params_4bit(p, quant_type="fp4"), 0.0,
+                {"quantize_4bit_codes": n_lin, "dequantize_paired_fast": n_lin}),
+        "int8": (L.quantize_params_int8, 0.0, {}),
+        "int8_thr6": (L.quantize_params_int8, 6.0, {}),
+    }
+    ppl, launches, ms = {}, {}, {}
+    for name, (quantize, thr, expected) in formats.items():
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss = L.lm_loss(quantize(params), None, ids, cfg, int8_threshold=thr)
+        ppl[name] = math.exp(loss.item())
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        want = {k: 0 for k in counts}
+        want.update(expected)
+        assert counts == want, f"perplexity {name}: launch counts {counts} != {want}"
+        launches[name] = {k: v for k, v in counts.items() if v}
+    ref = meta["eval_ppl_bf16_n64"]
+    ratios = {k: v / ppl["bf16"] for k, v in ppl.items()}
+    emit("perplexity_gate", fixture="tests/fixtures/quality_lm.safetensors", n_params=meta["n_params"],
+         sequences=64, tokens_per_sequence=256, load_s=load_s, ppl=ppl, ratio_to_bf16=ratios,
+         bf16_vs_recorded=abs(ppl["bf16"] - ref) / ref, recorded_eval_ppl_bf16_n64=ref,
+         dq_vs_nf4=abs(ppl["nf4_dq"] - ppl["nf4"]) / ppl["nf4"],
+         thr_vs_int8=abs(ppl["int8_thr6"] - ppl["int8"]) / ppl["int8"], ms=ms, launches=launches)
+    # tests/test_quality.py's bounds, as they stand
+    assert abs(ppl["bf16"] - ref) / ref < 0.02, (ppl["bf16"], ref)
+    assert ratios["int8"] < 1.005 and ratios["int8_thr6"] < 1.005, ratios
+    assert abs(ppl["int8_thr6"] - ppl["int8"]) / ppl["int8"] < 0.003, ppl
+    assert ratios["nf4"] < 1.04, ratios
+    assert ratios["fp4"] < 1.05, ratios
+    assert abs(ppl["nf4_dq"] - ppl["nf4"]) / ppl["nf4"] < 0.003, ppl
+    del params
+    torch.cuda.empty_cache()
+
+
+def interop_cpu_check(cfg, quantize_2d, dev):
+    """5g: checkpoints of 2-layer trees at ``cfg`` (a quarter of Llama-3-8B's
+    widths: at the full widths the CPU's plain quantize and the file traffic
+    made this the longest phase of the run) written on the card and read on
+    the CPU, and the reverse, in both file formats, for NF4 (fused), nested,
+    int8 and bf16 quant_storage ("2d", uint16 payload), every leaf bit for bit
+    and the two safetensors files byte for byte; ``import_hf_llama`` in nf4,
+    fp4 and int8 mode and ``dequantize_tree`` on the card against the CPU. 4h
+    carries the full widths through a file on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.nn.parametrize import dequantize_tree
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.utils import serialization as S
+
+    cpu_float = L.init_params(cfg, torch.Generator().manual_seed(9), device="cpu")
+    gfloat = tree_to(cpu_float, dev)
+    variants = {
+        "nf4_fused": lambda t: L.quantize_params_4bit(t, fuse=True),
+        "nested_fused": lambda t: L.quantize_params_4bit(t, fuse=True, compress_statistics=True),
+        "int8": L.quantize_params_int8,
+        "bf16_storage": lambda t: {**t, "layers": [quantize_2d(layer) for layer in t["layers"]]},
+    }
+    formats = {"npz": (S.save_checkpoint, S.load_checkpoint),
+               "safetensors": (S.save_checkpoint_safetensors, S.load_checkpoint_safetensors)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_interop_")
+    report, dq, seconds = {}, {}, {}
+    try:
+        for name, quantize in variants.items():
+            t0 = time.perf_counter()
+            g = quantize(gfloat)
+            c = tree_to(g, "cpu")
+            for fmt, (save, load) in formats.items():
+                gp, cp = (os.path.join(tmp, f"{name}_{side}.{fmt}") for side in ("card", "cpu"))
+                save(gp, g)
+                save(cp, c)
+                if fmt == "safetensors":
+                    with open(gp, "rb") as fa, open(cp, "rb") as fb:
+                        assert fa.read() == fb.read(), f"{name}: the card's and the CPU's files differ"
+                else:  # a zip member carries its write time: compare the arrays
+                    with np.load(gp) as za, np.load(cp) as zb:
+                        assert za.files == zb.files and all(
+                            za[k].dtype == zb[k].dtype and za[k].tobytes() == zb[k].tobytes() for k in za.files), name
+                n1, bad1 = tree_mismatches(load(gp, c, device="cpu"), c)
+                n2, bad2 = tree_mismatches(load(cp, g, device=dev), g)
+                assert not bad1 and not bad2, f"{name} {fmt}: card->CPU {bad1[:4]}, CPU->card {bad2[:4]}"
+                report[f"{name}_{fmt}"] = {"leaves": n1, "file_bytes": os.path.getsize(gp)}
+            seconds[name] = time.perf_counter() - t0
+            if name in ("nf4_fused", "bf16_storage"):  # kernel 10, plain (a paired payload repacked) and _dq
+                t0 = time.perf_counter()
+                reset_launch_counts()
+                gd = dequantize_tree(g)
+                counts = launch_counts()
+                n, bad = tree_mismatches(gd, dequantize_tree(c))
+                assert not bad, f"dequantize_tree {name}: {bad}"
+                want = {k: 0 for k in counts}
+                want["dequantize_4bit_2d" if name == "nf4_fused" else "dequantize_4bit_2d_dq"] = 4 * cfg.num_layers
+                assert counts == want, f"dequantize_tree {name}: launch counts {counts}"
+                dq[name] = {"leaves": n, "launches": {k: v for k, v in counts.items() if v},
+                            "seconds": time.perf_counter() - t0}
+
+        sd = hf_state_dict(cpu_float)
+        imports = {}
+        for mode in ("nf4", "fp4", "int8"):
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            gi = S.import_hf_llama(sd, cfg, quantize=mode, device=dev)
+            counts = launch_counts()
+            n, bad = tree_mismatches(gi, S.import_hf_llama(sd, cfg, quantize=mode, device="cpu"))
+            assert not bad, f"import_hf_llama {mode}: {bad[:4]}"
+            want = {k: 0 for k in counts}
+            if mode != "int8":
+                want["quantize_4bit_codes"] = 7 * cfg.num_layers
+            assert counts == want, f"import_hf_llama {mode}: launch counts {counts}"
+            imports[mode] = {"leaves": n, "launches": {k: v for k, v in counts.items() if v},
+                             "seconds": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("cpu_check_interop", layers=cfg.num_layers, hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
+         vocab=cfg.vocab_size, files=report, seconds_per_variant=seconds, dequantize_tree=dq,
+         import_hf_llama=imports, bit_identical=True)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -366,10 +878,6 @@ def main() -> int:
     bs = 64
     code = get_4bit_code("nf4", bs)
     units = _units(_code_tuple(code))
-
-    def bits_equal(a, b):
-        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
     # -- 3a. kernel 1: quantize -------------------------------------------
     # bit for bit against its plain version: nf4, fp4 and int4 at blocksizes
@@ -2198,18 +2706,8 @@ def main() -> int:
     # in XLA, outside any Pallas kernel.  The product is torch._int_mm
     # (cuBLASLt), the epilogues stock torch ops; each is held against the CPU.
     # Inputs come from a generator of their own.
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def self_dev_us(e):  # named self_cuda_time_total before torch 2.4
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    def device_events(prof):
-        """Device-side events only (kernels, memcpy, memset): an operator's
-        own entry repeats the time of the kernels it launched, and a user
-        annotation (``Optimizer.step``) spans them on the device's timeline."""
-        return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and self_dev_us(e) > 0
-                and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
     from bitsandbytes_tpu_torch import autograd as A8
     from bitsandbytes_tpu_torch.functional import int8 as I8
     from bitsandbytes_tpu_torch.nn.modules import Int8TensorState
@@ -2396,25 +2894,6 @@ def main() -> int:
     serve_combines = Lyr * (steps * combines(batch, Gq, max_len) + combines(batch, Gq * prompt, max_len))
     ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
 
-    def by_class(events, named):
-        """Device ms and launches by kernel class: the (substring, label) pairs
-        of ``named`` first, then cuBLAS GEMMs, copies and casts, the rest."""
-        out = {}
-        for e in events:
-            label = next((lab for sub, lab in named if sub in e.key), None)
-            if label is None:
-                low = e.key.lower()
-                if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
-                    label = "GEMM (cuBLAS)"
-                elif "copy" in low or "cast" in low:
-                    label = "copies and casts"
-                else:
-                    label = "other PyTorch kernels"
-            c = out.setdefault(label, {"ms": 0.0, "launches": 0})
-            c["ms"] += self_dev_us(e) / 1e3
-            c["launches"] += e.count
-        return out
-
     def quantize_2d(layer):
         """A fused layer as the FSDP-QLoRA recipe stores it: bf16
         quant_storage (so the K-adjacent "2d" layout), NF4 blocksize 64,
@@ -2431,6 +2910,7 @@ def main() -> int:
     decode_profile = {}
 
     kept_bf16 = {}  # 4a's profiled load keeps its bf16 tree here for 4g
+    served_tokens = {}  # each serving path's greedy tokens, [batch, steps + 1]
 
     def serve(tag, compress, expected, keep=False, quantize=None, keep_bf16=False):
         torch.cuda.empty_cache()
@@ -2474,6 +2954,7 @@ def main() -> int:
         assert logits.shape == (batch, cfg.vocab_size) and torch.isfinite(logits).all()
         toks = torch.stack(tokens, 1)
         assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+        served_tokens[tag] = toks
         want = {k: 0 for k in counts}
         want.update(expected)
         assert counts == want, f"{tag}: launch counts {counts} != {want}"
@@ -2698,6 +3179,27 @@ def main() -> int:
     }, keep=True)
     for name in ("gemm_4bit_paired_dq", "dequantize_paired_fast_dq", "quantize_blockwise8"):
         report[name]["launches"] = counts[name]
+
+    # 4h. checkpoint interop at full width: (a) 4b's double-quantized model,
+    # still held, through a safetensors file and back onto the card, bit for
+    # bit, serving bit-identical logits on 4b's route; (b) 4a's bf16 weights
+    # under HF names through import_hf_llama("nf4"), unfused: kernel 1 once a
+    # linear, then kernels 3 and 2 once a linear a prefill and a decode step
+    short = 4
+
+    def short_combines(layers):
+        return layers * (short * combines(batch, Gq, max_len) + combines(batch, Gq * prompt, max_len))
+
+    checkpoint_round_trip(cfg, nested_params, ids, max_len, {
+        "dequantize_paired_fast_dq": 4 * Lyr, "gemm_4bit_paired_dq": 4 * Lyr * short,
+        "flash_attention_cached": Lyr * (short + 1), "flash_attention_combine": short_combines(Lyr)})
+    torch.cuda.empty_cache()
+    hf_import(cfg, ids, max_len, served_tokens["serve"], {
+        "dequantize_paired_fast": 7 * Lyr, "gemm_4bit_paired": 7 * Lyr * short,
+        "flash_attention_cached": Lyr * (short + 1), "flash_attention_combine": short_combines(Lyr)})
+    # 4i. the perplexity gate on the committed trained fixture, all 64 sequences
+    perplexity_gate(os.path.dirname(os.path.abspath(__file__)), dev)
+    torch.cuda.empty_cache()
 
     # 4c. the blockwise 8-bit round trip, nested, of an lm_head-sized tensor
     xl = torch.randn(32000, 4096, generator=gen, device=dev)
@@ -3611,6 +4113,12 @@ def main() -> int:
                  "max_abs_logit_diff": eng_diff, "launches": counts})
     del i8c, i8g, pc, pg, eng
     torch.cuda.empty_cache()
+
+    # -- 5g. checkpoint interop at 2 layers, card against CPU --------------
+    interop_cpu_check(L.LlamaConfig(
+        vocab_size=cfg.vocab_size // 4, hidden_size=cfg.hidden_size // 4,
+        intermediate_size=cfg.intermediate_size // 4, num_layers=2, num_heads=cfg.num_heads // 4,
+        num_kv_heads=cfg.num_kv_heads // 4, head_dim=cfg.head_dim), quantize_2d, dev)
 
     # -- 6. kernels line and result ---------------------------------------
     kernels = [report[n] for n in TPU_KERNELS]

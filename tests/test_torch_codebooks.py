@@ -52,3 +52,33 @@ def test_unit_values_are_the_bf16_patterns_of_the_paired_kernel(quant_type):
     patterns[1::2] = words >> 16
     np.testing.assert_array_equal(units.view(np.uint32) >> 16, patterns)
     np.testing.assert_array_equal(units.view(np.uint32) & 0xFFFF, 0)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("total_bits,add_zero", [(8, True), (8, False), (4, True), (3, False)])
+def test_linear_map_bit_identical(signed, total_bits, add_zero):
+    out = tcb.create_linear_map(signed=signed, total_bits=total_bits, add_zero=add_zero)
+    assert out.shape == (256,) and out.dtype == np.float32
+    np.testing.assert_array_equal(_bits(out), _bits(jcb.create_linear_map(signed, total_bits, add_zero)))
+
+
+@pytest.mark.parametrize("offset", [0.9677083, 0.99])
+@pytest.mark.parametrize("use_extra_value", [True, False])
+def test_normal_map_bit_identical(offset, use_extra_value):
+    out = tcb.create_normal_map(offset=offset, use_extra_value=use_extra_value)
+    assert out.shape == (256,) and out.dtype == np.float32
+    np.testing.assert_array_equal(_bits(out), _bits(jcb.create_normal_map(offset, use_extra_value)))
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("e,p", [(2, 1), (3, 0), (4, 3), (5, 2)])
+def test_fp8_map_bit_identical(e, p, signed):
+    total = e + p + (1 if signed else 0)
+    out = tcb.create_fp8_map(signed, e, p, total)
+    assert out.shape == (256,) and out.dtype == np.float32
+    np.testing.assert_array_equal(_bits(out), _bits(jcb.create_fp8_map(signed, e, p, total)))
+
+
+def test_linspace_f32_is_torch_linspace():
+    for num in (2, 9, 17, 129):
+        np.testing.assert_array_equal(_bits(tcb._linspace_f32(0.1, 1, num)), _bits(jcb._linspace_f32(0.1, 1, num)))

@@ -41,6 +41,39 @@ def test_importing_every_module_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+_BLOCKED = """
+import importlib, os, pkgutil, sys
+for name in ("jax", "jaxlib", "ml_dtypes", "safetensors", "bitsandbytes_tpu"):
+    sys.modules[name] = None  # any import of these raises ImportError
+import torch
+import bitsandbytes_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from bitsandbytes_tpu_torch.models import llama as L
+from bitsandbytes_tpu_torch.utils import serialization as S
+cfg = L.LlamaConfig(vocab_size=16, hidden_size=64, intermediate_size=64, num_layers=1, num_heads=1,
+                    num_kv_heads=1, head_dim=64)
+params = L.quantize_params_4bit(L.init_params(cfg, device="cpu"), compress_statistics=True)
+d = sys.argv[1]
+for save, load, name in ((S.save_checkpoint_safetensors, S.load_checkpoint_safetensors, "c.safetensors"),
+                         (S.save_checkpoint, S.load_checkpoint, "c.npz")):
+    save(os.path.join(d, name), params)
+    back = load(os.path.join(d, name), params, device="cpu")
+    assert torch.equal(back["layers"][0]["wq"].data, params["layers"][0]["wq"].data)
+    assert torch.equal(back["embed"], params["embed"])
+print("ok")
+"""
+
+
+def test_port_and_its_checkpoints_need_neither_ml_dtypes_nor_safetensors(tmp_path):
+    """Every module imports, and a bf16 tree round-trips through both file
+    formats, with jax, ml_dtypes, safetensors and the JAX package blocked."""
+    res = subprocess.run(
+        [sys.executable, "-c", _BLOCKED, str(tmp_path)], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stdout + res.stderr
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         if "_build" in dirpath:
