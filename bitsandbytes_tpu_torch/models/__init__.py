@@ -1,5 +1,7 @@
-"""Models served and fine-tuned on the quantized path."""
+"""Models served and fine-tuned on the quantized path: the Llama family
+(``llama``) and the GPT-2/OPT family (``gpt2``)."""
 
+from . import gpt2
 from .llama import (
     Int8KVCache,
     KVCache,
@@ -19,6 +21,7 @@ from .llama import (
 )
 
 __all__ = [
+    "gpt2",
     "Int8KVCache",
     "KVCache",
     "LlamaConfig",

@@ -2,18 +2,37 @@
 
 Every factory returns a :class:`BnbOptimizer` over ``params``.  Naming
 follows the reference library: the plain name takes ``optim_bits`` (default
-32), ``*8bit``/``*32bit`` fix the width, ``paged_*`` asks for paged states
-(not ported yet: they raise).  CamelCase names (``AdamW8bit``, ...) are the
-same factories.
+32), ``*8bit``/``*32bit`` fix the width, ``paged_*`` keeps the states of CUDA
+parameters in pinned host memory between steps (``paged``).  CamelCase
+names (``AdamW8bit``, ...) are the same factories.  Per-parameter options
+come from ``make_optimizer_with_overrides`` or ``GlobalOptimManager``.
 """
 
 from __future__ import annotations
 
 import functools
 
-from .base import BnbOptimizer, GlobalOptimManager, make_optimizer
+from .base import BnbOptimizer, make_optimizer
+from .compat import GlobalOptimManager, MockArgs, Optimizer1State, Optimizer2State, Optimizer8bit, PytorchLARS
+from .overrides import STABLE_EMBEDDING_RULE, make_optimizer_with_overrides, path_labels
+from .paged import make_paged_update, paged_state_sharding, to_host
 
-__all__ = ["BnbOptimizer", "GlobalOptimManager", "make_optimizer"]
+__all__ = [
+    "BnbOptimizer",
+    "GlobalOptimManager",
+    "MockArgs",
+    "Optimizer1State",
+    "Optimizer2State",
+    "Optimizer8bit",
+    "PytorchLARS",
+    "STABLE_EMBEDDING_RULE",
+    "make_optimizer",
+    "make_optimizer_with_overrides",
+    "make_paged_update",
+    "paged_state_sharding",
+    "path_labels",
+    "to_host",
+]
 
 
 def _family(name, fname, *, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0, lr=1e-3, **extra):

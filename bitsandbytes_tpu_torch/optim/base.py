@@ -18,10 +18,19 @@ each parameter steps alone, and an 8-bit one takes the blockwise dequantize
 (kernel 12), the clipped fp32 step, and the blockwise quantize (kernel 13)
 instead, as the JAX package does.  The steps run in place under
 ``torch.no_grad()``.
+
+With ``is_paged`` (a group option, so an override rule may set it) the
+states of a CUDA parameter are pinned host tensors (``optim/paged.py``):
+``optimizer.state`` and ``state_dict()`` hold them, and each step pages a
+group's states in to the card, runs the same update on the copies (the
+same launches), pages them out and waits for the copies, so a paged step
+gives the bits of an unpaged one.  A CPU parameter's paged states are
+plain CPU tensors, updated in place.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Callable, Optional, Union
 
@@ -36,25 +45,13 @@ from ..functional.optim_update import (
     optimizer_update_32bit,
 )
 from ..ops.optim8bit import RULES, StateCodes, StateLeaf, UpdateScalars, optimizer_update_leaves_
+from .paged import page_in, page_out
 
-__all__ = ["BnbOptimizer", "GlobalOptimManager", "make_optimizer"]
+__all__ = ["BnbOptimizer", "GROUP_OPTIONS", "make_optimizer"]
 
 _TWO_STATE = ("adam", "lamb", "ademamix")
 
 LearningRate = Union[float, Callable[[int], float]]
-
-
-class GlobalOptimManager:
-    """Per-parameter overrides of the optimizer config: not ported yet
-    (ROADMAP Queue 1, slice D, ``optim/overrides.py`` and ``optim/compat.py``)."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GlobalOptimManager is not ported yet (ROADMAP Queue 1, slice D: optim/overrides.py)")
-
-    @classmethod
-    def get_instance(cls):
-        return cls()
 
 
 def _ademamix_schedules(step: int, alpha: float, beta3: float, t_alpha, t_beta3):
@@ -76,8 +73,10 @@ def _ademamix_schedules(step: int, alpha: float, beta3: float, t_alpha, t_beta3)
 class BnbOptimizer(torch.optim.Optimizer):
     """One of the eight rules over ``params``, with 8-bit or 32-bit states.
 
-    ``lr`` may be a callable of the step (a schedule).  ``is_paged`` raises:
-    paged states (``optim/paged.py``) are not ported yet.  AdEMAMix takes
+    ``lr`` may be a callable of the step (a schedule).  ``is_paged`` keeps
+    the states of CUDA parameters in pinned host memory between steps.
+    Every option is also a param group's, so groups may differ in any of
+    them (``optim.make_optimizer_with_overrides``).  AdEMAMix takes
     ``max_unorm`` at 0 only, as in the JAX package."""
 
     def __init__(
@@ -104,14 +103,12 @@ class BnbOptimizer(torch.optim.Optimizer):
             raise ValueError(f"unknown optimizer {name!r}")
         if optim_bits not in (8, 32):
             raise ValueError("optim_bits must be 8 or 32")
-        if is_paged:
-            raise NotImplementedError("paged optimizer states are not ported yet "
-                                      "(ROADMAP Queue 1, slice D: optim/paged.py)")
         if name == "ademamix" and max_unorm > 0.0:
             raise NotImplementedError("ademamix does not use max_unorm")
         defaults = dict(lr=lr, beta1=beta1, beta2=beta2, beta3=beta3, alpha=alpha, t_alpha=t_alpha,
                         t_beta3=t_beta3, eps=eps, weight_decay=weight_decay, optim_bits=optim_bits,
-                        min_8bit_size=min_8bit_size, max_unorm=max_unorm, gnorm_scale=gnorm_scale)
+                        min_8bit_size=min_8bit_size, max_unorm=max_unorm, gnorm_scale=gnorm_scale,
+                        is_paged=is_paged)
         super().__init__(params, defaults)
         self.name = name
         self.qmap1 = create_dynamic_map(signed=True)
@@ -119,22 +116,48 @@ class BnbOptimizer(torch.optim.Optimizer):
         self.codes = StateCodes(self.qmap1, self.qmap2 if name in _TWO_STATE else None)
         self._leaves = {}  # parameter -> its StateLeaf, checked once
 
+    @staticmethod
+    def _paged(p: torch.Tensor, group: dict) -> bool:
+        """Whether ``p``'s states live in pinned host memory between steps."""
+        return group.get("is_paged", False) and p.is_cuda
+
     def _init_state(self, p: torch.Tensor, group: dict) -> dict:
         two = self.name in _TWO_STATE
         lead = (2,) if self.name == "ademamix" else ()
+        paged = self._paged(p, group)
+        where = dict(device="cpu", pin_memory=True) if paged else dict(device=p.device)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, **where)
+
         state = {"step": 0}
         if group["optim_bits"] == 8 and p.numel() >= group["min_8bit_size"]:
             nb = -(-p.numel() // BLOCKSIZE_8BIT_STATE)
-            state["state1"] = torch.zeros(lead + tuple(p.shape), dtype=torch.uint8, device=p.device)
-            state["absmax1"] = torch.zeros(lead + (nb,), dtype=torch.float32, device=p.device)
+            state["state1"] = zeros(lead + tuple(p.shape), torch.uint8)
+            state["absmax1"] = zeros(lead + (nb,), torch.float32)
             if two:
-                state["state2"] = torch.zeros(tuple(p.shape), dtype=torch.uint8, device=p.device)
-                state["absmax2"] = torch.zeros(nb, dtype=torch.float32, device=p.device)
+                state["state2"] = zeros(tuple(p.shape), torch.uint8)
+                state["absmax2"] = zeros(nb, torch.float32)
         else:
-            state["state1"] = torch.zeros(lead + tuple(p.shape), dtype=torch.float32, device=p.device)
+            state["state1"] = zeros(lead + tuple(p.shape), torch.float32)
             if two:
-                state["state2"] = torch.zeros(tuple(p.shape), dtype=torch.float32, device=p.device)
+                state["state2"] = zeros(tuple(p.shape), torch.float32)
         return state
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """``torch.optim.Optimizer.load_state_dict``, with each state tensor
+        copied in its own type (torch's would cast the uint8 codes and the
+        float32 absmax to a float parameter's type) to its parameter's
+        device, or to pinned host memory when the group is paged."""
+        super().load_state_dict(state_dict)
+        saved = state_dict["state"]
+        ids = [i for g in state_dict["param_groups"] for i in g["params"]]
+        for i, (p, group) in zip(ids, [(p, g) for g in self.param_groups for p in g["params"]]):
+            paged = self._paged(p, group)
+            for k, v in saved.get(i, {}).items():
+                if isinstance(v, torch.Tensor):
+                    t = v.to("cpu" if paged else p.device, copy=True)
+                    self.state[p][k] = t.pin_memory() if paged else t
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -144,6 +167,7 @@ class BnbOptimizer(torch.optim.Optimizer):
                 loss = closure()
         for group in self.param_groups:
             fused, flat = {}, {}  # (device, p and grad types, step[, shape]) -> parameters
+            host, dev, work = {}, {}, {}  # paged parameters: host states, their copies on the card, the state
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -151,6 +175,10 @@ class BnbOptimizer(torch.optim.Optimizer):
                 if not state:
                     state.update(self._init_state(p, group))
                 state["step"] += 1
+                if self._paged(p, group):
+                    host[p] = {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
+                    dev[p] = page_in(host[p], p.device)
+                    state = work[p] = dict(state, **dev[p])
                 if group["max_unorm"] > 0.0:
                     self._update(p, p.grad, state, group)
                     continue
@@ -160,9 +188,11 @@ class BnbOptimizer(torch.optim.Optimizer):
                 else:
                     flat.setdefault(key + (p.shape,), []).append(p)
             for (_, _, _, step), ps in fused.items():
-                self._update_8bit(ps, step, group)
+                self._update_8bit(ps, step, group, work)
             for (_, _, _, step, _), ps in flat.items():
-                self._update_32bit(ps, step, group)
+                self._update_32bit(ps, step, group, work)
+            if host:
+                page_out(host, dev)
         return loss
 
     def _hyper(self, step: int, group: dict) -> dict:
@@ -176,9 +206,13 @@ class BnbOptimizer(torch.optim.Optimizer):
                     weight_decay=group["weight_decay"], step=step, lr=lr, gnorm_scale=group["gnorm_scale"],
                     beta3=beta3, alpha=alpha)
 
-    def _leaf(self, p: torch.Tensor) -> StateLeaf:
+    def _leaf(self, p: torch.Tensor, work: dict) -> StateLeaf:
         """``p``'s StateLeaf, made again only when one of its state tensors
-        was replaced (``load_state_dict``)."""
+        was replaced (``load_state_dict``); a paged parameter's is made from
+        this step's copies on the card (``work[p]``) and not kept."""
+        if p in work:
+            st = work[p]
+            return StateLeaf(RULES[self.name], p, st["state1"], st.get("state2"), st["absmax1"], st.get("absmax2"))
         state, leaf = self.state[p], self._leaves.get(p)
         tensors = (state["state1"], state.get("state2"), state["absmax1"], state.get("absmax2"))
         if leaf is None or any(a is not b for a, b in zip((leaf.s1, leaf.s2, leaf.am1, leaf.am2), tensors)):
@@ -186,16 +220,18 @@ class BnbOptimizer(torch.optim.Optimizer):
             self._leaves[p] = leaf
         return leaf
 
-    def _update_8bit(self, ps: list, step: int, group: dict) -> None:
+    def _update_8bit(self, ps: list, step: int, group: dict, work: dict) -> None:
         """One fused 8-bit step over ``ps``: one kernel launch on CUDA."""
         sc = UpdateScalars.make(self.name, **self._hyper(step, group))
-        optimizer_update_leaves_(sc, [p.grad.contiguous() for p in ps], [self._leaf(p) for p in ps], self.codes)
+        optimizer_update_leaves_(sc, [p.grad.contiguous() for p in ps], [self._leaf(p, work) for p in ps],
+                                 self.codes)
 
-    def _update_32bit(self, ps: list, step: int, group: dict) -> None:
+    def _update_32bit(self, ps: list, step: int, group: dict, work: dict) -> None:
         """One elementwise fp32 step over ``ps``, tensors of one shape, and
-        their states, stacked on a new last dimension and copied back into
-        each: the per-tensor bits."""
-        states = [self.state[p] for p in ps]
+        their states (a paged parameter's copies on the card, ``work[p]``),
+        stacked on a new last dimension and copied back into each: the
+        per-tensor bits."""
+        states = [work.get(p, self.state[p]) for p in ps]
         s1 = [st["state1"] for st in states]
         s2 = [st["state2"] for st in states] if "state2" in states[0] else None
         new_p, n1, n2 = optimizer_update_32bit(
@@ -233,6 +269,10 @@ class BnbOptimizer(torch.optim.Optimizer):
             state["state1"].copy_(n1)
             if n2 is not None:
                 state["state2"].copy_(n2)
+
+
+# the options every param group carries: the constructor's keyword arguments
+GROUP_OPTIONS = frozenset(inspect.signature(BnbOptimizer.__init__).parameters) - {"self", "params", "name"}
 
 
 def make_optimizer(name: str, params, lr: LearningRate = 1e-3, **kwargs) -> BnbOptimizer:

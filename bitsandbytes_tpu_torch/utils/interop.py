@@ -24,6 +24,14 @@ uint32, int8) load as tensors of that type.
 :func:`kv_cache_from_numpy` carries a KV cache (dense bf16, dense int8 with
 its scales, or a paged pool with its tables) across, so that both packages
 decode from the same cache.
+
+:func:`module_from_numpy` loads a JAX-package module's params, as numpy
+(with or without the outer ``"params"``), into the port's module of the
+same kind, under the port's names: an embedding's ``embedding`` table is
+its ``weight``, StableEmbedding's ``LayerNorm_0`` ``scale``/``bias`` its
+``norm.weight``/``norm.bias``, and OutlierAwareLinear's ``kernel`` (``q``,
+``outlier_idx``, ``outlier_w``) its ``weight``, ``outlier_idx`` and
+``outlier_w``.  A GPT-2/OPT tree is a plain tree: :func:`params_from_numpy`.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 
 from ..functional.codebooks import is_dynamic_map
 from ..functional.quant_state import QuantState, dtype_from_name
+from ..nn import modules as M
 from ..nn.modules import Int8TensorState, QuantizedTensor
 from ..ops.dispatch import resolve_device
 
@@ -43,6 +52,7 @@ __all__ = [
     "lora_from_numpy",
     "optim_state_from_numpy",
     "kv_cache_from_numpy",
+    "module_from_numpy",
     "QUANTIZED_KEYS",
     "NESTED_KEYS",
     "INT8_KEYS",
@@ -220,3 +230,45 @@ def kv_cache_from_numpy(cache, device=None):
     if t["k_scale"] is not None:
         return llama.Int8KVCache(t["k"], t["v"], t["k_scale"], t["v_scale"])
     return llama.KVCache(t["k"], t["v"])
+
+
+def _expect(tree: dict, keys, what: str) -> None:
+    if set(tree) != set(keys):
+        raise ValueError(f"{what} takes the params {sorted(keys)}, got {sorted(tree)}")
+
+
+def module_from_numpy(module: torch.nn.Module, tree: dict, device=None) -> torch.nn.Module:
+    """Load a JAX-package module's params (numpy) into ``module``, a port
+    module of the same kind, on ``device`` (CUDA unless named); returns the
+    module.  The shapes must be the module's."""
+    device = resolve_device(device)
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    t = params_from_numpy(tree, device)
+    if isinstance(module, M.OutlierAwareLinear):
+        _expect(t, {"kernel", "bias"} if module.bias is not None else {"kernel"}, "OutlierAwareLinear")
+        _expect(t["kernel"], {"q", "outlier_idx", "outlier_w"}, "OutlierAwareLinear's kernel")
+        q, idx, w = t["kernel"]["q"], t["kernel"]["outlier_idx"], t["kernel"]["outlier_w"]
+        if not isinstance(q, Int8TensorState) or tuple(q.shape) != (module.out_features, module.in_features):
+            raise ValueError("OutlierAwareLinear's q must be an int8 weight of the module's shape")
+        module.weight, module.outlier_idx, module.outlier_w = q, idx.to(torch.int64), w.to(torch.float32)
+        if module.bias is not None:
+            module.bias = torch.nn.Parameter(t["bias"].to(module.compute_dtype))
+        return module
+    if not isinstance(module, M._LookupOpts):
+        raise TypeError(f"no JAX-package params map onto {type(module).__name__}")
+    want = (module.num_embeddings, module.embedding_dim)
+    if isinstance(module, M.StableEmbedding):
+        _expect(t, {"embedding", "LayerNorm_0"}, "StableEmbedding")
+        _expect(t["LayerNorm_0"], {"scale", "bias"}, "StableEmbedding's LayerNorm_0")
+        module.norm.weight = torch.nn.Parameter(t["LayerNorm_0"]["scale"].to(torch.float32))
+        module.norm.bias = torch.nn.Parameter(t["LayerNorm_0"]["bias"].to(torch.float32))
+    else:
+        _expect(t, {"embedding"}, type(module).__name__)
+    table = t["embedding"]
+    kind = {M.Embedding4bit: QuantizedTensor, M.Embedding8bit: Int8TensorState, M.Embedding: torch.Tensor}
+    cls = next(v for k, v in kind.items() if isinstance(module, k))
+    if not isinstance(table, cls) or tuple(table.shape) != want:
+        raise ValueError(f"{type(module).__name__}'s table must be a {cls.__name__} of shape {want}")
+    module.weight = torch.nn.Parameter(table.to(torch.float32)) if cls is torch.Tensor else table
+    return module

@@ -109,8 +109,23 @@ Phases (every one asserts; any failure exits non-zero before the result):
    (``tests/fixtures/quality_lm.*``) with the port's loader and holds its
    perplexity on all 64 eval sequences in bf16, NF4, NF4 with the absmax
    double-quantized, FP4, LLM.int8() and LLM.int8() at threshold 6 to the
-   bounds of ``tests/test_quality.py``.  The kernels' launch counts are
-   zeroed just before each path and read just after it.  4a and 4b also
+   bounds of ``tests/test_quality.py``.  4j trains 4d's adapters on 4d's
+   model again with ``paged_adamw8bit`` (states in pinned host memory,
+   paged in and out each step), then ``adamw32bit`` and
+   ``paged_adamw32bit``: losses, adapters and states bit for bit the
+   unpaged runs', every state pinned, kernel 14 once a step; the step time,
+   the page-in and page-out copies under the profiler, the device memory
+   between steps and at the peak.  4k runs the embeddings at Llama-3-8B
+   widths: ``EmbeddingNF4`` [32000, 4096] (kernel 1 to build, kernel 10 over
+   the 1024 gathered rows of an 8 x 128 lookup, timed against
+   ``F.embedding`` on the bf16 table and kernel 10 over the whole table),
+   ``Embedding8bit``, ``StableEmbedding`` with a ``Linear4bit`` gate trained
+   3 steps under ``GlobalOptimManager`` (the table at 32 bits, the rest
+   8-bit: kernel 14), and ``OutlierAwareLinear`` at the gate's shape against
+   ``Linear8bitLt``.  4l runs the GPT-2/OPT family at OPT-125M's widths in
+   bf16, NF4 (kernel 2 at M 8, kernel 3 + matmul at M 8 x 512) and int8.
+   The kernels' launch counts are zeroed just before each path and read
+   just after it.  4a and 4b also
    load the model once more under
    ``torch.profiler`` (device time by class: kernel 1, kernel 13, copies and
    casts, the rest) and check that layer 0's payloads and states equal those
@@ -143,7 +158,11 @@ Phases (every one asserts; any failure exits non-zero before the result):
    written on the card and read on the CPU and the reverse, npz and
    safetensors, bit for bit (the two safetensors files byte for byte),
    ``import_hf_llama`` in nf4, fp4 and int8 mode and ``dequantize_tree``
-   (kernel 10) on the card against the CPU.
+   (kernel 10) on the card against the CPU; then this slice's paths at 2
+   layers and a quarter of the widths (5h): ``GPT2Config.tiny()`` in NF4
+   and int8, the embeddings and ``OutlierAwareLinear``, and 3 steps of each
+   paged optimizer, paged against unpaged bit for bit, card against CPU;
+   and ``python -m bitsandbytes_tpu_torch`` as a subprocess, exit code 0.
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -729,6 +748,510 @@ def interop_cpu_check(cfg, quantize_2d, dev):
     emit("cpu_check_interop", layers=cfg.num_layers, hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
          vocab=cfg.vocab_size, files=report, seconds_per_variant=seconds, dequantize_tree=dq,
          import_hf_llama=imports, bit_identical=True)
+    torch.cuda.empty_cache()
+
+
+def state_tensors(opt, params):
+    """The state tensors of ``params`` in ``opt``, in order (no step counts)."""
+    return [t for p in params for t in opt.state[p].values() if hasattr(t, "is_pinned")]
+
+
+def paged_qlora(cfg, params, tids, ref, rank, alpha, chunk, steps):
+    """4j: 4d's QLoRA training (the same double-quantized model, adapters
+    from the same seed, the same ids) with ``paged_adamw8bit``, then
+    ``adamw32bit`` and ``paged_adamw32bit``: each paged run's losses,
+    adapters and states bit for bit the unpaged run's (``ref``: 4d's
+    ``adamw8bit`` after its five steps), every state pinned in host memory,
+    kernel 14 once a step; the step's wall time, the device memory between
+    steps and at the peak against the unpaged run, and one more step under
+    the profiler for the page-in and page-out copies (pinned to device and
+    back; the page-in's count includes kernel 14's descriptor table)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bitsandbytes_tpu_torch import optim as O
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = tids.device
+    Lyr = cfg.num_layers
+    runs, unpaged32 = {}, None
+    for fname in ("paged_adamw8bit", "adamw32bit", "paged_adamw32bit"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lora = L.add_lora(cfg, rank=rank, alpha=alpha, targets=LORA_TARGETS,
+                          generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        lparams = L.lora_parameters(lora)
+        opt = getattr(O, fname)(lparams, 1e-3)
+        paged = fname.startswith("paged_")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses, wall, between = [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = L.lora_train_step(params, lora, opt, tids, cfg, token_chunk=chunk)
+            losses.append(loss.item())  # synchronizes
+            wall.append((time.perf_counter() - t0) * 1e3)
+            between.append((torch.cuda.memory_allocated() - base, torch.cuda.memory_reserved()))
+        counts = launch_counts()
+        want = {k: 0 for k in counts}
+        want["dequantize_paired_fast_dq"] = steps * (8 * Lyr - 1)
+        if "8bit" in fname:
+            want["optimizer_update_8bit"] = steps
+        assert counts == want, f"4j {fname}: launch counts {counts} != {want}"
+        peak = torch.cuda.max_memory_allocated() - base
+        states = state_tensors(opt, lparams)
+        state_bytes = sum(t.numel() * t.element_size() for t in states)
+        assert all(t.is_pinned() for t in states) if paged else all(t.device == dev for t in states), fname
+        if fname == "adamw32bit":
+            unpaged32 = {"losses": losses, "adapters": [t.detach().clone() for t in lparams],
+                         "states": [t.clone() for t in states], "between": between[-1][0],
+                         "reserved": between[-1][1], "peak": peak}
+            runs[fname] = {"losses": losses, "step_ms": {"median_2_5": statistics.median(wall[1:]), "all": wall},
+                           "state_bytes": state_bytes, "allocated_between_steps": between[-1][0], "peak": peak}
+            del lora, lparams, opt, states, loss
+            continue
+        want_ref = ref if fname == "paged_adamw8bit" else unpaged32
+        assert losses == want_ref["losses"], f"4j {fname}: losses {losses} != {want_ref['losses']}"
+        assert all(bits_equal(a.detach(), b) for a, b in zip(lparams, want_ref["adapters"])), f"4j {fname}: adapters"
+        assert len(states) == len(want_ref["states"]) and all(
+            bits_equal(a.to(dev), b) for a, b in zip(states, want_ref["states"])), f"4j {fname}: states"
+        saved = want_ref["between"] - between[-1][0]
+        assert saved >= 0.99 * state_bytes, f"4j {fname}: {saved} bytes freed between steps, states {state_bytes}"
+
+        # one more step under the profiler: the page-in and page-out copies
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            L.lora_train_step(params, lora, opt, tids, cfg, token_chunk=chunk).item()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        events = device_events(prof)
+        copies = {}
+        for e in events:
+            for direction, key in (("page_in", "HtoD (Pinned -> Device)"), ("page_out", "DtoH (Device -> Pinned)")):
+                if key in e.key:
+                    c = copies.setdefault(direction, {"ms": 0.0, "copies": 0})
+                    c["ms"] += self_dev_us(e) / 1e3
+                    c["copies"] += e.count
+        assert set(copies) == {"page_in", "page_out"}, f"4j {fname}: copies {[e.key for e in events][:20]}"
+        for c in copies.values():
+            c["gb_s"] = state_bytes / (c["ms"] * 1e-3) / 1e9
+        dev_ms = sum(self_dev_us(e) for e in events) / 1e3
+        runs[fname] = {
+            "losses": losses, "bit_identical_to": "adamw8bit (4d)" if "8bit" in fname else "adamw32bit",
+            "step_ms": {"median_2_5": statistics.median(wall[1:]), "all": wall},
+            "launches_per_step": {k: v / steps for k, v in counts.items() if v},
+            "state_tensors": len(states), "state_bytes": state_bytes, "all_pinned": True,
+            "allocated_between_steps": between[-1][0], "reserved_between_steps": between[-1][1],
+            "unpaged_allocated_between_steps": want_ref["between"], "freed_between_steps": saved,
+            "unpaged_reserved_between_steps": want_ref["reserved"],
+            "peak": peak, "unpaged_peak": want_ref["peak"],
+            "profiled_step": {"wall_ms": prof_wall, "device_ms": dev_ms, "copies": copies,
+                              "page_share_of_device": sum(c["ms"] for c in copies.values()) / dev_ms}}
+        del lora, lparams, opt, states, loss, prof
+    emit("paged_qlora", config="llama3_8b", layers=Lyr, compress_statistics=True, lora_rank=rank, lora_alpha=alpha,
+         batch=tids.shape[0], seq=tids.shape[1] - 1, steps=steps, unpaged_adamw8bit_step_ms=ref["step_ms"],
+         runs=runs)
+    del unpaged32
+    torch.cuda.empty_cache()
+
+
+def embeddings_8b(dev, V=32000, D=4096, F_=14336):
+    """4k: the embeddings and the override optimizer at Llama-3-8B widths.
+    ``EmbeddingNF4`` on [32000, 4096] (built by kernel 1; a lookup of 8 x
+    128 ids is kernel 10 over [1024, 4096] rows), timed against
+    ``F.embedding`` on the bf16 table and kernel 10 over the whole table;
+    ``Embedding8bit`` on the same table; ``StableEmbedding`` and a
+    ``Linear4bit`` gate [14336, 4096] with a trained bias, 3 steps of
+    ``adamw`` under ``GlobalOptimManager`` (the embedding's table at 32
+    bits, the rest 8-bit: kernel 14 once a step for each parameter type);
+    ``OutlierAwareLinear`` on the gate's shape, topk 16, at M 8 and 2048
+    against ``Linear8bitLt`` at threshold 0.  Every launch counted."""
+    import torch
+    import torch.nn.functional as F
+
+    from bitsandbytes_tpu_torch import nn as N
+    from bitsandbytes_tpu_torch import optim as O
+    from bitsandbytes_tpu_torch.functional.codebooks import get_4bit_code
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.ops.gemm4bit import dequantize_4bit_2d, dequantize_4bit_2d_plain
+    from bitsandbytes_tpu_torch.utils.benchmark import cuda_time
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in launch_counts().items() if v}
+
+    def dev_ms(fn):
+        return cuda_time(fn, flush_l2=True, hold=True)["median"]
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(0, V, (8, 128), generator=gen, device=dev)
+    emb, c_build = counted(lambda: N.EmbeddingNF4(V, D, dtype=torch.bfloat16, device=dev, generator=gen))
+    assert c_build == {"quantize_4bit_codes": 1}, f"EmbeddingNF4 build: {c_build}"
+    out, c_look = counted(lambda: emb(ids))
+    assert c_look == {"dequantize_4bit_2d": 1}, f"EmbeddingNF4 lookup: {c_look}"
+    st = emb.weight.state
+    table = emb.weight.dequantize().to(torch.bfloat16)
+    assert out.shape == (8, 128, D) and out.dtype == torch.bfloat16
+    assert bits_equal(out, table[ids]), "the lookup differs from the whole table's rows"
+    # kernel 10 alone on the gathered rows, and its plain version on the card
+    flat = ids.reshape(-1)
+    rows = emb.weight.data.reshape(V, D // 2)[flat].reshape(-1)
+    absmax = st.absmax.reshape(V, D // st.blocksize)[flat].reshape(-1).contiguous()
+    code = get_4bit_code("nf4", st.blocksize)
+    k10 = lambda: dequantize_4bit_2d(rows, absmax, code, st.blocksize, (flat.numel(), D), torch.bfloat16)  # noqa: E731
+    plain = dequantize_4bit_2d_plain(rows, absmax, tuple(code.tolist()), st.blocksize, (flat.numel(), D),
+                                     torch.bfloat16)
+    assert bits_equal(k10(), plain), "kernel 10 differs from its plain version on the rows"
+    nbytes = rows.numel() + absmax.numel() * 4 + flat.numel() * D * 2
+    b_ms, b_by = bound_ms(nbytes, 0, PEAK_BF16_FLOPS)
+    lookup = {
+        "ids": list(ids.shape), "module_ms": dev_ms(lambda: emb(ids)), "kernel10_rows_ms": dev_ms(k10),
+        "plain_rows_ms": cuda_time(lambda: dequantize_4bit_2d_plain(
+            rows, absmax, tuple(code.tolist()), st.blocksize, (flat.numel(), D), torch.bfloat16))["median"],
+        "library_ms_F_embedding_bf16": dev_ms(lambda: F.embedding(ids, table)),
+        "kernel10_whole_table_ms": dev_ms(lambda: emb.weight.dequantize()), "bytes": nbytes,
+        "bound_ms": b_ms, "bound_by": b_by, "launches": c_look}
+    del table, rows, absmax, plain
+    e8, c8 = counted(lambda: N.Embedding8bit(V, D, dtype=torch.bfloat16, device=dev, generator=gen))
+    out8, c8l = counted(lambda: e8(ids))
+    assert not c8 and not c8l, f"Embedding8bit: {c8} {c8l}"
+    ref8 = (e8.weight.CB[ids].float() * (e8.weight.SCB[ids][..., None] / 127.0)).to(torch.bfloat16)
+    assert bits_equal(out8, ref8), "Embedding8bit lookup"
+    int8_lookup = {"module_ms": dev_ms(lambda: e8(ids)), "resident_bytes": e8.weight.CB.numel() + 4 * V}
+    nf4_bytes = emb.weight.data.numel() + st.absmax.numel() * 4
+    del emb, e8, out, out8, ref8
+
+    # StableEmbedding + Linear4bit gate under GlobalOptimManager
+    model = torch.nn.Module()
+    model.embedding = N.StableEmbedding(V, D, device=dev, generator=gen)
+    model.gate = N.Linear4bit(D, F_, device=dev, generator=gen)
+    model.gate.bias.requires_grad_(True)
+    mgr = O.GlobalOptimManager.get_instance()
+    mgr.initialize()
+    mgr.register_module_override(model.embedding, "weight", {"optim_bits": 32})
+    opt = mgr.build("adam", model, 1e-3, optim_bits=8, weight_decay=1e-2)
+    mgr.initialize()
+    losses, wall = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = model.gate(model.embedding(ids)).float().pow(2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        wall.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    # forward and backward each dequantize the gate once (M 1024); kernel 14
+    # once a step for the f32 norm and once for the bf16 bias
+    want = {"dequantize_paired_fast": 6, "optimizer_update_8bit": 6}
+    assert counts == want, f"4k override training: {counts} != {want}"
+    dtypes = {n: opt.state[p]["state1"].dtype for n, p in model.named_parameters() if p.requires_grad}
+    assert dtypes == {"embedding.weight": torch.float32, "embedding.norm.weight": torch.uint8,
+                      "embedding.norm.bias": torch.uint8, "gate.bias": torch.uint8}, dtypes
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    override = {"losses": losses, "step_ms": wall, "state_types": {k: str(v) for k, v in dtypes.items()},
+                "launches": counts, "groups": [{"optim_bits": g["optim_bits"], "params": len(g["params"])}
+                                               for g in opt.param_groups]}
+    del model, opt, loss
+
+    # OutlierAwareLinear against Linear8bitLt on one weight
+    W = torch.randn(F_, D, generator=gen, device=dev) * D**-0.5
+    oal = N.OutlierAwareLinear(D, F_, outlier_topk=16, device=dev, weight=W)
+    lt = N.Linear8bitLt(D, F_, threshold=0.0, device=dev)
+    lt.weight = N.Int8TensorState.quantize(W)
+    outlier = {}
+    for M in (8, 2048):
+        x = torch.randn(M, D, generator=gen, device=dev).to(torch.bfloat16)
+        (y, cy), (y8, c8) = counted(lambda: oal(x)), counted(lambda: lt(x))
+        assert not cy and not c8, f"OutlierAwareLinear M {M}: {cy} {c8}"
+        exact = x.float() @ W.t()
+        err = (y.float() - exact).abs().max().item() / exact.abs().max().item()
+        err8 = (y8.float() - exact).abs().max().item() / exact.abs().max().item()
+        assert torch.isfinite(y).all() and err < 0.05, f"OutlierAwareLinear M {M}: {err}"
+        outlier[f"M{M}"] = {"ms": dev_ms(lambda: oal(x)), "linear8bitlt_ms": dev_ms(lambda: lt(x)),
+                            "bf16_matmul_ms": dev_ms(lambda: x @ W.t().to(torch.bfloat16)),
+                            "rel_err": err, "linear8bitlt_rel_err": err8}
+    emit("embeddings_8b", vocab=V, hidden=D, lookup_nf4=lookup, nf4_table_bytes=nf4_bytes, lookup_int8=int8_lookup,
+         override_training=override, outlier_aware_linear=outlier)
+    torch.cuda.empty_cache()
+
+
+def opt125m_kernel_cases(tree, gen, dev):
+    """4l's kernel checks, outside the counted forwards: every linear of
+    every layer through kernel 2 at M 8 (bf16 A, as the forward gives it;
+    the f32 output against the plain version at rel 1e-3, the bf16 output
+    its cast, a second call bit for bit) and through kernel 3 (the bf16
+    weight the M 4096 forward multiplies, bit for bit against the plain
+    version and a second call).  K 768 splits into units of 128 columns,
+    a per-split K no ragged case of 3e has."""
+    import torch
+
+    from bitsandbytes_tpu_torch.functional.codebooks import get_4bit_code
+    from bitsandbytes_tpu_torch.ops import gemm4bit_paired as PT
+
+    cases, worst = {}, {}
+    for li, layer in enumerate(tree["layers"]):
+        for name in ("wqkv", "wo", "fc_in", "fc_out"):
+            qt = layer[name]
+            st = qt.state
+            assert st.layout == "paired" and not st.inline_nested, f"4l {name}: {st.layout}"
+            N, K = (int(s) for s in st.shape[-2:])
+            bs, code = st.blocksize, get_4bit_code(st.quant_type, st.blocksize)
+            units = PT._units(PT._code_tuple(code))
+            P, am_t = qt.data.reshape(N // 2, K), st.dequant_absmax_t()
+            A = torch.randn(8, K, generator=gen, device=dev).to(torch.bfloat16)
+            out = PT.gemm_4bit_paired(A, P, am_t, code, bs, (N, K), out_dtype=torch.float32)
+            ref = PT.gemm_4bit_paired_plain(A, P, am_t, units, bs)
+            rel = ((out - ref).abs().max() / ref.abs().max()).item()
+            assert rel <= 1e-3, f"4l layer {li} {name}: kernel 2 rel err {rel}"
+            out_bf = PT.gemm_4bit_paired(A, P, am_t, code, bs, (N, K))
+            assert torch.equal(out_bf, out.to(torch.bfloat16)), f"4l layer {li} {name}: kernel 2 bf16 output"
+            assert torch.equal(out_bf, PT.gemm_4bit_paired(A, P, am_t, code, bs, (N, K))), \
+                f"4l layer {li} {name}: kernel 2 a second call"
+            Wk = PT.dequantize_paired_fast(P, am_t, code, bs, torch.bfloat16)
+            assert bits_equal(Wk, PT.dequantize_paired_fast_plain(P, am_t, units, bs, torch.bfloat16)), \
+                f"4l layer {li} {name}: kernel 3"
+            assert bits_equal(Wk, PT.dequantize_paired_fast(P, am_t, code, bs, torch.bfloat16)), \
+                f"4l layer {li} {name}: kernel 3 a second call"
+            key = f"{name} N{N} K{K} bs{bs}"
+            cases[key] = cases.get(key, 0) + 1
+            worst[key] = max(worst.get(key, 0.0), rel)
+    return {"layers": len(tree["layers"]), "checked": cases, "kernel2_M8_max_rel_err": worst,
+            "kernel3_bits_equal": True}
+
+
+def opt125m(dev, cfg=None):
+    """4l: the GPT-2/OPT family at OPT-125M's widths, random weights from
+    seed 0, in bf16, NF4 (kernel 2 at M 8, kernel 3 + matmul at M 8 x 512)
+    and LLM.int8(): forward wall and device ms, tok/s, launches, resident
+    bytes, the split plans of kernel 2 at K 768 and 3072.  Gates: every
+    NF4 linear through kernels 2 and 3 against their plain versions
+    (``opt125m_kernel_cases``); the NF4 logits within atol 0.1 / rtol 0.05 of the same weights dequantized and
+    run through ``torch.matmul``, every greedy token in that run's top-5 (the
+    kernels' check); the NF4 and int8 greedy tokens of the 8 x 512 run in
+    the bf16 run's top-5 at 70% and 95% of the positions (random weights
+    leave the logits small margins, so NF4's quantization moves some
+    greedy tokens out of the bf16 top-5)."""
+    import torch
+
+    from bitsandbytes_tpu_torch.functional import gemm as G
+    from bitsandbytes_tpu_torch.models import gpt2 as G2
+    from bitsandbytes_tpu_torch.nn.parametrize import dequantize_tree
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.ops import gemm4bit_paired as PT
+
+    cfg = cfg or G2.GPT2Config.opt125m()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = G2.init_params(cfg, gen, device=dev)
+    shapes = {(8, 1): "kernel 2", (8, 512): "kernel 3 + matmul"}
+    assert 8 < G.LARGE_M_THRESHOLD <= 8 * 512
+    ids = {s: torch.randint(0, cfg.vocab_size, s, generator=gen, device=dev) for s in shapes}
+    sms = PT._sm_count(dev.index or 0)
+    D, F_ = cfg.hidden_size, cfg.intermediate_size
+    plans = {name: PT.gemm_plan(8, n, k, 64, sms) for name, (n, k) in
+             {"wqkv": (3 * D, D), "wo": (D, D), "fc_in": (F_, D), "fc_out": (D, F_)}.items()}
+    out, ref = {}, {}
+    for mode, quantize in (("bf16", lambda p: p), ("nf4", G2.quantize_params_4bit),
+                           ("int8", G2.quantize_params_int8)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        tree = quantize(params)
+        torch.cuda.synchronize()
+        load = {k: v for k, v in launch_counts().items() if v}
+        assert load == ({"quantize_4bit_codes": 4 * cfg.num_layers} if mode == "nf4" else {}), f"{mode}: {load}"
+        res = {"resident_bytes": tree_bytes(tree), "load_launches": load}
+        if mode == "nf4":
+            dequant = dequantize_tree(tree)
+            res["kernel_cases"] = opt125m_kernel_cases(tree, torch.Generator(device=dev).manual_seed(18), dev)
+        for shape, route in shapes.items():
+            x = ids[shape]
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            logits = G2.forward(tree, x, cfg)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            want = {}
+            if mode == "nf4":
+                want = {("gemm_4bit_paired" if shape[1] == 1 else "dequantize_paired_fast"): 4 * cfg.num_layers}
+            assert counts == want, f"4l {mode} {shape}: {counts} != {want}"
+            assert logits.shape == (*shape, cfg.vocab_size) and torch.isfinite(logits).all(), f"4l {mode} {shape}"
+            wall = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                G2.forward(tree, x, cfg)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            _, events, prof_wall = profiled(lambda: G2.forward(tree, x, cfg))
+            dev_ms = sum(self_dev_us(e) for e in events) / 1e3
+            entry = {"route": route if mode == "nf4" else "torch.matmul" if mode == "bf16" else "torch._int_mm",
+                     "wall_ms": statistics.median(wall), "device_ms": dev_ms, "device_busy_share": dev_ms / prof_wall,
+                     "tokens_per_s": shape[0] * shape[1] / (statistics.median(wall) * 1e-3), "launches": counts,
+                     "by_class": by_class(events, [("gemm_4bit_paired", "kernel 2"),
+                                                   ("dequantize_paired", "kernel 3")])}
+            if mode == "bf16":
+                ref[shape] = logits
+            else:
+                top5 = ref[shape].topk(5, dim=-1).indices
+                hit = (top5 == logits.argmax(-1, keepdim=True)).any(-1).float().mean().item()
+                entry["greedy_in_bf16_top5"] = hit
+                entry["max_abs_logit_diff"] = (logits - ref[shape]).abs().max().item()
+                if shape[1] > 1:  # 4096 positions: the share is stable there
+                    gate = 0.70 if mode == "nf4" else 0.95
+                    assert hit >= gate, f"4l {mode} {shape}: {hit} of the greedy tokens in the bf16 top-5 ({gate})"
+                if mode == "nf4":  # the kernels' gate: the same NF4 weights dequantized, through torch.matmul
+                    dq = G2.forward(dequant, x, cfg)
+                    assert torch.allclose(logits, dq, atol=0.1, rtol=0.05), f"4l nf4 {shape}: against dequantized"
+                    assert (dq.topk(5, dim=-1).indices == logits.argmax(-1, keepdim=True)).any(-1).all(), \
+                        f"4l nf4 {shape}: top-5 of the dequantized weights"
+                    entry["max_abs_diff_dequantized_bf16"] = (logits - dq).abs().max().item()
+            res[f"{shape[0]}x{shape[1]}"] = entry
+        out[mode] = res
+        del tree
+    emit("opt125m", config=dataclass_dict(cfg), kernel2_plans_M8=plans, modes=out)
+    torch.cuda.empty_cache()
+
+
+def dataclass_dict(cfg):
+    import dataclasses
+
+    return {k: str(v) if not isinstance(v, (int, float)) else v for k, v in dataclasses.asdict(cfg).items()}
+
+
+def slice18_cpu_check(dev):
+    """5h: this slice's paths at 2 layers and a quarter of the widths, card
+    against CPU: ``GPT2Config.tiny()`` in NF4 (bytes bit for bit; logits at
+    M 16 and 192 within atol 0.1 / rtol 0.05 and the card's greedy token in
+    the CPU's top-5) and int8 (top-5, and within int8's own move of the
+    logits, as 5f holds it); the embeddings and OutlierAwareLinear at a
+    quarter of the Llama-3-8B widths (kernels 1 and 10 bit for bit); 3 steps
+    of each paged optimizer, paged against unpaged on the card bit for bit
+    and against the CPU (8-bit bit for bit, 32-bit within rtol 1e-6), every
+    paged state pinned; then ``python -m bitsandbytes_tpu_torch`` as a
+    subprocess, its exit code 0."""
+    import torch
+
+    from bitsandbytes_tpu_torch import nn as N
+    from bitsandbytes_tpu_torch import optim as O
+    from bitsandbytes_tpu_torch.models import gpt2 as G2
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = G2.GPT2Config.tiny()
+    cpu_float = G2.init_params(cfg, torch.Generator().manual_seed(13), device="cpu")
+    gfloat = tree_to(cpu_float, dev)
+    gpt2 = {}
+    for mode, quantize in (("nf4", G2.quantize_params_4bit), ("int8", G2.quantize_params_int8)):
+        g, c = quantize(gfloat), quantize(cpu_float)
+        n, bad = tree_mismatches(g, c)
+        assert not bad, f"5h gpt2 {mode}: {bad[:4]}"
+        for shape, route in (((2, 8), "gemm_4bit_paired"), ((4, 48), "dequantize_paired_fast")):
+            x = torch.randint(0, cfg.vocab_size, shape, generator=torch.Generator().manual_seed(14))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            gl = G2.forward(g, x.to(dev), cfg).cpu()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            assert counts == ({route: 4 * cfg.num_layers} if mode == "nf4" else {}), f"5h gpt2 {mode}: {counts}"
+            cl = G2.forward(c, x, cfg)
+            diff = (gl - cl).abs().max().item()
+            if mode == "nf4":
+                assert torch.allclose(gl, cl, atol=0.1, rtol=0.05), f"5h gpt2 {mode} {shape}: logits"
+            else:  # as 5f: within int8's own move of the logits on the CPU (a 1-ulp bf16 change moves a row's step)
+                shift = (cl - G2.forward(cpu_float, x, cfg)).abs().max().item()
+                assert diff <= shift, f"5h gpt2 int8 {shape}: card - CPU {diff} beyond int8's displacement {shift}"
+            top5 = cl.topk(5, dim=-1).indices
+            assert (top5 == gl.argmax(-1, keepdim=True)).any(-1).all(), f"5h gpt2 {mode} {shape}: top-5"
+            gpt2[f"{mode}_{shape[0]}x{shape[1]}"] = {"max_abs_logit_diff": diff, "launches": counts, "leaves": n}
+    V, D = 8000, 1024
+    emb = {}
+    for name, make in (("nf4", N.EmbeddingNF4), ("fp4", N.EmbeddingFP4), ("int8", N.Embedding8bit),
+                       ("stable", N.StableEmbedding)):
+        mg = make(V, D, device=dev, generator=torch.Generator(device=dev).manual_seed(15))
+        mc = make(V, D, device="cpu", generator=torch.Generator().manual_seed(15))
+        if name == "stable":  # the two generators draw different tables: carry the card's across
+            mc.weight = torch.nn.Parameter(mg.weight.detach().cpu())
+        elif name != "int8":
+            W = torch.randn(V, D, generator=torch.Generator().manual_seed(16))
+            mg.weight = N.QuantizedTensor.quantize(W.to(dev), quant_type=name, layout="2d")
+            mc.weight = N.QuantizedTensor.quantize(W, quant_type=name, layout="2d")
+            assert bits_equal(mg.weight.data.cpu(), mc.weight.data), f"5h {name}: kernel 1 bytes"
+        else:
+            mc.weight = N.Int8TensorState(CB=mg.weight.CB.cpu(), SCB=mg.weight.SCB.cpu())
+        ids = torch.randint(0, V, (4, 64), generator=torch.Generator().manual_seed(17))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        og = mg(ids.to(dev)).cpu()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        oc = mc(ids)
+        if name in ("nf4", "fp4"):
+            assert counts == {"dequantize_4bit_2d": 1} and bits_equal(og, oc), f"5h {name}: {counts}"
+        else:
+            assert torch.allclose(og, oc, rtol=1e-5, atol=1e-5), f"5h {name}"
+        emb[name] = {"max_abs_diff": (og - oc).abs().max().item(), "launches": counts}
+    Wo = torch.randn(D, D, generator=torch.Generator().manual_seed(18)) * D**-0.5
+    og_lin = N.OutlierAwareLinear(D, D, outlier_topk=16, device=dev, weight=Wo.to(dev))
+    oc_lin = N.OutlierAwareLinear(D, D, outlier_topk=16, device="cpu", weight=Wo)
+    assert torch.equal(og_lin.outlier_idx.cpu(), oc_lin.outlier_idx) and bits_equal(og_lin.weight.CB.cpu(),
+                                                                                    oc_lin.weight.CB)
+    xo = torch.randn(64, D, generator=torch.Generator().manual_seed(19))
+    yo_g, yo_c = og_lin(xo.to(dev)).float().cpu(), oc_lin(xo).float()
+    assert torch.allclose(yo_g, yo_c, rtol=2 ** -7, atol=1e-2), "5h OutlierAwareLinear"
+    emb["outlier_aware_linear"] = {"max_abs_diff": (yo_g - yo_c).abs().max().item()}
+
+    paged = {}
+    shapes = [(D // 4 * 7, D), (D,), ()]  # a gate-sized tensor at a quarter width, a bias, a scale
+    for fname, unpaged, kw, kern in (
+            ("paged_adamw8bit", "adamw8bit", {}, "optimizer_update_8bit"),
+            ("paged_adamw32bit", "adamw32bit", {}, None),
+            ("paged_lion8bit", "lion8bit", {}, "optimizer_update_8bit"),
+            ("paged_ademamix8bit", "ademamix8bit", {"t_alpha": 1000, "t_beta3": 1000},
+             "optimizer_update_8bit_ademamix")):
+        g0 = torch.Generator().manual_seed(20)
+        p0 = [torch.randn(s, generator=g0) for s in shapes]
+        runs = {}
+        for tag, factory, where in ((fname, fname, dev), (unpaged, unpaged, dev), ("cpu", fname, "cpu")):
+            ps = [torch.nn.Parameter(p.clone().to(where)) for p in p0]
+            opt = getattr(O, factory)(ps, 1e-3, **kw)
+            gg = torch.Generator().manual_seed(21)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            for _ in range(3):
+                for p in ps:
+                    p.grad = (torch.randn(p.shape, generator=gg) * 0.01).to(where)
+                opt.step()
+            torch.cuda.synchronize()
+            runs[tag] = (ps, opt, {k: v for k, v in launch_counts().items() if v})
+        (pp, po, pc), (up, uo, _), (cp, co, _) = runs[fname], runs[unpaged], runs["cpu"]
+        if kern:
+            assert pc == {kern: 3}, f"5h {fname}: {pc}"
+        else:
+            assert not pc, f"5h {fname}: {pc}"
+        ps_states, us_states, cs_states = (state_tensors(o, p) for o, p in ((po, pp), (uo, up), (co, cp)))
+        assert all(t.is_pinned() for t in ps_states), f"5h {fname}: a state is not pinned"
+        assert all(bits_equal(a.detach().cpu(), b.detach().cpu()) for a, b in zip(pp, up)), f"5h {fname}: params"
+        assert all(bits_equal(a, b.cpu()) for a, b in zip(ps_states, us_states)), f"5h {fname}: states"
+        for a, b in zip(ps_states, cs_states):
+            if a.dtype == torch.uint8 or "8bit" in fname:
+                assert bits_equal(a, b), f"5h {fname}: a state differs from the CPU's"
+            else:
+                assert torch.allclose(a, b, rtol=1e-6, atol=0), f"5h {fname}: a 32-bit state"
+        p_err = max((a.detach().cpu() - b.detach()).abs().max().item() for a, b in zip(pp, cp))
+        assert p_err <= 1e-6, f"5h {fname}: parameters {p_err} from the CPU's"
+        paged[fname] = {"launches": pc, "state_tensors": len(ps_states), "max_abs_param_diff_cpu": p_err}
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "bitsandbytes_tpu_torch"], cwd=os.path.dirname(os.path.abspath(
+        __file__)), capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0 and "Installation looks healthy" in res.stdout, res.stdout[-2000:] + res.stderr[-2000:]
+    emit("cpu_check_slice18", gpt2=gpt2, embeddings=emb, paged=paged,
+         diagnostics={"returncode": res.returncode, "seconds": time.perf_counter() - t0,
+                      "last_lines": res.stdout.strip().splitlines()[-4:]})
     torch.cuda.empty_cache()
 
 
@@ -3234,6 +3757,7 @@ def main() -> int:
     assert tb * tt >= G.LARGE_M_THRESHOLD and tb * tt >= G.BACKWARD_LARGE_M_THRESHOLD
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
     lora = L.add_lora(cfg, rank=rank, alpha=alpha, targets=LORA_TARGETS,
                       generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     lparams = L.lora_parameters(lora)
@@ -3271,6 +3795,12 @@ def main() -> int:
     states = [opt.state[t] for t in lparams if t.dim() > 0]
     assert all(st["state1"].dtype == torch.uint8 for st in states), "every adapter tensor keeps 8-bit states"
     train_peak = torch.cuda.max_memory_allocated()
+    # what 4j's paged runs must give bit for bit: the adapters and states after the five steps
+    ref_4d = {"losses": list(losses), "step_ms": {"median_2_5": statistics.median(train_ms[1:]), "all": train_ms},
+              "between": torch.cuda.memory_allocated() - base_alloc, "reserved": torch.cuda.memory_reserved(),
+              "peak": train_peak - base_alloc}
+    ref_4d.update(adapters=[t.detach().clone() for t in lparams],
+                  states=[t.clone() for t in state_tensors(opt, lparams)])
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3297,7 +3827,12 @@ def main() -> int:
                         "by_class": classes, "top_kernels_ms": top})
     report["optimizer_update_8bit"]["launches"] = counts["optimizer_update_8bit"]
     opt.step = opt_step
-    del lora, lparams, opt, states, nested_params, tids, loss, prof
+    del lora, lparams, opt, states, loss, prof
+    torch.cuda.empty_cache()
+
+    # -- 4j. paged QLoRA: 4d with paged_adamw8bit, then adamw32bit paged and not --
+    paged_qlora(cfg, nested_params, tids, ref_4d, rank, alpha, chunk, tsteps)
+    del nested_params, tids, ref_4d
     torch.cuda.empty_cache()
 
     # -- 4e. the continuous-batching engine at full width, on 4a's model ----
@@ -3559,6 +4094,12 @@ def main() -> int:
     opt.step = opt_step
     del lora, lparams, opt, states, kq_params, tids, loss, prof
     torch.cuda.empty_cache()
+
+    # -- 4k. the embeddings and the override optimizer at Llama-3-8B widths --
+    embeddings_8b(dev)
+
+    # -- 4l. the GPT-2/OPT family at OPT-125M's widths: bf16, NF4 and int8 --
+    opt125m(dev)
 
     # -- 5. both paths on the card and on the CPU, 2 layers ----------------
     cfg2 = L.LlamaConfig.llama3_8b(num_layers=2)
@@ -4119,6 +4660,9 @@ def main() -> int:
         vocab_size=cfg.vocab_size // 4, hidden_size=cfg.hidden_size // 4,
         intermediate_size=cfg.intermediate_size // 4, num_layers=2, num_heads=cfg.num_heads // 4,
         num_kv_heads=cfg.num_kv_heads // 4, head_dim=cfg.head_dim), quantize_2d, dev)
+
+    # -- 5h. GPT-2/OPT, the embeddings and the paged optimizers, card against CPU --
+    slice18_cpu_check(dev)
 
     # -- 6. kernels line and result ---------------------------------------
     kernels = [report[n] for n in TPU_KERNELS]

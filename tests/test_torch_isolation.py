@@ -74,6 +74,70 @@ def test_port_and_its_checkpoints_need_neither_ml_dtypes_nor_safetensors(tmp_pat
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stdout + res.stderr
 
 
+_BLOCKED_SURFACE = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "safetensors", "bitsandbytes_tpu"):
+    sys.modules[name] = None  # any import of these raises ImportError
+import torch
+from bitsandbytes_tpu_torch import nn, optim
+from bitsandbytes_tpu_torch.models import gpt2 as G
+g = torch.Generator().manual_seed(0)
+ids = torch.tensor([[1, 2, 3]])
+for mod in (nn.EmbeddingNF4(16, 64, device="cpu", generator=g), nn.EmbeddingFP4(16, 33, device="cpu", generator=g),
+            nn.Embedding8bit(16, 64, device="cpu", generator=g), nn.Embedding(16, 64, device="cpu", generator=g),
+            nn.StableEmbedding(16, 64, device="cpu", generator=g)):
+    assert mod(ids).shape == (1, 3, mod.embedding_dim)
+lin = nn.OutlierAwareLinear(64, 32, outlier_topk=4, device="cpu", generator=g)
+assert lin(torch.randn(2, 64, generator=g)).shape == (2, 32)
+model = torch.nn.Module()
+model.embedding = nn.StableEmbedding(64, 64, device="cpu", generator=g)
+model.proj = torch.nn.Linear(64, 64)
+mgr = optim.GlobalOptimManager.get_instance()
+mgr.register_module_override(model.embedding, "weight", {"optim_bits": 32})
+for opt in (mgr.build("adam", model, optim_bits=8, min_8bit_size=64),
+            optim.paged_adamw8bit(list(model.parameters()), min_8bit_size=64)):
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+cfg = G.GPT2Config.tiny()
+params = G.init_params(cfg, g, device="cpu")
+for tree in (params, G.quantize_params_4bit(params), G.quantize_params_int8(params)):
+    assert torch.isfinite(G.forward(tree, ids, cfg)).all()
+import runpy
+sys.argv = ["bitsandbytes_tpu_torch", "--device", "cpu"]
+try:
+    runpy.run_module("bitsandbytes_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+print("ok")
+"""
+
+
+def test_new_surface_runs_with_jax_blocked():
+    """The embeddings, OutlierAwareLinear, the override and paged
+    optimizers, the GPT-2/OPT model and the diagnostics CLI run with jax,
+    flax, optax, ml_dtypes, safetensors and the JAX package blocked."""
+    res = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_SURFACE], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("args,rc", [([], 1), (["--device", "cpu"], 0)], ids=["default_cuda", "cpu"])
+def test_diagnostics_cli(args, rc):
+    """``python -m bitsandbytes_tpu_torch``: without a GPU it says so and
+    exits non-zero; ``--device cpu`` checks the plain versions and exits 0."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    res = subprocess.run([sys.executable, "-m", "bitsandbytes_tpu_torch", *args], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == rc, res.stdout + res.stderr
+    if rc:
+        assert "--device cpu" in res.stderr and "healthy" not in res.stdout
+    else:
+        assert "Installation looks healthy" in res.stdout and "torch:" in res.stdout
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         if "_build" in dirpath:

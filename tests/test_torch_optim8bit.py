@@ -244,11 +244,15 @@ def test_optimizer_steps_like_make_optimizer(factory):
 
 
 def test_unported_options_raise():
+    """What the port does not take raises (AdEMAMix under max_unorm, as in
+    the JAX package); paged states and GlobalOptimManager, which raised
+    before they were ported, now build (``test_torch_paged.py``,
+    ``test_torch_optim_overrides.py``)."""
     p = [torch.zeros(4096, requires_grad=True)]
-    with pytest.raises(NotImplementedError, match="paged"):
-        TO.paged_adamw8bit(p)
-    with pytest.raises(NotImplementedError, match="GlobalOptimManager"):
-        TO.GlobalOptimManager.get_instance()
+    with pytest.raises(NotImplementedError, match="max_unorm"):
+        TO.ademamix8bit(p, max_unorm=1.0)
+    assert all(g["is_paged"] for g in TO.paged_adamw8bit(p).param_groups)
+    assert isinstance(TO.GlobalOptimManager.get_instance(), TO.GlobalOptimManager)
     assert TO.AdamW8bit is TO.adamw8bit
 
 
