@@ -13,8 +13,12 @@ double-quantized absmax in the kernel), flash attention over a bf16 KV
 cache, the 8-bit blockwise optimizers (``optim``) and LLM.int8() (the int8
 ops of ``functional``, :func:`matmul` with its backward, ``nn.Linear8bitLt``),
 serving the Llama family through prefill and greedy decode, on 4-bit or int8
-weights, fine-tuning it with QLoRA, and checkpoints in the reference's
-serialized names (``utils.serialization``: npz, safetensors, HF Llama import).
+weights, fine-tuning it with QLoRA, checkpoints in the reference's
+serialized names (``utils.serialization``: npz, safetensors, HF Llama import),
+serving over a mesh of ranks (``parallel``: sharded weights and KV caches,
+packed-payload collectives, ``forward(mesh=)`` and the engine), the MoE FFN
+with expert parallelism (``models.moe``) and the host quantizer
+(``utils.native``).
 """
 
 from . import functional, nn, optim

@@ -1,7 +1,8 @@
 """Models served and fine-tuned on the quantized path: the Llama family
-(``llama``) and the GPT-2/OPT family (``gpt2``)."""
+(``llama``), the GPT-2/OPT family (``gpt2``) and the MoE FFN on 4-bit
+experts (``moe``)."""
 
-from . import gpt2
+from . import gpt2, moe
 from .llama import (
     Int8KVCache,
     KVCache,
@@ -22,6 +23,7 @@ from .llama import (
 
 __all__ = [
     "gpt2",
+    "moe",
     "Int8KVCache",
     "KVCache",
     "LlamaConfig",

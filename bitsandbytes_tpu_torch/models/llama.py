@@ -45,8 +45,16 @@ import torch.utils.checkpoint
 from .. import autograd
 from ..nn.modules import Int8TensorState, QuantizedTensor
 from ..ops.dispatch import resolve_device
-from ..ops.flash_cached import GT_MAX, flash_attention_cached, flash_attention_paged
+from ..ops.flash_cached import (
+    GT_MAX,
+    flash_attention_cached,
+    flash_attention_cached_tp,
+    flash_attention_paged,
+    flash_attention_paged_tp,
+    tp_slices,
+)
 from ..ops.quant4bit import QUANTIZE_DTYPES
+from ..parallel.sharding import Sharded
 
 __all__ = [
     "LlamaConfig",
@@ -351,8 +359,13 @@ def _add_lora(out, x, lora):
 
 def _apply_linear(x, w, lora=None, threshold: float = 0.0):
     """Dispatch on the weight's type, then add the LoRA delta if any.
-    ``threshold`` is LLM.int8()'s outlier threshold on an int8 weight."""
-    if isinstance(w, QuantizedTensor):
+    ``threshold`` is LLM.int8()'s outlier threshold on an int8 weight.  A
+    :class:`~bitsandbytes_tpu_torch.parallel.Sharded` weight computes this
+    rank's piece through the same dispatch and puts the output together over
+    its mesh."""
+    if isinstance(w, Sharded):
+        out = w.linear(x, lambda xl, wl: _apply_linear(xl, wl, None, threshold))
+    elif isinstance(w, QuantizedTensor):
         out = autograd.matmul_4bit(x, w.data, w.state)
     elif isinstance(w, Int8TensorState):
         out = autograd.matmul(x, None, autograd.MatmulLtState(CB=w.CB, SCB=w.SCB, threshold=threshold))
@@ -442,12 +455,15 @@ def _write_rows(dst, rows, new):
     dst[i, :, j] = torch.where(keep.view(-1, *[1] * (new.dim() - 1)), new, dst[i, :, j])
 
 
-def _cached_attention(q, k, v, cache, li, start_pos, rows, cfg):
+def _cached_attention(q, k, v, cache, li, start_pos, rows, cfg, mesh=None, tp=None):
     """Write this step's K/V (quantized for an int8 cache, with their
     scales) into layer ``li`` of the dense cache in place, then run the
     flash kernel over it, chunked over T so the folded rows stay within
     ``GT_MAX``.  ``rows`` (:func:`_decode_rows`) for per-slot decode, else
-    None."""
+    None.  Over a mesh, ``cache`` is this rank's piece and ``tp`` its
+    ``(slots, heads)`` slices (``ops/flash_cached.tp_slices``): it writes
+    its piece of the new K/V, and the attention runs through
+    ``flash_attention_cached_tp``."""
     _no_grad_check(q, k, v)
     B, T, H, hd = q.shape
     KVH = cfg.num_kv_heads
@@ -457,6 +473,8 @@ def _cached_attention(q, k, v, cache, li, start_pos, rows, cfg):
     cks = cache.k_scale[li] if int8 else None
     cvs = cache.v_scale[li] if int8 else None
     k_w, v_w, k_s, v_s = _to_cache(k.transpose(1, 2), v.transpose(1, 2), ck.dtype)  # [B, KVH, T, hd]
+    if tp is not None:
+        k_w, v_w, k_s, v_s = (None if t is None else t[tp] for t in (k_w, v_w, k_s, v_s))
     if rows is not None:
         _write_rows(ck, rows, k_w[:, :, 0])
         _write_rows(cv, rows, v_w[:, :, 0])
@@ -477,19 +495,24 @@ def _cached_attention(q, k, v, cache, li, start_pos, rows, cfg):
         Tc = min(Tc_max, T - off)
         # contiguous: with G = 1 (no grouped heads) the reshape is a strided view
         qf = q[:, off : off + Tc].permute(0, 2, 1, 3).reshape(B, KVH, G * Tc, hd).contiguous()
-        out = flash_attention_cached(
-            qf, ck, cv, lengths - (T - 1) + (off + Tc - 1), T=Tc, k_scale=cks, v_scale=cvs,
-            window=cfg.sliding_window,
-        )
+        lens = lengths - (T - 1) + (off + Tc - 1)
+        if mesh is not None:
+            out = flash_attention_cached_tp(mesh, qf, ck, cv, lens, T=Tc, k_scale=cks, v_scale=cvs,
+                                            window=cfg.sliding_window)
+        else:
+            out = flash_attention_cached(qf, ck, cv, lens, T=Tc, k_scale=cks, v_scale=cvs, window=cfg.sliding_window)
         chunks.append(out.reshape(B, KVH, G, Tc, hd))
     attn = torch.cat(chunks, dim=3) if len(chunks) > 1 else chunks[0]
     return attn.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd)
 
 
-def _paged_attention(q, k, v, cache, li, start_pos, rows, cfg):
+def _paged_attention(q, k, v, cache, li, start_pos, rows, cfg, mesh=None, tp=None):
     """Per-slot decode over the block pool: write each slot's new K/V at
     ``tables[b, pos // BS]``, row ``pos % BS`` of layer ``li`` in place
-    (``rows`` from :func:`_decode_rows`), then run the paged flash kernel."""
+    (``rows`` from :func:`_decode_rows`), then run the paged flash kernel.
+    Over a mesh the pool is this rank's KV heads, every slot writes its rows
+    of those heads, and the attention runs through
+    ``flash_attention_paged_tp``."""
     _no_grad_check(q, k, v)
     B, T, H, hd = q.shape
     KVH = cfg.num_kv_heads
@@ -499,15 +522,21 @@ def _paged_attention(q, k, v, cache, li, start_pos, rows, cfg):
     pks = cache.k_scale[li] if int8 else None
     pvs = cache.v_scale[li] if int8 else None
     k_w, v_w, k_s, v_s = _to_cache(k.transpose(1, 2), v.transpose(1, 2), pk.dtype)  # [B, KVH, 1, hd]
+    if tp is not None:  # the pool holds every slot: this rank's heads only
+        k_w, v_w, k_s, v_s = (None if t is None else t[:, tp[1]] for t in (k_w, v_w, k_s, v_s))
     _write_rows(pk, rows, k_w[:, :, 0])
     _write_rows(pv, rows, v_w[:, :, 0])
     if int8:
         _write_rows(pks, rows, k_s[:, :, 0])
         _write_rows(pvs, rows, v_s[:, :, 0])
     qf = q.permute(0, 2, 1, 3).reshape(B, KVH, G, hd)
-    out = flash_attention_paged(
-        qf, pk, pv, cache.tables, start_pos, T=1, k_scale=pks, v_scale=pvs, window=cfg.sliding_window
-    )
+    if mesh is not None:
+        out = flash_attention_paged_tp(mesh, qf, pk, pv, cache.tables, start_pos, T=1, k_scale=pks, v_scale=pvs,
+                                       window=cfg.sliding_window)
+    else:
+        out = flash_attention_paged(
+            qf, pk, pv, cache.tables, start_pos, T=1, k_scale=pks, v_scale=pvs, window=cfg.sliding_window
+        )
     return out.reshape(B, KVH, G, 1, hd).permute(0, 3, 1, 2, 4).reshape(B, T, H * hd)
 
 
@@ -520,6 +549,7 @@ def forward(
     lora: Optional[dict] = None,
     return_hidden: bool = False,
     int8_threshold: float = 0.0,
+    mesh=None,
 ):
     """Run the transformer over ``ids [B, T]``.
 
@@ -533,10 +563,21 @@ def forward(
     hidden states ``[B, T, D]`` in place of the logits when
     ``return_hidden`` (the chunked loss applies the lm_head itself).
     ``int8_threshold`` turns on LLM.int8()'s outlier decomposition in every
-    int8 linear, the lm_head's included."""
+    int8 linear, the lm_head's included.
+
+    ``mesh`` (a ``parallel.Mesh``) serves over several ranks: ``params`` is
+    this rank's tree from ``parallel.llama_param_specs`` and ``cache`` its
+    piece from ``parallel.shard_kv_cache``, as the JAX package's engine
+    places them.  Replicated weights compute whole on every rank; a split
+    linear computes its rows through the kernels and gathers its output
+    (``parallel.Sharded.linear``), the vocab-split embedding is a masked
+    lookup plus a sum over the axis, and the cached attention runs on this
+    rank's KV heads (and slots) through ``flash_attention_*_tp``.  Every rank
+    ends with the same logits, bit for bit."""
     B, T = ids.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    x = params["embed"][ids].to(cfg.dtype)
+    emb = params["embed"]
+    x = (emb.embedding(ids) if isinstance(emb, Sharded) else emb[ids]).to(cfg.dtype)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.hidden_size**0.5, dtype=cfg.dtype)
     vector_pos = isinstance(start_pos, torch.Tensor) and start_pos.dim() == 1
@@ -553,7 +594,13 @@ def forward(
         positions = start_pos.to(ids.device)[:, None]
     else:
         positions = (start_pos + torch.arange(T, device=ids.device))[None, :].expand(B, T)
-    rows = _decode_rows(cache, start_pos) if vector_pos and cache is not None else None
+    # this rank's (slots, KV heads) of the cache
+    tp = tp_slices(mesh, KVH, B)[:2] if mesh is not None and cache is not None else None
+    rows = None
+    if vector_pos and cache is not None:
+        # a dense cache's piece holds this rank's slots; a pool holds every slot
+        mine = start_pos if tp is None or isinstance(cache, PagedKVCache) else start_pos[tp[0]]
+        rows = _decode_rows(cache, mine)
 
     for li, layer in enumerate(params["layers"]):
         l_lora = lora["layers"][li] if lora is not None else {}
@@ -579,9 +626,9 @@ def forward(
         v = v.reshape(B, T, KVH, hd)
 
         if isinstance(cache, PagedKVCache):
-            attn = _paged_attention(q, k, v, cache, li, start_pos, rows, cfg)
+            attn = _paged_attention(q, k, v, cache, li, start_pos, rows, cfg, mesh, tp)
         elif cache is not None:
-            attn = _cached_attention(q, k, v, cache, li, start_pos, rows, cfg)
+            attn = _cached_attention(q, k, v, cache, li, start_pos, rows, cfg, mesh, tp)
         else:
             valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
             attn = _attention(q, k, v, positions, valid, cfg)
@@ -613,15 +660,15 @@ def lm_logits(params: dict, h: torch.Tensor, int8_threshold: float = 0.0) -> tor
 
 
 @torch.no_grad()
-def prefill(params, ids, cfg, cache, lora=None):
-    return forward(params, ids, cfg, cache=cache, start_pos=0, lora=lora)
+def prefill(params, ids, cfg, cache, lora=None, mesh=None):
+    return forward(params, ids, cfg, cache=cache, start_pos=0, lora=lora, mesh=mesh)
 
 
 @torch.no_grad()
-def decode_step(params, token, cfg, cache, pos, lora=None):
+def decode_step(params, token, cfg, cache, pos, lora=None, mesh=None):
     """One decode step: ``token [B]`` at position ``pos`` (an int, or a
     per-slot ``[B]`` tensor).  Returns ``(logits [B, V], cache)``."""
-    logits, cache = forward(params, token[:, None], cfg, cache=cache, start_pos=pos, lora=lora)
+    logits, cache = forward(params, token[:, None], cfg, cache=cache, start_pos=pos, lora=lora, mesh=mesh)
     return logits[:, 0], cache
 
 

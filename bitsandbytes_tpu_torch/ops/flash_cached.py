@@ -21,6 +21,11 @@ multiplies the f32 score after the dot, m and l come from the unscaled
 probabilities, and the V scale multiplies the probabilities before they are
 rounded to bf16 for the PV product.  (The JAX package's CPU fallback
 dequantizes K/V to bf16 before the dot instead; the port does not mirror it.)
+
+Over a mesh (``parallel.Mesh``), :func:`flash_attention_cached_tp` and
+:func:`flash_attention_paged_tp` run the same kernels on each rank's KV
+heads (and slots), as the JAX package's ``shard_map`` wrappers split them,
+and gather the outputs.
 """
 
 from __future__ import annotations
@@ -41,6 +46,10 @@ __all__ = [
     "flash_attention_paged_plain",
     "flash_attention_combine",
     "flash_attention_combine_plain",
+    "tp_axes",
+    "tp_slices",
+    "flash_attention_cached_tp",
+    "flash_attention_paged_tp",
 ]
 
 _NEG_INF = -1e30
@@ -306,3 +315,76 @@ def flash_attention_paged(
          v_scale.data_ptr() if int8 else None, tables.data_ptr(), lengths.data_ptr()),
         (B, KVH, GT, MAXB, BS, hd, T, -1 if window is None else window, float(hd**-0.5), int(int8)),
         B, KVH, GT, MAXB * BS, hd)
+
+
+# -- over a mesh: attention split by KV heads (and batch rows) ------------------
+#
+# Attention is independent across KV heads and across slots, so each rank
+# runs the kernel on its heads over the ``model`` axis and, where the batch
+# divides, its slots over ``data``, with no collective inside; the outputs
+# are gathered back over both axes.  ``mesh`` is a ``parallel.Mesh``.
+
+
+def tp_axes(mesh, n_kvh: int, n_batch: int, model_axis: str = "model", data_axis: str = "data"):
+    """``(batch_axis | None, head_axis | None)``: the axes of ``mesh`` larger
+    than 1 that divide the batch and the KV heads, as the JAX package splits
+    them; both None sends the call unmapped."""
+    ma = model_axis if mesh.axis_size(model_axis) > 1 and n_kvh % mesh.axis_size(model_axis) == 0 else None
+    da = data_axis if mesh.axis_size(data_axis) > 1 and n_batch % mesh.axis_size(data_axis) == 0 else None
+    return da, ma
+
+
+def tp_slices(mesh, n_kvh: int, n_batch: int, model_axis: str = "model", data_axis: str = "data"):
+    """This rank's ``(batch slice, head slice, batch_axis, head_axis)``
+    under :func:`tp_axes`."""
+    da, ma = tp_axes(mesh, n_kvh, n_batch, model_axis, data_axis)
+    nb = n_batch // mesh.axis_size(da) if da else n_batch
+    nh = n_kvh // mesh.axis_size(ma) if ma else n_kvh
+    b0 = mesh.index(da) * nb if da else 0
+    h0 = mesh.index(ma) * nh if ma else 0
+    return slice(b0, b0 + nb), slice(h0, h0 + nh), da, ma
+
+
+def _gather_out(mesh, out: torch.Tensor, da, ma) -> torch.Tensor:
+    if ma is not None:
+        out = mesh.all_gather(out, ma, dim=1)
+    if da is not None:
+        out = mesh.all_gather(out, da, dim=0)
+    return out
+
+
+def flash_attention_cached_tp(mesh, q, k, v, lengths, *, T: int, k_scale=None, v_scale=None, window=None,
+                              out_dtype=None, model_axis: str = "model", data_axis: str = "data"):
+    """:func:`flash_attention_cached` over a mesh.  ``q [B, KVH, G*T, hd]``
+    and ``lengths [B]`` are whole on every rank; ``k``, ``v`` (and the int8
+    scales) are this rank's piece of the cache as ``parallel.shard_kv_cache``
+    cuts it: its slots over ``data_axis`` and its KV heads over
+    ``model_axis`` where :func:`tp_axes` splits them.  Each rank runs the
+    kernel on its piece and the output ``[B, KVH, G*T, hd]`` is gathered
+    over both axes.  With no axis to split, the call runs unmapped."""
+    B, KVH = q.shape[0], q.shape[1]
+    bsl, hsl, da, ma = tp_slices(mesh, KVH, B, model_axis, data_axis)
+    if da is None and ma is None:
+        return flash_attention_cached(q, k, v, lengths, T=T, k_scale=k_scale, v_scale=v_scale, window=window,
+                                      out_dtype=out_dtype)
+    out = flash_attention_cached(q[bsl, hsl].contiguous(), k, v, lengths[bsl].contiguous(), T=T, k_scale=k_scale,
+                                 v_scale=v_scale, window=window, out_dtype=out_dtype)
+    return _gather_out(mesh, out, da, ma)
+
+
+def flash_attention_paged_tp(mesh, q, pool_k, pool_v, tables, lengths, *, T: int = 1, k_scale=None, v_scale=None,
+                             window=None, out_dtype=None, model_axis: str = "model", data_axis: str = "data"):
+    """:func:`flash_attention_paged` over a mesh: the pool (and its int8
+    scales) is this rank's piece, its KV heads over ``model_axis``, every
+    pool block present (the tables stay local); ``q``, ``tables`` and
+    ``lengths`` are whole and each rank takes its slots over ``data_axis``
+    where the batch divides.  The output is gathered over both axes."""
+    B, KVH = q.shape[0], q.shape[1]
+    bsl, hsl, da, ma = tp_slices(mesh, KVH, B, model_axis, data_axis)
+    if da is None and ma is None:
+        return flash_attention_paged(q, pool_k, pool_v, tables, lengths, T=T, k_scale=k_scale, v_scale=v_scale,
+                                     window=window, out_dtype=out_dtype)
+    out = flash_attention_paged(q[bsl, hsl].contiguous(), pool_k, pool_v, tables[bsl].contiguous(),
+                                lengths[bsl].contiguous(), T=T, k_scale=k_scale, v_scale=v_scale, window=window,
+                                out_dtype=out_dtype)
+    return _gather_out(mesh, out, da, ma)

@@ -42,6 +42,9 @@ import torch
 from ..models import llama as L
 from ..nn.modules import Int8TensorState, QuantizedTensor
 from ..ops.dispatch import resolve_device
+from ..ops.flash_cached import tp_axes
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import Sharded, llama_param_specs, shard_kv_cache
 
 __all__ = ["ContinuousBatchingEngine", "GenerationResult"]
 
@@ -131,7 +134,7 @@ def _sample_tokens(logits, temps, top_ps, generator: torch.Generator, pool: int 
 
 @torch.no_grad()
 def _decode_chunk(params, cache, tokens, positions, temps, top_ps, generator, *, cfg, S: int,
-                  sampling: bool, pool: int) -> torch.Tensor:
+                  sampling: bool, pool: int, mesh=None) -> torch.Tensor:
     """S decode steps in a Python loop; each step's tokens feed the next on
     the device, with no host sync inside the chunk.  Slots that finish
     mid-chunk make extra tokens that the host discards.  ``sampling=False``
@@ -139,7 +142,7 @@ def _decode_chunk(params, cache, tokens, positions, temps, top_ps, generator, *,
     out = torch.empty(S, tokens.shape[0], dtype=torch.int64, device=tokens.device)
     toks, pos = tokens, positions
     for i in range(S):
-        logits, _ = L.forward(params, toks[:, None], cfg, cache=cache, start_pos=pos)
+        logits, _ = L.forward(params, toks[:, None], cfg, cache=cache, start_pos=pos, mesh=mesh)
         last = logits[:, 0]
         toks = _sample_tokens(last, temps, top_ps, generator, pool) if sampling else last.argmax(dim=-1)
         out[i] = toks
@@ -149,13 +152,13 @@ def _decode_chunk(params, cache, tokens, positions, temps, top_ps, generator, *,
 
 @torch.no_grad()
 def _prefill_batch(params, cache_n, ids, true_lens, temps, top_ps, generator, *, cfg, sampling: bool,
-                   pool: int) -> torch.Tensor:
+                   pool: int, mesh=None) -> torch.Tensor:
     """Several prompts padded to one length run as one forward through the
     dense cache ``cache_n``; returns each row's next token (``[n]``).
     ``ids [n, pad_len]`` on the device; ``true_lens``, ``temps`` and
     ``top_ps`` host sequences of n.  The lm_head runs on each prompt's last
     row only."""
-    h, _ = L.forward(params, ids, cfg, cache=cache_n, start_pos=0, return_hidden=True)
+    h, _ = L.forward(params, ids, cfg, cache=cache_n, start_pos=0, return_hidden=True, mesh=mesh)
     n = len(true_lens)
     last_rows = torch.tensor([int(t) - 1 for t in true_lens], device=h.device)
     last = L.lm_logits(params, h[torch.arange(n, device=h.device), last_rows])  # [n, V]
@@ -189,6 +192,8 @@ def _tensors(tree):
     elif isinstance(tree, Int8TensorState):
         yield tree.CB
         yield tree.SCB
+    elif isinstance(tree, Sharded):
+        yield from _tensors(tree.local)
     elif isinstance(tree, torch.Tensor):
         yield tree
 
@@ -239,9 +244,21 @@ class ContinuousBatchingEngine:
         depth.
 
         ``device``: where the engine runs, CUDA unless named; ``params``
-        must lie there.  ``mesh`` (multi-device serving) is not ported."""
-        if mesh is not None:
-            raise NotImplementedError("multi-device serving (mesh=) belongs to slice G and is not ported yet")
+        must lie there.
+
+        ``mesh``: a ``parallel.Mesh`` over initialized process groups, with
+        a ``model`` axis (and optionally ``data``), serves over several
+        ranks, one engine a rank driven with the same requests.  As in the
+        JAX package, the params are split by ``parallel.llama_param_specs``
+        and the cache by ``parallel.shard_kv_cache`` (a dense cache's slots
+        over ``data`` and KV heads over ``model``; a pool's KV heads), and
+        prefill and decode run ``models/llama.forward(mesh=)``.  Every rank
+        computes the same logits and draws from the same seeds, so every
+        rank's streams are the same.  Prefills run over the mesh without its
+        ``data`` axis, through a temporary cache of the prompts' rows, and
+        each rank copies the rows of its own slots out of it."""
+        if mesh is not None and (not isinstance(mesh, Mesh) or mesh.virtual):
+            raise TypeError("mesh must be a parallel.Mesh over process groups (parallel.make_mesh)")
         self.device = resolve_device(device)
         for t in _tensors(params):
             d = t.device
@@ -280,6 +297,18 @@ class ContinuousBatchingEngine:
             cache = cache._replace(tables=torch.tensor(self._tables, device=self.device))
         else:
             cache = L.init_kv_cache(cfg, max_batch, max_len, kv_dtype=kv_dtype, device=self.device)
+        self.mesh = mesh
+        self._prefill_mesh = None
+        self._slot_range = range(max_batch)  # the slots this rank's dense cache holds
+        if mesh is not None:
+            params = llama_param_specs(mesh, params)
+            cache = shard_kv_cache(cache, mesh)
+            self._prefill_mesh = mesh.sub([a for a in mesh.axis_names if a != "data"])
+            if kv_layout == "dense":
+                da = tp_axes(mesh, cfg.num_kv_heads, max_batch)[0]
+                if da is not None:
+                    n = max_batch // mesh.axis_size(da)
+                    self._slot_range = range(mesh.index(da) * n, (mesh.index(da) + 1) * n)
         self.params = params
         self.cache = cache
         self.kv_dtype = kv_dtype
@@ -410,8 +439,12 @@ class ContinuousBatchingEngine:
         for i, (_, req) in enumerate(grp):
             ids_p[i, : len(req.prefill_ids)] = req.prefill_ids
         slots = [b for b, _ in grp]
-        if self.kv_layout == "paged":
-            cache_n = L.init_kv_cache(self.cfg, n, pad_len, kv_dtype=self.kv_dtype, device=self.device)
+        split_slots = len(self._slot_range) != self.max_batch  # a dense cache split over data
+        if self.kv_layout == "paged" or split_slots:
+            cache_n = L.init_kv_cache(self.cfg, n, pad_len if self.kv_layout == "paged" else self.max_len,
+                                      kv_dtype=self.kv_dtype, device=self.device)
+            if self.mesh is not None:
+                cache_n = shard_kv_cache(cache_n, self._prefill_mesh)
         else:
             idx = torch.tensor(slots, device=self.device)
             cache_n = type(self.cache)(*(t.index_select(1, idx) for t in self.cache))
@@ -419,11 +452,18 @@ class ContinuousBatchingEngine:
             self.params, cache_n, torch.tensor(ids_p, device=self.device),
             [len(r.prefill_ids) for _, r in grp], [r.temperature for _, r in grp], [r.top_p for _, r in grp],
             self._generator(_PREFILL, grp[0][1].request_id), cfg=self.cfg,
-            sampling=any(r.temperature > 0 for _, r in grp), pool=self.sampling_pool,
+            sampling=any(r.temperature > 0 for _, r in grp), pool=self.sampling_pool, mesh=self._prefill_mesh,
         )
         if self.kv_layout == "paged":
             for i, (b, req) in enumerate(grp):
                 self._pack_slot_blocks(b, len(req.prefill_ids), cache_n, row=i)
+        elif split_slots:
+            mine = [(i, b - self._slot_range.start) for i, b in enumerate(slots) if b in self._slot_range]
+            if mine:
+                rows = torch.tensor([i for i, _ in mine], device=self.device)
+                local = torch.tensor([j for _, j in mine], device=self.device)
+                for big, many in zip(self.cache, cache_n):
+                    big.index_copy_(1, local, many.index_select(1, rows))
         else:
             for big, many in zip(self.cache, cache_n):
                 big.index_copy_(1, idx, many)
@@ -598,6 +638,7 @@ class ContinuousBatchingEngine:
         chunk = _decode_chunk(
             self.params, self.cache, tokens, positions, self._temps_dev, self._topps_dev, gen,
             cfg=self.cfg, S=self.steps_per_sync, sampling=bool((self.temps > 0).any()), pool=self.sampling_pool,
+            mesh=self.mesh,
         )
         self._last_out = chunk[-1]
         self._disp_lengths[active] += self.steps_per_sync

@@ -1,5 +1,8 @@
-"""Timing on the card, weight interop, checkpoints and model surgery."""
+"""Timing on the card, weight interop, checkpoints, model surgery and the
+host quantizer (``native``)."""
 
+from . import native
+from .benchmark import sol_fraction
 from .compat import OutlierTracer, pack_dict_to_tensor, replace_linear, unpack_tensor_to_dict
 from .outliers import OutlierPool, find_outlier_dims
 from .serialization import (
@@ -13,6 +16,8 @@ from .serialization import (
 )
 
 __all__ = [
+    "native",
+    "sol_fraction",
     "OutlierPool",
     "OutlierTracer",
     "find_outlier_dims",

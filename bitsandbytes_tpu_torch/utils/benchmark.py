@@ -5,7 +5,9 @@ before the device finishes, so a kernel is timed with CUDA events around
 each call after a warm-up, and the median of n calls is reported with its
 min and max.  The canary times a device-to-device copy of >= 1 GB: the
 memory rate this card reaches, against which decode steps are bounded.
-Both refuse to run without a CUDA device.
+Both refuse to run without a CUDA device.  :func:`sol_fraction` turns a
+time and a byte count into the share of a memory rate the caller gives
+(measured by the canary, not a data sheet's).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ["cuda_time", "bandwidth_canary"]
+__all__ = ["cuda_time", "bandwidth_canary", "sol_fraction"]
 
 
 def _require_cuda() -> None:
@@ -85,3 +87,13 @@ def bandwidth_canary(nbytes: int = 1 << 30, n: int = 10) -> dict:
     ms = t["median"]
     del src, dst
     return {"gb_s": 2 * nbytes / (ms * 1e-3) / 1e9, "ms": ms, "bytes": 2 * nbytes}
+
+
+def sol_fraction(seconds: float, bytes_accessed: float, gbps: float) -> float:
+    """Share of speed of light under a memory-bound model: the time
+    ``bytes_accessed`` take at ``gbps`` GB/s over ``seconds``.  ``gbps``
+    comes from the caller, for example ``bandwidth_canary()["gb_s"]``: there
+    is no default rate."""
+    if gbps <= 0:
+        raise ValueError("gbps must be a positive rate")
+    return bytes_accessed / (gbps * 1e9) / max(seconds, 1e-12)

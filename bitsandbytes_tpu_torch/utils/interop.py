@@ -32,6 +32,10 @@ its ``weight``, StableEmbedding's ``LayerNorm_0`` ``scale``/``bias`` its
 ``norm.weight``/``norm.bias``, and OutlierAwareLinear's ``kernel`` (``q``,
 ``outlier_idx``, ``outlier_w``) its ``weight``, ``outlier_idx`` and
 ``outlier_w``.  A GPT-2/OPT tree is a plain tree: :func:`params_from_numpy`.
+
+:func:`moe_params_from_numpy` carries a MoE layer's stacked tree and its
+``meta`` (``models/moe.py``), recording each weight's layout from its
+payload's shape.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ __all__ = [
     "optim_state_from_numpy",
     "kv_cache_from_numpy",
     "module_from_numpy",
+    "moe_params_from_numpy",
     "QUANTIZED_KEYS",
     "NESTED_KEYS",
     "INT8_KEYS",
@@ -272,3 +277,28 @@ def module_from_numpy(module: torch.nn.Module, tree: dict, device=None) -> torch
         raise ValueError(f"{type(module).__name__}'s table must be a {cls.__name__} of shape {want}")
     module.weight = torch.nn.Parameter(table.to(torch.float32)) if cls is torch.Tensor else table
     return module
+
+
+_MOE_KEYS = ("router", "gate_up_data", "gate_up_absmax", "down_data", "down_absmax")
+
+
+def moe_params_from_numpy(params: dict, meta: dict, device=None):
+    """A JAX-package MoE tree (``router``, ``gate_up_data``, ``gate_up_absmax``,
+    ``down_data``, ``down_absmax`` as numpy) and its ``meta`` (``{name:
+    (quant_type, blocksize, shape)}``) -> the port's ``(params, meta)`` on
+    ``device`` (CUDA unless named).  The port's meta adds each weight's
+    layout, read off its stacked payload ``[E, ...]``: ``[N/2, K]`` paired,
+    ``[N, K/2]`` 2d, anything else flat."""
+    device = resolve_device(device)
+    _expect(params, _MOE_KEYS, "a MoE layer")
+    out = {k: tensor_from_numpy(params[k], device).contiguous() for k in _MOE_KEYS}
+    out["router"] = out["router"].to(torch.float32)
+    tmeta = {}
+    for name in ("gate_up", "down"):
+        quant_type, blocksize, shape = meta[name][:3]
+        N, K = (int(d) for d in shape)
+        per = tuple(out[name + "_data"].shape[1:])
+        layout = "paired" if per == (N // 2, K) else "2d" if per == (N, K // 2) else "flat"
+        tmeta[name] = (str(quant_type), int(blocksize), (N, K), layout)
+        out[name + "_absmax"] = out[name + "_absmax"].to(torch.float32)
+    return out, tmeta

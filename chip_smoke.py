@@ -77,7 +77,10 @@ Phases (every one asserts; any failure exits non-zero before the result):
    and ``torch.matmul`` on the bf16 weight; then kernels 12 and 13's
    ``_any`` instances (blocksizes off the tiles: 12, 48, 100, 8192, ragged
    n, three codebooks, both rounding modes) bit for bit against their plain
-   versions, timed at an lm_head-sized tensor beside the tiles.
+   versions, timed at an lm_head-sized tensor beside the tiles.  The host
+   quantizer (3o, ``utils/native``, C++ and OpenMP on the host) on the f32
+   gate_up, nf4 and fp4: codes and absmax bit for bit kernel 1's, the host
+   seconds beside kernel 1's device ms.
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -124,6 +127,22 @@ Phases (every one asserts; any failure exits non-zero before the result):
    8-bit: kernel 14), and ``OutlierAwareLinear`` at the gate's shape against
    ``Linear8bitLt``.  4l runs the GPT-2/OPT family at OPT-125M's widths in
    bf16, NF4 (kernel 2 at M 8, kernel 3 + matmul at M 8 x 512) and int8.
+   4n serves 4a's model over a mesh at one rank, a real NCCL group
+   (``parallel.llama_param_specs``, ``shard_kv_cache``, ``forward(mesh=)``):
+   prefill and 8 decode steps with the logits bit for bit, the tokens and
+   launches those of the same run without a mesh and every collective
+   counted, then the engine with ``mesh=`` (bf16 dense and paged pools)
+   against the engine without, the same streams and launches; then every
+   rank's shard of a 2- and 4-rank virtual mesh of layer 0's wo and down
+   and of the quantized lm_head through kernel 2 (M 8, within 1e-3
+   relative of its slice of the full output) and kernel 3 (bit for bit its
+   slice), and a double-quantized wo's through kernels 5 and 6.  4m runs one
+   MoE layer at Mixtral-8x7B's widths (8 experts of hidden 4096, ffn 14336,
+   top 2, NF4): kernel 1 16 times to build it, kernel 2 at M 8 and kernel 3
+   + matmul at M 1024, device ms beside the same experts in bf16 through
+   ``torch.matmul`` (and held within atol 0.1 / rtol 0.05 of them), the
+   gates bit for bit the CPU's, expert parallelism at one rank bit for bit
+   the dense layer.
    The kernels' launch counts are zeroed just before each path and read
    just after it.  4a and 4b also
    load the model once more under
@@ -162,7 +181,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    layers and a quarter of the widths (5h): ``GPT2Config.tiny()`` in NF4
    and int8, the embeddings and ``OutlierAwareLinear``, and 3 steps of each
    paged optimizer, paged against unpaged bit for bit, card against CPU;
-   and ``python -m bitsandbytes_tpu_torch`` as a subprocess, exit code 0.
+   and ``python -m bitsandbytes_tpu_torch`` as a subprocess, exit code 0;
+   then the MoE at hidden 256 and the sharded forward of a 2-layer Llama at
+   a quarter of the widths over the one-rank mesh, card against CPU (5i).
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -1253,6 +1274,429 @@ def slice18_cpu_check(dev):
          diagnostics={"returncode": res.returncode, "seconds": time.perf_counter() - t0,
                       "last_lines": res.stdout.strip().splitlines()[-4:]})
     torch.cuda.empty_cache()
+
+
+# -- slice 19: the host quantizer, MoE, the mesh -------------------------------
+
+
+def host_quantizer(dev):
+    """3o: ``utils/native.quantize_4bit_host`` (C++ and OpenMP on the host) of
+    the f32 gate_up [28672, 4096] (470 MB) against kernel 1 on the card,
+    codes and absmax bit for bit, nf4 and fp4 at blocksize 64 with no nested
+    absmax; the host seconds beside kernel 1's device ms."""
+    import numpy as np
+    import torch
+
+    from bitsandbytes_tpu_torch.functional.fourbit import quantize_4bit
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.ops.quant4bit import quantize_4bit_codes
+    from bitsandbytes_tpu_torch.utils import native
+    from bitsandbytes_tpu_torch.utils.benchmark import cuda_time
+
+    t0 = time.perf_counter()
+    assert native.available(), "3o: the host quantizer did not build (g++)"
+    build_s = time.perf_counter() - t0
+    N, K = LINEARS["gate_up"]
+    W = torch.randn(N, K, generator=torch.Generator(device=dev).manual_seed(19), device=dev)
+    W_host = W.cpu().numpy()
+    out = {}
+    for qt in ("nf4", "fp4"):
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            packed, absmax = native.quantize_4bit_host(W_host, 64, qt)
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        p, st = quantize_4bit(W, blocksize=64, quant_type=qt, layout="flat")
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        assert counts == {"quantize_4bit_codes": 1}, f"3o {qt}: {counts}"
+        assert np.array_equal(p.cpu().numpy().reshape(-1), packed), f"3o {qt}: codes differ from kernel 1"
+        assert np.array_equal(st.absmax.cpu().numpy().view(np.uint32), absmax.view(np.uint32)), f"3o {qt}: absmax"
+        flat = W.reshape(-1)
+        t = cuda_time(lambda: quantize_4bit_codes(flat, qt, 64), n=10, flush_l2=True, hold=True)
+        hs = statistics.median(host)
+        out[qt] = {"host_s": {"median": hs, "min": min(host), "max": max(host), "n": 3},
+                   "host_gb_s": W_host.nbytes / hs / 1e9, "kernel1_device_ms": t["median"],
+                   "kernel1_host_held_out": t["host_ms"] < t["spin_ms"], "host_over_device": hs * 1e3 / t["median"],
+                   "launches": counts}
+    emit("host_quantizer", shape=[N, K], dtype="float32", blocksize=64, build_or_load_s=build_s,
+         host_threads=native._lib().bnb_tpu_num_threads(), cpu_count=os.cpu_count(), bit_identical=True, modes=out)
+    del W, W_host
+    torch.cuda.empty_cache()
+
+
+def one_rank_mesh():
+    """A one-rank NCCL process group on the card (address and port given
+    here: nothing on the machine names a cluster) and a ``{"data": 1,
+    "model": 1}`` mesh over it; its collectives run through NCCL."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from bitsandbytes_tpu_torch.parallel import make_mesh
+
+    if not dist.is_initialized():
+        torch.cuda.set_device(0)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    return make_mesh({"data": 1, "model": 1})
+
+
+def counted_collectives(mesh):
+    """Count ``mesh``'s all_gather and all_reduce calls: a dict that the
+    wrapped methods add to."""
+    calls = {"all_gather": 0, "all_reduce": 0}
+    for name in calls:
+        orig = getattr(mesh, name)
+
+        def wrap(*a, _orig=orig, _name=name, **k):
+            calls[_name] += 1
+            return _orig(*a, **k)
+
+        setattr(mesh, name, wrap)
+    return calls
+
+
+def sharded_serving(cfg, params, ids, prompts, dev):
+    """4n: serving over a mesh at one rank, on 4a's model: a real NCCL
+    group, so every collective runs.  Prefill and 8 greedy decode steps with
+    ``mesh=`` (``llama_param_specs``, ``shard_kv_cache``) against the same
+    run without: logits bit for bit, the same tokens and kernel launches,
+    and the count of collectives; then the engine with ``mesh=`` against
+    the engine without (bf16 dense and paged pools): the same streams and
+    launches.  Then virtual meshes of 2 and 4 ranks: every rank's shard of
+    layer 0's wo and down and of the lm_head (quantized here, as
+    ``quantize_lm_head=True`` does) through kernel 2 at M 8 (f32 output,
+    against its slice of the full weight's within 1e-3 relative, kernel
+    2's ragged-shape tolerance: a shard's split plan may differ) and kernel
+    3 (bit for bit its slice), and a double-quantized wo's shards through
+    kernels 5 and 6 the same way."""
+    import torch
+
+    from bitsandbytes_tpu_torch.functional.codebooks import get_4bit_code
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.nn.modules import QuantizedTensor
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.ops import gemm4bit_paired as PT
+    from bitsandbytes_tpu_torch.parallel import (
+        Sharded,
+        llama_param_specs,
+        make_mesh,
+        shard_kv_cache,
+        shard_quantized_tree,
+    )
+    from bitsandbytes_tpu_torch.serving import ContinuousBatchingEngine
+
+    mesh = one_rank_mesh()
+    calls = counted_collectives(mesh)
+    sparams = llama_param_specs(mesh, params)
+    n_sharded = sum(isinstance(v, Sharded) for layer in sparams["layers"] for v in layer.values()) + sum(
+        isinstance(sparams[k], Sharded) for k in ("embed", "lm_head"))
+    steps, max_len = 8, 256
+    runs = {}
+    # the mesh run twice: the first use of the groups sets up their NCCL communicators
+    for tag, tree, m in (("unsharded", params, None), ("mesh", sparams, mesh), ("mesh_again", sparams, mesh)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        calls.update(all_gather=0, all_reduce=0)
+        t0 = time.perf_counter()
+        cache = L.init_kv_cache(cfg, ids.shape[0], max_len, device=dev)
+        if m is not None:
+            cache = shard_kv_cache(cache, m)
+        logits, cache = L.prefill(tree, ids, cfg, cache, mesh=m)
+        outs, tok = [logits], logits[:, -1].argmax(-1)
+        toks = [tok]
+        for s in range(steps):
+            logits, cache = L.decode_step(tree, tok, cfg, cache, ids.shape[1] + s, mesh=m)
+            tok = logits.argmax(-1)
+            outs.append(logits)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        runs[tag] = {"outs": outs, "toks": torch.stack(toks, 1), "wall_s": time.perf_counter() - t0,
+                     "counts": {k: v for k, v in launch_counts().items() if v}, "collectives": dict(calls)}
+        del cache
+    u, s_ = runs["unsharded"], runs["mesh"]
+    for tag in ("mesh", "mesh_again"):
+        assert torch.equal(u["toks"], runs[tag]["toks"]), f"4n {tag}: greedy tokens with mesh= differ"
+        assert all(bits_equal(a, b) for a, b in zip(u["outs"], runs[tag]["outs"])), f"4n {tag}: logits differ"
+        assert u["counts"] == runs[tag]["counts"], f"4n {tag}: launches {runs[tag]['counts']} != {u['counts']}"
+    Lyr = cfg.num_layers
+    # a forward gathers wo's and down's outputs in every layer and the lm_head's
+    # (the fused wqkv and gate_up replicate), and sums the embedding once
+    want_calls = {"all_gather": (steps + 1) * (2 * Lyr + 1), "all_reduce": steps + 1}
+    assert s_["collectives"] == want_calls, f"4n: collectives {s_['collectives']} != {want_calls}"
+
+    # one collective's host cost: a decode step's gathered output [8, 4096] bf16, after a warm-up
+    def per_call_ms(fn, n=200):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    xg = torch.randn(ids.shape[0], cfg.hidden_size, generator=torch.Generator(device=dev).manual_seed(25),
+                     device=dev).to(torch.bfloat16)
+    xr = xg.to(torch.float32)
+    collective_ms = {"all_gather": per_call_ms(lambda: mesh.all_gather(xg, "model", dim=-1)),
+                     "all_reduce": per_call_ms(lambda: mesh.all_reduce(xr, "model")),
+                     "clone": per_call_ms(lambda: xg.clone())}
+
+    engine = {}
+    for layout in ("dense", "paged"):
+        res = {}
+        for tag, m in (("unsharded", None), ("mesh", mesh)):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            calls.update(all_gather=0, all_reduce=0)
+            t0 = time.perf_counter()
+            eng = ContinuousBatchingEngine(params, cfg, max_batch=4, max_len=256, kv_layout=layout,
+                                           kv_block_size=128, steps_per_sync=8, mesh=m, device=dev)
+            out = eng.generate([p[:100] for p in prompts[:6]], max_new_tokens=16)
+            torch.cuda.synchronize()
+            res[tag] = {"streams": [r.tokens for r in out], "wall_s": time.perf_counter() - t0,
+                        "launches": {k: v for k, v in launch_counts().items() if v}, "collectives": dict(calls)}
+            del eng
+        assert res["mesh"]["streams"] == res["unsharded"]["streams"], f"4n engine {layout}: streams differ"
+        assert res["mesh"]["launches"] == res["unsharded"]["launches"], f"4n engine {layout}: launches differ"
+        assert res["mesh"]["collectives"]["all_gather"] > 0
+        engine[layout] = {"streams_equal": True, "first_stream": res["mesh"]["streams"][0][:8],
+                          "wall_s": {t: r["wall_s"] for t, r in res.items()}, "launches": res["mesh"]["launches"],
+                          "collectives": res["mesh"]["collectives"]}
+    torch.cuda.empty_cache()
+
+    # every virtual rank's shard through kernels 2 and 3, then a nested shard through 5 and 6
+    gen = torch.Generator(device=dev).manual_seed(20)
+    layer0 = params["layers"][0]
+    weights = {"wo": layer0["wo"], "down": layer0["down"],
+               "lm_head": QuantizedTensor.quantize(params["lm_head"], blocksize=64)}
+    wo_bf16 = weights["wo"].dequantize().to(torch.bfloat16)
+    weights["wo_nested"] = QuantizedTensor.quantize(wo_bf16, blocksize=64, compress_statistics=True)
+    sms = PT._sm_count(dev.index or 0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    shards = {}
+    for name, qt in weights.items():
+        st = qt.state
+        N, K = (int(d) for d in st.shape)
+        bs, code = st.blocksize, get_4bit_code(st.quant_type, st.blocksize)
+        A = torch.randn(8, K, generator=gen, device=dev).to(torch.bfloat16)
+        P = qt.data.reshape(N // 2, K)
+        nested = st.nested
+        if nested:
+            sc = (st.absmax, st.state2.absmax, st.offset)
+            full = PT.gemm_4bit_paired_dq(A, P, *sc, code, bs, (N, K), out_dtype=torch.float32)
+            full_w = PT.dequantize_paired_fast_dq(P, *sc, code, bs, torch.bfloat16)
+        else:
+            full = PT.gemm_4bit_paired(A, P, st.absmax, code, bs, (N, K), out_dtype=torch.float32)
+            full_w = PT.dequantize_paired_fast(P, st.absmax, code, bs, torch.bfloat16)
+        per = {}
+        for s in (2, 4):
+            worst, plans, equal_slices = 0.0, set(), 0
+            for r in range(s):
+                sh = shard_quantized_tree({"w": qt}, make_mesh({"model": s}, coord=r), lambda p, l: ("model", None))
+                c = sh["w"].compute
+                Ns = N // s
+                cs = c.state
+                Pc = c.data.reshape(Ns // 2, K)
+                assert tuple(cs.shape) == (Ns, K) and cs.nested == nested and (not nested or cs.inline_nested), \
+                    f"4n {name}: shard state {cs.shape}"
+                if nested:
+                    sc_ = (cs.absmax, cs.state2.absmax, cs.offset)
+                    part = PT.gemm_4bit_paired_dq(A, Pc, *sc_, code, bs, (Ns, K), out_dtype=torch.float32)
+                    part_w = PT.dequantize_paired_fast_dq(Pc, *sc_, code, bs, torch.bfloat16)
+                else:
+                    part = PT.gemm_4bit_paired(A, Pc, cs.absmax, code, bs, (Ns, K), out_dtype=torch.float32)
+                    part_w = PT.dequantize_paired_fast(Pc, cs.absmax, code, bs, torch.bfloat16)
+                ref = full[:, r * Ns : (r + 1) * Ns]
+                rel = ((part - ref).abs().max() / ref.abs().max()).item()
+                assert rel <= 1e-3, f"4n {name} {s} ranks, rank {r}: kernel {5 if nested else 2} rel err {rel}"
+                assert bits_equal(part_w, full_w[r * Ns : (r + 1) * Ns]), \
+                    f"4n {name} {s} ranks, rank {r}: kernel {6 if nested else 3} is not its slice"
+                worst = max(worst, rel)
+                equal_slices += int(bits_equal(part, ref))
+                plans.add(PT.gemm_plan(8, Ns, K, bs, sms))
+            per[f"{s}_ranks"] = {"rows_per_rank": N // s, "max_rel_err_M8": worst, "plans": sorted(plans),
+                                 "ranks_bit_equal_to_slice": equal_slices}
+        shards[name] = {"shape": [N, K], "nested": nested, "full_plan": PT.gemm_plan(8, N, K, bs, sms), **per}
+    torch.cuda.synchronize()
+    shard_counts = {k: v for k, v in launch_counts().items() if v}
+    for k in ("gemm_4bit_paired", "dequantize_paired_fast", "gemm_4bit_paired_dq", "dequantize_paired_fast_dq"):
+        assert shard_counts.get(k, 0) > 0, f"4n: {k} never ran on a shard"
+    emit("sharded_serving", config="llama3_8b", layers=Lyr, mesh={"data": 1, "model": 1}, backend="nccl",
+         sharded_leaves=n_sharded, batch=ids.shape[0], prompt=ids.shape[1], steps=steps, max_len=max_len,
+         tokens_equal=True, logits_bit_equal=True, first_tokens=s_["toks"][0].tolist(),
+         wall_s={t: r["wall_s"] for t, r in runs.items()}, launches=s_["counts"], collectives=s_["collectives"],
+         collective_host_ms=collective_ms,
+         engine=engine, virtual_shards=shards, shard_launches=shard_counts)
+    del sparams, weights, wo_bf16, full, full_w
+    torch.cuda.empty_cache()
+    return s_["counts"]
+
+
+def moe_mixtral(dev, canary_bs, hidden=4096, ffn=14336):
+    """4m: one MoE layer at Mixtral-8x7B's widths (``mistralai/Mixtral-8x7B-v0.1``
+    config.json: hidden 4096, intermediate_size 14336, num_local_experts 8,
+    num_experts_per_tok 2), NF4 blocksize 64, random weights from seed 0,
+    ``init_moe_params`` on the card (kernel 1, 16 times); bf16 x at M 8
+    (kernel 2, 16 launches) and M 1024 (kernel 3 + ``torch.matmul``).  Device
+    ms with the L2 flushed and the host held out, launches, resident bytes,
+    the bound; the library column: the same experts dequantized to bf16 (2.82
+    GB) through ``torch.matmul``, against which the output holds within 4l's
+    tolerance (atol 0.1 / rtol 0.05).  The gates against the CPU's bit for
+    bit; expert parallelism at one NCCL rank against the dense layer."""
+    import torch
+
+    from bitsandbytes_tpu_torch.functional import gemm as G
+    from bitsandbytes_tpu_torch.functional.quant_state import QuantState
+    from bitsandbytes_tpu_torch.models import moe as M
+    from bitsandbytes_tpu_torch.nn.modules import QuantizedTensor
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.parallel import make_mesh
+    from bitsandbytes_tpu_torch.utils.benchmark import cuda_time, sol_fraction
+
+    E, top_k = 8, 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    params, meta = M.init_moe_params(hidden, ffn, E, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    load = {k: v for k, v in launch_counts().items() if v}
+    assert load == {"quantize_4bit_codes": 2 * E}, f"4m load: {load}"
+    assert meta["gate_up"][3] == meta["down"][3] == "paired"
+    resident = tree_bytes(params)
+    expert_bytes = sum(params[k].numel() * params[k].element_size() for k in params if k != "router")
+
+    def bf16_weight(name, e):
+        qt, bs, shape, layout = meta[name]
+        st = QuantState.make(absmax=params[name + "_absmax"][e], shape=shape, quant_type=qt, blocksize=bs,
+                             dtype=torch.bfloat16, layout=layout)
+        return QuantizedTensor(data=params[name + "_data"][e], state=st).dequantize()
+
+    W_gu = [bf16_weight("gate_up", e) for e in range(E)]
+    W_dn = [bf16_weight("down", e) for e in range(E)]
+    lib_bytes = sum(w.numel() * w.element_size() for w in W_gu + W_dn)
+
+    def library(x):
+        gates = M.moe_gates(x, params["router"], top_k)
+        out = torch.zeros(x.shape[0], hidden, dtype=torch.float32, device=dev)
+        for e in range(E):
+            g, u = torch.chunk(torch.matmul(x, W_gu[e].t()), 2, dim=-1)
+            h = (torch.nn.functional.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
+            out += gates[:, e : e + 1] * torch.matmul(h, W_dn[e].t()).to(torch.float32)
+        return out.to(x.dtype)
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    res = {}
+    one_rank_mesh()
+    mesh = make_mesh({"expert": 1})
+    for Mrows in (8, 1024):
+        x = torch.randn(Mrows, hidden, generator=gen, device=dev).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        y = M.moe_ffn(params, meta, x, top_k=top_k)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        small = Mrows < G.LARGE_M_THRESHOLD
+        want = {("gemm_4bit_paired" if small else "dequantize_paired_fast"): 2 * E}
+        assert counts == want, f"4m M {Mrows}: {counts} != {want}"
+        assert y.shape == x.shape and torch.isfinite(y.float()).all()
+        ref = library(x)
+        assert torch.allclose(y.float(), ref.float(), atol=0.1, rtol=0.05), f"4m M {Mrows}: against bf16 experts"
+        g_dev = M.moe_gates(x, params["router"], top_k).cpu()
+        g_cpu = M.moe_gates(x.cpu(), params["router"].cpu(), top_k)
+        assert bits_equal(g_dev, g_cpu), f"4m M {Mrows}: gates differ from the CPU's"
+        ep = M.moe_ffn_expert_parallel(params, meta, x, mesh, axis="expert", top_k=top_k)
+        assert bits_equal(ep, y), f"4m M {Mrows}: expert-parallel at one rank differs from dense"
+        t = cuda_time(lambda: M.moe_ffn(params, meta, x, top_k=top_k), n=10, flush_l2=True, hold=True,
+                      hold_cycles=20_000_000)
+        t_lib = cuda_time(lambda: library(x), n=10, flush_l2=True, hold=True, hold_cycles=20_000_000)
+        io = 2 * x.numel() * x.element_size() + params["router"].numel() * 4
+        nbytes = expert_bytes + io
+        ops = 2 * Mrows * E * (2 * ffn * hidden + hidden * ffn)
+        b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+        res[f"M{Mrows}"] = {
+            "route": "kernel 2" if small else "kernel 3 + torch.matmul", "launches": counts,
+            "device_ms": t["median"], "device_ms_min_max": [t["min"], t["max"]],
+            "host_held_out": t["host_ms"] < t["spin_ms"], "bytes": nbytes, "ops": ops, "bound_ms": b_ms,
+            "bound_by": b_by, "canary_bound_ms": nbytes / canary_bs * 1e3,
+            "canary_sol_fraction": sol_fraction(t["median"] * 1e-3, nbytes, canary_bs / 1e9),
+            "library_ms": t_lib["median"], "library_bytes": lib_bytes + io,
+            "max_abs_diff_bf16_experts": (y.float() - ref.float()).abs().max().item(),
+            "experts_per_token": (g_dev > 0).sum(-1).float().mean().item()}
+    emit("moe_mixtral", source="mistralai/Mixtral-8x7B-v0.1 config.json", hidden=hidden, ffn=ffn, experts=E,
+         top_k=top_k, quant_type="nf4", blocksize=64, layers=1, init_s=init_s, load_launches=load,
+         resident_bytes=resident, expert_bytes=expert_bytes, held_before=held,
+         peak_memory=torch.cuda.max_memory_allocated(), gates_bit_equal_cpu=True, expert_parallel_one_rank=True,
+         results=res)
+    del params, W_gu, W_dn
+    torch.cuda.empty_cache()
+    return res
+
+
+def slice19_cpu_check(dev):
+    """5i: this slice's paths at small size, card against CPU: the MoE at
+    hidden 256 (4 experts, top 2, bf16 x at M 8 and 160: kernel 2, then 3 +
+    matmul) within 0.03 / 0.05 of the CPU's plain versions and the gates bit
+    for bit; the sharded forward of a 2-layer Llama at a quarter of the
+    widths over the one-rank NCCL mesh against the CPU's unsharded forward
+    (5's logits gate: atol 0.1 / rtol 0.05, the card's greedy token in the
+    CPU's top-5); expert parallelism at one rank against dense."""
+    import torch
+
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.models import moe as M
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.parallel import llama_param_specs, make_mesh
+
+    t0 = time.perf_counter()
+    cpu_p, meta = M.init_moe_params(256, 256, 4, generator=torch.Generator().manual_seed(22), device="cpu")
+    dev_p = {k: v.to(dev) for k, v in cpu_p.items()}
+    moe = {}
+    one_rank_mesh()
+    emesh = make_mesh({"expert": 1})
+    reset_launch_counts()
+    for Mrows in (8, 160):
+        x = torch.randn(Mrows, 256, generator=torch.Generator().manual_seed(Mrows)).to(torch.bfloat16)
+        yc = M.moe_ffn(cpu_p, meta, x, top_k=2)
+        yg = M.moe_ffn(dev_p, meta, x.to(dev), top_k=2)
+        ep = M.moe_ffn_expert_parallel(dev_p, meta, x.to(dev), emesh, top_k=2)
+        assert torch.allclose(yg.float().cpu(), yc.float(), atol=0.03, rtol=0.05), f"5i moe M {Mrows}"
+        assert bits_equal(ep, yg), f"5i moe M {Mrows}: expert-parallel at one rank"
+        assert bits_equal(M.moe_gates(x.to(dev), dev_p["router"], 2).cpu(), M.moe_gates(x, cpu_p["router"], 2))
+        moe[f"M{Mrows}"] = (yg.float().cpu() - yc.float()).abs().max().item()
+    moe_counts = {k: v for k, v in launch_counts().items() if v}
+    assert moe_counts.get("gemm_4bit_paired", 0) >= 8 and moe_counts.get("dequantize_paired_fast", 0) >= 8, \
+        moe_counts
+
+    cfg = L.LlamaConfig(vocab_size=8000, hidden_size=1024, intermediate_size=3584, num_layers=2, num_heads=8,
+                        num_kv_heads=2, head_dim=128)
+    cpu_t = L.quantize_params_4bit(L.init_params(cfg, torch.Generator().manual_seed(23), device="cpu"))
+    dev_t = tree_to(cpu_t, dev)
+    mesh = one_rank_mesh()
+    ids = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(24))
+    with torch.no_grad():
+        lc, _ = L.forward(cpu_t, ids, cfg)
+        reset_launch_counts()
+        lg, _ = L.forward(llama_param_specs(mesh, dev_t), ids.to(dev), cfg, mesh=mesh)
+        fwd_counts = {k: v for k, v in launch_counts().items() if v}
+    lg = lg.cpu()
+    assert torch.allclose(lg, lc, atol=0.1, rtol=0.05), "5i sharded forward against the CPU"
+    assert (lc.topk(5, dim=-1).indices == lg.argmax(-1, keepdim=True)).any(-1).all(), "5i sharded forward top-5"
+    emit("cpu_check_slice19", moe_max_abs_diff=moe, moe_launches=moe_counts,
+         sharded_forward={"layers": 2, "hidden": cfg.hidden_size, "max_abs_logit_diff": (lg - lc).abs().max().item(),
+                          "launches": fwd_counts},
+         seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -3404,6 +3848,9 @@ def main() -> int:
     del xl_any, q_any, am_any, q128, am128, qp, ap, dp
     torch.cuda.empty_cache()
 
+    # -- 3o. the host quantizer (C++/OpenMP) against kernel 1 --------------
+    host_quantizer(dev)
+
     # -- 4. the serving paths at full width -------------------------------
     steps, prompt, batch, max_len = 32, 128, 8, 1024
     assert batch * prompt >= G.LARGE_M_THRESHOLD > batch, "prefill must take the dequant route, decode the GEMM"
@@ -3988,7 +4435,12 @@ def main() -> int:
          generated_tok_s=sum(len(r.tokens) for r in results_bf) / wall_bf, decode_steps=dsteps_bf,
          prefills=prefills_bf, max_len_request_tokens=len(results_bf[-1].tokens),
          kv_pool_bytes=sum(t.numel() * t.element_size() for t in eng.cache[:2]), launches=counts)
-    del eng, nf4_params
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- 4n. serving over a mesh at one NCCL rank, on 4a's model; virtual shards --
+    sharded_serving(cfg, nf4_params, ids, prompts, dev)
+    del nf4_params
     torch.cuda.empty_cache()
 
     # -- 4f. serve, then QLoRA-train with AdEMAMix, on bf16 quant_storage ---
@@ -4100,6 +4552,9 @@ def main() -> int:
 
     # -- 4l. the GPT-2/OPT family at OPT-125M's widths: bf16, NF4 and int8 --
     opt125m(dev)
+
+    # -- 4m. one MoE layer at Mixtral-8x7B's widths ------------------------
+    moe_mixtral(dev, canary_bs)
 
     # -- 5. both paths on the card and on the CPU, 2 layers ----------------
     cfg2 = L.LlamaConfig.llama3_8b(num_layers=2)
@@ -4663,6 +5118,12 @@ def main() -> int:
 
     # -- 5h. GPT-2/OPT, the embeddings and the paged optimizers, card against CPU --
     slice18_cpu_check(dev)
+
+    # -- 5i. the MoE and the sharded forward at small size, card against CPU --
+    slice19_cpu_check(dev)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
 
     # -- 6. kernels line and result ---------------------------------------
     kernels = [report[n] for n in TPU_KERNELS]

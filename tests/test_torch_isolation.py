@@ -12,6 +12,7 @@ import torch
 
 from bitsandbytes_tpu_torch.models import llama as TL
 from bitsandbytes_tpu_torch.nn import LinearNF4
+from bitsandbytes_tpu_torch.parallel import make_mesh
 from bitsandbytes_tpu_torch.serving import ContinuousBatchingEngine
 from bitsandbytes_tpu_torch.utils import interop
 
@@ -179,7 +180,8 @@ def test_default_device_raises_without_gpu(monkeypatch):
 
 def test_engine_and_paged_cache_default_device_raise_without_gpu(monkeypatch):
     """The serving engine and the paged cache default to CUDA too; the
-    engine's mesh option is not ported and says so."""
+    engine's mesh option takes a ``parallel.Mesh`` over process groups and
+    refuses anything else, a virtual mesh included."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TL.LlamaConfig(vocab_size=16, hidden_size=64, intermediate_size=64, num_layers=1,
                          num_heads=1, num_kv_heads=1, head_dim=64)
@@ -189,8 +191,11 @@ def test_engine_and_paged_cache_default_device_raise_without_gpu(monkeypatch):
         ContinuousBatchingEngine({}, cfg, max_batch=1, max_len=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         interop.kv_cache_from_numpy({"k": None, "v": None})
-    with pytest.raises(NotImplementedError, match="slice G"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         ContinuousBatchingEngine({}, cfg, max_batch=1, max_len=64, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="parallel.Mesh"):
+        ContinuousBatchingEngine({}, cfg, max_batch=1, max_len=64, mesh=make_mesh({"model": 1}, coord=0),
+                                 device="cpu")
     eng = ContinuousBatchingEngine({}, cfg, max_batch=1, max_len=64, kv_layout="paged", kv_block_size=16,
                                    device="cpu")
     assert eng.cache.k.device.type == eng.cache.tables.device.type == "cpu"

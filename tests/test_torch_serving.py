@@ -252,7 +252,7 @@ def test_constructor_validation(setup):
         _engine(setup, kv_layout="ring")
     with pytest.raises(ValueError, match="kv_dtype"):
         _engine(setup, kv_dtype="fp8")
-    with pytest.raises(NotImplementedError, match="slice G"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         _engine(setup, mesh=object())
     with pytest.raises(ValueError, match="params lie on"):
         ContinuousBatchingEngine(tq, tcfg, max_len=64, device="meta")
