@@ -54,6 +54,8 @@ from ..ops.flash_cached import (
     tp_slices,
 )
 from ..ops.quant4bit import QUANTIZE_DTYPES
+from ..parallel.collectives import reduce_from_axis
+from ..parallel.ring_attention import ring_attention
 from ..parallel.sharding import Sharded
 
 __all__ = [
@@ -573,8 +575,23 @@ def forward(
     (``parallel.Sharded.linear``), the vocab-split embedding is a masked
     lookup plus a sum over the axis, and the cached attention runs on this
     rank's KV heads (and slots) through ``flash_attention_*_tp``.  Every rank
-    ends with the same logits, bit for bit."""
+    ends with the same logits, bit for bit.
+
+    Without a cache the mesh forward trains: ``ids`` are this rank's rows
+    and, on a mesh with a ``"seq"`` axis, its shard of the tokens, whose
+    positions start at ``index("seq") * T``; the attention is then
+    ``parallel.ring_attention`` over that axis (at one rank too), the
+    grouped KV heads repeated first.  Gradients flow through the split
+    linears (``Sharded.linear``) and the ring.  A cached forward over a
+    ``"seq"`` axis of more than one rank is not supported."""
     B, T = ids.shape
+    ring = mesh is not None and "seq" in mesh.shape
+    if ring and cache is not None and mesh.shape["seq"] > 1:
+        raise NotImplementedError("a cached forward over a 'seq' axis of more than one rank is not supported")
+    if ring and cache is None:
+        if cfg.sliding_window is not None:
+            raise NotImplementedError("ring attention over the 'seq' axis takes no sliding_window")
+        start_pos = start_pos + mesh.index("seq") * T
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     emb = params["embed"]
     x = (emb.embedding(ids) if isinstance(emb, Sharded) else emb[ids]).to(cfg.dtype)
@@ -629,6 +646,10 @@ def forward(
             attn = _paged_attention(q, k, v, cache, li, start_pos, rows, cfg, mesh, tp)
         elif cache is not None:
             attn = _cached_attention(q, k, v, cache, li, start_pos, rows, cfg, mesh, tp)
+        elif ring:
+            G = H // KVH
+            k, v = (torch.repeat_interleave(t, G, dim=2) for t in (k, v))
+            attn = ring_attention(q, k, v, mesh, axis="seq", causal=True).reshape(B, T, H * hd)
         else:
             valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
             attn = _attention(q, k, v, positions, valid, cfg)
@@ -727,8 +748,32 @@ def _chunk_nll(hc, tc, lm_head, threshold):
     return (lse - tl).sum()
 
 
+def _local_tokens(ids: torch.Tensor, mesh):
+    """This rank's inputs and targets of ``ids [B, T+1]``: its rows over
+    ``"data"`` and its tokens over ``"seq"``."""
+    B, T = ids.shape[0], ids.shape[1] - 1
+    d, s = mesh.axis_size("data"), mesh.axis_size("seq")
+    if B % d:
+        raise ValueError(f"batch {B} does not split over the 'data' axis of size {d}")
+    if T % s:
+        raise ValueError(f"sequence {T} does not split over the 'seq' axis of size {s}")
+    b0, Bl = mesh.index("data") * (B // d), B // d
+    t0, Tl = mesh.index("seq") * (T // s), T // s
+    rows = ids[b0 : b0 + Bl]
+    return rows[:, t0 : t0 + Tl], rows[:, t0 + 1 : t0 + 1 + Tl]
+
+
+def _sum_over_batch_axes(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over the mesh's ``"data"`` and ``"seq"`` axes (those it
+    has); backward, the cotangent as it is (every rank's loss is the same)."""
+    for axis in ("data", "seq"):
+        if axis in mesh.shape:
+            t = reduce_from_axis(t, mesh, axis)
+    return t
+
+
 def lm_loss(params: dict, lora: Optional[dict], ids: torch.Tensor, cfg: LlamaConfig,
-            token_chunk: Optional[int] = None, int8_threshold: float = 0.0) -> torch.Tensor:
+            token_chunk: Optional[int] = None, int8_threshold: float = 0.0, mesh=None) -> torch.Tensor:
     """Next-token cross-entropy over ``ids [B, T+1]`` (mean over B*T).
 
     ``token_chunk`` applies the lm_head and the softmax to that many tokens
@@ -737,31 +782,77 @@ def lm_loss(params: dict, lora: Optional[dict], ids: torch.Tensor, cfg: LlamaCon
     logits rather than keep them.  The chunk sums add up in order.
     ``int8_threshold`` goes to :func:`forward`; on an int8 lm_head under
     ``token_chunk`` the outlier columns are found per chunk, as in the JAX
-    package, so the loss equals the dense one in meaning, not bit for bit."""
+    package, so the loss equals the dense one in meaning, not bit for bit.
+
+    ``mesh`` (a ``parallel.Mesh`` over process groups) trains over ranks:
+    ``params`` is this rank's tree from ``parallel.llama_param_specs``,
+    ``lora`` replicated, and ``ids`` the global batch, the same on every
+    rank.  A rank takes its rows over ``"data"`` and its tokens over
+    ``"seq"`` (the batch and T must divide), sums its tokens' NLL
+    (``token_chunk`` chunks them), and the sums add up in f32 over both
+    axes; divided by B*T, the loss is the same bits on every rank."""
+    if mesh is not None:
+        inputs, targets = _local_tokens(ids, mesh)
+        h, _ = forward(params, inputs, cfg, lora=lora, return_hidden=True, int8_threshold=int8_threshold,
+                       mesh=mesh)
+        total = _nll_sum(h.reshape(-1, h.shape[-1]), targets.reshape(-1), params["lm_head"], int8_threshold,
+                         token_chunk)
+        return _sum_over_batch_axes(total, mesh) / (ids.shape[0] * (ids.shape[1] - 1))
     if token_chunk is None:
         logits, _ = forward(params, ids[:, :-1], cfg, lora=lora, int8_threshold=int8_threshold)
         logp = torch.log_softmax(logits, dim=-1)
         return -logp.gather(-1, ids[:, 1:, None])[..., 0].mean()
     h, _ = forward(params, ids[:, :-1], cfg, lora=lora, return_hidden=True, int8_threshold=int8_threshold)
     h = h.reshape(-1, h.shape[-1])
-    targets = ids[:, 1:].reshape(-1)
-    N = h.shape[0]
+    return _nll_sum(h, ids[:, 1:].reshape(-1), params["lm_head"], int8_threshold, token_chunk) / h.shape[0]
+
+
+def _nll_sum(h, targets, lm_head, threshold, token_chunk):
+    """The f32 sum of the NLL of ``targets`` under the logits of ``h [N, D]``,
+    ``token_chunk`` tokens a checkpointed chunk (all at once if None)."""
+    if token_chunk is None:
+        return _chunk_nll(h, targets, lm_head, threshold)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c in range(0, N, token_chunk):
+    for c in range(0, h.shape[0], token_chunk):
         total = total + torch.utils.checkpoint.checkpoint(
-            _chunk_nll, h[c : c + token_chunk], targets[c : c + token_chunk], params["lm_head"], int8_threshold,
+            _chunk_nll, h[c : c + token_chunk], targets[c : c + token_chunk], lm_head, threshold,
             use_reentrant=False,
         )
-    return total / N
+    return total
+
+
+def _sum_grads(params, mesh) -> None:
+    """Each gradient summed over ``"data"`` and ``"seq"`` in place: the
+    gradients of one type go as one flat buffer, one all-reduce an axis."""
+    axes = [a for a in ("data", "seq") if a in mesh.shape]
+    if not axes:
+        return
+    by_type = {}
+    for p in params:
+        if p.grad is not None:
+            by_type.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_type.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        for axis in axes:
+            flat = mesh.all_reduce(flat, axis)
+        torch._foreach_copy_(grads, [piece.view_as(g) for piece, g in zip(flat.split([g.numel() for g in grads]),
+                                                                             grads)])
 
 
 def lora_train_step(params: dict, lora: dict, optimizer: torch.optim.Optimizer, ids: torch.Tensor,
-                    cfg: LlamaConfig, token_chunk: Optional[int] = None) -> torch.Tensor:
+                    cfg: LlamaConfig, token_chunk: Optional[int] = None, mesh=None) -> torch.Tensor:
     """One QLoRA step: gradients flow into the adapters only (the 4-bit base
     is frozen), then ``optimizer`` (built over :func:`lora_parameters`)
-    updates them in place.  Returns the loss before the step, detached."""
+    updates them in place.  Returns the loss before the step, detached.
+
+    ``mesh``: :func:`lm_loss` over the mesh, then every adapter gradient
+    summed over ``"data"`` and ``"seq"`` before the step (over ``"model"``
+    each rank's is the whole gradient already), so every rank's adapters and
+    optimizer states stay the same bits."""
     optimizer.zero_grad(set_to_none=True)
-    loss = lm_loss(params, lora, ids, cfg, token_chunk=token_chunk)
+    loss = lm_loss(params, lora, ids, cfg, token_chunk=token_chunk, mesh=mesh)
     loss.backward()
+    if mesh is not None:
+        _sum_grads([p for group in optimizer.param_groups for p in group["params"]], mesh)
     optimizer.step()
     return loss.detach()

@@ -1,4 +1,5 @@
-"""Collectives over packed quantized payloads.
+"""Collectives over packed quantized payloads, and the differentiable
+collectives of training over a mesh.
 
 Counterpart of the JAX package's ``parallel/collectives.py``.  When a
 4-bit weight must move, the packed payload and its absmax travel on the
@@ -11,6 +12,21 @@ keeps it in ``local``: the payload piece, and a state of the full logical
 shape whose absmax is this rank's piece (the whole codes of a
 double-quantized state, which each rank resolves to f32 and slices before
 the collective, as the JAX package does).
+
+The JAX package differentiates through its collectives because GSPMD and
+``shard_map`` transpose them.  Here each one used on a training path is a
+``torch.autograd.Function`` over the mesh's per-axis group with its adjoint
+written out: :func:`ppermute` (the ring exchange; its adjoint is the
+exchange the other way) and the four Megatron-style regions of a split
+linear.  Every rank computes the same replicated loss, so a replicated
+tensor's cotangent is the same on every rank and never summed for itself:
+:func:`copy_to_axis` (identity forward, the cotangent summed over the axis
+backward: a replicated input of a split computation), :func:`reduce_from_axis`
+(a sum over the axis forward, identity backward), :func:`gather_from_axis`
+(the axis's pieces concatenated forward, this rank's piece of the cotangent
+backward) and :func:`scatter_to_axis` (this rank's piece forward, the
+cotangent's pieces concatenated backward).  Their forwards are the plain
+collectives', bit for bit.
 """
 
 from __future__ import annotations
@@ -25,7 +41,108 @@ from ..functional.gemm import gemm_4bit
 from ..functional.quant_state import QuantState
 from .mesh import Mesh
 
-__all__ = ["all_gather_packed", "tp_gemm_4bit_allgather", "tp_gemm_4bit_ring"]
+__all__ = [
+    "all_gather_packed",
+    "tp_gemm_4bit_allgather",
+    "tp_gemm_4bit_ring",
+    "ppermute",
+    "copy_to_axis",
+    "reduce_from_axis",
+    "gather_from_axis",
+    "scatter_to_axis",
+]
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return mesh.ppermute(t, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.ppermute(g, ctx.axis, -ctx.shift), None, None, None
+
+
+def ppermute(t: torch.Tensor, mesh: Mesh, axis: str, shift: int = 1) -> torch.Tensor:
+    """``t`` sent ``shift`` ranks on along ``axis``'s ring (rank ``i`` to
+    ``(i + shift) % n``), the JAX ring permutation ``j -> j + shift``;
+    backward sends the cotangent ``shift`` ranks back.  At one rank a copy."""
+    mesh.group(axis)  # a virtual mesh raises here, at any size
+    return _PPermute.apply(t, mesh, axis, shift)
+
+
+def _sum_f32(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
+    """``t`` summed over ``axis`` in f32, back in its type."""
+    return mesh.all_reduce(t.to(torch.float32), axis).to(t.dtype)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(ctx.mesh, g, ctx.axis), None, None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.dim, ctx.size, ctx.start = dim, x.shape[dim], mesh.index(axis) * x.shape[dim]
+        return mesh.all_gather(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.size).contiguous(), None, None, None
+
+
+class _ScatterToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, start, length):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x[..., start : start + length].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g.contiguous(), ctx.axis, dim=-1), None, None, None, None
+
+
+def copy_to_axis(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``x`` as it is; backward, the cotangent summed over ``axis`` (in f32):
+    the input of a computation whose ranks each see part of its use."""
+    return _CopyToAxis.apply(x, mesh, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``x`` summed over ``axis`` in its type (the same bits on every rank);
+    backward, the cotangent as it is."""
+    return _ReduceFromAxis.apply(x, mesh, axis)
+
+
+def gather_from_axis(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = -1) -> torch.Tensor:
+    """The axis's pieces of ``x`` concatenated along ``dim``; backward, this
+    rank's piece of the cotangent, with no communication."""
+    return _GatherFromAxis.apply(x, mesh, axis, dim)
+
+
+def scatter_to_axis(x: torch.Tensor, mesh: Mesh, axis: str, start: int, length: int) -> torch.Tensor:
+    """This rank's columns ``start:start + length`` of ``x`` (every rank's
+    piece the same length); backward, the axis's pieces of the cotangent
+    concatenated."""
+    return _ScatterToAxis.apply(x, mesh, axis, start, length)
 
 
 def all_gather_packed(packed_shard: torch.Tensor, absmax_shard: torch.Tensor, mesh: Mesh, axis_name: str = "model",

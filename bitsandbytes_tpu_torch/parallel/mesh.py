@@ -102,6 +102,28 @@ class Mesh:
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group(axis))
         return out
 
+    def ppermute(self, t: torch.Tensor, axis: str, shift: int = 1) -> torch.Tensor:
+        """The ring exchange: ``t`` goes to the rank ``shift`` places further
+        along ``axis`` (cyclically), and what the rank ``shift`` places back
+        sent is returned, in one ``batch_isend_irecv``.  At one rank it is a
+        copy.  No gradient: ``collectives.ppermute`` is the differentiable
+        one."""
+        group = self.group(axis)
+        n = self.shape[axis]
+        if n == 1:
+            return t.clone()
+        me = self.coord[axis]
+        ranks = dist.get_process_group_ranks(group)
+        src = t.contiguous()
+        out = torch.empty_like(src)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src, ranks[(me + shift) % n], group),
+            dist.P2POp(dist.irecv, out, ranks[(me - shift) % n], group),
+        ])
+        for r in reqs:
+            r.wait()
+        return out
+
     def __repr__(self) -> str:
         kind = "virtual " if self.virtual else ""
         return f"{kind}Mesh({self.shape}, coord={self.coord})"

@@ -39,6 +39,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..nn.modules import Int8TensorState, QuantizedTensor
+from .collectives import copy_to_axis, gather_from_axis, reduce_from_axis, scatter_to_axis
 from .mesh import Mesh, make_mesh
 
 __all__ = [
@@ -176,23 +177,34 @@ class Sharded:
     def linear(self, x: torch.Tensor, apply: Callable) -> torch.Tensor:
         """``x @ W^T`` over the mesh: ``apply(x_local, compute)`` computes this
         rank's piece through the kernels; a K-split adds the f32 partial sums
-        over its axis, an N-split gathers the output columns over its axis."""
+        over its axis, an N-split gathers the output columns over its axis.
+
+        Differentiable in ``x`` (Megatron's regions, ``collectives.py``):
+        ``x`` is replicated, and each rank's piece of the weight sees part
+        of it, so an N-split sums ``grad_x`` over its axis and a K-split
+        gathers its columns of ``grad_x``; the gathered output's cotangent
+        is replicated, so a rank takes its columns of it, and the K-split's
+        sum passes it on as it is."""
         n_axis, k_axis = _dim(self.spec, 0), _dim(self.spec, 1)
         w = self._compute()
+        if n_axis is not None:
+            x = copy_to_axis(x, self.mesh, n_axis)
         if k_axis is not None:
             k0, kn = _bounds(self.mesh, k_axis, int(self.shape[1]))
-            part = apply(x[..., k0 : k0 + kn].contiguous(), w).to(torch.float32)
-            out = self.mesh.all_reduce(part, k_axis).to(x.dtype)
+            part = apply(scatter_to_axis(x, self.mesh, k_axis, k0, kn), w).to(torch.float32)
+            out = reduce_from_axis(part, self.mesh, k_axis).to(x.dtype)
         else:
             out = apply(x, w)
         if n_axis is not None:
-            out = self.mesh.all_gather(out, n_axis, dim=-1)
+            out = gather_from_axis(out, self.mesh, n_axis, dim=-1)
         return out
 
+    @torch.no_grad()
     def embedding(self, ids: torch.Tensor) -> torch.Tensor:
         """Rows ``ids`` of a table split over its rows: each rank looks up the
         ids it holds (zeros for the rest), and an f32 sum over the axis puts
-        every row together, exactly (one nonzero term a row)."""
+        every row together, exactly (one nonzero term a row).  Outside
+        autograd: the table is frozen and the ids are integers."""
         n_axis, k_axis = _dim(self.spec, 0), _dim(self.spec, 1)
         w = self._compute()
         if not isinstance(w, torch.Tensor) or k_axis is not None:

@@ -5,7 +5,9 @@ before the device finishes, so a kernel is timed with CUDA events around
 each call after a warm-up, and the median of n calls is reported with its
 min and max.  The canary times a device-to-device copy of >= 1 GB: the
 memory rate this card reaches, against which decode steps are bounded.
-Both refuse to run without a CUDA device.  :func:`sol_fraction` turns a
+:func:`device_loop_time` is the JAX package's marginal method: loops of n
+and 4n calls on CUDA events, whose difference cancels the fixed costs.
+All three refuse to run without a CUDA device.  :func:`sol_fraction` turns a
 time and a byte count into the share of a memory rate the caller gives
 (measured by the canary, not a data sheet's).
 """
@@ -13,11 +15,11 @@ time and a byte count into the share of a memory rate the caller gives
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
-__all__ = ["cuda_time", "bandwidth_canary", "sol_fraction"]
+__all__ = ["cuda_time", "bandwidth_canary", "device_loop_time", "sol_fraction"]
 
 
 def _require_cuda() -> None:
@@ -87,6 +89,39 @@ def bandwidth_canary(nbytes: int = 1 << 30, n: int = 10) -> dict:
     ms = t["median"]
     del src, dst
     return {"gb_s": 2 * nbytes / (ms * 1e-3) / 1e9, "ms": ms, "bytes": 2 * nbytes}
+
+
+def device_loop_time(fn: Callable, args: Sequence, iters: int = 200, warmup: int = 1, repeats: int = 2,
+                     const_args: Sequence = ()) -> float:
+    """Median marginal seconds per call of ``fn(*const_args, *args)`` on the
+    current stream: loops of ``iters`` and ``4 * iters`` calls timed with
+    CUDA events, ``(T_long - T_short) / (3 * iters)``, which cancels what a
+    loop costs once (the first launch, the final synchronize).  ``repeats``
+    such pairs, after ``warmup`` pairs untimed.  ``const_args`` are
+    separated from ``args`` as in the JAX package, where only ``args`` are
+    perturbed between iterations; eager calls need no perturbation, so both
+    are passed as they are."""
+    _require_cuda()
+
+    def loop(k: int) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            fn(*const_args, *args)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e-3
+
+    for _ in range(warmup):
+        loop(iters)
+        loop(4 * iters)
+    results = []
+    for _ in range(repeats):
+        t_short = loop(iters)
+        t_long = loop(4 * iters)
+        results.append(max(t_long - t_short, 1e-9) / (3 * iters))
+    results.sort()
+    return results[len(results) // 2]
 
 
 def sol_fraction(seconds: float, bytes_accessed: float, gbps: float) -> float:

@@ -142,7 +142,17 @@ Phases (every one asserts; any failure exits non-zero before the result):
    + matmul at M 1024, device ms beside the same experts in bf16 through
    ``torch.matmul`` (and held within atol 0.1 / rtol 0.05 of them), the
    gates bit for bit the CPU's, expert parallelism at one rank bit for bit
-   the dense layer.
+   the dense layer.  4o runs ring attention at Llama-3-8B widths (B 1, T
+   4096, H 32 over 8 KV heads, hd 128, bf16) at one NCCL rank, forward and
+   backward, against the dense f32 oracle and SDPA (errors, ms, peak
+   memory), and rings of 2 and 4 rank by rank in one process against one;
+   then GPipe over 32 NF4 [4096, 4096] layers, x [64, 4096] in 4
+   microbatches (kernel 2 forward, kernel 7 for grad_x), bit for bit the
+   layers run microbatch by microbatch, beside one sequential pass.  4p
+   runs 4d's QLoRA step over a ``{"data": 1, "seq": 1, "model": 1}`` mesh
+   (ring attention, the split linears' adjoints, the loss and gradient
+   sums), 3 steps against a meshless step: loss, gradients, the launches of
+   kernels 6 and 14, the collectives a step, wall and device ms, memory.
    The kernels' launch counts are zeroed just before each path and read
    just after it.  4a and 4b also
    load the model once more under
@@ -183,7 +193,10 @@ Phases (every one asserts; any failure exits non-zero before the result):
    paged optimizer, paged against unpaged bit for bit, card against CPU;
    and ``python -m bitsandbytes_tpu_torch`` as a subprocess, exit code 0;
    then the MoE at hidden 256 and the sharded forward of a 2-layer Llama at
-   a quarter of the widths over the one-rank mesh, card against CPU (5i).
+   a quarter of the widths over the one-rank mesh, card against CPU (5i);
+   then ring attention (rings of 2 and 4 rank by rank, and at one NCCL
+   rank with its gradients), GPipe over 4 NF4 layers and one meshed QLoRA
+   step of the tiny Llama, card against CPU (5j).
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -1697,6 +1710,471 @@ def slice19_cpu_check(dev):
          sharded_forward={"layers": 2, "hidden": cfg.hidden_size, "max_abs_logit_diff": (lg - lc).abs().max().item(),
                           "launches": fwd_counts},
          seconds=time.perf_counter() - t0)
+
+
+# -- slice 20: training over a mesh -------------------------------------------
+
+
+def events_fwd_bwd(f, inputs, gout, n=5):
+    """Forward and backward of ``f(*inputs)`` against the cotangent
+    ``gout``: ms between CUDA events around each (a spin queued first, so the
+    host runs ahead of the card), median and range of ``n`` after a warm-up,
+    and the peak memory allocated above what was held before."""
+    import torch
+
+    fwd, bwd = [], []
+    base = peak = 0
+    for i in range(n + 1):
+        for t in inputs:
+            t.grad = None
+        torch.cuda.synchronize()
+        if i == 1:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda._sleep(2_000_000)
+        e0.record()
+        out = f(*inputs)
+        e1.record()
+        out.backward(gout)
+        e2.record()
+        e2.synchronize()
+        if i:
+            fwd.append(e0.elapsed_time(e1))
+            bwd.append(e1.elapsed_time(e2))
+        del out
+    peak = torch.cuda.max_memory_allocated() - base
+    return {"fwd_ms": statistics.median(fwd), "fwd_range": [min(fwd), max(fwd)], "bwd_ms": statistics.median(bwd),
+            "bwd_range": [min(bwd), max(bwd)], "n": n, "peak_bytes": peak}
+
+
+def wall_and_device(fn, n=3):
+    """``fn()`` timed: the host clock over ``n`` runs after a warm-up, each
+    ending in a synchronize (median and range), then one run under
+    ``torch.profiler`` for the sum of its device events, also by class."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    _, events, prof_wall = profiled(fn)
+    dev_ms = sum(self_dev_us(e) for e in events) / 1e3
+    classes = by_class(events, [("nccl", "NCCL collectives"), ("dequantize_paired", "kernels 3 and 6"),
+                                ("gemm_4bit_paired_nt", "kernel 7"), ("gemm_4bit_paired", "kernel 2"),
+                                ("optimizer_update_8bit", "kernel 14")])
+    return {"wall_ms": statistics.median(walls), "wall_range": [min(walls), max(walls)], "device_ms": dev_ms,
+            "profiled_wall_ms": prof_wall, "device_busy_share": dev_ms / prof_wall, "by_class": classes}
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b|, in f32."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def ring_and_pipeline(dev, H=32, KVH=8, hd=128, T=4096, D=4096, n_layers=32):
+    """4o: ring attention and GPipe at Llama-3-8B widths on the one-rank
+    NCCL group.  Ring attention: H 32 (8 KV heads repeated), hd 128, B 1, T
+    4096, bf16 q/k/v; the one-rank ring, forward and backward, against the
+    dense f32 oracle (``models/llama._attention``) and SDPA with
+    ``is_causal``: the errors of the output and of dq/dk/dv, the ms of each
+    direction and the peak memory of all three; then every rank of rings of
+    2 and 4 computed in one process (``ring_attention_local`` on f32 copies)
+    against the one-rank ring on the same copies, within 2e-5 relative,
+    causal and not.  GPipe: 32 NF4 blocksize-64 [4096, 4096] layers, each
+    the residual gelu of ``matmul_4bit`` plus a float bias, x bf16 [64,
+    4096] in 4 microbatches (M 16: kernel 2 forward, kernel 7 for grad_x):
+    output, grad_x and the bias gradients bit for bit the same layers run
+    microbatch by microbatch, and against one sequential pass over all 64
+    rows within 5e-2 relative (kernel 2 cuts K by M); the launches of
+    kernels 2 and 7 and the wall and device ms of the pipelined step against
+    the sequential one."""
+    import torch
+    import torch.nn.functional as F
+
+    from bitsandbytes_tpu_torch import autograd
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.nn.modules import QuantizedTensor
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.parallel import (
+        gpipe,
+        make_mesh,
+        ring_attention,
+        ring_attention_local,
+        stack_stage_params,
+    )
+
+    one_rank_mesh()
+    mesh = make_mesh({"seq": 1})
+    gen = torch.Generator(device=dev).manual_seed(30)
+    B, G = 1, H // KVH
+    q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(B, T, KVH, hd, generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+            for _ in range(2))
+    gout = torch.randn(B, T, H * hd, generator=gen, device=dev).to(torch.bfloat16)
+    cfg = L.LlamaConfig(num_heads=H, num_kv_heads=KVH, head_dim=hd)
+    pos = torch.arange(T, device=dev)[None].expand(B, T)
+    valid = torch.ones(B, T, dtype=torch.bool, device=dev)
+
+    def ring(q, k, v):
+        kr, vr = (torch.repeat_interleave(t, G, dim=2) for t in (k, v))
+        return ring_attention(q, kr, vr, mesh, axis="seq").reshape(B, T, H * hd)
+
+    def oracle(q, k, v):
+        return L._attention(q, k, v, pos, valid, cfg)
+
+    def sdpa(q, k, v):
+        o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                                           enable_gqa=True)
+        return o.transpose(1, 2).reshape(B, T, H * hd)
+
+    results, timing = {}, {}
+    for name, f in (("ring", ring), ("oracle", oracle), ("sdpa", sdpa)):
+        for t in (q, k, v):
+            t.grad = None
+        out = f(q, k, v)
+        out.backward(gout)
+        results[name] = [out.detach()] + [t.grad.clone() for t in (q, k, v)]
+        del out
+        timing[name] = events_fwd_bwd(f, (q, k, v), gout)
+        torch.cuda.empty_cache()
+    errs = {}
+    for name in ("ring", "sdpa"):
+        errs[name] = {key: (a.float() - b.float()).abs().max().item()
+                      for key, a, b in zip(("out", "dq", "dk", "dv"), results[name], results["oracle"])}
+        assert all(math.isfinite(e) for e in errs[name].values()), f"4o {name}: {errs[name]}"
+    assert all(torch.isfinite(t).all() for t in results["ring"]), "4o: the ring's output or gradients are not finite"
+    # the oracle rounds its probabilities to bf16 before the product with v: the ring and SDPA do not
+    assert errs["ring"]["out"] <= 2e-2, f"4o ring output against the oracle: {errs['ring']}"
+    for key, a, b in zip(("dq", "dk", "dv"), results["ring"][1:], results["oracle"][1:]):
+        assert rel_err(a, b) <= 5e-2, f"4o ring {key} against the oracle: {rel_err(a, b)}"
+
+    # every rank of rings of 2 and 4 in one process, on f32 copies of the inputs
+    with torch.no_grad():
+        q32 = q.detach().float()
+        k32, v32 = (torch.repeat_interleave(t.detach().float(), G, dim=2) for t in (k, v))
+        virtual = {}
+        for causal in (True, False):
+            whole = ring_attention_local(q32, [(k32, v32)], 0, 1, causal)
+            for n in (2, 4):
+                Tl = T // n
+                ks, vs = k32.split(Tl, dim=1), v32.split(Tl, dim=1)
+                parts = [ring_attention_local(q32[:, r * Tl : (r + 1) * Tl],
+                                              [(ks[(r - i) % n], vs[(r - i) % n]) for i in range(n)], r, n, causal)
+                         for r in range(n)]
+                err = rel_err(torch.cat(parts, dim=1), whole)
+                assert err <= 2e-5, f"4o: {n} virtual ranks (causal {causal}) against one: {err}"
+                virtual[f"{n}_ranks_{'causal' if causal else 'full'}"] = err
+            del whole, parts
+    del results, q32, k32, v32
+    torch.cuda.empty_cache()
+
+    # GPipe over 32 NF4 layers, one stage
+    pmesh = make_mesh({"pipe": 1})
+    M, rows = 4, 64
+    layers = []
+    for _ in range(n_layers):
+        W = (torch.randn(D, D, generator=gen, device=dev) * D**-0.5).to(torch.bfloat16)
+        layers.append({"w": QuantizedTensor.quantize(W, blocksize=64),
+                       "b": torch.randn(D, generator=gen, device=dev) * 0.02})
+    del W
+    stacked = stack_stage_params(layers, 1)
+    stacked["b"].requires_grad_()
+    x = torch.randn(rows, D, generator=gen, device=dev).to(torch.bfloat16)
+    gy = torch.randn(rows, D, generator=gen, device=dev).to(torch.bfloat16)
+
+    def layer_fn(p, a):
+        h = autograd.matmul_4bit(a, p["w"].data, p["w"].state)
+        return (a + F.gelu(h.to(torch.float32) + p["b"], approximate="tanh")).to(a.dtype)
+
+    def pipelined():
+        stacked["b"].grad = None
+        xg = x.clone().requires_grad_()
+        y = gpipe(layer_fn, stacked, xg, pmesh, n_microbatches=M)
+        y.backward(gy)
+        return y.detach(), xg.grad, stacked["b"].grad[0]
+
+    def sequential(xs, gys):
+        """The layers over each row block of ``xs`` in turn (the last first,
+        as the pipeline's backward runs them), the bias gradients summed in
+        that order."""
+        ys, dxs, db = [None] * len(xs), [None] * len(xs), torch.zeros_like(stacked["b"][0])
+        for j in reversed(range(len(xs))):
+            xj = xs[j].clone().requires_grad_()
+            bias = [stacked["b"][0, i].detach().requires_grad_() for i in range(n_layers)]
+            a = xj
+            for i in range(n_layers):
+                a = layer_fn({"w": layers[i]["w"], "b": bias[i]}, a)
+            got = torch.autograd.grad(a, [xj] + bias, gys[j])
+            ys[j], dxs[j] = a.detach(), got[0]
+            db += torch.stack(got[1:])
+        return torch.cat(ys), torch.cat(dxs), db
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    y, dx, db = pipelined()
+    torch.cuda.synchronize()
+    pipe_counts = {k_: c for k_, c in launch_counts().items() if c}
+    want = {"gemm_4bit_paired": 2 * n_layers * M, "gemm_4bit_paired_nt": n_layers * M}
+    assert pipe_counts == want, f"4o gpipe: launches {pipe_counts} != {want}"
+    y_mb, dx_mb, db_mb = sequential(x.chunk(M), gy.chunk(M))
+    assert bits_equal(y, y_mb) and bits_equal(dx, dx_mb) and bits_equal(db, db_mb), \
+        "4o gpipe: not the layers' bits microbatch by microbatch"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    y_seq, dx_seq, db_seq = sequential([x], [gy])
+    torch.cuda.synchronize()
+    seq_counts = {k_: c for k_, c in launch_counts().items() if c}
+    assert seq_counts == {"gemm_4bit_paired": n_layers, "gemm_4bit_paired_nt": n_layers}, f"4o sequential {seq_counts}"
+    seq_errs = {"out": rel_err(y, y_seq), "grad_x": rel_err(dx, dx_seq), "grad_bias": rel_err(db, db_seq)}
+    assert all(e <= 5e-2 for e in seq_errs.values()), f"4o gpipe against one pass over all rows: {seq_errs}"
+    assert torch.isfinite(y).all() and torch.isfinite(dx).all() and torch.isfinite(db).all()
+    pipe_t = wall_and_device(pipelined)
+    seq_t = wall_and_device(lambda: sequential([x], [gy]))
+    emit("ring_and_pipeline", config="llama3_8b widths", backend="nccl",
+         ring={"B": B, "T": T, "H": H, "kv_heads": KVH, "head_dim": hd, "dtype": "bfloat16", "causal": True,
+               "max_abs_err_vs_oracle": errs, "timing": timing, "virtual_ranks_rel_err": virtual},
+         gpipe={"layers": n_layers, "D": D, "blocksize": 64, "rows": rows, "microbatches": M, "stages": 1,
+                "bit_equal_microbatch_sequence": True, "rel_err_vs_one_pass": seq_errs,
+                "launches": pipe_counts, "launches_sequential": seq_counts,
+                "pipelined": pipe_t, "sequential": seq_t,
+                "max_abs_activation": y.float().abs().max().item()})
+    del layers, stacked, x, gy, y, dx, db, y_mb, dx_mb, db_mb, y_seq, dx_seq, db_seq
+    torch.cuda.empty_cache()
+    return pipe_counts
+
+
+def meshed_qlora(cfg, params, tids, ref, rank, alpha, chunk, steps=3):
+    """4p: 4d's QLoRA step (the double-quantized model, rank 64 on seven
+    targets, ``adamw8bit``, ids [4, 513], ``token_chunk`` 512) over a
+    ``{"data": 1, "seq": 1, "model": 1}`` mesh on the one-rank NCCL group,
+    ``steps`` steps: the ring runs the attention, the split linears their
+    adjoints, the loss and the gradients their sums.  The first step's loss
+    (rel 1e-3) and adapter gradients (rtol 2e-2 / atol 2e-3) against one
+    meshless step from the same adapters, the launches of kernels 6 and 14
+    a step equal to the meshless step's, the collectives a step, the step's
+    wall (steps 2-3; the first sets up the groups' communicators) and the
+    peak memory beside 4d's, and one more step of each, meshless then
+    meshed, timed on the host and profiled for its device ms."""
+    import torch
+
+    from bitsandbytes_tpu_torch import optim as O
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.parallel import Sharded, llama_param_specs, make_mesh
+
+    dev = tids.device
+    one_rank_mesh()
+    axes = {"data": 1, "seq": 1, "model": 1}
+    mesh = make_mesh(axes)
+    calls = counted_collectives(mesh)
+    sparams = llama_param_specs(mesh, params)
+
+    def adapters():
+        lora = L.add_lora(cfg, rank=rank, alpha=alpha, targets=LORA_TARGETS,
+                          generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        return lora, O.adamw8bit(L.lora_parameters(lora), 1e-3)
+
+    lora_a, opt_a = adapters()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss_a = L.lora_train_step(params, lora_a, opt_a, tids, cfg, token_chunk=chunk).item()
+    counts_a = {k: v for k, v in launch_counts().items() if v}
+    grads_a = [t.grad.clone() for t in L.lora_parameters(lora_a)]
+    del lora_a, opt_a
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()  # as 4d counts it: the adapters and states included
+    torch.cuda.reset_peak_memory_stats()
+    lora_b, opt_b = adapters()
+    reset_launch_counts()
+    losses, walls, calls_1 = [], [], None
+    for s in range(steps):
+        calls.update(all_gather=0, all_reduce=0)
+        t0 = time.perf_counter()
+        losses.append(L.lora_train_step(sparams, lora_b, opt_b, tids, cfg, token_chunk=chunk, mesh=mesh).item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if s == 0:
+            calls_1 = dict(calls)
+            grads_b = [t.grad.clone() for t in L.lora_parameters(lora_b)]
+    counts_b = {k: v for k, v in launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() - base
+    assert abs(losses[0] - loss_a) <= 1e-3 * abs(loss_a), f"4p loss {losses[0]} against meshless {loss_a}"
+    worst = 0.0
+    for a, b in zip(grads_b, grads_a):
+        assert torch.allclose(a, b, rtol=2e-2, atol=2e-3), "4p adapter gradients against the meshless step's"
+        worst = max(worst, (a - b).abs().max().item())
+    assert counts_b == {k: v * steps for k, v in counts_a.items()}, f"4p launches {counts_b} != {steps} x {counts_a}"
+    assert counts_a.get("dequantize_paired_fast_dq") and counts_a.get("optimizer_update_8bit") == 1, counts_a
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"4p losses {losses}"
+    Lyr = cfg.num_layers
+    n_split = sum(isinstance(layer[k], Sharded) for layer in sparams["layers"] for k in layer)
+    chunks = -(-tids.shape[0] * (tids.shape[1] - 1) // chunk)
+    # forward: a gather for each split linear and lm_head chunk, again when a chunk is recomputed, a sum for
+    # the embedding and one for each batch axis of the loss; backward: a sum of grad_x for each split linear
+    # and chunk; the gradients: one sum for each batch axis
+    want = {"all_gather": n_split + 2 * chunks, "all_reduce": 1 + 2 + n_split + chunks + 2}
+    assert calls_1 == want, f"4p collectives a step {calls_1} != {want}"
+    assert n_split == 2 * Lyr, f"4p: {n_split} split linears"
+    # one more step of each, profiled, in turn: meshless, meshed
+    lora_a, opt_a = adapters()
+    timed = {"meshless": wall_and_device(lambda: L.lora_train_step(params, lora_a, opt_a, tids, cfg,
+                                                                   token_chunk=chunk).item(), n=1),
+             "mesh": wall_and_device(lambda: L.lora_train_step(sparams, lora_b, opt_b, tids, cfg, token_chunk=chunk,
+                                                               mesh=mesh).item(), n=1)}
+    emit("meshed_qlora", config="llama3_8b", layers=Lyr, mesh=axes, backend="nccl", compress_statistics=True,
+         lora_rank=rank, optimizer="adamw8bit", batch=tids.shape[0], seq=tids.shape[1] - 1, token_chunk=chunk,
+         steps=steps, losses=losses, meshless_loss=loss_a, loss_rel_diff=abs(losses[0] - loss_a) / abs(loss_a),
+         max_abs_grad_diff=worst, launches=counts_b, launches_meshless_step=counts_a, collectives_per_step=calls_1,
+         step_wall_ms={"median_2_3": statistics.median(walls[1:]), "all": walls}, timed_steps=timed,
+         peak_memory=peak, qlora_train_4d={"step_ms_median_2_5": ref["step_ms"]["median_2_5"],
+                                           "peak_memory": ref["peak"]})
+    del lora_a, opt_a, lora_b, opt_b, grads_a, grads_b, sparams
+    torch.cuda.empty_cache()
+    return counts_b
+
+
+def slice20_cpu_check(dev):
+    """5j: this slice's paths at small size, card against CPU, untimed:
+    ring attention (rings of 2 and 4 computed rank by rank on f32 inputs,
+    and the one-rank NCCL ring forward and backward) against the CPU's
+    within 1e-4 relative; GPipe over 4 NF4 layers of D 256 (bf16 x [8, 256],
+    4 microbatches: kernels 2 and 7) against the CPU's layers in sequence
+    within 5's logits gate (atol 0.1 / rtol 0.05); one meshed
+    ``lora_train_step`` of the tiny Llama at one rank against the CPU's
+    meshless step (5b's gates: the loss of the bf16 model within rel 1e-3,
+    the gradients of the f32 one within rtol 2e-2 / atol 2e-3)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bitsandbytes_tpu_torch import autograd
+    from bitsandbytes_tpu_torch import optim as O
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.nn.modules import QuantizedTensor
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.parallel import (
+        gpipe,
+        llama_param_specs,
+        make_mesh,
+        ring_attention,
+        ring_attention_local,
+        stack_stage_params,
+    )
+
+    t_start = time.perf_counter()
+    one_rank_mesh()
+    g = torch.Generator().manual_seed(40)
+    B, T, H, d = 2, 32, 4, 64
+    q, k, v = (torch.randn(B, T, H, d, generator=g) for _ in range(3))
+    ring_err = {}
+    for causal in (True, False):
+        for n in (2, 4):
+            Tl = T // n
+
+            def parts(q, k, v):
+                ks, vs = k.split(Tl, dim=1), v.split(Tl, dim=1)
+                return torch.cat([ring_attention_local(q[:, r * Tl : (r + 1) * Tl],
+                                                       [(ks[(r - i) % n], vs[(r - i) % n]) for i in range(n)],
+                                                       r, n, causal) for r in range(n)], dim=1)
+
+            c, gc = parts(q, k, v), parts(q.to(dev), k.to(dev), v.to(dev)).cpu()
+            ring_err[f"{n}_ranks_{'causal' if causal else 'full'}"] = rel_err(gc, c)
+            assert rel_err(gc, c) <= 1e-4, f"5j ring of {n} (causal {causal}) against the CPU"
+    w = torch.randn(B, T, H, d, generator=g)
+    mesh = make_mesh({"seq": 1})
+    grads = {}
+    for where in ("cpu", "card"):
+        qs, ks_, vs_ = (t.clone().to(dev if where == "card" else "cpu").requires_grad_() for t in (q, k, v))
+        if where == "card":
+            out = ring_attention(qs, ks_, vs_, mesh)
+        else:
+            out = ring_attention_local(qs, [(ks_, vs_)], 0, 1)
+        (out * w.to(out.device)).sum().backward()
+        grads[where] = [t.cpu() for t in (out.detach(), qs.grad, ks_.grad, vs_.grad)]
+    for key, a, b in zip(("out", "dq", "dk", "dv"), grads["card"], grads["cpu"]):
+        ring_err[f"nccl_{key}"] = rel_err(a, b)
+        assert rel_err(a, b) <= 1e-4, f"5j one-rank ring {key} against the CPU"
+
+    # GPipe over 4 NF4 layers: the payloads quantized on the CPU and copied over
+    D = 256
+    layers = [{"w": QuantizedTensor.quantize(torch.randn(D, D, generator=g) * D**-0.5, blocksize=64)}
+              for _ in range(4)]
+    x = torch.randn(8, D, generator=g).to(torch.bfloat16)
+
+    def layer_fn(p, a):
+        h = autograd.matmul_4bit(a, p["w"].data, p["w"].state)
+        return (a + F.gelu(h.to(torch.float32), approximate="tanh")).to(a.dtype)
+
+    xc = x.clone().requires_grad_()
+    yc = xc
+    for p in layers:
+        yc = layer_fn(p, yc)
+    yc.float().pow(2).sum().backward()
+    xg = x.to(dev).requires_grad_()
+    reset_launch_counts()
+    yg = gpipe(layer_fn, stack_stage_params(tree_to(layers, dev), 1), xg, make_mesh({"pipe": 1}), n_microbatches=4)
+    yg.float().pow(2).sum().backward()
+    torch.cuda.synchronize()
+    pipe_counts = {k_: c for k_, c in launch_counts().items() if c}
+    assert pipe_counts == {"gemm_4bit_paired": 32, "gemm_4bit_paired_nt": 16}, f"5j gpipe launches {pipe_counts}"
+    assert torch.allclose(yg.float().cpu(), yc.float(), atol=0.1, rtol=0.05), "5j gpipe output against the CPU"
+    assert torch.allclose(xg.grad.float().cpu(), xc.grad.float(), atol=0.1, rtol=0.05), "5j gpipe grad_x"
+    pipe_err = {"out": (yg.float().cpu() - yc.float()).abs().max().item(),
+                "grad_x_rel": rel_err(xg.grad.cpu(), xc.grad)}
+
+    # one meshed QLoRA step of the tiny Llama at one rank against the CPU's meshless step: the loss on
+    # the bf16 model, the gradients on the f32 one (in bf16 the ring's f32 probabilities and the dense
+    # oracle's bf16 ones move the gradients past atol 2e-3, on the CPU alone too)
+    import dataclasses
+
+    tmesh = make_mesh({"data": 1, "seq": 1, "model": 1})
+    ids = torch.randint(0, 512, (2, 9), generator=g)
+    qlora = {"config": "tiny", "mesh": {"data": 1, "seq": 1, "model": 1}}
+    for dt in (torch.bfloat16, torch.float32):
+        cfg = dataclasses.replace(L.LlamaConfig.tiny(), dtype=dt)
+        cpu_p = L.quantize_params_4bit(L.init_params(cfg, torch.Generator().manual_seed(41), device="cpu"))
+        lora0 = L.add_lora(cfg, rank=4, targets=LORA_TARGETS, generator=torch.Generator().manual_seed(42),
+                           device="cpu")
+        gb = torch.Generator().manual_seed(43)
+        for layer in lora0["layers"]:  # b non-zero, so that every adapter tensor has a gradient
+            for ad in layer.values():
+                ad["b"] = (torch.randn(ad["b"].shape, generator=gb) * 0.02).requires_grad_()
+
+        def fresh(device):
+            return {"layers": [{n_: {k_: t.detach().clone().to(device).requires_grad_() for k_, t in ad.items()}
+                                for n_, ad in layer.items()} for layer in lora0["layers"]]}
+
+        lc = fresh("cpu")
+        loss_c = L.lm_loss(cpu_p, lc, ids, cfg)
+        loss_c.backward()
+        lg = fresh(dev)
+        opt = O.adamw8bit(L.lora_parameters(lg), 1e-3)
+        reset_launch_counts()
+        loss_g = L.lora_train_step(llama_param_specs(tmesh, tree_to(cpu_p, dev)), lg, opt, ids.to(dev), cfg,
+                                   mesh=tmesh).item()
+        torch.cuda.synchronize()
+        step_counts = {k_: c for k_, c in launch_counts().items() if c}
+        assert step_counts.get("gemm_4bit_paired") and step_counts.get("gemm_4bit_paired_nt"), step_counts
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        res = {"loss_card": loss_g, "loss_cpu": loss_c.item(), "launches": step_counts}
+        if dt == torch.bfloat16:
+            assert abs(loss_g - loss_c.item()) <= 1e-3 * abs(loss_c.item()), f"5j loss {loss_g} vs {loss_c.item()}"
+        else:
+            grad_err = 0.0
+            for tg, tc in zip(L.lora_parameters(lg), L.lora_parameters(lc)):
+                assert torch.allclose(tg.grad.cpu(), tc.grad, rtol=2e-2, atol=2e-3), \
+                    "5j adapter gradients against the CPU"
+                grad_err = max(grad_err, (tg.grad.cpu() - tc.grad).abs().max().item())
+            res["max_abs_grad_diff"] = grad_err
+        qlora[tag] = res
+    emit("cpu_check_slice20", ring_rel_err=ring_err, gpipe={"layers": 4, "D": D, "max_abs_diff": pipe_err,
+                                                            "launches": pipe_counts},
+         qlora=qlora, seconds=time.perf_counter() - t_start)
 
 
 def main() -> int:
@@ -4279,6 +4757,10 @@ def main() -> int:
 
     # -- 4j. paged QLoRA: 4d with paged_adamw8bit, then adamw32bit paged and not --
     paged_qlora(cfg, nested_params, tids, ref_4d, rank, alpha, chunk, tsteps)
+
+    # -- 4p. 4d's QLoRA step over a data x seq x model mesh at one NCCL rank --
+    for name, n in meshed_qlora(cfg, nested_params, tids, ref_4d, rank, alpha, chunk).items():
+        report[name]["launches_4p"] = n
     del nested_params, tids, ref_4d
     torch.cuda.empty_cache()
 
@@ -4442,6 +4924,11 @@ def main() -> int:
     sharded_serving(cfg, nf4_params, ids, prompts, dev)
     del nf4_params
     torch.cuda.empty_cache()
+
+    # -- 4o. ring attention and GPipe at Llama-3-8B widths at one NCCL rank --
+    counts_4o = ring_and_pipeline(dev)
+    for name, n in counts_4o.items():
+        report[name]["launches_4o"] = n
 
     # -- 4f. serve, then QLoRA-train with AdEMAMix, on bf16 quant_storage ---
     # (the K-adjacent layout: kernel 10's _dq mode at prefill and kernel 9's
@@ -5121,6 +5608,9 @@ def main() -> int:
 
     # -- 5i. the MoE and the sharded forward at small size, card against CPU --
     slice19_cpu_check(dev)
+
+    # -- 5j. ring attention, GPipe and a meshed QLoRA step at small size, card against CPU --
+    slice20_cpu_check(dev)
     import torch.distributed as dist
 
     dist.destroy_process_group()

@@ -124,6 +124,84 @@ def test_new_surface_runs_with_jax_blocked():
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stdout + res.stderr
 
 
+_MESH_TRAINING = """
+import os, sys
+for name in ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "safetensors", "bitsandbytes_tpu"):
+    sys.modules[name] = None  # any import of these raises ImportError
+import torch
+import torch.distributed as dist
+from bitsandbytes_tpu_torch.parallel.ring_attention import ring_attention
+from bitsandbytes_tpu_torch.parallel.pipeline import gpipe, stack_stage_params
+from bitsandbytes_tpu_torch.utils.benchmark import device_loop_time
+from bitsandbytes_tpu_torch import parallel as P
+from bitsandbytes_tpu_torch.models import llama as L
+dist.init_process_group("gloo", store=dist.FileStore(os.path.join(sys.argv[1], "store"), 1), rank=0, world_size=1)
+g = torch.Generator().manual_seed(0)
+cfg = L.LlamaConfig(vocab_size=64, hidden_size=64, intermediate_size=128, num_layers=1, num_heads=2,
+                    num_kv_heads=1, head_dim=32)
+mesh = P.make_mesh({"data": 1, "seq": 1, "model": 1})
+pmesh = P.make_mesh({"pipe": 1})
+params = P.llama_param_specs(mesh, L.init_params(cfg, g, device="cpu"))
+lora = L.add_lora(cfg, rank=2, device="cpu")
+opt = torch.optim.SGD(L.lora_parameters(lora), 1e-3)
+ids = torch.randint(0, cfg.vocab_size, (2, 9), generator=g)
+q = torch.randn(1, 8, 2, 32, generator=g, requires_grad=True)
+stacked = stack_stage_params([{"w": torch.randn(64, 64, generator=g)} for _ in range(2)], 1)
+stacked["w"].requires_grad_()
+x = torch.randn(4, 64, generator=g, requires_grad=True)
+# from here a tensor made without naming its device is a "meta" tensor, which no CPU tensor can meet
+torch.set_default_device("meta")
+try:
+    loss = L.lora_train_step(params, lora, opt, ids, cfg, token_chunk=8, mesh=mesh)
+    ring_attention(q, q, q, mesh, axis="seq").sum().backward()
+    gpipe(lambda p, a: torch.tanh(a @ p["w"]), stacked, x, pmesh, n_microbatches=2).sum().backward()
+finally:
+    torch.set_default_device(None)
+out = [loss, q.grad, x.grad, stacked["w"].grad] + [t.grad for t in L.lora_parameters(lora)]
+assert all(t.device.type == "cpu" and bool(torch.isfinite(t).all()) for t in out)
+dist.destroy_process_group()
+print("ok")
+"""
+
+
+def test_mesh_training_runs_with_jax_blocked_on_its_inputs_device(tmp_path):
+    """``parallel.ring_attention``, ``parallel.pipeline`` and
+    ``utils.benchmark.device_loop_time`` import with jax, flax, optax and the
+    JAX package blocked, and the meshed entry points (a QLoRA step over a
+    data x seq x model mesh, ring attention, GPipe) create nothing on the
+    CPU unless asked: run on CPU inputs over a one-rank gloo group with the
+    default device set to "meta", any tensor they made without naming its
+    device would fail to meet the CPU ones.  (A float tree: the 4-bit
+    kernels' plain versions build host tables on purpose.)"""
+    res = subprocess.run(
+        [sys.executable, "-c", _MESH_TRAINING, str(tmp_path)], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stdout + res.stderr
+
+
+def test_virtual_mesh_raises_in_the_training_collectives(monkeypatch):
+    """A virtual mesh (a coordinate, no process groups) refuses ``ppermute``
+    as it refuses ``all_gather``, at any axis size, and so do ring attention
+    and GPipe; ``device_loop_time`` refuses to run without a GPU."""
+    from bitsandbytes_tpu_torch.parallel import gpipe, ppermute, ring_attention, stack_stage_params
+    from bitsandbytes_tpu_torch.utils.benchmark import device_loop_time
+
+    t = torch.ones(2, 4)
+    for n in (1, 2):
+        mesh = make_mesh({"seq": n}, coord=0)
+        with pytest.raises(RuntimeError, match="virtual mesh"):
+            mesh.all_gather(t, "seq")
+        with pytest.raises(RuntimeError, match="virtual mesh"):
+            ppermute(t, mesh, "seq")
+        with pytest.raises(RuntimeError, match="virtual mesh"):
+            ring_attention(t[None, :, None], t[None, :, None], t[None, :, None], mesh)
+    with pytest.raises(RuntimeError, match="virtual mesh"):
+        gpipe(lambda p, a: a @ p["w"], stack_stage_params([{"w": torch.eye(4)}], 1), t, make_mesh({"pipe": 1}, coord=0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_loop_time(lambda a: a, (t,))
+
+
 @pytest.mark.parametrize("args,rc", [([], 1), (["--device", "cpu"], 0)], ids=["default_cuda", "cpu"])
 def test_diagnostics_cli(args, rc):
     """``python -m bitsandbytes_tpu_torch``: without a GPU it says so and

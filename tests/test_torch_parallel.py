@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from bitsandbytes_tpu_torch import parallel as TP
 from bitsandbytes_tpu_torch.models import llama as TL
@@ -25,10 +24,12 @@ from bitsandbytes_tpu_torch.models import moe as TM
 from bitsandbytes_tpu_torch.nn.modules import QuantizedTensor
 from bitsandbytes_tpu_torch.serving import ContinuousBatchingEngine
 from bitsandbytes_tpu_torch.utils.interop import kv_cache_from_numpy, moe_params_from_numpy, params_from_numpy
+from torch_ranks import spawn_world
 
 torch.set_num_threads(1)
 
 AXES = {2: {"model": 2}, 4: {"data": 2, "model": 2}}
+WORLD_LIMIT_S = 240  # a world takes a few seconds
 PROMPTS = [[1, 2, 3, 4], [5, 6], [7, 8, 9], [10, 11, 12, 13, 14]]
 
 
@@ -326,7 +327,7 @@ def ranks(request, trees, moe_case, tmp_path_factory):
            "kadjacent": kadjacent,
            "ids": ids, "caches": caches, "tok": logits[:, -1].argmax(-1), "moe": moe_case[:2], "moe_x": moe_case[2]}
     torch.save(inp, os.path.join(tmp, "inputs.pt"))
-    mp.spawn(_rank_main, args=(world, tmp), nprocs=world, join=True)
+    spawn_world(_rank_main, world, tmp, WORLD_LIMIT_S)
     outs = [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False) for r in range(world)]
     return world, inp, outs
 
