@@ -18,7 +18,8 @@ serialized names (``utils.serialization``: npz, safetensors, HF Llama import),
 serving over a mesh of ranks (``parallel``: sharded weights and KV caches,
 packed-payload collectives, ``forward(mesh=)`` and the engine), the MoE FFN
 with expert parallelism (``models.moe``) and the host quantizer
-(``utils.native``).
+(``utils.native``).  ``features`` names the backend, as the JAX package's
+names its own.
 """
 
 from . import functional, nn, optim
@@ -27,6 +28,8 @@ from .functional import QuantState
 from .functional.gemm import gemm_4bit, gemv_4bit
 
 __version__ = "0.1.0"
+
+features = {"multi_backend", "cuda"}
 
 __all__ = [
     "functional",
@@ -38,5 +41,6 @@ __all__ = [
     "gemm_4bit",
     "gemv_4bit",
     "QuantState",
+    "features",
     "__version__",
 ]

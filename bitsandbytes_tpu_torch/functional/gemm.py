@@ -27,12 +27,13 @@ orders:
   uint8 absmax where they load it; any other nested state is decoded to an
   f32 absmax first (``QuantState.dequant_absmax``).
 
-The backward ``grad_A = g @ dequant(B)`` routes the same way around
-:data:`BACKWARD_LARGE_M_THRESHOLD` rows of ``g``: the ``_nt`` kernels (kernel
-11 on the K-adjacent layout) below it, the dequantize kernel (``_dq`` on an
-``inline_nested`` state) and ``torch.matmul`` at or above it with bf16
-``g``.  Kernel 11 takes an f32 absmax only, so on a nested K-adjacent state
-it still runs after a decode on the device.
+The backward ``grad_A = g @ dequant(B)`` routes the same way around a
+threshold of rows of ``g`` for its type and layout
+(:func:`backward_threshold`): the ``_nt`` kernels (kernel 11 on the
+K-adjacent layout) below it, the dequantize kernel in g's type (``_dq`` on
+an ``inline_nested`` state) and ``torch.matmul`` at or above it.  Kernel 11
+takes an f32 absmax only, so on a nested K-adjacent state it still runs
+after a decode on the device.
 """
 
 from __future__ import annotations
@@ -62,7 +63,9 @@ from .fourbit import payload_bytes
 from .quant_state import QuantState
 
 __all__ = ["LARGE_M_THRESHOLD", "KADJACENT_LARGE_M_THRESHOLD", "KADJACENT_F32_LARGE_M_THRESHOLD",
-           "BACKWARD_LARGE_M_THRESHOLD", "gemm_4bit", "gemv_4bit", "gemm_4bit_grad_A"]
+           "BACKWARD_LARGE_M_THRESHOLD", "BACKWARD_F16_LARGE_M_THRESHOLD", "BACKWARD_F32_LARGE_M_THRESHOLD",
+           "KADJACENT_BACKWARD_F32_LARGE_M_THRESHOLD", "backward_threshold", "gemm_4bit", "gemv_4bit",
+           "gemm_4bit_grad_A"]
 
 # Rows of A from which the paired layout's dequantize + torch.matmul route
 # runs instead of kernels 2 and 5.  Chosen from chip_smoke.py's sweep of both
@@ -95,22 +98,52 @@ LARGE_M_THRESHOLD = 129
 KADJACENT_LARGE_M_THRESHOLD = 65
 KADJACENT_F32_LARGE_M_THRESHOLD = 9
 
-# Rows of g from which the backward runs the dequantize kernel +
-# torch.matmul instead of the _nt kernels, on both layouts.  Chosen from
-# chip_smoke.py's sweeps of both routes on gate_up^T and down^T at M 1-256,
-# device time with the host held out (phase 3j: kernel 7 against
-# dequantize_paired_fast + matmul and kernel 8 against
-# dequantize_paired_fast_dq + matmul; phase 3l: kernel 11 against
-# dequantize_4bit_2d + matmul), NVIDIA H100 80GB HBM3 at 700.00 W, bf16 g.
-# The tensor-core kernels read the payload once per 32 rows of g, and both
-# layouts change sides at the same row: every _nt kernel leads through M 64
-# (gate_up^T: kernel 7 0.1197 against 0.2027 ms, kernel 8 0.1425 against
-# 0.2005, kernel 11 0.1520 against 0.2023) and trails from M 65 (0.2264
-# against 0.2034, 0.2649 against 0.2017, 0.2810 against 0.2027; down^T:
-# kernel 8 0.1257 against 0.1075, kernel 11 0.1158 against 0.1078, kernel 7
-# even at 0.1083 against 0.1085, behind from M 128).  One constant serves
-# both layouts.  f16 and f32 g take the _nt kernels at every M.
+# Rows of g from which the backward runs the dequantize kernel (in g's
+# type) + torch.matmul instead of the _nt kernels.  Chosen from
+# chip_smoke.py's sweeps of both routes on gate_up^T and down^T, device time
+# with the host held out (phase 3j: kernel 7 against dequantize_paired_fast
+# + matmul and kernel 8 against dequantize_paired_fast_dq + matmul; phase
+# 3l: kernel 11 against dequantize_4bit_2d + matmul), NVIDIA H100 80GB HBM3
+# at 700.00 W.
+#
+# bf16 and f16 g run the tensor-core kernels, which read the payload once
+# per 32 rows of g, and both layouts change sides at the same row.  bf16:
+# every _nt kernel leads through M 64 (gate_up^T: kernel 7 0.1197 against
+# 0.2027 ms, kernel 8 0.1425 against 0.2005, kernel 11 0.1520 against
+# 0.2023) and trails from M 65 (0.2264 against 0.2034, 0.2649 against
+# 0.2017, 0.2810 against 0.2027; down^T: kernel 8 0.1257 against 0.1075,
+# kernel 11 0.1158 against 0.1078, kernel 7 even at 0.1083 against 0.1085,
+# behind from M 128).  f16 the same (M 64 / 65 on gate_up^T: kernel 7 0.1148
+# / 0.2101 against 0.2031 / 0.2037, kernel 8 0.1389 / 0.2633 against 0.2008
+# / 0.2014, kernel 11 0.1509 / 0.2813 against 0.2029 / 0.2028; down^T at 65:
+# kernel 8 0.1240 against 0.1069, kernel 11 0.1157 against 0.1084, kernel 7
+# 0.1015 against 0.1076, behind from 128); at M 2048 kernel 7 takes 3.241 ms
+# against 0.7174.
+#
+# f32 g runs the CUDA-core bodies, which read the weight once per 8 rows of
+# g, against an f32 dequantize and a full-f32 matmul (TF32 off), and the
+# layouts part.  Kernels 7 and 8 lead through M 32 (gate_up^T 0.3213 /
+# 0.3151 against 0.3998 / 0.3986 ms, down^T 0.2693 / 0.2658 against 0.2888 /
+# 0.2878) and trail at M 40 (0.6815 against 0.5159, 0.3345 against 0.2764).
+# Kernel 11 leads through M 24 on gate_up^T (0.3206 against 0.3955) and
+# trails there on down^T by 1.6% (0.2928 against 0.2881); both trail at 32
+# (0.4272 against 0.3969, 0.3773 against 0.2874).  At M 2048 the CUDA-core
+# kernels take 20.14 (kernel 7) and 25.16 ms (kernel 11) on gate_up^T
+# against 9.48.
 BACKWARD_LARGE_M_THRESHOLD = 65
+BACKWARD_F16_LARGE_M_THRESHOLD = 65
+BACKWARD_F32_LARGE_M_THRESHOLD = 33
+KADJACENT_BACKWARD_F32_LARGE_M_THRESHOLD = 25
+
+
+def backward_threshold(dtype, layout: str) -> int:
+    """The rows of g from which the backward of a ``layout`` state takes the
+    dequantize route."""
+    if dtype == torch.float16:
+        return BACKWARD_F16_LARGE_M_THRESHOLD
+    if dtype == torch.float32:
+        return BACKWARD_F32_LARGE_M_THRESHOLD if layout == "paired" else KADJACENT_BACKWARD_F32_LARGE_M_THRESHOLD
+    return BACKWARD_LARGE_M_THRESHOLD
 
 
 def _paired_routes(quant_state: QuantState):
@@ -186,9 +219,10 @@ def gemm_4bit_grad_A(g: torch.Tensor, B_packed: torch.Tensor, quant_state: Quant
     M = 1
     for s in lead:
         M *= s
+    large = M >= backward_threshold(g.dtype, quant_state.layout)
     if quant_state.layout != "paired":
         B, scales, code, bs, dequant, _ = _kadjacent_routes(B_packed, quant_state)
-        if (M >= BACKWARD_LARGE_M_THRESHOLD and g.dtype == torch.bfloat16) or not gemm_2d_supported(N, K, bs):
+        if large or not gemm_2d_supported(N, K, bs):
             return torch.matmul(g, dequant(B, *scales, code, bs, (N, K), g.dtype))
         # kernel 11 takes an f32 absmax only: a state the _dq kernels read is decoded first
         absmax = quant_state.dequant_absmax().contiguous() if quant_state.inline_nested else scales[0]
@@ -198,8 +232,8 @@ def gemm_4bit_grad_A(g: torch.Tensor, B_packed: torch.Tensor, quant_state: Quant
     P = B_packed.reshape(N // 2, K)
     g2 = g.reshape(M, N).contiguous()
     scales, dequant, _, nt = _paired_routes(quant_state)
-    if M >= BACKWARD_LARGE_M_THRESHOLD and g.dtype == torch.bfloat16:
-        out = torch.matmul(g2, dequant(P, *scales, code, bs, torch.bfloat16))
+    if large:
+        out = torch.matmul(g2, dequant(P, *scales, code, bs, g.dtype))
     else:
         out = nt(g2, P, *scales, code, bs, (N, K))
     return out.reshape(*lead, K)

@@ -581,16 +581,15 @@ def forward(
     and, on a mesh with a ``"seq"`` axis, its shard of the tokens, whose
     positions start at ``index("seq") * T``; the attention is then
     ``parallel.ring_attention`` over that axis (at one rank too), the
-    grouped KV heads repeated first.  Gradients flow through the split
-    linears (``Sharded.linear``) and the ring.  A cached forward over a
-    ``"seq"`` axis of more than one rank is not supported."""
+    grouped KV heads repeated first, masked by ``cfg.sliding_window`` as the
+    dense oracle is.  Gradients flow through the split linears
+    (``Sharded.linear``) and the ring.  A cached forward ignores ``"seq"``,
+    as the JAX package's ``kv_cache_specs`` does: the cache replicates over
+    it and every ``seq`` rank computes the whole token axis, with no
+    collective over it."""
     B, T = ids.shape
-    ring = mesh is not None and "seq" in mesh.shape
-    if ring and cache is not None and mesh.shape["seq"] > 1:
-        raise NotImplementedError("a cached forward over a 'seq' axis of more than one rank is not supported")
-    if ring and cache is None:
-        if cfg.sliding_window is not None:
-            raise NotImplementedError("ring attention over the 'seq' axis takes no sliding_window")
+    ring = mesh is not None and "seq" in mesh.shape and cache is None
+    if ring:
         start_pos = start_pos + mesh.index("seq") * T
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     emb = params["embed"]
@@ -649,7 +648,8 @@ def forward(
         elif ring:
             G = H // KVH
             k, v = (torch.repeat_interleave(t, G, dim=2) for t in (k, v))
-            attn = ring_attention(q, k, v, mesh, axis="seq", causal=True).reshape(B, T, H * hd)
+            attn = ring_attention(q, k, v, mesh, axis="seq", causal=True, window=cfg.sliding_window).reshape(
+                B, T, H * hd)
         else:
             valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
             attn = _attention(q, k, v, positions, valid, cfg)
@@ -750,17 +750,22 @@ def _chunk_nll(hc, tc, lm_head, threshold):
 
 def _local_tokens(ids: torch.Tensor, mesh):
     """This rank's inputs and targets of ``ids [B, T+1]``: its rows over
-    ``"data"`` and its tokens over ``"seq"``."""
+    ``"data"`` and its ``ceil(T / seq)`` tokens over ``"seq"``.  Where T does
+    not split, the last tokens are padding (id 0), as GSPMD pads an uneven
+    split: causal attention keeps every real token from seeing them, and
+    the targets hold the real tokens' alone (fewer on the last ranks)."""
     B, T = ids.shape[0], ids.shape[1] - 1
     d, s = mesh.axis_size("data"), mesh.axis_size("seq")
     if B % d:
         raise ValueError(f"batch {B} does not split over the 'data' axis of size {d}")
-    if T % s:
-        raise ValueError(f"sequence {T} does not split over the 'seq' axis of size {s}")
     b0, Bl = mesh.index("data") * (B // d), B // d
-    t0, Tl = mesh.index("seq") * (T // s), T // s
+    Tl = -(-T // s)
+    t0 = mesh.index("seq") * Tl
     rows = ids[b0 : b0 + Bl]
-    return rows[:, t0 : t0 + Tl], rows[:, t0 + 1 : t0 + 1 + Tl]
+    inputs = rows[:, :T][:, t0 : t0 + Tl]
+    if inputs.shape[1] < Tl:
+        inputs = torch.nn.functional.pad(inputs, (0, Tl - inputs.shape[1]))
+    return inputs, rows[:, t0 + 1 : t0 + 1 + Tl]
 
 
 def _sum_over_batch_axes(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -787,14 +792,16 @@ def lm_loss(params: dict, lora: Optional[dict], ids: torch.Tensor, cfg: LlamaCon
     ``mesh`` (a ``parallel.Mesh`` over process groups) trains over ranks:
     ``params`` is this rank's tree from ``parallel.llama_param_specs``,
     ``lora`` replicated, and ``ids`` the global batch, the same on every
-    rank.  A rank takes its rows over ``"data"`` and its tokens over
-    ``"seq"`` (the batch and T must divide), sums its tokens' NLL
+    rank.  A rank takes its rows over ``"data"`` (the batch must divide)
+    and its tokens over ``"seq"`` (an uneven T is padded at its end, as
+    GSPMD pads it), sums its tokens' NLL
     (``token_chunk`` chunks them), and the sums add up in f32 over both
     axes; divided by B*T, the loss is the same bits on every rank."""
     if mesh is not None:
         inputs, targets = _local_tokens(ids, mesh)
         h, _ = forward(params, inputs, cfg, lora=lora, return_hidden=True, int8_threshold=int8_threshold,
                        mesh=mesh)
+        h = h[:, : targets.shape[1]]  # the padding's positions carry no loss
         total = _nll_sum(h.reshape(-1, h.shape[-1]), targets.reshape(-1), params["lm_head"], int8_threshold,
                          token_chunk)
         return _sum_over_batch_axes(total, mesh) / (ids.shape[0] * (ids.shape[1] - 1))

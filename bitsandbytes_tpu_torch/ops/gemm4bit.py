@@ -346,11 +346,12 @@ def gemm_4bit_nt_fused(G: torch.Tensor, B: torch.Tensor, absmax: torch.Tensor, c
         return out
     plan = _nt_splits if G.dtype == torch.float32 else nt_plan
     rows, splits = plan(M, N, K, _sm_count(G.device.index or 0))
-    # f32 partials only where there is more than one split
-    part = torch.empty(splits * M * K, dtype=torch.float32, device=G.device).data_ptr() if splits > 1 else None
+    # f32 partials only where there is more than one split; the tensor stays
+    # bound until the launch is queued, so the allocator cannot hand it out
+    part = torch.empty(splits * M * K, dtype=torch.float32, device=G.device) if splits > 1 else None
     err = _lib.lib().bnb_gemm_4bit_nt_fused(
-        G.data_ptr(), B.data_ptr(), absmax.data_ptr(), part, out.data_ptr(), M, N, K, blocksize, rows, splits,
-        _lib.host_f32(code_t), _KIND[G.dtype], _lib.stream(G),
+        G.data_ptr(), B.data_ptr(), absmax.data_ptr(), None if part is None else part.data_ptr(), out.data_ptr(),
+        M, N, K, blocksize, rows, splits, _lib.host_f32(code_t), _KIND[G.dtype], _lib.stream(G),
     )
     _lib.check(err, "gemm_4bit_nt_fused")
     _lib.LAUNCHES["gemm_4bit_nt_fused"] += 1

@@ -226,8 +226,7 @@ def tp_gemm_4bit_ring(A: torch.Tensor, packed: torch.Tensor, state: QuantState, 
     me = mesh.index(axis_name)
     out = torch.empty(A2.shape[0], N, dtype=torch.float32, device=A.device)
     if s > 1:
-        group = mesh.group(axis_name)
-        ranks = dist.get_process_group_ranks(group)
+        group, ranks = mesh.group(axis_name), mesh.ranks(axis_name)
         to, frm = ranks[(me - 1) % s], ranks[(me + 1) % s]
     for t in range(s):
         reqs = []

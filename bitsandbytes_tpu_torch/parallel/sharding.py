@@ -13,6 +13,10 @@ bytes.
   blocks; its absmax ``[K/bs, N]`` shards congruently (dim 1 for N).
 * An axis that does not divide replicates; a double-quantized absmax (its
   uint8 codes, ``state2`` and the offset) replicates.
+* A dimension may split over a tuple of axes, ``("data", "model")``: into
+  the product of their sizes, a rank's piece indexed row-major over them
+  in the tuple's order, as JAX places it (``Mesh.index``).  An axis the
+  mesh lacks replicates.
 
 There is no GSPMD here, so placement is explicit: :func:`shard_quantized_tree`
 returns this rank's tree.  A leaf that some axis splits becomes a
@@ -58,11 +62,22 @@ _NESTED_BS = 256
 
 
 def _axis_size(mesh: Optional[Mesh], axis) -> int:
+    """The number of shards along ``axis``: the product of the sizes for a
+    tuple of axes, as the JAX package multiplies them."""
     if mesh is None or axis is None:
         return 1
-    if isinstance(axis, (tuple, list)):
-        raise NotImplementedError("a dimension sharded over several mesh axes is not supported")
     return mesh.axis_size(axis)
+
+
+def _on_mesh(spec, mesh: Optional[Mesh]) -> tuple:
+    """``spec`` with every entry that names an axis the mesh lacks replaced
+    by None: a mesh without an axis holds one shard along it (a mesh of
+    ``"seq"`` alone replicates what the Llama rules split over
+    ``"model"``)."""
+    spec = tuple(spec)
+    if mesh is None:
+        return spec
+    return tuple(a if a is None or mesh.has(a) else None for a in spec)
 
 
 def _dim(spec, i):
@@ -114,11 +129,12 @@ def leaf_sharding(leaf, spec, mesh: Optional[Mesh] = None):
     """The spec of every piece of ``leaf`` given its logical weight's spec:
     a QuantizedTensor or Int8TensorState whose tensor fields hold specs, or
     ``spec`` itself for a plain tensor."""
+    spec = _on_mesh(spec, mesh)
     if isinstance(leaf, QuantizedTensor):
         return _quantized_tensor_specs(leaf, spec, mesh)
     if isinstance(leaf, Int8TensorState):
         return _int8_specs(leaf, spec)
-    return tuple(spec)
+    return spec
 
 
 def _bounds(mesh: Mesh, axis, dim: int):
@@ -305,7 +321,7 @@ def shard_quantized_tree(params, mesh: Mesh, spec_fn: Callable):
             return type(node)(walk(v, path + (i,)) for i, v in enumerate(node))
         if node is None:
             return None
-        return _shard_leaf(node, spec_fn(path, node), mesh)
+        return _shard_leaf(node, _on_mesh(spec_fn(path, node), mesh), mesh)
 
     return walk(params, ())
 

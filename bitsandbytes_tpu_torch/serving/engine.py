@@ -247,11 +247,12 @@ class ContinuousBatchingEngine:
         must lie there.
 
         ``mesh``: a ``parallel.Mesh`` over initialized process groups, with
-        a ``model`` axis (and optionally ``data``), serves over several
+        any of the axes ``model``, ``data`` and ``seq``, serves over several
         ranks, one engine a rank driven with the same requests.  As in the
         JAX package, the params are split by ``parallel.llama_param_specs``
         and the cache by ``parallel.shard_kv_cache`` (a dense cache's slots
-        over ``data`` and KV heads over ``model``; a pool's KV heads), and
+        over ``data`` and KV heads over ``model``; a pool's KV heads; both
+        replicate over ``seq``, whose ranks compute every token), and
         prefill and decode run ``models/llama.forward(mesh=)``.  Every rank
         computes the same logits and draws from the same seeds, so every
         rank's streams are the same.  Prefills run over the mesh without its

@@ -32,8 +32,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    launch over the 448 adapter tensors of 4d and over ragged tables in f32,
    bf16 and f16 bit for bit, its device time against its bound, the SASS
    checked for local stores), and the sweep of kernels 7 and 8
-   against dequantize + matmul, device time, that chose
-   ``functional/gemm.BACKWARD_LARGE_M_THRESHOLD`` (3j); kernel 4's int8-KV
+   against dequantize (in g's type) + matmul, device time, with bf16, f16
+   and f32 g up to M 2048, that chose ``functional/gemm.BACKWARD_LARGE_M_THRESHOLD``
+   and its f16 and f32 counterparts (3j); kernel 4's int8-KV
    mode and kernel 16 (paged, bf16 and int8) at block sizes 16-256, each
    paged result against kernel 4 on the same data (3k); kernels 9, 10 and 11
    on the K-adjacent layout of bf16 ``quant_storage`` (3l: kernel 9 on the
@@ -51,7 +52,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    kernel 9 against kernel 10 + matmul in bf16, f16 and f32 that chose
    ``functional/gemm.KADJACENT_LARGE_M_THRESHOLD`` and
    ``KADJACENT_F32_LARGE_M_THRESHOLD``, and of kernel 11 against kernel 10 +
-   matmul that, with 3j, chose ``BACKWARD_LARGE_M_THRESHOLD``); kernel 15, the 8-bit AdEMAMix
+   matmul in bf16, f16 and f32 that, with 3j, chose the backward thresholds;
+   kernel 11 with 2 and 4 splits bit for bit its plain version on inputs
+   whose every f32 sum is exact); kernel 15, the 8-bit AdEMAMix
    update (3m, as 3i).  Kernel 1 (3a) bit for bit against its plain
    version and against itself on the f32 copy: nf4, fp4 and int4 at
    blocksizes 32, 64, 256 and 4096 and af4 at 64, W in f32, bf16 and f16,
@@ -153,6 +156,15 @@ Phases (every one asserts; any failure exits non-zero before the result):
    (ring attention, the split linears' adjoints, the loss and gradient
    sums), 3 steps against a meshless step: loss, gradients, the launches of
    kernels 6 and 14, the collectives a step, wall and device ms, memory.
+   4q runs Mistral-7B (``LlamaConfig.mistral_7b()``: 4b's weights, rope
+   theta 1e4, sliding window 4096): batch 2 of 4608-token prompts and 16
+   greedy steps over a bf16 cache of 4672 positions, meshless and over a
+   ``{"data": 1, "seq": 1, "model": 1}`` mesh at one NCCL rank, logits bit
+   for bit, and a 2-layer copy at virtual ``seq`` coordinates 0 and 1 bit
+   for bit; the windowed ring at T 8192 (one rank, rings of 2 and 4 rank by
+   rank) forward and backward against the windowed dense oracle, timed
+   beside it and SDPA with a boolean mask; one QLoRA step of a 2-layer copy
+   at T 6144 over the mesh against the meshless step.
    The kernels' launch counts are zeroed just before each path and read
    just after it.  4a and 4b also
    load the model once more under
@@ -196,7 +208,10 @@ Phases (every one asserts; any failure exits non-zero before the result):
    a quarter of the widths over the one-rank mesh, card against CPU (5i);
    then ring attention (rings of 2 and 4 rank by rank, and at one NCCL
    rank with its gradients), GPipe over 4 NF4 layers and one meshed QLoRA
-   step of the tiny Llama, card against CPU (5j).
+   step of the tiny Llama, card against CPU (5j); then the backward with f16
+   and f32 g on both sides of each threshold, the windowed ring and the
+   tiny Llama with a sliding window served and trained over the one-rank
+   mesh, card against CPU (5k).
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -206,6 +221,7 @@ Exits non-zero, printing no result, without a CUDA device.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import math
 import json
 import os
@@ -282,6 +298,23 @@ LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 # Llama-3-8B decode linears (N, K) after fusing q/k/v and gate/up
 LINEARS = {"wqkv": (6144, 4096), "wo": (4096, 4096), "gate_up": (28672, 4096), "down": (4096, 14336)}
+
+# (g's type, M) of the backward route sweeps (3j, 3l): bf16 at the M that
+# chose BACKWARD_LARGE_M_THRESHOLD, f16 and f32 from one row to QLoRA's 2048
+# (f32 every 8 rows where its CUDA-core kernels change sides)
+BACKWARD_SWEEP = [("bfloat16", m) for m in (1, 8, 16, 32, 48, 64, 65, 96, 128, 192, 256)] + [
+    ("float16", m) for m in (1, 8, 16, 64, 65, 96, 128, 256, 2048)] + [
+    ("float32", m) for m in (1, 8, 16, 24, 32, 40, 48, 64, 65, 128, 256, 2048)]
+
+
+def backward_reps(dtype, M: int) -> dict:
+    """``cuda_time``'s arguments for one point of a backward sweep: device
+    time (L2 flushed, the host held out), fewer calls where the f32 g of
+    M >= 256 runs the CUDA-core bodies for tens of ms a call."""
+    import torch
+
+    few = dtype == torch.float32 and M >= 256
+    return {"n": 3 if few else 10, "warmup": 1 if few else 3, "flush_l2": True, "hold": True}
 
 
 _T0 = time.perf_counter()
@@ -2177,6 +2210,415 @@ def slice20_cpu_check(dev):
          qlora=qlora, seconds=time.perf_counter() - t_start)
 
 
+def mistral_window(params, dev):
+    """4q: Mistral-7B (``LlamaConfig.mistral_7b()``: Llama-3-8B's widths with
+    ``rope_theta`` 1e4 and ``sliding_window`` 4096, mistralai/Mistral-7B-v0.1's
+    ``config.json``) on 4b's double-quantized fused NF4 model: the two
+    configurations share every shape, so seed 0 gives the same weights.
+
+    (a) Serving: batch 2, 4608-token prompts (the window bites in the
+    prefill and in every decode step), 16 greedy decode steps over a bf16
+    cache of 4672 positions, meshless and then over ``{"data": 1, "seq": 1,
+    "model": 1}`` at one NCCL rank: every logit bit for bit, the same
+    tokens and launches (kernels 6, 4 and its combine, 5), the collectives
+    counted; a 2-layer copy at virtual ``seq`` coordinates 0 and 1 of a
+    ``{"seq": 2}`` mesh bit for bit the meshless copy; the prefill's and a
+    decode step's device ms by kernel class, wall ms, resident bytes.
+    (b) The windowed ring at Mistral's attention widths (B 1, T 8192, H 32
+    over 8 KV heads, hd 128, bf16, window 4096): the one-rank NCCL ring and
+    rings of 2 and 4 computed rank by rank, forward and backward, against
+    the dense oracle (``models/llama._attention`` with the window) within
+    4o's tolerances, the blocks whose einsums ran counted (in the ring of 4
+    the pair q rank 3, k rank 0 lies outside the window); ms and peak memory
+    of the one-rank ring, the oracle and SDPA with a boolean window mask.
+    (c) One QLoRA step (4d's recipe: rank 64, alpha 16, seven targets,
+    ``adamw8bit``, ``token_chunk`` 512) of a 2-layer copy at full widths,
+    ids [1, 6145] (the window bites for the last 2048 positions), over the
+    ``{"data": 1, "seq": 1, "model": 1}`` mesh (the windowed ring) against
+    the meshless step (the dense oracle): the loss within rel 1e-3, the
+    gradients against rtol 2e-2 / atol 2e-3 (recorded), launches, wall and
+    peak memory."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from bitsandbytes_tpu_torch import optim as O
+    from bitsandbytes_tpu_torch.functional import gemm as GM
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.ops import flash_cached as FC
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.parallel import (
+        Sharded,
+        llama_param_specs,
+        make_mesh,
+        ring_attention,
+        ring_attention_local,
+        shard_kv_cache,
+    )
+
+    # the module (the package exports its function under the same name)
+    RA = importlib.import_module("bitsandbytes_tpu_torch.parallel.ring_attention")
+    t_start = time.perf_counter()
+    cfg = L.LlamaConfig.mistral_7b()
+    assert cfg == dataclasses.replace(L.LlamaConfig.llama3_8b(), rope_theta=1e4, sliding_window=4096)
+    W, H, KVH, hd, Lyr = cfg.sliding_window, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    G = H // KVH
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one_rank_mesh()
+    axes = {"data": 1, "seq": 1, "model": 1}
+    mesh = make_mesh(axes)
+    calls = counted_collectives(mesh)
+    gen = torch.Generator(device=dev).manual_seed(50)
+
+    # -- (a) serving ------------------------------------------------------------
+    B, T, steps = 2, 4608, 16
+    max_len = T + 4 * steps
+    assert T > W and B * T >= GM.LARGE_M_THRESHOLD, "the window must bite in the prefill, which takes the dequant route"
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev)
+
+    def run(tree, m, cfg_, n_steps):
+        """Prefill and ``n_steps`` greedy steps: logits, tokens, launches,
+        wall ms of the prefill and of each step."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        calls.update(all_gather=0, all_reduce=0)
+        cache = L.init_kv_cache(cfg_, B, max_len, device=dev)
+        if m is not None:
+            cache = shard_kv_cache(cache, m)
+        t0 = time.perf_counter()
+        logits, cache = L.prefill(tree, ids, cfg_, cache, mesh=m)
+        tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        walls = {"prefill_ms": (time.perf_counter() - t0) * 1e3, "step_ms": []}
+        outs, toks = [logits], [tok]
+        for s in range(n_steps):
+            t0 = time.perf_counter()
+            logits, cache = L.decode_step(tree, tok, cfg_, cache, T + s, mesh=m)
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            walls["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            outs.append(logits)
+            toks.append(tok)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        return {"outs": outs, "toks": torch.stack(toks, 1), "counts": counts, "collectives": dict(calls),
+                "walls": walls, "cache": cache}
+
+    def combines(GT):
+        return int(FC.flash_splits(B * KVH, GT, max_len, sms)[1] > 1)
+
+    Tc = FC.GT_MAX // G
+    chunks = [min(Tc, T - off) for off in range(0, T, Tc)]
+    want = {"dequantize_paired_fast_dq": 4 * Lyr, "gemm_4bit_paired_dq": 4 * Lyr * steps,
+            "flash_attention_cached": Lyr * (len(chunks) + steps),
+            "flash_attention_combine": Lyr * (sum(combines(G * c) for c in chunks) + steps * combines(G))}
+    want = {k: v for k, v in want.items() if v}
+    sparams = llama_param_specs(mesh, params)
+    runs = {}
+    for tag, tree, m in (("meshless", params, None), ("mesh", sparams, mesh)):
+        runs[tag] = run(tree, m, cfg, steps)
+        if tag == "mesh":  # one prefill and one decode step more, profiled, on the cache the run filled
+            cache = runs[tag].pop("cache")
+            _, pf_ev, pf_wall = profiled(lambda: L.prefill(tree, ids, cfg, cache, mesh=m))
+            tok = runs[tag]["toks"][:, -1]
+            _, dc_ev, dc_wall = profiled(lambda: L.decode_step(tree, tok, cfg, cache, T + steps, mesh=m))
+            del cache
+        runs[tag].pop("cache", None)
+        torch.cuda.empty_cache()
+    a, b = runs["meshless"], runs["mesh"]
+    assert a["counts"] == want, f"4q serve: launches {a['counts']} != {want}"
+    assert b["counts"] == a["counts"], f"4q serve with mesh=: launches {b['counts']} != {a['counts']}"
+    assert torch.equal(a["toks"], b["toks"]), "4q serve: greedy tokens with mesh= differ"
+    assert all(bits_equal(x, y) for x, y in zip(a["outs"], b["outs"])), "4q serve: logits with mesh= differ"
+    assert all(torch.isfinite(x).all() for x in a["outs"]) and a["outs"][0].shape == (B, T, cfg.vocab_size)
+    want_calls = {"all_gather": (steps + 1) * (2 * Lyr + 1), "all_reduce": steps + 1}
+    assert b["collectives"] == want_calls, f"4q collectives {b['collectives']} != {want_calls}"
+    classes = [("dequantize_paired", "kernel 6 (dequantize_paired_fast_dq)"),
+               ("gemm_4bit_paired", "kernel 5 (gemm_4bit_paired_dq)"),
+               ("flash_combine", "split combine"), ("flash", "kernel 4 (flash_attention_cached)"),
+               ("nccl", "NCCL collectives")]
+    pf_us, dc_us = (sum(self_dev_us(e) for e in ev) for ev in (pf_ev, dc_ev))
+    serving = {"batch": B, "prompt": T, "steps": steps, "max_len": max_len, "resident_bytes": tree_bytes(params),
+               "launches": a["counts"], "collectives": b["collectives"],
+               "wall_ms": {tag: {"prefill": r["walls"]["prefill_ms"],
+                                 "step_median": statistics.median(r["walls"]["step_ms"][1:]),
+                                 "step_range": [min(r["walls"]["step_ms"][1:]), max(r["walls"]["step_ms"][1:])]}
+                           for tag, r in runs.items()},
+               "prefill_profiled": {"device_ms": pf_us / 1e3, "wall_ms": pf_wall, "by_class": by_class(pf_ev, classes)},
+               "decode_step_profiled": {"device_ms": dc_us / 1e3, "wall_ms": dc_wall,
+                                        "by_class": by_class(dc_ev, classes)},
+               "logits_bit_equal": True, "tokens": a["toks"][:, :8].tolist()}
+    del runs, a, b, sparams
+    torch.cuda.empty_cache()
+
+    # the 2-layer copy at virtual seq coordinates: no collective runs on the cached path
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params2 = dict(params, layers=params["layers"][:2])
+    ref2 = run(params2, None, cfg2, 4)
+    virtual = {}
+    for c in (0, 1):
+        vm = make_mesh({"seq": 2}, coord=c)
+        vtree = llama_param_specs(vm, params2)
+        assert not any(isinstance(x, Sharded) for layer in vtree["layers"] for x in layer.values())
+        got = run(vtree, vm, cfg2, 4)
+        assert torch.equal(got["toks"], ref2["toks"]) and all(
+            bits_equal(x, y) for x, y in zip(got["outs"], ref2["outs"])), f"4q: virtual seq coordinate {c}"
+        assert got["counts"] == ref2["counts"], f"4q virtual seq {c}: {got['counts']} != {ref2['counts']}"
+        virtual[f"seq_{c}"] = {"bit_equal": True, "launches": got["counts"]}
+    del ref2, got
+    torch.cuda.empty_cache()
+
+    # -- (b) the windowed ring ------------------------------------------------------
+    Tr = 8192
+    q = torch.randn(1, Tr, H, hd, generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(1, Tr, KVH, hd, generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+            for _ in range(2))
+    gout = torch.randn(1, Tr, H * hd, generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(Tr, device=dev)[None]
+    valid = torch.ones(1, Tr, dtype=torch.bool, device=dev)
+    smesh = make_mesh({"seq": 1})
+    rep = lambda t: torch.repeat_interleave(t, G, dim=2)  # noqa: E731
+    kp = torch.arange(Tr, device=dev)
+    allowed = (kp[None, :] <= kp[:, None]) & (kp[None, :] > kp[:, None] - W)
+    einsums = {"n": 0}
+    block_attn = RA._block_attn
+
+    def counted_block(*a_, **k_):
+        einsums["n"] += 1
+        return block_attn(*a_, **k_)
+
+    def ring1(q, k, v):
+        return ring_attention(q, rep(k), rep(v), smesh, axis="seq", window=W).reshape(1, Tr, H * hd)
+
+    def ring_n(n):
+        Tl = Tr // n
+
+        def f(q, k, v):
+            ks, vs = rep(k).split(Tl, dim=1), rep(v).split(Tl, dim=1)
+            return torch.cat([ring_attention_local(q[:, r * Tl : (r + 1) * Tl],
+                                                   [(ks[(r - i) % n], vs[(r - i) % n]) for i in range(n)], r, n,
+                                                   window=W) for r in range(n)], dim=1).reshape(1, Tr, H * hd)
+        return f
+
+    def oracle(q, k, v):
+        return L._attention(q, k, v, pos, valid, cfg)
+
+    def sdpa(q, k, v):
+        o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                           attn_mask=allowed, enable_gqa=True)
+        return o.transpose(1, 2).reshape(1, Tr, H * hd)
+
+    results, ring_blocks, timing = {}, {}, {}
+    RA._block_attn = counted_block
+    try:
+        for name, f in (("oracle", oracle), ("ring_1", ring1), ("ring_2", ring_n(2)), ("ring_4", ring_n(4)),
+                        ("sdpa", sdpa)):
+            for t in (q, k, v):
+                t.grad = None
+            einsums["n"] = 0
+            out = f(q, k, v)
+            out.backward(gout)
+            results[name] = [out.detach()] + [t.grad.clone() for t in (q, k, v)]
+            ring_blocks[name] = einsums["n"]
+            del out
+            torch.cuda.empty_cache()
+            if name in ("oracle", "ring_1", "sdpa"):
+                timing[name] = events_fwd_bwd(f, (q, k, v), gout, n=3)
+                torch.cuda.empty_cache()
+    finally:
+        RA._block_attn = block_attn
+    # blocks with a visible (q, k) pair: causal alone would run 3 of 4 in the
+    # ring of 2 and 10 of 16 in the ring of 4; the window drops (3, 0)
+    assert ring_blocks["ring_1"] == 1 and ring_blocks["ring_2"] == 3 and ring_blocks["ring_4"] == 9, ring_blocks
+    errs = {}
+    for name in ("ring_1", "ring_2", "ring_4", "sdpa"):
+        errs[name] = {"out_max_abs": (results[name][0].float() - results["oracle"][0].float()).abs().max().item(),
+                      **{key: rel_err(x, y) for key, x, y in zip(("dq", "dk", "dv"), results[name][1:],
+                                                                  results["oracle"][1:])}}
+        assert all(math.isfinite(e) for e in errs[name].values()), f"4q {name}: {errs[name]}"
+        if name != "sdpa":
+            assert errs[name]["out_max_abs"] <= 2e-2, f"4q {name} output against the oracle: {errs[name]}"
+            assert all(errs[name][key] <= 5e-2 for key in ("dq", "dk", "dv")), f"4q {name} gradients: {errs[name]}"
+    ring = {"B": 1, "T": Tr, "H": H, "kv_heads": KVH, "head_dim": hd, "window": W, "dtype": "bfloat16",
+            "block_einsums": ring_blocks, "err_vs_oracle": errs, "timing": timing}
+    del results, q, k, v, gout, allowed
+    torch.cuda.empty_cache()
+
+    # -- (c) a QLoRA step over the mesh ---------------------------------------------
+    rank, alpha, chunk, Tq = 64, 16.0, 512, 6144
+    tids = torch.randint(0, cfg.vocab_size, (1, Tq + 1), generator=gen, device=dev)
+    sparams2 = llama_param_specs(mesh, params2)
+
+    def adapters():
+        lora = L.add_lora(cfg2, rank=rank, alpha=alpha, targets=LORA_TARGETS,
+                          generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        return lora, O.adamw8bit(L.lora_parameters(lora), 1e-3)
+
+    steps_c = {}
+    for tag, tree, m in (("meshless", params2, None), ("mesh", sparams2, mesh)):
+        lora, opt = adapters()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = L.lora_train_step(tree, lora, opt, tids, cfg2, token_chunk=chunk, mesh=m).item()
+        wall = (time.perf_counter() - t0) * 1e3
+        steps_c[tag] = {"loss": loss, "wall_ms": wall, "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                        "launches": {k_: c for k_, c in launch_counts().items() if c},
+                        "grads": [t.grad.clone() for t in L.lora_parameters(lora)]}
+        del lora, opt
+        torch.cuda.empty_cache()
+    la, lb = steps_c["meshless"]["loss"], steps_c["mesh"]["loss"]
+    assert math.isfinite(la) and abs(lb - la) <= 1e-3 * abs(la), f"4q step loss {lb} against meshless {la}"
+    assert steps_c["mesh"]["launches"] == steps_c["meshless"]["launches"] == {
+        "dequantize_paired_fast_dq": 8 * 2 - 1, "optimizer_update_8bit": 1}, steps_c
+    ga, gb = steps_c["meshless"].pop("grads"), steps_c["mesh"].pop("grads")
+    qlora = {"layers": 2, "batch": 1, "seq": Tq, "token_chunk": chunk, "lora_rank": rank, "steps": steps_c,
+             "loss_rel_diff": abs(lb - la) / abs(la),
+             "grads_within_rtol_2e-2_atol_2e-3": all(torch.allclose(x, y, rtol=2e-2, atol=2e-3) for x, y in zip(gb, ga)),
+             "max_abs_grad_diff": max((x - y).abs().max().item() for x, y in zip(gb, ga)),
+             "max_abs_grad": max(y.abs().max().item() for y in ga)}
+    del ga, gb, sparams2, params2, tids
+    torch.cuda.empty_cache()
+    emit("mistral_window", config="mistral_7b", source="mistralai/Mistral-7B-v0.1 config.json",
+         layers=Lyr, rope_theta=cfg.rope_theta, sliding_window=W, weights="nf4, nested, fused (4b's)",
+         mesh=axes, backend="nccl", serving=serving, virtual_seq=virtual, ring=ring, qlora=qlora,
+         seconds=time.perf_counter() - t_start)
+    return serving["launches"]
+
+
+def slice21_cpu_check(dev):
+    """5k: this slice's paths at small size, card against CPU, untimed: the
+    backward with f16 and f32 g on both sides of each dtype's threshold,
+    both layouts, plain and nested (the route's kernel launched, the other
+    not; f32 within 1e-5, f16 within 1e-2 relative of the CPU); the windowed
+    ring, rings of 2 and 4 rank by rank at windows that mask none, part and
+    all of a block, forward and backward within 1e-4 of the CPU; the tiny
+    Llama with a sliding window of 12 served over the one-rank ``{"data":
+    1, "seq": 1, "model": 1}`` mesh (prefill of 24 tokens and 4 steps,
+    teacher-forced with the CPU's tokens) against the CPU's meshless run
+    (5's gates: atol 0.1 / rtol 0.05, the CPU's token in the card's top 5),
+    and its loss and gradients over the mesh (the windowed ring) against
+    the CPU's meshless ones (the dense oracle; f32 model: loss rel 1e-3,
+    gradients rtol 2e-2 / atol 2e-3)."""
+    import dataclasses
+
+    import torch
+
+    from bitsandbytes_tpu_torch.functional import gemm as GM
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.nn.modules import QuantizedTensor
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+    from bitsandbytes_tpu_torch.parallel import llama_param_specs, make_mesh, ring_attention_local, shard_kv_cache
+
+    t_start = time.perf_counter()
+    g = torch.Generator().manual_seed(60)
+    N, K = 256, 512
+    W = torch.randn(N, K, generator=g) * K**-0.5
+    routes = {}
+    for layout, kw in (("paired", {"layout": "paired"}), ("2d", {"quant_storage": torch.bfloat16})):
+        for nested in (False, True):
+            qt = QuantizedTensor.quantize(W, blocksize=64, compress_statistics=nested, **kw)
+            qg = tree_to({"w": qt}, dev)["w"]
+            small_k = "gemm_4bit_paired_nt" if layout == "paired" else "gemm_4bit_nt_fused"
+            large_k = "dequantize_paired_fast" if layout == "paired" else "dequantize_4bit_2d"
+            if nested:
+                large_k += "_dq"
+                small_k += "_dq" if layout == "paired" else ""
+            for dt in (torch.float16, torch.float32):
+                th = GM.backward_threshold(dt, layout)
+                for M in (th - 1, th):
+                    gx = torch.randn(M, N, generator=g).to(dt)
+                    ref = GM.gemm_4bit_grad_A(gx, qt.data, qt.state)
+                    reset_launch_counts()
+                    out = GM.gemm_4bit_grad_A(gx.to(dev), qg.data, qg.state)
+                    torch.cuda.synchronize()
+                    counts = {k_: c for k_, c in launch_counts().items() if c}
+                    kernel, other = (small_k, large_k) if M < th else (large_k, small_k)
+                    assert counts.get(kernel) == 1 and other not in counts, f"5k {layout} {dt} M {M}: {counts}"
+                    err = rel_err(out.cpu(), ref)
+                    assert out.dtype == dt and err <= (1e-5 if dt == torch.float32 else 1e-2), \
+                        f"5k grad_A {layout} nested={nested} {dt} M {M}: rel {err}"
+                    routes[f"{layout}{'_nested' if nested else ''}_{str(dt)[6:]}_M{M}"] = {"kernel": kernel,
+                                                                                          "rel_err": err}
+
+    # the windowed ring, rank by rank, card against CPU
+    B, T, H, d = 2, 32, 4, 64
+    ring = {}
+    for n in (2, 4):
+        Tl = T // n
+        for window in (4, 12, 32):  # 4: the ring of 4's pair (q rank 2, k rank 0) lies outside; 32: no mask
+            q, k, v = (torch.randn(B, T, H, d, generator=g) for _ in range(3))
+            w = torch.randn(B, T, H, d, generator=g)
+            res = {}
+            for where in ("cpu", dev):
+                qs, ks_, vs_ = (t.clone().to(where).requires_grad_() for t in (q, k, v))
+                kb, vb = ks_.split(Tl, dim=1), vs_.split(Tl, dim=1)
+                out = torch.cat([ring_attention_local(qs[:, r * Tl : (r + 1) * Tl],
+                                                      [(kb[(r - i) % n], vb[(r - i) % n]) for i in range(n)], r, n,
+                                                      window=window) for r in range(n)], dim=1)
+                (out * w.to(where)).sum().backward()
+                res[str(where)] = [t.detach().cpu() for t in (out, qs.grad, ks_.grad, vs_.grad)]
+            errs = [rel_err(a, b) for a, b in zip(res[str(dev)], res["cpu"])]
+            assert all(math.isfinite(e) and e <= 1e-4 for e in errs), f"5k ring of {n}, window {window}: {errs}"
+            ring[f"{n}_ranks_window_{window}"] = max(errs)
+
+    # the tiny Llama with a window, served over the one-rank mesh and trained over it
+    one_rank_mesh()
+    mesh = make_mesh({"data": 1, "seq": 1, "model": 1})
+    cfg = dataclasses.replace(L.LlamaConfig.tiny(), sliding_window=12)
+    cpu_p = L.quantize_params_4bit(L.init_params(cfg, torch.Generator().manual_seed(61), device="cpu"), fuse=True,
+                                   compress_statistics=True)
+    card_p = llama_param_specs(mesh, tree_to(cpu_p, dev))
+    ids = torch.randint(0, cfg.vocab_size, (2, 24), generator=g)
+    cache_c = L.init_kv_cache(cfg, 2, 32, device="cpu")
+    cache_g = shard_kv_cache(L.init_kv_cache(cfg, 2, 32, device=dev), mesh)
+    lc, cache_c = L.prefill(cpu_p, ids, cfg, cache_c)
+    lg, cache_g = L.prefill(card_p, ids.to(dev), cfg, cache_g, mesh=mesh)
+    pairs = [(lg[:, -1].cpu(), lc[:, -1])]
+    assert torch.allclose(lg.cpu(), lc, atol=0.1, rtol=0.05), "5k windowed prefill over the mesh against the CPU"
+    tok = lc[:, -1].argmax(-1)
+    for s in range(4):
+        lc, cache_c = L.decode_step(cpu_p, tok, cfg, cache_c, 24 + s)
+        lg, cache_g = L.decode_step(card_p, tok.to(dev), cfg, cache_g, 24 + s, mesh=mesh)
+        pairs.append((lg.cpu(), lc))
+        tok = lc.argmax(-1)
+    serve_err = 0.0
+    for a, b in pairs:
+        assert torch.allclose(a, b, atol=0.1, rtol=0.05), "5k windowed decode over the mesh against the CPU"
+        top5 = a.topk(5, dim=-1).indices
+        assert (top5 == b.argmax(-1)[:, None]).any(-1).all(), "5k: the CPU's token outside the card's top 5"
+        serve_err = max(serve_err, (a - b).abs().max().item())
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu32 = L.quantize_params_4bit(L.init_params(cfg32, torch.Generator().manual_seed(61), device="cpu"))
+    lora0 = L.add_lora(cfg32, rank=4, targets=LORA_TARGETS, generator=torch.Generator().manual_seed(62), device="cpu")
+    gb = torch.Generator().manual_seed(63)
+    for layer in lora0["layers"]:  # b non-zero, so that every adapter tensor has a gradient
+        for ad in layer.values():
+            ad["b"] = (torch.randn(ad["b"].shape, generator=gb) * 0.02).requires_grad_()
+    tids = torch.randint(0, cfg.vocab_size, (2, 33), generator=g)
+    losses, grads = {}, {}
+    for where in ("cpu", "card"):
+        lora = {"layers": [{n_: {k_: t.detach().clone().to(dev if where == "card" else "cpu").requires_grad_()
+                                 for k_, t in ad.items()} for n_, ad in layer.items()} for layer in lora0["layers"]]}
+        if where == "card":
+            loss = L.lm_loss(llama_param_specs(mesh, tree_to(cpu32, dev)), lora, tids.to(dev), cfg32, mesh=mesh)
+        else:
+            loss = L.lm_loss(cpu32, lora, tids, cfg32)
+        loss.backward()
+        losses[where] = loss.item()
+        grads[where] = [t.grad.cpu() for t in L.lora_parameters(lora)]
+    assert abs(losses["card"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"]), f"5k windowed loss {losses}"
+    for a, b in zip(grads["card"], grads["cpu"]):
+        assert torch.allclose(a, b, rtol=2e-2, atol=2e-3), "5k windowed adapter gradients against the CPU"
+    emit("cpu_check_slice21", grad_A_routes=routes, windowed_ring_max_rel_err=ring,
+         windowed_serve_max_abs_logit_diff=serve_err, windowed_loss=losses,
+         max_abs_grad_diff=max((a - b).abs().max().item() for a, b in zip(grads["card"], grads["cpu"])),
+         seconds=time.perf_counter() - t_start)
+
+
 def main() -> int:
     import torch
 
@@ -3394,7 +3836,7 @@ def main() -> int:
                "adamw_fused_f32_ms is torch.optim.AdamW(fused=True) on f32 states of one [14336, 64] tensor, "
                "a different function")
 
-    # -- 3j. the backward threshold: kernels 7 and 8 against kernels 3 and 6 + matmul, device time
+    # -- 3j. the backward thresholds: kernels 7 and 8 against kernels 3 and 6 + matmul, device time, by g's type
     sweep, crossover = [], {}
     for name in ("gate_up", "down"):
         N, K = LINEARS[name]
@@ -3402,20 +3844,25 @@ def main() -> int:
                                       compress_statistics=True)
         st = qw.state
         P, am_t, dq = qw.data, st.dequant_absmax_t(), (st.absmax, st.state2.absmax, st.offset)
-        for Mx in (1, 8, 16, 32, 48, 64, 65, 96, 128, 192, 256):
-            Gx = torch.randn(Mx, N, generator=gen, device=dev).to(torch.bfloat16)
-            t = {key: cuda_time(fn, n=10, flush_l2=True, hold=True)["median"] for key, fn in (
+        for dname, Mx in BACKWARD_SWEEP:
+            dt = getattr(torch, dname)
+            Gx = torch.randn(Mx, N, generator=gen, device=dev).to(dt)
+            t = {key: cuda_time(fn, **backward_reps(dt, Mx))["median"] for key, fn in (
                 ("nt_kernel_ms", lambda: gemm_4bit_paired_nt(Gx, P, am_t, code, bs, (N, K))),
-                ("dequant_matmul_ms", lambda: torch.matmul(Gx, dequantize_paired_fast(P, am_t, code, bs))),
+                ("dequant_matmul_ms", lambda: torch.matmul(Gx, dequantize_paired_fast(P, am_t, code, bs, dt))),
                 ("nt_dq_kernel_ms", lambda: gemm_4bit_paired_nt_dq(Gx, P, *dq, code, bs, (N, K))),
-                ("dequant_dq_matmul_ms", lambda: torch.matmul(Gx, dequantize_paired_fast_dq(P, *dq, code, bs))))}
-            sweep.append({"linear": name + "^T", "M": Mx, **t})
+                ("dequant_dq_matmul_ms", lambda: torch.matmul(Gx, dequantize_paired_fast_dq(P, *dq, code, bs, dt))))}
+            sweep.append({"linear": name + "^T", "dtype": dname, "M": Mx, **t})
             for inst, k, r in (("plain", "nt_kernel_ms", "dequant_matmul_ms"),
                                ("nested", "nt_dq_kernel_ms", "dequant_dq_matmul_ms")):
-                if t[k] > t[r] and f"{name}^T_{inst}" not in crossover:
-                    crossover[f"{name}^T_{inst}"] = Mx  # the first M at which kernel 7 (8) trails
+                key = f"{name}^T_{dname}_{inst}"
+                if t[k] > t[r] and key not in crossover:
+                    crossover[key] = Mx  # the first M at which kernel 7 (8) trails
+            del Gx
         del qw, am_t, dq
     emit("backward_threshold_sweep", BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD,
+         BACKWARD_F16_LARGE_M_THRESHOLD=G.BACKWARD_F16_LARGE_M_THRESHOLD,
+         BACKWARD_F32_LARGE_M_THRESHOLD=G.BACKWARD_F32_LARGE_M_THRESHOLD,
          first_M_kernel7_trails=crossover, points=sweep)
     torch.cuda.empty_cache()
 
@@ -3915,6 +4362,32 @@ def main() -> int:
                      "same two with the host held out of the window (hold=True); layer_device_ms_by_M: the "
                      "kernel's device ms over the layer at other M and dtypes")
 
+    # kernel 11 with splits > 1 bit for bit its plain version: on wo^T's
+    # shape, g of 512 entries +-1 a row (the rest 0) and every absmax 1, so
+    # W is the codebook in g's type and every f32 partial sum, in any order
+    # and split, is exact; partials that changed under the kernel (a buffer
+    # handed out again while it writes) would show.  Two calls each.
+    Ne, Ke = LINEARS["wo"]
+    gen_e = torch.Generator().manual_seed(21)
+    Be = torch.randint(0, 256, (Ne * Ke // 2,), dtype=torch.uint8, generator=gen_e).to(dev)
+    ame = torch.ones(Ne * Ke // bs, device=dev)
+    k11_exact = {}
+    for Mx in (16, 33):
+        rows_e, splits_e = nt_plan(Mx, Ne, Ke, sms)
+        assert splits_e > 1, f"k11 exact: M {Mx} takes {splits_e} split"
+        idx = torch.rand(Mx, Ne, generator=gen_e).argsort(dim=1)[:, :512]
+        sign = (torch.randint(0, 2, (Mx, 512), generator=gen_e) * 2 - 1).float()
+        G0 = torch.zeros(Mx, Ne).scatter_(1, idx, sign)
+        for dt in (torch.bfloat16, torch.float16):
+            Gx = G0.to(dev, dt)
+            ref = gemm_4bit_nt_fused_plain(Gx, Be, ame, code_t, bs, Ke).to(dt)
+            for _ in range(2):
+                assert bits_equal(gemm_4bit_nt_fused(Gx, Be, ame, code, bs, (Ne, Ke)), ref), \
+                    f"k11 M {Mx} {dt}, {splits_e} splits: not its plain version's bits"
+            k11_exact[f"M{Mx}_{str(dt)[6:]}"] = {"splits": splits_e, "rows_per_split": rows_e}
+    emit("k11_splits_bit_exact", shape=[Ne, Ke], cases=k11_exact)
+    del Be, ame
+
     # kernel 10 at the four linears in bf16, f16 and f32, plain (on the
     # resolved absmax) and _dq (against the plain mode's bits), beside the
     # store floor and kernel 3 on the same weights in the paired layout
@@ -3986,24 +4459,31 @@ def main() -> int:
                         crossover[key] = Mx  # the first M at which kernel 9 trails
         # the nested state's small-M route decodes its absmax first (kernel 11
         # takes f32 scales): k11_with_decode_ms holds that decode
-        for Mx in (8, 16, 32, 64, 65, 96, 128, 192, 256):
-            Gx = torch.randn(Mx, N, generator=gen, device=dev).to(torch.bfloat16)
-            pt = {"linear": name + "^T", "dtype": "bfloat16", "M": Mx,
-                  "k11_ms": dev_t(lambda: gemm_4bit_nt_fused(Gx, Bq, am, code, bs, (N, K))),
-                  "k11_with_decode_ms": dev_t(lambda: gemm_4bit_nt_fused(Gx, Bq, qt.state.dequant_absmax().contiguous(),
-                                                                         code, bs, (N, K))),
-                  "k10_matmul_T_ms": dev_t(lambda: torch.matmul(Gx, dequantize_4bit_2d(Bq, am, code, bs, (N, K)))),
-                  "k10_dq_matmul_T_ms": dev_t(lambda: torch.matmul(Gx, dequantize_4bit_2d_dq(Bq, *nest, code, bs,
-                                                                                            (N, K))))}
+        for dname, Mx in BACKWARD_SWEEP:
+            dt = getattr(torch, dname)
+            if dt == torch.bfloat16 and Mx < 8:
+                continue
+            Gx = torch.randn(Mx, N, generator=gen, device=dev).to(dt)
+            reps = backward_reps(dt, Mx)
+            pt = {"linear": name + "^T", "dtype": dname, "M": Mx, **{key: cuda_time(fn, **reps)["median"] for key, fn in (
+                ("k11_ms", lambda: gemm_4bit_nt_fused(Gx, Bq, am, code, bs, (N, K))),
+                ("k11_with_decode_ms", lambda: gemm_4bit_nt_fused(Gx, Bq, qt.state.dequant_absmax().contiguous(),
+                                                                  code, bs, (N, K))),
+                ("k10_matmul_T_ms", lambda: torch.matmul(Gx, dequantize_4bit_2d(Bq, am, code, bs, (N, K), dt))),
+                ("k10_dq_matmul_T_ms", lambda: torch.matmul(Gx, dequantize_4bit_2d_dq(Bq, *nest, code, bs, (N, K),
+                                                                                       dt))))}}
             sweep.append(pt)
             for inst, k, r in (("plain", "k11_ms", "k10_matmul_T_ms"),
                                ("nested", "k11_with_decode_ms", "k10_dq_matmul_T_ms")):
-                key = f"{name}^T_{inst}"
+                key = f"{name}^T_{dname}_{inst}"
                 if pt[k] > pt[r] and key not in crossover_bw:
                     crossover_bw[key] = Mx  # the first M at which kernel 11 trails
+            del Gx
     emit("threshold_sweep_kadjacent", KADJACENT_LARGE_M_THRESHOLD=G.KADJACENT_LARGE_M_THRESHOLD,
          KADJACENT_F32_LARGE_M_THRESHOLD=G.KADJACENT_F32_LARGE_M_THRESHOLD,
          BACKWARD_LARGE_M_THRESHOLD=G.BACKWARD_LARGE_M_THRESHOLD,
+         BACKWARD_F16_LARGE_M_THRESHOLD=G.BACKWARD_F16_LARGE_M_THRESHOLD,
+         KADJACENT_BACKWARD_F32_LARGE_M_THRESHOLD=G.KADJACENT_BACKWARD_F32_LARGE_M_THRESHOLD,
          first_M_kernel9_trails=crossover, first_M_kernel11_trails=crossover_bw, points=sweep)
     del kq
     torch.cuda.empty_cache()
@@ -4761,7 +5241,13 @@ def main() -> int:
     # -- 4p. 4d's QLoRA step over a data x seq x model mesh at one NCCL rank --
     for name, n in meshed_qlora(cfg, nested_params, tids, ref_4d, rank, alpha, chunk).items():
         report[name]["launches_4p"] = n
-    del nested_params, tids, ref_4d
+    del tids, ref_4d
+    torch.cuda.empty_cache()
+
+    # -- 4q. Mistral-7B on 4b's weights: serving over a seq mesh, the windowed ring, a meshed step --
+    for name, n in mistral_window(nested_params, dev).items():
+        report[name]["launches_4q"] = n
+    del nested_params
     torch.cuda.empty_cache()
 
     # -- 4e. the continuous-batching engine at full width, on 4a's model ----
@@ -5611,6 +6097,9 @@ def main() -> int:
 
     # -- 5j. ring attention, GPipe and a meshed QLoRA step at small size, card against CPU --
     slice20_cpu_check(dev)
+
+    # -- 5k. the backward's routes by g's type, the windowed ring and model over a mesh, card against CPU --
+    slice21_cpu_check(dev)
     import torch.distributed as dist
 
     dist.destroy_process_group()

@@ -29,6 +29,7 @@ from bitsandbytes_tpu import autograd as JA
 from bitsandbytes_tpu.functional import fourbit as JF
 from bitsandbytes_tpu.functional import gemm as JG
 from bitsandbytes_tpu.nn.modules import QuantizedTensor as JQT
+from bitsandbytes_tpu.ops import dispatch
 from bitsandbytes_tpu.ops.pallas.gemm4bit import (
     dequantize_4bit_pallas as j_dequantize_4bit_pallas,
     gemm_4bit_fused as j_gemm_4bit_fused,
@@ -341,6 +342,52 @@ def test_grad_A_routes_match_jax(layout, nested, side, monkeypatch):
     assert called == [kernel]
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (M, K)
     assert _rel(out.float().numpy(), ref) <= BF16_STEP
+
+
+@pytest.mark.parametrize("side", ["nt_kernel", "dequantize_matmul"])
+@pytest.mark.parametrize("nested", [False, True], ids=["plain", "nested"])
+@pytest.mark.parametrize("layout", ["2d", "paired"])
+@pytest.mark.parametrize("dtype", ["float16", "float32"])
+def test_grad_A_f16_f32_routes_match_jax(dtype, layout, nested, side, monkeypatch):
+    """``gemm_4bit_grad_A`` with f16 and f32 g on both sides of the dtype's
+    own threshold on the layout (``backward_threshold``: one row below it, and the first multiple of 8 at or
+    above it), on both layouts: the ``_nt`` kernel below it, the dequantize
+    kernel in g's type (``_dq`` on a nested state) and the matmul from it,
+    against the JAX package's ``gemm_4bit_grad_A`` on the same state: the
+    paired layout on its Pallas tier (its tiles take M up to 16 and
+    multiples of 8), whose kernels decode the port's codebook units, the 2d
+    layout on its default tier, the exact f32 dequantize; f32 within rtol
+    1e-5, f16 within one bf16 step of the largest value."""
+    threshold = TG.backward_threshold(getattr(torch, dtype), layout)
+    M = threshold - 1 if side == "nt_kernel" else -(-threshold // 8) * 8
+    rng = np.random.default_rng(32)
+    W = (rng.standard_normal((N, K)) / np.sqrt(K)).astype(np.float32)
+    kw = {"quant_storage": jnp.bfloat16} if layout == "2d" else {"layout": "paired"}
+    jq = JQT.quantize(jnp.asarray(W), blocksize=64, compress_statistics=nested, **kw)
+    tq = params_from_numpy({"w": _np_qt(jq)}, "cpu")["w"]
+    assert tq.state.layout == layout and tq.state.inline_nested == nested
+    g = np.asarray(jnp.asarray(rng.standard_normal((M, N)), getattr(jnp, dtype)))
+    dispatch.set_backend("pallas" if layout == "paired" else "auto")
+    try:
+        ref = np.asarray(JG.gemm_4bit_grad_A(jnp.asarray(g), jq.data, jq.state), np.float32)
+    finally:
+        dispatch.set_backend("auto")
+
+    called = []
+    for name in (*_BACKWARD_KERNELS["2d"], *_BACKWARD_KERNELS["paired"]):
+        for nm in (name, name + "_dq"):
+            if hasattr(TG, nm):
+                monkeypatch.setattr(TG, nm, lambda *a, _f=getattr(TG, nm), _n=nm, **k: called.append(_n) or _f(*a, **k))
+    out = TG.gemm_4bit_grad_A(tensor_from_numpy(g, "cpu"), tq.data, tq.state)
+    kernel = _BACKWARD_KERNELS[layout][side == "dequantize_matmul"]
+    if nested and not (layout == "2d" and side == "nt_kernel"):
+        kernel += "_dq"
+    assert called == [kernel]
+    assert out.dtype == getattr(torch, dtype) and tuple(out.shape) == (M, K)
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert _rel(out.float().numpy(), ref) <= BF16_STEP
 
 
 @pytest.mark.parametrize("M", [3, 40])

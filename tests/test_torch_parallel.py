@@ -29,8 +29,14 @@ from torch_ranks import spawn_world
 torch.set_num_threads(1)
 
 AXES = {2: {"model": 2}, 4: {"data": 2, "model": 2}}
+# meshes with a "seq" axis: the cached path replicates the cache over it
+SEQ_AXES = {2: {"seq": 2}, 4: {"data": 2, "seq": 2}}
 WORLD_LIMIT_S = 240  # a world takes a few seconds
 PROMPTS = [[1, 2, 3, 4], [5, 6], [7, 8, 9], [10, 11, 12, 13, 14]]
+SEQ_STEPS = 6
+# a user rule that splits wo and down over both axes of the 4-rank mesh, in
+# both orders (rank indices row-major over the tuple, as JAX places them)
+TUPLE_RULE = {"wo": ("data", "model"), "down": ("model", "data")}
 
 
 def _np_tree(tree):
@@ -246,7 +252,88 @@ def test_kshard_local_pieces_compute_the_unsharded_product():
         assert torch.equal(c.dequantize(), nq.dequantize()[rank * 128 : (rank + 1) * 128])
 
 
+def _tuple_rule(path, leaf):
+    axis = TUPLE_RULE.get(path[-1] if path else None)
+    return (axis, None) if axis else ()
+
+
+def _jax_tuple_rule(path, leaf):
+    from jax.sharding import PartitionSpec as P
+
+    names = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
+    axis = TUPLE_RULE.get(names[-1] if names else None)
+    return P(axis, None) if axis else P()
+
+
+@pytest.mark.parametrize("kind", ["unfused", "nested"])
+def test_tuple_axis_specs_and_local_shards_match_jax(trees, kind):
+    """A rule that splits wo over ("data", "model") and down over ("model",
+    "data"): every leaf's spec equals the JAX package's on a data 2 x model
+    2 mesh, and every rank's local pieces are its addressable shards bit for
+    bit; the split counts the product of the axes' sizes."""
+    import jax
+    from bitsandbytes_tpu import parallel as JP
+
+    _, _, jtrees, ttrees = trees
+    jmesh = JP.make_mesh({"data": 2, "model": 2})
+    jsharded = JP.shard_quantized_tree(jtrees[kind], jmesh, _jax_tuple_rule)
+    devices = list(jmesh.devices.reshape(-1))
+    for rank in range(4):
+        tmesh = TP.make_mesh({"data": 2, "model": 2}, coord=rank)
+        local = TP.shard_quantized_tree(ttrees[kind], tmesh, _tuple_rule)
+        for path, jleaf, tleaf in _walk(jtrees[kind], ttrees[kind]):
+            jspec = JP.leaf_sharding(jleaf, jax.sharding.PartitionSpec(*_tuple_rule(path, tleaf)), jmesh)
+            tspec = TP.leaf_sharding(tleaf, _tuple_rule(path, tleaf), tmesh)
+            for (name, js), (_, ts) in zip(_jax_leaves(jspec), _port_leaves(tspec)):
+                assert _norm(js) == _norm(ts), (kind, path, name, js, ts)
+            node, jnode = local, jsharded
+            for p in path:
+                node, jnode = node[p], jnode[p]
+            if path[-1] in TUPLE_RULE:
+                assert isinstance(node, TP.Sharded) and node.spec[0] == TUPLE_RULE[path[-1]]
+                n0, ns = TP.sharding._bounds(tmesh, TUPLE_RULE[path[-1]], node.shape[0])
+                assert ns == node.shape[0] // 4
+            tl = node.local if isinstance(node, TP.Sharded) else node
+            for (name, ja), (_, ta) in zip(_jax_leaves(jnode), _port_leaves(tl)):
+                shard = next(s for s in ja.addressable_shards if s.device == devices[rank])
+                np.testing.assert_array_equal(_bits(ta), np.asarray(shard.data).view(_bits(ta).dtype),
+                                              err_msg=f"{kind} {path} {name} rank {rank}")
+
+
+def test_mesh_axis_tuples():
+    """A tuple of axes on a virtual mesh: the product of the sizes, a
+    row-major index in the tuple's order, 1 and 0 for an axis the mesh
+    lacks; an axis the mesh lacks replicates in a spec."""
+    mesh = TP.make_mesh({"data": 2, "seq": 3, "model": 2}, coord={"data": 1, "seq": 2, "model": 1})
+    assert mesh.axis_size(("data", "model")) == 4 and mesh.index(("data", "model")) == 3
+    assert mesh.index(("model", "data")) == 3 and mesh.index(("seq", "data")) == 5
+    assert mesh.index(("data", "seq", "model")) == 11 and mesh.axis_size(("seq",)) == 3
+    assert mesh.axis_size("pipe") == 1 and mesh.index("pipe") == 0
+    qt = QuantizedTensor.quantize(torch.randn(64, 64, generator=torch.Generator().manual_seed(3)), blocksize=64)
+    seq = TP.make_mesh({"seq": 2}, coord=1)
+    assert TP.leaf_sharding(qt, ("model", None), seq).data == (None, None)
+    assert not isinstance(TP.shard_quantized_tree({"w": qt}, seq, lambda p, l: ("model", None))["w"], TP.Sharded)
+
+
 # -- the ranks --------------------------------------------------------------------
+
+
+def _seq_serve(tree, cfg, inp, mesh):
+    """Prefill of ``inp["ids"]`` and ``SEQ_STEPS`` greedy steps over
+    ``mesh``: the logits of every call and the tokens."""
+    cache = TL.init_kv_cache(cfg, inp["ids"].shape[0], 32, device="cpu")
+    if mesh is not None:
+        cache = TP.shard_kv_cache(cache, mesh)
+    logits, cache = TL.prefill(tree, inp["ids"], cfg, cache, mesh=mesh)
+    outs, tok = [logits], logits[:, -1].argmax(-1)
+    toks = [tok]
+    for s in range(SEQ_STEPS):
+        logits, cache = TL.decode_step(tree, tok, cfg, cache, inp["ids"].shape[1] + s, mesh=mesh)
+        tok = logits.argmax(-1)
+        outs.append(logits)
+        toks.append(tok)
+    return outs, torch.stack(toks, 1)
+
 
 
 def _rank_main(rank: int, world: int, tmp: str) -> None:
@@ -283,6 +370,19 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
                                            mesh=mesh, seed=3, device="cpu")
             out["engine_sampled"] = [r.tokens for r in eng.generate(PROMPTS, max_new_tokens=6, temperature=1.0,
                                                                     top_p=0.9)]
+            # the cached path over a "seq" axis: the cache and the weights replicate over it
+            smesh = TP.make_mesh(SEQ_AXES[world])
+            out["seq_serve"] = _seq_serve(TP.llama_param_specs(smesh, trees["fused"]), cfg, inp, smesh)
+            for kv, layout in (("bf16", "dense"), ("int8", "paged")):
+                eng = ContinuousBatchingEngine(trees["unfused"], cfg, max_batch=4, max_len=64, steps_per_sync=2,
+                                               kv_dtype=kv, kv_layout=layout, kv_block_size=16, mesh=smesh,
+                                               device="cpu")
+                out[f"seq_engine_{kv}_{layout}"] = [r.tokens for r in eng.generate(PROMPTS, max_new_tokens=6)]
+            if world == 4:  # wo and down split over both axes of the mesh
+                tup = TP.shard_quantized_tree(trees["unfused"], mesh, _tuple_rule)
+                out["tuple_forward"] = TL.forward(tup, inp["ids"], cfg, mesh=mesh)[0]
+                local = TP.shard_kv_cache(inp["caches"]["bf16"], mesh)
+                out["tuple_decode"] = TL.decode_step(tup, inp["tok"], cfg, local, 16, mesh=mesh)[0]
             emesh = TP.make_mesh({"expert": world})
             moe_params, moe_meta = inp["moe"]
             out["moe_ep"] = TM.moe_ffn_expert_parallel(moe_params, moe_meta, inp["moe_x"], emesh, top_k=2)
@@ -442,3 +542,91 @@ def test_expert_parallel_matches_dense(ranks, moe_case):
     for o in outs:
         assert torch.equal(o["moe_ep"], outs[0]["moe_ep"]) and torch.equal(o["moe_ep_local"], o["moe_ep"])
     np.testing.assert_allclose(outs[0]["moe_ep"].float().numpy(), ref.float().numpy(), atol=0.03, rtol=0.05)
+
+
+def test_seq_mesh_serving_matches_meshless(ranks, trees):
+    """Prefill and greedy decode over a mesh with a "seq" axis ({"seq": 2};
+    {"data": 2, "seq": 2}): the cache replicates over "seq" and every rank
+    computes the whole token axis, so every rank's logits are the meshless
+    port's bits and its tokens the same; the engine over the same mesh gives
+    the meshless engine's greedy streams, dense bf16 and paged int8 KV."""
+    _, inp, outs = ranks
+    tcfg, ttrees = trees[1], trees[3]
+    with torch.no_grad():
+        ref_outs, ref_toks = _seq_serve(ttrees["fused"], tcfg, inp, None)
+    for o in outs:
+        got_outs, got_toks = o["seq_serve"]
+        assert torch.equal(got_toks, ref_toks), o["coord"]
+        assert all(torch.equal(a, b) for a, b in zip(got_outs, ref_outs)), o["coord"]
+    for kv, layout in (("bf16", "dense"), ("int8", "paged")):
+        eng = ContinuousBatchingEngine(ttrees["unfused"], tcfg, max_batch=4, max_len=64, steps_per_sync=2,
+                                       kv_dtype=kv, kv_layout=layout, kv_block_size=16, device="cpu")
+        ref = [r.tokens for r in eng.generate(PROMPTS, max_new_tokens=6)]
+        for o in outs:
+            assert o[f"seq_engine_{kv}_{layout}"] == ref, (kv, layout, o["coord"])
+
+
+@pytest.mark.parametrize("ranks", [2], ids=["2ranks"], indirect=True)
+def test_seq_mesh_streams_hold_to_the_jax_engine(ranks, trees):
+    """The JAX engine (its Pallas kernels in interpret mode) on a mesh with a
+    "seq" axis, ``{"data": 1, "seq": 2, "model": 1}`` of its CPU devices,
+    serves the same prompts: by the greedy-stream contract of
+    ``test_torch_serving.py``, every token it picks is in the top 5 of the
+    port's logits along its stream (teacher-forced through the port), and
+    the ranks' streams agree with most of it."""
+    from bitsandbytes_tpu import parallel as JP
+    from bitsandbytes_tpu.ops import dispatch
+    from bitsandbytes_tpu.serving import ContinuousBatchingEngine as JEngine
+
+    _, _, outs = ranks
+    jcfg, tcfg, jtrees, ttrees = trees
+    jmesh = JP.make_mesh({"data": 1, "seq": 2, "model": 1})
+    try:
+        dispatch.set_backend("pallas")
+        jres = JEngine(jtrees["unfused"], jcfg, max_batch=4, max_len=64, steps_per_sync=2, mesh=jmesh).generate(
+            PROMPTS, max_new_tokens=6)
+    finally:
+        dispatch.set_backend("auto")
+    agree = 0
+    for jr, tr, p in zip(jres, outs[0]["seq_engine_bf16_dense"], PROMPTS):
+        toks = [int(t) for t in jr.tokens]
+        assert len(toks) == len(tr) == 6
+        with torch.no_grad():
+            cache = TL.init_kv_cache(tcfg, 1, 64, device="cpu")
+            lg, cache = TL.prefill(ttrees["unfused"], torch.tensor([p]), tcfg, cache)
+            steps = [lg[0, -1]]
+            for i, tok in enumerate(toks[:-1]):
+                lg, cache = TL.decode_step(ttrees["unfused"], torch.tensor([tok]), tcfg, cache, len(p) + i)
+                steps.append(lg[0])
+        for i, (tok, lg) in enumerate(zip(toks, steps)):
+            assert tok in lg.topk(5).indices.tolist(), (p, i, tok)
+        agree += sum(a == b for a, b in zip(toks, tr))
+    assert agree >= 16, (jres, outs[0]["seq_engine_bf16_dense"])
+
+
+@pytest.mark.parametrize("ranks", [4], ids=["4ranks"], indirect=True)
+def test_tuple_axis_forward_matches_unsharded_and_jax(ranks, trees):
+    """wo split over ("data", "model") and down over ("model", "data") on
+    the 4-rank world: the forward and a decode step on the sharded cache are
+    the same bits on every rank, within the sharded-forward tolerance (atol
+    0.06 / rtol 0.05) of the unsharded port, and the forward within it of
+    the JAX package's GSPMD run under the same rule."""
+    import jax
+    import jax.numpy as jnp
+    from bitsandbytes_tpu import parallel as JP
+    from bitsandbytes_tpu.models import llama as JL
+
+    _, inp, outs = ranks
+    jcfg, tcfg, jtrees, ttrees = trees
+    for key in ("tuple_forward", "tuple_decode"):
+        _same_on_every_rank(outs, key)
+    with torch.no_grad():
+        ref = TL.forward(ttrees["unfused"], inp["ids"], tcfg)[0]
+        cache = inp["caches"]["bf16"]
+        ref_dec = TL.decode_step(ttrees["unfused"], inp["tok"], tcfg, type(cache)(*(t.clone() for t in cache)), 16)[0]
+    np.testing.assert_allclose(outs[0]["tuple_forward"].numpy(), ref.numpy(), atol=0.06, rtol=0.05)
+    np.testing.assert_allclose(outs[0]["tuple_decode"].numpy(), ref_dec.numpy(), atol=0.06, rtol=0.05)
+    jmesh = JP.make_mesh({"data": 2, "model": 2})
+    sj = JP.shard_quantized_tree(jtrees["unfused"], jmesh, _jax_tuple_rule)
+    jl, _ = jax.jit(lambda p, i: JL.forward(p, i, jcfg))(sj, jnp.asarray(inp["ids"].numpy()))
+    np.testing.assert_allclose(outs[0]["tuple_forward"].numpy(), np.asarray(jl, np.float32), atol=0.06, rtol=0.05)
