@@ -28,10 +28,13 @@ the f32 scale) and added in f32, but the sum is rounded back to the
 activations' type: the JAX package keeps it in f32, which would carry the
 rest of the network in f32 and off the bf16 large-M routes of the kernels.
 
-``forward`` runs with gradients enabled (training: no cache, dense causal
-attention); ``prefill`` and ``decode_step`` serve under ``torch.no_grad()``,
-and the cached attention refuses to run where a gradient is needed, since
-its kernel has no backward.
+``forward`` runs with gradients enabled (training: no cache, causal
+attention from position 0: on CUDA through the flash kernels of
+``ops/flash_attention.py`` where ``_flash_ok`` holds, as the JAX package
+routes its Pallas flash kernel, else the dense oracle); ``prefill`` and
+``decode_step`` serve under ``torch.no_grad()``, and the cached attention
+refuses to run where a gradient is needed, since its kernel has no
+backward.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch.utils.checkpoint
 from .. import autograd
 from ..nn.modules import Int8TensorState, QuantizedTensor
 from ..ops.dispatch import resolve_device
+from ..ops.flash_attention import flash_attention_causal
 from ..ops.flash_cached import (
     GT_MAX,
     flash_attention_cached,
@@ -415,6 +419,30 @@ def _attention(q, k, v, q_positions, kv_len_mask, cfg):
     return out.reshape(B, T, H * hd)
 
 
+def _flash_ok(cfg, T: int, hd: int, device: torch.device) -> bool:
+    """Whether the no-cache causal attention takes the flash kernels
+    (``ops/flash_attention.py``): the JAX package's conditions, with the
+    tensors on CUDA in place of the TPU backend.  No sliding window, T at
+    least 1024 (the JAX package's line, drawn against the memory of the
+    dense path's [B, H, T, T] f32 scores), T a multiple of 128 and head_dim
+    a multiple of 128.  Elsewhere, and on the CPU, the dense oracle runs."""
+    return (
+        device.type == "cuda"
+        and cfg.sliding_window is None
+        and T >= 1024
+        and T % 128 == 0
+        and hd % 128 == 0
+    )
+
+
+def _flash_attention_causal(q, k, v, cfg):
+    """q [B, T, H, hd], k/v [B, T, KVH, hd] -> [B, T, H*hd] through the
+    causal flash kernels, both ways (``FlashAttentionCausal``); the grouped
+    KV heads are read in place, not repeated."""
+    B, T, H, hd = q.shape
+    return flash_attention_causal(q, k, v).reshape(B, T, H * hd)
+
+
 def _no_grad_check(q, k, v) -> None:
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError("the cached attention kernel has no backward: train without a cache")
@@ -650,6 +678,8 @@ def forward(
             k, v = (torch.repeat_interleave(t, G, dim=2) for t in (k, v))
             attn = ring_attention(q, k, v, mesh, axis="seq", causal=True, window=cfg.sliding_window).reshape(
                 B, T, H * hd)
+        elif not vector_pos and _flash_ok(cfg, T, hd, x.device):
+            attn = _flash_attention_causal(q, k, v, cfg)
         else:
             valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
             attn = _attention(q, k, v, positions, valid, cfg)

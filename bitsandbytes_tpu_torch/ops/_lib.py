@@ -36,7 +36,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("quant4bit.cu", "gemm4bit_paired.cu", "flash_cached.cu", "blockwise8.cu", "optim8bit.cu",
-            "gemm4bit.cu")
+            "gemm4bit.cu", "flash_attention.cu")
 _HEADERS = ("common.cuh", "quant_tile.cuh")
 _LIBNAME = "libbnb_torch_kernels.so"
 _NVCC_FLAGS = (
@@ -71,6 +71,9 @@ LAUNCHES: dict = {
     "flash_attention_combine": 0,
     "quantize_blockwise8_any": 0,
     "dequantize_blockwise8_any": 0,
+    "flash_attention_causal_fwd": 0,
+    "flash_attention_causal_bwd_dkv": 0,
+    "flash_attention_causal_bwd_dq": 0,
 }
 
 _lock = threading.Lock()
@@ -204,6 +207,15 @@ _SIGNATURES = {
     # G, B, absmax, part (scratch), out, M, N, K, blocksize, rows_per_split, splits, code[16] (host),
     # g_kind, stream
     "bnb_gemm_4bit_nt_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # q, k, v, o, m, l, B, T, H, KVH, hd, (batch, token) strides of q, k, v, scale, stream
+    "bnb_flash_attention_causal_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F,
+                                       _P],
+    # q, k, v, do, m, l, di, dk, dv, B, T, H, KVH, hd, (batch, token) strides of q, k, v, do, scale, stream
+    "bnb_flash_attention_causal_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                                           _L, _L, _L, _L, _F, _P],
+    # q, k, v, do, m, l, di, dq, B, T, H, KVH, hd, (batch, token) strides of q, k, v, do, scale, stream
+    "bnb_flash_attention_causal_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                                          _L, _L, _L, _F, _P],
 }
 
 

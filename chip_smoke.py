@@ -83,7 +83,13 @@ Phases (every one asserts; any failure exits non-zero before the result):
    versions, timed at an lm_head-sized tensor beside the tiles.  The host
    quantizer (3o, ``utils/native``, C++ and OpenMP on the host) on the f32
    gate_up, nf4 and fp4: codes and absmax bit for bit kernel 1's, the host
-   seconds beside kernel 1's device ms.
+   seconds beside kernel 1's device ms.  Kernels 17-19, the causal flash
+   attention of the training path (3p: forward, dK/dV and dQ), each against
+   its plain version and twice bit for bit at Llama-3-8B's attention (H 32
+   over 8, hd 128) at T 1024-8192 and Gemma-7B's (H 16, hd 256) at T 4096,
+   device ms beside SDPA forward and backward and each bound; then the
+   kernels against the dense oracle at T 512 and 1024, below the route's
+   line.
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -147,8 +153,8 @@ Phases (every one asserts; any failure exits non-zero before the result):
    gates bit for bit the CPU's, expert parallelism at one rank bit for bit
    the dense layer.  4o runs ring attention at Llama-3-8B widths (B 1, T
    4096, H 32 over 8 KV heads, hd 128, bf16) at one NCCL rank, forward and
-   backward, against the dense f32 oracle and SDPA (errors, ms, peak
-   memory), and rings of 2 and 4 rank by rank in one process against one;
+   backward, against the dense f32 oracle, SDPA and the flash kernels 17-19
+   (errors, ms, peak memory), and rings of 2 and 4 rank by rank in one process against one;
    then GPipe over 32 NF4 [4096, 4096] layers, x [64, 4096] in 4
    microbatches (kernel 2 forward, kernel 7 for grad_x), bit for bit the
    layers run microbatch by microbatch, beside one sequential pass.  4p
@@ -164,7 +170,12 @@ Phases (every one asserts; any failure exits non-zero before the result):
    for bit; the windowed ring at T 8192 (one rank, rings of 2 and 4 rank by
    rank) forward and backward against the windowed dense oracle, timed
    beside it and SDPA with a boolean mask; one QLoRA step of a 2-layer copy
-   at T 6144 over the mesh against the meshless step.
+   at T 6144 over the mesh against the meshless step.  4r trains 4b's
+   model through kernels 17-19 (the no-cache route of ``_flash_ok``): all
+   32 layers at T 2048 (rank 64, seven targets, ``adamw8bit``, five steps;
+   32 launches of each a step, device ms by class, peak memory), 4 layers
+   at T 2048 against the same step on the dense oracle (the loss within
+   rel 1e-3), and 4 layers at T 8192.
    The kernels' launch counts are zeroed just before each path and read
    just after it.  4a and 4b also
    load the model once more under
@@ -211,7 +222,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    step of the tiny Llama, card against CPU (5j); then the backward with f16
    and f32 g on both sides of each threshold, the windowed ring and the
    tiny Llama with a sliding window served and trained over the one-rank
-   mesh, card against CPU (5k).
+   mesh, card against CPU (5k); then a 2-layer bf16 Llama (hidden 512, hd
+   128) at T 1024 through kernels 17-19 against the CPU port on their
+   plain versions: the loss and the adapter gradients (5l).
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -292,7 +305,25 @@ TPU_KERNELS = {
     "flash_attention_combine": (
         "bitsandbytes_tpu/ops/pallas/flash_cached.py:482",
         "bitsandbytes_tpu_torch/csrc/flash_cached.cu"),
+    # the upstream Pallas flash attention the JAX package's no-cache forward
+    # reaches through bitsandbytes_tpu/models/llama.py:_flash_call (:450)
+    "flash_attention_causal_fwd": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    "flash_attention_causal_bwd_dkv": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    "flash_attention_causal_bwd_dq": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
 }
+
+FLASH_TRAIN = ("flash_attention_causal_fwd", "flash_attention_causal_bwd_dkv", "flash_attention_causal_bwd_dq")
+
+# device time by class of a training step through the flash kernels
+FLASH_CLASSES = [("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_dkv_kernel", "kernel 18 (flash dK/dV)"),
+                 ("flash_bwd_dq_kernel", "kernel 19 (flash dQ)"), ("dequantize_paired", "kernel 6"),
+                 ("optimizer_update_8bit", "kernel 14")]
 
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
@@ -1813,9 +1844,10 @@ def ring_and_pipeline(dev, H=32, KVH=8, hd=128, T=4096, D=4096, n_layers=32):
     """4o: ring attention and GPipe at Llama-3-8B widths on the one-rank
     NCCL group.  Ring attention: H 32 (8 KV heads repeated), hd 128, B 1, T
     4096, bf16 q/k/v; the one-rank ring, forward and backward, against the
-    dense f32 oracle (``models/llama._attention``) and SDPA with
-    ``is_causal``: the errors of the output and of dq/dk/dv, the ms of each
-    direction and the peak memory of all three; then every rank of rings of
+    dense f32 oracle (``models/llama._attention``), SDPA with
+    ``is_causal`` and the model's flash route (kernels 17-19): the errors of
+    the output and of dq/dk/dv, the ms of each direction and the peak memory
+    of all four; then every rank of rings of
     2 and 4 computed in one process (``ring_attention_local`` on f32 copies)
     against the one-rank ring on the same copies, within 2e-5 relative,
     causal and not.  GPipe: 32 NF4 blocksize-64 [4096, 4096] layers, each
@@ -1865,8 +1897,12 @@ def ring_and_pipeline(dev, H=32, KVH=8, hd=128, T=4096, D=4096, n_layers=32):
                                            enable_gqa=True)
         return o.transpose(1, 2).reshape(B, T, H * hd)
 
+    def flash(q, k, v):  # kernels 17-19, the model's route at this shape
+        return L._flash_attention_causal(q, k, v, cfg)
+
+    assert L._flash_ok(cfg, T, hd, q.device)
     results, timing = {}, {}
-    for name, f in (("ring", ring), ("oracle", oracle), ("sdpa", sdpa)):
+    for name, f in (("ring", ring), ("oracle", oracle), ("sdpa", sdpa), ("flash", flash)):
         for t in (q, k, v):
             t.grad = None
         out = f(q, k, v)
@@ -1876,7 +1912,7 @@ def ring_and_pipeline(dev, H=32, KVH=8, hd=128, T=4096, D=4096, n_layers=32):
         timing[name] = events_fwd_bwd(f, (q, k, v), gout)
         torch.cuda.empty_cache()
     errs = {}
-    for name in ("ring", "sdpa"):
+    for name in ("ring", "sdpa", "flash"):
         errs[name] = {key: (a.float() - b.float()).abs().max().item()
                       for key, a, b in zip(("out", "dq", "dk", "dv"), results[name], results["oracle"])}
         assert all(math.isfinite(e) for e in errs[name].values()), f"4o {name}: {errs[name]}"
@@ -1885,6 +1921,10 @@ def ring_and_pipeline(dev, H=32, KVH=8, hd=128, T=4096, D=4096, n_layers=32):
     assert errs["ring"]["out"] <= 2e-2, f"4o ring output against the oracle: {errs['ring']}"
     for key, a, b in zip(("dq", "dk", "dv"), results["ring"][1:], results["oracle"][1:]):
         assert rel_err(a, b) <= 5e-2, f"4o ring {key} against the oracle: {rel_err(a, b)}"
+    # the flash kernels round the unnormalized p to bf16, the oracle the probabilities: the ring's bounds
+    assert errs["flash"]["out"] <= 2e-2, f"4o flash output against the oracle: {errs['flash']}"
+    for key, a, b in zip(("dq", "dk", "dv"), results["flash"][1:], results["oracle"][1:]):
+        assert rel_err(a, b) <= 5e-2, f"4o flash {key} against the oracle: {rel_err(a, b)}"
 
     # every rank of rings of 2 and 4 in one process, on f32 copies of the inputs
     with torch.no_grad():
@@ -2617,6 +2657,303 @@ def slice21_cpu_check(dev):
          windowed_serve_max_abs_logit_diff=serve_err, windowed_loss=losses,
          max_abs_grad_diff=max((a - b).abs().max().item() for a, b in zip(grads["card"], grads["cpu"])),
          seconds=time.perf_counter() - t_start)
+
+
+def flash_inputs(dev, gen, B, T, H, KVH, hd):
+    """bf16 q, k, v and an output gradient for the causal flash kernels at
+    one shape: q and k packed (the model's, after RoPE), v a view into a
+    fused [B, T, (H + 2 KVH) hd] projection, as the model splits it."""
+    import torch
+
+    q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, T, KVH, hd, generator=gen, device=dev).to(torch.bfloat16)
+    qkv = torch.randn(B, T, (H + 2 * KVH) * hd, generator=gen, device=dev).to(torch.bfloat16)
+    v = qkv[..., (H + KVH) * hd:].reshape(B, T, KVH, hd)
+    do = torch.randn(B, T, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    return q, k, v, do
+
+
+def flash_causal_work(B, T, H, KVH, hd):
+    """(bytes, flops) of kernels 17, 18 and 19 at one shape: every input
+    read once and every output written once; the products over the causal
+    half, T (T + 1) / 2 (query, key) pairs a head, 2 hd flops a pair and
+    product: two products forward (q k^T, p v), four in dK/dV (q k^T, do v^T,
+    p^T do, ds^T q), three in dQ (q k^T, do v^T, ds k)."""
+    pairs = B * H * T * (T + 1) // 2
+    qb, kvb, rows = B * T * H * hd * 2, B * T * KVH * hd * 2, B * H * T * 4
+    return {"fwd": (2 * qb + 2 * kvb + 2 * rows, 2 * 2 * hd * pairs),
+            "dkv": (2 * qb + 4 * kvb + 3 * rows, 4 * 2 * hd * pairs),
+            "dq": (3 * qb + 2 * kvb + 3 * rows, 3 * 2 * hd * pairs)}
+
+
+def flash_train_kernels(dev, entry):
+    """3p: kernels 17-19, the causal flash attention of the training path
+    (``ops/flash_attention.py``), each against its plain version on the same
+    inputs at Llama-3-8B's attention (B 1, H 32 over 8 KV heads, hd 128) at
+    T 1024, 2048 (4r's), 4096 and 8192, and Gemma-7B's (H 16 over 16, hd
+    256) at T 4096: the backward kernels take the plain forward's m and l and
+    ``di = sum(o * do)``, so each kernel is held alone (the output within 2e-2
+    abs, each gradient within 1e-2 of its largest magnitude; m within 1e-4
+    abs and l within 1e-5 rel), each twice, bit for bit.  Device ms with
+    the host held out and L2 flushed, median of 20, beside the plain
+    versions and SDPA (``is_causal``, ``enable_gqa``) forward and backward
+    on the same tensors, with each kernel's bytes, flops and bound.  Then the
+    threshold sweep: at T 512 and 1024 (hd 128) the kernels' forward and
+    backward through ``FlashAttentionCausal`` against the dense f32 oracle
+    (``models/llama._attention``), events around each, and their peaks.  The
+    kernels line takes T 2048."""
+    import torch
+    import torch.nn.functional as F
+
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.ops import flash_attention as FA
+    from bitsandbytes_tpu_torch.utils.benchmark import cuda_time
+
+    gen = torch.Generator(device=dev).manual_seed(60)
+    rel = lambda a, b: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()  # noqa: E731
+    shapes = [(1, T, 32, 8, 128) for T in (1024, 2048, 4096, 8192)] + [(1, 4096, 16, 16, 256)]
+    out = []
+    for B, T, H, KVH, hd in shapes:
+        q, k, v, do = flash_inputs(dev, gen, B, T, H, KVH, hd)
+        o, m, l = FA.flash_attention_causal_fwd(q, k, v)
+        op, mp, lp = FA.flash_attention_causal_fwd_plain(q, k, v)
+        di = (op.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, do, mp, lp, di)
+        dk, dv = FA.flash_attention_causal_bwd_dkv(*bwd)
+        dq = FA.flash_attention_causal_bwd_dq(*bwd)
+        dkp, dvp = FA.flash_attention_causal_bwd_dkv_plain(*bwd)
+        dqp = FA.flash_attention_causal_bwd_dq_plain(*bwd)
+        what = f"3p B{B} T{T} H{H} KVH{KVH} hd{hd}"
+        errs = {"o_abs": (o.float() - op.float()).abs().max().item(), "m_abs": (m - mp).abs().max().item(),
+                "l_rel": rel(l, lp), "dq_rel": rel(dq, dqp), "dk_rel": rel(dk, dkp), "dv_rel": rel(dv, dvp)}
+        assert all(math.isfinite(e) for e in errs.values()), f"{what}: {errs}"
+        assert errs["o_abs"] <= 2e-2 and errs["m_abs"] <= 1e-4 and errs["l_rel"] <= 1e-5, f"{what}: {errs}"
+        assert max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= 1e-2, f"{what}: {errs}"
+        again = (FA.flash_attention_causal_fwd(q, k, v)[0], *FA.flash_attention_causal_bwd_dkv(*bwd),
+                 FA.flash_attention_causal_bwd_dq(*bwd))
+        assert all(torch.equal(a, b) for a, b in zip(again, (o, dk, dv, dq))), f"{what}: differs from run to run"
+        del op, mp, lp, dkp, dvp, dqp, again
+
+        def dev_ms(fn):
+            return cuda_time(fn, n=20, flush_l2=True, hold=True)["median"]
+
+        def plain_ms(fn):
+            return cuda_time(fn, n=3, warmup=1)["median"]
+
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        sdpa = {"fwd_ms": dev_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                         enable_gqa=True)),
+                "bwd_ms": dev_ms(lambda: torch.autograd.grad(so, (qt, kt, vt), dot, retain_graph=True)),
+                "out_abs_err_vs_kernel": (so.detach().transpose(1, 2).float() - o.float()).abs().max().item()}
+        del so, qt, kt, vt
+        work = flash_causal_work(B, T, H, KVH, hd)
+        row = {"B": B, "T": T, "H": H, "KVH": KVH, "hd": hd, "errs": errs, "sdpa": sdpa,
+               "fwd": {"ms": dev_ms(lambda: FA.flash_attention_causal_fwd(q, k, v)),
+                       "plain_ms": plain_ms(lambda: FA.flash_attention_causal_fwd_plain(q, k, v))},
+               "dkv": {"ms": dev_ms(lambda: FA.flash_attention_causal_bwd_dkv(*bwd)),
+                       "plain_ms": plain_ms(lambda: FA.flash_attention_causal_bwd_dkv_plain(*bwd))},
+               "dq": {"ms": dev_ms(lambda: FA.flash_attention_causal_bwd_dq(*bwd)),
+                      "plain_ms": plain_ms(lambda: FA.flash_attention_causal_bwd_dq_plain(*bwd))}}
+        for key, (nb, ops) in work.items():
+            b_ms, b_by = bound_ms(nb, ops, PEAK_BF16_FLOPS)
+            row[key].update(bytes=nb, flops=ops, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / row[key]["ms"])
+        row["bwd_ms"] = row["dkv"]["ms"] + row["dq"]["ms"]
+        out.append(row)
+        if (T, hd) == (2048, 128):
+            for name, key, lib in (("flash_attention_causal_fwd", "fwd", sdpa["fwd_ms"]),
+                                   ("flash_attention_causal_bwd_dkv", "dkv", None),
+                                   ("flash_attention_causal_bwd_dq", "dq", None)):
+                nb, ops = work[key]
+                err = errs["o_abs"] if key == "fwd" else max(errs[f"{g}_rel"] for g in
+                                                              (("dk", "dv") if key == "dkv" else ("dq",)))
+                entry(name, row[key]["ms"], row[key]["plain_ms"], lib, nb, ops, PEAK_BF16_FLOPS, err,
+                      shape=[B, T, H, KVH, hd], sdpa_bwd_ms=sdpa["bwd_ms"], kernels_bwd_ms=row["bwd_ms"],
+                      note="4r's attention shape; device ms, host held out, L2 flushed; the backward rows' "
+                           "library_ms is null: SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms, "
+                           "against kernels_bwd_ms, 18 + 19)" + ("; max_abs_err is the output's abs error" if
+                                                                 key == "fwd" else "; max_abs_err is relative "
+                                                                 "to the gradient's largest magnitude"))
+        del q, k, v, do, o, m, l, di, dk, dv, dq, bwd
+        torch.cuda.empty_cache()
+
+    # the threshold sweep below T 1024: the kernels against the dense oracle, forward and backward
+    sweep = []
+    for T in (512, 1024):
+        B, H, KVH, hd = 1, 32, 8, 128
+        q, k, v, do = flash_inputs(dev, gen, B, T, H, KVH, hd)
+        q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        cfg = L.LlamaConfig(num_heads=H, num_kv_heads=KVH, head_dim=hd)
+        pos = torch.arange(T, device=dev)[None].expand(B, T)
+        valid = torch.ones(B, T, dtype=torch.bool, device=dev)
+        gout = do.reshape(B, T, H * hd)
+        kern = events_fwd_bwd(lambda a, b, c: L._flash_attention_causal(a, b, c, cfg), (q, k, v), gout)
+        orac = events_fwd_bwd(lambda a, b, c: L._attention(a, b, c, pos, valid, cfg), (q, k, v), gout)
+        sweep.append({"T": T, "kernels": kern, "oracle": orac,
+                      "kernels_faster_both_ways": kern["fwd_ms"] + kern["bwd_ms"] < orac["fwd_ms"] + orac["bwd_ms"]})
+        del q, k, v, do, gout
+        torch.cuda.empty_cache()
+    emit("flash_train_kernels", shapes=out, threshold_sweep=sweep,
+         route_line={"T_min": 1024, "note": "the JAX package's line (_flash_ok), kept"})
+    return out
+
+
+def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
+    """4r: QLoRA training through kernels 17-19 on 4b's double-quantized
+    Llama-3-8B (``lora_train_step``, rank 64, alpha 16 on all seven targets,
+    ``adamw8bit``, ``token_chunk`` 512).  (a) All 32 layers, ids [1, 2049]
+    (T 2048: 4d's token count in one sequence), ``steps`` steps: the losses,
+    wall ms (median of steps 2-5), the launches (kernels 17, 18 and 19 32
+    times a step each, kernel 6 255, kernel 14 once), the peak memory, and
+    one more step under the profiler, device ms by class.  (b) 4 layers at
+    T 2048: the flash route against the same step on the dense oracle
+    (``sliding_window = 1 << 20``: the same mask, off the flash route), the
+    first step's loss within rel 1e-3, the second step's device ms of each.
+    (c) 4 layers at T 8192, the flash route only: one step, its wall and peak
+    memory (the oracle's f32 scores alone would take 8.6 GB a layer)."""
+    import dataclasses
+
+    import torch
+
+    from bitsandbytes_tpu_torch import optim as O
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = L.LlamaConfig.llama3_8b()
+    Lyr = cfg.num_layers
+    assert len(params["layers"]) == Lyr
+
+    def ids_of(T, seed):
+        return torch.randint(0, cfg.vocab_size, (1, T + 1), generator=torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+
+    def setup(cfg_):
+        lora = L.add_lora(cfg_, rank=rank, alpha=alpha, targets=LORA_TARGETS,
+                          generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        return lora, O.adamw8bit(L.lora_parameters(lora), 1e-3)
+
+    def run(tree, cfg_, ids, n):
+        """``n`` steps from fresh adapters: losses, wall ms, launches, peak
+        bytes above what was held before, then one profiled step."""
+        lora, opt = setup(cfg_)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, walls = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            losses.append(L.lora_train_step(tree, lora, opt, ids, cfg_, token_chunk=chunk).item())
+            walls.append((time.perf_counter() - t0) * 1e3)
+        counts = {k_: c for k_, c in launch_counts().items() if c}
+        peak = torch.cuda.max_memory_allocated() - base
+        _, events, prof_wall = profiled(lambda: L.lora_train_step(tree, lora, opt, ids, cfg_, token_chunk=chunk))
+        dev_ms = sum(self_dev_us(e) for e in events) / 1e3
+        assert all(math.isfinite(x) for x in losses), f"4r losses {losses}"
+        del lora, opt
+        return {"losses": losses, "wall_ms": walls, "launches": counts, "peak_bytes": peak,
+                "profiled_step": {"wall_ms": prof_wall, "device_ms": dev_ms, "device_busy_share": dev_ms / prof_wall,
+                                  "by_class": by_class(events, FLASH_CLASSES)}}
+
+    # (a) all 32 layers at T 2048
+    T = 2048
+    assert L._flash_ok(cfg, T, cfg.head_dim, dev)
+    a = run(params, cfg, ids_of(T, 70), steps)
+    want = {name: steps * Lyr for name in FLASH_TRAIN}
+    want.update(dequantize_paired_fast_dq=steps * (8 * Lyr - 1), optimizer_update_8bit=steps)
+    assert a["launches"] == want, f"4r(a) launches {a['launches']} != {want}"
+    assert a["losses"][-1] < a["losses"][0], f"4r(a) losses {a['losses']}"
+    a["wall_ms_median_2_5"] = statistics.median(a["wall_ms"][1:])
+    a["tokens_per_s"] = T / (a["wall_ms_median_2_5"] * 1e-3)
+
+    # (b) 4 layers at T 2048: the flash route against the oracle's
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    cfg4_dense = dataclasses.replace(cfg4, sliding_window=1 << 20)
+    assert not L._flash_ok(cfg4_dense, T, cfg.head_dim, dev)
+    p4 = {**params, "layers": params["layers"][:4]}
+    ids_b = ids_of(T, 71)
+    flash4 = run(p4, cfg4, ids_b, 2)
+    dense4 = run(p4, cfg4_dense, ids_b, 2)
+    assert all(flash4["launches"][n] == 2 * 4 for n in FLASH_TRAIN), f"4r(b) flash {flash4['launches']}"
+    assert not any(n in dense4["launches"] for n in FLASH_TRAIN), f"4r(b) oracle {dense4['launches']}"
+    loss_rel = abs(flash4["losses"][0] - dense4["losses"][0]) / abs(dense4["losses"][0])
+    assert loss_rel <= 1e-3, f"4r(b) loss flash {flash4['losses'][0]} against the oracle's {dense4['losses'][0]}"
+
+    # (c) 4 layers at T 8192, the flash route
+    T8 = 8192
+    c8 = run(p4, cfg4, ids_of(T8, 72), 1)
+    assert all(c8["launches"][n] == 4 for n in FLASH_TRAIN), f"4r(c) {c8['launches']}"
+    emit("flash_qlora", config="llama3_8b", compress_statistics=True, lora_rank=rank, lora_alpha=alpha,
+         targets=list(LORA_TARGETS), optimizer="adamw8bit", token_chunk=chunk,
+         all_layers={"layers": Lyr, "ids": [1, T + 1], "steps": steps, **a},
+         four_layers_vs_oracle={"ids": [1, T + 1], "loss_rel_diff": loss_rel, "flash": flash4, "oracle": dense4},
+         four_layers_t8192={"ids": [1, T8 + 1], **c8,
+                            "oracle_scores_bytes_a_layer": 1 * cfg.num_heads * T8 * T8 * 4})
+    return {name: a["launches"][name] for name in FLASH_TRAIN}
+
+
+def flash_cpu_check(dev):
+    """5l: a 2-layer bf16 Llama (hidden 512, H 4 over 2 KV heads, hd 128,
+    fused NF4, rank-8 adapters on all seven targets, ``b`` non-zero) at T
+    1024: ``lm_loss`` and its adapter gradients through kernels 17-19 on the
+    card against the CPU port through their plain versions (the CPU's route
+    patched to the flash one), the loss within rel 1e-3, the gradients
+    within rtol 2e-2 / atol 2e-3; the card's launches 2 of each."""
+    import torch
+
+    from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = L.LlamaConfig(vocab_size=1024, hidden_size=512, intermediate_size=1024, num_layers=2, num_heads=4,
+                        num_kv_heads=2, head_dim=128)
+    T = 1024
+    assert L._flash_ok(cfg, T, cfg.head_dim, dev) and not L._flash_ok(cfg, T, cfg.head_dim, torch.device("cpu"))
+    cpu_float = L.init_params(cfg, torch.Generator().manual_seed(80), device="cpu")
+    cpu_params = L.quantize_params_4bit(cpu_float, fuse=True)
+    gpu_params = L.quantize_params_4bit(tree_to(cpu_float, dev), fuse=True)
+    ids = torch.randint(0, cfg.vocab_size, (1, T + 1), generator=torch.Generator().manual_seed(81))
+    lora0 = L.add_lora(cfg, rank=8, alpha=16.0, targets=LORA_TARGETS, generator=torch.Generator().manual_seed(82),
+                       device="cpu")
+    g = torch.Generator().manual_seed(83)
+    for layer in lora0["layers"]:
+        for ad in layer.values():
+            ad["b"] = torch.randn(ad["b"].shape, generator=g) * 0.02
+
+    def fresh(device):
+        return {"layers": [{n: {k: t.detach().clone().to(device).requires_grad_() for k, t in ad.items()}
+                            for n, ad in layer.items()} for layer in lora0["layers"]]}
+
+    lg = fresh(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss_g = L.lm_loss(gpu_params, lg, ids.to(dev), cfg)
+    loss_g.backward()
+    torch.cuda.synchronize()
+    counts = {k: c for k, c in launch_counts().items() if c}
+    assert all(counts.get(n) == cfg.num_layers for n in FLASH_TRAIN), f"5l launches {counts}"
+    lc = fresh("cpu")
+    route = L._flash_ok
+    L._flash_ok = lambda cfg_, T_, hd_, device_: route(cfg_, T_, hd_, torch.device("cuda"))
+    try:
+        loss_c = L.lm_loss(cpu_params, lc, ids, cfg)
+        loss_c.backward()
+    finally:
+        L._flash_ok = route
+    loss_rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    assert loss_rel <= 1e-3, f"5l loss card {loss_g.item()} against the CPU's {loss_c.item()}"
+    grad_err = 0.0
+    for tg, tc in zip(L.lora_parameters(lg), L.lora_parameters(lc)):
+        a, b = tg.grad.cpu(), tc.grad
+        assert torch.allclose(a, b, rtol=2e-2, atol=2e-3), "5l adapter gradients differ from the CPU's"
+        grad_err = max(grad_err, (a - b).abs().max().item())
+    emit("cpu_check_flash_train", layers=cfg.num_layers, hidden=cfg.hidden_size, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, seq=T, lora_rank=8, loss_card=loss_g.item(),
+         loss_cpu=loss_c.item(), loss_rel_diff=loss_rel, max_abs_grad_diff=grad_err, launches=counts)
+    del gpu_params, lg
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -4809,6 +5146,9 @@ def main() -> int:
     # -- 3o. the host quantizer (C++/OpenMP) against kernel 1 --------------
     host_quantizer(dev)
 
+    # -- 3p. kernels 17-19: the causal flash attention of the training path --
+    flash_train_kernels(dev, entry)
+
     # -- 4. the serving paths at full width -------------------------------
     steps, prompt, batch, max_len = 32, 128, 8, 1024
     assert batch * prompt >= G.LARGE_M_THRESHOLD > batch, "prefill must take the dequant route, decode the GEMM"
@@ -5247,6 +5587,10 @@ def main() -> int:
     # -- 4q. Mistral-7B on 4b's weights: serving over a seq mesh, the windowed ring, a meshed step --
     for name, n in mistral_window(nested_params, dev).items():
         report[name]["launches_4q"] = n
+
+    # -- 4r. QLoRA training through the causal flash kernels on 4b's weights --
+    for name, n in flash_qlora(nested_params, dev).items():
+        report[name]["launches"] = n
     del nested_params
     torch.cuda.empty_cache()
 
@@ -6100,6 +6444,11 @@ def main() -> int:
 
     # -- 5k. the backward's routes by g's type, the windowed ring and model over a mesh, card against CPU --
     slice21_cpu_check(dev)
+
+    # -- 5l. the training path through the causal flash kernels at 2 layers, card against CPU --
+    for name, n in flash_cpu_check(dev).items():
+        if name in FLASH_TRAIN:
+            report[name]["launches_5l"] = n
     import torch.distributed as dist
 
     dist.destroy_process_group()
