@@ -37,7 +37,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("quant4bit.cu", "gemm4bit_paired.cu", "flash_cached.cu", "blockwise8.cu", "optim8bit.cu",
             "gemm4bit.cu", "flash_attention.cu")
-_HEADERS = ("common.cuh", "quant_tile.cuh")
+_HEADERS = ("common.cuh", "quant_tile.cuh", "sm90.cuh")
 _LIBNAME = "libbnb_torch_kernels.so"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -238,8 +238,16 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# csrc/sm90.cuh's kTmaError: an entry point returns it plus the CUresult of
+# cuTensorMapEncodeTiled when a TMA tensor map cannot be encoded
+TMA_ERROR = 10000
+
+
 def check(err: int, name: str) -> None:
-    """Raise when a C entry point reports a CUDA error from its launch."""
+    """Raise when a C entry point reports a CUDA error from its launch, or a
+    failed tensor-map encoding."""
+    if err >= TMA_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with CUresult {err - TMA_ERROR}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -5,8 +5,10 @@ Replaces the three TPU kernels that the JAX package reaches through
 ``models/llama.py:_flash_call``: the forward, the dK/dV and the dQ kernel of
 ``jax/experimental/pallas/ops/tpu/flash_attention.py`` (``causal=True``,
 ``sm_scale = hd**-0.5``, its default 128 x 128 blocks).  The CUDA source is
-``csrc/flash_attention.cu``: three ``mma.sync`` kernels with a ``cp.async``
-ring, bf16 only, head_dim 128 or 256, T a multiple of 128.
+``csrc/flash_attention.cu``, bf16 only, head_dim 128 or 256, T a multiple of
+128: the forward on ``wgmma`` with its tiles loaded by TMA (a producer
+warpgroup and consumer warpgroups of 64 query rows; ``csrc/sm90.cuh``), the
+two backward kernels on ``mma.sync`` with a ``cp.async`` ring.
 
 Layouts are the model's: ``q [B, T, H, hd]``, ``k, v [B, T, KVH, hd]`` with
 ``H`` a multiple of ``KVH`` (query head ``h`` reads KV head ``h // G``, as
@@ -202,6 +204,22 @@ def _check_cuda(q, k, v, T: int, hd: int) -> None:
         raise ValueError(f"the CUDA kernels take T a positive multiple of {BLOCK}, got {T}")
 
 
+# what a TMA tensor map takes (``cuTensorMapEncodeTiled``) beyond a 16-byte
+# aligned base and byte strides that are multiples of 16 (``_strides``)
+TMA_MAX_DIM = 1 << 32
+TMA_MAX_STRIDE_BYTES = 1 << 40
+
+
+def _tma_ok(name: str, t: torch.Tensor) -> None:
+    """The forward kernel reads ``t`` through a tensor map over its ``[B, T,
+    heads, hd]`` view: every dimension at most 2^32 elements and every byte
+    stride under 2^40, or it raises."""
+    if max(t.shape) > TMA_MAX_DIM:
+        raise ValueError(f"the CUDA forward reads {name} through TMA: a dimension over 2^32 in {tuple(t.shape)}")
+    if max(st * t.element_size() for st in t.stride()) >= TMA_MAX_STRIDE_BYTES:
+        raise ValueError(f"the CUDA forward reads {name} through TMA: a stride of 2^40 bytes or more in {t.stride()}")
+
+
 def _f32_rows(name: str, t: torch.Tensor) -> None:
     if not t.is_contiguous():
         raise ValueError(f"the CUDA kernel takes a contiguous {name}")
@@ -211,12 +229,16 @@ def flash_attention_causal_fwd(q, k, v):
     """Causal attention of ``q [B, T, H, hd]`` over ``k, v [B, T, KVH, hd]``
     (no cache, positions from 0): ``(o [B, T, H, hd], m [B, H, T] f32,
     l [B, H, T] f32)``.  Kernel on CUDA tensors, plain version on CPU
-    tensors."""
+    tensors.  A block owns 128 query rows of one head (64 at head_dim 256);
+    q, k and v are read in place through TMA tensor maps over their
+    strides."""
     B, T, H, KVH, hd = _shapes(q, k, v)
     if not use_kernel(q, k, v):
         return flash_attention_causal_fwd_plain(q, k, v)
     _check_cuda(q, k, v, T, hd)
     sq, sk, sv = _strides("q", q), _strides("k", k), _strides("v", v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _tma_ok(name, t)
     o = torch.empty(B, T, H, hd, dtype=q.dtype, device=q.device)
     m = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)

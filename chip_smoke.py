@@ -87,9 +87,10 @@ Phases (every one asserts; any failure exits non-zero before the result):
    attention of the training path (3p: forward, dK/dV and dQ), each against
    its plain version and twice bit for bit at Llama-3-8B's attention (H 32
    over 8, hd 128) at T 1024-8192 and Gemma-7B's (H 16, hd 256) at T 4096,
-   device ms beside SDPA forward and backward and each bound; then the
-   kernels against the dense oracle at T 512 and 1024, below the route's
-   line.
+   device ms beside SDPA forward and backward and each bound (the forward's
+   also beside its earlier mma.sync body's; its SASS must show wgmma and TMA
+   and no local stores); then the kernels against the dense oracle at T 512
+   and 1024, below the route's line.
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -325,6 +326,14 @@ FLASH_CLASSES = [("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_
                  ("flash_bwd_dq_kernel", "kernel 19 (flash dQ)"), ("dequantize_paired", "kernel 6"),
                  ("optimizer_update_8bit", "kernel 14")]
 
+# kernel 17's device ms at 3p's shapes, (T, hd): -> ms, in its earlier mma.sync
+# body (64-row blocks, a cp.async ring), measured by this script's 3p on an
+# NVIDIA H100 80GB HBM3 at 700 W; 3p emits that body's bound share beside the
+# kernel's
+FLASH_FWD_MMA_SYNC_MS = {(1024, 128): 0.08396799862384796, (2048, 128): 0.2884800136089325,
+                         (4096, 128): 1.06985604763031, (8192, 128): 4.154047966003418,
+                         (4096, 256): 1.296288013458252}
+
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 # Llama-3-8B decode linears (N, K) after fusing q/k/v and gate/up
@@ -354,6 +363,21 @@ _T0 = time.perf_counter()
 def emit(tag: str, **fields) -> None:
     """One JSON line for a phase, with the seconds since the script began."""
     print(json.dumps({"phase": tag, **fields, "t_s": round(time.perf_counter() - _T0, 1)}), flush=True)
+
+
+_SASS = {}
+
+
+def sass_of(so: str):
+    """``cuobjdump -sass`` of the built library, once a run (None without
+    the tool)."""
+    if so not in _SASS:
+        from bitsandbytes_tpu_torch.ops import _lib
+
+        tool = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
+        _SASS[so] = (subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True,
+                                    timeout=300).stdout if os.path.exists(tool) else None)
+    return _SASS[so]
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -2701,11 +2725,16 @@ def flash_train_kernels(dev, entry):
     threshold sweep: at T 512 and 1024 (hd 128) the kernels' forward and
     backward through ``FlashAttentionCausal`` against the dense f32 oracle
     (``models/llama._attention``), events around each, and their peaks.  The
-    kernels line takes T 2048."""
+    kernels line takes T 2048.  The forward's bound share stands beside that
+    of its earlier mma.sync body (``FLASH_FWD_MMA_SYNC_MS``), and the SASS of
+    each forward instance must hold ``HGMMA`` and ``UTMALDG`` and no ``STL``
+    (wgmma, TMA, no spills).  Two batched shapes (B 2, T 1152, hd 128; B 3,
+    T 640, hd 256) hold each kernel to the same tolerances, untimed."""
     import torch
     import torch.nn.functional as F
 
     from bitsandbytes_tpu_torch.models import llama as L
+    from bitsandbytes_tpu_torch.ops import _lib
     from bitsandbytes_tpu_torch.ops import flash_attention as FA
     from bitsandbytes_tpu_torch.utils.benchmark import cuda_time
 
@@ -2759,6 +2788,9 @@ def flash_train_kernels(dev, entry):
         for key, (nb, ops) in work.items():
             b_ms, b_by = bound_ms(nb, ops, PEAK_BF16_FLOPS)
             row[key].update(bytes=nb, flops=ops, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / row[key]["ms"])
+        old_ms = FLASH_FWD_MMA_SYNC_MS[(T, hd)]
+        row["fwd"].update(mma_sync_ms=old_ms, mma_sync_bound_share=row["fwd"]["bound_ms"] / old_ms,
+                          speedup_over_mma_sync=old_ms / row["fwd"]["ms"])
         row["bwd_ms"] = row["dkv"]["ms"] + row["dq"]["ms"]
         out.append(row)
         if (T, hd) == (2048, 128):
@@ -2778,6 +2810,28 @@ def flash_train_kernels(dev, entry):
         del q, k, v, do, o, m, l, di, dk, dv, dq, bwd
         torch.cuda.empty_cache()
 
+    # more than one sequence and T off a power of two: each kernel against its
+    # plain version at 3p's tolerances, untimed (inputs from a generator of their own)
+    batched, gen_b = [], torch.Generator(device=dev).manual_seed(61)
+    for B, T, H, KVH, hd in ((2, 1152, 8, 2, 128), (3, 640, 2, 1, 256)):
+        q, k, v, do = flash_inputs(dev, gen_b, B, T, H, KVH, hd)
+        o, m, l = FA.flash_attention_causal_fwd(q, k, v)
+        op, mp, lp = FA.flash_attention_causal_fwd_plain(q, k, v)
+        di = (op.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, do, mp, lp, di)
+        dk, dv = FA.flash_attention_causal_bwd_dkv(*bwd)
+        dkp, dvp = FA.flash_attention_causal_bwd_dkv_plain(*bwd)
+        errs = {"o_abs": (o.float() - op.float()).abs().max().item(), "m_abs": (m - mp).abs().max().item(),
+                "l_rel": rel(l, lp), "dq_rel": rel(FA.flash_attention_causal_bwd_dq(*bwd),
+                                                  FA.flash_attention_causal_bwd_dq_plain(*bwd)),
+                "dk_rel": rel(dk, dkp), "dv_rel": rel(dv, dvp)}
+        what = f"3p B{B} T{T} H{H} KVH{KVH} hd{hd}"
+        assert all(math.isfinite(e) for e in errs.values()), f"{what}: {errs}"
+        assert errs["o_abs"] <= 2e-2 and errs["m_abs"] <= 1e-4 and errs["l_rel"] <= 1e-5, f"{what}: {errs}"
+        assert max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= 1e-2, f"{what}: {errs}"
+        batched.append({"B": B, "T": T, "H": H, "KVH": KVH, "hd": hd, "errs": errs})
+        del q, k, v, do, o, m, l, op, mp, lp, di, bwd, dk, dv, dkp, dvp
+
     # the threshold sweep below T 1024: the kernels against the dense oracle, forward and backward
     sweep = []
     for T in (512, 1024):
@@ -2794,7 +2848,20 @@ def flash_train_kernels(dev, entry):
                       "kernels_faster_both_ways": kern["fwd_ms"] + kern["bwd_ms"] < orac["fwd_ms"] + orac["bwd_ms"]})
         del q, k, v, do, gout
         torch.cuda.empty_cache()
-    emit("flash_train_kernels", shapes=out, threshold_sweep=sweep,
+    # the forward's instances: wgmma (HGMMA), TMA loads (UTMALDG), no local stores
+    sass, fwd_sass, fn = sass_of(_lib.build()), {}, None
+    for line in (sass or "").splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if "flash_fwd_kernel" in fn else None
+            if fn:
+                fwd_sass[fn] = {"HGMMA": 0, "UTMALDG": 0, "STL": 0}
+        elif fn:
+            for op in fwd_sass[fn]:
+                fwd_sass[fn][op] += f" {op}" in line
+    assert sass is None or (len(fwd_sass) == 2 and all(c["HGMMA"] and c["UTMALDG"] and not c["STL"]
+                                                         for c in fwd_sass.values())), f"3p forward SASS {fwd_sass}"
+    emit("flash_train_kernels", shapes=out, batched=batched, threshold_sweep=sweep, fwd_sass=fwd_sass,
          route_line={"T_min": 1024, "note": "the JAX package's line (_flash_ok), kept"})
     return out
 
@@ -3061,10 +3128,9 @@ def main() -> int:
         indexed by a register is copied to local memory there, one store for
         each 8 or 16 of its bytes), and how many in all (register spills).
         None without the tool."""
-        tool = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
-        if not os.path.exists(tool):
+        sass = sass_of(so)
+        if sass is None:
             return None
-        sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True, timeout=300).stdout
         found, fn = {}, None
         for line in sass.splitlines():
             if "Function :" in line:

@@ -166,7 +166,9 @@ def test_route_predicate_matches_jax(window):
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     """The checks the wrappers make before a launch (run here on CPU
     tensors): bf16 only, head_dim 128 or 256, T a multiple of 128, heads and
-    head_dim packed with 16-byte aligned rows."""
+    head_dim packed with 16-byte aligned rows; and what the forward's TMA
+    tensor maps need: a base on 16 bytes, every stride a multiple of 16
+    bytes, at most 2^32 elements a dimension and strides under 2^40 bytes."""
     q = torch.zeros(1, 256, 4, 128, dtype=torch.bfloat16)
     k = torch.zeros(1, 256, 2, 128, dtype=torch.bfloat16)
     FA._check_cuda(q, k, k, 256, 128)
@@ -182,3 +184,18 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         FA._strides("q", q.transpose(1, 2))
     with pytest.raises(ValueError):
         FA.flash_attention_causal_fwd(q.half(), k.half(), k.half())  # the plain versions take bf16 and f32
+    # TMA: a base off 16 bytes, a token stride off 16 bytes (a fused row 4 values wider)
+    flat = torch.zeros(256 * 4 * 128 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        FA._strides("q", flat[1:1 + 256 * 4 * 128].view(1, 256, 4, 128))
+    wide = torch.zeros(1, 256, (4 + 2 + 2) * 128 + 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        FA._strides("v", wide[..., 6 * 128:8 * 128].reshape(1, 256, 2, 128))
+    # dimensions and strides, on meta tensors (no storage)
+    FA._tma_ok("q", q)
+    FA._tma_ok("v", v)
+    FA._tma_ok("q", torch.empty(1, 1 << 31, 1, 128, dtype=torch.bfloat16, device="meta"))
+    with pytest.raises(ValueError, match="dimension"):
+        FA._tma_ok("q", torch.empty(FA.TMA_MAX_DIM + 1, 128, 1, 128, dtype=torch.bfloat16, device="meta"))
+    with pytest.raises(ValueError, match="stride"):
+        FA._tma_ok("q", torch.empty(2, FA.TMA_MAX_DIM, 1, 128, dtype=torch.bfloat16, device="meta"))
