@@ -21,7 +21,8 @@
 // kernel renormalizes acc at every block: the same function up to f32
 // rounding), m (the max of the scaled scores) and l = sum exp(scale s - m) in
 // f32; the kernel takes p = 2^(scale log2(e) s - scale log2(e) max s), one
-// FMA and ex2.  Backward: p = exp(s - m) * (1 / l) in f32, ds = (do.v - di) *
+// FMA and ex2.  Backward: p = exp(s - m) * (1 / l) in f32 (the dK/dV kernel
+// as 2^(scale log2(e) s - m log2(e)) * (1 / l), one FMA and ex2), ds = (do.v - di) *
 // p * scale; p and ds rounded to bf16 before the dV, dK and dQ products; f32
 // accumulators stored once in bf16.  The GQA group's dK/dV add up in f32
 // inside the dK/dV kernel (the TPU path rounds per query head, then sums the
@@ -43,22 +44,28 @@
 //   registers (the S accumulators rounded to bf16 are the A fragments) and V
 //   as a transposed B.  At hd 128 the diagonal tile's last 64 keys follow
 //   every row of the first warpgroup: it computes them masked.
-// * Backward: mma.sync.m16n8k16 bf16 -> f32.  A block is four warps (eight
-//   for the dK/dV kernel at hd 256), 16 rows a warp; operands by ldmatrix
-//   from shared memory (rows padded by 16 B against bank conflicts), and p /
-//   ds straight from the accumulators of the product before as the A
-//   fragment of the next one.
-// * dQ: a block owns 64 query rows of one head and walks the 64-key tiles of
-//   its KV head up to the diagonal through a two-stage cp.async ring.  The dQ
-//   sum runs in key order in registers: no atomics.
-// * dK/dV: a block owns 64 keys of one KV head and walks its group's query
-//   heads, then the 64-row query tiles from the diagonal down, Q and dO (and
-//   the rows' m, l, di) through the ring; dK and dV stay in registers over
-//   the whole group and are stored once.  At hd 256 two warps share each 16
-//   keys, each accumulating half of hd (both recompute the scores: the
-//   registers hold 16 x 128 of dK and of dV a warp, not 16 x 256).
+// * dK/dV (sm90.cuh): a block is one item of a work plan built on the host
+//   (ops/flash_attention.dkv_plan): 64 keys of one KV head, 128 columns of
+//   dK and dV (half of hd at 256), and a range of the key tile's iterations
+//   over its group's query heads and the 64-row query tiles from the
+//   diagonal down.  A producer thread loads K and V once and each
+//   iteration's Q and dO tiles with TMA, and the rows' m, l, di by bulk
+//   copies, into a ring (four stages at hd 128, two at 256).  One consumer
+//   warpgroup runs S^T = K Q^T and dP^T = V dO^T on wgmma from shared memory,
+//   p and ds in registers (the mask only on the diagonal tile; m log2(e) and
+//   1 / l once a row), and dV += P^T dO, dK += dS^T Q on wgmma with P^T and
+//   dS^T from registers and dO and Q as transposed B.  dK and dV stay in
+//   registers over the item.  A key tile with more work than a slot's mean
+//   is split into pieces that write f32 partials; the combine kernel adds
+//   them in piece order and rounds once.  Items go longest first.
+// * dQ: mma.sync.m16n8k16 bf16 -> f32, four warps of 16 rows, operands by
+//   ldmatrix from shared memory (rows padded by 16 B against bank
+//   conflicts), ds straight from the accumulators as the A fragment of the
+//   next product.  A block owns 64 query rows of one head and walks the
+//   64-key tiles of its KV head up to the diagonal through a two-stage
+//   cp.async ring.  The dQ sum runs in key order in registers: no atomics.
 // * Causal work only: tiles above the diagonal are never loaded, and in the
-//   diagonal tile a backward warp skips the 16-wide chunks it cannot reach.
+//   diagonal tile a dQ warp skips the 32-wide chunks it cannot reach.
 //   Blocks with the most tiles launch first.
 // * Fixed order everywhere, so a result is the same from run to run.
 #include <cmath>
@@ -68,8 +75,8 @@
 
 namespace {
 
-constexpr int kRows = 64;  // query rows (dQ) or keys (dK/dV) of a block
-constexpr int kTile = 64;  // keys (dQ) or query rows (dK/dV) of a ring stage
+constexpr int kRows = 64;  // query rows of a dQ block
+constexpr int kTile = 64;  // keys of a dQ ring stage
 
 struct Params {
     const __nv_bfloat16* q;
@@ -171,6 +178,13 @@ struct FwdCfg {
 __device__ __forceinline__ float ex2(float x) {
     float y;
     asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// 1 / x in one instruction, with no slow path to branch to
+__device__ __forceinline__ float rcp(float x) {
+    float y;
+    asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
     return y;
 }
 
@@ -537,150 +551,284 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_kernel(const Params p) {
 
 // ---------------------------------------------------------------------------
 // dK/dV: dv = sum p^T do, dk = sum ds^T q over the group's heads and rows
+// (wgmma, TMA, a producer warpgroup, a work plan built on the host)
 // ---------------------------------------------------------------------------
 
-constexpr int kDkvChunk = 16;  // query rows a warp's transposed scores hold at once
+// One item of the work plan (ops/flash_attention.dkv_plan), eight ints: the
+// batch, the KV head, the 64-key tile kj, which 128 columns of dK and dV it
+// owns (half of hd at 256), the range [i0, i1) of the key tile's iterations
+// (iteration i: query head kvh G + i / nq and query tile kj + i % nq, nq = T /
+// 64 - kj, so each head starts at the diagonal tile), and the slot of f32
+// partials it writes, or -1 when it is its key tile's only item and stores dK
+// and dV in bf16 itself.
+struct __align__(16) DkvItem {
+    int b, kvh, kj, half, i0, i1, slot, pad;
+};
 
+// Registers set the shape.  ptxas keeps every wgmma accumulator under the
+// launch register count (the forward's finding), and a consumer holds dK and
+// dV for 64 keys x 128 columns (64 + 64 registers) and S^T and dP^T for 64
+// keys x 64 query rows (32 + 32): 192, which only a 256-thread block (a
+// producer and one consumer warpgroup, up to 255 registers) can hold.  So a
+// block is one item and one block an SM; at hd 256 an item owns half of hd,
+// and the two halves both compute S^T and dP^T over all of it.
 template <int HD>
-struct DkvLayout {
-    static constexpr size_t kK = 0;
-    static constexpr size_t kV = Geo<HD>::kTileBytes;
-    static constexpr size_t kStage = 2 * Geo<HD>::kTileBytes;  // [2][Q | dO | m, l, di]
-    static constexpr size_t kRowVals = 2 * Geo<HD>::kTileBytes;  // offset of m, l, di within a stage
-    static constexpr size_t kStageBytes = 2 * Geo<HD>::kTileBytes + 3 * kTile * sizeof(float);
-    static constexpr size_t kBytes = kStage + 2 * kStageBytes;
+struct DkvCfg {
+    static constexpr int kKeys = 64;   // keys of an item: the M of every product
+    static constexpr int kRows = 64;   // query rows of a stage: N of S^T and dP^T, K of the dV and dK products
+    static constexpr int kCols = 128;  // columns of dK and dV an item owns
+    static constexpr int kThreads = 256;
+    static constexpr int kStages = HD == 128 ? 4 : 2;
+    static constexpr int kChunks = HD / 64;         // 64-column chunks of a row (128-byte swizzled tiles)
+    static constexpr uint32_t kTileBytes = 64 * HD * 2;  // K, V, and a stage's Q or dO
+    static constexpr uint32_t kVals = 3 * kRows * 4;  // a stage's m, l and di
+    // shared memory from a 1024-byte aligned base: K, V, the stages' [Q | dO |
+    // m, l, di], the consumer's row values (m log2(e) and 1 / l, two buffers),
+    // then the barriers (K and V's, each stage's full and empty)
+    static constexpr uint32_t kStage0 = 2 * kTileBytes;
+    static constexpr uint32_t kStageBytes = 2 * kTileBytes + 1024;
+    static constexpr uint32_t kRowBuf = kStage0 + kStages * kStageBytes;
+    static constexpr uint32_t kBars = kRowBuf + 2 * 2 * kRows * 4;
+    static constexpr uint32_t kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;  // + the base's alignment
 };
 
 template <int HD>
-__global__ void __launch_bounds__(128 * (HD / 128)) flash_bwd_dkv_kernel(const Params p) {
-    constexpr int kThreads = 128 * (HD / 128);
-    constexpr int S = Geo<HD>::kStride;
-    constexpr int kDT = 128 / 8;        // n8 tiles of a warp's 128 columns of dK / dV
-    constexpr int kCT = kDkvChunk / 8;  // n8 tiles of a chunk's transposed scores
-    using Lay = DkvLayout<HD>;
-    extern __shared__ __align__(16) unsigned char smem[];
-    __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + Lay::kK);
-    __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + Lay::kV);
-    auto stage = [&](int st) { return smem + Lay::kStage + st * Lay::kStageBytes; };
+__global__ void __launch_bounds__(DkvCfg<HD>::kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                         const DkvItem* __restrict__ items, float* __restrict__ part_k, float* __restrict__ part_v,
+                         const Params p) {
+    using C = DkvCfg<HD>;
+    constexpr float kLog2e = 1.44269504088896341f;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+    unsigned char* sK = smem;
+    unsigned char* sV = smem + C::kTileBytes;
+    auto sQ = [&](int st) { return smem + C::kStage0 + st * C::kStageBytes; };
+    auto sDo = [&](int st) { return sQ(st) + C::kTileBytes; };
+    auto sVals = [&](int st) { return reinterpret_cast<float*>(sQ(st) + 2 * C::kTileBytes); };
+    uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + C::kBars);
+    uint64_t* full = full_kv + 1;
+    uint64_t* empty = full + C::kStages;
 
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int gq = lane >> 2, t4 = lane & 3;
-    const int kg = warp & 3;     // the warp's 16 keys of the block
-    const int dc = (warp >> 2) * 128;  // the warp's first column of dK / dV
-    const int kj = blockIdx.z;  // key tile: the first ones have the most query tiles
-    const int kvh = blockIdx.x, b = blockIdx.y;
+    const DkvItem it = items[blockIdx.x];  // the plan lists the longest items first
     const int G = p.H / p.KVH;
-    const int k0 = kj * kRows;
-    const int nq = p.T / kTile - kj;  // query tiles from the diagonal down
-    const int niter = G * nq;
+    const int nq = p.T / C::kRows - it.kj;  // the key tile's query tiles, from the diagonal down
+    const int k0 = it.kj * C::kKeys;
+    const int niter = it.i1 - it.i0;
 
-    auto load_stage = [&](int iter, int st) {
-        const int h = kvh * G + iter / nq;
-        const int t0 = (kj + iter % nq) * kTile;
-        unsigned char* s = stage(st);
-        load_rows<HD, kThreads>(reinterpret_cast<__nv_bfloat16*>(s), p.q, p.sqb, p.sqt, b, t0, h);
-        load_rows<HD, kThreads>(reinterpret_cast<__nv_bfloat16*>(s + Geo<HD>::kTileBytes), p.dout, p.sdb, p.sdt, b,
-                                t0, h);
-        float* vals = reinterpret_cast<float*>(s + Lay::kRowVals);
-        const size_t ml = ((size_t)b * p.H + h) * p.T + t0;
-        for (int i = threadIdx.x; i < 3 * kTile / 4; i += kThreads) {
-            const int which = i / (kTile / 4);
-            const int c = (i - which * (kTile / 4)) * 4;
-            const float* src = which == 0 ? p.m : (which == 1 ? p.l : p.di);
-            cp_async16(vals + which * kTile + c, src + ml + c, true);
+    if (threadIdx.x == 0) {
+        mbar_init(full_kv, 1);
+        for (int st = 0; st < C::kStages; ++st) {
+            mbar_init(full + st, 1);
+            mbar_init(empty + st, 4);  // each consumer warp once
         }
-    };
-
-    load_rows<HD, kThreads>(sK, p.k, p.skb, p.skt, b, k0, kvh);
-    load_rows<HD, kThreads>(sV, p.v, p.svb, p.svt, b, k0, kvh);
-    load_stage(0, 0);
-    cp_async_commit();
-
-    const int krow = kg * 16;  // the warp's first key row in sK
-    const int key[2] = {k0 + krow + gq, k0 + krow + gq + 8};
-    float dk[kDT][4], dv[kDT][4];
-#pragma unroll
-    for (int n = 0; n < kDT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
-
-    for (int iter = 0; iter < niter; ++iter) {
-        const int st = iter & 1;
-        if (iter + 1 < niter) load_stage(iter + 1, st ^ 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        const unsigned char* s_ = stage(st);
-        const __nv_bfloat16* Q = reinterpret_cast<const __nv_bfloat16*>(s_);
-        const __nv_bfloat16* Do = reinterpret_cast<const __nv_bfloat16*>(s_ + Geo<HD>::kTileBytes);
-        const float* sm = reinterpret_cast<const float*>(s_ + Lay::kRowVals);
-        const float* sl = sm + kTile;
-        const float* sd = sm + 2 * kTile;
-        const int t0 = (kj + iter % nq) * kTile;
-        const bool diag = t0 == k0;
-
-#pragma unroll
-        for (int c = 0; c < kTile / kDkvChunk; ++c) {
-            const int q0 = c * kDkvChunk;  // the chunk's first row within the tile
-            // a diagonal chunk whose last row precedes every key of this warp
-            if (diag && q0 + kDkvChunk - 1 < krow) continue;
-            // transposed scores and dP: [16 keys x 16 rows]
-            float s[kCT][4], dp[kCT][4];
-#pragma unroll
-            for (int n = 0; n < kCT; ++n)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll
-            for (int kk = 0; kk < HD / 16; ++kk) {
-                uint32_t ak[4], av[4], bq[4], bd[4];
-                frag_a<S>(ak, sK, krow, kk * 16, lane);
-                frag_a<S>(av, sV, krow, kk * 16, lane);
-                frag_b<S>(bq, Q, q0, kk * 16, lane);
-                frag_b<S>(bd, Do, q0, kk * 16, lane);
-                mma_bf16(s[0], ak, bq[0], bq[1]);
-                mma_bf16(s[1], ak, bq[2], bq[3]);
-                mma_bf16(dp[0], av, bd[0], bd[1]);
-                mma_bf16(dp[1], av, bd[2], bd[3]);
-            }
-            // p = exp(s - m) * (1 / l), ds = (dp - di) * p * scale; 0 where the key follows the row
-#pragma unroll
-            for (int n = 0; n < kCT; ++n) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int r = q0 + n * 8 + 2 * t4 + (e & 1);  // row within the tile
-                    const bool valid = key[e >> 1] <= t0 + r;
-                    const float pr = valid ? expf(__fmul_rn(s[n][e], p.scale) - sm[r]) * (1.0f / sl[r]) : 0.0f;
-                    s[n][e] = pr;
-                    dp[n][e] = (dp[n][e] - sd[r]) * pr * p.scale;
-                }
-            }
-            // dV += P^T dO and dK += dS^T Q over this warp's columns, rounded to bf16
-            uint32_t ap[4], as[4];
-            acc_to_a(ap, s[0], s[1]);
-            acc_to_a(as, dp[0], dp[1]);
-#pragma unroll
-            for (int dd = 0; dd < 128 / 16; ++dd) {
-                uint32_t bd[4], bq[4];
-                frag_b_trans<S>(bd, Do, q0, dc + dd * 16, lane);
-                frag_b_trans<S>(bq, Q, q0, dc + dd * 16, lane);
-                mma_bf16(dv[2 * dd], ap, bd[0], bd[1]);
-                mma_bf16(dv[2 * dd + 1], ap, bd[2], bd[3]);
-                mma_bf16(dk[2 * dd], as, bq[0], bq[1]);
-                mma_bf16(dk[2 * dd + 1], as, bq[2], bq[3]);
-            }
-        }
-        __syncthreads();
+        mbar_fence_init();
     }
-    cp_async_wait<0>();
+    __syncthreads();
 
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const size_t off = (((size_t)b * p.T + key[i]) * p.KVH + kvh) * HD + dc;
-#pragma unroll
-        for (int n = 0; n < kDT; ++n) {
-            *reinterpret_cast<uint32_t*>(p.dk + off + n * 8 + 2 * t4) = pack_bf16x2(dk[n][2 * i], dk[n][2 * i + 1]);
-            *reinterpret_cast<uint32_t*>(p.dv + off + n * 8 + 2 * t4) = pack_bf16x2(dv[n][2 * i], dv[n][2 * i + 1]);
+    if (threadIdx.x < 128) {
+        // the producer: one thread loads K and V once, then the Q and dO
+        // tiles and the rows' m, l and di of each iteration into the ring
+        if (threadIdx.x == 0) {
+            tma_prefetch_map(&tq);
+            tma_prefetch_map(&tk);
+            tma_prefetch_map(&tv);
+            tma_prefetch_map(&tdo);
+            mbar_expect_tx(full_kv, 2 * C::kTileBytes);
+            for (int c = 0; c < C::kChunks; ++c) {
+                tma_load_4d(sK + c * C::kKeys * 128, &tk, full_kv, c * 64, it.kvh, k0, it.b);
+                tma_load_4d(sV + c * C::kKeys * 128, &tv, full_kv, c * 64, it.kvh, k0, it.b);
+            }
+            for (int n = 0; n < niter; ++n) {
+                const int i = it.i0 + n;
+                const int h = it.kvh * G + i / nq;
+                const int t0 = (it.kj + i % nq) * C::kRows;
+                const int st = n % C::kStages;
+                if (n >= C::kStages) mbar_wait(empty + st, ((n / C::kStages) - 1) & 1);
+                mbar_expect_tx(full + st, 2 * C::kTileBytes + C::kVals);
+                for (int c = 0; c < C::kChunks; ++c) {
+                    tma_load_4d(sQ(st) + c * C::kRows * 128, &tq, full + st, c * 64, h, t0, it.b);
+                    tma_load_4d(sDo(st) + c * C::kRows * 128, &tdo, full + st, c * 64, h, t0, it.b);
+                }
+                const size_t row = ((size_t)it.b * p.H + h) * p.T + t0;
+                bulk_load(sVals(st), p.m + row, C::kRows * 4, full + st);
+                bulk_load(sVals(st) + C::kRows, p.l + row, C::kRows * 4, full + st);
+                bulk_load(sVals(st) + 2 * C::kRows, p.di + row, C::kRows * 4, full + st);
+            }
         }
+        return;
+    }
+
+    // the consumer warpgroup: S^T = K Q^T and dP^T = V dO^T with both operands
+    // in shared memory, then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+    // from registers (the accumulators rounded to bf16 pairs are the A
+    // fragments) and dO and Q read as transposed B
+    const int tid = threadIdx.x - 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int gq = lane / 4, t4 = lane % 4;
+    const int kr[2] = {16 * warp + gq, 16 * warp + gq + 8};  // the thread's accumulator rows: keys of the item
+    const float sl2 = p.scale * kLog2e;  // exp(scale x - m) = 2^(sl2 x - m log2(e))
+    const uint32_t half_off = it.half * 2 * C::kRows * 128;  // the item's two 64-column chunks of Q and dO
+    float dk[C::kCols / 2], dv[C::kCols / 2];
+#pragma unroll
+    for (int i = 0; i < C::kCols / 2; ++i) dk[i] = dv[i] = 0.0f;
+    // S^T and dP^T: each tile's first k step overwrites them (scale_d 0);
+    // zeroing them in the loop, before the stage's wait, made ptxas insert a
+    // fence of its own in that spin and serialize every wgmma (C7520)
+    float s[C::kRows / 2], dp[C::kRows / 2];
+#pragma unroll
+    for (int i = 0; i < C::kRows / 2; ++i) s[i] = dp[i] = 0.0f;
+    uint32_t pa[C::kRows / 16][4], sa[C::kRows / 16][4];
+
+    mbar_wait(full_kv, 0);
+    for (int n = 0; n < niter; ++n) {
+        const int st = n % C::kStages;
+        const bool diag = (it.i0 + n) % nq == 0;  // this query tile is the key tile's diagonal one
+        mbar_wait(full + st, (n / C::kStages) & 1);
+        const uint32_t ka = opaque(smem_addr(sK)), va = opaque(smem_addr(sV));
+        const uint32_t qa = opaque(smem_addr(sQ(st))), oa = opaque(smem_addr(sDo(st)));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+            wgmma_ss<C::kRows>(s, gmma_desc_sw128(ka + off, 16, 1024), gmma_desc_sw128(qa + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+            wgmma_ss<C::kRows>(dp, gmma_desc_sw128(va + off, 16, 1024), gmma_desc_sw128(oa + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        // while they run: the stage's m log2(e) and 1 / l, once a row
+        const float* vals = sVals(st);
+        float* rows = reinterpret_cast<float*>(smem + C::kRowBuf) + (n & 1) * 2 * C::kRows;
+        const float x = vals[tid];  // m of row tid, then l of row tid - 64
+        rows[tid] = tid < C::kRows ? x * kLog2e : rcp(x);
+        named_barrier_sync(1, 128);
+        wgmma_wait<1>();  // S^T has landed, dP^T may still run
+        fence_regs(s);
+        // p = 2^(sl2 s - m log2(e)) * (1 / l): one FMA, ex2 and a product; 0
+        // where the key follows the row, which happens on the diagonal tile only
+        const float2* m2 = reinterpret_cast<const float2*>(rows);
+        const float2* li = reinterpret_cast<const float2*>(rows + C::kRows);
+        const int past = diag ? 0 : C::kKeys;  // off the diagonal no key of the item follows a row
+#pragma unroll
+        for (int j = 0; j < C::kRows / 8; ++j) {
+            const float2 mm = m2[4 * j + t4], ll = li[4 * j + t4];  // rows 8 j + 2 t4 and 8 j + 2 t4 + 1
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float pr = ex2(fmaf(s[4 * j + e], sl2, -((e & 1) ? mm.y : mm.x))) * ((e & 1) ? ll.y : ll.x);
+                s[4 * j + e] = kr[e >> 1] > 8 * j + 2 * t4 + (e & 1) + past ? 0.0f : pr;
+            }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // ds = (dp - di) p scale; p and ds rounded to bf16 pairs: the A
+        // fragments of key step kk are the n8 tiles 2 kk and 2 kk + 1
+        const float2* dd = reinterpret_cast<const float2*>(vals + 2 * C::kRows);
+#pragma unroll
+        for (int j = 0; j < C::kRows / 8; ++j) {
+            const float2 d = dd[4 * j + t4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                dp[4 * j + e] = (dp[4 * j + e] - ((e & 1) ? d.y : d.x)) * s[4 * j + e] * p.scale;
+        }
+#pragma unroll
+        for (int kk = 0; kk < C::kRows / 16; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                pa[kk][r] = pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+                sa[kk][r] = pack_bf16x2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+            }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < C::kRows / 16; ++kk)
+            wgmma_rs_tb<C::kCols>(dv, pa[kk], gmma_desc_sw128(oa + half_off + kk * 16 * 128, C::kRows * 128, 1024), 1);
+#pragma unroll
+        for (int kk = 0; kk < C::kRows / 16; ++kk)
+            wgmma_rs_tb<C::kCols>(dk, sa[kk], gmma_desc_sw128(qa + half_off + kk * 16 * 128, C::kRows * 128, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+#pragma unroll
+        for (int kk = 0; kk < C::kRows / 16; ++kk) {
+            fence_regs(pa[kk]);
+            fence_regs(sa[kk]);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+    }
+
+    // the epilogue through shared memory (the ring is free now), so that the
+    // stores are whole rows of 16 bytes a thread: bf16 into dk and dv, or f32
+    // into the item's partial slot
+    constexpr int kOut = C::kCols + 8;  // f32 a staged row, padded against bank conflicts
+    float* out = reinterpret_cast<float*>(smem + C::kStage0);  // [dK | dV][64 keys][kOut]
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < C::kCols / 8; ++j) {
+            float* o_k = out + kr[i] * kOut + 8 * j + 2 * t4;
+            *reinterpret_cast<float2*>(o_k) = make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+            *reinterpret_cast<float2*>(o_k + C::kKeys * kOut) = make_float2(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+        }
+    named_barrier_sync(1, 128);
+    if (it.slot < 0) {
+        for (int u = tid; u < 2 * C::kKeys * C::kCols / 8; u += 128) {
+            const int w = u / (C::kKeys * C::kCols / 8);  // 0: dK, 1: dV
+            const int r = (u / (C::kCols / 8)) % C::kKeys, c = (u % (C::kCols / 8)) * 8;
+            const float4 a = *reinterpret_cast<const float4*>(out + (w * C::kKeys + r) * kOut + c);
+            const float4 z = *reinterpret_cast<const float4*>(out + (w * C::kKeys + r) * kOut + c + 4);
+            __nv_bfloat16* dst = (w ? p.dv : p.dk) + (((size_t)it.b * p.T + k0 + r) * p.KVH + it.kvh) * HD +
+                                 it.half * C::kCols + c;
+            *reinterpret_cast<uint4*>(dst) =
+                make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(z.x, z.y), pack_bf16x2(z.z, z.w));
+        }
+    } else {  // a piece of a split key tile: f32 partials, added by the combine
+        for (int u = tid; u < 2 * C::kKeys * C::kCols / 4; u += 128) {
+            const int w = u / (C::kKeys * C::kCols / 4);
+            const int r = (u / (C::kCols / 4)) % C::kKeys, c = (u % (C::kCols / 4)) * 4;
+            float* dst = (w ? part_v : part_k) + ((size_t)it.slot * C::kKeys + r) * C::kCols + c;
+            *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(out + (w * C::kKeys + r) * kOut + c);
+        }
+    }
+}
+
+// The combine of split key tiles: a block adds one key tile's pieces in
+// piece order (table row: batch, KV head, key tile, column half, first slot,
+// pieces), 64 keys x 128 columns of dK and of dV in f32, and rounds the sums
+// once to bf16.
+__global__ void __launch_bounds__(256)
+    flash_bwd_dkv_combine_kernel(const float* __restrict__ part_k, const float* __restrict__ part_v,
+                                 const int* __restrict__ table, __nv_bfloat16* dk, __nv_bfloat16* dv, int T, int KVH,
+                                 int hd) {
+    constexpr int kKeys = 64, kCols = 128;
+    const int* u = table + 8 * blockIdx.x;
+    const int b = u[0], kvh = u[1], kj = u[2], half = u[3], s0 = u[4], pieces = u[5];
+    for (int i = threadIdx.x; i < kKeys * kCols / 4; i += 256) {
+        const int r = i / (kCols / 4), c = (i % (kCols / 4)) * 4;
+        const size_t src = ((size_t)s0 * kKeys + r) * kCols + c;
+        float4 ak = *reinterpret_cast<const float4*>(part_k + src);
+        float4 av = *reinterpret_cast<const float4*>(part_v + src);
+        for (int q = 1; q < pieces; ++q) {
+            const size_t o = src + (size_t)q * kKeys * kCols;
+            const float4 xk = *reinterpret_cast<const float4*>(part_k + o);
+            const float4 xv = *reinterpret_cast<const float4*>(part_v + o);
+            ak.x += xk.x;
+            ak.y += xk.y;
+            ak.z += xk.z;
+            ak.w += xk.w;
+            av.x += xv.x;
+            av.y += xv.y;
+            av.z += xv.z;
+            av.w += xv.w;
+        }
+        const size_t dst = (((size_t)b * T + kj * kKeys + r) * KVH + kvh) * hd + half * kCols + c;
+        *reinterpret_cast<uint2*>(dk + dst) = make_uint2(pack_bf16x2(ak.x, ak.y), pack_bf16x2(ak.z, ak.w));
+        *reinterpret_cast<uint2*>(dv + dst) = make_uint2(pack_bf16x2(av.x, av.y), pack_bf16x2(av.z, av.w));
     }
 }
 
@@ -727,29 +875,52 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
     return p;
 }
 
-// The three tensor maps of the forward ([B, T, heads, hd] read in place through
-// its batch and token strides; boxes of 64 columns by the block's query rows
-// or a stage's keys) and its launch.
+// A bf16 tensor map over a [B, T, heads, hd] tensor read in place through its
+// batch and token strides: boxes of 64 columns by `rows` tokens of one head,
+// 128-byte swizzled.
+int encode_rows(CUtensorMap* map, const __nv_bfloat16* base, int hd, int B, int T, int heads, long long sb,
+                long long st, int rows) {
+    // with one batch its stride is never used: any valid one will do
+    const uint64_t sbb = B == 1 ? (uint64_t)T * st * 2 : (uint64_t)sb * 2;
+    const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)heads, (uint64_t)T, (uint64_t)B};
+    const uint64_t strides[3] = {(uint64_t)hd * 2, (uint64_t)st * 2, sbb};
+    const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
+    return encode_bf16_sw128(map, base, 4, dims, strides, box);
+}
+
+// The three tensor maps of the forward (boxes of the block's query rows or a
+// stage's keys) and its launch.
 template <int HD>
 int launch_fwd(const Params& p, int B, cudaStream_t stream) {
     using C = FwdCfg<HD>;
-    auto encode = [&](CUtensorMap* map, const __nv_bfloat16* base, int heads, long long sb, long long st, int rows) {
-        // with one batch its stride is never used: any valid one will do
-        const uint64_t sbb = B == 1 ? (uint64_t)p.T * st * 2 : (uint64_t)sb * 2;
-        const uint64_t dims[4] = {(uint64_t)HD, (uint64_t)heads, (uint64_t)p.T, (uint64_t)B};
-        const uint64_t strides[3] = {(uint64_t)HD * 2, (uint64_t)st * 2, sbb};
-        const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
-        return encode_bf16_sw128(map, base, 4, dims, strides, box);
-    };
     CUtensorMap tq, tk, tv;
-    int e = encode(&tq, p.q, p.H, p.sqb, p.sqt, C::kRows);
-    if (e == 0) e = encode(&tk, p.k, p.KVH, p.skb, p.skt, C::kKeys);
-    if (e == 0) e = encode(&tv, p.v, p.KVH, p.svb, p.svt, C::kKeys);
+    int e = encode_rows(&tq, p.q, HD, B, p.T, p.H, p.sqb, p.sqt, C::kRows);
+    if (e == 0) e = encode_rows(&tk, p.k, HD, B, p.T, p.KVH, p.skb, p.skt, C::kKeys);
+    if (e == 0) e = encode_rows(&tv, p.v, HD, B, p.T, p.KVH, p.svb, p.svt, C::kKeys);
     if (e != 0) return e;
     const cudaError_t a =
         cudaFuncSetAttribute(flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
     if (a != cudaSuccess) return (int)a;
     flash_fwd_kernel<HD><<<dim3(p.H, B, p.T / C::kRows), C::kThreads, C::kBytes, stream>>>(tq, tk, tv, p);
+    return (int)cudaGetLastError();
+}
+
+// The four tensor maps of the dK/dV kernel (64-row boxes of q, k, v and do)
+// and its launch, one block an item of the plan.
+template <int HD>
+int launch_dkv(const Params& p, int B, const DkvItem* items, int n_items, float* part_k, float* part_v,
+               cudaStream_t stream) {
+    using C = DkvCfg<HD>;
+    CUtensorMap tq, tk, tv, tdo;
+    int e = encode_rows(&tq, p.q, HD, B, p.T, p.H, p.sqb, p.sqt, C::kRows);
+    if (e == 0) e = encode_rows(&tk, p.k, HD, B, p.T, p.KVH, p.skb, p.skt, C::kKeys);
+    if (e == 0) e = encode_rows(&tv, p.v, HD, B, p.T, p.KVH, p.svb, p.svt, C::kKeys);
+    if (e == 0) e = encode_rows(&tdo, p.dout, HD, B, p.T, p.H, p.sdb, p.sdt, C::kRows);
+    if (e != 0) return e;
+    const cudaError_t a =
+        cudaFuncSetAttribute(flash_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
+    if (a != cudaSuccess) return (int)a;
+    flash_bwd_dkv_kernel<HD><<<n_items, C::kThreads, C::kBytes, stream>>>(tq, tk, tv, tdo, items, part_k, part_v, p);
     return (int)cudaGetLastError();
 }
 
@@ -772,20 +943,40 @@ BNB_EXPORT int bnb_flash_attention_causal_fwd(const void* q, const void* k, cons
     return launch_fwd<256>(p, B, stream);
 }
 
-// dk, dv [B, T, KVH, hd] bf16 (packed).
+// dk, dv [B, T, KVH, hd] bf16 (packed), T a multiple of 128, through the work
+// plan `items` (n_items DkvItem, one block each); part_k and part_v hold the
+// f32 partials of split key tiles ([slots][64][128]; NULL when nothing is
+// split), which bnb_flash_attention_causal_bwd_dkv_combine adds.  Returns a
+// CUDA error, or kTmaError + the CUresult of a tensor map that cannot be
+// encoded.
 BNB_EXPORT int bnb_flash_attention_causal_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                                   const float* m, const float* l, const float* di, void* dk,
-                                                  void* dv, int B, int T, int H, int KVH, int hd, long long sqb,
+                                                  void* dv, float* part_k, float* part_v, const void* items,
+                                                  int n_items, int B, int T, int H, int KVH, int hd, long long sqb,
                                                   long long sqt, long long skb, long long skt, long long svb,
                                                   long long svt, long long sdb, long long sdt, float scale,
                                                   cudaStream_t stream) {
-    if (!shapes_ok(B, T, H, KVH, hd)) return (int)cudaErrorInvalidValue;
+    if (!shapes_ok(B, T, H, KVH, hd) || T % 128 || n_items <= 0 || items == nullptr)
+        return (int)cudaErrorInvalidValue;
     Params p = make_params(q, k, v, dout, m, l, di, T, H, KVH, sqb, sqt, skb, skt, svb, svt, sdb, sdt, scale);
     p.dk = static_cast<__nv_bfloat16*>(dk);
     p.dv = static_cast<__nv_bfloat16*>(dv);
-    const dim3 grid(KVH, B, T / kRows);
-    if (hd == 128) return launch(flash_bwd_dkv_kernel<128>, grid, 128, DkvLayout<128>::kBytes, p, stream);
-    return launch(flash_bwd_dkv_kernel<256>, grid, 256, DkvLayout<256>::kBytes, p, stream);
+    const DkvItem* it = static_cast<const DkvItem*>(items);
+    if (hd == 128) return launch_dkv<128>(p, B, it, n_items, part_k, part_v, stream);
+    return launch_dkv<256>(p, B, it, n_items, part_k, part_v, stream);
+}
+
+// The split key tiles of a dK/dV plan: `table` [n_units][8] int32 (batch, KV
+// head, key tile, column half, first slot, pieces), part_k, part_v
+// [slots][64][128] f32 -> their rows of dk, dv [B, T, KVH, hd] bf16.
+BNB_EXPORT int bnb_flash_attention_causal_bwd_dkv_combine(const float* part_k, const float* part_v,
+                                                          const void* table, int n_units, void* dk, void* dv, int T,
+                                                          int KVH, int hd, cudaStream_t stream) {
+    if (n_units <= 0 || T <= 0 || T % 64 || KVH <= 0 || (hd != 128 && hd != 256)) return (int)cudaErrorInvalidValue;
+    flash_bwd_dkv_combine_kernel<<<n_units, 256, 0, stream>>>(part_k, part_v, static_cast<const int*>(table),
+                                                             static_cast<__nv_bfloat16*>(dk),
+                                                             static_cast<__nv_bfloat16*>(dv), T, KVH, hd);
+    return (int)cudaGetLastError();
 }
 
 // dq [B, T, H, hd] bf16 (packed).

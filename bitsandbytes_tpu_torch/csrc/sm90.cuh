@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the hand-written kernels: mbarriers, TMA
 // tile loads from a tensor map, wgmma with its shared-memory descriptors, and
-// setmaxnreg.  Used by the causal flash attention forward
-// (flash_attention.cu); written for its backward kernels too.
+// setmaxnreg, named barriers.  Used by the causal flash attention forward and
+// its dK/dV kernel (flash_attention.cu).
 //
 // Shared-memory tiles are the ones TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
 // a box whose inner dimension is 64 bf16 values (128 bytes) lands as rows of
@@ -69,6 +69,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
         "[%2];\n" ::"r"(smem_addr(dst)),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared (a multiple of 16, both addresses
+// 16-byte aligned); they complete on `bar`.  One thread issues it.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
         : "memory");
 }
 
@@ -277,6 +287,14 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], const uint32_t
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+
+// --- named barriers ----------------------------------------------------------
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a multiple
+// of 32: one warpgroup syncs without the others.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // --- register reallocation between warpgroups (all four warps execute it) ----
 

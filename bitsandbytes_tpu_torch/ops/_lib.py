@@ -73,6 +73,7 @@ LAUNCHES: dict = {
     "dequantize_blockwise8_any": 0,
     "flash_attention_causal_fwd": 0,
     "flash_attention_causal_bwd_dkv": 0,
+    "flash_attention_causal_bwd_dkv_combine": 0,
     "flash_attention_causal_bwd_dq": 0,
 }
 
@@ -210,9 +211,12 @@ _SIGNATURES = {
     # q, k, v, o, m, l, B, T, H, KVH, hd, (batch, token) strides of q, k, v, scale, stream
     "bnb_flash_attention_causal_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F,
                                        _P],
-    # q, k, v, do, m, l, di, dk, dv, B, T, H, KVH, hd, (batch, token) strides of q, k, v, do, scale, stream
-    "bnb_flash_attention_causal_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
-                                           _L, _L, _L, _L, _F, _P],
+    # q, k, v, do, m, l, di, dk, dv, part_k, part_v (or NULL), items (device), n_items, B, T, H, KVH, hd,
+    # (batch, token) strides of q, k, v, do, scale, stream
+    "bnb_flash_attention_causal_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                           _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    # part_k, part_v, table (device), n_units, dk, dv, T, KVH, hd, stream
+    "bnb_flash_attention_causal_bwd_dkv_combine": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     # q, k, v, do, m, l, di, dq, B, T, H, KVH, hd, (batch, token) strides of q, k, v, do, scale, stream
     "bnb_flash_attention_causal_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
                                           _L, _L, _L, _F, _P],

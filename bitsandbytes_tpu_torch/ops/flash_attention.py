@@ -6,9 +6,11 @@ Replaces the three TPU kernels that the JAX package reaches through
 ``jax/experimental/pallas/ops/tpu/flash_attention.py`` (``causal=True``,
 ``sm_scale = hd**-0.5``, its default 128 x 128 blocks).  The CUDA source is
 ``csrc/flash_attention.cu``, bf16 only, head_dim 128 or 256, T a multiple of
-128: the forward on ``wgmma`` with its tiles loaded by TMA (a producer
-warpgroup and consumer warpgroups of 64 query rows; ``csrc/sm90.cuh``), the
-two backward kernels on ``mma.sync`` with a ``cp.async`` ring.
+128.  The forward and the dK/dV kernel run on ``wgmma`` with their tiles
+loaded by TMA (a producer warpgroup and consumer warpgroups; ``csrc/sm90.cuh``);
+the dK/dV kernel walks a work plan built here (:func:`dkv_plan`), and a
+combine kernel adds the pieces of the key tiles it splits.  The dQ kernel
+runs on ``mma.sync`` with a ``cp.async`` ring.
 
 Layouts are the model's: ``q [B, T, H, hd]``, ``k, v [B, T, KVH, hd]`` with
 ``H`` a multiple of ``KVH`` (query head ``h`` reads KV head ``h // G``, as
@@ -39,6 +41,8 @@ divide by ``l`` once at the end, the same function up to f32 rounding.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _lib
@@ -52,6 +56,10 @@ __all__ = [
     "flash_attention_causal_fwd_plain",
     "flash_attention_causal_bwd_dkv",
     "flash_attention_causal_bwd_dkv_plain",
+    "DkvPlan",
+    "dkv_plan",
+    "flash_attention_causal_bwd_dkv_combine",
+    "flash_attention_causal_bwd_dkv_combine_plain",
     "flash_attention_causal_bwd_dq",
     "flash_attention_causal_bwd_dq_plain",
     "FlashAttentionCausal",
@@ -211,13 +219,13 @@ TMA_MAX_STRIDE_BYTES = 1 << 40
 
 
 def _tma_ok(name: str, t: torch.Tensor) -> None:
-    """The forward kernel reads ``t`` through a tensor map over its ``[B, T,
-    heads, hd]`` view: every dimension at most 2^32 elements and every byte
-    stride under 2^40, or it raises."""
+    """The forward and the dK/dV kernel read ``t`` through a tensor map over
+    its ``[B, T, heads, hd]`` view: every dimension at most 2^32 elements and
+    every byte stride under 2^40, or it raises."""
     if max(t.shape) > TMA_MAX_DIM:
-        raise ValueError(f"the CUDA forward reads {name} through TMA: a dimension over 2^32 in {tuple(t.shape)}")
+        raise ValueError(f"the CUDA kernels read {name} through TMA: a dimension over 2^32 in {tuple(t.shape)}")
     if max(st * t.element_size() for st in t.stride()) >= TMA_MAX_STRIDE_BYTES:
-        raise ValueError(f"the CUDA forward reads {name} through TMA: a stride of 2^40 bytes or more in {t.stride()}")
+        raise ValueError(f"the CUDA kernels read {name} through TMA: a stride of 2^40 bytes or more in {t.stride()}")
 
 
 def _f32_rows(name: str, t: torch.Tensor) -> None:
@@ -261,21 +269,168 @@ def _bwd_args(q, k, v, do, m, l, di):
     return (B, T, H, KVH, hd), ptrs, strides
 
 
+# -- the dK/dV kernel's work plan ---------------------------------------------
+
+# An item of the plan is 64 keys of one KV head (DKV_KEYS), 128 columns of dK
+# and dV (DKV_COLS: two items a key tile at head_dim 256) and a range of the
+# key tile's iterations, one (query head, 64-row query tile) each.  A block
+# takes an item, and one block fits an SM (its registers).
+DKV_KEYS = 64
+DKV_COLS = 128
+DKV_BLOCKS_PER_SM = 1
+# the least target: a key tile of at most this many iterations is never split
+DKV_MIN_PIECE = 8
+
+
+class DkvPlan(NamedTuple):
+    """The dK/dV kernel's work plan.
+
+    ``items``: eight ints an item, ``(b, kvh, kj, half, i0, i1, slot, 0)``,
+    longest first: iterations ``[i0, i1)`` of key tile ``kj``, where
+    iteration ``i`` is query head ``kvh * G + i // nq`` and query tile ``kj +
+    i % nq`` (``nq = T // 64 - kj``: each head from the diagonal down), and
+    ``slot`` the f32 partials it writes, or -1 for a key tile's only item.
+    ``combine``: a row a split key tile, ``(b, kvh, kj, half, slot0, pieces,
+    0, 0)``; its pieces hold slots ``slot0..`` in iteration order and are
+    added in that order.  ``slots``: the partials all split key tiles write.
+    ``target``: no item carries more iterations, the mean work of a slot
+    rounded up, or ``DKV_MIN_PIECE`` if that is more."""
+
+    items: list
+    combine: list
+    slots: int
+    target: int
+
+
+def dkv_plan(B: int, T: int, H: int, KVH: int, hd: int, slots: int) -> DkvPlan:
+    """The dK/dV kernel's plan for ``slots`` resident blocks: a key tile (and
+    column half) with more iterations than the target is cut into the fewest
+    contiguous pieces of at most the target, their sizes at most one apart.
+    The items are sorted longest first (ties in key tile order), so blocks
+    handed out in order fill the card from the longest down.  It depends on
+    the shapes and ``slots`` alone, and every call sums in the same order."""
+    G, ntiles, halves = H // KVH, T // DKV_KEYS, hd // DKV_COLS
+    total = B * KVH * halves * G * ntiles * (ntiles + 1) // 2
+    target = max(-(-total // slots), DKV_MIN_PIECE)
+    items, combine, used = [], [], 0
+    for b in range(B):
+        for kvh in range(KVH):
+            for kj in range(ntiles):
+                work = G * (ntiles - kj)
+                pieces = -(-work // target)
+                for half in range(halves):
+                    if pieces == 1:
+                        items.append((b, kvh, kj, half, 0, work, -1, 0))
+                        continue
+                    combine.append((b, kvh, kj, half, used, pieces, 0, 0))
+                    items.extend((b, kvh, kj, half, p * work // pieces, (p + 1) * work // pieces, used + p, 0)
+                                 for p in range(pieces))
+                    used += pieces
+    items.sort(key=lambda it: it[4] - it[5])
+    return DkvPlan(items, combine, used, target)
+
+
+_DKV_TABLES: dict = {}
+
+
+def _dkv_tables(B, T, H, KVH, hd, device):
+    """The plan for this card (``DKV_BLOCKS_PER_SM`` blocks an SM) and its
+    item and combine tables on the device, made once a shape."""
+    key = (B, T, H, KVH, hd, str(device))
+    if key not in _DKV_TABLES:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = dkv_plan(B, T, H, KVH, hd, sms * DKV_BLOCKS_PER_SM)
+        items = torch.tensor(plan.items, dtype=torch.int32, device=device)
+        combine = torch.tensor(plan.combine, dtype=torch.int32, device=device).reshape(-1, 8)
+        _DKV_TABLES[key] = (plan, items, combine)
+    return _DKV_TABLES[key]
+
+
+def _rows_aligned(name: str, t: torch.Tensor) -> None:
+    """The dK/dV kernel copies 64 rows of ``t`` (m, l or di) at a time in
+    bulk: its base must lie on 16 bytes."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"the CUDA dK/dV kernel copies {name} in bulk: its base must be 16-byte aligned")
+
+
+def _dkv_checks(q, k, v, do, m, l, di) -> None:
+    """What the dK/dV kernel takes beyond ``_bwd_args``: q, k, v and do
+    through TMA tensor maps, and m, l and di on 16-byte aligned bases."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _tma_ok(name, t)
+    for name, t in (("m", m), ("l", l), ("di", di)):
+        _rows_aligned(name, t)
+
+
+def flash_attention_causal_bwd_dkv_combine_plain(part_k, part_v, table, dk, dv):
+    """The combine in PyTorch: for each row of ``table`` (a split key tile:
+    batch, KV head, key tile, column half, first slot, pieces), the pieces'
+    f32 partials (``[slots, 64, 128]``) added in piece order and rounded once
+    into the tile's rows and columns of ``dk``, ``dv`` (``[B, T, KVH, hd]``,
+    written in place)."""
+    for b, kvh, kj, half, s0, pieces, _, _ in table.tolist():
+        rows, cols = slice(kj * DKV_KEYS, (kj + 1) * DKV_KEYS), slice(half * DKV_COLS, (half + 1) * DKV_COLS)
+        for part, out in ((part_k, dk), (part_v, dv)):
+            acc = part[s0].clone()
+            for p in range(1, pieces):
+                acc += part[s0 + p]
+            out[b, rows, kvh, cols] = acc.to(out.dtype)
+    return dk, dv
+
+
+def flash_attention_causal_bwd_dkv_combine(part_k, part_v, table, dk, dv):
+    """Adds the pieces of the key tiles a dK/dV plan splits into ``dk``,
+    ``dv`` (in place; see the plain version): kernel on CUDA tensors, plain
+    version on CPU tensors."""
+    if not use_kernel(part_k, part_v, table, dk, dv):
+        return flash_attention_causal_bwd_dkv_combine_plain(part_k, part_v, table, dk, dv)
+    if (part_k.dtype != torch.float32 or part_v.dtype != torch.float32 or part_k.shape != part_v.shape
+            or tuple(part_k.shape[1:]) != (DKV_KEYS, DKV_COLS) or not part_k.is_contiguous()
+            or not part_v.is_contiguous()):
+        raise ValueError(f"the combine takes contiguous f32 partials [slots, {DKV_KEYS}, {DKV_COLS}]")
+    if table.dtype != torch.int32 or table.dim() != 2 or table.shape[1] != 8 or not table.is_contiguous():
+        raise ValueError("the combine takes a contiguous int32 table [units, 8]")
+    if (dk.dim() != 4 or dv.shape != dk.shape or dk.dtype != torch.bfloat16 or dv.dtype != dk.dtype
+            or not dk.is_contiguous() or not dv.is_contiguous()):
+        raise ValueError("the combine writes contiguous bf16 dk, dv [B, T, KVH, hd]")
+    _, T, KVH, hd = dk.shape
+    if table.shape[0]:
+        err = _lib.lib().bnb_flash_attention_causal_bwd_dkv_combine(
+            part_k.data_ptr(), part_v.data_ptr(), table.data_ptr(), table.shape[0], dk.data_ptr(), dv.data_ptr(),
+            T, KVH, hd, _lib.stream(dk))
+        _lib.check(err, "flash_attention_causal_bwd_dkv_combine")
+        _lib.LAUNCHES["flash_attention_causal_bwd_dkv_combine"] += 1
+    return dk, dv
+
+
 def flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di):
     """The gradients of k and v, ``(dk, dv) [B, T, KVH, hd]``, from the
     forward's ``m``, ``l`` and ``di = sum(o * do, -1)`` (f32 ``[B, H, T]``).
-    A block owns 64 keys of one KV head and walks its group's query heads
-    and the query tiles from the diagonal down, in a fixed order."""
+    A block takes one item of :func:`dkv_plan`: 64 keys of one KV head and a
+    range of its group's query heads and query tiles from the diagonal down,
+    in a fixed order.  The pieces of a split key tile write f32 partials,
+    which the combine adds in piece order, so every call gives the same
+    bits."""
     if not use_kernel(q, k, v, do, m, l, di):
         return flash_attention_causal_bwd_dkv_plain(q, k, v, do, m, l, di)
     (B, T, H, KVH, hd), ptrs, strides = _bwd_args(q, k, v, do, m, l, di)
+    _dkv_checks(q, k, v, do, m, l, di)
     dk = torch.empty(B, T, KVH, hd, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     if B:
+        plan, items, table = _dkv_tables(B, T, H, KVH, hd, q.device)
+        part_k = part_v = None
+        if plan.slots:
+            part_k = torch.empty(plan.slots, DKV_KEYS, DKV_COLS, dtype=torch.float32, device=q.device)
+            part_v = torch.empty_like(part_k)
         err = _lib.lib().bnb_flash_attention_causal_bwd_dkv(
-            *ptrs, dk.data_ptr(), dv.data_ptr(), B, T, H, KVH, hd, *strides, hd**-0.5, _lib.stream(q))
+            *ptrs, dk.data_ptr(), dv.data_ptr(), None if part_k is None else part_k.data_ptr(),
+            None if part_v is None else part_v.data_ptr(), items.data_ptr(), len(plan.items), B, T, H, KVH, hd,
+            *strides, hd**-0.5, _lib.stream(q))
         _lib.check(err, "flash_attention_causal_bwd_dkv")
         _lib.LAUNCHES["flash_attention_causal_bwd_dkv"] += 1
+        if plan.slots:
+            flash_attention_causal_bwd_dkv_combine(part_k, part_v, table, dk, dv)
     return dk, dv
 
 

@@ -88,9 +88,10 @@ Phases (every one asserts; any failure exits non-zero before the result):
    its plain version and twice bit for bit at Llama-3-8B's attention (H 32
    over 8, hd 128) at T 1024-8192 and Gemma-7B's (H 16, hd 256) at T 4096,
    device ms beside SDPA forward and backward and each bound (the forward's
-   also beside its earlier mma.sync body's; its SASS must show wgmma and TMA
-   and no local stores); then the kernels against the dense oracle at T 512
-   and 1024, below the route's line.
+   and the dK/dV kernel's also beside their earlier mma.sync bodies'; their
+   SASS must show wgmma and TMA and no local stores; the dK/dV kernel's
+   combine bit for bit its plain version at T 1024); then the kernels
+   against the dense oracle at T 512 and 1024, below the route's line.
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -225,7 +226,8 @@ Phases (every one asserts; any failure exits non-zero before the result):
    tiny Llama with a sliding window served and trained over the one-rank
    mesh, card against CPU (5k); then a 2-layer bf16 Llama (hidden 512, hd
    128) at T 1024 through kernels 17-19 against the CPU port on their
-   plain versions: the loss and the adapter gradients (5l).
+   plain versions: the loss and the adapter gradients (5l; the dK/dV
+   kernel's combine runs here, where its plan splits key tiles).
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -314,6 +316,11 @@ TPU_KERNELS = {
     "flash_attention_causal_bwd_dkv": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    # the combine of the key tiles kernel 18's work plan splits: the TPU
+    # kernel carries dK and dV across its ordered grid axes instead
+    "flash_attention_causal_bwd_dkv_combine": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
     "flash_attention_causal_bwd_dq": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
@@ -323,8 +330,8 @@ FLASH_TRAIN = ("flash_attention_causal_fwd", "flash_attention_causal_bwd_dkv", "
 
 # device time by class of a training step through the flash kernels
 FLASH_CLASSES = [("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_dkv_kernel", "kernel 18 (flash dK/dV)"),
-                 ("flash_bwd_dq_kernel", "kernel 19 (flash dQ)"), ("dequantize_paired", "kernel 6"),
-                 ("optimizer_update_8bit", "kernel 14")]
+                 ("flash_bwd_dkv_combine", "kernel 18's combine"), ("flash_bwd_dq_kernel", "kernel 19 (flash dQ)"),
+                 ("dequantize_paired", "kernel 6"), ("optimizer_update_8bit", "kernel 14")]
 
 # kernel 17's device ms at 3p's shapes, (T, hd): -> ms, in its earlier mma.sync
 # body (64-row blocks, a cp.async ring), measured by this script's 3p on an
@@ -333,6 +340,15 @@ FLASH_CLASSES = [("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_
 FLASH_FWD_MMA_SYNC_MS = {(1024, 128): 0.08396799862384796, (2048, 128): 0.2884800136089325,
                          (4096, 128): 1.06985604763031, (8192, 128): 4.154047966003418,
                          (4096, 256): 1.296288013458252}
+
+# kernel 18's device ms at 3p's shapes, (T, hd): -> ms, in its earlier mma.sync
+# body (a block 64 keys over the whole GQA group, a cp.async ring): the mean of
+# that body's two medians in one run of experiments/ab_flash_attention_torch.py
+# (parent, change, change, parent) on an NVIDIA H100 80GB HBM3 at 700 W; 3p
+# emits that body's bound share beside the kernel's
+FLASH_DKV_MMA_SYNC_MS = {(1024, 128): 0.3872480094432831, (2048, 128): 0.8520640134811401,
+                         (4096, 128): 1.8784159421920776, (8192, 128): 7.299696207046509,
+                         (4096, 256): 2.6357120275497437}
 
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
@@ -2710,6 +2726,14 @@ def flash_causal_work(B, T, H, KVH, hd):
             "dq": (3 * qb + 2 * kvb + 3 * rows, 3 * 2 * hd * pairs)}
 
 
+def dkv_combines(dev, B, T, H, KVH, hd):
+    """1 where kernel 18's work plan on this card splits a key tile at this
+    shape, so that its combine runs once a backward; else 0."""
+    from bitsandbytes_tpu_torch.ops import flash_attention as FA
+
+    return 1 if FA._dkv_tables(B, T, H, KVH, hd, dev)[0].combine else 0
+
+
 def flash_train_kernels(dev, entry):
     """3p: kernels 17-19, the causal flash attention of the training path
     (``ops/flash_attention.py``), each against its plain version on the same
@@ -2725,11 +2749,16 @@ def flash_train_kernels(dev, entry):
     threshold sweep: at T 512 and 1024 (hd 128) the kernels' forward and
     backward through ``FlashAttentionCausal`` against the dense f32 oracle
     (``models/llama._attention``), events around each, and their peaks.  The
-    kernels line takes T 2048.  The forward's bound share stands beside that
-    of its earlier mma.sync body (``FLASH_FWD_MMA_SYNC_MS``), and the SASS of
-    each forward instance must hold ``HGMMA`` and ``UTMALDG`` and no ``STL``
-    (wgmma, TMA, no spills).  Two batched shapes (B 2, T 1152, hd 128; B 3,
-    T 640, hd 256) hold each kernel to the same tolerances, untimed."""
+    kernels line takes T 2048.  The forward's and kernel 18's bound shares
+    stand beside those of their earlier mma.sync bodies
+    (``FLASH_FWD_MMA_SYNC_MS``, ``FLASH_DKV_MMA_SYNC_MS``), with kernel 18's
+    work plan at each shape, and the SASS of each forward and dK/dV instance
+    must hold ``HGMMA`` and ``UTMALDG`` and no ``STL`` (wgmma, TMA, no
+    spills).  At T 1024, where the plan splits key tiles, kernel 18's combine
+    on random partials under that plan is held bit for bit against its plain
+    version and timed (its kernels-line entry).  Two batched shapes (B 2, T
+    1152, hd 128; B 3, T 640, hd 256) hold each kernel to the same
+    tolerances, untimed."""
     import torch
     import torch.nn.functional as F
 
@@ -2788,9 +2817,38 @@ def flash_train_kernels(dev, entry):
         for key, (nb, ops) in work.items():
             b_ms, b_by = bound_ms(nb, ops, PEAK_BF16_FLOPS)
             row[key].update(bytes=nb, flops=ops, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / row[key]["ms"])
-        old_ms = FLASH_FWD_MMA_SYNC_MS[(T, hd)]
-        row["fwd"].update(mma_sync_ms=old_ms, mma_sync_bound_share=row["fwd"]["bound_ms"] / old_ms,
-                          speedup_over_mma_sync=old_ms / row["fwd"]["ms"])
+        for key, table in (("fwd", FLASH_FWD_MMA_SYNC_MS), ("dkv", FLASH_DKV_MMA_SYNC_MS)):
+            old_ms = table[(T, hd)]
+            row[key].update(mma_sync_ms=old_ms, mma_sync_bound_share=row[key]["bound_ms"] / old_ms,
+                            speedup_over_mma_sync=old_ms / row[key]["ms"])
+        plan, _, plan_table = FA._dkv_tables(B, T, H, KVH, hd, dev)
+        row["dkv"]["plan"] = {"items": len(plan.items), "split_key_tiles": len(plan.combine),
+                              "partial_slots": plan.slots, "target_iterations": plan.target}
+        if (T, hd) == (1024, 128):
+            # kernel 18's combine under this plan, on partials of its shape
+            assert plan.combine, f"{what}: kernel 18's plan splits no key tile"
+            gen_c = torch.Generator(device=dev).manual_seed(62)
+            part_k, part_v = (torch.randn(plan.slots, FA.DKV_KEYS, FA.DKV_COLS, generator=gen_c, device=dev)
+                              for _ in range(2))
+            ck = FA.flash_attention_causal_bwd_dkv_combine(part_k, part_v, plan_table, torch.zeros_like(dk),
+                                                           torch.zeros_like(dv))
+            cp = FA.flash_attention_causal_bwd_dkv_combine_plain(part_k, part_v, plan_table, torch.zeros_like(dk),
+                                                                 torch.zeros_like(dv))
+            assert all(torch.equal(a, b) for a, b in zip(ck, cp)), f"{what}: the dK/dV combine differs from its plain"
+            units = len(plan.combine)
+            comb_bytes = 2 * plan.slots * FA.DKV_KEYS * FA.DKV_COLS * 4 + 2 * units * FA.DKV_KEYS * FA.DKV_COLS * 2
+            comb_ops = 2 * (plan.slots - units) * FA.DKV_KEYS * FA.DKV_COLS
+            entry("flash_attention_causal_bwd_dkv_combine",
+                  dev_ms(lambda: FA.flash_attention_causal_bwd_dkv_combine(part_k, part_v, plan_table, ck[0], ck[1])),
+                  plain_ms(lambda: FA.flash_attention_causal_bwd_dkv_combine_plain(part_k, part_v, plan_table,
+                                                                                   cp[0], cp[1])),
+                  None, comb_bytes, comb_ops, PEAK_F32_FLOPS, 0.0, shape=[B, T, H, KVH, hd],
+                  split_key_tiles=units, partial_slots=plan.slots,
+                  note="kernel 18's combine under its plan at 3p's T 1024 (the split key tiles' f32 partials "
+                       "added in piece order, rounded once), on random partials; device ms, host held out, L2 "
+                       "flushed; bit for bit its plain version; library_ms null: no single PyTorch call "
+                       "computes it")
+            del part_k, part_v, ck, cp
         row["bwd_ms"] = row["dkv"]["ms"] + row["dq"]["ms"]
         out.append(row)
         if (T, hd) == (2048, 128):
@@ -2848,20 +2906,22 @@ def flash_train_kernels(dev, entry):
                       "kernels_faster_both_ways": kern["fwd_ms"] + kern["bwd_ms"] < orac["fwd_ms"] + orac["bwd_ms"]})
         del q, k, v, do, gout
         torch.cuda.empty_cache()
-    # the forward's instances: wgmma (HGMMA), TMA loads (UTMALDG), no local stores
-    sass, fwd_sass, fn = sass_of(_lib.build()), {}, None
+    # the forward's and kernel 18's instances: wgmma (HGMMA), TMA loads (UTMALDG), no local stores
+    sass, wg_sass, fn = sass_of(_lib.build()), {}, None
     for line in (sass or "").splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            fn = fn if "flash_fwd_kernel" in fn else None
+            fn = fn if ("flash_fwd_kernel" in fn or "flash_bwd_dkv_kernel" in fn) else None
             if fn:
-                fwd_sass[fn] = {"HGMMA": 0, "UTMALDG": 0, "STL": 0}
+                wg_sass[fn] = {"HGMMA": 0, "UTMALDG": 0, "STL": 0}
         elif fn:
-            for op in fwd_sass[fn]:
-                fwd_sass[fn][op] += f" {op}" in line
-    assert sass is None or (len(fwd_sass) == 2 and all(c["HGMMA"] and c["UTMALDG"] and not c["STL"]
-                                                         for c in fwd_sass.values())), f"3p forward SASS {fwd_sass}"
-    emit("flash_train_kernels", shapes=out, batched=batched, threshold_sweep=sweep, fwd_sass=fwd_sass,
+            for op in wg_sass[fn]:
+                wg_sass[fn][op] += f" {op}" in line
+    for kern in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+        inst = {n: c for n, c in wg_sass.items() if kern in n}
+        assert sass is None or (len(inst) == 2 and all(c["HGMMA"] and c["UTMALDG"] and not c["STL"]
+                                                       for c in inst.values())), f"3p {kern} SASS {inst}"
+    emit("flash_train_kernels", shapes=out, batched=batched, threshold_sweep=sweep, wgmma_sass=wg_sass,
          route_line={"T_min": 1024, "note": "the JAX package's line (_flash_ok), kept"})
     return out
 
@@ -2930,6 +2990,8 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
     a = run(params, cfg, ids_of(T, 70), steps)
     want = {name: steps * Lyr for name in FLASH_TRAIN}
     want.update(dequantize_paired_fast_dq=steps * (8 * Lyr - 1), optimizer_update_8bit=steps)
+    if dkv_combines(dev, 1, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim):
+        want["flash_attention_causal_bwd_dkv_combine"] = steps * Lyr
     assert a["launches"] == want, f"4r(a) launches {a['launches']} != {want}"
     assert a["losses"][-1] < a["losses"][0], f"4r(a) losses {a['losses']}"
     a["wall_ms_median_2_5"] = statistics.median(a["wall_ms"][1:])
@@ -2967,7 +3029,8 @@ def flash_cpu_check(dev):
     1024: ``lm_loss`` and its adapter gradients through kernels 17-19 on the
     card against the CPU port through their plain versions (the CPU's route
     patched to the flash one), the loss within rel 1e-3, the gradients
-    within rtol 2e-2 / atol 2e-3; the card's launches 2 of each."""
+    within rtol 2e-2 / atol 2e-3; the card's launches 2 of each, and 2 of
+    kernel 18's combine where its plan splits a key tile at this shape."""
     import torch
 
     from bitsandbytes_tpu_torch.models import llama as L
@@ -3000,6 +3063,8 @@ def flash_cpu_check(dev):
     torch.cuda.synchronize()
     counts = {k: c for k, c in launch_counts().items() if c}
     assert all(counts.get(n) == cfg.num_layers for n in FLASH_TRAIN), f"5l launches {counts}"
+    combines = cfg.num_layers * dkv_combines(dev, 1, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    assert counts.get("flash_attention_causal_bwd_dkv_combine", 0) == combines, f"5l launches {counts}"
     lc = fresh("cpu")
     route = L._flash_ok
     L._flash_ok = lambda cfg_, T_, hd_, device_: route(cfg_, T_, hd_, torch.device("cuda"))
@@ -6512,9 +6577,13 @@ def main() -> int:
     slice21_cpu_check(dev)
 
     # -- 5l. the training path through the causal flash kernels at 2 layers, card against CPU --
-    for name, n in flash_cpu_check(dev).items():
+    counts_5l = flash_cpu_check(dev)
+    for name, n in counts_5l.items():
         if name in FLASH_TRAIN:
             report[name]["launches_5l"] = n
+    # kernel 18's combine runs where its plan splits key tiles: 5l's T 1024, not 4r's T 2048
+    combine = "flash_attention_causal_bwd_dkv_combine"
+    report[combine]["launches"] = counts_5l.get(combine)
     import torch.distributed as dist
 
     dist.destroy_process_group()

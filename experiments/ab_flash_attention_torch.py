@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the PyTorch port's causal flash attention forward (kernel 17,
-``flash_attention_causal_fwd``) across checkouts of this repo, on one
-NVIDIA GPU.
+"""A/B of the PyTorch port's causal flash attention (kernel 17, the forward
+``flash_attention_causal_fwd``; kernel 18, the dK/dV backward
+``flash_attention_causal_bwd_dkv``; kernel 19, dQ) across checkouts of this
+repo, on one NVIDIA GPU.
 
     python3 experiments/ab_flash_attention_torch.py ROOT [ROOT ...]
 
@@ -13,17 +14,20 @@ run:
 
 * at the shapes of ``chip_smoke.py``'s 3p (B 1, H 32 over 8 KV heads, hd 128
   at T 1024, 2048, 4096 and 8192; H 16 over 16, hd 256 at T 4096; q and k
-  packed, v a view of a fused qkv row) times kernel 17 on the device
-  (``cuda_time(flush_l2=True, hold=True)``, median of 20) beside SDPA
-  (``is_causal``, ``enable_gqa``) on the same tensors, checks the output
-  against the plain version (o within 2e-2 abs, m 1e-4, l 1e-5 relative) and
-  fingerprints o, m and l;
+  packed, v a view of a fused qkv row) times kernels 17, 18 and 19 on the
+  device (``cuda_time(flush_l2=True, hold=True)``, median of 20) beside
+  SDPA forward and backward (``is_causal``, ``enable_gqa``; its backward
+  computes dq, dk and dv in one call) on the same tensors, checks the
+  output against the plain version (o within 2e-2 abs, m 1e-4, l 1e-5
+  relative) and kernel 18's dk and dv against theirs (each within 1e-2 of
+  its largest magnitude; the backward takes the plain forward's m, l and
+  ``di = sum(o * do)``), and fingerprints o, m, l, dk and dv;
 * trains one QLoRA step of 4r(a) (Llama-3-8B, all 32 layers, NF4 double
   quantized and fused, rank 64 on all seven targets, ``adamw8bit``, ids
   [1, 2049], ``token_chunk`` 512; random weights from seed 0) after a warm-up
   step, under ``torch.profiler``: device ms by class, kernels 17-19 apart;
-* counts ``HGMMA``, ``UTMALDG`` and ``STL`` in the SASS of each forward
-  instance of the root's build (``cuobjdump -sass``).
+* counts ``HGMMA``, ``UTMALDG`` and ``STL`` in the SASS of each forward and
+  dK/dV instance of the root's build (``cuobjdump -sass``).
 
 Prints one JSON line per run, then one line with the runs' times side by
 side and whether each root gives the same bits every time it runs.
@@ -39,13 +43,13 @@ import sys
 SHAPES = [(1, 1024, 32, 8, 128), (1, 2048, 32, 8, 128), (1, 4096, 32, 8, 128), (1, 8192, 32, 8, 128),
           (1, 4096, 16, 16, 256)]
 CLASSES = [("flash_fwd_kernel", "kernel 17"), ("flash_bwd_dkv_kernel", "kernel 18"),
-           ("flash_bwd_dq_kernel", "kernel 19"), ("dequantize_paired", "kernel 6"),
-           ("optimizer_update_8bit", "kernel 14")]
+           ("flash_bwd_dkv_combine", "kernel 18's combine"), ("flash_bwd_dq_kernel", "kernel 19"),
+           ("dequantize_paired", "kernel 6"), ("optimizer_update_8bit", "kernel 14")]
 TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
-def sass_counts(so: str, nvcc: str, kernel: str = "flash_fwd_kernel"):
-    """HGMMA, UTMALDG and STL instructions in each instance of ``kernel``
+def sass_counts(so: str, nvcc: str, kernels=("flash_fwd_kernel", "flash_bwd_dkv_kernel")):
+    """HGMMA, UTMALDG and STL instructions in each instance of ``kernels``
     (None without cuobjdump)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(tool):
@@ -55,7 +59,7 @@ def sass_counts(so: str, nvcc: str, kernel: str = "flash_fwd_kernel"):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            fn = name if kernel in name else None
+            fn = name if any(k in name for k in kernels) else None
             if fn:
                 found[fn] = {"HGMMA": 0, "UTMALDG": 0, "STL": 0}
         elif fn:
@@ -89,11 +93,13 @@ def run_one(root: str) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(60)
     rows, prints = [], {}
+    rel = lambda a, b: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()  # noqa: E731
     for B, T, H, KVH, hd in SHAPES:
         q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(B, T, KVH, hd, generator=gen, device=dev).to(torch.bfloat16)
         qkv = torch.randn(B, T, (H + 2 * KVH) * hd, generator=gen, device=dev).to(torch.bfloat16)
         v = qkv[..., (H + KVH) * hd:].reshape(B, T, KVH, hd)
+        do = torch.randn(B, T, H, hd, generator=gen, device=dev).to(torch.bfloat16)
         o, m, l = FA.flash_attention_causal_fwd(q, k, v)
         op, mp, lp = FA.flash_attention_causal_fwd_plain(q, k, v)
         errs = {"o_abs": (o.float() - op.float()).abs().max().item(), "m_abs": (m - mp).abs().max().item(),
@@ -104,12 +110,28 @@ def run_one(root: str) -> dict:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         flops = 2 * 2 * hd * B * H * T * (T + 1) // 2
         ms = dev_ms(lambda: FA.flash_attention_causal_fwd(q, k, v))
+        # kernels 18 and 19 on the plain forward's m, l and di, as chip_smoke.py's 3p
+        bwd = (q, k, v, do, mp, lp, (op.float() * do.float()).sum(-1).transpose(1, 2).contiguous())
+        dk, dv = FA.flash_attention_causal_bwd_dkv(*bwd)
+        dkp, dvp = FA.flash_attention_causal_bwd_dkv_plain(*bwd)
+        errs.update(dk_rel=rel(dk, dkp), dv_rel=rel(dv, dvp))
+        again_kv = FA.flash_attention_causal_bwd_dkv(*bwd)
+        same_kv = torch.equal(again_kv[0], dk) and torch.equal(again_kv[1], dv)
+        ok = ok and max(errs["dk_rel"], errs["dv_rel"]) <= 1e-2 and same_kv
+        dkv_ms = dev_ms(lambda: FA.flash_attention_causal_bwd_dkv(*bwd))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        sdpa_o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
         rows.append({"shape": [B, T, H, KVH, hd], "ms": ms, "tflops": flops / (ms * 1e-3) / 1e12,
                      "sdpa_ms": dev_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                                               enable_gqa=True)),
-                     "errs": errs, "run_to_run_bits": same, "ok": ok})
-        prints[str(rows[-1]["shape"])] = [fingerprint(t) for t in (o, m, l)]
-        del q, k, qkv, v, o, m, l, op, mp, lp, again, qt, kt, vt
+                     "dkv_ms": dkv_ms, "dkv_tflops": 2 * flops / (dkv_ms * 1e-3) / 1e12,
+                     "dq_ms": dev_ms(lambda: FA.flash_attention_causal_bwd_dq(*bwd)),
+                     "sdpa_bwd_ms": dev_ms(lambda: torch.autograd.grad(sdpa_o, (qg, kg, vg), dot, retain_graph=True)),
+                     "errs": errs, "run_to_run_bits": same and same_kv, "ok": ok})
+        prints[str(rows[-1]["shape"])] = [fingerprint(t) for t in (o, m, l, dk, dv)]
+        del q, k, qkv, v, do, o, m, l, op, mp, lp, again, qt, kt, vt, bwd, dk, dv, dkp, dvp, again_kv
+        del qg, kg, vg, sdpa_o, dot
         torch.cuda.empty_cache()
 
     # 4r(a): one profiled QLoRA step at T 2048 through kernels 17-19
@@ -172,12 +194,15 @@ def main(argv) -> int:
     by_root = {}
     for r in runs:
         by_root.setdefault(r["root"], []).append(r["fingerprints"])
-    print(json.dumps({"fwd_ms": [{"root": r["root"], **{str(x["shape"]): x["ms"] for x in r["fwd"]}} for r in runs],
-                      "sdpa_ms": [{"root": r["root"], **{str(x["shape"]): x["sdpa_ms"] for x in r["fwd"]}}
-                                  for r in runs],
-                      "step_4r_a_kernel17_ms": [{"root": r["root"], "ms": r["step_4r_a"]["by_class"]
-                                                 .get("kernel 17", {}).get("ms"),
-                                                 "step_device_ms": r["step_4r_a"]["device_ms"]} for r in runs],
+    def by_shape(key):
+        return [{"root": r["root"], **{str(x["shape"]): x[key] for x in r["fwd"]}} for r in runs]
+
+    print(json.dumps({"fwd_ms": by_shape("ms"), "sdpa_ms": by_shape("sdpa_ms"), "dkv_ms": by_shape("dkv_ms"),
+                      "dq_ms": by_shape("dq_ms"), "sdpa_bwd_ms": by_shape("sdpa_bwd_ms"),
+                      "step_4r_a_ms": [{"root": r["root"], "step_device_ms": r["step_4r_a"]["device_ms"],
+                                        **{lab: r["step_4r_a"]["by_class"].get(lab, {}).get("ms")
+                                           for lab in ("kernel 17", "kernel 18", "kernel 18's combine",
+                                                       "kernel 19")}} for r in runs],
                       "all_ok": all(x["ok"] for r in runs for x in r["fwd"]),
                       "same_bits_within_root": {k: all(p == v[0] for p in v) for k, v in by_root.items()}}),
           flush=True)

@@ -15,9 +15,11 @@ summing the GQA group; the port sums in f32 and rounds once).
 
 Also: the plain versions against a dense float64 autograd reference (f32
 inputs, T not a multiple of the block), the route predicate against the
-JAX package's ``_flash_ok`` conditions, and what the CUDA wrappers refuse.
+JAX package's ``_flash_ok`` conditions, what the CUDA wrappers refuse, and
+the dK/dV kernel's work plan (``dkv_plan``) and its combine.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -199,3 +201,149 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         FA._tma_ok("q", torch.empty(FA.TMA_MAX_DIM + 1, 128, 1, 128, dtype=torch.bfloat16, device="meta"))
     with pytest.raises(ValueError, match="stride"):
         FA._tma_ok("q", torch.empty(2, FA.TMA_MAX_DIM, 1, 128, dtype=torch.bfloat16, device="meta"))
+    # the dK/dV kernel reads q, k, v and do through TMA and copies the rows' m,
+    # l and di in bulk from bases on 16 bytes
+    rows = torch.zeros(1, 4, 256)
+    FA._dkv_checks(q, k, k, q, rows, rows, rows)
+    FA._dkv_checks(*(t.to("meta") for t in (q, k, k, q, rows, rows, rows)))
+    off = torch.zeros(4 * 256 + 1)[1:].view(1, 4, 256)
+    for i in range(3):
+        bad = [rows, rows, rows]
+        bad[i] = off
+        with pytest.raises(ValueError, match="aligned"):
+            FA._dkv_checks(q, k, k, q, *bad)
+    huge = torch.empty(FA.TMA_MAX_DIM + 1, 128, 1, 128, dtype=torch.bfloat16, device="meta")
+    wide = torch.empty(2, FA.TMA_MAX_DIM, 1, 128, dtype=torch.bfloat16, device="meta")
+    for i in range(4):
+        for bad_t, what in ((huge, "dimension"), (wide, "stride")):
+            args = [q, k, k, q]
+            args[i] = bad_t
+            with pytest.raises(ValueError, match=what):
+                FA._dkv_checks(*args, rows, rows, rows)
+
+
+# chip_smoke.py's 3p shapes (B, T, H, KVH, hd) and its two batched ones, on an
+# H100's 132 SMs, one block an SM
+PLAN_SHAPES = [(1, t, 32, 8, 128) for t in (1024, 2048, 4096, 8192)] + [(1, 4096, 16, 16, 256), (2, 1152, 8, 2, 128),
+                                                                      (3, 640, 2, 1, 256)]
+SMS = 132
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=["B{}-T{}-H{}-KVH{}-hd{}".format(*s) for s in PLAN_SHAPES])
+def test_dkv_plan_covers_each_tile_once_in_a_fixed_order(shape):
+    """Each key tile's (query head, query tile) pairs from the diagonal down
+    are covered exactly once; a split key tile's pieces hold consecutive
+    slots in iteration order and are combined in that order; no item
+    carries more iterations than the target, the mean work of a slot
+    rounded up; items go longest first; the plan is the same every call."""
+    B, T, H, KVH, hd = shape
+    G, ntiles, halves = H // KVH, T // FA.DKV_KEYS, hd // FA.DKV_COLS
+    plan = FA.dkv_plan(B, T, H, KVH, hd, SMS)
+    assert plan == FA.dkv_plan(B, T, H, KVH, hd, SMS)
+    total = B * KVH * halves * G * ntiles * (ntiles + 1) // 2
+    sizes = [it[5] - it[4] for it in plan.items]
+    assert sum(sizes) == total and sizes == sorted(sizes, reverse=True)
+    assert plan.target == max(-(-total // SMS), FA.DKV_MIN_PIECE) and max(sizes) <= plan.target
+    seen = collections.Counter()
+    for b, kvh, kj, half, i0, i1, slot, pad in plan.items:
+        nq = ntiles - kj
+        assert 0 <= i0 < i1 <= G * nq and pad == 0 and slot >= -1
+        for i in range(i0, i1):
+            seen[(b, kvh, kj, half, kvh * G + i // nq, kj + i % nq)] += 1
+    want = {(b, kvh, kj, half, h, t) for b in range(B) for kvh in range(KVH) for kj in range(ntiles)
+            for half in range(halves) for h in range(kvh * G, (kvh + 1) * G) for t in range(kj, ntiles)}
+    assert set(seen) == want and set(seen.values()) == {1}
+    by_slot = {it[6]: it for it in plan.items if it[6] >= 0}
+    assert sorted(by_slot) == list(range(plan.slots))
+    split = set()
+    for b, kvh, kj, half, s0, pieces, *pad in plan.combine:
+        assert pieces >= 2 and pad == [0, 0]
+        cuts = [by_slot[s0 + p][4:6] for p in range(pieces)]
+        assert all(by_slot[s0 + p][:4] == (b, kvh, kj, half) for p in range(pieces))
+        assert cuts[0][0] == 0 and cuts[-1][1] == G * (ntiles - kj)
+        assert all(a[1] == c[0] for a, c in zip(cuts, cuts[1:]))
+        assert max(c[1] - c[0] for c in cuts) - min(c[1] - c[0] for c in cuts) <= 1
+        split.add((b, kvh, kj, half))
+    whole = [it[:4] for it in plan.items if it[6] < 0]
+    assert len(whole) == len(set(whole)) and not split & set(whole)
+    assert len(whole) + len(split) == B * KVH * ntiles * halves
+    # the plan splits only where a key tile's work exceeds a slot's mean
+    assert bool(plan.combine) == (G * ntiles > plan.target)
+
+
+def _dkv_by_plan(q, k, v, do, m, l, di, plan):
+    """dK and dV as the kernel computes them under ``plan``, in PyTorch: each
+    item sums p^T do and ds^T q over its iterations in order in f32 (p and ds
+    rounded to bf16), stores its key tile in bf16 or writes f32 partials,
+    which the plain combine adds."""
+    B, T, H, hd = q.shape
+    KVH = k.shape[2]
+    G, ntiles, C = H // KVH, T // FA.DKV_KEYS, FA.DKV_COLS
+    p, ds, *_ = FA._probs_and_ds(q, k, v, do, m, l, di, 0, T)  # [B, H, T, T]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part_k = torch.empty(plan.slots, FA.DKV_KEYS, C)
+    part_v = torch.empty_like(part_k)
+    for b, kvh, kj, half, i0, i1, slot, _ in plan.items:
+        keys, cols = slice(kj * 64, kj * 64 + 64), slice(half * C, half * C + C)
+        ak, av = torch.zeros(64, C), torch.zeros(64, C)
+        for i in range(i0, i1):
+            h, t = kvh * G + i // (ntiles - kj), kj + i % (ntiles - kj)
+            rows = slice(t * 64, t * 64 + 64)
+            pt = p[b, h, rows, keys].to(torch.bfloat16).float().T
+            st = ds[b, h, rows, keys].to(torch.bfloat16).float().T
+            av += pt @ do[b, rows, h, cols].float()
+            ak += st @ q[b, rows, h, cols].float()
+        if slot < 0:
+            dk[b, keys, kvh, cols], dv[b, keys, kvh, cols] = ak.to(k.dtype), av.to(v.dtype)
+        else:
+            part_k[slot], part_v[slot] = ak, av
+    table = torch.tensor(plan.combine, dtype=torch.int32).reshape(-1, 8)
+    return FA.flash_attention_causal_bwd_dkv_combine(part_k, part_v, table, dk, dv)
+
+
+@pytest.mark.parametrize("hd,slots", [(128, 30), (256, 60)], ids=["hd128-split", "hd256-split"])
+def test_dkv_plan_computes_the_plain_gradients(hd, slots):
+    """A plan that splits key tiles (few slots), computed item by item as the
+    kernel computes it, gives the plain version's dk and dv (bf16 inputs;
+    within 1e-2 of the largest magnitude, the card's gate: the sums run in
+    another order and round once)."""
+    rng = np.random.default_rng(hd + slots)
+    B, T, H, KVH = 2, 512, 4, 2
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+                   for s in ((B, T, H, hd), (B, T, KVH, hd), (B, T, KVH, hd), (B, T, H, hd)))
+    o, m, l = FA.flash_attention_causal_fwd_plain(q, k, v)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    plan = FA.dkv_plan(B, T, H, KVH, hd, slots)
+    assert plan.combine and any(it[6] < 0 for it in plan.items)
+    dk, dv = _dkv_by_plan(q, k, v, do, m, l, di, plan)
+    dkp, dvp = FA.flash_attention_causal_bwd_dkv_plain(q, k, v, do, m, l, di)
+    for got, want in ((dk, dkp), (dv, dvp)):
+        rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        assert rel <= 1e-2, rel
+
+
+def test_dkv_combine_adds_pieces_in_order():
+    """The plain combine (the kernel's reference on the card): each split key
+    tile's partials added in piece order in f32, rounded once to bf16, into
+    its own rows and columns; every other element untouched."""
+    rng = np.random.default_rng(3)
+    B, T, KVH, hd = 2, 384, 2, 256
+    plan = FA.dkv_plan(B, T, 4, KVH, hd, 40)
+    table = torch.tensor(plan.combine, dtype=torch.int32).reshape(-1, 8)
+    part_k, part_v = (torch.from_numpy(rng.standard_normal((plan.slots, 64, 128)).astype(np.float32) * 1e3)
+                      for _ in range(2))
+    dk, dv = torch.full((B, T, KVH, hd), 7.0, dtype=torch.bfloat16), torch.full((B, T, KVH, hd), 7.0,
+                                                                                   dtype=torch.bfloat16)
+    out = FA.flash_attention_causal_bwd_dkv_combine(part_k, part_v, table, dk, dv)
+    assert out[0] is dk and out[1] is dv
+    touched = torch.zeros(B, T, KVH, hd, dtype=torch.bool)
+    for b, kvh, kj, half, s0, pieces, _, _ in plan.combine:
+        for part, got in ((part_k, dk), (part_v, dv)):
+            acc = part[s0].numpy().copy()
+            for i in range(1, pieces):
+                acc = (acc + part[s0 + i].numpy()).astype(np.float32)
+            want = torch.from_numpy(acc).to(torch.bfloat16)
+            assert torch.equal(got[b, kj * 64:kj * 64 + 64, kvh, half * 128:half * 128 + 128], want)
+        touched[b, kj * 64:kj * 64 + 64, kvh, half * 128:half * 128 + 128] = True
+    assert touched.any() and not touched.all()
+    assert (dk[~touched] == 7.0).all() and (dv[~touched] == 7.0).all()
