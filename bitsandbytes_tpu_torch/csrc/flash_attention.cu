@@ -21,9 +21,9 @@
 // kernel renormalizes acc at every block: the same function up to f32
 // rounding), m (the max of the scaled scores) and l = sum exp(scale s - m) in
 // f32; the kernel takes p = 2^(scale log2(e) s - scale log2(e) max s), one
-// FMA and ex2.  Backward: p = exp(s - m) * (1 / l) in f32 (the dK/dV kernel
-// as 2^(scale log2(e) s - m log2(e)) * (1 / l), one FMA and ex2), ds = (do.v - di) *
-// p * scale; p and ds rounded to bf16 before the dV, dK and dQ products; f32
+// FMA and ex2.  Backward: p = exp(s - m) * (1 / l) in f32 (both kernels take
+// it as 2^(scale log2(e) s - m log2(e)) * (1 / l), one FMA and ex2), ds =
+// (do.v - di) * p * scale; p and ds rounded to bf16 before the dV, dK and dQ products; f32
 // accumulators stored once in bf16.  The GQA group's dK/dV add up in f32
 // inside the dK/dV kernel (the TPU path rounds per query head, then sums the
 // repeat's transpose).
@@ -58,15 +58,21 @@
 //   registers over the item.  A key tile with more work than a slot's mean
 //   is split into pieces that write f32 partials; the combine kernel adds
 //   them in piece order and rounds once.  Items go longest first.
-// * dQ: mma.sync.m16n8k16 bf16 -> f32, four warps of 16 rows, operands by
-//   ldmatrix from shared memory (rows padded by 16 B against bank
-//   conflicts), ds straight from the accumulators as the A fragment of the
-//   next product.  A block owns 64 query rows of one head and walks the
-//   64-key tiles of its KV head up to the diagonal through a two-stage
-//   cp.async ring.  The dQ sum runs in key order in registers: no atomics.
-// * Causal work only: tiles above the diagonal are never loaded, and in the
-//   diagonal tile a dQ warp skips the 32-wide chunks it cannot reach.
-//   Blocks with the most tiles launch first.
+// * dQ (sm90.cuh; the bound is 3 products of 2 hd flops a (row, key) pair
+//   of the causal half, 0.052 ms at 4r's T 2048 on an H100): a block is one
+//   consumer warpgroup for each 64 query rows of one head, two (128 rows) at
+//   hd 128, one at hd 256, and a producer warp (DqCfg says why).  One
+//   producer thread loads Q and dO once, and the K and V tiles of the KV
+//   head, from key 0 up to the block's last row, with TMA into a two-stage
+//   ring of 64-key 128-byte-swizzled tiles.  A consumer runs S = Q K^T and
+//   dP = dO V^T on wgmma from shared memory, p and ds in registers (the mask
+//   only on its diagonal tile; m log2(e), 1 / l and di read once a row), and
+//   dQ += dS K on wgmma with dS from registers and K read as a transposed B
+//   from the same stage.  dQ stays in f32 registers over the walk, summed in
+//   key order (no atomics, no split of a row's keys), and is stored once.
+// * Causal work only: tiles above the diagonal are never loaded (a dQ
+//   consumer stops at its own diagonal tile).  Blocks with the most tiles
+//   launch first.
 // * Fixed order everywhere, so a result is the same from run to run.
 #include <cmath>
 
@@ -74,9 +80,6 @@
 #include "sm90.cuh"
 
 namespace {
-
-constexpr int kRows = 64;  // query rows of a dQ block
-constexpr int kTile = 64;  // keys of a dQ ring stage
 
 struct Params {
     const __nv_bfloat16* q;
@@ -96,52 +99,6 @@ struct Params {
     int T, H, KVH;
     float scale;
 };
-
-template <int HD>
-struct Geo {
-    static constexpr int kStride = HD + 8;                              // bf16 elements a padded row
-    static constexpr size_t kTileBytes = (size_t)kTile * kStride * 2;  // one 64-row bf16 tile
-};
-
-// rows [t0, t0 + 64) of head `head` of a strided [B, T, heads, HD] tensor ->
-// a padded shared tile, 16 bytes a copy
-template <int HD, int kThreads>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, long long sb, long long st,
-                                          int b, int t0, int head) {
-    constexpr int kChunks = HD / 8;
-    const __nv_bfloat16* base = src + b * sb + (long long)t0 * st + (long long)head * HD;
-    for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-        const int j = i / kChunks;
-        const int c = (i - j * kChunks) * 8;
-        cp_async16(dst + j * Geo<HD>::kStride + c, base + j * st + c, true);
-    }
-}
-
-// A fragment (16 rows x k16) of a row-major padded tile: rows r0.., columns c0..
-template <int S>
-__device__ __forceinline__ void frag_a(uint32_t* a, const __nv_bfloat16* tile, int r0, int c0, int lane) {
-    ldsm_x4(a, tile + (r0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * S + c0 + (lane >> 4) * 8);
-}
-
-// B fragments of two n8 tiles (n rows n0..n0+15 of a [n][k] tile, k16 at c0)
-template <int S>
-__device__ __forceinline__ void frag_b(uint32_t* b, const __nv_bfloat16* tile, int n0, int c0, int lane) {
-    ldsm_x4(b, tile + (n0 + (lane >> 4) * 8 + (lane & 7)) * S + c0 + ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of two n8 tiles of a [k][n] tile (k rows k0..k0+15, n at c0..c0+15)
-template <int S>
-__device__ __forceinline__ void frag_b_trans(uint32_t* b, const __nv_bfloat16* tile, int k0, int c0, int lane) {
-    ldsm_x4_trans(b, tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * S + c0 + (lane >> 4) * 8);
-}
-
-// the A fragment of a k16 step from two n8 accumulator tiles (rows x 16 columns)
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c0, const float* c1) {
-    a[0] = pack_bf16x2(c0[0], c0[1]);
-    a[1] = pack_bf16x2(c0[2], c0[3]);
-    a[2] = pack_bf16x2(c1[0], c1[1]);
-    a[3] = pack_bf16x2(c1[2], c1[3]);
-}
 
 // ---------------------------------------------------------------------------
 // forward: o, m, l (wgmma, TMA, a producer warpgroup)
@@ -417,135 +374,216 @@ __global__ void __launch_bounds__(FwdCfg<HD>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// dQ: dq = sum over keys of ds k
+// dQ: dq = sum over keys of ds k (wgmma, TMA, a producer warp)
 // ---------------------------------------------------------------------------
 
-constexpr int kDqChunk = 32;  // keys a warp's scores hold at once
-
+// Registers set the shape.  ptxas keeps every wgmma accumulator and A
+// fragment under the launch register count (the forward's finding), and a
+// consumer warpgroup of 64 query rows holds dQ (HD / 2 registers), S and dP
+// of a 64-key stage (32 + 32) and dS as bf16 A fragments (16): 144 at hd
+// 128, 208 at hd 256.  The producer is one warp after the consumer
+// warpgroups, not a warpgroup of its own, so the launch count stays high
+// without setmaxnreg: 224 a thread at hd 128, where a block is two consumers
+// (128 rows of one head, 288 threads) that read each K/V stage together,
+// and 255 at hd 256, one consumer of 64 rows (160 threads).  m, l and di
+// belong to a thread's two rows for the whole block: each consumer thread
+// reads them into registers once.
 template <int HD>
-struct DqLayout {
-    static constexpr size_t kQ = 0;
-    static constexpr size_t kDo = Geo<HD>::kTileBytes;
-    static constexpr size_t kStage = 2 * Geo<HD>::kTileBytes;  // [2][K | V]
-    static constexpr size_t kBytes = kStage + 2 * 2 * Geo<HD>::kTileBytes;
+struct DqCfg {
+    static constexpr int kConsumers = HD == 128 ? 2 : 1;
+    static constexpr int kRows = 64 * kConsumers;  // query rows of a block
+    static constexpr int kThreads = 128 * kConsumers + 32;
+    static constexpr int kKeys = 64;  // keys of a ring stage
+    static constexpr int kStages = 2;
+    static constexpr int kChunks = HD / 64;  // 64-column chunks of a row (128-byte swizzled tiles)
+    static constexpr uint32_t kQBytes = kRows * HD * 2;   // Q, and dO
+    static constexpr uint32_t kKvBytes = kKeys * HD * 2;  // a K or a V tile
+    // shared memory from a 1024-byte aligned base: Q, dO, the stages' [K | V],
+    // the barriers (Q and dO's, then each stage's full and empty)
+    static constexpr uint32_t kStage0 = 2 * kQBytes;
+    static constexpr uint32_t kBars = kStage0 + kStages * 2 * kKvBytes;
+    static constexpr uint32_t kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;  // + the base's alignment
 };
 
 template <int HD>
-__global__ void __launch_bounds__(128) flash_bwd_dq_kernel(const Params p) {
-    constexpr int S = Geo<HD>::kStride;
-    constexpr int kDT = HD / 8;
-    constexpr int kCT = kDqChunk / 8;  // n8 tiles of a chunk's scores
-    extern __shared__ __align__(16) unsigned char smem[];
-    __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + DqLayout<HD>::kQ);
-    __nv_bfloat16* sDo = reinterpret_cast<__nv_bfloat16*>(smem + DqLayout<HD>::kDo);
-    auto sK = [&](int st) {
-        return reinterpret_cast<__nv_bfloat16*>(smem + DqLayout<HD>::kStage + st * 2 * Geo<HD>::kTileBytes);
-    };
-    auto sV = [&](int st) { return sK(st) + kTile * S; };
+__global__ void __launch_bounds__(DqCfg<HD>::kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                        const Params p) {
+    using C = DqCfg<HD>;
+    constexpr int N = C::kKeys;
+    constexpr float kLog2e = 1.44269504088896341f;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+    uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::kBars);
+    uint64_t* full = full_q + 1;
+    uint64_t* empty = full + C::kStages;
+    auto sK = [&](int st) { return smem + C::kStage0 + st * 2 * C::kKvBytes; };
+    auto sV = [&](int st) { return sK(st) + C::kKvBytes; };
 
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int gq = lane >> 2, t4 = lane & 3;
-    const int qi = gridDim.z - 1 - blockIdx.z;
+    const int qi = gridDim.z - 1 - blockIdx.z;  // the longest rows first, over every head
     const int h = blockIdx.x, b = blockIdx.y;
-    const int kvh = h / (p.H / p.KVH);
-    const int r0 = qi * kRows;
-    const int ntiles = qi + 1;
+    const int r0 = qi * C::kRows;
+    const int wg = threadIdx.x / 128;  // a consumer warpgroup, or kConsumers: the producer warp
 
-    load_rows<HD, 128>(sQ, p.q, p.sqb, p.sqt, b, r0, h);
-    load_rows<HD, 128>(sDo, p.dout, p.sdb, p.sdt, b, r0, h);
-    load_rows<HD, 128>(sK(0), p.k, p.skb, p.skt, b, 0, kvh);
-    load_rows<HD, 128>(sV(0), p.v, p.svb, p.svt, b, 0, kvh);
-    cp_async_commit();
+    if (threadIdx.x == 0) {
+        mbar_init(full_q, 1);
+        for (int st = 0; st < C::kStages; ++st) {
+            mbar_init(full + st, 1);
+            mbar_init(empty + st, 4 * C::kConsumers);  // each consumer warp once
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
 
-    const int wrow = warp * 16;
-    int row[2];
-    float mrow[2], linv[2], drow[2];
+    if (wg == C::kConsumers) {
+        // the producer: one thread loads Q and dO once, then the K and V
+        // tiles of KV head h / (H / KVH) from key 0 up to the block's last row
+        if (threadIdx.x == 128 * C::kConsumers) {
+            tma_prefetch_map(&tq);
+            tma_prefetch_map(&tk);
+            tma_prefetch_map(&tv);
+            tma_prefetch_map(&tdo);
+            const int kvh = h / (p.H / p.KVH);
+            const int ntiles = (r0 + C::kRows) / N;
+            mbar_expect_tx(full_q, 2 * C::kQBytes);
+            for (int c = 0; c < C::kChunks; ++c) {
+                tma_load_4d(smem + c * C::kRows * 128, &tq, full_q, c * 64, h, r0, b);
+                tma_load_4d(smem + C::kQBytes + c * C::kRows * 128, &tdo, full_q, c * 64, h, r0, b);
+            }
+            for (int t = 0; t < ntiles; ++t) {
+                const int st = t % C::kStages;
+                if (t >= C::kStages) mbar_wait(empty + st, ((t / C::kStages) - 1) & 1);
+                mbar_expect_tx(full + st, 2 * C::kKvBytes);
+                for (int c = 0; c < C::kChunks; ++c) {
+                    tma_load_4d(sK(st) + c * N * 128, &tk, full + st, c * 64, kvh, t * N, b);
+                    tma_load_4d(sV(st) + c * N * 128, &tv, full + st, c * 64, kvh, t * N, b);
+                }
+            }
+        }
+        return;
+    }
+
+    // a consumer warpgroup: 64 query rows.  S = Q K^T and dP = dO V^T with
+    // both operands in shared memory, p and ds in registers, then dQ += dS K
+    // with dS from registers (the dP accumulators rounded to bf16 pairs are
+    // the A fragments) and K read as a transposed B from the same tile.
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int gq = lane / 4, t4 = lane % 4;
+    const int rw = r0 + 64 * wg;  // the warpgroup's first row
+    const int ntiles = rw / N + 1;  // the tiles holding a key <= its last row; the last is its diagonal
+    const int rl[2] = {16 * warp + gq, 16 * warp + gq + 8};  // the thread's accumulator rows, from rw
+    const float scale = p.scale;
+    const float sl2 = scale * kLog2e;  // exp(scale x - m) = 2^(sl2 x - m log2(e))
+    float ml2[2], linv[2], drow[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-        row[i] = r0 + wrow + gq + 8 * i;
-        const size_t ml = ((size_t)b * p.H + h) * p.T + row[i];
-        mrow[i] = p.m[ml];
+        const size_t ml = ((size_t)b * p.H + h) * p.T + rw + rl[i];
+        ml2[i] = p.m[ml] * kLog2e;
         linv[i] = 1.0f / p.l[ml];
         drow[i] = p.di[ml];
     }
-    float acc[kDT][4];
+    const unsigned char* sQ = smem + wg * 64 * 128;  // its rows of each Q chunk
+    const unsigned char* sDo = sQ + C::kQBytes;
+    float dq[HD / 2];
 #pragma unroll
-    for (int n = 0; n < kDT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
+    // S and dP: each tile's first k step overwrites them (scale_d 0); zeroed
+    // in the loop, before the stage's wait, they would make ptxas fence and
+    // serialize every wgmma (kernel 18's finding)
+    float s[N / 2], dp[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) s[i] = dp[i] = 0.0f;
+    uint32_t sa[N / 16][4];
 
-    for (int it = 0; it < ntiles; ++it) {
-        const int st = it & 1;
-        if (it + 1 < ntiles) {
-            load_rows<HD, 128>(sK(st ^ 1), p.k, p.skb, p.skt, b, (it + 1) * kTile, kvh);
-            load_rows<HD, 128>(sV(st ^ 1), p.v, p.svb, p.svt, b, (it + 1) * kTile, kvh);
+    // S = Q K_t^T and dP = dO V_t^T, committed as two groups.  The fence
+    // follows the wait: no branch may sit between a fence and its wgmma.
+    auto issue_sdp = [&](int t) {
+        const int st = t % C::kStages;
+        mbar_wait(full + st, (t / C::kStages) & 1);
+        const uint32_t qa = opaque(smem_addr(sQ)), oa = opaque(smem_addr(sDo));
+        const uint32_t ka = opaque(smem_addr(sK(st))), va = opaque(smem_addr(sV(st)));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t off = (kk / 4) * C::kRows * 128 + (kk % 4) * 32;
+            const uint32_t koff = (kk / 4) * N * 128 + (kk % 4) * 32;
+            wgmma_ss<N>(s, gmma_desc_sw128(qa + off, 16, 1024), gmma_desc_sw128(ka + koff, 16, 1024), kk > 0);
         }
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        const __nv_bfloat16* K = sK(st);
-        const __nv_bfloat16* V = sV(st);
-        const bool diag = it == ntiles - 1;
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t off = (kk / 4) * C::kRows * 128 + (kk % 4) * 32;
+            const uint32_t koff = (kk / 4) * N * 128 + (kk % 4) * 32;
+            wgmma_ss<N>(dp, gmma_desc_sw128(oa + off, 16, 1024), gmma_desc_sw128(va + koff, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+    };
+    // p = 2^(sl2 s - m log2(e)) * (1 / l): one FMA, ex2 and a product; 0
+    // where the key follows the row, which happens on the diagonal tile only
+    // (it starts at rw: key 8 j + 2 t4 + (e & 1) against row rl)
+    auto probs = [&](int t) {
+        const int past = t == ntiles - 1 ? 0 : N;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float pr = ex2(fmaf(s[4 * j + e], sl2, -ml2[e >> 1])) * linv[e >> 1];
+                s[4 * j + e] = 8 * j + 2 * t4 + (e & 1) > rl[e >> 1] + past ? 0.0f : pr;
+            }
+    };
+    // ds = (dp - di) p scale, rounded to bf16 pairs: the A fragments of key
+    // step kk are the n8 tiles 2 kk and 2 kk + 1
+    auto dsoft = [&]() {
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) dp[i] = (dp[i] - drow[(i >> 1) & 1]) * s[i] * scale;
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) sa[kk][r] = pack_bf16x2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+    };
+    // dQ += dS K_t, K_t read MN-major (a transposed B) from the stage's tile
+    auto issue_dq = [&](int t) {
+        const uint32_t ka = opaque(smem_addr(sK(t % C::kStages)));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk)
+            wgmma_rs_tb<HD>(dq, sa[kk], gmma_desc_sw128(ka + kk * 16 * 128, N * 128, 1024), 1);
+        wgmma_commit();
+    };
+    auto dq_landed = [&]() {
+        fence_regs(dq);
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) fence_regs(sa[kk]);
+    };
+    auto release = [&](int t) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + t % C::kStages);  // this warp is done with the stage
+    };
 
-#pragma unroll
-        for (int c = 0; c < kTile / kDqChunk; ++c) {
-            const int k0 = c * kDqChunk;  // the chunk's first key within the tile
-            // a diagonal chunk whose first key follows every row of this warp
-            if (diag && k0 > wrow + 15) continue;
-            float s[kCT][4], dp[kCT][4];
-#pragma unroll
-            for (int n = 0; n < kCT; ++n)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll
-            for (int kk = 0; kk < HD / 16; ++kk) {
-                uint32_t aq[4], ad[4];
-                frag_a<S>(aq, sQ, wrow, kk * 16, lane);
-                frag_a<S>(ad, sDo, wrow, kk * 16, lane);
-#pragma unroll
-                for (int j = 0; j < kCT / 2; ++j) {
-                    uint32_t bk[4], bv[4];
-                    frag_b<S>(bk, K, k0 + 16 * j, kk * 16, lane);
-                    frag_b<S>(bv, V, k0 + 16 * j, kk * 16, lane);
-                    mma_bf16(s[2 * j], aq, bk[0], bk[1]);
-                    mma_bf16(s[2 * j + 1], aq, bk[2], bk[3]);
-                    mma_bf16(dp[2 * j], ad, bv[0], bv[1]);
-                    mma_bf16(dp[2 * j + 1], ad, bv[2], bv[3]);
-                }
-            }
-            // ds = (dp - di) * p * scale, p = exp(s - m) / l, 0 past the diagonal
-#pragma unroll
-            for (int n = 0; n < kCT; ++n) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int i = e >> 1;
-                    const int key = it * kTile + k0 + n * 8 + 2 * t4 + (e & 1);
-                    const float pr = key <= row[i] ? expf(__fmul_rn(s[n][e], p.scale) - mrow[i]) * linv[i] : 0.0f;
-                    s[n][e] = (dp[n][e] - drow[i]) * pr * p.scale;
-                }
-            }
-            // dQ += ds K, ds rounded to bf16
-#pragma unroll
-            for (int j = 0; j < kCT / 2; ++j) {
-                uint32_t a[4];
-                acc_to_a(a, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-                for (int dd = 0; dd < HD / 16; ++dd) {
-                    uint32_t bk[4];
-                    frag_b_trans<S>(bk, K, k0 + 16 * j, dd * 16, lane);
-                    mma_bf16(acc[2 * dd], a, bk[0], bk[1]);
-                    mma_bf16(acc[2 * dd + 1], a, bk[2], bk[3]);
-                }
-            }
-        }
-        __syncthreads();
+    mbar_wait(full_q, 0);
+    for (int t = 0; t < ntiles; ++t) {
+        issue_sdp(t);
+        wgmma_wait<1>();  // S has landed, dP may still run
+        fence_regs(s);
+        probs(t);
+        wgmma_wait<0>();
+        fence_regs(dp);
+        dsoft();
+        issue_dq(t);
+        wgmma_wait<0>();
+        dq_landed();
+        release(t);
     }
-    cp_async_wait<0>();
 
+    // dQ in bf16, summed over the keys in key order, stored once
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-        __nv_bfloat16* dst = p.dq + (((size_t)b * p.T + row[i]) * p.H + h) * HD;
+        __nv_bfloat16* dst = p.dq + (((size_t)b * p.T + rw + rl[i]) * p.H + h) * HD;
 #pragma unroll
-        for (int n = 0; n < kDT; ++n)
-            *reinterpret_cast<uint32_t*>(dst + n * 8 + 2 * t4) = pack_bf16x2(acc[n][2 * i], acc[n][2 * i + 1]);
+        for (int j = 0; j < HD / 8; ++j)
+            *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * t4) = pack_bf16x2(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
     }
 }
 
@@ -834,18 +872,8 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Params& p, cudaStream_t stream) {
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    kernel<<<grid, threads, smem, stream>>>(p);
-    return (int)cudaGetLastError();
-}
-
 bool shapes_ok(int B, int T, int H, int KVH, int hd) {
-    return B > 0 && B <= 65535 && T > 0 && T % kTile == 0 && T / kTile <= 65535 && H > 0 && KVH > 0 && H % KVH == 0 &&
+    return B > 0 && B <= 65535 && T > 0 && T % 128 == 0 && T / 64 <= 65535 && H > 0 && KVH > 0 && H % KVH == 0 &&
            (hd == 128 || hd == 256);
 }
 
@@ -905,22 +933,44 @@ int launch_fwd(const Params& p, int B, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-// The four tensor maps of the dK/dV kernel (64-row boxes of q, k, v and do)
-// and its launch, one block an item of the plan.
+// The four tensor maps of a backward kernel: boxes of `rows` query rows of q
+// and do, and of `keys` keys of k and v.
+int encode_bwd(CUtensorMap& tq, CUtensorMap& tk, CUtensorMap& tv, CUtensorMap& tdo, const Params& p, int hd, int B,
+               int rows, int keys) {
+    int e = encode_rows(&tq, p.q, hd, B, p.T, p.H, p.sqb, p.sqt, rows);
+    if (e == 0) e = encode_rows(&tk, p.k, hd, B, p.T, p.KVH, p.skb, p.skt, keys);
+    if (e == 0) e = encode_rows(&tv, p.v, hd, B, p.T, p.KVH, p.svb, p.svt, keys);
+    if (e == 0) e = encode_rows(&tdo, p.dout, hd, B, p.T, p.H, p.sdb, p.sdt, rows);
+    return e;
+}
+
+// The dK/dV kernel's launch, one block an item of the plan.
 template <int HD>
 int launch_dkv(const Params& p, int B, const DkvItem* items, int n_items, float* part_k, float* part_v,
                cudaStream_t stream) {
     using C = DkvCfg<HD>;
     CUtensorMap tq, tk, tv, tdo;
-    int e = encode_rows(&tq, p.q, HD, B, p.T, p.H, p.sqb, p.sqt, C::kRows);
-    if (e == 0) e = encode_rows(&tk, p.k, HD, B, p.T, p.KVH, p.skb, p.skt, C::kKeys);
-    if (e == 0) e = encode_rows(&tv, p.v, HD, B, p.T, p.KVH, p.svb, p.svt, C::kKeys);
-    if (e == 0) e = encode_rows(&tdo, p.dout, HD, B, p.T, p.H, p.sdb, p.sdt, C::kRows);
+    const int e = encode_bwd(tq, tk, tv, tdo, p, HD, B, C::kRows, C::kKeys);
     if (e != 0) return e;
     const cudaError_t a =
         cudaFuncSetAttribute(flash_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
     if (a != cudaSuccess) return (int)a;
     flash_bwd_dkv_kernel<HD><<<n_items, C::kThreads, C::kBytes, stream>>>(tq, tk, tv, tdo, items, part_k, part_v, p);
+    return (int)cudaGetLastError();
+}
+
+// The dQ kernel's launch: a block the kRows query rows of one head, the
+// longest rows first.
+template <int HD>
+int launch_dq(const Params& p, int B, cudaStream_t stream) {
+    using C = DqCfg<HD>;
+    CUtensorMap tq, tk, tv, tdo;
+    const int e = encode_bwd(tq, tk, tv, tdo, p, HD, B, C::kRows, C::kKeys);
+    if (e != 0) return e;
+    const cudaError_t a =
+        cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
+    if (a != cudaSuccess) return (int)a;
+    flash_bwd_dq_kernel<HD><<<dim3(p.H, B, p.T / C::kRows), C::kThreads, C::kBytes, stream>>>(tq, tk, tv, tdo, p);
     return (int)cudaGetLastError();
 }
 
@@ -933,7 +983,7 @@ BNB_EXPORT int bnb_flash_attention_causal_fwd(const void* q, const void* k, cons
                                               float* l, int B, int T, int H, int KVH, int hd, long long sqb,
                                               long long sqt, long long skb, long long skt, long long svb,
                                               long long svt, float scale, cudaStream_t stream) {
-    if (!shapes_ok(B, T, H, KVH, hd) || T % 128) return (int)cudaErrorInvalidValue;
+    if (!shapes_ok(B, T, H, KVH, hd)) return (int)cudaErrorInvalidValue;
     Params p = make_params(q, k, v, nullptr, nullptr, nullptr, nullptr, T, H, KVH, sqb, sqt, skb, skt, svb, svt, 0,
                            0, scale);
     p.o = static_cast<__nv_bfloat16*>(o);
@@ -956,7 +1006,7 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dkv(const void* q, const void* k, 
                                                   long long sqt, long long skb, long long skt, long long svb,
                                                   long long svt, long long sdb, long long sdt, float scale,
                                                   cudaStream_t stream) {
-    if (!shapes_ok(B, T, H, KVH, hd) || T % 128 || n_items <= 0 || items == nullptr)
+    if (!shapes_ok(B, T, H, KVH, hd) || n_items <= 0 || items == nullptr)
         return (int)cudaErrorInvalidValue;
     Params p = make_params(q, k, v, dout, m, l, di, T, H, KVH, sqb, sqt, skb, skt, svb, svt, sdb, sdt, scale);
     p.dk = static_cast<__nv_bfloat16*>(dk);
@@ -979,7 +1029,8 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dkv_combine(const float* part_k, c
     return (int)cudaGetLastError();
 }
 
-// dq [B, T, H, hd] bf16 (packed).
+// dq [B, T, H, hd] bf16 (packed), T a multiple of 128.  Returns a CUDA error,
+// or kTmaError + the CUresult of a tensor map that cannot be encoded.
 BNB_EXPORT int bnb_flash_attention_causal_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                                  const float* m, const float* l, const float* di, void* dq, int B,
                                                  int T, int H, int KVH, int hd, long long sqb, long long sqt,
@@ -988,7 +1039,6 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dq(const void* q, const void* k, c
     if (!shapes_ok(B, T, H, KVH, hd)) return (int)cudaErrorInvalidValue;
     Params p = make_params(q, k, v, dout, m, l, di, T, H, KVH, sqb, sqt, skb, skt, svb, svt, sdb, sdt, scale);
     p.dq = static_cast<__nv_bfloat16*>(dq);
-    const dim3 grid(H, B, T / kRows);
-    if (hd == 128) return launch(flash_bwd_dq_kernel<128>, grid, 128, DqLayout<128>::kBytes, p, stream);
-    return launch(flash_bwd_dq_kernel<256>, grid, 128, DqLayout<256>::kBytes, p, stream);
+    if (hd == 128) return launch_dq<128>(p, B, stream);
+    return launch_dq<256>(p, B, stream);
 }

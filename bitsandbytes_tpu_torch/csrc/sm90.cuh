@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the hand-written kernels: mbarriers, TMA
 // tile loads from a tensor map, wgmma with its shared-memory descriptors, and
 // setmaxnreg, named barriers.  Used by the causal flash attention forward and
-// its dK/dV kernel (flash_attention.cu).
+// its dK/dV and dQ kernels (flash_attention.cu).
 //
 // Shared-memory tiles are the ones TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
 // a box whose inner dimension is 64 bf16 values (128 bytes) lands as rows of

@@ -6,11 +6,10 @@ Replaces the three TPU kernels that the JAX package reaches through
 ``jax/experimental/pallas/ops/tpu/flash_attention.py`` (``causal=True``,
 ``sm_scale = hd**-0.5``, its default 128 x 128 blocks).  The CUDA source is
 ``csrc/flash_attention.cu``, bf16 only, head_dim 128 or 256, T a multiple of
-128.  The forward and the dK/dV kernel run on ``wgmma`` with their tiles
-loaded by TMA (a producer warpgroup and consumer warpgroups; ``csrc/sm90.cuh``);
-the dK/dV kernel walks a work plan built here (:func:`dkv_plan`), and a
-combine kernel adds the pieces of the key tiles it splits.  The dQ kernel
-runs on ``mma.sync`` with a ``cp.async`` ring.
+128.  All three run on ``wgmma`` over tiles that one producer thread loads
+by TMA for consumer warpgroups (``csrc/sm90.cuh``); the dK/dV kernel walks a
+work plan built here (:func:`dkv_plan`), and a combine kernel adds the
+pieces of the key tiles it splits.
 
 Layouts are the model's: ``q [B, T, H, hd]``, ``k, v [B, T, KVH, hd]`` with
 ``H`` a multiple of ``KVH`` (query head ``h`` reads KV head ``h // G``, as
@@ -219,9 +218,9 @@ TMA_MAX_STRIDE_BYTES = 1 << 40
 
 
 def _tma_ok(name: str, t: torch.Tensor) -> None:
-    """The forward and the dK/dV kernel read ``t`` through a tensor map over
-    its ``[B, T, heads, hd]`` view: every dimension at most 2^32 elements and
-    every byte stride under 2^40, or it raises."""
+    """The three kernels read ``t`` through a tensor map over its ``[B, T,
+    heads, hd]`` view: every dimension at most 2^32 elements and every byte
+    stride under 2^40, or it raises."""
     if max(t.shape) > TMA_MAX_DIM:
         raise ValueError(f"the CUDA kernels read {name} through TMA: a dimension over 2^32 in {tuple(t.shape)}")
     if max(st * t.element_size() for st in t.stride()) >= TMA_MAX_STRIDE_BYTES:
@@ -353,11 +352,17 @@ def _rows_aligned(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"the CUDA dK/dV kernel copies {name} in bulk: its base must be 16-byte aligned")
 
 
-def _dkv_checks(q, k, v, do, m, l, di) -> None:
-    """What the dK/dV kernel takes beyond ``_bwd_args``: q, k, v and do
-    through TMA tensor maps, and m, l and di on 16-byte aligned bases."""
+def _dq_checks(q, k, v, do) -> None:
+    """What the dQ kernel takes beyond ``_bwd_args``: q, k, v and do through
+    TMA tensor maps."""
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         _tma_ok(name, t)
+
+
+def _dkv_checks(q, k, v, do, m, l, di) -> None:
+    """What the dK/dV kernel takes beyond ``_bwd_args``: the dQ kernel's
+    tensor maps, and m, l and di on 16-byte aligned bases."""
+    _dq_checks(q, k, v, do)
     for name, t in (("m", m), ("l", l), ("di", di)):
         _rows_aligned(name, t)
 
@@ -434,12 +439,23 @@ def flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di):
     return dk, dv
 
 
+def _dq_args(q, k, v, do, m, l, di):
+    """Everything the dQ kernel checks before a launch (``_bwd_args`` and
+    ``_dq_checks``): ``(shapes, pointers, strides)``, or it raises."""
+    args = _bwd_args(q, k, v, do, m, l, di)
+    _dq_checks(q, k, v, do)
+    return args
+
+
 def flash_attention_causal_bwd_dq(q, k, v, do, m, l, di):
-    """The gradient of q, ``dq [B, T, H, hd]``: a block owns 64 query rows
-    and walks the key tiles up to the diagonal, in order (no atomics)."""
+    """The gradient of q, ``dq [B, T, H, hd]``: a block owns 128 query rows
+    of one head (64 at head_dim 256) and walks the key tiles up to the
+    diagonal in key order, the sum in f32 registers (no atomics, so every
+    call gives the same bits); q, k, v and do are read in place through TMA
+    tensor maps over their strides."""
     if not use_kernel(q, k, v, do, m, l, di):
         return flash_attention_causal_bwd_dq_plain(q, k, v, do, m, l, di)
-    (B, T, H, KVH, hd), ptrs, strides = _bwd_args(q, k, v, do, m, l, di)
+    (B, T, H, KVH, hd), ptrs, strides = _dq_args(q, k, v, do, m, l, di)
     dq = torch.empty(B, T, H, hd, dtype=q.dtype, device=q.device)
     if B:
         err = _lib.lib().bnb_flash_attention_causal_bwd_dq(

@@ -87,11 +87,11 @@ Phases (every one asserts; any failure exits non-zero before the result):
    attention of the training path (3p: forward, dK/dV and dQ), each against
    its plain version and twice bit for bit at Llama-3-8B's attention (H 32
    over 8, hd 128) at T 1024-8192 and Gemma-7B's (H 16, hd 256) at T 4096,
-   device ms beside SDPA forward and backward and each bound (the forward's
-   and the dK/dV kernel's also beside their earlier mma.sync bodies'; their
-   SASS must show wgmma and TMA and no local stores; the dK/dV kernel's
-   combine bit for bit its plain version at T 1024); then the kernels
-   against the dense oracle at T 512 and 1024, below the route's line.
+   device ms beside SDPA forward and backward and each bound (each also
+   beside its earlier mma.sync body's; their SASS must show wgmma and TMA
+   and no local stores; the dK/dV kernel's combine bit for bit its plain
+   version at T 1024); then the kernels against the dense oracle at T 512
+   and 1024, below the route's line.
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -349,6 +349,15 @@ FLASH_FWD_MMA_SYNC_MS = {(1024, 128): 0.08396799862384796, (2048, 128): 0.288480
 FLASH_DKV_MMA_SYNC_MS = {(1024, 128): 0.3872480094432831, (2048, 128): 0.8520640134811401,
                          (4096, 128): 1.8784159421920776, (8192, 128): 7.299696207046509,
                          (4096, 256): 2.6357120275497437}
+
+# kernel 19's device ms at 3p's shapes, (T, hd): -> ms, in its earlier mma.sync
+# body (a block 64 query rows, four warps of 16, a cp.async ring): the mean of
+# that body's two medians in one run of experiments/ab_flash_attention_torch.py
+# (parent, change, change, parent) on an NVIDIA H100 80GB HBM3 at 700 W; 3p
+# emits that body's bound share beside the kernel's
+FLASH_DQ_MMA_SYNC_MS = {(1024, 128): 0.08718400076031685, (2048, 128): 0.2913280129432678,
+                        (4096, 128): 1.0802720189094543, (8192, 128): 4.21343994140625,
+                        (4096, 256): 1.2831679582595825}
 
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
@@ -2749,14 +2758,14 @@ def flash_train_kernels(dev, entry):
     threshold sweep: at T 512 and 1024 (hd 128) the kernels' forward and
     backward through ``FlashAttentionCausal`` against the dense f32 oracle
     (``models/llama._attention``), events around each, and their peaks.  The
-    kernels line takes T 2048.  The forward's and kernel 18's bound shares
-    stand beside those of their earlier mma.sync bodies
-    (``FLASH_FWD_MMA_SYNC_MS``, ``FLASH_DKV_MMA_SYNC_MS``), with kernel 18's
-    work plan at each shape, and the SASS of each forward and dK/dV instance
-    must hold ``HGMMA`` and ``UTMALDG`` and no ``STL`` (wgmma, TMA, no
-    spills).  At T 1024, where the plan splits key tiles, kernel 18's combine
-    on random partials under that plan is held bit for bit against its plain
-    version and timed (its kernels-line entry).  Two batched shapes (B 2, T
+    kernels line takes T 2048.  Each kernel's bound share stands beside
+    that of its earlier mma.sync body (``FLASH_FWD_MMA_SYNC_MS``,
+    ``FLASH_DKV_MMA_SYNC_MS``, ``FLASH_DQ_MMA_SYNC_MS``), with kernel 18's
+    work plan at each shape, and the SASS of each forward, dK/dV and dQ
+    instance must hold ``HGMMA`` and ``UTMALDG`` and no ``STL`` (wgmma, TMA,
+    no spills).  At T 1024, where the plan splits key tiles, kernel 18's
+    combine on random partials under that plan is held bit for bit against
+    its plain version and timed (its kernels-line entry).  Two batched shapes (B 2, T
     1152, hd 128; B 3, T 640, hd 256) hold each kernel to the same
     tolerances, untimed."""
     import torch
@@ -2817,7 +2826,8 @@ def flash_train_kernels(dev, entry):
         for key, (nb, ops) in work.items():
             b_ms, b_by = bound_ms(nb, ops, PEAK_BF16_FLOPS)
             row[key].update(bytes=nb, flops=ops, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / row[key]["ms"])
-        for key, table in (("fwd", FLASH_FWD_MMA_SYNC_MS), ("dkv", FLASH_DKV_MMA_SYNC_MS)):
+        for key, table in (("fwd", FLASH_FWD_MMA_SYNC_MS), ("dkv", FLASH_DKV_MMA_SYNC_MS),
+                           ("dq", FLASH_DQ_MMA_SYNC_MS)):
             old_ms = table[(T, hd)]
             row[key].update(mma_sync_ms=old_ms, mma_sync_bound_share=row[key]["bound_ms"] / old_ms,
                             speedup_over_mma_sync=old_ms / row[key]["ms"])
@@ -2906,18 +2916,19 @@ def flash_train_kernels(dev, entry):
                       "kernels_faster_both_ways": kern["fwd_ms"] + kern["bwd_ms"] < orac["fwd_ms"] + orac["bwd_ms"]})
         del q, k, v, do, gout
         torch.cuda.empty_cache()
-    # the forward's and kernel 18's instances: wgmma (HGMMA), TMA loads (UTMALDG), no local stores
+    # the instances of kernels 17-19: wgmma (HGMMA), TMA loads (UTMALDG), no local stores
+    flash_kernels = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
     sass, wg_sass, fn = sass_of(_lib.build()), {}, None
     for line in (sass or "").splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            fn = fn if ("flash_fwd_kernel" in fn or "flash_bwd_dkv_kernel" in fn) else None
+            fn = fn if any(k in fn for k in flash_kernels) else None
             if fn:
                 wg_sass[fn] = {"HGMMA": 0, "UTMALDG": 0, "STL": 0}
         elif fn:
             for op in wg_sass[fn]:
                 wg_sass[fn][op] += f" {op}" in line
-    for kern in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+    for kern in flash_kernels:
         inst = {n: c for n, c in wg_sass.items() if kern in n}
         assert sass is None or (len(inst) == 2 and all(c["HGMMA"] and c["UTMALDG"] and not c["STL"]
                                                        for c in inst.values())), f"3p {kern} SASS {inst}"

@@ -19,15 +19,16 @@ run:
   SDPA forward and backward (``is_causal``, ``enable_gqa``; its backward
   computes dq, dk and dv in one call) on the same tensors, checks the
   output against the plain version (o within 2e-2 abs, m 1e-4, l 1e-5
-  relative) and kernel 18's dk and dv against theirs (each within 1e-2 of
-  its largest magnitude; the backward takes the plain forward's m, l and
-  ``di = sum(o * do)``), and fingerprints o, m, l, dk and dv;
+  relative) and kernel 18's dk and dv and kernel 19's dq against theirs
+  (each within 1e-2 of its largest magnitude; the backward takes the plain
+  forward's m, l and ``di = sum(o * do)``), and fingerprints o, m, l, dk,
+  dv and dq;
 * trains one QLoRA step of 4r(a) (Llama-3-8B, all 32 layers, NF4 double
   quantized and fused, rank 64 on all seven targets, ``adamw8bit``, ids
   [1, 2049], ``token_chunk`` 512; random weights from seed 0) after a warm-up
   step, under ``torch.profiler``: device ms by class, kernels 17-19 apart;
-* counts ``HGMMA``, ``UTMALDG`` and ``STL`` in the SASS of each forward and
-  dK/dV instance of the root's build (``cuobjdump -sass``).
+* counts ``HGMMA``, ``UTMALDG`` and ``STL`` in the SASS of each forward,
+  dK/dV and dQ instance of the root's build (``cuobjdump -sass``).
 
 Prints one JSON line per run, then one line with the runs' times side by
 side and whether each root gives the same bits every time it runs.
@@ -48,7 +49,7 @@ CLASSES = [("flash_fwd_kernel", "kernel 17"), ("flash_bwd_dkv_kernel", "kernel 1
 TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
-def sass_counts(so: str, nvcc: str, kernels=("flash_fwd_kernel", "flash_bwd_dkv_kernel")):
+def sass_counts(so: str, nvcc: str, kernels=("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")):
     """HGMMA, UTMALDG and STL instructions in each instance of ``kernels``
     (None without cuobjdump)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
@@ -114,10 +115,13 @@ def run_one(root: str) -> dict:
         bwd = (q, k, v, do, mp, lp, (op.float() * do.float()).sum(-1).transpose(1, 2).contiguous())
         dk, dv = FA.flash_attention_causal_bwd_dkv(*bwd)
         dkp, dvp = FA.flash_attention_causal_bwd_dkv_plain(*bwd)
-        errs.update(dk_rel=rel(dk, dkp), dv_rel=rel(dv, dvp))
+        dq = FA.flash_attention_causal_bwd_dq(*bwd)
+        errs.update(dk_rel=rel(dk, dkp), dv_rel=rel(dv, dvp),
+                    dq_rel=rel(dq, FA.flash_attention_causal_bwd_dq_plain(*bwd)))
         again_kv = FA.flash_attention_causal_bwd_dkv(*bwd)
-        same_kv = torch.equal(again_kv[0], dk) and torch.equal(again_kv[1], dv)
-        ok = ok and max(errs["dk_rel"], errs["dv_rel"]) <= 1e-2 and same_kv
+        same_kv = (torch.equal(again_kv[0], dk) and torch.equal(again_kv[1], dv)
+                   and torch.equal(FA.flash_attention_causal_bwd_dq(*bwd), dq))
+        ok = ok and max(errs["dk_rel"], errs["dv_rel"], errs["dq_rel"]) <= 1e-2 and same_kv
         dkv_ms = dev_ms(lambda: FA.flash_attention_causal_bwd_dkv(*bwd))
         qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
         sdpa_o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
@@ -129,8 +133,8 @@ def run_one(root: str) -> dict:
                      "dq_ms": dev_ms(lambda: FA.flash_attention_causal_bwd_dq(*bwd)),
                      "sdpa_bwd_ms": dev_ms(lambda: torch.autograd.grad(sdpa_o, (qg, kg, vg), dot, retain_graph=True)),
                      "errs": errs, "run_to_run_bits": same and same_kv, "ok": ok})
-        prints[str(rows[-1]["shape"])] = [fingerprint(t) for t in (o, m, l, dk, dv)]
-        del q, k, qkv, v, do, o, m, l, op, mp, lp, again, qt, kt, vt, bwd, dk, dv, dkp, dvp, again_kv
+        prints[str(rows[-1]["shape"])] = [fingerprint(t) for t in (o, m, l, dk, dv, dq)]
+        del q, k, qkv, v, do, o, m, l, op, mp, lp, again, qt, kt, vt, bwd, dk, dv, dq, dkp, dvp, again_kv
         del qg, kg, vg, sdpa_o, dot
         torch.cuda.empty_cache()
 

@@ -168,9 +168,10 @@ def test_route_predicate_matches_jax(window):
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     """The checks the wrappers make before a launch (run here on CPU
     tensors): bf16 only, head_dim 128 or 256, T a multiple of 128, heads and
-    head_dim packed with 16-byte aligned rows; and what the forward's TMA
-    tensor maps need: a base on 16 bytes, every stride a multiple of 16
-    bytes, at most 2^32 elements a dimension and strides under 2^40 bytes."""
+    head_dim packed with 16-byte aligned rows; and what the TMA tensor maps
+    of all three kernels need: a base on 16 bytes, every stride a multiple of
+    16 bytes, at most 2^32 elements a dimension and strides under 2^40
+    bytes."""
     q = torch.zeros(1, 256, 4, 128, dtype=torch.bfloat16)
     k = torch.zeros(1, 256, 2, 128, dtype=torch.bfloat16)
     FA._check_cuda(q, k, k, 256, 128)
@@ -220,6 +221,31 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
             args[i] = bad_t
             with pytest.raises(ValueError, match=what):
                 FA._dkv_checks(*args, rows, rows, rows)
+    # the dQ kernel reads q, k, v and do through TMA too: everything its
+    # wrapper checks before a launch, on CPU and meta tensors
+    FA._dq_args(q, k, k, q, rows, rows, rows)
+    FA._dq_args(*(t.to("meta") for t in (q, k, k, q, rows, rows, rows)))
+    for i in range(4):
+        heads = 4 if i in (0, 3) else 2
+        n = 256 * heads * 128
+        off_base = torch.zeros(n + 8, dtype=torch.bfloat16)[1:1 + n].view(1, 256, heads, 128)
+        off_stride = torch.zeros(1, 256, heads * 128 + 4, dtype=torch.bfloat16)[..., :heads * 128]
+        off_stride = off_stride.reshape(1, 256, heads, 128)
+        assert off_base.data_ptr() % 16 and off_stride.stride(1) * 2 % 16
+        for bad_t in (off_base, off_stride):
+            args = [q, k, k, q]
+            args[i] = bad_t
+            with pytest.raises(ValueError, match="aligned"):
+                FA._dq_args(*args, rows, rows, rows)
+        for bad_t, what in ((huge, "dimension"), (wide, "stride")):
+            args = [q, k, k, q]
+            args[i] = bad_t
+            with pytest.raises(ValueError, match=what):
+                FA._dq_checks(*args)
+    big = FA.TMA_MAX_DIM + 1
+    with pytest.raises(ValueError, match="dimension"):
+        FA._dq_args(*(torch.empty(big, 128, n, 128, dtype=torch.bfloat16, device="meta") for n in (4, 2, 2, 4)),
+                    *(torch.empty(big, 4, 128, device="meta"),) * 3)
 
 
 # chip_smoke.py's 3p shapes (B, T, H, KVH, hd) and its two batched ones, on an
