@@ -23,6 +23,12 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The same in f16 (one cvt.rn.f16x2.f32).
+__device__ __forceinline__ uint32_t pack_f16x2(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);  // .x at the lower address
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
 __device__ __forceinline__ float2 unpack_bf16x2(uint32_t w) {
     __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&w);
     return __bfloat1622float2(v);

@@ -4,7 +4,7 @@
 // its dK/dV and dQ kernels (flash_attention.cu).
 //
 // Shared-memory tiles are the ones TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
-// a box whose inner dimension is 64 bf16 values (128 bytes) lands as rows of
+// a box whose inner dimension is 64 16-bit values (128 bytes) lands as rows of
 // 128 bytes, the 16-byte chunks of row r XOR-ed with r % 8, so 8 rows make a
 // 1024-byte atom.  Every tile starts on a 1024-byte boundary.  A wider row
 // (head_dim 128 or 256) is loaded as 64-column chunks, one tile after the
@@ -112,11 +112,12 @@ inline EncodeTiledFn encode_tiled_fn() {
     return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions over `base`: sizes `dims` and boxes
-// `box` innermost first, `strides` the byte strides of dimensions 1.., the
-// box's rows 128-byte swizzled (box[0] must be 64).
-inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                             const uint64_t* strides, const uint32_t* box) {
+// A tensor map of 16-bit values (`type`: CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 or
+// _FLOAT16) of `rank` dimensions over `base`: sizes `dims` and boxes `box`
+// innermost first, `strides` the byte strides of dimensions 1.., the box's
+// rows 128-byte swizzled (box[0] must be 64).
+inline int encode_16bit_sw128(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                              const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
     const EncodeTiledFn fn = encode_tiled_fn();
     if (fn == nullptr) return kTmaError + (int)CUDA_ERROR_NOT_FOUND;
     cuuint64_t d[5], s[4];
@@ -127,7 +128,7 @@ inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank, const
         es[i] = 1;
         if (i + 1 < rank) s[i] = strides[i];
     }
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), d, s, bx,
+    const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, bx,
                           es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : kTmaError + (int)r;
@@ -135,7 +136,7 @@ inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank, const
 
 // --- wgmma -------------------------------------------------------------------
 
-// The descriptor of a 128-byte-swizzled bf16 operand at shared address
+// The descriptor of a 128-byte-swizzled 16-bit operand at shared address
 // `saddr` (start address, leading and stride byte offsets in 16-byte units,
 // layout 1 = 128B swizzle).
 // * K-major (the reduction dimension contiguous, as Q and K are): rows of 64
@@ -180,113 +181,120 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
     for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// d[64 x N] (+)= a[64 x 16] b[N x 16]^T, bf16 in, f32 accumulate, both
-// operands K-major in shared memory (descriptors da, db); d is added to
-// where scale_d != 0.  The accumulator layout: warp w of the warpgroup holds
-// rows 16 w + lane / 4 (d[4 j], d[4 j + 1]) and 8 more (d[4 j + 2], d[4 j + 3])
-// at columns 8 j + 2 (lane % 4) + {0, 1}.
-template <int N>
+// d[64 x N] (+)= a[64 x 16] b[N x 16]^T, E (bf16 or f16) in, f32
+// accumulate, both operands K-major in shared memory (descriptors da, db); d
+// is added to where scale_d != 0.  The accumulator layout: warp w of the
+// warpgroup holds rows 16 w + lane / 4 (d[4 j], d[4 j + 1]) and 8 more
+// (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 (lane % 4) + {0, 1}.
+template <int N, class E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
 
 // d[64 x N] (+)= a[64 x 16] b[16 x N], a from registers (warp w's rows 16 w..,
 // the mma.sync m16n8k16 A fragment: the accumulator layout of a product
-// before it, rounded to bf16 pairs), b MN-major in shared memory
-// (transposed B).
-template <int N>
+// before it, rounded to E pairs), b MN-major in shared memory (transposed B).
+template <int N, class E>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d);
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
-}
+// The two 16-bit types differ in the instruction's type words alone (TY).
+// The accumulator operands of an m64nNk16 product: N / 2 f32 registers.
+#define BNB_D32 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define BNB_D64 BNB_D32, \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define BNB_D128 BNB_D64, \
+    "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+    "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+    "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+    "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+    "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+    "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+    "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+    "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+// "{%0, ..., %(n-1)}" of the accumulators
+#define BNB_R32 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define BNB_R64 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define BNB_R128 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," \
+    "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+    "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
+    "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
+    "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+
+#define BNB_WGMMA_SS(NN, TY, REGS, DOUT, PA, PB, PS)                                                      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" PS ", 0;\n"                                          \
+                 "wgmma.mma_async.sync.aligned.m64n" NN "k16.f32." TY "." TY " {" REGS "}, %" PA ", %" PB  \
+                 ", p, 1, 1, 0, 0;\n}\n"                                                                   \
+                 : DOUT                                                                                   \
+                 : "l"(da), "l"(db), "r"(scale_d))
+
+#define BNB_WGMMA_RS_TB(NN, TY, REGS, DOUT, A0, A1, A2, A3, PB, PS)                                         \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" PS ", 0;\n"                                          \
+                 "wgmma.mma_async.sync.aligned.m64n" NN "k16.f32." TY "." TY " {" REGS "}, {%" A0 ", %" A1  \
+                 ", %" A2 ", %" A3 "}, %" PB ", p, 1, 1, 1;\n}\n"                                          \
+                 : DOUT                                                                                   \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
 
 template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+__device__ __forceinline__ void wgmma_ss<64, __nv_bfloat16>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    BNB_WGMMA_SS("64", "bf16", BNB_R32, BNB_D32, "32", "33", "34");
 }
-
 template <>
-__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
-                                                 int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+__device__ __forceinline__ void wgmma_ss<64, __half>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    BNB_WGMMA_SS("64", "f16", BNB_R32, BNB_D32, "32", "33", "34");
 }
-
 template <>
-__device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
-                                                 int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+__device__ __forceinline__ void wgmma_ss<128, __nv_bfloat16>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    BNB_WGMMA_SS("128", "bf16", BNB_R64, BNB_D64, "64", "65", "66");
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128, __half>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    BNB_WGMMA_SS("128", "f16", BNB_R64, BNB_D64, "64", "65", "66");
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128, __nv_bfloat16>(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                                int scale_d) {
+    BNB_WGMMA_RS_TB("128", "bf16", BNB_R64, BNB_D64, "64", "65", "66", "67", "68", "69");
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128, __half>(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                         int scale_d) {
+    BNB_WGMMA_RS_TB("128", "f16", BNB_R64, BNB_D64, "64", "65", "66", "67", "68", "69");
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<256, __nv_bfloat16>(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                                                int scale_d) {
+    BNB_WGMMA_RS_TB("256", "bf16", BNB_R128, BNB_D128, "128", "129", "130", "131", "132", "133");
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<256, __half>(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                                         int scale_d) {
+    BNB_WGMMA_RS_TB("256", "f16", BNB_R128, BNB_D128, "128", "129", "130", "131", "132", "133");
 }
 
+#undef BNB_WGMMA_SS
+#undef BNB_WGMMA_RS_TB
+#undef BNB_R32
+#undef BNB_R64
+#undef BNB_R128
+#undef BNB_D32
+#undef BNB_D64
+#undef BNB_D128
 
 // --- named barriers ----------------------------------------------------------
 

@@ -75,6 +75,9 @@ LAUNCHES: dict = {
     "flash_attention_causal_bwd_dkv": 0,
     "flash_attention_causal_bwd_dkv_combine": 0,
     "flash_attention_causal_bwd_dq": 0,
+    "flash_attention_causal_fwd_wide": 0,
+    "flash_attention_causal_bwd_dkv_wide": 0,
+    "flash_attention_causal_bwd_dq_wide": 0,
 }
 
 _lock = threading.Lock()
@@ -153,6 +156,11 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
 
+_FLASH_FWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _P]
+_FLASH_DKV = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
+              _F, _I, _P]
+_FLASH_DQ = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P]
+
 _SIGNATURES = {
     # x, u (or NULL), codes, absmax, n, blocksize, midpoints[15] (host), sorted code[16] (host),
     # order (rank -> bit-pattern nibbles), identity, x_kind, stream
@@ -208,18 +216,19 @@ _SIGNATURES = {
     # G, B, absmax, part (scratch), out, M, N, K, blocksize, rows_per_split, splits, code[16] (host),
     # g_kind, stream
     "bnb_gemm_4bit_nt_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    # q, k, v, o, m, l, B, T, H, KVH, hd, (batch, token) strides of q, k, v, scale, stream
-    "bnb_flash_attention_causal_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F,
-                                       _P],
+    # q, k, v, o, m, l, B, T, H, KVH, hd, (batch, token) strides of q, k, v, scale, kind (_KIND), stream;
+    # the _wide entries take the same arguments
+    "bnb_flash_attention_causal_fwd": _FLASH_FWD,
+    "bnb_flash_attention_causal_fwd_wide": _FLASH_FWD,
     # q, k, v, do, m, l, di, dk, dv, part_k, part_v (or NULL), items (device), n_items, B, T, H, KVH, hd,
-    # (batch, token) strides of q, k, v, do, scale, stream
-    "bnb_flash_attention_causal_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                           _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
-    # part_k, part_v, table (device), n_units, dk, dv, T, KVH, hd, stream
-    "bnb_flash_attention_causal_bwd_dkv_combine": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
-    # q, k, v, do, m, l, di, dq, B, T, H, KVH, hd, (batch, token) strides of q, k, v, do, scale, stream
-    "bnb_flash_attention_causal_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
-                                          _L, _L, _L, _F, _P],
+    # (batch, token) strides of q, k, v, do, scale, kind, stream
+    "bnb_flash_attention_causal_bwd_dkv": _FLASH_DKV,
+    "bnb_flash_attention_causal_bwd_dkv_wide": _FLASH_DKV,
+    # part_k, part_v, table (device), n_units, dk, dv, T, KVH, hd, kind, stream
+    "bnb_flash_attention_causal_bwd_dkv_combine": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, do, m, l, di, dq, B, T, H, KVH, hd, (batch, token) strides of q, k, v, do, scale, kind, stream
+    "bnb_flash_attention_causal_bwd_dq": _FLASH_DQ,
+    "bnb_flash_attention_causal_bwd_dq_wide": _FLASH_DQ,
 }
 
 

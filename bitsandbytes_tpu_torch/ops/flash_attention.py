@@ -5,11 +5,25 @@ Replaces the three TPU kernels that the JAX package reaches through
 ``models/llama.py:_flash_call``: the forward, the dK/dV and the dQ kernel of
 ``jax/experimental/pallas/ops/tpu/flash_attention.py`` (``causal=True``,
 ``sm_scale = hd**-0.5``, its default 128 x 128 blocks).  The CUDA source is
-``csrc/flash_attention.cu``, bf16 only, head_dim 128 or 256, T a multiple of
-128.  All three run on ``wgmma`` over tiles that one producer thread loads
-by TMA for consumer warpgroups (``csrc/sm90.cuh``); the dK/dV kernel walks a
-work plan built here (:func:`dkv_plan`), and a combine kernel adds the
-pieces of the key tiles it splits.
+``csrc/flash_attention.cu``; it takes q, k, v in bf16, f16 or f32, any
+head_dim that is a multiple of 128 and T a multiple of 128: every case the
+model's route (``models/llama._flash_ok``) sends, as the JAX package's does.
+Two families of hand-written kernels share that source, and the wrappers
+pick one by type and head_dim alone (:func:`uses_wgmma`):
+
+* bf16 and f16 at head_dim 128 and 256 run on ``wgmma`` over tiles that one
+  producer thread loads by TMA for consumer warpgroups (``csrc/sm90.cuh``);
+* f32 at any head_dim, and bf16 and f16 at 384 and up, run the wide family
+  on CUDA cores: full f32 FMA, not TF32, because the JAX package's f32 route
+  runs at "highest" precision (one TF32 pass keeps about three digits, and
+  TF32 ``wgmma`` cannot read V MN-major); and because a warpgroup's f32 O
+  or dQ of 64 rows takes hd / 2 registers a thread, which with S and dP
+  passes the 255-register limit above hd 256.  A block owns 128 columns of
+  its output and recomputes the scores over all of head_dim.  Each kernel
+  of this family counts under its own name (``..._wide``).
+
+Both dK/dV kernels walk a work plan built here (:func:`dkv_plan`), and one
+combine kernel adds the pieces of the key tiles it splits.
 
 Layouts are the model's: ``q [B, T, H, hd]``, ``k, v [B, T, KVH, hd]`` with
 ``H`` a multiple of ``KVH`` (query head ``h`` reads KV head ``h // G``, as
@@ -28,13 +42,13 @@ Numerics follow the TPU kernels:
 * backward: ``p = exp(s - m) * (1 / l)`` in f32, ``ds = (do . v - di) * p *
   scale`` with ``di = sum(o * do)`` in f32 (computed with torch ops, as the
   JAX package computes it outside the kernels); ``p`` and ``ds`` rounded to
-  bf16 before the dV, dK and dQ products, all three accumulated in f32 and
-  stored once in the input's type.  The GQA group's dK/dV add up in f32
-  before that one rounding (the JAX package rounds per query head, then
-  sums the repeat's transpose).
+  the inputs' type before the dV, dK and dQ products (no-ops in f32), all
+  three accumulated in f32 and stored once in the inputs' type.  The GQA
+  group's dK/dV add up in f32 before that one rounding (the JAX package
+  rounds per query head, then sums the repeat's transpose).
 
-The plain versions take bf16 and f32 and follow the TPU kernels block for
-block, the forward's per-step normalization included; the CUDA kernels
+The plain versions take bf16, f16 and f32 and follow the TPU kernels block
+for block, the forward's per-step normalization included; the CUDA kernels
 divide by ``l`` once at the end, the same function up to f32 rounding.
 """
 
@@ -46,11 +60,14 @@ import torch
 
 from . import _lib
 from .dispatch import use_kernel
+from .gemm4bit_paired import _KIND  # the C entry points' element types (csrc/common.cuh's Kind)
 
 __all__ = [
     "MASK_VALUE",
     "BLOCK",
-    "HEAD_DIMS",
+    "HEAD_DIM_STEP",
+    "WGMMA_HEAD_DIMS",
+    "uses_wgmma",
     "flash_attention_causal_fwd",
     "flash_attention_causal_fwd_plain",
     "flash_attention_causal_bwd_dkv",
@@ -69,8 +86,10 @@ __all__ = [
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 BLOCK = 128
 
-# head_dims the CUDA kernels take; T must be a multiple of BLOCK
-HEAD_DIMS = (128, 256)
+# the CUDA kernels take head_dim a multiple of this, and T of BLOCK
+HEAD_DIM_STEP = 128
+# the head_dims of the wgmma kernels (bf16 and f16); the wide family takes the rest
+WGMMA_HEAD_DIMS = (128, 256)
 
 
 def _shapes(q, k, v):
@@ -80,8 +99,8 @@ def _shapes(q, k, v):
     KVH = k.shape[2]
     if k.shape[0] != B or k.shape[1] != T or k.shape[3] != hd or KVH == 0 or H % KVH:
         raise ValueError(f"k/v {tuple(k.shape)} do not go with q {tuple(q.shape)}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must share one type, bf16 or f32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in _KIND or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one type, bf16, f16 or f32, got {q.dtype}, {k.dtype}, {v.dtype}")
     return B, T, H, KVH, hd
 
 
@@ -202,11 +221,18 @@ def _strides(name: str, t: torch.Tensor):
     return t.stride(0), t.stride(1)
 
 
+def uses_wgmma(dtype: torch.dtype, hd: int) -> bool:
+    """Whether q/k/v of ``dtype`` at ``hd`` run the wgmma kernels; the wide
+    family takes every other type and head_dim the CUDA kernels take."""
+    return dtype != torch.float32 and hd in WGMMA_HEAD_DIMS
+
+
 def _check_cuda(q, k, v, T: int, hd: int) -> None:
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernels take bf16 q/k/v, got {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernels take head_dim {HEAD_DIMS}, got {hd}")
+    """What both families refuse (the type is ``_shapes``'): head_dim off
+    multiples of 128 and T off multiples of 128, which the model's route
+    never sends."""
+    if hd % HEAD_DIM_STEP or hd == 0:
+        raise ValueError(f"the CUDA kernels take head_dim a positive multiple of {HEAD_DIM_STEP}, got {hd}")
     if T % BLOCK or T == 0:
         raise ValueError(f"the CUDA kernels take T a positive multiple of {BLOCK}, got {T}")
 
@@ -218,8 +244,8 @@ TMA_MAX_STRIDE_BYTES = 1 << 40
 
 
 def _tma_ok(name: str, t: torch.Tensor) -> None:
-    """The three kernels read ``t`` through a tensor map over its ``[B, T,
-    heads, hd]`` view: every dimension at most 2^32 elements and every byte
+    """The three wgmma kernels read ``t`` through a tensor map over its ``[B,
+    T, heads, hd]`` view: every dimension at most 2^32 elements and every byte
     stride under 2^40, or it raises."""
     if max(t.shape) > TMA_MAX_DIM:
         raise ValueError(f"the CUDA kernels read {name} through TMA: a dimension over 2^32 in {tuple(t.shape)}")
@@ -236,25 +262,28 @@ def flash_attention_causal_fwd(q, k, v):
     """Causal attention of ``q [B, T, H, hd]`` over ``k, v [B, T, KVH, hd]``
     (no cache, positions from 0): ``(o [B, T, H, hd], m [B, H, T] f32,
     l [B, H, T] f32)``.  Kernel on CUDA tensors, plain version on CPU
-    tensors.  A block owns 128 query rows of one head (64 at head_dim 256);
-    q, k and v are read in place through TMA tensor maps over their
-    strides."""
+    tensors.  On ``wgmma`` a block owns 128 query rows of one head (64 at
+    head_dim 256) and reads q, k and v in place through TMA tensor maps over
+    their strides; in the wide family 64 rows and 128 columns of o."""
     B, T, H, KVH, hd = _shapes(q, k, v)
     if not use_kernel(q, k, v):
         return flash_attention_causal_fwd_plain(q, k, v)
     _check_cuda(q, k, v, T, hd)
     sq, sk, sv = _strides("q", q), _strides("k", k), _strides("v", v)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _tma_ok(name, t)
+    wgmma = uses_wgmma(q.dtype, hd)
+    if wgmma:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _tma_ok(name, t)
     o = torch.empty(B, T, H, hd, dtype=q.dtype, device=q.device)
     m = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     if B:
-        err = _lib.lib().bnb_flash_attention_causal_fwd(
+        name = "flash_attention_causal_fwd" + ("" if wgmma else "_wide")
+        err = getattr(_lib.lib(), "bnb_" + name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), B, T, H, KVH, hd,
-            *sq, *sk, *sv, hd**-0.5, _lib.stream(q))
-        _lib.check(err, "flash_attention_causal_fwd")
-        _lib.LAUNCHES["flash_attention_causal_fwd"] += 1
+            *sq, *sk, *sv, hd**-0.5, _KIND[q.dtype], _lib.stream(q))
+        _lib.check(err, name)
+        _lib.LAUNCHES[name] += 1
     return o, m, l
 
 
@@ -271,9 +300,9 @@ def _bwd_args(q, k, v, do, m, l, di):
 # -- the dK/dV kernel's work plan ---------------------------------------------
 
 # An item of the plan is 64 keys of one KV head (DKV_KEYS), 128 columns of dK
-# and dV (DKV_COLS: two items a key tile at head_dim 256) and a range of the
-# key tile's iterations, one (query head, 64-row query tile) each.  A block
-# takes an item, and one block fits an SM (its registers).
+# and dV (DKV_COLS: hd / 128 items a key tile) and a range of the key tile's
+# iterations, one (query head, 64-row query tile) each.  A block takes an
+# item, and one block fits an SM (its registers), in both families.
 DKV_KEYS = 64
 DKV_COLS = 128
 DKV_BLOCKS_PER_SM = 1
@@ -395,14 +424,15 @@ def flash_attention_causal_bwd_dkv_combine(part_k, part_v, table, dk, dv):
         raise ValueError(f"the combine takes contiguous f32 partials [slots, {DKV_KEYS}, {DKV_COLS}]")
     if table.dtype != torch.int32 or table.dim() != 2 or table.shape[1] != 8 or not table.is_contiguous():
         raise ValueError("the combine takes a contiguous int32 table [units, 8]")
-    if (dk.dim() != 4 or dv.shape != dk.shape or dk.dtype != torch.bfloat16 or dv.dtype != dk.dtype
-            or not dk.is_contiguous() or not dv.is_contiguous()):
-        raise ValueError("the combine writes contiguous bf16 dk, dv [B, T, KVH, hd]")
+    if (dk.dim() != 4 or dv.shape != dk.shape or dk.dtype not in _KIND or dv.dtype != dk.dtype
+            or not dk.is_contiguous() or not dv.is_contiguous() or dk.shape[3] % DKV_COLS):
+        raise ValueError(f"the combine writes contiguous dk, dv [B, T, KVH, hd] of one float type, hd a multiple "
+                         f"of {DKV_COLS}")
     _, T, KVH, hd = dk.shape
     if table.shape[0]:
         err = _lib.lib().bnb_flash_attention_causal_bwd_dkv_combine(
             part_k.data_ptr(), part_v.data_ptr(), table.data_ptr(), table.shape[0], dk.data_ptr(), dv.data_ptr(),
-            T, KVH, hd, _lib.stream(dk))
+            T, KVH, hd, _KIND[dk.dtype], _lib.stream(dk))
         _lib.check(err, "flash_attention_causal_bwd_dkv_combine")
         _lib.LAUNCHES["flash_attention_causal_bwd_dkv_combine"] += 1
     return dk, dv
@@ -415,11 +445,13 @@ def flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di):
     range of its group's query heads and query tiles from the diagonal down,
     in a fixed order.  The pieces of a split key tile write f32 partials,
     which the combine adds in piece order, so every call gives the same
-    bits."""
+    bits.  Both families take the same plan."""
     if not use_kernel(q, k, v, do, m, l, di):
         return flash_attention_causal_bwd_dkv_plain(q, k, v, do, m, l, di)
     (B, T, H, KVH, hd), ptrs, strides = _bwd_args(q, k, v, do, m, l, di)
-    _dkv_checks(q, k, v, do, m, l, di)
+    wgmma = uses_wgmma(q.dtype, hd)
+    if wgmma:
+        _dkv_checks(q, k, v, do, m, l, di)
     dk = torch.empty(B, T, KVH, hd, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     if B:
@@ -428,40 +460,45 @@ def flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di):
         if plan.slots:
             part_k = torch.empty(plan.slots, DKV_KEYS, DKV_COLS, dtype=torch.float32, device=q.device)
             part_v = torch.empty_like(part_k)
-        err = _lib.lib().bnb_flash_attention_causal_bwd_dkv(
+        name = "flash_attention_causal_bwd_dkv" + ("" if wgmma else "_wide")
+        err = getattr(_lib.lib(), "bnb_" + name)(
             *ptrs, dk.data_ptr(), dv.data_ptr(), None if part_k is None else part_k.data_ptr(),
             None if part_v is None else part_v.data_ptr(), items.data_ptr(), len(plan.items), B, T, H, KVH, hd,
-            *strides, hd**-0.5, _lib.stream(q))
-        _lib.check(err, "flash_attention_causal_bwd_dkv")
-        _lib.LAUNCHES["flash_attention_causal_bwd_dkv"] += 1
+            *strides, hd**-0.5, _KIND[q.dtype], _lib.stream(q))
+        _lib.check(err, name)
+        _lib.LAUNCHES[name] += 1
         if plan.slots:
             flash_attention_causal_bwd_dkv_combine(part_k, part_v, table, dk, dv)
     return dk, dv
 
 
 def _dq_args(q, k, v, do, m, l, di):
-    """Everything the dQ kernel checks before a launch (``_bwd_args`` and
-    ``_dq_checks``): ``(shapes, pointers, strides)``, or it raises."""
+    """Everything the dQ kernel checks before a launch (``_bwd_args``, and
+    ``_dq_checks`` on the wgmma kernel): ``(shapes, pointers, strides)``, or
+    it raises."""
     args = _bwd_args(q, k, v, do, m, l, di)
-    _dq_checks(q, k, v, do)
+    if uses_wgmma(q.dtype, args[0][4]):
+        _dq_checks(q, k, v, do)
     return args
 
 
 def flash_attention_causal_bwd_dq(q, k, v, do, m, l, di):
     """The gradient of q, ``dq [B, T, H, hd]``: a block owns 128 query rows
-    of one head (64 at head_dim 256) and walks the key tiles up to the
-    diagonal in key order, the sum in f32 registers (no atomics, so every
-    call gives the same bits); q, k, v and do are read in place through TMA
-    tensor maps over their strides."""
+    of one head (64 at head_dim 256; in the wide family 64 rows and 128
+    columns of dq) and walks the key tiles up to the diagonal in key order,
+    the sum in f32 registers (no atomics, so every call gives the same
+    bits); the wgmma kernel reads q, k, v and do in place through TMA tensor
+    maps over their strides."""
     if not use_kernel(q, k, v, do, m, l, di):
         return flash_attention_causal_bwd_dq_plain(q, k, v, do, m, l, di)
     (B, T, H, KVH, hd), ptrs, strides = _dq_args(q, k, v, do, m, l, di)
     dq = torch.empty(B, T, H, hd, dtype=q.dtype, device=q.device)
     if B:
-        err = _lib.lib().bnb_flash_attention_causal_bwd_dq(
-            *ptrs, dq.data_ptr(), B, T, H, KVH, hd, *strides, hd**-0.5, _lib.stream(q))
-        _lib.check(err, "flash_attention_causal_bwd_dq")
-        _lib.LAUNCHES["flash_attention_causal_bwd_dq"] += 1
+        name = "flash_attention_causal_bwd_dq" + ("" if uses_wgmma(q.dtype, hd) else "_wide")
+        err = getattr(_lib.lib(), "bnb_" + name)(
+            *ptrs, dq.data_ptr(), B, T, H, KVH, hd, *strides, hd**-0.5, _KIND[q.dtype], _lib.stream(q))
+        _lib.check(err, name)
+        _lib.LAUNCHES[name] += 1
     return dq
 
 

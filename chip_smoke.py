@@ -324,14 +324,65 @@ TPU_KERNELS = {
     "flash_attention_causal_bwd_dq": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    # kernels 17-19 in f16: the same wgmma kernels, instantiated for f16
+    # (3p's f16 shapes, launched by 4r(d)'s f16 steps)
+    "flash_attention_causal_fwd_f16": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    "flash_attention_causal_bwd_dkv_f16": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    "flash_attention_causal_bwd_dq_f16": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    # kernels 17-19's wide family: f32 at any head_dim, bf16 and f16 at 384
+    # and up (CUDA cores; launched by 4r(e)'s f32 steps)
+    "flash_attention_causal_fwd_wide": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    "flash_attention_causal_bwd_dkv_wide": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    "flash_attention_causal_bwd_dq_wide": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
 }
 
+# 3p's gates against the plain versions on the card, by q/k/v's type: (the
+# output's abs error, each gradient's error relative to its largest
+# magnitude); m within 1e-4 abs and l within 1e-5 relative in every type.
+# f32 is tight enough to fail a single TF32 pass.
+FLASH_TOLERANCES = {"bfloat16": (2e-2, 1e-2), "float16": (8e-3, 5e-3), "float32": (1e-5, 1e-4)}
+
+
 FLASH_TRAIN = ("flash_attention_causal_fwd", "flash_attention_causal_bwd_dkv", "flash_attention_causal_bwd_dq")
+# the wide family's launch counts (f32 at any head_dim, bf16/f16 at 384 and up)
+FLASH_TRAIN_WIDE = tuple(n + "_wide" for n in FLASH_TRAIN)
+
+
+def flash_names(dtype, hd=128):
+    """The launch counts of kernels 17-19 that q/k/v of ``dtype`` at ``hd``
+    take: the wgmma kernels' or the wide family's."""
+    from bitsandbytes_tpu_torch.ops import flash_attention as FA
+
+    return FLASH_TRAIN if FA.uses_wgmma(dtype, hd) else FLASH_TRAIN_WIDE
+
 
 # device time by class of a training step through the flash kernels
 FLASH_CLASSES = [("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_dkv_kernel", "kernel 18 (flash dK/dV)"),
                  ("flash_bwd_dkv_combine", "kernel 18's combine"), ("flash_bwd_dq_kernel", "kernel 19 (flash dQ)"),
-                 ("dequantize_paired", "kernel 6"), ("optimizer_update_8bit", "kernel 14")]
+                 ("flash_wide_fwd_kernel", "kernel 17, wide family"),
+                 ("flash_wide_dkv_kernel", "kernel 18, wide family"),
+                 ("flash_wide_dq_kernel", "kernel 19, wide family"), ("dequantize_paired", "kernel 6"),
+                 ("optimizer_update_8bit", "kernel 14")]
+
+# the (HGMMA, UTMALDG) counts of the bf16 instances of kernels 17-19 by
+# head_dim, from cuobjdump -sass of the build before they were templated on
+# the element type (PERF.md §6): the f16 instances must leave them as they
+# were
+FLASH_BF16_SASS = {"flash_fwd_kernel": {128: (16, 6), 256: (40, 12)},
+                   "flash_bwd_dkv_kernel": {128: (24, 8), 256: (40, 16)},
+                   "flash_bwd_dq_kernel": {128: (20, 8), 256: (36, 16)}}
 
 # kernel 17's device ms at 3p's shapes, (T, hd): -> ms, in its earlier mma.sync
 # body (64-row blocks, a cp.async ring), measured by this script's 3p on an
@@ -2708,28 +2759,31 @@ def slice21_cpu_check(dev):
          seconds=time.perf_counter() - t_start)
 
 
-def flash_inputs(dev, gen, B, T, H, KVH, hd):
-    """bf16 q, k, v and an output gradient for the causal flash kernels at
-    one shape: q and k packed (the model's, after RoPE), v a view into a
-    fused [B, T, (H + 2 KVH) hd] projection, as the model splits it."""
+def flash_inputs(dev, gen, B, T, H, KVH, hd, dtype=None):
+    """q, k, v and an output gradient (bf16 unless ``dtype`` says) for the
+    causal flash kernels at one shape: q and k packed (the model's, after
+    RoPE), v a view into a fused [B, T, (H + 2 KVH) hd] projection, as the
+    model splits it."""
     import torch
 
-    q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn(B, T, KVH, hd, generator=gen, device=dev).to(torch.bfloat16)
-    qkv = torch.randn(B, T, (H + 2 * KVH) * hd, generator=gen, device=dev).to(torch.bfloat16)
+    dt = dtype or torch.bfloat16
+    q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, T, KVH, hd, generator=gen, device=dev).to(dt)
+    qkv = torch.randn(B, T, (H + 2 * KVH) * hd, generator=gen, device=dev).to(dt)
     v = qkv[..., (H + KVH) * hd:].reshape(B, T, KVH, hd)
-    do = torch.randn(B, T, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    do = torch.randn(B, T, H, hd, generator=gen, device=dev).to(dt)
     return q, k, v, do
 
 
-def flash_causal_work(B, T, H, KVH, hd):
-    """(bytes, flops) of kernels 17, 18 and 19 at one shape: every input
-    read once and every output written once; the products over the causal
-    half, T (T + 1) / 2 (query, key) pairs a head, 2 hd flops a pair and
-    product: two products forward (q k^T, p v), four in dK/dV (q k^T, do v^T,
-    p^T do, ds^T q), three in dQ (q k^T, do v^T, ds k)."""
+def flash_causal_work(B, T, H, KVH, hd, elem=2):
+    """(bytes, flops) of kernels 17, 18 and 19 at one shape, ``elem`` bytes
+    an element of q, k, v, do and the outputs: every input read once and
+    every output written once; the products over the causal half, T (T + 1)
+    / 2 (query, key) pairs a head, 2 hd flops a pair and product: two
+    products forward (q k^T, p v), four in dK/dV (q k^T, do v^T, p^T do, ds^T
+    q), three in dQ (q k^T, do v^T, ds k)."""
     pairs = B * H * T * (T + 1) // 2
-    qb, kvb, rows = B * T * H * hd * 2, B * T * KVH * hd * 2, B * H * T * 4
+    qb, kvb, rows = B * T * H * hd * elem, B * T * KVH * hd * elem, B * H * T * 4
     return {"fwd": (2 * qb + 2 * kvb + 2 * rows, 2 * 2 * hd * pairs),
             "dkv": (2 * qb + 4 * kvb + 3 * rows, 4 * 2 * hd * pairs),
             "dq": (3 * qb + 2 * kvb + 3 * rows, 3 * 2 * hd * pairs)}
@@ -2778,10 +2832,27 @@ def flash_train_kernels(dev, entry):
 
     gen = torch.Generator(device=dev).manual_seed(60)
     rel = lambda a, b: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()  # noqa: E731
-    shapes = [(1, T, 32, 8, 128) for T in (1024, 2048, 4096, 8192)] + [(1, 4096, 16, 16, 256)]
-    out = []
-    for B, T, H, KVH, hd in shapes:
-        q, k, v, do = flash_inputs(dev, gen, B, T, H, KVH, hd)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [(bf16, 1, T, 32, 8, 128) for T in (1024, 2048, 4096, 8192)] + [(bf16, 1, 4096, 16, 16, 256)]
+    # f16 on the wgmma kernels, f32 and head_dim 384 / 512 on the wide family
+    cases += [(f16, 1, T, 32, 8, 128) for T in (2048, 4096)] + [(f16, 1, 4096, 16, 16, 256), (f32, 1, 2048, 32, 8, 128)]
+    cases += [(dt, 1, 2048, 8, 8, hd) for dt in (bf16, f16) for hd in (384, 512)]
+
+    def check(what, dt, errs):
+        out_tol, grad_tol = FLASH_TOLERANCES[str(dt)[6:]]
+        assert all(math.isfinite(e) for e in errs.values()), f"{what}: {errs}"
+        assert errs["o_abs"] <= out_tol and errs["m_abs"] <= 1e-4 and errs["l_rel"] <= 1e-5, f"{what}: {errs}"
+        assert max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= grad_tol, f"{what}: {errs}"
+
+    def dev_ms(fn):
+        return cuda_time(fn, n=20, flush_l2=True, hold=True)["median"]
+
+    def plain_ms(fn):
+        return cuda_time(fn, n=3, warmup=1)["median"]
+
+    out, wide_rows = [], []
+    for dt, B, T, H, KVH, hd in cases:
+        q, k, v, do = flash_inputs(dev, gen, B, T, H, KVH, hd, dt)
         o, m, l = FA.flash_attention_causal_fwd(q, k, v)
         op, mp, lp = FA.flash_attention_causal_fwd_plain(q, k, v)
         di = (op.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -2790,51 +2861,52 @@ def flash_train_kernels(dev, entry):
         dq = FA.flash_attention_causal_bwd_dq(*bwd)
         dkp, dvp = FA.flash_attention_causal_bwd_dkv_plain(*bwd)
         dqp = FA.flash_attention_causal_bwd_dq_plain(*bwd)
-        what = f"3p B{B} T{T} H{H} KVH{KVH} hd{hd}"
+        what = f"3p {str(dt)[6:]} B{B} T{T} H{H} KVH{KVH} hd{hd}"
         errs = {"o_abs": (o.float() - op.float()).abs().max().item(), "m_abs": (m - mp).abs().max().item(),
                 "l_rel": rel(l, lp), "dq_rel": rel(dq, dqp), "dk_rel": rel(dk, dkp), "dv_rel": rel(dv, dvp)}
-        assert all(math.isfinite(e) for e in errs.values()), f"{what}: {errs}"
-        assert errs["o_abs"] <= 2e-2 and errs["m_abs"] <= 1e-4 and errs["l_rel"] <= 1e-5, f"{what}: {errs}"
-        assert max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= 1e-2, f"{what}: {errs}"
+        check(what, dt, errs)
         again = (FA.flash_attention_causal_fwd(q, k, v)[0], *FA.flash_attention_causal_bwd_dkv(*bwd),
                  FA.flash_attention_causal_bwd_dq(*bwd))
         assert all(torch.equal(a, b) for a, b in zip(again, (o, dk, dv, dq))), f"{what}: differs from run to run"
         del op, mp, lp, dkp, dvp, dqp, again
 
-        def dev_ms(fn):
-            return cuda_time(fn, n=20, flush_l2=True, hold=True)["median"]
-
-        def plain_ms(fn):
-            return cuda_time(fn, n=3, warmup=1)["median"]
-
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         dot = do.transpose(1, 2)
-        so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-        sdpa = {"fwd_ms": dev_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                         enable_gqa=True)),
-                "bwd_ms": dev_ms(lambda: torch.autograd.grad(so, (qt, kt, vt), dot, retain_graph=True)),
-                "out_abs_err_vs_kernel": (so.detach().transpose(1, 2).float() - o.float()).abs().max().item()}
-        del so, qt, kt, vt
-        work = flash_causal_work(B, T, H, KVH, hd)
-        row = {"B": B, "T": T, "H": H, "KVH": KVH, "hd": hd, "errs": errs, "sdpa": sdpa,
+        try:
+            so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            sdpa = {"fwd_ms": dev_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                             enable_gqa=True)),
+                    "bwd_ms": dev_ms(lambda: torch.autograd.grad(so, (qt, kt, vt), dot, retain_graph=True)),
+                    "out_abs_err_vs_kernel": (so.detach().transpose(1, 2).float() - o.float()).abs().max().item()}
+            del so
+        except RuntimeError as e:  # no SDPA backend takes this shape and type
+            sdpa = {"fwd_ms": None, "bwd_ms": None, "error": str(e)[:200]}
+        del qt, kt, vt
+        work = flash_causal_work(B, T, H, KVH, hd, q.element_size())
+        family = "wgmma" if FA.uses_wgmma(dt, hd) else "wide"
+        row = {"dtype": str(dt)[6:], "family": family, "B": B, "T": T, "H": H, "KVH": KVH, "hd": hd, "errs": errs,
+               "sdpa": sdpa,
                "fwd": {"ms": dev_ms(lambda: FA.flash_attention_causal_fwd(q, k, v)),
                        "plain_ms": plain_ms(lambda: FA.flash_attention_causal_fwd_plain(q, k, v))},
                "dkv": {"ms": dev_ms(lambda: FA.flash_attention_causal_bwd_dkv(*bwd)),
                        "plain_ms": plain_ms(lambda: FA.flash_attention_causal_bwd_dkv_plain(*bwd))},
                "dq": {"ms": dev_ms(lambda: FA.flash_attention_causal_bwd_dq(*bwd)),
                       "plain_ms": plain_ms(lambda: FA.flash_attention_causal_bwd_dq_plain(*bwd))}}
+        peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
         for key, (nb, ops) in work.items():
-            b_ms, b_by = bound_ms(nb, ops, PEAK_BF16_FLOPS)
+            b_ms, b_by = bound_ms(nb, ops, peak)
             row[key].update(bytes=nb, flops=ops, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / row[key]["ms"])
-        for key, table in (("fwd", FLASH_FWD_MMA_SYNC_MS), ("dkv", FLASH_DKV_MMA_SYNC_MS),
-                           ("dq", FLASH_DQ_MMA_SYNC_MS)):
-            old_ms = table[(T, hd)]
-            row[key].update(mma_sync_ms=old_ms, mma_sync_bound_share=row[key]["bound_ms"] / old_ms,
-                            speedup_over_mma_sync=old_ms / row[key]["ms"])
+        if dt == bf16:
+            for key, table in (("fwd", FLASH_FWD_MMA_SYNC_MS), ("dkv", FLASH_DKV_MMA_SYNC_MS),
+                               ("dq", FLASH_DQ_MMA_SYNC_MS)):
+                old_ms = table.get((T, hd))
+                if old_ms is not None:
+                    row[key].update(mma_sync_ms=old_ms, mma_sync_bound_share=row[key]["bound_ms"] / old_ms,
+                                    speedup_over_mma_sync=old_ms / row[key]["ms"])
         plan, _, plan_table = FA._dkv_tables(B, T, H, KVH, hd, dev)
         row["dkv"]["plan"] = {"items": len(plan.items), "split_key_tiles": len(plan.combine),
                               "partial_slots": plan.slots, "target_iterations": plan.target}
-        if (T, hd) == (1024, 128):
+        if (dt, T, hd) == (bf16, 1024, 128):
             # kernel 18's combine under this plan, on partials of its shape
             assert plan.combine, f"{what}: kernel 18's plan splits no key tile"
             gen_c = torch.Generator(device=dev).manual_seed(62)
@@ -2861,28 +2933,47 @@ def flash_train_kernels(dev, entry):
             del part_k, part_v, ck, cp
         row["bwd_ms"] = row["dkv"]["ms"] + row["dq"]["ms"]
         out.append(row)
+        if family == "wide" and hd > 256:
+            wide_rows.append({"dtype": row["dtype"], "shape": [B, T, H, KVH, hd], "sdpa": sdpa, "errs": errs,
+                              **{key: row[key] for key in ("fwd", "dkv", "dq")}})
         if (T, hd) == (2048, 128):
+            suffix = {bf16: "", f16: "_f16", f32: "_wide"}[dt]
             for name, key, lib in (("flash_attention_causal_fwd", "fwd", sdpa["fwd_ms"]),
                                    ("flash_attention_causal_bwd_dkv", "dkv", None),
                                    ("flash_attention_causal_bwd_dq", "dq", None)):
                 nb, ops = work[key]
                 err = errs["o_abs"] if key == "fwd" else max(errs[f"{g}_rel"] for g in
                                                               (("dk", "dv") if key == "dkv" else ("dq",)))
-                entry(name, row[key]["ms"], row[key]["plain_ms"], lib, nb, ops, PEAK_BF16_FLOPS, err,
-                      shape=[B, T, H, KVH, hd], sdpa_bwd_ms=sdpa["bwd_ms"], kernels_bwd_ms=row["bwd_ms"],
-                      note="4r's attention shape; device ms, host held out, L2 flushed; the backward rows' "
-                           "library_ms is null: SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms, "
-                           "against kernels_bwd_ms, 18 + 19)" + ("; max_abs_err is the output's abs error" if
-                                                                 key == "fwd" else "; max_abs_err is relative "
-                                                                 "to the gradient's largest magnitude"))
+                pending = (name + suffix, row[key]["ms"], row[key]["plain_ms"], lib, nb, ops, peak, err,
+                           dict(shape=[B, T, H, KVH, hd], dtype=row["dtype"], family=family,
+                                sdpa_bwd_ms=sdpa["bwd_ms"], kernels_bwd_ms=row["bwd_ms"],
+                                note="4r's attention shape; device ms, host held out, L2 flushed; the backward "
+                                     "rows' library_ms is null: SDPA's backward is one call for dq, dk and dv "
+                                     "(sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19)" + (
+                                         "; max_abs_err is the output's abs error" if key == "fwd" else
+                                         "; max_abs_err is relative to the gradient's largest magnitude")))
+                if dt == f32:
+                    wide_rows.append(pending)  # entered below, with the head_dim 384 / 512 instances
+                else:
+                    entry(*pending[:8], **pending[8])
         del q, k, v, do, o, m, l, di, dk, dv, dq, bwd
         torch.cuda.empty_cache()
+    # the wide family's entries: f32 at 4r's shape, and its bf16 / f16 instances at head_dim 384 and 512
+    instances = [r for r in wide_rows if isinstance(r, dict)]
+    for pend in (r for r in wide_rows if not isinstance(r, dict)):
+        key = {"flash_attention_causal_fwd_wide": "fwd", "flash_attention_causal_bwd_dkv_wide": "dkv",
+               "flash_attention_causal_bwd_dq_wide": "dq"}[pend[0]]
+        entry(*pend[:8], **pend[8], instances=[{"dtype": r["dtype"], "shape": r["shape"], **r[key],
+                                                "sdpa_fwd_ms": r["sdpa"]["fwd_ms"],
+                                                "sdpa_bwd_ms": r["sdpa"]["bwd_ms"]} for r in instances])
 
     # more than one sequence and T off a power of two: each kernel against its
-    # plain version at 3p's tolerances, untimed (inputs from a generator of their own)
+    # plain version at 3p's tolerances, untimed (inputs from a generator of
+    # their own); each plan splits key tiles, so the combine runs in each type
     batched, gen_b = [], torch.Generator(device=dev).manual_seed(61)
-    for B, T, H, KVH, hd in ((2, 1152, 8, 2, 128), (3, 640, 2, 1, 256)):
-        q, k, v, do = flash_inputs(dev, gen_b, B, T, H, KVH, hd)
+    for dt, B, T, H, KVH, hd in ((bf16, 2, 1152, 8, 2, 128), (bf16, 3, 640, 2, 1, 256), (f16, 3, 640, 2, 1, 256),
+                                 (f32, 2, 1152, 8, 2, 128), (bf16, 2, 640, 4, 2, 384)):
+        q, k, v, do = flash_inputs(dev, gen_b, B, T, H, KVH, hd, dt)
         o, m, l = FA.flash_attention_causal_fwd(q, k, v)
         op, mp, lp = FA.flash_attention_causal_fwd_plain(q, k, v)
         di = (op.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -2893,11 +2984,9 @@ def flash_train_kernels(dev, entry):
                 "l_rel": rel(l, lp), "dq_rel": rel(FA.flash_attention_causal_bwd_dq(*bwd),
                                                   FA.flash_attention_causal_bwd_dq_plain(*bwd)),
                 "dk_rel": rel(dk, dkp), "dv_rel": rel(dv, dvp)}
-        what = f"3p B{B} T{T} H{H} KVH{KVH} hd{hd}"
-        assert all(math.isfinite(e) for e in errs.values()), f"{what}: {errs}"
-        assert errs["o_abs"] <= 2e-2 and errs["m_abs"] <= 1e-4 and errs["l_rel"] <= 1e-5, f"{what}: {errs}"
-        assert max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= 1e-2, f"{what}: {errs}"
-        batched.append({"B": B, "T": T, "H": H, "KVH": KVH, "hd": hd, "errs": errs})
+        check(f"3p {str(dt)[6:]} B{B} T{T} H{H} KVH{KVH} hd{hd}", dt, errs)
+        batched.append({"dtype": str(dt)[6:], "B": B, "T": T, "H": H, "KVH": KVH, "hd": hd, "errs": errs,
+                        "split_key_tiles": len(FA._dkv_tables(B, T, H, KVH, hd, dev)[0].combine)})
         del q, k, v, do, o, m, l, op, mp, lp, di, bwd, dk, dv, dkp, dvp
 
     # the threshold sweep below T 1024: the kernels against the dense oracle, forward and backward
@@ -2916,23 +3005,40 @@ def flash_train_kernels(dev, entry):
                       "kernels_faster_both_ways": kern["fwd_ms"] + kern["bwd_ms"] < orac["fwd_ms"] + orac["bwd_ms"]})
         del q, k, v, do, gout
         torch.cuda.empty_cache()
-    # the instances of kernels 17-19: wgmma (HGMMA), TMA loads (UTMALDG), no local stores
+    # the instances of kernels 17-19: the wgmma kernels (bf16 and f16 at hd 128
+    # and 256) hold wgmma (HGMMA) and TMA loads (UTMALDG) and no local stores;
+    # the bf16 instances keep FLASH_BF16_SASS's counts; the wide family (f32, bf16, f16)
+    # runs f32 FMAs (FFMA) with no tensor-core product and no local stores
     flash_kernels = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+    wide_kernels = ("flash_wide_fwd_kernel", "flash_wide_dkv_kernel", "flash_wide_dq_kernel")
     sass, wg_sass, fn = sass_of(_lib.build()), {}, None
     for line in (sass or "").splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            fn = fn if any(k in fn for k in flash_kernels) else None
+            fn = fn if any(k in fn for k in flash_kernels + wide_kernels) else None
             if fn:
-                wg_sass[fn] = {"HGMMA": 0, "UTMALDG": 0, "STL": 0}
+                wg_sass[fn] = {"HGMMA": 0, "UTMALDG": 0, "STL": 0, "FFMA": 0, "HMMA": 0}
         elif fn:
             for op in wg_sass[fn]:
                 wg_sass[fn][op] += f" {op}" in line
+
+    def instance(name):  # (type, hd) of a wgmma kernel's mangled name
+        return ("bf16" if "bfloat16" in name else "f16" if "half" in name else "?",
+                128 if "Li128E" in name else 256 if "Li256E" in name else 0)
+
     for kern in flash_kernels:
         inst = {n: c for n, c in wg_sass.items() if kern in n}
-        assert sass is None or (len(inst) == 2 and all(c["HGMMA"] and c["UTMALDG"] and not c["STL"]
+        assert sass is None or (len(inst) == 4 and all(c["HGMMA"] and c["UTMALDG"] and not c["STL"]
                                                        for c in inst.values())), f"3p {kern} SASS {inst}"
-    emit("flash_train_kernels", shapes=out, batched=batched, threshold_sweep=sweep, wgmma_sass=wg_sass,
+        got = {instance(n): (c["HGMMA"], c["UTMALDG"]) for n, c in inst.items()}
+        assert sass is None or set(got) == {(t, h) for t in ("bf16", "f16") for h in (128, 256)}, f"3p {kern} {got}"
+        for hd_, counts in FLASH_BF16_SASS[kern].items():
+            assert sass is None or got[("bf16", hd_)] == counts, f"3p {kern} bf16 hd {hd_}: {got}, was {counts}"
+    for kern in wide_kernels:
+        inst = {n: c for n, c in wg_sass.items() if kern in n}
+        assert sass is None or (len(inst) == 3 and all(c["FFMA"] and not c["STL"] and not c["HGMMA"]
+                                                       for c in inst.values())), f"3p {kern} SASS {inst}"
+    emit("flash_train_kernels", shapes=out, batched=batched, threshold_sweep=sweep, sass=wg_sass,
          route_line={"T_min": 1024, "note": "the JAX package's line (_flash_ok), kept"})
     return out
 
@@ -2949,7 +3055,14 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
     (``sliding_window = 1 << 20``: the same mask, off the flash route), the
     first step's loss within rel 1e-3, the second step's device ms of each.
     (c) 4 layers at T 8192, the flash route only: one step, its wall and peak
-    memory (the oracle's f32 scores alone would take 8.6 GB a layer)."""
+    memory (the oracle's f32 scores alone would take 8.6 GB a layer).  (d)
+    The same 32 layers at T 2048 in f16 (the NF4 payloads as they are, the
+    float leaves cast to f16): three steps, the losses finite and falling,
+    kernels 17-19's f16 instances 32 times a step, device ms by class.  (e)
+    4 layers at T 2048 in f32 (the float leaves cast to f32) on the wide
+    family, against the same step on the f32 oracle: the first step's loss
+    within rel 1e-4.  Returns the launches of each kernels-line entry of
+    kernels 17-19: bf16 from (a), f16 from (d), the wide family from (e)."""
     import dataclasses
 
     import torch
@@ -2965,6 +3078,15 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
     def ids_of(T, seed):
         return torch.randint(0, cfg.vocab_size, (1, T + 1), generator=torch.Generator(device=dev).manual_seed(seed),
                              device=dev)
+
+    def cast_floats(tree, dtype):
+        """``tree`` with its float tensors (embedding, norms, lm_head) in
+        ``dtype``; quantized weights as they are."""
+        from bitsandbytes_tpu_torch.nn.modules import QuantizedTensor
+        from bitsandbytes_tpu_torch.nn.parametrize import map_tree
+
+        return map_tree(lambda _, x: x if isinstance(x, QuantizedTensor) or not x.is_floating_point()
+                        else x.to(dtype), tree)
 
     def setup(cfg_):
         lora = L.add_lora(cfg_, rank=rank, alpha=alpha, targets=LORA_TARGETS,
@@ -3025,30 +3147,64 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
     T8 = 8192
     c8 = run(p4, cfg4, ids_of(T8, 72), 1)
     assert all(c8["launches"][n] == 4 for n in FLASH_TRAIN), f"4r(c) {c8['launches']}"
+    del p4
+    torch.cuda.empty_cache()
+
+    # (d) all 32 layers at T 2048 in f16: the wgmma kernels' f16 instances
+    cfg16 = dataclasses.replace(cfg, dtype=torch.float16)
+    p16 = cast_floats(params, torch.float16)
+    d = run(p16, cfg16, ids_of(T, 73), 3)
+    assert all(d["launches"].get(n) == 3 * Lyr for n in FLASH_TRAIN), f"4r(d) launches {d['launches']}"
+    assert not any(n in d["launches"] for n in FLASH_TRAIN_WIDE), f"4r(d) launches {d['launches']}"
+    assert d["losses"][-1] < d["losses"][0], f"4r(d) losses {d['losses']}"
+    del p16
+    torch.cuda.empty_cache()
+
+    # (e) 4 layers at T 2048 in f32: the wide family against the f32 oracle
+    cfg32 = dataclasses.replace(cfg4, dtype=torch.float32)
+    cfg32_dense = dataclasses.replace(cfg32, sliding_window=1 << 20)
+    p32 = cast_floats({**params, "layers": params["layers"][:4]}, torch.float32)
+    ids_e = ids_of(T, 74)
+    flash32 = run(p32, cfg32, ids_e, 2)
+    dense32 = run(p32, cfg32_dense, ids_e, 2)
+    assert all(flash32["launches"].get(n) == 2 * 4 for n in FLASH_TRAIN_WIDE), f"4r(e) flash {flash32['launches']}"
+    assert not any(n in dense32["launches"] for n in FLASH_TRAIN + FLASH_TRAIN_WIDE), f"4r(e) {dense32['launches']}"
+    loss_rel32 = abs(flash32["losses"][0] - dense32["losses"][0]) / abs(dense32["losses"][0])
+    assert loss_rel32 <= 1e-4, f"4r(e) loss {flash32['losses'][0]} against the f32 oracle's {dense32['losses'][0]}"
+    del p32
     emit("flash_qlora", config="llama3_8b", compress_statistics=True, lora_rank=rank, lora_alpha=alpha,
          targets=list(LORA_TARGETS), optimizer="adamw8bit", token_chunk=chunk,
          all_layers={"layers": Lyr, "ids": [1, T + 1], "steps": steps, **a},
          four_layers_vs_oracle={"ids": [1, T + 1], "loss_rel_diff": loss_rel, "flash": flash4, "oracle": dense4},
          four_layers_t8192={"ids": [1, T8 + 1], **c8,
-                            "oracle_scores_bytes_a_layer": 1 * cfg.num_heads * T8 * T8 * 4})
-    return {name: a["launches"][name] for name in FLASH_TRAIN}
+                            "oracle_scores_bytes_a_layer": 1 * cfg.num_heads * T8 * T8 * 4},
+         all_layers_f16={"layers": Lyr, "ids": [1, T + 1], "steps": 3, **d},
+         four_layers_f32_vs_oracle={"ids": [1, T + 1], "loss_rel_diff": loss_rel32, "flash": flash32,
+                                    "oracle": dense32})
+    launches = {name: a["launches"][name] for name in FLASH_TRAIN}
+    launches.update({name + "_f16": d["launches"][name] for name in FLASH_TRAIN})
+    launches.update({name: flash32["launches"][name] for name in FLASH_TRAIN_WIDE})
+    return launches
 
 
-def flash_cpu_check(dev):
-    """5l: a 2-layer bf16 Llama (hidden 512, H 4 over 2 KV heads, hd 128,
-    fused NF4, rank-8 adapters on all seven targets, ``b`` non-zero) at T
-    1024: ``lm_loss`` and its adapter gradients through kernels 17-19 on the
-    card against the CPU port through their plain versions (the CPU's route
-    patched to the flash one), the loss within rel 1e-3, the gradients
-    within rtol 2e-2 / atol 2e-3; the card's launches 2 of each, and 2 of
-    kernel 18's combine where its plan splits a key tile at this shape."""
+def flash_cpu_check(dev, dtype=None):
+    """5l: a 2-layer Llama (bf16 unless ``dtype`` says; hidden 512, H 4 over
+    2 KV heads, hd 128, fused NF4, rank-8 adapters on all seven targets,
+    ``b`` non-zero) at T 1024: ``lm_loss`` and its adapter gradients through
+    kernels 17-19 on the card (the wgmma kernels in bf16 and f16, the wide
+    family in f32) against the CPU port through their plain versions (the
+    CPU's route patched to the flash one), the loss within rel 1e-3, the
+    gradients within rtol 2e-2 / atol 2e-3; the card's launches 2 of each,
+    and 2 of kernel 18's combine where its plan splits a key tile at this
+    shape."""
     import torch
 
     from bitsandbytes_tpu_torch.models import llama as L
     from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
 
     cfg = L.LlamaConfig(vocab_size=1024, hidden_size=512, intermediate_size=1024, num_layers=2, num_heads=4,
-                        num_kv_heads=2, head_dim=128)
+                        num_kv_heads=2, head_dim=128, dtype=dtype or torch.bfloat16)
+    names = flash_names(cfg.dtype, cfg.head_dim)
     T = 1024
     assert L._flash_ok(cfg, T, cfg.head_dim, dev) and not L._flash_ok(cfg, T, cfg.head_dim, torch.device("cpu"))
     cpu_float = L.init_params(cfg, torch.Generator().manual_seed(80), device="cpu")
@@ -3073,7 +3229,7 @@ def flash_cpu_check(dev):
     loss_g.backward()
     torch.cuda.synchronize()
     counts = {k: c for k, c in launch_counts().items() if c}
-    assert all(counts.get(n) == cfg.num_layers for n in FLASH_TRAIN), f"5l launches {counts}"
+    assert all(counts.get(n) == cfg.num_layers for n in names), f"5l launches {counts}"
     combines = cfg.num_layers * dkv_combines(dev, 1, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     assert counts.get("flash_attention_causal_bwd_dkv_combine", 0) == combines, f"5l launches {counts}"
     lc = fresh("cpu")
@@ -3091,9 +3247,10 @@ def flash_cpu_check(dev):
         a, b = tg.grad.cpu(), tc.grad
         assert torch.allclose(a, b, rtol=2e-2, atol=2e-3), "5l adapter gradients differ from the CPU's"
         grad_err = max(grad_err, (a - b).abs().max().item())
-    emit("cpu_check_flash_train", layers=cfg.num_layers, hidden=cfg.hidden_size, heads=cfg.num_heads,
-         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, seq=T, lora_rank=8, loss_card=loss_g.item(),
-         loss_cpu=loss_c.item(), loss_rel_diff=loss_rel, max_abs_grad_diff=grad_err, launches=counts)
+    emit("cpu_check_flash_train", dtype=str(cfg.dtype)[6:], layers=cfg.num_layers, hidden=cfg.hidden_size,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, seq=T, lora_rank=8,
+         loss_card=loss_g.item(), loss_cpu=loss_c.item(), loss_rel_diff=loss_rel, max_abs_grad_diff=grad_err,
+         launches=counts)
     del gpu_params, lg
     torch.cuda.empty_cache()
     return counts
@@ -6592,6 +6749,11 @@ def main() -> int:
     for name, n in counts_5l.items():
         if name in FLASH_TRAIN:
             report[name]["launches_5l"] = n
+    # and in f16 (the wgmma kernels' f16 instances) and f32 (the wide family)
+    for dt, suffix in ((torch.float16, "_f16"), (torch.float32, "")):
+        for name, n in flash_cpu_check(dev, dt).items():
+            if name in FLASH_TRAIN + FLASH_TRAIN_WIDE:
+                report[name + suffix]["launches_5l"] = n
     # kernel 18's combine runs where its plan splits key tiles: 5l's T 1024, not 4r's T 2048
     combine = "flash_attention_causal_bwd_dkv_combine"
     report[combine]["launches"] = counts_5l.get(combine)

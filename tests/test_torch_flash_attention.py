@@ -167,15 +167,17 @@ def test_route_predicate_matches_jax(window):
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     """The checks the wrappers make before a launch (run here on CPU
-    tensors): bf16 only, head_dim 128 or 256, T a multiple of 128, heads and
-    head_dim packed with 16-byte aligned rows; and what the TMA tensor maps
-    of all three kernels need: a base on 16 bytes, every stride a multiple of
-    16 bytes, at most 2^32 elements a dimension and strides under 2^40
-    bytes."""
+    tensors): bf16, f16 or f32 (the wgmma kernels or the wide family),
+    head_dim and T multiples of 128, heads and head_dim packed with 16-byte
+    aligned rows; and what the TMA tensor maps of the three wgmma kernels
+    need: a base on 16 bytes, every stride a multiple of 16 bytes, at most
+    2^32 elements a dimension and strides under 2^40 bytes."""
     q = torch.zeros(1, 256, 4, 128, dtype=torch.bfloat16)
     k = torch.zeros(1, 256, 2, 128, dtype=torch.bfloat16)
     FA._check_cuda(q, k, k, 256, 128)
-    for bad_q, T, hd in ((q.float(), 256, 128), (q.half(), 256, 128), (q, 192, 128), (q, 256, 64), (q, 256, 96)):
+    for ok_q, T, hd in ((q.float(), 256, 128), (q.half(), 256, 128), (q, 256, 384), (q.half(), 256, 512)):
+        FA._check_cuda(ok_q, k, k, T, hd)
+    for bad_q, T, hd in ((q, 192, 128), (q, 256, 64), (q, 256, 96)):
         with pytest.raises(ValueError):
             FA._check_cuda(bad_q, k, k, T, hd)
     assert FA._strides("q", q) == (256 * 4 * 128, 4 * 128)
@@ -185,8 +187,10 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     assert FA._strides("v", v) == (256 * 8 * 128, 8 * 128)
     with pytest.raises(ValueError):
         FA._strides("q", q.transpose(1, 2))
+    o, m, l = FA.flash_attention_causal_fwd(q.half(), k.half(), k.half())  # the plain versions take f16 too
+    assert o.dtype == torch.float16 and m.dtype == l.dtype == torch.float32
     with pytest.raises(ValueError):
-        FA.flash_attention_causal_fwd(q.half(), k.half(), k.half())  # the plain versions take bf16 and f32
+        FA.flash_attention_causal_fwd(q.double(), k.double(), k.double())
     # TMA: a base off 16 bytes, a token stride off 16 bytes (a fused row 4 values wider)
     flat = torch.zeros(256 * 4 * 128 + 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError):

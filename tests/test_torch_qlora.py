@@ -83,9 +83,9 @@ def _configs(dtype):
     # paired kernels do not tile and it dequantizes with the exact f32 codes,
     # where its kernels and the port's round them to bf16
     jcfg, tcfg = (dataclasses.replace(C.tiny(), hidden_size=512, head_dim=128) for C in (JL.LlamaConfig, TL.LlamaConfig))
-    if dtype == "float32":
-        jcfg = dataclasses.replace(jcfg, dtype=jnp.float32)
-        tcfg = dataclasses.replace(tcfg, dtype=torch.float32)
+    if dtype in ("float32", "float16"):
+        jcfg = dataclasses.replace(jcfg, dtype=getattr(jnp, dtype))
+        tcfg = dataclasses.replace(tcfg, dtype=getattr(torch, dtype))
     return jcfg, tcfg
 
 
