@@ -1,8 +1,10 @@
 // Causal flash attention of the training path (no cache): the forward, the
 // dK/dV and the dQ kernel, T a multiple of 128, in two families: the wgmma
-// kernels take bf16 and f16 at head_dim 128 and 256; the wide family (at the
-// end of the file) takes f32 at any head_dim that is a multiple of 128 and
-// bf16 and f16 at head_dim 384 and up.
+// kernels take bf16 and f16, the forward at head_dim 128, 256, 384 and 512,
+// dK/dV and dQ at 128 and 256; the wide family (at the end of the file)
+// takes f32 at any head_dim that is a multiple of 128, and bf16 and f16
+// where the wgmma kernels stop: the forward from head_dim 640, dK/dV and dQ
+// from 384.
 //
 // Replaces the three TPU kernels the JAX package reaches through
 // models/llama.py:_flash_call, in jax/experimental/pallas/ops/tpu/
@@ -40,15 +42,17 @@
 //
 // * Forward (sm90.cuh): a block is a producer warpgroup and one consumer
 //   warpgroup for each 64 query rows of one head: two (128 rows) at hd 128,
-//   one at hd 256 (FwdCfg says why).  One producer thread loads Q once and
-//   the K and V tiles of the KV head, from key 0 up to the diagonal, with TMA
-//   into a two-stage ring of 128-byte-swizzled tiles (full mbarriers, and
-//   empty ones for K and V apart; 128 keys a stage at hd 128, 64 at hd 256:
-//   160 KB either way).  A consumer runs S = Q K^T on wgmma with both
-//   operands in shared memory, the softmax in registers (the mask only on
-//   the tiles that reach the diagonal), and O += P V on wgmma with P from
-//   registers (the S accumulators rounded to E are the A fragments) and V
-//   as a transposed B.  At hd 128 the diagonal tile's last 64 keys follow
+//   one at hd 256 and up (FwdCfg says why); at hd 384 and 512 the block owns
+//   half of o's columns, and the two blocks of a row tile each compute S
+//   over all of hd.  One producer thread loads Q once and the K tiles and
+//   the block's V slices of the KV head, from key 0 up to the diagonal, with
+//   TMA into a two-stage ring of 128-byte-swizzled tiles (full mbarriers,
+//   and empty ones for K and V apart; 128 keys a stage at hd 128, 64 at hd
+//   256 and 384, 32 at hd 512: 160-192 KB).  A consumer runs S = Q K^T on
+//   wgmma with both operands in shared memory, the softmax in registers (the
+//   mask only on the tiles that reach the diagonal), and O += P V on wgmma
+//   with P from registers (the S accumulators rounded to E are the A
+//   fragments) and V as a transposed B.  At hd 128 the diagonal tile's last 64 keys follow
 //   every row of the first warpgroup: it computes them masked.
 // * dK/dV (sm90.cuh): a block is one item of a work plan built on the host
 //   (ops/flash_attention.dkv_plan): 64 keys of one KV head, 128 columns of
@@ -129,22 +133,42 @@ template <> __device__ __forceinline__ uint32_t pack_x2<__half>(float lo, float 
 // warpgroup of 64 rows at 256 threads (up to 255 registers), which issues
 // the next tile's S product before this tile's softmax and PV product, so its
 // tensor cores do not wait on the softmax.
+//
+// Above hd 256 all of O would take hd / 2 registers (192 or 256), past
+// what a thread holds beside S and P.  So at hd 384 and 512 a block owns a
+// column slice of o, half of hd (kCols: 192 or 256 columns, O in 96 or 128
+// registers), as the hd 256 block does otherwise: S over all of hd from Q
+// and the whole K tile, P V over the V tile's slice.  The two blocks of a
+// row tile each compute S, 1.5 times the least work.  Slice 0 writes m and
+// l.  Shared memory binds there (227 KB a block): Q and two stages of a K
+// tile and a V slice take 48 + 2 (48 + 24) = 192 KB at hd 384 with 64-key
+// stages, and 64 + 2 (64 + 32) = 256 KB at hd 512, so hd 512 takes 32-key
+// stages (160 KB).  On an H100 a third stage at hd 512 ran no faster,
+// 32-key stages at hd 384 36% slower, a tile's S, softmax and P V in series
+// 5-8% slower, and two consumer warpgroups that split S's sum over hd
+// instead of recomputing it spilled at hd 512 and gained 1-2% at hd 384
+// (experiments/ab_flash_fwd_sliced_torch.py; the split variant's source is
+// not kept).
 template <int HD>
 struct FwdCfg {
     static constexpr int kConsumers = HD == 128 ? 2 : 1;
     static constexpr bool kOverlap = kConsumers == 1;
     static constexpr int kRows = 64 * kConsumers;  // query rows of a block
     static constexpr int kThreads = 128 * (1 + kConsumers);
-    static constexpr int kKeys = HD == 128 ? 128 : 64;  // keys of a ring stage
+    static constexpr int kCols = HD <= 256 ? HD : HD / 2;  // columns of o a block owns
+    static constexpr int kSlices = HD / kCols;             // blocks a row tile
+    static constexpr int kKeys = HD == 128 ? 128 : HD == 512 ? 32 : 64;  // keys of a ring stage
     static constexpr int kStages = 2;
     static constexpr int kChunks = HD / 64;  // 64-column chunks of a row (128-byte swizzled tiles)
     static constexpr uint32_t kQBytes = kRows * HD * 2;
-    static constexpr uint32_t kKvBytes = kKeys * HD * 2;  // a K or a V tile
+    static constexpr uint32_t kKBytes = kKeys * HD * 2;     // a K tile
+    static constexpr uint32_t kVBytes = kKeys * kCols * 2;  // the block's slice of a V tile
     // shared memory from a 1024-byte aligned base: Q, the stages' [K | V], the
     // barriers (Q's, then K full, V full, K empty and V empty for each stage)
     static constexpr uint32_t kStage0 = kQBytes;
-    static constexpr uint32_t kBars = kStage0 + kStages * 2 * kKvBytes;
+    static constexpr uint32_t kBars = kStage0 + kStages * (kKBytes + kVBytes);
     static constexpr uint32_t kBytes = kBars + (1 + 4 * kStages) * 8 + 1024;  // + the base's alignment
+    static_assert(HD % 128 == 0 && HD <= 512 && kCols <= 256 && kBytes <= 232448, "no wgmma forward at this hd");
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -173,11 +197,11 @@ __global__ void __launch_bounds__(FwdCfg<HD>::kThreads, 1)
     uint64_t* full_v = full_k + C::kStages;
     uint64_t* empty_k = full_v + C::kStages;
     uint64_t* empty_v = empty_k + C::kStages;
-    auto sK = [&](int st) { return smem + C::kStage0 + st * 2 * C::kKvBytes; };
-    auto sV = [&](int st) { return sK(st) + C::kKvBytes; };
+    auto sK = [&](int st) { return smem + C::kStage0 + st * (C::kKBytes + C::kVBytes); };
+    auto sV = [&](int st) { return sK(st) + C::kKBytes; };
 
     const int qi = gridDim.z - 1 - blockIdx.z;  // the longest rows first, over every head
-    const int h = blockIdx.x, b = blockIdx.y;
+    const int h = blockIdx.x / C::kSlices, cs = blockIdx.x % C::kSlices, b = blockIdx.y;  // cs: the column slice
     const int r0 = qi * C::kRows;
     const int wg = threadIdx.x / 128;
 
@@ -194,8 +218,9 @@ __global__ void __launch_bounds__(FwdCfg<HD>::kThreads, 1)
     __syncthreads();
 
     if (wg == 0) {
-        // the producer: one thread issues every load; K and V tiles of KV
-        // head h / (H / KVH) from key 0 up to the block's last row
+        // the producer: one thread issues every load; the K tiles, and column
+        // slice cs of the V tiles, of KV head h / (H / KVH) from key 0 up to
+        // the block's last row
         if constexpr (C::kConsumers == 2) setmaxnreg_dec<32>();
         if (threadIdx.x == 0) {
             tma_prefetch_map(&tq);
@@ -209,13 +234,13 @@ __global__ void __launch_bounds__(FwdCfg<HD>::kThreads, 1)
                 const int st = t % C::kStages;
                 const uint32_t par = ((t / C::kStages) - 1) & 1;
                 if (t >= C::kStages) mbar_wait(empty_k + st, par);
-                mbar_expect_tx(full_k + st, C::kKvBytes);
+                mbar_expect_tx(full_k + st, C::kKBytes);
                 for (int c = 0; c < C::kChunks; ++c)
                     tma_load_4d(sK(st) + c * N * 128, &tk, full_k + st, c * 64, kvh, t * N, b);
                 if (t >= C::kStages) mbar_wait(empty_v + st, par);
-                mbar_expect_tx(full_v + st, C::kKvBytes);
-                for (int c = 0; c < C::kChunks; ++c)
-                    tma_load_4d(sV(st) + c * N * 128, &tv, full_v + st, c * 64, kvh, t * N, b);
+                mbar_expect_tx(full_v + st, C::kVBytes);
+                for (int c = 0; c < C::kCols / 64; ++c)
+                    tma_load_4d(sV(st) + c * N * 128, &tv, full_v + st, cs * C::kCols + c * 64, kvh, t * N, b);
             }
         }
         return;
@@ -233,9 +258,9 @@ __global__ void __launch_bounds__(FwdCfg<HD>::kThreads, 1)
     const float sl2 = p.scale * 1.44269504088896341f;  // scale * log2(e): exp(scale x) = 2^(sl2 x)
     float m[2] = {-INFINITY, -INFINITY};  // the row max of the unscaled scores
     float l[2] = {0.0f, 0.0f};            // this thread's part of the row sum
-    float o[HD / 2];
+    float o[C::kCols / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < C::kCols / 2; ++i) o[i] = 0.0f;
     float s[N / 2];
     uint32_t pa[N / 16][4];
     float corr[2];
@@ -266,7 +291,7 @@ __global__ void __launch_bounds__(FwdCfg<HD>::kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < N / 16; ++kk)
-            wgmma_rs_tb<HD, E>(o, pa[kk], gmma_desc_sw128(va + kk * 16 * 128, N * 128, 1024), 1);
+            wgmma_rs_tb<C::kCols, E>(o, pa[kk], gmma_desc_sw128(va + kk * 16 * 128, N * 128, 1024), 1);
         wgmma_commit();
     };
     auto pack = [&](int kk) {
@@ -318,7 +343,7 @@ __global__ void __launch_bounds__(FwdCfg<HD>::kThreads, 1)
     };
     auto rescale_o = [&]() {
 #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < C::kCols / 2; ++i) o[i] *= corr[(i >> 1) & 1];
     };
     auto pv_landed = [&]() {
         fence_regs(o);
@@ -375,12 +400,12 @@ __global__ void __launch_bounds__(FwdCfg<HD>::kThreads, 1)
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         const float inv = 1.0f / l[i];
-        E* dst = p.o + (((size_t)b * p.T + row[i]) * p.H + h) * HD;
+        E* dst = p.o + (((size_t)b * p.T + row[i]) * p.H + h) * HD + cs * C::kCols;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
+        for (int j = 0; j < C::kCols / 8; ++j)
             *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * t4) =
                 pack_x2<E>(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
-        if (t4 == 0) {
+        if (cs == 0 && t4 == 0) {  // every slice has the same m and l: slice 0 writes them
             const size_t ml = ((size_t)b * p.H + h) * p.T + row[i];
             p.m_out[ml] = __fmul_rn(m[i], p.scale);  // max of the scaled scores: the scale is monotone
             p.l_out[ml] = l[i];
@@ -896,18 +921,23 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------------------
 // The wide family: the same three functions where the wgmma kernels stop, f32
-// at any head_dim and bf16/f16 at head_dim 384 and up (CUDA cores, f32 FMA)
+// at any head_dim, and bf16/f16 dK/dV and dQ at head_dim 384 and up and the
+// bf16/f16 forward from 640 (CUDA cores, f32 FMA)
 // ---------------------------------------------------------------------------
 
 // Why CUDA cores.  f32 must be full f32 (the JAX package's "highest"
 // precision): one TF32 pass keeps about three digits, and TF32 wgmma takes
 // both operands K-major while V in P V is MN-major.  And a warpgroup's f32 O
 // or dQ of 64 rows takes hd / 2 registers a thread, which with S and dP
-// passes the 255-register limit above hd 256.  So a block here owns 128
-// columns of its output (a column slice; hd / 128 blocks share a row tile
-// and each recomputes the scores over all of hd) and keeps everything in
-// f32: the bound is the f32 rate (67 TFLOP/s) for f32, and this simple
-// design trades the 16-bit types' tensor-core rate for one code path.
+// passes the 255-register limit above hd 256.  The 16-bit forward cuts O in
+// two column slices on wgmma up to hd 512 (FwdCfg); from hd 640 a half
+// slice passes wgmma's widest N, 256, and dK/dV and dQ, which hold two
+// accumulators and two score tiles, have no slice design on wgmma yet.  So a
+// block here owns 128 columns of its output (a column slice; hd / 128
+// blocks share a row tile and each recomputes the scores over all of hd) and
+// keeps everything in f32: the bound is the f32 rate (67 TFLOP/s) for f32,
+// and this simple design trades the 16-bit types' tensor-core rate for one
+// code path.
 //
 // A block is 256 threads over a 64 x 64 tile of scores (S, or S^T in dK/dV)
 // and a 64 x 128 slice of its output.  Thread (ty, tx) = (tid / 16, tid %
@@ -1293,13 +1323,16 @@ int by_kind(int kind, F&& f) {
 }
 
 // Shapes every kernel takes: hd a multiple of 128, T of 128.  The wgmma
-// kernels take hd 128 and 256 in bf16 and f16 alone (wgmma_ok).
+// kernels take bf16 and f16 alone: the forward at hd 128 to 512
+// (fwd_wgmma_ok), dK/dV and dQ at hd 128 and 256 (wgmma_ok).
 bool shapes_ok(int B, int T, int H, int KVH, int hd) {
     return B > 0 && B <= 65535 && T > 0 && T % 128 == 0 && T / 64 <= 65535 && H > 0 && KVH > 0 && H % KVH == 0 &&
            hd > 0 && hd % 128 == 0;
 }
 
 bool wgmma_ok(int kind, int hd) { return (kind == kBf16 || kind == kF16) && (hd == 128 || hd == 256); }
+
+bool fwd_wgmma_ok(int kind, int hd) { return (kind == kBf16 || kind == kF16) && hd <= 512; }
 
 template <class E>
 Params<E> make_params(const void* q, const void* k, const void* v, const void* dout, const float* m, const float* l,
@@ -1359,7 +1392,8 @@ int launch_fwd(const Params<E>& p, int B, cudaStream_t stream) {
     const cudaError_t a =
         cudaFuncSetAttribute(flash_fwd_kernel<HD, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
     if (a != cudaSuccess) return (int)a;
-    flash_fwd_kernel<HD, E><<<dim3(p.H, B, p.T / C::kRows), C::kThreads, C::kBytes, stream>>>(tq, tk, tv, p);
+    flash_fwd_kernel<HD, E><<<dim3(p.H * C::kSlices, B, p.T / C::kRows), C::kThreads, C::kBytes, stream>>>(tq, tk,
+                                                                                                      tv, p);
     return (int)cudaGetLastError();
 }
 
@@ -1418,18 +1452,19 @@ int launch_wide(K kernel, dim3 grid, int bytes, cudaStream_t stream, Args... arg
 
 // Every entry takes `kind` (common.cuh's Kind: f32, bf16 or f16), the type
 // of q, k, v, do and the outputs.  The plain entries run the wgmma kernels
-// (bf16 or f16, hd 128 or 256), the _wide ones the wide family (any of the
-// three types, hd a multiple of 128); each refuses what its kernels do not
-// take.  T is a multiple of 128 and outputs are packed.  An entry returns a
-// CUDA error, or kTmaError + the CUresult of cuTensorMapEncodeTiled when a
-// tensor map cannot be encoded (nothing is launched then).
+// (bf16 or f16; the forward at hd 128, 256, 384 and 512, dK/dV and dQ at
+// 128 and 256), the _wide ones the wide family (any of the three types, hd
+// a multiple of 128); each refuses what its kernels do not take.  T is a
+// multiple of 128 and outputs are packed.  An entry returns a CUDA error,
+// or kTmaError + the CUresult of cuTensorMapEncodeTiled when a tensor map
+// cannot be encoded (nothing is launched then).
 
 // o [B, T, H, hd], m, l [B, H, T] f32.
 BNB_EXPORT int bnb_flash_attention_causal_fwd(const void* q, const void* k, const void* v, void* o, float* m,
                                               float* l, int B, int T, int H, int KVH, int hd, long long sqb,
                                               long long sqt, long long skb, long long skt, long long svb,
                                               long long svt, float scale, int kind, cudaStream_t stream) {
-    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd)) return (int)cudaErrorInvalidValue;
+    if (!shapes_ok(B, T, H, KVH, hd) || !fwd_wgmma_ok(kind, hd)) return (int)cudaErrorInvalidValue;
     return by_kind(kind, [&](auto tag) -> int {
         using E = typename decltype(tag)::type;
         if constexpr (sizeof(E) == 4) {
@@ -1440,7 +1475,9 @@ BNB_EXPORT int bnb_flash_attention_causal_fwd(const void* q, const void* k, cons
             p.o = static_cast<E*>(o);
             p.m_out = m;
             p.l_out = l;
-            return hd == 128 ? launch_fwd<128>(p, B, stream) : launch_fwd<256>(p, B, stream);
+            if (hd == 128) return launch_fwd<128>(p, B, stream);
+            if (hd == 256) return launch_fwd<256>(p, B, stream);
+            return hd == 384 ? launch_fwd<384>(p, B, stream) : launch_fwd<512>(p, B, stream);
         }
     });
 }

@@ -7,7 +7,7 @@
 // a box whose inner dimension is 64 16-bit values (128 bytes) lands as rows of
 // 128 bytes, the 16-byte chunks of row r XOR-ed with r % 8, so 8 rows make a
 // 1024-byte atom.  Every tile starts on a 1024-byte boundary.  A wider row
-// (head_dim 128 or 256) is loaded as 64-column chunks, one tile after the
+// (head_dim 128 up to 512) is loaded as 64-column chunks, one tile after the
 // other.
 #pragma once
 
@@ -197,6 +197,9 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
 
 // The two 16-bit types differ in the instruction's type words alone (TY).
 // The accumulator operands of an m64nNk16 product: N / 2 f32 registers.
+#define BNB_D16 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 #define BNB_D32 \
     "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
     "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
@@ -207,6 +210,11 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
     "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
     "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
     "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define BNB_D96 BNB_D64, \
+    "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+    "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+    "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+    "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
 #define BNB_D128 BNB_D64, \
     "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
     "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
@@ -218,6 +226,7 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
     "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 
 // "{%0, ..., %(n-1)}" of the accumulators
+#define BNB_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define BNB_R32 \
     "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
     "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -226,6 +235,13 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
     "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
     "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
     "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define BNB_R96 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," \
+    "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+    "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
 #define BNB_R128 \
     "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
     "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
@@ -250,6 +266,14 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
                  : DOUT                                                                                   \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
 
+template <>
+__device__ __forceinline__ void wgmma_ss<32, __nv_bfloat16>(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    BNB_WGMMA_SS("32", "bf16", BNB_R16, BNB_D16, "16", "17", "18");
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<32, __half>(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    BNB_WGMMA_SS("32", "f16", BNB_R16, BNB_D16, "16", "17", "18");
+}
 template <>
 __device__ __forceinline__ void wgmma_ss<64, __nv_bfloat16>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
     BNB_WGMMA_SS("64", "bf16", BNB_R32, BNB_D32, "32", "33", "34");
@@ -277,6 +301,16 @@ __device__ __forceinline__ void wgmma_rs_tb<128, __half>(float (&d)[64], const u
     BNB_WGMMA_RS_TB("128", "f16", BNB_R64, BNB_D64, "64", "65", "66", "67", "68", "69");
 }
 template <>
+__device__ __forceinline__ void wgmma_rs_tb<192, __nv_bfloat16>(float (&d)[96], const uint32_t (&a)[4], uint64_t db,
+                                                                int scale_d) {
+    BNB_WGMMA_RS_TB("192", "bf16", BNB_R96, BNB_D96, "96", "97", "98", "99", "100", "101");
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<192, __half>(float (&d)[96], const uint32_t (&a)[4], uint64_t db,
+                                                         int scale_d) {
+    BNB_WGMMA_RS_TB("192", "f16", BNB_R96, BNB_D96, "96", "97", "98", "99", "100", "101");
+}
+template <>
 __device__ __forceinline__ void wgmma_rs_tb<256, __nv_bfloat16>(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
                                                                 int scale_d) {
     BNB_WGMMA_RS_TB("256", "bf16", BNB_R128, BNB_D128, "128", "129", "130", "131", "132", "133");
@@ -289,11 +323,15 @@ __device__ __forceinline__ void wgmma_rs_tb<256, __half>(float (&d)[128], const 
 
 #undef BNB_WGMMA_SS
 #undef BNB_WGMMA_RS_TB
+#undef BNB_R16
 #undef BNB_R32
 #undef BNB_R64
+#undef BNB_R96
 #undef BNB_R128
+#undef BNB_D16
 #undef BNB_D32
 #undef BNB_D64
+#undef BNB_D96
 #undef BNB_D128
 
 // --- named barriers ----------------------------------------------------------

@@ -8,19 +8,25 @@ Replaces the three TPU kernels that the JAX package reaches through
 ``csrc/flash_attention.cu``; it takes q, k, v in bf16, f16 or f32, any
 head_dim that is a multiple of 128 and T a multiple of 128: every case the
 model's route (``models/llama._flash_ok``) sends, as the JAX package's does.
-Two families of hand-written kernels share that source, and the wrappers
-pick one by type and head_dim alone (:func:`uses_wgmma`):
+Two families of hand-written kernels share that source, and each wrapper
+picks one for its kernel by type and head_dim alone (:func:`uses_wgmma`,
+:func:`launch_name`):
 
-* bf16 and f16 at head_dim 128 and 256 run on ``wgmma`` over tiles that one
-  producer thread loads by TMA for consumer warpgroups (``csrc/sm90.cuh``);
-* f32 at any head_dim, and bf16 and f16 at 384 and up, run the wide family
-  on CUDA cores: full f32 FMA, not TF32, because the JAX package's f32 route
-  runs at "highest" precision (one TF32 pass keeps about three digits, and
-  TF32 ``wgmma`` cannot read V MN-major); and because a warpgroup's f32 O
-  or dQ of 64 rows takes hd / 2 registers a thread, which with S and dP
-  passes the 255-register limit above hd 256.  A block owns 128 columns of
-  its output and recomputes the scores over all of head_dim.  Each kernel
-  of this family counts under its own name (``..._wide``).
+* bf16 and f16 run on ``wgmma`` over tiles that one producer thread loads
+  by TMA for consumer warpgroups (``csrc/sm90.cuh``): the forward at
+  head_dim 128, 256, 384 and 512, dK/dV and dQ at 128 and 256.  At 384 and
+  512 a forward block owns half of o's columns (O past 256 columns would
+  not fit a warpgroup's registers beside the scores) and computes the
+  scores over all of head_dim; it counts as ``..._fwd_sliced``;
+* the wide family on CUDA cores takes the rest: f32 at any head_dim, and
+  bf16 and f16 dK/dV and dQ from 384 and the forward from 640.  Full f32
+  FMA, not TF32, because the JAX package's f32 route runs at "highest"
+  precision (one TF32 pass keeps about three digits, and TF32 ``wgmma``
+  cannot read V MN-major); and because a warpgroup's f32 O or dQ of 64 rows
+  takes hd / 2 registers a thread, which with S and dP passes the
+  255-register limit above hd 256.  A block owns 128 columns of its output
+  and recomputes the scores over all of head_dim.  Each kernel of this
+  family counts under its own name (``..._wide``).
 
 Both dK/dV kernels walk a work plan built here (:func:`dkv_plan`), and one
 combine kernel adds the pieces of the key tiles it splits.
@@ -68,6 +74,7 @@ __all__ = [
     "HEAD_DIM_STEP",
     "WGMMA_HEAD_DIMS",
     "uses_wgmma",
+    "launch_name",
     "flash_attention_causal_fwd",
     "flash_attention_causal_fwd_plain",
     "flash_attention_causal_bwd_dkv",
@@ -88,8 +95,10 @@ BLOCK = 128
 
 # the CUDA kernels take head_dim a multiple of this, and T of BLOCK
 HEAD_DIM_STEP = 128
-# the head_dims of the wgmma kernels (bf16 and f16); the wide family takes the rest
-WGMMA_HEAD_DIMS = (128, 256)
+# the head_dims at which each kernel runs on wgmma (bf16 and f16; above 256
+# a forward block owns half of o's columns); the wide family takes every
+# other type and head_dim
+WGMMA_HEAD_DIMS = {"fwd": (128, 256, 384, 512), "dkv": (128, 256), "dq": (128, 256)}
 
 
 def _shapes(q, k, v):
@@ -221,10 +230,25 @@ def _strides(name: str, t: torch.Tensor):
     return t.stride(0), t.stride(1)
 
 
-def uses_wgmma(dtype: torch.dtype, hd: int) -> bool:
-    """Whether q/k/v of ``dtype`` at ``hd`` run the wgmma kernels; the wide
-    family takes every other type and head_dim the CUDA kernels take."""
-    return dtype != torch.float32 and hd in WGMMA_HEAD_DIMS
+_BASE_NAMES = {"fwd": "flash_attention_causal_fwd", "dkv": "flash_attention_causal_bwd_dkv",
+               "dq": "flash_attention_causal_bwd_dq"}
+
+
+def uses_wgmma(kernel: str, dtype: torch.dtype, hd: int) -> bool:
+    """Whether ``kernel`` (``"fwd"``, ``"dkv"`` or ``"dq"``) runs on wgmma
+    for q/k/v of ``dtype`` at ``hd``; the wide family takes every other type
+    and head_dim the CUDA kernels take."""
+    return dtype != torch.float32 and hd in WGMMA_HEAD_DIMS[kernel]
+
+
+def launch_name(kernel: str, dtype: torch.dtype, hd: int) -> str:
+    """The launch count ``kernel`` adds to for q/k/v of ``dtype`` at ``hd``:
+    its wgmma instance's, ``..._sliced`` for the forward's column-sliced
+    instances, or ``..._wide``."""
+    name = _BASE_NAMES[kernel]
+    if not uses_wgmma(kernel, dtype, hd):
+        return name + "_wide"
+    return name + "_sliced" if kernel == "fwd" and hd > 256 else name
 
 
 def _check_cuda(q, k, v, T: int, hd: int) -> None:
@@ -263,14 +287,15 @@ def flash_attention_causal_fwd(q, k, v):
     (no cache, positions from 0): ``(o [B, T, H, hd], m [B, H, T] f32,
     l [B, H, T] f32)``.  Kernel on CUDA tensors, plain version on CPU
     tensors.  On ``wgmma`` a block owns 128 query rows of one head (64 at
-    head_dim 256) and reads q, k and v in place through TMA tensor maps over
-    their strides; in the wide family 64 rows and 128 columns of o."""
+    head_dim 256; 64 rows and half of the columns at 384 and 512) and reads
+    q, k and v in place through TMA tensor maps over their strides; in the
+    wide family 64 rows and 128 columns of o."""
     B, T, H, KVH, hd = _shapes(q, k, v)
     if not use_kernel(q, k, v):
         return flash_attention_causal_fwd_plain(q, k, v)
     _check_cuda(q, k, v, T, hd)
     sq, sk, sv = _strides("q", q), _strides("k", k), _strides("v", v)
-    wgmma = uses_wgmma(q.dtype, hd)
+    wgmma = uses_wgmma("fwd", q.dtype, hd)
     if wgmma:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _tma_ok(name, t)
@@ -278,8 +303,8 @@ def flash_attention_causal_fwd(q, k, v):
     m = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     if B:
-        name = "flash_attention_causal_fwd" + ("" if wgmma else "_wide")
-        err = getattr(_lib.lib(), "bnb_" + name)(
+        name = launch_name("fwd", q.dtype, hd)
+        err = getattr(_lib.lib(), "bnb_" + name.removesuffix("_sliced"))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), B, T, H, KVH, hd,
             *sq, *sk, *sv, hd**-0.5, _KIND[q.dtype], _lib.stream(q))
         _lib.check(err, name)
@@ -449,8 +474,7 @@ def flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di):
     if not use_kernel(q, k, v, do, m, l, di):
         return flash_attention_causal_bwd_dkv_plain(q, k, v, do, m, l, di)
     (B, T, H, KVH, hd), ptrs, strides = _bwd_args(q, k, v, do, m, l, di)
-    wgmma = uses_wgmma(q.dtype, hd)
-    if wgmma:
+    if uses_wgmma("dkv", q.dtype, hd):
         _dkv_checks(q, k, v, do, m, l, di)
     dk = torch.empty(B, T, KVH, hd, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
@@ -460,7 +484,7 @@ def flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di):
         if plan.slots:
             part_k = torch.empty(plan.slots, DKV_KEYS, DKV_COLS, dtype=torch.float32, device=q.device)
             part_v = torch.empty_like(part_k)
-        name = "flash_attention_causal_bwd_dkv" + ("" if wgmma else "_wide")
+        name = launch_name("dkv", q.dtype, hd)
         err = getattr(_lib.lib(), "bnb_" + name)(
             *ptrs, dk.data_ptr(), dv.data_ptr(), None if part_k is None else part_k.data_ptr(),
             None if part_v is None else part_v.data_ptr(), items.data_ptr(), len(plan.items), B, T, H, KVH, hd,
@@ -477,7 +501,7 @@ def _dq_args(q, k, v, do, m, l, di):
     ``_dq_checks`` on the wgmma kernel): ``(shapes, pointers, strides)``, or
     it raises."""
     args = _bwd_args(q, k, v, do, m, l, di)
-    if uses_wgmma(q.dtype, args[0][4]):
+    if uses_wgmma("dq", q.dtype, args[0][4]):
         _dq_checks(q, k, v, do)
     return args
 
@@ -494,7 +518,7 @@ def flash_attention_causal_bwd_dq(q, k, v, do, m, l, di):
     (B, T, H, KVH, hd), ptrs, strides = _dq_args(q, k, v, do, m, l, di)
     dq = torch.empty(B, T, H, hd, dtype=q.dtype, device=q.device)
     if B:
-        name = "flash_attention_causal_bwd_dq" + ("" if uses_wgmma(q.dtype, hd) else "_wide")
+        name = launch_name("dq", q.dtype, hd)
         err = getattr(_lib.lib(), "bnb_" + name)(
             *ptrs, dq.data_ptr(), B, T, H, KVH, hd, *strides, hd**-0.5, _KIND[q.dtype], _lib.stream(q))
         _lib.check(err, name)

@@ -241,6 +241,7 @@ import importlib
 import math
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -335,8 +336,14 @@ TPU_KERNELS = {
     "flash_attention_causal_bwd_dq_f16": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
-    # kernels 17-19's wide family: f32 at any head_dim, bf16 and f16 at 384
-    # and up (CUDA cores; launched by 4r(e)'s f32 steps)
+    # kernel 17's column-sliced wgmma instances: bf16 and f16 at head_dim 384
+    # and 512 (launched by 5l's head_dim 512 step)
+    "flash_attention_causal_fwd_sliced": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    # kernels 17-19's wide family: f32 at any head_dim, and bf16 and f16 dK/dV
+    # and dQ at 384 and up and the forward from 640 (CUDA cores; launched by
+    # 4r(e)'s f32 steps)
     "flash_attention_causal_fwd_wide": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
@@ -356,20 +363,28 @@ FLASH_TOLERANCES = {"bfloat16": (2e-2, 1e-2), "float16": (8e-3, 5e-3), "float32"
 
 
 FLASH_TRAIN = ("flash_attention_causal_fwd", "flash_attention_causal_bwd_dkv", "flash_attention_causal_bwd_dq")
-# the wide family's launch counts (f32 at any head_dim, bf16/f16 at 384 and up)
+# the wide family's launch counts (f32 at any head_dim; bf16/f16 dK/dV and dQ
+# at 384 and up, the forward from 640)
 FLASH_TRAIN_WIDE = tuple(n + "_wide" for n in FLASH_TRAIN)
+FLASH_KERNELS = ("fwd", "dkv", "dq")
 
 
 def flash_names(dtype, hd=128):
-    """The launch counts of kernels 17-19 that q/k/v of ``dtype`` at ``hd``
-    take: the wgmma kernels' or the wide family's."""
+    """The launch counts of kernels 17, 18 and 19 that q/k/v of ``dtype`` at
+    ``hd`` take, each kernel's family chosen on its own: a wgmma kernel's
+    (the forward's column-sliced instance at 384 and 512) or the wide
+    family's."""
     from bitsandbytes_tpu_torch.ops import flash_attention as FA
 
-    return FLASH_TRAIN if FA.uses_wgmma(dtype, hd) else FLASH_TRAIN_WIDE
+    return tuple(FA.launch_name(k, dtype, hd) for k in FLASH_KERNELS)
 
 
-# device time by class of a training step through the flash kernels
-FLASH_CLASSES = [("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_dkv_kernel", "kernel 18 (flash dK/dV)"),
+# device time by class of a training step through the flash kernels (the
+# forward's column-sliced instances before its others: the first match names
+# a kernel)
+FLASH_CLASSES = [("flash_fwd_kernel<384", "kernel 17, column-sliced (hd 384)"),
+                 ("flash_fwd_kernel<512", "kernel 17, column-sliced (hd 512)"),
+                 ("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_dkv_kernel", "kernel 18 (flash dK/dV)"),
                  ("flash_bwd_dkv_combine", "kernel 18's combine"), ("flash_bwd_dq_kernel", "kernel 19 (flash dQ)"),
                  ("flash_wide_fwd_kernel", "kernel 17, wide family"),
                  ("flash_wide_dkv_kernel", "kernel 18, wide family"),
@@ -454,6 +469,27 @@ def sass_of(so: str):
         _SASS[so] = (subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True,
                                     timeout=300).stdout if os.path.exists(tool) else None)
     return _SASS[so]
+
+
+def registers_of(so: str, kernels) -> dict:
+    """Registers a thread of each instance of ``kernels`` in the built
+    library (``cuobjdump -res-usage``), by mangled name; empty without the
+    tool."""
+    from bitsandbytes_tpu_torch.ops import _lib
+
+    tool = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-res-usage", so], capture_output=True, text=True, check=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        if "Function " in line:
+            fn = line.split("Function ", 1)[1].strip().rstrip(":")
+            fn = fn if any(k in fn for k in kernels) else None
+        elif fn and "REG:" in line:
+            out[fn] = int(line.split("REG:", 1)[1].split()[0])
+            fn = None
+    return out
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -2821,7 +2857,14 @@ def flash_train_kernels(dev, entry):
     combine on random partials under that plan is held bit for bit against
     its plain version and timed (its kernels-line entry).  Two batched shapes (B 2, T
     1152, hd 128; B 3, T 640, hd 256) hold each kernel to the same
-    tolerances, untimed."""
+    tolerances, untimed.  Each forward call of a timed shape must add one
+    to the launch count of the kernel its route names (``FA.launch_name``):
+    at hd 384 and 512 in bf16 and f16 the forward's column-sliced wgmma
+    instance (its own kernels-line entry, from the bf16 hd 512 shape, timed
+    beside SDPA), while dK/dV and dQ stay on the wide family there.  Batched
+    GQA shapes at hd 384 and 512 take the sliced forward too, and two at hd
+    640 (bf16, f16) the wide family's 16-bit forward instances.  The SASS counts and the registers
+    (``cuobjdump -res-usage``) of every instance are emitted."""
     import torch
     import torch.nn.functional as F
 
@@ -2834,7 +2877,8 @@ def flash_train_kernels(dev, entry):
     rel = lambda a, b: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()  # noqa: E731
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [(bf16, 1, T, 32, 8, 128) for T in (1024, 2048, 4096, 8192)] + [(bf16, 1, 4096, 16, 16, 256)]
-    # f16 on the wgmma kernels, f32 and head_dim 384 / 512 on the wide family
+    # f16 on the wgmma kernels, f32 on the wide family, head_dim 384 / 512 on
+    # the forward's column-sliced wgmma instances and the wide dK/dV and dQ
     cases += [(f16, 1, T, 32, 8, 128) for T in (2048, 4096)] + [(f16, 1, 4096, 16, 16, 256), (f32, 1, 2048, 32, 8, 128)]
     cases += [(dt, 1, 2048, 8, 8, hd) for dt in (bf16, f16) for hd in (384, 512)]
 
@@ -2853,7 +2897,11 @@ def flash_train_kernels(dev, entry):
     out, wide_rows = [], []
     for dt, B, T, H, KVH, hd in cases:
         q, k, v, do = flash_inputs(dev, gen, B, T, H, KVH, hd, dt)
+        family = dict(zip(FLASH_KERNELS, flash_names(dt, hd)))
+        _lib.reset_launch_counts()
         o, m, l = FA.flash_attention_causal_fwd(q, k, v)
+        assert {n: c for n, c in _lib.launch_counts().items() if c} == {family["fwd"]: 1}, \
+            f"3p {dt} hd {hd}: {_lib.launch_counts()}"
         op, mp, lp = FA.flash_attention_causal_fwd_plain(q, k, v)
         di = (op.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         bwd = (q, k, v, do, mp, lp, di)
@@ -2883,7 +2931,6 @@ def flash_train_kernels(dev, entry):
             sdpa = {"fwd_ms": None, "bwd_ms": None, "error": str(e)[:200]}
         del qt, kt, vt
         work = flash_causal_work(B, T, H, KVH, hd, q.element_size())
-        family = "wgmma" if FA.uses_wgmma(dt, hd) else "wide"
         row = {"dtype": str(dt)[6:], "family": family, "B": B, "T": T, "H": H, "KVH": KVH, "hd": hd, "errs": errs,
                "sdpa": sdpa,
                "fwd": {"ms": dev_ms(lambda: FA.flash_attention_causal_fwd(q, k, v)),
@@ -2933,7 +2980,7 @@ def flash_train_kernels(dev, entry):
             del part_k, part_v, ck, cp
         row["bwd_ms"] = row["dkv"]["ms"] + row["dq"]["ms"]
         out.append(row)
-        if family == "wide" and hd > 256:
+        if hd > 256:  # the sliced forward's instances, and the wide dK/dV and dQ's in 16 bits
             wide_rows.append({"dtype": row["dtype"], "shape": [B, T, H, KVH, hd], "sdpa": sdpa, "errs": errs,
                               **{key: row[key] for key in ("fwd", "dkv", "dq")}})
         if (T, hd) == (2048, 128):
@@ -2953,28 +3000,42 @@ def flash_train_kernels(dev, entry):
                                          "; max_abs_err is the output's abs error" if key == "fwd" else
                                          "; max_abs_err is relative to the gradient's largest magnitude")))
                 if dt == f32:
-                    wide_rows.append(pending)  # entered below, with the head_dim 384 / 512 instances
+                    wide_rows.append((key, pending))  # entered below, with the head_dim 384 / 512 instances
                 else:
                     entry(*pending[:8], **pending[8])
         del q, k, v, do, o, m, l, di, dk, dv, dq, bwd
         torch.cuda.empty_cache()
-    # the wide family's entries: f32 at 4r's shape, and its bf16 / f16 instances at head_dim 384 and 512
+    # the wide family's entries: f32 at 4r's shape, and the bf16 / f16 dK/dV
+    # and dQ instances at head_dim 384 and 512
     instances = [r for r in wide_rows if isinstance(r, dict)]
-    for pend in (r for r in wide_rows if not isinstance(r, dict)):
-        key = {"flash_attention_causal_fwd_wide": "fwd", "flash_attention_causal_bwd_dkv_wide": "dkv",
-               "flash_attention_causal_bwd_dq_wide": "dq"}[pend[0]]
-        entry(*pend[:8], **pend[8], instances=[{"dtype": r["dtype"], "shape": r["shape"], **r[key],
-                                                "sdpa_fwd_ms": r["sdpa"]["fwd_ms"],
-                                                "sdpa_bwd_ms": r["sdpa"]["bwd_ms"]} for r in instances])
+
+    def inst(r, key):
+        return {"dtype": r["dtype"], "shape": r["shape"], **r[key], "sdpa_fwd_ms": r["sdpa"]["fwd_ms"],
+                "sdpa_bwd_ms": r["sdpa"]["bwd_ms"]}
+
+    for key, pend in (r for r in wide_rows if not isinstance(r, dict)):
+        entry(*pend[:8], **pend[8], instances=[inst(r, key) for r in instances if key != "fwd"])
+    # the forward's column-sliced wgmma instances: bf16 at hd 512 in the line, all four beside it
+    main = next(r for r in instances if (r["dtype"], r["shape"][4]) == ("bfloat16", 512))
+    nb, ops = flash_causal_work(*main["shape"])["fwd"]
+    entry("flash_attention_causal_fwd_sliced", main["fwd"]["ms"], main["fwd"]["plain_ms"], main["sdpa"]["fwd_ms"],
+          nb, ops, PEAK_BF16_FLOPS, main["errs"]["o_abs"], shape=main["shape"], dtype="bfloat16",
+          instances=[inst(r, "fwd") for r in instances],
+          note="kernel 17's bf16 / f16 instances at head_dim 384 and 512: a block 64 query rows of one head and "
+               "half of o's columns, S over all of hd on wgmma; device ms, host held out, L2 flushed; "
+               "library_ms is SDPA is_causal's forward; max_abs_err is the output's abs error")
 
     # more than one sequence and T off a power of two: each kernel against its
     # plain version at 3p's tolerances, untimed (inputs from a generator of
     # their own); each plan splits key tiles, so the combine runs in each type
     batched, gen_b = [], torch.Generator(device=dev).manual_seed(61)
     for dt, B, T, H, KVH, hd in ((bf16, 2, 1152, 8, 2, 128), (bf16, 3, 640, 2, 1, 256), (f16, 3, 640, 2, 1, 256),
-                                 (f32, 2, 1152, 8, 2, 128), (bf16, 2, 640, 4, 2, 384)):
+                                 (f32, 2, 1152, 8, 2, 128), (bf16, 2, 640, 4, 2, 384), (f16, 2, 640, 4, 2, 512),
+                                 (bf16, 1, 640, 2, 1, 640), (f16, 1, 640, 2, 1, 640)):
         q, k, v, do = flash_inputs(dev, gen_b, B, T, H, KVH, hd, dt)
+        _lib.reset_launch_counts()
         o, m, l = FA.flash_attention_causal_fwd(q, k, v)
+        assert _lib.launch_counts()[flash_names(dt, hd)[0]] == 1, f"3p batched {dt} hd {hd}"
         op, mp, lp = FA.flash_attention_causal_fwd_plain(q, k, v)
         di = (op.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         bwd = (q, k, v, do, mp, lp, di)
@@ -2986,6 +3047,7 @@ def flash_train_kernels(dev, entry):
                 "dk_rel": rel(dk, dkp), "dv_rel": rel(dv, dvp)}
         check(f"3p {str(dt)[6:]} B{B} T{T} H{H} KVH{KVH} hd{hd}", dt, errs)
         batched.append({"dtype": str(dt)[6:], "B": B, "T": T, "H": H, "KVH": KVH, "hd": hd, "errs": errs,
+                        "kernels": flash_names(dt, hd),
                         "split_key_tiles": len(FA._dkv_tables(B, T, H, KVH, hd, dev)[0].combine)})
         del q, k, v, do, o, m, l, op, mp, lp, di, bwd, dk, dv, dkp, dvp
 
@@ -3005,10 +3067,11 @@ def flash_train_kernels(dev, entry):
                       "kernels_faster_both_ways": kern["fwd_ms"] + kern["bwd_ms"] < orac["fwd_ms"] + orac["bwd_ms"]})
         del q, k, v, do, gout
         torch.cuda.empty_cache()
-    # the instances of kernels 17-19: the wgmma kernels (bf16 and f16 at hd 128
-    # and 256) hold wgmma (HGMMA) and TMA loads (UTMALDG) and no local stores;
-    # the bf16 instances keep FLASH_BF16_SASS's counts; the wide family (f32, bf16, f16)
-    # runs f32 FMAs (FFMA) with no tensor-core product and no local stores
+    # the instances of kernels 17-19: the wgmma kernels (bf16 and f16; the
+    # forward at hd 128-512, dK/dV and dQ at 128 and 256) hold wgmma (HGMMA)
+    # and TMA loads (UTMALDG) and no local stores; the bf16 instances at hd
+    # 128 and 256 keep FLASH_BF16_SASS's counts; the wide family (f32, bf16,
+    # f16) runs f32 FMAs (FFMA) with no tensor-core product and no local stores
     flash_kernels = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
     wide_kernels = ("flash_wide_fwd_kernel", "flash_wide_dkv_kernel", "flash_wide_dq_kernel")
     sass, wg_sass, fn = sass_of(_lib.build()), {}, None
@@ -3023,15 +3086,15 @@ def flash_train_kernels(dev, entry):
                 wg_sass[fn][op] += f" {op}" in line
 
     def instance(name):  # (type, hd) of a wgmma kernel's mangled name
-        return ("bf16" if "bfloat16" in name else "f16" if "half" in name else "?",
-                128 if "Li128E" in name else 256 if "Li256E" in name else 0)
+        hd_ = re.search(r"ILi(\d+)E", name)
+        return ("bf16" if "bfloat16" in name else "f16" if "half" in name else "?", int(hd_.group(1)) if hd_ else 0)
 
-    for kern in flash_kernels:
+    for kern, dims in zip(flash_kernels, (FA.WGMMA_HEAD_DIMS[k] for k in FLASH_KERNELS)):
         inst = {n: c for n, c in wg_sass.items() if kern in n}
-        assert sass is None or (len(inst) == 4 and all(c["HGMMA"] and c["UTMALDG"] and not c["STL"]
-                                                       for c in inst.values())), f"3p {kern} SASS {inst}"
+        assert sass is None or (len(inst) == 2 * len(dims) and all(c["HGMMA"] and c["UTMALDG"] and not c["STL"]
+                                                                   for c in inst.values())), f"3p {kern} SASS {inst}"
         got = {instance(n): (c["HGMMA"], c["UTMALDG"]) for n, c in inst.items()}
-        assert sass is None or set(got) == {(t, h) for t in ("bf16", "f16") for h in (128, 256)}, f"3p {kern} {got}"
+        assert sass is None or set(got) == {(t, h) for t in ("bf16", "f16") for h in dims}, f"3p {kern} {got}"
         for hd_, counts in FLASH_BF16_SASS[kern].items():
             assert sass is None or got[("bf16", hd_)] == counts, f"3p {kern} bf16 hd {hd_}: {got}, was {counts}"
     for kern in wide_kernels:
@@ -3039,6 +3102,7 @@ def flash_train_kernels(dev, entry):
         assert sass is None or (len(inst) == 3 and all(c["FFMA"] and not c["STL"] and not c["HGMMA"]
                                                        for c in inst.values())), f"3p {kern} SASS {inst}"
     emit("flash_train_kernels", shapes=out, batched=batched, threshold_sweep=sweep, sass=wg_sass,
+         registers=registers_of(_lib.build(), flash_kernels + wide_kernels),
          route_line={"T_min": 1024, "note": "the JAX package's line (_flash_ok), kept"})
     return out
 
@@ -3187,23 +3251,26 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
     return launches
 
 
-def flash_cpu_check(dev, dtype=None):
+def flash_cpu_check(dev, dtype=None, hd=128):
     """5l: a 2-layer Llama (bf16 unless ``dtype`` says; hidden 512, H 4 over
-    2 KV heads, hd 128, fused NF4, rank-8 adapters on all seven targets,
-    ``b`` non-zero) at T 1024: ``lm_loss`` and its adapter gradients through
-    kernels 17-19 on the card (the wgmma kernels in bf16 and f16, the wide
-    family in f32) against the CPU port through their plain versions (the
-    CPU's route patched to the flash one), the loss within rel 1e-3, the
-    gradients within rtol 2e-2 / atol 2e-3; the card's launches 2 of each,
-    and 2 of kernel 18's combine where its plan splits a key tile at this
-    shape."""
+    2 KV heads, hd 128, or at ``hd`` 512 hidden 1024, H 2 over 1 KV head;
+    fused NF4, rank-8 adapters on all seven targets, ``b`` non-zero) at T
+    1024: ``lm_loss`` and its adapter gradients through kernels 17-19 on the
+    card (the wgmma kernels in bf16 and f16, the wide family in f32; at hd
+    512 the forward's column-sliced wgmma instance and the wide dK/dV and
+    dQ) against the CPU port through their plain versions (the CPU's route
+    patched to the flash one), the loss within rel 1e-3, the gradients
+    within rtol 2e-2 / atol 2e-3; the card's launches 2 of each kernel the
+    route names, and 2 of kernel 18's combine where its plan splits a key
+    tile at this shape."""
     import torch
 
     from bitsandbytes_tpu_torch.models import llama as L
     from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    cfg = L.LlamaConfig(vocab_size=1024, hidden_size=512, intermediate_size=1024, num_layers=2, num_heads=4,
-                        num_kv_heads=2, head_dim=128, dtype=dtype or torch.bfloat16)
+    hidden, heads, kv_heads = (512, 4, 2) if hd == 128 else (1024, 2, 1)
+    cfg = L.LlamaConfig(vocab_size=1024, hidden_size=hidden, intermediate_size=1024, num_layers=2, num_heads=heads,
+                        num_kv_heads=kv_heads, head_dim=hd, dtype=dtype or torch.bfloat16)
     names = flash_names(cfg.dtype, cfg.head_dim)
     T = 1024
     assert L._flash_ok(cfg, T, cfg.head_dim, dev) and not L._flash_ok(cfg, T, cfg.head_dim, torch.device("cpu"))
@@ -3230,6 +3297,8 @@ def flash_cpu_check(dev, dtype=None):
     torch.cuda.synchronize()
     counts = {k: c for k, c in launch_counts().items() if c}
     assert all(counts.get(n) == cfg.num_layers for n in names), f"5l launches {counts}"
+    others = (FLASH_TRAIN + FLASH_TRAIN_WIDE + ("flash_attention_causal_fwd_sliced",))
+    assert not any(counts.get(n) for n in others if n not in names), f"5l launches {counts}"
     combines = cfg.num_layers * dkv_combines(dev, 1, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     assert counts.get("flash_attention_causal_bwd_dkv_combine", 0) == combines, f"5l launches {counts}"
     lc = fresh("cpu")
@@ -6754,6 +6823,13 @@ def main() -> int:
         for name, n in flash_cpu_check(dev, dt).items():
             if name in FLASH_TRAIN + FLASH_TRAIN_WIDE:
                 report[name + suffix]["launches_5l"] = n
+    # and in bf16 at head_dim 512: the forward's column-sliced instance (its
+    # kernels-line launches), dK/dV and dQ on the wide family
+    for name, n in flash_cpu_check(dev, torch.bfloat16, hd=512).items():
+        if name == "flash_attention_causal_fwd_sliced":
+            report[name]["launches"] = n
+        elif name in FLASH_TRAIN_WIDE:
+            report[name]["launches_5l_hd512"] = n
     # kernel 18's combine runs where its plan splits key tiles: 5l's T 1024, not 4r's T 2048
     combine = "flash_attention_causal_bwd_dkv_combine"
     report[combine]["launches"] = counts_5l.get(combine)

@@ -21,9 +21,13 @@ and 0.43%), with room for another host's rounding:
   largest magnitude (the JAX package's f32 route is full f32 under the
   tests' "highest" default; one TF32 pass would miss both).
 
-Also: one ``lora_train_step`` of the f16 model through the flash route
-against the JAX package's ``lm_loss``, and the CUDA wrappers' checks
-against the JAX package's route conditions for every type and head_dim.
+Also: one ``lora_train_step`` of the f16 model, and of a bf16 model at
+head_dim 512, through the flash route against the JAX package's
+``lm_loss``; the CUDA wrappers' checks against the JAX package's route
+conditions for every type and head_dim; and the kernel each wrapper
+launches on the card, by type and head_dim (each kernel picks its family on
+its own: the forward runs on ``wgmma`` up to head_dim 512, dK/dV and dQ up
+to 256).
 """
 
 import dataclasses
@@ -39,18 +43,20 @@ from bitsandbytes_tpu.models import llama as JL
 from bitsandbytes_tpu.ops import dispatch
 from bitsandbytes_tpu_torch import optim as TO
 from bitsandbytes_tpu_torch.models import llama as TL
+from bitsandbytes_tpu_torch.ops import _lib
 from bitsandbytes_tpu_torch.ops import flash_attention as FA
-from bitsandbytes_tpu_torch.utils.interop import lora_from_numpy
+from bitsandbytes_tpu_torch.utils.interop import lora_from_numpy, params_from_numpy
 from test_torch_flash_attention import _jax_flash_ok
-from test_torch_qlora import _models, _np_tree
+from test_torch_qlora import TARGETS, _models, _np_tree
 
 torch.set_num_threads(1)
 
 KVH = 2
-# (dtype, T, hd, G): f16 and f32 at the wgmma kernels' head_dims, bf16 and
-# f16 at the wide family's
+# (dtype, T, hd, G): f16 and f32 at head_dim 128 and 256, bf16 and f16 at
+# 384 and 512 (the forward's column-sliced wgmma instances on the card,
+# dK/dV and dQ the wide family's)
 CASES = [("float16", 256, 128, 2), ("float16", 256, 256, 1), ("float32", 256, 128, 2), ("float32", 384, 256, 1),
-         ("bfloat16", 256, 384, 2), ("float16", 256, 512, 1)]
+         ("bfloat16", 256, 384, 2), ("float16", 256, 512, 1), ("float16", 256, 384, 1), ("bfloat16", 256, 512, 2)]
 # (output abs, gradient relative to its largest magnitude)
 TOLERANCES = {"bfloat16": (8e-3, 1.5e-2), "float16": (8e-3, 5e-3), "float32": (1e-5, 1e-4)}
 TORCH_TYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
@@ -149,18 +155,55 @@ def test_f16_train_step_loss_matches_jax(flash_route):
     assert all(t.grad is not None and t.grad.dtype == t.dtype for t in TL.lora_parameters(tlora))
 
 
+def test_bf16_hd512_train_step_loss_matches_jax(flash_route):
+    """One ``lora_train_step`` of a 2-layer bf16 model at head_dim 512
+    (hidden 1024 = 2 query heads over 1 KV head of 512, fused NF4, rank-4
+    adapters on all seven targets, ``b`` non-zero) at T 256 through the
+    flash route: its loss against the JAX package's ``lm_loss`` through its
+    Pallas flash kernels, rel 1e-3, as the f16 step above.  On the card this
+    step runs the forward's column-sliced wgmma instance and the wide
+    family's dK/dV and dQ (``chip_smoke.py`` 5l)."""
+    jcfg, tcfg = (dataclasses.replace(C.tiny(), hidden_size=1024, intermediate_size=1024, num_heads=2,
+                                      num_kv_heads=1, head_dim=512) for C in (JL.LlamaConfig, TL.LlamaConfig))
+    assert jcfg.dtype == jnp.bfloat16 and tcfg.dtype == torch.bfloat16
+    jq = JL.quantize_params_4bit(JL.init_params(jax.random.PRNGKey(0), jcfg), fuse=True)
+    jlora = JL.add_lora(jax.random.PRNGKey(3), jcfg, rank=4, targets=TARGETS)
+    rng = np.random.default_rng(0)
+    for layer in jlora["layers"]:
+        for ad in layer.values():
+            ad["b"] = jnp.asarray((rng.standard_normal(ad["b"].shape) * 0.02).astype(np.float32))
+    ids = rng.integers(0, jcfg.vocab_size, (1, 257))
+    with pltpu.force_tpu_interpret_mode():
+        ref = float(jax.jit(lambda lo, i: JL.lm_loss(jq, lo, i, jcfg))(jlora, jnp.asarray(ids)))
+    tq = params_from_numpy(_np_tree(jq), "cpu")
+    tlora = lora_from_numpy(_np_tree(jlora), "cpu")
+    opt = TO.adamw8bit(TL.lora_parameters(tlora), 1e-3)
+    loss = float(TL.lora_train_step(tq, tlora, opt, torch.from_numpy(ids), tcfg))
+    assert flash_route == {"torch": tcfg.num_layers, "jax": jcfg.num_layers}, flash_route
+    assert np.isfinite(loss) and abs(loss - ref) <= 1e-3 * abs(ref), (loss, ref)
+    assert all(t.grad is not None and t.grad.dtype == t.dtype for t in TL.lora_parameters(tlora))
+
+
+# the head_dims each kernel takes on wgmma in bf16 and f16 (the wide family
+# takes the rest, and every head_dim in f32)
+WGMMA = {"fwd": (128, 256, 384, 512), "dkv": (128, 256), "dq": (128, 256)}
+
+
 @pytest.mark.parametrize("dtype", list(TORCH_TYPES))
 def test_cuda_checks_take_what_the_jax_route_takes(dtype):
     """For every type and head_dim, at T on and past the route's line (the
     kernels also take shorter T), the CUDA wrappers' checks accept exactly
     the cases the JAX package's ``_flash_ok`` conditions send to its flash
-    kernel, its backend check aside; each accepted case has one family:
-    the wgmma kernels for bf16 and f16 at head_dim 128 and 256, the wide
-    family for the rest."""
+    kernel, its backend check aside; each kernel of an accepted case has one
+    family: the forward runs on wgmma for bf16 and f16 at head_dim 128, 256,
+    384 and 512, dK/dV and dQ at 128 and 256, and the wide family takes the
+    rest.  Each kernel counts its launches under a name of the library's
+    counts that shows which ran: ``_sliced`` for the forward's column-sliced
+    instances (384 and 512), ``_wide`` for the wide family."""
     tt = TORCH_TYPES[dtype]
     cfg = JL.LlamaConfig.tiny()
     for T in (1024, 1088, 1152, 2048, 4096):
-        for hd in (64, 96, 128, 192, 256, 320, 384, 512):
+        for hd in (64, 96, 128, 192, 256, 320, 384, 512, 640):
             q = torch.empty(1, T, 4, hd, dtype=tt, device="meta")
             k = torch.empty(1, T, 2, hd, dtype=tt, device="meta")
             try:
@@ -171,4 +214,10 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
                 took = False
             assert took == _jax_flash_ok(cfg, T, hd), (dtype, T, hd)
             if took:
-                assert FA.uses_wgmma(tt, hd) == (tt != torch.float32 and hd in (128, 256)), (dtype, hd)
+                for kernel, dims in WGMMA.items():
+                    wgmma = tt != torch.float32 and hd in dims
+                    assert FA.uses_wgmma(kernel, tt, hd) == wgmma, (kernel, dtype, hd)
+                    name = FA.launch_name(kernel, tt, hd)
+                    assert name in _lib.LAUNCHES, name
+                    assert name.endswith("_wide") == (not wgmma), (kernel, dtype, hd, name)
+                    assert name.endswith("_sliced") == (wgmma and hd > 256), (kernel, dtype, hd, name)
