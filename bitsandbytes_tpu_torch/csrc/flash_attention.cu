@@ -1,10 +1,9 @@
 // Causal flash attention of the training path (no cache): the forward, the
 // dK/dV and the dQ kernel, T a multiple of 128, in two families: the wgmma
-// kernels take bf16 and f16, the forward at head_dim 128, 256, 384 and 512,
-// dK/dV and dQ at 128 and 256; the wide family (at the end of the file)
-// takes f32 at any head_dim that is a multiple of 128, and bf16 and f16
-// where the wgmma kernels stop: the forward from head_dim 640, dK/dV and dQ
-// from 384.
+// kernels take bf16 and f16, the forward and dK/dV at head_dim 128, 256, 384
+// and 512, dQ at 128 and 256; the wide family (at the end of the file) takes
+// f32 at any head_dim that is a multiple of 128, and bf16 and f16 where the
+// wgmma kernels stop: the forward and dK/dV from head_dim 640, dQ from 384.
 //
 // Replaces the three TPU kernels the JAX package reaches through
 // models/llama.py:_flash_call, in jax/experimental/pallas/ops/tpu/
@@ -56,11 +55,13 @@
 //   every row of the first warpgroup: it computes them masked.
 // * dK/dV (sm90.cuh): a block is one item of a work plan built on the host
 //   (ops/flash_attention.dkv_plan): 64 keys of one KV head, 128 columns of
-//   dK and dV (half of hd at 256), and a range of the key tile's iterations
-//   over its group's query heads and the 64-row query tiles from the
-//   diagonal down.  A producer thread loads K and V once and each
+//   dK and dV (a slice of hd above 128), and a range of the key tile's
+//   iterations over its group's query heads and the 64-row query tiles from
+//   the diagonal down.  A producer thread loads K and V once and each
 //   iteration's Q and dO tiles with TMA, and the rows' m, l, di by bulk
-//   copies, into a ring (four stages at hd 128, two at 256).  One consumer
+//   copies, into a ring (four stages at hd 128, two at 256; at 384 and 512
+//   one stage of the item's 128 columns, the rest of hd streamed through a
+//   ring of 64-column chunks: DkvCfg says why).  One consumer
 //   warpgroup runs S^T = K Q^T and dP^T = V dO^T on wgmma from shared memory,
 //   p and ds in registers (the mask only on the diagonal tile; m log2(e) and
 //   1 / l once a row), and dV += P^T dO, dK += dS^T Q on wgmma with P^T and
@@ -648,26 +649,57 @@ struct __align__(16) DkvItem {
 // dV for 64 keys x 128 columns (64 + 64 registers) and S^T and dP^T for 64
 // keys x 64 query rows (32 + 32): 192, which only a 256-thread block (a
 // producer and one consumer warpgroup, up to 255 registers) can hold.  So a
-// block is one item and one block an SM; at hd 256 an item owns half of hd,
-// and the two halves both compute S^T and dP^T over all of it.
+// block is one item and one block an SM; above hd 128 an item owns 128
+// columns of hd, and the hd / 128 items of a key tile all compute S^T and
+// dP^T over all of it (1.5, 2 and 2.5 times the least work at hd 256, 384
+// and 512).
+//
+// Shared memory binds above hd 256 (227 KB a block): K and V stay resident
+// (96 KB at hd 384, 128 at 512), and Q and dO for 64 rows over all of hd
+// would take as much again.  So there a ring stage holds only the item's
+// 128 columns of Q and dO (the dV and dK products read them) and the rows'
+// m, l, di, and the other 64-column chunks of Q and dO stream through a
+// second ring, 16 KB a chunk stage, into S^T and dP^T first: one stage and
+// four chunk stages (194 / 227 KB), so S^T and dP^T stay m64n64 products.
+// On an H100 80GB HBM3 at 700 W (B 1, T 2048, H 8, bf16) this ran 0.213 /
+// 0.355 ms at hd 384 / 512; three or six chunk stages, or two stages and
+// three chunk stages, ran 0-18% slower; a first design that cut each stage
+// into sub-tiles of 32 or 16 query rows over all of hd (two stages, S^T and
+// dP^T on m64n32 / m64n16) 0.283 / 0.712, and one stage of 64 / 32 rows
+// 0.278 / 0.574 (experiments/ab_flash_dkv_sliced_torch.py; the sub-tile
+// source is not kept).
 template <int HD>
 struct DkvCfg {
     static constexpr int kKeys = 64;   // keys of an item: the M of every product
     static constexpr int kRows = 64;   // query rows of a stage: N of S^T and dP^T, K of the dV and dK products
     static constexpr int kCols = 128;  // columns of dK and dV an item owns
     static constexpr int kThreads = 256;
-    static constexpr int kStages = HD == 128 ? 4 : 2;
-    static constexpr int kChunks = HD / 64;         // 64-column chunks of a row (128-byte swizzled tiles)
-    static constexpr uint32_t kTileBytes = 64 * HD * 2;  // K, V, and a stage's Q or dO
-    static constexpr uint32_t kVals = 3 * kRows * 4;  // a stage's m, l and di
-    // shared memory from a 1024-byte aligned base: K, V, the stages' [Q | dO |
-    // m, l, di], the consumer's row values (m log2(e) and 1 / l, two buffers),
-    // then the barriers (K and V's, each stage's full and empty)
-    static constexpr uint32_t kStage0 = 2 * kTileBytes;
-    static constexpr uint32_t kStageBytes = 2 * kTileBytes + 1024;
+    static constexpr int kChunks = HD / 64;  // 64-column chunks of a row (128-byte swizzled tiles)
+    static constexpr int kStageChunks = HD <= 256 ? kChunks : 2;  // of them in a stage: all of hd, or the item's
+    static constexpr int kOther = kChunks - kStageChunks;         // the rest, streamed through the chunk ring
+    static constexpr int kStages = HD == 128 ? 4 : HD == 256 ? 2 : 1;
+    static constexpr int kChunkStages = kOther ? 4 : 0;
+    static constexpr uint32_t kKvBytes = kKeys * HD * 2;              // K, or V
+    static constexpr uint32_t kQBytes = kRows * kStageChunks * 128;  // a stage's Q, or dO
+    static constexpr uint32_t kChunkBytes = kRows * 128;             // a chunk of Q, or of dO
+    static constexpr uint32_t kVals = 3 * kRows * 4;                 // a stage's m, l and di
+    // shared memory from a 1024-byte aligned base: K, V, the chunk ring's [Q |
+    // dO], the stages' [Q | dO | m, l, di] (the next stage on a 1024-byte
+    // boundary), the consumer's row values (m log2(e) and 1 / l, two
+    // buffers), then the barriers (K and V's, each stage's full and empty,
+    // each chunk stage's full and empty)
+    static constexpr uint32_t kRing0 = 2 * kKvBytes;
+    static constexpr uint32_t kStage0 = kRing0 + kChunkStages * 2 * kChunkBytes;
+    static constexpr uint32_t kStageBytes = 2 * kQBytes + (kStages > 1 ? 1024 : kVals);
     static constexpr uint32_t kRowBuf = kStage0 + kStages * kStageBytes;
     static constexpr uint32_t kBars = kRowBuf + 2 * 2 * kRows * 4;
-    static constexpr uint32_t kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;  // + the base's alignment
+    static constexpr uint32_t kBytes = kBars + (1 + 2 * kStages + 2 * kChunkStages) * 8 + 1024;  // + alignment
+    // the epilogue stages [dK | dV][64 keys][kCols + 8] f32 (69,632 bytes)
+    // after the loop: over the ring up to hd 256, and from the base above,
+    // where K and V (free by then) hold it and the rings may not
+    static constexpr uint32_t kEpilogue = HD <= 256 ? kStage0 : 0;
+    static_assert(HD % 128 == 0 && HD <= 512 && kVals <= 1024, "no wgmma dK/dV at this hd");
+    static_assert(kBytes <= 232448 && kEpilogue + 2 * kKeys * (kCols + 8) * 4 <= kRowBuf, "shared memory");
 };
 
 template <int HD, class E>
@@ -681,19 +713,26 @@ __global__ void __launch_bounds__(DkvCfg<HD>::kThreads, 1)
     extern __shared__ __align__(16) unsigned char smem_raw[];
     unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
     unsigned char* sK = smem;
-    unsigned char* sV = smem + C::kTileBytes;
+    unsigned char* sV = smem + C::kKvBytes;
     auto sQ = [&](int st) { return smem + C::kStage0 + st * C::kStageBytes; };
-    auto sDo = [&](int st) { return sQ(st) + C::kTileBytes; };
-    auto sVals = [&](int st) { return reinterpret_cast<float*>(sQ(st) + 2 * C::kTileBytes); };
+    auto sDo = [&](int st) { return sQ(st) + C::kQBytes; };
+    auto sVals = [&](int st) { return reinterpret_cast<float*>(sQ(st) + 2 * C::kQBytes); };
+    auto sChunk = [&](int sa) { return smem + C::kRing0 + sa * 2 * C::kChunkBytes; };  // [Q | dO] chunk stage sa
     uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + C::kBars);
     uint64_t* full = full_kv + 1;
     uint64_t* empty = full + C::kStages;
+    uint64_t* full_c = empty + C::kStages;
+    uint64_t* empty_c = full_c + C::kChunkStages;
 
     const DkvItem it = items[blockIdx.x];  // the plan lists the longest items first
     const int G = p.H / p.KVH;
     const int nq = p.T / C::kRows - it.kj;  // the key tile's query tiles, from the diagonal down
     const int k0 = it.kj * C::kKeys;
     const int niter = it.i1 - it.i0;
+    // the first 64-column chunk a stage holds, and the chunk ring's j-th of
+    // each iteration: the chunks of hd outside the item's columns, in order
+    const int c0 = HD <= 256 ? 0 : 2 * it.half;
+    auto other = [&](int j) { return j < c0 ? j : j + 2; };
 
     if (threadIdx.x == 0) {
         mbar_init(full_kv, 1);
@@ -701,19 +740,25 @@ __global__ void __launch_bounds__(DkvCfg<HD>::kThreads, 1)
             mbar_init(full + st, 1);
             mbar_init(empty + st, 4);  // each consumer warp once
         }
+        for (int sa = 0; sa < C::kChunkStages; ++sa) {
+            mbar_init(full_c + sa, 1);
+            mbar_init(empty_c + sa, 4);
+        }
         mbar_fence_init();
     }
     __syncthreads();
 
     if (threadIdx.x < 128) {
-        // the producer: one thread loads K and V once, then the Q and dO
-        // tiles and the rows' m, l and di of each iteration into the ring
+        // the producer: one thread loads K and V once, then each iteration's
+        // Q and dO chunks outside the item's columns into the chunk ring, and
+        // its stage: Q and dO (all of hd, or the item's columns) and the
+        // rows' m, l and di
         if (threadIdx.x == 0) {
             tma_prefetch_map(&tq);
             tma_prefetch_map(&tk);
             tma_prefetch_map(&tv);
             tma_prefetch_map(&tdo);
-            mbar_expect_tx(full_kv, 2 * C::kTileBytes);
+            mbar_expect_tx(full_kv, 2 * C::kKvBytes);
             for (int c = 0; c < C::kChunks; ++c) {
                 tma_load_4d(sK + c * C::kKeys * 128, &tk, full_kv, c * 64, it.kvh, k0, it.b);
                 tma_load_4d(sV + c * C::kKeys * 128, &tv, full_kv, c * 64, it.kvh, k0, it.b);
@@ -722,12 +767,21 @@ __global__ void __launch_bounds__(DkvCfg<HD>::kThreads, 1)
                 const int i = it.i0 + n;
                 const int h = it.kvh * G + i / nq;
                 const int t0 = (it.kj + i % nq) * C::kRows;
+                if constexpr (C::kOther > 0) {
+                    for (int j = 0; j < C::kOther; ++j) {
+                        const int a = n * C::kOther + j, sa = a % C::kChunkStages;
+                        if (a >= C::kChunkStages) mbar_wait(empty_c + sa, ((a / C::kChunkStages) - 1) & 1);
+                        mbar_expect_tx(full_c + sa, 2 * C::kChunkBytes);
+                        tma_load_4d(sChunk(sa), &tq, full_c + sa, other(j) * 64, h, t0, it.b);
+                        tma_load_4d(sChunk(sa) + C::kChunkBytes, &tdo, full_c + sa, other(j) * 64, h, t0, it.b);
+                    }
+                }
                 const int st = n % C::kStages;
                 if (n >= C::kStages) mbar_wait(empty + st, ((n / C::kStages) - 1) & 1);
-                mbar_expect_tx(full + st, 2 * C::kTileBytes + C::kVals);
-                for (int c = 0; c < C::kChunks; ++c) {
-                    tma_load_4d(sQ(st) + c * C::kRows * 128, &tq, full + st, c * 64, h, t0, it.b);
-                    tma_load_4d(sDo(st) + c * C::kRows * 128, &tdo, full + st, c * 64, h, t0, it.b);
+                mbar_expect_tx(full + st, 2 * C::kQBytes + C::kVals);
+                for (int c = 0; c < C::kStageChunks; ++c) {
+                    tma_load_4d(sQ(st) + c * C::kRows * 128, &tq, full + st, (c0 + c) * 64, h, t0, it.b);
+                    tma_load_4d(sDo(st) + c * C::kRows * 128, &tdo, full + st, (c0 + c) * 64, h, t0, it.b);
                 }
                 const size_t row = ((size_t)it.b * p.H + h) * p.T + t0;
                 bulk_load(sVals(st), p.m + row, C::kRows * 4, full + st);
@@ -747,7 +801,10 @@ __global__ void __launch_bounds__(DkvCfg<HD>::kThreads, 1)
     const int gq = lane / 4, t4 = lane % 4;
     const int kr[2] = {16 * warp + gq, 16 * warp + gq + 8};  // the thread's accumulator rows: keys of the item
     const float sl2 = p.scale * kLog2e;  // exp(scale x - m) = 2^(sl2 x - m log2(e))
-    const uint32_t half_off = it.half * 2 * C::kRows * 128;  // the item's two 64-column chunks of Q and dO
+    // the item's two 64-column chunks of Q and dO in a stage, and the K and
+    // V chunks a stage's columns meet
+    const uint32_t half_off = (HD <= 256 ? it.half : 0) * 2 * C::kRows * 128;
+    const uint32_t kv_off = c0 * C::kKeys * 128;
     float dk[C::kCols / 2], dv[C::kCols / 2];
 #pragma unroll
     for (int i = 0; i < C::kCols / 2; ++i) dk[i] = dv[i] = 0.0f;
@@ -758,25 +815,58 @@ __global__ void __launch_bounds__(DkvCfg<HD>::kThreads, 1)
 #pragma unroll
     for (int i = 0; i < C::kRows / 2; ++i) s[i] = dp[i] = 0.0f;
     uint32_t pa[C::kRows / 16][4], sa[C::kRows / 16][4];
+    auto release_chunk = [&](auto a) {  // a generic lambda: compiled only where a chunk ring exists
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_c + a % C::kChunkStages);  // this warp is done with the chunk stage
+    };
 
     mbar_wait(full_kv, 0);
     for (int n = 0; n < niter; ++n) {
         const int st = n % C::kStages;
         const bool diag = (it.i0 + n) % nq == 0;  // this query tile is the key tile's diagonal one
+        // S^T and dP^T over the chunks of the chunk ring, one commit group a
+        // chunk; a chunk's stage goes back once the next chunk's group is
+        // issued and its own has landed
+        if constexpr (C::kOther > 0) {
+#pragma unroll
+            for (int j = 0; j < C::kOther; ++j) {
+                const int a = n * C::kOther + j;
+                mbar_wait(full_c + a % C::kChunkStages, (a / C::kChunkStages) & 1);
+                const uint32_t ka = opaque(smem_addr(sK)), va = opaque(smem_addr(sV));
+                const uint32_t qa = opaque(smem_addr(sChunk(a % C::kChunkStages))), oa = qa + C::kChunkBytes;
+                const uint32_t c_off = other(j) * C::kKeys * 128;
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_ss<C::kRows, E>(s, gmma_desc_sw128(ka + c_off + kk * 32, 16, 1024),
+                                          gmma_desc_sw128(qa + kk * 32, 16, 1024), j > 0 || kk > 0);
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_ss<C::kRows, E>(dp, gmma_desc_sw128(va + c_off + kk * 32, 16, 1024),
+                                          gmma_desc_sw128(oa + kk * 32, 16, 1024), j > 0 || kk > 0);
+                wgmma_commit();
+                if (j > 0) {
+                    wgmma_wait<1>();
+                    release_chunk(a - 1);
+                }
+            }
+        }
         mbar_wait(full + st, (n / C::kStages) & 1);
         const uint32_t ka = opaque(smem_addr(sK)), va = opaque(smem_addr(sV));
         const uint32_t qa = opaque(smem_addr(sQ(st))), oa = opaque(smem_addr(sDo(st)));
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
+        for (int kk = 0; kk < C::kStageChunks * 4; ++kk) {
             const uint32_t off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
-            wgmma_ss<C::kRows, E>(s, gmma_desc_sw128(ka + off, 16, 1024), gmma_desc_sw128(qa + off, 16, 1024), kk > 0);
+            wgmma_ss<C::kRows, E>(s, gmma_desc_sw128(ka + kv_off + off, 16, 1024), gmma_desc_sw128(qa + off, 16, 1024),
+                                  C::kOther > 0 || kk > 0);
         }
         wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
+        for (int kk = 0; kk < C::kStageChunks * 4; ++kk) {
             const uint32_t off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
-            wgmma_ss<C::kRows, E>(dp, gmma_desc_sw128(va + off, 16, 1024), gmma_desc_sw128(oa + off, 16, 1024), kk > 0);
+            wgmma_ss<C::kRows, E>(dp, gmma_desc_sw128(va + kv_off + off, 16, 1024),
+                                  gmma_desc_sw128(oa + off, 16, 1024), C::kOther > 0 || kk > 0);
         }
         wgmma_commit();
         // while they run: the stage's m log2(e) and 1 / l, once a row
@@ -787,6 +877,7 @@ __global__ void __launch_bounds__(DkvCfg<HD>::kThreads, 1)
         named_barrier_sync(1, 128);
         wgmma_wait<1>();  // S^T has landed, dP^T may still run
         fence_regs(s);
+        if constexpr (C::kOther > 0) release_chunk(n * C::kOther + C::kOther - 1);
         // p = 2^(sl2 s - m log2(e)) * (1 / l): one FMA, ex2 and a product; 0
         // where the key follows the row, which happens on the diagonal tile only
         const float2* m2 = reinterpret_cast<const float2*>(rows);
@@ -840,11 +931,11 @@ __global__ void __launch_bounds__(DkvCfg<HD>::kThreads, 1)
         if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
     }
 
-    // the epilogue through shared memory (the ring is free now), so that the
+    // the epilogue through shared memory (free now: DkvCfg::kEpilogue), so that the
     // stores are whole rows of 16 bytes a thread: E into dk and dv, or f32
     // into the item's partial slot
     constexpr int kOut = C::kCols + 8;  // f32 a staged row, padded against bank conflicts
-    float* out = reinterpret_cast<float*>(smem + C::kStage0);  // [dK | dV][64 keys][kOut]
+    float* out = reinterpret_cast<float*>(smem + C::kEpilogue);  // [dK | dV][64 keys][kOut]
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -921,8 +1012,8 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------------------
 // The wide family: the same three functions where the wgmma kernels stop, f32
-// at any head_dim, and bf16/f16 dK/dV and dQ at head_dim 384 and up and the
-// bf16/f16 forward from 640 (CUDA cores, f32 FMA)
+// at any head_dim, and bf16/f16 dQ at head_dim 384 and up and the bf16/f16
+// forward and dK/dV from 640 (CUDA cores, f32 FMA)
 // ---------------------------------------------------------------------------
 
 // Why CUDA cores.  f32 must be full f32 (the JAX package's "highest"
@@ -930,9 +1021,11 @@ __global__ void __launch_bounds__(256)
 // both operands K-major while V in P V is MN-major.  And a warpgroup's f32 O
 // or dQ of 64 rows takes hd / 2 registers a thread, which with S and dP
 // passes the 255-register limit above hd 256.  The 16-bit forward cuts O in
-// two column slices on wgmma up to hd 512 (FwdCfg); from hd 640 a half
-// slice passes wgmma's widest N, 256, and dK/dV and dQ, which hold two
-// accumulators and two score tiles, have no slice design on wgmma yet.  So a
+// two column slices on wgmma up to hd 512 (FwdCfg), and dK/dV holds
+// 128-column slices and streams the rest of hd in chunks up to hd 512
+// (DkvCfg); from hd 640 a half slice of O passes wgmma's widest N, 256, K
+// and V (160 KB) leave too little room for dK/dV's rings, and dQ, which
+// holds a whole row of dQ, has no slice design on wgmma yet.  So a
 // block here owns 128 columns of its output (a column slice; hd / 128
 // blocks share a row tile and each recomputes the scores over all of hd) and
 // keeps everything in f32: the bound is the f32 rate (67 TFLOP/s) for f32,
@@ -1323,16 +1416,14 @@ int by_kind(int kind, F&& f) {
 }
 
 // Shapes every kernel takes: hd a multiple of 128, T of 128.  The wgmma
-// kernels take bf16 and f16 alone: the forward at hd 128 to 512
-// (fwd_wgmma_ok), dK/dV and dQ at hd 128 and 256 (wgmma_ok).
+// kernels take bf16 and f16 alone, up to `max_hd`: 512 for the forward and
+// dK/dV, 256 for dQ.
 bool shapes_ok(int B, int T, int H, int KVH, int hd) {
     return B > 0 && B <= 65535 && T > 0 && T % 128 == 0 && T / 64 <= 65535 && H > 0 && KVH > 0 && H % KVH == 0 &&
            hd > 0 && hd % 128 == 0;
 }
 
-bool wgmma_ok(int kind, int hd) { return (kind == kBf16 || kind == kF16) && (hd == 128 || hd == 256); }
-
-bool fwd_wgmma_ok(int kind, int hd) { return (kind == kBf16 || kind == kF16) && hd <= 512; }
+bool wgmma_ok(int kind, int hd, int max_hd) { return (kind == kBf16 || kind == kF16) && hd <= max_hd; }
 
 template <class E>
 Params<E> make_params(const void* q, const void* k, const void* v, const void* dout, const float* m, const float* l,
@@ -1452,7 +1543,7 @@ int launch_wide(K kernel, dim3 grid, int bytes, cudaStream_t stream, Args... arg
 
 // Every entry takes `kind` (common.cuh's Kind: f32, bf16 or f16), the type
 // of q, k, v, do and the outputs.  The plain entries run the wgmma kernels
-// (bf16 or f16; the forward at hd 128, 256, 384 and 512, dK/dV and dQ at
+// (bf16 or f16; the forward and dK/dV at hd 128, 256, 384 and 512, dQ at
 // 128 and 256), the _wide ones the wide family (any of the three types, hd
 // a multiple of 128); each refuses what its kernels do not take.  T is a
 // multiple of 128 and outputs are packed.  An entry returns a CUDA error,
@@ -1464,7 +1555,7 @@ BNB_EXPORT int bnb_flash_attention_causal_fwd(const void* q, const void* k, cons
                                               float* l, int B, int T, int H, int KVH, int hd, long long sqb,
                                               long long sqt, long long skb, long long skt, long long svb,
                                               long long svt, float scale, int kind, cudaStream_t stream) {
-    if (!shapes_ok(B, T, H, KVH, hd) || !fwd_wgmma_ok(kind, hd)) return (int)cudaErrorInvalidValue;
+    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd, 512)) return (int)cudaErrorInvalidValue;
     return by_kind(kind, [&](auto tag) -> int {
         using E = typename decltype(tag)::type;
         if constexpr (sizeof(E) == 4) {
@@ -1510,7 +1601,7 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dkv(const void* q, const void* k, 
                                                   long long sqt, long long skb, long long skt, long long svb,
                                                   long long svt, long long sdb, long long sdt, float scale, int kind,
                                                   cudaStream_t stream) {
-    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd) || n_items <= 0 || items == nullptr)
+    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd, 512) || n_items <= 0 || items == nullptr)
         return (int)cudaErrorInvalidValue;
     return by_kind(kind, [&](auto tag) -> int {
         using E = typename decltype(tag)::type;
@@ -1522,8 +1613,10 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dkv(const void* q, const void* k, 
             p.dk = static_cast<E*>(dk);
             p.dv = static_cast<E*>(dv);
             const DkvItem* it = static_cast<const DkvItem*>(items);
-            return hd == 128 ? launch_dkv<128>(p, B, it, n_items, part_k, part_v, stream)
-                             : launch_dkv<256>(p, B, it, n_items, part_k, part_v, stream);
+            if (hd == 128) return launch_dkv<128>(p, B, it, n_items, part_k, part_v, stream);
+            if (hd == 256) return launch_dkv<256>(p, B, it, n_items, part_k, part_v, stream);
+            return hd == 384 ? launch_dkv<384>(p, B, it, n_items, part_k, part_v, stream)
+                             : launch_dkv<512>(p, B, it, n_items, part_k, part_v, stream);
         }
     });
 }
@@ -1568,7 +1661,7 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dq(const void* q, const void* k, c
                                                  long long skb, long long skt, long long svb, long long svt,
                                                  long long sdb, long long sdt, float scale, int kind,
                                                  cudaStream_t stream) {
-    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd)) return (int)cudaErrorInvalidValue;
+    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd, 256)) return (int)cudaErrorInvalidValue;
     return by_kind(kind, [&](auto tag) -> int {
         using E = typename decltype(tag)::type;
         if constexpr (sizeof(E) == 4) {

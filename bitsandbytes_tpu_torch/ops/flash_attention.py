@@ -13,13 +13,16 @@ picks one for its kernel by type and head_dim alone (:func:`uses_wgmma`,
 :func:`launch_name`):
 
 * bf16 and f16 run on ``wgmma`` over tiles that one producer thread loads
-  by TMA for consumer warpgroups (``csrc/sm90.cuh``): the forward at
-  head_dim 128, 256, 384 and 512, dK/dV and dQ at 128 and 256.  At 384 and
-  512 a forward block owns half of o's columns (O past 256 columns would
-  not fit a warpgroup's registers beside the scores) and computes the
-  scores over all of head_dim; it counts as ``..._fwd_sliced``;
+  by TMA for consumer warpgroups (``csrc/sm90.cuh``): the forward and dK/dV
+  at head_dim 128, 256, 384 and 512, dQ at 128 and 256.  At 384 and 512 a
+  forward block owns half of o's columns (O past 256 columns would not fit
+  a warpgroup's registers beside the scores) and computes the scores over
+  all of head_dim; a dK/dV ring stage holds q and do in the block's 128
+  columns alone and the rest of head_dim streams through a ring of
+  64-column chunks (all of it would not fit shared memory beside k and v);
+  both count as ``..._sliced``;
 * the wide family on CUDA cores takes the rest: f32 at any head_dim, and
-  bf16 and f16 dK/dV and dQ from 384 and the forward from 640.  Full f32
+  bf16 and f16 dQ from 384 and the forward and dK/dV from 640.  Full f32
   FMA, not TF32, because the JAX package's f32 route runs at "highest"
   precision (one TF32 pass keeps about three digits, and TF32 ``wgmma``
   cannot read V MN-major); and because a warpgroup's f32 O or dQ of 64 rows
@@ -96,9 +99,10 @@ BLOCK = 128
 # the CUDA kernels take head_dim a multiple of this, and T of BLOCK
 HEAD_DIM_STEP = 128
 # the head_dims at which each kernel runs on wgmma (bf16 and f16; above 256
-# a forward block owns half of o's columns); the wide family takes every
-# other type and head_dim
-WGMMA_HEAD_DIMS = {"fwd": (128, 256, 384, 512), "dkv": (128, 256), "dq": (128, 256)}
+# a forward block owns half of o's columns, and dK/dV streams q and do
+# outside its columns in chunks); the wide family takes every other type and
+# head_dim
+WGMMA_HEAD_DIMS = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256)}
 
 
 def _shapes(q, k, v):
@@ -243,12 +247,14 @@ def uses_wgmma(kernel: str, dtype: torch.dtype, hd: int) -> bool:
 
 def launch_name(kernel: str, dtype: torch.dtype, hd: int) -> str:
     """The launch count ``kernel`` adds to for q/k/v of ``dtype`` at ``hd``:
-    its wgmma instance's, ``..._sliced`` for the forward's column-sliced
-    instances, or ``..._wide``."""
+    its wgmma instance's, ``..._sliced`` for the wgmma instances above
+    head_dim 256 (the forward's column slices, dK/dV's streamed chunks), or
+    ``..._wide``.  A ``_sliced`` instance runs through its kernel's plain C
+    entry."""
     name = _BASE_NAMES[kernel]
     if not uses_wgmma(kernel, dtype, hd):
         return name + "_wide"
-    return name + "_sliced" if kernel == "fwd" and hd > 256 else name
+    return name + "_sliced" if hd > 256 else name
 
 
 def _check_cuda(q, k, v, T: int, hd: int) -> None:
@@ -485,7 +491,7 @@ def flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di):
             part_k = torch.empty(plan.slots, DKV_KEYS, DKV_COLS, dtype=torch.float32, device=q.device)
             part_v = torch.empty_like(part_k)
         name = launch_name("dkv", q.dtype, hd)
-        err = getattr(_lib.lib(), "bnb_" + name)(
+        err = getattr(_lib.lib(), "bnb_" + name.removesuffix("_sliced"))(
             *ptrs, dk.data_ptr(), dv.data_ptr(), None if part_k is None else part_k.data_ptr(),
             None if part_v is None else part_v.data_ptr(), items.data_ptr(), len(plan.items), B, T, H, KVH, hd,
             *strides, hd**-0.5, _KIND[q.dtype], _lib.stream(q))

@@ -341,8 +341,14 @@ TPU_KERNELS = {
     "flash_attention_causal_fwd_sliced": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
-    # kernels 17-19's wide family: f32 at any head_dim, and bf16 and f16 dK/dV
-    # and dQ at 384 and up and the forward from 640 (CUDA cores; launched by
+    # kernel 18's wgmma instances at head_dim 384 and 512 (bf16, f16): a stage
+    # holds q and do in the item's 128 columns, the rest of head_dim streams
+    # through a ring of 64-column chunks (launched by 5l's head_dim 512 step)
+    "flash_attention_causal_bwd_dkv_sliced": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    # kernels 17-19's wide family: f32 at any head_dim, and bf16 and f16 dQ at
+    # 384 and up and the forward and dK/dV from 640 (CUDA cores; launched by
     # 4r(e)'s f32 steps)
     "flash_attention_causal_fwd_wide": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
@@ -363,8 +369,8 @@ FLASH_TOLERANCES = {"bfloat16": (2e-2, 1e-2), "float16": (8e-3, 5e-3), "float32"
 
 
 FLASH_TRAIN = ("flash_attention_causal_fwd", "flash_attention_causal_bwd_dkv", "flash_attention_causal_bwd_dq")
-# the wide family's launch counts (f32 at any head_dim; bf16/f16 dK/dV and dQ
-# at 384 and up, the forward from 640)
+# the wide family's launch counts (f32 at any head_dim; bf16/f16 dQ at 384
+# and up, the forward and dK/dV from 640)
 FLASH_TRAIN_WIDE = tuple(n + "_wide" for n in FLASH_TRAIN)
 FLASH_KERNELS = ("fwd", "dkv", "dq")
 
@@ -372,18 +378,20 @@ FLASH_KERNELS = ("fwd", "dkv", "dq")
 def flash_names(dtype, hd=128):
     """The launch counts of kernels 17, 18 and 19 that q/k/v of ``dtype`` at
     ``hd`` take, each kernel's family chosen on its own: a wgmma kernel's
-    (the forward's column-sliced instance at 384 and 512) or the wide
-    family's."""
+    (``_sliced``: the forward's and dK/dV's instances at 384 and 512) or the
+    wide family's."""
     from bitsandbytes_tpu_torch.ops import flash_attention as FA
 
     return tuple(FA.launch_name(k, dtype, hd) for k in FLASH_KERNELS)
 
 
 # device time by class of a training step through the flash kernels (the
-# forward's column-sliced instances before its others: the first match names
-# a kernel)
+# forward's and dK/dV's sliced instances before their others: the first match
+# names a kernel)
 FLASH_CLASSES = [("flash_fwd_kernel<384", "kernel 17, column-sliced (hd 384)"),
                  ("flash_fwd_kernel<512", "kernel 17, column-sliced (hd 512)"),
+                 ("flash_bwd_dkv_kernel<384", "kernel 18, streamed chunks (hd 384)"),
+                 ("flash_bwd_dkv_kernel<512", "kernel 18, streamed chunks (hd 512)"),
                  ("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_dkv_kernel", "kernel 18 (flash dK/dV)"),
                  ("flash_bwd_dkv_combine", "kernel 18's combine"), ("flash_bwd_dq_kernel", "kernel 19 (flash dQ)"),
                  ("flash_wide_fwd_kernel", "kernel 17, wide family"),
@@ -2859,11 +2867,15 @@ def flash_train_kernels(dev, entry):
     1152, hd 128; B 3, T 640, hd 256) hold each kernel to the same
     tolerances, untimed.  Each forward call of a timed shape must add one
     to the launch count of the kernel its route names (``FA.launch_name``):
-    at hd 384 and 512 in bf16 and f16 the forward's column-sliced wgmma
-    instance (its own kernels-line entry, from the bf16 hd 512 shape, timed
-    beside SDPA), while dK/dV and dQ stay on the wide family there.  Batched
-    GQA shapes at hd 384 and 512 take the sliced forward too, and two at hd
-    640 (bf16, f16) the wide family's 16-bit forward instances.  The SASS counts and the registers
+    at hd 384 and 512 in bf16 and f16 the forward's and dK/dV's sliced wgmma
+    instances (their own kernels-line entries, from the bf16 hd 512 shape:
+    the forward timed beside SDPA's forward, dK/dV beside SDPA's backward and
+    the wide family's dK/dV, called through its C entry on the same
+    tensors), while dQ stays on the wide family there.  Batched GQA shapes at
+    hd 384 and 512, whose plans split key tiles, take the sliced instances
+    too, each dK/dV call twice bit for bit and the combine under that plan
+    bit for bit its plain version; two at hd 640 (bf16, f16) take the wide
+    family's 16-bit instances.  The SASS counts and the registers
     (``cuobjdump -res-usage``) of every instance are emitted."""
     import torch
     import torch.nn.functional as F
@@ -2878,7 +2890,7 @@ def flash_train_kernels(dev, entry):
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [(bf16, 1, T, 32, 8, 128) for T in (1024, 2048, 4096, 8192)] + [(bf16, 1, 4096, 16, 16, 256)]
     # f16 on the wgmma kernels, f32 on the wide family, head_dim 384 / 512 on
-    # the forward's column-sliced wgmma instances and the wide dK/dV and dQ
+    # the forward's and dK/dV's sliced wgmma instances and the wide dQ
     cases += [(f16, 1, T, 32, 8, 128) for T in (2048, 4096)] + [(f16, 1, 4096, 16, 16, 256), (f32, 1, 2048, 32, 8, 128)]
     cases += [(dt, 1, 2048, 8, 8, hd) for dt in (bf16, f16) for hd in (384, 512)]
 
@@ -2893,6 +2905,38 @@ def flash_train_kernels(dev, entry):
 
     def plain_ms(fn):
         return cuda_time(fn, n=3, warmup=1)["median"]
+
+    def dkv_wide(*bwd):
+        """Kernel 18's wide-family instance through its C entry, which the
+        route no longer takes for 16-bit q, k, v at head_dim 384 and 512:
+        the same plan and combine as the wrapper's."""
+        (B, T, H, KVH, hd), ptrs, strides = FA._bwd_args(*bwd)
+        plan, items, table = FA._dkv_tables(B, T, H, KVH, hd, dev)
+        dk = torch.empty(B, T, KVH, hd, dtype=bwd[0].dtype, device=dev)
+        dv = torch.empty_like(dk)
+        parts = [torch.empty(plan.slots, FA.DKV_KEYS, FA.DKV_COLS, device=dev) for _ in range(2)] if plan.slots else []
+        err = _lib.lib().bnb_flash_attention_causal_bwd_dkv_wide(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *([t.data_ptr() for t in parts] or [None, None]), items.data_ptr(),
+            len(plan.items), B, T, H, KVH, hd, *strides, hd**-0.5, FA._KIND[dk.dtype], _lib.stream(dk))
+        _lib.check(err, "flash_attention_causal_bwd_dkv_wide")
+        if parts:
+            FA.flash_attention_causal_bwd_dkv_combine(*parts, table, dk, dv)
+        return dk, dv
+
+    def combine_against_plain(what, plan, plan_table, dk, dv, seed):
+        """Kernel 18's combine under ``plan`` on random partials of its
+        shape, bit for bit its plain version: (part_k, part_v, the kernel's
+        dk and dv, the plain version's)."""
+        assert plan.combine, f"{what}: kernel 18's plan splits no key tile"
+        gen_c = torch.Generator(device=dev).manual_seed(seed)
+        part_k, part_v = (torch.randn(plan.slots, FA.DKV_KEYS, FA.DKV_COLS, generator=gen_c, device=dev)
+                          for _ in range(2))
+        ck = FA.flash_attention_causal_bwd_dkv_combine(part_k, part_v, plan_table, torch.zeros_like(dk),
+                                                       torch.zeros_like(dv))
+        cp = FA.flash_attention_causal_bwd_dkv_combine_plain(part_k, part_v, plan_table, torch.zeros_like(dk),
+                                                             torch.zeros_like(dv))
+        assert all(torch.equal(a, b) for a, b in zip(ck, cp)), f"{what}: the dK/dV combine differs from its plain"
+        return part_k, part_v, ck, cp
 
     out, wide_rows = [], []
     for dt, B, T, H, KVH, hd in cases:
@@ -2943,6 +2987,9 @@ def flash_train_kernels(dev, entry):
         for key, (nb, ops) in work.items():
             b_ms, b_by = bound_ms(nb, ops, peak)
             row[key].update(bytes=nb, flops=ops, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / row[key]["ms"])
+        if hd > 256:  # kernel 18's wide instance, which took these shapes before, on the same tensors
+            row["dkv"]["wide_ms"] = dev_ms(lambda: dkv_wide(*bwd))
+            row["dkv"]["wide_bound_share"] = row["dkv"]["bound_ms"] / row["dkv"]["wide_ms"]
         if dt == bf16:
             for key, table in (("fwd", FLASH_FWD_MMA_SYNC_MS), ("dkv", FLASH_DKV_MMA_SYNC_MS),
                                ("dq", FLASH_DQ_MMA_SYNC_MS)):
@@ -2955,15 +3002,7 @@ def flash_train_kernels(dev, entry):
                               "partial_slots": plan.slots, "target_iterations": plan.target}
         if (dt, T, hd) == (bf16, 1024, 128):
             # kernel 18's combine under this plan, on partials of its shape
-            assert plan.combine, f"{what}: kernel 18's plan splits no key tile"
-            gen_c = torch.Generator(device=dev).manual_seed(62)
-            part_k, part_v = (torch.randn(plan.slots, FA.DKV_KEYS, FA.DKV_COLS, generator=gen_c, device=dev)
-                              for _ in range(2))
-            ck = FA.flash_attention_causal_bwd_dkv_combine(part_k, part_v, plan_table, torch.zeros_like(dk),
-                                                           torch.zeros_like(dv))
-            cp = FA.flash_attention_causal_bwd_dkv_combine_plain(part_k, part_v, plan_table, torch.zeros_like(dk),
-                                                                 torch.zeros_like(dv))
-            assert all(torch.equal(a, b) for a, b in zip(ck, cp)), f"{what}: the dK/dV combine differs from its plain"
+            part_k, part_v, ck, cp = combine_against_plain(what, plan, plan_table, dk, dv, 62)
             units = len(plan.combine)
             comb_bytes = 2 * plan.slots * FA.DKV_KEYS * FA.DKV_COLS * 4 + 2 * units * FA.DKV_KEYS * FA.DKV_COLS * 2
             comb_ops = 2 * (plan.slots - units) * FA.DKV_KEYS * FA.DKV_COLS
@@ -2980,7 +3019,7 @@ def flash_train_kernels(dev, entry):
             del part_k, part_v, ck, cp
         row["bwd_ms"] = row["dkv"]["ms"] + row["dq"]["ms"]
         out.append(row)
-        if hd > 256:  # the sliced forward's instances, and the wide dK/dV and dQ's in 16 bits
+        if hd > 256:  # the forward's and dK/dV's sliced instances, and the wide dQ's in 16 bits
             wide_rows.append({"dtype": row["dtype"], "shape": [B, T, H, KVH, hd], "sdpa": sdpa, "errs": errs,
                               **{key: row[key] for key in ("fwd", "dkv", "dq")}})
         if (T, hd) == (2048, 128):
@@ -3005,8 +3044,8 @@ def flash_train_kernels(dev, entry):
                     entry(*pending[:8], **pending[8])
         del q, k, v, do, o, m, l, di, dk, dv, dq, bwd
         torch.cuda.empty_cache()
-    # the wide family's entries: f32 at 4r's shape, and the bf16 / f16 dK/dV
-    # and dQ instances at head_dim 384 and 512
+    # the wide family's entries: f32 at 4r's shape, and the bf16 / f16 dQ
+    # instances at head_dim 384 and 512
     instances = [r for r in wide_rows if isinstance(r, dict)]
 
     def inst(r, key):
@@ -3014,7 +3053,7 @@ def flash_train_kernels(dev, entry):
                 "sdpa_bwd_ms": r["sdpa"]["bwd_ms"]}
 
     for key, pend in (r for r in wide_rows if not isinstance(r, dict)):
-        entry(*pend[:8], **pend[8], instances=[inst(r, key) for r in instances if key != "fwd"])
+        entry(*pend[:8], **pend[8], instances=[inst(r, key) for r in instances if key == "dq"])
     # the forward's column-sliced wgmma instances: bf16 at hd 512 in the line, all four beside it
     main = next(r for r in instances if (r["dtype"], r["shape"][4]) == ("bfloat16", 512))
     nb, ops = flash_causal_work(*main["shape"])["fwd"]
@@ -3024,6 +3063,18 @@ def flash_train_kernels(dev, entry):
           note="kernel 17's bf16 / f16 instances at head_dim 384 and 512: a block 64 query rows of one head and "
                "half of o's columns, S over all of hd on wgmma; device ms, host held out, L2 flushed; "
                "library_ms is SDPA is_causal's forward; max_abs_err is the output's abs error")
+    # dK/dV's sliced wgmma instances: bf16 at hd 512 in the line, all four beside it
+    nb, ops = flash_causal_work(*main["shape"])["dkv"]
+    entry("flash_attention_causal_bwd_dkv_sliced", main["dkv"]["ms"], main["dkv"]["plain_ms"], None, nb, ops,
+          PEAK_BF16_FLOPS, max(main["errs"]["dk_rel"], main["errs"]["dv_rel"]), shape=main["shape"], dtype="bfloat16",
+          instances=[inst(r, "dkv") for r in instances], wide_ms=main["dkv"]["wide_ms"],
+          sdpa_bwd_ms=main["sdpa"]["bwd_ms"], kernels_bwd_ms=main["dkv"]["ms"] + main["dq"]["ms"],
+          note="kernel 18's bf16 / f16 instances at head_dim 384 and 512: a block one item of the plan (64 keys, "
+               "128 columns of dK/dV), q and do in its columns in a stage and the rest of hd streamed in 64-column "
+               "chunks into S^T and dP^T on wgmma; device ms, host held out, L2 flushed; wide_ms is the wide "
+               "family's dK/dV, which took these shapes before, on the same tensors; library_ms is null: SDPA's "
+               "backward is one call for dq, dk and dv (sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19); "
+               "max_abs_err is relative to the gradient's largest magnitude")
 
     # more than one sequence and T off a power of two: each kernel against its
     # plain version at 3p's tolerances, untimed (inputs from a generator of
@@ -3033,22 +3084,31 @@ def flash_train_kernels(dev, entry):
                                  (f32, 2, 1152, 8, 2, 128), (bf16, 2, 640, 4, 2, 384), (f16, 2, 640, 4, 2, 512),
                                  (bf16, 1, 640, 2, 1, 640), (f16, 1, 640, 2, 1, 640)):
         q, k, v, do = flash_inputs(dev, gen_b, B, T, H, KVH, hd, dt)
+        what = f"3p batched {str(dt)[6:]} B{B} T{T} H{H} KVH{KVH} hd{hd}"
         _lib.reset_launch_counts()
         o, m, l = FA.flash_attention_causal_fwd(q, k, v)
-        assert _lib.launch_counts()[flash_names(dt, hd)[0]] == 1, f"3p batched {dt} hd {hd}"
+        assert _lib.launch_counts()[flash_names(dt, hd)[0]] == 1, what
         op, mp, lp = FA.flash_attention_causal_fwd_plain(q, k, v)
         di = (op.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         bwd = (q, k, v, do, mp, lp, di)
+        plan, _, plan_table = FA._dkv_tables(B, T, H, KVH, hd, dev)
+        _lib.reset_launch_counts()
         dk, dv = FA.flash_attention_causal_bwd_dkv(*bwd)
+        assert _lib.launch_counts()[flash_names(dt, hd)[1]] == 1, what
+        assert _lib.launch_counts()["flash_attention_causal_bwd_dkv_combine"] == (1 if plan.combine else 0), what
+        if dt != f32 and hd in (384, 512):  # kernel 18's sliced instances where the plan splits key tiles
+            again = FA.flash_attention_causal_bwd_dkv(*bwd)
+            assert torch.equal(again[0], dk) and torch.equal(again[1], dv), f"{what}: differs from run to run"
+            del again
+            combine_against_plain(what, plan, plan_table, dk, dv, 63)
         dkp, dvp = FA.flash_attention_causal_bwd_dkv_plain(*bwd)
         errs = {"o_abs": (o.float() - op.float()).abs().max().item(), "m_abs": (m - mp).abs().max().item(),
                 "l_rel": rel(l, lp), "dq_rel": rel(FA.flash_attention_causal_bwd_dq(*bwd),
                                                   FA.flash_attention_causal_bwd_dq_plain(*bwd)),
                 "dk_rel": rel(dk, dkp), "dv_rel": rel(dv, dvp)}
-        check(f"3p {str(dt)[6:]} B{B} T{T} H{H} KVH{KVH} hd{hd}", dt, errs)
+        check(what, dt, errs)
         batched.append({"dtype": str(dt)[6:], "B": B, "T": T, "H": H, "KVH": KVH, "hd": hd, "errs": errs,
-                        "kernels": flash_names(dt, hd),
-                        "split_key_tiles": len(FA._dkv_tables(B, T, H, KVH, hd, dev)[0].combine)})
+                        "kernels": flash_names(dt, hd), "split_key_tiles": len(plan.combine)})
         del q, k, v, do, o, m, l, op, mp, lp, di, bwd, dk, dv, dkp, dvp
 
     # the threshold sweep below T 1024: the kernels against the dense oracle, forward and backward
@@ -3257,8 +3317,8 @@ def flash_cpu_check(dev, dtype=None, hd=128):
     fused NF4, rank-8 adapters on all seven targets, ``b`` non-zero) at T
     1024: ``lm_loss`` and its adapter gradients through kernels 17-19 on the
     card (the wgmma kernels in bf16 and f16, the wide family in f32; at hd
-    512 the forward's column-sliced wgmma instance and the wide dK/dV and
-    dQ) against the CPU port through their plain versions (the CPU's route
+    512 the forward's and dK/dV's sliced wgmma instances and the wide dQ)
+    against the CPU port through their plain versions (the CPU's route
     patched to the flash one), the loss within rel 1e-3, the gradients
     within rtol 2e-2 / atol 2e-3; the card's launches 2 of each kernel the
     route names, and 2 of kernel 18's combine where its plan splits a key
@@ -3297,7 +3357,8 @@ def flash_cpu_check(dev, dtype=None, hd=128):
     torch.cuda.synchronize()
     counts = {k: c for k, c in launch_counts().items() if c}
     assert all(counts.get(n) == cfg.num_layers for n in names), f"5l launches {counts}"
-    others = (FLASH_TRAIN + FLASH_TRAIN_WIDE + ("flash_attention_causal_fwd_sliced",))
+    others = FLASH_TRAIN + FLASH_TRAIN_WIDE + ("flash_attention_causal_fwd_sliced",
+                                               "flash_attention_causal_bwd_dkv_sliced")
     assert not any(counts.get(n) for n in others if n not in names), f"5l launches {counts}"
     combines = cfg.num_layers * dkv_combines(dev, 1, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     assert counts.get("flash_attention_causal_bwd_dkv_combine", 0) == combines, f"5l launches {counts}"
@@ -6823,10 +6884,10 @@ def main() -> int:
         for name, n in flash_cpu_check(dev, dt).items():
             if name in FLASH_TRAIN + FLASH_TRAIN_WIDE:
                 report[name + suffix]["launches_5l"] = n
-    # and in bf16 at head_dim 512: the forward's column-sliced instance (its
-    # kernels-line launches), dK/dV and dQ on the wide family
+    # and in bf16 at head_dim 512: the forward's and dK/dV's sliced instances
+    # (their kernels-line launches), dQ on the wide family
     for name, n in flash_cpu_check(dev, torch.bfloat16, hd=512).items():
-        if name == "flash_attention_causal_fwd_sliced":
+        if name in ("flash_attention_causal_fwd_sliced", "flash_attention_causal_bwd_dkv_sliced"):
             report[name]["launches"] = n
         elif name in FLASH_TRAIN_WIDE:
             report[name]["launches_5l_hd512"] = n

@@ -252,10 +252,12 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
                     *(torch.empty(big, 4, 128, device="meta"),) * 3)
 
 
-# chip_smoke.py's 3p shapes (B, T, H, KVH, hd) and its two batched ones, on an
-# H100's 132 SMs, one block an SM
+# chip_smoke.py's 3p shapes (B, T, H, KVH, hd) and its batched ones, on an
+# H100's 132 SMs, one block an SM: hd 384 and 512 cut a key tile into 3 and
+# 4 column slices
 PLAN_SHAPES = [(1, t, 32, 8, 128) for t in (1024, 2048, 4096, 8192)] + [(1, 4096, 16, 16, 256), (2, 1152, 8, 2, 128),
                                                                       (3, 640, 2, 1, 256)]
+PLAN_SHAPES += [(1, 2048, 8, 8, 384), (1, 2048, 8, 8, 512), (2, 640, 4, 2, 384), (2, 640, 4, 2, 512)]
 SMS = 132
 
 
@@ -331,20 +333,23 @@ def _dkv_by_plan(q, k, v, do, m, l, di, plan):
     return FA.flash_attention_causal_bwd_dkv_combine(part_k, part_v, table, dk, dv)
 
 
-@pytest.mark.parametrize("hd,slots", [(128, 30), (256, 60)], ids=["hd128-split", "hd256-split"])
-def test_dkv_plan_computes_the_plain_gradients(hd, slots):
+@pytest.mark.parametrize("hd,slots,T", [(128, 30, 512), (256, 60, 512), (384, 48, 384)],
+                         ids=["hd128-split", "hd256-split", "hd384-split"])
+def test_dkv_plan_computes_the_plain_gradients(hd, slots, T):
     """A plan that splits key tiles (few slots), computed item by item as the
     kernel computes it, gives the plain version's dk and dv (bf16 inputs;
     within 1e-2 of the largest magnitude, the card's gate: the sums run in
-    another order and round once)."""
+    another order and round once).  At hd 384 the combine writes split key
+    tiles in every column slice, the second and third included."""
     rng = np.random.default_rng(hd + slots)
-    B, T, H, KVH = 2, 512, 4, 2
+    B, H, KVH = 2, 4, 2
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
                    for s in ((B, T, H, hd), (B, T, KVH, hd), (B, T, KVH, hd), (B, T, H, hd)))
     o, m, l = FA.flash_attention_causal_fwd_plain(q, k, v)
     di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     plan = FA.dkv_plan(B, T, H, KVH, hd, slots)
     assert plan.combine and any(it[6] < 0 for it in plan.items)
+    assert {row[3] for row in plan.combine} == set(range(hd // FA.DKV_COLS))
     dk, dv = _dkv_by_plan(q, k, v, do, m, l, di, plan)
     dkp, dvp = FA.flash_attention_causal_bwd_dkv_plain(q, k, v, do, m, l, di)
     for got, want in ((dk, dkp), (dv, dvp)):

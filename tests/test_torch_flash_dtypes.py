@@ -186,7 +186,7 @@ def test_bf16_hd512_train_step_loss_matches_jax(flash_route):
 
 # the head_dims each kernel takes on wgmma in bf16 and f16 (the wide family
 # takes the rest, and every head_dim in f32)
-WGMMA = {"fwd": (128, 256, 384, 512), "dkv": (128, 256), "dq": (128, 256)}
+WGMMA = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256)}
 
 
 @pytest.mark.parametrize("dtype", list(TORCH_TYPES))
@@ -195,11 +195,11 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
     kernels also take shorter T), the CUDA wrappers' checks accept exactly
     the cases the JAX package's ``_flash_ok`` conditions send to its flash
     kernel, its backend check aside; each kernel of an accepted case has one
-    family: the forward runs on wgmma for bf16 and f16 at head_dim 128, 256,
-    384 and 512, dK/dV and dQ at 128 and 256, and the wide family takes the
+    family: the forward and dK/dV run on wgmma for bf16 and f16 at head_dim
+    128, 256, 384 and 512, dQ at 128 and 256, and the wide family takes the
     rest.  Each kernel counts its launches under a name of the library's
-    counts that shows which ran: ``_sliced`` for the forward's column-sliced
-    instances (384 and 512), ``_wide`` for the wide family."""
+    counts that shows which ran: ``_sliced`` for the wgmma instances at 384
+    and 512, ``_wide`` for the wide family."""
     tt = TORCH_TYPES[dtype]
     cfg = JL.LlamaConfig.tiny()
     for T in (1024, 1088, 1152, 2048, 4096):
