@@ -1,9 +1,9 @@
 // Causal flash attention of the training path (no cache): the forward, the
 // dK/dV and the dQ kernel, T a multiple of 128, in two families: the wgmma
-// kernels take bf16 and f16, the forward and dK/dV at head_dim 128, 256, 384
-// and 512, dQ at 128 and 256; the wide family (at the end of the file) takes
-// f32 at any head_dim that is a multiple of 128, and bf16 and f16 where the
-// wgmma kernels stop: the forward and dK/dV from head_dim 640, dQ from 384.
+// kernels take bf16 and f16 at head_dim 128, 256, 384 and 512; the wide
+// family (at the end of the file) takes f32 at any head_dim that is a
+// multiple of 128, and bf16 and f16 where the wgmma kernels stop, from
+// head_dim 640.
 //
 // Replaces the three TPU kernels the JAX package reaches through
 // models/llama.py:_flash_call, in jax/experimental/pallas/ops/tpu/
@@ -72,15 +72,19 @@
 // * dQ (sm90.cuh; the bound is 3 products of 2 hd flops a (row, key) pair
 //   of the causal half, 0.052 ms at 4r's T 2048 on an H100): a block is one
 //   consumer warpgroup for each 64 query rows of one head, two (128 rows) at
-//   hd 128, one at hd 256, and a producer warp (DqCfg says why).  One
-//   producer thread loads Q and dO once, and the K and V tiles of the KV
-//   head, from key 0 up to the block's last row, with TMA into a two-stage
-//   ring of 64-key 128-byte-swizzled tiles.  A consumer runs S = Q K^T and
-//   dP = dO V^T on wgmma from shared memory, p and ds in registers (the mask
-//   only on its diagonal tile; m log2(e), 1 / l and di read once a row), and
-//   dQ += dS K on wgmma with dS from registers and K read as a transposed B
-//   from the same stage.  dQ stays in f32 registers over the walk, summed in
-//   key order (no atomics, no split of a row's keys), and is stored once.
+//   hd 128, one from hd 256, and a producer warp (DqCfg says why); at hd 384
+//   and 512 the block owns half of dq's columns, and the two blocks of a row
+//   tile each compute S and dP over all of hd.  One producer thread loads Q
+//   and dO once, and the K and V tiles of the KV head, from key 0 up to the
+//   block's last row, with TMA into a two-stage ring of 64-key
+//   128-byte-swizzled tiles (at 384 and 512 a stage holds the K tile's slice
+//   alone, and K's other chunks and V's stream through a ring of 64-column
+//   chunks).  A consumer runs S = Q K^T and dP = dO V^T on wgmma from shared
+//   memory, p and ds in registers (the mask only on its diagonal tile; m
+//   log2(e), 1 / l and di read once a row), and dQ += dS K on wgmma with dS
+//   from registers and K read as a transposed B from the same stage.  dQ
+//   stays in f32 registers over the walk, summed in key order (no atomics,
+//   no split of a row's keys), and is stored once.
 // * Causal work only: tiles above the diagonal are never loaded (a dQ
 //   consumer stops at its own diagonal tile).  Blocks with the most tiles
 //   launch first.
@@ -429,21 +433,58 @@ __global__ void __launch_bounds__(FwdCfg<HD>::kThreads, 1)
 // and 255 at hd 256, one consumer of 64 rows (160 threads).  m, l and di
 // belong to a thread's two rows for the whole block: each consumer thread
 // reads them into registers once.
+//
+// Above hd 256 all of dQ would take hd / 2 registers (192 or 256), past
+// what a thread holds beside S, dP and dS.  So at hd 384 and 512 a block
+// owns a column slice of dq, half of hd (kCols: 192 or 256 columns, dQ in
+// 96 or 128 registers: hd 256's footprint), as the forward's block owns one
+// of o: S and dP over all of hd, dQ += dS K over the K tile's slice; the two
+// blocks of a row tile each compute S and dP, 5 products where 3 are the
+// least work.  Shared memory binds there (227 KB a block): Q and dO stay
+// resident (96 / 128 KB), and a whole K and V tile of 64 keys would take as
+// much again.  So a ring stage holds only the tile's K in the block's
+// columns (24 / 32 KB: the dQ product and S over those columns read it),
+// and K's other 64-column chunks and every chunk of V stream through a
+// second ring of 8 KB chunk stages, in that order, into S and dP, one
+// commit group a chunk, so S and dP stay m64n64 products (kernel 18's
+// design above hd 256): two stages and six chunk stages at hd 384 (193 KB),
+// one stage and eight chunk stages at hd 512 (225 KB).  On an H100 80GB
+// HBM3 at 700 W (B 1, T 2048, H 8, bf16) this ran 0.159 / 0.205 ms at hd
+// 384 / 512; four chunk stages 8 / 2% slower, three 25 / 37%, eight at hd
+// 384 3%, a third stage at hd 384 even, two stages and four chunk stages at
+// hd 512 (the layout written first) 3% slower, and a stage holding the K
+// and the V slice, with 16 KB chunks of both outside them, 9-10% slower
+// (experiments/ab_flash_dq_sliced_torch.py; 214 / 233 registers, no
+// spills, no C75xx).
 template <int HD>
 struct DqCfg {
     static constexpr int kConsumers = HD == 128 ? 2 : 1;
     static constexpr int kRows = 64 * kConsumers;  // query rows of a block
     static constexpr int kThreads = 128 * kConsumers + 32;
     static constexpr int kKeys = 64;  // keys of a ring stage
-    static constexpr int kStages = 2;
+    static constexpr int kStages = HD == 512 ? 1 : 2;
     static constexpr int kChunks = HD / 64;  // 64-column chunks of a row (128-byte swizzled tiles)
+    static constexpr int kCols = HD <= 256 ? HD : HD / 2;  // columns of dq a block owns
+    static constexpr int kSlices = HD / kCols;             // blocks a row tile
+    static constexpr int kColChunks = kCols / 64;          // of the chunks, the block's
+    static constexpr int kOtherK = kChunks - kColChunks;    // K's chunks outside them
+    // chunks a key tile streams through the chunk ring: K's other chunks,
+    // then all of V's (none up to hd 256)
+    static constexpr int kStream = kSlices > 1 ? kOtherK + kChunks : 0;
+    static constexpr int kChunkStages = kStream ? (HD == 384 ? 6 : 8) : 0;
     static constexpr uint32_t kQBytes = kRows * HD * 2;   // Q, and dO
     static constexpr uint32_t kKvBytes = kKeys * HD * 2;  // a K or a V tile
-    // shared memory from a 1024-byte aligned base: Q, dO, the stages' [K | V],
-    // the barriers (Q and dO's, then each stage's full and empty)
+    static constexpr uint32_t kChunkBytes = kKeys * 128;  // a 64-column chunk of a K or V tile
+    // a stage: [K | V] tiles, or the K tile's slice
+    static constexpr uint32_t kStageBytes = kStream ? kKeys * kCols * 2 : 2 * kKvBytes;
+    // shared memory from a 1024-byte aligned base: Q, dO, the stages, the
+    // chunk ring, the barriers (Q and dO's, then each stage's full and empty,
+    // each chunk stage's full and empty)
     static constexpr uint32_t kStage0 = 2 * kQBytes;
-    static constexpr uint32_t kBars = kStage0 + kStages * 2 * kKvBytes;
-    static constexpr uint32_t kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;  // + the base's alignment
+    static constexpr uint32_t kRing0 = kStage0 + kStages * kStageBytes;
+    static constexpr uint32_t kBars = kRing0 + kChunkStages * kChunkBytes;
+    static constexpr uint32_t kBytes = kBars + (1 + 2 * kStages + 2 * kChunkStages) * 8 + 1024;  // + alignment
+    static_assert(HD % 128 == 0 && HD <= 512 && kCols <= 256 && kBytes <= 232448, "no wgmma dQ at this hd");
 };
 
 template <int HD, class E>
@@ -459,13 +500,20 @@ __global__ void __launch_bounds__(DqCfg<HD>::kThreads, 1)
     uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::kBars);
     uint64_t* full = full_q + 1;
     uint64_t* empty = full + C::kStages;
-    auto sK = [&](int st) { return smem + C::kStage0 + st * 2 * C::kKvBytes; };
+    uint64_t* full_c = empty + C::kStages;
+    uint64_t* empty_c = full_c + C::kChunkStages;
+    auto sK = [&](int st) { return smem + C::kStage0 + st * C::kStageBytes; };
     auto sV = [&](int st) { return sK(st) + C::kKvBytes; };
+    auto sChunk = [&](int sa) { return smem + C::kRing0 + sa * C::kChunkBytes; };  // chunk stage sa
 
     const int qi = gridDim.z - 1 - blockIdx.z;  // the longest rows first, over every head
-    const int h = blockIdx.x, b = blockIdx.y;
+    const int h = blockIdx.x / C::kSlices, cs = blockIdx.x % C::kSlices, b = blockIdx.y;  // cs: the column slice
     const int r0 = qi * C::kRows;
     const int wg = threadIdx.x / 128;  // a consumer warpgroup, or kConsumers: the producer warp
+    // above hd 256: the first 64-column chunk of the block's columns, and the
+    // j-th of K's chunks outside them
+    const int c0 = cs * C::kColChunks;
+    auto other = [&](int j) { return j < c0 ? j : j + C::kColChunks; };
 
     if (threadIdx.x == 0) {
         mbar_init(full_q, 1);
@@ -473,13 +521,20 @@ __global__ void __launch_bounds__(DqCfg<HD>::kThreads, 1)
             mbar_init(full + st, 1);
             mbar_init(empty + st, 4 * C::kConsumers);  // each consumer warp once
         }
+        for (int sa = 0; sa < C::kChunkStages; ++sa) {
+            mbar_init(full_c + sa, 1);
+            mbar_init(empty_c + sa, 4 * C::kConsumers);
+        }
         mbar_fence_init();
     }
     __syncthreads();
 
     if (wg == C::kConsumers) {
         // the producer: one thread loads Q and dO once, then the K and V
-        // tiles of KV head h / (H / KVH) from key 0 up to the block's last row
+        // tiles of KV head h / (H / KVH) from key 0 up to the block's last
+        // row: whole into a stage, or above hd 256 K's other chunks into the
+        // chunk ring, the K tile's slice into a stage, V's chunks into the
+        // chunk ring
         if (threadIdx.x == 128 * C::kConsumers) {
             tma_prefetch_map(&tq);
             tma_prefetch_map(&tk);
@@ -492,13 +547,32 @@ __global__ void __launch_bounds__(DqCfg<HD>::kThreads, 1)
                 tma_load_4d(smem + c * C::kRows * 128, &tq, full_q, c * 64, h, r0, b);
                 tma_load_4d(smem + C::kQBytes + c * C::kRows * 128, &tdo, full_q, c * 64, h, r0, b);
             }
-            for (int t = 0; t < ntiles; ++t) {
-                const int st = t % C::kStages;
-                if (t >= C::kStages) mbar_wait(empty + st, ((t / C::kStages) - 1) & 1);
-                mbar_expect_tx(full + st, 2 * C::kKvBytes);
-                for (int c = 0; c < C::kChunks; ++c) {
-                    tma_load_4d(sK(st) + c * N * 128, &tk, full + st, c * 64, kvh, t * N, b);
-                    tma_load_4d(sV(st) + c * N * 128, &tv, full + st, c * 64, kvh, t * N, b);
+            if constexpr (C::kStream > 0) {
+                auto load_chunk = [&](int a, const CUtensorMap* map, int col, int t) {  // chunk a of the stream
+                    const int sa = a % C::kChunkStages;
+                    if (a >= C::kChunkStages) mbar_wait(empty_c + sa, ((a / C::kChunkStages) - 1) & 1);
+                    mbar_expect_tx(full_c + sa, C::kChunkBytes);
+                    tma_load_4d(sChunk(sa), map, full_c + sa, col, kvh, t * N, b);
+                };
+                for (int t = 0; t < ntiles; ++t) {
+                    const int a0 = t * C::kStream;
+                    for (int j = 0; j < C::kOtherK; ++j) load_chunk(a0 + j, &tk, other(j) * 64, t);
+                    const int st = t % C::kStages;
+                    if (t >= C::kStages) mbar_wait(empty + st, ((t / C::kStages) - 1) & 1);
+                    mbar_expect_tx(full + st, C::kStageBytes);
+                    for (int c = 0; c < C::kColChunks; ++c)
+                        tma_load_4d(sK(st) + c * N * 128, &tk, full + st, (c0 + c) * 64, kvh, t * N, b);
+                    for (int j = 0; j < C::kChunks; ++j) load_chunk(a0 + C::kOtherK + j, &tv, j * 64, t);
+                }
+            } else {
+                for (int t = 0; t < ntiles; ++t) {
+                    const int st = t % C::kStages;
+                    if (t >= C::kStages) mbar_wait(empty + st, ((t / C::kStages) - 1) & 1);
+                    mbar_expect_tx(full + st, 2 * C::kKvBytes);
+                    for (int c = 0; c < C::kChunks; ++c) {
+                        tma_load_4d(sK(st) + c * N * 128, &tk, full + st, c * 64, kvh, t * N, b);
+                        tma_load_4d(sV(st) + c * N * 128, &tv, full + st, c * 64, kvh, t * N, b);
+                    }
                 }
             }
         }
@@ -507,8 +581,9 @@ __global__ void __launch_bounds__(DqCfg<HD>::kThreads, 1)
 
     // a consumer warpgroup: 64 query rows.  S = Q K^T and dP = dO V^T with
     // both operands in shared memory, p and ds in registers, then dQ += dS K
-    // with dS from registers (the dP accumulators rounded to E pairs are
-    // the A fragments) and K read as a transposed B from the same tile.
+    // (over the block's columns) with dS from registers (the dP accumulators
+    // rounded to E pairs are the A fragments) and K read as a transposed B
+    // from the same stage.
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     const int gq = lane / 4, t4 = lane % 4;
@@ -527,9 +602,9 @@ __global__ void __launch_bounds__(DqCfg<HD>::kThreads, 1)
     }
     const unsigned char* sQ = smem + wg * 64 * 128;  // its rows of each Q chunk
     const unsigned char* sDo = sQ + C::kQBytes;
-    float dq[HD / 2];
+    float dq[C::kCols / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
+    for (int i = 0; i < C::kCols / 2; ++i) dq[i] = 0.0f;
     // S and dP: each tile's first k step overwrites them (scale_d 0); zeroed
     // in the loop, before the stage's wait, they would make ptxas fence and
     // serialize every wgmma (kernel 18's finding)
@@ -584,13 +659,14 @@ __global__ void __launch_bounds__(DqCfg<HD>::kThreads, 1)
 #pragma unroll
             for (int r = 0; r < 4; ++r) sa[kk][r] = pack_x2<E>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
     };
-    // dQ += dS K_t, K_t read MN-major (a transposed B) from the stage's tile
+    // dQ += dS K_t, K_t read MN-major (a transposed B) from the stage's
+    // tile, or its slice
     auto issue_dq = [&](int t) {
         const uint32_t ka = opaque(smem_addr(sK(t % C::kStages)));
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < N / 16; ++kk)
-            wgmma_rs_tb<HD, E>(dq, sa[kk], gmma_desc_sw128(ka + kk * 16 * 128, N * 128, 1024), 1);
+            wgmma_rs_tb<C::kCols, E>(dq, sa[kk], gmma_desc_sw128(ka + kk * 16 * 128, N * 128, 1024), 1);
         wgmma_commit();
     };
     auto dq_landed = [&]() {
@@ -604,26 +680,98 @@ __global__ void __launch_bounds__(DqCfg<HD>::kThreads, 1)
     };
 
     mbar_wait(full_q, 0);
-    for (int t = 0; t < ntiles; ++t) {
-        issue_sdp(t);
-        wgmma_wait<1>();  // S has landed, dP may still run
-        fence_regs(s);
-        probs(t);
-        wgmma_wait<0>();
-        fence_regs(dp);
-        dsoft();
-        issue_dq(t);
-        wgmma_wait<0>();
-        dq_landed();
-        release(t);
+    if constexpr (C::kStream == 0) {
+        for (int t = 0; t < ntiles; ++t) {
+            issue_sdp(t);
+            wgmma_wait<1>();  // S has landed, dP may still run
+            fence_regs(s);
+            probs(t);
+            wgmma_wait<0>();
+            fence_regs(dp);
+            dsoft();
+            issue_dq(t);
+            wgmma_wait<0>();
+            dq_landed();
+            release(t);
+        }
+    } else {
+        // above hd 256: S over K's chunks outside the block's columns, then
+        // over the stage's slice, and dP over V's chunks, one commit group a
+        // chunk; a chunk stage goes back once the next group is issued and
+        // its own has landed.  Each wait comes before its fence.
+        auto release_chunk = [&](int a) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty_c + a % C::kChunkStages);  // this warp is done with the chunk stage
+        };
+        for (int t = 0; t < ntiles; ++t) {
+            const int st = t % C::kStages;
+            const int a0 = t * C::kStream;
+#pragma unroll
+            for (int j = 0; j < C::kOtherK; ++j) {
+                const int a = a0 + j;
+                mbar_wait(full_c + a % C::kChunkStages, (a / C::kChunkStages) & 1);
+                const uint32_t qa = opaque(smem_addr(sQ)) + other(j) * C::kRows * 128;
+                const uint32_t ka = opaque(smem_addr(sChunk(a % C::kChunkStages)));
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_ss<N, E>(s, gmma_desc_sw128(qa + kk * 32, 16, 1024), gmma_desc_sw128(ka + kk * 32, 16, 1024),
+                                   j > 0 || kk > 0);
+                wgmma_commit();
+                if (j > 0) {
+                    wgmma_wait<1>();
+                    release_chunk(a - 1);
+                }
+            }
+            mbar_wait(full + st, (t / C::kStages) & 1);
+            const uint32_t qa = opaque(smem_addr(sQ)) + c0 * C::kRows * 128, ka = opaque(smem_addr(sK(st)));
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < C::kCols / 16; ++kk) {
+                const uint32_t off = (kk / 4) * C::kRows * 128 + (kk % 4) * 32;
+                const uint32_t koff = (kk / 4) * N * 128 + (kk % 4) * 32;
+                wgmma_ss<N, E>(s, gmma_desc_sw128(qa + off, 16, 1024), gmma_desc_sw128(ka + koff, 16, 1024), 1);
+            }
+            wgmma_commit();
+            wgmma_wait<1>();
+            release_chunk(a0 + C::kOtherK - 1);
+#pragma unroll
+            for (int j = 0; j < C::kChunks; ++j) {
+                const int a = a0 + C::kOtherK + j;
+                mbar_wait(full_c + a % C::kChunkStages, (a / C::kChunkStages) & 1);
+                const uint32_t oa = opaque(smem_addr(sDo)) + j * C::kRows * 128;
+                const uint32_t va = opaque(smem_addr(sChunk(a % C::kChunkStages)));
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_ss<N, E>(dp, gmma_desc_sw128(oa + kk * 32, 16, 1024), gmma_desc_sw128(va + kk * 32, 16, 1024),
+                                   j > 0 || kk > 0);
+                wgmma_commit();
+                if (j > 0) {  // at j 1 S has landed too
+                    wgmma_wait<1>();
+                    release_chunk(a - 1);
+                }
+            }
+            fence_regs(s);
+            probs(t);  // while V's last chunk runs
+            wgmma_wait<0>();
+            fence_regs(dp);
+            release_chunk(a0 + C::kStream - 1);
+            dsoft();
+            issue_dq(t);
+            wgmma_wait<0>();
+            dq_landed();
+            release(t);
+        }
     }
 
-    // dQ in E, summed over the keys in key order, stored once
+    // dQ in E (the block's columns), summed over the keys in key order,
+    // stored once
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-        E* dst = p.dq + (((size_t)b * p.T + rw + rl[i]) * p.H + h) * HD;
+        E* dst = p.dq + (((size_t)b * p.T + rw + rl[i]) * p.H + h) * HD + cs * C::kCols;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
+        for (int j = 0; j < C::kCols / 8; ++j)
             *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * t4) = pack_x2<E>(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
     }
 }
@@ -1012,25 +1160,22 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------------------
 // The wide family: the same three functions where the wgmma kernels stop, f32
-// at any head_dim, and bf16/f16 dQ at head_dim 384 and up and the bf16/f16
-// forward and dK/dV from 640 (CUDA cores, f32 FMA)
+// at any head_dim, and bf16/f16 from head_dim 640 (CUDA cores, f32 FMA)
 // ---------------------------------------------------------------------------
 
 // Why CUDA cores.  f32 must be full f32 (the JAX package's "highest"
 // precision): one TF32 pass keeps about three digits, and TF32 wgmma takes
 // both operands K-major while V in P V is MN-major.  And a warpgroup's f32 O
-// or dQ of 64 rows takes hd / 2 registers a thread, which with S and dP
-// passes the 255-register limit above hd 256.  The 16-bit forward cuts O in
-// two column slices on wgmma up to hd 512 (FwdCfg), and dK/dV holds
+// or dQ of 64 rows takes hd / 2 registers a thread, which with S and dP passes
+// the 255-register limit above hd 256.  The 16-bit forward and dQ cut O and dQ
+// in two column slices on wgmma up to hd 512 (FwdCfg, DqCfg), and dK/dV holds
 // 128-column slices and streams the rest of hd in chunks up to hd 512
-// (DkvCfg); from hd 640 a half slice of O passes wgmma's widest N, 256, K
-// and V (160 KB) leave too little room for dK/dV's rings, and dQ, which
-// holds a whole row of dQ, has no slice design on wgmma yet.  So a
-// block here owns 128 columns of its output (a column slice; hd / 128
-// blocks share a row tile and each recomputes the scores over all of hd) and
-// keeps everything in f32: the bound is the f32 rate (67 TFLOP/s) for f32,
-// and this simple design trades the 16-bit types' tensor-core rate for one
-// code path.
+// (DkvCfg); from hd 640 a half slice of O or dQ passes wgmma's widest N, 256,
+// and K and V (160 KB) leave too little room for dK/dV's rings.  So a block
+// here owns 128 columns of its output (a column slice; hd / 128 blocks share a
+// row tile and each recomputes the scores over all of hd) and keeps everything
+// in f32: the bound is the f32 rate (67 TFLOP/s) for f32, and this simple
+// design trades the 16-bit types' tensor-core rate for one code path.
 //
 // A block is 256 threads over a 64 x 64 tile of scores (S, or S^T in dK/dV)
 // and a 64 x 128 slice of its output.  Thread (ty, tx) = (tid / 16, tid %
@@ -1416,14 +1561,13 @@ int by_kind(int kind, F&& f) {
 }
 
 // Shapes every kernel takes: hd a multiple of 128, T of 128.  The wgmma
-// kernels take bf16 and f16 alone, up to `max_hd`: 512 for the forward and
-// dK/dV, 256 for dQ.
+// kernels take bf16 and f16 alone, up to hd 512.
 bool shapes_ok(int B, int T, int H, int KVH, int hd) {
     return B > 0 && B <= 65535 && T > 0 && T % 128 == 0 && T / 64 <= 65535 && H > 0 && KVH > 0 && H % KVH == 0 &&
            hd > 0 && hd % 128 == 0;
 }
 
-bool wgmma_ok(int kind, int hd, int max_hd) { return (kind == kBf16 || kind == kF16) && hd <= max_hd; }
+bool wgmma_ok(int kind, int hd) { return (kind == kBf16 || kind == kF16) && hd <= 512; }
 
 template <class E>
 Params<E> make_params(const void* q, const void* k, const void* v, const void* dout, const float* m, const float* l,
@@ -1526,7 +1670,8 @@ int launch_dq(const Params<E>& p, int B, cudaStream_t stream) {
     const cudaError_t a =
         cudaFuncSetAttribute(flash_bwd_dq_kernel<HD, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
     if (a != cudaSuccess) return (int)a;
-    flash_bwd_dq_kernel<HD, E><<<dim3(p.H, B, p.T / C::kRows), C::kThreads, C::kBytes, stream>>>(tq, tk, tv, tdo, p);
+    flash_bwd_dq_kernel<HD, E><<<dim3(p.H * C::kSlices, B, p.T / C::kRows), C::kThreads, C::kBytes, stream>>>(
+        tq, tk, tv, tdo, p);
     return (int)cudaGetLastError();
 }
 
@@ -1541,21 +1686,20 @@ int launch_wide(K kernel, dim3 grid, int bytes, cudaStream_t stream, Args... arg
 
 }  // namespace
 
-// Every entry takes `kind` (common.cuh's Kind: f32, bf16 or f16), the type
-// of q, k, v, do and the outputs.  The plain entries run the wgmma kernels
-// (bf16 or f16; the forward and dK/dV at hd 128, 256, 384 and 512, dQ at
-// 128 and 256), the _wide ones the wide family (any of the three types, hd
-// a multiple of 128); each refuses what its kernels do not take.  T is a
-// multiple of 128 and outputs are packed.  An entry returns a CUDA error,
-// or kTmaError + the CUresult of cuTensorMapEncodeTiled when a tensor map
-// cannot be encoded (nothing is launched then).
+// Every entry takes `kind` (common.cuh's Kind: f32, bf16 or f16), the type of
+// q, k, v, do and the outputs.  The plain entries run the wgmma kernels (bf16
+// or f16 at hd 128, 256, 384 and 512), the _wide ones the wide family (any of
+// the three types, hd a multiple of 128); each refuses what its kernels do not
+// take.  T is a multiple of 128 and outputs are packed.  An entry returns a
+// CUDA error, or kTmaError + the CUresult of cuTensorMapEncodeTiled when a
+// tensor map cannot be encoded (nothing is launched then).
 
 // o [B, T, H, hd], m, l [B, H, T] f32.
 BNB_EXPORT int bnb_flash_attention_causal_fwd(const void* q, const void* k, const void* v, void* o, float* m,
                                               float* l, int B, int T, int H, int KVH, int hd, long long sqb,
                                               long long sqt, long long skb, long long skt, long long svb,
                                               long long svt, float scale, int kind, cudaStream_t stream) {
-    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd, 512)) return (int)cudaErrorInvalidValue;
+    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd)) return (int)cudaErrorInvalidValue;
     return by_kind(kind, [&](auto tag) -> int {
         using E = typename decltype(tag)::type;
         if constexpr (sizeof(E) == 4) {
@@ -1601,7 +1745,7 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dkv(const void* q, const void* k, 
                                                   long long sqt, long long skb, long long skt, long long svb,
                                                   long long svt, long long sdb, long long sdt, float scale, int kind,
                                                   cudaStream_t stream) {
-    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd, 512) || n_items <= 0 || items == nullptr)
+    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd) || n_items <= 0 || items == nullptr)
         return (int)cudaErrorInvalidValue;
     return by_kind(kind, [&](auto tag) -> int {
         using E = typename decltype(tag)::type;
@@ -1661,7 +1805,7 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dq(const void* q, const void* k, c
                                                  long long skb, long long skt, long long svb, long long svt,
                                                  long long sdb, long long sdt, float scale, int kind,
                                                  cudaStream_t stream) {
-    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd, 256)) return (int)cudaErrorInvalidValue;
+    if (!shapes_ok(B, T, H, KVH, hd) || !wgmma_ok(kind, hd)) return (int)cudaErrorInvalidValue;
     return by_kind(kind, [&](auto tag) -> int {
         using E = typename decltype(tag)::type;
         if constexpr (sizeof(E) == 4) {
@@ -1670,7 +1814,9 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dq(const void* q, const void* k, c
             Params<E> p =
                 make_params<E>(q, k, v, dout, m, l, di, T, H, KVH, sqb, sqt, skb, skt, svb, svt, sdb, sdt, scale);
             p.dq = static_cast<E*>(dq);
-            return hd == 128 ? launch_dq<128>(p, B, stream) : launch_dq<256>(p, B, stream);
+            if (hd == 128) return launch_dq<128>(p, B, stream);
+            if (hd == 256) return launch_dq<256>(p, B, stream);
+            return hd == 384 ? launch_dq<384>(p, B, stream) : launch_dq<512>(p, B, stream);
         }
     });
 }

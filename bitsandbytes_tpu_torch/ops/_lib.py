@@ -77,6 +77,7 @@ LAUNCHES: dict = {
     "flash_attention_causal_bwd_dq": 0,
     "flash_attention_causal_fwd_sliced": 0,
     "flash_attention_causal_bwd_dkv_sliced": 0,
+    "flash_attention_causal_bwd_dq_sliced": 0,
     "flash_attention_causal_fwd_wide": 0,
     "flash_attention_causal_bwd_dkv_wide": 0,
     "flash_attention_causal_bwd_dq_wide": 0,

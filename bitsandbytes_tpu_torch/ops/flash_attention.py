@@ -13,23 +13,24 @@ picks one for its kernel by type and head_dim alone (:func:`uses_wgmma`,
 :func:`launch_name`):
 
 * bf16 and f16 run on ``wgmma`` over tiles that one producer thread loads
-  by TMA for consumer warpgroups (``csrc/sm90.cuh``): the forward and dK/dV
-  at head_dim 128, 256, 384 and 512, dQ at 128 and 256.  At 384 and 512 a
-  forward block owns half of o's columns (O past 256 columns would not fit
-  a warpgroup's registers beside the scores) and computes the scores over
-  all of head_dim; a dK/dV ring stage holds q and do in the block's 128
-  columns alone and the rest of head_dim streams through a ring of
-  64-column chunks (all of it would not fit shared memory beside k and v);
-  both count as ``..._sliced``;
+  by TMA for consumer warpgroups (``csrc/sm90.cuh``) at head_dim 128, 256,
+  384 and 512.  At 384 and 512 a forward or dQ block owns half of o's or
+  dq's columns (a row of either past 256 columns would not fit a
+  warpgroup's registers beside the scores) and computes the scores over all
+  of head_dim; a dK/dV ring stage holds q and do in the block's 128 columns
+  alone, a dQ ring stage k in the block's columns alone, and the rest of
+  head_dim streams through a ring of 64-column chunks (all of it would not
+  fit shared memory beside what stays resident); all three count as
+  ``..._sliced``;
 * the wide family on CUDA cores takes the rest: f32 at any head_dim, and
-  bf16 and f16 dQ from 384 and the forward and dK/dV from 640.  Full f32
-  FMA, not TF32, because the JAX package's f32 route runs at "highest"
-  precision (one TF32 pass keeps about three digits, and TF32 ``wgmma``
-  cannot read V MN-major); and because a warpgroup's f32 O or dQ of 64 rows
-  takes hd / 2 registers a thread, which with S and dP passes the
-  255-register limit above hd 256.  A block owns 128 columns of its output
-  and recomputes the scores over all of head_dim.  Each kernel of this
-  family counts under its own name (``..._wide``).
+  bf16 and f16 from 640.  Full f32 FMA, not TF32, because the JAX package's
+  f32 route runs at "highest" precision (one TF32 pass keeps about three
+  digits, and TF32 ``wgmma`` cannot read V MN-major); and because a
+  warpgroup's f32 O or dQ of 64 rows takes hd / 2 registers a thread,
+  which with S and dP passes the 255-register limit above hd 256.  A block
+  owns 128 columns of its output and recomputes the scores over all of
+  head_dim.  Each kernel of this family counts under its own name
+  (``..._wide``).
 
 Both dK/dV kernels walk a work plan built here (:func:`dkv_plan`), and one
 combine kernel adds the pieces of the key tiles it splits.
@@ -78,6 +79,7 @@ __all__ = [
     "WGMMA_HEAD_DIMS",
     "uses_wgmma",
     "launch_name",
+    "c_entry",
     "flash_attention_causal_fwd",
     "flash_attention_causal_fwd_plain",
     "flash_attention_causal_bwd_dkv",
@@ -99,10 +101,10 @@ BLOCK = 128
 # the CUDA kernels take head_dim a multiple of this, and T of BLOCK
 HEAD_DIM_STEP = 128
 # the head_dims at which each kernel runs on wgmma (bf16 and f16; above 256
-# a forward block owns half of o's columns, and dK/dV streams q and do
-# outside its columns in chunks); the wide family takes every other type and
-# head_dim
-WGMMA_HEAD_DIMS = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256)}
+# a forward or dQ block owns half of o's or dq's columns, and dK/dV and dQ
+# stream the chunks of head_dim outside a stage's columns); the wide family
+# takes every other type and head_dim
+WGMMA_HEAD_DIMS = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256, 384, 512)}
 
 
 def _shapes(q, k, v):
@@ -248,13 +250,20 @@ def uses_wgmma(kernel: str, dtype: torch.dtype, hd: int) -> bool:
 def launch_name(kernel: str, dtype: torch.dtype, hd: int) -> str:
     """The launch count ``kernel`` adds to for q/k/v of ``dtype`` at ``hd``:
     its wgmma instance's, ``..._sliced`` for the wgmma instances above
-    head_dim 256 (the forward's column slices, dK/dV's streamed chunks), or
-    ``..._wide``.  A ``_sliced`` instance runs through its kernel's plain C
-    entry."""
+    head_dim 256 (the forward's and dQ's column slices, dK/dV's and dQ's
+    streamed chunks), or ``..._wide``.  A ``_sliced`` instance runs through
+    its kernel's plain C entry (:func:`c_entry`)."""
     name = _BASE_NAMES[kernel]
     if not uses_wgmma(kernel, dtype, hd):
         return name + "_wide"
     return name + "_sliced" if hd > 256 else name
+
+
+def c_entry(name: str) -> str:
+    """The C entry point that runs launch count ``name`` (a
+    :func:`launch_name`): ``bnb_`` + the name, whose ``_sliced`` instances
+    run through their kernel's plain entry."""
+    return "bnb_" + name.removesuffix("_sliced")
 
 
 def _check_cuda(q, k, v, T: int, hd: int) -> None:
@@ -310,7 +319,7 @@ def flash_attention_causal_fwd(q, k, v):
     l = torch.empty_like(m)
     if B:
         name = launch_name("fwd", q.dtype, hd)
-        err = getattr(_lib.lib(), "bnb_" + name.removesuffix("_sliced"))(
+        err = getattr(_lib.lib(), c_entry(name))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), B, T, H, KVH, hd,
             *sq, *sk, *sv, hd**-0.5, _KIND[q.dtype], _lib.stream(q))
         _lib.check(err, name)
@@ -491,7 +500,7 @@ def flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di):
             part_k = torch.empty(plan.slots, DKV_KEYS, DKV_COLS, dtype=torch.float32, device=q.device)
             part_v = torch.empty_like(part_k)
         name = launch_name("dkv", q.dtype, hd)
-        err = getattr(_lib.lib(), "bnb_" + name.removesuffix("_sliced"))(
+        err = getattr(_lib.lib(), c_entry(name))(
             *ptrs, dk.data_ptr(), dv.data_ptr(), None if part_k is None else part_k.data_ptr(),
             None if part_v is None else part_v.data_ptr(), items.data_ptr(), len(plan.items), B, T, H, KVH, hd,
             *strides, hd**-0.5, _KIND[q.dtype], _lib.stream(q))
@@ -514,18 +523,18 @@ def _dq_args(q, k, v, do, m, l, di):
 
 def flash_attention_causal_bwd_dq(q, k, v, do, m, l, di):
     """The gradient of q, ``dq [B, T, H, hd]``: a block owns 128 query rows
-    of one head (64 at head_dim 256; in the wide family 64 rows and 128
-    columns of dq) and walks the key tiles up to the diagonal in key order,
-    the sum in f32 registers (no atomics, so every call gives the same
-    bits); the wgmma kernel reads q, k, v and do in place through TMA tensor
-    maps over their strides."""
+    of one head (64 at head_dim 256; 64 rows and half of the columns at 384
+    and 512; in the wide family 64 rows and 128 columns of dq) and walks the
+    key tiles up to the diagonal in key order, the sum in f32 registers (no
+    atomics, so every call gives the same bits); the wgmma kernel reads q,
+    k, v and do in place through TMA tensor maps over their strides."""
     if not use_kernel(q, k, v, do, m, l, di):
         return flash_attention_causal_bwd_dq_plain(q, k, v, do, m, l, di)
     (B, T, H, KVH, hd), ptrs, strides = _dq_args(q, k, v, do, m, l, di)
     dq = torch.empty(B, T, H, hd, dtype=q.dtype, device=q.device)
     if B:
         name = launch_name("dq", q.dtype, hd)
-        err = getattr(_lib.lib(), "bnb_" + name)(
+        err = getattr(_lib.lib(), c_entry(name))(
             *ptrs, dq.data_ptr(), B, T, H, KVH, hd, *strides, hd**-0.5, _KIND[q.dtype], _lib.stream(q))
         _lib.check(err, name)
         _lib.LAUNCHES[name] += 1

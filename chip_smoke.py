@@ -347,9 +347,15 @@ TPU_KERNELS = {
     "flash_attention_causal_bwd_dkv_sliced": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
-    # kernels 17-19's wide family: f32 at any head_dim, and bf16 and f16 dQ at
-    # 384 and up and the forward and dK/dV from 640 (CUDA cores; launched by
-    # 4r(e)'s f32 steps)
+    # kernel 19's wgmma instances at head_dim 384 and 512 (bf16, f16): a block
+    # owns half of dq's columns, a stage holds the K tile's slice, and K's
+    # other chunks and V's stream through a ring of 64-column chunks
+    # (launched by 5l's head_dim 512 step)
+    "flash_attention_causal_bwd_dq_sliced": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    # kernels 17-19's wide family: f32 at any head_dim, and bf16 and f16 from
+    # 640 (CUDA cores; launched by 4r(e)'s f32 steps)
     "flash_attention_causal_fwd_wide": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
@@ -369,8 +375,7 @@ FLASH_TOLERANCES = {"bfloat16": (2e-2, 1e-2), "float16": (8e-3, 5e-3), "float32"
 
 
 FLASH_TRAIN = ("flash_attention_causal_fwd", "flash_attention_causal_bwd_dkv", "flash_attention_causal_bwd_dq")
-# the wide family's launch counts (f32 at any head_dim; bf16/f16 dQ at 384
-# and up, the forward and dK/dV from 640)
+# the wide family's launch counts (f32 at any head_dim; bf16/f16 from 640)
 FLASH_TRAIN_WIDE = tuple(n + "_wide" for n in FLASH_TRAIN)
 FLASH_KERNELS = ("fwd", "dkv", "dq")
 
@@ -378,20 +383,21 @@ FLASH_KERNELS = ("fwd", "dkv", "dq")
 def flash_names(dtype, hd=128):
     """The launch counts of kernels 17, 18 and 19 that q/k/v of ``dtype`` at
     ``hd`` take, each kernel's family chosen on its own: a wgmma kernel's
-    (``_sliced``: the forward's and dK/dV's instances at 384 and 512) or the
-    wide family's."""
+    (``_sliced``: its instances at 384 and 512) or the wide family's."""
     from bitsandbytes_tpu_torch.ops import flash_attention as FA
 
     return tuple(FA.launch_name(k, dtype, hd) for k in FLASH_KERNELS)
 
 
 # device time by class of a training step through the flash kernels (the
-# forward's and dK/dV's sliced instances before their others: the first match
-# names a kernel)
+# sliced instances before their kernels' others: the first match names a
+# kernel)
 FLASH_CLASSES = [("flash_fwd_kernel<384", "kernel 17, column-sliced (hd 384)"),
                  ("flash_fwd_kernel<512", "kernel 17, column-sliced (hd 512)"),
                  ("flash_bwd_dkv_kernel<384", "kernel 18, streamed chunks (hd 384)"),
                  ("flash_bwd_dkv_kernel<512", "kernel 18, streamed chunks (hd 512)"),
+                 ("flash_bwd_dq_kernel<384", "kernel 19, column-sliced (hd 384)"),
+                 ("flash_bwd_dq_kernel<512", "kernel 19, column-sliced (hd 512)"),
                  ("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_dkv_kernel", "kernel 18 (flash dK/dV)"),
                  ("flash_bwd_dkv_combine", "kernel 18's combine"), ("flash_bwd_dq_kernel", "kernel 19 (flash dQ)"),
                  ("flash_wide_fwd_kernel", "kernel 17, wide family"),
@@ -538,6 +544,19 @@ def by_class(events, named):
         c["ms"] += self_dev_us(e) / 1e3
         c["launches"] += e.count
     return out
+
+
+def live_bytes():
+    """The bytes that live tensors on the current card asked for, after a
+    garbage collection: ``memory_allocated`` counts whole allocator blocks,
+    and a block the allocator did not split holds up to 1 MiB beyond the
+    request, so it moves with what the allocator has cached."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
 
 
 def bits_equal(a, b):
@@ -1005,7 +1024,8 @@ def paged_qlora(cfg, params, tids, ref, rank, alpha, chunk, steps):
     adapters and states bit for bit the unpaged run's (``ref``: 4d's
     ``adamw8bit`` after its five steps), every state pinned in host memory,
     kernel 14 once a step; the step's wall time, the device memory between
-    steps and at the peak against the unpaged run, and one more step under
+    steps (``live_bytes``: the paged run holds at least 99% of the state
+    bytes less) and at the peak against the unpaged run, and one more step under
     the profiler for the page-in and page-out copies (pinned to device and
     back; the page-in's count includes kernel 14's descriptor table)."""
     import torch
@@ -1019,6 +1039,7 @@ def paged_qlora(cfg, params, tids, ref, rank, alpha, chunk, steps):
     Lyr = cfg.num_layers
     runs, unpaged32 = {}, None
     for fname in ("paged_adamw8bit", "adamw32bit", "paged_adamw32bit"):
+        base_live = live_bytes()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1036,6 +1057,7 @@ def paged_qlora(cfg, params, tids, ref, rank, alpha, chunk, steps):
             losses.append(loss.item())  # synchronizes
             wall.append((time.perf_counter() - t0) * 1e3)
             between.append((torch.cuda.memory_allocated() - base, torch.cuda.memory_reserved()))
+        live = live_bytes() - base_live
         counts = launch_counts()
         want = {k: 0 for k in counts}
         want["dequantize_paired_fast_dq"] = steps * (8 * Lyr - 1)
@@ -1048,10 +1070,11 @@ def paged_qlora(cfg, params, tids, ref, rank, alpha, chunk, steps):
         assert all(t.is_pinned() for t in states) if paged else all(t.device == dev for t in states), fname
         if fname == "adamw32bit":
             unpaged32 = {"losses": losses, "adapters": [t.detach().clone() for t in lparams],
-                         "states": [t.clone() for t in states], "between": between[-1][0],
+                         "states": [t.clone() for t in states], "between": between[-1][0], "live": live,
                          "reserved": between[-1][1], "peak": peak}
             runs[fname] = {"losses": losses, "step_ms": {"median_2_5": statistics.median(wall[1:]), "all": wall},
-                           "state_bytes": state_bytes, "allocated_between_steps": between[-1][0], "peak": peak}
+                           "state_bytes": state_bytes, "allocated_between_steps": between[-1][0],
+                           "live_between_steps": live, "peak": peak}
             del lora, lparams, opt, states, loss
             continue
         want_ref = ref if fname == "paged_adamw8bit" else unpaged32
@@ -1059,7 +1082,7 @@ def paged_qlora(cfg, params, tids, ref, rank, alpha, chunk, steps):
         assert all(bits_equal(a.detach(), b) for a, b in zip(lparams, want_ref["adapters"])), f"4j {fname}: adapters"
         assert len(states) == len(want_ref["states"]) and all(
             bits_equal(a.to(dev), b) for a, b in zip(states, want_ref["states"])), f"4j {fname}: states"
-        saved = want_ref["between"] - between[-1][0]
+        saved = want_ref["live"] - live
         assert saved >= 0.99 * state_bytes, f"4j {fname}: {saved} bytes freed between steps, states {state_bytes}"
 
         # one more step under the profiler: the page-in and page-out copies
@@ -1086,7 +1109,8 @@ def paged_qlora(cfg, params, tids, ref, rank, alpha, chunk, steps):
             "launches_per_step": {k: v / steps for k, v in counts.items() if v},
             "state_tensors": len(states), "state_bytes": state_bytes, "all_pinned": True,
             "allocated_between_steps": between[-1][0], "reserved_between_steps": between[-1][1],
-            "unpaged_allocated_between_steps": want_ref["between"], "freed_between_steps": saved,
+            "unpaged_allocated_between_steps": want_ref["between"], "live_between_steps": live,
+            "unpaged_live_between_steps": want_ref["live"], "freed_between_steps": saved,
             "unpaged_reserved_between_steps": want_ref["reserved"],
             "peak": peak, "unpaged_peak": want_ref["peak"],
             "profiled_step": {"wall_ms": prof_wall, "device_ms": dev_ms, "copies": copies,
@@ -2867,16 +2891,16 @@ def flash_train_kernels(dev, entry):
     1152, hd 128; B 3, T 640, hd 256) hold each kernel to the same
     tolerances, untimed.  Each forward call of a timed shape must add one
     to the launch count of the kernel its route names (``FA.launch_name``):
-    at hd 384 and 512 in bf16 and f16 the forward's and dK/dV's sliced wgmma
-    instances (their own kernels-line entries, from the bf16 hd 512 shape:
-    the forward timed beside SDPA's forward, dK/dV beside SDPA's backward and
-    the wide family's dK/dV, called through its C entry on the same
-    tensors), while dQ stays on the wide family there.  Batched GQA shapes at
-    hd 384 and 512, whose plans split key tiles, take the sliced instances
-    too, each dK/dV call twice bit for bit and the combine under that plan
-    bit for bit its plain version; two at hd 640 (bf16, f16) take the wide
-    family's 16-bit instances.  The SASS counts and the registers
-    (``cuobjdump -res-usage``) of every instance are emitted."""
+    at hd 384 and 512 in bf16 and f16 the sliced wgmma instances of all
+    three kernels (their own kernels-line entries, from the bf16 hd 512
+    shape: the forward timed beside SDPA's forward, dK/dV and dQ beside
+    SDPA's backward and the wide family's dK/dV and dQ, each called through
+    its C entry on the same tensors).  Batched GQA shapes at hd 384 and 512,
+    whose plans split key tiles, take the sliced instances too, each dK/dV
+    and dQ call twice bit for bit and the combine under that plan bit for
+    bit its plain version; two at hd 640 (bf16, f16) take the wide family's
+    16-bit instances.  The SASS counts and the registers (``cuobjdump
+    -res-usage``) of every instance are emitted."""
     import torch
     import torch.nn.functional as F
 
@@ -2890,7 +2914,7 @@ def flash_train_kernels(dev, entry):
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [(bf16, 1, T, 32, 8, 128) for T in (1024, 2048, 4096, 8192)] + [(bf16, 1, 4096, 16, 16, 256)]
     # f16 on the wgmma kernels, f32 on the wide family, head_dim 384 / 512 on
-    # the forward's and dK/dV's sliced wgmma instances and the wide dQ
+    # the sliced wgmma instances
     cases += [(f16, 1, T, 32, 8, 128) for T in (2048, 4096)] + [(f16, 1, 4096, 16, 16, 256), (f32, 1, 2048, 32, 8, 128)]
     cases += [(dt, 1, 2048, 8, 8, hd) for dt in (bf16, f16) for hd in (384, 512)]
 
@@ -2922,6 +2946,16 @@ def flash_train_kernels(dev, entry):
         if parts:
             FA.flash_attention_causal_bwd_dkv_combine(*parts, table, dk, dv)
         return dk, dv
+
+    def dq_wide(*bwd):
+        """Kernel 19's wide-family instance through its C entry, which the
+        route no longer takes for 16-bit q, k, v at head_dim 384 and 512."""
+        (B, T, H, KVH, hd), ptrs, strides = FA._bwd_args(*bwd)
+        dq = torch.empty(B, T, H, hd, dtype=bwd[0].dtype, device=dev)
+        err = _lib.lib().bnb_flash_attention_causal_bwd_dq_wide(
+            *ptrs, dq.data_ptr(), B, T, H, KVH, hd, *strides, hd**-0.5, FA._KIND[dq.dtype], _lib.stream(dq))
+        _lib.check(err, "flash_attention_causal_bwd_dq_wide")
+        return dq
 
     def combine_against_plain(what, plan, plan_table, dk, dv, seed):
         """Kernel 18's combine under ``plan`` on random partials of its
@@ -2987,9 +3021,11 @@ def flash_train_kernels(dev, entry):
         for key, (nb, ops) in work.items():
             b_ms, b_by = bound_ms(nb, ops, peak)
             row[key].update(bytes=nb, flops=ops, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / row[key]["ms"])
-        if hd > 256:  # kernel 18's wide instance, which took these shapes before, on the same tensors
+        if hd > 256:  # kernels 18 and 19's wide instances, which took these shapes before, on the same tensors
             row["dkv"]["wide_ms"] = dev_ms(lambda: dkv_wide(*bwd))
             row["dkv"]["wide_bound_share"] = row["dkv"]["bound_ms"] / row["dkv"]["wide_ms"]
+            row["dq"]["wide_ms"] = dev_ms(lambda: dq_wide(*bwd))
+            row["dq"]["wide_bound_share"] = row["dq"]["bound_ms"] / row["dq"]["wide_ms"]
         if dt == bf16:
             for key, table in (("fwd", FLASH_FWD_MMA_SYNC_MS), ("dkv", FLASH_DKV_MMA_SYNC_MS),
                                ("dq", FLASH_DQ_MMA_SYNC_MS)):
@@ -3019,7 +3055,7 @@ def flash_train_kernels(dev, entry):
             del part_k, part_v, ck, cp
         row["bwd_ms"] = row["dkv"]["ms"] + row["dq"]["ms"]
         out.append(row)
-        if hd > 256:  # the forward's and dK/dV's sliced instances, and the wide dQ's in 16 bits
+        if hd > 256:  # the sliced instances of the three kernels
             wide_rows.append({"dtype": row["dtype"], "shape": [B, T, H, KVH, hd], "sdpa": sdpa, "errs": errs,
                               **{key: row[key] for key in ("fwd", "dkv", "dq")}})
         if (T, hd) == (2048, 128):
@@ -3044,8 +3080,7 @@ def flash_train_kernels(dev, entry):
                     entry(*pending[:8], **pending[8])
         del q, k, v, do, o, m, l, di, dk, dv, dq, bwd
         torch.cuda.empty_cache()
-    # the wide family's entries: f32 at 4r's shape, and the bf16 / f16 dQ
-    # instances at head_dim 384 and 512
+    # the wide family's entries: f32 at 4r's shape
     instances = [r for r in wide_rows if isinstance(r, dict)]
 
     def inst(r, key):
@@ -3053,7 +3088,7 @@ def flash_train_kernels(dev, entry):
                 "sdpa_bwd_ms": r["sdpa"]["bwd_ms"]}
 
     for key, pend in (r for r in wide_rows if not isinstance(r, dict)):
-        entry(*pend[:8], **pend[8], instances=[inst(r, key) for r in instances if key == "dq"])
+        entry(*pend[:8], **pend[8])
     # the forward's column-sliced wgmma instances: bf16 at hd 512 in the line, all four beside it
     main = next(r for r in instances if (r["dtype"], r["shape"][4]) == ("bfloat16", 512))
     nb, ops = flash_causal_work(*main["shape"])["fwd"]
@@ -3074,6 +3109,18 @@ def flash_train_kernels(dev, entry):
                "chunks into S^T and dP^T on wgmma; device ms, host held out, L2 flushed; wide_ms is the wide "
                "family's dK/dV, which took these shapes before, on the same tensors; library_ms is null: SDPA's "
                "backward is one call for dq, dk and dv (sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19); "
+               "max_abs_err is relative to the gradient's largest magnitude")
+    # dQ's sliced wgmma instances: bf16 at hd 512 in the line, all four beside it
+    nb, ops = flash_causal_work(*main["shape"])["dq"]
+    entry("flash_attention_causal_bwd_dq_sliced", main["dq"]["ms"], main["dq"]["plain_ms"], None, nb, ops,
+          PEAK_BF16_FLOPS, main["errs"]["dq_rel"], shape=main["shape"], dtype="bfloat16",
+          instances=[inst(r, "dq") for r in instances], wide_ms=main["dq"]["wide_ms"],
+          sdpa_bwd_ms=main["sdpa"]["bwd_ms"], kernels_bwd_ms=main["dkv"]["ms"] + main["dq"]["ms"],
+          note="kernel 19's bf16 / f16 instances at head_dim 384 and 512: a block 64 query rows of one head and "
+               "half of dq's columns, a stage the K tile's slice, K's other 64-column chunks and V's streamed "
+               "into S and dP on wgmma over all of hd; device ms, host held out, L2 flushed; wide_ms is the "
+               "wide family's dQ, which took these shapes before, on the same tensors; library_ms is null: "
+               "SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19); "
                "max_abs_err is relative to the gradient's largest magnitude")
 
     # more than one sequence and T off a power of two: each kernel against its
@@ -3101,15 +3148,19 @@ def flash_train_kernels(dev, entry):
             assert torch.equal(again[0], dk) and torch.equal(again[1], dv), f"{what}: differs from run to run"
             del again
             combine_against_plain(what, plan, plan_table, dk, dv, 63)
+        _lib.reset_launch_counts()
+        dq = FA.flash_attention_causal_bwd_dq(*bwd)
+        assert _lib.launch_counts()[flash_names(dt, hd)[2]] == 1, what
+        if dt != f32 and hd in (384, 512):  # kernel 19's sliced instances on GQA batches
+            assert torch.equal(FA.flash_attention_causal_bwd_dq(*bwd), dq), f"{what}: dq differs from run to run"
         dkp, dvp = FA.flash_attention_causal_bwd_dkv_plain(*bwd)
         errs = {"o_abs": (o.float() - op.float()).abs().max().item(), "m_abs": (m - mp).abs().max().item(),
-                "l_rel": rel(l, lp), "dq_rel": rel(FA.flash_attention_causal_bwd_dq(*bwd),
-                                                  FA.flash_attention_causal_bwd_dq_plain(*bwd)),
+                "l_rel": rel(l, lp), "dq_rel": rel(dq, FA.flash_attention_causal_bwd_dq_plain(*bwd)),
                 "dk_rel": rel(dk, dkp), "dv_rel": rel(dv, dvp)}
         check(what, dt, errs)
         batched.append({"dtype": str(dt)[6:], "B": B, "T": T, "H": H, "KVH": KVH, "hd": hd, "errs": errs,
                         "kernels": flash_names(dt, hd), "split_key_tiles": len(plan.combine)})
-        del q, k, v, do, o, m, l, op, mp, lp, di, bwd, dk, dv, dkp, dvp
+        del q, k, v, do, o, m, l, op, mp, lp, di, bwd, dk, dv, dq, dkp, dvp
 
     # the threshold sweep below T 1024: the kernels against the dense oracle, forward and backward
     sweep = []
@@ -3317,7 +3368,7 @@ def flash_cpu_check(dev, dtype=None, hd=128):
     fused NF4, rank-8 adapters on all seven targets, ``b`` non-zero) at T
     1024: ``lm_loss`` and its adapter gradients through kernels 17-19 on the
     card (the wgmma kernels in bf16 and f16, the wide family in f32; at hd
-    512 the forward's and dK/dV's sliced wgmma instances and the wide dQ)
+    512 their sliced wgmma instances)
     against the CPU port through their plain versions (the CPU's route
     patched to the flash one), the loss within rel 1e-3, the gradients
     within rtol 2e-2 / atol 2e-3; the card's launches 2 of each kernel the
@@ -3358,7 +3409,8 @@ def flash_cpu_check(dev, dtype=None, hd=128):
     counts = {k: c for k, c in launch_counts().items() if c}
     assert all(counts.get(n) == cfg.num_layers for n in names), f"5l launches {counts}"
     others = FLASH_TRAIN + FLASH_TRAIN_WIDE + ("flash_attention_causal_fwd_sliced",
-                                               "flash_attention_causal_bwd_dkv_sliced")
+                                               "flash_attention_causal_bwd_dkv_sliced",
+                                               "flash_attention_causal_bwd_dq_sliced")
     assert not any(counts.get(n) for n in others if n not in names), f"5l launches {counts}"
     combines = cfg.num_layers * dkv_combines(dev, 1, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     assert counts.get("flash_attention_causal_bwd_dkv_combine", 0) == combines, f"5l launches {counts}"
@@ -5929,6 +5981,7 @@ def main() -> int:
     # -- 4d. QLoRA training at full width, on 4b's double-quantized model --
     rank, alpha, tb, tt, tsteps, chunk = 64, 16.0, 4, 512, 5, 512
     assert tb * tt >= G.LARGE_M_THRESHOLD and tb * tt >= G.BACKWARD_LARGE_M_THRESHOLD
+    base_live = live_bytes()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base_alloc = torch.cuda.memory_allocated()
@@ -5972,7 +6025,7 @@ def main() -> int:
     # what 4j's paged runs must give bit for bit: the adapters and states after the five steps
     ref_4d = {"losses": list(losses), "step_ms": {"median_2_5": statistics.median(train_ms[1:]), "all": train_ms},
               "between": torch.cuda.memory_allocated() - base_alloc, "reserved": torch.cuda.memory_reserved(),
-              "peak": train_peak - base_alloc}
+              "live": live_bytes() - base_live, "peak": train_peak - base_alloc}
     ref_4d.update(adapters=[t.detach().clone() for t in lparams],
                   states=[t.clone() for t in state_tensors(opt, lparams)])
 
@@ -6884,13 +6937,12 @@ def main() -> int:
         for name, n in flash_cpu_check(dev, dt).items():
             if name in FLASH_TRAIN + FLASH_TRAIN_WIDE:
                 report[name + suffix]["launches_5l"] = n
-    # and in bf16 at head_dim 512: the forward's and dK/dV's sliced instances
-    # (their kernels-line launches), dQ on the wide family
+    # and in bf16 at head_dim 512: the sliced instances of the three kernels
+    # (their kernels-line launches)
     for name, n in flash_cpu_check(dev, torch.bfloat16, hd=512).items():
-        if name in ("flash_attention_causal_fwd_sliced", "flash_attention_causal_bwd_dkv_sliced"):
+        if name in ("flash_attention_causal_fwd_sliced", "flash_attention_causal_bwd_dkv_sliced",
+                    "flash_attention_causal_bwd_dq_sliced"):
             report[name]["launches"] = n
-        elif name in FLASH_TRAIN_WIDE:
-            report[name]["launches_5l_hd512"] = n
     # kernel 18's combine runs where its plan splits key tiles: 5l's T 1024, not 4r's T 2048
     combine = "flash_attention_causal_bwd_dkv_combine"
     report[combine]["launches"] = counts_5l.get(combine)

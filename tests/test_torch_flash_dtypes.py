@@ -26,8 +26,8 @@ head_dim 512, through the flash route against the JAX package's
 ``lm_loss``; the CUDA wrappers' checks against the JAX package's route
 conditions for every type and head_dim; and the kernel each wrapper
 launches on the card, by type and head_dim (each kernel picks its family on
-its own: the forward runs on ``wgmma`` up to head_dim 512, dK/dV and dQ up
-to 256).
+its own: all three run on ``wgmma`` up to head_dim 512 in bf16 and f16),
+and the C entry each of those launch counts names.
 """
 
 import dataclasses
@@ -53,8 +53,7 @@ torch.set_num_threads(1)
 
 KVH = 2
 # (dtype, T, hd, G): f16 and f32 at head_dim 128 and 256, bf16 and f16 at
-# 384 and 512 (the forward's column-sliced wgmma instances on the card,
-# dK/dV and dQ the wide family's)
+# 384 and 512 (the sliced wgmma instances of all three kernels on the card)
 CASES = [("float16", 256, 128, 2), ("float16", 256, 256, 1), ("float32", 256, 128, 2), ("float32", 384, 256, 1),
          ("bfloat16", 256, 384, 2), ("float16", 256, 512, 1), ("float16", 256, 384, 1), ("bfloat16", 256, 512, 2)]
 # (output abs, gradient relative to its largest magnitude)
@@ -161,8 +160,8 @@ def test_bf16_hd512_train_step_loss_matches_jax(flash_route):
     adapters on all seven targets, ``b`` non-zero) at T 256 through the
     flash route: its loss against the JAX package's ``lm_loss`` through its
     Pallas flash kernels, rel 1e-3, as the f16 step above.  On the card this
-    step runs the forward's column-sliced wgmma instance and the wide
-    family's dK/dV and dQ (``chip_smoke.py`` 5l)."""
+    step runs the sliced wgmma instances of the forward, dK/dV and dQ
+    (``chip_smoke.py`` 5l)."""
     jcfg, tcfg = (dataclasses.replace(C.tiny(), hidden_size=1024, intermediate_size=1024, num_heads=2,
                                       num_kv_heads=1, head_dim=512) for C in (JL.LlamaConfig, TL.LlamaConfig))
     assert jcfg.dtype == jnp.bfloat16 and tcfg.dtype == torch.bfloat16
@@ -186,7 +185,7 @@ def test_bf16_hd512_train_step_loss_matches_jax(flash_route):
 
 # the head_dims each kernel takes on wgmma in bf16 and f16 (the wide family
 # takes the rest, and every head_dim in f32)
-WGMMA = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256)}
+WGMMA = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256, 384, 512)}
 
 
 @pytest.mark.parametrize("dtype", list(TORCH_TYPES))
@@ -195,9 +194,8 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
     kernels also take shorter T), the CUDA wrappers' checks accept exactly
     the cases the JAX package's ``_flash_ok`` conditions send to its flash
     kernel, its backend check aside; each kernel of an accepted case has one
-    family: the forward and dK/dV run on wgmma for bf16 and f16 at head_dim
-    128, 256, 384 and 512, dQ at 128 and 256, and the wide family takes the
-    rest.  Each kernel counts its launches under a name of the library's
+    family: all three run on wgmma for bf16 and f16 at head_dim 128, 256,
+    384 and 512, and the wide family takes the rest.  Each kernel counts its launches under a name of the library's
     counts that shows which ran: ``_sliced`` for the wgmma instances at 384
     and 512, ``_wide`` for the wide family."""
     tt = TORCH_TYPES[dtype]
@@ -221,3 +219,20 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
                     assert name in _lib.LAUNCHES, name
                     assert name.endswith("_wide") == (not wgmma), (kernel, dtype, hd, name)
                     assert name.endswith("_sliced") == (wgmma and hd > 256), (kernel, dtype, hd, name)
+
+
+@pytest.mark.parametrize("hd", [128, 256, 384, 512, 640])
+@pytest.mark.parametrize("dtype", list(TORCH_TYPES))
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
+def test_launch_names_map_to_c_entries(kernel, dtype, hd):
+    """Each launch count a wrapper adds to (``launch_name``) names, through
+    ``c_entry``, a C entry the library binds: a ``_sliced`` instance runs
+    through its kernel's plain entry, a ``_wide`` one through the wide
+    family's.  A name that maps to no entry would fail only on the card, at
+    the first launch of that type and head_dim."""
+    tt = TORCH_TYPES[dtype]
+    name = FA.launch_name(kernel, tt, hd)
+    entry = FA.c_entry(name)
+    assert entry in _lib._SIGNATURES, (name, entry)
+    wgmma = FA.uses_wgmma(kernel, tt, hd)
+    assert entry == "bnb_" + FA._BASE_NAMES[kernel] + ("" if wgmma else "_wide"), (name, entry)
