@@ -1,8 +1,9 @@
 // Causal flash attention of the training path (no cache): the forward, the
-// dK/dV and the dQ kernel, T a multiple of 128, in two families: the wgmma
-// kernels take bf16 and f16 at head_dim 128, 256, 384 and 512; the wide
-// family (at the end of the file) takes f32 at any head_dim that is a
-// multiple of 128, and bf16 and f16 where the wgmma kernels stop, from
+// dK/dV and the dQ kernel, T a multiple of 128, in three families: the wgmma
+// kernels take bf16 and f16 at head_dim 128, 256, 384 and 512; a three-pass
+// TF32 wgmma instance of dK/dV takes f32 at head_dim 128 and 256; the wide
+// family (at the end of the file) takes the rest of f32 at any head_dim that
+// is a multiple of 128, and bf16 and f16 where the wgmma kernels stop, from
 // head_dim 640.
 //
 // Replaces the three TPU kernels the JAX package reaches through
@@ -85,6 +86,11 @@
 //   from registers and K read as a transposed B from the same stage.  dQ
 //   stays in f32 registers over the walk, summed in key order (no atomics,
 //   no split of a row's keys), and is stored once.
+// * dK/dV in f32 at hd 128 and 256 (Tf32DkvCfg says why): the same plan,
+//   every product as three TF32 passes (big * big + big * small + small *
+//   big) on wgmma; S^T and dP^T by two consumer warpgroups, then dV^T = dO^T
+//   P and dK^T = Q^T dS with P and dS through shared memory, since TF32 takes
+//   no transposed operand.
 // * Causal work only: tiles above the diagonal are never loaded (a dQ
 //   consumer stops at its own diagonal tile).  Blocks with the most tiles
 //   launch first.
@@ -97,7 +103,7 @@
 namespace {
 
 // E: the element type of q, k, v, do and the outputs (bf16 or f16 on the
-// wgmma kernels; f32, bf16 or f16 on the wide family)
+// wgmma kernels; f32 on the TF32 dK/dV; f32, bf16 or f16 on the wide family)
 template <class E>
 struct Params {
     const E* q;
@@ -1159,15 +1165,416 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// The wide family: the same three functions where the wgmma kernels stop, f32
-// at any head_dim, and bf16/f16 from head_dim 640 (CUDA cores, f32 FMA)
+// dK/dV in f32 at head_dim 128 and 256: three-pass TF32 wgmma, TMA, two
+// consumer warpgroups and a producer warp, the same work plan and combine
 // ---------------------------------------------------------------------------
 
-// Why CUDA cores.  f32 must be full f32 (the JAX package's "highest"
-// precision): one TF32 pass keeps about three digits, and TF32 wgmma takes
-// both operands K-major while V in P V is MN-major.  And a warpgroup's f32 O
-// or dQ of 64 rows takes hd / 2 registers a thread, which with S and dP passes
-// the 255-register limit above hd 256.  The 16-bit forward and dQ cut O and dQ
+// f32 must keep the JAX package's "highest" precision (FLASH_TOLERANCES'
+// 1e-4 of a gradient's largest magnitude), and one TF32 pass keeps about
+// three digits.  So every product runs as three TF32 passes, big * big +
+// big * small + small * big with f32 accumulation, x = big + small split by
+// tf32_split (big and small each rounded to TF32: about 2^-21 of the
+// product): 3 x 2 T^2 hd H flops over the causal half at 495 TFLOP/s, 0.417
+// ms at B 1, T 2048, H 32 over 8, hd 128 on an H100, against 1.03 ms for
+// the same flops at the 67 TFLOP/s of f32 FMA.
+//
+// TF32 wgmma reads both operands K-major, and a 16-bit dV += P^T dO reads dO
+// as a transposed B, which TF32 does not take.  So the products are S^T = K
+// Q^T and dP^T = V dO^T (M the item's 64 keys, N 64 query rows, K hd: Q and
+// dO K-major as TMA lands them), then dV^T = dO^T P and dK^T = Q^T dS (M
+// hd, N keys, K the query rows): P and dS go to shared memory as [key][row]
+// tiles, K-major for that product, and dO^T and Q^T are A fragments loaded
+// from the raw tiles into registers and split there.  K and V, the A of S^T
+// and dP^T, stay raw too and are split as they are loaded; only B operands
+// need their small half in shared memory.
+//
+// Registers and shared memory set the shape.  dK^T and dV^T over 128 columns
+// take 128 registers a thread of one warpgroup, S^T and dP^T 64 more, and a
+// split A fragment 8 a k step: past 255.  So a block is two consumer
+// warpgroups and a producer warp (288 threads, which ptxas on CUDA 12.9
+// gives 168 registers, as three warpgroups): group 0 runs S^T, turns it into
+// P and runs dV^T, group 1 runs dP^T, turns it into dS (with p read back
+// from the P tile) and runs dK^T, so group 0 goes on to the next S^T while
+// group 1 runs dK^T.  A group holds its 128 columns of dV^T or dK^T (64
+// registers), S^T or dP^T (32; then the dV^T or dK^T product's wgmma
+// accumulator) and two sets of a k step's split A (16).  Shared memory holds K and V raw
+// (64 / 128 KB at hd 128 / 256), one [key][row] tile pair of P or dS, big
+// and small (32 KB; dS overwrites P once group 0's dV product is done), and
+// a ring of 32 KB stages: an iteration passes hd / 32 stages of a 32-column
+// chunk of Q and of dO (each group splits its own tile in place, big, and
+// beside it, small: the B of S^T or dP^T), then one of dO's and one of Q's
+// item columns, raw (the A of the dV and dK products).  Four stages at hd
+// 128, two at 256; m, l and di ride two 768-byte slots of their own.
+template <int HD>
+struct Tf32DkvCfg {
+    static constexpr int kKeys = 64;    // keys of an item: M of S^T and dP^T, N of dV^T and dK^T
+    static constexpr int kRows = 64;    // query rows of an iteration
+    static constexpr int kCols = 128;   // columns of dK and dV an item owns (64 a consumer group)
+    static constexpr int kThreads = 288;
+    static constexpr int kChunks = HD / 32;     // 32-column f32 chunks of a row: 128-byte swizzled tiles
+    static constexpr int kUses = kChunks + 2;   // ring stages an iteration: the chunks, then dO's and Q's item columns
+    static constexpr int kStages = HD == 128 ? 4 : 2;
+    static constexpr uint32_t kTile = 64 * 128;        // a 64-row tile of one chunk (8 KB)
+    static constexpr uint32_t kKvBytes = kKeys * HD * 4;
+    static constexpr uint32_t kStageBytes = 4 * kTile;  // [Q big | Q small | dO big | dO small], or 4 raw tiles
+    static constexpr uint32_t kVals = 3 * kRows * 4;    // an iteration's m, l and di
+    // shared memory from a 1024-byte aligned base: K, V, the P / dS tiles
+    // ([big | small][row tile][64 keys][32 rows]), the ring, two slots of m,
+    // l and di, the barriers (K and V's, each stage's full and empty, each
+    // slot's full and empty)
+    static constexpr uint32_t kP0 = 2 * kKvBytes;
+    static constexpr uint32_t kRing0 = kP0 + 4 * kTile;
+    static constexpr uint32_t kVals0 = kRing0 + kStages * kStageBytes;
+    static constexpr uint32_t kBars = kVals0 + 2 * kVals;
+    static constexpr uint32_t kBytes = kBars + (1 + 2 * kStages + 2 * 2) * 8 + 1024;  // + alignment
+    // the epilogue stages [dK | dV][64 keys][kCols + 8] f32 (69,632 bytes)
+    // from the base, over K, V and P, free by then
+    static_assert((HD == 128 || HD == 256) && kVals % 16 == 0, "no TF32 dK/dV at this hd");
+    static_assert(kBytes <= 232448 && 2 * kKeys * (kCols + 8) * 4 <= kRing0, "shared memory");
+};
+
+// The byte offset of f32 element (row, col) of a 128-byte-swizzled tile of
+// 32-column rows (row r's 16-byte chunks XOR-ed with r % 8).
+__device__ __forceinline__ uint32_t sw128_f32(int row, int col) {
+    return row * 128 + ((((col >> 2) ^ (row & 7)) << 4) | ((col & 3) << 2));
+}
+
+// Thread t of a group splits a 64 x 32 f32 tile at `tile` in place (big)
+// and writes the small halves one tile further (the same swizzle).
+__device__ __forceinline__ void split_tile(unsigned char* tile, int t) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        float4* b = reinterpret_cast<float4*>(tile) + t + 128 * j;
+        const float4 x = *b;
+        uint4 hi, lo;
+        tf32_split(x.x, hi.x, lo.x);
+        tf32_split(x.y, hi.y, lo.y);
+        tf32_split(x.z, hi.z, lo.z);
+        tf32_split(x.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(b) = hi;
+        *reinterpret_cast<uint4*>(tile + 64 * 128 + (t + 128 * j) * 16) = lo;
+    }
+}
+
+// Four f32 values of a raw tile at `tile` (offsets o0..o3) as the big and
+// small TF32 halves of an A fragment: a[0..3] big, a[4..7] small.
+__device__ __forceinline__ void load_split4(uint32_t* a, const unsigned char* tile, uint32_t o0, uint32_t o1,
+                                            uint32_t o2, uint32_t o3) {
+    const uint32_t o[4] = {o0, o1, o2, o3};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tf32_split(*reinterpret_cast<const float*>(tile + o[i]), a[i], a[4 + i]);
+}
+
+// The three passes of one k step into d: big * big (overwriting d where
+// first), big * small, small * big; `a` as load_split4's, db_big and
+// db_small the B tile's halves.
+__device__ __forceinline__ void tf32x3(float (&d)[32], const uint32_t* a, uint64_t db_big, uint64_t db_small,
+                                       int scale_d) {
+    wgmma_rs_tf32_n64(d, a[0], a[1], a[2], a[3], db_big, scale_d);
+    wgmma_rs_tf32_n64(d, a[0], a[1], a[2], a[3], db_small, 1);
+    wgmma_rs_tf32_n64(d, a[4], a[5], a[6], a[7], db_big, 1);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Tf32DkvCfg<HD>::kThreads, 1)
+    flash_tf32_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                          const DkvItem* __restrict__ items, float* __restrict__ part_k, float* __restrict__ part_v,
+                          const Params<float> p) {
+    using C = Tf32DkvCfg<HD>;
+    constexpr float kLog2e = 1.44269504088896341f;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+    unsigned char* sK = smem;
+    unsigned char* sV = smem + C::kKvBytes;
+    unsigned char* sP = smem + C::kP0;
+    auto stage = [&](int st) { return smem + C::kRing0 + st * C::kStageBytes; };
+    auto vals_of = [&](int n) { return reinterpret_cast<float*>(smem + C::kVals0 + (n & 1) * C::kVals); };
+    uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + C::kBars);
+    uint64_t* full = full_kv + 1;
+    uint64_t* empty = full + C::kStages;
+    uint64_t* full_v = empty + C::kStages;
+    uint64_t* empty_v = full_v + 2;
+
+    const DkvItem it = items[blockIdx.x];  // the plan lists the longest items first
+    const int G = p.H / p.KVH;
+    const int nq = p.T / C::kRows - it.kj;  // the key tile's query tiles, from the diagonal down
+    const int k0 = it.kj * C::kKeys;
+    const int niter = it.i1 - it.i0;
+    const int c0 = it.half * (C::kCols / 32);  // the item's first 32-column chunk
+
+    if (threadIdx.x == 0) {
+        mbar_init(full_kv, 1);
+        for (int st = 0; st < C::kStages; ++st) {
+            mbar_init(full + st, 1);
+            mbar_init(empty + st, 8);  // each consumer warp once
+        }
+        for (int s = 0; s < 2; ++s) {
+            mbar_init(full_v + s, 1);
+            mbar_init(empty_v + s, 8);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 256) {
+        // the producer warp: one thread loads K and V once, then each
+        // iteration's m, l, di, its chunks of Q and dO, and the item's
+        // columns of dO and of Q
+        if (threadIdx.x == 256) {
+            tma_prefetch_map(&tq);
+            tma_prefetch_map(&tk);
+            tma_prefetch_map(&tv);
+            tma_prefetch_map(&tdo);
+            mbar_expect_tx(full_kv, 2 * C::kKvBytes);
+            for (int c = 0; c < C::kChunks; ++c) {
+                tma_load_4d(sK + c * C::kTile, &tk, full_kv, c * 32, it.kvh, k0, it.b);
+                tma_load_4d(sV + c * C::kTile, &tv, full_kv, c * 32, it.kvh, k0, it.b);
+            }
+            int a = 0;
+            for (int n = 0; n < niter; ++n) {
+                const int i = it.i0 + n;
+                const int h = it.kvh * G + i / nq;
+                const int t0 = (it.kj + i % nq) * C::kRows;
+                if (n >= 2) mbar_wait(empty_v + (n & 1), ((n >> 1) - 1) & 1);
+                mbar_expect_tx(full_v + (n & 1), C::kVals);
+                const size_t row = ((size_t)it.b * p.H + h) * p.T + t0;
+                float* vals = vals_of(n);
+                bulk_load(vals, p.m + row, C::kRows * 4, full_v + (n & 1));
+                bulk_load(vals + C::kRows, p.l + row, C::kRows * 4, full_v + (n & 1));
+                bulk_load(vals + 2 * C::kRows, p.di + row, C::kRows * 4, full_v + (n & 1));
+                for (int u = 0; u < C::kUses; ++u, ++a) {
+                    const int st = a % C::kStages;
+                    if (a >= C::kStages) mbar_wait(empty + st, ((a / C::kStages) - 1) & 1);
+                    unsigned char* s = stage(st);
+                    if (u < C::kChunks) {  // chunk u of Q and of dO, each into its big tile
+                        mbar_expect_tx(full + st, 2 * C::kTile);
+                        tma_load_4d(s, &tq, full + st, u * 32, h, t0, it.b);
+                        tma_load_4d(s + 2 * C::kTile, &tdo, full + st, u * 32, h, t0, it.b);
+                    } else {  // the item's four chunks of dO, then of Q
+                        const CUtensorMap* map = u == C::kChunks ? &tdo : &tq;
+                        mbar_expect_tx(full + st, 4 * C::kTile);
+                        for (int j = 0; j < 4; ++j) tma_load_4d(s + j * C::kTile, map, full + st, (c0 + j) * 32, h, t0, it.b);
+                    }
+                }
+            }
+        }
+        return;
+    }
+
+    // the consumer groups: r 0 runs S^T = K Q^T, P, and dV^T += dO^T P; r 1
+    // dP^T = V dO^T, dS, and dK^T += Q^T dS, with the same code on their own
+    // tiles.  Group 0 goes on to the next S^T while group 1 runs dK^T.
+    const int r = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int gq = lane / 4, t4 = lane % 4;
+    const int kr[2] = {16 * warp + gq, 16 * warp + gq + 8};  // the thread's accumulator rows of S^T / dP^T: keys
+    const float sl2 = p.scale * kLog2e;  // exp(scale x - m) = 2^(sl2 x - m log2(e))
+    const unsigned char* sA = r ? sV : sK;  // this group's A of S^T or dP^T
+    // dV^T (group 0) or dK^T (group 1), two 64-column m tiles, summed in f32
+    // round-to-nearest: each iteration's product goes to a wgmma accumulator
+    // first (acc, free once S^T or dP^T became P or dS), since the tensor
+    // cores' f32 sums truncate and one chain over every iteration of an item
+    // drifted 7e-5 of the largest gradient at T 2048 on an H100
+    float dacc[2][32], acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dacc[0][i] = dacc[1][i] = acc[i] = 0.0f;
+    uint32_t fa[2][8];  // split A of a k step (big 0..3, small 4..7), two sets in flight
+    auto release = [&](int a, int count) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive_cnt(empty + a % C::kStages, count);  // this warp is done with the stage
+    };
+    // P (or dS) as big and small [key][row] tiles: the thread's values of
+    // accumulator step j, rows kr[i]
+    auto p_off = [&](int j, int i) { return (j >> 2) * C::kTile + sw128_f32(kr[i], 8 * (j & 3) + 2 * t4); };
+    auto store_split = [&](const float (&x)[32]) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                uint2 hi, lo;
+                tf32_split(x[4 * j + 2 * i], hi.x, lo.x);
+                tf32_split(x[4 * j + 2 * i + 1], hi.y, lo.y);
+                *reinterpret_cast<uint2*>(sP + p_off(j, i)) = hi;
+                *reinterpret_cast<uint2*>(sP + 2 * C::kTile + p_off(j, i)) = lo;
+            }
+    };
+
+    mbar_wait(full_kv, 0);
+    int a = 0;
+    for (int n = 0; n < niter; ++n) {
+        const bool diag = (it.i0 + n) % nq == 0;  // this query tile is the key tile's diagonal one
+        // S^T (or dP^T) over the chunks, a commit group a k step; a chunk's
+        // stage goes back once the group after its last has been issued and
+        // its own have landed
+        // (rolled: unrolled, the hoisted addresses of hd 256's eight chunks
+        // spilled at ptxas's 168 registers)
+#pragma unroll 1
+        for (int c = 0; c < C::kChunks; ++c) {
+            const int st = (a + c) % C::kStages;
+            mbar_wait(full + st, ((a + c) / C::kStages) & 1);
+            unsigned char* tb = stage(st) + r * 2 * C::kTile;  // Q's tile, or dO's
+            split_tile(tb, t);
+            fence_proxy_async();
+            named_barrier_sync(1 + r, 128);
+            const unsigned char* ta = sA + c * C::kTile;
+            const uint32_t ba = opaque(smem_addr(tb));
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {  // A set kk % 2
+                load_split4(fa[kk & 1], ta, sw128_f32(kr[0], 8 * kk + t4), sw128_f32(kr[1], 8 * kk + t4),
+                            sw128_f32(kr[0], 8 * kk + t4 + 4), sw128_f32(kr[1], 8 * kk + t4 + 4));
+                wgmma_fence();
+                tf32x3(acc, fa[kk & 1], gmma_desc_sw128(ba + kk * 32, 16, 1024),
+                       gmma_desc_sw128(ba + C::kTile + kk * 32, 16, 1024), c > 0 || kk > 0);
+                wgmma_commit();
+                wgmma_wait<1>();  // the group before this one has landed (none before the first)
+                fence_regs(fa[(kk & 1) ^ 1]);
+                if (kk == 0 && c > 0) release(a + c - 1, 1);  // chunk c - 1's last group
+            }
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(fa[1]);
+        release(a + C::kChunks - 1, 1);
+
+        float* vals = vals_of(n);
+        mbar_wait(full_v + (n & 1), (n >> 1) & 1);
+        if (r == 0) {
+            // m log2(e) and 1 / l of the iteration's rows, in place, once a row
+            const float x = vals[t];
+            vals[t] = t < C::kRows ? x * kLog2e : rcp(x);
+            named_barrier_sync(1, 128);
+            // p = 2^(sl2 s - m log2(e)) * (1 / l): one FMA, ex2 and a product;
+            // 0 where the key follows the row (the diagonal tile only)
+            const float2* m2 = reinterpret_cast<const float2*>(vals);
+            const float2* li = reinterpret_cast<const float2*>(vals + C::kRows);
+            const int past = diag ? 0 : C::kKeys;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const float2 mm = m2[4 * j + t4], ll = li[4 * j + t4];  // rows 8 j + 2 t4 and 8 j + 2 t4 + 1
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float pr = ex2(fmaf(acc[4 * j + e], sl2, -((e & 1) ? mm.y : mm.x))) * ((e & 1) ? ll.y : ll.x);
+                    acc[4 * j + e] = kr[e >> 1] > 8 * j + 2 * t4 + (e & 1) + past ? 0.0f : pr;
+                }
+            }
+            if (n > 0) named_barrier_sync(7, 256);  // group 1's last dK^T product is done with dS
+            store_split(acc);
+            fence_proxy_async();
+            named_barrier_sync(1, 128);  // all of P is in place for this group's wgmma
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty_v + (n & 1));
+            named_barrier_arrive(3, 256);  // and for group 1
+        } else {
+            // ds = (dp - di) p scale, p as P's big + small (within 2^-21 of it)
+            named_barrier_sync(3, 256);
+            const float2* dd = reinterpret_cast<const float2*>(vals + 2 * C::kRows);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const float2 d = dd[4 * j + t4];
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const float2 hi = *reinterpret_cast<const float2*>(sP + p_off(j, i));
+                    const float2 lo = *reinterpret_cast<const float2*>(sP + 2 * C::kTile + p_off(j, i));
+                    acc[4 * j + 2 * i] = (acc[4 * j + 2 * i] - d.x) * (hi.x + lo.x) * p.scale;
+                    acc[4 * j + 2 * i + 1] = (acc[4 * j + 2 * i + 1] - d.y) * (hi.y + lo.y) * p.scale;
+                }
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty_v + (n & 1));
+            named_barrier_sync(4, 256);  // group 0's dV^T product is done with P
+            store_split(acc);
+            fence_proxy_async();
+            named_barrier_sync(2, 128);  // all of dS is in place for this group's wgmma
+        }
+
+        // dV^T += dO^T P (group 0, the stage of dO's item columns) or dK^T +=
+        // Q^T dS (group 1, Q's): A split from the stage's raw tiles as it is
+        // loaded, a commit group a k step, each m tile into acc first
+        const int u = a + C::kChunks + r;
+        mbar_wait(full + u % C::kStages, (u / C::kStages) & 1);
+        const uint32_t pa = opaque(smem_addr(sP));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+            // rows 64 mt + 16 warp + gq (+ 8) of the product: tile 2 mt + warp / 2
+            const unsigned char* raw = stage(u % C::kStages) + (2 * mt + warp / 2) * C::kTile;
+            const int mcol = 16 * (warp & 1) + gq;
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {  // A set kk % 2
+                load_split4(fa[kk & 1], raw, sw128_f32(8 * kk + t4, mcol), sw128_f32(8 * kk + t4, mcol + 8),
+                            sw128_f32(8 * kk + t4 + 4, mcol), sw128_f32(8 * kk + t4 + 4, mcol + 8));
+                wgmma_fence();
+                const uint32_t b = pa + (kk >> 2) * C::kTile + (kk & 3) * 32;
+                tf32x3(acc, fa[kk & 1], gmma_desc_sw128(b, 16, 1024), gmma_desc_sw128(b + 2 * C::kTile, 16, 1024),
+                       kk > 0);
+                wgmma_commit();
+                if (kk > 0) {
+                    wgmma_wait<1>();
+                    fence_regs(fa[(kk & 1) ^ 1]);
+                }
+            }
+            wgmma_wait<0>();
+            fence_regs(acc);
+            fence_regs(fa[1]);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) dacc[mt][i] += acc[i];
+        }
+        release(u, 2);  // the stage is this group's alone: each of its warps counts twice
+        if (r == 0)
+            named_barrier_arrive(4, 256);  // P may take dS
+        else if (n + 1 < niter)
+            named_barrier_arrive(7, 256);  // the tile may take the next P
+        a += C::kUses;
+    }
+
+    // the epilogue through shared memory (K, V and P are free now), so that
+    // the stores are whole rows of 16 bytes a thread: f32 into dk and dv, or
+    // into the item's partial slot
+    constexpr int kOut = C::kCols + 8;  // f32 a staged row, padded against bank conflicts
+    float* out = reinterpret_cast<float*>(smem);  // [dK | dV][64 keys][kOut]
+    named_barrier_sync(6, 256);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int key = 8 * j + 2 * t4 + (e & 1), col = 64 * mt + 16 * warp + gq + 8 * (e >> 1);
+                out[((1 - r) * C::kKeys + key) * kOut + col] = dacc[mt][4 * j + e];  // group 0 holds dV
+            }
+    named_barrier_sync(6, 256);
+    const int tid = threadIdx.x;
+    if (it.slot < 0) {
+        for (int u = tid; u < 2 * C::kKeys * C::kCols / 4; u += 256) {
+            const int w = u / (C::kKeys * C::kCols / 4);  // 0: dK, 1: dV
+            const int rr = (u / (C::kCols / 4)) % C::kKeys, c = (u % (C::kCols / 4)) * 4;
+            float* dst = (w ? p.dv : p.dk) + (((size_t)it.b * p.T + k0 + rr) * p.KVH + it.kvh) * HD + it.half * C::kCols + c;
+            *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(out + (w * C::kKeys + rr) * kOut + c);
+        }
+    } else {  // a piece of a split key tile: f32 partials, added by the combine
+        for (int u = tid; u < 2 * C::kKeys * C::kCols / 4; u += 256) {
+            const int w = u / (C::kKeys * C::kCols / 4);
+            const int rr = (u / (C::kCols / 4)) % C::kKeys, c = (u % (C::kCols / 4)) * 4;
+            float* dst = (w ? part_v : part_k) + ((size_t)it.slot * C::kKeys + rr) * C::kCols + c;
+            *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(out + (w * C::kKeys + rr) * kOut + c);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The wide family: the same three functions where the other kernels stop, f32
+// at any head_dim (dK/dV from head_dim 384), and bf16/f16 from head_dim 640
+// (CUDA cores, f32 FMA)
+// ---------------------------------------------------------------------------
+
+// Why CUDA cores.  f32 must keep full f32 precision (the JAX package's
+// "highest"): one TF32 pass keeps about three digits, so the tensor cores
+// take f32 only as three TF32 passes, with both operands K-major, which the
+// dK/dV kernel above does at hd 128 and 256; the f32 forward and dQ, and f32
+// dK/dV from hd 384 (K and V alone take 192 KB there), stay here.  And a
+// warpgroup's f32 O or dQ of 64 rows takes hd / 2 registers a thread, which
+// with S and dP passes the 255-register limit above hd 256.  The 16-bit forward and dQ cut O and dQ
 // in two column slices on wgmma up to hd 512 (FwdCfg, DqCfg), and dK/dV holds
 // 128-column slices and streams the rest of hd in chunks up to hd 512
 // (DkvCfg); from hd 640 a half slice of O or dQ passes wgmma's widest N, 256,
@@ -1599,19 +2006,21 @@ Params<E> make_params(const void* q, const void* k, const void* v, const void* d
 template <class E> constexpr CUtensorMapDataType tma_type();
 template <> constexpr CUtensorMapDataType tma_type<__nv_bfloat16>() { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
 template <> constexpr CUtensorMapDataType tma_type<__half>() { return CU_TENSOR_MAP_DATA_TYPE_FLOAT16; }
+template <> constexpr CUtensorMapDataType tma_type<float>() { return CU_TENSOR_MAP_DATA_TYPE_FLOAT32; }
 
 // A tensor map over a [B, T, heads, hd] tensor of E read in place through its
-// batch and token strides: boxes of 64 columns by `rows` tokens of one head,
-// 128-byte swizzled.
+// batch and token strides: boxes of 128 bytes of columns (64 16-bit values,
+// 32 f32) by `rows` tokens of one head, 128-byte swizzled.
 template <class E>
 int encode_rows(CUtensorMap* map, const E* base, int hd, int B, int T, int heads, long long sb, long long st,
                 int rows) {
+    constexpr uint64_t es = sizeof(E);
     // with one batch its stride is never used: any valid one will do
-    const uint64_t sbb = B == 1 ? (uint64_t)T * st * 2 : (uint64_t)sb * 2;
+    const uint64_t sbb = B == 1 ? (uint64_t)T * st * es : (uint64_t)sb * es;
     const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)heads, (uint64_t)T, (uint64_t)B};
-    const uint64_t strides[3] = {(uint64_t)hd * 2, (uint64_t)st * 2, sbb};
-    const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
-    return encode_16bit_sw128(map, tma_type<E>(), base, 4, dims, strides, box);
+    const uint64_t strides[3] = {(uint64_t)hd * es, (uint64_t)st * es, sbb};
+    const uint32_t box[4] = {128 / (uint32_t)es, 1, (uint32_t)rows, 1};
+    return encode_sw128(map, tma_type<E>(), base, 4, dims, strides, box);
 }
 
 // The three tensor maps of the forward (boxes of the block's query rows or a
@@ -1659,6 +2068,22 @@ int launch_dkv(const Params<E>& p, int B, const DkvItem* items, int n_items, flo
     return (int)cudaGetLastError();
 }
 
+// The TF32 dK/dV kernel's launch (f32), one block an item of the plan:
+// boxes of 64 rows of 32 f32 columns.
+template <int HD>
+int launch_tf32_dkv(const Params<float>& p, int B, const DkvItem* items, int n_items, float* part_k, float* part_v,
+                    cudaStream_t stream) {
+    using C = Tf32DkvCfg<HD>;
+    CUtensorMap tq, tk, tv, tdo;
+    const int e = encode_bwd(tq, tk, tv, tdo, p, HD, B, C::kRows, C::kKeys);
+    if (e != 0) return e;
+    const cudaError_t a = cudaFuncSetAttribute(flash_tf32_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)C::kBytes);
+    if (a != cudaSuccess) return (int)a;
+    flash_tf32_dkv_kernel<HD><<<n_items, C::kThreads, C::kBytes, stream>>>(tq, tk, tv, tdo, items, part_k, part_v, p);
+    return (int)cudaGetLastError();
+}
+
 // The dQ kernel's launch: a block the kRows query rows of one head, the
 // longest rows first.
 template <int HD, class E>
@@ -1688,9 +2113,9 @@ int launch_wide(K kernel, dim3 grid, int bytes, cudaStream_t stream, Args... arg
 
 // Every entry takes `kind` (common.cuh's Kind: f32, bf16 or f16), the type of
 // q, k, v, do and the outputs.  The plain entries run the wgmma kernels (bf16
-// or f16 at hd 128, 256, 384 and 512), the _wide ones the wide family (any of
-// the three types, hd a multiple of 128); each refuses what its kernels do not
-// take.  T is a multiple of 128 and outputs are packed.  An entry returns a
+// or f16 at hd 128, 256, 384 and 512), the _tf32 one the TF32 dK/dV (f32 at
+// hd 128 and 256), the _wide ones the wide family (any of the three types, hd
+// a multiple of 128); each refuses what its kernels do not take.  T is a multiple of 128 and outputs are packed.  An entry returns a
 // CUDA error, or kTmaError + the CUresult of cuTensorMapEncodeTiled when a
 // tensor map cannot be encoded (nothing is launched then).
 
@@ -1781,6 +2206,25 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dkv_wide(const void* q, const void
         return launch_wide(flash_wide_dkv_kernel<E>, dim3(n_items), WideCfg::kDkvBytes, stream, p, hd,
                            static_cast<const DkvItem*>(items), part_k, part_v);
     });
+}
+
+// The three-pass TF32 instance: f32 (kind kF32) at hd 128 and 256 alone.
+BNB_EXPORT int bnb_flash_attention_causal_bwd_dkv_tf32(const void* q, const void* k, const void* v, const void* dout,
+                                                       const float* m, const float* l, const float* di, void* dk,
+                                                       void* dv, float* part_k, float* part_v, const void* items,
+                                                       int n_items, int B, int T, int H, int KVH, int hd,
+                                                       long long sqb, long long sqt, long long skb, long long skt,
+                                                       long long svb, long long svt, long long sdb, long long sdt,
+                                                       float scale, int kind, cudaStream_t stream) {
+    if (!shapes_ok(B, T, H, KVH, hd) || kind != kF32 || (hd != 128 && hd != 256) || n_items <= 0 || items == nullptr)
+        return (int)cudaErrorInvalidValue;
+    Params<float> p = make_params<float>(q, k, v, dout, m, l, di, T, H, KVH, sqb, sqt, skb, skt, svb, svt, sdb, sdt,
+                                         scale);
+    p.dk = static_cast<float*>(dk);
+    p.dv = static_cast<float*>(dv);
+    const DkvItem* it = static_cast<const DkvItem*>(items);
+    return hd == 128 ? launch_tf32_dkv<128>(p, B, it, n_items, part_k, part_v, stream)
+                     : launch_tf32_dkv<256>(p, B, it, n_items, part_k, part_v, stream);
 }
 
 // The split key tiles of a dK/dV plan: `table` [n_units][8] int32 (batch, KV

@@ -8,7 +8,8 @@
 // 128 bytes, the 16-byte chunks of row r XOR-ed with r % 8, so 8 rows make a
 // 1024-byte atom.  Every tile starts on a 1024-byte boundary.  A wider row
 // (head_dim 128 up to 512) is loaded as 64-column chunks, one tile after the
-// other.
+// other; an f32 row (the TF32 dK/dV kernel) as 32-column chunks, 128 bytes
+// too.
 #pragma once
 
 #include <cuda.h>
@@ -36,6 +37,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
     asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// `count` arrivals at once.
+__device__ __forceinline__ void mbar_arrive_cnt(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
 }
 
 // Spin until the phase of parity `parity` has completed.
@@ -112,12 +118,13 @@ inline EncodeTiledFn encode_tiled_fn() {
     return fn;
 }
 
-// A tensor map of 16-bit values (`type`: CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 or
-// _FLOAT16) of `rank` dimensions over `base`: sizes `dims` and boxes `box`
+// A tensor map of `type` (CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, _FLOAT16 or
+// _FLOAT32) of `rank` dimensions over `base`: sizes `dims` and boxes `box`
 // innermost first, `strides` the byte strides of dimensions 1.., the box's
-// rows 128-byte swizzled (box[0] must be 64).
-inline int encode_16bit_sw128(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
-                              const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+// rows 128-byte swizzled (box[0] must span 128 bytes: 64 16-bit values or
+// 32 f32).
+inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank, const uint64_t* dims,
+                        const uint64_t* strides, const uint32_t* box) {
     const EncodeTiledFn fn = encode_tiled_fn();
     if (fn == nullptr) return kTmaError + (int)CUDA_ERROR_NOT_FOUND;
     cuuint64_t d[5], s[4];
@@ -321,6 +328,22 @@ __device__ __forceinline__ void wgmma_rs_tb<256, __half>(float (&d)[128], const 
     BNB_WGMMA_RS_TB("256", "f16", BNB_R128, BNB_D128, "128", "129", "130", "131", "132", "133");
 }
 
+// d[64 x 64] (+)= a[64 x 8] b[64 x 8]^T in TF32, f32 accumulate: a from
+// registers (warp w's rows 16 w.., the mma.sync m16n8k8 tf32 A fragment:
+// a0 (row lane / 4, k lane % 4), a1 8 rows down, a2 and a3 four k further),
+// b K-major in shared memory (TF32 takes no transposed operand).  The
+// accumulator layout is wgmma_ss's.  Every a and b value must already be a
+// TF32 value (its low 13 bits zero: tf32_split), so that no result depends
+// on what the tensor cores do with those bits.
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                  uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" BNB_R32 "}, {%32, %33, %34, %35}, %36, "
+                 "p, 1, 1;\n}\n"
+                 : BNB_D32
+                 : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
 #undef BNB_WGMMA_SS
 #undef BNB_WGMMA_RS_TB
 #undef BNB_R16
@@ -334,12 +357,32 @@ __device__ __forceinline__ void wgmma_rs_tb<256, __half>(float (&d)[128], const 
 #undef BNB_D96
 #undef BNB_D128
 
+// The three-pass TF32 split of an f32 value: big = x with its low 13 bits
+// zeroed (a TF32 value, truncated: one instruction, where cvt.rna.tf32.f32
+// ran the TF32 dK/dV 11% slower on an H100), small = x - big (exact in
+// f32) rounded to TF32 (10 mantissa bits, ties away from zero); big * b +
+// small * b keeps about 21 bits of x.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+    big = __float_as_uint(x) & 0xFFFFE000u;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(__fsub_rn(x, __uint_as_float(big))));
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (a wgmma reading them, a TMA load overwriting them).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
 // --- named barriers ----------------------------------------------------------
 
 // Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a multiple
 // of 32: one warpgroup syncs without the others.
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// An arrival on barrier `id` that does not wait: the threads that sync on it
+// wait for these.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --- register reallocation between warpgroups (all four warps execute it) ----

@@ -77,6 +77,7 @@ LAUNCHES: dict = {
     "flash_attention_causal_bwd_dq": 0,
     "flash_attention_causal_fwd_sliced": 0,
     "flash_attention_causal_bwd_dkv_sliced": 0,
+    "flash_attention_causal_bwd_dkv_tf32": 0,
     "flash_attention_causal_bwd_dq_sliced": 0,
     "flash_attention_causal_fwd_wide": 0,
     "flash_attention_causal_bwd_dkv_wide": 0,
@@ -220,13 +221,14 @@ _SIGNATURES = {
     # g_kind, stream
     "bnb_gemm_4bit_nt_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # q, k, v, o, m, l, B, T, H, KVH, hd, (batch, token) strides of q, k, v, scale, kind (_KIND), stream;
-    # the _wide entries take the same arguments
+    # the _wide (and _tf32) entries take the same arguments
     "bnb_flash_attention_causal_fwd": _FLASH_FWD,
     "bnb_flash_attention_causal_fwd_wide": _FLASH_FWD,
     # q, k, v, do, m, l, di, dk, dv, part_k, part_v (or NULL), items (device), n_items, B, T, H, KVH, hd,
     # (batch, token) strides of q, k, v, do, scale, kind, stream
     "bnb_flash_attention_causal_bwd_dkv": _FLASH_DKV,
     "bnb_flash_attention_causal_bwd_dkv_wide": _FLASH_DKV,
+    "bnb_flash_attention_causal_bwd_dkv_tf32": _FLASH_DKV,
     # part_k, part_v, table (device), n_units, dk, dv, T, KVH, hd, kind, stream
     "bnb_flash_attention_causal_bwd_dkv_combine": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, do, m, l, di, dq, B, T, H, KVH, hd, (batch, token) strides of q, k, v, do, scale, kind, stream

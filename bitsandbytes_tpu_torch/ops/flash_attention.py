@@ -8,9 +8,9 @@ Replaces the three TPU kernels that the JAX package reaches through
 ``csrc/flash_attention.cu``; it takes q, k, v in bf16, f16 or f32, any
 head_dim that is a multiple of 128 and T a multiple of 128: every case the
 model's route (``models/llama._flash_ok``) sends, as the JAX package's does.
-Two families of hand-written kernels share that source, and each wrapper
+Three families of hand-written kernels share that source, and each wrapper
 picks one for its kernel by type and head_dim alone (:func:`uses_wgmma`,
-:func:`launch_name`):
+:func:`uses_tf32`, :func:`launch_name`):
 
 * bf16 and f16 run on ``wgmma`` over tiles that one producer thread loads
   by TMA for consumer warpgroups (``csrc/sm90.cuh``) at head_dim 128, 256,
@@ -22,14 +22,19 @@ picks one for its kernel by type and head_dim alone (:func:`uses_wgmma`,
   head_dim streams through a ring of 64-column chunks (all of it would not
   fit shared memory beside what stays resident); all three count as
   ``..._sliced``;
-* the wide family on CUDA cores takes the rest: f32 at any head_dim, and
-  bf16 and f16 from 640.  Full f32 FMA, not TF32, because the JAX package's
-  f32 route runs at "highest" precision (one TF32 pass keeps about three
-  digits, and TF32 ``wgmma`` cannot read V MN-major); and because a
-  warpgroup's f32 O or dQ of 64 rows takes hd / 2 registers a thread,
-  which with S and dP passes the 255-register limit above hd 256.  A block
-  owns 128 columns of its output and recomputes the scores over all of
-  head_dim.  Each kernel of this family counts under its own name
+* f32 dK/dV at head_dim 128 and 256 runs on ``wgmma`` in TF32, every
+  product as three passes (big * big + big * small + small * big, each
+  operand split into two TF32 values), because the JAX package's f32 route
+  runs at "highest" precision and one TF32 pass keeps about three digits.
+  TF32 ``wgmma`` reads both operands K-major, so it computes dV^T = dO^T P
+  and dK^T = Q^T dS with P and dS staged in shared memory; it counts as
+  ``..._tf32``;
+* the wide family on CUDA cores in full f32 FMA takes the rest: the f32
+  forward and dQ at any head_dim, f32 dK/dV from 384, and bf16 and f16
+  from 640 (a warpgroup's f32 O or dQ of 64 rows takes hd / 2 registers a
+  thread, which with S and dP passes the 255-register limit above hd 256).
+  A block owns 128 columns of its output and recomputes the scores over
+  all of head_dim.  Each kernel of this family counts under its own name
   (``..._wide``).
 
 Both dK/dV kernels walk a work plan built here (:func:`dkv_plan`), and one
@@ -78,6 +83,7 @@ __all__ = [
     "HEAD_DIM_STEP",
     "WGMMA_HEAD_DIMS",
     "uses_wgmma",
+    "uses_tf32",
     "launch_name",
     "c_entry",
     "flash_attention_causal_fwd",
@@ -105,6 +111,9 @@ HEAD_DIM_STEP = 128
 # stream the chunks of head_dim outside a stage's columns); the wide family
 # takes every other type and head_dim
 WGMMA_HEAD_DIMS = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256, 384, 512)}
+# the head_dims at which each kernel runs in f32 on three-pass TF32 wgmma
+# (dK/dV alone; above 256 its K and V leave too little shared memory)
+TF32_HEAD_DIMS = {"fwd": (), "dkv": (128, 256), "dq": ()}
 
 
 def _shapes(q, k, v):
@@ -241,19 +250,29 @@ _BASE_NAMES = {"fwd": "flash_attention_causal_fwd", "dkv": "flash_attention_caus
 
 
 def uses_wgmma(kernel: str, dtype: torch.dtype, hd: int) -> bool:
-    """Whether ``kernel`` (``"fwd"``, ``"dkv"`` or ``"dq"``) runs on wgmma
-    for q/k/v of ``dtype`` at ``hd``; the wide family takes every other type
-    and head_dim the CUDA kernels take."""
+    """Whether ``kernel`` (``"fwd"``, ``"dkv"`` or ``"dq"``) runs on 16-bit
+    wgmma for q/k/v of ``dtype`` at ``hd``; f32 runs on TF32 wgmma where
+    :func:`uses_tf32` says, and the wide family takes every other type and
+    head_dim the CUDA kernels take."""
     return dtype != torch.float32 and hd in WGMMA_HEAD_DIMS[kernel]
+
+
+def uses_tf32(kernel: str, dtype: torch.dtype, hd: int) -> bool:
+    """Whether ``kernel`` runs on three-pass TF32 wgmma for q/k/v of
+    ``dtype`` at ``hd``: f32 dK/dV at head_dim 128 and 256."""
+    return dtype == torch.float32 and hd in TF32_HEAD_DIMS[kernel]
 
 
 def launch_name(kernel: str, dtype: torch.dtype, hd: int) -> str:
     """The launch count ``kernel`` adds to for q/k/v of ``dtype`` at ``hd``:
     its wgmma instance's, ``..._sliced`` for the wgmma instances above
     head_dim 256 (the forward's and dQ's column slices, dK/dV's and dQ's
-    streamed chunks), or ``..._wide``.  A ``_sliced`` instance runs through
-    its kernel's plain C entry (:func:`c_entry`)."""
+    streamed chunks), ``..._tf32`` for the TF32 instance, or ``..._wide``.
+    A ``_sliced`` instance runs through its kernel's plain C entry
+    (:func:`c_entry`)."""
     name = _BASE_NAMES[kernel]
+    if uses_tf32(kernel, dtype, hd):
+        return name + "_tf32"
     if not uses_wgmma(kernel, dtype, hd):
         return name + "_wide"
     return name + "_sliced" if hd > 256 else name
@@ -485,11 +504,12 @@ def flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di):
     range of its group's query heads and query tiles from the diagonal down,
     in a fixed order.  The pieces of a split key tile write f32 partials,
     which the combine adds in piece order, so every call gives the same
-    bits.  Both families take the same plan."""
+    bits.  Every family takes the same plan (in f32 at head_dim 128 and 256
+    the three-pass TF32 instance, :func:`uses_tf32`)."""
     if not use_kernel(q, k, v, do, m, l, di):
         return flash_attention_causal_bwd_dkv_plain(q, k, v, do, m, l, di)
     (B, T, H, KVH, hd), ptrs, strides = _bwd_args(q, k, v, do, m, l, di)
-    if uses_wgmma("dkv", q.dtype, hd):
+    if uses_wgmma("dkv", q.dtype, hd) or uses_tf32("dkv", q.dtype, hd):
         _dkv_checks(q, k, v, do, m, l, di)
     dk = torch.empty(B, T, KVH, hd, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)

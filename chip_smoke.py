@@ -90,8 +90,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    device ms beside SDPA forward and backward and each bound (each also
    beside its earlier mma.sync body's; their SASS must show wgmma and TMA
    and no local stores; the dK/dV kernel's combine bit for bit its plain
-   version at T 1024); then the kernels against the dense oracle at T 512
-   and 1024, below the route's line.
+   version at T 1024; in f32 the dK/dV kernel's three-pass TF32 instance at
+   hd 128 and 256 beside the wide family's); then the kernels against the
+   dense oracle at T 512 and 1024, below the route's line.
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -177,7 +178,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    32 layers at T 2048 (rank 64, seven targets, ``adamw8bit``, five steps;
    32 launches of each a step, device ms by class, peak memory), 4 layers
    at T 2048 against the same step on the dense oracle (the loss within
-   rel 1e-3), and 4 layers at T 8192.
+   rel 1e-3), and 4 layers at T 8192; 32 layers in f16, and 4 layers in
+   f32 (the wide forward and dQ, the TF32 dK/dV) against the f32 oracle
+   (rel 1e-4).
    The kernels' launch counts are zeroed just before each path and read
    just after it.  4a and 4b also
    load the model once more under
@@ -227,7 +230,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    mesh, card against CPU (5k); then a 2-layer bf16 Llama (hidden 512, hd
    128) at T 1024 through kernels 17-19 against the CPU port on their
    plain versions: the loss and the adapter gradients (5l; the dK/dV
-   kernel's combine runs here, where its plan splits key tiles).
+   kernel's combine runs here, where its plan splits key tiles), and the
+   same in f16 and f32, and at hd 512 in bf16 (the sliced instances) and
+   f32 (the wide family's dK/dV, which no preset's f32 step takes now).
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -253,6 +258,7 @@ import time
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # a three-pass TF32 product does 3x its flops at this rate
 
 TPU_KERNELS = {
     "quantize_4bit_codes": (
@@ -354,8 +360,9 @@ TPU_KERNELS = {
     "flash_attention_causal_bwd_dq_sliced": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
-    # kernels 17-19's wide family: f32 at any head_dim, and bf16 and f16 from
-    # 640 (CUDA cores; launched by 4r(e)'s f32 steps)
+    # kernels 17-19's wide family: f32 at any head_dim (dK/dV from 384), and
+    # bf16 and f16 from 640 (CUDA cores; the forward and dQ launched by
+    # 4r(e)'s f32 steps, dK/dV by 5l's f32 step at head_dim 512)
     "flash_attention_causal_fwd_wide": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
@@ -364,6 +371,11 @@ TPU_KERNELS = {
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
     "flash_attention_causal_bwd_dq_wide": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    # kernel 18's f32 instance at head_dim 128 and 256: every product as three
+    # TF32 passes on wgmma (launched by 4r(e)'s f32 steps)
+    "flash_attention_causal_bwd_dkv_tf32": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
 }
 
@@ -375,8 +387,10 @@ FLASH_TOLERANCES = {"bfloat16": (2e-2, 1e-2), "float16": (8e-3, 5e-3), "float32"
 
 
 FLASH_TRAIN = ("flash_attention_causal_fwd", "flash_attention_causal_bwd_dkv", "flash_attention_causal_bwd_dq")
-# the wide family's launch counts (f32 at any head_dim; bf16/f16 from 640)
+# the wide family's launch counts (f32 at any head_dim, dK/dV from 384;
+# bf16/f16 from 640)
 FLASH_TRAIN_WIDE = tuple(n + "_wide" for n in FLASH_TRAIN)
+FLASH_DKV_TF32 = "flash_attention_causal_bwd_dkv_tf32"  # f32 dK/dV at head_dim 128 and 256
 FLASH_KERNELS = ("fwd", "dkv", "dq")
 
 
@@ -400,6 +414,7 @@ FLASH_CLASSES = [("flash_fwd_kernel<384", "kernel 17, column-sliced (hd 384)"),
                  ("flash_bwd_dq_kernel<512", "kernel 19, column-sliced (hd 512)"),
                  ("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_dkv_kernel", "kernel 18 (flash dK/dV)"),
                  ("flash_bwd_dkv_combine", "kernel 18's combine"), ("flash_bwd_dq_kernel", "kernel 19 (flash dQ)"),
+                 ("flash_tf32_dkv_kernel", "kernel 18, three-pass TF32 (f32)"),
                  ("flash_wide_fwd_kernel", "kernel 17, wide family"),
                  ("flash_wide_dkv_kernel", "kernel 18, wide family"),
                  ("flash_wide_dq_kernel", "kernel 19, wide family"), ("dequantize_paired", "kernel 6"),
@@ -2899,8 +2914,16 @@ def flash_train_kernels(dev, entry):
     whose plans split key tiles, take the sliced instances too, each dK/dV
     and dQ call twice bit for bit and the combine under that plan bit for
     bit its plain version; two at hd 640 (bf16, f16) take the wide family's
-    16-bit instances.  The SASS counts and the registers (``cuobjdump
-    -res-usage``) of every instance are emitted."""
+    16-bit instances.  In f32 (T 2048: H 32 over 8 at hd 128, and Gemma-7B's
+    H 16 over 16 at hd 256) dK/dV runs kernel 18's three-pass TF32 instance
+    (its own kernels-line entry, both shapes beside it, bound by three TF32
+    passes at 495 TFLOP/s with the f32-FMA figure beside it), timed beside
+    the wide family's dK/dV through its C entry on the same tensors (the
+    wide entry's time); the batched f32 shape, whose plan splits key tiles,
+    runs it twice bit for bit and its combine bit for bit; every ``HGMMA``
+    of its SASS is a TF32 one, with ``UTMALDG`` and no ``STL``.  The SASS
+    counts and the registers (``cuobjdump -res-usage``) of every instance
+    are emitted."""
     import torch
     import torch.nn.functional as F
 
@@ -2917,6 +2940,8 @@ def flash_train_kernels(dev, entry):
     # the sliced wgmma instances
     cases += [(f16, 1, T, 32, 8, 128) for T in (2048, 4096)] + [(f16, 1, 4096, 16, 16, 256), (f32, 1, 2048, 32, 8, 128)]
     cases += [(dt, 1, 2048, 8, 8, hd) for dt in (bf16, f16) for hd in (384, 512)]
+    # f32 at Gemma-7B's attention: kernel 18's TF32 instance at head_dim 256
+    cases += [(f32, 1, 2048, 16, 16, 256)]
 
     def check(what, dt, errs):
         out_tol, grad_tol = FLASH_TOLERANCES[str(dt)[6:]]
@@ -2932,8 +2957,8 @@ def flash_train_kernels(dev, entry):
 
     def dkv_wide(*bwd):
         """Kernel 18's wide-family instance through its C entry, which the
-        route no longer takes for 16-bit q, k, v at head_dim 384 and 512:
-        the same plan and combine as the wrapper's."""
+        route no longer takes for 16-bit q, k, v at head_dim 384 and 512 nor
+        for f32 at 128 and 256: the same plan and combine as the wrapper's."""
         (B, T, H, KVH, hd), ptrs, strides = FA._bwd_args(*bwd)
         plan, items, table = FA._dkv_tables(B, T, H, KVH, hd, dev)
         dk = torch.empty(B, T, KVH, hd, dtype=bwd[0].dtype, device=dev)
@@ -2994,7 +3019,7 @@ def flash_train_kernels(dev, entry):
         again = (FA.flash_attention_causal_fwd(q, k, v)[0], *FA.flash_attention_causal_bwd_dkv(*bwd),
                  FA.flash_attention_causal_bwd_dq(*bwd))
         assert all(torch.equal(a, b) for a, b in zip(again, (o, dk, dv, dq))), f"{what}: differs from run to run"
-        del op, mp, lp, dkp, dvp, dqp, again
+        del op, mp, lp, dqp, again
 
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         dot = do.transpose(1, 2)
@@ -3019,11 +3044,22 @@ def flash_train_kernels(dev, entry):
                       "plain_ms": plain_ms(lambda: FA.flash_attention_causal_bwd_dq_plain(*bwd))}}
         peak = PEAK_F32_FLOPS if dt == f32 else PEAK_BF16_FLOPS
         for key, (nb, ops) in work.items():
-            b_ms, b_by = bound_ms(nb, ops, peak)
+            if FA.uses_tf32(key, dt, hd):  # three TF32 passes a product
+                b_ms, b_by = bound_ms(nb, 3 * ops, PEAK_TF32_FLOPS)
+            else:
+                b_ms, b_by = bound_ms(nb, ops, peak)
             row[key].update(bytes=nb, flops=ops, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / row[key]["ms"])
-        if hd > 256:  # kernels 18 and 19's wide instances, which took these shapes before, on the same tensors
+            if dt == f32:  # both yardsticks of an f32 kernel: f32 FMA, and three TF32 passes
+                row[key].update(f32_fma_bound_ms=bound_ms(nb, ops, PEAK_F32_FLOPS)[0],
+                                tf32x3_bound_ms=bound_ms(nb, 3 * ops, PEAK_TF32_FLOPS)[0])
+        if hd > 256 or FA.uses_tf32("dkv", dt, hd):
+            # kernel 18's wide instance, which took these shapes before, on the same tensors
+            wk, wv = dkv_wide(*bwd)
             row["dkv"]["wide_ms"] = dev_ms(lambda: dkv_wide(*bwd))
             row["dkv"]["wide_bound_share"] = row["dkv"]["bound_ms"] / row["dkv"]["wide_ms"]
+            row["dkv"]["wide_err"] = max(rel(wk, dkp), rel(wv, dvp))
+            del wk, wv
+        if hd > 256:  # and kernel 19's
             row["dq"]["wide_ms"] = dev_ms(lambda: dq_wide(*bwd))
             row["dq"]["wide_bound_share"] = row["dq"]["bound_ms"] / row["dq"]["wide_ms"]
         if dt == bf16:
@@ -3054,19 +3090,21 @@ def flash_train_kernels(dev, entry):
                        "computes it")
             del part_k, part_v, ck, cp
         row["bwd_ms"] = row["dkv"]["ms"] + row["dq"]["ms"]
+        del dkp, dvp
         out.append(row)
         if hd > 256:  # the sliced instances of the three kernels
             wide_rows.append({"dtype": row["dtype"], "shape": [B, T, H, KVH, hd], "sdpa": sdpa, "errs": errs,
                               **{key: row[key] for key in ("fwd", "dkv", "dq")}})
+        if dt == f32:  # kernel 18's TF32 instance at each f32 shape, entered below
+            wide_rows.append({"tf32": True, "dtype": row["dtype"], "shape": [B, T, H, KVH, hd], "errs": errs,
+                              "sdpa_bwd_ms": sdpa["bwd_ms"], "kernels_bwd_ms": row["bwd_ms"], **row["dkv"]})
         if (T, hd) == (2048, 128):
-            suffix = {bf16: "", f16: "_f16", f32: "_wide"}[dt]
-            for name, key, lib in (("flash_attention_causal_fwd", "fwd", sdpa["fwd_ms"]),
-                                   ("flash_attention_causal_bwd_dkv", "dkv", None),
-                                   ("flash_attention_causal_bwd_dq", "dq", None)):
+            for key, lib in (("fwd", sdpa["fwd_ms"]), ("dkv", None), ("dq", None)):
+                name = family[key] + ("_f16" if dt == f16 else "")
                 nb, ops = work[key]
                 err = errs["o_abs"] if key == "fwd" else max(errs[f"{g}_rel"] for g in
                                                               (("dk", "dv") if key == "dkv" else ("dq",)))
-                pending = (name + suffix, row[key]["ms"], row[key]["plain_ms"], lib, nb, ops, peak, err,
+                pending = (name, row[key]["ms"], row[key]["plain_ms"], lib, nb, ops, peak, err,
                            dict(shape=[B, T, H, KVH, hd], dtype=row["dtype"], family=family,
                                 sdpa_bwd_ms=sdpa["bwd_ms"], kernels_bwd_ms=row["bwd_ms"],
                                 note="4r's attention shape; device ms, host held out, L2 flushed; the backward "
@@ -3074,14 +3112,23 @@ def flash_train_kernels(dev, entry):
                                      "(sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19)" + (
                                          "; max_abs_err is the output's abs error" if key == "fwd" else
                                          "; max_abs_err is relative to the gradient's largest magnitude")))
-                if dt == f32:
+                if dt == f32 and key == "dkv":  # the TF32 instance below; here the wide one, on the same tensors
+                    entry("flash_attention_causal_bwd_dkv_wide", row[key]["wide_ms"], row[key]["plain_ms"], None, nb,
+                          ops, PEAK_F32_FLOPS, row[key]["wide_err"], **{**pending[8], "note": (
+                              "kernel 18's wide family (CUDA cores, f32 FMA), which f32 dK/dV took at head_dim 128 "
+                              "and 256 before the TF32 instance; timed through its C entry on the TF32 row's "
+                              "tensors (4r's attention shape); device ms, host held out, L2 flushed; launches from "
+                              "5l's f32 step at head_dim 512, where the route still takes it; library_ms is null: "
+                              "SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms); max_abs_err is relative "
+                              "to the gradient's largest magnitude")})
+                elif dt == f32:
                     wide_rows.append((key, pending))  # entered below, with the head_dim 384 / 512 instances
                 else:
                     entry(*pending[:8], **pending[8])
         del q, k, v, do, o, m, l, di, dk, dv, dq, bwd
         torch.cuda.empty_cache()
     # the wide family's entries: f32 at 4r's shape
-    instances = [r for r in wide_rows if isinstance(r, dict)]
+    instances = [r for r in wide_rows if isinstance(r, dict) and not r.get("tf32")]
 
     def inst(r, key):
         return {"dtype": r["dtype"], "shape": r["shape"], **r[key], "sdpa_fwd_ms": r["sdpa"]["fwd_ms"],
@@ -3089,6 +3136,22 @@ def flash_train_kernels(dev, entry):
 
     for key, pend in (r for r in wide_rows if not isinstance(r, dict)):
         entry(*pend[:8], **pend[8])
+    # kernel 18's TF32 instance: f32 at 4r's shape (hd 128) in the line, Gemma-7B's hd 256 beside it
+    tf32 = [r for r in wide_rows if isinstance(r, dict) and r.get("tf32")]
+    main32 = next(r for r in tf32 if r["shape"][4] == 128)
+    nb, ops = flash_causal_work(*main32["shape"], 4)["dkv"]
+    entry(FLASH_DKV_TF32, main32["ms"], main32["plain_ms"], None, nb, 3 * ops, PEAK_TF32_FLOPS,
+          max(main32["errs"]["dk_rel"], main32["errs"]["dv_rel"]), shape=main32["shape"], dtype="float32",
+          f32_fma_bound_ms=main32["f32_fma_bound_ms"], wide_ms=main32["wide_ms"], sdpa_bwd_ms=main32["sdpa_bwd_ms"],
+          kernels_bwd_ms=main32["kernels_bwd_ms"],
+          instances=[{k: v for k, v in r.items() if k != "tf32"} for r in tf32],
+          note="kernel 18's f32 instance at head_dim 128 and 256: a block one item of the plan, every product as "
+               "three TF32 passes (big * big + big * small + small * big) on wgmma, S^T and dP^T by two consumer "
+               "warpgroups, then dV^T = dO^T P and dK^T = Q^T dS with P and dS through shared memory; device ms, "
+               "host held out, L2 flushed; bound_ms is three TF32 passes at 495 TFLOP/s (f32_fma_bound_ms: the "
+               "same flops at 67); wide_ms the wide family's dK/dV on the same tensors; library_ms is null: SDPA's "
+               "backward is one call for dq, dk and dv (sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19); "
+               "max_abs_err is relative to the gradient's largest magnitude")
     # the forward's column-sliced wgmma instances: bf16 at hd 512 in the line, all four beside it
     main = next(r for r in instances if (r["dtype"], r["shape"][4]) == ("bfloat16", 512))
     nb, ops = flash_causal_work(*main["shape"])["fwd"]
@@ -3143,7 +3206,8 @@ def flash_train_kernels(dev, entry):
         dk, dv = FA.flash_attention_causal_bwd_dkv(*bwd)
         assert _lib.launch_counts()[flash_names(dt, hd)[1]] == 1, what
         assert _lib.launch_counts()["flash_attention_causal_bwd_dkv_combine"] == (1 if plan.combine else 0), what
-        if dt != f32 and hd in (384, 512):  # kernel 18's sliced instances where the plan splits key tiles
+        if (dt != f32 and hd in (384, 512)) or FA.uses_tf32("dkv", dt, hd):
+            # kernel 18's sliced and TF32 instances where the plan splits key tiles
             again = FA.flash_attention_causal_bwd_dkv(*bwd)
             assert torch.equal(again[0], dk) and torch.equal(again[1], dv), f"{what}: differs from run to run"
             del again
@@ -3185,16 +3249,18 @@ def flash_train_kernels(dev, entry):
     # f16) runs f32 FMAs (FFMA) with no tensor-core product and no local stores
     flash_kernels = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
     wide_kernels = ("flash_wide_fwd_kernel", "flash_wide_dkv_kernel", "flash_wide_dq_kernel")
+    tf32_kernel = "flash_tf32_dkv_kernel"
     sass, wg_sass, fn = sass_of(_lib.build()), {}, None
     for line in (sass or "").splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            fn = fn if any(k in fn for k in flash_kernels + wide_kernels) else None
+            fn = fn if any(k in fn for k in flash_kernels + wide_kernels + (tf32_kernel,)) else None
             if fn:
-                wg_sass[fn] = {"HGMMA": 0, "UTMALDG": 0, "STL": 0, "FFMA": 0, "HMMA": 0}
+                wg_sass[fn] = {"HGMMA": 0, "UTMALDG": 0, "STL": 0, "FFMA": 0, "HMMA": 0, "HGMMA_TF32": 0}
         elif fn:
-            for op in wg_sass[fn]:
+            for op in ("HGMMA", "UTMALDG", "STL", "FFMA", "HMMA"):
                 wg_sass[fn][op] += f" {op}" in line
+            wg_sass[fn]["HGMMA_TF32"] += " HGMMA" in line and ".TF32" in line
 
     def instance(name):  # (type, hd) of a wgmma kernel's mangled name
         hd_ = re.search(r"ILi(\d+)E", name)
@@ -3212,8 +3278,12 @@ def flash_train_kernels(dev, entry):
         inst = {n: c for n, c in wg_sass.items() if kern in n}
         assert sass is None or (len(inst) == 3 and all(c["FFMA"] and not c["STL"] and not c["HGMMA"]
                                                        for c in inst.values())), f"3p {kern} SASS {inst}"
+    # kernel 18's f32 instances (hd 128, 256): every HGMMA a TF32 one, TMA loads, no local stores
+    inst = {n: c for n, c in wg_sass.items() if tf32_kernel in n}
+    assert sass is None or (len(inst) == 2 and all(c["HGMMA"] and c["HGMMA"] == c["HGMMA_TF32"] and c["UTMALDG"]
+                                                   and not c["STL"] for c in inst.values())), f"3p TF32 SASS {inst}"
     emit("flash_train_kernels", shapes=out, batched=batched, threshold_sweep=sweep, sass=wg_sass,
-         registers=registers_of(_lib.build(), flash_kernels + wide_kernels),
+         registers=registers_of(_lib.build(), flash_kernels + wide_kernels + (tf32_kernel,)),
          route_line={"T_min": 1024, "note": "the JAX package's line (_flash_ok), kept"})
     return out
 
@@ -3235,9 +3305,12 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
     float leaves cast to f16): three steps, the losses finite and falling,
     kernels 17-19's f16 instances 32 times a step, device ms by class.  (e)
     4 layers at T 2048 in f32 (the float leaves cast to f32) on the wide
-    family, against the same step on the f32 oracle: the first step's loss
-    within rel 1e-4.  Returns the launches of each kernels-line entry of
-    kernels 17-19: bf16 from (a), f16 from (d), the wide family from (e)."""
+    forward and dQ and the TF32 dK/dV, 8 launches of each in its 2 steps,
+    against the same step on the f32 oracle: the first step's loss
+    within rel 1e-4 (the wide forward and dQ, kernel 18's TF32 instance).
+    Returns the launches of each kernels-line entry of kernels 17-19: bf16
+    from (a), f16 from (d), the wide forward and dQ and the TF32 dK/dV from
+    (e)."""
     import dataclasses
 
     import torch
@@ -3335,15 +3408,20 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
     del p16
     torch.cuda.empty_cache()
 
-    # (e) 4 layers at T 2048 in f32: the wide family against the f32 oracle
+    # (e) 4 layers at T 2048 in f32: the wide forward and dQ and the TF32
+    # dK/dV against the f32 oracle
     cfg32 = dataclasses.replace(cfg4, dtype=torch.float32)
     cfg32_dense = dataclasses.replace(cfg32, sliding_window=1 << 20)
     p32 = cast_floats({**params, "layers": params["layers"][:4]}, torch.float32)
     ids_e = ids_of(T, 74)
+    names32 = flash_names(torch.float32, cfg.head_dim)
+    assert names32 == (FLASH_TRAIN_WIDE[0], FLASH_DKV_TF32, FLASH_TRAIN_WIDE[2]), names32
     flash32 = run(p32, cfg32, ids_e, 2)
     dense32 = run(p32, cfg32_dense, ids_e, 2)
-    assert all(flash32["launches"].get(n) == 2 * 4 for n in FLASH_TRAIN_WIDE), f"4r(e) flash {flash32['launches']}"
-    assert not any(n in dense32["launches"] for n in FLASH_TRAIN + FLASH_TRAIN_WIDE), f"4r(e) {dense32['launches']}"
+    assert all(flash32["launches"].get(n) == 2 * 4 for n in names32), f"4r(e) flash {flash32['launches']}"
+    assert flash32["launches"].get(FLASH_TRAIN_WIDE[1]) is None, f"4r(e) flash {flash32['launches']}"
+    assert not any(n in dense32["launches"] for n in FLASH_TRAIN + FLASH_TRAIN_WIDE + (FLASH_DKV_TF32,)), \
+        f"4r(e) {dense32['launches']}"
     loss_rel32 = abs(flash32["losses"][0] - dense32["losses"][0]) / abs(dense32["losses"][0])
     assert loss_rel32 <= 1e-4, f"4r(e) loss {flash32['losses'][0]} against the f32 oracle's {dense32['losses'][0]}"
     del p32
@@ -3358,7 +3436,7 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
                                     "oracle": dense32})
     launches = {name: a["launches"][name] for name in FLASH_TRAIN}
     launches.update({name + "_f16": d["launches"][name] for name in FLASH_TRAIN})
-    launches.update({name: flash32["launches"][name] for name in FLASH_TRAIN_WIDE})
+    launches.update({name: flash32["launches"][name] for name in names32})
     return launches
 
 
@@ -3410,7 +3488,7 @@ def flash_cpu_check(dev, dtype=None, hd=128):
     assert all(counts.get(n) == cfg.num_layers for n in names), f"5l launches {counts}"
     others = FLASH_TRAIN + FLASH_TRAIN_WIDE + ("flash_attention_causal_fwd_sliced",
                                                "flash_attention_causal_bwd_dkv_sliced",
-                                               "flash_attention_causal_bwd_dq_sliced")
+                                               "flash_attention_causal_bwd_dq_sliced", FLASH_DKV_TF32)
     assert not any(counts.get(n) for n in others if n not in names), f"5l launches {counts}"
     combines = cfg.num_layers * dkv_combines(dev, 1, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     assert counts.get("flash_attention_causal_bwd_dkv_combine", 0) == combines, f"5l launches {counts}"
@@ -6932,11 +7010,17 @@ def main() -> int:
     for name, n in counts_5l.items():
         if name in FLASH_TRAIN:
             report[name]["launches_5l"] = n
-    # and in f16 (the wgmma kernels' f16 instances) and f32 (the wide family)
+    # and in f16 (the wgmma kernels' f16 instances) and f32 (the wide forward
+    # and dQ, the TF32 dK/dV)
     for dt, suffix in ((torch.float16, "_f16"), (torch.float32, "")):
         for name, n in flash_cpu_check(dev, dt).items():
-            if name in FLASH_TRAIN + FLASH_TRAIN_WIDE:
+            if name in FLASH_TRAIN + FLASH_TRAIN_WIDE + (FLASH_DKV_TF32,):
                 report[name + suffix]["launches_5l"] = n
+    # and in f32 at head_dim 512, where the route keeps dK/dV on the wide
+    # family (its kernels-line launches)
+    for name, n in flash_cpu_check(dev, torch.float32, hd=512).items():
+        if name == FLASH_TRAIN_WIDE[1]:
+            report[name]["launches"] = n
     # and in bf16 at head_dim 512: the sliced instances of the three kernels
     # (their kernels-line launches)
     for name, n in flash_cpu_check(dev, torch.bfloat16, hd=512).items():

@@ -183,9 +183,10 @@ def test_bf16_hd512_train_step_loss_matches_jax(flash_route):
     assert all(t.grad is not None and t.grad.dtype == t.dtype for t in TL.lora_parameters(tlora))
 
 
-# the head_dims each kernel takes on wgmma in bf16 and f16 (the wide family
-# takes the rest, and every head_dim in f32)
+# the head_dims each kernel takes on wgmma in bf16 and f16, and on
+# three-pass TF32 wgmma in f32 (the wide family takes the rest)
 WGMMA = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256, 384, 512)}
+TF32 = {"fwd": (), "dkv": (128, 256), "dq": ()}
 
 
 @pytest.mark.parametrize("dtype", list(TORCH_TYPES))
@@ -195,9 +196,11 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
     the cases the JAX package's ``_flash_ok`` conditions send to its flash
     kernel, its backend check aside; each kernel of an accepted case has one
     family: all three run on wgmma for bf16 and f16 at head_dim 128, 256,
-    384 and 512, and the wide family takes the rest.  Each kernel counts its launches under a name of the library's
-    counts that shows which ran: ``_sliced`` for the wgmma instances at 384
-    and 512, ``_wide`` for the wide family."""
+    384 and 512, f32 dK/dV on TF32 wgmma at 128 and 256, and the wide family
+    takes the rest.  Each kernel counts its launches under a name of the
+    library's counts that shows which ran: ``_sliced`` for the wgmma
+    instances at 384 and 512, ``_tf32`` for the TF32 instance, ``_wide`` for
+    the wide family."""
     tt = TORCH_TYPES[dtype]
     cfg = JL.LlamaConfig.tiny()
     for T in (1024, 1088, 1152, 2048, 4096):
@@ -214,10 +217,13 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
             if took:
                 for kernel, dims in WGMMA.items():
                     wgmma = tt != torch.float32 and hd in dims
+                    tf32 = tt == torch.float32 and hd in TF32[kernel]
                     assert FA.uses_wgmma(kernel, tt, hd) == wgmma, (kernel, dtype, hd)
+                    assert FA.uses_tf32(kernel, tt, hd) == tf32, (kernel, dtype, hd)
                     name = FA.launch_name(kernel, tt, hd)
                     assert name in _lib.LAUNCHES, name
-                    assert name.endswith("_wide") == (not wgmma), (kernel, dtype, hd, name)
+                    assert name.endswith("_wide") == (not wgmma and not tf32), (kernel, dtype, hd, name)
+                    assert name.endswith("_tf32") == tf32, (kernel, dtype, hd, name)
                     assert name.endswith("_sliced") == (wgmma and hd > 256), (kernel, dtype, hd, name)
 
 
@@ -227,12 +233,13 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
 def test_launch_names_map_to_c_entries(kernel, dtype, hd):
     """Each launch count a wrapper adds to (``launch_name``) names, through
     ``c_entry``, a C entry the library binds: a ``_sliced`` instance runs
-    through its kernel's plain entry, a ``_wide`` one through the wide
-    family's.  A name that maps to no entry would fail only on the card, at
+    through its kernel's plain entry, the ``_tf32`` one through its own, a
+    ``_wide`` one through the wide family's.  A name that maps to no entry would fail only on the card, at
     the first launch of that type and head_dim."""
     tt = TORCH_TYPES[dtype]
     name = FA.launch_name(kernel, tt, hd)
     entry = FA.c_entry(name)
     assert entry in _lib._SIGNATURES, (name, entry)
-    wgmma = FA.uses_wgmma(kernel, tt, hd)
-    assert entry == "bnb_" + FA._BASE_NAMES[kernel] + ("" if wgmma else "_wide"), (name, entry)
+    wgmma, tf32 = FA.uses_wgmma(kernel, tt, hd), FA.uses_tf32(kernel, tt, hd)
+    suffix = "" if wgmma else "_tf32" if tf32 else "_wide"
+    assert entry == "bnb_" + FA._BASE_NAMES[kernel] + suffix, (name, entry)
