@@ -1,10 +1,10 @@
 // Causal flash attention of the training path (no cache): the forward, the
 // dK/dV and the dQ kernel, T a multiple of 128, in three families: the wgmma
-// kernels take bf16 and f16 at head_dim 128, 256, 384 and 512; a three-pass
-// TF32 wgmma instance of dK/dV takes f32 at head_dim 128 and 256; the wide
-// family (at the end of the file) takes the rest of f32 at any head_dim that
-// is a multiple of 128, and bf16 and f16 where the wgmma kernels stop, from
-// head_dim 640.
+// kernels take bf16 and f16 at head_dim 128, 256, 384 and 512; three-pass
+// TF32 wgmma instances of dK/dV and dQ take f32 at head_dim 128 and 256; the
+// wide family (at the end of the file) takes the f32 forward at any head_dim
+// that is a multiple of 128, f32 dK/dV and dQ from head_dim 384, and bf16 and
+// f16 where the wgmma kernels stop, from head_dim 640.
 //
 // Replaces the three TPU kernels the JAX package reaches through
 // models/llama.py:_flash_call, in jax/experimental/pallas/ops/tpu/
@@ -91,6 +91,10 @@
 //   big) on wgmma; S^T and dP^T by two consumer warpgroups, then dV^T = dO^T
 //   P and dK^T = Q^T dS with P and dS through shared memory, since TF32 takes
 //   no transposed operand.
+// * dQ in f32 at hd 128 and 256 (Tf32DqCfg says why): a block 64 query rows
+//   of one head, S and dP by two consumer warpgroups as three TF32 passes,
+//   then dQ^T = K^T dS^T with dS through shared memory, each group over half
+//   of hd.
 // * Causal work only: tiles above the diagonal are never loaded (a dQ
 //   consumer stops at its own diagonal tile).  Blocks with the most tiles
 //   launch first.
@@ -103,7 +107,8 @@
 namespace {
 
 // E: the element type of q, k, v, do and the outputs (bf16 or f16 on the
-// wgmma kernels; f32 on the TF32 dK/dV; f32, bf16 or f16 on the wide family)
+// wgmma kernels; f32 on the TF32 dK/dV and dQ; f32, bf16 or f16 on the wide
+// family)
 template <class E>
 struct Params {
     const E* q;
@@ -1563,6 +1568,317 @@ __global__ void __launch_bounds__(Tf32DkvCfg<HD>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// dQ in f32 at head_dim 128 and 256: three-pass TF32 wgmma, TMA, two consumer
+// warpgroups and a producer warp
+// ---------------------------------------------------------------------------
+
+// The products run as the TF32 dK/dV's do (Tf32DkvCfg): three TF32 passes
+// each, 3 x 2 T^2 hd H flops over the causal half at 495 TFLOP/s, 0.3125 ms
+// at B 1, T 2048, H 32 over 8, hd 128 on an H100, against 0.77 ms for the
+// same flops at the 67 TFLOP/s of f32 FMA.
+//
+// TF32 wgmma reads both operands K-major, and the 16-bit dQ += dS K reads K
+// as a transposed B.  So a block runs S = Q K^T and dP = dO V^T (M its 64
+// query rows, N the tile's 64 keys, K hd: K and V K-major as TMA lands them,
+// split in place in the ring stage by the group that reads them), then dQ^T
+// = K^T dS^T (M hd in 64-row m tiles, N the 64 rows, K the keys): dS goes to
+// shared memory as a [row][key] tile pair, big and small, K-major for that
+// product, and K^T is an A fragment loaded from the tile's raw columns, read
+// once more through the ring, and split in registers.  Q and dO, the A of S
+// and dP, stay raw and resident and are split as they are loaded.
+//
+// Registers set the shape: dQ over 64 rows x hd in f32 takes hd / 2
+// registers a thread of one warpgroup, beside S, dP, a fresh accumulator and
+// the split A fragments: past the 168 ptxas gives a 288-thread block.  So a
+// block is two consumer warpgroups and a producer warp, as the TF32 dK/dV's:
+// group 0 runs S and turns it into P, which it leaves in the dS tile; group 1
+// runs dP and turns it into dS (reading p back from the tile); then each
+// group runs dQ^T over its half of hd's m tiles (32 / 64 registers at hd 128
+// / 256).  m log2(e), 1 / l and di belong to the block's rows: each thread
+// reads its two rows' once.  Each key tile's dQ^T product lands in a fresh
+// wgmma accumulator and is added in f32 (the tensor cores' f32 sums
+// truncate: Tf32DkvCfg), so dQ is summed in key order and stored once.
+//
+// Shared memory: Q and dO raw (64 / 128 KB at hd 128 / 256), the dS tile
+// pair (32 KB: [big | small][key chunk][64 rows][32 keys]) and a ring of 32
+// KB stages: a key tile passes hd / 32 stages of a 32-column chunk of K and
+// of V (each split in place: big, and beside it, small), then hd / 128 of
+// K's raw columns (the A of dQ^T: at hd 128 one stage both groups read, at
+// 256 one a group).  Four stages at hd 128, two at 256: 224 KB either way.
+// On an H100 80GB HBM3 at 700 W (B 1, T 2048, H 32 over 8 at hd 128, H 16
+// over 16 at hd 256) this ran 0.752-0.755 / 0.778-0.789 ms against the wide
+// dQ's 1.82-1.86 / 3.19; three stages at hd 128 1-2% slower, big rounded by
+// cvt.rna 15% / 11% slower, and the S loop's 16 A offsets held over the walk
+// spilled at hd 256 (experiments/ab_flash_dq_tf32_torch.py; 158 / 168
+// registers, no spills, no C75xx).
+template <int HD>
+struct Tf32DqCfg {
+    static constexpr int kRows = 64;   // query rows of a block: M of S and dP, N of dQ^T
+    static constexpr int kKeys = 64;   // keys of a tile: N of S and dP, K of dQ^T
+    static constexpr int kThreads = 288;
+    static constexpr int kChunks = HD / 32;     // 32-column f32 chunks of a row: 128-byte swizzled tiles
+    static constexpr int kKStages = HD / 128;   // stages of K's raw columns a key tile, 128 columns each
+    static constexpr int kUses = kChunks + kKStages;  // ring stages a key tile
+    static constexpr int kMt = HD / 128;        // 64-row m tiles of dQ^T a group owns
+    static constexpr int kStages = HD == 128 ? 4 : 2;
+    static constexpr uint32_t kTile = 64 * 128;          // a 64-row tile of one chunk (8 KB)
+    static constexpr uint32_t kQBytes = kRows * HD * 4;  // Q, and dO
+    static constexpr uint32_t kStageBytes = 4 * kTile;   // [K big | K small | V big | V small], or 4 raw tiles of K
+    // shared memory from a 1024-byte aligned base: Q, dO, the dS tiles, the
+    // ring, the barriers (Q and dO's, each stage's full and empty)
+    static constexpr uint32_t kDs0 = 2 * kQBytes;
+    static constexpr uint32_t kRing0 = kDs0 + 4 * kTile;
+    static constexpr uint32_t kBars = kRing0 + kStages * kStageBytes;
+    static constexpr uint32_t kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;  // + alignment
+    static_assert((HD == 128 || HD == 256) && kBytes <= 232448, "no TF32 dQ at this hd");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Tf32DqCfg<HD>::kThreads, 1)
+    flash_tf32_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                         const Params<float> p) {
+    using C = Tf32DqCfg<HD>;
+    constexpr float kLog2e = 1.44269504088896341f;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+    unsigned char* sQ = smem;
+    unsigned char* sDo = smem + C::kQBytes;
+    unsigned char* sDs = smem + C::kDs0;
+    auto stage = [&](int st) { return smem + C::kRing0 + st * C::kStageBytes; };
+    uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::kBars);
+    uint64_t* full = full_q + 1;
+    uint64_t* empty = full + C::kStages;
+
+    const int qi = gridDim.z - 1 - blockIdx.z;  // the longest rows first, over every head
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int r0 = qi * C::kRows;
+    const int ntiles = qi + 1;  // the key tiles up to the diagonal one
+
+    if (threadIdx.x == 0) {
+        mbar_init(full_q, 1);
+        for (int st = 0; st < C::kStages; ++st) {
+            mbar_init(full + st, 1);
+            mbar_init(empty + st, 8);  // each consumer warp once
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 256) {
+        // the producer warp: one thread loads Q and dO once, then for each
+        // key tile of KV head h / (H / KVH) its chunks of K and of V, and
+        // K's raw columns
+        if (threadIdx.x == 256) {
+            tma_prefetch_map(&tq);
+            tma_prefetch_map(&tk);
+            tma_prefetch_map(&tv);
+            tma_prefetch_map(&tdo);
+            const int kvh = h / (p.H / p.KVH);
+            mbar_expect_tx(full_q, 2 * C::kQBytes);
+            for (int c = 0; c < C::kChunks; ++c) {
+                tma_load_4d(sQ + c * C::kTile, &tq, full_q, c * 32, h, r0, b);
+                tma_load_4d(sDo + c * C::kTile, &tdo, full_q, c * 32, h, r0, b);
+            }
+            int a = 0;
+            for (int t = 0; t < ntiles; ++t) {
+                for (int u = 0; u < C::kUses; ++u, ++a) {
+                    const int st = a % C::kStages;
+                    if (a >= C::kStages) mbar_wait(empty + st, ((a / C::kStages) - 1) & 1);
+                    unsigned char* s = stage(st);
+                    if (u < C::kChunks) {  // chunk u of K and of V, each into its big tile
+                        mbar_expect_tx(full + st, 2 * C::kTile);
+                        tma_load_4d(s, &tk, full + st, u * 32, kvh, t * C::kKeys, b);
+                        tma_load_4d(s + 2 * C::kTile, &tv, full + st, u * 32, kvh, t * C::kKeys, b);
+                    } else {  // four raw chunks of K: columns 128 (u - kChunks)..
+                        const int c0 = 4 * (u - C::kChunks);
+                        mbar_expect_tx(full + st, 4 * C::kTile);
+                        for (int j = 0; j < 4; ++j)
+                            tma_load_4d(s + j * C::kTile, &tk, full + st, (c0 + j) * 32, kvh, t * C::kKeys, b);
+                    }
+                }
+            }
+        }
+        return;
+    }
+
+    // the consumer groups: r 0 runs S = Q K^T and P, r 1 dP = dO V^T and dS,
+    // with the same code on their own tiles; then each runs dQ^T += K^T dS^T
+    // over its m tiles
+    const int r = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int gq = lane / 4, t4 = lane % 4;
+    const int rl[2] = {16 * warp + gq, 16 * warp + gq + 8};  // the thread's accumulator rows of S / dP: query rows
+    const float sl2 = p.scale * kLog2e;  // exp(scale x - m) = 2^(sl2 x - m log2(e))
+    // group 0: m log2(e) and 1 / l of its rows; group 1: di
+    float rv[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const size_t ml = ((size_t)b * p.H + h) * p.T + r0 + rl[i];
+        if (r == 0) {
+            rv[0][i] = p.m[ml] * kLog2e;
+            rv[1][i] = 1.0f / p.l[ml];
+        } else {
+            rv[0][i] = p.di[ml];
+            rv[1][i] = 0.0f;
+        }
+    }
+    const unsigned char* sA = r ? sDo : sQ;  // this group's A of S or dP
+    // dQ^T, this group's m tiles (m tile r kMt + mt: hd columns 64 (r kMt +
+    // mt)..), summed in f32 round-to-nearest: each key tile's product goes
+    // to a wgmma accumulator first (acc, free once S or dP became P or dS)
+    float dacc[C::kMt][32], acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+        acc[i] = 0.0f;
+#pragma unroll
+        for (int mt = 0; mt < C::kMt; ++mt) dacc[mt][i] = 0.0f;
+    }
+    uint32_t fa[2][8];  // split A of a k step (big 0..3, small 4..7), two sets in flight
+    auto release = [&](int a, int count) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive_cnt(empty + a % C::kStages, count);  // this warp is done with the stage
+    };
+    // P, then dS, in the [row][key] tiles: the thread's values of accumulator
+    // step j, rows rl[i]
+    auto ds_off = [&](int j, int i) { return (j >> 2) * C::kTile + sw128_f32(rl[i], 8 * (j & 3) + 2 * t4); };
+
+    // the A fragments of S and dP: (row rl[i], column 8 kk + t4 (+ 4)) of a
+    // chunk is sw128_f32's rl[i] 128 + 4 t4 + (((2 kk (+ 1)) ^ gq) << 4), as
+    // rl[i] % 8 = gq; the swizzle term is rebuilt in each chunk (opaque), not
+    // held as 16 offsets over the walk
+    const uint32_t arow = rl[0] * 128 + 4 * t4;
+    mbar_wait(full_q, 0);
+    int a = 0;
+    for (int kt = 0; kt < ntiles; ++kt) {
+        // S (or dP) over the chunks, a commit group a k step; a chunk's stage
+        // goes back once the group after its last has been issued and its own
+        // have landed (rolled, as the TF32 dK/dV's)
+#pragma unroll 1
+        for (int c = 0; c < C::kChunks; ++c) {
+            const int st = (a + c) % C::kStages;
+            mbar_wait(full + st, ((a + c) / C::kStages) & 1);
+            unsigned char* tb = stage(st) + r * 2 * C::kTile;  // K's tile, or V's
+            split_tile(tb, t);
+            fence_proxy_async();
+            named_barrier_sync(1 + r, 128);
+            const unsigned char* ta = sA + c * C::kTile + arow;
+            const uint32_t ba = opaque(smem_addr(tb));
+            const uint32_t sw = opaque((uint32_t)gq << 4);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {  // A set kk % 2
+                const uint32_t x0 = sw ^ (kk << 5), x1 = x0 ^ 16;
+                load_split4(fa[kk & 1], ta, x0, x0 + 1024, x1, x1 + 1024);
+                wgmma_fence();
+                tf32x3(acc, fa[kk & 1], gmma_desc_sw128(ba + kk * 32, 16, 1024),
+                       gmma_desc_sw128(ba + C::kTile + kk * 32, 16, 1024), c > 0 || kk > 0);
+                wgmma_commit();
+                wgmma_wait<1>();  // the group before this one has landed (none before the first)
+                fence_regs(fa[(kk & 1) ^ 1]);
+                if (kk == 0 && c > 0) release(a + c - 1, 1);  // chunk c - 1's last group
+            }
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(fa[1]);
+        release(a + C::kChunks - 1, 1);
+
+        if (r == 0) {
+            // p = 2^(sl2 s - m log2(e)) * (1 / l): one FMA, ex2 and a product;
+            // 0 where the key follows the row (the diagonal tile only)
+            const int past = kt == ntiles - 1 ? 0 : C::kKeys;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float pr = ex2(fmaf(acc[4 * j + e], sl2, -rv[0][e >> 1])) * rv[1][e >> 1];
+                    acc[4 * j + e] = 8 * j + 2 * t4 + (e & 1) > rl[e >> 1] + past ? 0.0f : pr;
+                }
+            if (kt > 0) named_barrier_sync(7, 256);  // group 1's last dQ^T product is done with dS
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                    *reinterpret_cast<float2*>(sDs + ds_off(j, i)) =
+                        make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+            named_barrier_arrive(3, 256);  // P is in place for group 1
+        } else {
+            // ds = (dp - di) p scale, p as group 0 left it, split into the
+            // big and small tiles for dQ^T's B
+            named_barrier_sync(3, 256);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const float2 pr = *reinterpret_cast<const float2*>(sDs + ds_off(j, i));
+                    const float d0 = (acc[4 * j + 2 * i] - rv[0][i]) * pr.x * p.scale;
+                    const float d1 = (acc[4 * j + 2 * i + 1] - rv[0][i]) * pr.y * p.scale;
+                    uint2 hi, lo;
+                    tf32_split(d0, hi.x, lo.x);
+                    tf32_split(d1, hi.y, lo.y);
+                    *reinterpret_cast<uint2*>(sDs + ds_off(j, i)) = hi;
+                    *reinterpret_cast<uint2*>(sDs + 2 * C::kTile + ds_off(j, i)) = lo;
+                }
+            fence_proxy_async();
+        }
+        named_barrier_sync(4, 256);  // all of dS is in place for both groups' wgmma
+
+        // dQ^T += K^T dS^T over this group's m tiles: A split from the raw
+        // stage of K's columns as it is loaded, a commit group a k step, each
+        // m tile into acc first
+        const int u = a + C::kChunks + (C::kKStages > 1 ? r : 0);
+        mbar_wait(full + u % C::kStages, (u / C::kStages) & 1);
+        const uint32_t pa = opaque(smem_addr(sDs));
+#pragma unroll
+        for (int mt = 0; mt < C::kMt; ++mt) {
+            // rows 16 warp + gq (+ 8) of m tile r kMt + mt: hd columns of raw
+            // chunk 2 (m tile % 2) + warp / 2 of the stage
+            const int m = r * C::kMt + mt;
+            const unsigned char* raw = stage(u % C::kStages) + (2 * (m & 1) + warp / 2) * C::kTile;
+            const int mcol = 16 * (warp & 1) + gq;
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {  // A set kk % 2
+                load_split4(fa[kk & 1], raw, sw128_f32(8 * kk + t4, mcol), sw128_f32(8 * kk + t4, mcol + 8),
+                            sw128_f32(8 * kk + t4 + 4, mcol), sw128_f32(8 * kk + t4 + 4, mcol + 8));
+                wgmma_fence();
+                const uint32_t bd = pa + (kk >> 2) * C::kTile + (kk & 3) * 32;
+                tf32x3(acc, fa[kk & 1], gmma_desc_sw128(bd, 16, 1024), gmma_desc_sw128(bd + 2 * C::kTile, 16, 1024),
+                       kk > 0);
+                wgmma_commit();
+                if (kk > 0) {
+                    wgmma_wait<1>();
+                    fence_regs(fa[(kk & 1) ^ 1]);
+                }
+            }
+            wgmma_wait<0>();
+            fence_regs(acc);
+            fence_regs(fa[1]);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) dacc[mt][i] += acc[i];
+        }
+        release(u, C::kKStages > 1 ? 2 : 1);  // at hd 256 the stage is this group's alone: each warp counts twice
+        if (r == 1 && kt + 1 < ntiles) named_barrier_arrive(7, 256);  // the tile may take the next P
+        a += C::kUses;
+    }
+
+    // dq in f32, summed over the keys in key order, stored once: the thread
+    // holds rows 8 j + 2 t4 + (e & 1) at hd columns 64 m + 16 warp + gq + 8 (e
+    // >> 1) of its m tiles
+#pragma unroll
+    for (int mt = 0; mt < C::kMt; ++mt) {
+        const int col = 64 * (r * C::kMt + mt) + 16 * warp + gq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int row = r0 + 8 * j + 2 * t4 + (e & 1);
+                p.dq[(((size_t)b * p.T + row) * p.H + h) * HD + col + 8 * (e >> 1)] = dacc[mt][4 * j + e];
+            }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // The wide family: the same three functions where the other kernels stop, f32
 // at any head_dim (dK/dV from head_dim 384), and bf16/f16 from head_dim 640
 // (CUDA cores, f32 FMA)
@@ -1571,8 +1887,9 @@ __global__ void __launch_bounds__(Tf32DkvCfg<HD>::kThreads, 1)
 // Why CUDA cores.  f32 must keep full f32 precision (the JAX package's
 // "highest"): one TF32 pass keeps about three digits, so the tensor cores
 // take f32 only as three TF32 passes, with both operands K-major, which the
-// dK/dV kernel above does at hd 128 and 256; the f32 forward and dQ, and f32
-// dK/dV from hd 384 (K and V alone take 192 KB there), stay here.  And a
+// dK/dV and dQ kernels above do at hd 128 and 256; the f32 forward, f32
+// dK/dV from hd 384 (K and V alone take 192 KB there) and f32 dQ from hd 384
+// (Q and dO alone take 192 KB), stay here.  And a
 // warpgroup's f32 O or dQ of 64 rows takes hd / 2 registers a thread, which
 // with S and dP passes the 255-register limit above hd 256.  The 16-bit forward and dQ cut O and dQ
 // in two column slices on wgmma up to hd 512 (FwdCfg, DqCfg), and dK/dV holds
@@ -2084,6 +2401,21 @@ int launch_tf32_dkv(const Params<float>& p, int B, const DkvItem* items, int n_i
     return (int)cudaGetLastError();
 }
 
+// The TF32 dQ kernel's launch (f32): a block 64 query rows of one head, the
+// longest rows first; boxes of 64 rows of 32 f32 columns.
+template <int HD>
+int launch_tf32_dq(const Params<float>& p, int B, cudaStream_t stream) {
+    using C = Tf32DqCfg<HD>;
+    CUtensorMap tq, tk, tv, tdo;
+    const int e = encode_bwd(tq, tk, tv, tdo, p, HD, B, C::kRows, C::kKeys);
+    if (e != 0) return e;
+    const cudaError_t a =
+        cudaFuncSetAttribute(flash_tf32_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
+    if (a != cudaSuccess) return (int)a;
+    flash_tf32_dq_kernel<HD><<<dim3(p.H, B, p.T / C::kRows), C::kThreads, C::kBytes, stream>>>(tq, tk, tv, tdo, p);
+    return (int)cudaGetLastError();
+}
+
 // The dQ kernel's launch: a block the kRows query rows of one head, the
 // longest rows first.
 template <int HD, class E>
@@ -2113,11 +2445,12 @@ int launch_wide(K kernel, dim3 grid, int bytes, cudaStream_t stream, Args... arg
 
 // Every entry takes `kind` (common.cuh's Kind: f32, bf16 or f16), the type of
 // q, k, v, do and the outputs.  The plain entries run the wgmma kernels (bf16
-// or f16 at hd 128, 256, 384 and 512), the _tf32 one the TF32 dK/dV (f32 at
-// hd 128 and 256), the _wide ones the wide family (any of the three types, hd
-// a multiple of 128); each refuses what its kernels do not take.  T is a multiple of 128 and outputs are packed.  An entry returns a
-// CUDA error, or kTmaError + the CUresult of cuTensorMapEncodeTiled when a
-// tensor map cannot be encoded (nothing is launched then).
+// or f16 at hd 128, 256, 384 and 512), the _tf32 ones the TF32 dK/dV and dQ
+// (f32 at hd 128 and 256), the _wide ones the wide family (any of the three
+// types, hd a multiple of 128); each refuses what its kernels do not take.  T
+// is a multiple of 128 and outputs are packed.  An entry returns a CUDA
+// error, or kTmaError + the CUresult of cuTensorMapEncodeTiled when a tensor
+// map cannot be encoded (nothing is launched then).
 
 // o [B, T, H, hd], m, l [B, H, T] f32.
 BNB_EXPORT int bnb_flash_attention_causal_fwd(const void* q, const void* k, const void* v, void* o, float* m,
@@ -2263,6 +2596,20 @@ BNB_EXPORT int bnb_flash_attention_causal_bwd_dq(const void* q, const void* k, c
             return hd == 384 ? launch_dq<384>(p, B, stream) : launch_dq<512>(p, B, stream);
         }
     });
+}
+
+// The three-pass TF32 instance: f32 (kind kF32) at hd 128 and 256 alone.
+BNB_EXPORT int bnb_flash_attention_causal_bwd_dq_tf32(const void* q, const void* k, const void* v, const void* dout,
+                                                      const float* m, const float* l, const float* di, void* dq,
+                                                      int B, int T, int H, int KVH, int hd, long long sqb,
+                                                      long long sqt, long long skb, long long skt, long long svb,
+                                                      long long svt, long long sdb, long long sdt, float scale,
+                                                      int kind, cudaStream_t stream) {
+    if (!shapes_ok(B, T, H, KVH, hd) || kind != kF32 || (hd != 128 && hd != 256)) return (int)cudaErrorInvalidValue;
+    Params<float> p = make_params<float>(q, k, v, dout, m, l, di, T, H, KVH, sqb, sqt, skb, skt, svb, svt, sdb, sdt,
+                                         scale);
+    p.dq = static_cast<float*>(dq);
+    return hd == 128 ? launch_tf32_dq<128>(p, B, stream) : launch_tf32_dq<256>(p, B, stream);
 }
 
 BNB_EXPORT int bnb_flash_attention_causal_bwd_dq_wide(const void* q, const void* k, const void* v, const void* dout,

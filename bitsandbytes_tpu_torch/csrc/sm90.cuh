@@ -8,8 +8,8 @@
 // 128 bytes, the 16-byte chunks of row r XOR-ed with r % 8, so 8 rows make a
 // 1024-byte atom.  Every tile starts on a 1024-byte boundary.  A wider row
 // (head_dim 128 up to 512) is loaded as 64-column chunks, one tile after the
-// other; an f32 row (the TF32 dK/dV kernel) as 32-column chunks, 128 bytes
-// too.
+// other; an f32 row (the TF32 dK/dV and dQ kernels) as 32-column chunks,
+// 128 bytes too.
 #pragma once
 
 #include <cuda.h>

@@ -79,6 +79,7 @@ LAUNCHES: dict = {
     "flash_attention_causal_bwd_dkv_sliced": 0,
     "flash_attention_causal_bwd_dkv_tf32": 0,
     "flash_attention_causal_bwd_dq_sliced": 0,
+    "flash_attention_causal_bwd_dq_tf32": 0,
     "flash_attention_causal_fwd_wide": 0,
     "flash_attention_causal_bwd_dkv_wide": 0,
     "flash_attention_causal_bwd_dq_wide": 0,
@@ -234,6 +235,7 @@ _SIGNATURES = {
     # q, k, v, do, m, l, di, dq, B, T, H, KVH, hd, (batch, token) strides of q, k, v, do, scale, kind, stream
     "bnb_flash_attention_causal_bwd_dq": _FLASH_DQ,
     "bnb_flash_attention_causal_bwd_dq_wide": _FLASH_DQ,
+    "bnb_flash_attention_causal_bwd_dq_tf32": _FLASH_DQ,
 }
 
 

@@ -22,15 +22,15 @@ picks one for its kernel by type and head_dim alone (:func:`uses_wgmma`,
   head_dim streams through a ring of 64-column chunks (all of it would not
   fit shared memory beside what stays resident); all three count as
   ``..._sliced``;
-* f32 dK/dV at head_dim 128 and 256 runs on ``wgmma`` in TF32, every
+* f32 dK/dV and dQ at head_dim 128 and 256 run on ``wgmma`` in TF32, every
   product as three passes (big * big + big * small + small * big, each
   operand split into two TF32 values), because the JAX package's f32 route
   runs at "highest" precision and one TF32 pass keeps about three digits.
-  TF32 ``wgmma`` reads both operands K-major, so it computes dV^T = dO^T P
-  and dK^T = Q^T dS with P and dS staged in shared memory; it counts as
-  ``..._tf32``;
+  TF32 ``wgmma`` reads both operands K-major, so dK/dV computes dV^T = dO^T
+  P and dK^T = Q^T dS, and dQ computes dQ^T = K^T dS^T, with P and dS
+  staged in shared memory; both count as ``..._tf32``;
 * the wide family on CUDA cores in full f32 FMA takes the rest: the f32
-  forward and dQ at any head_dim, f32 dK/dV from 384, and bf16 and f16
+  forward at any head_dim, f32 dK/dV and dQ from 384, and bf16 and f16
   from 640 (a warpgroup's f32 O or dQ of 64 rows takes hd / 2 registers a
   thread, which with S and dP passes the 255-register limit above hd 256).
   A block owns 128 columns of its output and recomputes the scores over
@@ -112,8 +112,9 @@ HEAD_DIM_STEP = 128
 # takes every other type and head_dim
 WGMMA_HEAD_DIMS = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256, 384, 512)}
 # the head_dims at which each kernel runs in f32 on three-pass TF32 wgmma
-# (dK/dV alone; above 256 its K and V leave too little shared memory)
-TF32_HEAD_DIMS = {"fwd": (), "dkv": (128, 256), "dq": ()}
+# (dK/dV and dQ; above 256 dK/dV's K and V, and dQ's Q and dO, leave too
+# little shared memory for the ring beside them)
+TF32_HEAD_DIMS = {"fwd": (), "dkv": (128, 256), "dq": (128, 256)}
 
 
 def _shapes(q, k, v):
@@ -259,7 +260,7 @@ def uses_wgmma(kernel: str, dtype: torch.dtype, hd: int) -> bool:
 
 def uses_tf32(kernel: str, dtype: torch.dtype, hd: int) -> bool:
     """Whether ``kernel`` runs on three-pass TF32 wgmma for q/k/v of
-    ``dtype`` at ``hd``: f32 dK/dV at head_dim 128 and 256."""
+    ``dtype`` at ``hd``: f32 dK/dV and dQ at head_dim 128 and 256."""
     return dtype == torch.float32 and hd in TF32_HEAD_DIMS[kernel]
 
 
@@ -267,7 +268,7 @@ def launch_name(kernel: str, dtype: torch.dtype, hd: int) -> str:
     """The launch count ``kernel`` adds to for q/k/v of ``dtype`` at ``hd``:
     its wgmma instance's, ``..._sliced`` for the wgmma instances above
     head_dim 256 (the forward's and dQ's column slices, dK/dV's and dQ's
-    streamed chunks), ``..._tf32`` for the TF32 instance, or ``..._wide``.
+    streamed chunks), ``..._tf32`` for the TF32 instances, or ``..._wide``.
     A ``_sliced`` instance runs through its kernel's plain C entry
     (:func:`c_entry`)."""
     name = _BASE_NAMES[kernel]
@@ -533,10 +534,11 @@ def flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di):
 
 def _dq_args(q, k, v, do, m, l, di):
     """Everything the dQ kernel checks before a launch (``_bwd_args``, and
-    ``_dq_checks`` on the wgmma kernel): ``(shapes, pointers, strides)``, or
-    it raises."""
+    ``_dq_checks`` on the 16-bit and TF32 wgmma kernels): ``(shapes,
+    pointers, strides)``, or it raises."""
     args = _bwd_args(q, k, v, do, m, l, di)
-    if uses_wgmma("dq", q.dtype, args[0][4]):
+    hd = args[0][4]
+    if uses_wgmma("dq", q.dtype, hd) or uses_tf32("dq", q.dtype, hd):
         _dq_checks(q, k, v, do)
     return args
 
@@ -546,8 +548,10 @@ def flash_attention_causal_bwd_dq(q, k, v, do, m, l, di):
     of one head (64 at head_dim 256; 64 rows and half of the columns at 384
     and 512; in the wide family 64 rows and 128 columns of dq) and walks the
     key tiles up to the diagonal in key order, the sum in f32 registers (no
-    atomics, so every call gives the same bits); the wgmma kernel reads q,
-    k, v and do in place through TMA tensor maps over their strides."""
+    atomics, so every call gives the same bits; in f32 at head_dim 128 and
+    256 the three-pass TF32 instance, :func:`uses_tf32`, a block 64 rows and
+    all of hd); the wgmma kernels read q, k, v and do in place through TMA
+    tensor maps over their strides."""
     if not use_kernel(q, k, v, do, m, l, di):
         return flash_attention_causal_bwd_dq_plain(q, k, v, do, m, l, di)
     (B, T, H, KVH, hd), ptrs, strides = _dq_args(q, k, v, do, m, l, di)

@@ -186,7 +186,7 @@ def test_bf16_hd512_train_step_loss_matches_jax(flash_route):
 # the head_dims each kernel takes on wgmma in bf16 and f16, and on
 # three-pass TF32 wgmma in f32 (the wide family takes the rest)
 WGMMA = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256, 384, 512)}
-TF32 = {"fwd": (), "dkv": (128, 256), "dq": ()}
+TF32 = {"fwd": (), "dkv": (128, 256), "dq": (128, 256)}
 
 
 @pytest.mark.parametrize("dtype", list(TORCH_TYPES))
@@ -196,11 +196,11 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
     the cases the JAX package's ``_flash_ok`` conditions send to its flash
     kernel, its backend check aside; each kernel of an accepted case has one
     family: all three run on wgmma for bf16 and f16 at head_dim 128, 256,
-    384 and 512, f32 dK/dV on TF32 wgmma at 128 and 256, and the wide family
-    takes the rest.  Each kernel counts its launches under a name of the
-    library's counts that shows which ran: ``_sliced`` for the wgmma
-    instances at 384 and 512, ``_tf32`` for the TF32 instance, ``_wide`` for
-    the wide family."""
+    384 and 512, f32 dK/dV and dQ on TF32 wgmma at 128 and 256, and the wide
+    family takes the rest.  Each kernel counts its launches under a name of
+    the library's counts that shows which ran: ``_sliced`` for the wgmma
+    instances at 384 and 512, ``_tf32`` for the TF32 instances, ``_wide``
+    for the wide family."""
     tt = TORCH_TYPES[dtype]
     cfg = JL.LlamaConfig.tiny()
     for T in (1024, 1088, 1152, 2048, 4096):
@@ -233,7 +233,7 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
 def test_launch_names_map_to_c_entries(kernel, dtype, hd):
     """Each launch count a wrapper adds to (``launch_name``) names, through
     ``c_entry``, a C entry the library binds: a ``_sliced`` instance runs
-    through its kernel's plain entry, the ``_tf32`` one through its own, a
+    through its kernel's plain entry, a ``_tf32`` one through its own, a
     ``_wide`` one through the wide family's.  A name that maps to no entry would fail only on the card, at
     the first launch of that type and head_dim."""
     tt = TORCH_TYPES[dtype]

@@ -1,12 +1,13 @@
-"""Kernel 18's f32 instance at head_dim 128 and 256 (the causal flash dK/dV
-on three-pass TF32 ``wgmma``, ``csrc/flash_attention.cu``'s
-``flash_tf32_dkv_kernel``), on the CPU.
+"""Kernels 18 and 19's f32 instances at head_dim 128 and 256 (the causal
+flash dK/dV and dQ on three-pass TF32 ``wgmma``, ``csrc/flash_attention.cu``'s
+``flash_tf32_dkv_kernel`` and ``flash_tf32_dq_kernel``), on the CPU.
 
-The kernel runs only on the card; here its arithmetic is emulated in torch
-and held against the JAX package's f32 dK/dV (the upstream Pallas TPU flash
-kernel in interpret mode, ``test_torch_flash_dtypes._case``'s inputs and
-reference).  The emulation takes the kernel's four products, S^T = K Q^T,
-dP^T = V dO^T, dV^T = dO^T P and dK^T = Q^T dS, each as three TF32 passes
+The kernels run only on the card; here their arithmetic is emulated in torch
+and held against the JAX package's f32 dK/dV and dQ (the upstream Pallas TPU
+flash kernels in interpret mode, ``test_torch_flash_dtypes._case``'s inputs
+and reference).  The dK/dV emulation takes that kernel's four products, S^T
+= K Q^T, dP^T = V dO^T, dV^T = dO^T P and dK^T = Q^T dS, the dQ emulation
+its three, S = Q K^T, dP = dO V^T and dQ^T = K^T dS^T, each as three TF32 passes
 (big * big + big * small + small * big, every operand split as the kernel's
 ``tf32_split`` does: ``big`` x with its low 13 bits zeroed, ``small = x -
 big`` rounded to 10 mantissa bits with ties away from zero, as
@@ -14,14 +15,14 @@ big`` rounded to 10 mantissa bits with ties away from zero, as
 the plain version's p and ds from those scores.  Products of TF32
 values are exact in f32, so an f32 matmul of them sums as the tensor
 cores' f32 accumulation does, in another order.  The gate is the card's
-(``chip_smoke.FLASH_TOLERANCES["float32"]``): dk and dv within 1e-4 of
+(``chip_smoke.FLASH_TOLERANCES["float32"]``): dk, dv and dq within 1e-4 of
 their largest magnitude.  A single TF32 pass on the same inputs misses it,
 so the gate tells the two apart.
 
-Also the route (the f32 dK/dV at 128 and 256 counts and launches as
-``..._tf32``; 384 and up, and the f32 forward and dQ, stay on the wide
-family) and that a failing launch of the instance raises instead of falling
-back to the wide kernel.
+Also the route (the f32 dK/dV and dQ at 128 and 256 count and launch as
+``..._tf32``; 384 and up, and the f32 forward, stay on the wide family) and
+that a failing launch of either instance raises instead of falling back to
+the wide kernel.
 """
 
 import numpy as np
@@ -34,7 +35,7 @@ from test_torch_flash_dtypes import KVH, _case
 
 torch.set_num_threads(1)
 
-GATE = 1e-4  # dk, dv relative to their largest magnitude
+GATE = 1e-4  # dk, dv, dq relative to their largest magnitude
 # (T, hd, G) of the JAX reference: 4 query heads over 2 KV heads at hd 128,
 # one each at hd 256
 SHAPES = [(256, 128, 2), (384, 256, 1)]
@@ -94,12 +95,29 @@ def _dkv_emulated(q, k, v, do, m, l, di, mm):
     return fold(dkt), fold(dvt)
 
 
+def _dq_emulated(q, k, v, do, m, l, di, mm):
+    """The dQ kernel's dq with every product through ``mm``: [B, T, H, hd]
+    f32.  Keys after their query get p = 0, as the kernel masks them; p is
+    exact f32 (no product reads it), ds = (dp - di) p scale."""
+    B, T, H, hd = q.shape
+    G, scale = H // k.shape[2], hd**-0.5
+    qh, doh = q.transpose(1, 2), do.transpose(1, 2)  # [B, H, T, hd]
+    kh, vh = (t.repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
+    s = mm(qh, kh.transpose(-1, -2)) * scale  # S: [B, H, rows, keys]
+    keep = torch.arange(T)[:, None] >= torch.arange(T)[None, :]  # key <= row
+    pr = torch.where(keep, torch.exp(s - m[..., None]) * (1.0 / l[..., None]), 0.0)
+    dp = mm(doh, vh.transpose(-1, -2))
+    ds = (dp - di[..., None]) * pr * scale
+    dqt = mm(kh.transpose(-1, -2), ds.transpose(-1, -2))  # dQ^T = K^T dS^T: [B, H, hd, rows]
+    return dqt.permute(0, 3, 1, 2)
+
+
 _INPUTS = {}
 
 
 def _inputs(T, hd, G):
     """The JAX package's f32 case: torch inputs, m, l and di from the plain
-    forward, and the JAX dk, dv."""
+    forward, and the JAX dk, dv and dq."""
     key = (T, hd, G)
     if key not in _INPUTS:
         (q, k, v, g), _, grads = _case("float32", T, hd, G)
@@ -107,7 +125,7 @@ def _inputs(T, hd, G):
         do = torch.from_numpy(g).reshape(1, T, KVH * G, hd)
         o, m, l = FA.flash_attention_causal_fwd_plain(q, k, v)
         di = (o * do).sum(-1).transpose(1, 2).contiguous()
-        _INPUTS[key] = ((q, k, v, do, m, l, di), grads[1], grads[2])
+        _INPUTS[key] = ((q, k, v, do, m, l, di), grads[1], grads[2], grads[0])
     return _INPUTS[key]
 
 
@@ -120,7 +138,7 @@ def test_three_pass_tf32_meets_the_f32_gate(T, hd, G):
     """Three TF32 passes per product, as the kernel runs them, give dk and
     dv within 1e-4 of the JAX package's f32 ones (about 1e-6); rounding or
     truncating both halves does too."""
-    bwd, dk_ref, dv_ref = _inputs(T, hd, G)
+    bwd, dk_ref, dv_ref, _ = _inputs(T, hd, G)
     for split in SPLITS:
         dk, dv = _dkv_emulated(*bwd, lambda a, b, split=split: _mm3(a, b, split))
         errs = (_rel(dk, dk_ref), _rel(dv, dv_ref))
@@ -132,7 +150,7 @@ def test_one_tf32_pass_misses_the_f32_gate(T, hd, G):
     """One TF32 pass per product on the same inputs falls outside 1e-4:
     the gate the card holds the kernel to would catch a kernel that dropped
     the small halves."""
-    bwd, dk_ref, dv_ref = _inputs(T, hd, G)
+    bwd, dk_ref, dv_ref, _ = _inputs(T, hd, G)
     dk, dv = _dkv_emulated(*bwd, _mm1)
     assert max(_rel(dk, dk_ref), _rel(dv, dv_ref)) > GATE
 
@@ -142,30 +160,78 @@ def test_emulation_of_full_f32_matches_the_plain_version(T, hd, G):
     """The emulation with exact f32 products is the plain version's
     function (which the card holds the kernel against): within 1e-5 of
     its dk and dv."""
-    bwd, _, _ = _inputs(T, hd, G)
+    bwd = _inputs(T, hd, G)[0]
     dk, dv = _dkv_emulated(*bwd, torch.matmul)
     dkp, dvp = FA.flash_attention_causal_bwd_dkv_plain(*bwd)
     for got, want in ((dk, dkp), (dv, dvp)):
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
 
 
+@pytest.mark.parametrize("T,hd,G", SHAPES, ids=[f"T{t}-hd{h}-G{g}" for t, h, g in SHAPES])
+def test_three_pass_tf32_dq_meets_the_f32_gate(T, hd, G):
+    """The dQ kernel's three products (S = Q K^T, dP = dO V^T, dQ^T = K^T
+    dS^T), three TF32 passes each as the kernel runs them, give dq within
+    1e-4 of the JAX package's f32 dq; rounding or truncating both halves
+    does too."""
+    bwd, _, _, dq_ref = _inputs(T, hd, G)
+    for split in SPLITS:
+        dq = _dq_emulated(*bwd, lambda a, b, split=split: _mm3(a, b, split))
+        assert _rel(dq, dq_ref) <= GATE, (split, _rel(dq, dq_ref))
+
+
+@pytest.mark.parametrize("T,hd,G", SHAPES, ids=[f"T{t}-hd{h}-G{g}" for t, h, g in SHAPES])
+def test_one_tf32_pass_dq_misses_the_f32_gate(T, hd, G):
+    """One TF32 pass per product of the dQ kernel falls outside 1e-4 of the
+    JAX package's dq: the card's gate would catch a dQ kernel that dropped
+    the small halves."""
+    bwd, _, _, dq_ref = _inputs(T, hd, G)
+    assert _rel(_dq_emulated(*bwd, _mm1), dq_ref) > GATE
+
+
+@pytest.mark.parametrize("T,hd,G", SHAPES, ids=[f"T{t}-hd{h}-G{g}" for t, h, g in SHAPES])
+def test_dq_emulation_of_full_f32_matches_the_plain_version(T, hd, G):
+    """The dQ emulation with exact f32 products is the plain version's
+    function (which the card holds the kernel against): within 1e-5 of its
+    dq."""
+    bwd = _inputs(T, hd, G)[0]
+    dq = _dq_emulated(*bwd, torch.matmul)
+    dqp = FA.flash_attention_causal_bwd_dq_plain(*bwd)
+    assert float((dq - dqp).abs().max() / dqp.abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("hd", [128, 256, 384, 512, 640])
 def test_f32_dkv_route(hd):
     """f32 dK/dV at head_dim 128 and 256 counts and launches as ``_tf32``
     through a C entry the library binds; from 384 it stays on the wide
-    family, and so do the f32 forward and dQ at every head_dim."""
+    family, and so does the f32 forward at every head_dim."""
     f32 = torch.float32
     name, entry = FA.launch_name("dkv", f32, hd), FA.c_entry(FA.launch_name("dkv", f32, hd))
     tf32 = hd in (128, 256)
     assert FA.uses_tf32("dkv", f32, hd) == tf32 and not FA.uses_wgmma("dkv", f32, hd)
     assert name == "flash_attention_causal_bwd_dkv" + ("_tf32" if tf32 else "_wide"), name
     assert name in _lib.LAUNCHES and entry == "bnb_" + name and entry in _lib._SIGNATURES
-    for kernel in ("fwd", "dq"):
-        assert FA.launch_name(kernel, f32, hd) == FA._BASE_NAMES[kernel] + "_wide"
-        assert not FA.uses_tf32(kernel, f32, hd)
+    assert FA.launch_name("fwd", f32, hd) == FA._BASE_NAMES["fwd"] + "_wide"
+    assert not FA.uses_tf32("fwd", f32, hd)
     for dt in (torch.bfloat16, torch.float16):  # the 16-bit route is untouched
         assert not FA.uses_tf32("dkv", dt, hd)
         assert not FA.launch_name("dkv", dt, hd).endswith("_tf32")
+
+
+@pytest.mark.parametrize("hd", [128, 256, 384, 512, 640])
+def test_f32_dq_route(hd):
+    """f32 dQ at head_dim 128 and 256 counts and launches as ``_tf32``
+    through a C entry the library binds; from 384 it stays on the wide
+    family; the 16-bit dQ never takes the TF32 instance."""
+    f32 = torch.float32
+    name = FA.launch_name("dq", f32, hd)
+    entry = FA.c_entry(name)
+    tf32 = hd in (128, 256)
+    assert FA.uses_tf32("dq", f32, hd) == tf32 and not FA.uses_wgmma("dq", f32, hd)
+    assert name == "flash_attention_causal_bwd_dq" + ("_tf32" if tf32 else "_wide"), name
+    assert name in _lib.LAUNCHES and entry == "bnb_" + name and entry in _lib._SIGNATURES
+    for dt in (torch.bfloat16, torch.float16):
+        assert not FA.uses_tf32("dq", dt, hd)
+        assert not FA.launch_name("dq", dt, hd).endswith("_tf32")
 
 
 class _FailingLib:
@@ -206,5 +272,43 @@ def test_failed_tf32_launch_raises_without_fallback(monkeypatch, hd):
     _lib.reset_launch_counts()
     with pytest.raises(RuntimeError, match="flash_attention_causal_bwd_dkv_tf32"):
         FA.flash_attention_causal_bwd_dkv(q, k, v, do, m, l, di)
+    assert lib.called == ["tf32"]
+    assert not any(_lib.launch_counts().values())
+
+
+class _FailingDqLib:
+    """Stands in for the kernel library: the TF32 dQ entry fails its launch,
+    and any other entry records that it was called."""
+
+    def __init__(self):
+        self.called = []
+
+    def bnb_flash_attention_causal_bwd_dq_tf32(self, *args):
+        self.called.append("tf32")
+        return 1  # cudaErrorInvalidValue
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.called.append(name)
+            return 0
+
+        return entry
+
+
+@pytest.mark.parametrize("T,hd,G", SHAPES, ids=[f"T{t}-hd{h}-G{g}" for t, h, g in SHAPES])
+def test_failed_tf32_dq_launch_raises_without_fallback(monkeypatch, T, hd, G):
+    """A launch error of the TF32 dQ raises from the wrapper: the call never
+    goes on to the wide kernel or the plain version, and counts no launch."""
+    lib = _FailingDqLib()
+    H = KVH * G
+    q, k, v, do = (torch.randn(1, T, n, hd) for n in (H, KVH, KVH, H))
+    m, l, di = torch.zeros(1, H, T), torch.ones(1, H, T), torch.zeros(1, H, T)
+    monkeypatch.setattr(FA, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(FA._lib, "lib", lambda: lib)
+    monkeypatch.setattr(FA._lib, "stream", lambda t: 0)
+    monkeypatch.setattr(FA, "flash_attention_causal_bwd_dq_plain", lambda *a: pytest.fail("fell back"))
+    _lib.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="flash_attention_causal_bwd_dq_tf32"):
+        FA.flash_attention_causal_bwd_dq(q, k, v, do, m, l, di)
     assert lib.called == ["tf32"]
     assert not any(_lib.launch_counts().values())
