@@ -1,10 +1,10 @@
 // Causal flash attention of the training path (no cache): the forward, the
 // dK/dV and the dQ kernel, T a multiple of 128, in three families: the wgmma
 // kernels take bf16 and f16 at head_dim 128, 256, 384 and 512; three-pass
-// TF32 wgmma instances of dK/dV and dQ take f32 at head_dim 128 and 256; the
-// wide family (at the end of the file) takes the f32 forward at any head_dim
-// that is a multiple of 128, f32 dK/dV and dQ from head_dim 384, and bf16 and
-// f16 where the wgmma kernels stop, from head_dim 640.
+// TF32 wgmma instances of all three take f32 at head_dim 128 and 256; the
+// wide family (at the end of the file) takes f32 from head_dim 384 (any
+// multiple of 128), and bf16 and f16 where the wgmma kernels stop, from
+// head_dim 640.
 //
 // Replaces the three TPU kernels the JAX package reaches through
 // models/llama.py:_flash_call, in jax/experimental/pallas/ops/tpu/
@@ -95,11 +95,16 @@
 //   of one head, S and dP by two consumer warpgroups as three TF32 passes,
 //   then dQ^T = K^T dS^T with dS through shared memory, each group over half
 //   of hd.
+// * The forward in f32 at hd 128 and 256 (Tf32FwdCfg says why): a block 64
+//   query rows of one head, S = Q K^T and the softmax by one consumer
+//   warpgroup as three TF32 passes, then O^T += V^T P^T with P through
+//   shared memory by both, each over half of hd.
 // * Causal work only: tiles above the diagonal are never loaded (a dQ
 //   consumer stops at its own diagonal tile).  Blocks with the most tiles
 //   launch first.
 // * Fixed order everywhere, so a result is the same from run to run.
 #include <cmath>
+#include <type_traits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -107,7 +112,7 @@
 namespace {
 
 // E: the element type of q, k, v, do and the outputs (bf16 or f16 on the
-// wgmma kernels; f32 on the TF32 dK/dV and dQ; f32, bf16 or f16 on the wide
+// wgmma kernels; f32 on the TF32 instances; f32, bf16 or f16 on the wide
 // family)
 template <class E>
 struct Params {
@@ -1879,6 +1884,390 @@ __global__ void __launch_bounds__(Tf32DqCfg<HD>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// The forward in f32 at head_dim 128 and 256: three-pass TF32 wgmma, TMA, two
+// consumer warpgroups and a producer warp
+// ---------------------------------------------------------------------------
+
+// The products run as the TF32 dK/dV's do (Tf32DkvCfg): three TF32 passes
+// each, 3 x 2 products of 2 hd flops a (row, key) pair of the causal half at
+// 495 TFLOP/s, 0.2083 ms at B 1, T 2048, H 32 over 8, hd 128 on an H100,
+// against 0.513 ms for the same flops at the 67 TFLOP/s of f32 FMA.
+//
+// TF32 wgmma reads both operands K-major, and the 16-bit O += P V reads V as
+// a transposed B.  So a block runs S = Q K^T (M its 64 query rows, N the
+// tile's 64 keys, K hd: K K-major as TMA lands it, split in place in the ring
+// stage), then O^T += V^T P^T (M hd in 64-row m tiles, N the 64 rows, K the
+// keys): P goes to shared memory as a [row][key] tile pair, big and small,
+// K-major for that product, and V^T is an A fragment loaded from V's raw
+// columns and split in registers, as the TF32 dQ builds K^T.  Q stays raw and
+// resident and is split as it is loaded.  With O held transposed, a query row
+// is an accumulator column: the online softmax's correction and the final
+// 1 / l are a factor a column, staged in shared memory beside P.
+//
+// Registers set the shape.  ptxas gives a 288-thread block 168 registers a
+// thread, and O^T over 64 rows x hd takes hd / 2 of a warpgroup's, beside S
+// (two chains, below: 64), a fresh accumulator and two sets of a k step's
+// split A (16).  So a block is two consumer warpgroups and a producer warp,
+// and each group owns half of O^T's m tiles: group 0 runs S, the online
+// softmax and P, then its half of O^T += V^T P^T; group 1 its half, while
+// group 0 goes on to the next S.  Each tile's product lands in a fresh wgmma
+// accumulator and is added in f32 round-to-nearest, O^T = O^T corr + acc
+// (the tensor cores' f32 sums truncate: Tf32DkvCfg).  For the same reason
+// S's big * big passes chain in one accumulator and its two small passes in
+// another, added once a tile: one chain of all three held o to 7.3e-6 /
+// 7.9e-6 of the plain version at T 2048, against the gate's 1e-5 (two: 3.5e-6
+// / 3.3e-6).  At hd 256 group 0's two m tiles wait in shared memory between
+// its products (in registers beside S they spilled at 168).  Pipelining the
+// groups at hd 128 instead (group 0's S and softmax of tile t + 1 against
+// group 1's whole O^T for tile t, through two P buffers) made ptxas
+// serialize every wgmma (C7513) in each variant tried.  On an H100 80GB HBM3
+// at 700 W (B 1, T 2048, H 32 over 8 at hd 128, H 16 over 16 at hd 256) this
+// ran 0.5988-0.6008 / 0.5505-0.5603 ms against the wide forward's
+// 1.0925-1.1261 / 1.7194-1.7205; one chain for S 5% faster at hd 128, three
+// or five stages there and two at hd 256 0-2% slower, the pipelined design
+// 0.66-0.72 (experiments/ab_flash_fwd_tf32_torch.py; 167 / 165 registers, no
+// spills, no C75xx).
+//
+// Shared memory: Q raw (32 / 64 KB at hd 128 / 256), the P tile pair (32
+// KB: [big | small][key chunk][64 rows][32 keys]), at hd 256 group 0's half
+// of O^T (32 KB), the rows' corrections and their final l, and a ring of 32
+// KB stages: a key tile passes hd / 64 stages of two 32-column chunks of K
+// (each split in place: big, and beside it, small), then hd / 128 stages of
+// V's raw columns (the A of O^T: at hd 128 one both groups read, at 256 one
+// a group).  Four stages at hd 128, three at 256: 193 / 225 KB.
+template <int HD>
+struct Tf32FwdCfg {
+    static constexpr int kRows = 64;  // query rows of a block: M of S, N of O^T
+    static constexpr int kKeys = 64;  // keys of a tile: N of S, K of O^T
+    static constexpr int kThreads = 288;
+    static constexpr int kChunks = HD / 32;       // 32-column f32 chunks of a row: 128-byte swizzled tiles
+    static constexpr int kKStages = kChunks / 2;  // stages of K a key tile, two chunks each
+    static constexpr int kVStages = HD / 128;     // stages of V's raw columns a key tile, 128 each
+    static constexpr int kUses = kKStages + kVStages;  // ring stages a key tile
+    static constexpr int kMt = HD / 128;  // 64-row m tiles of O^T a group owns: r kMt..
+    static constexpr bool kStashO = HD == 256;  // group 0's m tiles in shared memory between its products
+    static constexpr int kStages = HD == 128 ? 4 : 3;
+    static constexpr uint32_t kTile = 64 * 128;          // a 64-row tile of one chunk (8 KB)
+    static constexpr uint32_t kQBytes = kRows * HD * 4;
+    static constexpr uint32_t kStageBytes = 4 * kTile;   // [K big | K small] of two chunks, or 4 raw tiles of V
+    static constexpr uint32_t kOBytes = kStashO ? kMt * 32 * 128 * 4 : 0;
+    // shared memory from a 1024-byte aligned base: Q, the P tiles, group 0's
+    // O^T, the ring, the corrections and l (64 f32 each), the barriers (Q's,
+    // each stage's full and empty)
+    static constexpr uint32_t kP0 = kQBytes;
+    static constexpr uint32_t kO0 = kP0 + 4 * kTile;
+    static constexpr uint32_t kRing0 = kO0 + kOBytes;
+    static constexpr uint32_t kVals0 = kRing0 + kStages * kStageBytes;
+    static constexpr uint32_t kBars = kVals0 + 2 * kRows * 4;
+    static constexpr uint32_t kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;  // + alignment
+    static_assert((HD == 128 || HD == 256) && kBytes <= 232448, "no TF32 forward at this hd");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Tf32FwdCfg<HD>::kThreads, 1)
+    flash_tf32_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Params<float> p) {
+    using C = Tf32FwdCfg<HD>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+    unsigned char* sQ = smem;
+    unsigned char* sP = smem + C::kP0;
+    auto stage = [&](int st) { return smem + C::kRing0 + st * C::kStageBytes; };
+    float* vals = reinterpret_cast<float*>(smem + C::kVals0);  // [the rows' corrections | l]
+    uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::kBars);
+    uint64_t* full = full_q + 1;
+    uint64_t* empty = full + C::kStages;
+
+    const int qi = gridDim.z - 1 - blockIdx.z;  // the longest rows first, over every head
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int r0 = qi * C::kRows;
+    const int ntiles = qi + 1;  // the key tiles up to the diagonal one
+
+    if (threadIdx.x == 0) {
+        mbar_init(full_q, 1);
+        for (int st = 0; st < C::kStages; ++st) {
+            mbar_init(full + st, 1);
+            mbar_init(empty + st, 8);  // each consumer warp once
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 256) {
+        // the producer warp: one thread loads Q once, then for each key tile
+        // of KV head h / (H / KVH) its chunks of K, two a stage, and V's raw
+        // columns
+        if (threadIdx.x == 256) {
+            tma_prefetch_map(&tq);
+            tma_prefetch_map(&tk);
+            tma_prefetch_map(&tv);
+            const int kvh = h / (p.H / p.KVH);
+            mbar_expect_tx(full_q, C::kQBytes);
+            for (int c = 0; c < C::kChunks; ++c) tma_load_4d(sQ + c * C::kTile, &tq, full_q, c * 32, h, r0, b);
+            int a = 0;
+            for (int t = 0; t < ntiles; ++t) {
+                for (int u = 0; u < C::kUses; ++u, ++a) {
+                    const int st = a % C::kStages;
+                    if (a >= C::kStages) mbar_wait(empty + st, ((a / C::kStages) - 1) & 1);
+                    unsigned char* s = stage(st);
+                    if (u < C::kKStages) {  // chunks 2 u and 2 u + 1 of K, each into its big tile
+                        mbar_expect_tx(full + st, 2 * C::kTile);
+                        for (int j = 0; j < 2; ++j)
+                            tma_load_4d(s + 2 * j * C::kTile, &tk, full + st, (2 * u + j) * 32, kvh, t * C::kKeys, b);
+                    } else {  // four raw chunks of V: columns 128 (u - kKStages)..
+                        const int c0 = 4 * (u - C::kKStages);
+                        mbar_expect_tx(full + st, 4 * C::kTile);
+                        for (int j = 0; j < 4; ++j)
+                            tma_load_4d(s + j * C::kTile, &tv, full + st, (c0 + j) * 32, kvh, t * C::kKeys, b);
+                    }
+                }
+            }
+        }
+        return;
+    }
+
+    // the consumer groups: r 0 runs S = Q K^T, the softmax and P, then both
+    // run O^T += V^T P^T over their m tiles
+    const int r = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int gq = lane / 4, t4 = lane % 4;
+    const int rl[2] = {16 * warp + gq, 16 * warp + gq + 8};  // the thread's accumulator rows of S: query rows
+    const float sl2 = p.scale * 1.44269504088896341f;       // scale * log2(e): exp(scale x) = 2^(sl2 x)
+    // O^T, this group's m tiles (m tile r kMt + mt: hd columns 64 m..),
+    // summed in f32 round-to-nearest: each key tile's product goes to a
+    // wgmma accumulator first (acc; group 0's S before it)
+    float dacc[C::kMt][32], acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+        acc[i] = 0.0f;
+#pragma unroll
+        for (int mt = 0; mt < C::kMt; ++mt) dacc[mt][i] = 0.0f;
+    }
+    uint32_t fa[2][8];  // split A of a k step (big 0..3, small 4..7), two sets in flight
+    auto release = [&](int a, int count) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive_cnt(empty + a % C::kStages, count);  // this warp is done with the stage
+    };
+    // group 0's m tiles at hd 256 between its products: float4 i of the
+    // thread's values at (i, t), conflict-free
+    float4* o_stash = reinterpret_cast<float4*>(smem + C::kO0) + t;
+    auto stash_o = [&](bool load) {
+#pragma unroll
+        for (int i = 0; i < 8 * C::kMt; ++i) {
+            float* d = &dacc[i >> 3][4 * (i & 7)];
+            if (load) {
+                const float4 x = o_stash[128 * i];
+                d[0] = x.x, d[1] = x.y, d[2] = x.z, d[3] = x.w;
+            } else {
+                o_stash[128 * i] = make_float4(d[0], d[1], d[2], d[3]);
+            }
+        }
+    };
+
+    // O^T = O^T corr + V^T P^T over this group's m tiles for the key tile at
+    // ring use a: A split from the raw stage of V's columns as it is loaded,
+    // a commit group a k step, each m tile into acc first
+    auto add_pv = [&](int a) {
+        const int u = a + C::kKStages + (C::kVStages > 1 ? r : 0);  // at hd 128 both groups read one stage
+        mbar_wait(full + u % C::kStages, (u / C::kStages) & 1);
+        const uint32_t pa = opaque(smem_addr(sP));
+        const float2* corr = reinterpret_cast<const float2*>(vals);
+#pragma unroll
+        for (int mt = 0; mt < C::kMt; ++mt) {
+            // rows 16 warp + gq (+ 8) of the stage's m tile sm: hd columns of
+            // raw chunk 2 sm + warp / 2
+            const int sm = C::kVStages > 1 ? mt : r;
+            const unsigned char* raw = stage(u % C::kStages) + (2 * sm + warp / 2) * C::kTile;
+            const int mcol = 16 * (warp & 1) + gq;
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {  // A set kk % 2
+                load_split4(fa[kk & 1], raw, sw128_f32(8 * kk + t4, mcol), sw128_f32(8 * kk + t4, mcol + 8),
+                            sw128_f32(8 * kk + t4 + 4, mcol), sw128_f32(8 * kk + t4 + 4, mcol + 8));
+                wgmma_fence();
+                const uint32_t bd = pa + (kk >> 2) * C::kTile + (kk & 3) * 32;
+                tf32x3(acc, fa[kk & 1], gmma_desc_sw128(bd, 16, 1024), gmma_desc_sw128(bd + 2 * C::kTile, 16, 1024),
+                       kk > 0);
+                wgmma_commit();
+                if (kk > 0) {
+                    wgmma_wait<1>();
+                    fence_regs(fa[(kk & 1) ^ 1]);
+                }
+            }
+            wgmma_wait<0>();
+            fence_regs(acc);
+            fence_regs(fa[1]);
+            // the thread's columns: query rows 8 j + 2 t4 + (e & 1)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const float2 c = corr[4 * j + t4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    dacc[mt][4 * j + e] = fmaf(dacc[mt][4 * j + e], (e & 1) ? c.y : c.x, acc[4 * j + e]);
+            }
+        }
+        release(u, C::kVStages > 1 ? 2 : 1);  // at hd 256 the stage is this group's alone: each warp counts twice
+    };
+
+    if (r == 0) {
+        float m[2] = {-INFINITY, -INFINITY};  // the row max of the unscaled scores
+        float l[2] = {0.0f, 0.0f};            // this thread's part of the row sum
+        float acc2[32];                       // S's small passes (acc holds its big * big ones)
+        // the A fragments of S: (row rl[i], column 8 kk + t4 (+ 4)) of a chunk
+        // is sw128_f32's rl[i] 128 + 4 t4 + (((2 kk (+ 1)) ^ gq) << 4), as
+        // rl[i] % 8 = gq; the swizzle term is rebuilt in each chunk (opaque),
+        // as the TF32 dQ's
+        const uint32_t arow = rl[0] * 128 + 4 * t4;
+        // chunk c of S for the key tile at ring use a, a commit group a k
+        // step; a stage goes back once the group after its last has been
+        // issued and its own have landed.  `first` (chunk 0) starts both
+        // chains with a scale_d of 0 known at compile time: with it known
+        // only at run time the loop spilled at hd 256
+        auto s_chunk = [&](int a, int c, auto first) {  // first: std::true_type for chunk 0
+            const int sa = a + c / 2;  // the ring use of chunk c's stage
+            const int st = sa % C::kStages;
+            if ((c & 1) == 0) mbar_wait(full + st, (sa / C::kStages) & 1);
+            unsigned char* tb = stage(st) + (c & 1) * 2 * C::kTile;  // K's chunk c
+            split_tile(tb, t);
+            fence_proxy_async();
+            named_barrier_sync(1, 128);
+            const unsigned char* ta = sQ + c * C::kTile + arow;
+            const uint32_t ba = opaque(smem_addr(tb));
+            const uint32_t sw = opaque((uint32_t)gq << 4);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {  // A set kk % 2
+                const uint32_t x0 = sw ^ (kk << 5), x1 = x0 ^ 16;
+                load_split4(fa[kk & 1], ta, x0, x0 + 1024, x1, x1 + 1024);
+                wgmma_fence();
+                const uint64_t db = gmma_desc_sw128(ba + kk * 32, 16, 1024);
+                const uint64_t ds = gmma_desc_sw128(ba + C::kTile + kk * 32, 16, 1024);
+                const uint32_t* f = fa[kk & 1];
+                const int sd = decltype(first)::value && kk == 0 ? 0 : 1;
+                wgmma_rs_tf32_n64(acc, f[0], f[1], f[2], f[3], db, sd);
+                wgmma_rs_tf32_n64(acc2, f[0], f[1], f[2], f[3], ds, sd);
+                wgmma_rs_tf32_n64(acc2, f[4], f[5], f[6], f[7], db, 1);
+                wgmma_commit();
+                wgmma_wait<1>();  // the group before this one has landed (none before the first)
+                fence_regs(fa[(kk & 1) ^ 1]);
+                if (kk == 0 && c > 0 && (c & 1) == 0) release(sa - 1, 2);  // the last stage's last group
+            }
+        };
+        if constexpr (C::kStashO) stash_o(false);  // zeros
+        mbar_wait(full_q, 0);
+        int a = 0;
+        for (int kt = 0; kt < ntiles; ++kt) {
+            s_chunk(a, 0, std::true_type{});
+#pragma unroll 1
+            for (int c = 1; c < C::kChunks; ++c) s_chunk(a, c, std::false_type{});  // rolled, as the TF32 dK/dV's
+            wgmma_wait<0>();
+            fence_regs(acc);
+            fence_regs(acc2);
+            fence_regs(fa[1]);
+            release(a + C::kKStages - 1, 2);  // the K stages are this group's alone
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[i] += acc2[i];
+
+            // the online softmax: p = 2^(sl2 s - sl2 m), one FMA and ex2, 0
+            // where the key follows the row (the diagonal tile only: s = -inf
+            // there); corr is the factor O takes before this tile's product
+            const int past = kt == ntiles - 1 ? 0 : C::kKeys;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    acc[4 * j + e] = 8 * j + 2 * t4 + (e & 1) > rl[e >> 1] + past ? -INFINITY : acc[4 * j + e];
+            float mx[2] = {m[0], m[1]};
+#pragma unroll
+            for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], acc[i]);
+            float ms[2], corr[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                ms[i] = mx[i] * sl2;
+                corr[i] = ex2(fmaf(m[i], sl2, -ms[i]));  // 0 on the first tile (m = -inf)
+                m[i] = mx[i];
+            }
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+                acc[i] = ex2(fmaf(acc[i], sl2, -ms[(i >> 1) & 1]));
+                rs[(i >> 1) & 1] += acc[i];
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+
+            // P as the big and small [row][key] tiles (the thread's values of
+            // accumulator step j, rows rl[i]), the rows' corrections beside
+            // them
+            if (kt > 0) named_barrier_sync(5, 256);  // group 1 is done with the last P
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const uint32_t off = (j >> 2) * C::kTile + sw128_f32(rl[i], 8 * (j & 3) + 2 * t4);
+                    uint2 hi, lo;
+                    tf32_split(acc[4 * j + 2 * i], hi.x, lo.x);
+                    tf32_split(acc[4 * j + 2 * i + 1], hi.y, lo.y);
+                    *reinterpret_cast<uint2*>(sP + off) = hi;
+                    *reinterpret_cast<uint2*>(sP + 2 * C::kTile + off) = lo;
+                }
+            if (t4 == 0) {
+                vals[rl[0]] = corr[0];
+                vals[rl[1]] = corr[1];
+            }
+            fence_proxy_async();
+            named_barrier_sync(1, 128);   // all of P is in place for this group's wgmma
+            named_barrier_arrive(3, 256);  // and for group 1
+            if constexpr (C::kStashO) stash_o(true);
+            add_pv(a);
+            if constexpr (C::kStashO) stash_o(false);
+            a += C::kUses;
+        }
+        // m (of the scaled scores: the scale is monotone) and l; l also for
+        // the division below
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+            l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+            if (t4 == 0) {
+                const size_t ml = ((size_t)b * p.H + h) * p.T + r0 + rl[i];
+                p.m_out[ml] = __fmul_rn(m[i], p.scale);
+                p.l_out[ml] = l[i];
+                vals[C::kRows + rl[i]] = l[i];
+            }
+        }
+        if constexpr (C::kStashO) stash_o(true);
+    } else {
+        int a = 0;
+        for (int kt = 0; kt < ntiles; ++kt) {
+            named_barrier_sync(3, 256);  // P and the corrections of tile kt are in place
+            add_pv(a);
+            if (kt + 1 < ntiles) named_barrier_arrive(5, 256);  // the tile may take the next P
+            a += C::kUses;
+        }
+    }
+    named_barrier_sync(7, 256);  // l is in place
+
+    // o = O / l in f32, stored once: the thread holds rows 8 j + 2 t4 + (e &
+    // 1) at hd columns 64 m + 16 warp + gq + 8 (e >> 1) of its m tiles
+    const float2* lf = reinterpret_cast<const float2*>(vals + C::kRows);
+#pragma unroll
+    for (int mt = 0; mt < C::kMt; ++mt) {
+        const int col = 64 * (r * C::kMt + mt) + 16 * warp + gq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const float2 lv = lf[4 * j + t4];
+            const float inv[2] = {1.0f / lv.x, 1.0f / lv.y};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int row = r0 + 8 * j + 2 * t4 + (e & 1);
+                p.o[(((size_t)b * p.T + row) * p.H + h) * HD + col + 8 * (e >> 1)] = dacc[mt][4 * j + e] * inv[e & 1];
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // The wide family: the same three functions where the other kernels stop, f32
 // at any head_dim (dK/dV from head_dim 384), and bf16/f16 from head_dim 640
 // (CUDA cores, f32 FMA)
@@ -1887,9 +2276,10 @@ __global__ void __launch_bounds__(Tf32DqCfg<HD>::kThreads, 1)
 // Why CUDA cores.  f32 must keep full f32 precision (the JAX package's
 // "highest"): one TF32 pass keeps about three digits, so the tensor cores
 // take f32 only as three TF32 passes, with both operands K-major, which the
-// dK/dV and dQ kernels above do at hd 128 and 256; the f32 forward, f32
-// dK/dV from hd 384 (K and V alone take 192 KB there) and f32 dQ from hd 384
-// (Q and dO alone take 192 KB), stay here.  And a
+// three kernels above do at hd 128 and 256; the f32 forward from hd 384 (Q
+// alone takes 96 KB and O^T passes a warpgroup's registers there), f32
+// dK/dV from hd 384 (K and V alone take 192 KB) and f32 dQ from hd 384 (Q
+// and dO alone take 192 KB), stay here.  And a
 // warpgroup's f32 O or dQ of 64 rows takes hd / 2 registers a thread, which
 // with S and dP passes the 255-register limit above hd 256.  The 16-bit forward and dQ cut O and dQ
 // in two column slices on wgmma up to hd 512 (FwdCfg, DqCfg), and dK/dV holds
@@ -2416,6 +2806,23 @@ int launch_tf32_dq(const Params<float>& p, int B, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+// The TF32 forward's launch (f32): a block 64 query rows of one head, the
+// longest rows first; boxes of 64 rows of 32 f32 columns.
+template <int HD>
+int launch_tf32_fwd(const Params<float>& p, int B, cudaStream_t stream) {
+    using C = Tf32FwdCfg<HD>;
+    CUtensorMap tq, tk, tv;
+    int e = encode_rows(&tq, p.q, HD, B, p.T, p.H, p.sqb, p.sqt, C::kRows);
+    if (e == 0) e = encode_rows(&tk, p.k, HD, B, p.T, p.KVH, p.skb, p.skt, C::kKeys);
+    if (e == 0) e = encode_rows(&tv, p.v, HD, B, p.T, p.KVH, p.svb, p.svt, C::kKeys);
+    if (e != 0) return e;
+    const cudaError_t a =
+        cudaFuncSetAttribute(flash_tf32_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
+    if (a != cudaSuccess) return (int)a;
+    flash_tf32_fwd_kernel<HD><<<dim3(p.H, B, p.T / C::kRows), C::kThreads, C::kBytes, stream>>>(tq, tk, tv, p);
+    return (int)cudaGetLastError();
+}
+
 // The dQ kernel's launch: a block the kRows query rows of one head, the
 // longest rows first.
 template <int HD, class E>
@@ -2445,8 +2852,8 @@ int launch_wide(K kernel, dim3 grid, int bytes, cudaStream_t stream, Args... arg
 
 // Every entry takes `kind` (common.cuh's Kind: f32, bf16 or f16), the type of
 // q, k, v, do and the outputs.  The plain entries run the wgmma kernels (bf16
-// or f16 at hd 128, 256, 384 and 512), the _tf32 ones the TF32 dK/dV and dQ
-// (f32 at hd 128 and 256), the _wide ones the wide family (any of the three
+// or f16 at hd 128, 256, 384 and 512), the _tf32 ones the TF32 forward, dK/dV
+// and dQ (f32 at hd 128 and 256), the _wide ones the wide family (any of the three
 // types, hd a multiple of 128); each refuses what its kernels do not take.  T
 // is a multiple of 128 and outputs are packed.  An entry returns a CUDA
 // error, or kTmaError + the CUresult of cuTensorMapEncodeTiled when a tensor
@@ -2490,6 +2897,20 @@ BNB_EXPORT int bnb_flash_attention_causal_fwd_wide(const void* q, const void* k,
         return launch_wide(flash_wide_fwd_kernel<E>, dim3(H * (hd / WideCfg::kCols), B, T / WideCfg::kTile),
                            WideCfg::kFwdBytes, stream, p, hd);
     });
+}
+
+// The three-pass TF32 instance: f32 (kind kF32) at hd 128 and 256 alone.
+BNB_EXPORT int bnb_flash_attention_causal_fwd_tf32(const void* q, const void* k, const void* v, void* o, float* m,
+                                                   float* l, int B, int T, int H, int KVH, int hd, long long sqb,
+                                                   long long sqt, long long skb, long long skt, long long svb,
+                                                   long long svt, float scale, int kind, cudaStream_t stream) {
+    if (!shapes_ok(B, T, H, KVH, hd) || kind != kF32 || (hd != 128 && hd != 256)) return (int)cudaErrorInvalidValue;
+    Params<float> p = make_params<float>(q, k, v, nullptr, nullptr, nullptr, nullptr, T, H, KVH, sqb, sqt, skb, skt,
+                                         svb, svt, 0, 0, scale);
+    p.o = static_cast<float*>(o);
+    p.m_out = m;
+    p.l_out = l;
+    return hd == 128 ? launch_tf32_fwd<128>(p, B, stream) : launch_tf32_fwd<256>(p, B, stream);
 }
 
 // dk, dv [B, T, KVH, hd], through the work plan `items` (n_items DkvItem, one

@@ -76,6 +76,7 @@ LAUNCHES: dict = {
     "flash_attention_causal_bwd_dkv_combine": 0,
     "flash_attention_causal_bwd_dq": 0,
     "flash_attention_causal_fwd_sliced": 0,
+    "flash_attention_causal_fwd_tf32": 0,
     "flash_attention_causal_bwd_dkv_sliced": 0,
     "flash_attention_causal_bwd_dkv_tf32": 0,
     "flash_attention_causal_bwd_dq_sliced": 0,
@@ -225,6 +226,7 @@ _SIGNATURES = {
     # the _wide (and _tf32) entries take the same arguments
     "bnb_flash_attention_causal_fwd": _FLASH_FWD,
     "bnb_flash_attention_causal_fwd_wide": _FLASH_FWD,
+    "bnb_flash_attention_causal_fwd_tf32": _FLASH_FWD,
     # q, k, v, do, m, l, di, dk, dv, part_k, part_v (or NULL), items (device), n_items, B, T, H, KVH, hd,
     # (batch, token) strides of q, k, v, do, scale, kind, stream
     "bnb_flash_attention_causal_bwd_dkv": _FLASH_DKV,

@@ -22,17 +22,18 @@ picks one for its kernel by type and head_dim alone (:func:`uses_wgmma`,
   head_dim streams through a ring of 64-column chunks (all of it would not
   fit shared memory beside what stays resident); all three count as
   ``..._sliced``;
-* f32 dK/dV and dQ at head_dim 128 and 256 run on ``wgmma`` in TF32, every
-  product as three passes (big * big + big * small + small * big, each
-  operand split into two TF32 values), because the JAX package's f32 route
-  runs at "highest" precision and one TF32 pass keeps about three digits.
-  TF32 ``wgmma`` reads both operands K-major, so dK/dV computes dV^T = dO^T
-  P and dK^T = Q^T dS, and dQ computes dQ^T = K^T dS^T, with P and dS
-  staged in shared memory; both count as ``..._tf32``;
-* the wide family on CUDA cores in full f32 FMA takes the rest: the f32
-  forward at any head_dim, f32 dK/dV and dQ from 384, and bf16 and f16
-  from 640 (a warpgroup's f32 O or dQ of 64 rows takes hd / 2 registers a
-  thread, which with S and dP passes the 255-register limit above hd 256).
+* f32 at head_dim 128 and 256 runs all three kernels on ``wgmma`` in
+  TF32, every product as three passes (big * big + big * small + small *
+  big, each operand split into two TF32 values), because the JAX package's
+  f32 route runs at "highest" precision and one TF32 pass keeps about three
+  digits.  TF32 ``wgmma`` reads both operands K-major, so the forward
+  computes O^T = V^T P^T, dK/dV computes dV^T = dO^T P and dK^T = Q^T dS,
+  and dQ computes dQ^T = K^T dS^T, with P and dS staged in shared memory;
+  all three count as ``..._tf32``;
+* the wide family on CUDA cores in full f32 FMA takes the rest: f32 from
+  head_dim 384, and bf16 and f16 from 640 (a warpgroup's f32 O or dQ of 64
+  rows takes hd / 2 registers a thread, which with S and dP passes the
+  255-register limit above hd 256).
   A block owns 128 columns of its output and recomputes the scores over
   all of head_dim.  Each kernel of this family counts under its own name
   (``..._wide``).
@@ -112,9 +113,10 @@ HEAD_DIM_STEP = 128
 # takes every other type and head_dim
 WGMMA_HEAD_DIMS = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256, 384, 512)}
 # the head_dims at which each kernel runs in f32 on three-pass TF32 wgmma
-# (dK/dV and dQ; above 256 dK/dV's K and V, and dQ's Q and dO, leave too
-# little shared memory for the ring beside them)
-TF32_HEAD_DIMS = {"fwd": (), "dkv": (128, 256), "dq": (128, 256)}
+# (above 256 dK/dV's K and V, and dQ's Q and dO, leave too little shared
+# memory for the ring beside them, and the forward's O^T passes a
+# warpgroup's registers)
+TF32_HEAD_DIMS = {"fwd": (128, 256), "dkv": (128, 256), "dq": (128, 256)}
 
 
 def _shapes(q, k, v):
@@ -260,7 +262,7 @@ def uses_wgmma(kernel: str, dtype: torch.dtype, hd: int) -> bool:
 
 def uses_tf32(kernel: str, dtype: torch.dtype, hd: int) -> bool:
     """Whether ``kernel`` runs on three-pass TF32 wgmma for q/k/v of
-    ``dtype`` at ``hd``: f32 dK/dV and dQ at head_dim 128 and 256."""
+    ``dtype`` at ``hd``: f32 at head_dim 128 and 256."""
     return dtype == torch.float32 and hd in TF32_HEAD_DIMS[kernel]
 
 
@@ -322,16 +324,16 @@ def flash_attention_causal_fwd(q, k, v):
     (no cache, positions from 0): ``(o [B, T, H, hd], m [B, H, T] f32,
     l [B, H, T] f32)``.  Kernel on CUDA tensors, plain version on CPU
     tensors.  On ``wgmma`` a block owns 128 query rows of one head (64 at
-    head_dim 256; 64 rows and half of the columns at 384 and 512) and reads
-    q, k and v in place through TMA tensor maps over their strides; in the
-    wide family 64 rows and 128 columns of o."""
+    head_dim 256; 64 rows and half of the columns at 384 and 512; in f32 at
+    128 and 256 the three-pass TF32 instance, :func:`uses_tf32`, 64 rows and
+    all of head_dim) and reads q, k and v in place through TMA tensor maps
+    over their strides; in the wide family 64 rows and 128 columns of o."""
     B, T, H, KVH, hd = _shapes(q, k, v)
     if not use_kernel(q, k, v):
         return flash_attention_causal_fwd_plain(q, k, v)
     _check_cuda(q, k, v, T, hd)
     sq, sk, sv = _strides("q", q), _strides("k", k), _strides("v", v)
-    wgmma = uses_wgmma("fwd", q.dtype, hd)
-    if wgmma:
+    if uses_wgmma("fwd", q.dtype, hd) or uses_tf32("fwd", q.dtype, hd):
         for name, t in (("q", q), ("k", k), ("v", v)):
             _tma_ok(name, t)
     o = torch.empty(B, T, H, hd, dtype=q.dtype, device=q.device)

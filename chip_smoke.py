@@ -90,8 +90,8 @@ Phases (every one asserts; any failure exits non-zero before the result):
    device ms beside SDPA forward and backward and each bound (each also
    beside its earlier mma.sync body's; their SASS must show wgmma and TMA
    and no local stores; the dK/dV kernel's combine bit for bit its plain
-   version at T 1024; in f32 the dK/dV and dQ kernels' three-pass TF32
-   instances at hd 128 and 256 beside the wide family's); then the kernels against the
+   version at T 1024; in f32 the three kernels' three-pass TF32 instances
+   at hd 128 and 256 beside the wide family's); then the kernels against the
    dense oracle at T 512 and 1024, below the route's line.
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
@@ -179,7 +179,7 @@ Phases (every one asserts; any failure exits non-zero before the result):
    32 launches of each a step, device ms by class, peak memory), 4 layers
    at T 2048 against the same step on the dense oracle (the loss within
    rel 1e-3), and 4 layers at T 8192; 32 layers in f16, and 4 layers in
-   f32 (the wide forward, the TF32 dK/dV and dQ) against the f32 oracle
+   f32 (the TF32 forward, dK/dV and dQ) against the f32 oracle
    (rel 1e-4).
    The kernels' launch counts are zeroed just before each path and read
    just after it.  4a and 4b also
@@ -360,9 +360,8 @@ TPU_KERNELS = {
     "flash_attention_causal_bwd_dq_sliced": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
-    # kernels 17-19's wide family: f32 at any head_dim (dK/dV from 384), and
-    # bf16 and f16 from 640 (CUDA cores; the forward and dQ launched by
-    # 4r(e)'s f32 steps, dK/dV by 5l's f32 step at head_dim 512)
+    # kernels 17-19's wide family: f32 from head_dim 384, and bf16 and f16
+    # from 640 (CUDA cores; launched by 5l's f32 step at head_dim 512)
     "flash_attention_causal_fwd_wide": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
@@ -382,6 +381,12 @@ TPU_KERNELS = {
     "flash_attention_causal_bwd_dq_tf32": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    # kernel 17's f32 instance at head_dim 128 and 256: S = Q K^T and O^T =
+    # V^T P^T as three TF32 passes each on wgmma (launched by 4r(e)'s f32
+    # steps)
+    "flash_attention_causal_fwd_tf32": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
 }
 
 # 3p's gates against the plain versions on the card, by q/k/v's type: (the
@@ -392,19 +397,18 @@ FLASH_TOLERANCES = {"bfloat16": (2e-2, 1e-2), "float16": (8e-3, 5e-3), "float32"
 
 
 FLASH_TRAIN = ("flash_attention_causal_fwd", "flash_attention_causal_bwd_dkv", "flash_attention_causal_bwd_dq")
-# the wide family's launch counts (f32 at any head_dim, dK/dV from 384;
-# bf16/f16 from 640)
+# the wide family's launch counts (f32 from head_dim 384; bf16/f16 from 640)
 FLASH_TRAIN_WIDE = tuple(n + "_wide" for n in FLASH_TRAIN)
-FLASH_DKV_TF32 = "flash_attention_causal_bwd_dkv_tf32"  # f32 dK/dV at head_dim 128 and 256
-FLASH_DQ_TF32 = "flash_attention_causal_bwd_dq_tf32"  # f32 dQ at head_dim 128 and 256
-FLASH_TF32 = (FLASH_DKV_TF32, FLASH_DQ_TF32)
+# the TF32 instances' launch counts (f32 at head_dim 128 and 256)
+FLASH_TF32 = tuple(n + "_tf32" for n in FLASH_TRAIN)
 FLASH_KERNELS = ("fwd", "dkv", "dq")
 
 
 def flash_names(dtype, hd=128):
     """The launch counts of kernels 17, 18 and 19 that q/k/v of ``dtype`` at
     ``hd`` take, each kernel's family chosen on its own: a wgmma kernel's
-    (``_sliced``: its instances at 384 and 512) or the wide family's."""
+    (``_sliced``: its instances at 384 and 512), a TF32 instance's or the
+    wide family's."""
     from bitsandbytes_tpu_torch.ops import flash_attention as FA
 
     return tuple(FA.launch_name(k, dtype, hd) for k in FLASH_KERNELS)
@@ -421,6 +425,7 @@ FLASH_CLASSES = [("flash_fwd_kernel<384", "kernel 17, column-sliced (hd 384)"),
                  ("flash_bwd_dq_kernel<512", "kernel 19, column-sliced (hd 512)"),
                  ("flash_fwd_kernel", "kernel 17 (flash forward)"), ("flash_bwd_dkv_kernel", "kernel 18 (flash dK/dV)"),
                  ("flash_bwd_dkv_combine", "kernel 18's combine"), ("flash_bwd_dq_kernel", "kernel 19 (flash dQ)"),
+                 ("flash_tf32_fwd_kernel", "kernel 17, three-pass TF32 (f32)"),
                  ("flash_tf32_dkv_kernel", "kernel 18, three-pass TF32 (f32)"),
                  ("flash_tf32_dq_kernel", "kernel 19, three-pass TF32 (f32)"),
                  ("flash_wide_fwd_kernel", "kernel 17, wide family"),
@@ -2918,19 +2923,22 @@ def flash_train_kernels(dev, entry):
     three kernels (their own kernels-line entries, from the bf16 hd 512
     shape: the forward timed beside SDPA's forward, dK/dV and dQ beside
     SDPA's backward and the wide family's dK/dV and dQ, each called through
-    its C entry on the same tensors).  Batched GQA shapes at hd 384 and 512,
+    its C entry on the same tensors and held to the type's gradient gate).  Batched GQA shapes at hd 384 and 512,
     whose plans split key tiles, take the sliced instances too, each dK/dV
     and dQ call twice bit for bit and the combine under that plan bit for
     bit its plain version; two at hd 640 (bf16, f16) take the wide family's
-    16-bit instances.  In f32 (T 2048: H 32 over 8 at hd 128, and Gemma-7B's
-    H 16 over 16 at hd 256) dK/dV and dQ run kernels 18 and 19's three-pass
-    TF32 instances (each its own kernels-line entry, both shapes beside it,
-    bound by three TF32 passes at 495 TFLOP/s with the f32-FMA figure beside
-    it), each timed beside the wide family's dK/dV or dQ through its C entry
-    on the same tensors (the wide entries' times); the batched f32 shape,
-    whose plan splits key tiles, runs each twice bit for bit and the dK/dV
-    combine bit for bit; every ``HGMMA`` of their SASS is a TF32 one, with
-    ``UTMALDG`` and no ``STL``.  The SASS
+    16-bit instances, and two in f32 (B 2, H 4 over 2, hd 384; B 1, H 2 over
+    1, hd 512; T 640) its f32 instances, through the route and its gates.  In f32 (T 2048: H 32 over 8 at hd 128, and Gemma-7B's
+    H 16 over 16 at hd 256) the three kernels run their three-pass TF32
+    instances (each its own kernels-line entry, both shapes beside it, bound
+    by three TF32 passes at 495 TFLOP/s with the f32-FMA figure beside it;
+    the forward within 1e-5 abs on o, its m and l as in every type, o, m and
+    l twice bit for bit), each timed beside the wide family's kernel through
+    its C entry on the same tensors (the wide entries' times), which is held
+    to the same f32 gates (the forward's o, m and l; dk, dv and dq); the batched
+    f32 shape, whose plan splits key tiles, runs each twice bit for bit and
+    the dK/dV combine bit for bit; every ``HGMMA`` of their SASS is a TF32
+    one, with ``UTMALDG`` and no ``STL``.  The SASS
     counts and the registers (``cuobjdump -res-usage``) of every instance
     are emitted."""
     import torch
@@ -2945,18 +2953,22 @@ def flash_train_kernels(dev, entry):
     rel = lambda a, b: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()  # noqa: E731
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [(bf16, 1, T, 32, 8, 128) for T in (1024, 2048, 4096, 8192)] + [(bf16, 1, 4096, 16, 16, 256)]
-    # f16 on the wgmma kernels, f32 on the wide family, head_dim 384 / 512 on
-    # the sliced wgmma instances
+    # f16 on the wgmma kernels, f32 on the TF32 instances, head_dim 384 / 512
+    # on the sliced wgmma instances
     cases += [(f16, 1, T, 32, 8, 128) for T in (2048, 4096)] + [(f16, 1, 4096, 16, 16, 256), (f32, 1, 2048, 32, 8, 128)]
     cases += [(dt, 1, 2048, 8, 8, hd) for dt in (bf16, f16) for hd in (384, 512)]
-    # f32 at Gemma-7B's attention: kernels 18 and 19's TF32 instances at head_dim 256
+    # f32 at Gemma-7B's attention: kernels 17-19's TF32 instances at head_dim 256
     cases += [(f32, 1, 2048, 16, 16, 256)]
 
-    def check(what, dt, errs):
+    def flash_err(errs, key):  # a kernel's max_abs_err: o's abs error, or its gradients' relative one
+        return errs["o_abs"] if key == "fwd" else max(errs[f"{g}_rel"] for g in
+                                                       (("dk", "dv") if key == "dkv" else ("dq",)))
+
+    def check(what, dt, errs):  # every error given (a kernel's own, or all six of a route) within its gate
         out_tol, grad_tol = FLASH_TOLERANCES[str(dt)[6:]]
-        assert all(math.isfinite(e) for e in errs.values()), f"{what}: {errs}"
-        assert errs["o_abs"] <= out_tol and errs["m_abs"] <= 1e-4 and errs["l_rel"] <= 1e-5, f"{what}: {errs}"
-        assert max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= grad_tol, f"{what}: {errs}"
+        tol = {"o_abs": out_tol, "m_abs": 1e-4, "l_rel": 1e-5, "dq_rel": grad_tol, "dk_rel": grad_tol,
+               "dv_rel": grad_tol}
+        assert errs and all(math.isfinite(e) and e <= tol[n] for n, e in errs.items()), f"{what}: {errs}"
 
     def dev_ms(fn):
         return cuda_time(fn, n=20, flush_l2=True, hold=True)["median"]
@@ -2980,6 +2992,19 @@ def flash_train_kernels(dev, entry):
         if parts:
             FA.flash_attention_causal_bwd_dkv_combine(*parts, table, dk, dv)
         return dk, dv
+
+    def fwd_wide(q, k, v):
+        """Kernel 17's wide-family instance through its C entry, which the
+        route no longer takes for f32 q, k, v at head_dim 128 and 256."""
+        B, T, H, hd = q.shape
+        o_ = torch.empty_like(q)
+        m_, l_ = (torch.empty(B, H, T, device=dev) for _ in range(2))
+        err = _lib.lib().bnb_flash_attention_causal_fwd_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_.data_ptr(), m_.data_ptr(), l_.data_ptr(), B, T, H,
+            k.shape[2], hd, *FA._strides("q", q), *FA._strides("k", k), *FA._strides("v", v), hd**-0.5,
+            FA._KIND[q.dtype], _lib.stream(q))
+        _lib.check(err, "flash_attention_causal_fwd_wide")
+        return o_, m_, l_
 
     def dq_wide(*bwd):
         """Kernel 19's wide-family instance through its C entry, which the
@@ -3025,10 +3050,10 @@ def flash_train_kernels(dev, entry):
         errs = {"o_abs": (o.float() - op.float()).abs().max().item(), "m_abs": (m - mp).abs().max().item(),
                 "l_rel": rel(l, lp), "dq_rel": rel(dq, dqp), "dk_rel": rel(dk, dkp), "dv_rel": rel(dv, dvp)}
         check(what, dt, errs)
-        again = (FA.flash_attention_causal_fwd(q, k, v)[0], *FA.flash_attention_causal_bwd_dkv(*bwd),
+        again = (*FA.flash_attention_causal_fwd(q, k, v), *FA.flash_attention_causal_bwd_dkv(*bwd),
                  FA.flash_attention_causal_bwd_dq(*bwd))
-        assert all(torch.equal(a, b) for a, b in zip(again, (o, dk, dv, dq))), f"{what}: differs from run to run"
-        del op, mp, lp, again
+        assert all(torch.equal(a, b) for a, b in zip(again, (o, m, l, dk, dv, dq))), f"{what}: differs from run to run"
+        del again
 
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         dot = do.transpose(1, 2)
@@ -3061,18 +3086,31 @@ def flash_train_kernels(dev, entry):
             if dt == f32:  # both yardsticks of an f32 kernel: f32 FMA, and three TF32 passes
                 row[key].update(f32_fma_bound_ms=bound_ms(nb, ops, PEAK_F32_FLOPS)[0],
                                 tf32x3_bound_ms=bound_ms(nb, 3 * ops, PEAK_TF32_FLOPS)[0])
+        if FA.uses_tf32("fwd", dt, hd):
+            # kernel 17's wide instance, which took these shapes before, on the same tensors
+            wo, wm, wl = fwd_wide(q, k, v)
+            wide_errs = {"o_abs": (wo - op).abs().max().item(), "m_abs": (wm - mp).abs().max().item(),
+                         "l_rel": rel(wl, lp)}
+            check(f"{what} wide forward", dt, wide_errs)
+            row["fwd"]["wide_ms"] = dev_ms(lambda: fwd_wide(q, k, v))
+            row["fwd"]["wide_bound_share"] = row["fwd"]["bound_ms"] / row["fwd"]["wide_ms"]
+            row["fwd"].update(wide_err=wide_errs["o_abs"], wide_errs=wide_errs)
+            del wo, wm, wl
         if hd > 256 or FA.uses_tf32("dkv", dt, hd):
             # kernel 18's wide instance, which took these shapes before, on the same tensors
             wk, wv = dkv_wide(*bwd)
+            wide_errs = {"dk_rel": rel(wk, dkp), "dv_rel": rel(wv, dvp)}
+            check(f"{what} wide dK/dV", dt, wide_errs)
             row["dkv"]["wide_ms"] = dev_ms(lambda: dkv_wide(*bwd))
             row["dkv"]["wide_bound_share"] = row["dkv"]["bound_ms"] / row["dkv"]["wide_ms"]
-            row["dkv"]["wide_err"] = max(rel(wk, dkp), rel(wv, dvp))
+            row["dkv"]["wide_err"] = max(wide_errs.values())
             del wk, wv
         if hd > 256 or FA.uses_tf32("dq", dt, hd):  # and kernel 19's
             wq = dq_wide(*bwd)
+            row["dq"]["wide_err"] = rel(wq, dqp)
+            check(f"{what} wide dQ", dt, {"dq_rel": row["dq"]["wide_err"]})
             row["dq"]["wide_ms"] = dev_ms(lambda: dq_wide(*bwd))
             row["dq"]["wide_bound_share"] = row["dq"]["bound_ms"] / row["dq"]["wide_ms"]
-            row["dq"]["wide_err"] = rel(wq, dqp)
             del wq
         if dt == bf16:
             for key, table in (("fwd", FLASH_FWD_MMA_SYNC_MS), ("dkv", FLASH_DKV_MMA_SYNC_MS),
@@ -3102,89 +3140,86 @@ def flash_train_kernels(dev, entry):
                        "computes it")
             del part_k, part_v, ck, cp
         row["bwd_ms"] = row["dkv"]["ms"] + row["dq"]["ms"]
-        del dkp, dvp, dqp
+        del op, mp, lp, dkp, dvp, dqp
         out.append(row)
         if hd > 256:  # the sliced instances of the three kernels
             wide_rows.append({"dtype": row["dtype"], "shape": [B, T, H, KVH, hd], "sdpa": sdpa, "errs": errs,
                               **{key: row[key] for key in ("fwd", "dkv", "dq")}})
-        if dt == f32:  # kernels 18 and 19's TF32 instances at each f32 shape, entered below
-            for key in ("dkv", "dq"):
+        if dt == f32:  # kernels 17-19's TF32 instances at each f32 shape, entered below
+            for key in FLASH_KERNELS:
                 wide_rows.append({"tf32": key, "dtype": row["dtype"], "shape": [B, T, H, KVH, hd], "errs": errs,
-                                  "sdpa_bwd_ms": sdpa["bwd_ms"], "kernels_bwd_ms": row["bwd_ms"], **row[key]})
+                                  "sdpa_fwd_ms": sdpa["fwd_ms"], "sdpa_bwd_ms": sdpa["bwd_ms"],
+                                  "kernels_bwd_ms": row["bwd_ms"], **row[key]})
         if (T, hd) == (2048, 128):
             for key, lib in (("fwd", sdpa["fwd_ms"]), ("dkv", None), ("dq", None)):
-                name = family[key] + ("_f16" if dt == f16 else "")
                 nb, ops = work[key]
-                err = errs["o_abs"] if key == "fwd" else max(errs[f"{g}_rel"] for g in
-                                                              (("dk", "dv") if key == "dkv" else ("dq",)))
-                pending = (name, row[key]["ms"], row[key]["plain_ms"], lib, nb, ops, peak, err,
-                           dict(shape=[B, T, H, KVH, hd], dtype=row["dtype"], family=family,
-                                sdpa_bwd_ms=sdpa["bwd_ms"], kernels_bwd_ms=row["bwd_ms"],
-                                note="4r's attention shape; device ms, host held out, L2 flushed; the backward "
-                                     "rows' library_ms is null: SDPA's backward is one call for dq, dk and dv "
-                                     "(sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19)" + (
-                                         "; max_abs_err is the output's abs error" if key == "fwd" else
-                                         "; max_abs_err is relative to the gradient's largest magnitude")))
-                if dt == f32 and key != "fwd":  # the TF32 instance below; here the wide one, on the same tensors
-                    kernel = {"dkv": "kernel 18's", "dq": "kernel 19's"}[key]
-                    what = {"dkv": "dK/dV", "dq": "dQ"}[key]
-                    entry(FA._BASE_NAMES[key] + "_wide", row[key]["wide_ms"], row[key]["plain_ms"], None, nb,
-                          ops, PEAK_F32_FLOPS, row[key]["wide_err"], **{**pending[8], "note": (
-                              f"{kernel} wide family (CUDA cores, f32 FMA), which f32 {what} took at head_dim 128 "
+                extra = dict(shape=[B, T, H, KVH, hd], dtype=row["dtype"], family=family, sdpa_bwd_ms=sdpa["bwd_ms"],
+                             kernels_bwd_ms=row["bwd_ms"])
+                if dt == f32:  # the TF32 instance below; here the wide one, on the same tensors
+                    kernel = {"fwd": "kernel 17's", "dkv": "kernel 18's", "dq": "kernel 19's"}[key]
+                    what = {"fwd": "the f32 forward", "dkv": "f32 dK/dV", "dq": "f32 dQ"}[key]
+                    entry(FA._BASE_NAMES[key] + "_wide", row[key]["wide_ms"], row[key]["plain_ms"], lib, nb, ops,
+                          PEAK_F32_FLOPS, row[key]["wide_err"], **extra, note=(
+                              f"{kernel} wide family (CUDA cores, f32 FMA), which {what} took at head_dim 128 "
                               "and 256 before the TF32 instance; timed through its C entry on the TF32 row's "
                               "tensors (4r's attention shape); device ms, host held out, L2 flushed; launches from "
-                              "5l's f32 step at head_dim 512, where the route still takes it; library_ms is null: "
-                              "SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms); max_abs_err is relative "
-                              "to the gradient's largest magnitude")})
-                elif dt == f32:
-                    wide_rows.append((key, pending))  # entered below, with the head_dim 384 / 512 instances
+                              "5l's f32 step at head_dim 512, where the route still takes it; " + (
+                                  "library_ms is SDPA is_causal's f32 forward; max_abs_err is the output's abs "
+                                  "error" if key == "fwd" else
+                                  "library_ms is null: SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms); "
+                                  "max_abs_err is relative to the gradient's largest magnitude")))
                 else:
-                    entry(*pending[:8], **pending[8])
+                    entry(family[key] + ("_f16" if dt == f16 else ""), row[key]["ms"], row[key]["plain_ms"], lib,
+                          nb, ops, peak, flash_err(errs, key), **extra,
+                          note="4r's attention shape; device ms, host held out, L2 flushed; the backward rows' "
+                               "library_ms is null: SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms, "
+                               "against kernels_bwd_ms, 18 + 19)" + (
+                                   "; max_abs_err is the output's abs error" if key == "fwd" else
+                                   "; max_abs_err is relative to the gradient's largest magnitude"))
         del q, k, v, do, o, m, l, di, dk, dv, dq, bwd
         torch.cuda.empty_cache()
-    # the wide family's entries: f32 at 4r's shape
-    instances = [r for r in wide_rows if isinstance(r, dict) and not r.get("tf32")]
+    # the sliced instances' entries: bf16 and f16 at head_dim 384 and 512
+    instances = [r for r in wide_rows if not r.get("tf32")]
 
     def inst(r, key):
         return {"dtype": r["dtype"], "shape": r["shape"], **r[key], "sdpa_fwd_ms": r["sdpa"]["fwd_ms"],
                 "sdpa_bwd_ms": r["sdpa"]["bwd_ms"]}
 
-    for key, pend in (r for r in wide_rows if not isinstance(r, dict)):
-        entry(*pend[:8], **pend[8])
-    # kernel 18's TF32 instance: f32 at 4r's shape (hd 128) in the line, Gemma-7B's hd 256 beside it
-    tf32 = [r for r in wide_rows if isinstance(r, dict) and r.get("tf32") == "dkv"]
-    main32 = next(r for r in tf32 if r["shape"][4] == 128)
-    nb, ops = flash_causal_work(*main32["shape"], 4)["dkv"]
-    entry(FLASH_DKV_TF32, main32["ms"], main32["plain_ms"], None, nb, 3 * ops, PEAK_TF32_FLOPS,
-          max(main32["errs"]["dk_rel"], main32["errs"]["dv_rel"]), shape=main32["shape"], dtype="float32",
-          f32_fma_bound_ms=main32["f32_fma_bound_ms"], wide_ms=main32["wide_ms"], sdpa_bwd_ms=main32["sdpa_bwd_ms"],
-          kernels_bwd_ms=main32["kernels_bwd_ms"],
-          instances=[{k: v for k, v in r.items() if k != "tf32"} for r in tf32],
-          note="kernel 18's f32 instance at head_dim 128 and 256: a block one item of the plan, every product as "
+    # kernels 17-19's TF32 instances: f32 at 4r's shape (hd 128) in the line, Gemma-7B's hd 256 beside it
+    tf32_notes = {
+        "fwd": "kernel 17's f32 instance at head_dim 128 and 256: a block 64 query rows of one head and all of hd, "
+               "two consumer warpgroups and a producer warp; S = Q K^T and the online softmax (group 0) as three "
+               "TF32 passes on wgmma with K split in the ring, then O^T += V^T P^T over half of hd's m tiles a "
+               "group with P through a [row][key] tile pair and V^T split from V's raw columns, each key tile's "
+               "product in a fresh accumulator added in f32; "
+               "device ms, host held out, L2 flushed; bound_ms is three TF32 passes at 495 TFLOP/s "
+               "(f32_fma_bound_ms: the same flops at 67); wide_ms the wide family's forward on the same tensors; "
+               "library_ms is SDPA is_causal's f32 forward; max_abs_err is the output's abs error",
+        "dkv": "kernel 18's f32 instance at head_dim 128 and 256: a block one item of the plan, every product as "
                "three TF32 passes (big * big + big * small + small * big) on wgmma, S^T and dP^T by two consumer "
                "warpgroups, then dV^T = dO^T P and dK^T = Q^T dS with P and dS through shared memory; device ms, "
                "host held out, L2 flushed; bound_ms is three TF32 passes at 495 TFLOP/s (f32_fma_bound_ms: the "
                "same flops at 67); wide_ms the wide family's dK/dV on the same tensors; library_ms is null: SDPA's "
                "backward is one call for dq, dk and dv (sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19); "
-               "max_abs_err is relative to the gradient's largest magnitude")
-    # kernel 19's TF32 instance: the same shapes
-    tf32 = [r for r in wide_rows if isinstance(r, dict) and r.get("tf32") == "dq"]
-    main32 = next(r for r in tf32 if r["shape"][4] == 128)
-    nb, ops = flash_causal_work(*main32["shape"], 4)["dq"]
-    entry(FLASH_DQ_TF32, main32["ms"], main32["plain_ms"], None, nb, 3 * ops, PEAK_TF32_FLOPS,
-          main32["errs"]["dq_rel"], shape=main32["shape"], dtype="float32",
-          f32_fma_bound_ms=main32["f32_fma_bound_ms"], wide_ms=main32["wide_ms"], sdpa_bwd_ms=main32["sdpa_bwd_ms"],
-          kernels_bwd_ms=main32["kernels_bwd_ms"],
-          instances=[{k: v for k, v in r.items() if k != "tf32"} for r in tf32],
-          note="kernel 19's f32 instance at head_dim 128 and 256: a block 64 query rows of one head and all of hd, "
-               "two consumer warpgroups and a producer warp; S = Q K^T (group 0) and dP = dO V^T (group 1) as three "
-               "TF32 passes on wgmma with K and V split in the ring, then dQ^T = K^T dS^T over each group's half "
-               "of hd with dS through a [row][key] tile pair and K^T split from its raw columns, each key tile's "
-               "product in a fresh accumulator added in f32; device ms, host held out, L2 flushed; bound_ms is "
-               "three TF32 passes at 495 TFLOP/s (f32_fma_bound_ms: the same flops at 67); wide_ms the wide "
-               "family's dQ on the same tensors; library_ms is null: SDPA's backward is one call for dq, dk and dv "
-               "(sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19); max_abs_err is relative to dq's largest "
-               "magnitude")
+               "max_abs_err is relative to the gradient's largest magnitude",
+        "dq": "kernel 19's f32 instance at head_dim 128 and 256: a block 64 query rows of one head and all of hd, "
+              "two consumer warpgroups and a producer warp; S = Q K^T (group 0) and dP = dO V^T (group 1) as three "
+              "TF32 passes on wgmma with K and V split in the ring, then dQ^T = K^T dS^T over each group's half "
+              "of hd with dS through a [row][key] tile pair and K^T split from its raw columns, each key tile's "
+              "product in a fresh accumulator added in f32; device ms, host held out, L2 flushed; bound_ms is "
+              "three TF32 passes at 495 TFLOP/s (f32_fma_bound_ms: the same flops at 67); wide_ms the wide "
+              "family's dQ on the same tensors; library_ms is null: SDPA's backward is one call for dq, dk and dv "
+              "(sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19); max_abs_err is relative to dq's largest "
+              "magnitude"}
+    for key, name in zip(FLASH_KERNELS, FLASH_TF32):
+        tf32 = [r for r in wide_rows if r.get("tf32") == key]
+        main32 = next(r for r in tf32 if r["shape"][4] == 128)
+        nb, ops = flash_causal_work(*main32["shape"], 4)[key]
+        entry(name, main32["ms"], main32["plain_ms"], main32["sdpa_fwd_ms"] if key == "fwd" else None, nb, 3 * ops,
+              PEAK_TF32_FLOPS, flash_err(main32["errs"], key), shape=main32["shape"], dtype="float32",
+              f32_fma_bound_ms=main32["f32_fma_bound_ms"], wide_ms=main32["wide_ms"],
+              sdpa_bwd_ms=main32["sdpa_bwd_ms"], kernels_bwd_ms=main32["kernels_bwd_ms"],
+              instances=[{k: v for k, v in r.items() if k != "tf32"} for r in tf32], note=tf32_notes[key])
     # the forward's column-sliced wgmma instances: bf16 at hd 512 in the line, all four beside it
     main = next(r for r in instances if (r["dtype"], r["shape"][4]) == ("bfloat16", 512))
     nb, ops = flash_causal_work(*main["shape"])["fwd"]
@@ -3225,12 +3260,18 @@ def flash_train_kernels(dev, entry):
     batched, gen_b = [], torch.Generator(device=dev).manual_seed(61)
     for dt, B, T, H, KVH, hd in ((bf16, 2, 1152, 8, 2, 128), (bf16, 3, 640, 2, 1, 256), (f16, 3, 640, 2, 1, 256),
                                  (f32, 2, 1152, 8, 2, 128), (bf16, 2, 640, 4, 2, 384), (f16, 2, 640, 4, 2, 512),
-                                 (bf16, 1, 640, 2, 1, 640), (f16, 1, 640, 2, 1, 640)):
+                                 (bf16, 1, 640, 2, 1, 640), (f16, 1, 640, 2, 1, 640), (f32, 2, 640, 4, 2, 384),
+                                 (f32, 1, 640, 2, 1, 512)):
         q, k, v, do = flash_inputs(dev, gen_b, B, T, H, KVH, hd, dt)
         what = f"3p batched {str(dt)[6:]} B{B} T{T} H{H} KVH{KVH} hd{hd}"
         _lib.reset_launch_counts()
         o, m, l = FA.flash_attention_causal_fwd(q, k, v)
         assert _lib.launch_counts()[flash_names(dt, hd)[0]] == 1, what
+        if FA.uses_tf32("fwd", dt, hd):  # kernel 17's TF32 instance on a GQA batch
+            again = FA.flash_attention_causal_fwd(q, k, v)
+            assert all(torch.equal(a, b) for a, b in zip(again, (o, m, l))), \
+                f"{what}: the forward differs from run to run"
+            del again
         op, mp, lp = FA.flash_attention_causal_fwd_plain(q, k, v)
         di = (op.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         bwd = (q, k, v, do, mp, lp, di)
@@ -3283,7 +3324,7 @@ def flash_train_kernels(dev, entry):
     # f16) runs f32 FMAs (FFMA) with no tensor-core product and no local stores
     flash_kernels = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
     wide_kernels = ("flash_wide_fwd_kernel", "flash_wide_dkv_kernel", "flash_wide_dq_kernel")
-    tf32_kernels = ("flash_tf32_dkv_kernel", "flash_tf32_dq_kernel")
+    tf32_kernels = ("flash_tf32_fwd_kernel", "flash_tf32_dkv_kernel", "flash_tf32_dq_kernel")
     sass, wg_sass, fn = sass_of(_lib.build()), {}, None
     for line in (sass or "").splitlines():
         if "Function :" in line:
@@ -3312,7 +3353,7 @@ def flash_train_kernels(dev, entry):
         inst = {n: c for n, c in wg_sass.items() if kern in n}
         assert sass is None or (len(inst) == 3 and all(c["FFMA"] and not c["STL"] and not c["HGMMA"]
                                                        for c in inst.values())), f"3p {kern} SASS {inst}"
-    # kernels 18 and 19's f32 instances (hd 128, 256): every HGMMA a TF32 one, TMA loads, no local stores
+    # kernels 17-19's f32 instances (hd 128, 256): every HGMMA a TF32 one, TMA loads, no local stores
     for kern in tf32_kernels:
         inst = {n: c for n, c in wg_sass.items() if kern in n}
         assert sass is None or (len(inst) == 2 and all(c["HGMMA"] and c["HGMMA"] == c["HGMMA_TF32"] and c["UTMALDG"]
@@ -3340,13 +3381,12 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
     The same 32 layers at T 2048 in f16 (the NF4 payloads as they are, the
     float leaves cast to f16): three steps, the losses finite and falling,
     kernels 17-19's f16 instances 32 times a step, device ms by class.  (e)
-    4 layers at T 2048 in f32 (the float leaves cast to f32) on the wide
-    forward and the TF32 dK/dV and dQ, 8 launches of each in its 2 steps
-    (none of the wide dK/dV or dQ), against the same step on the f32
-    oracle: the first step's loss within rel 1e-4 (the wide forward,
-    kernels 18 and 19's TF32 instances).  Returns the launches of each
-    kernels-line entry of kernels 17-19: bf16 from (a), f16 from (d), the
-    wide forward and the TF32 dK/dV and dQ from (e)."""
+    4 layers at T 2048 in f32 (the float leaves cast to f32) on the TF32
+    forward, dK/dV and dQ, 8 launches of each in its 2 steps (none of the
+    wide family), against the same step on the f32 oracle: the first step's
+    loss within rel 1e-4 (kernels 17-19's TF32 instances).  Returns the
+    launches of each kernels-line entry of kernels 17-19: bf16 from (a), f16
+    from (d), the TF32 forward, dK/dV and dQ from (e)."""
     import dataclasses
 
     import torch
@@ -3444,18 +3484,18 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
     del p16
     torch.cuda.empty_cache()
 
-    # (e) 4 layers at T 2048 in f32: the wide forward and the TF32 dK/dV and
-    # dQ against the f32 oracle
+    # (e) 4 layers at T 2048 in f32: the TF32 forward, dK/dV and dQ against
+    # the f32 oracle
     cfg32 = dataclasses.replace(cfg4, dtype=torch.float32)
     cfg32_dense = dataclasses.replace(cfg32, sliding_window=1 << 20)
     p32 = cast_floats({**params, "layers": params["layers"][:4]}, torch.float32)
     ids_e = ids_of(T, 74)
     names32 = flash_names(torch.float32, cfg.head_dim)
-    assert names32 == (FLASH_TRAIN_WIDE[0], FLASH_DKV_TF32, FLASH_DQ_TF32), names32
+    assert names32 == FLASH_TF32, names32
     flash32 = run(p32, cfg32, ids_e, 2)
     dense32 = run(p32, cfg32_dense, ids_e, 2)
     assert all(flash32["launches"].get(n) == 2 * 4 for n in names32), f"4r(e) flash {flash32['launches']}"
-    assert all(flash32["launches"].get(n) is None for n in FLASH_TRAIN_WIDE[1:]), f"4r(e) flash {flash32['launches']}"
+    assert all(flash32["launches"].get(n) is None for n in FLASH_TRAIN_WIDE), f"4r(e) flash {flash32['launches']}"
     assert not any(n in dense32["launches"] for n in FLASH_TRAIN + FLASH_TRAIN_WIDE + FLASH_TF32), \
         f"4r(e) {dense32['launches']}"
     loss_rel32 = abs(flash32["losses"][0] - dense32["losses"][0]) / abs(dense32["losses"][0])
@@ -3481,8 +3521,8 @@ def flash_cpu_check(dev, dtype=None, hd=128):
     2 KV heads, hd 128, or at ``hd`` 512 hidden 1024, H 2 over 1 KV head;
     fused NF4, rank-8 adapters on all seven targets, ``b`` non-zero) at T
     1024: ``lm_loss`` and its adapter gradients through kernels 17-19 on the
-    card (the wgmma kernels in bf16 and f16; in f32 the wide forward and the
-    TF32 dK/dV and dQ at hd 128, the wide family at hd 512; at hd 512 in 16
+    card (the wgmma kernels in bf16 and f16; in f32 the TF32 forward, dK/dV
+    and dQ at hd 128, the wide family at hd 512; at hd 512 in 16
     bits their sliced wgmma instances)
     against the CPU port through their plain versions (the CPU's route
     patched to the flash one), the loss within rel 1e-3, the gradients
@@ -7047,16 +7087,16 @@ def main() -> int:
     for name, n in counts_5l.items():
         if name in FLASH_TRAIN:
             report[name]["launches_5l"] = n
-    # and in f16 (the wgmma kernels' f16 instances) and f32 (the wide forward,
-    # the TF32 dK/dV and dQ)
+    # and in f16 (the wgmma kernels' f16 instances) and f32 (the TF32
+    # forward, dK/dV and dQ)
     for dt, suffix in ((torch.float16, "_f16"), (torch.float32, "")):
         for name, n in flash_cpu_check(dev, dt).items():
             if name in FLASH_TRAIN + FLASH_TRAIN_WIDE + FLASH_TF32:
                 report[name + suffix]["launches_5l"] = n
-    # and in f32 at head_dim 512, where the route keeps dK/dV and dQ on the
-    # wide family (their kernels-line launches)
+    # and in f32 at head_dim 512, where the route keeps all three kernels on
+    # the wide family (their kernels-line launches)
     for name, n in flash_cpu_check(dev, torch.float32, hd=512).items():
-        if name in FLASH_TRAIN_WIDE[1:]:
+        if name in FLASH_TRAIN_WIDE:
             report[name]["launches"] = n
     # and in bf16 at head_dim 512: the sliced instances of the three kernels
     # (their kernels-line launches)

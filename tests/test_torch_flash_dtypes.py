@@ -186,7 +186,7 @@ def test_bf16_hd512_train_step_loss_matches_jax(flash_route):
 # the head_dims each kernel takes on wgmma in bf16 and f16, and on
 # three-pass TF32 wgmma in f32 (the wide family takes the rest)
 WGMMA = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256, 384, 512)}
-TF32 = {"fwd": (), "dkv": (128, 256), "dq": (128, 256)}
+TF32 = {"fwd": (128, 256), "dkv": (128, 256), "dq": (128, 256)}
 
 
 @pytest.mark.parametrize("dtype", list(TORCH_TYPES))
@@ -196,7 +196,7 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
     the cases the JAX package's ``_flash_ok`` conditions send to its flash
     kernel, its backend check aside; each kernel of an accepted case has one
     family: all three run on wgmma for bf16 and f16 at head_dim 128, 256,
-    384 and 512, f32 dK/dV and dQ on TF32 wgmma at 128 and 256, and the wide
+    384 and 512, and on TF32 wgmma for f32 at 128 and 256, and the wide
     family takes the rest.  Each kernel counts its launches under a name of
     the library's counts that shows which ran: ``_sliced`` for the wgmma
     instances at 384 and 512, ``_tf32`` for the TF32 instances, ``_wide``

@@ -1,11 +1,13 @@
-"""Kernels 18 and 19's f32 instances at head_dim 128 and 256 (the causal
-flash dK/dV and dQ on three-pass TF32 ``wgmma``, ``csrc/flash_attention.cu``'s
+"""Kernels 17, 18 and 19's f32 instances at head_dim 128 and 256 (the causal
+flash forward, dK/dV and dQ on three-pass TF32 ``wgmma``,
+``csrc/flash_attention.cu``'s ``flash_tf32_fwd_kernel``,
 ``flash_tf32_dkv_kernel`` and ``flash_tf32_dq_kernel``), on the CPU.
 
 The kernels run only on the card; here their arithmetic is emulated in torch
-and held against the JAX package's f32 dK/dV and dQ (the upstream Pallas TPU
-flash kernels in interpret mode, ``test_torch_flash_dtypes._case``'s inputs
-and reference).  The dK/dV emulation takes that kernel's four products, S^T
+and held against the JAX package's f32 o, dK/dV and dQ (the upstream Pallas
+TPU flash kernels in interpret mode, ``test_torch_flash_dtypes._case``'s
+inputs and reference).  The forward's emulation takes that kernel's two
+products, S = Q K^T and O^T = V^T P^T, the dK/dV emulation its four, S^T
 = K Q^T, dP^T = V dO^T, dV^T = dO^T P and dK^T = Q^T dS, the dQ emulation
 its three, S = Q K^T, dP = dO V^T and dQ^T = K^T dS^T, each as three TF32 passes
 (big * big + big * small + small * big, every operand split as the kernel's
@@ -15,14 +17,15 @@ big`` rounded to 10 mantissa bits with ties away from zero, as
 the plain version's p and ds from those scores.  Products of TF32
 values are exact in f32, so an f32 matmul of them sums as the tensor
 cores' f32 accumulation does, in another order.  The gate is the card's
-(``chip_smoke.FLASH_TOLERANCES["float32"]``): dk, dv and dq within 1e-4 of
+(``chip_smoke.FLASH_TOLERANCES["float32"]``): o within 1e-5 abs, m within
+1e-4 abs and l within 1e-5 of its largest; dk, dv and dq within 1e-4 of
 their largest magnitude.  A single TF32 pass on the same inputs misses it,
 so the gate tells the two apart.
 
-Also the route (the f32 dK/dV and dQ at 128 and 256 count and launch as
-``..._tf32``; 384 and up, and the f32 forward, stay on the wide family) and
-that a failing launch of either instance raises instead of falling back to
-the wide kernel.
+Also the route (the f32 forward, dK/dV and dQ at 128 and 256 count and
+launch as ``..._tf32``; 384 and up stay on the wide family) and that a
+failing launch of any of the three instances raises instead of falling back
+to the wide kernel.
 """
 
 import numpy as np
@@ -36,6 +39,8 @@ from test_torch_flash_dtypes import KVH, _case
 torch.set_num_threads(1)
 
 GATE = 1e-4  # dk, dv, dq relative to their largest magnitude
+# the forward's: o abs, m abs, l relative to its largest
+O_GATE, M_GATE, L_GATE = 1e-5, 1e-4, 1e-5
 # (T, hd, G) of the JAX reference: 4 query heads over 2 KV heads at hd 128,
 # one each at hd 256
 SHAPES = [(256, 128, 2), (384, 256, 1)]
@@ -71,6 +76,24 @@ def _mm3(a: torch.Tensor, b: torch.Tensor, split: str = "kernel") -> torch.Tenso
 def _mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in one TF32 pass."""
     return _tf32(a) @ _tf32(b)
+
+
+def _fwd_emulated(q, k, v, mm):
+    """The forward kernel's o [B, T, H, hd], m and l [B, H, T] with both
+    products through ``mm``: S = Q K^T, the masked softmax (keys after their
+    query get p = 0), O^T = V^T P^T, then o = O / l; m is the row max of the
+    scaled scores, l = sum exp(s - m)."""
+    B, T, H, hd = q.shape
+    G, scale = H // k.shape[2], hd**-0.5
+    qh = q.transpose(1, 2)  # [B, H, T, hd]
+    kh, vh = (t.repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
+    keep = torch.arange(T)[:, None] >= torch.arange(T)[None, :]  # key <= row
+    s = torch.where(keep, mm(qh, kh.transpose(-1, -2)) * scale, float("-inf"))  # S: [B, H, rows, keys]
+    m = s.amax(-1)
+    pr = torch.exp(s - m[..., None])
+    l = pr.sum(-1)
+    ot = mm(vh.transpose(-1, -2), pr.transpose(-1, -2))  # O^T = V^T P^T: [B, H, hd, rows]
+    return ot.permute(0, 3, 1, 2) / l.transpose(1, 2)[..., None], m, l
 
 
 def _dkv_emulated(q, k, v, do, m, l, di, mm):
@@ -129,8 +152,65 @@ def _inputs(T, hd, G):
     return _INPUTS[key]
 
 
+_FWD = {}
+
+
+def _fwd_inputs(T, hd, G):
+    """The JAX package's f32 case for the forward: torch q, k, v, the JAX o,
+    and the plain version's o, m and l."""
+    key = (T, hd, G)
+    if key not in _FWD:
+        (q, k, v, _), o_ref, _ = _case("float32", T, hd, G)
+        q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+        _FWD[key] = ((q, k, v), o_ref, FA.flash_attention_causal_fwd_plain(q, k, v))
+    return _FWD[key]
+
+
 def _rel(got: torch.Tensor, want: np.ndarray) -> float:
     return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+
+
+def _fwd_errs(got, o_ref, plain):
+    """(o abs against the JAX o, m abs and l relative to its largest against
+    the plain version), as the card's gate measures them."""
+    (o, m, l), (_, mp, lp) = got, plain
+    return (float(np.abs(o.numpy() - o_ref).max()), float((m - mp).abs().max()),
+            float((l - lp).abs().max() / lp.abs().max()))
+
+
+@pytest.mark.parametrize("T,hd,G", SHAPES, ids=[f"T{t}-hd{h}-G{g}" for t, h, g in SHAPES])
+def test_three_pass_tf32_fwd_meets_the_f32_gate(T, hd, G):
+    """The forward's two products (S = Q K^T, O^T = V^T P^T), three TF32
+    passes each as the kernel runs them, give o within 1e-5 abs of the JAX
+    package's f32 o, m within 1e-4 abs and l within 1e-5 of the plain
+    version's; rounding or truncating both halves does too."""
+    qkv, o_ref, plain = _fwd_inputs(T, hd, G)
+    for split in SPLITS:
+        errs = _fwd_errs(_fwd_emulated(*qkv, lambda a, b, split=split: _mm3(a, b, split)), o_ref, plain)
+        assert errs[0] <= O_GATE and errs[1] <= M_GATE and errs[2] <= L_GATE, (split, errs)
+
+
+@pytest.mark.parametrize("T,hd,G", SHAPES, ids=[f"T{t}-hd{h}-G{g}" for t, h, g in SHAPES])
+def test_one_tf32_pass_fwd_misses_the_f32_gate(T, hd, G):
+    """One TF32 pass per product of the forward puts o outside 1e-5 abs of
+    the JAX package's o: the card's gate would catch a forward that dropped
+    the small halves."""
+    qkv, o_ref, plain = _fwd_inputs(T, hd, G)
+    assert _fwd_errs(_fwd_emulated(*qkv, _mm1), o_ref, plain)[0] > O_GATE
+
+
+@pytest.mark.parametrize("T,hd,G", SHAPES, ids=[f"T{t}-hd{h}-G{g}" for t, h, g in SHAPES])
+def test_fwd_emulation_of_full_f32_matches_the_plain_version(T, hd, G):
+    """The forward's emulation with exact f32 products is the plain
+    version's function (which the card holds the kernel against; the plain
+    version renormalizes at every 128-key block, the kernel divides by l
+    once): o within 1e-6 abs, m within 1e-6 abs, l within 1e-6 of its
+    largest."""
+    qkv, _, plain = _fwd_inputs(T, hd, G)
+    o, m, l = _fwd_emulated(*qkv, torch.matmul)
+    op, mp, lp = plain
+    errs = (float((o - op).abs().max()), float((m - mp).abs().max()), float((l - lp).abs().max() / lp.abs().max()))
+    assert max(errs) <= 1e-6, errs
 
 
 @pytest.mark.parametrize("T,hd,G", SHAPES, ids=[f"T{t}-hd{h}-G{g}" for t, h, g in SHAPES])
@@ -203,15 +283,16 @@ def test_dq_emulation_of_full_f32_matches_the_plain_version(T, hd, G):
 def test_f32_dkv_route(hd):
     """f32 dK/dV at head_dim 128 and 256 counts and launches as ``_tf32``
     through a C entry the library binds; from 384 it stays on the wide
-    family, and so does the f32 forward at every head_dim."""
+    family, and so does the f32 forward (which takes its own TF32 instance
+    at 128 and 256)."""
     f32 = torch.float32
     name, entry = FA.launch_name("dkv", f32, hd), FA.c_entry(FA.launch_name("dkv", f32, hd))
     tf32 = hd in (128, 256)
     assert FA.uses_tf32("dkv", f32, hd) == tf32 and not FA.uses_wgmma("dkv", f32, hd)
     assert name == "flash_attention_causal_bwd_dkv" + ("_tf32" if tf32 else "_wide"), name
     assert name in _lib.LAUNCHES and entry == "bnb_" + name and entry in _lib._SIGNATURES
-    assert FA.launch_name("fwd", f32, hd) == FA._BASE_NAMES["fwd"] + "_wide"
-    assert not FA.uses_tf32("fwd", f32, hd)
+    assert FA.launch_name("fwd", f32, hd) == FA._BASE_NAMES["fwd"] + ("_tf32" if tf32 else "_wide")
+    assert FA.uses_tf32("fwd", f32, hd) == tf32
     for dt in (torch.bfloat16, torch.float16):  # the 16-bit route is untouched
         assert not FA.uses_tf32("dkv", dt, hd)
         assert not FA.launch_name("dkv", dt, hd).endswith("_tf32")
@@ -234,21 +315,35 @@ def test_f32_dq_route(hd):
         assert not FA.launch_name("dq", dt, hd).endswith("_tf32")
 
 
+@pytest.mark.parametrize("hd", [128, 256, 384, 512, 640])
+def test_f32_fwd_route(hd):
+    """The f32 forward at head_dim 128 and 256 counts and launches as
+    ``_tf32`` through a C entry the library binds; from 384 it stays on the
+    wide family; the 16-bit forward never takes the TF32 instance."""
+    f32 = torch.float32
+    name = FA.launch_name("fwd", f32, hd)
+    entry = FA.c_entry(name)
+    tf32 = hd in (128, 256)
+    assert FA.uses_tf32("fwd", f32, hd) == tf32 and not FA.uses_wgmma("fwd", f32, hd)
+    assert name == "flash_attention_causal_fwd" + ("_tf32" if tf32 else "_wide"), name
+    assert name in _lib.LAUNCHES and entry == "bnb_" + name and entry in _lib._SIGNATURES
+    for dt in (torch.bfloat16, torch.float16):
+        assert not FA.uses_tf32("fwd", dt, hd)
+        assert not FA.launch_name("fwd", dt, hd).endswith("_tf32")
+
+
 class _FailingLib:
-    """Stands in for the kernel library: the TF32 entry fails its launch,
-    and any other entry records that it was called."""
+    """Stands in for the kernel library: the C entry ``failing`` fails its
+    launch, and any other entry records that it was called."""
 
-    def __init__(self):
+    def __init__(self, failing: str):
+        self.failing = failing
         self.called = []
-
-    def bnb_flash_attention_causal_bwd_dkv_tf32(self, *args):
-        self.called.append("tf32")
-        return 1  # cudaErrorInvalidValue
 
     def __getattr__(self, name):
         def entry(*args):
-            self.called.append(name)
-            return 0
+            self.called.append("tf32" if name == self.failing else name)
+            return 1 if name == self.failing else 0  # cudaErrorInvalidValue
 
         return entry
 
@@ -258,7 +353,7 @@ def test_failed_tf32_launch_raises_without_fallback(monkeypatch, hd):
     """A launch error of the TF32 instance raises from the wrapper: the call
     never goes on to the wide kernel or the plain version, and counts no
     launch."""
-    lib = _FailingLib()
+    lib = _FailingLib("bnb_flash_attention_causal_bwd_dkv_tf32")
     B, T, H = 1, 128, 2
     q, k, v, do = (torch.randn(B, T, n, hd) for n in (H, 1, 1, H))
     m, l, di = torch.zeros(B, H, T), torch.ones(B, H, T), torch.zeros(B, H, T)
@@ -276,30 +371,11 @@ def test_failed_tf32_launch_raises_without_fallback(monkeypatch, hd):
     assert not any(_lib.launch_counts().values())
 
 
-class _FailingDqLib:
-    """Stands in for the kernel library: the TF32 dQ entry fails its launch,
-    and any other entry records that it was called."""
-
-    def __init__(self):
-        self.called = []
-
-    def bnb_flash_attention_causal_bwd_dq_tf32(self, *args):
-        self.called.append("tf32")
-        return 1  # cudaErrorInvalidValue
-
-    def __getattr__(self, name):
-        def entry(*args):
-            self.called.append(name)
-            return 0
-
-        return entry
-
-
 @pytest.mark.parametrize("T,hd,G", SHAPES, ids=[f"T{t}-hd{h}-G{g}" for t, h, g in SHAPES])
 def test_failed_tf32_dq_launch_raises_without_fallback(monkeypatch, T, hd, G):
     """A launch error of the TF32 dQ raises from the wrapper: the call never
     goes on to the wide kernel or the plain version, and counts no launch."""
-    lib = _FailingDqLib()
+    lib = _FailingLib("bnb_flash_attention_causal_bwd_dq_tf32")
     H = KVH * G
     q, k, v, do = (torch.randn(1, T, n, hd) for n in (H, KVH, KVH, H))
     m, l, di = torch.zeros(1, H, T), torch.ones(1, H, T), torch.zeros(1, H, T)
@@ -310,5 +386,23 @@ def test_failed_tf32_dq_launch_raises_without_fallback(monkeypatch, T, hd, G):
     _lib.reset_launch_counts()
     with pytest.raises(RuntimeError, match="flash_attention_causal_bwd_dq_tf32"):
         FA.flash_attention_causal_bwd_dq(q, k, v, do, m, l, di)
+    assert lib.called == ["tf32"]
+    assert not any(_lib.launch_counts().values())
+
+
+@pytest.mark.parametrize("T,hd,G", SHAPES, ids=[f"T{t}-hd{h}-G{g}" for t, h, g in SHAPES])
+def test_failed_tf32_fwd_launch_raises_without_fallback(monkeypatch, T, hd, G):
+    """A launch error of the TF32 forward raises from the wrapper: the call
+    never goes on to the wide kernel or the plain version, and counts no
+    launch."""
+    lib = _FailingLib("bnb_flash_attention_causal_fwd_tf32")
+    q, k, v = (torch.randn(1, T, n, hd) for n in (KVH * G, KVH, KVH))
+    monkeypatch.setattr(FA, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(FA._lib, "lib", lambda: lib)
+    monkeypatch.setattr(FA._lib, "stream", lambda t: 0)
+    monkeypatch.setattr(FA, "flash_attention_causal_fwd_plain", lambda *a: pytest.fail("fell back"))
+    _lib.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="flash_attention_causal_fwd_tf32"):
+        FA.flash_attention_causal_fwd(q, k, v)
     assert lib.called == ["tf32"]
     assert not any(_lib.launch_counts().values())
