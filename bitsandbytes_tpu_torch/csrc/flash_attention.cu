@@ -1,10 +1,11 @@
 // Causal flash attention of the training path (no cache): the forward, the
 // dK/dV and the dQ kernel, T a multiple of 128, in three families: the wgmma
-// kernels take bf16 and f16 at head_dim 128, 256, 384 and 512; three-pass
+// kernels take bf16 and f16 at head_dim 128, 256, 384 and 512, and the
+// forward at every head_dim from 640 too (its streamed instance); three-pass
 // TF32 wgmma instances of all three take f32 at head_dim 128 and 256; the
 // wide family (at the end of the file) takes f32 from head_dim 384 (any
-// multiple of 128), and bf16 and f16 where the wgmma kernels stop, from
-// head_dim 640.
+// multiple of 128), and bf16 and f16 dK/dV and dQ where the wgmma kernels
+// stop, from head_dim 640.
 //
 // Replaces the three TPU kernels the JAX package reaches through
 // models/llama.py:_flash_call, in jax/experimental/pallas/ops/tpu/
@@ -99,6 +100,10 @@
 //   query rows of one head, S = Q K^T and the softmax by one consumer
 //   warpgroup as three TF32 passes, then O^T += V^T P^T with P through
 //   shared memory by both, each over half of hd.
+// * The forward in bf16 and f16 from hd 640 (StreamedCfg says why): a block
+//   64 query rows of one head and at most 256 columns of o, S over all of hd
+//   from 64-column chunks of K (and of Q, past hd 1024) streamed through a
+//   ring, one producer warp.
 // * Causal work only: tiles above the diagonal are never loaded (a dQ
 //   consumer stops at its own diagonal tile).  Blocks with the most tiles
 //   launch first.
@@ -2268,9 +2273,349 @@ __global__ void __launch_bounds__(Tf32FwdCfg<HD>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// forward above hd 512 in bf16 and f16: o, m, l with head_dim streamed in
+// chunks (wgmma, TMA, a producer warp)
+// ---------------------------------------------------------------------------
+
+// From hd 640 a half slice of O passes wgmma's widest N (256), and whole
+// tiles no longer fit shared memory: at hd 1024 Q alone takes 128 KB and one
+// 64-key K tile 128 KB, against 227 KB a block.  So a block owns 64 query
+// rows of one head and a column slice of o of at most 256 columns (O in 128
+// registers, hd 512's footprint; ceil(hd / 256) blocks a row tile, the last
+// one 128 columns wide where hd / 128 is odd), and S = Q K^T runs over all
+// of hd from 64-column chunks: each chunk of a 64-key K tile (8 KB) arrives
+// through a ring of chunk stages, one commit group a chunk, so S stays an
+// m64n64 product whatever hd is.  Q stays resident while it leaves room for
+// eight chunk stages beside one V stage (up to hd 1024: 80-128 KB); above
+// that each chunk stage brings Q's chunk beside K's.  A V stage holds the
+// tile's 64 keys in the block's columns (32 KB) for O += P V (m64 n256 or
+// n128); there are two where six chunk stages still fit beside them (up to
+// hd 896), else one.  The work is ceil(hd / 256) computations of S a row
+// tile: 3 at hd 640 and 768, 4 at 896 and 1024, 2 to 2.5 times the least.
+// hd is a runtime value: one kernel serves every multiple of 128 from 640,
+// its two slice widths two bodies of one template lambda.  p and the
+// rounding points are flash_fwd_kernel's, and so are m and l.
+//
+// On an H100 80GB HBM3 at 700 W (B 1, T 2048, H 8, bf16) this ran 0.234 /
+// 0.270 / 0.389 / 0.501 ms at hd 640 / 768 / 896 / 1024 (203 registers, no
+// spills, no C75xx), against the wide forward's 4.03 / 5.62 / - / 9.56.
+// Against it: two V stages at every hd (the layout written first) even, 1,
+// 1 and 7% slower; one V stage at every hd 19, 22, 14 and 1% slower; Q
+// streamed at every hd 25, 19, 27 and 2% slower; a ring of at most four
+// stages 16, 21, 20 and 23% slower; blocks handed out head by head (the K
+// and V of one or two heads in flight) 8 and 5% slower, 1 and 3% faster
+// (experiments/ab_flash_fwd_streamed_torch.py).  Streaming Q doubles the L2
+// reads of S and still moved 8-9.5 TB/s, so L2 does not bind here; the ring's
+// depth does, and shared memory's bandwidth, which each m64n64 product's A
+// and B reads fill as fully as its math fills the tensor cores, beside the
+// TMA writes of every chunk (an estimate: no counter reads it).
+struct StreamedCfg {
+    static constexpr int kRows = 64;                       // query rows of a block
+    static constexpr int kKeys = 64;                       // keys of a K or V tile
+    static constexpr int kMaxCols = 256;                   // columns of o a block owns at most
+    static constexpr int kThreads = 128 + 32;              // one consumer warpgroup, one producer warp
+    static constexpr int kMaxVStages = 2;
+    static constexpr uint32_t kChunkBytes = kRows * 128;   // a 64-column chunk of Q's rows or of a K tile
+    static constexpr uint32_t kVBytes = kKeys * kMaxCols * 2;  // a V stage: the tile in the block's columns
+    static constexpr int kResidentRing = 8;  // Q stays resident while this many chunk stages fit beside a V stage
+    static constexpr int kTwoVRing = 6;      // two V stages while this many chunk stages fit beside them
+    static constexpr int kMaxRing = 16;
+    static constexpr uint32_t kBarBytes = (1 + 2 * kMaxVStages + 2 * kMaxRing) * 8;
+    static constexpr uint32_t kData = 232448 - 1024 - kBarBytes;  // for Q, the V stages and the ring
+    static_assert(kRows == kKeys, "a K chunk and a Q chunk share a stage's layout");
+};
+
+// Where a block's shared memory goes at one hd, from a 1024-byte aligned
+// base: Q (when resident), the V stages, the chunk ring (each stage a K chunk,
+// after Q's chunk when Q streams), the barriers (Q's, each V stage's full and
+// empty, each chunk stage's full and empty).
+struct StreamedLayout {
+    int chunks;            // hd / 64
+    int slices;            // blocks a row tile
+    int resident;          // Q stays in shared memory
+    int vshift;            // log2 of the V stages (1 or 2)
+    int ring;              // chunk stages
+    uint32_t q_bytes;      // Q's resident bytes (0 when it streams)
+    uint32_t stage_bytes;  // a chunk stage
+    uint32_t ring0, bars, bytes;
+};
+
+inline StreamedLayout streamed_layout(int hd) {
+    using C = StreamedCfg;
+    StreamedLayout s;
+    s.chunks = hd / 64;
+    s.slices = (hd + C::kMaxCols - 1) / C::kMaxCols;
+    s.q_bytes = s.chunks * C::kChunkBytes;
+    s.resident = s.q_bytes + C::kVBytes + C::kResidentRing * C::kChunkBytes <= C::kData;
+    if (!s.resident) s.q_bytes = 0;
+    s.stage_bytes = (s.resident ? 1 : 2) * C::kChunkBytes;
+    s.vshift = s.q_bytes + 2 * C::kVBytes + C::kTwoVRing * s.stage_bytes <= C::kData ? 1 : 0;
+    const uint32_t v = (1u << s.vshift) * C::kVBytes;
+    const uint32_t fit = (C::kData - s.q_bytes - v) / s.stage_bytes;
+    s.ring = fit < (uint32_t)C::kMaxRing ? (int)fit : C::kMaxRing;
+    s.ring0 = s.q_bytes + v;
+    s.bars = s.ring0 + s.ring * s.stage_bytes;
+    s.bytes = s.bars + C::kBarBytes + 1024;  // + the base's alignment
+    return s;
+}
+
+template <class E>
+__global__ void __launch_bounds__(StreamedCfg::kThreads, 1)
+    flash_streamed_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv, const Params<E> p, const StreamedLayout lay) {
+    using C = StreamedCfg;
+    constexpr int N = C::kKeys;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+    uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + lay.bars);
+    uint64_t* full_v = full_q + 1;
+    uint64_t* empty_v = full_v + C::kMaxVStages;
+    uint64_t* full_c = empty_v + C::kMaxVStages;
+    uint64_t* empty_c = full_c + lay.ring;
+    auto sV = [&](int st) { return smem + lay.q_bytes + st * C::kVBytes; };
+    auto sStage = [&](int sa) { return smem + lay.ring0 + sa * lay.stage_bytes; };
+
+    const int qi = gridDim.z - 1 - blockIdx.z;  // the longest rows first, over every head
+    const int h = blockIdx.x / lay.slices, cs = blockIdx.x % lay.slices, b = blockIdx.y;  // cs: the column slice
+    const int r0 = qi * C::kRows;
+    const int hd = lay.chunks * 64;
+    const int cols = min(C::kMaxCols, hd - cs * C::kMaxCols);  // 256, or 128 in a last slice
+    const int ntiles = qi + 1;  // the tiles holding a key <= the block's last row; the last is its diagonal
+    // tile t's V stage, and the parity of its fill
+    auto vst = [&](int t) { return t & ((1 << lay.vshift) - 1); };
+    auto vpar = [&](int t) { return (uint32_t)(t >> lay.vshift) & 1u; };
+
+    if (threadIdx.x == 0) {
+        mbar_init(full_q, 1);
+        for (int st = 0; st < (1 << lay.vshift); ++st) {
+            mbar_init(full_v + st, 1);
+            mbar_init(empty_v + st, 4);  // each consumer warp once
+        }
+        for (int sa = 0; sa < lay.ring; ++sa) {
+            mbar_init(full_c + sa, 1);
+            mbar_init(empty_c + sa, 4);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 128) {
+        // the producer: one thread loads Q once (when resident), then for
+        // each K tile of KV head h / (H / KVH) from key 0 up to the block's
+        // diagonal its chunks into the ring (each after Q's chunk when Q
+        // streams) and its slice cs of V into a stage
+        if (threadIdx.x == 128) {
+            tma_prefetch_map(&tq);
+            tma_prefetch_map(&tk);
+            tma_prefetch_map(&tv);
+            const int kvh = h / (p.H / p.KVH);
+            if (lay.resident) {
+                mbar_expect_tx(full_q, lay.q_bytes);
+                for (int c = 0; c < lay.chunks; ++c) tma_load_4d(smem + c * C::kChunkBytes, &tq, full_q, c * 64, h, r0, b);
+            }
+            int sa = 0, pass = 0;  // the next chunk stage, and how often the ring has been filled
+            for (int t = 0; t < ntiles; ++t) {
+                for (int c = 0; c < lay.chunks; ++c) {
+                    if (pass > 0) mbar_wait(empty_c + sa, (pass - 1) & 1);
+                    unsigned char* dst = sStage(sa);
+                    mbar_expect_tx(full_c + sa, lay.stage_bytes);
+                    if (!lay.resident) {
+                        tma_load_4d(dst, &tq, full_c + sa, c * 64, h, r0, b);
+                        dst += C::kChunkBytes;
+                    }
+                    tma_load_4d(dst, &tk, full_c + sa, c * 64, kvh, t * N, b);
+                    if (++sa == lay.ring) {
+                        sa = 0;
+                        ++pass;
+                    }
+                }
+                const int st = vst(t);
+                if (t >= (1 << lay.vshift)) mbar_wait(empty_v + st, vpar(t) ^ 1u);
+                mbar_expect_tx(full_v + st, cols * N * 2);
+                for (int c = 0; c < cols / 64; ++c)
+                    tma_load_4d(sV(st) + c * N * 128, &tv, full_v + st, cs * C::kMaxCols + c * 64, kvh, t * N, b);
+            }
+        }
+        return;
+    }
+
+    // the consumer warpgroup: 64 query rows, S = Q K^T chunk by chunk and
+    // O += P V over the block's W columns on wgmma, the online softmax in
+    // registers
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int gq = lane / 4, t4 = lane % 4;
+    const int row[2] = {r0 + 16 * warp + gq, r0 + 16 * warp + gq + 8};
+    const float sl2 = p.scale * 1.44269504088896341f;  // scale * log2(e): exp(scale x) = 2^(sl2 x)
+    const uint32_t q_res = smem_addr(smem);            // Q's first chunk, when resident
+    const uint32_t k_off = lay.resident ? 0u : C::kChunkBytes;  // K's chunk in a stage
+
+    auto body = [&](auto width) {
+        constexpr int W = decltype(width)::value;
+        float m[2] = {-INFINITY, -INFINITY};  // the row max of the unscaled scores
+        float l[2] = {0.0f, 0.0f};            // this thread's part of the row sum
+        float o[W / 2];
+#pragma unroll
+        for (int i = 0; i < W / 2; ++i) o[i] = 0.0f;
+        float s[N / 2];
+        uint32_t pa[N / 16][4];
+        float corr[2];
+        int sa = 0;
+        uint32_t phase = 0;  // the next chunk stage, and the parity of its fill
+
+        auto release = [&](uint64_t* bars) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bars);  // this warp is done with the stage
+        };
+        // chunk c of S = Q K_t^T into s, committed as one group; the first
+        // chunk's first step overwrites s (scale_d 0, known at compile
+        // time).  The addresses come before the wait, the fence after it: no
+        // branch may sit between a fence and its wgmma.
+        auto s_chunk = [&](int c, auto first) {
+            const uint32_t st = opaque(smem_addr(sStage(sa)));
+            const uint32_t qa = lay.resident ? opaque(q_res) + c * C::kChunkBytes : st;
+            const uint32_t ka = st + k_off;
+            mbar_wait(full_c + sa, phase);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                wgmma_ss<N, E>(s, gmma_desc_sw128(qa + kk * 32, 16, 1024), gmma_desc_sw128(ka + kk * 32, 16, 1024),
+                               decltype(first)::value && kk == 0 ? 0 : 1);
+            wgmma_commit();
+        };
+        auto advance = [&]() {
+            if (++sa == lay.ring) {
+                sa = 0;
+                phase ^= 1;
+            }
+        };
+        // S of tile t over every chunk; a chunk stage goes back once the next
+        // chunk's group is issued and its own has landed.  Returns the last
+        // chunk's stage, whose group may still run.
+        auto issue_s = [&]() {
+            s_chunk(0, std::true_type{});
+            int prev = sa;
+            advance();
+#pragma unroll 1
+            for (int c = 1; c < lay.chunks; ++c) {
+                s_chunk(c, std::false_type{});
+                wgmma_wait<1>();
+                release(empty_c + prev);
+                prev = sa;
+                advance();
+            }
+            return prev;
+        };
+        // O += P V_t over the block's columns, committed as one group
+        auto issue_pv = [&](int t) {
+            const int st = vst(t);
+            mbar_wait(full_v + st, vpar(t));
+            const uint32_t va = opaque(smem_addr(sV(st)));
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < N / 16; ++kk)
+                wgmma_rs_tb<W, E>(o, pa[kk], gmma_desc_sw128(va + kk * 16 * 128, N * 128, 1024), 1);
+            wgmma_commit();
+        };
+        // the online softmax of tile t (flash_fwd_kernel's), p kept in s
+        // while the last tile's P V product still reads pa
+        auto softmax = [&](int t) {
+            if (t * N + N - 1 > r0) {  // the diagonal tile: key t N + 8 j + 2 t4 + (e & 1) after row[e / 2]
+                const int lim[2] = {row[0] - t * N - 2 * t4, row[1] - t * N - 2 * t4};
+#pragma unroll
+                for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (8 * j + (e & 1) > lim[e >> 1]) s[4 * j + e] = -INFINITY;
+            }
+            float mx[2] = {m[0], m[1]};
+#pragma unroll
+            for (int i = 0; i < N / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+            float ms[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                ms[i] = mx[i] * sl2;
+                corr[i] = ex2(fmaf(m[i], sl2, -ms[i]));  // 0 on the first tile (m = -inf)
+                m[i] = mx[i];
+            }
+#pragma unroll
+            for (int i = 0; i < N / 2; ++i) {
+                s[i] = ex2(fmaf(s[i], sl2, -ms[(i >> 1) & 1]));
+                rs[(i >> 1) & 1] += s[i];
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+        };
+        // p rounded to E pairs: the A fragments of the PV product (key step
+        // kk: n8 tiles 2 kk, 2 kk + 1)
+        auto to_pa = [&]() {
+#pragma unroll
+            for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) pa[kk][r] = pack_x2<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        };
+        auto pv_landed = [&]() {
+            fence_regs(o);
+#pragma unroll
+            for (int kk = 0; kk < N / 16; ++kk) fence_regs(pa[kk]);
+        };
+
+        if (lay.resident) mbar_wait(full_q, 0);
+        int last = issue_s();
+        wgmma_wait<0>();
+        fence_regs(s);
+        release(empty_c + last);
+        softmax(0);
+        to_pa();
+        for (int t = 1; t < ntiles; ++t) {
+            last = issue_s();
+            issue_pv(t - 1);
+            wgmma_wait<1>();  // S_t has landed, P V_{t-1} may still run
+            fence_regs(s);
+            release(empty_c + last);
+            softmax(t);
+            wgmma_wait<0>();
+            pv_landed();
+            release(empty_v + vst(t - 1));
+#pragma unroll
+            for (int i = 0; i < W / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+            to_pa();
+        }
+        issue_pv(ntiles - 1);
+        wgmma_wait<0>();
+        pv_landed();
+        release(empty_v + vst(ntiles - 1));
+
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+            l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+            const float inv = 1.0f / l[i];
+            E* dst = p.o + (((size_t)b * p.T + row[i]) * p.H + h) * hd + cs * C::kMaxCols;
+#pragma unroll
+            for (int j = 0; j < W / 8; ++j)
+                *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * t4) =
+                    pack_x2<E>(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+            if (cs == 0 && t4 == 0) {  // every slice has the same m and l: slice 0 writes them
+                const size_t ml = ((size_t)b * p.H + h) * p.T + row[i];
+                p.m_out[ml] = __fmul_rn(m[i], p.scale);  // max of the scaled scores: the scale is monotone
+                p.l_out[ml] = l[i];
+            }
+        }
+    };
+    if (cols == C::kMaxCols)
+        body(std::integral_constant<int, C::kMaxCols>{});
+    else
+        body(std::integral_constant<int, 128>{});
+}
+
+// ---------------------------------------------------------------------------
 // The wide family: the same three functions where the other kernels stop, f32
-// at any head_dim (dK/dV from head_dim 384), and bf16/f16 from head_dim 640
-// (CUDA cores, f32 FMA)
+// from head_dim 384, and bf16/f16 dK/dV and dQ from head_dim 640 (CUDA
+// cores, f32 FMA); its forward also takes bf16/f16 from 640 through its C
+// entry, which the route no longer calls there
 // ---------------------------------------------------------------------------
 
 // Why CUDA cores.  f32 must keep full f32 precision (the JAX package's
@@ -2282,9 +2627,10 @@ __global__ void __launch_bounds__(Tf32FwdCfg<HD>::kThreads, 1)
 // and dO alone take 192 KB), stay here.  And a
 // warpgroup's f32 O or dQ of 64 rows takes hd / 2 registers a thread, which
 // with S and dP passes the 255-register limit above hd 256.  The 16-bit forward and dQ cut O and dQ
-// in two column slices on wgmma up to hd 512 (FwdCfg, DqCfg), and dK/dV holds
+// in two column slices on wgmma up to hd 512 (FwdCfg, DqCfg; the forward
+// from hd 640 in slices of 256 columns, StreamedCfg), and dK/dV holds
 // 128-column slices and streams the rest of hd in chunks up to hd 512
-// (DkvCfg); from hd 640 a half slice of O or dQ passes wgmma's widest N, 256,
+// (DkvCfg); from hd 640 a half slice of dQ passes wgmma's widest N, 256,
 // and K and V (160 KB) leave too little room for dK/dV's rings.  So a block
 // here owns 128 columns of its output (a column slice; hd / 128 blocks share a
 // row tile and each recomputes the scores over all of hd) and keeps everything
@@ -2839,6 +3185,26 @@ int launch_dq(const Params<E>& p, int B, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+// The streamed forward's launch (bf16, f16 above hd 512): a block 64 query
+// rows of one head and a column slice, the longest rows first; boxes of 64
+// rows of 64 columns of q, k and v.
+template <class E>
+int launch_streamed_fwd(const Params<E>& p, int B, int hd, cudaStream_t stream) {
+    using C = StreamedCfg;
+    CUtensorMap tq, tk, tv;
+    int e = encode_rows(&tq, p.q, hd, B, p.T, p.H, p.sqb, p.sqt, C::kRows);
+    if (e == 0) e = encode_rows(&tk, p.k, hd, B, p.T, p.KVH, p.skb, p.skt, C::kKeys);
+    if (e == 0) e = encode_rows(&tv, p.v, hd, B, p.T, p.KVH, p.svb, p.svt, C::kKeys);
+    if (e != 0) return e;
+    const StreamedLayout lay = streamed_layout(hd);
+    const cudaError_t a = cudaFuncSetAttribute(flash_streamed_fwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)lay.bytes);
+    if (a != cudaSuccess) return (int)a;
+    flash_streamed_fwd_kernel<E><<<dim3(p.H * lay.slices, B, p.T / C::kRows), C::kThreads, lay.bytes, stream>>>(
+        tq, tk, tv, p, lay);
+    return (int)cudaGetLastError();
+}
+
 // A wide-family kernel's launch over `grid` with `bytes` of shared memory.
 template <class K, class... Args>
 int launch_wide(K kernel, dim3 grid, int bytes, cudaStream_t stream, Args... args) {
@@ -2852,7 +3218,8 @@ int launch_wide(K kernel, dim3 grid, int bytes, cudaStream_t stream, Args... arg
 
 // Every entry takes `kind` (common.cuh's Kind: f32, bf16 or f16), the type of
 // q, k, v, do and the outputs.  The plain entries run the wgmma kernels (bf16
-// or f16 at hd 128, 256, 384 and 512), the _tf32 ones the TF32 forward, dK/dV
+// or f16 at hd 128, 256, 384 and 512), the _streamed one the forward above
+// (bf16 or f16 from hd 640), the _tf32 ones the TF32 forward, dK/dV
 // and dQ (f32 at hd 128 and 256), the _wide ones the wide family (any of the three
 // types, hd a multiple of 128); each refuses what its kernels do not take.  T
 // is a multiple of 128 and outputs are packed.  An entry returns a CUDA
@@ -2896,6 +3263,27 @@ BNB_EXPORT int bnb_flash_attention_causal_fwd_wide(const void* q, const void* k,
         p.l_out = l;
         return launch_wide(flash_wide_fwd_kernel<E>, dim3(H * (hd / WideCfg::kCols), B, T / WideCfg::kTile),
                            WideCfg::kFwdBytes, stream, p, hd);
+    });
+}
+
+// The streamed instance: bf16 or f16 (kind kBf16, kF16) above hd 512 alone.
+BNB_EXPORT int bnb_flash_attention_causal_fwd_streamed(const void* q, const void* k, const void* v, void* o, float* m,
+                                                       float* l, int B, int T, int H, int KVH, int hd, long long sqb,
+                                                       long long sqt, long long skb, long long skt, long long svb,
+                                                       long long svt, float scale, int kind, cudaStream_t stream) {
+    if (!shapes_ok(B, T, H, KVH, hd) || (kind != kBf16 && kind != kF16) || hd <= 512) return (int)cudaErrorInvalidValue;
+    return by_kind(kind, [&](auto tag) -> int {
+        using E = typename decltype(tag)::type;
+        if constexpr (sizeof(E) == 4) {
+            return (int)cudaErrorInvalidValue;
+        } else {
+            Params<E> p = make_params<E>(q, k, v, nullptr, nullptr, nullptr, nullptr, T, H, KVH, sqb, sqt, skb, skt,
+                                         svb, svt, 0, 0, scale);
+            p.o = static_cast<E*>(o);
+            p.m_out = m;
+            p.l_out = l;
+            return launch_streamed_fwd<E>(p, B, hd, stream);
+        }
     });
 }
 

@@ -76,6 +76,7 @@ LAUNCHES: dict = {
     "flash_attention_causal_bwd_dkv_combine": 0,
     "flash_attention_causal_bwd_dq": 0,
     "flash_attention_causal_fwd_sliced": 0,
+    "flash_attention_causal_fwd_streamed": 0,
     "flash_attention_causal_fwd_tf32": 0,
     "flash_attention_causal_bwd_dkv_sliced": 0,
     "flash_attention_causal_bwd_dkv_tf32": 0,
@@ -223,10 +224,11 @@ _SIGNATURES = {
     # g_kind, stream
     "bnb_gemm_4bit_nt_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # q, k, v, o, m, l, B, T, H, KVH, hd, (batch, token) strides of q, k, v, scale, kind (_KIND), stream;
-    # the _wide (and _tf32) entries take the same arguments
+    # the _wide (and _tf32, _streamed) entries take the same arguments
     "bnb_flash_attention_causal_fwd": _FLASH_FWD,
     "bnb_flash_attention_causal_fwd_wide": _FLASH_FWD,
     "bnb_flash_attention_causal_fwd_tf32": _FLASH_FWD,
+    "bnb_flash_attention_causal_fwd_streamed": _FLASH_FWD,
     # q, k, v, do, m, l, di, dk, dv, part_k, part_v (or NULL), items (device), n_items, B, T, H, KVH, hd,
     # (batch, token) strides of q, k, v, do, scale, kind, stream
     "bnb_flash_attention_causal_bwd_dkv": _FLASH_DKV,

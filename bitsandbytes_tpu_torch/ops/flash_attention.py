@@ -21,7 +21,10 @@ picks one for its kernel by type and head_dim alone (:func:`uses_wgmma`,
   alone, a dQ ring stage k in the block's columns alone, and the rest of
   head_dim streams through a ring of 64-column chunks (all of it would not
   fit shared memory beside what stays resident); all three count as
-  ``..._sliced``;
+  ``..._sliced``.  The forward runs on ``wgmma`` from head_dim 640 too, at
+  every multiple of 128 (``..._streamed``): a block owns at most 256 of o's
+  columns and computes the scores over all of head_dim from 64-column chunks
+  of k (and of q, past 1024) streamed through a ring;
 * f32 at head_dim 128 and 256 runs all three kernels on ``wgmma`` in
   TF32, every product as three passes (big * big + big * small + small *
   big, each operand split into two TF32 values), because the JAX package's
@@ -31,9 +34,9 @@ picks one for its kernel by type and head_dim alone (:func:`uses_wgmma`,
   and dQ computes dQ^T = K^T dS^T, with P and dS staged in shared memory;
   all three count as ``..._tf32``;
 * the wide family on CUDA cores in full f32 FMA takes the rest: f32 from
-  head_dim 384, and bf16 and f16 from 640 (a warpgroup's f32 O or dQ of 64
-  rows takes hd / 2 registers a thread, which with S and dP passes the
-  255-register limit above hd 256).
+  head_dim 384, and bf16 and f16 dK/dV and dQ from 640 (a warpgroup's f32
+  dQ of 64 rows takes hd / 2 registers a thread, which with S and dP passes
+  the 255-register limit above hd 256).
   A block owns 128 columns of its output and recomputes the scores over
   all of head_dim.  Each kernel of this family counts under its own name
   (``..._wide``).
@@ -83,6 +86,7 @@ __all__ = [
     "BLOCK",
     "HEAD_DIM_STEP",
     "WGMMA_HEAD_DIMS",
+    "STREAMED_MIN_HEAD_DIM",
     "uses_wgmma",
     "uses_tf32",
     "launch_name",
@@ -112,6 +116,10 @@ HEAD_DIM_STEP = 128
 # stream the chunks of head_dim outside a stage's columns); the wide family
 # takes every other type and head_dim
 WGMMA_HEAD_DIMS = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256, 384, 512)}
+# and the forward's streamed instance from this head_dim, at every multiple of
+# HEAD_DIM_STEP (bf16 and f16; head_dim streamed in chunks, a block at most
+# 256 of o's columns)
+STREAMED_MIN_HEAD_DIM = 640
 # the head_dims at which each kernel runs in f32 on three-pass TF32 wgmma
 # (above 256 dK/dV's K and V, and dQ's Q and dO, leave too little shared
 # memory for the ring beside them, and the forward's O^T passes a
@@ -254,10 +262,14 @@ _BASE_NAMES = {"fwd": "flash_attention_causal_fwd", "dkv": "flash_attention_caus
 
 def uses_wgmma(kernel: str, dtype: torch.dtype, hd: int) -> bool:
     """Whether ``kernel`` (``"fwd"``, ``"dkv"`` or ``"dq"``) runs on 16-bit
-    wgmma for q/k/v of ``dtype`` at ``hd``; f32 runs on TF32 wgmma where
-    :func:`uses_tf32` says, and the wide family takes every other type and
-    head_dim the CUDA kernels take."""
-    return dtype != torch.float32 and hd in WGMMA_HEAD_DIMS[kernel]
+    wgmma for q/k/v of ``dtype`` at ``hd``: all three at head_dim 128-512,
+    the forward at every multiple of 128 (:data:`STREAMED_MIN_HEAD_DIM`); f32
+    runs on TF32 wgmma where :func:`uses_tf32` says, and the wide family
+    takes every other type and head_dim the CUDA kernels take."""
+    if dtype == torch.float32:
+        return False
+    return hd in WGMMA_HEAD_DIMS[kernel] or (kernel == "fwd" and hd >= STREAMED_MIN_HEAD_DIM
+                                             and hd % HEAD_DIM_STEP == 0)
 
 
 def uses_tf32(kernel: str, dtype: torch.dtype, hd: int) -> bool:
@@ -268,23 +280,26 @@ def uses_tf32(kernel: str, dtype: torch.dtype, hd: int) -> bool:
 
 def launch_name(kernel: str, dtype: torch.dtype, hd: int) -> str:
     """The launch count ``kernel`` adds to for q/k/v of ``dtype`` at ``hd``:
-    its wgmma instance's, ``..._sliced`` for the wgmma instances above
-    head_dim 256 (the forward's and dQ's column slices, dK/dV's and dQ's
-    streamed chunks), ``..._tf32`` for the TF32 instances, or ``..._wide``.
-    A ``_sliced`` instance runs through its kernel's plain C entry
-    (:func:`c_entry`)."""
+    its wgmma instance's, ``..._sliced`` for the wgmma instances at head_dim
+    384 and 512 (the forward's and dQ's column slices, dK/dV's and dQ's
+    streamed chunks), ``..._streamed`` for the forward's from head_dim 640,
+    ``..._tf32`` for the TF32 instances, or ``..._wide``.  A ``_sliced``
+    instance runs through its kernel's plain C entry (:func:`c_entry`)."""
     name = _BASE_NAMES[kernel]
     if uses_tf32(kernel, dtype, hd):
         return name + "_tf32"
     if not uses_wgmma(kernel, dtype, hd):
         return name + "_wide"
+    if hd >= STREAMED_MIN_HEAD_DIM:
+        return name + "_streamed"
     return name + "_sliced" if hd > 256 else name
 
 
 def c_entry(name: str) -> str:
     """The C entry point that runs launch count ``name`` (a
     :func:`launch_name`): ``bnb_`` + the name, whose ``_sliced`` instances
-    run through their kernel's plain entry."""
+    run through their kernel's plain entry (a ``_streamed``, ``_tf32`` or
+    ``_wide`` instance through its own)."""
     return "bnb_" + name.removesuffix("_sliced")
 
 
@@ -324,10 +339,12 @@ def flash_attention_causal_fwd(q, k, v):
     (no cache, positions from 0): ``(o [B, T, H, hd], m [B, H, T] f32,
     l [B, H, T] f32)``.  Kernel on CUDA tensors, plain version on CPU
     tensors.  On ``wgmma`` a block owns 128 query rows of one head (64 at
-    head_dim 256; 64 rows and half of the columns at 384 and 512; in f32 at
-    128 and 256 the three-pass TF32 instance, :func:`uses_tf32`, 64 rows and
-    all of head_dim) and reads q, k and v in place through TMA tensor maps
-    over their strides; in the wide family 64 rows and 128 columns of o."""
+    head_dim 256; 64 rows and half of the columns at 384 and 512; 64 rows and
+    at most 256 columns from 640, head_dim streamed in chunks; in f32 at 128
+    and 256 the three-pass TF32 instance, :func:`uses_tf32`, 64 rows and all
+    of head_dim) and reads q, k and v in place through TMA tensor maps over
+    their strides; in the wide family (f32 from head_dim 384) 64 rows and 128
+    columns of o."""
     B, T, H, KVH, hd = _shapes(q, k, v)
     if not use_kernel(q, k, v):
         return flash_attention_causal_fwd_plain(q, k, v)

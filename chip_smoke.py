@@ -91,8 +91,11 @@ Phases (every one asserts; any failure exits non-zero before the result):
    beside its earlier mma.sync body's; their SASS must show wgmma and TMA
    and no local stores; the dK/dV kernel's combine bit for bit its plain
    version at T 1024; in f32 the three kernels' three-pass TF32 instances
-   at hd 128 and 256 beside the wide family's); then the kernels against the
-   dense oracle at T 512 and 1024, below the route's line.
+   at hd 128 and 256 beside the wide family's; the 16-bit forward's streamed
+   instance at hd 640, 768 and 1024 beside SDPA's forward and the wide
+   forward; the wide family where the route sends it: f32 at hd 384 and 512,
+   16-bit dK/dV and dQ from hd 640); then the kernels against the dense
+   oracle at T 512 and 1024, below the route's line.
 4. The main paths at full width: Llama-3-8B, all 32 layers, random
    weights from a seed, quantized on the card, 8 requests of 128-token
    prompts, one prefill and 32 greedy decode steps.  First with NF4 (4a),
@@ -231,8 +234,9 @@ Phases (every one asserts; any failure exits non-zero before the result):
    128) at T 1024 through kernels 17-19 against the CPU port on their
    plain versions: the loss and the adapter gradients (5l; the dK/dV
    kernel's combine runs here, where its plan splits key tiles), and the
-   same in f16 and f32, and at hd 512 in bf16 (the sliced instances) and
-   f32 (the wide family's dK/dV, which no preset's f32 step takes now).
+   same in f16 and f32, at hd 512 in bf16 (the sliced instances) and f32
+   (the wide family's dK/dV, which no preset's f32 step takes now), and at
+   hd 640 in bf16 (the forward's streamed instance).
 6. The card's name and power limit once more, one JSON line describing
    every ported kernel, then the result line.
 
@@ -360,8 +364,15 @@ TPU_KERNELS = {
     "flash_attention_causal_bwd_dq_sliced": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
+    # kernel 17's streamed wgmma instance: bf16 and f16 at every head_dim
+    # from 640, head_dim streamed in 64-column chunks (launched by 5l's
+    # head_dim 640 step)
+    "flash_attention_causal_fwd_streamed": (
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
     # kernels 17-19's wide family: f32 from head_dim 384, and bf16 and f16
-    # from 640 (CUDA cores; launched by 5l's f32 step at head_dim 512)
+    # dK/dV and dQ from 640 (CUDA cores; launched by 5l's f32 step at
+    # head_dim 512)
     "flash_attention_causal_fwd_wide": (
         "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
         "bitsandbytes_tpu_torch/csrc/flash_attention.cu"),
@@ -397,7 +408,7 @@ FLASH_TOLERANCES = {"bfloat16": (2e-2, 1e-2), "float16": (8e-3, 5e-3), "float32"
 
 
 FLASH_TRAIN = ("flash_attention_causal_fwd", "flash_attention_causal_bwd_dkv", "flash_attention_causal_bwd_dq")
-# the wide family's launch counts (f32 from head_dim 384; bf16/f16 from 640)
+# the wide family's launch counts (f32 from head_dim 384; bf16/f16 dK/dV and dQ from 640)
 FLASH_TRAIN_WIDE = tuple(n + "_wide" for n in FLASH_TRAIN)
 # the TF32 instances' launch counts (f32 at head_dim 128 and 256)
 FLASH_TF32 = tuple(n + "_tf32" for n in FLASH_TRAIN)
@@ -407,8 +418,8 @@ FLASH_KERNELS = ("fwd", "dkv", "dq")
 def flash_names(dtype, hd=128):
     """The launch counts of kernels 17, 18 and 19 that q/k/v of ``dtype`` at
     ``hd`` take, each kernel's family chosen on its own: a wgmma kernel's
-    (``_sliced``: its instances at 384 and 512), a TF32 instance's or the
-    wide family's."""
+    (``_sliced``: its instances at 384 and 512; ``_streamed``: the
+    forward's from 640), a TF32 instance's or the wide family's."""
     from bitsandbytes_tpu_torch.ops import flash_attention as FA
 
     return tuple(FA.launch_name(k, dtype, hd) for k in FLASH_KERNELS)
@@ -417,7 +428,8 @@ def flash_names(dtype, hd=128):
 # device time by class of a training step through the flash kernels (the
 # sliced instances before their kernels' others: the first match names a
 # kernel)
-FLASH_CLASSES = [("flash_fwd_kernel<384", "kernel 17, column-sliced (hd 384)"),
+FLASH_CLASSES = [("flash_streamed_fwd_kernel", "kernel 17, streamed (hd 640 and up)"),
+                 ("flash_fwd_kernel<384", "kernel 17, column-sliced (hd 384)"),
                  ("flash_fwd_kernel<512", "kernel 17, column-sliced (hd 512)"),
                  ("flash_bwd_dkv_kernel<384", "kernel 18, streamed chunks (hd 384)"),
                  ("flash_bwd_dkv_kernel<512", "kernel 18, streamed chunks (hd 512)"),
@@ -2938,7 +2950,16 @@ def flash_train_kernels(dev, entry):
     to the same f32 gates (the forward's o, m and l; dk, dv and dq); the batched
     f32 shape, whose plan splits key tiles, runs each twice bit for bit and
     the dK/dV combine bit for bit; every ``HGMMA`` of their SASS is a TF32
-    one, with ``UTMALDG`` and no ``STL``.  The SASS
+    one, with ``UTMALDG`` and no ``STL``.  In bf16 and f16 at hd 640, 768
+    and 1024 (B 1, T 2048, H 8 over 8) the forward runs its streamed
+    instance (``..._fwd_streamed``: one launch a call, none of the wide
+    forward; its own kernels-line entry from bf16 hd 640), timed beside
+    SDPA's forward and the wide forward through its C entry on the same
+    tensors, both held to the type's gates; dK/dV and dQ there, and all three
+    kernels in f32 at hd 384 and 512 (the same B, T and heads), run the wide
+    family through the route, timed beside SDPA's forward and backward (the
+    wide entries of the kernels line take f32 hd 512, the others beside
+    it); a batched bf16 shape at hd 1152 streams q's chunks too.  The SASS
     counts and the registers (``cuobjdump -res-usage``) of every instance
     are emitted."""
     import torch
@@ -2959,6 +2980,11 @@ def flash_train_kernels(dev, entry):
     cases += [(dt, 1, 2048, 8, 8, hd) for dt in (bf16, f16) for hd in (384, 512)]
     # f32 at Gemma-7B's attention: kernels 17-19's TF32 instances at head_dim 256
     cases += [(f32, 1, 2048, 16, 16, 256)]
+    # the forward's streamed instance in bf16 and f16, and the wide family
+    # where the route sends it: 16-bit dK/dV and dQ from head_dim 640, all
+    # three in f32 at 384 and 512
+    cases += [(dt, 1, 2048, 8, 8, hd) for dt in (bf16, f16) for hd in (640, 768, 1024)]
+    cases += [(f32, 1, 2048, 8, 8, hd) for hd in (384, 512)]
 
     def flash_err(errs, key):  # a kernel's max_abs_err: o's abs error, or its gradients' relative one
         return errs["o_abs"] if key == "fwd" else max(errs[f"{g}_rel"] for g in
@@ -3086,7 +3112,7 @@ def flash_train_kernels(dev, entry):
             if dt == f32:  # both yardsticks of an f32 kernel: f32 FMA, and three TF32 passes
                 row[key].update(f32_fma_bound_ms=bound_ms(nb, ops, PEAK_F32_FLOPS)[0],
                                 tf32x3_bound_ms=bound_ms(nb, 3 * ops, PEAK_TF32_FLOPS)[0])
-        if FA.uses_tf32("fwd", dt, hd):
+        if FA.uses_tf32("fwd", dt, hd) or family["fwd"].endswith("_streamed"):
             # kernel 17's wide instance, which took these shapes before, on the same tensors
             wo, wm, wl = fwd_wide(q, k, v)
             wide_errs = {"o_abs": (wo - op).abs().max().item(), "m_abs": (wm - mp).abs().max().item(),
@@ -3096,7 +3122,7 @@ def flash_train_kernels(dev, entry):
             row["fwd"]["wide_bound_share"] = row["fwd"]["bound_ms"] / row["fwd"]["wide_ms"]
             row["fwd"].update(wide_err=wide_errs["o_abs"], wide_errs=wide_errs)
             del wo, wm, wl
-        if hd > 256 or FA.uses_tf32("dkv", dt, hd):
+        if not family["dkv"].endswith("_wide") and (hd > 256 or FA.uses_tf32("dkv", dt, hd)):
             # kernel 18's wide instance, which took these shapes before, on the same tensors
             wk, wv = dkv_wide(*bwd)
             wide_errs = {"dk_rel": rel(wk, dkp), "dv_rel": rel(wv, dvp)}
@@ -3105,7 +3131,7 @@ def flash_train_kernels(dev, entry):
             row["dkv"]["wide_bound_share"] = row["dkv"]["bound_ms"] / row["dkv"]["wide_ms"]
             row["dkv"]["wide_err"] = max(wide_errs.values())
             del wk, wv
-        if hd > 256 or FA.uses_tf32("dq", dt, hd):  # and kernel 19's
+        if not family["dq"].endswith("_wide") and (hd > 256 or FA.uses_tf32("dq", dt, hd)):  # and kernel 19's
             wq = dq_wide(*bwd)
             row["dq"]["wide_err"] = rel(wq, dqp)
             check(f"{what} wide dQ", dt, {"dq_rel": row["dq"]["wide_err"]})
@@ -3142,40 +3168,26 @@ def flash_train_kernels(dev, entry):
         row["bwd_ms"] = row["dkv"]["ms"] + row["dq"]["ms"]
         del op, mp, lp, dkp, dvp, dqp
         out.append(row)
-        if hd > 256:  # the sliced instances of the three kernels
+        if dt != f32 and hd in (384, 512):  # the sliced instances of the three kernels
             wide_rows.append({"dtype": row["dtype"], "shape": [B, T, H, KVH, hd], "sdpa": sdpa, "errs": errs,
                               **{key: row[key] for key in ("fwd", "dkv", "dq")}})
-        if dt == f32:  # kernels 17-19's TF32 instances at each f32 shape, entered below
+        if FA.uses_tf32("fwd", dt, hd):  # kernels 17-19's TF32 instances at each of their shapes, entered below
             for key in FLASH_KERNELS:
                 wide_rows.append({"tf32": key, "dtype": row["dtype"], "shape": [B, T, H, KVH, hd], "errs": errs,
                                   "sdpa_fwd_ms": sdpa["fwd_ms"], "sdpa_bwd_ms": sdpa["bwd_ms"],
                                   "kernels_bwd_ms": row["bwd_ms"], **row[key]})
-        if (T, hd) == (2048, 128):
+        if (T, hd) == (2048, 128) and dt != f32:  # f32's TF32 and wide entries follow the loop
             for key, lib in (("fwd", sdpa["fwd_ms"]), ("dkv", None), ("dq", None)):
                 nb, ops = work[key]
                 extra = dict(shape=[B, T, H, KVH, hd], dtype=row["dtype"], family=family, sdpa_bwd_ms=sdpa["bwd_ms"],
                              kernels_bwd_ms=row["bwd_ms"])
-                if dt == f32:  # the TF32 instance below; here the wide one, on the same tensors
-                    kernel = {"fwd": "kernel 17's", "dkv": "kernel 18's", "dq": "kernel 19's"}[key]
-                    what = {"fwd": "the f32 forward", "dkv": "f32 dK/dV", "dq": "f32 dQ"}[key]
-                    entry(FA._BASE_NAMES[key] + "_wide", row[key]["wide_ms"], row[key]["plain_ms"], lib, nb, ops,
-                          PEAK_F32_FLOPS, row[key]["wide_err"], **extra, note=(
-                              f"{kernel} wide family (CUDA cores, f32 FMA), which {what} took at head_dim 128 "
-                              "and 256 before the TF32 instance; timed through its C entry on the TF32 row's "
-                              "tensors (4r's attention shape); device ms, host held out, L2 flushed; launches from "
-                              "5l's f32 step at head_dim 512, where the route still takes it; " + (
-                                  "library_ms is SDPA is_causal's f32 forward; max_abs_err is the output's abs "
-                                  "error" if key == "fwd" else
-                                  "library_ms is null: SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms); "
-                                  "max_abs_err is relative to the gradient's largest magnitude")))
-                else:
-                    entry(family[key] + ("_f16" if dt == f16 else ""), row[key]["ms"], row[key]["plain_ms"], lib,
-                          nb, ops, peak, flash_err(errs, key), **extra,
-                          note="4r's attention shape; device ms, host held out, L2 flushed; the backward rows' "
-                               "library_ms is null: SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms, "
-                               "against kernels_bwd_ms, 18 + 19)" + (
-                                   "; max_abs_err is the output's abs error" if key == "fwd" else
-                                   "; max_abs_err is relative to the gradient's largest magnitude"))
+                entry(family[key] + ("_f16" if dt == f16 else ""), row[key]["ms"], row[key]["plain_ms"], lib, nb,
+                      ops, peak, flash_err(errs, key), **extra,
+                      note="4r's attention shape; device ms, host held out, L2 flushed; the backward rows' "
+                           "library_ms is null: SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms, "
+                           "against kernels_bwd_ms, 18 + 19)" + (
+                               "; max_abs_err is the output's abs error" if key == "fwd" else
+                               "; max_abs_err is relative to the gradient's largest magnitude"))
         del q, k, v, do, o, m, l, di, dk, dv, dq, bwd
         torch.cuda.empty_cache()
     # the sliced instances' entries: bf16 and f16 at head_dim 384 and 512
@@ -3254,6 +3266,59 @@ def flash_train_kernels(dev, entry):
                "SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms, against kernels_bwd_ms, 18 + 19); "
                "max_abs_err is relative to the gradient's largest magnitude")
 
+    # the forward's streamed instance: bf16 at hd 640 in the line, bf16 and
+    # f16 at 640, 768 and 1024 beside it, each with the wide forward's time
+    # and SDPA's on the same tensors
+    def shape_of(r):
+        return [r["B"], r["T"], r["H"], r["KVH"], r["hd"]]
+
+    def beside(r, key, **more):
+        return {"dtype": r["dtype"], "shape": shape_of(r), **r[key], "errs": r["errs"],
+                "sdpa_fwd_ms": r["sdpa"]["fwd_ms"], "sdpa_bwd_ms": r["sdpa"]["bwd_ms"], **more}
+
+    streamed = [r for r in out if r["family"]["fwd"].endswith("_streamed")]
+    main_s = next(r for r in streamed if (r["dtype"], r["hd"]) == ("bfloat16", 640))
+    nb, ops = flash_causal_work(*shape_of(main_s))["fwd"]
+    entry("flash_attention_causal_fwd_streamed", main_s["fwd"]["ms"], main_s["fwd"]["plain_ms"],
+          main_s["sdpa"]["fwd_ms"], nb, ops, PEAK_BF16_FLOPS, main_s["errs"]["o_abs"], shape=shape_of(main_s),
+          dtype="bfloat16", wide_ms=main_s["fwd"]["wide_ms"],
+          instances=[beside(r, "fwd", over_wide=r["fwd"]["wide_ms"] / r["fwd"]["ms"],
+                            over_sdpa=r["sdpa"]["fwd_ms"] / r["fwd"]["ms"] if r["sdpa"]["fwd_ms"] else None)
+                     for r in streamed],
+          note="kernel 17's bf16 / f16 instance from head_dim 640: a block 64 query rows of one head and at most 256 "
+               "of o's columns, S = Q K^T on wgmma over all of hd from 64-column chunks of K streamed through a "
+               "ring (Q resident up to hd 1024), O += P V on wgmma over the block's V slice; device ms, host held "
+               "out, L2 flushed; wide_ms is the wide family's forward, which took these shapes before, on the same "
+               "tensors; library_ms is SDPA is_causal's forward; max_abs_err is the output's abs error")
+    # the wide family where the route sends it: f32 at hd 512 in the line
+    # (its launches come from 5l's f32 step there), f32 at 384 and the 16-bit
+    # dK/dV and dQ from 640 beside it (and the 16-bit forward there through
+    # its C entry, which the route no longer takes); hd128_ms is its time
+    # through its C entry on the TF32 row's tensors (4r's attention shape)
+    wide32 = {r["hd"]: r for r in out if r["dtype"] == "float32" and r["hd"] in (384, 512)}
+    at128 = next(r for r in out if r["dtype"] == "float32" and (r["T"], r["hd"], r["H"]) == (2048, 128, 32))
+    for key in FLASH_KERNELS:
+        main_w = wide32[512]
+        nb, ops = flash_causal_work(*shape_of(main_w), 4)[key]
+        others = [beside(wide32[384], key)] + [
+            beside(r, key) if key != "fwd" else
+            {"dtype": r["dtype"], "shape": shape_of(r), "ms": r["fwd"]["wide_ms"], "bound_ms": r["fwd"]["bound_ms"],
+             "bound_share": r["fwd"]["wide_bound_share"], "errs": r["fwd"]["wide_errs"],
+             "sdpa_fwd_ms": r["sdpa"]["fwd_ms"], "through": "its C entry"} for r in streamed]
+        entry(FA._BASE_NAMES[key] + "_wide", main_w[key]["ms"], main_w[key]["plain_ms"],
+              main_w["sdpa"]["fwd_ms"] if key == "fwd" else None, nb, ops, PEAK_F32_FLOPS,
+              flash_err(main_w["errs"], key), shape=shape_of(main_w), dtype="float32",
+              tf32x3_bound_ms=main_w[key]["tf32x3_bound_ms"], sdpa_bwd_ms=main_w["sdpa"]["bwd_ms"],
+              kernels_bwd_ms=main_w["bwd_ms"], hd128_ms=at128[key]["wide_ms"], instances=others,
+              note="the wide family (CUDA cores, f32 FMA) where the route sends it: f32 at head_dim 384 and up, "
+                   "bf16 / f16 dK/dV and dQ from 640; device ms, host held out, L2 flushed; bound_ms is the f32 "
+                   "FMA rate (67 TFLOP/s; the 16-bit instances' bounds at 989); launches from 5l's f32 step at "
+                   "head_dim 512; " + (
+                       "library_ms is SDPA is_causal's f32 forward; max_abs_err is the output's abs error"
+                       if key == "fwd" else
+                       "library_ms is null: SDPA's backward is one call for dq, dk and dv (sdpa_bwd_ms); "
+                       "max_abs_err is relative to the gradient's largest magnitude"))
+
     # more than one sequence and T off a power of two: each kernel against its
     # plain version at 3p's tolerances, untimed (inputs from a generator of
     # their own); each plan splits key tiles, so the combine runs in each type
@@ -3261,13 +3326,13 @@ def flash_train_kernels(dev, entry):
     for dt, B, T, H, KVH, hd in ((bf16, 2, 1152, 8, 2, 128), (bf16, 3, 640, 2, 1, 256), (f16, 3, 640, 2, 1, 256),
                                  (f32, 2, 1152, 8, 2, 128), (bf16, 2, 640, 4, 2, 384), (f16, 2, 640, 4, 2, 512),
                                  (bf16, 1, 640, 2, 1, 640), (f16, 1, 640, 2, 1, 640), (f32, 2, 640, 4, 2, 384),
-                                 (f32, 1, 640, 2, 1, 512)):
+                                 (f32, 1, 640, 2, 1, 512), (bf16, 2, 640, 4, 2, 1152)):
         q, k, v, do = flash_inputs(dev, gen_b, B, T, H, KVH, hd, dt)
         what = f"3p batched {str(dt)[6:]} B{B} T{T} H{H} KVH{KVH} hd{hd}"
         _lib.reset_launch_counts()
         o, m, l = FA.flash_attention_causal_fwd(q, k, v)
         assert _lib.launch_counts()[flash_names(dt, hd)[0]] == 1, what
-        if FA.uses_tf32("fwd", dt, hd):  # kernel 17's TF32 instance on a GQA batch
+        if FA.uses_tf32("fwd", dt, hd) or hd >= 640:  # kernel 17's TF32 and streamed instances on batches
             again = FA.flash_attention_causal_fwd(q, k, v)
             assert all(torch.equal(a, b) for a, b in zip(again, (o, m, l))), \
                 f"{what}: the forward differs from run to run"
@@ -3325,11 +3390,13 @@ def flash_train_kernels(dev, entry):
     flash_kernels = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
     wide_kernels = ("flash_wide_fwd_kernel", "flash_wide_dkv_kernel", "flash_wide_dq_kernel")
     tf32_kernels = ("flash_tf32_fwd_kernel", "flash_tf32_dkv_kernel", "flash_tf32_dq_kernel")
+    streamed_kernels = ("flash_streamed_fwd_kernel",)
+    all_kernels = flash_kernels + wide_kernels + tf32_kernels + streamed_kernels
     sass, wg_sass, fn = sass_of(_lib.build()), {}, None
     for line in (sass or "").splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            fn = fn if any(k in fn for k in flash_kernels + wide_kernels + tf32_kernels) else None
+            fn = fn if any(k in fn for k in all_kernels) else None
             if fn:
                 wg_sass[fn] = {"HGMMA": 0, "UTMALDG": 0, "STL": 0, "FFMA": 0, "HMMA": 0, "HGMMA_TF32": 0}
         elif fn:
@@ -3359,8 +3426,12 @@ def flash_train_kernels(dev, entry):
         assert sass is None or (len(inst) == 2 and all(c["HGMMA"] and c["HGMMA"] == c["HGMMA_TF32"] and c["UTMALDG"]
                                                        and not c["STL"] for c in inst.values())), \
             f"3p {kern} SASS {inst}"
+    # kernel 17's streamed instances (bf16, f16 from hd 640): wgmma, TMA loads, no local stores
+    inst = {n: c for n, c in wg_sass.items() if streamed_kernels[0] in n}
+    assert sass is None or (len(inst) == 2 and all(c["HGMMA"] and c["UTMALDG"] and not c["STL"] and not c["HGMMA_TF32"]
+                                                   for c in inst.values())), f"3p streamed SASS {inst}"
     emit("flash_train_kernels", shapes=out, batched=batched, threshold_sweep=sweep, sass=wg_sass,
-         registers=registers_of(_lib.build(), flash_kernels + wide_kernels + tf32_kernels),
+         registers=registers_of(_lib.build(), all_kernels),
          route_line={"T_min": 1024, "note": "the JAX package's line (_flash_ok), kept"})
     return out
 
@@ -3518,12 +3589,13 @@ def flash_qlora(params, dev, rank=64, alpha=16.0, chunk=512, steps=5):
 
 def flash_cpu_check(dev, dtype=None, hd=128):
     """5l: a 2-layer Llama (bf16 unless ``dtype`` says; hidden 512, H 4 over
-    2 KV heads, hd 128, or at ``hd`` 512 hidden 1024, H 2 over 1 KV head;
-    fused NF4, rank-8 adapters on all seven targets, ``b`` non-zero) at T
-    1024: ``lm_loss`` and its adapter gradients through kernels 17-19 on the
-    card (the wgmma kernels in bf16 and f16; in f32 the TF32 forward, dK/dV
-    and dQ at hd 128, the wide family at hd 512; at hd 512 in 16
-    bits their sliced wgmma instances)
+    2 KV heads, hd 128, or at a wider ``hd`` H 2 over 1 KV head, hidden 2
+    hd; fused NF4, rank-8 adapters on all seven targets, ``b`` non-zero) at
+    T 1024: ``lm_loss`` and its adapter gradients through kernels 17-19 on
+    the card (the wgmma kernels in bf16 and f16; in f32 the TF32 forward,
+    dK/dV and dQ at hd 128, the wide family at hd 512; at hd 512 in 16
+    bits their sliced wgmma instances; at hd 640 in 16 bits the forward's
+    streamed instance, dK/dV and dQ on the wide family)
     against the CPU port through their plain versions (the CPU's route
     patched to the flash one), the loss within rel 1e-3, the gradients
     within rtol 2e-2 / atol 2e-3; the card's launches 2 of each kernel the
@@ -3534,7 +3606,7 @@ def flash_cpu_check(dev, dtype=None, hd=128):
     from bitsandbytes_tpu_torch.models import llama as L
     from bitsandbytes_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    hidden, heads, kv_heads = (512, 4, 2) if hd == 128 else (1024, 2, 1)
+    hidden, heads, kv_heads = (512, 4, 2) if hd == 128 else (2 * hd, 2, 1)
     cfg = L.LlamaConfig(vocab_size=1024, hidden_size=hidden, intermediate_size=1024, num_layers=2, num_heads=heads,
                         num_kv_heads=kv_heads, head_dim=hd, dtype=dtype or torch.bfloat16)
     names = flash_names(cfg.dtype, cfg.head_dim)
@@ -3565,7 +3637,8 @@ def flash_cpu_check(dev, dtype=None, hd=128):
     assert all(counts.get(n) == cfg.num_layers for n in names), f"5l launches {counts}"
     others = FLASH_TRAIN + FLASH_TRAIN_WIDE + ("flash_attention_causal_fwd_sliced",
                                                "flash_attention_causal_bwd_dkv_sliced",
-                                               "flash_attention_causal_bwd_dq_sliced") + FLASH_TF32
+                                               "flash_attention_causal_bwd_dq_sliced",
+                                               "flash_attention_causal_fwd_streamed") + FLASH_TF32
     assert not any(counts.get(n) for n in others if n not in names), f"5l launches {counts}"
     combines = cfg.num_layers * dkv_combines(dev, 1, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     assert counts.get("flash_attention_causal_bwd_dkv_combine", 0) == combines, f"5l launches {counts}"
@@ -7104,6 +7177,10 @@ def main() -> int:
         if name in ("flash_attention_causal_fwd_sliced", "flash_attention_causal_bwd_dkv_sliced",
                     "flash_attention_causal_bwd_dq_sliced"):
             report[name]["launches"] = n
+    # and in bf16 at head_dim 640: the forward's streamed instance (its
+    # kernels-line launches), dK/dV and dQ on the wide family
+    counts_640 = flash_cpu_check(dev, torch.bfloat16, hd=640)
+    report["flash_attention_causal_fwd_streamed"]["launches"] = counts_640.get("flash_attention_causal_fwd_streamed")
     # kernel 18's combine runs where its plan splits key tiles: 5l's T 1024, not 4r's T 2048
     combine = "flash_attention_causal_bwd_dkv_combine"
     report[combine]["launches"] = counts_5l.get(combine)

@@ -1,5 +1,6 @@
-"""What the TF32 flash attention A/B scripts share (``ab_flash_fwd_tf32_torch.py``,
-``ab_flash_dkv_tf32_torch.py``, ``ab_flash_dq_tf32_torch.py``): their
+"""What the TF32 and streamed flash attention A/B scripts share
+(``ab_flash_fwd_tf32_torch.py``, ``ab_flash_dkv_tf32_torch.py``,
+``ab_flash_dq_tf32_torch.py``, ``ab_flash_fwd_streamed_torch.py``): their
 arguments, the text edits of a variant, the builds of ``csrc/flash_attention.cu``
 with ``nvcc -Xptxas -v`` (one library each, all started at once), ptxas's notes
 and the SASS counts of the instance under test, and each instance's SASS
@@ -21,6 +22,8 @@ CSRC = os.path.join(ROOT, "bitsandbytes_tpu_torch", "csrc")
 TEMPLATED = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel", "flash_tf32_dkv_kernel",
              "flash_tf32_dq_kernel", "flash_tf32_fwd_kernel")
 WIDE = ("flash_wide_fwd_kernel", "flash_wide_dkv_kernel", "flash_wide_dq_kernel")
+# the instances that take hd at run time: told apart by type alone
+RUNTIME_HD = ("flash_streamed_fwd_kernel",)
 
 
 def parser(variants) -> argparse.ArgumentParser:
@@ -53,16 +56,23 @@ def emit(tag: str, **fields) -> None:
 
 
 def instance(name: str):
-    """(kernel, type, hd) of a 16-bit wgmma instance, TF32 instance or
-    wide-family kernel by mangled name, else None."""
+    """(kernel, type, hd) of a 16-bit wgmma instance, TF32 instance,
+    streamed instance or wide-family kernel by mangled name (hd 0 where the
+    kernel takes it at run time), else None."""
     for kern in TEMPLATED:
         m = re.search(kern + r"ILi(\d+)E", name)
         if m:
             return kern, "f32" if "tf32" in kern else "bf16" if "bfloat16" in name else "f16", int(m.group(1))
-    for kern in WIDE:
+    for kern in WIDE + RUNTIME_HD:
         if kern in name:
             return kern, "f32" if "IfE" in name else "bf16" if "bfloat16" in name else "f16", 0
     return None
+
+
+def label(inst) -> str:
+    """An instance's key in a build's report: its hd, or its type where the
+    kernel takes hd at run time."""
+    return f"hd{inst[2]}" if inst[2] else inst[1]
 
 
 def build(nvcc, flags, out, name, csrc_dir, edits=(None, None), trapped=False):
@@ -100,7 +110,7 @@ def finish(nvcc, name, d, proc, signatures, new):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             inst = instance(m.group(1))
-            key = f"hd{inst[2]}" if inst and inst[0] == new else None
+            key = label(inst) if inst and inst[0] == new else None
         elif key and ("spill" in line or "Used" in line):
             ptxas.setdefault(key, []).append(line.split(":", 1)[-1].strip())
         if "(C75" in line:
@@ -118,13 +128,13 @@ def finish(nvcc, name, d, proc, signatures, new):
             if fn:
                 bodies[fn] = []
                 if fn[0] == new:
-                    counts[f"hd{fn[2]}"] = {"HGMMA": 0, "HGMMA_TF32": 0, "UTMALDG": 0, "STL": 0}
+                    counts[label(fn)] = {"HGMMA": 0, "HGMMA_TF32": 0, "UTMALDG": 0, "STL": 0}
         elif fn and "/*" in line:
             ins = re.sub(r"/\*[0-9a-fx]+\*/", "", line.split(";")[0]).strip()
             if ins:
                 bodies[fn].append(ins)
             if fn[0] == new:
-                c = counts[f"hd{fn[2]}"]
+                c = counts[label(fn)]
                 for op in ("HGMMA", "UTMALDG", "STL"):
                     c[op] += f" {op}" in line
                 c["HGMMA_TF32"] += " HGMMA" in line and ".TF32" in line

@@ -1,5 +1,5 @@
 """The causal flash attention of the training path in f16 and f32 and at
-head_dim 384 and 512, the port against the JAX package, on the CPU.
+head_dim 384 to 768, the port against the JAX package, on the CPU.
 
 The JAX side is ``models/llama._flash_attention_causal``, the upstream Pallas
 TPU flash kernel (forward, dK/dV and dQ) in interpret mode under
@@ -53,9 +53,11 @@ torch.set_num_threads(1)
 
 KVH = 2
 # (dtype, T, hd, G): f16 and f32 at head_dim 128 and 256, bf16 and f16 at
-# 384 and 512 (the sliced wgmma instances of all three kernels on the card)
+# 384 and 512 (the sliced wgmma instances of all three kernels on the card),
+# and at 640 and 768 (the forward's streamed instance, the wide dK/dV and dQ)
 CASES = [("float16", 256, 128, 2), ("float16", 256, 256, 1), ("float32", 256, 128, 2), ("float32", 384, 256, 1),
-         ("bfloat16", 256, 384, 2), ("float16", 256, 512, 1), ("float16", 256, 384, 1), ("bfloat16", 256, 512, 2)]
+         ("bfloat16", 256, 384, 2), ("float16", 256, 512, 1), ("float16", 256, 384, 1), ("bfloat16", 256, 512, 2),
+         ("bfloat16", 256, 640, 2), ("float16", 256, 768, 1)]
 # (output abs, gradient relative to its largest magnitude)
 TOLERANCES = {"bfloat16": (8e-3, 1.5e-2), "float16": (8e-3, 5e-3), "float32": (1e-5, 1e-4)}
 TORCH_TYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
@@ -183,9 +185,11 @@ def test_bf16_hd512_train_step_loss_matches_jax(flash_route):
     assert all(t.grad is not None and t.grad.dtype == t.dtype for t in TL.lora_parameters(tlora))
 
 
-# the head_dims each kernel takes on wgmma in bf16 and f16, and on
-# three-pass TF32 wgmma in f32 (the wide family takes the rest)
+# the head_dims each kernel takes on wgmma in bf16 and f16 (the forward also
+# every multiple of 128 from 640, its streamed instance), and on three-pass
+# TF32 wgmma in f32 (the wide family takes the rest)
 WGMMA = {"fwd": (128, 256, 384, 512), "dkv": (128, 256, 384, 512), "dq": (128, 256, 384, 512)}
+STREAMED = (640, 768, 896, 1024)
 TF32 = {"fwd": (128, 256), "dkv": (128, 256), "dq": (128, 256)}
 
 
@@ -196,15 +200,16 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
     the cases the JAX package's ``_flash_ok`` conditions send to its flash
     kernel, its backend check aside; each kernel of an accepted case has one
     family: all three run on wgmma for bf16 and f16 at head_dim 128, 256,
-    384 and 512, and on TF32 wgmma for f32 at 128 and 256, and the wide
-    family takes the rest.  Each kernel counts its launches under a name of
-    the library's counts that shows which ran: ``_sliced`` for the wgmma
-    instances at 384 and 512, ``_tf32`` for the TF32 instances, ``_wide``
-    for the wide family."""
+    384 and 512, the forward also from 640, and on TF32 wgmma for f32 at 128
+    and 256, and the wide family takes the rest.  Each kernel counts its
+    launches under a name of the library's counts that shows which ran:
+    ``_sliced`` for the wgmma instances at 384 and 512, ``_streamed`` for the
+    forward's from 640, ``_tf32`` for the TF32 instances, ``_wide`` for the
+    wide family."""
     tt = TORCH_TYPES[dtype]
     cfg = JL.LlamaConfig.tiny()
     for T in (1024, 1088, 1152, 2048, 4096):
-        for hd in (64, 96, 128, 192, 256, 320, 384, 512, 640):
+        for hd in (64, 96, 128, 192, 256, 320, 384, 512, 640, 768, 896, 1024):
             q = torch.empty(1, T, 4, hd, dtype=tt, device="meta")
             k = torch.empty(1, T, 2, hd, dtype=tt, device="meta")
             try:
@@ -216,7 +221,8 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
             assert took == _jax_flash_ok(cfg, T, hd), (dtype, T, hd)
             if took:
                 for kernel, dims in WGMMA.items():
-                    wgmma = tt != torch.float32 and hd in dims
+                    streamed = tt != torch.float32 and kernel == "fwd" and hd in STREAMED
+                    wgmma = tt != torch.float32 and hd in dims or streamed
                     tf32 = tt == torch.float32 and hd in TF32[kernel]
                     assert FA.uses_wgmma(kernel, tt, hd) == wgmma, (kernel, dtype, hd)
                     assert FA.uses_tf32(kernel, tt, hd) == tf32, (kernel, dtype, hd)
@@ -224,22 +230,27 @@ def test_cuda_checks_take_what_the_jax_route_takes(dtype):
                     assert name in _lib.LAUNCHES, name
                     assert name.endswith("_wide") == (not wgmma and not tf32), (kernel, dtype, hd, name)
                     assert name.endswith("_tf32") == tf32, (kernel, dtype, hd, name)
-                    assert name.endswith("_sliced") == (wgmma and hd > 256), (kernel, dtype, hd, name)
+                    assert name.endswith("_sliced") == (wgmma and 256 < hd <= 512), (kernel, dtype, hd, name)
+                    assert name.endswith("_streamed") == streamed, (kernel, dtype, hd, name)
 
 
-@pytest.mark.parametrize("hd", [128, 256, 384, 512, 640])
+@pytest.mark.parametrize("hd", [128, 256, 384, 512, 640, 768, 896, 1024])
 @pytest.mark.parametrize("dtype", list(TORCH_TYPES))
 @pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
 def test_launch_names_map_to_c_entries(kernel, dtype, hd):
     """Each launch count a wrapper adds to (``launch_name``) names, through
     ``c_entry``, a C entry the library binds: a ``_sliced`` instance runs
-    through its kernel's plain entry, a ``_tf32`` one through its own, a
-    ``_wide`` one through the wide family's.  A name that maps to no entry would fail only on the card, at
-    the first launch of that type and head_dim."""
+    through its kernel's plain entry, a ``_streamed`` or ``_tf32`` one
+    through its own, a ``_wide`` one through the wide family's.  A name that
+    maps to no entry would fail only on the card, at the first launch of that
+    type and head_dim.  From head_dim 640 the 16-bit forward is the streamed
+    instance, dK/dV and dQ the wide family's."""
     tt = TORCH_TYPES[dtype]
     name = FA.launch_name(kernel, tt, hd)
     entry = FA.c_entry(name)
     assert entry in _lib._SIGNATURES, (name, entry)
     wgmma, tf32 = FA.uses_wgmma(kernel, tt, hd), FA.uses_tf32(kernel, tt, hd)
-    suffix = "" if wgmma else "_tf32" if tf32 else "_wide"
+    suffix = ("_streamed" if hd >= 640 else "") if wgmma else "_tf32" if tf32 else "_wide"
+    if tt != torch.float32 and hd >= 640:
+        assert name == FA._BASE_NAMES[kernel] + ("_streamed" if kernel == "fwd" else "_wide"), name
     assert entry == "bnb_" + FA._BASE_NAMES[kernel] + suffix, (name, entry)

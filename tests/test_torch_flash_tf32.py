@@ -24,8 +24,9 @@ so the gate tells the two apart.
 
 Also the route (the f32 forward, dK/dV and dQ at 128 and 256 count and
 launch as ``..._tf32``; 384 and up stay on the wide family) and that a
-failing launch of any of the three instances raises instead of falling back
-to the wide kernel.
+failing launch of any of the three instances, or of the 16-bit forward's
+streamed instance (head_dim 640 and up), raises instead of falling back to
+the wide kernel.
 """
 
 import numpy as np
@@ -319,7 +320,8 @@ def test_f32_dq_route(hd):
 def test_f32_fwd_route(hd):
     """The f32 forward at head_dim 128 and 256 counts and launches as
     ``_tf32`` through a C entry the library binds; from 384 it stays on the
-    wide family; the 16-bit forward never takes the TF32 instance."""
+    wide family; the 16-bit forward never takes the TF32 instance, and at
+    640 takes its streamed ``wgmma`` instance, not the wide family."""
     f32 = torch.float32
     name = FA.launch_name("fwd", f32, hd)
     entry = FA.c_entry(name)
@@ -330,6 +332,8 @@ def test_f32_fwd_route(hd):
     for dt in (torch.bfloat16, torch.float16):
         assert not FA.uses_tf32("fwd", dt, hd)
         assert not FA.launch_name("fwd", dt, hd).endswith("_tf32")
+        assert FA.uses_wgmma("fwd", dt, hd)
+        assert FA.launch_name("fwd", dt, hd).endswith("_streamed") == (hd == 640)
 
 
 class _FailingLib:
@@ -405,4 +409,22 @@ def test_failed_tf32_fwd_launch_raises_without_fallback(monkeypatch, T, hd, G):
     with pytest.raises(RuntimeError, match="flash_attention_causal_fwd_tf32"):
         FA.flash_attention_causal_fwd(q, k, v)
     assert lib.called == ["tf32"]
+    assert not any(_lib.launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 640), (torch.float16, 1024)])
+def test_failed_streamed_fwd_launch_raises_without_fallback(monkeypatch, dtype, hd):
+    """A launch error of the 16-bit forward's streamed instance raises from
+    the wrapper: the call never goes on to the wide kernel or the plain
+    version, and counts no launch."""
+    lib = _FailingLib("bnb_flash_attention_causal_fwd_streamed")
+    q, k, v = (torch.randn(1, 128, n, hd).to(dtype) for n in (2, 1, 1))
+    monkeypatch.setattr(FA, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(FA._lib, "lib", lambda: lib)
+    monkeypatch.setattr(FA._lib, "stream", lambda t: 0)
+    monkeypatch.setattr(FA, "flash_attention_causal_fwd_plain", lambda *a: pytest.fail("fell back"))
+    _lib.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="flash_attention_causal_fwd_streamed"):
+        FA.flash_attention_causal_fwd(q, k, v)
+    assert lib.called == ["tf32"]  # the failing entry, and no other
     assert not any(_lib.launch_counts().values())
